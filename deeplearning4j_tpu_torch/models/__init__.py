@@ -1,0 +1,1 @@
+"""models subpackage of the PyTorch/CUDA port (see the package docstring)."""

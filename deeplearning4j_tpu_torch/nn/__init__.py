@@ -1,0 +1,1 @@
+"""nn subpackage of the PyTorch/CUDA port (see the package docstring)."""

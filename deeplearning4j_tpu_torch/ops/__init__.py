@@ -1,0 +1,1 @@
+"""ops subpackage of the PyTorch/CUDA port (see the package docstring)."""

@@ -1,0 +1,154 @@
+"""Build and load the port's CUDA kernels (plain C interface + ctypes).
+
+Each ``deeplearning4j_tpu_torch/csrc/<name>.cu`` is compiled on its own by
+``nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
+-Xcompiler -fPIC`` into ``build/torch_kernels/<name>-<hash>.so`` at the
+root of the checkout (git-ignored). The hash covers the source, the
+shared headers and the flags, so an edited source rebuilds at its next
+use and an unchanged one loads the library already built. A build that
+fails raises with nvcc's stderr.
+
+Libraries are built at first use (`load`), never at import: the CPU
+tests import every module of the package on machines with no nvcc.
+`build_all` starts one nvcc per source at once, for callers that want
+every kernel ready up front (the chip smoke run).
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+from typing import Dict
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC"]
+
+# element-type codes of the C interface (csrc/common.cuh DType)
+DTYPE_F32, DTYPE_F16, DTYPE_BF16 = 0, 1, 2
+
+# name -> C entry point and its argument types (pointers and the stream
+# as c_void_p, so no pointer is ever cut to 32 bits)
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+SIGNATURES = {
+    "flash_fwd": ("dl4j_flash_fwd",
+                  [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _I,
+                   _I, _P]),
+    "decode_attention": ("dl4j_decode_attention",
+                         [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F,
+                          _P]),
+}
+
+_loaded: Dict[str, ctypes._CFuncPtr] = {}
+build_seconds: Dict[str, float] = {}
+
+
+def nvcc_path() -> str:
+    for cand in (os.environ.get("CUDA_HOME"), os.environ.get("CUDA_PATH")):
+        if cand and os.path.exists(os.path.join(cand, "bin", "nvcc")):
+            return os.path.join(cand, "bin", "nvcc")
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    if os.path.exists("/usr/local/cuda/bin/nvcc"):
+        return "/usr/local/cuda/bin/nvcc"
+    raise RuntimeError("nvcc not found (set CUDA_HOME): the port's CUDA "
+                       "kernels are built from csrc/ at first use")
+
+
+def _digest(name: str) -> str:
+    h = hashlib.sha256()
+    h.update((CSRC / f"{name}.cu").read_bytes())
+    for hdr in sorted(CSRC.glob("*.cuh")):
+        h.update(hdr.name.encode())
+        h.update(hdr.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return h.hexdigest()[:16]
+
+
+def library_path(name: str) -> Path:
+    return BUILD_DIR / f"{name}-{_digest(name)}.so"
+
+
+def _start(name: str, verbose: bool):
+    """Spawn nvcc for one source into a temporary file; returns
+    (process, tmp, final) or None when the library is already built.
+    ``verbose`` adds ``-Xptxas -v`` (register / shared-memory report),
+    which does not change the binary."""
+    out = library_path(name)
+    if out.exists():
+        return None
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    extra = ["-Xptxas", "-v"] if verbose else []
+    cmd = [nvcc_path(), *NVCC_FLAGS, *extra, "-o", str(tmp),
+           str(CSRC / f"{name}.cu")]
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True)
+    return proc, tmp, out
+
+
+def _finish(name: str, started, t0: float) -> str:
+    """Wait for one nvcc; publish its library atomically. Returns the
+    compiler's stderr (ptxas reports when -Xptxas -v was passed)."""
+    if started is None:
+        return ""
+    proc, tmp, out = started
+    _, err = proc.communicate()
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"nvcc failed to build csrc/{name}.cu "
+                           f"(exit {proc.returncode}):\n{err}")
+    os.replace(tmp, out)
+    build_seconds[name] = time.perf_counter() - t0
+    return err
+
+
+def build_all(verbose: bool = False) -> Dict[str, str]:
+    """Build every kernel source in parallel (one nvcc each, all started
+    together). Returns {name: nvcc stderr}."""
+    t0 = time.perf_counter()
+    started = {n: _start(n, verbose) for n in SIGNATURES}
+    return {n: _finish(n, s, t0) for n, s in started.items()}
+
+
+def load(name: str) -> ctypes._CFuncPtr:
+    """The C entry point of kernel ``name``, built first if needed."""
+    fn = _loaded.get(name)
+    if fn is not None:
+        return fn
+    _finish(name, _start(name, False), time.perf_counter())
+    lib = ctypes.CDLL(str(library_path(name)))
+    sym, argtypes = SIGNATURES[name]
+    fn = getattr(lib, sym)
+    fn.argtypes = argtypes
+    fn.restype = ctypes.c_int
+    _loaded[name] = fn
+    return fn
+
+
+def dtype_code(dtype) -> int:
+    import torch
+    codes = {torch.float32: DTYPE_F32, torch.float16: DTYPE_F16,
+             torch.bfloat16: DTYPE_BF16}
+    if dtype not in codes:
+        raise TypeError(f"CUDA kernels take float32, float16 or bfloat16, "
+                        f"got {dtype}")
+    return codes[dtype]
+
+
+def check(err: int, what: str) -> None:
+    """Raise on a non-zero cudaError_t returned by a launch."""
+    if err != 0:
+        raise RuntimeError(f"{what}: CUDA launch failed with cudaError_t "
+                           f"{err}")
+
+
+def stream_ptr(device) -> int:
+    import torch
+    return torch.cuda.current_stream(device).cuda_stream

@@ -1,0 +1,1 @@
+"""parallel subpackage of the PyTorch/CUDA port (see the package docstring)."""

@@ -1,0 +1,1 @@
+"""serving subpackage of the PyTorch/CUDA port (see the package docstring)."""

@@ -1,0 +1,190 @@
+"""Port parity: attention ops of deeplearning4j_tpu_torch vs the JAX package.
+
+Same numpy inputs (fixed seeds) go through the JAX function and through
+the port's plain PyTorch twin on the CPU. The flash forward runs JAX's
+Pallas kernel in interpret mode, as tests/test_flash_attention.py does;
+decode attention runs JAX's plain reference path
+(`reference_decode_attention`, what `decode_attention` dispatches to off
+the TPU), because the Pallas decode kernel does not trace in interpret
+mode on this JAX version (tests/test_flash_decode.py fails the same
+way). Tolerances: float32 1e-5 (the same f32 math summed in another
+order), float64 1e-12.
+
+The kernels themselves are held against these plain twins on the card by
+tests/test_torch_kernels.py and chip_smoke.py.
+"""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax.numpy as jnp  # noqa: E402
+
+from deeplearning4j_tpu.nn.layers import attention as jattn  # noqa: E402
+from deeplearning4j_tpu.ops import flash_decode as jdec  # noqa: E402
+from deeplearning4j_tpu.ops.flash_attention import \
+    _flash_forward  # noqa: E402
+
+from deeplearning4j_tpu_torch.nn.layers import attention as tattn  # noqa
+from deeplearning4j_tpu_torch.ops import flash_attention as tfa  # noqa
+from deeplearning4j_tpu_torch.ops import flash_decode as tdec  # noqa
+
+F32 = dict(rtol=0, atol=1e-5)
+F64 = dict(rtol=0, atol=1e-12)
+
+
+@pytest.fixture()
+def interpret_mode(monkeypatch):
+    monkeypatch.setenv("DL4JTPU_FLASH", "interpret")
+
+
+def _rand(shape, seed, dtype=np.float32):
+    return np.random.default_rng(seed).normal(size=shape).astype(dtype)
+
+
+# ---------------------------------------------------------------------------
+# flash forward: plain twin vs JAX's Pallas kernel (interpret) -> (o, m, logl)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("causal,tq,sk,qo,ko", [
+    (True, 128, 128, 0, 0),        # causal self-attention
+    (False, 64, 96, 0, 0),         # full attention, S != T
+    (True, 64, 128, 64, 0),        # q block after the kv block
+    (True, 64, 64, 0, 32),         # kv_offset > q_offset: masked rows
+    (True, 100, 100, 0, 0),        # T not a multiple of 128
+    (True, 200, 200, 0, 0),        # ragged past one 128 tile
+])
+def test_flash_forward_plain_matches_jax(causal, tq, sk, qo, ko):
+    bh, dh = 3, 16
+    q, k, v = (_rand((bh, n, dh), s) for s, n in ((0, tq), (1, sk),
+                                                  (2, sk)))
+    scale = dh ** -0.5
+    jo, jm, jl = _flash_forward(jnp.asarray(q), jnp.asarray(k),
+                                jnp.asarray(v), scale, causal, qo, ko,
+                                interpret=True)
+    o, m, logl = tfa.flash_forward_reference(
+        torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
+        scale, causal, qo, ko)
+    np.testing.assert_allclose(o.numpy(), np.asarray(jo), **F32)
+    np.testing.assert_allclose(m.numpy(), np.asarray(jm), **F32)
+    np.testing.assert_allclose(logl.numpy(), np.asarray(jl), **F32)
+    if ko > qo:   # the first rows see no key at all: uniform average
+        np.testing.assert_allclose(m.numpy()[:, 0, 0], -1e30, rtol=1e-6)
+        np.testing.assert_allclose(logl.numpy()[:, 0, 0], np.log(sk),
+                                   **F32)
+
+
+def test_flash_attention_layout_matches_reference_attention():
+    """[B, T, H, Dh] wrapper == the [B*H, T, Dh] plain reference."""
+    b, t, h, dh = 2, 70, 4, 16
+    q, k, v = (_rand((b, t, h, dh), s) for s in (3, 4, 5))
+    tq, tk, tv = (torch.from_numpy(x) for x in (q, k, v))
+    got = tfa.flash_attention(tq, tk, tv, causal=True)
+    to3 = lambda x: x.permute(0, 2, 1, 3).reshape(b * h, t, dh)  # noqa
+    want = tfa._reference_attention(to3(tq), to3(tk), to3(tv),
+                                    dh ** -0.5, True, 0, 0)
+    np.testing.assert_allclose(
+        got.permute(0, 2, 1, 3).reshape(b * h, t, dh).numpy(),
+        want.numpy(), **F32)
+
+
+def test_flash_forward_refuses_gradients():
+    q = torch.zeros(1, 8, 16, requires_grad=True)
+    with pytest.raises(NotImplementedError, match="queue B #2"):
+        tfa.flash_forward(q, q, q, 0.25, True)
+
+
+# ---------------------------------------------------------------------------
+# decode attention: plain twin vs JAX's plain reference path
+# ---------------------------------------------------------------------------
+
+def _decode_inputs(b=4, h=4, dh=16, s=128, layers=None, seed=0):
+    d = h * dh
+    shape = (b, s, d) if layers is None else (layers, b, s, d)
+    return (_rand((b, h, dh), seed), _rand(shape, seed + 1),
+            _rand(shape, seed + 2))
+
+
+@pytest.mark.parametrize("pos", [0, 77, 127, [0, 5, 127, 64]])
+def test_decode_attention_matches_jax(pos):
+    q, k, v = _decode_inputs()
+    jpos = jnp.asarray(pos, jnp.int32)
+    want = jdec.reference_decode_attention(jnp.asarray(q), jnp.asarray(k),
+                                           jnp.asarray(v), jpos, n_heads=4)
+    tpos = torch.tensor(pos, dtype=torch.int32) if isinstance(pos, list) \
+        else pos
+    got = tdec.decode_attention(torch.from_numpy(q), torch.from_numpy(k),
+                                torch.from_numpy(v), tpos, n_heads=4)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **F32)
+
+
+@pytest.mark.parametrize("layer", [0, 2])
+def test_decode_attention_stacked_layer_matches_jax(layer):
+    q, k, v = _decode_inputs(layers=3, seed=7)
+    pos = [3, 127, 0, 90]
+    want = jdec.decode_attention(jnp.asarray(q), jnp.asarray(k),
+                                 jnp.asarray(v),
+                                 jnp.asarray(pos, jnp.int32), n_heads=4,
+                                 layer=layer)
+    got = tdec.decode_attention(torch.from_numpy(q), torch.from_numpy(k),
+                                torch.from_numpy(v),
+                                torch.tensor(pos, dtype=torch.int32),
+                                n_heads=4, layer=layer)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **F32)
+
+
+def test_decode_attention_refuses_quantized_kv():
+    q, k, v = (torch.from_numpy(x) for x in _decode_inputs())
+    with pytest.raises(NotImplementedError, match="A4"):
+        tdec.decode_attention(q, k, v, 3, n_heads=4,
+                              k_scale=torch.ones(4, 128),
+                              v_scale=torch.ones(4, 128))
+
+
+# ---------------------------------------------------------------------------
+# dot_product_attention and layer_norm vs JAX
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype,tol", [(np.float32, F32),
+                                       (np.float64, F64)])
+@pytest.mark.parametrize("causal", [False, True])
+def test_dot_product_attention_matches_jax(interpret_mode, dtype, tol,
+                                           causal):
+    """f32 reaches JAX's flash kernel (interpret); f64 its jnp path."""
+    b, t, h, dh = 2, 24, 2, 8
+    q, k, v = (_rand((b, t, h, dh), s, dtype) for s in (10, 11, 12))
+    want = jattn.dot_product_attention(jnp.asarray(q), jnp.asarray(k),
+                                       jnp.asarray(v), causal=causal,
+                                       q_offset=0, kv_offset=0)
+    got = tattn.dot_product_attention(torch.from_numpy(q),
+                                      torch.from_numpy(k),
+                                      torch.from_numpy(v), causal=causal)
+    assert got.dtype == torch.from_numpy(q).dtype
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **tol)
+
+
+def test_dot_product_attention_masked_matches_jax():
+    b, t, h, dh = 2, 16, 2, 8
+    q, k, v = (_rand((b, t, h, dh), s) for s in (20, 21, 22))
+    mask = np.ones((b, t), np.float32)
+    mask[0, 10:] = 0
+    mask[1, :] = 0        # every key masked: uniform average
+    want = jattn.dot_product_attention(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal=True,
+        mask=jnp.asarray(mask))
+    got = tattn.dot_product_attention(
+        torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
+        causal=True, mask=torch.from_numpy(mask))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **F32)
+
+
+@pytest.mark.parametrize("dtype,tol", [(np.float32, F32),
+                                       (np.float64, F64)])
+def test_layer_norm_matches_jax(dtype, tol):
+    x = _rand((3, 5, 32), 30, dtype) * 3 + 1
+    g = _rand((32,), 31, dtype)
+    bb = _rand((32,), 32, dtype)
+    want = jattn.layer_norm(jnp.asarray(x), jnp.asarray(g), jnp.asarray(bb))
+    got = tattn.layer_norm(torch.from_numpy(x), torch.from_numpy(g),
+                           torch.from_numpy(bb))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **tol)

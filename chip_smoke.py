@@ -3,8 +3,9 @@
 
     python3 chip_smoke.py
 
-Drives the port's serving path and its train step on the card and fails
-(non-zero exit, no result line) if anything is wrong:
+Drives the port's serving path (plain and speculative) and its train
+step on the card and fails (non-zero exit, no result line) if anything is
+wrong:
 
 1. Kernel vs plain, on the card: the flash-forward kernel at the main
    path's bf16 prefill shapes (64 slots x 8 heads, Dh=64, causal, T=1024
@@ -26,10 +27,20 @@ Drives the port's serving path and its train step on the card and fails
    shapes (ragged T=100, fully-masked rows, q after kv, non-causal
    S != T) to 1e-5 + 1e-5 |plain|. Its library yardstick is the backward
    of `scaled_dot_product_attention(..., is_causal=True)`.
+1c. The verify-window kernel vs its plain twin at the spec path's shapes
+   (64 slots, windows T=5 and 8, H=8, Dh=64, S=2048; bf16 on the stacked
+   L=12 cache at layer 5, float32 on L=2; pos 0, 2047, 2044, 1024 and
+   random, so rows clamp at S-1), to phase 1's tolerances; every window
+   row must be torch.equal to the decode kernel at pos + t. Yardstick:
+   `scaled_dot_product_attention` with the equivalent boolean mask.
 2. float32 end to end, card vs CPU: a 2-layer model at the full width
    (512d / 8 heads) serves 8 greedy requests x 16 new tokens through
    `InferenceEngine` on cuda and on cpu; tokens must match exactly and
    the prefill / first-step logits within 1e-3.
+2b. float32 speculative decoding on the same model: spec_k 4 with the
+   drafters "self" and "layers:1" (greedy), then "layers:1" sampled
+   (temperature 0.9, top-k 16); the spec tokens on cuda must equal the
+   plain engine's on cuda and the spec engine's on cpu.
 3. Full width: the 12L / 512d / 8H / V=256 / max_len 2048 bf16 engine with
    64 slots and decode_chunk 8 answers 128 requests (prompt lengths 16..1024
    from seed 0, 64 new tokens), then `TransformerLM.generate` runs B=64,
@@ -39,6 +50,17 @@ Drives the port's serving path and its train step on the card and fails
    n_layers x chunk times per decode chunk. One more engine tick (64
    admissions + one decode chunk) runs under torch.profiler and prints
    the device time by kernel and the device's idle share of the tick.
+3b. Full-width speculative decoding: phase 3's config and 128 requests on
+   the aligned tree (blocks 1..11 with Wo, W2, b2 zeroed, so the
+   "layers:1" drafter agrees with the model), spec_k 7, against the plain
+   engine (decode_chunk 8) on the same tree. Every request's tokens must
+   equal the plain engine's; per spec round the window kernel must run
+   n_layers times and the decode kernel K times (one draft layer); K must
+   stay 7. Tokens/s, ms per round and per chunk, acceptance and launches
+   per round are printed; a probe compares a batched [Ns*(K+1), D]
+   product with decode's per-row [Ns, D] products bitwise; one spec round
+   and one plain chunk (8 tokens each, no admissions) run under
+   torch.profiler.
 4a. float32 training, card vs CPU: 2 layers at 512d / 8 heads, V=256,
    B=2, T=256, remat 'full', three Adam steps of `make_fsdp_train_step`
    from the same params on cuda and on cpu; losses within 1e-4, and the
@@ -272,6 +294,94 @@ def phase_kernels(torch, dev):
 
 
 # ---------------------------------------------------------------------------
+# phase 1c: the verify-window kernel vs its plain twin and the decode kernel
+# ---------------------------------------------------------------------------
+
+def phase_window_kernel(torch, dev):
+    """The window kernel at the spec path's shapes (B=64 slots, T=K+1 of 5
+    and 8, H=8, Dh=64, S=2048): bf16 on the stacked L=12 cache (layer 5)
+    and float32 on L=2, pos covering 0, mid values and rows that clamp
+    at S-1. Gates: the phase-1 tolerances against the plain twin, and
+    every window row torch.equal to the decode kernel at pos + t."""
+    from deeplearning4j_tpu_torch.ops import flash_decode as fd
+    import torch.nn.functional as F
+
+    g = torch.Generator(device="cpu").manual_seed(4)
+
+    def rnd(shape, dtype):
+        return torch.randn(shape, generator=g).to(dev, dtype)
+
+    B, S, D, H = 64, 2048, 512, 8
+    Dh = D // H
+    pos = torch.from_numpy(np.random.default_rng(4).integers(
+        0, S, size=B).astype(np.int32))
+    pos[0], pos[1], pos[2], pos[3] = 0, S - 1, S - 4, S // 2
+    pos = pos.to(dev)
+    rec = None
+    for dtype, L, layer in ((torch.float32, 2, 1), (torch.bfloat16, 12, 5)):
+        name = str(dtype).split(".")[-1]
+        ck, cv = rnd((L, B, S, D), dtype), rnd((L, B, S, D), dtype)
+        for t in (5, 8):
+            q = rnd((B, t, H, Dh), dtype)
+            got = fd.decode_window_attention_cuda(q, ck, cv, pos, H,
+                                                  layer=layer)
+            want = fd.reference_window_attention(q, ck[layer], cv[layer],
+                                                 pos, H)
+            err = max_err(got, want)
+            if dtype == torch.float32:
+                ok, rel, tol = err <= 1e-5, None, 1e-5
+            else:
+                rel = row_rel_err(got, want)
+                ok, tol = rel <= 1.0, BF16_TOL
+            if not ok:
+                fail(f"window {name} T={t}: max err {err}, row-relative "
+                     f"{rel}")
+            for ti in range(t):
+                row = fd.decode_attention_cuda(q[:, ti].contiguous(), ck, cv,
+                                               pos + ti, H, layer=layer)
+                if not torch.equal(got[:, ti], row):
+                    fail(f"window {name} T={t}: row {ti} differs from the "
+                         f"decode kernel at pos+{ti} by "
+                         f"{max_err(got[:, ti], row)}")
+            k_ms = time_ms(lambda: fd.decode_window_attention_cuda(
+                q, ck, cv, pos, H, layer=layer))
+            p_ms = time_ms(lambda: fd.reference_window_attention(
+                q, ck[layer], cv[layer], pos, H), iters=3)
+            # SDPA with the equivalent boolean mask: window row t of slot
+            # b keeps keys 0..clip(pos_b + t, 0, S-1)
+            wp = torch.clamp(pos[:, None] + torch.arange(t, device=dev), 0,
+                             S - 1)
+            mask = (torch.arange(S, device=dev)[None, None, :]
+                    <= wp[:, :, None])[:, None]          # [B, 1, T, S]
+            kl = ck[layer].view(B, S, H, Dh).transpose(1, 2)
+            vl = cv[layer].view(B, S, H, Dh).transpose(1, 2)
+            ql = q.transpose(1, 2)
+            lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
+                ql, kl, vl, attn_mask=mask))
+            # bytes: each cache row the window reaches, K and V, read
+            # once; q read and o written once; pos read
+            rows = int((wp[:, -1].long() + 1).sum())
+            esz = ck.element_size()
+            nbytes = 2 * rows * D * esz + 2 * B * t * D * esz + B * 4
+            flops = 4 * D * int((wp.long() + 1).sum())
+            b_ms, b_by = bound(nbytes, flops, name)
+            r = dict(phase="1c", kernel="decode_window", dtype=name,
+                     shape=[L, B, S, D], window=t, layer=layer,
+                     pos="vector: 0, 2047, 2044, 1024, random",
+                     max_abs_err=err, row_rel_err=rel, tol=tol,
+                     rows_equal_decode_kernel=True, kernel_ms=k_ms,
+                     plain_ms=p_ms, library_ms=lib_ms, bound_ms=b_ms,
+                     bound_by=b_by, bound_bytes=nbytes)
+            line(r)
+            if dtype == torch.bfloat16 and t == 8:
+                rec = r
+            del q, got, want, mask
+        del ck, cv
+    torch.cuda.empty_cache()
+    return rec
+
+
+# ---------------------------------------------------------------------------
 # phase 2: float32 end to end, card vs CPU
 # ---------------------------------------------------------------------------
 
@@ -308,6 +418,61 @@ def phase_f32_card_vs_cpu(torch, dev):
         fail("float32 engine tokens differ between card and CPU")
     if not lerr <= 1e-3:
         fail(f"float32 logits differ between card and CPU by {lerr}")
+
+
+# ---------------------------------------------------------------------------
+# phase 2b: float32 speculative decoding, card vs CPU
+# ---------------------------------------------------------------------------
+
+def phase_spec_f32_card_vs_cpu(torch, dev):
+    """Phase 2's 2-layer 512d model and 8 requests: the spec engine (K=4;
+    drafters "self" and "layers:1" greedy, then "layers:1" sampled at
+    temperature 0.9, top-k 16) must give the card's plain-engine tokens
+    on the card and the same tokens on the CPU."""
+    from deeplearning4j_tpu_torch.models import transformer as tf
+    from deeplearning4j_tpu_torch.ops import flash_decode as fd
+    from deeplearning4j_tpu_torch.serving.engine import (EngineConfig,
+                                                         InferenceEngine)
+    cfg = tf.TransformerConfig(vocab_size=256, d_model=512, n_heads=8,
+                               n_layers=2, max_len=2048, dtype="float32")
+    rng = np.random.default_rng(5)
+    prompts = [rng.integers(0, 256, size=int(n)).astype(np.int32)
+               for n in rng.integers(8, 65, size=8)]
+    params = {d: tf.init_params(cfg, seed=1, device=d)
+              for d in (dev, torch.device("cpu"))}
+
+    def serve(d, **kw):
+        eng = InferenceEngine(cfg, params[d], EngineConfig(
+            num_slots=8, decode_chunk=8, max_new_tokens=16, **kw), device=d)
+        hs = [eng.submit(p) for p in prompts]
+        eng.run_pending()
+        return eng, [h.result() for h in hs]
+
+    for draft, samp in (("self", {}), ("layers:1", {}),
+                        ("layers:1", dict(temperature=0.9, top_k=16))):
+        _, plain = serve(dev, **samp)
+        fd.decode_window_attention_cuda.launches = 0
+        eng, spec = serve(dev, spec_decode=True, spec_k=4, draft=draft,
+                          **samp)
+        n_win = fd.decode_window_attention_cuda.launches
+        _, spec_cpu = serve(torch.device("cpu"), spec_decode=True, spec_k=4,
+                            draft=draft, **samp)
+        same_plain = all(np.array_equal(a, b) for a, b in zip(spec, plain))
+        same_cpu = all(np.array_equal(a, b) for a, b in zip(spec, spec_cpu))
+        c = eng.counts
+        line(dict(phase="2b", draft=draft, spec_k=4, **samp,
+                  requests=len(prompts), new_tokens=16,
+                  spec_equals_plain_cuda=same_plain,
+                  spec_cuda_equals_spec_cpu=same_cpu,
+                  spec_rounds=c["spec_rounds"], decode_chunks=c[
+                      "decode_chunks"], drafted=c["spec_drafted"],
+                  accepted=c["spec_accepted"], window_launches=n_win))
+        if not (same_plain and same_cpu):
+            fail(f"float32 spec ({draft}, {samp}): tokens differ, spec vs "
+                 f"plain on the card {same_plain}, card vs CPU {same_cpu}")
+        if n_win != cfg.n_layers * c["spec_rounds"] or not n_win:
+            fail(f"float32 spec ({draft}): {n_win} window launches for "
+                 f"{c['spec_rounds']} rounds of {cfg.n_layers} layers")
 
 
 # ---------------------------------------------------------------------------
@@ -394,6 +559,165 @@ def phase_full_width(torch, dev):
             "decode_attention": n_dec + g_dec}
 
 
+# ---------------------------------------------------------------------------
+# phase 3b: full-width speculative decoding against the plain engine
+# ---------------------------------------------------------------------------
+
+def aligned_params(tf, cfg, dev):
+    """Phase 3's random tree with blocks 1..L-1's Wo, W2 and b2 zeroed
+    (benchmarks/flagship.py:1123-1126): the deep layers add nothing to the
+    residual stream, so the "layers:1" drafter's logits are the full
+    model's and greedy acceptance is 1.0 when verify equals decode."""
+    params = tf.init_params(cfg, seed=0, device=dev)
+    for name in ("Wo", "W2", "b2"):
+        params["blocks"][name][1:] = 0
+    return params
+
+
+def probe_batched_products(torch, dev, ns=64, t=8, d=512):
+    """Why the verify pass runs decode's per-row products: a [Ns*(K+1), D]
+    bf16 product (and layer norm) against K+1 products of decode's own
+    [Ns, D] shape on the same rows, bitwise, with both times."""
+    from deeplearning4j_tpu_torch.nn.layers.attention import layer_norm
+    g = torch.Generator(device="cpu").manual_seed(6)
+    x = torch.randn((t, ns, d), generator=g).to(dev, torch.bfloat16)
+    out = {}
+    for name, n in (("Wq", d), ("W1", 4 * d)):
+        w = (torch.randn((d, n), generator=g) / d ** 0.5).to(
+            dev, torch.bfloat16)
+        batched = torch.matmul(x.reshape(t * ns, d), w).reshape(t, ns, n)
+        rows = torch.stack([torch.matmul(x[i], w) for i in range(t)])
+        out[f"{name}_bitwise_equal"] = bool(torch.equal(batched, rows))
+        out[f"{name}_max_abs_diff"] = max_err(batched, rows)
+        out[f"{name}_batched_ms"] = time_ms(
+            lambda: torch.matmul(x.reshape(t * ns, d), w))
+        out[f"{name}_per_row_ms"] = time_ms(
+            lambda: [torch.matmul(x[i], w) for i in range(t)])
+    one = torch.ones(d, device=dev)
+    zero = torch.zeros(d, device=dev)
+    ln_b = layer_norm(x[:, :, None], one, zero)
+    ln_r = torch.stack([layer_norm(x[i][:, None], one, zero)
+                        for i in range(t)])
+    out["layer_norm_bitwise_equal"] = bool(torch.equal(ln_b, ln_r))
+    return out
+
+
+def phase_spec_full_width(torch, dev):
+    """The flagship decode config of phase 3 on the aligned tree, 64 slots,
+    the same 128 requests: spec_k=7 with the "layers:1" drafter against
+    the plain engine (decode_chunk 8). Gates: every request's tokens
+    equal; the window kernel L times per spec round; the decode kernel
+    draft_layers x K times per round; K stays 7 (acceptance holds)."""
+    from deeplearning4j_tpu_torch.models import transformer as tf
+    from deeplearning4j_tpu_torch.ops import flash_attention as fa
+    from deeplearning4j_tpu_torch.ops import flash_decode as fd
+    from deeplearning4j_tpu_torch.serving.engine import (EngineConfig,
+                                                         InferenceEngine)
+    cfg = tf.TransformerConfig(vocab_size=256, d_model=512, n_heads=8,
+                               n_layers=12, max_len=2048, dtype="bfloat16")
+    L, K, nd = cfg.n_layers, 7, 1
+    n_req, new = 128, 64
+    rng = np.random.default_rng(0)
+    lens = rng.integers(16, 1025, size=n_req)
+    prompts = [rng.integers(0, 256, size=int(n)).astype(np.int32)
+               for n in lens]
+    params = aligned_params(tf, cfg, dev)
+    counters = (fa.flash_forward_cuda, fd.decode_attention_cuda,
+                fd.decode_window_attention_cuda)
+    arms, launches = {}, {}
+    for arm, kw in (("plain", dict(decode_chunk=8)),
+                    ("spec", dict(spec_decode=True, spec_k=K,
+                                  draft=f"layers:{nd}"))):
+        eng = InferenceEngine(cfg, params, EngineConfig(
+            num_slots=64, max_new_tokens=new, max_queue=256,
+            degrade_queue_depth=1024, **kw), device=dev)
+        for c in counters:
+            c.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        hs = [eng.submit(p) for p in prompts]
+        eng.run_pending()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        n_flash, n_dec, n_win = (c.launches for c in counters)
+        arms[arm] = (eng, [h.result() for h in hs], wall)
+        launches[arm] = {"flash_fwd": n_flash, "decode_attention": n_dec,
+                         "decode_window": n_win}
+        c = eng.counts
+        rec = dict(phase="3b", arm=arm, requests=n_req, new_tokens=new,
+                   wall_s=wall, tokens_per_s=n_req * new / wall,
+                   prefill_calls=c["prefill_calls"],
+                   prefill_s=eng.seconds["prefill"],
+                   flash_launches=n_flash, decode_launches=n_dec,
+                   window_launches=n_win)
+        if arm == "plain":
+            rec.update(decode_chunks=c["decode_chunks"],
+                       ms_per_decode_chunk=eng.seconds["decode"]
+                       / c["decode_chunks"] * 1e3,
+                       decode_launches_per_chunk=n_dec / c["decode_chunks"])
+        else:
+            rounds = c["spec_rounds"]
+            rec.update(spec_k=K, draft=f"layers:{nd}", spec_rounds=rounds,
+                       decode_chunks=c["decode_chunks"],
+                       ms_per_spec_round=eng.seconds["spec"] / rounds * 1e3,
+                       drafted=c["spec_drafted"],
+                       accepted=c["spec_accepted"],
+                       acceptance=c["spec_accepted"] / c["spec_drafted"],
+                       spec_k_final=eng.spec_k_current,
+                       window_launches_per_round=n_win / rounds,
+                       decode_launches_per_round=n_dec / rounds)
+        line(rec)
+    eng, spec, _ = arms["spec"]
+    plain = arms["plain"][1]
+    bad = [i for i, (a, b) in enumerate(zip(spec, plain))
+           if not np.array_equal(a, b)]
+    if bad:
+        fail(f"full-width spec tokens differ from the plain engine in "
+             f"requests {bad[:8]} ({len(bad)} of {n_req})")
+    rounds = eng.counts["spec_rounds"]
+    if eng.counts["decode_chunks"] or eng.spec_k_current != K:
+        fail(f"aligned spec run left K={K}: {eng.counts}, K now "
+             f"{eng.spec_k_current}")
+    if launches["spec"]["decode_window"] != L * rounds or \
+            launches["spec"]["decode_attention"] != nd * K * rounds or \
+            launches["spec"]["flash_fwd"] != L * eng.counts["prefill_calls"]:
+        fail(f"spec launch counts {launches['spec']} for {rounds} rounds, "
+             f"L={L}, K={K}, draft layers {nd}")
+    line(dict(phase="3b", run="probe_batched_products",
+              **probe_batched_products(torch, dev)))
+    for arm, (e, _, _) in arms.items():
+        profile_decode_tick(torch, e, rng, arm)
+    del arms, eng, params
+    torch.cuda.empty_cache()
+    total = {}
+    for arm in launches.values():
+        for name, n in arm.items():
+            total[name] = total.get(name, 0) + n
+    return total
+
+
+def profile_decode_tick(torch, eng, rng, arm):
+    """One decode phase with no admissions in its tick (a spec round of
+    K+1 = 8 tokens, or a plain chunk of 8) under torch.profiler: device
+    time and launches by kernel, and the device's idle share."""
+    kind = "spec_rounds" if arm == "spec" else "decode_chunks"
+    prompts = [rng.integers(0, 256, size=64).astype(np.int32)
+               for _ in range(eng.num_slots)]
+    # 17 tokens: the prefill's first, then two rounds (or chunks) of 8
+    warm = [eng.submit(p, max_new_tokens=17) for p in prompts]
+    eng.run_pending()
+    hs = [eng.submit(p, max_new_tokens=17) for p in prompts]
+    eng.tick()                              # admissions + the first 8
+    n = eng.counts[kind]
+    wall, rows = profiled(torch, eng.tick)  # the second 8 alone
+    if eng.counts[kind] != n + 1:
+        fail(f"the profiled {arm} tick ran no {kind[:-1]}")
+    eng.run_pending()
+    if not all(h.done() for h in hs + warm):
+        fail(f"profiled {arm} tick left requests unanswered")
+    profile_line(wall, rows, phase="3b", run=f"profiled_{arm}_tick")
+
+
 def device_rows(prof):
     """(name, device us, count) of the device-side events of a
     torch.profiler run, largest first: the host ops that launched them
@@ -428,6 +752,8 @@ def profile_line(wall, rows, **rec):
     busy = sum(us for _, us, _ in rows) / 1e6
     rec.update(wall_s=wall,
                device_busy_s=busy if rows else "not measured",
+               device_launches=sum(n for _, _, n in rows) if rows
+               else "not measured",
                device_idle_share=(1 - busy / wall) if rows
                else "not measured",
                top_kernels=[dict(name=k[:80], ms=us / 1e3, count=n)
@@ -723,8 +1049,12 @@ def main() -> int:
 
     measured = phase_kernels(torch, dev)
     measured["flash_bwd"] = phase_backward_kernel(torch, dev)
+    measured["decode_window"] = phase_window_kernel(torch, dev)
     phase_f32_card_vs_cpu(torch, dev)
+    phase_spec_f32_card_vs_cpu(torch, dev)
     launches = phase_full_width(torch, dev)
+    for name, n in phase_spec_full_width(torch, dev).items():
+        launches[name] = launches.get(name, 0) + n
     phase_train_f32_card_vs_cpu(torch, dev)
     for name, n in phase_train_full_width(torch, dev).items():
         launches[name] = launches.get(name, 0) + n
@@ -737,6 +1067,8 @@ def main() -> int:
         "decode_attention": (
             "deeplearning4j_tpu_torch/csrc/decode_attention.cu",
             "deeplearning4j_tpu/ops/flash_decode.py:187"),
+        "decode_window": ("deeplearning4j_tpu_torch/csrc/decode_window.cu",
+                          "deeplearning4j_tpu/ops/flash_decode.py:395"),
     }
     kernels = []
     for name, (src, rep) in sources.items():

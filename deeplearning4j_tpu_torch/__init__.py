@@ -8,8 +8,9 @@ hand-written Hopper kernel under `csrc/`, built at first use by
 `ops/_build.py`; its plain PyTorch twin serves CPU tensors only.
 
 Ported so far: the continuous-batching TransformerLM server
-(`serving.InferenceEngine`), `models.transformer.TransformerLM` with its
-loss, and the single-device Adam train step
+(`serving.InferenceEngine`) with speculative decoding (drafters "self" and
+"layers:N", `quant.model.draft_tree`), `models.transformer.TransformerLM`
+with its loss, and the single-device Adam train step
 (`parallel.fsdp.make_fsdp_train_step`).
 
 Imports stay light: no subpackage is imported here, and nothing of JAX

@@ -1,0 +1,133 @@
+// Speculative-verify window attention for Hopper (sm_90a), plain C
+// interface.
+//
+// Replaces deeplearning4j_tpu/ops/flash_decode.py::_window_kernel
+// (launched by decode_window_attention): the K+1 verify window of each
+// batch row, q [B, T, H, Dh], where window row t of batch row b sits at
+// position pos[b] + t and attends cache rows 0..clip(pos[b]+t, 0, S-1) of
+// a flattened-head KV cache [B, S, D=H*Dh]. Same math as the decode
+// kernel: float32 scores times 1/sqrt(Dh), float32 online-softmax
+// statistics, probabilities rounded to the value dtype before the PV
+// product, the output in the query dtype.
+//
+// Design. The TPU kernel folded the window into pseudo-heads p = t*H + h
+// so that each cache block was read once for all T rows. Here one CTA
+// (4 warps) owns one (b, h) and a group of up to 8 window rows, and walks
+// the cache rows 0..clip(pos[b]+t_last, 0, S-1) once: every loaded K/V
+// row updates the online-softmax state of each window row whose bound it
+// is within, and leaves the others untouched (decode_core.cuh). Window
+// rows past 8 take further CTAs (blockIdx.z), each reading the cache
+// again, so any T runs; the verify window of K <= 7 is one group.
+//  - Exactness: the row loop, lane assignment, merges and roundings are
+//    the decode kernel's own (one template, decode_core.cuh), so window
+//    row t equals decode_attention.cu at pos + t bit for bit.
+//  - Stacked caches [L, B, S, D]: the caller passes the layer plane's
+//    base pointer, as for the decode kernel.
+//
+// Bound on this card: the kernel reads each filled cache row once for all
+// window rows, 2 * (min(pos+T-1, S-1)+1) * Dh * sizeof(T) bytes per
+// (b, h), ~268 MB at B=64, S=2048, D=512 in bf16 (~80 us at 3.35 TB/s on
+// an H100 SXM), and does ~4*T FLOP per cache element (T=8: ~16 FLOP per
+// bf16 byte), still far below the card's operations-per-byte line, so it
+// is bound by bytes. Calling the decode kernel once per window row would
+// read the cache T times.
+#include <stdint.h>
+
+#include "decode_core.cuh"
+
+namespace dl4j {
+namespace {
+
+using decode::THREADS;
+
+constexpr int GROUP = 8;   // window rows per CTA
+
+template <typename T, int DH>
+__global__ void __launch_bounds__(THREADS)
+window_kernel(const T* __restrict__ q, const T* __restrict__ kc,
+              const T* __restrict__ vc, T* __restrict__ o,
+              const int* __restrict__ pos, int pos_scalar, int H, int S,
+              int T_, float scale) {
+  const int h = blockIdx.x;
+  const int b = blockIdx.y;
+  const int t0 = blockIdx.z * GROUP;
+  const int nt = min(GROUP, T_ - t0);
+  const int D = H * DH;
+  const int p0 = (pos != nullptr ? pos[b] : pos_scalar) + t0;
+  int bound[GROUP];
+#pragma unroll
+  for (int t = 0; t < GROUP; ++t) {
+    const int p = p0 + t;
+    bound[t] = p < 0 ? 0 : (p > S - 1 ? S - 1 : p);
+  }
+  // window rows of one (b, h) lie H*Dh apart in q and o [B, T, H, Dh]
+  const size_t row_step = (size_t)H * DH;
+  const size_t row = (((size_t)b * T_ + t0) * H + h) * DH;
+  const size_t base = (size_t)b * S * D + (size_t)h * DH;
+  decode::attend_rows<T, DH, GROUP>(q + row, o + row, row_step, kc + base,
+                                    vc + base, D, bound, nt, scale);
+}
+
+template <typename T, int DH>
+int launch(const void* q, const void* k, const void* v, void* o,
+           const int* pos, int pos_scalar, int B, int T_, int H, int S,
+           float scale, cudaStream_t stream) {
+  dim3 grid(H, B, (T_ + GROUP - 1) / GROUP);
+  window_kernel<T, DH><<<grid, THREADS, 0, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<T*>(o), pos, pos_scalar, H, S,
+      T_, scale);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int dispatch_dh(int dh, const void* q, const void* k, const void* v,
+                void* o, const int* pos, int pos_scalar, int B, int T_,
+                int H, int S, float scale, cudaStream_t stream) {
+  switch (dh) {
+    case 32:
+      return launch<T, 32>(q, k, v, o, pos, pos_scalar, B, T_, H, S, scale,
+                           stream);
+    case 64:
+      return launch<T, 64>(q, k, v, o, pos, pos_scalar, B, T_, H, S, scale,
+                           stream);
+    case 128:
+      return launch<T, 128>(q, k, v, o, pos, pos_scalar, B, T_, H, S, scale,
+                            stream);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
+}  // namespace
+}  // namespace dl4j
+
+// q, o: contiguous [B, T, H, Dh]; k, v: the [B, S, H*Dh] plane to read (a
+// stacked cache's layer plane is passed as its base pointer). pos: int32
+// [B] on the device (window row t of batch row b at pos[b] + t), or null
+// to use pos_scalar for every row. Returns the cudaError_t of the launch.
+extern "C" int dl4j_decode_window(const void* q, const void* k,
+                                  const void* v, void* o, const void* pos,
+                                  int pos_scalar, int B, int T, int H,
+                                  int dh, int S, int dtype, float scale,
+                                  void* stream) {
+  using namespace dl4j;
+  if (B <= 0 || B > 65535 || T <= 0 || H <= 0 || S <= 0 ||
+      (T + GROUP - 1) / GROUP > 65535)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int* pp = static_cast<const int*>(pos);
+  switch (dtype) {
+    case DTYPE_F32:
+      return dispatch_dh<float>(dh, q, k, v, o, pp, pos_scalar, B, T, H, S,
+                                scale, s);
+    case DTYPE_F16:
+      return dispatch_dh<__half>(dh, q, k, v, o, pp, pos_scalar, B, T, H, S,
+                                 scale, s);
+    case DTYPE_BF16:
+      return dispatch_dh<__nv_bfloat16>(dh, q, k, v, o, pp, pos_scalar, B, T,
+                                        H, S, scale, s);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}

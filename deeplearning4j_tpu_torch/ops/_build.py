@@ -48,6 +48,8 @@ SIGNATURES = {
     "decode_attention": ("dl4j_decode_attention",
                          [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F,
                           _P]),
+    "decode_window": ("dl4j_decode_window",
+                      [_P, _P, _P, _P, _P] + [_I] * 7 + [_F, _P]),
 }
 
 _loaded: Dict[str, ctypes._CFuncPtr] = {}

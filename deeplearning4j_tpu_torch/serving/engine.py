@@ -19,11 +19,20 @@ size.
 Not ported yet (set to a non-default value, each raises
 NotImplementedError naming its ROADMAP item): batch mode, the background
 worker, retries / circuit breaker / deadlines, quantized weights and KV,
-paged KV and the prefix cache, speculative decoding, chunked prefill,
+paged KV and the prefix cache, the quantized drafter, chunked prefill,
 the compile cache and warm-up, the pipelined tick loop, QoS, grammar
 constraints, and the metrics / recorder / profiler stack. The port's
 `pipeline` default is False: it runs the synchronous loop, which the
 reference documents as bit-identical to its pipelined one.
+
+Speculative decoding (``EngineConfig(spec_decode=True, spec_k=K,
+draft="self" | "layers:N")``, reference :4711-4944): a tick's decode
+phase runs one speculative round instead of a decode chunk, committing
+1..K+1 tokens per slot, token-identical to the plain engine. The
+adaptive-K controller walks K over {spec_k, spec_k/2, .., 1} on the
+pool's acceptance and falls back to plain decode chunks for a cooldown
+when even K=1 does not pay. ``counts["spec_rounds"/"spec_drafted"/
+"spec_accepted"]`` and `spec_k_current` expose it.
 """
 from __future__ import annotations
 
@@ -42,7 +51,9 @@ from deeplearning4j_tpu_torch.models.transformer import (TransformerConfig,
                                                          _check_slice,
                                                          params_to)
 from deeplearning4j_tpu_torch.parallel.serving import (
-    init_slot_state, make_continuous_decode, make_continuous_prefill)
+    init_slot_state, make_continuous_decode, make_continuous_prefill,
+    make_speculative_decode)
+from deeplearning4j_tpu_torch.quant.model import draft_tree
 
 
 class OverloadError(RuntimeError):
@@ -57,6 +68,10 @@ class RequestStatus:
 
 DEFAULT_CONTINUOUS_CHUNK = 8
 
+# plain-decode ticks the adaptive-K controller imposes when even K=1 does
+# not pay (reference `_spec_update`)
+SPEC_PLAIN_COOLDOWN = 24
+
 
 @dataclass
 class EngineConfig:
@@ -65,9 +80,12 @@ class EngineConfig:
     it), ``num_slots``, ``max_new_tokens`` (default AND per-request cap),
     ``decode_chunk`` (0 -> DEFAULT_CONTINUOUS_CHUNK), ``temperature``,
     ``top_k``, ``top_p``, ``seed`` (sampling counter root),
-    ``prefill_bucket_min`` and the queue-depth degradation
-    (``degrade_queue_depth``, ``degraded_max_new_tokens``). Every other
-    field must keep its default (see `_UNPORTED`)."""
+    ``prefill_bucket_min``, the queue-depth degradation
+    (``degrade_queue_depth``, ``degraded_max_new_tokens``) and
+    speculative decoding (``spec_decode``, ``spec_k``, ``spec_adaptive``,
+    ``draft`` = "self" or "layers:N"; the default "int8" drafter is not
+    ported and raises). Every other field must keep its default (see
+    `_UNPORTED`)."""
     max_queue: int = 64
     max_batch_size: int = 8
     batch_timeout_s: float = 0.005
@@ -129,10 +147,6 @@ _UNPORTED = {
     "page_size": "paged KV serving (ROADMAP queue A6)",
     "kv_pages": "paged KV serving (ROADMAP queue A6)",
     "prefix_cache": "paged KV serving (ROADMAP queue A6)",
-    "spec_decode": "speculative decoding (ROADMAP queue B #4 slice)",
-    "spec_k": "speculative decoding (ROADMAP queue B #4 slice)",
-    "draft": "speculative decoding (ROADMAP queue B #4 slice)",
-    "spec_adaptive": "speculative decoding (ROADMAP queue B #4 slice)",
     "prefill_chunk": "chunked prefill (ROADMAP queue A6)",
     "tick_token_budget": "chunked prefill (ROADMAP queue A6)",
     "program_cache_size": "the compile cache (ROADMAP queue A6)",
@@ -218,8 +232,23 @@ class InferenceEngine:
         # call counters, and host seconds spent in each kind of call (a
         # call ends in a device->host copy of its tokens, so the time
         # includes the device work)
-        self.counts = {"prefill_calls": 0, "decode_chunks": 0}
-        self.seconds = {"prefill": 0.0, "decode": 0.0}
+        self.counts = {"prefill_calls": 0, "decode_chunks": 0,
+                       "spec_rounds": 0, "spec_drafted": 0,
+                       "spec_accepted": 0}
+        self.seconds = {"prefill": 0.0, "decode": 0.0, "spec": 0.0}
+        # speculative decoding (reference :1477-1504): the drafter comes
+        # from the live params; acceptance drives the adaptive-K
+        # controller (`_spec_update`)
+        self._spec = bool(self.config.spec_decode)
+        if self._spec:
+            self._spec_k = int(self.config.spec_k)
+            if self._spec_k < 1:
+                raise ValueError(f"spec_k must be >= 1, got {self._spec_k}")
+            self._rebuild_draft()
+            self._spec_cur_k = self._spec_k
+            self._spec_plain = 0          # plain-decode cooldown ticks
+            self._accept_ema = [1.0] * self._num_slots
+            self._accept_pool = 1.0       # engine-wide acceptance EMA
 
     @property
     def num_slots(self) -> int:
@@ -228,6 +257,15 @@ class InferenceEngine:
     @property
     def decode_chunk(self) -> int:
         return self._chunk
+
+    @property
+    def spec_k_current(self) -> int:
+        """The draft length of the next speculative round: 0 while the
+        controller has fallen back to plain decode, and for an engine
+        without speculative decoding."""
+        if not self._spec or self._spec_plain > 0:
+            return 0
+        return self._spec_cur_k
 
     # -- admission -------------------------------------------------------
     def submit(self, prompt,
@@ -293,6 +331,11 @@ class InferenceEngine:
                 r = self._queue.popleft()
                 i = free.popleft()
                 self._slots[i] = r
+                if self._spec:
+                    # seat with the pool's current belief (reference
+                    # :3348-3353): a stream of fresh admissions must not
+                    # drag the EMA back up under adversarial traffic
+                    self._accept_ema[i] = self._accept_pool
                 r.status = RequestStatus.RUNNING
                 admitted.append((i, r))
         return admitted
@@ -316,14 +359,21 @@ class InferenceEngine:
         return min(b, self.cfg.max_len)
 
     def _program(self, kind: str, size: int):
+        """The slot program of ``kind`` ("prefill", "decode" or "spec")
+        at ``size`` (bucket length, chunk or K), made once per key."""
         key = (kind, size)
         fn = self._programs.get(key)
         if fn is None:
             c = self.config
-            make = (make_continuous_prefill if kind == "prefill"
-                    else make_continuous_decode)
-            fn = make(self.cfg, size, self._num_slots, float(c.temperature),
-                      int(c.top_k), float(c.top_p))
+            sampling = (float(c.temperature), int(c.top_k), float(c.top_p))
+            if kind == "spec":
+                fn = make_speculative_decode(
+                    self.cfg, size, self._num_slots, *sampling,
+                    draft_layers=self._draft_layers)
+            else:
+                make = (make_continuous_prefill if kind == "prefill"
+                        else make_continuous_decode)
+                fn = make(self.cfg, size, self._num_slots, *sampling)
             self._programs[key] = fn
         return fn
 
@@ -379,12 +429,97 @@ class InferenceEngine:
         self._reap()
 
     def _decode_chunk_slots(self, occupied) -> None:
+        if self._spec and self._spec_tick():
+            self._decode_spec_slots(occupied)
+            return
         self._slot_state, toks = self._call_chunk(self._slot_state,
                                                   occupied)
         for i, r in occupied:
             need = min(int(toks.shape[1]),
                        r.max_new_tokens - r.generated.shape[0])
             self._commit_tokens(r, toks[i, :need].astype(np.int32))
+
+    # -- speculative decoding (reference :4711-4944) -----------------------
+    def _rebuild_draft(self) -> None:
+        """Derive the drafter tree from the live params."""
+        self._draft_params, _, self._draft_layers = draft_tree(
+            self._params, self.config.draft, self.cfg)
+
+    def _spec_tick(self) -> bool:
+        """Whether this tick decodes speculatively; counts down the
+        plain-decode cooldown, probing with K=1 when it expires."""
+        if self._spec_plain > 0:
+            self._spec_plain -= 1
+            if self._spec_plain == 0:
+                self._spec_cur_k = 1
+            return False
+        return True
+
+    def _call_spec(self, state, entries):
+        """One speculative round over the pool for ``entries``. Returns
+        (state', toks [Ns, K+1], ncommit, drafted, accepted) with numpy
+        outputs. ``poison`` stays all false: the fault injector's
+        draft_poison_at hook, and with it the controller's poisoned-round
+        fallback to K=1, are not ported (ROADMAP queue A6)."""
+        active = np.zeros((self._num_slots,), bool)
+        rem = np.zeros((self._num_slots,), np.int32)
+        for i, r in entries:
+            active[i] = True
+            rem[i] = r.max_new_tokens - r.generated.shape[0]
+        poison = np.zeros((self._num_slots,), bool)
+        fn = self._program("spec", self._spec_cur_k)
+        dev = self.device
+        t0 = time.perf_counter()
+        ck, cv, pos, tok, emit, nc, drafted, accepted = fn(
+            self._params, self._draft_params, *state,
+            torch.from_numpy(active).to(dev), torch.from_numpy(rem).to(dev),
+            torch.from_numpy(poison).to(dev), int(self.config.seed))
+        out = torch.stack([nc, drafted, accepted]).cpu().numpy()
+        toks = emit.cpu().numpy()
+        self.seconds["spec"] += time.perf_counter() - t0
+        self.counts["spec_rounds"] += 1
+        return (ck, cv, pos, tok), toks, out[0], out[1], out[2]
+
+    def _decode_spec_slots(self, occupied) -> None:
+        """One speculative round: commit each slot's accepted prefix and
+        correction token (1..K+1 tokens), then feed the acceptance to the
+        adaptive-K controller."""
+        self._slot_state, toks, nc, drafted, accepted = self._call_spec(
+            self._slot_state, occupied)
+        for i, r in occupied:
+            self.counts["spec_drafted"] += int(drafted[i])
+            self.counts["spec_accepted"] += int(accepted[i])
+            need = min(int(nc[i]), r.max_new_tokens - r.generated.shape[0])
+            self._commit_tokens(r, toks[i, :need].astype(np.int32))
+        self._spec_update(occupied, drafted, accepted)
+
+    def _spec_update(self, occupied, drafted, accepted) -> None:
+        """Adaptive K over {spec_k, spec_k/2, .., 1}: per-slot acceptance
+        EMAs (a drop takes effect at once, a recovery averages in) give a
+        pool mean; below 0.2 K collapses to 1, and from 1 to plain decode
+        for a cooldown; below 0.45 K halves; above 0.8 it doubles back
+        (capped at spec_k)."""
+        if not self.config.spec_adaptive:
+            return
+        sampled = [i for i, _ in occupied if drafted[i] > 0]
+        if not sampled:
+            return
+        for i in sampled:
+            ratio = float(accepted[i]) / float(drafted[i])
+            self._accept_ema[i] = min(
+                ratio, 0.5 * self._accept_ema[i] + 0.5 * ratio)
+        pool = float(np.mean([self._accept_ema[i] for i in sampled]))
+        self._accept_pool = pool
+        k = self._spec_cur_k
+        if pool < 0.2:
+            if k == 1:
+                self._spec_plain = SPEC_PLAIN_COOLDOWN
+            else:
+                self._spec_cur_k = 1
+        elif pool < 0.45 and k > 1:
+            self._spec_cur_k = max(1, k // 2)
+        elif pool > 0.8 and k < self._spec_k:
+            self._spec_cur_k = min(self._spec_k, k * 2)
 
     def _commit_tokens(self, r: RequestHandle, toks: np.ndarray) -> None:
         """The one place generated tokens land on a handle."""

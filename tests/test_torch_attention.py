@@ -246,3 +246,75 @@ def test_layer_norm_matches_jax(dtype, tol):
     got = tattn.layer_norm(torch.from_numpy(x), torch.from_numpy(g),
                            torch.from_numpy(bb))
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **tol)
+
+
+# ---------------------------------------------------------------------------
+# verify-window attention: plain twin vs JAX's reference_window_attention
+# (what JAX's decode_window_attention dispatches to off the TPU; its Pallas
+# window kernel does not trace in interpret mode on this JAX version)
+# ---------------------------------------------------------------------------
+
+def _window_inputs(t, b=4, h=4, dh=16, s=128, layers=None, seed=0):
+    d = h * dh
+    shape = (b, s, d) if layers is None else (layers, b, s, d)
+    return (_rand((b, t, h, dh), seed), _rand(shape, seed + 1),
+            _rand(shape, seed + 2))
+
+
+@pytest.mark.parametrize("t,pos", [
+    (1, [0, 5, 127, 64]),          # T=1: one decode row per batch row
+    (5, [0, 5, 60, 64]),           # vector pos, every row inside S
+    (5, [0, 124, 127, 126]),       # rows past S-1 clamp to S-1
+    (5, 30),                       # scalar pos (JAX: the [B] broadcast)
+])
+def test_window_attention_matches_jax(t, pos):
+    """1e-6: the same f32 math; JAX's einsum and the port's sum the
+    Dh=16 products in other orders."""
+    q, k, v = _window_inputs(t)
+    want = jdec.reference_window_attention(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+        jnp.broadcast_to(jnp.asarray(pos, jnp.int32), (4,)), n_heads=4)
+    tpos = torch.tensor(pos, dtype=torch.int32) if isinstance(pos, list) \
+        else pos
+    got = tdec.decode_window_attention(torch.from_numpy(q),
+                                       torch.from_numpy(k),
+                                       torch.from_numpy(v), tpos, n_heads=4)
+    assert got.shape == (4, t, 4, 16)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0,
+                               atol=1e-6)
+
+
+@pytest.mark.parametrize("layer", [0, 2])
+def test_window_attention_stacked_layer_matches_jax(layer):
+    q, k, v = _window_inputs(5, layers=3, seed=7)
+    pos = [3, 123, 0, 90]
+    want = jdec.reference_window_attention(
+        jnp.asarray(q), jnp.asarray(k[layer]), jnp.asarray(v[layer]),
+        jnp.asarray(pos, jnp.int32), n_heads=4)
+    got = tdec.decode_window_attention(
+        torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
+        torch.tensor(pos, dtype=torch.int32), n_heads=4, layer=layer)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0,
+                               atol=1e-6)
+
+
+def test_window_rows_match_decode_twin():
+    """Row t of the window twin == the port's decode twin at pos + t
+    (clamped at S-1), 1e-6 (a [T]-row and a 1-row einsum sum the same
+    products in other orders on the CPU)."""
+    q, k, v = (torch.from_numpy(x) for x in _window_inputs(6, seed=11))
+    pos = torch.tensor([0, 40, 125, 127], dtype=torch.int32)
+    got = tdec.reference_window_attention(q, k, v, pos, n_heads=4)
+    for t in range(6):
+        want = tdec.reference_decode_attention(
+            q[:, t], k, v, torch.clamp(pos + t, max=127), n_heads=4)
+        np.testing.assert_allclose(got[:, t].numpy(), want.numpy(), rtol=0,
+                                   atol=1e-6)
+
+
+def test_window_attention_refuses_quantized_kv():
+    q, k, v = (torch.from_numpy(x) for x in _window_inputs(3))
+    with pytest.raises(NotImplementedError, match="A4"):
+        tdec.decode_window_attention(q, k, v, 3, n_heads=4,
+                                     k_scale=torch.ones(4, 128),
+                                     v_scale=torch.ones(4, 128))

@@ -192,3 +192,44 @@ def test_kernels_refuse_unsupported_inputs_on_card(requires_cuda):
     cache = torch.zeros(2, 16, 96, device=requires_cuda)
     with pytest.raises(ValueError, match="head dim"):
         tdec.decode_attention(qd, cache, cache, 3, n_heads=2)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float16,
+                                   torch.bfloat16])
+@pytest.mark.parametrize("dh", [32, 64, 128])
+@pytest.mark.parametrize("t", [1, 5, 9])
+def test_window_kernel_matches_plain_and_decode_on_card(requires_cuda,
+                                                        dtype, dh, t):
+    """The verify-window kernel against its plain twin (the tolerances
+    above; T=9 spans two CTA groups of 8), and each window row bitwise
+    against the decode kernel at pos + t, the clamp at S-1 included."""
+    b, h, s = 4, 2, 300
+    dev = requires_cuda
+    q = torch.from_numpy(_rand((b, t, h, dh), 90)).to(dev, dtype)
+    k = torch.from_numpy(_rand((2, b, s, h * dh), 91)).to(dev, dtype)
+    v = torch.from_numpy(_rand((2, b, s, h * dh), 92)).to(dev, dtype)
+    pos = torch.tensor([0, 299, 17, 294], dtype=torch.int32, device=dev)
+    before = tdec.decode_window_attention_cuda.launches
+    got = tdec.decode_window_attention(q, k, v, pos, n_heads=h, layer=1)
+    want = tdec.reference_window_attention(q, k[1], v[1], pos, n_heads=h)
+    torch.cuda.synchronize()
+    assert tdec.decode_window_attention_cuda.launches == before + 1
+    _assert_close(got, want, dtype)
+    for ti in range(t):
+        row = tdec.decode_attention(q[:, ti], k, v, pos + ti, n_heads=h,
+                                    layer=1)
+        assert torch.equal(got[:, ti], row), f"window row {ti}"
+    got_s = tdec.decode_window_attention(q, k, v, 150, n_heads=h, layer=0)
+    want_s = tdec.reference_window_attention(q, k[0], v[0], 150, n_heads=h)
+    _assert_close(got_s, want_s, dtype)
+
+
+def test_window_kernel_refuses_unsupported_inputs_on_card(requires_cuda):
+    q = torch.zeros(2, 3, 2, 48, device=requires_cuda)
+    cache = torch.zeros(2, 16, 96, device=requires_cuda)
+    with pytest.raises(ValueError, match="head dim"):
+        tdec.decode_window_attention(q, cache, cache, 3, n_heads=2)
+    q = torch.zeros(2, 3, 2, 32, device=requires_cuda)
+    with pytest.raises(TypeError):
+        tdec.decode_window_attention(q.half(), cache[..., :64],
+                                     cache[..., :64], 3, n_heads=2)

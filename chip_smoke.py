@@ -3,9 +3,9 @@
 
     python3 chip_smoke.py
 
-Drives the port's serving path (plain and speculative) and its train
-step on the card and fails (non-zero exit, no result line) if anything is
-wrong:
+Drives the port's serving path (plain and speculative), its train step
+and the GravesLSTM char-RNN's training through MultiLayerNetwork on the
+card and fails (non-zero exit, no result line) if anything is wrong:
 
 1. Kernel vs plain, on the card: the flash-forward kernel at the main
    path's bf16 prefill shapes (64 slots x 8 heads, Dh=64, causal, T=1024
@@ -74,7 +74,27 @@ wrong:
    Launch counters are reset before the timed steps: flash forward must
    run 2 x n_layers times a step (forward and remat recompute), flash
    backward n_layers times. One more step runs under torch.profiler.
-5. Summary: one `kernels` JSON line, then the last line
+5a. The fused LSTM-scan kernel vs its plain twin: the char-RNN's shapes
+   (B=1024, T=64, H=200; xw from layer 1's one-hot V=80 input and from
+   layer 2's H=200 input) in bf16 and float32, reversed sequences, B=5,
+   T=7, H=37 and B=1, T=1, every case with random peepholes and carries;
+   hs, cs and gates within 1e-5 + 1e-5 |plain| (see LSTM_TOL). Times the
+   kernel, the twin and torch.nn.LSTM (cuDNN; the yardstick, never
+   called by the port; it does x.W too, timed alone beside it).
+5b. float32 char-RNN card vs CPU: V=80, H=200, 2 layers, B=32, T=64,
+   TBPTT 32, lstm_wavefront off, one set of weights; three fit calls
+   (scores within 1e-4, parameters by `rmsprop_close`), then 32
+   rnn_time_step outputs within 1e-4; lstm_scan launches exactly 2 per
+   chunk and 2 per step.
+5c. Full width: BASELINE config 3 (bf16, RMSProp lr 0.1) at B=1024, T=64:
+   fit_batched over 4 seeded minibatches x 3 epochs after one warm pass,
+   lstm_wavefront off: chars/s, ms per minibatch, model FLOPs per char
+   (benchmarks/flagship.py:214), the bf16-peak share, peak memory; the
+   score finite and falling; lstm_scan exactly 2 launches a minibatch.
+   One more minibatch runs under torch.profiler. The same pool with
+   lstm_wavefront on (its chars/s; the kernel must not launch), then 200
+   characters sampled by rnn_time_step at B=1 (2 launches a step).
+6. Summary: one `kernels` JSON line, then the last line
    {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
 The kernels build from deeplearning4j_tpu_torch/csrc/ at the start (one
@@ -1016,6 +1036,299 @@ def phase_train_full_width(torch, dev, timed_steps: int = 5):
 
 
 # ---------------------------------------------------------------------------
+# phase 5: the GravesLSTM char-RNN through MultiLayerNetwork
+# ---------------------------------------------------------------------------
+
+# Kernel and twin cast the same inputs to float32 at the same points
+# (xw, carries, RW, bias and peepholes) and differ only in the order in
+# which the recurrent product h.RW is summed, so bf16 inputs are held like
+# float32 ones: |err| <= 1e-5 + 1e-5 |plain| on hs, cs and gates.
+LSTM_TOL = "|err| <= 1e-5 + 1e-5 * |plain| (hs, cs, gates; f32 and bf16)"
+# BASELINE config 3 (benchmarks/flagship.py:176-214 bench_lstm)
+CHAR_V, CHAR_H, CHAR_B, CHAR_T = 80, 200, 1024, 64
+
+
+def lstm_flops_per_char(v=CHAR_V, h=CHAR_H):
+    """benchmarks/flagship.py:214: model FLOPs per character of a train
+    step (3x the forward's matmuls) of the 2-layer char-RNN."""
+    return 3 * (8 * h * (v + h) + 8 * h * (h + h) + 2 * h * v)
+
+
+def lstm_bound(t, b, h, x_esz, w_esz):
+    """Least time of one lstm_scan: bytes (xw, h0, c0, RW, b, peepholes
+    read once; hs, cs and gates written once, float32) and the f32
+    operations of the recurrent product, 2*B*H*4H*T, at the CUDA cores'
+    67 TF/s (the TPU kernel forms it in f32)."""
+    nbytes = (t * b * 4 * h * x_esz + 2 * b * h * x_esz + 4 * h * h * w_esz
+              + 7 * h * w_esz + 2 * t * b * h * 4 + t * b * 4 * h * 4)
+    return bound(nbytes, 2 * b * h * 4 * h * t, "float32") + (nbytes,)
+
+
+def phase_lstm_kernel(torch, dev):
+    """5a. The lstm_scan kernel vs its plain twin on the card: the
+    char-RNN's full-width shapes (B=1024, T=64, H=200; layer 1's xw from a
+    one-hot V=80 input, layer 2's from an H=200 one) in bf16 and f32, the
+    reversed sequence, small odd f32 shapes and B=1, T=1, every case with
+    non-zero peepholes. Times the kernel, the twin and torch.nn.LSTM
+    (cuDNN where it takes the dtype; zero peepholes, x.W inside)."""
+    from deeplearning4j_tpu_torch.ops import lstm as tl
+
+    g = torch.Generator(device="cpu").manual_seed(7)
+
+    def rnd(shape, scale=1.0):
+        return scale * torch.randn(shape, generator=g)
+
+    def case(t, b, h, f, dtype, layer, reverse=False, timed=False):
+        if layer == 1:                       # one-hot characters
+            ids = torch.randint(0, f, (b, t), generator=g)
+            x = torch.nn.functional.one_hot(ids, f).float()
+        else:                                # a layer-1 output
+            x = torch.tanh(rnd((b, t, f)))
+        w = rnd((f, 4 * h), (2.0 / (f + h)) ** 0.5)
+        rw = rnd((h, 4 * h), (1.0 / h) ** 0.5)
+        bias = rnd((4 * h,), 0.3)
+        peep = [rnd((h,), 0.3) for _ in range(3)]
+        x, w, rw, bias = (a.to(dev, dtype) for a in (x, w, rw, bias))
+        peep = [p.to(dev, dtype) for p in peep]
+        h0, c0 = (rnd((b, h), 0.5).to(dev, dtype) for _ in range(2))
+        xw_t = torch.matmul(x, w).transpose(0, 1)
+        if reverse:
+            xw_t = xw_t.flip(0)
+        xw_t = xw_t.contiguous()
+        args = (xw_t, h0, c0, rw, bias, *peep)
+        got = tl.lstm_scan_cuda(*args)
+        want = tl.lstm_scan_reference(*args)
+        rel = max(f32_rel_err(a, b) for a, b in zip(got, want))
+        err = max(max_err(a, b) for a, b in zip(got, want))
+        name = str(dtype).split(".")[-1]
+        rec = dict(phase="5a", kernel="lstm_scan", dtype=name,
+                   shape=dict(T=t, B=b, H=h, F=f), layer=layer,
+                   reverse=reverse, peepholes="random, std 0.3",
+                   max_abs_err=err, rel_err=rel, tol=LSTM_TOL)
+        if not rel <= 1.0:
+            line(rec)
+            fail(f"lstm_scan {name} T={t} B={b} H={h} layer {layer} "
+                 f"reverse={reverse}: {rel} x its limit (max err {err})")
+        if timed:
+            esz = x.element_size()
+            b_ms, b_by, nbytes = lstm_bound(t, b, h, esz, esz)
+            k_ms = time_ms(lambda: tl.lstm_scan_cuda(*args))
+            p_ms = time_ms(lambda: tl.lstm_scan_reference(*args), iters=3)
+            xw_ms = time_ms(lambda: torch.matmul(x, w))
+            lstm = torch.nn.LSTM(f, h).to(dev, dtype)
+            with torch.no_grad():
+                lstm.weight_ih_l0.copy_(w.t())
+                lstm.weight_hh_l0.copy_(rw.t())
+                lstm.bias_ih_l0.copy_(bias)
+                lstm.bias_hh_l0.zero_()
+            x_t = x.transpose(0, 1).contiguous()
+            hc = (h0[None], c0[None])
+            with torch.no_grad():
+                lib_ms = time_ms(lambda: lstm(x_t, hc))
+            rec.update(kernel_ms=k_ms, plain_ms=p_ms, library_ms=lib_ms,
+                       library="torch.nn.LSTM (x.W inside, no reserve, "
+                               "zero peepholes)",
+                       library_cudnn=bool(torch.backends.cudnn.is_acceptable(
+                           x_t)),
+                       xw_matmul_ms=xw_ms,
+                       library_minus_xw_ms=lib_ms - xw_ms,
+                       bound_ms=b_ms, bound_by=b_by, bound_bytes=nbytes,
+                       bound_flops=2 * b * h * 4 * h * t)
+        line(rec)
+        return rec
+
+    full = CHAR_T, CHAR_B, CHAR_H
+    summary = None
+    for dtype in (torch.bfloat16, torch.float32):
+        for layer, f in ((1, CHAR_V), (2, CHAR_H)):
+            r = case(*full, f, dtype, layer, timed=(layer == 1))
+            if dtype == torch.bfloat16 and layer == 1:
+                summary = r
+    case(*full, CHAR_V, torch.float32, 1, reverse=True)
+    case(*full, CHAR_H, torch.bfloat16, 2, reverse=True)
+    case(7, 5, 37, 11, torch.float32, 2)
+    case(7, 5, 37, 11, torch.float32, 1, reverse=True)
+    case(1, 1, CHAR_H, CHAR_V, torch.float32, 1)
+    case(1, 1, CHAR_H, CHAR_V, torch.bfloat16, 1)
+    torch.cuda.empty_cache()
+    return summary
+
+
+def rmsprop_close(got, want, lr, decay, steps, atol):
+    """(max |diff|, share beyond atol, ok) of two parameter tensors after
+    `steps` RMSProp steps. A step moves an element by at most
+    lr / sqrt(1 - decay) (|g| / sqrt((1 - decay) g^2)), whatever its
+    gradient, and by lr * delta / sqrt(h + eps) for float32 noise delta in
+    g, which is large only where the gradient's mean square h is near 0.
+    So all but 1e-3 of the elements must agree within atol, and every
+    element within 2 * steps * lr / sqrt(1 - decay)."""
+    diff = (got.float().cpu() - want.float().cpu()).abs()
+    worst, share = float(diff.max()), float((diff > atol).float().mean())
+    cap = 2 * steps * lr / (1 - decay) ** 0.5
+    return worst, share, worst <= cap and share <= 1e-3
+
+
+def phase_lstm_f32_card_vs_cpu(torch, dev):
+    """5b. The char-RNN at full width (V=80, H=200, 2 layers) in float32,
+    B=32, T=64, TBPTT 32 (carries cross a chunk boundary), lstm_wavefront
+    off: one set of weights on the card and on the CPU, three fit calls
+    (scores within 1e-4, parameters by rmsprop_close), then 32
+    rnn_time_step outputs within 1e-4. lr 0.01: at the configuration's
+    0.1 this net's float32 training is chaotic (tests/
+    test_torch_multilayer.py), so the comparison would measure the chaos,
+    not the kernel."""
+    from deeplearning4j_tpu_torch.models.zoo import char_rnn_lstm
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+    from deeplearning4j_tpu_torch.ops import lstm as tl
+    b, t, lr = 32, 64, 0.01
+    nets = {}
+    for name in ("cpu", "cuda"):
+        d = torch.device("cpu") if name == "cpu" else dev
+        nets[name] = MultiLayerNetwork(char_rnn_lstm(
+            CHAR_V, hidden=CHAR_H, layers=2, tbptt_length=32,
+            learning_rate=lr), device=d)
+        nets[name].lstm_wavefront = False
+    nets["cpu"].init()
+    nets["cuda"].set_params_from_numpy(
+        {k: {n: p.numpy() for n, p in v.items()}
+         for k, v in nets["cpu"].params.items()})
+    rng = np.random.default_rng(8)
+    eye = np.eye(CHAR_V, dtype=np.float32)
+    scores = {"cpu": [], "cuda": []}
+    tl.lstm_scan_cuda.launches = 0
+    for s in range(3):
+        ids = rng.integers(0, CHAR_V, (b, t))
+        x, y = eye[ids], eye[np.roll(ids, -1, axis=1)]
+        for name, net in nets.items():
+            net.fit(x, y)
+            scores[name].append(float(net.score_value))
+    fit_launches = tl.lstm_scan_cuda.launches
+    s_err = max(abs(a - c) for a, c in zip(scores["cpu"], scores["cuda"]))
+    checks = [rmsprop_close(nets["cuda"].params[k][n],
+                            nets["cpu"].params[k][n], lr, 0.95, 6, 1e-4)
+              for k in nets["cpu"].params for n in nets["cpu"].params[k]]
+    steps = [eye[rng.integers(0, CHAR_V, b)] for _ in range(32)]
+    outs = {}
+    for name, net in nets.items():
+        net.rnn_clear_previous_state()
+        outs[name] = [net.rnn_time_step(x).cpu() for x in steps]
+    step_launches = tl.lstm_scan_cuda.launches - fit_launches
+    o_err = max(max_err(a, c) for a, c in zip(outs["cpu"], outs["cuda"]))
+    line(dict(phase="5b", config="char_rnn_lstm V=80 H=200 2 layers f32",
+              batch=b, seq=t, tbptt=32, lr=lr, fits=3,
+              scores_cuda=scores["cuda"], scores_cpu=scores["cpu"],
+              score_max_abs_err=s_err, score_tol=1e-4,
+              param_max_abs_err=max(c[0] for c in checks),
+              param_share_beyond_atol=max(c[1] for c in checks),
+              param_tol="all but 1e-3 of each leaf within 1e-4, every "
+                        "element within 2 * steps * lr / sqrt(1 - decay)",
+              rnn_time_step_max_abs_err=o_err, rnn_time_step_tol=1e-4,
+              lstm_scan_launches_fit=fit_launches,
+              lstm_scan_launches_rnn_time_step=step_launches))
+    if not s_err <= 1e-4:
+        fail(f"float32 char-RNN scores differ card vs CPU by {s_err}")
+    if not all(c[2] for c in checks):
+        fail(f"float32 char-RNN params differ card vs CPU: {checks}")
+    if not o_err <= 1e-4:
+        fail(f"float32 rnn_time_step differs card vs CPU by {o_err}")
+    if fit_launches != 2 * 3 * 2 or step_launches != 2 * 32:
+        fail(f"char-RNN launches: {fit_launches} in 3 fits of 2 chunks, "
+             f"{step_launches} in 32 steps (2 layers)")
+
+
+def phase_lstm_full_width(torch, dev, epochs=3):
+    """5c. BASELINE config 3 (char_rnn_lstm V=80, H=200, 2 layers, TBPTT
+    64, bf16, RMSProp lr 0.1) at B=1024, T=64: fit_batched over a pool of
+    4 seeded minibatches x `epochs` after one warm pass, lstm_wavefront
+    off. Then one minibatch under torch.profiler, the same pool with the
+    wavefront on, and 200 sampled characters by rnn_time_step at B=1."""
+    from deeplearning4j_tpu_torch.models.zoo import char_rnn_lstm
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+    from deeplearning4j_tpu_torch.ops import lstm as tl
+    pool = 4
+    conf = char_rnn_lstm(vocab_size=CHAR_V, hidden=CHAR_H, layers=2,
+                         tbptt_length=CHAR_T, dtype="bfloat16")
+    net = MultiLayerNetwork(conf, device=dev).init()
+    net.lstm_wavefront = False
+    rng = np.random.default_rng(0)               # flagship.py:189-192
+    ids = torch.from_numpy(rng.integers(0, CHAR_V, (pool, CHAR_B, CHAR_T)))
+    eye = torch.eye(CHAR_V, device=dev)
+    ids = ids.to(dev)
+    xs, ys = eye[ids], eye[torch.roll(ids, -1, dims=2)]
+    warm = net.fit_batched(xs, ys, epochs=1)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    tl.lstm_scan_cuda.launches = 0
+    t0 = time.perf_counter()
+    scores = net.fit_batched(xs, ys, epochs=epochs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    n_lstm = tl.lstm_scan_cuda.launches
+    steps = pool * epochs
+    chars = CHAR_B * CHAR_T * steps
+    fpc = lstm_flops_per_char()
+    sc = [float(v) for v in scores]
+    rec = dict(phase="5c", config="graves_lstm_charrnn_2x200_T64",
+               dtype="bfloat16", batch=CHAR_B, seq=CHAR_T, pool=pool,
+               epochs=epochs, lstm_wavefront=False, wall_s=wall,
+               chars_per_s=chars / wall, ms_per_minibatch=wall / steps * 1e3,
+               model_flops_per_char=fpc,
+               bf16_peak_share=chars / wall * fpc / PEAK_FLOPS["bfloat16"],
+               peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+               warm_scores=[float(v) for v in warm], scores=sc,
+               lstm_scan_launches=n_lstm,
+               lstm_scan_per_minibatch=n_lstm / steps)
+    line(rec)
+    if not (np.all(np.isfinite(sc)) and sc[-1] < sc[0]):
+        fail(f"char-RNN scores {sc}: not finite or not falling")
+    if n_lstm != 2 * steps:
+        fail(f"char-RNN: {n_lstm} lstm_scan launches for {steps} "
+             "minibatches of 2 layers")
+    wall_p, rows = profiled(torch, lambda: net.fit_batched(xs[:1], ys[:1]))
+    profile_line(wall_p, rows, phase="5c", run="profiled_minibatch")
+
+    net.lstm_wavefront = True
+    net.fit_batched(xs, ys, epochs=1)
+    torch.cuda.synchronize()
+    tl.lstm_scan_cuda.launches = 0
+    t0 = time.perf_counter()
+    wscores = net.fit_batched(xs, ys, epochs=epochs)
+    torch.cuda.synchronize()
+    wwall = time.perf_counter() - t0
+    line(dict(phase="5c", run="wavefront_arm", lstm_wavefront=True,
+              wall_s=wwall, chars_per_s=chars / wwall,
+              ms_per_minibatch=wwall / steps * 1e3,
+              scores=[float(v) for v in wscores],
+              lstm_scan_launches=tl.lstm_scan_cuda.launches))
+    if tl.lstm_scan_cuda.launches:
+        fail("the wavefront arm launched the lstm_scan kernel")
+
+    net.lstm_wavefront = False
+    net.rnn_clear_previous_state()
+    tl.lstm_scan_cuda.launches = 0
+    srng = np.random.default_rng(1)
+    cur, text = int(ids[0, 0, 0]), []
+    t0 = time.perf_counter()
+    for _ in range(200):
+        probs = net.rnn_time_step(eye[cur][None])[0].float().cpu().numpy()
+        if probs.shape != (CHAR_V,) or not np.all(np.isfinite(probs)):
+            fail(f"rnn_time_step gave {probs.shape} / non-finite values")
+        cur = int(srng.choice(CHAR_V, p=probs / probs.sum()))
+        text.append(cur)
+    swall = time.perf_counter() - t0
+    n_sample = tl.lstm_scan_cuda.launches
+    line(dict(phase="5c", run="sample", chars=len(text), batch=1,
+              wall_s=swall, ms_per_char=swall / len(text) * 1e3,
+              first_ids=text[:16], lstm_scan_launches=n_sample))
+    if n_sample != 2 * len(text):
+        fail(f"sampling launched lstm_scan {n_sample} times for "
+             f"{len(text)} steps of 2 layers")
+    del net, xs, ys
+    torch.cuda.empty_cache()
+    return {"lstm_scan": n_lstm + n_sample}
+
+
+# ---------------------------------------------------------------------------
 
 def main() -> int:
     try:
@@ -1052,12 +1365,15 @@ def main() -> int:
     measured["decode_window"] = phase_window_kernel(torch, dev)
     phase_f32_card_vs_cpu(torch, dev)
     phase_spec_f32_card_vs_cpu(torch, dev)
+    measured["lstm_scan"] = phase_lstm_kernel(torch, dev)
     launches = phase_full_width(torch, dev)
     for name, n in phase_spec_full_width(torch, dev).items():
         launches[name] = launches.get(name, 0) + n
     phase_train_f32_card_vs_cpu(torch, dev)
     for name, n in phase_train_full_width(torch, dev).items():
         launches[name] = launches.get(name, 0) + n
+    phase_lstm_f32_card_vs_cpu(torch, dev)
+    launches.update(phase_lstm_full_width(torch, dev))
 
     sources = {
         "flash_fwd": ("deeplearning4j_tpu_torch/csrc/flash_fwd.cu",
@@ -1069,6 +1385,8 @@ def main() -> int:
             "deeplearning4j_tpu/ops/flash_decode.py:187"),
         "decode_window": ("deeplearning4j_tpu_torch/csrc/decode_window.cu",
                           "deeplearning4j_tpu/ops/flash_decode.py:395"),
+        "lstm_scan": ("deeplearning4j_tpu_torch/csrc/lstm_scan.cu",
+                      "deeplearning4j_tpu/ops/lstm.py:43"),
     }
     kernels = []
     for name, (src, rep) in sources.items():

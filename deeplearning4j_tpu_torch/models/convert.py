@@ -6,9 +6,12 @@ ln2b, W1, b1, W2, b2} stacked on [L], "lnfg", "lnfb", "Wout"}`` — and
 returns the port's tree by key path. No transpose: both sides compute
 ``x @ W`` with W as [in, out]. `adam_state_from_numpy` carries a JAX
 `AdamState` (m and v trees of the params' layout, and the step count)
-across the same way. Callers turn a JAX tree into numpy with
-``jax.tree_util.tree_map(np.asarray, tree)``; this module never imports
-JAX.
+across the same way. `network_params_from_numpy` and
+`updater_state_from_numpy` do the same for a `MultiLayerNetwork`'s
+``{layer_name: {param: array}}`` tree and its updater state
+``{layer_name: {param: {slot: array}}}``. Callers turn a JAX tree into
+numpy with ``jax.tree_util.tree_map(np.asarray, tree)``; this module
+never imports JAX.
 """
 from __future__ import annotations
 
@@ -49,3 +52,38 @@ def adam_state_from_numpy(m_tree: Dict[str, Any], v_tree: Dict[str, Any],
                      v=params_from_numpy(v_tree, dev),
                      count=torch.tensor(int(np.asarray(count)),
                                         dtype=torch.int32, device=dev))
+
+
+def _leaf(x, dev, dtype):
+    """A numpy leaf as a tensor: bfloat16 arrays (which numpy keeps as an
+    extension type torch cannot read) go through float32, exactly."""
+    a = np.asarray(x)
+    if a.dtype.kind not in "biuf" or a.dtype.name == "bfloat16":
+        a = a.astype(np.float32)
+    t = torch.from_numpy(np.array(a, copy=True, order="C"))
+    if dtype is not None:
+        t = t.to(dtype)
+    return t.to(dev)
+
+
+def network_params_from_numpy(tree: Dict[str, Dict[str, Any]], device=None,
+                              dtype: Optional[torch.dtype] = None
+                              ) -> Dict[str, Dict[str, torch.Tensor]]:
+    """A JAX `MultiLayerNetwork.params` tree ``{layer: {param: array}}``
+    as the port's (same keys, no transpose: both compute ``x @ W``),
+    on ``device`` (CUDA unless ``"cpu"``), cast to ``dtype`` if given."""
+    dev = resolve_device(device)
+    return {lname: {k: _leaf(v, dev, dtype) for k, v in ptree.items()}
+            for lname, ptree in tree.items()}
+
+
+def updater_state_from_numpy(tree: Dict[str, Any], device=None
+                             ) -> Dict[str, Any]:
+    """A JAX `MultiLayerNetwork.updater_state` tree ``{layer: {param:
+    {slot: array}}}`` as the port's; every slot keeps its dtype (float32
+    or wider, as both packages keep updater state)."""
+    dev = resolve_device(device)
+    return {lname: {k: {slot: _leaf(v, dev, None)
+                        for slot, v in slots.items()}
+                    for k, slots in ptree.items()}
+            for lname, ptree in tree.items()}

@@ -1,0 +1,106 @@
+"""Layer base classes (port of deeplearning4j_tpu/nn/layers/base.py).
+
+A layer is one dataclass that serializes to JSON, initializes its
+parameter dict and defines the forward::
+
+    y, new_state = layer.apply(params, state, x, train=..., key=..., mask=...)
+
+``params`` is ``{name: tensor}``; autograd replaces a hand-written
+backward. ``key`` is an integer seed (the JAX package's PRNG key): a
+layer that needs random bits makes its own `torch.Generator` from it
+(`apply_dropout`), so a run is a function of its seeds alone. ``mask`` is
+an optional [B] or [B, T] {0,1} tensor.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Dict, Optional, Tuple, Union
+
+import torch
+
+Tensor = torch.Tensor
+
+_M64 = (1 << 64) - 1
+
+
+def fold_in(key: int, data: int) -> int:
+    """A new 63-bit seed from ``key`` and ``data`` (the role of
+    `jax.random.fold_in`): splitmix64 of their mix, so nearby keys and
+    indices give unrelated streams."""
+    z = (int(key) * 0x9E3779B97F4A7C15 + int(data) + 1) & _M64
+    z = ((z ^ (z >> 30)) * 0xBF58476D1CE4E5B9) & _M64
+    z = ((z ^ (z >> 27)) * 0x94D049BB133111EB) & _M64
+    return (z ^ (z >> 31)) >> 1
+
+
+@dataclass
+class Layer:
+    """Base config for every layer type.
+
+    Fields with ``None`` defaults inherit the global value from
+    `NeuralNetConfiguration` when the layer is added to a network."""
+    name: Optional[str] = None
+    dropout: Optional[float] = None  # drop prob applied to layer INPUT
+    l1: Optional[float] = None
+    l2: Optional[float] = None
+    learning_rate: Optional[float] = None  # per-layer LR override
+    bias_learning_rate: Optional[float] = None
+
+    # -- family / shape inference ------------------------------------------
+    @property
+    def family(self) -> str:
+        """Output activation family: 'ff' | 'cnn' | 'rnn'."""
+        return "ff"
+
+    @property
+    def input_family(self) -> str:
+        """Expected input family (for auto preprocessor insertion)."""
+        return self.family
+
+    def update_input_type(self, input_type):
+        """Resolve nIn from ``input_type`` (mutating) and return this
+        layer's output InputType."""
+        return input_type
+
+    # -- params / state -----------------------------------------------------
+    def init_params(self, gen: torch.Generator, dtype=torch.float32,
+                    device=None) -> Dict[str, Tensor]:
+        return {}
+
+    def init_state(self, dtype=torch.float32, device=None
+                   ) -> Dict[str, Tensor]:
+        return {}
+
+    def weight_param_keys(self) -> Tuple[str, ...]:
+        """Parameter names subject to l1/l2 regularization (weights, not
+        biases)."""
+        return ("W",)
+
+    # -- forward ------------------------------------------------------------
+    def apply(self, params: Dict[str, Tensor], state: Dict[str, Tensor],
+              x: Tensor, *, train: bool = False, key: Optional[int] = None,
+              mask: Optional[Tensor] = None
+              ) -> Tuple[Tensor, Dict[str, Tensor]]:
+        return x, state
+
+
+@dataclass
+class BaseLayer(Layer):
+    """Base for layers with weights + activation."""
+    activation: Optional[str] = None
+    weight_init: Optional[str] = None
+    dist: Optional[dict] = None
+    bias_init: float = 0.0
+
+
+def apply_dropout(x: Tensor, rate: float,
+                  key: Union[int, torch.Generator]) -> Tensor:
+    """Inverted dropout on a layer's input; ``rate`` is the drop
+    probability. ``key`` is a `torch.Generator` on x's device or an
+    integer seed for one."""
+    gen = key
+    if not isinstance(gen, torch.Generator):
+        gen = torch.Generator(device=x.device).manual_seed(int(key))
+    keep = 1.0 - rate
+    bits = torch.rand(x.shape, generator=gen, device=x.device) < keep
+    return torch.where(bits, x / keep, torch.zeros_like(x)).to(x.dtype)

@@ -50,6 +50,7 @@ SIGNATURES = {
                           _P]),
     "decode_window": ("dl4j_decode_window",
                       [_P, _P, _P, _P, _P] + [_I] * 7 + [_F, _P]),
+    "lstm_scan": ("dl4j_lstm_scan", [_P] * 11 + [_I] * 6 + [_P]),
 }
 
 _loaded: Dict[str, ctypes._CFuncPtr] = {}

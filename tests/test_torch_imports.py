@@ -68,3 +68,33 @@ def test_entry_points_raise_without_cuda(monkeypatch):
     # an explicit CPU request is honoured
     assert TransformerLM(cfg, device="cpu").device.type == "cpu"
     assert InferenceEngine(cfg, params, device="cpu").device.type == "cpu"
+
+
+def test_multilayer_network_raises_without_cuda(monkeypatch):
+    from deeplearning4j_tpu_torch.models.convert import \
+        network_params_from_numpy
+    from deeplearning4j_tpu_torch.models.zoo import char_rnn_lstm
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        MultiLayerNetwork(char_rnn_lstm(8, hidden=4))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        network_params_from_numpy({"layer_0": {}})
+    net = MultiLayerNetwork(char_rnn_lstm(8, hidden=4), device="cpu")
+    assert net.device.type == "cpu"
+
+
+def test_port_reads_no_kernel_switches():
+    """No environment variable selects or bypasses a kernel: the JAX
+    package's DL4JTPU_FUSED_LSTM and DL4JTPU_WAVEFRONT have no
+    counterpart in the port."""
+    for path in _port_files():
+        for line in path.read_text().splitlines():
+            if "DL4JTPU_" in line:
+                assert "environ" not in line and "getenv" not in line, \
+                    f"{path.relative_to(ROOT)}: {line.strip()}"
+    pkg = ROOT / "deeplearning4j_tpu_torch"
+    for rel in ("ops/lstm.py", "nn/layers/recurrent.py",
+                "nn/multilayer.py"):
+        text = (pkg / rel).read_text()
+        assert "environ" not in text and "getenv" not in text, rel

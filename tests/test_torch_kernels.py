@@ -233,3 +233,83 @@ def test_window_kernel_refuses_unsupported_inputs_on_card(requires_cuda):
     with pytest.raises(TypeError):
         tdec.decode_window_attention(q.half(), cache[..., :64],
                                      cache[..., :64], 3, n_heads=2)
+
+
+# -- the fused LSTM scan (csrc/lstm_scan.cu) -------------------------------
+# Kernel and twin cast the same inputs to float32 at the same points and
+# differ only in the order of the recurrent product's sum, so float32 and
+# bfloat16 inputs alike are held to 1e-5 + 1e-5 |plain| on hs, cs and gates.
+# xw is drawn at the scale of the char-RNN's input projections (std 0.5):
+# the recurrence carries each step's rounding into the next, and at std 1
+# over T=64 the float32 twin alone drifts from a float64 run by up to 0.73
+# of that limit (B=1024, H=200, measured on the CPU), so two float32
+# summation orders can land a limit apart there.
+
+LSTM_TOL = dict(rtol=1e-5, atol=1e-5)
+
+
+def _lstm_inputs(t, b, h, x_dtype, w_dtype, dev, seed=0):
+    xw = (0.5 * torch.from_numpy(_rand((t, b, 4 * h), seed))).to(
+        dev, x_dtype)
+    h0, c0 = ((0.5 * torch.from_numpy(_rand((b, h), seed + i))).to(
+        dev, x_dtype) for i in (1, 2))
+    rw = (h ** -0.5 * torch.from_numpy(_rand((h, 4 * h), seed + 3))).to(
+        dev, w_dtype)
+    rest = [(0.3 * torch.from_numpy(_rand((n,), seed + 4 + i))).to(
+        dev, w_dtype) for i, n in enumerate((4 * h, h, h, h))]
+    return [xw, h0, c0, rw] + rest
+
+
+@pytest.mark.parametrize("t,b,h", [(64, 1024, 200), (7, 5, 37), (1, 1, 200),
+                                   (3, 13, 300), (2, 3, 1100)])
+@pytest.mark.parametrize("x_dtype,w_dtype", [
+    (torch.float32, torch.float32), (torch.bfloat16, torch.bfloat16),
+    (torch.bfloat16, torch.float32)])
+def test_lstm_scan_kernel_matches_plain_on_card(requires_cuda, t, b, h,
+                                                x_dtype, w_dtype):
+    args = _lstm_inputs(t, b, h, x_dtype, w_dtype, requires_cuda)
+    from deeplearning4j_tpu_torch.ops import lstm as tlstm
+    before = tlstm.lstm_scan_cuda.launches
+    got = tlstm.lstm_scan(*args)
+    want = tlstm.lstm_scan_reference(*args)
+    torch.cuda.synchronize()
+    assert tlstm.lstm_scan_cuda.launches == before + 1
+    for g, w in zip(got, want):
+        assert g.dtype == torch.float32
+        np.testing.assert_allclose(g.cpu().numpy(), w.cpu().numpy(),
+                                   **LSTM_TOL)
+
+
+def test_lstm_core_gradients_on_card(requires_cuda):
+    """LSTMCore on the card (kernel forward) against the same Function on
+    the CPU (twin forward): outputs and every input's gradient."""
+    from deeplearning4j_tpu_torch.ops import lstm as tlstm
+    args = _lstm_inputs(9, 6, 40, torch.float32, torch.float32, "cpu", 5)
+    outs = {}
+    for dev in ("cpu", requires_cuda):
+        leaves = [a.to(dev).requires_grad_(True) for a in args]
+        ys, hf, cf = tlstm.LSTMCore.apply(*leaves)
+        w = torch.linspace(-1, 1, ys.numel(), device=dev).reshape(ys.shape)
+        grads = torch.autograd.grad((ys * w).sum() + (hf * cf).sum(),
+                                    leaves)
+        outs[str(dev)] = [x.detach().cpu() for x in (ys, hf, cf, *grads)]
+    for a, b in zip(outs["cpu"], outs[str(requires_cuda)]):
+        np.testing.assert_allclose(b.numpy(), a.numpy(), rtol=1e-4,
+                                   atol=1e-5)
+
+
+def test_lstm_scan_kernel_refuses_unsupported_inputs_on_card(requires_cuda):
+    from deeplearning4j_tpu_torch.ops import lstm as tlstm
+    args = _lstm_inputs(2, 3, 16, torch.float32, torch.float32,
+                        requires_cuda)
+    with pytest.raises(TypeError):
+        tlstm.lstm_scan(args[0].half(), *args[1:])
+    h = 8400                           # 28 * H bytes a row > 227 KB
+    big = [torch.zeros(s, device=requires_cuda) for s in (
+        (1, 1, 4 * h), (1, h), (1, h), (h, 4 * h), (4 * h,), (h,), (h,),
+        (h,))]
+    with pytest.raises(ValueError, match="shared memory"):
+        tlstm.lstm_scan(*big)
+    del big
+    with pytest.raises(ValueError, match="carries"):
+        tlstm.lstm_scan(args[0], args[1][:2], *args[2:])

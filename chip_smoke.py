@@ -3,9 +3,10 @@
 
     python3 chip_smoke.py
 
-Drives the port's serving path (plain and speculative), its train step
-and the GravesLSTM char-RNN's training through MultiLayerNetwork on the
-card and fails (non-zero exit, no result line) if anything is wrong:
+Drives the port's serving path (plain and speculative), its train step,
+the GravesLSTM char-RNN's training through MultiLayerNetwork and the two
+kernel experiments on the card and fails (non-zero exit, no result line)
+if anything is wrong:
 
 1. Kernel vs plain, on the card: the flash-forward kernel at the main
    path's bf16 prefill shapes (64 slots x 8 heads, Dh=64, causal, T=1024
@@ -33,6 +34,20 @@ card and fails (non-zero exit, no result line) if anything is wrong:
    random, so rows clamp at S-1), to phase 1's tolerances; every window
    row must be torch.equal to the decode kernel at pos + t. Yardstick:
    `scaled_dot_product_attention` with the equivalent boolean mask.
+1d. The head-packing experiment's backward kernel (two batch-heads per
+   CTA, dQ, dK and dV in one launch) vs its plain twin at the
+   experiment's shape (16 x 8 heads, T=S=2048, Dh=64, bf16, causal,
+   q-chunked at 512: 4 launches), and vs the production backward kernel
+   on the same inputs, per row to 2^-6; small odd float32 shapes (ragged
+   T=100, fully-masked rows with q before kv, a q_offset chunk,
+   non-causal S != T) to 1e-5 + 1e-5 |plain|. Kernel, twin and
+   SDPA-backward times.
+1e. The decode sweep kernel at every geometry (cache rows per CTA bs in
+   128..2048 x 4 or 8 warps) vs its twin at the sweep's shape (B=64,
+   H=8, Dh=64, S=2048; pos 100, 2000 and a vector with 0 and 2047):
+   bf16 rows to 2^-7, float32 to 1e-5; the production point
+   (bs=2048, 4 warps) and the sweep kernel forced there must both be
+   torch.equal to decode_attention_cuda. ms and bound per bf16 point.
 2. float32 end to end, card vs CPU: a 2-layer model at the full width
    (512d / 8 heads) serves 8 greedy requests x 16 new tokens through
    `InferenceEngine` on cuda and on cpu; tokens must match exactly and
@@ -94,7 +109,14 @@ card and fails (non-zero exit, no result line) if anything is wrong:
    One more minibatch runs under torch.profiler. The same pool with
    lstm_wavefront on (its chars/s; the kernel must not launch), then 200
    characters sampled by rnn_time_step at B=1 (2 launches a step).
-6. Summary: one `kernels` JSON line, then the last line
+6. The two kernel experiments' main() at full shape
+   (`deeplearning4j_tpu_torch.benchmarks.headpack_experiment`: production
+   vs packed q512 vs production q512; `decode_kernel_sweep --bandwidth`,
+   then its 20-point sweep), with launch counters reset before and read
+   after: 4 packed launches per q512 call, the sweep kernel at every
+   non-production geometry. The sweep's bounds stay on the data-sheet
+   3.35 TB/s; the measured copy rate's bound is printed beside them.
+7. Summary: one `kernels` JSON line, then the last line
    {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
 The kernels build from deeplearning4j_tpu_torch/csrc/ at the start (one
@@ -916,6 +938,260 @@ def phase_backward_kernel(torch, dev):
 
 
 # ---------------------------------------------------------------------------
+# phase 1d: the packed two-head backward vs its plain twin and production
+# ---------------------------------------------------------------------------
+
+def phase_packed_backward_kernel(torch, dev):
+    """The head-packing experiment's kernel (flash_bwd_packed2.cu) at the
+    experiment's shape (16 x 8 heads, T = S = 2048, Dh 64, bf16, causal,
+    q-chunked at 512: 4 launches, chunks at q_offset 0, 512, 1024, 1536)
+    against its chunked twin and against the production backward kernel
+    on the same inputs, both per row to 2^-6 (phase 1b's limit); then at
+    small odd float32 shapes to 1e-5 + 1e-5 |plain|. Times one q512 call
+    (the kernel: replays of a CUDA graph of 3 calls, as phase 6 times
+    it), the chunked twin and the SDPA backward (library; these two by
+    `time_ms`, their calls tens of ms and one ms long)."""
+    from deeplearning4j_tpu_torch.benchmarks import _timing
+    from deeplearning4j_tpu_torch.ops import flash_attention as fa
+    import torch.nn.functional as F
+
+    g = torch.Generator(device="cpu").manual_seed(7)
+
+    def rnd(shape, dtype):
+        return torch.randn(shape, generator=g).to(dev, dtype)
+
+    def inputs(bh, tq, sk, dh, dtype, causal, qo, ko):
+        q, do = rnd((bh, tq, dh), dtype), rnd((bh, tq, dh), dtype)
+        k, v = rnd((bh, sk, dh), dtype), rnd((bh, sk, dh), dtype)
+        o, m, logl = fa.flash_forward_cuda(q, k, v, dh ** -0.5, causal, qo,
+                                           ko)
+        return q, k, v, do, m, logl, (do.float() * o.float()).sum(
+            -1, keepdim=True)
+
+    bh, t, dh = 16 * 8, 2048, 64
+    scale = dh ** -0.5
+    args = inputs(bh, t, t, dh, torch.bfloat16, True, 0, 0)
+    before = fa.packed2_backward_cuda.launches
+    got = fa.packed2_backward(*args, scale, True)
+    n_launch = fa.packed2_backward_cuda.launches - before
+    twin = fa.q_chunked(fa.packed2_backward_reference, *args, scale, True)
+    prod = fa.flash_backward_cuda(*args, scale, True)
+    errs = [max_err(a, b) for a, b in zip(got, twin)]
+    rels = [row_rel_err(a, b, BF16_BWD_ROW_RTOL) for a, b in zip(got, twin)]
+    rels_prod = [row_rel_err(a, b, BF16_BWD_ROW_RTOL)
+                 for a, b in zip(got, prod)]
+    if n_launch != t // fa.PACKED2_Q_CHUNK:
+        fail(f"packed backward: {n_launch} launches for one q512 call")
+    if not (max(rels) <= 1.0 and max(rels_prod) <= 1.0):
+        fail(f"packed backward bf16 at the experiment's shape: max err "
+             f"{errs}, row-relative vs twin {rels}, vs the production "
+             f"kernel {rels_prod} (limit 1 of {BF16_BWD_TOL})")
+    del got, twin, prod
+    k_ms = _timing.time_ms(lambda: fa.packed2_backward(*args, scale, True),
+                           dev, 3, 2)
+    p_ms = time_ms(lambda: fa.q_chunked(fa.packed2_backward_reference,
+                                        *args, scale, True),
+                   iters=2, warmup=1)
+    q, k, v, do = args[:4]
+    q4, k4, v4 = (x.view(16, 8, t, dh).detach().requires_grad_()
+                  for x in (q, k, v))
+    out4 = F.scaled_dot_product_attention(q4, k4, v4, is_causal=True,
+                                          scale=scale)
+    do4 = do.view(16, 8, t, dh)
+    lib_ms = time_ms(lambda: torch.autograd.grad(
+        out4, (q4, k4, v4), do4, retain_graph=True), iters=5)
+    # the function is phase 1b's (one whole backward): its inputs read
+    # once and dq, dk, dv written once; five products over the causal half
+    pairs = bh * (t * (t + 1) // 2)
+    nbytes = 7 * bh * t * dh * 2 + 3 * bh * t * 4
+    b_ms, b_by = bound(nbytes, 10 * dh * pairs, "bfloat16")
+    rec = dict(phase="1d", kernel="flash_bwd_packed2", dtype="bfloat16",
+               causal=True, shape=[bh, t, dh], q_chunk=fa.PACKED2_Q_CHUNK,
+               launches_per_call=n_launch, max_abs_err=max(errs),
+               max_abs_err_dq_dk_dv=errs, row_rel_err_dq_dk_dv=rels,
+               row_rel_err_vs_flash_bwd=rels_prod, tol=BF16_BWD_TOL,
+               kernel_ms=k_ms, plain_ms=p_ms, library_ms=lib_ms,
+               bound_ms=b_ms, bound_by=b_by)
+    line(rec)
+    del args, q, k, v, do, q4, k4, v4, out4, do4
+
+    for causal, tq, sk, qo, ko in ((True, 100, 100, 0, 0),
+                                   (True, 64, 96, 0, 32),
+                                   (True, 77, 200, 123, 0),
+                                   (False, 77, 150, 0, 0)):
+        args = inputs(6, tq, sk, dh, torch.float32, causal, qo, ko)
+        got = fa.packed2_backward_cuda(*args, scale, causal, qo, ko)
+        want = fa.packed2_backward_reference(*args, scale, causal, qo, ko)
+        rel = max(f32_rel_err(a, b) for a, b in zip(got, want))
+        line(dict(phase="1d", kernel="flash_bwd_packed2", dtype="float32",
+                  causal=causal, shape=[6, tq, sk, dh], q_offset=qo,
+                  kv_offset=ko, max_abs_err=max(
+                      max_err(a, b) for a, b in zip(got, want)),
+                  rel_err=rel, tol=F32_BWD_TOL))
+        if not rel <= 1.0:
+            fail(f"packed backward f32 {tq}x{sk} offsets {qo},{ko} causal "
+                 f"{causal}: {rel} x its limit")
+    torch.cuda.empty_cache()
+    return rec
+
+
+# ---------------------------------------------------------------------------
+# phase 1e: the decode sweep kernel at every geometry vs its plain twin
+# ---------------------------------------------------------------------------
+
+def phase_decode_sweep_kernel(torch, dev):
+    """The decode sweep (decode_sweep.cu, and the production kernel at its
+    own geometry) at the sweep's shape (B=64, H=8, Dh=64, S=2048, layer 1
+    of a stacked L=2 cache) for every (bs, warps) of the grid, at scalar
+    pos 100 and 2000 and a vector pos holding 0 and 2047: bf16 per row to
+    2^-7 and float32 to 1e-5 against the twin at the same bs. At the
+    production geometry the dispatcher's result, and the sweep kernel's
+    own (forced there), must be torch.equal to decode_attention_cuda.
+    Prints ms and bound per bf16 point; the summary keeps bs 256, 4 warps,
+    pos 2000. Every time here is a call of microseconds, so each is read
+    from replays of a CUDA graph of the calls (`_timing.time_ms`): device
+    time, without the wrappers' host time."""
+    from deeplearning4j_tpu_torch.benchmarks import _timing
+    from deeplearning4j_tpu_torch.benchmarks.decode_kernel_sweep import \
+        SWEEP_BS
+    from deeplearning4j_tpu_torch.ops import flash_decode as fd
+    import torch.nn.functional as F
+
+    g = torch.Generator(device="cpu").manual_seed(8)
+    B, S, D, H = 64, 2048, 512, 8
+    Dh = D // H
+    pos_v = torch.from_numpy(np.random.default_rng(8).integers(
+        0, S, size=B).astype(np.int32))
+    pos_v[0], pos_v[1] = 0, S - 1
+    pos_v = pos_v.to(dev)
+    rec = None
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).split(".")[-1]
+        ck = torch.randn((2, B, S, D), generator=g).to(dev, dtype)
+        cv = torch.randn((2, B, S, D), generator=g).to(dev, dtype)
+        qd = torch.randn((B, H, Dh), generator=g).to(dev, dtype)
+        esz = ck.element_size()
+        for pos in (100, 2000, pos_v):
+            pname = pos if isinstance(pos, int) else "vector [0..2047]"
+            prod = fd.decode_attention_cuda(qd, ck, cv, pos, H, layer=1)
+            own = fd.decode_sweep_cuda(qd, ck, cv, pos, H, S, 4, layer=1)
+            if not torch.equal(own, prod):
+                fail(f"decode sweep kernel at the production geometry "
+                     f"({name}, pos {pname}) differs from decode_attention "
+                     f"by {max_err(own, prod)}")
+            rows = int((torch.as_tensor(pos).clamp(0, S - 1).long() + 1)
+                       .expand(B).sum())
+            nbytes = 2 * rows * D * esz + 2 * B * D * esz
+            b_ms, b_by = bound(nbytes, 4 * rows * D, name)
+            for bs in SWEEP_BS:
+                for warps in fd.SWEEP_WARPS:
+                    got = fd.decode_sweep(qd, ck, cv, pos, H, bs, warps,
+                                          layer=1)
+                    want = fd.reference_split_decode_attention(
+                        qd, ck[1], cv[1], pos, H, bs)
+                    err = max_err(got, want)
+                    prod_point = fd.is_production_geometry(bs, warps, S)
+                    if prod_point and not torch.equal(got, prod):
+                        fail("decode sweep production point is not the "
+                             "production kernel")
+                    if dtype == torch.float32:
+                        ok, rel, tol = err <= 1e-5, None, 1e-5
+                    else:
+                        rel = row_rel_err(got, want)
+                        ok, tol = rel <= 1.0, BF16_TOL
+                    if not ok:
+                        fail(f"decode sweep {name} bs={bs} warps={warps} "
+                             f"pos {pname}: max err {err}, row-relative "
+                             f"{rel}")
+                    r = dict(phase="1e", kernel="decode_sweep", dtype=name,
+                             shape=[2, B, S, D], layer=1, pos=pname, bs=bs,
+                             warps=warps, production=prod_point,
+                             max_abs_err=err, row_rel_err=rel, tol=tol)
+                    if dtype == torch.bfloat16:
+                        r.update(kernel_ms=_timing.time_ms(
+                            lambda: fd.decode_sweep(qd, ck, cv, pos, H, bs,
+                                                    warps, layer=1),
+                            dev, 20, 3), bound_ms=b_ms, bound_by=b_by)
+                    if dtype == torch.bfloat16 and pname == 2000 and \
+                            bs == 256 and warps == 4:
+                        # the summary point: its plain twin, and SDPA
+                        # over the filled rows 0..pos of the same plane
+                        kl = ck[1].view(B, S, H, Dh).transpose(1, 2)
+                        vl = cv[1].view(B, S, H, Dh).transpose(1, 2)
+                        ql = qd.view(B, H, 1, Dh)
+                        r.update(
+                            plain_ms=_timing.time_ms(
+                                lambda: fd.reference_split_decode_attention(
+                                    qd, ck[1], cv[1], pos, H, bs), dev, 5,
+                                3),
+                            library_ms=_timing.time_ms(
+                                lambda: F.scaled_dot_product_attention(
+                                    ql, kl[:, :, :pos + 1],
+                                    vl[:, :, :pos + 1]), dev, 20, 3))
+                        rec = r
+                    line(r)
+        del ck, cv
+    torch.cuda.empty_cache()
+    return rec
+
+
+# ---------------------------------------------------------------------------
+# phase 6: the two kernel experiments at full shape
+# ---------------------------------------------------------------------------
+
+def phase_experiments(torch, dev):
+    """The experiments' main() as a user runs them: the head-packing
+    experiment (three arms at bh 128, T 2048, Dh 64, bf16; 10 calls x 3
+    timings each), the copy-bandwidth probe and the decode sweep (20
+    points). Launch counters are reset before and read after: the packed
+    kernel must launch 4 times per q512 call, the sweep kernel at every
+    non-production geometry and the production kernel at its own. The
+    sweep's bounds stay on the data-sheet 3.35 TB/s; the bound at the
+    measured copy rate is printed beside each."""
+    from deeplearning4j_tpu_torch.benchmarks import (decode_kernel_sweep,
+                                                     headpack_experiment)
+    from deeplearning4j_tpu_torch.ops import flash_attention as fa
+    from deeplearning4j_tpu_torch.ops import flash_decode as fd
+
+    fa.packed2_backward_cuda.launches = 0
+    head = headpack_experiment.main([])
+    n_packed = fa.packed2_backward_cuda.launches
+    if n_packed != 4 * head["packed2_q512_calls"] or not n_packed:
+        fail(f"headpack experiment: {n_packed} packed launches for "
+             f"{head['packed2_q512_calls']} q512 calls")
+
+    probe = decode_kernel_sweep.main(["--bandwidth"])
+    fd.decode_sweep_cuda.launches = 0
+    fd.decode_attention_cuda.launches = 0
+    points = decode_kernel_sweep.main([])
+    n_sweep = fd.decode_sweep_cuda.launches
+    measured = probe["gb_per_s"] * 1e9
+    for p in points:
+        n = p["launches"]
+        ok = (n["decode_attention"] >= 1 and not n["decode_sweep"]) \
+            if p["production"] else n["decode_sweep"] >= 1
+        if not ok:
+            fail(f"decode sweep point bs={p['bs']} warps={p['warps']}: "
+                 f"launches {n}")
+    line(dict(phase=6, run="decode_sweep_vs_bounds",
+              copy_gb_per_s=probe["gb_per_s"],
+              datasheet_gb_per_s=PEAK_BYTES_PER_S / 1e9,
+              points=[dict(bs=p["bs"], warps=p["warps"], pos=p["pos"],
+                           ms=p["ms_per_call"], bound_ms=p["bound_ms"],
+                           bound_ms_at_copy_rate=(p["bound_bytes"] / measured
+                                                  * 1e3))
+                      for p in points]))
+    line(dict(phase=6, run="headpack_summary",
+              production_ms=head["production_ms"],
+              packed2_q512_ms=head["packed2_q512_ms"],
+              production_q512_ms=head["production_q512_ms"],
+              packed2_launches=n_packed,
+              packed2_q512_calls=head["packed2_q512_calls"],
+              decode_sweep_launches=n_sweep))
+    return {"flash_bwd_packed2": n_packed, "decode_sweep": n_sweep}
+
+
+# ---------------------------------------------------------------------------
 # phase 4: training
 # ---------------------------------------------------------------------------
 
@@ -1363,6 +1639,8 @@ def main() -> int:
     measured = phase_kernels(torch, dev)
     measured["flash_bwd"] = phase_backward_kernel(torch, dev)
     measured["decode_window"] = phase_window_kernel(torch, dev)
+    measured["flash_bwd_packed2"] = phase_packed_backward_kernel(torch, dev)
+    measured["decode_sweep"] = phase_decode_sweep_kernel(torch, dev)
     phase_f32_card_vs_cpu(torch, dev)
     phase_spec_f32_card_vs_cpu(torch, dev)
     measured["lstm_scan"] = phase_lstm_kernel(torch, dev)
@@ -1374,6 +1652,7 @@ def main() -> int:
         launches[name] = launches.get(name, 0) + n
     phase_lstm_f32_card_vs_cpu(torch, dev)
     launches.update(phase_lstm_full_width(torch, dev))
+    launches.update(phase_experiments(torch, dev))
 
     sources = {
         "flash_fwd": ("deeplearning4j_tpu_torch/csrc/flash_fwd.cu",
@@ -1387,6 +1666,11 @@ def main() -> int:
                           "deeplearning4j_tpu/ops/flash_decode.py:395"),
         "lstm_scan": ("deeplearning4j_tpu_torch/csrc/lstm_scan.cu",
                       "deeplearning4j_tpu/ops/lstm.py:43"),
+        "flash_bwd_packed2": (
+            "deeplearning4j_tpu_torch/csrc/flash_bwd_packed2.cu",
+            "benchmarks/headpack_experiment.py:62"),
+        "decode_sweep": ("deeplearning4j_tpu_torch/csrc/decode_sweep.cu",
+                         "benchmarks/decode_kernel_sweep.py:84"),
     }
     kernels = []
     for name, (src, rep) in sources.items():

@@ -10,8 +10,11 @@ hand-written Hopper kernel under `csrc/`, built at first use by
 Ported so far: the continuous-batching TransformerLM server
 (`serving.InferenceEngine`) with speculative decoding (drafters "self" and
 "layers:N", `quant.model.draft_tree`), `models.transformer.TransformerLM`
-with its loss, and the single-device Adam train step
-(`parallel.fsdp.make_fsdp_train_step`).
+with its loss, the single-device Adam train step
+(`parallel.fsdp.make_fsdp_train_step`), the config DSL's
+`nn.multilayer.MultiLayerNetwork` with the GravesLSTM char-RNN, and the
+two kernel experiments (`benchmarks.headpack_experiment`,
+`benchmarks.decode_kernel_sweep`).
 
 Imports stay light: no subpackage is imported here, and nothing of JAX
 or of `deeplearning4j_tpu` is imported anywhere in this package.

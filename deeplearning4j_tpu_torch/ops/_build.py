@@ -51,6 +51,9 @@ SIGNATURES = {
     "decode_window": ("dl4j_decode_window",
                       [_P, _P, _P, _P, _P] + [_I] * 7 + [_F, _P]),
     "lstm_scan": ("dl4j_lstm_scan", [_P] * 11 + [_I] * 6 + [_P]),
+    "flash_bwd_packed2": ("dl4j_flash_bwd_packed2",
+                          [_P] * 11 + [_I] * 5 + [_F, _I, _I, _I, _P]),
+    "decode_sweep": ("dl4j_decode_sweep", [_P] * 8 + [_I] * 8 + [_F, _P]),
 }
 
 _loaded: Dict[str, ctypes._CFuncPtr] = {}

@@ -16,6 +16,12 @@ Routing: `flash_forward` / `flash_backward` launch the CUDA kernels for
 CUDA tensors (or raise for what they do not take) and run
 `flash_forward_reference` / `flash_backward_reference` for CPU tensors
 only. There is no switch that sends CUDA tensors to the plain path.
+
+The head-packing experiment's backward
+(benchmarks/headpack_experiment.py `_packed2_kernel`: two batch-heads per
+program, dQ, dK and dV in one pass) is `csrc/flash_bwd_packed2.cu` with
+the twin `packed2_backward_reference`, routed the same way by
+`packed2_backward`, which q-chunks at 512 rows as the experiment does.
 """
 from __future__ import annotations
 
@@ -149,6 +155,21 @@ def _check_cuda_inputs(q3, k3, v3, what: str = "flash_forward") -> None:
                          f"128, got {q3.shape[2]}")
 
 
+def _check_backward_inputs(q3, k3, v3, do3, m, logl, delta,
+                           what: str) -> None:
+    _check_cuda_inputs(q3, k3, v3, what)
+    bh, tq, _ = q3.shape
+    if not do3.is_cuda or do3.dtype != q3.dtype or do3.shape != q3.shape:
+        raise ValueError(f"{what}: dO must be a CUDA tensor like q "
+                         f"{tuple(q3.shape)} {q3.dtype}, got "
+                         f"{tuple(do3.shape)} {do3.dtype}")
+    for name, t in (("m", m), ("logl", logl), ("delta", delta)):
+        if not t.is_cuda or t.dtype != torch.float32 \
+                or t.shape != (bh, tq, 1):
+            raise ValueError(f"{what}: {name} must be a float32 CUDA "
+                             f"tensor of shape {(bh, tq, 1)}")
+
+
 def flash_forward_cuda(q3, k3, v3, scale: float, causal: bool,
                        q_offset: int = 0, kv_offset: int = 0):
     """Launch csrc/flash_fwd.cu on CUDA tensors [BH, T, Dh]; returns
@@ -192,17 +213,9 @@ def flash_backward_cuda(q3, k3, v3, do3, m, logl, delta, scale: float,
     """Launch csrc/flash_bwd.cu on CUDA tensors; returns (dq, dk, dv)
     like the plain twin. One call launches its two kernels (dK/dV, then
     dQ) and counts one launch."""
-    _check_cuda_inputs(q3, k3, v3, "flash_backward")
+    _check_backward_inputs(q3, k3, v3, do3, m, logl, delta,
+                           "flash_backward")
     bh, tq, dh = q3.shape
-    if not do3.is_cuda or do3.dtype != q3.dtype or do3.shape != q3.shape:
-        raise ValueError(f"flash_backward: dO must be a CUDA tensor like q "
-                         f"{tuple(q3.shape)} {q3.dtype}, got "
-                         f"{tuple(do3.shape)} {do3.dtype}")
-    for name, t in (("m", m), ("logl", logl), ("delta", delta)):
-        if not t.is_cuda or t.dtype != torch.float32 \
-                or t.shape != (bh, tq, 1):
-            raise ValueError(f"flash_backward: {name} must be a float32 "
-                             f"CUDA tensor of shape {(bh, tq, 1)}")
     q3, k3, v3, do3, m, logl, delta = (
         t.contiguous() for t in (q3, k3, v3, do3, m, logl, delta))
     sk = k3.shape[1]
@@ -228,6 +241,167 @@ def flash_backward(q3, k3, v3, do3, m, logl, delta, scale: float,
     fn = flash_backward_cuda if q3.is_cuda else flash_backward_reference
     return fn(q3, k3, v3, do3, m, logl, delta, scale, causal, q_offset,
               kv_offset)
+
+
+def _inner_block(n: int, cap: int = 512) -> int:
+    """The JAX package's score-tile edge (its ops/flash_attention.py:65):
+    the largest power of two <= cap dividing n, or n itself when it fits
+    in one tile or nothing divides it. A copy, so the port imports
+    nothing of that package."""
+    if n <= cap:
+        return n
+    b = cap
+    while n % b and b > 8:
+        b //= 2
+    return b if n % b == 0 else n
+
+
+def _check_pairs(q3) -> None:
+    if q3.shape[0] % 2:
+        raise ValueError(f"packed2_backward packs two batch-heads per "
+                         f"program: bh must be even, got {q3.shape[0]}")
+
+
+def packed2_backward_reference(q3, k3, v3, do3, m, logl, delta,
+                               scale: float, causal: bool, q_offset: int = 0,
+                               kv_offset: int = 0
+                               ) -> Tuple[torch.Tensor, torch.Tensor,
+                                          torch.Tensor]:
+    """Plain twin of the two-heads-per-program backward
+    (benchmarks/headpack_experiment.py:62 `_packed2_kernel`): the same
+    (dq, dk, dv) as `flash_backward_reference`, summed in that kernel's
+    order. Batch-heads pair up as (2i, 2i+1); the pairs are independent
+    programs, so they run as one batch dimension. For each k tile (edge
+    `_inner_block(sk, 256)`), slot 0 then slot 1 walk the q tiles (edge
+    `_inner_block(tq)`) from the first one that reaches the tile (causal
+    skip only when kv_offset <= q_offset), the causal mask applied on the
+    tiles that straddle the diagonal; dK and dV of the tile sum in
+    float32 over the q tiles and dQ sums in a float32 accumulator over
+    the k tiles, scaled at the end."""
+    _check_pairs(q3)
+    bh, tq, dh = q3.shape
+    sk = k3.shape[1]
+    dev = q3.device
+    bq, bk = _inner_block(tq), _inner_block(sk, 256)
+    nqb = tq // bq
+    skip_safe = causal and kv_offset <= q_offset
+
+    def pairs(t):
+        return t.to(torch.float32).reshape(bh // 2, 2, *t.shape[1:])
+
+    q, k, v, do, mm, ll, dd = (pairs(t) for t in (q3, k3, v3, do3, m, logl,
+                                                  delta))
+    dq_acc = torch.zeros_like(q)
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    for k0 in range(0, sk, bk):
+        ki0 = k0 + kv_offset
+        start = max(0, -(-(ki0 - q_offset - (bq - 1)) // bq)) \
+            if skip_safe else 0
+        full_start = min(max(-(-(ki0 + bk - 1 - q_offset) // bq), start),
+                         nqb) if causal else start
+        for slot in range(2):
+            kj, vj = k[:, slot, k0:k0 + bk], v[:, slot, k0:k0 + bk]
+            dka = torch.zeros_like(kj)
+            dva = torch.zeros_like(vj)
+            for i in range(start, nqb):
+                rows = slice(i * bq, (i + 1) * bq)
+                qi, doi = q[:, slot, rows], do[:, slot, rows]
+                mi, li, di = (t[:, slot, rows] for t in (mm, ll, dd))
+                s = torch.matmul(qi, kj.transpose(1, 2)) * scale
+                valid = None
+                if causal and i < full_start:
+                    qpos = torch.arange(i * bq, (i + 1) * bq,
+                                        device=dev)[:, None] + q_offset
+                    kpos = torch.arange(bk, device=dev)[None, :] + ki0
+                    valid = qpos >= kpos
+                    s = torch.where(valid, s, torch.full_like(s, NEG_INF))
+                p = torch.exp(s - (mi + li)) if skip_safe \
+                    else torch.exp((s - mi) - li)
+                pr = p.to(do3.dtype).to(torch.float32)
+                dva += torch.matmul(pr.transpose(1, 2), doi)
+                ds = p * (torch.matmul(doi, vj.transpose(1, 2)) - di)
+                if valid is not None:
+                    ds = torch.where(valid, ds, torch.zeros_like(ds))
+                dsq = ds.to(q3.dtype).to(torch.float32)
+                dka += torch.matmul(dsq.transpose(1, 2), qi)
+                dq_acc[:, slot, rows] += torch.matmul(dsq, kj)
+            dk[:, slot, k0:k0 + bk] = dka * scale
+            dv[:, slot, k0:k0 + bk] = dva
+    return ((dq_acc * scale).to(q3.dtype).reshape(bh, tq, dh),
+            dk.to(k3.dtype).reshape(bh, sk, dh),
+            dv.to(v3.dtype).reshape(bh, sk, dh))
+
+
+def packed2_backward_cuda(q3, k3, v3, do3, m, logl, delta, scale: float,
+                          causal: bool, q_offset: int = 0,
+                          kv_offset: int = 0):
+    """Launch csrc/flash_bwd_packed2.cu on CUDA tensors: ONE launch for
+    dq, dk and dv, one CTA per pair of batch-heads. Takes head dims 32
+    and 64 (the experiment's Dh=64 heads; two slots' tiles of Dh=128 do
+    not fit a CTA's shared memory). Counts its launches."""
+    _check_backward_inputs(q3, k3, v3, do3, m, logl, delta,
+                           "packed2_backward")
+    _check_pairs(q3)
+    bh, tq, dh = q3.shape
+    if dh not in (32, 64):
+        raise ValueError(f"packed2_backward kernel takes head dim 32 or 64, "
+                         f"got {dh}")
+    q3, k3, v3, do3, m, logl, delta = (
+        t.contiguous() for t in (q3, k3, v3, do3, m, logl, delta))
+    sk = k3.shape[1]
+    dq, dk, dv = (torch.empty_like(t) for t in (q3, k3, v3))
+    # dQ's float32 accumulator: [2, tq, Dh] per CTA is 256 KB at tq=512,
+    # more than a CTA's shared memory, so it lives in device memory (L2)
+    ws = torch.empty((bh, tq, dh), dtype=torch.float32, device=q3.device)
+    fn = _build.load("flash_bwd_packed2")
+    err = fn(q3.data_ptr(), k3.data_ptr(), v3.data_ptr(), do3.data_ptr(),
+             m.data_ptr(), logl.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+             dk.data_ptr(), dv.data_ptr(), ws.data_ptr(), bh, tq, sk, dh,
+             _build.dtype_code(q3.dtype), float(scale), int(bool(causal)),
+             int(q_offset), int(kv_offset), _build.stream_ptr(q3.device))
+    _build.check(err, "flash_bwd_packed2")
+    packed2_backward_cuda.launches += 1
+    return dq, dk, dv
+
+
+packed2_backward_cuda.launches = 0
+
+PACKED2_Q_CHUNK = 512
+
+
+def q_chunked(fn, q3, k3, v3, do3, m, logl, delta, scale: float,
+              causal: bool, q_offset: int = 0, kv_offset: int = 0):
+    """A backward ``fn`` over q chunks of PACKED2_Q_CHUNK rows when tq is
+    a larger multiple of it (headpack_experiment.py:148-173): each chunk at
+    q_offset + lo against the whole k/v, dq concatenated, dk and dv summed
+    in float32 over the chunks and cast back. Otherwise one call."""
+    tq, chunk = q3.shape[1], PACKED2_Q_CHUNK
+    if not (tq > chunk and tq % chunk == 0):
+        return fn(q3, k3, v3, do3, m, logl, delta, scale, causal, q_offset,
+                  kv_offset)
+    dqs, dk, dv = [], None, None
+    for lo in range(0, tq, chunk):
+        sl = slice(lo, lo + chunk)
+        dq_c, dk_c, dv_c = fn(q3[:, sl], k3, v3, do3[:, sl], m[:, sl],
+                              logl[:, sl], delta[:, sl], scale, causal,
+                              q_offset + lo, kv_offset)
+        dqs.append(dq_c)
+        dk = dk_c.to(torch.float32) if dk is None \
+            else dk + dk_c.to(torch.float32)
+        dv = dv_c.to(torch.float32) if dv is None \
+            else dv + dv_c.to(torch.float32)
+    return torch.cat(dqs, dim=1), dk.to(k3.dtype), dv.to(v3.dtype)
+
+
+def packed2_backward(q3, k3, v3, do3, m, logl, delta, scale: float,
+                     causal: bool, q_offset: int = 0, kv_offset: int = 0):
+    """(dq, dk, dv) of the head-packing experiment, q-chunked at 512 rows
+    as the JAX experiment's `packed2_backward` is: the packed kernel
+    (one launch a chunk) for CUDA tensors, its plain twin for CPU
+    tensors."""
+    fn = packed2_backward_cuda if q3.is_cuda else packed2_backward_reference
+    return q_chunked(fn, q3, k3, v3, do3, m, logl, delta, scale, causal,
+                     q_offset, kv_offset)
 
 
 class FlashAttention(torch.autograd.Function):

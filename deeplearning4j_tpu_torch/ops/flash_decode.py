@@ -242,3 +242,126 @@ def decode_window_attention(q, k_cache, v_cache, pos: PosLike, n_heads: int,
         k_cache, v_cache = k_cache[layer], v_cache[layer]
     return reference_window_attention(q, k_cache, v_cache, pos, n_heads,
                                       scale)
+
+
+# ---------------------------------------------------------------------------
+# the decode kernel at swept launch geometries (benchmarks/decode_kernel_sweep)
+# ---------------------------------------------------------------------------
+
+SWEEP_WARPS = (4, 8)                     # warps per CTA the kernel takes
+PRODUCTION_WARPS = 4                     # decode_core.cuh's WARPS
+
+
+def reference_split_decode_attention(q, k_cache, v_cache, pos: PosLike,
+                                     n_heads: int, bs: int,
+                                     scale: Optional[float] = None
+                                     ) -> torch.Tensor:
+    """Plain twin of csrc/decode_sweep.cu: the function of
+    `reference_decode_attention` (q [B, H, Dh] at ``pos`` attends rows
+    0..pos of k/v [B, S, D=H*Dh]; scalar or [B] pos), computed as the
+    kernel splits it. Each run of ``bs`` cache rows gives a float32
+    partial: its max score m, l = sum exp(s - m) and acc = sum of
+    exp(s - m) rounded to the value dtype times v. The partials of the
+    splits that start at or before pos merge by their weights
+    exp(m - max m); splits wholly past pos take no part."""
+    b, s, d = k_cache.shape
+    h = n_heads
+    dh = d // h
+    if scale is None:
+        scale = 1.0 / (dh ** 0.5)
+    ct = torch.promote_types(q.dtype, k_cache.dtype)
+    st = torch.promote_types(ct, torch.float32)
+    ns = -(-s // bs)
+    pad = ns * bs - s
+    kh = k_cache.reshape(b, s, h, dh).to(st)
+    vh = torch.nn.functional.pad(v_cache.reshape(b, s, h, dh).to(st),
+                                 (0, 0, 0, 0, 0, pad))
+    sc = torch.einsum("bhd,bshd->bhs", q.to(st), kh).to(torch.float32) \
+        * scale
+    if isinstance(pos, torch.Tensor):
+        pos_t = pos.to(q.device).clamp(0, s - 1)
+        bound = pos_t[:, None, None] if pos_t.ndim else pos_t
+    else:   # a Python int stays on the host (no copy: CUDA-graph safe)
+        bound = min(max(int(pos), 0), s - 1)
+    rows = torch.arange(ns * bs, device=q.device)[None, None, :]
+    sc = torch.nn.functional.pad(sc, (0, pad))
+    sc = torch.where(rows <= bound, sc, torch.full_like(sc, NEG_INF))
+    sc = sc.reshape(b, h, ns, bs)
+    m = sc.amax(dim=-1)                                   # [B, H, ns]
+    p = torch.exp(sc - m[..., None])
+    l = p.sum(dim=-1)
+    pr = p.to(ct).to(st)
+    acc = torch.einsum("bhns,bnshd->bhnd", pr,
+                       vh.reshape(b, ns, bs, h, dh)).to(torch.float32)
+    starts = torch.arange(ns, device=q.device)[None, None, :] * bs
+    live = starts <= bound
+    mt = torch.where(live, m, torch.full_like(m, float("-inf"))).amax(
+        dim=-1, keepdim=True)
+    w = torch.where(live, torch.exp(m - mt), torch.zeros_like(m))
+    lt = (w * l).sum(dim=-1)
+    at = (w[..., None] * acc).sum(dim=-2)
+    return (at / lt[..., None]).to(q.dtype)
+
+
+def decode_sweep_cuda(q, k_cache, v_cache, pos: PosLike, n_heads: int,
+                      bs: int, warps: int = PRODUCTION_WARPS,
+                      scale: Optional[float] = None,
+                      layer: int = 0) -> torch.Tensor:
+    """Launch csrc/decode_sweep.cu: ceil(S/bs) CTAs of ``warps`` warps
+    along S for each (b, h), then the merge of their partials. Same
+    checks and cache forms as `decode_attention_cuda` (the stacked
+    cache's layer plane is a pointer offset, never copied). One call
+    launches the split kernel and the merge and counts one launch."""
+    if q.ndim != 3:
+        raise ValueError(f"decode_sweep: bad q shape {tuple(q.shape)}")
+    if warps not in SWEEP_WARPS:
+        raise ValueError(f"decode_sweep kernel takes {SWEEP_WARPS} warps, "
+                         f"got {warps}")
+    if bs < 1:
+        raise ValueError(f"decode_sweep: bs must be >= 1, got {bs}")
+    b, h, dh = q.shape
+    q, kp, vp, pos_ptr, pos_scalar, pos_keep, s, code = _kernel_args(
+        "decode_sweep", q, k_cache, v_cache, pos, b, h, dh, n_heads, layer)
+    if scale is None:
+        scale = 1.0 / (dh ** 0.5)
+    ns = -(-s // bs)
+    o = torch.empty_like(q)
+    part = torch.empty((2, b, h, ns), dtype=torch.float32, device=q.device)
+    acc = torch.empty((b, h, ns, dh), dtype=torch.float32, device=q.device)
+    fn = _build.load("decode_sweep")
+    err = fn(q.data_ptr(), kp, vp, o.data_ptr(), part[0].data_ptr(),
+             part[1].data_ptr(), acc.data_ptr(), pos_ptr, pos_scalar, b, h,
+             dh, s, int(bs), int(warps), code, float(scale),
+             _build.stream_ptr(q.device))
+    _build.check(err, "decode_sweep")
+    decode_sweep_cuda.launches += 1
+    return o
+
+
+decode_sweep_cuda.launches = 0
+
+
+def is_production_geometry(bs: int, warps: int, s: int) -> bool:
+    """One CTA over the whole cache with decode_core.cuh's 4 warps: the
+    production decode kernel's own launch."""
+    return bs >= s and warps == PRODUCTION_WARPS
+
+
+def decode_sweep(q, k_cache, v_cache, pos: PosLike, n_heads: int, bs: int,
+                 warps: int = PRODUCTION_WARPS, scale: Optional[float] = None,
+                 layer: int = 0) -> torch.Tensor:
+    """Decode attention at launch geometry (bs cache rows per CTA, warps
+    per CTA), for the decode-kernel sweep. CUDA tensors: the production
+    geometry goes to the production kernel (`decode_attention_cuda`),
+    every other one to `decode_sweep_cuda`. CPU tensors: the plain twin
+    `reference_split_decode_attention` at the same bs."""
+    if q.is_cuda:
+        if is_production_geometry(bs, warps, k_cache.shape[-2]):
+            return decode_attention_cuda(q, k_cache, v_cache, pos, n_heads,
+                                         scale, layer)
+        return decode_sweep_cuda(q, k_cache, v_cache, pos, n_heads, bs,
+                                 warps, scale, layer)
+    if k_cache.ndim == 4:
+        k_cache, v_cache = k_cache[layer], v_cache[layer]
+    return reference_split_decode_attention(q, k_cache, v_cache, pos,
+                                            n_heads, bs, scale)

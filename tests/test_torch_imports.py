@@ -98,3 +98,43 @@ def test_port_reads_no_kernel_switches():
                 "nn/multilayer.py"):
         text = (pkg / rel).read_text()
         assert "environ" not in text and "getenv" not in text, rel
+
+
+EXPERIMENTS = ("deeplearning4j_tpu_torch.benchmarks.headpack_experiment",
+               "deeplearning4j_tpu_torch.benchmarks.decode_kernel_sweep")
+
+
+def test_kernel_experiment_modules_are_checked():
+    """The experiments and the ops modules that carry their kernels are
+    among the files the import rule parses."""
+    names = {str(p.relative_to(ROOT)) for p in _port_files()}
+    for rel in ("benchmarks/__init__.py", "benchmarks/_timing.py",
+                "benchmarks/headpack_experiment.py",
+                "benchmarks/decode_kernel_sweep.py",
+                "ops/flash_attention.py", "ops/flash_decode.py"):
+        assert f"deeplearning4j_tpu_torch/{rel}" in names, rel
+
+
+def test_kernel_experiments_load_no_jax():
+    """Importing the experiments in a fresh interpreter loads no jax and
+    nothing of the JAX package."""
+    import subprocess
+    import sys
+    code = ("import sys\n"
+            + "".join(f"import {m}\n" for m in EXPERIMENTS)
+            + "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+              "('jax', 'jaxlib', 'deeplearning4j_tpu'))\n"
+              "print(bad)\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"
+
+
+@pytest.mark.parametrize("module", EXPERIMENTS)
+def test_kernel_experiments_raise_without_cuda(monkeypatch, module):
+    import importlib
+    mod = importlib.import_module(module)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        mod.main(["--small"])

@@ -313,3 +313,148 @@ def test_lstm_scan_kernel_refuses_unsupported_inputs_on_card(requires_cuda):
     del big
     with pytest.raises(ValueError, match="carries"):
         tlstm.lstm_scan(args[0], args[1][:2], *args[2:])
+
+
+# -- the head-packing experiment's backward (csrc/flash_bwd_packed2.cu) ----
+# The same function as flash_bwd.cu in one launch, two batch-heads per CTA:
+# held to the backward's limits (float32 1e-5 + 1e-5 |plain|; bf16 rows to
+# 2^-6) against its twin, and against the production kernel in bf16.
+
+@pytest.mark.parametrize("dh", [32, 64])
+@pytest.mark.parametrize("causal,tq,sk,qo,ko", [
+    (True, 100, 100, 0, 0),       # ragged tail inside one tile
+    (True, 64, 96, 0, 32),        # kv_offset > q_offset: masked rows
+    (True, 130, 200, 70, 0),      # causal skip with q after kv
+    (False, 77, 150, 0, 0),       # full attention, S != T
+    (True, 512, 1024, 512, 0),    # a q512 chunk at q_offset 512
+])
+def test_packed2_kernel_matches_plain_on_card(requires_cuda, dh, causal, tq,
+                                              sk, qo, ko):
+    args = _bwd_inputs(requires_cuda, torch.float32, tq, sk, dh, causal, qo,
+                       ko)
+    args = [torch.cat([a, a.flip(0)]) for a in args]   # bh 6: three pairs
+    before = tfa.packed2_backward_cuda.launches
+    got = tfa.packed2_backward_cuda(*args, dh ** -0.5, causal, qo, ko)
+    want = tfa.packed2_backward_reference(*args, dh ** -0.5, causal, qo, ko)
+    torch.cuda.synchronize()
+    assert tfa.packed2_backward_cuda.launches == before + 1
+    for a, b in zip(got, want):
+        np.testing.assert_allclose(a.cpu().numpy(), b.cpu().numpy(),
+                                   **F32_BWD)
+
+
+def test_packed2_kernel_bf16_q_chunked_on_card(requires_cuda):
+    args = _bwd_inputs(requires_cuda, torch.bfloat16, 1024, 1024, 64, True,
+                       0, 0)
+    args = [torch.cat([a, a.flip(0)]) for a in args]
+    before = tfa.packed2_backward_cuda.launches
+    got = tfa.packed2_backward(*args, 0.125, True)
+    torch.cuda.synchronize()
+    assert tfa.packed2_backward_cuda.launches == before + 2   # two chunks
+    twin = tfa.q_chunked(tfa.packed2_backward_reference, *args, 0.125, True)
+    prod = tfa.flash_backward_cuda(*args, 0.125, True)
+    for a, b, c in zip(got, twin, prod):
+        assert a.dtype == torch.bfloat16
+        _assert_close(a, b, torch.bfloat16, row_rtol=2.0 ** -6)
+        _assert_close(a, c, torch.bfloat16, row_rtol=2.0 ** -6)
+
+
+def test_packed2_kernel_refuses_unsupported_inputs_on_card(requires_cuda):
+    st = torch.zeros(3, 8, 1, device=requires_cuda)
+    q = torch.zeros(3, 8, 64, device=requires_cuda)
+    with pytest.raises(ValueError, match="even"):
+        tfa.packed2_backward(q, q, q, q, st, st, st, 0.1, True)
+    st, q = st[:2], torch.zeros(2, 8, 128, device=requires_cuda)
+    with pytest.raises(ValueError, match="head dim 32 or 64"):
+        tfa.packed2_backward(q, q, q, q, st, st, st, 0.1, True)
+
+
+# -- the decode sweep (csrc/decode_sweep.cu) ------------------------------
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("warps", [4, 8])
+@pytest.mark.parametrize("bs", [128, 256, 512, 1024, 2048])
+def test_decode_sweep_kernel_matches_plain_on_card(requires_cuda, dtype,
+                                                   warps, bs):
+    b, h, dh, s = 4, 2, 64, 2048
+    dev = requires_cuda
+    q = torch.from_numpy(_rand((b, h, dh), 90)).to(dev, dtype)
+    k = torch.from_numpy(_rand((2, b, s, h * dh), 91)).to(dev, dtype)
+    v = torch.from_numpy(_rand((2, b, s, h * dh), 92)).to(dev, dtype)
+    for pos in (torch.tensor([0, s - 1, 700, 100], dtype=torch.int32,
+                             device=dev), 2000):
+        before = tdec.decode_sweep_cuda.launches
+        got = tdec.decode_sweep_cuda(q, k, v, pos, h, bs, warps, layer=1)
+        want = tdec.reference_split_decode_attention(q, k[1], v[1], pos, h,
+                                                     bs)
+        torch.cuda.synchronize()
+        assert tdec.decode_sweep_cuda.launches == before + 1
+        _assert_close(got, want, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dh", [32, 64, 128])
+def test_decode_sweep_production_point_equals_decode_kernel(requires_cuda,
+                                                            dtype, dh):
+    """bs = S with 4 warps: the dispatcher launches the production kernel,
+    and the sweep kernel itself, forced there, reproduces it bit for bit
+    (one split, merge weight expf(0) = 1)."""
+    b, h, s = 4, 2, 300
+    dev = requires_cuda
+    q = torch.from_numpy(_rand((b, h, dh), 93)).to(dev, dtype)
+    k = torch.from_numpy(_rand((b, s, h * dh), 94)).to(dev, dtype)
+    v = torch.from_numpy(_rand((b, s, h * dh), 95)).to(dev, dtype)
+    pos = torch.tensor([0, s - 1, 17, 150], dtype=torch.int32, device=dev)
+    before = (tdec.decode_sweep_cuda.launches,
+              tdec.decode_attention_cuda.launches)
+    routed = tdec.decode_sweep(q, k, v, pos, h, s, 4)
+    assert (tdec.decode_sweep_cuda.launches,
+            tdec.decode_attention_cuda.launches) == (before[0],
+                                                     before[1] + 1)
+    prod = tdec.decode_attention_cuda(q, k, v, pos, h)
+    own = tdec.decode_sweep_cuda(q, k, v, pos, h, s, 4)
+    assert torch.equal(routed, prod)
+    assert torch.equal(own, prod)
+
+
+def test_decode_sweep_kernel_refuses_unsupported_inputs_on_card(
+        requires_cuda):
+    q = torch.zeros(2, 2, 48, device=requires_cuda)
+    cache = torch.zeros(2, 16, 96, device=requires_cuda)
+    with pytest.raises(ValueError, match="head dim"):
+        tdec.decode_sweep(q, cache, cache, 3, 2, 8, 4)
+    q, cache = q[..., :32], cache[..., :64]
+    with pytest.raises(ValueError, match="warps"):
+        tdec.decode_sweep(q, cache, cache, 3, 2, 8, 2)
+    with pytest.raises(TypeError):
+        tdec.decode_sweep(q.half(), cache, cache, 3, 2, 8, 4)
+
+
+def test_graph_timing_replays_the_kernels_on_card(requires_cuda):
+    """The experiments' timer captures its calls in a CUDA graph: the
+    wrappers run (and count) once per captured call, and every replay
+    re-runs the captured kernels on the same buffers."""
+    from deeplearning4j_tpu_torch.benchmarks import _timing
+    dev = requires_cuda
+    b, h, dh, s = 4, 2, 64, 512
+    q = torch.from_numpy(_rand((b, h, dh), 96)).to(dev, torch.bfloat16)
+    k = torch.from_numpy(_rand((b, s, h * dh), 97)).to(dev, torch.bfloat16)
+    v = torch.from_numpy(_rand((b, s, h * dh), 98)).to(dev, torch.bfloat16)
+    outs = []
+    before = tdec.decode_sweep_cuda.launches
+    ms = _timing.time_ms(
+        lambda: outs.append(tdec.decode_sweep(q, k, v, 300, h, 128, 8)),
+        dev, 3, 2)
+    torch.cuda.synchronize()
+    assert 0 < ms < float("inf")
+    assert tdec.decode_sweep_cuda.launches == before + 4    # warm + 3
+    want = tdec.reference_split_decode_attention(q, k, v, 300, h, 128)
+    for got in outs:
+        _assert_close(got, want, torch.bfloat16)
+    args = _bwd_inputs(dev, torch.float32, 64, 64, 64, True, 0, 0)
+    args = [torch.cat([a, a.flip(0)]) for a in args]   # bh 6: three pairs
+    before = tfa.packed2_backward_cuda.launches
+    ms = _timing.time_ms(lambda: tfa.packed2_backward(*args, 0.125, True),
+                         dev, 2, 1)
+    assert 0 < ms < float("inf")
+    assert tfa.packed2_backward_cuda.launches == before + 3

@@ -8,6 +8,11 @@ the GravesLSTM char-RNN's training through MultiLayerNetwork and the two
 kernel experiments on the card and fails (non-zero exit, no result line)
 if anything is wrong:
 
+0. Build: every csrc/*.cu at once; then one line per flash library
+   (flash_fwd, flash_bwd, flash_bwd_packed2) with each kernel
+   instance's ptxas registers, stack and spills and its HMMA count in
+   the SASS (cuobjdump); fails if a bf16 tensor-core instance has no
+   HMMA or a half-precision Dh-64 instance (the main path's) spills.
 1. Kernel vs plain, on the card: the flash-forward kernel at the main
    path's bf16 prefill shapes (64 slots x 8 heads, Dh=64, causal, T=1024
    as the engine's bucket in phase 3, T=64 as generate's prompt, T=512)
@@ -20,14 +25,22 @@ if anything is wrong:
    plain version's times, the time of one PyTorch library call for the
    same function (`scaled_dot_product_attention`, a yardstick the port
    never calls), the least time the card could take (bound) and the
-   shape. The summary reports each kernel at the engine's shape.
+   shape. The summary reports each kernel at the engine's shape. The
+   forward's bf16 Dh-64 kernel is also timed at each (q rows, warps)
+   geometry of FWD_GEOMETRIES (here and in 1b), and its bf16 and f16
+   paths (the tensor-core tile) are held over the float32 odd shapes
+   (ODD_SHAPES: ragged tail, fully-masked rows, q after kv with the
+   skip, non-causal S != T) at Dh 32, 64 and 128, to the same limits.
 1b. The flash-backward kernel vs its plain twin at the training shape
    (16 x 8 heads, T=S=2048, Dh=64, bf16, causal; the forward kernel is
    checked there too), gradients held per row to 2^-6 of the plain
    row's largest entry (see BF16_BWD_ROW_RTOL), and at small odd float32
    shapes (ragged T=100, fully-masked rows, q after kv, non-causal
-   S != T) to 1e-5 + 1e-5 |plain|. Its library yardstick is the backward
-   of `scaled_dot_product_attention(..., is_causal=True)`.
+   S != T) to 1e-5 + 1e-5 |plain|, then bf16 and f16 over ODD_SHAPES at
+   Dh 32, 64 and 128 to 2^-6. Its library yardstick is the backward of
+   `scaled_dot_product_attention(..., is_causal=True)`; the forward's
+   there is SDPA's forward at the training shape. The forward and the
+   backward must give equal bits on two calls.
 1c. The verify-window kernel vs its plain twin at the spec path's shapes
    (64 slots, windows T=5 and 8, H=8, Dh=64, S=2048; bf16 on the stacked
    L=12 cache at layer 5, float32 on L=2; pos 0, 2047, 2044, 1024 and
@@ -40,8 +53,9 @@ if anything is wrong:
    q-chunked at 512: 4 launches), and vs the production backward kernel
    on the same inputs, per row to 2^-6; small odd float32 shapes (ragged
    T=100, fully-masked rows with q before kv, a q_offset chunk,
-   non-causal S != T) to 1e-5 + 1e-5 |plain|. Kernel, twin and
-   SDPA-backward times.
+   non-causal S != T) to 1e-5 + 1e-5 |plain|, and bf16 and f16 over
+   ODD_SHAPES at Dh 32 and 64 to 2^-6. Two q512 calls must give equal
+   bits. Kernel, twin and SDPA-backward times.
 1e. The decode sweep kernel at every geometry (cache rows per CTA bs in
    128..2048 x 4 or 8 warps) vs its twin at the sweep's shape (B=64,
    H=8, Dh=64, S=2048; pos 100, 2000 and a vector with 0 and 2047):
@@ -196,6 +210,135 @@ def row_rel_err(got, want, rtol: float = BF16_ROW_RTOL) -> float:
     return float(((g - w).abs() / (row * rtol + BF16_ATOL)).max())
 
 
+# The odd shapes of the float32 gates, run in bf16 and f16 too (the
+# tensor-core path): (causal, tq, sk, q_offset, kv_offset)
+ODD_SHAPES = ((True, 100, 100, 0, 0),    # a ragged tail
+              (True, 64, 96, 0, 32),     # kv_offset > q_offset: masked rows
+              (True, 77, 200, 123, 0),   # q after kv, with the causal skip
+              (False, 77, 150, 0, 0))    # non-causal, S != T
+ODD_SHAPES_NOTE = ("ragged T=100; kv_offset 32 > q_offset 0 (fully-masked "
+                   "rows); q_offset 123 after kv (skip); non-causal S=150 "
+                   "!= T=77; bh 6")
+
+
+def half_odd_shape_gates(torch, dev, phase, kernel: str, dhs, seed: int):
+    """The bf16 and f16 (tensor-core) path of ``kernel`` against its plain
+    twin over ODD_SHAPES at each head dim in ``dhs``: outputs per row to
+    2^-7 (the forward, with m and log l to 1e-4) or gradients to 2^-6.
+    One line per (dtype, Dh); fails on any case past its limit."""
+    from deeplearning4j_tpu_torch.ops import flash_attention as fa
+    g = torch.Generator(device="cpu").manual_seed(seed)
+
+    def rnd(shape, dtype):
+        return torch.randn(shape, generator=g).to(dev, dtype)
+
+    backward = {"flash_bwd": (fa.flash_backward_cuda,
+                              fa.flash_backward_reference),
+                "flash_bwd_packed2": (fa.packed2_backward_cuda,
+                                      fa.packed2_backward_reference)}
+    for name in ("bfloat16", "float16"):
+        dtype = getattr(torch, name)
+        for dh in dhs:
+            scale = dh ** -0.5
+            rels, stats = [], []
+            for causal, tq, sk, qo, ko in ODD_SHAPES:
+                q = rnd((6, tq, dh), dtype)
+                k, v = rnd((6, sk, dh), dtype), rnd((6, sk, dh), dtype)
+                got_f = fa.flash_forward_cuda(q, k, v, scale, causal, qo, ko)
+                if kernel == "flash_fwd":
+                    want = fa.flash_forward_reference(q, k, v, scale, causal,
+                                                      qo, ko)
+                    rels.append(row_rel_err(got_f[0], want[0]))
+                    stats.append(max(max_err(got_f[1], want[1]),
+                                     max_err(got_f[2], want[2])))
+                    continue
+                do = rnd((6, tq, dh), dtype)
+                o, m, logl = got_f
+                args = (q, k, v, do, m, logl,
+                        (do.float() * o.float()).sum(-1, keepdim=True))
+                cuda_fn, plain = backward[kernel]
+                got = cuda_fn(*args, scale, causal, qo, ko)
+                want = plain(*args, scale, causal, qo, ko)
+                rels.append(max(row_rel_err(a, b, BF16_BWD_ROW_RTOL)
+                                for a, b in zip(got, want)))
+            rec = dict(phase=phase, kernel=kernel, dtype=name, dh=dh,
+                       shapes=ODD_SHAPES_NOTE, row_rel_err=rels,
+                       tol=BF16_TOL if kernel == "flash_fwd"
+                       else BF16_BWD_TOL)
+            if stats:
+                rec.update(stats_err=max(stats), stats_tol=1e-4)
+            line(rec)
+            if max(rels) > 1.0 or (stats and max(stats) > 1e-4):
+                fail(f"{kernel} {name} Dh {dh} odd shapes: row-relative "
+                     f"{rels} (limit 1), stats {stats}")
+
+
+def same_bits(torch, fn, what: str) -> bool:
+    """Two calls on the same inputs must give equal bits (the kernels use
+    no atomics)."""
+    a, b = fn(), fn()
+    torch.cuda.synchronize()
+    if not all(torch.equal(x, y) for x, y in zip(a, b)):
+        fail(f"{what}: two calls on the same inputs differ")
+    return True
+
+
+# the tensor-core kernels, whose bf16 instances must run HMMA
+TC_KERNELS = ("flash_fwd_tc_kernel", "flash_bwd_dkdv_tc_kernel",
+              "flash_bwd_dq_tc_kernel", "flash_bwd_packed2_tc_kernel")
+
+
+def build_report(name: str):
+    """One line for a redesigned library: each kernel instance's ptxas
+    registers and spills and its HMMA / HGMMA count in the SASS. Fails if
+    a bf16 instance of a tensor-core kernel has no HMMA, or if a
+    half-precision Dh-64 instance (the main path's) spills."""
+    import re
+    from deeplearning4j_tpu_torch.ops import _build
+    regs = _build.ptxas_report(name)
+    mma = _build.sass_mma_counts(name)
+    rows = []
+    for fn, st in regs.items():
+        if "kernel" not in fn:
+            continue
+        short = re.search(r"(\w+<[^>]*>)", fn)
+        short = short.group(1) if short else fn
+        tc_kernel = any(k in fn for k in TC_KERNELS)
+        half = "__nv_bfloat16" in fn or "__half" in fn
+        dh = re.search(r"(?:, |Li)(32|64|128)(?:,|E|>)", fn)
+        spills = st.get("spill_stores", 0) + st.get("spill_loads", 0)
+        rows.append(dict(instance=short, registers=st.get("registers"),
+                         stack_frame=st.get("stack_frame"),
+                         spill_stores=st.get("spill_stores"),
+                         spill_loads=st.get("spill_loads"),
+                         mma=mma.get(fn, 0)))
+        if tc_kernel and "__nv_bfloat16" in fn and not mma.get(fn, 0):
+            fail(f"{name}: bf16 instance {short} has no HMMA instruction")
+        if tc_kernel and half and dh and dh.group(1) == "64" and spills:
+            fail(f"{name}: Dh-64 instance {short} spills ({st})")
+    if not any("__nv_bfloat16" in r["instance"] and
+               any(k in r["instance"] for k in TC_KERNELS) for r in rows):
+        fail(f"{name}: no bf16 tensor-core instance in the ptxas report")
+    line(dict(phase=0, library=name, instances=rows))
+
+
+def geometry_sweep(torch, q3, k3, v3, want_o, scale: float, phase):
+    """The bf16 Dh-64 forward at each (q rows, warps) geometry of
+    FWD_GEOMETRIES on the main path's inputs: each checked per row against
+    the plain output and timed."""
+    from deeplearning4j_tpu_torch.ops import flash_attention as fa
+    for bq, warps in fa.FWD_GEOMETRIES:
+        o = fa.flash_forward_geometry_cuda(q3, k3, v3, scale, True, bq, warps)
+        rel = row_rel_err(o[0], want_o)
+        ms = time_ms(lambda: fa.flash_forward_geometry_cuda(
+            q3, k3, v3, scale, True, bq, warps))
+        line(dict(phase=phase, run="flash_fwd_geometry", bq=bq, warps=warps,
+                  shape=list(q3.shape), row_rel_err=rel, tol=BF16_TOL,
+                  kernel_ms=ms))
+        if not rel <= 1.0:
+            fail(f"flash forward geometry {bq}x{warps}: row-relative {rel}")
+
+
 def phase_kernels(torch, dev):
     """Each kernel against its plain twin, on the card, at the shapes the
     main path gives it; times at the engine's shapes for the summary."""
@@ -246,6 +389,7 @@ def phase_kernels(torch, dev):
         line(rec)
         if t == 1024:
             results["flash_fwd"] = rec
+            geometry_sweep(torch, q3, k3, v3, ro, scale, phase=1)
         del q3, k3, v3, o, ro, q4, k4, v4
 
     # -- flash forward, small odd float32 shapes -------------------------
@@ -262,6 +406,7 @@ def phase_kernels(torch, dev):
                   max_abs_err=max(errs), tol=1e-5))
         if not max(errs) <= 1e-5:
             fail(f"flash forward f32 {tq}x{sk} offsets {qo},{ko}: {errs}")
+    half_odd_shape_gates(torch, dev, 1, "flash_fwd", (32, 64, 128), 10)
 
     # -- decode at the serving decode shape ------------------------------
     L, B, S, D, H = 12, 64, 2048, 512, 8
@@ -875,6 +1020,13 @@ def phase_backward_kernel(torch, dev):
              f"{f_rel} (limit 1), stats {f_stats}")
     f_ms = time_ms(lambda: fa.flash_forward_cuda(q, k, v, scale, True),
                    iters=5)
+    geometry_sweep(torch, q, k, v, ro, scale, phase="1b")
+    f_lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
+        *(x.view(16, 8, t, dh) for x in (q, k, v)), is_causal=True,
+        scale=scale), iters=5)
+    f_det = same_bits(torch, lambda: fa.flash_forward_cuda(q, k, v, scale,
+                                                           True),
+                      "flash forward at the training shape")
     del ro, rm, rl
     got = fa.flash_backward_cuda(*args, scale, True)
     want = fa.flash_backward_reference(*args, scale, True)
@@ -885,6 +1037,9 @@ def phase_backward_kernel(torch, dev):
         fail(f"flash backward bf16 at the training shape: max err {errs}, "
              f"row-relative {rels} (limit 1 of {BF16_BWD_TOL})")
     del got, want
+    b_det = same_bits(torch, lambda: fa.flash_backward_cuda(*args, scale,
+                                                            True),
+                      "flash backward at the training shape")
     k_ms = time_ms(lambda: fa.flash_backward_cuda(*args, scale, True),
                    iters=5)
     p_ms = time_ms(lambda: fa.flash_backward_reference(*args, scale, True),
@@ -907,12 +1062,14 @@ def phase_backward_kernel(torch, dev):
     line(dict(phase="1b", kernel="flash_fwd", dtype="bfloat16",
               causal=True, shape=[bh, t, dh], row_rel_err=f_rel,
               tol=BF16_TOL, stats_err=f_stats, stats_tol=1e-4,
-              kernel_ms=f_ms, bound_ms=fb_ms, bound_by=fb_by))
+              kernel_ms=f_ms, library_ms=f_lib_ms, bound_ms=fb_ms,
+              bound_by=fb_by, deterministic=f_det))
     rec = dict(phase="1b", kernel="flash_bwd", dtype="bfloat16",
                causal=True, shape=[bh, t, dh], max_abs_err=max(errs),
                max_abs_err_dq_dk_dv=errs, row_rel_err_dq_dk_dv=rels,
                tol=BF16_BWD_TOL, kernel_ms=k_ms, plain_ms=p_ms,
-               library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by)
+               library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by,
+               deterministic=b_det)
     line(rec)
     del args, o, q, k, v, do, m, logl, delta, q4, k4, v4, out4, do4
 
@@ -933,6 +1090,7 @@ def phase_backward_kernel(torch, dev):
         if not rel <= 1.0:
             fail(f"flash backward f32 {tq}x{sk} offsets {qo},{ko} causal "
                  f"{causal}: {rel} x its limit")
+    half_odd_shape_gates(torch, dev, "1b", "flash_bwd", (32, 64, 128), 11)
     torch.cuda.empty_cache()
     return rec
 
@@ -987,6 +1145,8 @@ def phase_packed_backward_kernel(torch, dev):
              f"{errs}, row-relative vs twin {rels}, vs the production "
              f"kernel {rels_prod} (limit 1 of {BF16_BWD_TOL})")
     del got, twin, prod
+    det = same_bits(torch, lambda: fa.packed2_backward(*args, scale, True),
+                    "packed backward at the experiment's shape")
     k_ms = _timing.time_ms(lambda: fa.packed2_backward(*args, scale, True),
                            dev, 3, 2)
     p_ms = time_ms(lambda: fa.q_chunked(fa.packed2_backward_reference,
@@ -1011,7 +1171,7 @@ def phase_packed_backward_kernel(torch, dev):
                max_abs_err_dq_dk_dv=errs, row_rel_err_dq_dk_dv=rels,
                row_rel_err_vs_flash_bwd=rels_prod, tol=BF16_BWD_TOL,
                kernel_ms=k_ms, plain_ms=p_ms, library_ms=lib_ms,
-               bound_ms=b_ms, bound_by=b_by)
+               bound_ms=b_ms, bound_by=b_by, deterministic=det)
     line(rec)
     del args, q, k, v, do, q4, k4, v4, out4, do4
 
@@ -1031,6 +1191,7 @@ def phase_packed_backward_kernel(torch, dev):
         if not rel <= 1.0:
             fail(f"packed backward f32 {tq}x{sk} offsets {qo},{ko} causal "
                  f"{causal}: {rel} x its limit")
+    half_odd_shape_gates(torch, dev, "1d", "flash_bwd_packed2", (32, 64), 12)
     torch.cuda.empty_cache()
     return rec
 
@@ -1635,6 +1796,8 @@ def main() -> int:
     _build.build_all()
     line(dict(phase=0, build_s=time.perf_counter() - t0,
               torch=torch.__version__, cuda=torch.version.cuda))
+    for name in ("flash_fwd", "flash_bwd", "flash_bwd_packed2"):
+        build_report(name)
 
     measured = phase_kernels(torch, dev)
     measured["flash_bwd"] = phase_backward_kernel(torch, dev)

@@ -19,14 +19,9 @@
 // into two deterministic launches that each recompute P from (q, k, m,
 // log l) and never write the same element twice (no atomics: results do
 // not change from run to run):
-//   dkdv: one CTA (128 threads) per (batch-head, 64-row k tile), looping
-//         over 64-row q tiles staged in shared memory. Two threads own one
-//         key row: each computes that key's scores against 32 of the q
-//         tile's rows in registers and accumulates half of the row's Dh
-//         columns of dK and dV, taking its partner's 32 probabilities by
-//         warp shuffle, so no score tile touches memory.
-//   dq:   one CTA per (batch-head, 64-row q tile), looping over k tiles,
-//         with the same pair layout over query rows (as flash_fwd.cu).
+//   dkdv: one CTA per (batch-head, 64-row k tile), looping over 64-row q
+//         tiles;
+//   dq:   one CTA per (batch-head, 64-row q tile), looping over k tiles.
 // Tiles that contribute exactly zero are skipped under the forward's rule
 // only: causal with kv_offset <= q_offset (then every row sees its own
 // position, no row is fully masked, and a tile past the diagonal has
@@ -35,18 +30,51 @@
 // masked in the kernel: padded query rows get P = dS = 0 and padded keys
 // dS = 0, so any length is taken.
 //
+// bf16 / f16: the tensor-core tile of mma_tile.cuh (route `mma.sync`
+// m16n8k16 with float32 accumulators; see there for why not `wgmma`).
+// Four warps a CTA, 16 owned rows a warp.
+//   dkdv: the warp owns 16 keys and computes S^T = K Q^T and
+//         dP^T = V dO^T directly, its K and V fragments held in registers,
+//         so P^T and dS^T come out in the C layout and are repacked in
+//         registers (rounded to T) into the A operands of dV += P^T dO
+//         and dK += dS^T Q, with no shared-memory transpose; B comes from
+//         `ldmatrix` of the staged Q and dO tiles (`.trans` for the
+//         accumulations). m, log l and delta are per column, read from
+//         staged shared-memory columns. Q, dO and their statistics run
+//         through a two-stage `cp.async` ring.
+//   dq:   the forward's tile: Q and dO fragments in registers, S = Q K^T
+//         and dP = dO V^T, dS = P (dP - delta) repacked, and dQ += dS K
+//         from `ldmatrix.trans` of K; K and V through a two-stage ring.
+//   Each tile's work is one branch-free block, with a second copy for
+//   tiles that hold a masked score or a padded row (see flash_fwd.cu);
+//   on the unmasked ones no column or row is fully masked, and P is
+//   exp(s * scale - (m + log l)) as one FMA and one `ex2.approx`. At
+//   Dh 128 the owned rows' fragments are read from shared memory and
+//   the other tile is taken in 16-row passes, so the dK / dV (dQ)
+//   accumulators, 128 registers a thread, fit beside the rest
+//   (chip_smoke.py prints each instance's registers and spills).
+// float32: the earlier SIMT kernels, kept as they were so the f32 path
+// stays exact to 1e-5 (tensor cores would mean TF32): tiles staged in
+// shared memory as float, two threads per owned row exchanging their
+// partner's 32 probabilities by warp shuffle, float32 FMAs.
+//
 // Bound on this card: at the flagship training shape (16 x 8 heads,
 // T = S = 2048, Dh = 64, bf16, causal) the backward does five
 // [T, S, Dh] products, halved by causality, ~1.7e11 FLOP (~0.17 ms at the
 // bf16 tensor-core peak), against ~0.25 GB of reads and writes (~0.075 ms
-// at 3.35 TB/s): bound by operations. This first kernel computes with
-// float32 FMAs (no tensor cores), so it is bound by the FMA pipe and the
-// shared-memory loads that feed it, and does about 3.5x the forward's
-// FMAs (two dot products for P and dP, two accumulations, plus the dQ
-// launch's P recompute). Tensor-core (wgmma) tiles are later work.
+// at 3.35 TB/s): bound by operations, which the tensor-core tile now runs
+// on the tensor cores. The two launches recompute P (and the dq launch
+// dP), seven products where five are needed, and the exponentials, masks
+// and repacks run on the SIMT pipe and the special-function unit between
+// the mma, in the same phase on every warp of a CTA; that and the
+// rate at which mma.sync runs are what stand between the tile and the
+// bound.
 #include <stdint.h>
 
+#include <type_traits>
+
 #include "common.cuh"
+#include "mma_tile.cuh"
 
 namespace dl4j {
 namespace {
@@ -331,6 +359,419 @@ int launch(const void* q, const void* k, const void* v, const void* dout,
   return (int)cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// bf16 / f16: the tensor-core tile
+// ---------------------------------------------------------------------------
+
+template <int DH>
+struct TcBwd {
+  static constexpr int BQ = 64;
+  static constexpr int BK = 64;
+  static constexpr int THREADS = 128;   // four warps, 16 owned rows each
+  static constexpr int STRIDE = tc::Pad<DH>::STRIDE;
+  static constexpr int TILE = 64 * STRIDE;   // elements of a [64, DH] tile
+  // six tiles (dkdv: K, V and two stages of Q and dO; dq: Q, dO and two
+  // stages of K and V), then two stages of the m / log l / delta columns
+  static constexpr int BYTES = 6 * TILE * 2 + 2 * 3 * BQ * 4;
+  // Dh <= 64: the owned rows' A fragments stay in registers and a pass
+  // covers the whole other tile; Dh 128 reads the fragments from shared
+  // memory and takes the other tile in halves, so the dK / dV (dQ)
+  // accumulators fit the register file without spills
+  static constexpr bool FRAG_REGS = DH <= 64;
+  static constexpr int PASS = DH <= 64 ? 64 : 16;
+};
+
+// dK / dV: a CTA per (batch-head, 64-key tile), a warp per 16 keys,
+// looping over the q tiles. S^T = K Q^T and dP^T = V dO^T come out with
+// keys as rows, so P^T and dS^T are already the A operands of
+// dV += P^T dO and dK += dS^T Q (B from ldmatrix.trans of the staged Q
+// and dO tiles); m, log l and delta are per column, read from the staged
+// shared-memory columns.
+template <typename T, int DH>
+__global__ void __launch_bounds__(TcBwd<DH>::THREADS)
+flash_bwd_dkdv_tc_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                         const T* __restrict__ v, const T* __restrict__ dout,
+                         const float* __restrict__ m,
+                         const float* __restrict__ logl,
+                         const float* __restrict__ delta, T* __restrict__ dk,
+                         T* __restrict__ dv, int tq, int sk, float scale,
+                         int causal, int q_offset, int kv_offset) {
+  using G = TcBwd<DH>;
+  constexpr int BQ = G::BQ;
+  constexpr int BK = G::BK;
+  constexpr int NT = G::THREADS;
+  constexpr int STRIDE = G::STRIDE;
+  constexpr int TILE = G::TILE;
+  constexpr int PASS = G::PASS;   // q columns a pass
+  constexpr int KD = DH / 16;
+  constexpr int NO = DH / 8;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* Ks = reinterpret_cast<T*>(smem_raw);
+  T* Vs = Ks + TILE;
+  T* Qs = Vs + TILE;       // two stages
+  T* Os = Qs + 2 * TILE;   // two stages of the dO tile
+  float* Ss = reinterpret_cast<float*>(Os + 2 * TILE);   // 2 x [m|logl|delta]
+
+  const int bh = blockIdx.x;
+  const int k0 = blockIdx.y * BK;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int g = lane >> 2;
+  const int tg = lane & 3;
+  const int kr0 = (tid >> 5) * 16;           // the warp's first key row
+  const int kg_first = k0 + kr0 + kv_offset;   // its global position
+  const bool skip_safe = causal && kv_offset <= q_offset;
+  const size_t qrow0 = (size_t)bh * tq;
+  const size_t krow0 = (size_t)bh * sk;
+  const T* qb = q + qrow0 * DH;
+  const T* ob = dout + qrow0 * DH;
+
+  const int nqb = (tq + BQ - 1) / BQ;
+  int start = 0;
+  if (skip_safe) {
+    // first q tile whose last row reaches this k tile's first key
+    const int need = k0 + kv_offset - q_offset - (BQ - 1);
+    start = need > 0 ? (need + BQ - 1) / BQ : 0;
+    if (start > nqb) start = nqb;
+  }
+
+  auto load_q = [&](int qt, int stage) {
+    const int q0 = qt * BQ;
+    tc::load_tile<T, DH, BQ, NT>(Qs + stage * TILE, qb, q0, tq, tid);
+    tc::load_tile<T, DH, BQ, NT>(Os + stage * TILE, ob, q0, tq, tid);
+    float* st = Ss + stage * 3 * BQ;
+    tc::load_col<BQ, NT>(st, m + qrow0, q0, tq, tid);
+    tc::load_col<BQ, NT>(st + BQ, logl + qrow0, q0, tq, tid);
+    tc::load_col<BQ, NT>(st + 2 * BQ, delta + qrow0, q0, tq, tid);
+  };
+
+  tc::load_tile<T, DH, BK, NT>(Ks, k + krow0 * DH, k0, sk, tid);
+  tc::load_tile<T, DH, BK, NT>(Vs, v + krow0 * DH, k0, sk, tid);
+  if (start < nqb) load_q(start, 0);
+  tc::cp_async_commit();
+
+  float dka[NO][4], dva[NO][4];
+#pragma unroll
+  for (int d = 0; d < NO; ++d)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      dka[d][c] = 0.f;
+      dva[d][c] = 0.f;
+    }
+  uint32_t kf[KD][4], vf[KD][4];   // the owned keys' A fragments
+  const tc::BwdArgs args{tq, sk, scale, scale * tc::LOG2E, causal,
+                         q_offset, kv_offset, skip_safe};
+
+  for (int qt = start, it = 0; qt < nqb; ++qt, ++it) {
+    const int q0 = qt * BQ;
+    const int stage = it & 1;
+    if (qt + 1 < nqb) {   // the next q tile loads while this one computes
+      load_q(qt + 1, stage ^ 1);
+      tc::cp_async_commit();
+      tc::cp_async_wait<1>();
+    } else {
+      tc::cp_async_wait<0>();
+    }
+    __syncthreads();
+    if constexpr (G::FRAG_REGS) {
+      if (it == 0) {
+#pragma unroll
+        for (int kk = 0; kk < KD; ++kk) {
+          tc::ldsm_a<STRIDE>(kf[kk], Ks, kr0, kk * 16, lane);
+          tc::ldsm_a<STRIDE>(vf[kk], Vs, kr0, kk * 16, lane);
+        }
+      }
+    }
+    const T* Qt = Qs + stage * TILE;
+    const T* Ot = Os + stage * TILE;
+    const float* Mt = Ss + stage * 3 * BQ;
+    const float* Lt = Mt + BQ;
+    const float* Dt = Mt + 2 * BQ;
+    // with skip_safe, a q tile wholly before this warp's first key adds
+    // exactly zero (P = 0, dS = 0)
+    if (!(skip_safe && q0 + BQ - 1 + q_offset < kg_first)) {
+      if ((causal && q0 + q_offset < kg_first + 15) || q0 + BQ > tq ||
+          k0 + BK > sk)
+        tc::dkdv_tile<T, DH, STRIDE, PASS, G::FRAG_REGS, true>(
+            dka, dva, kf, vf, Ks, Vs, kr0, k0, Qt, Ot, Mt, Lt, Dt, q0,
+            nullptr, args, lane);
+      else
+        tc::dkdv_tile<T, DH, STRIDE, PASS, G::FRAG_REGS, false>(
+            dka, dva, kf, vf, Ks, Vs, kr0, k0, Qt, Ot, Mt, Lt, Dt, q0,
+            nullptr, args, lane);
+    }
+    __syncthreads();   // this stage is free for the tile after next
+  }
+  tc::cp_async_wait<0>();   // no copy outlives the CTA (empty q loop)
+
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = k0 + kr0 + g + 8 * h;
+    if (row < sk) {
+      T* dkrow = dk + (krow0 + row) * DH + 2 * tg;
+      T* dvrow = dv + (krow0 + row) * DH + 2 * tg;
+#pragma unroll
+      for (int d = 0; d < NO; ++d) {
+        *reinterpret_cast<uint32_t*>(dkrow + d * 8) = tc::pack2<T>(
+            dka[d][2 * h] * scale, dka[d][2 * h + 1] * scale);
+        *reinterpret_cast<uint32_t*>(dvrow + d * 8) =
+            tc::pack2<T>(dva[d][2 * h], dva[d][2 * h + 1]);
+      }
+    }
+  }
+}
+
+// dQ: a CTA per (batch-head, 64-row q tile), a warp per 16 query rows,
+// looping over the k tiles (two-stage cp.async ring of K and V): the
+// forward's tile with dP = dO V^T beside S = Q K^T, dS repacked in
+// registers, and dQ += dS K from ldmatrix.trans of K.
+template <typename T, int DH>
+__global__ void __launch_bounds__(TcBwd<DH>::THREADS)
+flash_bwd_dq_tc_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                       const T* __restrict__ v, const T* __restrict__ dout,
+                       const float* __restrict__ m,
+                       const float* __restrict__ logl,
+                       const float* __restrict__ delta, T* __restrict__ dq,
+                       int tq, int sk, float scale, int causal, int q_offset,
+                       int kv_offset) {
+  using G = TcBwd<DH>;
+  constexpr int BQ = G::BQ;
+  constexpr int BK = G::BK;
+  constexpr int NT = G::THREADS;
+  constexpr int STRIDE = G::STRIDE;
+  constexpr int TILE = G::TILE;
+  constexpr int PASS = G::PASS;   // keys a pass
+  constexpr int KD = DH / 16;
+  constexpr int NO = DH / 8;
+  constexpr int NP = PASS / 8;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* Qs = reinterpret_cast<T*>(smem_raw);
+  T* Os = Qs + TILE;       // the dO tile
+  T* Ks = Os + TILE;       // two stages
+  T* Vs = Ks + 2 * TILE;   // two stages
+
+  const int bh = blockIdx.x;
+  // the longest (last, under causality) q tiles are scheduled first
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int g = lane >> 2;
+  const int tg = lane & 3;
+  const int wr0 = (tid >> 5) * 16;   // the warp's first row in the tile
+  const bool skip_safe = causal && kv_offset <= q_offset;
+  const size_t qrow0 = (size_t)bh * tq;
+  const size_t krow0 = (size_t)bh * sk;
+  const T* kb = k + krow0 * DH;
+  const T* vb = v + krow0 * DH;
+
+  float mr[2], lr[2], dr[2], ml2[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = q0 + wr0 + g + 8 * h;
+    const bool ok = row < tq;
+    mr[h] = ok ? m[qrow0 + row] : 0.f;
+    lr[h] = ok ? logl[qrow0 + row] : 0.f;
+    dr[h] = ok ? delta[qrow0 + row] : 0.f;
+    ml2[h] = (mr[h] + lr[h]) * tc::LOG2E;
+  }
+  const float scale_log2 = scale * tc::LOG2E;
+
+  const int nkb = (sk + BK - 1) / BK;
+  int nb = nkb;
+  if (skip_safe) {
+    // last key a row of this tile can see: its own global position
+    const int last_q = q0 + BQ - 1 + q_offset;
+    const int lim = (last_q - kv_offset) / BK + 1;
+    nb = lim < nkb ? (lim > 0 ? lim : 0) : nkb;
+  }
+
+  tc::load_tile<T, DH, BQ, NT>(Qs, q + qrow0 * DH, q0, tq, tid);
+  tc::load_tile<T, DH, BQ, NT>(Os, dout + qrow0 * DH, q0, tq, tid);
+  tc::load_tile<T, DH, BK, NT>(Ks, kb, 0, sk, tid);
+  tc::load_tile<T, DH, BK, NT>(Vs, vb, 0, sk, tid);
+  tc::cp_async_commit();
+
+  float dqa[NO][4];
+#pragma unroll
+  for (int d = 0; d < NO; ++d)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) dqa[d][c] = 0.f;
+  uint32_t qf[G::FRAG_REGS ? KD : 1][4], of[G::FRAG_REGS ? KD : 1][4];
+  // global positions of the warp's first and last query rows
+  const int wq_first = q0 + wr0 + q_offset;
+  const int wq_last = wq_first + 15;
+
+  for (int kt = 0; kt < nb; ++kt) {
+    const int k0 = kt * BK;
+    if (kt + 1 < nb) {   // the next tile loads while this one computes
+      const int nxt = ((kt + 1) & 1) * TILE;
+      tc::load_tile<T, DH, BK, NT>(Ks + nxt, kb, k0 + BK, sk, tid);
+      tc::load_tile<T, DH, BK, NT>(Vs + nxt, vb, k0 + BK, sk, tid);
+      tc::cp_async_commit();
+      tc::cp_async_wait<1>();
+    } else {
+      tc::cp_async_wait<0>();
+    }
+    __syncthreads();
+    if constexpr (G::FRAG_REGS) {
+      if (kt == 0) {
+#pragma unroll
+        for (int kk = 0; kk < KD; ++kk) {
+          tc::ldsm_a<STRIDE>(qf[kk], Qs, wr0, kk * 16, lane);
+          tc::ldsm_a<STRIDE>(of[kk], Os, wr0, kk * 16, lane);
+        }
+      }
+    }
+    const T* Kt = Ks + (kt & 1) * TILE;
+    const T* Vt = Vs + (kt & 1) * TILE;
+    // with skip_safe, a tile wholly past the diagonal for every row of
+    // this warp adds exactly zero
+    if (!(skip_safe && wq_last < k0 + kv_offset)) {
+      // one branch-free block per mask kind (see flash_fwd.cu)
+      auto tile = [&](auto masked_tag) {
+        constexpr bool MASKED = decltype(masked_tag)::value;
+#pragma unroll
+        for (int kc = 0; kc < BK; kc += PASS) {
+          float s[NP][4], dp[NP][4];
+#pragma unroll
+          for (int j = 0; j < NP; ++j)
+#pragma unroll
+            for (int c = 0; c < 4; ++c) {
+              s[j][c] = 0.f;
+              dp[j][c] = 0.f;
+            }
+#pragma unroll
+          for (int kk = 0; kk < KD; ++kk) {
+            uint32_t qa[4], oa[4];
+            if constexpr (G::FRAG_REGS) {
+#pragma unroll
+              for (int i = 0; i < 4; ++i) {
+                qa[i] = qf[kk][i];
+                oa[i] = of[kk][i];
+              }
+            } else {
+              tc::ldsm_a<STRIDE>(qa, Qs, wr0, kk * 16, lane);
+              tc::ldsm_a<STRIDE>(oa, Os, wr0, kk * 16, lane);
+            }
+#pragma unroll
+            for (int jj = 0; jj < NP / 2; ++jj) {
+              uint32_t b0[2], b1[2];
+              tc::ldsm_b_nk<STRIDE>(b0, b1, Kt, kc + jj * 16, kk * 16, lane);
+              tc::mma<T>(s[2 * jj], qa, b0);
+              tc::mma<T>(s[2 * jj + 1], qa, b1);
+              tc::ldsm_b_nk<STRIDE>(b0, b1, Vt, kc + jj * 16, kk * 16, lane);
+              tc::mma<T>(dp[2 * jj], oa, b0);
+              tc::mma<T>(dp[2 * jj + 1], oa, b1);
+            }
+          }
+#pragma unroll
+          for (int j = 0; j < NP; ++j) {
+#pragma unroll
+            for (int c = 0; c < 4; ++c) {
+              const int h = c >> 1;
+              float dsv;
+              if constexpr (MASKED) {
+                const int kl = k0 + kc + j * 8 + 2 * tg + (c & 1);
+                const bool valid =
+                    !causal || wq_first + g + 8 * h >= kl + kv_offset;
+                const float sv = valid ? s[j][c] * scale : NEG_INF;
+                const float pv = tc::prob(sv, mr[h], lr[h], skip_safe);
+                // padded keys (kl >= sk) carry no gradient
+                dsv = valid && kl < sk ? pv * (dp[j][c] - dr[h]) : 0.f;
+              } else {
+                // no masked score here, so no row is fully masked (see
+                // the dK / dV kernel): one FMA and one ex2
+                dsv = tc::exp2_fast(fmaf(s[j][c], scale_log2, -ml2[h])) *
+                      (dp[j][c] - dr[h]);
+              }
+              s[j][c] = dsv;
+            }
+          }
+          // dQ += dS K; dS rounded to T here
+#pragma unroll
+          for (int kk = 0; kk < PASS / 16; ++kk) {
+            uint32_t da[4];
+            tc::c_to_a<T>(da, s[2 * kk], s[2 * kk + 1]);
+#pragma unroll
+            for (int dd = 0; dd < NO / 2; ++dd) {
+              uint32_t b0[2], b1[2];
+              tc::ldsm_b_kn<STRIDE>(b0, b1, Kt, kc + kk * 16, dd * 16, lane);
+              tc::mma<T>(dqa[2 * dd], da, b0);
+              tc::mma<T>(dqa[2 * dd + 1], da, b1);
+            }
+          }
+        }
+      };
+      if ((causal && wq_first < k0 + BK - 1 + kv_offset) || k0 + BK > sk)
+        tile(std::true_type{});
+      else
+        tile(std::false_type{});
+    }
+    __syncthreads();   // this stage is free for the tile after next
+  }
+
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = q0 + wr0 + g + 8 * h;
+    if (row < tq) {
+      T* dqrow = dq + (qrow0 + row) * DH + 2 * tg;
+#pragma unroll
+      for (int d = 0; d < NO; ++d)
+        *reinterpret_cast<uint32_t*>(dqrow + d * 8) = tc::pack2<T>(
+            dqa[d][2 * h] * scale, dqa[d][2 * h + 1] * scale);
+    }
+  }
+}
+
+template <typename T, int DH>
+int launch_tc(const void* q, const void* k, const void* v, const void* dout,
+              const float* m, const float* logl, const float* delta,
+              void* dq, void* dk, void* dv, int bh, int tq, int sk,
+              float scale, int causal, int q_offset, int kv_offset,
+              cudaStream_t stream) {
+  using G = TcBwd<DH>;
+  const int bytes = G::BYTES;
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_bwd_dkdv_tc_kernel<T, DH>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err != cudaSuccess) return (int)err;
+  err = cudaFuncSetAttribute(flash_bwd_dq_tc_kernel<T, DH>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             bytes);
+  if (err != cudaSuccess) return (int)err;
+  const T* qt = static_cast<const T*>(q);
+  const T* kt = static_cast<const T*>(k);
+  const T* vt = static_cast<const T*>(v);
+  const T* ot = static_cast<const T*>(dout);
+  flash_bwd_dkdv_tc_kernel<T, DH>
+      <<<dim3(bh, (sk + G::BK - 1) / G::BK), G::THREADS, bytes, stream>>>(
+          qt, kt, vt, ot, m, logl, delta, static_cast<T*>(dk),
+          static_cast<T*>(dv), tq, sk, scale, causal, q_offset, kv_offset);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  flash_bwd_dq_tc_kernel<T, DH>
+      <<<dim3(bh, (tq + G::BQ - 1) / G::BQ), G::THREADS, bytes, stream>>>(
+          qt, kt, vt, ot, m, logl, delta, static_cast<T*>(dq), tq, sk,
+          scale, causal, q_offset, kv_offset);
+  return (int)cudaGetLastError();
+}
+
+// float32 keeps the SIMT kernels; bf16 / f16 take the tensor-core tile
+template <typename T, int DH>
+int launch_dtype(const void* q, const void* k, const void* v,
+                 const void* dout, const float* m, const float* logl,
+                 const float* delta, void* dq, void* dk, void* dv, int bh,
+                 int tq, int sk, float scale, int causal, int q_offset,
+                 int kv_offset, cudaStream_t stream) {
+  if constexpr (std::is_same<T, float>::value)
+    return launch<T, DH>(q, k, v, dout, m, logl, delta, dq, dk, dv, bh, tq,
+                         sk, scale, causal, q_offset, kv_offset, stream);
+  else
+    return launch_tc<T, DH>(q, k, v, dout, m, logl, delta, dq, dk, dv, bh,
+                            tq, sk, scale, causal, q_offset, kv_offset,
+                            stream);
+}
+
 template <typename T>
 int dispatch_dh(int dh, const void* q, const void* k, const void* v,
                 const void* dout, const float* m, const float* logl,
@@ -339,17 +780,17 @@ int dispatch_dh(int dh, const void* q, const void* k, const void* v,
                 int kv_offset, cudaStream_t stream) {
   switch (dh) {
     case 32:
-      return launch<T, 32>(q, k, v, dout, m, logl, delta, dq, dk, dv, bh,
-                           tq, sk, scale, causal, q_offset, kv_offset,
-                           stream);
+      return launch_dtype<T, 32>(q, k, v, dout, m, logl, delta, dq, dk, dv,
+                                 bh, tq, sk, scale, causal, q_offset,
+                                 kv_offset, stream);
     case 64:
-      return launch<T, 64>(q, k, v, dout, m, logl, delta, dq, dk, dv, bh,
-                           tq, sk, scale, causal, q_offset, kv_offset,
-                           stream);
+      return launch_dtype<T, 64>(q, k, v, dout, m, logl, delta, dq, dk, dv,
+                                 bh, tq, sk, scale, causal, q_offset,
+                                 kv_offset, stream);
     case 128:
-      return launch<T, 128>(q, k, v, dout, m, logl, delta, dq, dk, dv, bh,
-                            tq, sk, scale, causal, q_offset, kv_offset,
-                            stream);
+      return launch_dtype<T, 128>(q, k, v, dout, m, logl, delta, dq, dk, dv,
+                                  bh, tq, sk, scale, causal, q_offset,
+                                  kv_offset, stream);
     default:
       return (int)cudaErrorInvalidValue;
   }

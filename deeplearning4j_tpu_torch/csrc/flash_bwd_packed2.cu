@@ -17,28 +17,37 @@
 //    its own shared-memory tiles, and the two warpgroups synchronise only
 //    among themselves (named barriers 1 and 2), so the two heads' q loops
 //    run at once on the SM and neither waits for the other.
-//  - dK / dV. Per k tile of 64 keys, two threads own one key row (as in
-//    flash_bwd.cu's dK/dV kernel): each scores that key against 32 rows of
-//    the staged 64-row q tile in registers and accumulates half of the
-//    row's Dh columns of dK and dV, taking its partner's 32 values by warp
-//    shuffle. The k tile's dK and dV are finished and written when its q
-//    loop ends.
 //  - dQ. The TPU kernel carried dQ across k tiles in a [2, tq, Dh] f32
 //    VMEM scratch. At the experiment's tq = 512 that is 256 KB, more than
 //    a CTA's 227 KB of shared memory, so the accumulator is a float32
 //    workspace in device memory owned by the CTA (64 CTAs x 256 KB =
-//    16.8 MB at the flagship shape, resident in the 50 MB L2). Each q
-//    tile's dS goes to a shared [64 keys, 64 q rows] tile; then two
-//    threads own one q row, each adds dS K over the tile's keys for half
-//    of the row's columns and read-add-writes its own slice of the
-//    workspace. One thread owns each workspace element for the whole
-//    launch (it zeroes it first and scales it into dq at the end), so the
-//    sums need no atomics, no fence and no second launch, and do not
-//    change from run to run.
+//    16.8 MB at the flagship shape, resident in the 50 MB L2). One thread
+//    owns each workspace element for the whole launch (it zeroes it
+//    first, read-add-writes it once per (k tile, q tile) and scales it
+//    into dq at the end), so the sums need no atomics, no fence and no
+//    second launch, and do not change from run to run.
 //  - The k loop is not split across CTAs: that would bring back atomics or
 //    a second launch, the production design this experiment is held
 //    against. So the flagship shape (bh = 128) runs 64 CTAs on the card's
 //    132 SMs, one per SM (256 threads, up to 255 registers each).
+//  - bf16 / f16, the tensor-core tile (mma_tile.cuh, `mma.sync`). Each
+//    slot's four warps own 16 keys of the k tile each and do exactly
+//    flash_bwd.cu's dK / dV warp tile: S^T = K Q^T and dP^T = V dO^T from
+//    K and V fragments held in registers, P^T and dS^T repacked in
+//    registers (rounded to T) into dV += P^T dO and dK += dS^T Q, Q, dO
+//    and the column statistics through a two-stage `cp.async` ring. The
+//    rounded dS^T tile also goes to shared memory as T; after the slot's
+//    barrier each warp takes 16 q rows of it and computes its dQ tile
+//    += dS K by `mma` (A from `ldmatrix.trans` of dS^T, B from
+//    `ldmatrix.trans` of K) before the workspace read-add-write. Two slot
+//    barriers a q tile: tile landed (and the previous dS^T consumed), and
+//    dS^T complete. As in flash_bwd.cu, each tile's dK / dV work is one
+//    branch-free block per mask kind, with P as one FMA and one
+//    `ex2.approx` on the unmasked tiles.
+//  - float32: the earlier SIMT kernel, kept as it was so the f32 path
+//    stays exact to 1e-5: two threads per key row scoring it against 32
+//    rows of the staged q tile in registers, the partner's 32 values by
+//    warp shuffle, dS through a float shared tile, float32 FMAs.
 // Masking and skips follow flash_bwd.cu: q tiles before the diagonal are
 // skipped only when causal and kv_offset <= q_offset; otherwise every tile
 // runs, so fully-masked rows keep their uniform P; padded query rows and
@@ -49,14 +58,16 @@
 //
 // Bound on this card: the same function as flash_bwd.cu, so the same bound
 // (operations: five [T, S, Dh] products over the causal half, ~0.17 ms at
-// the bf16 tensor-core peak at the flagship shape). Like flash_bwd.cu this
-// first kernel computes with float32 FMAs, and it does a third less FMA
-// work than the two-launch design (P and dP are computed once, not twice),
-// but fills only 64 SMs at the flagship shape and adds the workspace's
-// read-add-write traffic (one 64 x Dh f32 tile per q tile per k tile).
+// the bf16 tensor-core peak at the flagship shape). The single pass
+// computes P and dP once (five products, not seven), but fills only 64
+// SMs at the flagship shape and adds the workspace's read-add-write
+// traffic (one 64 x Dh f32 tile per q tile per k tile).
 #include <stdint.h>
 
+#include <type_traits>
+
 #include "common.cuh"
+#include "mma_tile.cuh"
 
 namespace dl4j {
 namespace {
@@ -331,6 +342,288 @@ int launch(const void* q, const void* k, const void* v, const void* dout,
   return (int)cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// bf16 / f16: the tensor-core tile
+// ---------------------------------------------------------------------------
+
+template <int DH>
+struct TcPacked {
+  static constexpr int BQ = 64;
+  static constexpr int BK = 64;
+  static constexpr int STRIDE = tc::Pad<DH>::STRIDE;
+  static constexpr int TILE = 64 * STRIDE;     // a [64, DH] tile of T
+  static constexpr int DSTRIDE = BQ + 8;       // the dS^T tile, [key][q]
+  // per slot: K, V, two stages of Q and dO, the dS^T tile, then two
+  // stages of the m / log l / delta columns
+  static constexpr int SLOT_BYTES =
+      6 * TILE * 2 + BK * DSTRIDE * 2 + 2 * 3 * BQ * 4;
+  static constexpr int BYTES = 2 * SLOT_BYTES;
+  static_assert(SLOT_BYTES % 16 == 0, "slot base must stay 16-byte aligned");
+};
+
+template <typename T, int DH>
+__global__ void __launch_bounds__(THREADS, 1)
+flash_bwd_packed2_tc_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                            const T* __restrict__ v,
+                            const T* __restrict__ dout,
+                            const float* __restrict__ m,
+                            const float* __restrict__ logl,
+                            const float* __restrict__ delta,
+                            T* __restrict__ dq, T* __restrict__ dk,
+                            T* __restrict__ dv, float* ws, int tq, int sk,
+                            float scale, int causal, int q_offset,
+                            int kv_offset) {
+  using G = TcPacked<DH>;
+  constexpr int BQ = G::BQ;
+  constexpr int NT = SLOT_THREADS;
+  constexpr int STRIDE = G::STRIDE;
+  constexpr int DSTRIDE = G::DSTRIDE;
+  constexpr int TILE = G::TILE;
+  constexpr int KD = DH / 16;
+  constexpr int NO = DH / 8;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int slot = threadIdx.x / SLOT_THREADS;
+  const int st = threadIdx.x - slot * SLOT_THREADS;
+  T* Ks = reinterpret_cast<T*>(smem_raw + slot * G::SLOT_BYTES);
+  T* Vs = Ks + TILE;
+  T* Qs = Vs + TILE;        // two stages
+  T* Os = Qs + 2 * TILE;    // two stages of the dO tile
+  T* DSs = Os + 2 * TILE;   // dS^T, [key][q row]
+  // two stages of the m / log l / delta columns
+  float* Ss = reinterpret_cast<float*>(DSs + BK * DSTRIDE);
+
+  const int bh = blockIdx.x * 2 + slot;
+  const int lane = st & 31;
+  const int g = lane >> 2;
+  const int tg = lane & 3;
+  const int r0 = (st >> 5) * 16;   // the warp's 16 keys (dK / dV), then
+                                   // its 16 q rows of a tile (dQ)
+  const bool skip_safe = causal && kv_offset <= q_offset;
+  const tc::BwdArgs args{tq, sk, scale, scale * tc::LOG2E, causal,
+                         q_offset, kv_offset, skip_safe};
+  const size_t qrow0 = (size_t)bh * tq;
+  const size_t krow0 = (size_t)bh * sk;
+  const T* qb = q + qrow0 * DH;
+  const T* ob = dout + qrow0 * DH;
+  const int nqb = (tq + BQ - 1) / BQ;
+  const int nkb = (sk + BK - 1) / BK;
+  // this thread's elements of dQ's accumulator: rows qt * BQ + r0 + g
+  // (+ 8), columns d * 8 + 2 tg (+ 1), for every q tile and k tile
+  float* wsb = ws + qrow0 * DH + 2 * tg;
+
+  auto load_q = [&](int qt, int stage) {
+    const int q0 = qt * BQ;
+    tc::load_tile<T, DH, BQ, NT>(Qs + stage * TILE, qb, q0, tq, st);
+    tc::load_tile<T, DH, BQ, NT>(Os + stage * TILE, ob, q0, tq, st);
+    float* sc = Ss + stage * 3 * BQ;
+    tc::load_col<BQ, NT>(sc, m + qrow0, q0, tq, st);
+    tc::load_col<BQ, NT>(sc + BQ, logl + qrow0, q0, tq, st);
+    tc::load_col<BQ, NT>(sc + 2 * BQ, delta + qrow0, q0, tq, st);
+  };
+
+  for (int qt = 0; qt < nqb; ++qt) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = qt * BQ + r0 + g + 8 * h;
+      if (row < tq) {
+#pragma unroll
+        for (int d = 0; d < NO; ++d)
+          *reinterpret_cast<float2*>(wsb + (size_t)row * DH + d * 8) =
+              make_float2(0.f, 0.f);
+      }
+    }
+  }
+
+  for (int kt = 0; kt < nkb; ++kt) {
+    const int k0 = kt * BK;
+    const int kg_first = k0 + r0 + kv_offset;   // the warp's first key
+    int start = 0;
+    if (skip_safe) {
+      // first q tile whose last row reaches this k tile's first key
+      const int need = k0 + kv_offset - q_offset - (BQ - 1);
+      start = need > 0 ? (need + BQ - 1) / BQ : 0;
+      if (start > nqb) start = nqb;
+    }
+    slot_sync(slot);   // the previous k tile's readers of K, V, dS are done
+    tc::load_tile<T, DH, BK, NT>(Ks, k + krow0 * DH, k0, sk, st);
+    tc::load_tile<T, DH, BK, NT>(Vs, v + krow0 * DH, k0, sk, st);
+    if (start < nqb) load_q(start, 0);
+    tc::cp_async_commit();
+
+    float dka[NO][4], dva[NO][4];
+#pragma unroll
+    for (int d = 0; d < NO; ++d)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        dka[d][c] = 0.f;
+        dva[d][c] = 0.f;
+      }
+    uint32_t kf[KD][4], vf[KD][4];
+
+    for (int qt = start, it = 0; qt < nqb; ++qt, ++it) {
+      const int q0 = qt * BQ;
+      const int stage = it & 1;
+      if (qt + 1 < nqb) {   // the next q tile loads while this one computes
+        load_q(qt + 1, stage ^ 1);
+        tc::cp_async_commit();
+        tc::cp_async_wait<1>();
+      } else {
+        tc::cp_async_wait<0>();
+      }
+      // the tile has landed; the previous q tile's dQ pass is done with
+      // the dS^T tile
+      slot_sync(slot);
+      if (it == 0) {
+#pragma unroll
+        for (int kk = 0; kk < KD; ++kk) {
+          tc::ldsm_a<STRIDE>(kf[kk], Ks, r0, kk * 16, lane);
+          tc::ldsm_a<STRIDE>(vf[kk], Vs, r0, kk * 16, lane);
+        }
+      }
+      const T* Qt = Qs + stage * TILE;
+      const T* Ot = Os + stage * TILE;
+      const float* Mt = Ss + stage * 3 * BQ;
+      const float* Lt = Mt + BQ;
+      const float* Dt = Mt + 2 * BQ;
+      // with skip_safe, a q tile wholly before this warp's first key adds
+      // exactly zero: its dS^T rows are written as zeros for the dQ pass
+      if (!(skip_safe && q0 + BQ - 1 + q_offset < kg_first)) {
+        // flash_bwd.cu's dK / dV warp tile; it also stores the rounded
+        // dS^T for the dQ pass
+        if ((causal && q0 + q_offset < kg_first + 15) || q0 + BQ > tq ||
+            k0 + BK > sk)
+          tc::dkdv_tile<T, DH, STRIDE, BQ, true, true, DSTRIDE>(
+              dka, dva, kf, vf, Ks, Vs, r0, k0, Qt, Ot, Mt, Lt, Dt, q0, DSs,
+              args, lane);
+        else
+          tc::dkdv_tile<T, DH, STRIDE, BQ, true, false, DSTRIDE>(
+              dka, dva, kf, vf, Ks, Vs, r0, k0, Qt, Ot, Mt, Lt, Dt, q0, DSs,
+              args, lane);
+      } else {
+#pragma unroll
+        for (int kk = 0; kk < BQ / 16; ++kk) {
+          T* drow = DSs + (r0 + g) * DSTRIDE + kk * 16 + 2 * tg;
+          *reinterpret_cast<uint32_t*>(drow) = 0u;
+          *reinterpret_cast<uint32_t*>(drow + 8 * DSTRIDE) = 0u;
+          *reinterpret_cast<uint32_t*>(drow + 8) = 0u;
+          *reinterpret_cast<uint32_t*>(drow + 8 * DSTRIDE + 8) = 0u;
+        }
+      }
+      slot_sync(slot);   // the dS^T tile is complete
+
+      // dQ[q0 + r0 .. + 15] += dS K over the tile's keys: A = dS from
+      // ldmatrix.trans of dS^T, B = K from ldmatrix.trans; then this
+      // thread's own workspace elements read-add-write. Rows wholly
+      // before the tile's first key (skip_safe) add exactly zero.
+      if (!(skip_safe && q0 + r0 + 15 + q_offset < k0 + kv_offset)) {
+        float dqp[NO][4];
+#pragma unroll
+        for (int d = 0; d < NO; ++d)
+#pragma unroll
+          for (int c = 0; c < 4; ++c) dqp[d][c] = 0.f;
+#pragma unroll
+        for (int kk = 0; kk < BK / 16; ++kk) {
+          uint32_t a[4];
+          tc::ldsm_a_trans<DSTRIDE>(a, DSs, r0, kk * 16, lane);
+#pragma unroll
+          for (int dd = 0; dd < NO / 2; ++dd) {
+            uint32_t b0[2], b1[2];
+            tc::ldsm_b_kn<STRIDE>(b0, b1, Ks, kk * 16, dd * 16, lane);
+            tc::mma<T>(dqp[2 * dd], a, b0);
+            tc::mma<T>(dqp[2 * dd + 1], a, b1);
+          }
+        }
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int row = q0 + r0 + g + 8 * h;
+          if (row < tq) {
+#pragma unroll
+            for (int d = 0; d < NO; ++d) {
+              float2* p =
+                  reinterpret_cast<float2*>(wsb + (size_t)row * DH + d * 8);
+              float2 x = *p;
+              x.x += dqp[d][2 * h];
+              x.y += dqp[d][2 * h + 1];
+              *p = x;
+            }
+          }
+        }
+      }
+    }
+    tc::cp_async_wait<0>();   // no copy in flight past this k tile
+
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = k0 + r0 + g + 8 * h;
+      if (row < sk) {
+        T* dkrow = dk + (krow0 + row) * DH + 2 * tg;
+        T* dvrow = dv + (krow0 + row) * DH + 2 * tg;
+#pragma unroll
+        for (int d = 0; d < NO; ++d) {
+          *reinterpret_cast<uint32_t*>(dkrow + d * 8) = tc::pack2<T>(
+              dka[d][2 * h] * scale, dka[d][2 * h + 1] * scale);
+          *reinterpret_cast<uint32_t*>(dvrow + d * 8) =
+              tc::pack2<T>(dva[d][2 * h], dva[d][2 * h + 1]);
+        }
+      }
+    }
+  }
+
+  // dq = scale * the accumulator; every element was last written by this
+  // same thread, so no barrier is needed
+  for (int qt = 0; qt < nqb; ++qt) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = qt * BQ + r0 + g + 8 * h;
+      if (row < tq) {
+        T* dqrow = dq + (qrow0 + row) * DH + 2 * tg;
+#pragma unroll
+        for (int d = 0; d < NO; ++d) {
+          const float2 x =
+              *reinterpret_cast<const float2*>(wsb + (size_t)row * DH + d * 8);
+          *reinterpret_cast<uint32_t*>(dqrow + d * 8) =
+              tc::pack2<T>(x.x * scale, x.y * scale);
+        }
+      }
+    }
+  }
+}
+
+template <typename T, int DH>
+int launch_tc(const void* q, const void* k, const void* v, const void* dout,
+              const float* m, const float* logl, const float* delta,
+              void* dq, void* dk, void* dv, float* ws, int bh, int tq,
+              int sk, float scale, int causal, int q_offset, int kv_offset,
+              cudaStream_t stream) {
+  const int bytes = TcPacked<DH>::BYTES;
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_bwd_packed2_tc_kernel<T, DH>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err != cudaSuccess) return (int)err;
+  flash_bwd_packed2_tc_kernel<T, DH><<<bh / 2, THREADS, bytes, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<const T*>(dout), m, logl, delta,
+      static_cast<T*>(dq), static_cast<T*>(dk), static_cast<T*>(dv), ws, tq,
+      sk, scale, causal, q_offset, kv_offset);
+  return (int)cudaGetLastError();
+}
+
+// float32 keeps the SIMT kernel; bf16 / f16 take the tensor-core tile
+template <typename T, int DH>
+int launch_dtype(const void* q, const void* k, const void* v,
+                 const void* dout, const float* m, const float* logl,
+                 const float* delta, void* dq, void* dk, void* dv, float* ws,
+                 int bh, int tq, int sk, float scale, int causal,
+                 int q_offset, int kv_offset, cudaStream_t stream) {
+  if constexpr (std::is_same<T, float>::value)
+    return launch<T, DH>(q, k, v, dout, m, logl, delta, dq, dk, dv, ws, bh,
+                         tq, sk, scale, causal, q_offset, kv_offset, stream);
+  else
+    return launch_tc<T, DH>(q, k, v, dout, m, logl, delta, dq, dk, dv, ws,
+                            bh, tq, sk, scale, causal, q_offset, kv_offset,
+                            stream);
+}
+
 template <typename T>
 int dispatch_dh(int dh, const void* q, const void* k, const void* v,
                 const void* dout, const float* m, const float* logl,
@@ -339,13 +632,13 @@ int dispatch_dh(int dh, const void* q, const void* k, const void* v,
                 int q_offset, int kv_offset, cudaStream_t stream) {
   switch (dh) {
     case 32:
-      return launch<T, 32>(q, k, v, dout, m, logl, delta, dq, dk, dv, ws, bh,
-                           tq, sk, scale, causal, q_offset, kv_offset,
-                           stream);
+      return launch_dtype<T, 32>(q, k, v, dout, m, logl, delta, dq, dk, dv,
+                                 ws, bh, tq, sk, scale, causal, q_offset,
+                                 kv_offset, stream);
     case 64:
-      return launch<T, 64>(q, k, v, dout, m, logl, delta, dq, dk, dv, ws, bh,
-                           tq, sk, scale, causal, q_offset, kv_offset,
-                           stream);
+      return launch_dtype<T, 64>(q, k, v, dout, m, logl, delta, dq, dk, dv,
+                                 ws, bh, tq, sk, scale, causal, q_offset,
+                                 kv_offset, stream);
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -7,7 +7,11 @@ Each ``deeplearning4j_tpu_torch/csrc/<name>.cu`` is compiled on its own by
 root of the checkout (git-ignored). The hash covers the source, the
 shared headers and the flags, so an edited source rebuilds at its next
 use and an unchanged one loads the library already built. A build that
-fails raises with nvcc's stderr.
+fails raises with nvcc's stderr. Every build passes ``-Xptxas -v``
+(which does not change the binary) and keeps nvcc's stderr, the ptxas
+register / spill report of each kernel instance, beside the library as
+``<name>-<hash>.log`` (`ptxas_report`); `sass_mma_counts` counts each
+instance's tensor-core instructions in the built library.
 
 Libraries are built at first use (`load`), never at import: the CPU
 tests import every module of the package on machines with no nvcc.
@@ -22,6 +26,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -31,7 +36,8 @@ from typing import Dict
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "--split-compile=0"]
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "--split-compile=0",
+              "-Xptxas", "-v"]
 
 # element-type codes of the C interface (csrc/common.cuh DType)
 DTYPE_F32, DTYPE_F16, DTYPE_BF16 = 0, 1, 2
@@ -54,6 +60,14 @@ SIGNATURES = {
     "flash_bwd_packed2": ("dl4j_flash_bwd_packed2",
                           [_P] * 11 + [_I] * 5 + [_F, _I, _I, _I, _P]),
     "decode_sweep": ("dl4j_decode_sweep", [_P] * 8 + [_I] * 8 + [_F, _P]),
+}
+
+# further entry points of a source above: name -> (source, symbol, args)
+EXTRA_ENTRIES = {
+    # the forward's geometry sweep (bf16, Dh 64): flash_fwd's arguments
+    # plus bq and warps
+    "flash_fwd_geometry": ("flash_fwd", "dl4j_flash_fwd_geometry",
+                           [_P] * 6 + [_I] * 5 + [_F] + [_I] * 5 + [_P]),
 }
 
 _loaded: Dict[str, ctypes._CFuncPtr] = {}
@@ -87,56 +101,56 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"{name}-{_digest(name)}.so"
 
 
-def _start(name: str, verbose: bool):
+def _start(name: str):
     """Spawn nvcc for one source into a temporary file; returns
-    (process, tmp, final) or None when the library is already built.
-    ``verbose`` adds ``-Xptxas -v`` (register / shared-memory report),
-    which does not change the binary."""
+    (process, tmp, final) or None when the library is already built."""
     out = library_path(name)
     if out.exists():
         return None
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    extra = ["-Xptxas", "-v"] if verbose else []
-    cmd = [nvcc_path(), *NVCC_FLAGS, *extra, "-o", str(tmp),
+    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp),
            str(CSRC / f"{name}.cu")]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                             stderr=subprocess.PIPE, text=True)
     return proc, tmp, out
 
 
-def _finish(name: str, started, t0: float) -> str:
-    """Wait for one nvcc; publish its library atomically. Returns the
-    compiler's stderr (ptxas reports when -Xptxas -v was passed)."""
+def _finish(name: str, started, t0: float) -> None:
+    """Wait for one nvcc; publish its library (and its ptxas report)
+    atomically."""
     if started is None:
-        return ""
+        return
     proc, tmp, out = started
     _, err = proc.communicate()
     if proc.returncode != 0:
         tmp.unlink(missing_ok=True)
         raise RuntimeError(f"nvcc failed to build csrc/{name}.cu "
                            f"(exit {proc.returncode}):\n{err}")
+    out.with_suffix(".log").write_text(err)
     os.replace(tmp, out)
     build_seconds[name] = time.perf_counter() - t0
-    return err
 
 
-def build_all(verbose: bool = False) -> Dict[str, str]:
+def build_all() -> None:
     """Build every kernel source in parallel (one nvcc each, all started
-    together). Returns {name: nvcc stderr}."""
+    together)."""
     t0 = time.perf_counter()
-    started = {n: _start(n, verbose) for n in SIGNATURES}
-    return {n: _finish(n, s, t0) for n, s in started.items()}
+    started = {n: _start(n) for n in SIGNATURES}
+    for n, s in started.items():
+        _finish(n, s, t0)
 
 
 def load(name: str) -> ctypes._CFuncPtr:
-    """The C entry point of kernel ``name``, built first if needed."""
+    """The C entry point ``name`` (a key of SIGNATURES or EXTRA_ENTRIES),
+    its source built first if needed."""
     fn = _loaded.get(name)
     if fn is not None:
         return fn
-    _finish(name, _start(name, False), time.perf_counter())
-    lib = ctypes.CDLL(str(library_path(name)))
-    sym, argtypes = SIGNATURES[name]
+    src, sym, argtypes = EXTRA_ENTRIES[name] if name in EXTRA_ENTRIES \
+        else (name, *SIGNATURES[name])
+    _finish(src, _start(src), time.perf_counter())
+    lib = ctypes.CDLL(str(library_path(src)))
     fn = getattr(lib, sym)
     fn.argtypes = argtypes
     fn.restype = ctypes.c_int
@@ -164,3 +178,71 @@ def check(err: int, what: str) -> None:
 def stream_ptr(device) -> int:
     import torch
     return torch.cuda.current_stream(device).cuda_stream
+
+
+def _demangle(names):
+    """C++ names of mangled symbols (c++filt), in order; the mangled names
+    themselves where c++filt is missing."""
+    tool = shutil.which("c++filt")
+    if not tool or not names:
+        return list(names)
+    out = subprocess.run([tool], input="\n".join(names), capture_output=True,
+                         text=True, check=True).stdout.splitlines()
+    return out if len(out) == len(names) else list(names)
+
+
+def parse_ptxas(text: str) -> Dict[str, dict]:
+    """{kernel instance: {"registers", "stack_frame", "spill_stores",
+    "spill_loads"}} (the last three in bytes) from nvcc's -Xptxas -v
+    output, instance names demangled."""
+    stats: Dict[str, dict] = {}
+    current = None
+    lines = text.splitlines()
+    for i, ln in enumerate(lines):
+        m = re.search(r"Compiling entry function '([^']+)'", ln)
+        if m:
+            current = m.group(1)
+            stats.setdefault(current, {})
+            continue
+        m = re.search(r"Function properties for (\S+)", ln)
+        if m and i + 1 < len(lines):
+            sp = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill "
+                           r"stores, (\d+) bytes spill loads", lines[i + 1])
+            if sp and m.group(1) in stats:
+                stats[m.group(1)].update(stack_frame=int(sp.group(1)),
+                                         spill_stores=int(sp.group(2)),
+                                         spill_loads=int(sp.group(3)))
+            continue
+        m = re.search(r"Used (\d+) registers", ln)
+        if m and current is not None:
+            stats[current]["registers"] = int(m.group(1))
+    return dict(zip(_demangle(list(stats)), stats.values()))
+
+
+def ptxas_report(name: str) -> Dict[str, dict]:
+    """`parse_ptxas` of the report kept beside the built library of
+    source ``name`` (build it first)."""
+    return parse_ptxas(library_path(name).with_suffix(".log").read_text())
+
+
+def count_mma(sass: str) -> Dict[str, int]:
+    """{kernel instance: number of HMMA / HGMMA instructions} in
+    `cuobjdump -sass` output, instance names demangled."""
+    counts: Dict[str, int] = {}
+    current = None
+    for ln in sass.splitlines():
+        m = re.search(r"Function : (\S+)", ln)
+        if m:
+            current = m.group(1)
+            counts[current] = 0
+        elif current is not None and re.search(r"\bH(G)?MMA\b", ln):
+            counts[current] += 1
+    return dict(zip(_demangle(list(counts)), counts.values()))
+
+
+def sass_mma_counts(name: str) -> Dict[str, int]:
+    """`count_mma` of the built library of source ``name``."""
+    tool = Path(nvcc_path()).parent / "cuobjdump"
+    return count_mma(subprocess.run(
+        [str(tool), "-sass", str(library_path(name))], capture_output=True,
+        text=True, check=True).stdout)

@@ -104,6 +104,78 @@ def test_flash_backward_plain_matches_jax(causal, tq, sk, qo, ko):
         np.testing.assert_allclose(g.numpy(), np.asarray(w), **F32)
 
 
+# bf16: the roundings that the card's tensor-core tile fixes into its
+# operand types (P to V's dtype, dS to q's) held against JAX's Pallas
+# kernels in interpret mode, at Dh 64 on the float32 tests' shapes. JAX
+# sums over 128-wide tiles and the twin over 64-wide ones, so the two may
+# round an output element to neighbouring bf16 values: O is held per row
+# to 2^-7 of the row's largest entry + 1e-5 (one bf16 ulp), the gradients
+# to 2^-6 (one more for the roundings of P and dS inside the sums), and
+# the float32 statistics m and log l to 1e-5.
+
+def _row_rel_err(got, want, rtol):
+    g, w = np.asarray(got, np.float32), np.asarray(want, np.float32)
+    limit = np.abs(w).max(axis=-1, keepdims=True) * rtol + 1e-5
+    return float((np.abs(g - w) / limit).max())
+
+
+def _bf16(x):
+    return jnp.asarray(x).astype(jnp.bfloat16), \
+        torch.from_numpy(x).to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("causal,tq,sk,qo,ko", [
+    (True, 128, 128, 0, 0),        # causal self-attention
+    (False, 64, 96, 0, 0),         # full attention, S != T
+    (True, 64, 128, 64, 0),        # q block after the kv block
+    (True, 64, 64, 0, 32),         # kv_offset > q_offset: masked rows
+    (True, 100, 100, 0, 0),        # T not a multiple of 128
+    (True, 200, 200, 0, 0),        # ragged past one 128 tile
+])
+def test_flash_forward_plain_matches_jax_bf16(causal, tq, sk, qo, ko):
+    bh, dh = 3, 64
+    (jq, q), (jk, k), (jv, v) = (_bf16(_rand((bh, n, dh), s))
+                                 for s, n in ((0, tq), (1, sk), (2, sk)))
+    scale = dh ** -0.5
+    jo, jm, jl = _flash_forward(jq, jk, jv, scale, causal, qo, ko,
+                                interpret=True)
+    o, m, logl = tfa.flash_forward_reference(q, k, v, scale, causal, qo, ko)
+    assert o.dtype == torch.bfloat16
+    assert _row_rel_err(o.float().numpy(), np.asarray(jo, np.float32),
+                        2.0 ** -7) <= 1.0
+    np.testing.assert_allclose(m.numpy(), np.asarray(jm), **F32)
+    np.testing.assert_allclose(logl.numpy(), np.asarray(jl), **F32)
+
+
+@pytest.mark.parametrize("causal,tq,sk,qo,ko", [
+    (True, 128, 128, 0, 0),        # causal self-attention
+    (True, 64, 64, 0, 32),         # kv_offset > q_offset: masked rows
+    (True, 64, 128, 64, 0),        # q block after the kv block
+    (False, 64, 96, 0, 0),         # full attention, S != T
+])
+def test_flash_backward_plain_matches_jax_bf16(causal, tq, sk, qo, ko):
+    """flash_backward_reference vs JAX's Pallas backward (interpret) on
+    the same bf16 (q, k, v, dO) and float32 (m, log l); 2^-6 per row."""
+    bh, dh = 3, 64
+    (jq, q), (jk, k), (jv, v), (jdo, do) = (
+        _bf16(_rand((bh, n, dh), s))
+        for s, n in ((40, tq), (41, sk), (42, sk), (43, tq)))
+    scale = dh ** -0.5
+    jo, jm, jl = _flash_forward(jq, jk, jv, scale, causal, qo, ko,
+                                interpret=True)
+    want = _flash_backward(jq, jk, jv, jo, jm, jl, jdo, scale, causal, qo,
+                           ko, interpret=True)
+    o = torch.from_numpy(np.asarray(jo, np.float32)).to(torch.bfloat16)
+    m, logl = (torch.from_numpy(np.array(x)) for x in (jm, jl))
+    delta = (do.float() * o.float()).sum(-1, keepdim=True)
+    got = tfa.flash_backward_reference(q, k, v, do, m, logl, delta, scale,
+                                       causal, qo, ko)
+    for g, w in zip(got, want):
+        assert g.dtype == torch.bfloat16
+        assert _row_rel_err(g.float().numpy(), np.asarray(w, np.float32),
+                            2.0 ** -6) <= 1.0
+
+
 def test_flash_attention_layout_matches_reference_attention():
     """[B, T, H, Dh] wrapper == the [B*H, T, Dh] plain reference."""
     b, t, h, dh = 2, 70, 4, 16

@@ -7,9 +7,10 @@ nothing of JAX, so it also runs on a machine that has only PyTorch:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_kernels.py
 
 Tolerances: float32 1e-5 (same f32 math, other summation order); bfloat16
-per output row, 2^-7 of the plain row's largest entry plus 1e-5 (one bf16
-rounding of the output and of the probabilities, in the row's own scale).
-The backward's bfloat16 gradients get two such units (2^-6): one for the
+and float16 per output row, 2^-7 of the plain row's largest entry plus
+1e-5 (one rounding of the output and of the probabilities, in the row's
+own scale). The backward's half-precision gradients get two such units
+(2^-6): one for the
 rounding of the output, one for the bf16 roundings of P and dS that the
 kernel and its twin may take to neighbouring values from float32 inputs
 that differ in their last bits, summed over up to S products.
@@ -70,14 +71,31 @@ def test_flash_kernel_matches_plain_on_card(requires_cuda, dh, causal, tq,
                                    rtol=1e-6, atol=1e-5)
 
 
-def test_flash_kernel_bf16_on_card(requires_cuda):
-    q, k, v = (torch.from_numpy(_rand((4, 300, 64), s)).to(
-        requires_cuda, torch.bfloat16) for s in (50, 51, 52))
-    o, m, logl = tfa.flash_forward(q, k, v, 0.125, True)
-    ro, rm, rl = tfa.flash_forward_reference(q, k, v, 0.125, True)
-    assert o.dtype == torch.bfloat16
-    _assert_close(o, ro, torch.bfloat16)
+# the half-precision path (the tensor-core tile): bf16 and f16 over the
+# float32 tests' odd shapes, every head dim, plus the aligned causal case
+HALF_DTYPES = [torch.bfloat16, torch.float16]
+
+
+@pytest.mark.parametrize("dtype", HALF_DTYPES)
+@pytest.mark.parametrize("dh", [32, 64, 128])
+@pytest.mark.parametrize("causal,tq,sk,qo,ko", [
+    (True, 300, 300, 0, 0),       # aligned causal self-attention
+    (True, 100, 100, 0, 0),       # ragged tail inside one tile
+    (True, 64, 64, 0, 32),        # kv_offset > q_offset: masked rows
+    (True, 130, 200, 70, 0),      # causal skip with q after kv
+    (False, 77, 150, 0, 0),       # full attention, S != T
+])
+def test_flash_kernel_bf16_on_card(requires_cuda, dtype, dh, causal, tq, sk,
+                                   qo, ko):
+    q, k, v = (torch.from_numpy(_rand((4, n, dh), s)).to(requires_cuda, dtype)
+               for s, n in ((50, tq), (51, sk), (52, sk)))
+    scale = dh ** -0.5
+    o, m, logl = tfa.flash_forward(q, k, v, scale, causal, qo, ko)
+    ro, rm, rl = tfa.flash_forward_reference(q, k, v, scale, causal, qo, ko)
+    assert o.dtype == dtype
+    _assert_close(o, ro, dtype)
     np.testing.assert_allclose(m.cpu().numpy(), rm.cpu().numpy(), **F32)
+    np.testing.assert_allclose(logl.cpu().numpy(), rl.cpu().numpy(), **F32)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -132,14 +150,23 @@ def test_flash_backward_kernel_matches_plain_on_card(requires_cuda, dh,
                                    **F32_BWD)
 
 
-def test_flash_backward_kernel_bf16_on_card(requires_cuda):
-    args = _bwd_inputs(requires_cuda, torch.bfloat16, 300, 300, 64, True,
-                       0, 0)
-    got = tfa.flash_backward(*args, 0.125, True)
-    want = tfa.flash_backward_reference(*args, 0.125, True)
+@pytest.mark.parametrize("dtype", HALF_DTYPES)
+@pytest.mark.parametrize("dh", [32, 64, 128])
+@pytest.mark.parametrize("causal,tq,sk,qo,ko", [
+    (True, 300, 300, 0, 0),       # aligned causal self-attention
+    (True, 100, 100, 0, 0),       # ragged tail inside one tile
+    (True, 64, 96, 0, 32),        # kv_offset > q_offset: masked rows
+    (True, 130, 200, 70, 0),      # causal skip with q after kv
+    (False, 77, 150, 0, 0),       # full attention, S != T
+])
+def test_flash_backward_kernel_bf16_on_card(requires_cuda, dtype, dh, causal,
+                                            tq, sk, qo, ko):
+    args = _bwd_inputs(requires_cuda, dtype, tq, sk, dh, causal, qo, ko)
+    got = tfa.flash_backward(*args, dh ** -0.5, causal, qo, ko)
+    want = tfa.flash_backward_reference(*args, dh ** -0.5, causal, qo, ko)
     for a, b in zip(got, want):
-        assert a.dtype == torch.bfloat16
-        _assert_close(a, b, torch.bfloat16, row_rtol=2.0 ** -6)
+        assert a.dtype == dtype
+        _assert_close(a, b, dtype, row_rtol=2.0 ** -6)
 
 
 @pytest.mark.parametrize("causal,qo,ko", [(True, 0, 0), (True, 0, 40),
@@ -174,6 +201,61 @@ def test_flash_attention_gradients_on_card(requires_cuda, causal, qo, ko):
     for a, bb in zip(got, want):
         np.testing.assert_allclose(a.cpu().numpy(), bb.cpu().numpy(),
                                    rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("causal,qo,ko", [(True, 0, 0), (True, 0, 40),
+                                          (False, 0, 0)])
+def test_flash_attention_gradients_bf16_on_card(requires_cuda, causal, qo,
+                                                ko):
+    """bf16 gradients through the `FlashAttention` autograd.Function: the
+    kernels on the card against the same Function on the CPU, where it
+    runs the plain twins; per row to 2^-6 (the backward's bf16 limit)."""
+    b, t, h, dh = 2, 90, 3, 64
+    q, k, v, w = (torch.from_numpy(_rand((b, t, h, dh), s)).to(torch.bfloat16)
+                  for s in (84, 85, 86, 87))
+
+    def grads(dev):
+        leaves = [x.to(dev).requires_grad_() for x in (q, k, v)]
+        out = tfa.flash_attention(*leaves, causal=causal, q_offset=qo,
+                                  kv_offset=ko)
+        (out.float() * w.to(dev).float()).sum().backward()
+        return [x.grad for x in leaves]
+
+    before = tfa.flash_backward_cuda.launches
+    got = grads(requires_cuda)
+    torch.cuda.synchronize()
+    assert tfa.flash_backward_cuda.launches == before + 1
+    for a, bb in zip(got, grads(torch.device("cpu"))):
+        assert a.dtype == torch.bfloat16
+        _assert_close(a, bb, torch.bfloat16, row_rtol=2.0 ** -6)
+
+
+def test_flash_kernels_deterministic_on_card(requires_cuda):
+    """No atomics: two calls on the same inputs give the same bits."""
+    args = _bwd_inputs(requires_cuda, torch.bfloat16, 512, 512, 64, True, 0,
+                       0)
+    args = [torch.cat([a, a.flip(0)]) for a in args]
+    q, k, v = args[:3]
+    for fn, inputs in ((tfa.flash_forward_cuda, (q, k, v, 0.125, True)),
+                       (tfa.flash_backward_cuda, (*args, 0.125, True)),
+                       (tfa.packed2_backward_cuda, (*args, 0.125, True))):
+        first, second = fn(*inputs), fn(*inputs)
+        assert all(torch.equal(a, b) for a, b in zip(first, second)), fn
+
+
+def test_flash_kernels_refuse_unaligned_pointers_on_card(requires_cuda):
+    """cp.async takes 16-byte aligned rows: a view at an odd offset raises."""
+    flat = torch.zeros(2 * 8 * 64 + 1, device=requires_cuda,
+                       dtype=torch.bfloat16)
+    q = flat[1:].view(2, 8, 64)
+    ok = torch.zeros(2, 8, 64, device=requires_cuda, dtype=torch.bfloat16)
+    st = torch.zeros(2, 8, 1, device=requires_cuda)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        tfa.flash_forward(q, ok, ok, 0.1, True)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        tfa.flash_backward(q, ok, ok, ok, st, st, st, 0.1, True)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        tfa.packed2_backward_cuda(q, ok, ok, ok, st, st, st, 0.1, True)
 
 
 def test_kernels_refuse_unsupported_inputs_on_card(requires_cuda):
@@ -343,20 +425,33 @@ def test_packed2_kernel_matches_plain_on_card(requires_cuda, dh, causal, tq,
                                    **F32_BWD)
 
 
-def test_packed2_kernel_bf16_q_chunked_on_card(requires_cuda):
-    args = _bwd_inputs(requires_cuda, torch.bfloat16, 1024, 1024, 64, True,
-                       0, 0)
+@pytest.mark.parametrize("dtype", HALF_DTYPES)
+@pytest.mark.parametrize("dh", [32, 64])
+@pytest.mark.parametrize("causal,tq,sk,qo,ko", [
+    (True, 1024, 1024, 0, 0),     # two q512 chunks
+    (True, 100, 100, 0, 0),       # ragged tail inside one tile
+    (True, 64, 96, 0, 32),        # kv_offset > q_offset: masked rows
+    (True, 130, 200, 70, 0),      # causal skip with q after kv
+    (False, 77, 150, 0, 0),       # full attention, S != T
+])
+def test_packed2_kernel_bf16_q_chunked_on_card(requires_cuda, dtype, dh,
+                                               causal, tq, sk, qo, ko):
+    args = _bwd_inputs(requires_cuda, dtype, tq, sk, dh, causal, qo, ko)
     args = [torch.cat([a, a.flip(0)]) for a in args]
+    scale = dh ** -0.5
+    chunk = tfa.PACKED2_Q_CHUNK
+    chunks = tq // chunk if tq > chunk and tq % chunk == 0 else 1
     before = tfa.packed2_backward_cuda.launches
-    got = tfa.packed2_backward(*args, 0.125, True)
+    got = tfa.packed2_backward(*args, scale, causal, qo, ko)
     torch.cuda.synchronize()
-    assert tfa.packed2_backward_cuda.launches == before + 2   # two chunks
-    twin = tfa.q_chunked(tfa.packed2_backward_reference, *args, 0.125, True)
-    prod = tfa.flash_backward_cuda(*args, 0.125, True)
+    assert tfa.packed2_backward_cuda.launches == before + chunks
+    twin = tfa.q_chunked(tfa.packed2_backward_reference, *args, scale,
+                         causal, qo, ko)
+    prod = tfa.flash_backward_cuda(*args, scale, causal, qo, ko)
     for a, b, c in zip(got, twin, prod):
-        assert a.dtype == torch.bfloat16
-        _assert_close(a, b, torch.bfloat16, row_rtol=2.0 ** -6)
-        _assert_close(a, c, torch.bfloat16, row_rtol=2.0 ** -6)
+        assert a.dtype == dtype
+        _assert_close(a, b, dtype, row_rtol=2.0 ** -6)
+        _assert_close(a, c, dtype, row_rtol=2.0 ** -6)
 
 
 def test_packed2_kernel_refuses_unsupported_inputs_on_card(requires_cuda):

@@ -26,11 +26,10 @@ if anything is wrong:
    same function (`scaled_dot_product_attention`, a yardstick the port
    never calls), the least time the card could take (bound) and the
    shape. The summary reports each kernel at the engine's shape. The
-   forward's bf16 Dh-64 kernel is also timed at each (q rows, warps)
-   geometry of FWD_GEOMETRIES (here and in 1b), and its bf16 and f16
-   paths (the tensor-core tile) are held over the float32 odd shapes
-   (ODD_SHAPES: ragged tail, fully-masked rows, q after kv with the
-   skip, non-causal S != T) at Dh 32, 64 and 128, to the same limits.
+   forward's bf16 and f16 paths (the tensor-core tile) are held over the
+   float32 odd shapes (ODD_SHAPES: ragged tail, fully-masked rows, q
+   after kv with the skip, non-causal S != T) at Dh 32, 64 and 128, to
+   the same limits.
 1b. The flash-backward kernel vs its plain twin at the training shape
    (16 x 8 heads, T=S=2048, Dh=64, bf16, causal; the forward kernel is
    checked there too), gradients held per row to 2^-6 of the plain
@@ -322,23 +321,6 @@ def build_report(name: str):
     line(dict(phase=0, library=name, instances=rows))
 
 
-def geometry_sweep(torch, q3, k3, v3, want_o, scale: float, phase):
-    """The bf16 Dh-64 forward at each (q rows, warps) geometry of
-    FWD_GEOMETRIES on the main path's inputs: each checked per row against
-    the plain output and timed."""
-    from deeplearning4j_tpu_torch.ops import flash_attention as fa
-    for bq, warps in fa.FWD_GEOMETRIES:
-        o = fa.flash_forward_geometry_cuda(q3, k3, v3, scale, True, bq, warps)
-        rel = row_rel_err(o[0], want_o)
-        ms = time_ms(lambda: fa.flash_forward_geometry_cuda(
-            q3, k3, v3, scale, True, bq, warps))
-        line(dict(phase=phase, run="flash_fwd_geometry", bq=bq, warps=warps,
-                  shape=list(q3.shape), row_rel_err=rel, tol=BF16_TOL,
-                  kernel_ms=ms))
-        if not rel <= 1.0:
-            fail(f"flash forward geometry {bq}x{warps}: row-relative {rel}")
-
-
 def phase_kernels(torch, dev):
     """Each kernel against its plain twin, on the card, at the shapes the
     main path gives it; times at the engine's shapes for the summary."""
@@ -389,7 +371,6 @@ def phase_kernels(torch, dev):
         line(rec)
         if t == 1024:
             results["flash_fwd"] = rec
-            geometry_sweep(torch, q3, k3, v3, ro, scale, phase=1)
         del q3, k3, v3, o, ro, q4, k4, v4
 
     # -- flash forward, small odd float32 shapes -------------------------
@@ -1020,7 +1001,6 @@ def phase_backward_kernel(torch, dev):
              f"{f_rel} (limit 1), stats {f_stats}")
     f_ms = time_ms(lambda: fa.flash_forward_cuda(q, k, v, scale, True),
                    iters=5)
-    geometry_sweep(torch, q, k, v, ro, scale, phase="1b")
     f_lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
         *(x.view(16, 8, t, dh) for x in (q, k, v)), is_causal=True,
         scale=scale), iters=5)

@@ -46,9 +46,11 @@
 //         and dP = dO V^T, dS = P (dP - delta) repacked, and dQ += dS K
 //         from `ldmatrix.trans` of K; K and V through a two-stage ring.
 //   Each tile's work is one branch-free block, with a second copy for
-//   tiles that hold a masked score or a padded row (see flash_fwd.cu);
-//   on the unmasked ones no column or row is fully masked, and P is
-//   exp(s * scale - (m + log l)) as one FMA and one `ex2.approx`. At
+//   tiles that hold a masked score or a padded row (see flash_fwd.cu),
+//   which also serves every tile of a call where the skip is not safe,
+//   so each P takes the reference's form for its call. On the other
+//   tiles P = exp(s - (m + log l)) is exp(s * scale - (m + log l)) as
+//   one FMA and one `ex2.approx`. At
 //   Dh 128 the owned rows' fragments are read from shared memory and
 //   the other tile is taken in 16-row passes, so the dK / dV (dQ)
 //   accumulators, 128 registers a thread, fit beside the rest
@@ -490,8 +492,8 @@ flash_bwd_dkdv_tc_kernel(const T* __restrict__ q, const T* __restrict__ k,
     // with skip_safe, a q tile wholly before this warp's first key adds
     // exactly zero (P = 0, dS = 0)
     if (!(skip_safe && q0 + BQ - 1 + q_offset < kg_first)) {
-      if ((causal && q0 + q_offset < kg_first + 15) || q0 + BQ > tq ||
-          k0 + BK > sk)
+      if (!skip_safe || (causal && q0 + q_offset < kg_first + 15) ||
+          q0 + BQ > tq || k0 + BK > sk)
         tc::dkdv_tile<T, DH, STRIDE, PASS, G::FRAG_REGS, true>(
             dka, dva, kf, vf, Ks, Vs, kr0, k0, Qt, Ot, Mt, Lt, Dt, q0,
             nullptr, args, lane);
@@ -679,8 +681,8 @@ flash_bwd_dq_tc_kernel(const T* __restrict__ q, const T* __restrict__ k,
                 // padded keys (kl >= sk) carry no gradient
                 dsv = valid && kl < sk ? pv * (dp[j][c] - dr[h]) : 0.f;
               } else {
-                // no masked score here, so no row is fully masked (see
-                // the dK / dV kernel): one FMA and one ex2
+                // skip_safe and no masked score here: P in the folded
+                // form exp(s - (m + log l)) as one FMA and one ex2
                 dsv = tc::exp2_fast(fmaf(s[j][c], scale_log2, -ml2[h])) *
                       (dp[j][c] - dr[h]);
               }
@@ -702,7 +704,8 @@ flash_bwd_dq_tc_kernel(const T* __restrict__ q, const T* __restrict__ k,
           }
         }
       };
-      if ((causal && wq_first < k0 + BK - 1 + kv_offset) || k0 + BK > sk)
+      if (!skip_safe || (causal && wq_first < k0 + BK - 1 + kv_offset) ||
+          k0 + BK > sk)
         tile(std::true_type{});
       else
         tile(std::false_type{});

@@ -43,7 +43,7 @@
 //    barriers a q tile: tile landed (and the previous dS^T consumed), and
 //    dS^T complete. As in flash_bwd.cu, each tile's dK / dV work is one
 //    branch-free block per mask kind, with P as one FMA and one
-//    `ex2.approx` on the unmasked tiles.
+//    `ex2.approx` on the unmasked tiles of a call where the skip is safe.
 //  - float32: the earlier SIMT kernel, kept as it was so the f32 path
 //    stays exact to 1e-5: two threads per key row scoring it against 32
 //    rows of the staged q tile in registers, the partner's 32 values by
@@ -490,8 +490,8 @@ flash_bwd_packed2_tc_kernel(const T* __restrict__ q, const T* __restrict__ k,
       if (!(skip_safe && q0 + BQ - 1 + q_offset < kg_first)) {
         // flash_bwd.cu's dK / dV warp tile; it also stores the rounded
         // dS^T for the dQ pass
-        if ((causal && q0 + q_offset < kg_first + 15) || q0 + BQ > tq ||
-            k0 + BK > sk)
+        if (!skip_safe || (causal && q0 + q_offset < kg_first + 15) ||
+            q0 + BQ > tq || k0 + BK > sk)
           tc::dkdv_tile<T, DH, STRIDE, BQ, true, true, DSTRIDE>(
               dka, dva, kf, vf, Ks, Vs, r0, k0, Qt, Ot, Mt, Lt, Dt, q0, DSs,
               args, lane);

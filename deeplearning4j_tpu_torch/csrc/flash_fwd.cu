@@ -16,9 +16,10 @@
 //
 // Design, bf16 / f16 (the tensor-core tile of mma_tile.cuh, route
 // `mma.sync` m16n8k16; see there for why not `wgmma`). FlashAttention-2
-// shape: one CTA of NW warps per (batch-head, BQ-row q tile), each warp
-// owning RB blocks of 16 query rows. The warp loads its Q fragments once
-// (`ldmatrix`) and keeps them in registers; K and V tiles of 64 keys run
+// shape: one CTA per (batch-head, q tile), each warp owning 16 query
+// rows (128 rows on 8 warps at Dh <= 64, 64 on 4 at Dh 128: TcGeom).
+// The warp loads its Q fragments once (`ldmatrix`) and keeps them in
+// registers; K and V tiles of 64 keys run
 // through a two-stage `cp.async` ring with one barrier a tile, so tile
 // k+1 loads while tile k computes. S = Q K^T by `mma` from `ldmatrix` of
 // K; the online softmax on the quad of lanes that holds a row; P rounded
@@ -32,10 +33,7 @@
 // monotonic, so it equals the max of the scaled scores), and
 // exp(s * scale - m) is one FMA and one `ex2.approx`. A warp whose rows
 // all lie before a tile's first key skips it (it would add exactly
-// zero). The epilogue writes O / l, m and log l. Geometry (`Prod`):
-// 128 q rows on 8 warps at Dh <= 64, the best point of the sweep that
-// chip_smoke.py runs through dl4j_flash_fwd_geometry; 64 rows on 4
-// warps at Dh 128.
+// zero). The epilogue writes O / l, m and log l.
 //
 // Design, float32: the earlier SIMT kernel, kept as it was so the f32
 // path stays exact to 1e-5 (tensor cores would mean TF32): one CTA of
@@ -224,41 +222,36 @@ int launch(const void* q, const void* k, const void* v, void* o, float* m,
 // bf16 / f16: the tensor-core tile
 // ---------------------------------------------------------------------------
 
-template <int DH, int NW, int RB>
+// Dh <= 64: 128 q rows on 8 warps, the best of the geometries swept at
+// the main path's shapes (it halves the K / V traffic of 64-row tiles;
+// PERF.md); Dh 128: 64 rows on 4 warps, so one thread's 168 registers
+// leave room for two CTAs an SM.
+template <int DH>
 struct TcGeom {
-  static constexpr int BQ = 16 * NW * RB;   // q rows a CTA
-  static constexpr int BK = 64;             // keys a k tile
+  static constexpr int NW = DH <= 64 ? 8 : 4;   // warps, 16 q rows each
+  static constexpr int BQ = 16 * NW;            // q rows a CTA
+  static constexpr int BK = 64;                 // keys a k tile
   static constexpr int THREADS = 32 * NW;
   static constexpr int STRIDE = tc::Pad<DH>::STRIDE;
   // the Q tile and two stages of K and V, 2-byte elements
   static constexpr int BYTES = (BQ + 4 * BK) * STRIDE * 2;
 };
 
-// The production geometry per head dim. Dh <= 64: 128 q rows on 8 warps,
-// the best point of the sweep summed over the main path's launches (it
-// halves the k / v traffic of 64-row tiles); Dh 128: 64 rows on 4 warps,
-// so one thread's 168 registers leave room for two CTAs an SM.
-template <int DH>
-struct Prod {
-  static constexpr int NW = DH <= 64 ? 8 : 4;
-  static constexpr int RB = 1;
-};
-
-template <typename T, int DH, int NW, int RB>
-__global__ void __launch_bounds__(32 * NW)
+template <typename T, int DH>
+__global__ void __launch_bounds__(TcGeom<DH>::THREADS)
 flash_fwd_tc_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     const T* __restrict__ v, T* __restrict__ o,
                     float* __restrict__ m_out, float* __restrict__ logl_out,
                     int tq, int sk, float scale, int causal, int q_offset,
                     int kv_offset) {
-  using G = TcGeom<DH, NW, RB>;
+  using G = TcGeom<DH>;
   constexpr int BQ = G::BQ;
   constexpr int BK = G::BK;
   constexpr int NT = G::THREADS;
   constexpr int STRIDE = G::STRIDE;
   constexpr int KD = DH / 16;   // k chunks of Q K^T
-  constexpr int NS = BK / 8;    // score C tiles of a 16-row block
-  constexpr int NO = DH / 8;    // output C tiles of a 16-row block
+  constexpr int NS = BK / 8;    // score C tiles of the warp's 16 rows
+  constexpr int NO = DH / 8;    // output C tiles of the warp's 16 rows
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* Qs = reinterpret_cast<T*>(smem_raw);
   T* Ks = Qs + BQ * STRIDE;          // two stages
@@ -271,7 +264,7 @@ flash_fwd_tc_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int lane = tid & 31;
   const int g = lane >> 2;
   const int tg = lane & 3;
-  const int wr0 = (tid >> 5) * 16 * RB;   // the warp's first row in the tile
+  const int wr0 = (tid >> 5) * 16;   // the warp's first row in the tile
   const T* qb = q + (size_t)bh * tq * DH;
   const T* kb = k + (size_t)bh * sk * DH;
   const T* vb = v + (size_t)bh * sk * DH;
@@ -293,24 +286,21 @@ flash_fwd_tc_kernel(const T* __restrict__ q, const T* __restrict__ k,
   tc::load_tile<T, DH, BK, NT>(Vs, vb, 0, sk, tid);
   tc::cp_async_commit();
 
-  uint32_t qf[RB][KD][4];
-  float acc[RB][NO][4];
-  float mrow[RB][2], lrow[RB][2];
+  uint32_t qf[KD][4];
+  float acc[NO][4];
+  float mrow[2], lrow[2];
 #pragma unroll
-  for (int rb = 0; rb < RB; ++rb) {
+  for (int d = 0; d < NO; ++d)
 #pragma unroll
-    for (int d = 0; d < NO; ++d)
+    for (int c = 0; c < 4; ++c) acc[d][c] = 0.f;
 #pragma unroll
-      for (int c = 0; c < 4; ++c) acc[rb][d][c] = 0.f;
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      mrow[rb][h] = -INFINITY;
-      lrow[rb][h] = 0.f;
-    }
+  for (int h = 0; h < 2; ++h) {
+    mrow[h] = -INFINITY;
+    lrow[h] = 0.f;
   }
   // global positions of the warp's first and last query rows
   const int wq_first = q0 + wr0 + q_offset;
-  const int wq_last = wq_first + 16 * RB - 1;
+  const int wq_last = wq_first + 15;
   const float scale_log2 = scale * tc::LOG2E;
 
   for (int kt = 0; kt < nb; ++kt) {
@@ -327,10 +317,8 @@ flash_fwd_tc_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
     if (kt == 0) {
 #pragma unroll
-      for (int rb = 0; rb < RB; ++rb)
-#pragma unroll
-        for (int kk = 0; kk < KD; ++kk)
-          tc::ldsm_a<STRIDE>(qf[rb][kk], Qs, wr0 + rb * 16, kk * 16, lane);
+      for (int kk = 0; kk < KD; ++kk)
+        tc::ldsm_a<STRIDE>(qf[kk], Qs, wr0, kk * 16, lane);
     }
     const T* Kt = Ks + (kt & 1) * BK * STRIDE;
     const T* Vt = Vs + (kt & 1) * BK * STRIDE;
@@ -342,106 +330,91 @@ flash_fwd_tc_kernel(const T* __restrict__ q, const T* __restrict__ k,
     // second copy masks (the diagonal and the ragged tail only)
     auto tile = [&](auto masked_tag) {
       constexpr bool MASKED = decltype(masked_tag)::value;
-      float s[RB][NS][4];
+      float s[NS][4];
 #pragma unroll
-      for (int rb = 0; rb < RB; ++rb)
+      for (int j = 0; j < NS; ++j)
 #pragma unroll
-        for (int j = 0; j < NS; ++j)
-#pragma unroll
-          for (int c = 0; c < 4; ++c) s[rb][j][c] = 0.f;
+        for (int c = 0; c < 4; ++c) s[j][c] = 0.f;
 #pragma unroll
       for (int kk = 0; kk < KD; ++kk) {
 #pragma unroll
         for (int jj = 0; jj < NS / 2; ++jj) {
           uint32_t b0[2], b1[2];
           tc::ldsm_b_nk<STRIDE>(b0, b1, Kt, jj * 16, kk * 16, lane);
-#pragma unroll
-          for (int rb = 0; rb < RB; ++rb) {
-            tc::mma<T>(s[rb][2 * jj], qf[rb][kk], b0);
-            tc::mma<T>(s[rb][2 * jj + 1], qf[rb][kk], b1);
-          }
+          tc::mma<T>(s[2 * jj], qf[kk], b0);
+          tc::mma<T>(s[2 * jj + 1], qf[kk], b1);
         }
       }
 #pragma unroll
-      for (int rb = 0; rb < RB; ++rb) {
+      for (int h = 0; h < 2; ++h) {   // rows g and g + 8 of the warp
+        float m_new, psum = 0.f;
+        if constexpr (!MASKED) {
+          // no masked or ragged score in this tile: the row max of the
+          // raw scores times scale is the max of the scaled ones (the
+          // rounding of a product by scale > 0 is monotonic), and
+          // exp(s * scale - m) is one FMA and one ex2
+          float tmax = -INFINITY;
 #pragma unroll
-        for (int h = 0; h < 2; ++h) {   // rows g and g + 8 of the block
-          float m_new, psum = 0.f;
-          if constexpr (!MASKED) {
-            // no masked or ragged score in this tile: the row max of the
-            // raw scores times scale is the max of the scaled ones (the
-            // rounding of a product by scale > 0 is monotonic), and
-            // exp(s * scale - m) is one FMA and one ex2
-            float tmax = -INFINITY;
+          for (int j = 0; j < NS; ++j)
+            tmax = fmaxf(tmax, fmaxf(s[j][2 * h], s[j][2 * h + 1]));
+          m_new = fmaxf(mrow[h], tc::quad_max(tmax) * scale);
+          const float ml = m_new * tc::LOG2E;
 #pragma unroll
-            for (int j = 0; j < NS; ++j)
-              tmax = fmaxf(tmax, fmaxf(s[rb][j][2 * h], s[rb][j][2 * h + 1]));
-            m_new = fmaxf(mrow[rb][h], tc::quad_max(tmax) * scale);
-            const float ml = m_new * tc::LOG2E;
+          for (int j = 0; j < NS; ++j) {
 #pragma unroll
-            for (int j = 0; j < NS; ++j) {
-#pragma unroll
-              for (int e = 0; e < 2; ++e) {
-                const float p = tc::exp2_fast(
-                    fmaf(s[rb][j][2 * h + e], scale_log2, -ml));
-                psum += p;
-                s[rb][j][2 * h + e] = p;
-              }
-            }
-          } else {
-            const int qg = wq_first + rb * 16 + g + 8 * h;
-            float tmax = -INFINITY;
-#pragma unroll
-            for (int j = 0; j < NS; ++j) {
-#pragma unroll
-              for (int e = 0; e < 2; ++e) {
-                float sv = s[rb][j][2 * h + e] * scale;
-                if (MASKED) {
-                  const int kl = k0 + j * 8 + 2 * tg + e;
-                  if (causal && qg < kl + kv_offset) sv = NEG_INF;
-                  if (kl >= sk) sv = -INFINITY;   // ragged tail: no key
-                }
-                s[rb][j][2 * h + e] = sv;
-                tmax = fmaxf(tmax, sv);
-              }
-            }
-            m_new = fmaxf(mrow[rb][h], tc::quad_max(tmax));
-#pragma unroll
-            for (int j = 0; j < NS; ++j) {
-#pragma unroll
-              for (int e = 0; e < 2; ++e) {
-                const float p = tc::exp_fast(s[rb][j][2 * h + e] - m_new);
-                psum += p;
-                s[rb][j][2 * h + e] = p;
-              }
+            for (int e = 0; e < 2; ++e) {
+              const float p =
+                  tc::exp2_fast(fmaf(s[j][2 * h + e], scale_log2, -ml));
+              psum += p;
+              s[j][2 * h + e] = p;
             }
           }
-          const float corr = tc::exp_fast(mrow[rb][h] - m_new);
-          lrow[rb][h] = lrow[rb][h] * corr + tc::quad_sum(psum);
-          mrow[rb][h] = m_new;
+        } else {
+          const int qg = wq_first + g + 8 * h;
+          float tmax = -INFINITY;
 #pragma unroll
-          for (int d = 0; d < NO; ++d) {
-            acc[rb][d][2 * h] *= corr;
-            acc[rb][d][2 * h + 1] *= corr;
+          for (int j = 0; j < NS; ++j) {
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              float sv = s[j][2 * h + e] * scale;
+              const int kl = k0 + j * 8 + 2 * tg + e;
+              if (causal && qg < kl + kv_offset) sv = NEG_INF;
+              if (kl >= sk) sv = -INFINITY;   // ragged tail: no key
+              s[j][2 * h + e] = sv;
+              tmax = fmaxf(tmax, sv);
+            }
           }
+          m_new = fmaxf(mrow[h], tc::quad_max(tmax));
+#pragma unroll
+          for (int j = 0; j < NS; ++j) {
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const float p = tc::exp_fast(s[j][2 * h + e] - m_new);
+              psum += p;
+              s[j][2 * h + e] = p;
+            }
+          }
+        }
+        const float corr = tc::exp_fast(mrow[h] - m_new);
+        lrow[h] = lrow[h] * corr + tc::quad_sum(psum);
+        mrow[h] = m_new;
+#pragma unroll
+        for (int d = 0; d < NO; ++d) {
+          acc[d][2 * h] *= corr;
+          acc[d][2 * h + 1] *= corr;
         }
       }
       // O += P V: P rounded to T as it becomes the A operand
 #pragma unroll
       for (int kk = 0; kk < BK / 16; ++kk) {
-        uint32_t pa[RB][4];
-#pragma unroll
-        for (int rb = 0; rb < RB; ++rb)
-          tc::c_to_a<T>(pa[rb], s[rb][2 * kk], s[rb][2 * kk + 1]);
+        uint32_t pa[4];
+        tc::c_to_a<T>(pa, s[2 * kk], s[2 * kk + 1]);
 #pragma unroll
         for (int dd = 0; dd < NO / 2; ++dd) {
           uint32_t b0[2], b1[2];
           tc::ldsm_b_kn<STRIDE>(b0, b1, Vt, kk * 16, dd * 16, lane);
-#pragma unroll
-          for (int rb = 0; rb < RB; ++rb) {
-            tc::mma<T>(acc[rb][2 * dd], pa[rb], b0);
-            tc::mma<T>(acc[rb][2 * dd + 1], pa[rb], b1);
-          }
+          tc::mma<T>(acc[2 * dd], pa, b0);
+          tc::mma<T>(acc[2 * dd + 1], pa, b1);
         }
       }
     };
@@ -453,32 +426,29 @@ flash_fwd_tc_kernel(const T* __restrict__ q, const T* __restrict__ k,
   tc::cp_async_wait<0>();   // no copy outlives the CTA
 
 #pragma unroll
-  for (int rb = 0; rb < RB; ++rb) {
+  for (int h = 0; h < 2; ++h) {
+    const int row = q0 + wr0 + g + 8 * h;
+    if (row < tq) {
+      const float l = lrow[h];
+      T* orow = o + ((size_t)bh * tq + row) * DH + 2 * tg;
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int row = q0 + wr0 + rb * 16 + g + 8 * h;
-      if (row < tq) {
-        const float l = lrow[rb][h];
-        T* orow = o + ((size_t)bh * tq + row) * DH + 2 * tg;
-#pragma unroll
-        for (int d = 0; d < NO; ++d)
-          *reinterpret_cast<uint32_t*>(orow + d * 8) = tc::pack2<T>(
-              acc[rb][d][2 * h] / l, acc[rb][d][2 * h + 1] / l);
-        if (tg == 0) {
-          m_out[(size_t)bh * tq + row] = mrow[rb][h];
-          logl_out[(size_t)bh * tq + row] = logf(l);
-        }
+      for (int d = 0; d < NO; ++d)
+        *reinterpret_cast<uint32_t*>(orow + d * 8) =
+            tc::pack2<T>(acc[d][2 * h] / l, acc[d][2 * h + 1] / l);
+      if (tg == 0) {
+        m_out[(size_t)bh * tq + row] = mrow[h];
+        logl_out[(size_t)bh * tq + row] = logf(l);
       }
     }
   }
 }
 
-template <typename T, int DH, int NW, int RB>
+template <typename T, int DH>
 int launch_tc(const void* q, const void* k, const void* v, void* o,
               float* m, float* logl, int bh, int tq, int sk, float scale,
               int causal, int q_offset, int kv_offset, cudaStream_t stream) {
-  using G = TcGeom<DH, NW, RB>;
-  auto kernel = flash_fwd_tc_kernel<T, DH, NW, RB>;
+  using G = TcGeom<DH>;
+  auto kernel = flash_fwd_tc_kernel<T, DH>;
   if ((tq + G::BQ - 1) / G::BQ > 65535) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, G::BYTES);
@@ -501,9 +471,8 @@ int launch_dtype(const void* q, const void* k, const void* v, void* o,
     return launch<T, DH>(q, k, v, o, m, logl, bh, tq, sk, scale, causal,
                          q_offset, kv_offset, stream);
   else
-    return launch_tc<T, DH, Prod<DH>::NW, Prod<DH>::RB>(
-        q, k, v, o, m, logl, bh, tq, sk, scale, causal, q_offset, kv_offset,
-        stream);
+    return launch_tc<T, DH>(q, k, v, o, m, logl, bh, tq, sk, scale, causal,
+                            q_offset, kv_offset, stream);
 }
 
 template <typename T>
@@ -556,35 +525,5 @@ extern "C" int dl4j_flash_fwd(const void* q, const void* k, const void* v,
     default:
       return (int)cudaErrorInvalidValue;
   }
-}
-
-// The forward geometry sweep: the bf16 Dh 64 tensor-core kernel at (bq,
-// warps) in {(64, 4), (128, 8), (128, 4)}, arguments as dl4j_flash_fwd.
-// A measuring tool (chip_smoke.py times each point at the main path's
-// shapes); the production launch is dl4j_flash_fwd.
-extern "C" int dl4j_flash_fwd_geometry(const void* q, const void* k,
-                                       const void* v, void* o, void* m,
-                                       void* logl, int bh, int tq, int sk,
-                                       int dh, int dtype, float scale,
-                                       int causal, int q_offset,
-                                       int kv_offset, int bq, int warps,
-                                       void* stream) {
-  using namespace dl4j;
-  if (bh <= 0 || tq <= 0 || sk <= 0 || dh != 64 || dtype != DTYPE_BF16)
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  float* mf = static_cast<float*>(m);
-  float* lf = static_cast<float*>(logl);
-  using B = __nv_bfloat16;
-  if (bq == 64 && warps == 4)
-    return launch_tc<B, 64, 4, 1>(q, k, v, o, mf, lf, bh, tq, sk, scale,
-                                  causal, q_offset, kv_offset, s);
-  if (bq == 128 && warps == 8)
-    return launch_tc<B, 64, 8, 1>(q, k, v, o, mf, lf, bh, tq, sk, scale,
-                                  causal, q_offset, kv_offset, s);
-  if (bq == 128 && warps == 4)
-    return launch_tc<B, 64, 4, 2>(q, k, v, o, mf, lf, bh, tq, sk, scale,
-                                  causal, q_offset, kv_offset, s);
-  return (int)cudaErrorInvalidValue;
 }
 

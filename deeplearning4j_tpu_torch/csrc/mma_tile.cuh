@@ -295,9 +295,11 @@ struct BwdArgs {
 // tiles. FRAG_REGS: the warp's K and V A fragments are kf / vf (loaded
 // once a k tile); otherwise they are read from Ks / Vs, and the q tile is
 // taken in passes of PASS rows. MASKED applies the causal mask (finite
-// NEG_INF, dS zeroed) and zeroes P and dS of padded q rows and keys; an
-// unmasked tile has none of them, so no column is fully masked and P is
-// exp(s * scale - (m + log l)) as one FMA and one ex2. DSTRIDE > 0 also
+// NEG_INF, dS zeroed), zeroes P and dS of padded q rows and keys, and
+// takes P in the form `prob` picks; callers pass it for every tile of a
+// call where the causal skip is not safe. The unmasked copy, for the
+// other tiles, takes the safe form exp(s - (m + log l)) as
+// exp(s * scale - (m + log l)), one FMA and one ex2. DSTRIDE > 0 also
 // stores the rounded dS^T to ds, a [key][q] tile of that row stride. The
 // body is branch-free for each MASKED, so ptxas can interleave the
 // exponentials with the products around them.

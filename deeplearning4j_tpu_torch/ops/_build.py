@@ -62,14 +62,6 @@ SIGNATURES = {
     "decode_sweep": ("dl4j_decode_sweep", [_P] * 8 + [_I] * 8 + [_F, _P]),
 }
 
-# further entry points of a source above: name -> (source, symbol, args)
-EXTRA_ENTRIES = {
-    # the forward's geometry sweep (bf16, Dh 64): flash_fwd's arguments
-    # plus bq and warps
-    "flash_fwd_geometry": ("flash_fwd", "dl4j_flash_fwd_geometry",
-                           [_P] * 6 + [_I] * 5 + [_F] + [_I] * 5 + [_P]),
-}
-
 _loaded: Dict[str, ctypes._CFuncPtr] = {}
 build_seconds: Dict[str, float] = {}
 
@@ -142,15 +134,13 @@ def build_all() -> None:
 
 
 def load(name: str) -> ctypes._CFuncPtr:
-    """The C entry point ``name`` (a key of SIGNATURES or EXTRA_ENTRIES),
-    its source built first if needed."""
+    """The C entry point of kernel ``name``, built first if needed."""
     fn = _loaded.get(name)
     if fn is not None:
         return fn
-    src, sym, argtypes = EXTRA_ENTRIES[name] if name in EXTRA_ENTRIES \
-        else (name, *SIGNATURES[name])
-    _finish(src, _start(src), time.perf_counter())
-    lib = ctypes.CDLL(str(library_path(src)))
+    sym, argtypes = SIGNATURES[name]
+    _finish(name, _start(name), time.perf_counter())
+    lib = ctypes.CDLL(str(library_path(name)))
     fn = getattr(lib, sym)
     fn.argtypes = argtypes
     fn.restype = ctypes.c_int

@@ -22,10 +22,8 @@ On the card the bf16 and f16 inputs take the kernels' tensor-core tile
 rounded to the input dtype as they become the next product's operand,
 which is where the twins round them too), and float32 inputs take the
 earlier SIMT kernels, exact to 1e-5 against the twins. The tiles are
-staged with 16-byte `cp.async` copies, so the wrappers raise on a CUDA
-tensor that is not 16-byte aligned. `flash_forward_geometry_cuda`
-launches the bf16 Dh-64 forward at each of `FWD_GEOMETRIES`, for the
-geometry sweep only.
+staged with 16-byte `cp.async` copies, so for those dtypes the wrappers
+raise on a q, k, v or dO that is not 16-byte aligned.
 
 The head-packing experiment's backward
 (benchmarks/headpack_experiment.py `_packed2_kernel`: two batch-heads per
@@ -181,23 +179,22 @@ def _check_backward_inputs(q3, k3, v3, do3, m, logl, delta,
 
 
 def _check_aligned(what: str, *tensors) -> None:
-    """The kernels stage tiles with 16-byte cp.async copies: every input
-    pointer must be 16-byte aligned (fresh allocations are, and so are
-    the outputs the wrappers allocate; a view at an odd storage offset
-    is not)."""
+    """The bf16 / f16 kernels stage q, k, v and dO with 16-byte cp.async
+    copies: those pointers must be 16-byte aligned (fresh allocations
+    are; a view at an odd storage offset is not). The float32 kernels and
+    the statistics' 4-byte loads take any element-aligned pointer."""
+    if tensors[0].dtype == torch.float32:
+        return
     for t in tensors:
         if t.data_ptr() % 16:
             raise ValueError(f"{what}: CUDA tensor at {t.data_ptr():#x} is "
                              f"not 16-byte aligned (cp.async needs it)")
 
 
-# the forward geometries (q rows a CTA, warps) that
-# `flash_forward_geometry_cuda` takes: bf16, Dh 64
-FWD_GEOMETRIES = ((64, 4), (128, 8), (128, 4))
-
-
-def _launch_forward(entry: str, extra, q3, k3, v3, scale, causal, q_offset,
-                    kv_offset):
+def flash_forward_cuda(q3, k3, v3, scale: float, causal: bool,
+                       q_offset: int = 0, kv_offset: int = 0):
+    """Launch csrc/flash_fwd.cu on CUDA tensors [BH, T, Dh]; returns
+    (o, m, logl) like the plain twin. Counts its launches."""
     _check_cuda_inputs(q3, k3, v3)
     q3, k3, v3 = q3.contiguous(), k3.contiguous(), v3.contiguous()
     bh, tq, dh = q3.shape
@@ -205,45 +202,18 @@ def _launch_forward(entry: str, extra, q3, k3, v3, scale, causal, q_offset,
     o = torch.empty_like(q3)
     m = torch.empty((bh, tq, 1), dtype=torch.float32, device=q3.device)
     logl = torch.empty_like(m)
-    _check_aligned(entry, q3, k3, v3)
-    fn = _build.load(entry)
+    _check_aligned("flash_fwd", q3, k3, v3)
+    fn = _build.load("flash_fwd")
     err = fn(q3.data_ptr(), k3.data_ptr(), v3.data_ptr(), o.data_ptr(),
              m.data_ptr(), logl.data_ptr(), bh, tq, sk, dh,
              _build.dtype_code(q3.dtype), float(scale), int(bool(causal)),
-             int(q_offset), int(kv_offset), *extra,
-             _build.stream_ptr(q3.device))
-    _build.check(err, entry)
+             int(q_offset), int(kv_offset), _build.stream_ptr(q3.device))
+    _build.check(err, "flash_fwd")
+    flash_forward_cuda.launches += 1
     return o, m, logl
 
 
-def flash_forward_cuda(q3, k3, v3, scale: float, causal: bool,
-                       q_offset: int = 0, kv_offset: int = 0):
-    """Launch csrc/flash_fwd.cu on CUDA tensors [BH, T, Dh]; returns
-    (o, m, logl) like the plain twin. Counts its launches."""
-    out = _launch_forward("flash_fwd", (), q3, k3, v3, scale, causal,
-                          q_offset, kv_offset)
-    flash_forward_cuda.launches += 1
-    return out
-
-
 flash_forward_cuda.launches = 0
-
-
-def flash_forward_geometry_cuda(q3, k3, v3, scale: float, causal: bool,
-                                bq: int, warps: int, q_offset: int = 0,
-                                kv_offset: int = 0):
-    """The bf16 Dh-64 forward kernel at one of FWD_GEOMETRIES (bq query
-    rows and `warps` warps a CTA): the measuring tool of the geometry
-    sweep, never on the main path (`flash_forward_cuda` launches the
-    production geometry). Raises for any other dtype, head dim or
-    geometry."""
-    if q3.dtype != torch.bfloat16 or q3.shape[-1] != 64 \
-            or (bq, warps) not in FWD_GEOMETRIES:
-        raise ValueError(f"flash_forward_geometry_cuda takes bf16 Dh 64 at "
-                         f"(bq, warps) in {FWD_GEOMETRIES}, got "
-                         f"{q3.dtype} Dh {q3.shape[-1]} at {(bq, warps)}")
-    return _launch_forward("flash_fwd_geometry", (int(bq), int(warps)), q3,
-                           k3, v3, scale, causal, q_offset, kv_offset)
 
 
 def flash_forward(q3, k3, v3, scale: float, causal: bool,
@@ -272,7 +242,7 @@ def flash_backward_cuda(q3, k3, v3, do3, m, logl, delta, scale: float,
         t.contiguous() for t in (q3, k3, v3, do3, m, logl, delta))
     sk = k3.shape[1]
     dq, dk, dv = (torch.empty_like(t) for t in (q3, k3, v3))
-    _check_aligned("flash_bwd", q3, k3, v3, do3, m, logl, delta)
+    _check_aligned("flash_bwd", q3, k3, v3, do3)
     fn = _build.load("flash_bwd")
     err = fn(q3.data_ptr(), k3.data_ptr(), v3.data_ptr(), do3.data_ptr(),
              m.data_ptr(), logl.data_ptr(), delta.data_ptr(), dq.data_ptr(),
@@ -406,7 +376,7 @@ def packed2_backward_cuda(q3, k3, v3, do3, m, logl, delta, scale: float,
     # dQ's float32 accumulator: [2, tq, Dh] per CTA is 256 KB at tq=512,
     # more than a CTA's shared memory, so it lives in device memory (L2)
     ws = torch.empty((bh, tq, dh), dtype=torch.float32, device=q3.device)
-    _check_aligned("flash_bwd_packed2", q3, k3, v3, do3, m, logl, delta)
+    _check_aligned("flash_bwd_packed2", q3, k3, v3, do3)
     fn = _build.load("flash_bwd_packed2")
     err = fn(q3.data_ptr(), k3.data_ptr(), v3.data_ptr(), do3.data_ptr(),
              m.data_ptr(), logl.data_ptr(), delta.data_ptr(), dq.data_ptr(),

@@ -14,8 +14,8 @@ torch = pytest.importorskip("torch")
 from deeplearning4j_tpu_torch.ops import _build  # noqa: E402
 from deeplearning4j_tpu_torch.ops import flash_attention as tfa  # noqa: E402
 
-FWD = ("_ZN4dl4j12_GLOBAL__N_119flash_fwd_tc_kernelI13__nv_bfloat16Li64ELi8E"
-       "Li1EEEvPKT_S5_S5_PS3_PfS7_iifiii")
+FWD = ("_ZN4dl4j12_GLOBAL__N_119flash_fwd_tc_kernelI13__nv_bfloat16Li64EEEvPKT_"
+       "S5_S5_PS3_PfS7_iifiii")
 DKDV = ("_ZN4dl4j12_GLOBAL__N_124flash_bwd_dkdv_tc_kernelI6__halfLi128EEEvPKT_"
         "S5_S5_S5_PKfS7_S7_PS3_S8_iifiii")
 
@@ -66,11 +66,6 @@ def test_count_mma_counts_tensor_core_instructions_per_instance():
     assert _build.count_mma("no function here\n  HMMA.16816 R0 ;") == {}
 
 
-def test_extra_entries_build_from_a_listed_source():
-    for src, sym, _ in _build.EXTRA_ENTRIES.values():
-        assert src in _build.SIGNATURES and sym.startswith("dl4j_")
-
-
 def test_check_aligned_refuses_an_odd_offset():
     flat = torch.zeros(64 + 1, dtype=torch.bfloat16)
     tfa._check_aligned("flash_fwd", flat[:64])
@@ -78,13 +73,18 @@ def test_check_aligned_refuses_an_odd_offset():
         tfa._check_aligned("flash_fwd", flat[1:])
 
 
-@pytest.mark.parametrize("dtype,dh,bq,warps", [
-    (torch.bfloat16, 64, 64, 8),     # a geometry the kernel does not have
-    (torch.float32, 64, 128, 8),     # not bf16
-    (torch.bfloat16, 32, 128, 8),    # not Dh 64
+@pytest.mark.parametrize("dtype,offset,refused", [
+    (torch.float16, 1, True),      # 2 bytes past a 16-byte boundary
+    (torch.float16, 8, False),     # 16 bytes: cp.async takes it
+    (torch.float32, 1, False),     # the SIMT kernels use no cp.async
+    (torch.float32, 3, False),
 ])
-def test_forward_geometry_refuses_what_the_sweep_does_not_build(dtype, dh,
-                                                                bq, warps):
-    q = torch.zeros(2, 8, dh, dtype=dtype)
-    with pytest.raises(ValueError, match="FWD_GEOMETRIES|bf16 Dh 64"):
-        tfa.flash_forward_geometry_cuda(q, q, q, 0.1, True, bq, warps)
+def test_check_aligned_holds_only_the_half_precision_inputs(dtype, offset,
+                                                            refused):
+    flat = torch.zeros(64 + 8, dtype=dtype)
+    view = flat[offset:offset + 64]
+    if refused:
+        with pytest.raises(ValueError, match="16-byte aligned"):
+            tfa._check_aligned("flash_bwd", flat[:64], view)
+    else:
+        tfa._check_aligned("flash_bwd", flat[:64], view)

@@ -258,6 +258,29 @@ def test_flash_kernels_refuse_unaligned_pointers_on_card(requires_cuda):
         tfa.packed2_backward_cuda(q, ok, ok, ok, st, st, st, 0.1, True)
 
 
+def test_flash_kernels_take_element_aligned_f32_and_statistics_on_card(
+        requires_cuda):
+    """Only the half-precision q, k, v and dO go through 16-byte cp.async:
+    float32 inputs and the statistics at a 4-byte offset still launch and
+    agree with the plain twins."""
+    g = torch.Generator().manual_seed(3)
+
+    def odd(*shape, dtype=torch.float32):
+        n = int(np.prod(shape))
+        flat = torch.randn(n + 1, generator=g).to(requires_cuda, dtype)
+        return flat[1:].view(*shape)
+
+    q, k, v = (odd(2, 40, 64) for _ in range(3))
+    o, m, logl = tfa.flash_forward(q, k, v, 0.125, True)
+    ro, rm, rl = tfa.flash_forward_reference(q, k, v, 0.125, True)
+    torch.testing.assert_close(o, ro, **F32)
+    args = _bwd_inputs(requires_cuda, torch.bfloat16, 64, 64, 64, True, 0, 0)
+    stats = [odd(*a.shape).copy_(a) for a in args[4:]]
+    got = tfa.flash_backward(*args[:4], *stats, 0.125, True)
+    want = tfa.flash_backward(*args, 0.125, True)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
 def test_kernels_refuse_unsupported_inputs_on_card(requires_cuda):
     q = torch.zeros(2, 8, 48, device=requires_cuda)
     with pytest.raises(ValueError, match="head dim"):

@@ -282,9 +282,12 @@ def same_bits(torch, fn, what: str) -> bool:
     return True
 
 
-# the tensor-core kernels, whose bf16 instances must run HMMA
+# the tensor-core kernels, whose bf16 instances must run HMMA (the
+# decode and window libraries' bf16 / f16 paths are
+# decode_rows_tc_kernel)
 TC_KERNELS = ("flash_fwd_tc_kernel", "flash_bwd_dkdv_tc_kernel",
-              "flash_bwd_dq_tc_kernel", "flash_bwd_packed2_tc_kernel")
+              "flash_bwd_dq_tc_kernel", "flash_bwd_packed2_tc_kernel",
+              "decode_rows_tc_kernel")
 
 
 def build_report(name: str):
@@ -324,6 +327,7 @@ def build_report(name: str):
 def phase_kernels(torch, dev):
     """Each kernel against its plain twin, on the card, at the shapes the
     main path gives it; times at the engine's shapes for the summary."""
+    from deeplearning4j_tpu_torch.benchmarks import _timing
     from deeplearning4j_tpu_torch.ops import flash_attention as fa
     from deeplearning4j_tpu_torch.ops import flash_decode as fd
     import torch.nn.functional as F
@@ -414,49 +418,58 @@ def phase_kernels(torch, dev):
 
     ck, cv = rnd((L, B, S, D), bf), rnd((L, B, S, D), bf)
     qd = rnd((B, H, Dh), bf)
-    got = fd.decode_attention_cuda(qd, ck, cv, pos_v, H, layer=layer)
-    want = fd.reference_decode_attention(qd, ck[layer], cv[layer], pos_v, H)
-    err_v = max_err(got, want)
-    rel_v = row_rel_err(got, want)
-    if not rel_v <= 1.0:
-        fail(f"decode vector pos: max err {err_v}, row-relative {rel_v}")
-    rows = int((pos_v.long() + 1).sum())
-    nb_v = 2 * rows * Dh * H * 2 + 2 * B * D * 2 + B * 4
-    bv_ms, bv_by = bound(nb_v, 4 * rows * D, "bfloat16")
-    kv_ms = time_ms(lambda: fd.decode_attention_cuda(qd, ck, cv, pos_v, H,
-                                                     layer=layer))
-    line(dict(phase=1, kernel="decode_attention", dtype="bfloat16",
-              shape=[L, B, S, D], layer=layer, pos="vector [0..2047]",
-              max_abs_err=err_v, row_rel_err=rel_v,
-              tol=BF16_TOL, kernel_ms=kv_ms,
-              bound_ms=bv_ms, bound_by=bv_by))
-
-    pos_s = S - 1                                   # a full cache
-    got = fd.decode_attention_cuda(qd, ck, cv, pos_s, H, layer=layer)
-    want = fd.reference_decode_attention(qd, ck[layer], cv[layer], pos_s, H)
-    err_s = max_err(got, want)
-    rel_s = row_rel_err(got, want)
-    if not rel_s <= 1.0:
-        fail(f"decode scalar pos: max err {err_s}, row-relative {rel_s}")
-    k_ms = time_ms(lambda: fd.decode_attention_cuda(qd, ck, cv, pos_s, H,
-                                                    layer=layer))
-    p_ms = time_ms(lambda: fd.reference_decode_attention(
-        qd, ck[layer], cv[layer], pos_s, H), iters=5)
     kl = ck[layer].view(B, S, H, Dh).transpose(1, 2)
     vl = cv[layer].view(B, S, H, Dh).transpose(1, 2)
     ql = qd.view(B, H, 1, Dh)
-    lib_ms = time_ms(lambda: F.scaled_dot_product_attention(ql, kl, vl))
-    nbytes = 2 * B * S * D * 2 + 2 * B * D * 2
-    b_ms, b_by = bound(nbytes, 4 * B * S * D, "bfloat16")
-    rec = dict(phase=1, kernel="decode_attention", dtype="bfloat16",
-               shape=[L, B, S, D], layer=layer, pos=pos_s,
-               max_abs_err=max(err_s, err_v), row_rel_err=rel_s,
-               tol=BF16_TOL, kernel_ms=k_ms,
-               plain_ms=p_ms, library_ms=lib_ms, bound_ms=b_ms,
-               bound_by=b_by)
-    line(rec)
+    keys = torch.arange(S, device=dev)
+    rec = None
+    # the engine's mixed prefixes (the vector), a full cache, a short one
+    for pos, pname in ((pos_v, "vector [0..2047]"), (S - 1, S - 1),
+                       (100, 100)):
+        got = fd.decode_attention_cuda(qd, ck, cv, pos, H, layer=layer)
+        want = fd.reference_decode_attention(qd, ck[layer], cv[layer], pos,
+                                             H)
+        chunked = fd.reference_chunked_decode_attention(qd, ck, cv, pos, H,
+                                                        layer=layer)
+        err = max_err(got, want)
+        rel = max(row_rel_err(got, want), row_rel_err(got, chunked))
+        if not rel <= 1.0:
+            fail(f"decode pos {pname}: max err {err}, row-relative {rel} "
+                 f"(plain and chunked twins)")
+        k_ms = time_ms(lambda: fd.decode_attention_cuda(qd, ck, cv, pos, H,
+                                                        layer=layer))
+        p_ms = time_ms(lambda: fd.reference_decode_attention(
+            qd, ck[layer], cv[layer], pos, H), iters=5)
+        if isinstance(pos, int):   # SDPA over the filled rows 0..pos
+            sdpa = (lambda p=pos: F.scaled_dot_product_attention(
+                ql, kl[:, :, :p + 1], vl[:, :, :p + 1]))
+        else:                      # SDPA with each slot's prefix mask
+            mask = (keys[None, :] <= pos[:, None].long())[:, None, None]
+            sdpa = (lambda m=mask: F.scaled_dot_product_attention(
+                ql, kl, vl, attn_mask=m))
+        lib_ms = time_ms(sdpa)
+        rows = int((torch.as_tensor(pos).clamp(0, S - 1).long() + 1)
+                   .expand(B).sum())
+        nbytes = 2 * rows * Dh * H * 2 + 2 * B * D * 2 + \
+            (0 if isinstance(pos, int) else B * 4)
+        b_ms, b_by = bound(nbytes, 4 * rows * D, "bfloat16")
+        r = dict(phase=1, kernel="decode_attention", dtype="bfloat16",
+                 shape=[L, B, S, D], layer=layer, pos=pname,
+                 max_abs_err=err, row_rel_err=rel, tol=BF16_TOL,
+                 kernel_ms=k_ms, plain_ms=p_ms, library_ms=lib_ms,
+                 bound_ms=b_ms, bound_by=b_by,
+                 # device time alone: replays of a CUDA graph of 20 calls
+                 kernel_graph_ms=_timing.time_ms(
+                     lambda: fd.decode_attention_cuda(qd, ck, cv, pos, H,
+                                                      layer=layer),
+                     dev, 20, 3))
+        if isinstance(pos, int):
+            r.update(library_graph_ms=_timing.time_ms(sdpa, dev, 20, 3))
+        line(r)
+        if pname == S - 1:
+            rec = r
     results["decode_attention"] = rec
-    del ck, cv
+    del ck, cv, kl, vl
     torch.cuda.empty_cache()
     return results
 
@@ -548,6 +561,73 @@ def phase_window_kernel(torch, dev):
     torch.cuda.empty_cache()
     return rec
 
+
+
+# ---------------------------------------------------------------------------
+# the split-S core's geometry (chunk rows x warps), for choosing production
+# ---------------------------------------------------------------------------
+
+def decode_geometry_sweep(torch, dev):
+    """The bf16 Dh-64 split-S core (decode_window.cu's
+    dl4j_decode_window_geometry) at chunk rows 128, 256, 512 x 4 or 8
+    warps: decode (T = 1) at pos 2047, phase 1's pos vector and pos 100,
+    and the window at T = 5 and 8 on phase 1c's pos vector, each point
+    held to the chunked twin's function (the plain twin) per row and
+    timed by CUDA-graph replays (device time)."""
+    import ctypes
+    from deeplearning4j_tpu_torch.benchmarks import _timing
+    from deeplearning4j_tpu_torch.ops import _build
+    from deeplearning4j_tpu_torch.ops import flash_decode as fd
+
+    _build.load("decode_window")
+    lib = ctypes.CDLL(str(_build.library_path("decode_window")))
+    fn = lib.dl4j_decode_window_geometry
+    P, I = ctypes.c_void_p, ctypes.c_int
+    fn.argtypes = [P] * 5 + [I] * 5 + [ctypes.c_float, I, I, P]
+    fn.restype = I
+    g = torch.Generator(device="cpu").manual_seed(12)
+    B, S, D, H = 64, 2048, 512, 8
+    Dh = D // H
+    ck = torch.randn((B, S, D), generator=g).to(dev, torch.bfloat16)
+    cv = torch.randn((B, S, D), generator=g).to(dev, torch.bfloat16)
+    pv = torch.from_numpy(np.random.default_rng(0).integers(
+        0, S, size=B).astype(np.int32))
+    pv[0], pv[1] = 0, S - 1
+    pw = torch.from_numpy(np.random.default_rng(4).integers(
+        0, S, size=B).astype(np.int32))
+    pw[0], pw[1], pw[2], pw[3] = 0, S - 1, S - 4, S // 2
+    pv, pw = pv.to(dev), pw.to(dev)
+    points = ((1, S - 1, "2047"), (1, pv, "vector"), (1, 100, "100"),
+              (5, pw, "window vector"), (8, pw, "window vector"))
+    out = []
+    for t, pos, pname in points:
+        q = torch.randn((B, t, H, Dh), generator=g).to(dev, torch.bfloat16)
+        want = fd.reference_window_attention(q, ck, cv, pos, H)
+        ptr = pos.data_ptr() if isinstance(pos, torch.Tensor) else None
+        ps = 0 if isinstance(pos, torch.Tensor) else pos
+        for ch in (128, 256, 512):
+            for warps in (4, 8):
+                o = torch.empty_like(q)
+
+                def call():
+                    err = fn(q.data_ptr(), ck.data_ptr(), cv.data_ptr(),
+                             o.data_ptr(), ptr, ps, B, t, H, S, Dh ** -0.5,
+                             ch, warps, _build.stream_ptr(dev))
+                    _build.check(err, "decode geometry")
+                call()
+                rel = row_rel_err(o, want)
+                if not rel <= 1.0:
+                    fail(f"decode geometry ch={ch} warps={warps} T={t} pos "
+                         f"{pname}: row-relative {rel}")
+                out.append(dict(t=t, pos=pname, ch=ch, warps=warps,
+                                row_rel_err=rel,
+                                ms=_timing.time_ms(call, dev, 20, 3)))
+        del q, want
+    line(dict(phase="1c", run="decode_geometry_sweep", dtype="bfloat16",
+              shape=[B, S, D], timer="CUDA-graph replays of 20 calls",
+              points=out))
+    del ck, cv
+    torch.cuda.empty_cache()
 
 # ---------------------------------------------------------------------------
 # phase 2: float32 end to end, card vs CPU
@@ -1216,7 +1296,16 @@ def phase_decode_sweep_kernel(torch, dev):
             pname = pos if isinstance(pos, int) else "vector [0..2047]"
             prod = fd.decode_attention_cuda(qd, ck, cv, pos, H, layer=1)
             own = fd.decode_sweep_cuda(qd, ck, cv, pos, H, S, 4, layer=1)
-            if not torch.equal(own, prod):
+            # float32: the same SIMT loop, bit for bit; bf16: production
+            # is the tensor-core split-S core (another design), so the
+            # forced point is held to it and to its twin per row
+            if dtype == torch.float32:
+                ok = torch.equal(own, prod)
+            else:
+                ok = max(row_rel_err(own, prod), row_rel_err(
+                    own, fd.reference_split_decode_attention(
+                        qd, ck[1], cv[1], pos, H, S))) <= 1.0
+            if not ok:
                 fail(f"decode sweep kernel at the production geometry "
                      f"({name}, pos {pname}) differs from decode_attention "
                      f"by {max_err(own, prod)}")
@@ -1776,12 +1865,14 @@ def main() -> int:
     _build.build_all()
     line(dict(phase=0, build_s=time.perf_counter() - t0,
               torch=torch.__version__, cuda=torch.version.cuda))
-    for name in ("flash_fwd", "flash_bwd", "flash_bwd_packed2"):
+    for name in ("flash_fwd", "flash_bwd", "flash_bwd_packed2",
+                 "decode_attention", "decode_window"):
         build_report(name)
 
     measured = phase_kernels(torch, dev)
     measured["flash_bwd"] = phase_backward_kernel(torch, dev)
     measured["decode_window"] = phase_window_kernel(torch, dev)
+    decode_geometry_sweep(torch, dev)
     measured["flash_bwd_packed2"] = phase_packed_backward_kernel(torch, dev)
     measured["decode_sweep"] = phase_decode_sweep_kernel(torch, dev)
     phase_f32_card_vs_cpu(torch, dev)

@@ -9,31 +9,44 @@
 // masked by its OWN pos (the slotted pool's per-slot prefixes); a scalar
 // pos is the shared-prefix form of generate. pos is clamped to [0, S-1].
 //
-// Design. The TPU kernel carried a running (m, l, acc) across an
-// in-order grid over S blocks. Here one CTA (4 warps) owns one (b, h) and
-// loops over S inside the block: each warp takes rows j = warp*R + i,
-// stepping by 4R, where one row is read as 16-byte vectors by
-// Dh*sizeof(T)/16 lanes (R rows per warp per step). Every lane keeps an
-// online-softmax state for its row slot; the states merge across lanes
-// by shuffles and across warps through shared memory at the end. That
-// row loop is decode_core.cuh's attend_rows with one query row; the
-// verify-window kernel (decode_window.cu) runs the same loop with up to 8,
-// so each window row reproduces this kernel bit for bit.
-//  - Prefix bound: the loop stops at pos[b], so rows past a slot's
-//    filled prefix are never read (the reference's DMA clamp, :194-199).
-//  - Stacked caches [L, B, S, D]: the caller passes the layer plane's
-//    base pointer (an offset into the stacked buffer), so the plane is
-//    never copied (the reference's :301-307).
+// Bound on this card: bytes. The kernel reads each filled cache row of
+// a (b, h) once, 2 * (pos[b]+1) * Dh * sizeof(T) bytes, and does ~4 FLOP
+// a cache element (~1 FLOP a bf16 byte), far below the H100's ~295
+// operations a byte: ~268 MB at B=64, S=2048, D=512 in bf16 at pos 2047,
+// ~80 us at 3.35 TB/s on an H100 SXM. The engine's slots sit at their own
+// prefixes, so the work is uneven across (b, h).
 //
-// Bound on this card: the kernel reads each filled cache row once
-// (2 * (pos+1) * Dh * sizeof(T) bytes per (b, h)) and does ~4 FLOP per
-// byte, so it is bound by device-memory bandwidth: ~268 MB at
-// B=64, S=2048, D=512 in bf16, ~80 us at 3.35 TB/s on an H100 SXM. The
-// design keeps several independent 16-byte loads in flight per lane
-// (the unrolled S loop) to cover memory latency.
+// Design, bf16 / f16: decode_tc.cuh's tensor-core split-S row core at
+// T = 1, one launch. The cache rows of each (b, h) are cut into chunks
+// of decode_tc::CH rows spread over a thread-block cluster of up to 8
+// CTAs, so a long prefix is read by up to 8 SMs at once and a short one
+// by few CTAs (the rest load nothing): the longest slot no longer sets
+// the time alone. Each warp streams its keys through a cp.async ring in
+// shared memory (bytes in flight, where the earlier design held one
+// register row a lane), scores and P V run on mma.sync, and the CTAs'
+// partial softmax states merge through distributed shared memory in
+// rank order. The verify-window kernel (decode_window.cu) is the same
+// kernel at T = K+1, so each window row reproduces this kernel bit for
+// bit.
+//
+// Design, float32: the earlier SIMT kernel, kept as it was so the f32
+// path stays exact to 1e-5 (tensor cores would mean TF32): one CTA of
+// 4 warps per (b, h) loops over S inside the block (decode_core.cuh's
+// attend_rows with one query row), each warp taking rows j = warp*R + i
+// stepping by 4R, one row read as 16-byte vectors by Dh*4/16 lanes; the
+// lanes' online-softmax states merge by shuffles and across warps
+// through shared memory.
+//
+// Both paths: rows past a slot's filled prefix pos[b] are never read (the
+// reference's DMA clamp, :194-199), and a stacked cache [L, B, S, D] is
+// read through the layer plane's base pointer (an offset into the stacked
+// buffer), never copied (the reference's :301-307).
 #include <stdint.h>
 
+#include <type_traits>
+
 #include "decode_core.cuh"
+#include "decode_tc.cuh"
 
 namespace dl4j {
 namespace {
@@ -58,16 +71,23 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ kc,
                                 bound, 1, scale);
 }
 
+// float32 keeps the SIMT kernel; bf16 / f16 take decode_tc.cuh's core at
+// T = 1
 template <typename T, int DH>
 int launch(const void* q, const void* k, const void* v, void* o,
            const int* pos, int pos_scalar, int B, int H, int S, float scale,
            cudaStream_t stream) {
-  dim3 grid(H, B);
-  decode_kernel<T, DH><<<grid, THREADS, 0, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), pos, pos_scalar, H, S,
-      scale);
-  return (int)cudaGetLastError();
+  if constexpr (std::is_same<T, float>::value) {
+    dim3 grid(H, B);
+    decode_kernel<T, DH><<<grid, THREADS, 0, stream>>>(
+        static_cast<const T*>(q), static_cast<const T*>(k),
+        static_cast<const T*>(v), static_cast<T*>(o), pos, pos_scalar, H,
+        S, scale);
+    return (int)cudaGetLastError();
+  } else {
+    return decode_tc::launch_rows<T, DH, decode_tc::CH, decode_tc::WARPS>(
+        q, k, v, o, pos, pos_scalar, B, 1, H, S, scale, stream);
+  }
 }
 
 template <typename T>
@@ -94,15 +114,19 @@ int dispatch_dh(int dh, const void* q, const void* k, const void* v,
 
 // q, o: contiguous [B, H, Dh]; k, v: the [B, S, H*Dh] plane to read (a
 // stacked cache's layer plane is passed as its base pointer). pos: int32
-// [B] on the device, or null to use pos_scalar for every row. Returns the
-// cudaError_t of the launch.
+// [B] on the device, or null to use pos_scalar for every row. ch and
+// cluster: the caller's view of the split (chunk rows, CTAs a cluster);
+// any other than decode_tc.cuh's is refused. Returns the cudaError_t of
+// the launch.
 extern "C" int dl4j_decode_attention(const void* q, const void* k,
                                      const void* v, void* o, const void* pos,
                                      int pos_scalar, int B, int H, int dh,
-                                     int S, int dtype, float scale,
-                                     void* stream) {
+                                     int S, int dtype, float scale, int ch,
+                                     int cluster, void* stream) {
   using namespace dl4j;
-  if (B <= 0 || B > 65535 || H <= 0 || S <= 0)
+  if (B <= 0 || B > 65535 || H <= 0 || H > 65535 || S <= 0 ||
+      ch != decode_tc::CH ||
+      cluster != decode_tc::cluster_size<decode_tc::CH>(S))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int* pp = static_cast<const int*>(pos);

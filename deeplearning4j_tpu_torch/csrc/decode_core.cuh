@@ -1,5 +1,7 @@
-// The row loop shared by the decode kernel (decode_attention.cu) and the
-// speculative-verify window kernel (decode_window.cu).
+// The SIMT row loop of the float32 decode kernel (decode_attention.cu)
+// and float32 speculative-verify window kernel (decode_window.cu); their
+// bf16 / f16 paths run decode_tc.cuh's tensor-core core instead. The
+// decode sweep kernel (decode_sweep.cu) keeps its own loop on row_score.
 //
 // One CTA of 4 warps owns one (batch row b, head h) and NT query rows of
 // it (NT = 1 for decode; up to 8 window rows for the verify window). It

@@ -22,9 +22,12 @@
 // the score is decode_core.cuh's row_score; every rounding is pinned with
 // an explicit intrinsic. So at bs >= S with 4 warps (one split) this kernel
 // does the production kernel's arithmetic in the production order, and the
-// merge of one split (weight expf(0) = 1) reproduces decode_attention.cu
-// bit for bit. decode_attention.cu, decode_window.cu and decode_core.cuh
-// are not changed.
+// merge of one split (weight expf(0) = 1) reproduces the SIMT decode
+// kernel bit for bit: decode_attention.cu's float32 path. Its bf16 / f16
+// paths are now decode_tc.cuh's tensor-core split-S core, a different
+// design on purpose, so there this kernel's forced production point
+// agrees with them to the bf16 row tolerance, not bitwise; this kernel
+// keeps its own SIMT loop as the record of the sweep.
 //
 // Bound on this card: the same as decode_attention.cu, the bytes of the
 // filled cache rows (2 * (pos+1) * Dh * sizeof(T) per (b, h)) over the

@@ -10,37 +10,52 @@
 // statistics, probabilities rounded to the value dtype before the PV
 // product, the output in the query dtype.
 //
-// Design. The TPU kernel folded the window into pseudo-heads p = t*H + h
-// so that each cache block was read once for all T rows. Here one CTA
-// (4 warps) owns one (b, h) and a group of up to 8 window rows, and walks
-// the cache rows 0..clip(pos[b]+t_last, 0, S-1) once: every loaded K/V
-// row updates the online-softmax state of each window row whose bound it
-// is within, and leaves the others untouched (decode_core.cuh). Window
-// rows past 8 take further CTAs (blockIdx.z), each reading the cache
-// again, so any T runs; the verify window of K <= 7 is one group.
-//  - Exactness: the row loop, lane assignment, merges and roundings are
-//    the decode kernel's own (one template, decode_core.cuh), so window
-//    row t equals decode_attention.cu at pos + t bit for bit.
-//  - Stacked caches [L, B, S, D]: the caller passes the layer plane's
-//    base pointer, as for the decode kernel.
-//
-// Bound on this card: the kernel reads each filled cache row once for all
-// window rows, 2 * (min(pos+T-1, S-1)+1) * Dh * sizeof(T) bytes per
-// (b, h), ~268 MB at B=64, S=2048, D=512 in bf16 (~80 us at 3.35 TB/s on
-// an H100 SXM), and does ~4*T FLOP per cache element (T=8: ~16 FLOP per
-// bf16 byte), still far below the card's operations-per-byte line, so it
-// is bound by bytes. Calling the decode kernel once per window row would
+// Bound on this card: bytes. The TPU kernel folded the window into
+// pseudo-heads p = t*H + h so that each cache block was read once for all
+// T rows; so does this kernel: 2 * (min(pos+T-1, S-1)+1) * Dh * sizeof(T)
+// bytes per (b, h), ~268 MB at B=64, S=2048, D=512 in bf16 at a full
+// cache (~80 us at 3.35 TB/s on an H100 SXM), against ~4*T FLOP a cache
+// element (T=8: ~16 FLOP a bf16 byte), still far below the card's ~295
+// operations a byte. Calling the decode kernel once per window row would
 // read the cache T times.
+//
+// Design, bf16 / f16: decode_tc.cuh's tensor-core split-S row core. The
+// window rows of one (b, h) are one m16 A tile, so the work that grows
+// with T (the scores, the exponentials' inputs, P V) runs on mma.sync
+// instead of T SIMT dot products and shuffles a cache row; the padding
+// rows of the tile are free, as the kernel waits on bytes. The cache is
+// cut into chunks spread over a thread-block cluster, staged through
+// cp.async rings and merged through distributed shared memory (see
+// there). Window rows past 16 take further tiles (gridDim.x), each
+// reading the cache again, so any T runs; the verify window of K <= 15 is
+// one tile. The decode kernel (decode_attention.cu) is this kernel at
+// T = 1, so window row t equals it at pos + t bit for bit.
+//
+// Design, float32: the earlier SIMT kernel, kept as it was so the f32
+// path stays exact to 1e-5: one CTA (4 warps) owns one (b, h) and a group
+// of up to 8 window rows and walks the cache rows
+// 0..clip(pos[b]+t_last, 0, S-1) once; every loaded K/V row updates the
+// online-softmax state of each window row whose bound it is within and
+// leaves the others untouched (decode_core.cuh's attend_rows, the decode
+// kernel's own row loop, lanes and roundings, so window row t equals the
+// float32 decode kernel at pos + t bit for bit). Window rows past 8 take
+// further CTAs (blockIdx.z).
+//
+// Both paths: a stacked cache [L, B, S, D] is read through the layer
+// plane's base pointer, as for the decode kernel.
 #include <stdint.h>
 
+#include <type_traits>
+
 #include "decode_core.cuh"
+#include "decode_tc.cuh"
 
 namespace dl4j {
 namespace {
 
 using decode::THREADS;
 
-constexpr int GROUP = 8;   // window rows per CTA
+constexpr int GROUP = 8;   // window rows per CTA (float32)
 
 template <typename T, int DH>
 __global__ void __launch_bounds__(THREADS)
@@ -68,16 +83,23 @@ window_kernel(const T* __restrict__ q, const T* __restrict__ kc,
                                     vc + base, D, bound, nt, scale);
 }
 
+// float32 keeps the SIMT kernel; bf16 / f16 take decode_tc.cuh's core
 template <typename T, int DH>
 int launch(const void* q, const void* k, const void* v, void* o,
            const int* pos, int pos_scalar, int B, int T_, int H, int S,
            float scale, cudaStream_t stream) {
-  dim3 grid(H, B, (T_ + GROUP - 1) / GROUP);
-  window_kernel<T, DH><<<grid, THREADS, 0, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), pos, pos_scalar, H, S,
-      T_, scale);
-  return (int)cudaGetLastError();
+  if constexpr (std::is_same<T, float>::value) {
+    if ((T_ + GROUP - 1) / GROUP > 65535) return (int)cudaErrorInvalidValue;
+    dim3 grid(H, B, (T_ + GROUP - 1) / GROUP);
+    window_kernel<T, DH><<<grid, THREADS, 0, stream>>>(
+        static_cast<const T*>(q), static_cast<const T*>(k),
+        static_cast<const T*>(v), static_cast<T*>(o), pos, pos_scalar, H,
+        S, T_, scale);
+    return (int)cudaGetLastError();
+  } else {
+    return decode_tc::launch_rows<T, DH, decode_tc::CH, decode_tc::WARPS>(
+        q, k, v, o, pos, pos_scalar, B, T_, H, S, scale, stream);
+  }
 }
 
 template <typename T>
@@ -105,15 +127,18 @@ int dispatch_dh(int dh, const void* q, const void* k, const void* v,
 // q, o: contiguous [B, T, H, Dh]; k, v: the [B, S, H*Dh] plane to read (a
 // stacked cache's layer plane is passed as its base pointer). pos: int32
 // [B] on the device (window row t of batch row b at pos[b] + t), or null
-// to use pos_scalar for every row. Returns the cudaError_t of the launch.
+// to use pos_scalar for every row. ch and cluster: the caller's view of
+// the split (chunk rows, CTAs a cluster); any other than decode_tc.cuh's
+// is refused. Returns the cudaError_t of the launch.
 extern "C" int dl4j_decode_window(const void* q, const void* k,
                                   const void* v, void* o, const void* pos,
                                   int pos_scalar, int B, int T, int H,
                                   int dh, int S, int dtype, float scale,
-                                  void* stream) {
+                                  int ch, int cluster, void* stream) {
   using namespace dl4j;
-  if (B <= 0 || B > 65535 || T <= 0 || H <= 0 || S <= 0 ||
-      (T + GROUP - 1) / GROUP > 65535)
+  if (B <= 0 || B > 65535 || T <= 0 || H <= 0 || H > 65535 || S <= 0 ||
+      ch != decode_tc::CH ||
+      cluster != decode_tc::cluster_size<decode_tc::CH>(S))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int* pp = static_cast<const int*>(pos);
@@ -130,4 +155,31 @@ extern "C" int dl4j_decode_window(const void* q, const void* k,
     default:
       return (int)cudaErrorInvalidValue;
   }
+}
+
+// The bf16 Dh-64 core at a swept geometry (chunk rows ch in 128, 256, 512;
+// warps 4 or 8), for choosing the production one; the arguments as above.
+extern "C" int dl4j_decode_window_geometry(const void* q, const void* k,
+                                           const void* v, void* o,
+                                           const void* pos, int pos_scalar,
+                                           int B, int T, int H, int S,
+                                           float scale, int ch, int warps,
+                                           void* stream) {
+  using namespace dl4j;
+  using BF = __nv_bfloat16;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int* pp = static_cast<const int*>(pos);
+#define DL4J_GEOM(CH_, W_)                                                 \
+  if (ch == CH_ && warps == W_)                                            \
+    return decode_tc::launch_rows<BF, 64, CH_, W_>(q, k, v, o, pp,         \
+                                                   pos_scalar, B, T, H, S, \
+                                                   scale, s);
+  DL4J_GEOM(128, 4)
+  DL4J_GEOM(128, 8)
+  DL4J_GEOM(256, 4)
+  DL4J_GEOM(256, 8)
+  DL4J_GEOM(512, 4)
+  DL4J_GEOM(512, 8)
+#undef DL4J_GEOM
+  return (int)cudaErrorInvalidValue;
 }

@@ -4,17 +4,23 @@ Port of deeplearning4j_tpu/ops/flash_decode.py's `_decode_kernel` and
 `_window_kernel` paths. The Pallas kernels become
 `csrc/decode_attention.cu` (one query row per (batch row, head)) and
 `csrc/decode_window.cu` (the K+1 rows of a speculative verify window per
-(batch row, head), one cache read for all of them); both run the row loop
-of `csrc/decode_core.cuh`, so a window row equals the decode kernel at its
-own position bit for bit. See the sources' headers for the design and what
-bounds them on the card. Caches are flattened-head [B, S, D=H*Dh] or the
-stacked [L, B, S, D] with a layer index, `pos` a scalar or a [B] vector.
+(batch row, head), one cache read for all of them). Their bf16 / f16
+paths are one kernel, `csrc/decode_tc.cuh` (tensor cores, the cache split
+over a thread-block cluster; decode is that kernel at T = 1); their
+float32 paths share `csrc/decode_core.cuh`'s SIMT row loop. Either way a
+window row equals the decode kernel at its own position bit for bit. See
+the sources' headers for the design and what bounds them on the card.
+Caches are flattened-head [B, S, D=H*Dh] or the stacked [L, B, S, D]
+with a layer index, `pos` a scalar or a [B] vector.
 
 Routing: `decode_attention` / `decode_window_attention` launch the kernel
 for CUDA tensors (or raise for what it does not take) and run
 `reference_decode_attention` / `reference_window_attention` for CPU
-tensors only. The quantized-KV form (`k_scale`/`v_scale`,
-ROADMAP queue A4) is not ported and raises NotImplementedError.
+tensors only. `reference_chunked_window_attention` (and its decode form)
+is the plain twin of the bf16 / f16 kernels' split: chunks of
+`DECODE_CH` cache rows over `decode_cluster(S)` CTAs, merged in rank
+order. The quantized-KV form (`k_scale`/`v_scale`, ROADMAP queue A4) is
+not ported and raises NotImplementedError.
 """
 from __future__ import annotations
 
@@ -30,6 +36,109 @@ _QUANT_TODO = ("quantized-KV decode attention (k_scale/v_scale) is not "
                "ported yet (ROADMAP queue A4)")
 
 PosLike = Union[int, torch.Tensor]
+
+
+# The split of the bf16 / f16 decode and window kernels
+# (csrc/decode_tc.cuh): cache rows in chunks of DECODE_CH; the chunks of
+# one (batch row, head, tile of DECODE_TILE_ROWS query rows) spread over
+# a cluster of decode_cluster(S) CTAs, CTA rank r taking chunks r, r + C,
+# ... The wrappers hand (DECODE_CH, decode_cluster(S)) to the kernels,
+# which refuse any other split.
+DECODE_CH = 256
+DECODE_MAX_CLUSTER = 8
+DECODE_TILE_ROWS = 16
+
+
+def decode_cluster(s: int) -> int:
+    """CTAs a cluster for a cache of ``s`` rows: min(8, ceil(s / CH))."""
+    return min(DECODE_MAX_CLUSTER, -(-s // DECODE_CH))
+
+
+def decode_grid(s: int, t: int, h: int, b: int):
+    """The kernels' grid for T = ``t`` query rows (decode: 1) over a
+    cache of ``s`` rows: (cluster x row tiles, heads, batch rows), with
+    clusters of `decode_cluster(s)` CTAs along x."""
+    return (decode_cluster(s) * -(-t // DECODE_TILE_ROWS), h, b)
+
+
+def decode_chunks(s: int, rank: int):
+    """First cache rows of the chunks that cluster rank ``rank`` takes,
+    in the order it takes them."""
+    c = decode_cluster(s)
+    return list(range(rank * DECODE_CH, s, c * DECODE_CH))
+
+
+def decode_live_ctas(pos: PosLike, s: int, t: int, b: int) -> torch.Tensor:
+    """Which CTAs load anything: bool [b, row tiles, cluster]. CTA (row
+    tile i, rank r) of batch row j is live when its first chunk starts at
+    or before the tile's last bound, clip(pos[j] + 16 i + rows - 1, 0,
+    s - 1); a dead CTA only joins the cluster's barriers."""
+    c = decode_cluster(s)
+    tiles = -(-t // DECODE_TILE_ROWS)
+    pos_t = torch.as_tensor(pos, dtype=torch.int64).reshape(-1)
+    pos_t = pos_t.expand(b) if pos_t.numel() == 1 else pos_t
+    t0 = torch.arange(tiles) * DECODE_TILE_ROWS
+    rows = torch.clamp(t - t0, max=DECODE_TILE_ROWS)
+    last = torch.clamp(pos_t[:, None] + t0[None, :] + rows[None, :] - 1, 0,
+                       s - 1)                               # [b, tiles]
+    return (torch.arange(c) * DECODE_CH)[None, None, :] <= last[..., None]
+
+
+def reference_chunked_window_attention(q, k_cache, v_cache, pos: PosLike,
+                                       n_heads: int,
+                                       scale: Optional[float] = None,
+                                       layer: int = 0) -> torch.Tensor:
+    """Plain twin of the bf16 / f16 window kernel's split (the function
+    of `reference_window_attention`): q [B, T, H, Dh], row t at position
+    pos[b] + t attends cache rows 0..clip(pos[b]+t, 0, S-1) of the
+    flattened-head [B, S, D] or stacked [L, B, S, D] cache (``layer``).
+    Each cluster rank's chunks give a float32 state: its max score m,
+    l = sum exp(s - m) and acc = sum of exp(s - m) rounded to the value
+    dtype times v; the states merge in rank order by their weights
+    exp(m - max m), a rank with no live key (m = -inf) skipped."""
+    if k_cache.ndim == 4:
+        k_cache, v_cache = k_cache[layer], v_cache[layer]
+    b, t, h, dh = q.shape
+    s = k_cache.shape[-2]
+    if scale is None:
+        scale = 1.0 / (dh ** 0.5)
+    ct = torch.promote_types(q.dtype, k_cache.dtype)
+    st = torch.promote_types(ct, torch.float32)
+    kh = k_cache.reshape(b, s, h, dh).to(st)
+    vh = v_cache.reshape(b, s, h, dh).to(st)
+    sc = torch.einsum("bthd,bshd->bhts", q.to(st), kh).to(torch.float32) \
+        * scale
+    pos_t = torch.as_tensor(pos, device=q.device).reshape(-1, 1)
+    wp = torch.clamp(pos_t + torch.arange(t, device=q.device)[None, :], 0,
+                     s - 1)                                 # [B or 1, T]
+    keys = torch.arange(s, device=q.device)
+    sc = torch.where(keys[None, None, None, :] <= wp[:, None, :, None], sc,
+                     torch.full_like(sc, float("-inf")))
+    rank = (keys // DECODE_CH) % decode_cluster(s)
+    mt = sc.amax(dim=-1)            # the merged max: key 0 is always live
+    lt = torch.zeros_like(mt)
+    at = torch.zeros((b, h, t, dh), dtype=torch.float32, device=q.device)
+    for r in range(decode_cluster(s)):
+        sr = torch.where(rank == r, sc, torch.full_like(sc, float("-inf")))
+        m = sr.amax(dim=-1)
+        live = m > float("-inf")
+        p = torch.exp(sr - torch.where(live, m, torch.zeros_like(m))[..., None])
+        acc = torch.einsum("bhts,bshd->bhtd", p.to(ct).to(st), vh).to(
+            torch.float32)
+        w = torch.where(live, torch.exp(m - mt), torch.zeros_like(m))
+        lt = lt + w * p.sum(dim=-1)
+        at = at + w[..., None] * acc
+    return (at / lt[..., None]).transpose(1, 2).to(q.dtype)
+
+
+def reference_chunked_decode_attention(q, k_cache, v_cache, pos: PosLike,
+                                       n_heads: int,
+                                       scale: Optional[float] = None,
+                                       layer: int = 0) -> torch.Tensor:
+    """`reference_chunked_window_attention` at T = 1: q [B, H, Dh] at
+    ``pos`` attends rows 0..pos; returns [B, H, Dh]."""
+    return reference_chunked_window_attention(
+        q[:, None], k_cache, v_cache, pos, n_heads, scale, layer)[:, 0]
 
 
 def reference_decode_attention(q, k_cache, v_cache, pos: PosLike,
@@ -119,9 +228,10 @@ def _kernel_args(what: str, q, k_cache, v_cache, pos: PosLike, b: int,
 def decode_attention_cuda(q, k_cache, v_cache, pos: PosLike, n_heads: int,
                           scale: Optional[float] = None,
                           layer: int = 0) -> torch.Tensor:
-    """Launch csrc/decode_attention.cu. The stacked cache's layer plane
-    is passed as a pointer offset into the buffer, never copied. Counts
-    its launches."""
+    """Launch csrc/decode_attention.cu (one launch; bf16 / f16 on the
+    grid of `decode_grid`). The stacked cache's layer plane is passed as
+    a pointer offset into the buffer, never copied. Counts its
+    launches."""
     if q.ndim != 3:
         raise ValueError(f"decode_attention: bad q shape {tuple(q.shape)}")
     b, h, dh = q.shape
@@ -133,7 +243,8 @@ def decode_attention_cuda(q, k_cache, v_cache, pos: PosLike, n_heads: int,
     o = torch.empty_like(q)
     fn = _build.load("decode_attention")
     err = fn(q.data_ptr(), kp, vp, o.data_ptr(), pos_ptr, pos_scalar, b, h,
-             dh, s, code, float(scale), _build.stream_ptr(q.device))
+             dh, s, code, float(scale), DECODE_CH, decode_cluster(s),
+             _build.stream_ptr(q.device))
     _build.check(err, "decode_attention")
     decode_attention_cuda.launches += 1
     return o
@@ -199,7 +310,8 @@ def decode_window_attention_cuda(q, k_cache, v_cache, pos: PosLike,
                                  layer: int = 0) -> torch.Tensor:
     """Launch csrc/decode_window.cu on q [B, T, H, Dh]: one read of the
     cache (or of the stacked cache's layer plane, passed as a pointer
-    offset) for every window row of up to 8. Counts its launches."""
+    offset) for every window row of up to 16 (bf16 / f16) or 8
+    (float32). One launch; counts its launches."""
     if q.ndim != 4:
         raise ValueError(f"decode_window_attention: bad q shape "
                          f"{tuple(q.shape)}")
@@ -212,7 +324,8 @@ def decode_window_attention_cuda(q, k_cache, v_cache, pos: PosLike,
     o = torch.empty_like(q)
     fn = _build.load("decode_window")
     err = fn(q.data_ptr(), kp, vp, o.data_ptr(), pos_ptr, pos_scalar, b, t,
-             h, dh, s, code, float(scale), _build.stream_ptr(q.device))
+             h, dh, s, code, float(scale), DECODE_CH, decode_cluster(s),
+             _build.stream_ptr(q.device))
     _build.check(err, "decode_window_attention")
     decode_window_attention_cuda.launches += 1
     return o
@@ -231,8 +344,8 @@ def decode_window_attention(q, k_cache, v_cache, pos: PosLike, n_heads: int,
     picks the plane). Returns [B, T, H, Dh] in q's dtype: the kernel for
     CUDA tensors, the plain reference for CPU tensors. The TPU kernel's
     block sizing (VMEM budget, DL4JTPU_DECODE_BS and
-    DL4JTPU_DECODE_BLOCK_BYTES) has no counterpart here: the CUDA kernel
-    walks rows, not blocks."""
+    DL4JTPU_DECODE_BLOCK_BYTES) has no counterpart here: the CUDA kernels
+    split the cache at the fixed `DECODE_CH`."""
     if k_scale is not None or v_scale is not None:
         raise NotImplementedError(_QUANT_TODO)
     if q.is_cuda:

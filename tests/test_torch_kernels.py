@@ -98,24 +98,41 @@ def test_flash_kernel_bf16_on_card(requires_cuda, dtype, dh, causal, tq, sk,
     np.testing.assert_allclose(logl.cpu().numpy(), rl.cpu().numpy(), **F32)
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+# every dtype of the decode and window kernels: float32 is the SIMT row
+# loop, bf16 and f16 the tensor-core split-S core (csrc/decode_tc.cuh)
+DECODE_DTYPES = [torch.float32, torch.float16, torch.bfloat16]
+CH = tdec.DECODE_CH
+# S = 2*CH + 100: three cluster ranks, the last chunk ragged; the
+# positions sit on chunk edges and at the clamp
+S_EDGES = 2 * CH + 100
+POS_EDGES = [0, CH - 1, CH, CH + 1, 2 * CH, S_EDGES - 1]
+
+
+@pytest.mark.parametrize("dtype", DECODE_DTYPES)
 @pytest.mark.parametrize("dh", [32, 64, 128])
 def test_decode_kernel_matches_plain_on_card(requires_cuda, dtype, dh):
-    b, h, s = 4, 2, 300
+    """The decode kernel against its plain twin and (bf16 / f16) its
+    chunked twin at positions on chunk edges, on the stacked cache's
+    layer 1 with a pos vector, and at a scalar pos on layer 0."""
+    b, h, s = 6, 2, S_EDGES
     dev = requires_cuda
     q = torch.from_numpy(_rand((b, h, dh), 60)).to(dev, dtype)
     k = torch.from_numpy(_rand((2, b, s, h * dh), 61)).to(dev, dtype)
     v = torch.from_numpy(_rand((2, b, s, h * dh), 62)).to(dev, dtype)
-    pos = torch.tensor([0, 299, 17, 150], dtype=torch.int32, device=dev)
+    pos = torch.tensor(POS_EDGES, dtype=torch.int32, device=dev)
     before = tdec.decode_attention_cuda.launches
     got = tdec.decode_attention(q, k, v, pos, n_heads=h, layer=1)
     want = tdec.reference_decode_attention(q, k[1], v[1], pos, n_heads=h)
     torch.cuda.synchronize()
     assert tdec.decode_attention_cuda.launches == before + 1
     _assert_close(got, want, dtype)
-    got_s = tdec.decode_attention(q, k, v, 123, n_heads=h, layer=0)
-    want_s = tdec.reference_decode_attention(q, k[0], v[0], 123, n_heads=h)
-    _assert_close(got_s, want_s, dtype)
+    _assert_close(got, tdec.reference_chunked_decode_attention(
+        q, k, v, pos, h, layer=1), dtype)
+    for p in (123, CH, S_EDGES + 5):
+        got_s = tdec.decode_attention(q, k, v, p, n_heads=h, layer=0)
+        want_s = tdec.reference_decode_attention(q, k[0], v[0], p,
+                                                 n_heads=h)
+        _assert_close(got_s, want_s, dtype)
 
 
 def _bwd_inputs(dev, dtype, tq, sk, dh, causal, qo, ko, seed=70):
@@ -299,27 +316,30 @@ def test_kernels_refuse_unsupported_inputs_on_card(requires_cuda):
         tdec.decode_attention(qd, cache, cache, 3, n_heads=2)
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.float16,
-                                   torch.bfloat16])
+@pytest.mark.parametrize("dtype", DECODE_DTYPES)
 @pytest.mark.parametrize("dh", [32, 64, 128])
-@pytest.mark.parametrize("t", [1, 5, 9])
+@pytest.mark.parametrize("t", [1, 2, 3, 4, 5, 6, 7, 8, 9, 16, 17])
 def test_window_kernel_matches_plain_and_decode_on_card(requires_cuda,
                                                         dtype, dh, t):
     """The verify-window kernel against its plain twin (the tolerances
-    above; T=9 spans two CTA groups of 8), and each window row bitwise
-    against the decode kernel at pos + t, the clamp at S-1 included."""
-    b, h, s = 4, 2, 300
+    above; T=9 spans two float32 CTA groups of 8, T=17 two bf16 / f16
+    row tiles of 16), with positions on chunk edges and the clamp at
+    S-1, and each window row bitwise against the decode kernel at
+    pos + t."""
+    b, h, s = 6, 2, S_EDGES
     dev = requires_cuda
     q = torch.from_numpy(_rand((b, t, h, dh), 90)).to(dev, dtype)
     k = torch.from_numpy(_rand((2, b, s, h * dh), 91)).to(dev, dtype)
     v = torch.from_numpy(_rand((2, b, s, h * dh), 92)).to(dev, dtype)
-    pos = torch.tensor([0, 299, 17, 294], dtype=torch.int32, device=dev)
+    pos = torch.tensor(POS_EDGES, dtype=torch.int32, device=dev) - t // 2
     before = tdec.decode_window_attention_cuda.launches
     got = tdec.decode_window_attention(q, k, v, pos, n_heads=h, layer=1)
     want = tdec.reference_window_attention(q, k[1], v[1], pos, n_heads=h)
     torch.cuda.synchronize()
     assert tdec.decode_window_attention_cuda.launches == before + 1
     _assert_close(got, want, dtype)
+    _assert_close(got, tdec.reference_chunked_window_attention(
+        q, k, v, pos, h, layer=1), dtype)
     for ti in range(t):
         row = tdec.decode_attention(q[:, ti], k, v, pos + ti, n_heads=h,
                                     layer=1)
@@ -327,6 +347,48 @@ def test_window_kernel_matches_plain_and_decode_on_card(requires_cuda,
     got_s = tdec.decode_window_attention(q, k, v, 150, n_heads=h, layer=0)
     want_s = tdec.reference_window_attention(q, k[0], v[0], 150, n_heads=h)
     _assert_close(got_s, want_s, dtype)
+
+
+@pytest.mark.parametrize("dtype", DECODE_DTYPES)
+def test_decode_and_window_kernels_deterministic_on_card(requires_cuda,
+                                                         dtype):
+    """Two calls on the same inputs give equal bits (fixed merge orders,
+    no atomics), and at the serving shape (S = 2048, eight cluster ranks)
+    every window row equals the decode kernel at pos + t."""
+    b, h, dh, s, t = 8, 4, 64, 2048, 8
+    dev = requires_cuda
+    q = torch.from_numpy(_rand((b, t, h, dh), 80)).to(dev, dtype)
+    k = torch.from_numpy(_rand((b, s, h * dh), 81)).to(dev, dtype)
+    v = torch.from_numpy(_rand((b, s, h * dh), 82)).to(dev, dtype)
+    pos = torch.tensor([0, 255, 256, 1000, 1791, 1792, 2040, 2047],
+                       dtype=torch.int32, device=dev)
+    w1 = tdec.decode_window_attention(q, k, v, pos, n_heads=h)
+    w2 = tdec.decode_window_attention(q, k, v, pos, n_heads=h)
+    d1 = tdec.decode_attention(q[:, 0], k, v, pos, n_heads=h)
+    d2 = tdec.decode_attention(q[:, 0], k, v, pos, n_heads=h)
+    torch.cuda.synchronize()
+    assert torch.equal(w1, w2) and torch.equal(d1, d2)
+    for ti in range(t):
+        row = tdec.decode_attention(q[:, ti], k, v, pos + ti, n_heads=h)
+        assert torch.equal(w1[:, ti], row), f"window row {ti}"
+
+
+def test_decode_kernels_refuse_another_split_on_card(requires_cuda):
+    """The C entry points take the wrappers' (CH, cluster) and refuse any
+    other split than the one they were built with."""
+    from deeplearning4j_tpu_torch.ops import _build
+    dev = requires_cuda
+    q = torch.zeros(2, 2, 64, device=dev, dtype=torch.bfloat16)
+    cache = torch.zeros(2, 600, 128, device=dev, dtype=torch.bfloat16)
+    o = torch.empty_like(q)
+    fn = _build.load("decode_attention")
+    args = (q.data_ptr(), cache.data_ptr(), cache.data_ptr(), o.data_ptr(),
+            None, 5, 2, 2, 64, 600, _build.DTYPE_BF16, 0.125)
+    stream = _build.stream_ptr(dev)
+    assert fn(*args, CH, tdec.decode_cluster(600), stream) == 0
+    assert fn(*args, CH // 2, tdec.decode_cluster(600), stream) != 0
+    assert fn(*args, CH, tdec.decode_cluster(600) + 1, stream) != 0
+    torch.cuda.synchronize()
 
 
 def test_window_kernel_refuses_unsupported_inputs_on_card(requires_cuda):
@@ -514,9 +576,12 @@ def test_decode_sweep_kernel_matches_plain_on_card(requires_cuda, dtype,
 @pytest.mark.parametrize("dh", [32, 64, 128])
 def test_decode_sweep_production_point_equals_decode_kernel(requires_cuda,
                                                             dtype, dh):
-    """bs = S with 4 warps: the dispatcher launches the production kernel,
-    and the sweep kernel itself, forced there, reproduces it bit for bit
-    (one split, merge weight expf(0) = 1)."""
+    """bs = S with 4 warps: the dispatcher launches the production kernel.
+    The sweep kernel itself, forced there, reproduces the float32 decode
+    kernel bit for bit (the same SIMT loop, one split, merge weight
+    expf(0) = 1); in bf16 production is the tensor-core split-S core, a
+    different design, so there the forced point is held to it and to its
+    twin at the bf16 row tolerance."""
     b, h, s = 4, 2, 300
     dev = requires_cuda
     q = torch.from_numpy(_rand((b, h, dh), 93)).to(dev, dtype)
@@ -532,7 +597,12 @@ def test_decode_sweep_production_point_equals_decode_kernel(requires_cuda,
     prod = tdec.decode_attention_cuda(q, k, v, pos, h)
     own = tdec.decode_sweep_cuda(q, k, v, pos, h, s, 4)
     assert torch.equal(routed, prod)
-    assert torch.equal(own, prod)
+    if dtype == torch.float32:
+        assert torch.equal(own, prod)
+    else:
+        _assert_close(own, prod, dtype)
+        _assert_close(own, tdec.reference_split_decode_attention(
+            q, k, v, pos, h, s), dtype)
 
 
 def test_decode_sweep_kernel_refuses_unsupported_inputs_on_card(

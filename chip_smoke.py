@@ -583,7 +583,7 @@ def decode_geometry_sweep(torch, dev):
     lib = ctypes.CDLL(str(_build.library_path("decode_window")))
     fn = lib.dl4j_decode_window_geometry
     P, I = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [P] * 5 + [I] * 5 + [ctypes.c_float, I, I, P]
+    fn.argtypes = [P] * 5 + [I] * 5 + [ctypes.c_float, I, I, I, I, P]
     fn.restype = I
     g = torch.Generator(device="cpu").manual_seed(12)
     B, S, D, H = 64, 2048, 512, 8
@@ -605,22 +605,25 @@ def decode_geometry_sweep(torch, dev):
         want = fd.reference_window_attention(q, ck, cv, pos, H)
         ptr = pos.data_ptr() if isinstance(pos, torch.Tensor) else None
         ps = 0 if isinstance(pos, torch.Tensor) else pos
-        for ch in (128, 256, 512):
-            for warps in (4, 8):
+        for ch, warps, bk, stages in ((256, 4, 16, 3), (512, 4, 16, 3),
+                                      (1024, 4, 16, 3), (512, 4, 16, 4),
+                                      (512, 4, 32, 3), (512, 2, 16, 3),
+                                      (512, 2, 32, 3), (512, 8, 16, 3)):
+            if True:
                 o = torch.empty_like(q)
 
                 def call():
                     err = fn(q.data_ptr(), ck.data_ptr(), cv.data_ptr(),
                              o.data_ptr(), ptr, ps, B, t, H, S, Dh ** -0.5,
-                             ch, warps, _build.stream_ptr(dev))
+                             ch, warps, bk, stages, _build.stream_ptr(dev))
                     _build.check(err, "decode geometry")
                 call()
                 rel = row_rel_err(o, want)
                 if not rel <= 1.0:
                     fail(f"decode geometry ch={ch} warps={warps} T={t} pos "
                          f"{pname}: row-relative {rel}")
-                out.append(dict(t=t, pos=pname, ch=ch, warps=warps,
-                                row_rel_err=rel,
+                out.append(dict(t=t, pos=pname, ch=ch, warps=warps, bk=bk,
+                                stages=stages, row_rel_err=rel,
                                 ms=_timing.time_ms(call, dev, 20, 3)))
         del q, want
     line(dict(phase="1c", run="decode_geometry_sweep", dtype="bfloat16",

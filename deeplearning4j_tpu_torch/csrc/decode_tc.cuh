@@ -11,7 +11,8 @@
 // equals the decode kernel at pos + t bit for bit: nothing that a row
 // computes depends on another row of the tile (below).
 //
-// 1. Query tile. The rows t0..t0+15 of one (b, h) are one m16 A tile
+// 1. Query tile. The rows t0..t0+15 of one (b, h) are one m16 A tile,
+//    read from device memory straight into each warp's A fragments
 //    (rows past T are zero and never stored; T > 16 takes further tiles,
 //    each reading the cache again). S = Q K^T and O += P V run on
 //    `mma.sync m16n8k16` with float32 accumulators (mma_tile.cuh); P is
@@ -71,7 +72,7 @@ constexpr int MAX_CLUSTER = 8;    // CTAs a cluster (the portable limit)
 
 // The production geometry, chosen by measurement on an H100 (PERF.md):
 // chunks of CH cache rows, WARPS warps a CTA.
-constexpr int CH = 256;
+constexpr int CH = 512;
 constexpr int WARPS = 4;
 
 template <int CH_>
@@ -80,14 +81,14 @@ __host__ __device__ constexpr int cluster_size(int S) {
                                            : MAX_CLUSTER;
 }
 
-template <int DH, int WARPS_>
+template <int DH, int WARPS_, int BK_ = BK, int NSTAGE_ = NSTAGE>
 struct Geom {
   static constexpr int NT = WARPS_ * 32;
   static constexpr int STRIDE = tc::Pad<DH>::STRIDE;
-  static constexpr int Q_ELEMS = ROWS * STRIDE;
-  // each warp's ring: NSTAGE stages of a K tile and a V tile
-  static constexpr int WARP_RING = NSTAGE * 2 * BK * STRIDE;
-  static constexpr int BYTES = (Q_ELEMS + WARPS_ * WARP_RING) * 2;
+  // each warp's ring: NSTAGE stages of a K tile and a V tile (at Dh 64,
+  // 54 KB a CTA: four CTAs an SM)
+  static constexpr int WARP_RING = NSTAGE_ * 2 * BK_ * STRIDE;
+  static constexpr int BYTES = WARPS_ * WARP_RING * 2;
   // after the loop the ring holds the warps' states and the CTA's
   static constexpr int STATE_BYTES =
       (WARPS_ + 1) * ROWS * (DH + 2) * (int)sizeof(float);
@@ -117,24 +118,24 @@ __device__ __forceinline__ void load_rows(T* dst, const T* src, int ld,
 
 // q, o: [B, T, H, Dh] (decode: T = 1); kc, vc: the [B, S, H*Dh] plane.
 // Grid (C * ceil(T/16), H, B), clusters of C along x.
-template <typename T, int DH, int CH_, int WARPS_>
+template <typename T, int DH, int CH_, int WARPS_, int BK_ = BK,
+          int NSTAGE_ = NSTAGE>
 __global__ void __launch_bounds__(WARPS_ * 32)
 decode_rows_tc_kernel(const T* __restrict__ q, const T* __restrict__ kc,
                       const T* __restrict__ vc, T* __restrict__ o,
                       const int* __restrict__ pos, int pos_scalar, int H,
                       int S, int T_, float scale) {
-  using G = Geom<DH, WARPS_>;
+  using G = Geom<DH, WARPS_, BK_, NSTAGE_>;
   constexpr int NT = G::NT;
   constexpr int STRIDE = G::STRIDE;
   constexpr int KD = DH / 16;            // k chunks of Q K^T
   constexpr int NO = DH / 8;             // output C tiles
-  constexpr int NS = BK / 8;             // score C tiles of a warp tile
-  constexpr int SLAB = WARPS_ * BK;
+  constexpr int NS = BK_ / 8;             // score C tiles of a warp tile
+  constexpr int SLAB = WARPS_ * BK_;
   constexpr int TPC = CH_ / SLAB;        // a warp's tiles in one chunk
   static_assert(CH_ % SLAB == 0, "a chunk is whole slabs");
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* Qs = reinterpret_cast<T*>(smem_raw);
-  T* ring = Qs + G::Q_ELEMS;
+  T* ring = reinterpret_cast<T*>(smem_raw);
 
   cg::cluster_group cluster = cg::this_cluster();
   const int C = (int)cluster.num_blocks();
@@ -167,14 +168,14 @@ decode_rows_tc_kernel(const T* __restrict__ q, const T* __restrict__ kc,
   T* wring = ring + warp * G::WARP_RING;
   // first key of the warp's n-th tile
   auto tile_k0 = [&](int n) {
-    return (rank + C * (n / TPC)) * CH_ + (n % TPC) * SLAB + warp * BK;
+    return (rank + C * (n / TPC)) * CH_ + (n % TPC) * SLAB + warp * BK_;
   };
   auto load_kv = [&](int n) {
     const int k0 = tile_k0(n);
     if (k0 <= last) {
-      T* st = wring + (n % NSTAGE) * 2 * BK * STRIDE;
-      load_rows<T, DH, BK, 32>(st, kb, D, k0, last, lane);
-      load_rows<T, DH, BK, 32>(st + BK * STRIDE, vb, D, k0, last, lane);
+      T* st = wring + (n % NSTAGE_) * 2 * BK_ * STRIDE;
+      load_rows<T, DH, BK_, 32>(st, kb, D, k0, last, lane);
+      load_rows<T, DH, BK_, 32>(st + BK_ * STRIDE, vb, D, k0, last, lane);
     }
     tc::cp_async_commit();   // empty groups keep the count uniform
   };
@@ -192,26 +193,31 @@ decode_rows_tc_kernel(const T* __restrict__ q, const T* __restrict__ kc,
   }
 
   if (rank * CH_ <= last) {   // uniform across the CTA
-    load_rows<T, DH, ROWS, NT>(Qs, qb, D, 0, nt - 1, tid);
-    tc::cp_async_commit();
 #pragma unroll
-    for (int n = 0; n < NSTAGE - 1; ++n) load_kv(n);
-    tc::cp_async_wait<NSTAGE - 1>();   // the Q group (this thread's part)
-    __syncthreads();
+    for (int n = 0; n < NSTAGE_ - 1; ++n) load_kv(n);
+    // the A fragments of the query tile (ldmatrix's layout: a0 rows g,
+    // a1 rows g + 8, columns 2tg..2tg+1; a2, a3 the same 8 columns on)
     uint32_t qf[KD][4];
 #pragma unroll
     for (int kk = 0; kk < KD; ++kk)
-      tc::ldsm_a<STRIDE>(qf[kk], Qs, 0, kk * 16, lane);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int r = g + 8 * (i & 1);
+        qf[kk][i] = r < nt ? *reinterpret_cast<const uint32_t*>(
+                                 qb + (size_t)r * D + kk * 16 + 2 * tg +
+                                 8 * (i >> 1))
+                           : 0u;
+      }
 
     for (int n = 0; tile_k0(n) <= last; ++n) {
-      tc::cp_async_wait<NSTAGE - 2>();   // tile n (this thread's part)
+      tc::cp_async_wait<NSTAGE_ - 2>();   // tile n (this thread's part)
       // every lane's part of tile n is visible, and every lane is done
       // with tile n - 1, whose stage the load below refills
       __syncwarp();
-      load_kv(n + NSTAGE - 1);
+      load_kv(n + NSTAGE_ - 1);
       const int k0 = tile_k0(n);
-      const T* Kt = wring + (n % NSTAGE) * 2 * BK * STRIDE;
-      const T* Vt = Kt + BK * STRIDE;
+      const T* Kt = wring + (n % NSTAGE_) * 2 * BK_ * STRIDE;
+      const T* Vt = Kt + BK_ * STRIDE;
 
       float s[NS][4];
 #pragma unroll
@@ -268,9 +274,9 @@ decode_rows_tc_kernel(const T* __restrict__ q, const T* __restrict__ kc,
       }
       // O += P V: P rounded to T as it becomes the A operand; each
       // tile's product in a fresh accumulator, added for live rows only
-      uint32_t pa[BK / 16][4];
+      uint32_t pa[BK_ / 16][4];
 #pragma unroll
-      for (int kk = 0; kk < BK / 16; ++kk)
+      for (int kk = 0; kk < BK_ / 16; ++kk)
         tc::c_to_a<T>(pa[kk], s[2 * kk], s[2 * kk + 1]);
 #pragma unroll
       for (int dd = 0; dd < NO / 2; ++dd) {
@@ -280,7 +286,7 @@ decode_rows_tc_kernel(const T* __restrict__ q, const T* __restrict__ kc,
 #pragma unroll
           for (int c = 0; c < 4; ++c) pv[i][c] = 0.f;
 #pragma unroll
-        for (int kk = 0; kk < BK / 16; ++kk) {
+        for (int kk = 0; kk < BK_ / 16; ++kk) {
           uint32_t b0[2], b1[2];
           tc::ldsm_b_kn<STRIDE>(b0, b1, Vt, kk * 16, dd * 16, lane);
           tc::mma<T>(pv[0], pa[kk], b0);
@@ -369,12 +375,13 @@ decode_rows_tc_kernel(const T* __restrict__ q, const T* __restrict__ kc,
 
 // Launch decode_rows_tc_kernel: q, o [B, T, H, Dh], k, v the [B, S, H*Dh]
 // plane. Returns the cudaError_t of the launch.
-template <typename T, int DH, int CH_, int WARPS_>
+template <typename T, int DH, int CH_, int WARPS_, int BK_ = BK,
+          int NSTAGE_ = NSTAGE>
 int launch_rows(const void* q, const void* k, const void* v, void* o,
                 const int* pos, int pos_scalar, int B, int T_, int H, int S,
                 float scale, cudaStream_t stream) {
-  using G = Geom<DH, WARPS_>;
-  auto kernel = decode_rows_tc_kernel<T, DH, CH_, WARPS_>;
+  using G = Geom<DH, WARPS_, BK_, NSTAGE_>;
+  auto kernel = decode_rows_tc_kernel<T, DH, CH_, WARPS_, BK_, NSTAGE_>;
   const int C = cluster_size<CH_>(S);
   const int tiles = (T_ + ROWS - 1) / ROWS;
   if (tiles > 65535) return (int)cudaErrorInvalidValue;

@@ -157,29 +157,32 @@ extern "C" int dl4j_decode_window(const void* q, const void* k,
   }
 }
 
-// The bf16 Dh-64 core at a swept geometry (chunk rows ch in 128, 256, 512;
-// warps 4 or 8), for choosing the production one; the arguments as above.
+// The bf16 Dh-64 core at a swept geometry (chunk rows ch, warps, keys a
+// warp tile bk, ring stages), for choosing the production one; the other
+// arguments as above.
 extern "C" int dl4j_decode_window_geometry(const void* q, const void* k,
                                            const void* v, void* o,
                                            const void* pos, int pos_scalar,
                                            int B, int T, int H, int S,
                                            float scale, int ch, int warps,
+                                           int bk, int stages,
                                            void* stream) {
   using namespace dl4j;
   using BF = __nv_bfloat16;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int* pp = static_cast<const int*>(pos);
-#define DL4J_GEOM(CH_, W_)                                                 \
-  if (ch == CH_ && warps == W_)                                            \
-    return decode_tc::launch_rows<BF, 64, CH_, W_>(q, k, v, o, pp,         \
-                                                   pos_scalar, B, T, H, S, \
-                                                   scale, s);
-  DL4J_GEOM(128, 4)
-  DL4J_GEOM(128, 8)
-  DL4J_GEOM(256, 4)
-  DL4J_GEOM(256, 8)
-  DL4J_GEOM(512, 4)
-  DL4J_GEOM(512, 8)
+#define DL4J_GEOM(CH_, W_, BK_, NS_)                                      \
+  if (ch == CH_ && warps == W_ && bk == BK_ && stages == NS_)             \
+    return decode_tc::launch_rows<BF, 64, CH_, W_, BK_, NS_>(             \
+        q, k, v, o, pp, pos_scalar, B, T, H, S, scale, s);
+  DL4J_GEOM(256, 4, 16, 3)
+  DL4J_GEOM(512, 4, 16, 3)
+  DL4J_GEOM(1024, 4, 16, 3)
+  DL4J_GEOM(512, 4, 16, 4)
+  DL4J_GEOM(512, 4, 32, 3)
+  DL4J_GEOM(512, 2, 16, 3)
+  DL4J_GEOM(512, 2, 32, 3)
+  DL4J_GEOM(512, 8, 16, 3)
 #undef DL4J_GEOM
   return (int)cudaErrorInvalidValue;
 }

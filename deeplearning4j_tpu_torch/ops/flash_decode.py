@@ -44,7 +44,7 @@ PosLike = Union[int, torch.Tensor]
 # a cluster of decode_cluster(S) CTAs, CTA rank r taking chunks r, r + C,
 # ... The wrappers hand (DECODE_CH, decode_cluster(S)) to the kernels,
 # which refuse any other split.
-DECODE_CH = 256
+DECODE_CH = 512
 DECODE_MAX_CLUSTER = 8
 DECODE_TILE_ROWS = 16
 

@@ -46,62 +46,66 @@ def _rand(shape, seed):
 
 def test_split_constants():
     assert (tdec.DECODE_CH, tdec.DECODE_MAX_CLUSTER,
-            tdec.DECODE_TILE_ROWS) == (256, 8, 16)
+            tdec.DECODE_TILE_ROWS) == (512, 8, 16)
 
 
-@pytest.mark.parametrize("s,c", [(1, 1), (256, 1), (257, 2), (600, 3),
-                                 (1792, 7), (2048, 8), (2049, 8),
-                                 (4096, 8)])
+@pytest.mark.parametrize("s,c", [(1, 1), (512, 1), (513, 2), (1124, 3),
+                                 (2048, 4), (3584, 7), (4096, 8),
+                                 (4097, 8), (10000, 8)])
 def test_cluster_size_from_s(s, c):
     assert tdec.decode_cluster(s) == c
 
 
 @pytest.mark.parametrize("s,t,grid", [
-    (2048, 1, (8, 8, 64)),     # decode at the serving shape
-    (2048, 8, (8, 8, 64)),     # the K=7 verify window: one row tile
-    (2048, 16, (8, 8, 64)),
-    (2048, 17, (16, 8, 64)),   # a second row tile
-    (300, 5, (2, 8, 64)),
+    (2048, 1, (4, 8, 64)),     # decode at the serving shape
+    (2048, 8, (4, 8, 64)),     # the K=7 verify window: one row tile
+    (2048, 16, (4, 8, 64)),
+    (2048, 17, (8, 8, 64)),    # a second row tile
+    (300, 5, (1, 8, 64)),
+    (5000, 3, (8, 8, 64)),
 ])
 def test_grid_from_s_and_t(s, t, grid):
     assert tdec.decode_grid(s, t, 8, 64) == grid
 
 
 @pytest.mark.parametrize("s,rank,starts", [
-    (2048, 0, [0]), (2048, 7, [1792]),
-    (4096, 0, [0, 2048]), (4096, 7, [1792, 3840]),
-    (600, 0, [0]), (600, 2, [512]),
-    (2100, 0, [0, 2048]), (2100, 1, [256]),
+    (2048, 0, [0]), (2048, 3, [1536]),
+    (4096, 0, [0]), (4096, 7, [3584]),
+    (5000, 0, [0, 4096]), (5000, 1, [512, 4608]), (5000, 2, [1024]),
+    (1124, 0, [0]), (1124, 2, [1024]),
 ])
 def test_chunk_partition(s, rank, starts):
     assert tdec.decode_chunks(s, rank) == starts
 
 
 def test_chunks_cover_the_cache_once():
-    for s in (1, 255, 256, 600, 2048, 2100, 5000):
+    for s in (1, 511, 512, 1124, 2048, 4097, 5000, 10000):
         got = sorted(x for r in range(tdec.decode_cluster(s))
                      for x in tdec.decode_chunks(s, r))
         assert got == list(range(0, s, CH)), s
 
 
 def test_live_ctas_for_a_pos_vector():
-    pos = torch.tensor([0, 255, 256, 2047, 1000, -5])
-    live = tdec.decode_live_ctas(pos, 2048, 1, 6)
-    assert live.shape == (6, 1, 8)
-    assert live[:, 0].sum(-1).tolist() == [1, 1, 2, 8, 4, 1]
-    assert live[3, 0].all() and live[4, 0].tolist() == [True] * 4 + \
-        [False] * 4
-    # the K=7 window at pos 250 reaches row 257: ranks 0 and 1
-    live = tdec.decode_live_ctas(torch.tensor([250, 2045]), 2048, 8, 2)
-    assert live[:, 0].sum(-1).tolist() == [2, 8]
+    pos = torch.tensor([0, 511, 512, 2047, 1000, -5, 1536])
+    live = tdec.decode_live_ctas(pos, 2048, 1, 7)
+    assert live.shape == (7, 1, 4)
+    assert live[:, 0].sum(-1).tolist() == [1, 1, 2, 4, 2, 1, 4]
+    assert live[4, 0].tolist() == [True, True, False, False]
+    # the K=7 window at pos 505 reaches row 512, rank 1's first
+    live = tdec.decode_live_ctas(torch.tensor([504, 505, 2045]), 2048, 8,
+                                 3)
+    assert live[:, 0].sum(-1).tolist() == [1, 2, 4]
     # T = 17 at pos 0: tile 0's last row is 15, tile 1's (one row) 16
     live = tdec.decode_live_ctas(0, 2048, 17, 1)
-    assert live.shape == (1, 2, 8)
+    assert live.shape == (1, 2, 4)
     assert live[0].sum(-1).tolist() == [1, 1]
-    # a scalar pos broadcasts; S = 600 has three ranks
-    live = tdec.decode_live_ctas(511, 600, 2, 3)
+    # a scalar pos broadcasts; S = 1124 has three ranks
+    live = tdec.decode_live_ctas(1023, 1124, 2, 3)
     assert live.shape == (3, 1, 3)
     assert live[:, 0].sum(-1).tolist() == [3, 3, 3]
+    # S = 5000: eight ranks, rank 0 also takes the chunk at 4096
+    live = tdec.decode_live_ctas(torch.tensor([4500, 3583]), 5000, 1, 2)
+    assert live[:, 0].sum(-1).tolist() == [8, 7]
 
 
 # -- the chunked twin against JAX ----------------------------------------------
@@ -126,7 +130,7 @@ def _jax_window(q, k, v, pos, t):
         jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jnp.asarray(pv), H))
 
 
-S_ODD = 600   # not a multiple of CH: three ranks, the last chunk ragged
+S_ODD = 2 * CH + 100   # three ranks, the last chunk ragged
 POS_EDGES = [0, CH - 1, CH, CH + 1, S_ODD - 1, S_ODD - 3]
 
 
@@ -158,12 +162,13 @@ def test_chunked_twin_matches_jax(t, pos, dtype):
 
 @pytest.mark.parametrize("t", [1, 5, 8])
 def test_chunked_twin_stacked_cache_and_pos_vector(t):
-    """A stacked [L, B, S, D] cache with a layer selected, S = 2100 (rank
-    0 takes chunks 0 and 2048), each batch row at its own prefix."""
-    s = 2100
+    """A stacked [L, B, S, D] cache with a layer selected, S = 4200
+    (rank 0 takes chunks 0 and 4096), each batch row at its own
+    prefix."""
+    s = 4200
     q = _rand((3, t, H, DH), 20)
     k, v = _rand((2, 3, s, H * DH), 21), _rand((2, 3, s, H * DH), 22)
-    pos = np.array([2090, 0, 700], np.int32)
+    pos = np.array([4190, 0, 1500], np.int32)
     want = _jax_window(q, k[1], v[1], pos, t)
     tq, tk, tv = (torch.from_numpy(x) for x in (q, k, v))
     tpos = torch.from_numpy(pos)
@@ -180,11 +185,11 @@ def test_chunked_twin_equals_plain_twin_in_float32():
     """In float32 the rank split changes only the order of the sums: the
     chunked twin and the port's plain reference agree to 1e-5 at every
     position of a window that crosses two chunk edges."""
-    s = 600
+    s = S_ODD
     q = torch.from_numpy(_rand((B, 8, H, DH), 30))
     k = torch.from_numpy(_rand((B, s, H * DH), 31))
     v = torch.from_numpy(_rand((B, s, H * DH), 32))
-    for pos in (250, 508, torch.tensor([0, 597])):
+    for pos in (CH - 4, 2 * CH - 4, torch.tensor([0, s - 3])):
         got = tdec.reference_chunked_window_attention(q, k, v, pos, H)
         want = tdec.reference_window_attention(q, k, v, pos, H)
         np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=0,

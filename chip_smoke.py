@@ -8,18 +8,23 @@ the GravesLSTM char-RNN's training through MultiLayerNetwork and the two
 kernel experiments on the card and fails (non-zero exit, no result line)
 if anything is wrong:
 
-0. Build: every csrc/*.cu at once; then one line per flash library
-   (flash_fwd, flash_bwd, flash_bwd_packed2) with each kernel
-   instance's ptxas registers, stack and spills and its HMMA count in
-   the SASS (cuobjdump); fails if a bf16 tensor-core instance has no
-   HMMA or a half-precision Dh-64 instance (the main path's) spills.
+0. Build: every csrc/*.cu at once; then one line per tensor-core
+   library (flash_fwd, flash_bwd, flash_bwd_packed2, decode_attention,
+   decode_window) with each kernel instance's ptxas registers, stack and
+   spills and its HMMA count in the SASS (cuobjdump); fails if a bf16
+   tensor-core instance has no HMMA or a half-precision Dh-64 instance
+   (the main path's) spills.
 1. Kernel vs plain, on the card: the flash-forward kernel at the main
    path's bf16 prefill shapes (64 slots x 8 heads, Dh=64, causal, T=1024
    as the engine's bucket in phase 3, T=64 as generate's prompt, T=512)
    plus small odd float32 shapes, and the decode kernel at the serving
    decode shape (B=64, S=2048, D=512, H=8, stacked cache; float32 with
-   L=2, and bf16 with L=12, layer 5; vector pos including 0 and 2047,
-   and a scalar pos). bf16 results are held per row to 2^-7 of the
+   L=2 at a vector pos; bf16 with L=12, layer 5, at three points: the
+   engine's mixed prefixes (a vector pos with 0 and 2047), a full cache
+   (pos 2047) and a short one (pos 100), each held to the plain twin and
+   to the chunked twin of the split-S core, with its SDPA yardstick and,
+   beside the event timings, the device time of CUDA-graph replays).
+   bf16 results are held per row to 2^-7 of the
    plain row's largest entry, float32 results to 1e-5. Each comparison
    prints one JSON line: its errors and tolerance, the kernel's and the
    plain version's times, the time of one PyTorch library call for the
@@ -59,8 +64,11 @@ if anything is wrong:
    128..2048 x 4 or 8 warps) vs its twin at the sweep's shape (B=64,
    H=8, Dh=64, S=2048; pos 100, 2000 and a vector with 0 and 2047):
    bf16 rows to 2^-7, float32 to 1e-5; the production point
-   (bs=2048, 4 warps) and the sweep kernel forced there must both be
-   torch.equal to decode_attention_cuda. ms and bound per bf16 point.
+   (bs=2048, 4 warps) must be decode_attention_cuda's result, and the
+   sweep kernel forced there must be torch.equal to it in float32 (the
+   same SIMT loop) and, in bf16, where production is the tensor-core
+   split-S core, within 2^-7 per row of it and of its own twin. ms and
+   bound per bf16 point.
 2. float32 end to end, card vs CPU: a 2-layer model at the full width
    (512d / 8 heads) serves 8 greedy requests x 16 new tokens through
    `InferenceEngine` on cuda and on cpu; tokens must match exactly and
@@ -563,27 +571,30 @@ def phase_window_kernel(torch, dev):
 
 
 
+
 # ---------------------------------------------------------------------------
-# the split-S core's geometry (chunk rows x warps), for choosing production
+# variants of the split-S core's loads and grid order, for choosing production
 # ---------------------------------------------------------------------------
 
-def decode_geometry_sweep(torch, dev):
+def decode_variant_sweep(torch, dev):
     """The bf16 Dh-64 split-S core (decode_window.cu's
-    dl4j_decode_window_geometry) at chunk rows 128, 256, 512 x 4 or 8
-    warps: decode (T = 1) at pos 2047, phase 1's pos vector and pos 100,
-    and the window at T = 5 and 8 on phase 1c's pos vector, each point
-    held to the chunked twin's function (the plain twin) per row and
-    timed by CUDA-graph replays (device time)."""
+    dl4j_decode_window_variant) with an L2 prefetch of 0, 128 or 256 bytes
+    on its cache loads, with the cluster's ranks or the heads fastest in
+    the grid: decode (T = 1) at pos 2047, phase 1's pos vector and pos
+    100, and the window at T = 8 on phase 1c's pos vector, each held to
+    the plain twin per row and timed by CUDA-graph replays (device time),
+    beside SDPA at pos 2047 (graph replays)."""
     import ctypes
+    import torch.nn.functional as F
     from deeplearning4j_tpu_torch.benchmarks import _timing
     from deeplearning4j_tpu_torch.ops import _build
     from deeplearning4j_tpu_torch.ops import flash_decode as fd
 
     _build.load("decode_window")
     lib = ctypes.CDLL(str(_build.library_path("decode_window")))
-    fn = lib.dl4j_decode_window_geometry
+    fn = lib.dl4j_decode_window_variant
     P, I = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [P] * 5 + [I] * 5 + [ctypes.c_float, I, I, I, I, P]
+    fn.argtypes = [P] * 5 + [I] * 5 + [ctypes.c_float, I, I, P]
     fn.restype = I
     g = torch.Generator(device="cpu").manual_seed(12)
     B, S, D, H = 64, 2048, 512, 8
@@ -598,35 +609,39 @@ def decode_geometry_sweep(torch, dev):
     pw[0], pw[1], pw[2], pw[3] = 0, S - 1, S - 4, S // 2
     pv, pw = pv.to(dev), pw.to(dev)
     points = ((1, S - 1, "2047"), (1, pv, "vector"), (1, 100, "100"),
-              (5, pw, "window vector"), (8, pw, "window vector"))
+              (8, pw, "window vector"))
     out = []
-    for t, pos, pname in points:
-        q = torch.randn((B, t, H, Dh), generator=g).to(dev, torch.bfloat16)
-        want = fd.reference_window_attention(q, ck, cv, pos, H)
-        ptr = pos.data_ptr() if isinstance(pos, torch.Tensor) else None
-        ps = 0 if isinstance(pos, torch.Tensor) else pos
-        for ch, warps, bk, stages in ((256, 4, 16, 3), (512, 4, 16, 3),
-                                      (1024, 4, 16, 3), (512, 4, 16, 4),
-                                      (512, 4, 32, 3), (512, 2, 16, 3),
-                                      (512, 2, 32, 3), (512, 8, 16, 3)):
-            if True:
+    for rep in range(2):   # two passes: the spread between them
+        for t, pos, pname in points:
+            q = torch.randn((B, t, H, Dh), generator=g).to(dev,
+                                                           torch.bfloat16)
+            want = fd.reference_window_attention(q, ck, cv, pos, H)
+            ptr = pos.data_ptr() if isinstance(pos, torch.Tensor) else None
+            ps = 0 if isinstance(pos, torch.Tensor) else pos
+            for pf, hf in ((0, 0), (128, 0), (256, 0), (0, 1), (128, 1),
+                           (256, 1)):
                 o = torch.empty_like(q)
 
                 def call():
                     err = fn(q.data_ptr(), ck.data_ptr(), cv.data_ptr(),
                              o.data_ptr(), ptr, ps, B, t, H, S, Dh ** -0.5,
-                             ch, warps, bk, stages, _build.stream_ptr(dev))
-                    _build.check(err, "decode geometry")
+                             pf, hf, _build.stream_ptr(dev))
+                    _build.check(err, "decode variant")
                 call()
                 rel = row_rel_err(o, want)
                 if not rel <= 1.0:
-                    fail(f"decode geometry ch={ch} warps={warps} T={t} pos "
+                    fail(f"decode variant pf={pf} hf={hf} T={t} pos "
                          f"{pname}: row-relative {rel}")
-                out.append(dict(t=t, pos=pname, ch=ch, warps=warps, bk=bk,
-                                stages=stages, row_rel_err=rel,
+                out.append(dict(rep=rep, t=t, pos=pname, pf=pf, head_fast=hf,
+                                row_rel_err=rel,
                                 ms=_timing.time_ms(call, dev, 20, 3)))
-        del q, want
-    line(dict(phase="1c", run="decode_geometry_sweep", dtype="bfloat16",
+            del q, want
+        ql = torch.randn((B, H, 1, Dh), generator=g).to(dev, torch.bfloat16)
+        kl = ck.view(B, S, H, Dh).transpose(1, 2)
+        vl = cv.view(B, S, H, Dh).transpose(1, 2)
+        out.append(dict(rep=rep, t=1, pos="2047", sdpa_ms=_timing.time_ms(
+            lambda: F.scaled_dot_product_attention(ql, kl, vl), dev, 20, 3)))
+    line(dict(phase="1c", run="decode_variant_sweep", dtype="bfloat16",
               shape=[B, S, D], timer="CUDA-graph replays of 20 calls",
               points=out))
     del ck, cv
@@ -1875,7 +1890,6 @@ def main() -> int:
     measured = phase_kernels(torch, dev)
     measured["flash_bwd"] = phase_backward_kernel(torch, dev)
     measured["decode_window"] = phase_window_kernel(torch, dev)
-    decode_geometry_sweep(torch, dev)
     measured["flash_bwd_packed2"] = phase_packed_backward_kernel(torch, dev)
     measured["decode_sweep"] = phase_decode_sweep_kernel(torch, dev)
     phase_f32_card_vs_cpu(torch, dev)

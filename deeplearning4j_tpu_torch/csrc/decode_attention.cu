@@ -85,7 +85,7 @@ int launch(const void* q, const void* k, const void* v, void* o,
         S, scale);
     return (int)cudaGetLastError();
   } else {
-    return decode_tc::launch_rows<T, DH, decode_tc::CH, decode_tc::WARPS>(
+    return decode_tc::launch_rows<T, DH>(
         q, k, v, o, pos, pos_scalar, B, 1, H, S, scale, stream);
   }
 }
@@ -126,7 +126,7 @@ extern "C" int dl4j_decode_attention(const void* q, const void* k,
   using namespace dl4j;
   if (B <= 0 || B > 65535 || H <= 0 || H > 65535 || S <= 0 ||
       ch != decode_tc::CH ||
-      cluster != decode_tc::cluster_size<decode_tc::CH>(S))
+      cluster != decode_tc::cluster_size(S))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int* pp = static_cast<const int*>(pos);

@@ -66,40 +66,61 @@ namespace decode_tc {
 namespace cg = cooperative_groups;
 
 constexpr int ROWS = 16;          // query rows of the m16 tile
-constexpr int BK = 16;            // keys of a warp's tile
-constexpr int NSTAGE = 3;         // depth of each warp's cp.async ring
 constexpr int MAX_CLUSTER = 8;    // CTAs a cluster (the portable limit)
 
-// The production geometry, chosen by measurement on an H100 (PERF.md):
-// chunks of CH cache rows, WARPS warps a CTA.
+// The geometry, chosen by measurement on an H100 (PERF.md: chunks of
+// 256, 512 or 1024 rows, 2, 4 or 8 warps, 16- or 32-key warp tiles, 3 or
+// 4 ring stages): chunks of CH cache rows, WARPS warps a CTA, BK keys a
+// warp tile, NSTAGE ring stages.
 constexpr int CH = 512;
 constexpr int WARPS = 4;
+constexpr int BK = 16;
+constexpr int NSTAGE = 3;
+constexpr int NT = WARPS * 32;
 
-template <int CH_>
 __host__ __device__ constexpr int cluster_size(int S) {
-  return (S + CH_ - 1) / CH_ < MAX_CLUSTER ? (S + CH_ - 1) / CH_
-                                           : MAX_CLUSTER;
+  return (S + CH - 1) / CH < MAX_CLUSTER ? (S + CH - 1) / CH : MAX_CLUSTER;
 }
 
-template <int DH, int WARPS_, int BK_ = BK, int NSTAGE_ = NSTAGE>
+template <int DH>
 struct Geom {
-  static constexpr int NT = WARPS_ * 32;
   static constexpr int STRIDE = tc::Pad<DH>::STRIDE;
   // each warp's ring: NSTAGE stages of a K tile and a V tile (at Dh 64,
   // 54 KB a CTA: four CTAs an SM)
-  static constexpr int WARP_RING = NSTAGE_ * 2 * BK_ * STRIDE;
-  static constexpr int BYTES = WARPS_ * WARP_RING * 2;
+  static constexpr int WARP_RING = NSTAGE * 2 * BK * STRIDE;
+  static constexpr int BYTES = WARPS * WARP_RING * 2;
   // after the loop the ring holds the warps' states and the CTA's
   static constexpr int STATE_BYTES =
-      (WARPS_ + 1) * ROWS * (DH + 2) * (int)sizeof(float);
-  static_assert(STATE_BYTES <= WARPS_ * WARP_RING * 2,
-                "the merge area must fit in the ring");
+      (WARPS + 1) * ROWS * (DH + 2) * (int)sizeof(float);
+  static_assert(STATE_BYTES <= BYTES, "the merge area must fit in the ring");
 };
+
+// cp.async of 16 bytes with an L2 prefetch of PF bytes around it (0:
+// none)
+template <int PF>
+__device__ __forceinline__ void cp_async16_pf(void* dst, const void* src,
+                                              bool ok) {
+  if constexpr (PF == 0) {
+    tc::cp_async16(dst, src, ok);
+  } else if constexpr (PF == 128) {
+    asm volatile(
+        "cp.async.cg.shared.global.L2::128B [%0], [%1], 16, %2;\n" ::"r"(
+            tc::smem_u32(dst)),
+        "l"(src), "r"(ok ? 16 : 0)
+        : "memory");
+  } else {
+    asm volatile(
+        "cp.async.cg.shared.global.L2::256B [%0], [%1], 16, %2;\n" ::"r"(
+            tc::smem_u32(dst)),
+        "l"(src), "r"(ok ? 16 : 0)
+        : "memory");
+  }
+}
 
 // Rows [row0, row0 + NR) of a [*, DH] matrix of T with row stride ld into
 // a padded shared tile, by NTH threads; rows past `last` are zero-filled
 // and not read (cp.async with source size 0).
-template <typename T, int DH, int NR, int NTH>
+template <typename T, int DH, int NR, int NTH, int PF = 0>
 __device__ __forceinline__ void load_rows(T* dst, const T* src, int ld,
                                           int row0, int last, int tid) {
   constexpr int CPR = DH * (int)sizeof(T) / 16;   // 16-byte chunks a row
@@ -111,37 +132,35 @@ __device__ __forceinline__ void load_rows(T* dst, const T* src, int ld,
     const int c = i - r * CPR;
     const int gr = row0 + r;
     const bool ok = gr <= last;
-    tc::cp_async16(dst + r * STRIDE + c * EPC,
-                   src + (size_t)(ok ? gr : 0) * ld + c * EPC, ok);
+    cp_async16_pf<PF>(dst + r * STRIDE + c * EPC,
+                      src + (size_t)(ok ? gr : 0) * ld + c * EPC, ok);
   }
 }
 
 // q, o: [B, T, H, Dh] (decode: T = 1); kc, vc: the [B, S, H*Dh] plane.
 // Grid (C * ceil(T/16), H, B), clusters of C along x.
-template <typename T, int DH, int CH_, int WARPS_, int BK_ = BK,
-          int NSTAGE_ = NSTAGE>
-__global__ void __launch_bounds__(WARPS_ * 32)
+template <typename T, int DH, int PF = 0, bool HF = false>
+__global__ void __launch_bounds__(NT)
 decode_rows_tc_kernel(const T* __restrict__ q, const T* __restrict__ kc,
                       const T* __restrict__ vc, T* __restrict__ o,
                       const int* __restrict__ pos, int pos_scalar, int H,
                       int S, int T_, float scale) {
-  using G = Geom<DH, WARPS_, BK_, NSTAGE_>;
-  constexpr int NT = G::NT;
+  using G = Geom<DH>;
   constexpr int STRIDE = G::STRIDE;
   constexpr int KD = DH / 16;            // k chunks of Q K^T
   constexpr int NO = DH / 8;             // output C tiles
-  constexpr int NS = BK_ / 8;             // score C tiles of a warp tile
-  constexpr int SLAB = WARPS_ * BK_;
-  constexpr int TPC = CH_ / SLAB;        // a warp's tiles in one chunk
-  static_assert(CH_ % SLAB == 0, "a chunk is whole slabs");
+  constexpr int NS = BK / 8;             // score C tiles of a warp tile
+  constexpr int SLAB = WARPS * BK;
+  constexpr int TPC = CH / SLAB;         // a warp's tiles in one chunk
+  static_assert(CH % SLAB == 0, "a chunk is whole slabs");
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* ring = reinterpret_cast<T*>(smem_raw);
 
   cg::cluster_group cluster = cg::this_cluster();
   const int C = (int)cluster.num_blocks();
   const int rank = (int)cluster.block_rank();
-  const int t0 = (int)(blockIdx.x / C) * ROWS;
-  const int head = blockIdx.y;
+  const int t0 = (int)((HF ? blockIdx.y : blockIdx.x) / C) * ROWS;
+  const int head = HF ? blockIdx.x : blockIdx.y;
   const int b = blockIdx.z;
   const int nt = min(ROWS, T_ - t0);
   const int D = H * DH;
@@ -168,14 +187,14 @@ decode_rows_tc_kernel(const T* __restrict__ q, const T* __restrict__ kc,
   T* wring = ring + warp * G::WARP_RING;
   // first key of the warp's n-th tile
   auto tile_k0 = [&](int n) {
-    return (rank + C * (n / TPC)) * CH_ + (n % TPC) * SLAB + warp * BK_;
+    return (rank + C * (n / TPC)) * CH + (n % TPC) * SLAB + warp * BK;
   };
   auto load_kv = [&](int n) {
     const int k0 = tile_k0(n);
     if (k0 <= last) {
-      T* st = wring + (n % NSTAGE_) * 2 * BK_ * STRIDE;
-      load_rows<T, DH, BK_, 32>(st, kb, D, k0, last, lane);
-      load_rows<T, DH, BK_, 32>(st + BK_ * STRIDE, vb, D, k0, last, lane);
+      T* st = wring + (n % NSTAGE) * 2 * BK * STRIDE;
+      load_rows<T, DH, BK, 32, PF>(st, kb, D, k0, last, lane);
+      load_rows<T, DH, BK, 32, PF>(st + BK * STRIDE, vb, D, k0, last, lane);
     }
     tc::cp_async_commit();   // empty groups keep the count uniform
   };
@@ -192,11 +211,12 @@ decode_rows_tc_kernel(const T* __restrict__ q, const T* __restrict__ kc,
     l[hh] = 0.f;
   }
 
-  if (rank * CH_ <= last) {   // uniform across the CTA
+  if (rank * CH <= last) {   // uniform across the CTA
 #pragma unroll
-    for (int n = 0; n < NSTAGE_ - 1; ++n) load_kv(n);
-    // the A fragments of the query tile (ldmatrix's layout: a0 rows g,
-    // a1 rows g + 8, columns 2tg..2tg+1; a2, a3 the same 8 columns on)
+    for (int n = 0; n < NSTAGE - 1; ++n) load_kv(n);
+    // the query tile's A fragments, in ldmatrix's layout: a0 / a1 hold
+    // rows g / g + 8 at columns 2tg, 2tg + 1; a2 / a3 the same rows 8
+    // columns on
     uint32_t qf[KD][4];
 #pragma unroll
     for (int kk = 0; kk < KD; ++kk)
@@ -210,14 +230,14 @@ decode_rows_tc_kernel(const T* __restrict__ q, const T* __restrict__ kc,
       }
 
     for (int n = 0; tile_k0(n) <= last; ++n) {
-      tc::cp_async_wait<NSTAGE_ - 2>();   // tile n (this thread's part)
+      tc::cp_async_wait<NSTAGE - 2>();   // tile n (this thread's part)
       // every lane's part of tile n is visible, and every lane is done
       // with tile n - 1, whose stage the load below refills
       __syncwarp();
-      load_kv(n + NSTAGE_ - 1);
+      load_kv(n + NSTAGE - 1);
       const int k0 = tile_k0(n);
-      const T* Kt = wring + (n % NSTAGE_) * 2 * BK_ * STRIDE;
-      const T* Vt = Kt + BK_ * STRIDE;
+      const T* Kt = wring + (n % NSTAGE) * 2 * BK * STRIDE;
+      const T* Vt = Kt + BK * STRIDE;
 
       float s[NS][4];
 #pragma unroll
@@ -274,9 +294,9 @@ decode_rows_tc_kernel(const T* __restrict__ q, const T* __restrict__ kc,
       }
       // O += P V: P rounded to T as it becomes the A operand; each
       // tile's product in a fresh accumulator, added for live rows only
-      uint32_t pa[BK_ / 16][4];
+      uint32_t pa[BK / 16][4];
 #pragma unroll
-      for (int kk = 0; kk < BK_ / 16; ++kk)
+      for (int kk = 0; kk < BK / 16; ++kk)
         tc::c_to_a<T>(pa[kk], s[2 * kk], s[2 * kk + 1]);
 #pragma unroll
       for (int dd = 0; dd < NO / 2; ++dd) {
@@ -286,7 +306,7 @@ decode_rows_tc_kernel(const T* __restrict__ q, const T* __restrict__ kc,
 #pragma unroll
           for (int c = 0; c < 4; ++c) pv[i][c] = 0.f;
 #pragma unroll
-        for (int kk = 0; kk < BK_ / 16; ++kk) {
+        for (int kk = 0; kk < BK / 16; ++kk) {
           uint32_t b0[2], b1[2];
           tc::ldsm_b_kn<STRIDE>(b0, b1, Vt, kk * 16, dd * 16, lane);
           tc::mma<T>(pv[0], pa[kk], b0);
@@ -307,9 +327,9 @@ decode_rows_tc_kernel(const T* __restrict__ q, const T* __restrict__ kc,
 
   // the warps' states, then the CTA's, in the ring's place
   float* wm = reinterpret_cast<float*>(ring);   // [WARPS][ROWS]
-  float* wl = wm + WARPS_ * ROWS;
-  float* wacc = wl + WARPS_ * ROWS;             // [WARPS][ROWS][DH]
-  float* cm = wacc + WARPS_ * ROWS * DH;        // [ROWS]
+  float* wl = wm + WARPS * ROWS;
+  float* wacc = wl + WARPS * ROWS;             // [WARPS][ROWS][DH]
+  float* cm = wacc + WARPS * ROWS * DH;        // [ROWS]
   float* cl = cm + ROWS;
   float* cacc = cl + ROWS;                      // [ROWS][DH]
 #pragma unroll
@@ -335,10 +355,10 @@ decode_rows_tc_kernel(const T* __restrict__ q, const T* __restrict__ kc,
     const int c = idx - t * DH;
     float mt = -INFINITY;
 #pragma unroll
-    for (int w = 0; w < WARPS_; ++w) mt = fmaxf(mt, wm[w * ROWS + t]);
+    for (int w = 0; w < WARPS; ++w) mt = fmaxf(mt, wm[w * ROWS + t]);
     float lt = 0.f, at = 0.f;
 #pragma unroll
-    for (int w = 0; w < WARPS_; ++w) {
+    for (int w = 0; w < WARPS; ++w) {
       const float mw = wm[w * ROWS + t];
       if (mw == -INFINITY) continue;   // an empty state
       const float cw = tc::exp_fast(mw - mt);
@@ -375,14 +395,13 @@ decode_rows_tc_kernel(const T* __restrict__ q, const T* __restrict__ kc,
 
 // Launch decode_rows_tc_kernel: q, o [B, T, H, Dh], k, v the [B, S, H*Dh]
 // plane. Returns the cudaError_t of the launch.
-template <typename T, int DH, int CH_, int WARPS_, int BK_ = BK,
-          int NSTAGE_ = NSTAGE>
+template <typename T, int DH, int PF = 0, bool HF = false>
 int launch_rows(const void* q, const void* k, const void* v, void* o,
                 const int* pos, int pos_scalar, int B, int T_, int H, int S,
                 float scale, cudaStream_t stream) {
-  using G = Geom<DH, WARPS_, BK_, NSTAGE_>;
-  auto kernel = decode_rows_tc_kernel<T, DH, CH_, WARPS_, BK_, NSTAGE_>;
-  const int C = cluster_size<CH_>(S);
+  using G = Geom<DH>;
+  auto kernel = decode_rows_tc_kernel<T, DH, PF, HF>;
+  const int C = cluster_size(S);
   const int tiles = (T_ + ROWS - 1) / ROWS;
   if (tiles > 65535) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
@@ -390,12 +409,12 @@ int launch_rows(const void* q, const void* k, const void* v, void* o,
   if (err != cudaSuccess) return (int)err;
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = C;
-  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.x = HF ? 1 : C;
+  attr[0].val.clusterDim.y = HF ? C : 1;
   attr[0].val.clusterDim.z = 1;
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(C * tiles, H, B);
-  cfg.blockDim = dim3(G::NT);
+  cfg.gridDim = HF ? dim3(H, C * tiles, B) : dim3(C * tiles, H, B);
+  cfg.blockDim = dim3(NT);
   cfg.dynamicSmemBytes = G::BYTES;
   cfg.stream = stream;
   cfg.attrs = attr;

@@ -97,7 +97,7 @@ int launch(const void* q, const void* k, const void* v, void* o,
         S, T_, scale);
     return (int)cudaGetLastError();
   } else {
-    return decode_tc::launch_rows<T, DH, decode_tc::CH, decode_tc::WARPS>(
+    return decode_tc::launch_rows<T, DH>(
         q, k, v, o, pos, pos_scalar, B, T_, H, S, scale, stream);
   }
 }
@@ -138,7 +138,7 @@ extern "C" int dl4j_decode_window(const void* q, const void* k,
   using namespace dl4j;
   if (B <= 0 || B > 65535 || T <= 0 || H <= 0 || H > 65535 || S <= 0 ||
       ch != decode_tc::CH ||
-      cluster != decode_tc::cluster_size<decode_tc::CH>(S))
+      cluster != decode_tc::cluster_size(S))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int* pp = static_cast<const int*>(pos);
@@ -157,32 +157,32 @@ extern "C" int dl4j_decode_window(const void* q, const void* k,
   }
 }
 
-// The bf16 Dh-64 core at a swept geometry (chunk rows ch, warps, keys a
-// warp tile bk, ring stages), for choosing the production one; the other
-// arguments as above.
-extern "C" int dl4j_decode_window_geometry(const void* q, const void* k,
-                                           const void* v, void* o,
-                                           const void* pos, int pos_scalar,
-                                           int B, int T, int H, int S,
-                                           float scale, int ch, int warps,
-                                           int bk, int stages,
-                                           void* stream) {
+
+// The bf16 Dh-64 core with an L2 prefetch of pf bytes (0, 128, 256) on
+// its cache loads and, with head_fast, the heads along gridDim.x (the
+// cluster along y), for choosing the production variant; the other
+// arguments as dl4j_decode_window's.
+extern "C" int dl4j_decode_window_variant(const void* q, const void* k,
+                                          const void* v, void* o,
+                                          const void* pos, int pos_scalar,
+                                          int B, int T, int H, int S,
+                                          float scale, int pf, int head_fast,
+                                          void* stream) {
   using namespace dl4j;
   using BF = __nv_bfloat16;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int* pp = static_cast<const int*>(pos);
-#define DL4J_GEOM(CH_, W_, BK_, NS_)                                      \
-  if (ch == CH_ && warps == W_ && bk == BK_ && stages == NS_)             \
-    return decode_tc::launch_rows<BF, 64, CH_, W_, BK_, NS_>(             \
-        q, k, v, o, pp, pos_scalar, B, T, H, S, scale, s);
-  DL4J_GEOM(256, 4, 16, 3)
-  DL4J_GEOM(512, 4, 16, 3)
-  DL4J_GEOM(1024, 4, 16, 3)
-  DL4J_GEOM(512, 4, 16, 4)
-  DL4J_GEOM(512, 4, 32, 3)
-  DL4J_GEOM(512, 2, 16, 3)
-  DL4J_GEOM(512, 2, 32, 3)
-  DL4J_GEOM(512, 8, 16, 3)
-#undef DL4J_GEOM
+#define DL4J_VAR(PF_, HF_)                                                 \
+  if (pf == PF_ && (head_fast != 0) == HF_)                                \
+    return decode_tc::launch_rows<BF, 64, PF_, HF_>(q, k, v, o, pp,        \
+                                                    pos_scalar, B, T, H, S, \
+                                                    scale, s);
+  DL4J_VAR(0, false)
+  DL4J_VAR(128, false)
+  DL4J_VAR(256, false)
+  DL4J_VAR(0, true)
+  DL4J_VAR(128, true)
+  DL4J_VAR(256, true)
+#undef DL4J_VAR
   return (int)cudaErrorInvalidValue;
 }

@@ -573,81 +573,6 @@ def phase_window_kernel(torch, dev):
 
 
 # ---------------------------------------------------------------------------
-# variants of the split-S core's loads and grid order, for choosing production
-# ---------------------------------------------------------------------------
-
-def decode_variant_sweep(torch, dev):
-    """The bf16 Dh-64 split-S core (decode_window.cu's
-    dl4j_decode_window_variant) with an L2 prefetch of 0, 128 or 256 bytes
-    on its cache loads, with the cluster's ranks or the heads fastest in
-    the grid: decode (T = 1) at pos 2047, phase 1's pos vector and pos
-    100, and the window at T = 8 on phase 1c's pos vector, each held to
-    the plain twin per row and timed by CUDA-graph replays (device time),
-    beside SDPA at pos 2047 (graph replays)."""
-    import ctypes
-    import torch.nn.functional as F
-    from deeplearning4j_tpu_torch.benchmarks import _timing
-    from deeplearning4j_tpu_torch.ops import _build
-    from deeplearning4j_tpu_torch.ops import flash_decode as fd
-
-    _build.load("decode_window")
-    lib = ctypes.CDLL(str(_build.library_path("decode_window")))
-    fn = lib.dl4j_decode_window_variant
-    P, I = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [P] * 5 + [I] * 5 + [ctypes.c_float, I, I, P]
-    fn.restype = I
-    g = torch.Generator(device="cpu").manual_seed(12)
-    B, S, D, H = 64, 2048, 512, 8
-    Dh = D // H
-    ck = torch.randn((B, S, D), generator=g).to(dev, torch.bfloat16)
-    cv = torch.randn((B, S, D), generator=g).to(dev, torch.bfloat16)
-    pv = torch.from_numpy(np.random.default_rng(0).integers(
-        0, S, size=B).astype(np.int32))
-    pv[0], pv[1] = 0, S - 1
-    pw = torch.from_numpy(np.random.default_rng(4).integers(
-        0, S, size=B).astype(np.int32))
-    pw[0], pw[1], pw[2], pw[3] = 0, S - 1, S - 4, S // 2
-    pv, pw = pv.to(dev), pw.to(dev)
-    points = ((1, S - 1, "2047"), (1, pv, "vector"), (1, 100, "100"),
-              (8, pw, "window vector"))
-    out = []
-    for rep in range(2):   # two passes: the spread between them
-        for t, pos, pname in points:
-            q = torch.randn((B, t, H, Dh), generator=g).to(dev,
-                                                           torch.bfloat16)
-            want = fd.reference_window_attention(q, ck, cv, pos, H)
-            ptr = pos.data_ptr() if isinstance(pos, torch.Tensor) else None
-            ps = 0 if isinstance(pos, torch.Tensor) else pos
-            for pf, hf in ((0, 0), (128, 0), (256, 0), (0, 1), (128, 1),
-                           (256, 1)):
-                o = torch.empty_like(q)
-
-                def call():
-                    err = fn(q.data_ptr(), ck.data_ptr(), cv.data_ptr(),
-                             o.data_ptr(), ptr, ps, B, t, H, S, Dh ** -0.5,
-                             pf, hf, _build.stream_ptr(dev))
-                    _build.check(err, "decode variant")
-                call()
-                rel = row_rel_err(o, want)
-                if not rel <= 1.0:
-                    fail(f"decode variant pf={pf} hf={hf} T={t} pos "
-                         f"{pname}: row-relative {rel}")
-                out.append(dict(rep=rep, t=t, pos=pname, pf=pf, head_fast=hf,
-                                row_rel_err=rel,
-                                ms=_timing.time_ms(call, dev, 20, 3)))
-            del q, want
-        ql = torch.randn((B, H, 1, Dh), generator=g).to(dev, torch.bfloat16)
-        kl = ck.view(B, S, H, Dh).transpose(1, 2)
-        vl = cv.view(B, S, H, Dh).transpose(1, 2)
-        out.append(dict(rep=rep, t=1, pos="2047", sdpa_ms=_timing.time_ms(
-            lambda: F.scaled_dot_product_attention(ql, kl, vl), dev, 20, 3)))
-    line(dict(phase="1c", run="decode_variant_sweep", dtype="bfloat16",
-              shape=[B, S, D], timer="CUDA-graph replays of 20 calls",
-              points=out))
-    del ck, cv
-    torch.cuda.empty_cache()
-
-# ---------------------------------------------------------------------------
 # phase 2: float32 end to end, card vs CPU
 # ---------------------------------------------------------------------------
 

@@ -95,32 +95,10 @@ struct Geom {
   static_assert(STATE_BYTES <= BYTES, "the merge area must fit in the ring");
 };
 
-// cp.async of 16 bytes with an L2 prefetch of PF bytes around it (0:
-// none)
-template <int PF>
-__device__ __forceinline__ void cp_async16_pf(void* dst, const void* src,
-                                              bool ok) {
-  if constexpr (PF == 0) {
-    tc::cp_async16(dst, src, ok);
-  } else if constexpr (PF == 128) {
-    asm volatile(
-        "cp.async.cg.shared.global.L2::128B [%0], [%1], 16, %2;\n" ::"r"(
-            tc::smem_u32(dst)),
-        "l"(src), "r"(ok ? 16 : 0)
-        : "memory");
-  } else {
-    asm volatile(
-        "cp.async.cg.shared.global.L2::256B [%0], [%1], 16, %2;\n" ::"r"(
-            tc::smem_u32(dst)),
-        "l"(src), "r"(ok ? 16 : 0)
-        : "memory");
-  }
-}
-
 // Rows [row0, row0 + NR) of a [*, DH] matrix of T with row stride ld into
 // a padded shared tile, by NTH threads; rows past `last` are zero-filled
 // and not read (cp.async with source size 0).
-template <typename T, int DH, int NR, int NTH, int PF = 0>
+template <typename T, int DH, int NR, int NTH>
 __device__ __forceinline__ void load_rows(T* dst, const T* src, int ld,
                                           int row0, int last, int tid) {
   constexpr int CPR = DH * (int)sizeof(T) / 16;   // 16-byte chunks a row
@@ -132,14 +110,14 @@ __device__ __forceinline__ void load_rows(T* dst, const T* src, int ld,
     const int c = i - r * CPR;
     const int gr = row0 + r;
     const bool ok = gr <= last;
-    cp_async16_pf<PF>(dst + r * STRIDE + c * EPC,
-                      src + (size_t)(ok ? gr : 0) * ld + c * EPC, ok);
+    tc::cp_async16(dst + r * STRIDE + c * EPC,
+                   src + (size_t)(ok ? gr : 0) * ld + c * EPC, ok);
   }
 }
 
 // q, o: [B, T, H, Dh] (decode: T = 1); kc, vc: the [B, S, H*Dh] plane.
 // Grid (C * ceil(T/16), H, B), clusters of C along x.
-template <typename T, int DH, int PF = 0, bool HF = false>
+template <typename T, int DH>
 __global__ void __launch_bounds__(NT)
 decode_rows_tc_kernel(const T* __restrict__ q, const T* __restrict__ kc,
                       const T* __restrict__ vc, T* __restrict__ o,
@@ -159,8 +137,8 @@ decode_rows_tc_kernel(const T* __restrict__ q, const T* __restrict__ kc,
   cg::cluster_group cluster = cg::this_cluster();
   const int C = (int)cluster.num_blocks();
   const int rank = (int)cluster.block_rank();
-  const int t0 = (int)((HF ? blockIdx.y : blockIdx.x) / C) * ROWS;
-  const int head = HF ? blockIdx.x : blockIdx.y;
+  const int t0 = (int)(blockIdx.x / C) * ROWS;
+  const int head = blockIdx.y;
   const int b = blockIdx.z;
   const int nt = min(ROWS, T_ - t0);
   const int D = H * DH;
@@ -193,8 +171,8 @@ decode_rows_tc_kernel(const T* __restrict__ q, const T* __restrict__ kc,
     const int k0 = tile_k0(n);
     if (k0 <= last) {
       T* st = wring + (n % NSTAGE) * 2 * BK * STRIDE;
-      load_rows<T, DH, BK, 32, PF>(st, kb, D, k0, last, lane);
-      load_rows<T, DH, BK, 32, PF>(st + BK * STRIDE, vb, D, k0, last, lane);
+      load_rows<T, DH, BK, 32>(st, kb, D, k0, last, lane);
+      load_rows<T, DH, BK, 32>(st + BK * STRIDE, vb, D, k0, last, lane);
     }
     tc::cp_async_commit();   // empty groups keep the count uniform
   };
@@ -395,12 +373,12 @@ decode_rows_tc_kernel(const T* __restrict__ q, const T* __restrict__ kc,
 
 // Launch decode_rows_tc_kernel: q, o [B, T, H, Dh], k, v the [B, S, H*Dh]
 // plane. Returns the cudaError_t of the launch.
-template <typename T, int DH, int PF = 0, bool HF = false>
+template <typename T, int DH>
 int launch_rows(const void* q, const void* k, const void* v, void* o,
                 const int* pos, int pos_scalar, int B, int T_, int H, int S,
                 float scale, cudaStream_t stream) {
   using G = Geom<DH>;
-  auto kernel = decode_rows_tc_kernel<T, DH, PF, HF>;
+  auto kernel = decode_rows_tc_kernel<T, DH>;
   const int C = cluster_size(S);
   const int tiles = (T_ + ROWS - 1) / ROWS;
   if (tiles > 65535) return (int)cudaErrorInvalidValue;
@@ -409,11 +387,11 @@ int launch_rows(const void* q, const void* k, const void* v, void* o,
   if (err != cudaSuccess) return (int)err;
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = HF ? 1 : C;
-  attr[0].val.clusterDim.y = HF ? C : 1;
+  attr[0].val.clusterDim.x = C;
+  attr[0].val.clusterDim.y = 1;
   attr[0].val.clusterDim.z = 1;
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = HF ? dim3(H, C * tiles, B) : dim3(C * tiles, H, B);
+  cfg.gridDim = dim3(C * tiles, H, B);
   cfg.blockDim = dim3(NT);
   cfg.dynamicSmemBytes = G::BYTES;
   cfg.stream = stream;

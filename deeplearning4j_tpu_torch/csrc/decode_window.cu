@@ -158,31 +158,3 @@ extern "C" int dl4j_decode_window(const void* q, const void* k,
 }
 
 
-// The bf16 Dh-64 core with an L2 prefetch of pf bytes (0, 128, 256) on
-// its cache loads and, with head_fast, the heads along gridDim.x (the
-// cluster along y), for choosing the production variant; the other
-// arguments as dl4j_decode_window's.
-extern "C" int dl4j_decode_window_variant(const void* q, const void* k,
-                                          const void* v, void* o,
-                                          const void* pos, int pos_scalar,
-                                          int B, int T, int H, int S,
-                                          float scale, int pf, int head_fast,
-                                          void* stream) {
-  using namespace dl4j;
-  using BF = __nv_bfloat16;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int* pp = static_cast<const int*>(pos);
-#define DL4J_VAR(PF_, HF_)                                                 \
-  if (pf == PF_ && (head_fast != 0) == HF_)                                \
-    return decode_tc::launch_rows<BF, 64, PF_, HF_>(q, k, v, o, pp,        \
-                                                    pos_scalar, B, T, H, S, \
-                                                    scale, s);
-  DL4J_VAR(0, false)
-  DL4J_VAR(128, false)
-  DL4J_VAR(256, false)
-  DL4J_VAR(0, true)
-  DL4J_VAR(128, true)
-  DL4J_VAR(256, true)
-#undef DL4J_VAR
-  return (int)cudaErrorInvalidValue;
-}

@@ -68,10 +68,10 @@ namespace cg = cooperative_groups;
 constexpr int ROWS = 16;          // query rows of the m16 tile
 constexpr int MAX_CLUSTER = 8;    // CTAs a cluster (the portable limit)
 
-// The geometry, chosen by measurement on an H100 (PERF.md: chunks of
-// 256, 512 or 1024 rows, 2, 4 or 8 warps, 16- or 32-key warp tiles, 3 or
-// 4 ring stages): chunks of CH cache rows, WARPS warps a CTA, BK keys a
-// warp tile, NSTAGE ring stages.
+// The geometry, chosen by measurement on an H100 (PERF.md: chunks of 128
+// to 1024 rows, 2, 4 or 8 warps, 16- or 32-key warp tiles, 3 or 4 ring
+// stages): chunks of CH cache rows, WARPS warps a CTA, BK keys a warp
+// tile, NSTAGE ring stages.
 constexpr int CH = 512;
 constexpr int WARPS = 4;
 constexpr int BK = 16;
@@ -95,17 +95,18 @@ struct Geom {
   static_assert(STATE_BYTES <= BYTES, "the merge area must fit in the ring");
 };
 
-// Rows [row0, row0 + NR) of a [*, DH] matrix of T with row stride ld into
-// a padded shared tile, by NTH threads; rows past `last` are zero-filled
-// and not read (cp.async with source size 0).
-template <typename T, int DH, int NR, int NTH>
+// Rows [row0, row0 + BK) of a [*, DH] matrix of T with row stride ld into
+// a padded shared tile, by the 32 lanes of a warp; rows past `last` are
+// zero-filled and not read (cp.async with source size 0).
+template <typename T, int DH>
 __device__ __forceinline__ void load_rows(T* dst, const T* src, int ld,
-                                          int row0, int last, int tid) {
+                                          int row0, int last, int lane) {
   constexpr int CPR = DH * (int)sizeof(T) / 16;   // 16-byte chunks a row
   constexpr int EPC = 16 / (int)sizeof(T);        // elements a chunk
   constexpr int STRIDE = tc::Pad<DH>::STRIDE;
+  static_assert(BK * CPR % 32 == 0, "a tile's chunks split over a warp");
 #pragma unroll
-  for (int i = tid; i < NR * CPR; i += NTH) {
+  for (int i = lane; i < BK * CPR; i += 32) {
     const int r = i / CPR;
     const int c = i - r * CPR;
     const int gr = row0 + r;
@@ -171,8 +172,8 @@ decode_rows_tc_kernel(const T* __restrict__ q, const T* __restrict__ kc,
     const int k0 = tile_k0(n);
     if (k0 <= last) {
       T* st = wring + (n % NSTAGE) * 2 * BK * STRIDE;
-      load_rows<T, DH, BK, 32>(st, kb, D, k0, last, lane);
-      load_rows<T, DH, BK, 32>(st + BK * STRIDE, vb, D, k0, last, lane);
+      load_rows<T, DH>(st, kb, D, k0, last, lane);
+      load_rows<T, DH>(st + BK * STRIDE, vb, D, k0, last, lane);
     }
     tc::cp_async_commit();   // empty groups keep the count uniform
   };
@@ -306,8 +307,8 @@ decode_rows_tc_kernel(const T* __restrict__ q, const T* __restrict__ kc,
   // the warps' states, then the CTA's, in the ring's place
   float* wm = reinterpret_cast<float*>(ring);   // [WARPS][ROWS]
   float* wl = wm + WARPS * ROWS;
-  float* wacc = wl + WARPS * ROWS;             // [WARPS][ROWS][DH]
-  float* cm = wacc + WARPS * ROWS * DH;        // [ROWS]
+  float* wacc = wl + WARPS * ROWS;              // [WARPS][ROWS][DH]
+  float* cm = wacc + WARPS * ROWS * DH;         // [ROWS]
   float* cl = cm + ROWS;
   float* cacc = cl + ROWS;                      // [ROWS][DH]
 #pragma unroll

@@ -75,7 +75,7 @@ def decode_live_ctas(pos: PosLike, s: int, t: int, b: int) -> torch.Tensor:
     s - 1); a dead CTA only joins the cluster's barriers."""
     c = decode_cluster(s)
     tiles = -(-t // DECODE_TILE_ROWS)
-    pos_t = torch.as_tensor(pos, dtype=torch.int64).reshape(-1)
+    pos_t = torch.as_tensor(pos).to("cpu", torch.int64).reshape(-1)
     pos_t = pos_t.expand(b) if pos_t.numel() == 1 else pos_t
     t0 = torch.arange(tiles) * DECODE_TILE_ROWS
     rows = torch.clamp(t - t0, max=DECODE_TILE_ROWS)

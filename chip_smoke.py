@@ -23,7 +23,8 @@ if anything is wrong:
    engine's mixed prefixes (a vector pos with 0 and 2047), a full cache
    (pos 2047) and a short one (pos 100), each held to the plain twin and
    to the chunked twin of the split-S core, with its SDPA yardstick and,
-   beside the event timings, the device time of CUDA-graph replays).
+   beside the event timings, the device time of CUDA-graph replays, also
+   of the SIMT row loop that served bf16 decode before).
    bf16 results are held per row to 2^-7 of the
    plain row's largest entry, float32 results to 1e-5. Each comparison
    prints one JSON line: its errors and tolerance, the kernel's and the
@@ -470,6 +471,13 @@ def phase_kernels(torch, dev):
                  kernel_graph_ms=_timing.time_ms(
                      lambda: fd.decode_attention_cuda(qd, ck, cv, pos, H,
                                                       layer=layer),
+                     dev, 20, 3),
+                 # the SIMT row loop that served bf16 decode before the
+                 # split-S core (decode_core.cuh, one CTA of 4 warps a
+                 # (b, h)): the sweep kernel at one split, with its merge
+                 simt_graph_ms=_timing.time_ms(
+                     lambda: fd.decode_sweep_cuda(qd, ck, cv, pos, H, S, 4,
+                                                  layer=layer),
                      dev, 20, 3))
         if isinstance(pos, int):
             r.update(library_graph_ms=_timing.time_ms(sdpa, dev, 20, 3))

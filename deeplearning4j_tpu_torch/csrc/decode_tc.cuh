@@ -118,7 +118,7 @@ __device__ __forceinline__ void load_rows(T* dst, const T* src, int ld,
 
 // q, o: [B, T, H, Dh] (decode: T = 1); kc, vc: the [B, S, H*Dh] plane.
 // Grid (C * ceil(T/16), H, B), clusters of C along x.
-template <typename T, int DH>
+template <typename T, int DH, bool EXIT_DEAD = false>
 __global__ void __launch_bounds__(NT)
 decode_rows_tc_kernel(const T* __restrict__ q, const T* __restrict__ kc,
                       const T* __restrict__ vc, T* __restrict__ o,
@@ -158,6 +158,9 @@ decode_rows_tc_kernel(const T* __restrict__ q, const T* __restrict__ kc,
     const int r = g + 8 * hh;
     bnd[hh] = r < nt ? clip(p0 + r) : -1;
   }
+  // ranks 0..nlive-1 hold a chunk that starts at or before `last`
+  const int nlive = EXIT_DEAD ? min(C, last / CH + 1) : C;
+  if (rank >= nlive) return;
 
   const T* qb = q + (((size_t)b * T_ + t0) * H + head) * DH;
   const size_t plane = (size_t)b * S * D + (size_t)head * DH;
@@ -352,14 +355,14 @@ decode_rows_tc_kernel(const T* __restrict__ q, const T* __restrict__ kc,
   }
   cluster.sync();   // every CTA's state is complete and visible
   // merge the CTAs in rank order through distributed shared memory
-  for (int idx = rank * NT + tid; idx < nt * DH; idx += C * NT) {
+  for (int idx = rank * NT + tid; idx < nt * DH; idx += nlive * NT) {
     const int t = idx / DH;
     const int c = idx - t * DH;
     float mt = -INFINITY;
-    for (int r = 0; r < C; ++r)
+    for (int r = 0; r < nlive; ++r)
       mt = fmaxf(mt, *cluster.map_shared_rank(cm + t, r));
     float lt = 0.f, at = 0.f;
-    for (int r = 0; r < C; ++r) {
+    for (int r = 0; r < nlive; ++r) {
       const float mr = *cluster.map_shared_rank(cm + t, r);
       if (mr == -INFINITY) continue;   // an empty state
       const float cw = tc::exp_fast(mr - mt);
@@ -374,12 +377,12 @@ decode_rows_tc_kernel(const T* __restrict__ q, const T* __restrict__ kc,
 
 // Launch decode_rows_tc_kernel: q, o [B, T, H, Dh], k, v the [B, S, H*Dh]
 // plane. Returns the cudaError_t of the launch.
-template <typename T, int DH>
+template <typename T, int DH, bool EXIT_DEAD = false>
 int launch_rows(const void* q, const void* k, const void* v, void* o,
                 const int* pos, int pos_scalar, int B, int T_, int H, int S,
                 float scale, cudaStream_t stream) {
   using G = Geom<DH>;
-  auto kernel = decode_rows_tc_kernel<T, DH>;
+  auto kernel = decode_rows_tc_kernel<T, DH, EXIT_DEAD>;
   const int C = cluster_size(S);
   const int tiles = (T_ + ROWS - 1) / ROWS;
   if (tiles > 65535) return (int)cudaErrorInvalidValue;

@@ -578,94 +578,6 @@ def phase_window_kernel(torch, dev):
     return rec
 
 
-
-
-
-# ---------------------------------------------------------------------------
-# the split-S core with dead CTAs exiting at once, beside production
-# ---------------------------------------------------------------------------
-
-def decode_exit_dead_experiment(torch, dev):
-    """The bf16 Dh-64 split-S core (decode_window.cu's
-    dl4j_decode_window_exit_dead) with a CTA whose chunks all start past
-    its last bound exiting at once, against production (the same entry,
-    exit_dead 0): decode (T = 1) at pos 2047, phase 1's pos vector and
-    pos 100, the window at T = 5 and 8 on phase 1c's pos vector. The
-    variant must give production's bits, and its window rows the bits of
-    its own decode at pos + t; both are timed by CUDA-graph replays,
-    production and variant in turns (two passes)."""
-    import ctypes
-    from deeplearning4j_tpu_torch.benchmarks import _timing
-    from deeplearning4j_tpu_torch.ops import _build
-    from deeplearning4j_tpu_torch.ops import flash_decode as fd
-
-    _build.load("decode_window")
-    lib = ctypes.CDLL(str(_build.library_path("decode_window")))
-    fn = lib.dl4j_decode_window_exit_dead
-    P, I = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [P] * 5 + [I] * 5 + [ctypes.c_float, I, P]
-    fn.restype = I
-    g = torch.Generator(device="cpu").manual_seed(12)
-    B, S, D, H = 64, 2048, 512, 8
-    Dh = D // H
-    ck = torch.randn((B, S, D), generator=g).to(dev, torch.bfloat16)
-    cv = torch.randn((B, S, D), generator=g).to(dev, torch.bfloat16)
-    pv = torch.from_numpy(np.random.default_rng(0).integers(
-        0, S, size=B).astype(np.int32))
-    pv[0], pv[1] = 0, S - 1
-    pw = torch.from_numpy(np.random.default_rng(4).integers(
-        0, S, size=B).astype(np.int32))
-    pw[0], pw[1], pw[2], pw[3] = 0, S - 1, S - 4, S // 2
-    pv, pw = pv.to(dev), pw.to(dev)
-
-    def run(q, pos, exit_dead):
-        o = torch.empty_like(q)
-        ptr = pos.data_ptr() if isinstance(pos, torch.Tensor) else None
-        ps = 0 if isinstance(pos, torch.Tensor) else pos
-
-        def call():
-            err = fn(q.data_ptr(), ck.data_ptr(), cv.data_ptr(),
-                     o.data_ptr(), ptr, ps, B, q.shape[1], H, S,
-                     Dh ** -0.5, exit_dead, _build.stream_ptr(dev))
-            _build.check(err, "decode exit-dead experiment")
-        return o, call
-
-    out = []
-    points = ((1, S - 1, "2047"), (1, pv, "vector"), (1, 100, "100"),
-              (5, pw, "window vector"), (8, pw, "window vector"))
-    for t, pos, pname in points:
-        q = torch.randn((B, t, H, Dh), generator=g).to(dev, torch.bfloat16)
-        o0, c0 = run(q, pos, 0)
-        o1, c1 = run(q, pos, 1)
-        c0()
-        c1()
-        torch.cuda.synchronize()
-        if not torch.equal(o0, o1):
-            fail(f"exit-dead variant T={t} pos {pname} differs from "
-                 f"production by {max_err(o0, o1)}")
-        if row_rel_err(o1, fd.reference_window_attention(
-                q, ck, cv, pos, H)) > 1.0:
-            fail(f"exit-dead variant T={t} pos {pname} vs twin")
-        if t > 1:
-            for ti in range(t):
-                qi = q[:, ti:ti + 1].contiguous()
-                pt = pos + ti   # held until the launch has run
-                oi, ci = run(qi, pt, 1)
-                ci()
-                torch.cuda.synchronize()
-                if not torch.equal(oi[:, 0], o1[:, ti]):
-                    fail(f"exit-dead window row {ti} != its decode")
-        rec = dict(t=t, pos=pname)
-        for rep in range(2):
-            rec[f"production_ms_{rep}"] = _timing.time_ms(c0, dev, 20, 3)
-            rec[f"exit_dead_ms_{rep}"] = _timing.time_ms(c1, dev, 20, 3)
-        out.append(rec)
-    line(dict(phase="1c", run="decode_exit_dead_experiment",
-              dtype="bfloat16", shape=[B, S, D],
-              timer="CUDA-graph replays of 20 calls", points=out))
-    del ck, cv
-    torch.cuda.empty_cache()
-
 # ---------------------------------------------------------------------------
 # phase 2: float32 end to end, card vs CPU
 # ---------------------------------------------------------------------------

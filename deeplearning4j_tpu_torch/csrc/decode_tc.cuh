@@ -33,9 +33,8 @@
 //    the CTA's last needed row, max_t bound[t], are zero-filled by
 //    cp.async with source size 0 and never read from memory, so stale or
 //    uninitialised cache rows never meet a zero weight (0 x NaN is NaN).
-//    A CTA whose chunks all start past that row loads nothing and only
-//    joins the barriers. The grid comes from S alone: the host never
-//    reads pos.
+//    A CTA whose chunks all start past that row exits at once, before
+//    any barrier. The grid comes from S alone: the host never reads pos.
 // 4. Masking and the online softmax. Keys past a row's bound score -inf
 //    (not the finite NEG_INF), so their weight is exactly 0. A tile with
 //    no live key for a row leaves that row's state untouched (with
@@ -44,11 +43,11 @@
 //    skipped by one kernel and never visited by the other holds the same
 //    bits.
 // 5. Merges. The warps' states (m, l, acc) merge through shared memory in
-//    warp order, then, after cluster.sync(), the CTAs' states through
-//    distributed shared memory (cluster.map_shared_rank) in rank order;
-//    an empty state (m = -inf) is skipped in every merge, never weighted
-//    by 0. A second cluster.sync() keeps every CTA's shared memory alive
-//    until its peers have read it.
+//    warp order, then, after cluster.sync(), the live CTAs' states
+//    through distributed shared memory (cluster.map_shared_rank) in rank
+//    order; an empty state (m = -inf) is skipped in every merge, never
+//    weighted by 0. A second cluster.sync() keeps every live CTA's
+//    shared memory alive until its peers have read it.
 //
 // Exponentials are `ex2.approx` (tc::exp_fast), as in the flash kernels'
 // tensor-core tile.
@@ -118,7 +117,7 @@ __device__ __forceinline__ void load_rows(T* dst, const T* src, int ld,
 
 // q, o: [B, T, H, Dh] (decode: T = 1); kc, vc: the [B, S, H*Dh] plane.
 // Grid (C * ceil(T/16), H, B), clusters of C along x.
-template <typename T, int DH, bool EXIT_DEAD = false>
+template <typename T, int DH>
 __global__ void __launch_bounds__(NT)
 decode_rows_tc_kernel(const T* __restrict__ q, const T* __restrict__ kc,
                       const T* __restrict__ vc, T* __restrict__ o,
@@ -158,8 +157,11 @@ decode_rows_tc_kernel(const T* __restrict__ q, const T* __restrict__ kc,
     const int r = g + 8 * hh;
     bnd[hh] = r < nt ? clip(p0 + r) : -1;
   }
-  // ranks 0..nlive-1 hold a chunk that starts at or before `last`
-  const int nlive = EXIT_DEAD ? min(C, last / CH + 1) : C;
+  // ranks 0..nlive-1 hold a chunk that starts at or before `last`; the
+  // rest have nothing to add and leave at once (the cluster barrier
+  // waits only for threads that have not exited, and no live CTA reads
+  // a dead one's shared memory)
+  const int nlive = min(C, last / CH + 1);
   if (rank >= nlive) return;
 
   const T* qb = q + (((size_t)b * T_ + t0) * H + head) * DH;
@@ -377,12 +379,12 @@ decode_rows_tc_kernel(const T* __restrict__ q, const T* __restrict__ kc,
 
 // Launch decode_rows_tc_kernel: q, o [B, T, H, Dh], k, v the [B, S, H*Dh]
 // plane. Returns the cudaError_t of the launch.
-template <typename T, int DH, bool EXIT_DEAD = false>
+template <typename T, int DH>
 int launch_rows(const void* q, const void* k, const void* v, void* o,
                 const int* pos, int pos_scalar, int B, int T_, int H, int S,
                 float scale, cudaStream_t stream) {
   using G = Geom<DH>;
-  auto kernel = decode_rows_tc_kernel<T, DH, EXIT_DEAD>;
+  auto kernel = decode_rows_tc_kernel<T, DH>;
   const int C = cluster_size(S);
   const int tiles = (T_ + ROWS - 1) / ROWS;
   if (tiles > 65535) return (int)cudaErrorInvalidValue;

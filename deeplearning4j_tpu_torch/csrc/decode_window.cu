@@ -156,26 +156,3 @@ extern "C" int dl4j_decode_window(const void* q, const void* k,
       return (int)cudaErrorInvalidValue;
   }
 }
-
-
-
-// The bf16 Dh-64 core with exit_dead != 0: a CTA whose chunks all start
-// past its last bound exits at once instead of joining the cluster's
-// barriers, and the merge reads only the live ranks; for measuring that
-// variant beside production. The other arguments as dl4j_decode_window's.
-extern "C" int dl4j_decode_window_exit_dead(const void* q, const void* k,
-                                            const void* v, void* o,
-                                            const void* pos, int pos_scalar,
-                                            int B, int T, int H, int S,
-                                            float scale, int exit_dead,
-                                            void* stream) {
-  using namespace dl4j;
-  using BF = __nv_bfloat16;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int* pp = static_cast<const int*>(pos);
-  if (exit_dead)
-    return decode_tc::launch_rows<BF, 64, true>(q, k, v, o, pp, pos_scalar,
-                                               B, T, H, S, scale, s);
-  return decode_tc::launch_rows<BF, 64, false>(q, k, v, o, pp, pos_scalar, B,
-                                              T, H, S, scale, s);
-}

@@ -72,7 +72,7 @@ def decode_live_ctas(pos: PosLike, s: int, t: int, b: int) -> torch.Tensor:
     """Which CTAs load anything: bool [b, row tiles, cluster]. CTA (row
     tile i, rank r) of batch row j is live when its first chunk starts at
     or before the tile's last bound, clip(pos[j] + 16 i + rows - 1, 0,
-    s - 1); a dead CTA only joins the cluster's barriers."""
+    s - 1); a dead CTA exits at once."""
     c = decode_cluster(s)
     tiles = -(-t // DECODE_TILE_ROWS)
     pos_t = torch.as_tensor(pos).to("cpu", torch.int64).reshape(-1)

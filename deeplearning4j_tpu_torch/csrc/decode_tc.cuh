@@ -195,116 +195,122 @@ decode_rows_tc_kernel(const T* __restrict__ q, const T* __restrict__ kc,
     l[hh] = 0.f;
   }
 
+  // Always true past the early exit above, and kept: without it ptxas
+  // schedules the loop with 87 registers instead of 99 at Dh 64, and the
+  // kernel ran 1.4-10% slower at every decode and window point on an
+  // H100 (PERF.md: both builds timed in turns in one call).
+  if (rank * CH <= last) {
 #pragma unroll
-  for (int n = 0; n < NSTAGE - 1; ++n) load_kv(n);
-  // the query tile's A fragments, in ldmatrix's layout: a0 / a1 hold
-  // rows g / g + 8 at columns 2tg, 2tg + 1; a2 / a3 the same rows 8
-  // columns on
-  uint32_t qf[KD][4];
+    for (int n = 0; n < NSTAGE - 1; ++n) load_kv(n);
+    // the query tile's A fragments, in ldmatrix's layout: a0 / a1 hold
+    // rows g / g + 8 at columns 2tg, 2tg + 1; a2 / a3 the same rows 8
+    // columns on
+    uint32_t qf[KD][4];
 #pragma unroll
-  for (int kk = 0; kk < KD; ++kk)
+    for (int kk = 0; kk < KD; ++kk)
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int r = g + 8 * (i & 1);
-      qf[kk][i] = r < nt ? *reinterpret_cast<const uint32_t*>(
-                               qb + (size_t)r * D + kk * 16 + 2 * tg +
-                               8 * (i >> 1))
-                         : 0u;
-    }
-
-  for (int n = 0; tile_k0(n) <= last; ++n) {
-    tc::cp_async_wait<NSTAGE - 2>();   // tile n (this thread's part)
-    // every lane's part of tile n is visible, and every lane is done
-    // with tile n - 1, whose stage the load below refills
-    __syncwarp();
-    load_kv(n + NSTAGE - 1);
-    const int k0 = tile_k0(n);
-    const T* Kt = wring + (n % NSTAGE) * 2 * BK * STRIDE;
-    const T* Vt = Kt + BK * STRIDE;
-
-    float s[NS][4];
-#pragma unroll
-    for (int j = 0; j < NS; ++j)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) s[j][c] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < KD; ++kk) {
-#pragma unroll
-      for (int jj = 0; jj < NS / 2; ++jj) {
-        uint32_t b0[2], b1[2];
-        tc::ldsm_b_nk<STRIDE>(b0, b1, Kt, jj * 16, kk * 16, lane);
-        tc::mma<T>(s[2 * jj], qf[kk], b0);
-        tc::mma<T>(s[2 * jj + 1], qf[kk], b1);
+      for (int i = 0; i < 4; ++i) {
+        const int r = g + 8 * (i & 1);
+        qf[kk][i] = r < nt ? *reinterpret_cast<const uint32_t*>(
+                                 qb + (size_t)r * D + kk * 16 + 2 * tg +
+                                 8 * (i >> 1))
+                           : 0u;
       }
-    }
-    // the online softmax of rows g and g + 8; every lane takes part in
-    // the quad shuffles, and a row with no live key keeps its state
-    bool live[2];
-    float corr[2];
+
+    for (int n = 0; tile_k0(n) <= last; ++n) {
+      tc::cp_async_wait<NSTAGE - 2>();   // tile n (this thread's part)
+      // every lane's part of tile n is visible, and every lane is done
+      // with tile n - 1, whose stage the load below refills
+      __syncwarp();
+      load_kv(n + NSTAGE - 1);
+      const int k0 = tile_k0(n);
+      const T* Kt = wring + (n % NSTAGE) * 2 * BK * STRIDE;
+      const T* Vt = Kt + BK * STRIDE;
+
+      float s[NS][4];
 #pragma unroll
-    for (int hh = 0; hh < 2; ++hh) {
-      live[hh] = k0 <= bnd[hh];
-      float tmax = -INFINITY;
+      for (int j = 0; j < NS; ++j)
 #pragma unroll
-      for (int j = 0; j < NS; ++j) {
+        for (int c = 0; c < 4; ++c) s[j][c] = 0.f;
 #pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int key = k0 + j * 8 + 2 * tg + e;
-          float sv = s[j][2 * hh + e] * scale;
-          if (key > bnd[hh]) sv = -INFINITY;
-          s[j][2 * hh + e] = sv;
-          tmax = fmaxf(tmax, sv);
+      for (int kk = 0; kk < KD; ++kk) {
+#pragma unroll
+        for (int jj = 0; jj < NS / 2; ++jj) {
+          uint32_t b0[2], b1[2];
+          tc::ldsm_b_nk<STRIDE>(b0, b1, Kt, jj * 16, kk * 16, lane);
+          tc::mma<T>(s[2 * jj], qf[kk], b0);
+          tc::mma<T>(s[2 * jj + 1], qf[kk], b1);
         }
       }
-      const float m_new = fmaxf(m[hh], tc::quad_max(tmax));
-      float psum = 0.f;
+      // the online softmax of rows g and g + 8; every lane takes part in
+      // the quad shuffles, and a row with no live key keeps its state
+      bool live[2];
+      float corr[2];
 #pragma unroll
-      for (int j = 0; j < NS; ++j) {
+      for (int hh = 0; hh < 2; ++hh) {
+        live[hh] = k0 <= bnd[hh];
+        float tmax = -INFINITY;
 #pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const float p =
-              live[hh] ? tc::exp_fast(s[j][2 * hh + e] - m_new) : 0.f;
-          psum += p;
-          s[j][2 * hh + e] = p;
+        for (int j = 0; j < NS; ++j) {
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int key = k0 + j * 8 + 2 * tg + e;
+            float sv = s[j][2 * hh + e] * scale;
+            if (key > bnd[hh]) sv = -INFINITY;
+            s[j][2 * hh + e] = sv;
+            tmax = fmaxf(tmax, sv);
+          }
+        }
+        const float m_new = fmaxf(m[hh], tc::quad_max(tmax));
+        float psum = 0.f;
+#pragma unroll
+        for (int j = 0; j < NS; ++j) {
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const float p =
+                live[hh] ? tc::exp_fast(s[j][2 * hh + e] - m_new) : 0.f;
+            psum += p;
+            s[j][2 * hh + e] = p;
+          }
+        }
+        psum = tc::quad_sum(psum);
+        corr[hh] = live[hh] ? tc::exp_fast(m[hh] - m_new) : 1.f;
+        if (live[hh]) {
+          l[hh] = l[hh] * corr[hh] + psum;
+          m[hh] = m_new;
         }
       }
-      psum = tc::quad_sum(psum);
-      corr[hh] = live[hh] ? tc::exp_fast(m[hh] - m_new) : 1.f;
-      if (live[hh]) {
-        l[hh] = l[hh] * corr[hh] + psum;
-        m[hh] = m_new;
+      // O += P V: P rounded to T as it becomes the A operand; each
+      // tile's product in a fresh accumulator, added for live rows only
+      uint32_t pa[BK / 16][4];
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk)
+        tc::c_to_a<T>(pa[kk], s[2 * kk], s[2 * kk + 1]);
+#pragma unroll
+      for (int dd = 0; dd < NO / 2; ++dd) {
+        float pv[2][4];
+#pragma unroll
+        for (int i = 0; i < 2; ++i)
+#pragma unroll
+          for (int c = 0; c < 4; ++c) pv[i][c] = 0.f;
+#pragma unroll
+        for (int kk = 0; kk < BK / 16; ++kk) {
+          uint32_t b0[2], b1[2];
+          tc::ldsm_b_kn<STRIDE>(b0, b1, Vt, kk * 16, dd * 16, lane);
+          tc::mma<T>(pv[0], pa[kk], b0);
+          tc::mma<T>(pv[1], pa[kk], b1);
+        }
+#pragma unroll
+        for (int i = 0; i < 2; ++i)
+#pragma unroll
+          for (int c = 0; c < 4; ++c)
+            if (live[c >> 1])
+              acc[2 * dd + i][c] =
+                  acc[2 * dd + i][c] * corr[c >> 1] + pv[i][c];
       }
     }
-    // O += P V: P rounded to T as it becomes the A operand; each
-    // tile's product in a fresh accumulator, added for live rows only
-    uint32_t pa[BK / 16][4];
-#pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk)
-      tc::c_to_a<T>(pa[kk], s[2 * kk], s[2 * kk + 1]);
-#pragma unroll
-    for (int dd = 0; dd < NO / 2; ++dd) {
-      float pv[2][4];
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int c = 0; c < 4; ++c) pv[i][c] = 0.f;
-#pragma unroll
-      for (int kk = 0; kk < BK / 16; ++kk) {
-        uint32_t b0[2], b1[2];
-        tc::ldsm_b_kn<STRIDE>(b0, b1, Vt, kk * 16, dd * 16, lane);
-        tc::mma<T>(pv[0], pa[kk], b0);
-        tc::mma<T>(pv[1], pa[kk], b1);
-      }
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int c = 0; c < 4; ++c)
-          if (live[c >> 1])
-            acc[2 * dd + i][c] =
-                acc[2 * dd + i][c] * corr[c >> 1] + pv[i][c];
-    }
+    tc::cp_async_wait<0>();   // no copy outlives the loop
   }
-  tc::cp_async_wait<0>();   // no copy outlives the loop
   __syncthreads();   // every warp is done with the ring
 
   // the warps' states, then the CTA's, in the ring's place

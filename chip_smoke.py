@@ -10,10 +10,11 @@ if anything is wrong:
 
 0. Build: every csrc/*.cu at once; then one line per tensor-core
    library (flash_fwd, flash_bwd, flash_bwd_packed2, decode_attention,
-   decode_window) with each kernel instance's ptxas registers, stack and
-   spills and its HMMA count in the SASS (cuobjdump); fails if a bf16
-   tensor-core instance has no HMMA or a half-precision Dh-64 instance
-   (the main path's) spills.
+   decode_window, lstm_scan) with each kernel instance's ptxas
+   registers, stack and spills and its HMMA count in the SASS
+   (cuobjdump); fails if a bf16 tensor-core instance has no HMMA, or a
+   half-precision Dh-64 instance (the main path's) or a bf16
+   lstm_scan_tc_kernel instance spills.
 1. Kernel vs plain, on the card: the flash-forward kernel at the main
    path's bf16 prefill shapes (64 slots x 8 heads, Dh=64, causal, T=1024
    as the engine's bucket in phase 3, T=64 as generate's prompt, T=512)
@@ -115,9 +116,12 @@ if anything is wrong:
    (B=1024, T=64, H=200; xw from layer 1's one-hot V=80 input and from
    layer 2's H=200 input) in bf16 and float32, reversed sequences, B=5,
    T=7, H=37 and B=1, T=1, every case with random peepholes and carries;
-   hs, cs and gates within 1e-5 + 1e-5 |plain| (see LSTM_TOL). Times the
+   hs, cs and gates within 1e-5 + 1e-5 |plain| (see LSTM_TOL); every
+   bf16 full-width case on the tensor-core ("tc") kernel. Times the
    kernel, the twin and torch.nn.LSTM (cuDNN; the yardstick, never
-   called by the port; it does x.W too, timed alone beside it).
+   called by the port; it does x.W too, timed alone beside it); in bf16
+   the tc and SIMT kernels in turns on the same inputs (SIMT, TC, TC,
+   SIMT), beside the byte bound and the CUDA-core bound of the product.
 5b. float32 char-RNN card vs CPU: V=80, H=200, 2 layers, B=32, T=64,
    TBPTT 32, lstm_wavefront off, one set of weights; three fit calls
    (scores within 1e-4, parameters by `rmsprop_close`), then 32
@@ -293,17 +297,18 @@ def same_bits(torch, fn, what: str) -> bool:
 
 # the tensor-core kernels, whose bf16 instances must run HMMA (the
 # decode and window libraries' bf16 / f16 paths are
-# decode_rows_tc_kernel)
+# decode_rows_tc_kernel; lstm_scan's bf16-RW path lstm_scan_tc_kernel)
 TC_KERNELS = ("flash_fwd_tc_kernel", "flash_bwd_dkdv_tc_kernel",
               "flash_bwd_dq_tc_kernel", "flash_bwd_packed2_tc_kernel",
-              "decode_rows_tc_kernel")
+              "decode_rows_tc_kernel", "lstm_scan_tc_kernel")
 
 
 def build_report(name: str):
     """One line for a redesigned library: each kernel instance's ptxas
     registers and spills and its HMMA / HGMMA count in the SASS. Fails if
     a bf16 instance of a tensor-core kernel has no HMMA, or if a
-    half-precision Dh-64 instance (the main path's) spills."""
+    half-precision Dh-64 instance (the main path's) or a bf16
+    lstm_scan_tc_kernel instance spills."""
     import re
     from deeplearning4j_tpu_torch.ops import _build
     regs = _build.ptxas_report(name)
@@ -327,6 +332,8 @@ def build_report(name: str):
             fail(f"{name}: bf16 instance {short} has no HMMA instruction")
         if tc_kernel and half and dh and dh.group(1) == "64" and spills:
             fail(f"{name}: Dh-64 instance {short} spills ({st})")
+        if "lstm_scan_tc_kernel<__nv_bfloat16" in fn and spills:
+            fail(f"{name}: bf16 instance {short} spills ({st})")
     if not any("__nv_bfloat16" in r["instance"] and
                any(k in r["instance"] for k in TC_KERNELS) for r in rows):
         fail(f"{name}: no bf16 tensor-core instance in the ptxas report")
@@ -1496,7 +1503,8 @@ def phase_train_full_width(torch, dev, timed_steps: int = 5):
 
 # Kernel and twin cast the same inputs to float32 at the same points
 # (xw, carries, RW, bias and peepholes) and differ only in the order in
-# which the recurrent product h.RW is summed, so bf16 inputs are held like
+# which the recurrent product h.RW is summed (the bf16-RW "tc" kernel
+# forms it from three exact bf16 parts of h), so bf16 inputs are held like
 # float32 ones: |err| <= 1e-5 + 1e-5 |plain| on hs, cs and gates.
 LSTM_TOL = "|err| <= 1e-5 + 1e-5 * |plain| (hs, cs, gates; f32 and bf16)"
 # BASELINE config 3 (benchmarks/flagship.py:176-214 bench_lstm)
@@ -1510,13 +1518,23 @@ def lstm_flops_per_char(v=CHAR_V, h=CHAR_H):
 
 
 def lstm_bound(t, b, h, x_esz, w_esz):
-    """Least time of one lstm_scan: bytes (xw, h0, c0, RW, b, peepholes
-    read once; hs, cs and gates written once, float32) and the f32
-    operations of the recurrent product, 2*B*H*4H*T, at the CUDA cores'
-    67 TF/s (the TPU kernel forms it in f32)."""
+    """Least time of one lstm_scan: (ms, bound_by, bytes, flops,
+    ms on the CUDA cores). Bytes: xw, h0, c0, RW, b, peepholes read once;
+    hs, cs and gates written once, float32. Operations: the recurrent
+    product, 2*B*H*4H*T in float32; with a bf16 RW it runs exactly on the
+    tensor cores as three bf16 products (h split in three bf16 parts), 3x
+    the FLOP at 989 TF/s; with a float32 RW on the CUDA cores at 67 TF/s
+    (the TPU kernel forms it in f32). The CUDA-core figure is returned
+    beside the bound either way."""
     nbytes = (t * b * 4 * h * x_esz + 2 * b * h * x_esz + 4 * h * h * w_esz
               + 7 * h * w_esz + 2 * t * b * h * 4 + t * b * 4 * h * 4)
-    return bound(nbytes, 2 * b * h * 4 * h * t, "float32") + (nbytes,)
+    flops = 2 * b * h * 4 * h * t
+    cores_ms = bound(nbytes, flops, "float32")[0]
+    if w_esz == 2:
+        ms, by = bound(nbytes, 3 * flops, "bfloat16")
+        return ms, by, nbytes, 3 * flops, cores_ms
+    ms, by = bound(nbytes, flops, "float32")
+    return ms, by, nbytes, flops, cores_ms
 
 
 def phase_lstm_kernel(torch, dev):
@@ -1524,8 +1542,11 @@ def phase_lstm_kernel(torch, dev):
     char-RNN's full-width shapes (B=1024, T=64, H=200; layer 1's xw from a
     one-hot V=80 input, layer 2's from an H=200 one) in bf16 and f32, the
     reversed sequence, small odd f32 shapes and B=1, T=1, every case with
-    non-zero peepholes. Times the kernel, the twin and torch.nn.LSTM
-    (cuDNN where it takes the dtype; zero peepholes, x.W inside)."""
+    non-zero peepholes. Every bf16 case at full width must launch the
+    tensor-core ("tc") kernel. Times the kernel, the twin and
+    torch.nn.LSTM (cuDNN where it takes the dtype; zero peepholes, x.W
+    inside); in bf16 also the SIMT kernel on the same inputs, in turns
+    (SIMT, TC, TC, SIMT)."""
     from deeplearning4j_tpu_torch.ops import lstm as tl
 
     g = torch.Generator(device="cpu").manual_seed(7)
@@ -1551,7 +1572,9 @@ def phase_lstm_kernel(torch, dev):
             xw_t = xw_t.flip(0)
         xw_t = xw_t.contiguous()
         args = (xw_t, h0, c0, rw, bias, *peep)
+        tc0 = tl.lstm_scan_cuda.launches_tc
         got = tl.lstm_scan_cuda(*args)
+        variant = "tc" if tl.lstm_scan_cuda.launches_tc > tc0 else "simt"
         want = tl.lstm_scan_reference(*args)
         rel = max(f32_rel_err(a, b) for a, b in zip(got, want))
         err = max(max_err(a, b) for a, b in zip(got, want))
@@ -1559,15 +1582,31 @@ def phase_lstm_kernel(torch, dev):
         rec = dict(phase="5a", kernel="lstm_scan", dtype=name,
                    shape=dict(T=t, B=b, H=h, F=f), layer=layer,
                    reverse=reverse, peepholes="random, std 0.3",
-                   max_abs_err=err, rel_err=rel, tol=LSTM_TOL)
+                   variant=variant, max_abs_err=err, rel_err=rel,
+                   tol=LSTM_TOL)
+        if dtype == torch.bfloat16 and (t, b, h) == full and \
+                variant != "tc":
+            line(rec)
+            fail(f"lstm_scan bf16 T={t} B={b} H={h}: the SIMT kernel ran, "
+                 "not the tensor-core one")
         if not rel <= 1.0:
             line(rec)
             fail(f"lstm_scan {name} T={t} B={b} H={h} layer {layer} "
                  f"reverse={reverse}: {rel} x its limit (max err {err})")
         if timed:
             esz = x.element_size()
-            b_ms, b_by, nbytes = lstm_bound(t, b, h, esz, esz)
-            k_ms = time_ms(lambda: tl.lstm_scan_cuda(*args))
+            b_ms, b_by, nbytes, bflops, cores_ms = lstm_bound(t, b, h, esz,
+                                                              esz)
+            if variant == "tc":
+                turns = {"simt": [], "tc": []}
+                for v in ("simt", "tc", "tc", "simt"):
+                    turns[v].append(time_ms(
+                        lambda: tl.lstm_scan_cuda(*args, variant=v)))
+                k_ms = sum(turns["tc"]) / 2
+                rec.update(simt_ms=sum(turns["simt"]) / 2,
+                           turns_ms=turns)
+            else:
+                k_ms = time_ms(lambda: tl.lstm_scan_cuda(*args))
             p_ms = time_ms(lambda: tl.lstm_scan_reference(*args), iters=3)
             xw_ms = time_ms(lambda: torch.matmul(x, w))
             lstm = torch.nn.LSTM(f, h).to(dev, dtype)
@@ -1588,7 +1627,8 @@ def phase_lstm_kernel(torch, dev):
                        xw_matmul_ms=xw_ms,
                        library_minus_xw_ms=lib_ms - xw_ms,
                        bound_ms=b_ms, bound_by=b_by, bound_bytes=nbytes,
-                       bound_flops=2 * b * h * 4 * h * t)
+                       bound_flops=bflops, bound_fp32_cores_ms=cores_ms,
+                       bound_share=b_ms / k_ms)
         line(rec)
         return rec
 
@@ -1815,7 +1855,7 @@ def main() -> int:
     line(dict(phase=0, build_s=time.perf_counter() - t0,
               torch=torch.__version__, cuda=torch.version.cuda))
     for name in ("flash_fwd", "flash_bwd", "flash_bwd_packed2",
-                 "decode_attention", "decode_window"):
+                 "decode_attention", "decode_window", "lstm_scan"):
         build_report(name)
 
     measured = phase_kernels(torch, dev)

@@ -12,40 +12,47 @@
 // reserve the backward reads). The final (h, c) are hs[T-1] and cs[T-1].
 // The reverse direction is the caller's flip of xw_t.
 //
-// Design. The TPU kernel carried (h, c) in VMEM scratch across an in-order
-// grid over T. Hopper blocks run in no order and share no state, so the time
-// loop lives inside the block. Batch rows are independent in an LSTM: one
-// CTA owns R rows (R = 8 at the char-RNN's B = 1024, so 128 CTAs, about one
-// wave on 132 SMs) and all H units, and runs the T loop alone, with no
-// communication between CTAs and no grid-wide sync. Each step has two
-// phases, each closed by __syncthreads():
-//  A. thread `col` of the 4H gate columns forms z[r][col] for its R rows:
-//     it walks k = 0..H-1 reading RW[k][col] (neighbouring threads read
-//     neighbouring columns, so every load of a warp is one coalesced line,
-//     for the column groups j, H+j, 2H+j and 3H+j alike) and h_prev[k][0..R)
-//     from shared memory (one broadcast address per warp), keeping R float32
-//     sums in registers. z goes to shared memory.
-//  B. thread `(r, j)` reads the four gates of unit j from shared memory,
-//     updates c (kept in shared memory, owned by that thread across steps)
-//     and h (written to the other half of a double buffer, so phase A of the
-//     next step never races this step's writes), and writes hs, cs and the
-//     gates.
-// Shared memory is 28*R*H bytes (h twice, c, z); the wrapper lowers R (8, 4,
-// 2, 1) until it fits in 227 KB and raises past H = 8301.
+// The TPU kernel carried (h, c) in VMEM scratch across an in-order grid
+// over T, with RW resident in VMEM and one [B, 4H] product a grid step on
+// the MXU. Hopper blocks run in no order and share no state, so the time
+// loop lives inside the block, and batch rows, independent in an LSTM,
+// split the grid. Two variants, chosen by ops/lstm.py's `_lstm_variant`
+// from the dtypes and the shape alone:
 //
-// Bound on this card. At B = 1024, T = 64, H = 200 with bf16 xw the
-// function moves ~419 MB (xw in, hs/cs/gates out: ~0.125 ms at 3.35 TB/s)
-// and does 2*B*H*4H*T = 2.1e10 FLOP of float32 product (~0.31 ms at the
-// 67 TF/s of the CUDA cores), so it is bound by operations. This simple
-// design reads RW (640 KB in f32, 320 KB in bf16) from L2 in every CTA at
-// every step, so L2 bandwidth, not the FMA rate, limits it. The faster
-// design, for a later PR: a thread-block cluster that splits RW across its
-// CTAs' shared memory so it is read from L2 once, exchanges h through
-// distributed shared memory, and runs the product on the tensor cores with
-// wgmma.
+// "tc" (dl4j_lstm_scan_tc, lstm_scan_tc.cuh): a bfloat16 RW whose cluster
+// slice fits in shared memory (H up to 352 for every B; `_lstm_variant`).
+// A cluster of C CTAs owns 16 to 48 rows; each CTA holds its units' slice
+// of RW in shared memory for the whole scan (read from L2 once), runs the
+// recurrent product on the tensor cores as three exact bf16 parts of h
+// times RW, keeps c in registers, and sends its block of h to its peers
+// by bulk copies into distributed shared memory, paced by mbarriers.
+//
+// "simt" (dl4j_lstm_scan, below): a float32 RW, or an H past the cluster
+// slice (the card test's 1100). One CTA owns R rows (R = 8 at B = 1024,
+// so 128 CTAs) and all H units; each step has two phases, each closed by
+// __syncthreads(): A. thread `col` of the 4H gate columns walks k =
+// 0..H-1 reading RW[k][col] (coalesced across the warp) and h_prev[k][0..R)
+// from shared memory (a broadcast), keeping R float32 sums, and puts z in
+// shared memory; B. thread (r, j) updates unit j's c (in shared memory)
+// and h (into the other half of a double buffer) and writes hs, cs and
+// the gates. Shared memory is 28*R*H bytes; the wrapper lowers R (8, 4,
+// 2, 1) until it fits and raises past H = 8301.
+//
+// Bound on this card. At B = 1024, T = 64, H = 200 with bf16 xw and RW the
+// function moves 420.6 MB (xw in, 104.9 MB; hs, cs and the gates out in
+// float32, 314.6 MB): 0.1255 ms at 3.35 TB/s. Its product is 2*B*H*4H*T =
+// 2.1e10 FLOP; in the "tc" variant three bf16 products of it, 6.3e10 FLOP,
+// 0.064 ms at 989 TF/s. So it is bound by bytes, and the "tc" design keeps
+// everything else on chip: RW in shared memory, h in distributed shared
+// memory, c in registers, each reserve value written once.
+// The "simt" variant reads all of RW from L2 in every CTA at every step
+// and forms the product on the CUDA cores (0.31 ms at 67 TF/s).
 #include <stdint.h>
 
+#include <type_traits>
+
 #include "common.cuh"
+#include "lstm_scan_tc.cuh"
 
 namespace dl4j {
 namespace {
@@ -247,6 +254,88 @@ extern "C" int dl4j_lstm_scan(const void* xw, const void* h0, const void* c0,
       return dispatch_w<__nv_bfloat16>(w_dtype, rows, xw, h0f, c0f, rw, bf,
                                        pif, pff, pof, hso, cso, go, T, B, H,
                                        s);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
+// The "tc" variant (lstm_scan_tc.cuh): xw as above (float32 or bfloat16),
+// rw a contiguous bfloat16 [H, 4H], the rest as dl4j_lstm_scan's.
+// cluster: CTAs a cluster (2, 4 or 8); m_tiles: 16-row tiles a cluster
+// (1, 2 or 3); splits: bf16 parts of h (2 or 3). Refuses a geometry whose
+// units exceed a CTA's 32 n8 tiles or whose shared memory exceeds 227 KB.
+// Returns the cudaError_t of the launch.
+namespace dl4j {
+namespace {
+
+template <typename TX, int MT>
+int launch_tc(int splits, const void* xw, const void* h0, const void* c0,
+              const void* rw, const void* b, const void* pi, const void* pf,
+              const void* po, void* hs, void* cs, void* gates, int T, int B,
+              int H, int C, cudaStream_t s) {
+  auto go = [&](auto parts) {
+    return lstm_tc::launch<TX, MT, decltype(parts)::value>(
+        static_cast<const TX*>(xw), static_cast<const float*>(h0),
+        static_cast<const float*>(c0),
+        static_cast<const __nv_bfloat16*>(rw), static_cast<const float*>(b),
+        static_cast<const float*>(pi), static_cast<const float*>(pf),
+        static_cast<const float*>(po), static_cast<float*>(hs),
+        static_cast<float*>(cs), static_cast<float*>(gates), T, B, H, C, s);
+  };
+  return splits == 2 ? go(std::integral_constant<int, 2>{})
+                     : go(std::integral_constant<int, 3>{});
+}
+
+template <typename TX>
+int launch_tc_rows(int m_tiles, int splits, const void* xw, const void* h0,
+                   const void* c0, const void* rw, const void* b,
+                   const void* pi, const void* pf, const void* po, void* hs,
+                   void* cs, void* gates, int T, int B, int H, int C,
+                   cudaStream_t s) {
+  switch (m_tiles) {
+    case 1:
+      return launch_tc<TX, 1>(splits, xw, h0, c0, rw, b, pi, pf, po, hs, cs,
+                              gates, T, B, H, C, s);
+    case 2:
+      return launch_tc<TX, 2>(splits, xw, h0, c0, rw, b, pi, pf, po, hs, cs,
+                              gates, T, B, H, C, s);
+    case 3:
+      return launch_tc<TX, 3>(splits, xw, h0, c0, rw, b, pi, pf, po, hs, cs,
+                              gates, T, B, H, C, s);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
+}  // namespace
+}  // namespace dl4j
+
+extern "C" int dl4j_lstm_scan_tc(const void* xw, const void* h0,
+                                 const void* c0, const void* rw,
+                                 const void* b, const void* pi,
+                                 const void* pf, const void* po, void* hs,
+                                 void* cs, void* gates, int T, int B, int H,
+                                 int x_dtype, int cluster, int m_tiles,
+                                 int splits, void* stream) {
+  using namespace dl4j;
+  namespace lt = dl4j::lstm_tc;
+  const int x_size = x_dtype == DTYPE_F32 ? 4 : 2;
+  if (T <= 0 || B <= 0 || H <= 0 ||
+      (cluster != 2 && cluster != 4 && cluster != 8) || m_tiles < 1 ||
+      m_tiles > 3 || (splits != 2 && splits != 3) ||
+      lt::units(H, cluster) / 2 > lt::MAX_TILES ||
+      lt::smem_bytes(H, cluster, m_tiles, splits, x_size) > lt::SMEM_LIMIT)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (x_dtype) {
+    case DTYPE_F32:
+      return launch_tc_rows<float>(m_tiles, splits, xw, h0, c0, rw, b, pi,
+                                   pf, po, hs, cs, gates, T, B, H, cluster,
+                                   s);
+    case DTYPE_BF16:
+      return launch_tc_rows<__nv_bfloat16>(m_tiles, splits, xw, h0, c0, rw,
+                                           b, pi, pf, po, hs, cs, gates, T,
+                                           B, H, cluster, s);
     default:
       return (int)cudaErrorInvalidValue;
   }

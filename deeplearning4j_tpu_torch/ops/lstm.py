@@ -2,13 +2,20 @@
 
 Port of deeplearning4j_tpu/ops/lstm.py. The Pallas `_lstm_step_kernel`
 (the Graves peephole LSTM forward over all T steps) becomes
-`csrc/lstm_scan.cu`, one launch per layer and sequence; see the source's
-header for its design and what bounds it on the card.
+`csrc/lstm_scan.cu`, one launch per layer and sequence, in one of two
+variants: "tc" (`csrc/lstm_scan_tc.cuh`: a thread-block cluster holds RW
+in shared memory and runs the recurrent product on the tensor cores) for
+a bfloat16 RW whose cluster slice fits, "simt" otherwise; see the
+source's header for their design and what bounds them on the card.
 
 - `lstm_scan_reference`: the plain twin of the TPU `_forward`, a Python
   loop over T with the same casts and gate order, returning the float32
   (hs, cs, gates) reserve.
-- `lstm_scan_cuda`: launches the kernel; counts its launches.
+- `lstm_scan_split_reference`: the same with the "tc" kernel's arithmetic
+  for the recurrent product (h as three bf16 parts).
+- `_lstm_variant`: which kernel a call takes, from dtypes and shape alone.
+- `lstm_scan_cuda`: launches the kernel; counts its launches (in all and
+  per variant).
 - `lstm_scan`: CUDA tensors take the kernel (or raise for what it does not
   take); CPU tensors take the twin.
 - `LSTMCore`: the autograd Function of `_lstm_core`. Forward: `lstm_scan`.
@@ -21,7 +28,7 @@ header for its design and what bounds it on the card.
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -32,39 +39,143 @@ Tensor = torch.Tensor
 # 28 * rows * H bytes of shared memory a CTA (h twice, c, z), in the 227 KB
 # a block may use
 _SMEM_LIMIT = 232448
+# the "tc" kernel's CTA: 8 warps of at most 4 n8 tiles (two units each),
+# csrc/lstm_scan_tc.cuh's MAX_TILES; h as _TC_SPLITS bf16 parts
+_TC_MAX_TILES = 32
+_TC_SPLITS = 3
 
 
-def lstm_scan_reference(xw_t, h0, c0, rw, b, pi, pf, po
-                        ) -> Tuple[Tensor, Tensor, Tensor]:
-    """Plain twin of the kernel: xw_t [T, B, 4H] (the hoisted x.W, gate
-    order [i, f, g, o]), carries h0, c0 [B, H], RW [H, 4H], b [4H] and
-    peepholes [H] -> (hs [T, B, H], cs [T, B, H], gates [T, B, 4H]), all
-    float32, with every input cast to float32 first (the TPU kernel's
-    :57-81)."""
-    f32 = torch.float32
+def _scan(xw_t, h0, c0, rw, b, pi, pf, po, dtype, product
+          ) -> Tuple[Tensor, Tensor, Tensor]:
+    """The peephole LSTM over T in `dtype`, the recurrent term h.RW formed
+    by `product(h, RW)` (both in `dtype`)."""
     t, bsz, h4 = xw_t.shape
     hdim = h4 // 4
-    rw32 = rw.to(f32)
-    b32 = b.to(f32).reshape(1, h4)
-    pi32, pf32, po32 = (p.to(f32).reshape(1, hdim) for p in (pi, pf, po))
-    h = h0.to(f32)
-    c = c0.to(f32)
-    hs = torch.empty((t, bsz, hdim), dtype=f32, device=xw_t.device)
+    rw_d = rw.to(dtype)
+    b_d = b.to(dtype).reshape(1, h4)
+    pi_d, pf_d, po_d = (p.to(dtype).reshape(1, hdim) for p in (pi, pf, po))
+    h = h0.to(dtype)
+    c = c0.to(dtype)
+    hs = torch.empty((t, bsz, hdim), dtype=dtype, device=xw_t.device)
     cs = torch.empty_like(hs)
-    gates = torch.empty((t, bsz, h4), dtype=f32, device=xw_t.device)
+    gates = torch.empty((t, bsz, h4), dtype=dtype, device=xw_t.device)
     for s in range(t):
-        z = xw_t[s].to(f32) + torch.matmul(h, rw32) + b32
+        z = xw_t[s].to(dtype) + product(h, rw_d) + b_d
         zi, zf, zg, zo = torch.split(z, hdim, dim=-1)
-        i = torch.sigmoid(zi + c * pi32)
-        f = torch.sigmoid(zf + c * pf32)
+        i = torch.sigmoid(zi + c * pi_d)
+        f = torch.sigmoid(zf + c * pf_d)
         g = torch.tanh(zg)
         c = f * c + i * g
-        o = torch.sigmoid(zo + c * po32)
+        o = torch.sigmoid(zo + c * po_d)
         h = o * torch.tanh(c)
         hs[s] = h
         cs[s] = c
         gates[s] = torch.cat([i, f, g, o], dim=-1)
     return hs, cs, gates
+
+
+def lstm_scan_reference(xw_t, h0, c0, rw, b, pi, pf, po,
+                        dtype=torch.float32
+                        ) -> Tuple[Tensor, Tensor, Tensor]:
+    """Plain twin of the kernel: xw_t [T, B, 4H] (the hoisted x.W, gate
+    order [i, f, g, o]), carries h0, c0 [B, H], RW [H, 4H], b [4H] and
+    peepholes [H] -> (hs [T, B, H], cs [T, B, H], gates [T, B, 4H]), all
+    float32, with every input cast to float32 first (the TPU kernel's
+    :57-81). `dtype` float64 runs the same math in float64, the exact
+    function that tests anchor to."""
+    return _scan(xw_t, h0, c0, rw, b, pi, pf, po, dtype, torch.matmul)
+
+
+def _split3(h: Tensor) -> Tuple[Tensor, Tensor, Tensor]:
+    """float32 h as three bf16 parts, hi + mid + lo = h (each part holds
+    the next 8 significant bits)."""
+    hi = h.bfloat16()
+    r = h - hi.float()
+    mid = r.bfloat16()
+    return hi, mid, (r - mid.float()).bfloat16()
+
+
+def _split_product(h: Tensor, rw: Tensor) -> Tensor:
+    hi, mid, lo = (x.float() for x in _split3(h))
+    return torch.matmul(hi, rw) + (torch.matmul(mid, rw)
+                                   + torch.matmul(lo, rw))
+
+
+def lstm_scan_split_reference(xw_t, h0, c0, rw, b, pi, pf, po
+                              ) -> Tuple[Tensor, Tensor, Tensor]:
+    """`lstm_scan_reference` with the "tc" kernel's recurrent product:
+    h_prev split by `_split3`, z = xw + (hi.RW + (mid.RW + lo.RW)) + b,
+    each part's product with the bf16-valued RW exact, summed in float32.
+    RW must hold bf16 values (the kernel takes it in bfloat16)."""
+    if not torch.equal(rw.float(), rw.bfloat16().float()):
+        raise ValueError("lstm_scan_split_reference: RW must hold "
+                         "bfloat16 values")
+    return _scan(xw_t, h0, c0, rw, b, pi, pf, po, torch.float32,
+                 _split_product)
+
+
+def _tc_units(hdim: int, cluster: int) -> int:
+    """Units a CTA of the "tc" kernel owns: ceil(H / C) rounded up to
+    even, or to a multiple of 4 where H is one (16-byte aligned output
+    runs for the kernel's bulk stores)."""
+    q = 4 if hdim % 4 == 0 else 2
+    return -(-(-(-hdim // cluster)) // q) * q
+
+
+def _tc_smem(hdim: int, cluster: int, m_tiles: int, x_size: int = 2
+             ) -> int:
+    """Shared memory of a "tc" CTA (csrc/lstm_scan_tc.cuh smem_bytes): two
+    8-byte barriers, 72 int32 depth-chunk offsets and 7 float32
+    parameters a unit (16-aligned); the bf16 RW slice [4U][C UB + 8], UB
+    = U rounded up to 8; the bf16 h buffer [splits][C][16 m_tiles][US],
+    US = UB, or UB + 8 where UB / 8 is even; the step's xw [4][16 m_tiles]
+    [XS] of x_size bytes, XS = U rounded up to 8 bytes, plus 8 bytes where
+    that is a multiple of 16 (16-aligned); two row tiles' staged outputs
+    [2][6][16][U] float32."""
+    u = _tc_units(hdim, cluster)
+    ub = -(-u // 8) * 8
+    us = ub if (ub // 8) % 2 else ub + 8
+    e8 = 8 // x_size
+    xs = -(-u // e8) * e8
+    xs = xs if xs % (2 * e8) else xs + e8
+    return (16 + 4 * 72 + (7 * u * 4 + 15) // 16 * 16
+            + 2 * 4 * u * (cluster * ub + 8)
+            + 2 * _TC_SPLITS * cluster * 16 * m_tiles * us
+            + (16 * m_tiles * 4 * xs * x_size + 15) // 16 * 16
+            + 2 * 4 * 6 * 16 * u)
+
+
+def _tc_geometry(bsz: int, hdim: int, x_size: int = 2
+                 ) -> Optional[Tuple[int, int]]:
+    """(cluster CTAs, 16-row tiles a cluster) of the "tc" kernel for a
+    bf16 (x_size 2) or float32 (4) xw, or None where no geometry fits:
+    three row tiles past B = 32, two past 16, else one (its empty rows
+    masked), fewer where the shared memory does not fit; then the
+    smallest cluster whose units fill at most 32 n8 tiles a CTA and whose
+    shared memory fits. At B = 1024, H = 200: (4, 3), 22 clusters of 48
+    rows in one wave; 32 clusters of 32 rows do not all fit an H100 at
+    once and took 1.4x as long (benchmarks/lstm_scan_study.py)."""
+    for m_tiles in range(min(3, -(-bsz // 16)), 0, -1):
+        for cluster in (2, 4, 8):
+            if _tc_units(hdim, cluster) // 2 <= _TC_MAX_TILES and \
+                    _tc_smem(hdim, cluster, m_tiles, x_size) <= \
+                    _SMEM_LIMIT:
+                return cluster, m_tiles
+    return None
+
+
+def _lstm_variant(x_dtype, w_dtype, bsz: int, t: int, hdim: int) -> str:
+    """The kernel a call takes, from dtypes and shape alone: "tc" for a
+    bfloat16 RW whose cluster slice fits in shared memory (every H up to
+    352, and some up to 367), "simt" otherwise (a float32 RW, a larger H).
+    `t` does not change the pick; x_dtype (float32 or bfloat16) sizes the
+    slice's staged xw."""
+    del t
+    x_size = 4 if x_dtype == torch.float32 else 2
+    if w_dtype == torch.bfloat16 and \
+            _tc_geometry(bsz, hdim, x_size) is not None:
+        return "tc"
+    return "simt"
 
 
 def _rows_per_cta(bsz: int, hdim: int) -> int:
@@ -78,13 +189,18 @@ def _rows_per_cta(bsz: int, hdim: int) -> int:
     return rows
 
 
-def lstm_scan_cuda(xw_t, h0, c0, rw, b, pi, pf, po
-                   ) -> Tuple[Tensor, Tensor, Tensor]:
+def lstm_scan_cuda(xw_t, h0, c0, rw, b, pi, pf, po, variant=None,
+                   geometry=None) -> Tuple[Tensor, Tensor, Tensor]:
     """Launch csrc/lstm_scan.cu: one launch for the whole sequence.
     Takes xw_t and RW in float32 or bfloat16 (each its own dtype) and any
     B, T, H >= 1 whose CTA fits in shared memory (H <= 8301); the
     carries, bias and peepholes go in as float32 (exact for bf16 values).
-    Raises for anything else. Counts its launches."""
+    Raises for anything else. The kernel is `_lstm_variant`'s pick;
+    `variant` names one instead, for comparing the two on the same inputs
+    (a "tc" that does not fit raises); `geometry`, (cluster, row tiles,
+    parts of h), replaces the "tc" kernel's own for design studies (the C
+    entry refuses one that does not fit). Counts its launches, in all
+    (`launches`) and per variant (`launches_tc`, `launches_simt`)."""
     if xw_t.ndim != 3 or not xw_t.is_cuda:
         raise ValueError(f"lstm_scan: xw_t must be a CUDA [T, B, 4H] "
                          f"tensor, got {tuple(xw_t.shape)} on "
@@ -110,8 +226,16 @@ def lstm_scan_cuda(xw_t, h0, c0, rw, b, pi, pf, po
         if x.dtype not in (torch.float32, torch.bfloat16):
             raise TypeError(f"lstm_scan kernel takes {name} in float32 or "
                             f"bfloat16, got {x.dtype}")
+    if variant is None:
+        variant = _lstm_variant(xw_t.dtype, rw.dtype, bsz, t, hdim)
+    if variant not in ("tc", "simt"):
+        raise ValueError(f"lstm_scan: unknown variant {variant!r}")
+    geom = _tc_geometry(bsz, hdim, xw_t.element_size())
+    if variant == "tc" and (rw.dtype != torch.bfloat16 or geom is None):
+        raise ValueError(f"lstm_scan tc kernel takes a bfloat16 RW whose "
+                         f"cluster slice fits, got {rw.dtype} at H={hdim}")
     rows = _rows_per_cta(bsz, hdim)
-    if 28 * rows * hdim > _SMEM_LIMIT:
+    if variant == "simt" and 28 * rows * hdim > _SMEM_LIMIT:
         raise ValueError(f"lstm_scan kernel: H={hdim} needs "
                          f"{28 * hdim} bytes of shared memory a batch row, "
                          f"over the {_SMEM_LIMIT} a block may use")
@@ -124,18 +248,30 @@ def lstm_scan_cuda(xw_t, h0, c0, rw, b, pi, pf, po
     hs = torch.empty((t, bsz, hdim), dtype=f32, device=xw.device)
     cs = torch.empty_like(hs)
     gates = torch.empty((t, bsz, h4), dtype=f32, device=xw.device)
-    fn = _build.load("lstm_scan")
-    err = fn(xw.data_ptr(), h0f.data_ptr(), c0f.data_ptr(), rwc.data_ptr(),
-             bf.data_ptr(), pif.data_ptr(), pff.data_ptr(), pof.data_ptr(),
-             hs.data_ptr(), cs.data_ptr(), gates.data_ptr(), t, bsz, hdim,
-             _build.dtype_code(xw.dtype), _build.dtype_code(rwc.dtype), rows,
-             _build.stream_ptr(xw.device))
-    _build.check(err, "lstm_scan")
+    ptrs = (xw.data_ptr(), h0f.data_ptr(), c0f.data_ptr(), rwc.data_ptr(),
+            bf.data_ptr(), pif.data_ptr(), pff.data_ptr(), pof.data_ptr(),
+            hs.data_ptr(), cs.data_ptr(), gates.data_ptr(), t, bsz, hdim,
+            _build.dtype_code(xw.dtype))
+    if variant == "tc":
+        fn = _build.load("lstm_scan", "dl4j_lstm_scan_tc")
+        err = fn(*ptrs, *(geometry or (*geom, _TC_SPLITS)),
+                 _build.stream_ptr(xw.device))
+    else:
+        fn = _build.load("lstm_scan")
+        err = fn(*ptrs, _build.dtype_code(rwc.dtype), rows,
+                 _build.stream_ptr(xw.device))
+    _build.check(err, f"lstm_scan ({variant})")
     lstm_scan_cuda.launches += 1
+    if variant == "tc":
+        lstm_scan_cuda.launches_tc += 1
+    else:
+        lstm_scan_cuda.launches_simt += 1
     return hs, cs, gates
 
 
 lstm_scan_cuda.launches = 0
+lstm_scan_cuda.launches_tc = 0
+lstm_scan_cuda.launches_simt = 0
 
 
 def lstm_scan(xw_t, h0, c0, rw, b, pi, pf, po

@@ -436,15 +436,98 @@ def test_lstm_scan_kernel_matches_plain_on_card(requires_cuda, t, b, h,
                                                 x_dtype, w_dtype):
     args = _lstm_inputs(t, b, h, x_dtype, w_dtype, requires_cuda)
     from deeplearning4j_tpu_torch.ops import lstm as tlstm
+    # a bf16 RW takes the tensor-core kernel at these H; float32 RW
+    # and H = 1100 the SIMT kernel
+    variant = "tc" if w_dtype == torch.bfloat16 and h <= 352 else "simt"
+    counter = f"launches_{variant}"
     before = tlstm.lstm_scan_cuda.launches
+    before_v = getattr(tlstm.lstm_scan_cuda, counter)
     got = tlstm.lstm_scan(*args)
     want = tlstm.lstm_scan_reference(*args)
     torch.cuda.synchronize()
     assert tlstm.lstm_scan_cuda.launches == before + 1
+    assert getattr(tlstm.lstm_scan_cuda, counter) == before_v + 1
     for g, w in zip(got, want):
         assert g.dtype == torch.float32
         np.testing.assert_allclose(g.cpu().numpy(), w.cpu().numpy(),
                                    **LSTM_TOL)
+
+
+# The tensor-core variant (csrc/lstm_scan_tc.cuh): a bf16 RW at H up to
+# 352 (every smaller H takes it too, tests/test_torch_lstm.py), held to
+# the exact function: the plain twin in float64. Where the plain float32
+# twin is within the 1e-5 + 1e-5 |exact| limit, the kernel must be too;
+# where it is not, the kernel must be no farther from the exact function
+# than the float32 twin. At H = 352, T = 64 these inputs make the
+# recurrence amplify float32 rounding past the limit: on an H100 the
+# float32 twin lands 1.76x the limit from float64 and the kernel 0.87x
+# (two float32 twins that differ only in summation order, plain and split,
+# 1.82x apart), so a direct float32-vs-float32 gate would measure the
+# conditioning, not the kernel.
+
+
+def _rel_to(got, exact):
+    g, e = got.double().cpu(), exact.double().cpu()
+    return float(((g - e).abs() / (1e-5 + 1e-5 * e.abs())).max())
+
+
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("t", [1, 7, 64])
+@pytest.mark.parametrize("b", [1, 5, 33, 1024])
+@pytest.mark.parametrize("h", [37, 200, 256, 352])
+def test_lstm_scan_tc_kernel_matches_plain_on_card(requires_cuda, h, b, t,
+                                                   reverse):
+    from deeplearning4j_tpu_torch.ops import lstm as tlstm
+    args = _lstm_inputs(t, b, h, torch.bfloat16, torch.bfloat16,
+                        requires_cuda, seed=h + b + t)
+    if reverse:
+        args[0] = args[0].flip(0).contiguous()
+    k = tlstm.lstm_scan_cuda
+    before = (k.launches, k.launches_tc, k.launches_simt)
+    got = tlstm.lstm_scan(*args)
+    plain = tlstm.lstm_scan_reference(*args)
+    exact = tlstm.lstm_scan_reference(*args, dtype=torch.float64)
+    torch.cuda.synchronize()
+    assert (k.launches, k.launches_tc, k.launches_simt) == (
+        before[0] + 1, before[1] + 1, before[2])
+    for g, p, e in zip(got, plain, exact):
+        assert g.dtype == torch.float32
+        err, err_plain = _rel_to(g, e), _rel_to(p, e)
+        assert err <= max(1.0, err_plain), (
+            f"kernel {err} x the limit from float64, float32 twin "
+            f"{err_plain}")
+
+
+@pytest.mark.parametrize("t,b,h", [(64, 1024, 200), (7, 5, 37)])
+def test_lstm_scan_tc_kernel_takes_float32_xw_on_card(requires_cuda, t, b,
+                                                      h):
+    """A float32 xw with a bf16 RW also takes the tensor-core kernel."""
+    from deeplearning4j_tpu_torch.ops import lstm as tlstm
+    args = _lstm_inputs(t, b, h, torch.float32, torch.bfloat16,
+                        requires_cuda, seed=9)
+    before = tlstm.lstm_scan_cuda.launches_tc
+    got = tlstm.lstm_scan(*args)
+    want = tlstm.lstm_scan_reference(*args)
+    torch.cuda.synchronize()
+    assert tlstm.lstm_scan_cuda.launches_tc == before + 1
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.cpu().numpy(), w.cpu().numpy(),
+                                   **LSTM_TOL)
+
+
+@pytest.mark.parametrize("variant", ["tc", "simt"])
+@pytest.mark.parametrize("t,b,h", [(64, 1024, 200), (7, 33, 37)])
+def test_lstm_scan_kernels_deterministic_on_card(requires_cuda, variant, t,
+                                                 b, h):
+    """Two calls on the same inputs give equal bits (no atomics), in
+    either variant on the same bf16 inputs."""
+    from deeplearning4j_tpu_torch.ops import lstm as tlstm
+    args = _lstm_inputs(t, b, h, torch.bfloat16, torch.bfloat16,
+                        requires_cuda, seed=11)
+    a = tlstm.lstm_scan_cuda(*args, variant=variant)
+    c = tlstm.lstm_scan_cuda(*args, variant=variant)
+    torch.cuda.synchronize()
+    assert all(torch.equal(x, y) for x, y in zip(a, c))
 
 
 def test_lstm_core_gradients_on_card(requires_cuda):
@@ -480,6 +563,8 @@ def test_lstm_scan_kernel_refuses_unsupported_inputs_on_card(requires_cuda):
     del big
     with pytest.raises(ValueError, match="carries"):
         tlstm.lstm_scan(args[0], args[1][:2], *args[2:])
+    with pytest.raises(ValueError, match="tc kernel"):   # a float32 RW
+        tlstm.lstm_scan_cuda(*args, variant="tc")
 
 
 # -- the head-packing experiment's backward (csrc/flash_bwd_packed2.cu) ----

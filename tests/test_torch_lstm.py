@@ -257,3 +257,125 @@ def test_cuda_wrapper_refuses_cpu_tensors():
     args = [_t(a) for a in _core_inputs(2, 2, 4)]
     with pytest.raises(ValueError, match="CUDA"):
         tlstm.lstm_scan_cuda(*args)
+
+
+# -- the "tc" kernel's arithmetic and its dispatch --------------------------
+# The "tc" kernel (csrc/lstm_scan_tc.cuh) forms h.RW as three exact bf16
+# parts of h times the bf16 RW; `lstm_scan_split_reference` is that
+# arithmetic on the CPU. It is held to the kernel's own gate, 1e-5 +
+# 1e-5 |plain| on hs, cs and gates, against the Pallas kernel (interpret
+# mode) and the plain twin at the char-RNN's H=200 over T=64 steps.
+
+SPLIT_TOL = dict(rtol=1e-5, atol=1e-5)
+
+
+def _char_rnn_core(layer, t=64, b=4, h=200, v=80, seed=0):
+    """lstm_scan inputs at the char-RNN's layer-1 (one-hot V=80 input) or
+    layer-2 (a tanh H=200 input) scale; RW, like every weight, holds bf16
+    values (the bf16 network's), passed as float32."""
+    rng = np.random.default_rng(seed)
+    f = v if layer == 1 else h
+    if layer == 1:
+        x = np.eye(v, dtype=np.float32)[rng.integers(0, v, (t, b))]
+    else:
+        x = np.tanh(rng.normal(size=(t, b, f))).astype(np.float32)
+
+    def bf(a):
+        return torch.from_numpy(a.astype(np.float32)).bfloat16().float()
+
+    w = bf(rng.normal(size=(f, 4 * h)) * (2.0 / (f + h)) ** 0.5)
+    rw = bf(rng.normal(size=(h, 4 * h)) * h ** -0.5)
+    rest = [bf(rng.normal(size=(n,)) * 0.3) for n in (4 * h, h, h, h)]
+    h0, c0 = (bf(rng.normal(size=(b, h)) * 0.5) for _ in range(2))
+    xw = torch.matmul(torch.from_numpy(x), w)
+    return [xw, h0, c0, rw] + rest
+
+
+@pytest.mark.parametrize("layer", [1, 2])
+@pytest.mark.parametrize("reverse", [False, True])
+def test_split_reference_matches_pallas_interpret(layer, reverse):
+    """The split twin against JAX's `_forward(..., interpret=True)` and the
+    plain twin at T=64, H=200, B=4."""
+    args = _char_rnn_core(layer, seed=layer)
+    if reverse:
+        args[0] = args[0].flip(0).contiguous()
+    want = jlstm._forward(*[jnp.asarray(a.numpy()) for a in args],
+                          interpret=True)
+    got = tlstm.lstm_scan_split_reference(*args)
+    plain = tlstm.lstm_scan_reference(*args)
+    for g, w, p in zip(got, want, plain):
+        assert g.dtype == torch.float32
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), **SPLIT_TOL)
+        np.testing.assert_allclose(g.numpy(), p.numpy(), **SPLIT_TOL)
+
+
+def test_split_parts_sum_to_h_exactly():
+    """hi + mid + lo == h in float64 for float32 h over 40 binades, and
+    each part is a bf16 value: the three products with a bf16 RW are exact
+    in float32."""
+    rng = np.random.default_rng(3)
+    h = (rng.normal(size=4096) * 2.0 ** rng.integers(-20, 20, 4096)).astype(
+        np.float32)
+    parts = tlstm._split3(torch.from_numpy(h))
+    assert all(p.dtype == torch.bfloat16 for p in parts)
+    total = sum(p.double() for p in parts)
+    assert torch.equal(total, torch.from_numpy(h).double())
+
+
+def test_split_reference_refuses_a_float32_rw():
+    args = [_t(a) for a in _core_inputs(2, 2, 8, seed=90)]
+    with pytest.raises(ValueError, match="bfloat16"):
+        tlstm.lstm_scan_split_reference(*args)
+
+
+@pytest.mark.parametrize("w_dtype,b,t,h,want", [
+    (torch.bfloat16, 1024, 64, 200, "tc"),     # the char-RNN's shape
+    (torch.bfloat16, 1, 1, 200, "tc"),         # sampling: one row tile
+    (torch.bfloat16, 5, 7, 37, "tc"),
+    (torch.bfloat16, 33, 64, 256, "tc"),
+    (torch.bfloat16, 1024, 64, 352, "tc"),     # the card test's largest
+    (torch.bfloat16, 1024, 64, 356, "simt"),
+    (torch.bfloat16, 3, 2, 1100, "simt"),      # the card test's large H
+    (torch.float32, 1024, 64, 200, "simt"),
+    (torch.float32, 1, 1, 37, "simt"),
+])
+@pytest.mark.parametrize("x_dtype", [torch.float32, torch.bfloat16])
+def test_lstm_variant_picks_by_dtype_and_shape(x_dtype, w_dtype, b, t, h,
+                                               want):
+    assert tlstm._lstm_variant(x_dtype, w_dtype, b, t, h) == want
+
+
+def test_tc_geometry_fits_every_h_it_takes():
+    """Every H up to 352 takes the "tc" kernel at every B and xw dtype (352
+    is the largest H of the card test), with a cluster whose CTAs cover
+    all H units in at most 32 n8 tiles each (units a multiple of 4 where H
+    is one), within 227 KB of shared memory, and one row tile where B <=
+    16. At the char-RNN's shape: 4 CTAs of 48 rows, 22 clusters (88 CTAs,
+    one wave)."""
+    assert tlstm._tc_geometry(1024, 200) == (4, 3)
+    assert tlstm._tc_smem(200, 4, 3) == 222688
+    for h in range(1, 353):
+        for b in (1, 16, 17, 33, 1024):
+            for x_size in (2, 4):
+                c, mt = tlstm._tc_geometry(b, h, x_size)
+                u = tlstm._tc_units(h, c)
+                assert c * u >= h and u % (4 if h % 4 == 0 else 2) == 0
+                assert u // 2 <= 32
+                assert tlstm._tc_smem(h, c, mt, x_size=x_size) <= \
+                    tlstm._SMEM_LIMIT
+                assert b > 16 or mt == 1
+    for h in (356, 400, 1100):
+        assert tlstm._tc_geometry(1024, h) is None
+
+
+def test_lstm_scan_study_small_runs_on_cpu(capsys):
+    """The design study's CPU path (the twins' conditioning lines, no
+    kernel) at its tiny shapes: one line a shape, both float32 twins
+    within the limit of the float64 function there."""
+    from deeplearning4j_tpu_torch.benchmarks import lstm_scan_study
+    lstm_scan_study.main(["--device", "cpu", "--small"])
+    import json
+    recs = [json.loads(x) for x in capsys.readouterr().out.splitlines()]
+    assert [(r["run"], r["H"]) for r in recs] == [("conditioning", 24),
+                                                  ("conditioning", 40)]
+    assert all(r["plain_f32"] <= 1 and r["split_f32"] <= 1 for r in recs)

@@ -19,16 +19,17 @@
 // split the grid. Two variants, chosen by ops/lstm.py's `_lstm_variant`
 // from the dtypes and the shape alone:
 //
-// "tc" (dl4j_lstm_scan_tc, lstm_scan_tc.cuh): a bfloat16 RW whose cluster
-// slice fits in shared memory (H up to 352 for every B; `_lstm_variant`).
-// A cluster of C CTAs owns 16 to 48 rows; each CTA holds its units' slice
-// of RW in shared memory for the whole scan (read from L2 once), runs the
-// recurrent product on the tensor cores as three exact bf16 parts of h
-// times RW, keeps c in registers, and sends its block of h to its peers
-// by bulk copies into distributed shared memory, paced by mbarriers.
+// "tc" (lstm_scan_tc.cuh): a bfloat16 RW at H up to 352 (lstm_tc::MAX_H;
+// the cluster slice fits in shared memory there at every B). A cluster of
+// C CTAs (lstm_tc::geometry, from B and H) owns 16 to 48 rows; each CTA
+// holds its units' slice of RW in shared memory for the whole scan (read
+// from L2 once), runs the recurrent product on the tensor cores as three
+// exact bf16 parts of h times RW, keeps c in registers, and sends its
+// block of h to its peers by bulk copies into distributed shared memory,
+// paced by mbarriers.
 //
-// "simt" (dl4j_lstm_scan, below): a float32 RW, or an H past the cluster
-// slice (the card test's 1100). One CTA owns R rows (R = 8 at B = 1024,
+// "simt" (below): a float32 RW, or an H past lstm_tc::MAX_H (the card
+// test's 1100). One CTA owns R rows (R = 8 at B = 1024,
 // so 128 CTAs) and all H units; each step has two phases, each closed by
 // __syncthreads(): A. thread `col` of the 4H gate columns walks k =
 // 0..H-1 reading RW[k][col] (coalesced across the warp) and h_prev[k][0..R)
@@ -48,8 +49,6 @@
 // The "simt" variant reads all of RW from L2 in every CTA at every step
 // and forms the product on the CUDA cores (0.31 ms at 67 TF/s).
 #include <stdint.h>
-
-#include <type_traits>
 
 #include "common.cuh"
 #include "lstm_scan_tc.cuh"
@@ -224,17 +223,19 @@ int dispatch_w(int w_dtype, int rows, const void* xw, const float* h0,
 // xw: contiguous [T, B, 4H] of x_dtype (float32 or bfloat16); rw: contiguous
 // [H, 4H] of w_dtype (float32 or bfloat16); h0, c0: float32 [B, H]; b:
 // float32 [4H]; pi, pf, po: float32 [H]. Outputs, float32: hs and cs
-// [T, B, H], gates [T, B, 4H]. rows: batch rows per CTA (8, 4, 2 or 1), with
-// 28 * rows * H bytes of shared memory. Returns the cudaError_t of the
-// launch.
+// [T, B, H], gates [T, B, 4H]. tc: 1 runs the "tc" variant (w_dtype must
+// be bfloat16, H at most lstm_tc::MAX_H; rows is not read), 0 the "simt"
+// one with rows batch rows per CTA (8, 4, 2 or 1) and 28 * rows * H bytes
+// of shared memory. Returns the cudaError_t of the launch.
 extern "C" int dl4j_lstm_scan(const void* xw, const void* h0, const void* c0,
                               const void* rw, const void* b, const void* pi,
                               const void* pf, const void* po, void* hs,
                               void* cs, void* gates, int T, int B, int H,
-                              int x_dtype, int w_dtype, int rows,
+                              int x_dtype, int w_dtype, int rows, int tc,
                               void* stream) {
   using namespace dl4j;
-  if (T <= 0 || B <= 0 || H <= 0 || (size_t)28 * rows * H > 232448)
+  if (T <= 0 || B <= 0 || H <= 0 ||
+      (!tc && (size_t)28 * rows * H > 232448))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* h0f = static_cast<const float*>(h0);
@@ -246,6 +247,22 @@ extern "C" int dl4j_lstm_scan(const void* xw, const void* h0, const void* c0,
   float* hso = static_cast<float*>(hs);
   float* cso = static_cast<float*>(cs);
   float* go = static_cast<float*>(gates);
+  if (tc) {
+    const __nv_bfloat16* rwb = static_cast<const __nv_bfloat16*>(rw);
+    if (w_dtype != DTYPE_BF16) return (int)cudaErrorInvalidValue;
+    switch (x_dtype) {
+      case DTYPE_F32:
+        return lstm_tc::launch<float>(static_cast<const float*>(xw), h0f,
+                                      c0f, rwb, bf, pif, pff, pof, hso, cso,
+                                      go, T, B, H, s);
+      case DTYPE_BF16:
+        return lstm_tc::launch<__nv_bfloat16>(
+            static_cast<const __nv_bfloat16*>(xw), h0f, c0f, rwb, bf, pif,
+            pff, pof, hso, cso, go, T, B, H, s);
+      default:
+        return (int)cudaErrorInvalidValue;
+    }
+  }
   switch (x_dtype) {
     case DTYPE_F32:
       return dispatch_w<float>(w_dtype, rows, xw, h0f, c0f, rw, bf, pif, pff,
@@ -254,88 +271,6 @@ extern "C" int dl4j_lstm_scan(const void* xw, const void* h0, const void* c0,
       return dispatch_w<__nv_bfloat16>(w_dtype, rows, xw, h0f, c0f, rw, bf,
                                        pif, pff, pof, hso, cso, go, T, B, H,
                                        s);
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
-}
-
-// The "tc" variant (lstm_scan_tc.cuh): xw as above (float32 or bfloat16),
-// rw a contiguous bfloat16 [H, 4H], the rest as dl4j_lstm_scan's.
-// cluster: CTAs a cluster (2, 4 or 8); m_tiles: 16-row tiles a cluster
-// (1, 2 or 3); splits: bf16 parts of h (2 or 3). Refuses a geometry whose
-// units exceed a CTA's 32 n8 tiles or whose shared memory exceeds 227 KB.
-// Returns the cudaError_t of the launch.
-namespace dl4j {
-namespace {
-
-template <typename TX, int MT>
-int launch_tc(int splits, const void* xw, const void* h0, const void* c0,
-              const void* rw, const void* b, const void* pi, const void* pf,
-              const void* po, void* hs, void* cs, void* gates, int T, int B,
-              int H, int C, cudaStream_t s) {
-  auto go = [&](auto parts) {
-    return lstm_tc::launch<TX, MT, decltype(parts)::value>(
-        static_cast<const TX*>(xw), static_cast<const float*>(h0),
-        static_cast<const float*>(c0),
-        static_cast<const __nv_bfloat16*>(rw), static_cast<const float*>(b),
-        static_cast<const float*>(pi), static_cast<const float*>(pf),
-        static_cast<const float*>(po), static_cast<float*>(hs),
-        static_cast<float*>(cs), static_cast<float*>(gates), T, B, H, C, s);
-  };
-  return splits == 2 ? go(std::integral_constant<int, 2>{})
-                     : go(std::integral_constant<int, 3>{});
-}
-
-template <typename TX>
-int launch_tc_rows(int m_tiles, int splits, const void* xw, const void* h0,
-                   const void* c0, const void* rw, const void* b,
-                   const void* pi, const void* pf, const void* po, void* hs,
-                   void* cs, void* gates, int T, int B, int H, int C,
-                   cudaStream_t s) {
-  switch (m_tiles) {
-    case 1:
-      return launch_tc<TX, 1>(splits, xw, h0, c0, rw, b, pi, pf, po, hs, cs,
-                              gates, T, B, H, C, s);
-    case 2:
-      return launch_tc<TX, 2>(splits, xw, h0, c0, rw, b, pi, pf, po, hs, cs,
-                              gates, T, B, H, C, s);
-    case 3:
-      return launch_tc<TX, 3>(splits, xw, h0, c0, rw, b, pi, pf, po, hs, cs,
-                              gates, T, B, H, C, s);
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
-}
-
-}  // namespace
-}  // namespace dl4j
-
-extern "C" int dl4j_lstm_scan_tc(const void* xw, const void* h0,
-                                 const void* c0, const void* rw,
-                                 const void* b, const void* pi,
-                                 const void* pf, const void* po, void* hs,
-                                 void* cs, void* gates, int T, int B, int H,
-                                 int x_dtype, int cluster, int m_tiles,
-                                 int splits, void* stream) {
-  using namespace dl4j;
-  namespace lt = dl4j::lstm_tc;
-  const int x_size = x_dtype == DTYPE_F32 ? 4 : 2;
-  if (T <= 0 || B <= 0 || H <= 0 ||
-      (cluster != 2 && cluster != 4 && cluster != 8) || m_tiles < 1 ||
-      m_tiles > 3 || (splits != 2 && splits != 3) ||
-      lt::units(H, cluster) / 2 > lt::MAX_TILES ||
-      lt::smem_bytes(H, cluster, m_tiles, splits, x_size) > lt::SMEM_LIMIT)
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (x_dtype) {
-    case DTYPE_F32:
-      return launch_tc_rows<float>(m_tiles, splits, xw, h0, c0, rw, b, pi,
-                                   pf, po, hs, cs, gates, T, B, H, cluster,
-                                   s);
-    case DTYPE_BF16:
-      return launch_tc_rows<__nv_bfloat16>(m_tiles, splits, xw, h0, c0, rw,
-                                           b, pi, pf, po, hs, cs, gates, T,
-                                           B, H, cluster, s);
     default:
       return (int)cudaErrorInvalidValue;
   }

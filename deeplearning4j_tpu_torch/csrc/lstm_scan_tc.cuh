@@ -15,9 +15,9 @@
 // gates in one lane (the even lane takes row g, the odd lane row g + 8).
 // c stays in that lane's registers for all T steps. 8 warps; warp w owns
 // the n8 tiles w, w + 8, w + 16, w + 24 (at most 32 tiles, U <= 64) for
-// all M rows. At the char-RNN's B = 1024, H = 200: C = 4, U = 52, M = 48,
-// 22 clusters, 88 CTAs, one wave (with M = 32 the 32 clusters of four
-// 218 KB CTAs do not all fit an H100 at once: two waves, 1.4x as long).
+// all M rows. `geometry` picks C and MT from B and H alone; at the
+// char-RNN's B = 1024, H = 200: C = 4, U = 52, M = 48, 22 clusters, 88
+// CTAs, one wave.
 //
 // The product in float32 on bf16 tensor cores. h (float32) splits into
 // hi = bf16(h), mid = bf16(h - hi), lo = bf16(h - hi - mid): 24
@@ -29,8 +29,8 @@
 // truncate; accumulated over all 14 chunks of H = 200 the large terms
 // drifted past the 1e-5 gate in 64 steps on an H100, in sums of 32
 // products they stay within it. Two parts leave 2^-17 |h| out: 4.6x the
-// gate from the float64 function over the card test's inputs
-// (benchmarks/lstm_scan_study.py). ops/lstm.py's
+// gate from the float64 function over the card test's inputs on an H100
+// (PERF.md), so the parts are fixed at three (PARTS). ops/lstm.py's
 // `lstm_scan_split_reference` is this arithmetic in PyTorch.
 //
 // The exchange. The depth of the product is laid out by CTA: block b of
@@ -47,7 +47,8 @@
 // barrier a step, no fence over the outputs in flight.
 //
 // Loads and stores. Each step's xw for the CTA's rows and units goes to
-// shared memory by 8-byte cp.async during the product ([4][M][XS], rows
+// shared memory by 8-byte cp.async (xw 8-byte aligned: the wrapper
+// refuses another) during the product ([4][M][XS], rows
 // of 8 bytes times an odd number). The cell update stages a row tile's
 // outputs (h, c, i, f, g, o) in shared memory (two halves: the next tile
 // writes one while the other's stores read it); each (output, row) run
@@ -77,6 +78,11 @@ constexpr int TILES_A_WARP = 4;          // n8 tiles a warp
 constexpr int MAX_TILES = NW * TILES_A_WARP;
 constexpr int SMEM_LIMIT = 232448;       // dynamic shared memory a block
 constexpr int OUTS = 6;                  // staged outputs: h, c, i, f, g, o
+constexpr int PARTS = 3;                 // bf16 parts of h
+// the largest H this variant takes: ops/lstm.py's `_lstm_variant` sends
+// every bf16-RW call up to it here, and `geometry` finds each a cluster
+// (the static_assert below)
+constexpr int MAX_H = 352;
 
 // units a CTA owns: ceil(H / C) rounded up to even (an n8 tile holds
 // two), or to a multiple of 4 where H is one, so that every CTA's run of a
@@ -130,17 +136,46 @@ __host__ __device__ constexpr int xstride(int U, int x_size) {
 }
 
 // dynamic shared memory of a CTA: barriers and parameters, the RW slice
-// [4U][kstride], the h buffer [S][C][M][ustride] (bf16), this step's xw
-// [M][4][xstride] (TX) and two row tiles' staged outputs [2][6][16][U]
+// [4U][kstride], the h buffer [PARTS][C][M][ustride] (bf16), this step's
+// xw [M][4][xstride] (TX) and two row tiles' staged outputs [2][6][16][U]
 // (f32)
-__host__ __device__ constexpr long smem_bytes(int H, int C, int MT, int S,
+__host__ __device__ constexpr long smem_bytes(int H, int C, int MT,
                                               int x_size) {
   return head_bytes(units(H, C)) + 2L * 4 * units(H, C) * kstride(H, C) +
-         1L * S * C * block_bytes(H, C, MT) +
+         1L * PARTS * C * block_bytes(H, C, MT) +
          (16L * MT * 4 * xstride(units(H, C), x_size) * x_size + 15) / 16 *
              16 +
          2L * 4 * OUTS * 16 * units(H, C);
 }
+
+struct Geometry {
+  int C;    // CTAs a cluster (2, 4 or 8); 0 where none fits
+  int MT;   // 16-row tiles a cluster (1, 2 or 3)
+};
+
+// The geometry of B rows of H units with xw elements of x_size bytes:
+// three row tiles past B = 32, two past 16, else one (its empty rows
+// masked), fewer where shared memory does not fit; then the smallest
+// cluster whose units fill at most MAX_TILES n8 tiles a CTA and whose
+// shared memory fits. At B = 1024, H = 200: C = 4, MT = 3, 22 clusters of
+// 48 rows in one wave; 32 clusters of 32 rows do not all fit an H100 at
+// once and took 1.4x as long.
+__host__ __device__ constexpr Geometry geometry(int B, int H, int x_size) {
+  for (int mt = (B + 15) / 16 < 3 ? (B + 15) / 16 : 3; mt >= 1; --mt)
+    for (int c = 2; c <= 8; c *= 2)
+      if (units(H, c) / 2 <= MAX_TILES &&
+          smem_bytes(H, c, mt, x_size) <= SMEM_LIMIT)
+        return Geometry{c, mt};
+  return Geometry{0, 0};
+}
+
+// one row tile fits at every H up to MAX_H, so every B has a geometry
+constexpr bool takes_every_h() {
+  for (int h = 1; h <= MAX_H; ++h)
+    if (geometry(1, h, 2).C == 0 || geometry(1, h, 4).C == 0) return false;
+  return true;
+}
+static_assert(takes_every_h(), "a cluster must fit every H up to MAX_H");
 
 // 1 / d for d >= 1: rcp.approx and one Newton step (within an ulp or two
 // of the division, with no branch to a slow path, so the cell updates of
@@ -273,9 +308,9 @@ __device__ __forceinline__ void mbar_wait(uint64_t* m, uint32_t parity) {
 }
 
 // Grid: C * ceil(B / M) CTAs, clusters of C along x; NW warps a CTA.
-// S: bf16 parts of h (2 or 3). The loops around the product run with
-// compile-time trip counts, so each warp issues its loads back to back.
-template <typename TX, int MT, int S>
+// The loops around the product run with compile-time trip counts, so
+// each warp issues its loads back to back.
+template <typename TX, int MT>
 __global__ void __launch_bounds__(NTH, 1)
 lstm_scan_tc_kernel(const TX* __restrict__ xw, const float* __restrict__ h0,
                     const float* __restrict__ c0,
@@ -311,9 +346,9 @@ lstm_scan_tc_kernel(const TX* __restrict__ xw, const float* __restrict__ h0,
   int* s_koff = reinterpret_cast<int*>(tc_smem + 16);       // [K / 8]
   float* s_par = reinterpret_cast<float*>(tc_smem + 16 + 4 * KOFF);  // [7][U]
   bf16* s_rw = reinterpret_cast<bf16*>(tc_smem + head_bytes(U));  // [N][KS]
-  bf16* s_h = s_rw + (size_t)N * KS;         // [S][C][M][US]
+  bf16* s_h = s_rw + (size_t)N * KS;         // [PARTS][C][M][US]
   const int XS = xstride(U, (int)sizeof(TX));
-  TX* s_x = reinterpret_cast<TX*>(s_h + (size_t)S * PART);  // [4][M][XS]
+  TX* s_x = reinterpret_cast<TX*>(s_h + (size_t)PARTS * PART);  // [4][M][XS]
   float* s_out = reinterpret_cast<float*>(
       reinterpret_cast<unsigned char*>(s_x) +
       ((size_t)M * 4 * XS * sizeof(TX) + 15) / 16 * 16);    // [2][6][16][U]
@@ -383,16 +418,16 @@ lstm_scan_tc_kernel(const TX* __restrict__ xw, const float* __restrict__ h0,
       const int v = lane + 32 * hh;
       if (v < US) {
         const float h = (row_ok && v < U && b * U + v < H) ? src[v] : 0.f;
-        float pp[S];
-        split<S>(h, pp);
+        float pp[PARTS];
+        split<PARTS>(h, pp);
 #pragma unroll
-        for (int s = 0; s < S; ++s)
+        for (int s = 0; s < PARTS; ++s)
           dst[s * PART + v] = __float2bfloat16_rn(pp[s]);
       }
     }
   }
   // a step brings every peer's block of every part
-  const uint32_t step_bytes = (uint32_t)((C - 1) * S * BLK * 2);
+  const uint32_t step_bytes = (uint32_t)((C - 1) * PARTS * BLK * 2);
   if (tid == 0) {
     mbar_init(s_full, 1);
     mbar_init(s_free, C - 1);
@@ -498,9 +533,9 @@ lstm_scan_tc_kernel(const TX* __restrict__ xw, const float* __restrict__ h0,
             s_h + s_koff[((k0 + 16) >> 3) + (lane >> 4)] + (lane & 15) * US;
 #pragma unroll
         for (int m = 0; m < MT; ++m) {
-          uint32_t a[2][S][4];
+          uint32_t a[2][PARTS][4];
 #pragma unroll
-          for (int s = 0; s < S; ++s) {
+          for (int s = 0; s < PARTS; ++s) {
             tc::ldsm_x4(a[0][s][0], a[0][s][1], a[0][s][2], a[0][s][3],
                         arow0 + s * PART + m * 16 * US);
             if (two)
@@ -541,7 +576,7 @@ lstm_scan_tc_kernel(const TX* __restrict__ xw, const float* __restrict__ h0,
               step(1, kc);
             }
 #pragma unroll
-            for (int s = 2; s < S; ++s) {
+            for (int s = 2; s < PARTS; ++s) {
               step(s, 0);
               if (two) step(s, 1);
             }
@@ -616,12 +651,12 @@ lstm_scan_tc_kernel(const TX* __restrict__ xw, const float* __restrict__ h0,
         // store both units' parts, packed, in this CTA's block
         const float hn = __shfl_down_sync(0xffffffffu, h, 2);
         if (valid && tq < 2) {
-          float pa[S], pb[S];
-          split<S>(h, pa);
-          split<S>(hn, pb);
+          float pa[PARTS], pb[PARTS];
+          split<PARTS>(h, pa);
+          split<PARTS>(hn, pb);
           bf16* dst = s_h + rank * BLK + r * US + u;
 #pragma unroll
-          for (int s = 0; s < S; ++s)
+          for (int s = 0; s < PARTS; ++s)
             *reinterpret_cast<uint32_t*>(dst + s * PART) =
                 tc::pack2<bf16>(pa[s], pb[s]);
         }
@@ -639,7 +674,7 @@ lstm_scan_tc_kernel(const TX* __restrict__ xw, const float* __restrict__ h0,
           if (q == rank) continue;
           const uint32_t bar = cluster_addr(s_full, q);
 #pragma unroll
-          for (int s = 0; s < S; ++s) {
+          for (int s = 0; s < PARTS; ++s) {
             const bf16* blk = s_h + s * PART + rank * BLK;
             bulk_to_peer(cluster_addr(blk, q), blk, BLK * 2, bar);
           }
@@ -685,15 +720,16 @@ lstm_scan_tc_kernel(const TX* __restrict__ xw, const float* __restrict__ h0,
   cluster.sync();
 }
 
-// Launch lstm_scan_tc_kernel on clusters of C CTAs with M = 16 MT rows
-// and S parts of h. Returns the cudaError_t of the launch.
-template <typename TX, int MT, int S>
-int launch(const TX* xw, const float* h0, const float* c0, const bf16* rw,
-           const float* b, const float* pi, const float* pf,
-           const float* po, float* hs, float* cs, float* gates, int T,
-           int B, int H, int C, cudaStream_t stream) {
-  const long smem = smem_bytes(H, C, MT, S, (int)sizeof(TX));
-  auto kernel = lstm_scan_tc_kernel<TX, MT, S>;
+// Launch lstm_scan_tc_kernel on clusters of C CTAs with M = 16 MT rows.
+// Returns the cudaError_t of the launch.
+template <typename TX, int MT>
+int launch_geometry(const TX* xw, const float* h0, const float* c0,
+                    const bf16* rw, const float* b, const float* pi,
+                    const float* pf, const float* po, float* hs, float* cs,
+                    float* gates, int T, int B, int H, int C,
+                    cudaStream_t stream) {
+  const long smem = smem_bytes(H, C, MT, (int)sizeof(TX));
+  auto kernel = lstm_scan_tc_kernel<TX, MT>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
@@ -713,6 +749,28 @@ int launch(const TX* xw, const float* h0, const float* c0, const bf16* rw,
                            cs, gates, T, B, H);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
+}
+
+// Launch lstm_scan_tc_kernel at `geometry(B, H)`; refuses an H past
+// MAX_H. Returns the cudaError_t of the launch.
+template <typename TX>
+int launch(const TX* xw, const float* h0, const float* c0, const bf16* rw,
+           const float* b, const float* pi, const float* pf,
+           const float* po, float* hs, float* cs, float* gates, int T,
+           int B, int H, cudaStream_t stream) {
+  const Geometry g = geometry(B, H, (int)sizeof(TX));
+  if (H > MAX_H || g.C == 0) return (int)cudaErrorInvalidValue;
+  switch (g.MT) {
+    case 1:
+      return launch_geometry<TX, 1>(xw, h0, c0, rw, b, pi, pf, po, hs, cs,
+                                    gates, T, B, H, g.C, stream);
+    case 2:
+      return launch_geometry<TX, 2>(xw, h0, c0, rw, b, pi, pf, po, hs, cs,
+                                    gates, T, B, H, g.C, stream);
+    default:
+      return launch_geometry<TX, 3>(xw, h0, c0, rw, b, pi, pf, po, hs, cs,
+                                    gates, T, B, H, g.C, stream);
+  }
 }
 
 }  // namespace lstm_tc

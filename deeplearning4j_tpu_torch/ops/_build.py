@@ -56,13 +56,11 @@ SIGNATURES = {
                           _I, _I, _P]),
     "decode_window": ("dl4j_decode_window",
                       [_P, _P, _P, _P, _P] + [_I] * 7 + [_F, _I, _I, _P]),
-    "lstm_scan": ("dl4j_lstm_scan", [_P] * 11 + [_I] * 6 + [_P]),
+    "lstm_scan": ("dl4j_lstm_scan", [_P] * 11 + [_I] * 7 + [_P]),
     "flash_bwd_packed2": ("dl4j_flash_bwd_packed2",
                           [_P] * 11 + [_I] * 5 + [_F, _I, _I, _I, _P]),
     "decode_sweep": ("dl4j_decode_sweep", [_P] * 8 + [_I] * 8 + [_F, _P]),
 }
-# further C entry points of a source's library: symbol -> argument types
-EXTRA_ENTRIES = {"dl4j_lstm_scan_tc": [_P] * 11 + [_I] * 7 + [_P]}
 
 _loaded: Dict[str, ctypes._CFuncPtr] = {}
 build_seconds: Dict[str, float] = {}
@@ -135,20 +133,18 @@ def build_all() -> None:
         _finish(n, s, t0)
 
 
-def load(name: str, symbol: str = None) -> ctypes._CFuncPtr:
-    """The C entry point of kernel ``name`` (or its ``symbol``, one of
-    EXTRA_ENTRIES), built first if needed."""
-    sym, argtypes = (SIGNATURES[name] if symbol is None
-                     else (symbol, EXTRA_ENTRIES[symbol]))
-    fn = _loaded.get(sym)
+def load(name: str) -> ctypes._CFuncPtr:
+    """The C entry point of kernel ``name``, built first if needed."""
+    fn = _loaded.get(name)
     if fn is not None:
         return fn
+    sym, argtypes = SIGNATURES[name]
     _finish(name, _start(name), time.perf_counter())
     lib = ctypes.CDLL(str(library_path(name)))
     fn = getattr(lib, sym)
     fn.argtypes = argtypes
     fn.restype = ctypes.c_int
-    _loaded[sym] = fn
+    _loaded[name] = fn
     return fn
 
 

@@ -28,7 +28,7 @@ source's header for their design and what bounds them on the card.
 """
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Tuple
 
 import torch
 
@@ -39,10 +39,10 @@ Tensor = torch.Tensor
 # 28 * rows * H bytes of shared memory a CTA (h twice, c, z), in the 227 KB
 # a block may use
 _SMEM_LIMIT = 232448
-# the "tc" kernel's CTA: 8 warps of at most 4 n8 tiles (two units each),
-# csrc/lstm_scan_tc.cuh's MAX_TILES; h as _TC_SPLITS bf16 parts
-_TC_MAX_TILES = 32
-_TC_SPLITS = 3
+# the largest H of the "tc" kernel: csrc/lstm_scan_tc.cuh's MAX_H, where a
+# static_assert holds that its cluster slice fits at every B (the kernel
+# picks its own cluster and row tiles from B and H)
+_TC_MAX_H = 352
 
 
 def _scan(xw_t, h0, c0, rw, b, pi, pf, po, dtype, product
@@ -114,68 +114,14 @@ def lstm_scan_split_reference(xw_t, h0, c0, rw, b, pi, pf, po
                  _split_product)
 
 
-def _tc_units(hdim: int, cluster: int) -> int:
-    """Units a CTA of the "tc" kernel owns: ceil(H / C) rounded up to
-    even, or to a multiple of 4 where H is one (16-byte aligned output
-    runs for the kernel's bulk stores)."""
-    q = 4 if hdim % 4 == 0 else 2
-    return -(-(-(-hdim // cluster)) // q) * q
-
-
-def _tc_smem(hdim: int, cluster: int, m_tiles: int, x_size: int = 2
-             ) -> int:
-    """Shared memory of a "tc" CTA (csrc/lstm_scan_tc.cuh smem_bytes): two
-    8-byte barriers, 72 int32 depth-chunk offsets and 7 float32
-    parameters a unit (16-aligned); the bf16 RW slice [4U][C UB + 8], UB
-    = U rounded up to 8; the bf16 h buffer [splits][C][16 m_tiles][US],
-    US = UB, or UB + 8 where UB / 8 is even; the step's xw [4][16 m_tiles]
-    [XS] of x_size bytes, XS = U rounded up to 8 bytes, plus 8 bytes where
-    that is a multiple of 16 (16-aligned); two row tiles' staged outputs
-    [2][6][16][U] float32."""
-    u = _tc_units(hdim, cluster)
-    ub = -(-u // 8) * 8
-    us = ub if (ub // 8) % 2 else ub + 8
-    e8 = 8 // x_size
-    xs = -(-u // e8) * e8
-    xs = xs if xs % (2 * e8) else xs + e8
-    return (16 + 4 * 72 + (7 * u * 4 + 15) // 16 * 16
-            + 2 * 4 * u * (cluster * ub + 8)
-            + 2 * _TC_SPLITS * cluster * 16 * m_tiles * us
-            + (16 * m_tiles * 4 * xs * x_size + 15) // 16 * 16
-            + 2 * 4 * 6 * 16 * u)
-
-
-def _tc_geometry(bsz: int, hdim: int, x_size: int = 2
-                 ) -> Optional[Tuple[int, int]]:
-    """(cluster CTAs, 16-row tiles a cluster) of the "tc" kernel for a
-    bf16 (x_size 2) or float32 (4) xw, or None where no geometry fits:
-    three row tiles past B = 32, two past 16, else one (its empty rows
-    masked), fewer where the shared memory does not fit; then the
-    smallest cluster whose units fill at most 32 n8 tiles a CTA and whose
-    shared memory fits. At B = 1024, H = 200: (4, 3), 22 clusters of 48
-    rows in one wave; 32 clusters of 32 rows do not all fit an H100 at
-    once and took 1.4x as long (benchmarks/lstm_scan_study.py)."""
-    for m_tiles in range(min(3, -(-bsz // 16)), 0, -1):
-        for cluster in (2, 4, 8):
-            if _tc_units(hdim, cluster) // 2 <= _TC_MAX_TILES and \
-                    _tc_smem(hdim, cluster, m_tiles, x_size) <= \
-                    _SMEM_LIMIT:
-                return cluster, m_tiles
-    return None
-
-
 def _lstm_variant(x_dtype, w_dtype, bsz: int, t: int, hdim: int) -> str:
     """The kernel a call takes, from dtypes and shape alone: "tc" for a
-    bfloat16 RW whose cluster slice fits in shared memory (every H up to
-    352, and some up to 367), "simt" otherwise (a float32 RW, a larger H).
-    `t` does not change the pick; x_dtype (float32 or bfloat16) sizes the
-    slice's staged xw."""
-    del t
-    x_size = 4 if x_dtype == torch.float32 else 2
-    if w_dtype == torch.bfloat16 and \
-            _tc_geometry(bsz, hdim, x_size) is not None:
-        return "tc"
-    return "simt"
+    bfloat16 RW at H up to _TC_MAX_H (where its cluster slice fits in
+    shared memory at every B), "simt" otherwise (a float32 RW, a larger
+    H). Neither the xw dtype nor B nor T changes the pick."""
+    del x_dtype, bsz, t
+    return "tc" if w_dtype == torch.bfloat16 and hdim <= _TC_MAX_H \
+        else "simt"
 
 
 def _rows_per_cta(bsz: int, hdim: int) -> int:
@@ -189,18 +135,18 @@ def _rows_per_cta(bsz: int, hdim: int) -> int:
     return rows
 
 
-def lstm_scan_cuda(xw_t, h0, c0, rw, b, pi, pf, po, variant=None,
-                   geometry=None) -> Tuple[Tensor, Tensor, Tensor]:
+def lstm_scan_cuda(xw_t, h0, c0, rw, b, pi, pf, po, variant=None
+                   ) -> Tuple[Tensor, Tensor, Tensor]:
     """Launch csrc/lstm_scan.cu: one launch for the whole sequence.
     Takes xw_t and RW in float32 or bfloat16 (each its own dtype) and any
     B, T, H >= 1 whose CTA fits in shared memory (H <= 8301); the
     carries, bias and peepholes go in as float32 (exact for bf16 values).
     Raises for anything else. The kernel is `_lstm_variant`'s pick;
     `variant` names one instead, for comparing the two on the same inputs
-    (a "tc" that does not fit raises); `geometry`, (cluster, row tiles,
-    parts of h), replaces the "tc" kernel's own for design studies (the C
-    entry refuses one that does not fit). Counts its launches, in all
-    (`launches`) and per variant (`launches_tc`, `launches_simt`)."""
+    (a "tc" past its H or with a float32 RW raises). The "tc" kernel reads
+    xw by 8-byte copies and refuses an xw that is not 8-byte aligned.
+    Counts its launches, in all (`launches`) and per variant
+    (`launches_tc`, `launches_simt`)."""
     if xw_t.ndim != 3 or not xw_t.is_cuda:
         raise ValueError(f"lstm_scan: xw_t must be a CUDA [T, B, 4H] "
                          f"tensor, got {tuple(xw_t.shape)} on "
@@ -230,10 +176,10 @@ def lstm_scan_cuda(xw_t, h0, c0, rw, b, pi, pf, po, variant=None,
         variant = _lstm_variant(xw_t.dtype, rw.dtype, bsz, t, hdim)
     if variant not in ("tc", "simt"):
         raise ValueError(f"lstm_scan: unknown variant {variant!r}")
-    geom = _tc_geometry(bsz, hdim, xw_t.element_size())
-    if variant == "tc" and (rw.dtype != torch.bfloat16 or geom is None):
-        raise ValueError(f"lstm_scan tc kernel takes a bfloat16 RW whose "
-                         f"cluster slice fits, got {rw.dtype} at H={hdim}")
+    if variant == "tc" and (rw.dtype != torch.bfloat16 or
+                            hdim > _TC_MAX_H):
+        raise ValueError(f"lstm_scan tc kernel takes a bfloat16 RW at H <= "
+                         f"{_TC_MAX_H}, got {rw.dtype} at H={hdim}")
     rows = _rows_per_cta(bsz, hdim)
     if variant == "simt" and 28 * rows * hdim > _SMEM_LIMIT:
         raise ValueError(f"lstm_scan kernel: H={hdim} needs "
@@ -241,6 +187,9 @@ def lstm_scan_cuda(xw_t, h0, c0, rw, b, pi, pf, po, variant=None,
                          f"over the {_SMEM_LIMIT} a block may use")
     f32 = torch.float32
     xw = xw_t.contiguous()
+    if variant == "tc" and xw.data_ptr() % 8:
+        raise ValueError("lstm_scan tc kernel: xw_t must start on an 8-byte "
+                         "boundary (it is read by 8-byte copies)")
     rwc = rw.contiguous()
     h0f, c0f = (x.to(f32).contiguous() for x in (h0, c0))
     bf, pif, pff, pof = (x.to(f32).reshape(-1).contiguous()
@@ -248,18 +197,12 @@ def lstm_scan_cuda(xw_t, h0, c0, rw, b, pi, pf, po, variant=None,
     hs = torch.empty((t, bsz, hdim), dtype=f32, device=xw.device)
     cs = torch.empty_like(hs)
     gates = torch.empty((t, bsz, h4), dtype=f32, device=xw.device)
-    ptrs = (xw.data_ptr(), h0f.data_ptr(), c0f.data_ptr(), rwc.data_ptr(),
-            bf.data_ptr(), pif.data_ptr(), pff.data_ptr(), pof.data_ptr(),
-            hs.data_ptr(), cs.data_ptr(), gates.data_ptr(), t, bsz, hdim,
-            _build.dtype_code(xw.dtype))
-    if variant == "tc":
-        fn = _build.load("lstm_scan", "dl4j_lstm_scan_tc")
-        err = fn(*ptrs, *(geometry or (*geom, _TC_SPLITS)),
-                 _build.stream_ptr(xw.device))
-    else:
-        fn = _build.load("lstm_scan")
-        err = fn(*ptrs, _build.dtype_code(rwc.dtype), rows,
-                 _build.stream_ptr(xw.device))
+    fn = _build.load("lstm_scan")
+    err = fn(xw.data_ptr(), h0f.data_ptr(), c0f.data_ptr(), rwc.data_ptr(),
+             bf.data_ptr(), pif.data_ptr(), pff.data_ptr(), pof.data_ptr(),
+             hs.data_ptr(), cs.data_ptr(), gates.data_ptr(), t, bsz, hdim,
+             _build.dtype_code(xw.dtype), _build.dtype_code(rwc.dtype), rows,
+             int(variant == "tc"), _build.stream_ptr(xw.device))
     _build.check(err, f"lstm_scan ({variant})")
     lstm_scan_cuda.launches += 1
     if variant == "tc":

@@ -498,6 +498,29 @@ def test_lstm_scan_tc_kernel_matches_plain_on_card(requires_cuda, h, b, t,
             f"{err_plain}")
 
 
+def test_lstm_scan_tc_kernel_refuses_unaligned_xw_on_card(requires_cuda):
+    """The tensor-core kernel reads xw by 8-byte cp.async: a bf16 xw at a
+    2-byte offset raises before any launch; the SIMT kernel takes it."""
+    from deeplearning4j_tpu_torch.ops import lstm as tlstm
+    args = _lstm_inputs(7, 5, 36, torch.bfloat16, torch.bfloat16,
+                        requires_cuda, seed=13)
+    flat = torch.zeros(args[0].numel() + 1, device=requires_cuda,
+                       dtype=torch.bfloat16)
+    xw = flat[1:].view_as(args[0])
+    xw.copy_(args[0])
+    k = tlstm.lstm_scan_cuda
+    before = (k.launches, k.launches_tc)
+    with pytest.raises(ValueError, match="8-byte"):
+        tlstm.lstm_scan(xw, *args[1:])
+    assert (k.launches, k.launches_tc) == before
+    got = k(xw, *args[1:], variant="simt")
+    want = tlstm.lstm_scan_reference(xw, *args[1:])
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.cpu().numpy(), w.cpu().numpy(),
+                                   **LSTM_TOL)
+
+
 @pytest.mark.parametrize("t,b,h", [(64, 1024, 200), (7, 5, 37)])
 def test_lstm_scan_tc_kernel_takes_float32_xw_on_card(requires_cuda, t, b,
                                                       h):

@@ -334,6 +334,9 @@ def test_split_reference_refuses_a_float32_rw():
     (torch.bfloat16, 5, 7, 37, "tc"),
     (torch.bfloat16, 33, 64, 256, "tc"),
     (torch.bfloat16, 1024, 64, 352, "tc"),     # the card test's largest
+    (torch.bfloat16, 16, 1, 351, "tc"),
+    (torch.bfloat16, 1, 1, 1, "tc"),
+    (torch.bfloat16, 1024, 64, 353, "simt"),   # past the kernel's MAX_H
     (torch.bfloat16, 1024, 64, 356, "simt"),
     (torch.bfloat16, 3, 2, 1100, "simt"),      # the card test's large H
     (torch.float32, 1024, 64, 200, "simt"),
@@ -345,37 +348,14 @@ def test_lstm_variant_picks_by_dtype_and_shape(x_dtype, w_dtype, b, t, h,
     assert tlstm._lstm_variant(x_dtype, w_dtype, b, t, h) == want
 
 
-def test_tc_geometry_fits_every_h_it_takes():
-    """Every H up to 352 takes the "tc" kernel at every B and xw dtype (352
-    is the largest H of the card test), with a cluster whose CTAs cover
-    all H units in at most 32 n8 tiles each (units a multiple of 4 where H
-    is one), within 227 KB of shared memory, and one row tile where B <=
-    16. At the char-RNN's shape: 4 CTAs of 48 rows, 22 clusters (88 CTAs,
-    one wave)."""
-    assert tlstm._tc_geometry(1024, 200) == (4, 3)
-    assert tlstm._tc_smem(200, 4, 3) == 222688
-    for h in range(1, 353):
-        for b in (1, 16, 17, 33, 1024):
-            for x_size in (2, 4):
-                c, mt = tlstm._tc_geometry(b, h, x_size)
-                u = tlstm._tc_units(h, c)
-                assert c * u >= h and u % (4 if h % 4 == 0 else 2) == 0
-                assert u // 2 <= 32
-                assert tlstm._tc_smem(h, c, mt, x_size=x_size) <= \
-                    tlstm._SMEM_LIMIT
-                assert b > 16 or mt == 1
-    for h in (356, 400, 1100):
-        assert tlstm._tc_geometry(1024, h) is None
-
-
-def test_lstm_scan_study_small_runs_on_cpu(capsys):
-    """The design study's CPU path (the twins' conditioning lines, no
-    kernel) at its tiny shapes: one line a shape, both float32 twins
-    within the limit of the float64 function there."""
-    from deeplearning4j_tpu_torch.benchmarks import lstm_scan_study
-    lstm_scan_study.main(["--device", "cpu", "--small"])
-    import json
-    recs = [json.loads(x) for x in capsys.readouterr().out.splitlines()]
-    assert [(r["run"], r["H"]) for r in recs] == [("conditioning", 24),
-                                                  ("conditioning", 40)]
-    assert all(r["plain_f32"] <= 1 and r["split_f32"] <= 1 for r in recs)
+def test_tc_max_h_is_the_kernel_headers():
+    """`_lstm_variant`'s largest "tc" H is csrc/lstm_scan_tc.cuh's MAX_H,
+    the H up to which the header's static_assert holds that a cluster
+    fits."""
+    import re
+    from pathlib import Path
+    src = (Path(tlstm.__file__).resolve().parent.parent / "csrc" /
+           "lstm_scan_tc.cuh").read_text()
+    assert re.findall(r"constexpr int MAX_H = (\d+);", src) == [
+        str(tlstm._TC_MAX_H)]
+    assert "static_assert(takes_every_h()" in src

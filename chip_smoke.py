@@ -3,10 +3,10 @@
 
     python3 chip_smoke.py
 
-Drives the port's serving path (plain and speculative), its train step,
-the GravesLSTM char-RNN's training through MultiLayerNetwork and the two
-kernel experiments on the card and fails (non-zero exit, no result line)
-if anything is wrong:
+Drives the port's serving path (plain, speculative, paged with the
+prefix cache, chunked prefill), its train step, the GravesLSTM char-RNN's
+training through MultiLayerNetwork and the two kernel experiments on the
+card and fails (non-zero exit, no result line) if anything is wrong:
 
 0. Build: every csrc/*.cu at once; then one line per tensor-core
    library (flash_fwd, flash_bwd, flash_bwd_packed2, decode_attention,
@@ -79,6 +79,14 @@ if anything is wrong:
    drafters "self" and "layers:1" (greedy), then "layers:1" sampled
    (temperature 0.9, top-k 16); the spec tokens on cuda must equal the
    plain engine's on cuda and the spec engine's on cpu.
+2c. float32 paged KV on the same model: 12 greedy requests (8 open with
+   one 64-token system prompt; 8-192 tokens; 16 new) and then 4 of them
+   again (full-prefix hits: copy-on-write) through the paged engine
+   (page_size 16, 160 pages, prefix cache) on cuda and on cpu, the
+   contiguous engine, prefill_chunk 32 paged and contiguous, and paged
+   spec (K=4, "layers:1"); all token-exact against the paged engine on
+   cuda, the second wave against the first; prefix hits and copies in
+   the second wave; no page leaked (pages in use = the prefix cache's).
 3. Full width: the 12L / 512d / 8H / V=256 / max_len 2048 bf16 engine with
    64 slots and decode_chunk 8 answers 128 requests (prompt lengths 16..1024
    from seed 0, 64 new tokens), then `TransformerLM.generate` runs B=64,
@@ -99,6 +107,22 @@ if anything is wrong:
    product with decode's per-row [Ns, D] products bitwise; one spec round
    and one plain chunk (8 tokens each, no admissions) run under
    torch.profiler.
+3c. Full-width paged serving: phase 3's config and slots on the paged pool
+   (page_size 16, 3072 pages + the scratch page, prefix cache): 128
+   requests of 64 new tokens (96 open with one 512-token system prompt
+   and a page-aligned suffix of 16-512 tokens, 32 unshared of 16-1024),
+   then 32 of them again; the first wave on the contiguous pool; the
+   same 32 cold (prefix cache off); the first wave with prefill_chunk
+   256 and the default budget; paged spec (K=7, "layers:1") against
+   paged plain on 3b's aligned tree, token-exact. Every request answered
+   and well formed; launches exact (decode n_layers x chunk per decode
+   chunk, window n_layers and draft decode K per spec round, flash_fwd
+   none on the paged and chunked arms: their prefill is plain
+   attention); hits and copies in the second wave; no page leaked.
+   Prints each arm's tokens/s, ms per decode step and prefill seconds,
+   the first wave's ms per decode step paged and contiguous (and phase
+   3's), the cold and prefix-hit prefill seconds, and one profiled paged
+   decode chunk with the device time of its page gathers.
 4a. float32 training, card vs CPU: 2 layers at 512d / 8 heads, V=256,
    B=2, T=256, remat 'full', three Adam steps of `make_fsdp_train_step`
    from the same params on cuda and on cpu; losses within 1e-4, and the
@@ -680,6 +704,108 @@ def phase_spec_f32_card_vs_cpu(torch, dev):
 
 
 # ---------------------------------------------------------------------------
+# phase 2c: float32 paged KV, prefix cache and chunked prefill, card vs CPU
+# ---------------------------------------------------------------------------
+
+def paged_traffic(rng, n_shared, n_plain, shared_len, suffix, plain):
+    """Prompts in random order: n_shared open with one shared_len-token
+    system prompt and a suffix whose length is a multiple of 16 in
+    ``suffix`` (so their resubmissions are full-prefix hits,
+    copy-on-write), n_plain are unshared, of random length in
+    ``plain``."""
+    sys_prompt = rng.integers(0, 256, size=shared_len).astype(np.int32)
+    out = [np.concatenate([sys_prompt, rng.integers(
+        0, 256, size=16 * int(n)).astype(np.int32)])
+        for n in rng.integers(suffix[0] // 16, suffix[1] // 16 + 1,
+                              size=n_shared)]
+    out += [rng.integers(0, 256, size=int(n)).astype(np.int32)
+            for n in rng.integers(plain[0], plain[1] + 1, size=n_plain)]
+    # interleaved, so refills of the first wave hit the system prompt
+    return [out[i] for i in rng.permutation(len(out))]
+
+
+def serve_waves(eng, waves):
+    """Each wave submitted and drained in turn: (results per wave, each
+    wave's share of the engine's counts and prefill / decode seconds)."""
+    results, deltas = [], []
+    before = dict(eng.counts, prefill_s=eng.seconds["prefill"],
+                  decode_s=eng.seconds["decode"])
+    for prompts in waves:
+        hs = [eng.submit(p) for p in prompts]
+        eng.run_pending()
+        results.append([h.result() for h in hs])
+        after = dict(eng.counts, prefill_s=eng.seconds["prefill"],
+                     decode_s=eng.seconds["decode"])
+        deltas.append({k: after[k] - before[k] for k in after})
+        before = after
+    return results, deltas
+
+
+def phase_paged_f32_card_vs_cpu(torch, dev):
+    """Phase 2's 2-layer 512d float32 model: 12 greedy requests (8 share a
+    64-token prefix; 8-192 tokens; 16 new), then 4 of them again, through
+    the paged engine (page_size 16, 160 pages, prefix cache) on the card
+    and on the CPU; the contiguous engine, prefill_chunk 32 (paged and
+    contiguous) and paged spec (K=4, "layers:1") on the card. Gates, all
+    token-exact: card ≡ CPU, paged ≡ contiguous, the second wave ≡ the
+    first, chunked ≡ one-shot, spec ≡ plain; hits and copies > 0; no
+    page leaked."""
+    from deeplearning4j_tpu_torch.models import transformer as tf
+    from deeplearning4j_tpu_torch.serving.engine import (EngineConfig,
+                                                         InferenceEngine)
+    cfg = tf.TransformerConfig(vocab_size=256, d_model=512, n_heads=8,
+                               n_layers=2, max_len=2048, dtype="float32")
+    rng = np.random.default_rng(1)
+    first = paged_traffic(rng, 8, 4, 64, (16, 128), (8, 192))
+    again = [p for p in first if p.shape[0] % 16 == 0][:4]
+    waves = [first, again]
+    base = dict(num_slots=8, decode_chunk=8, max_new_tokens=16)
+    paged = dict(paged=True, page_size=16, kv_pages=160)
+    params = {d: tf.init_params(cfg, seed=1, device=d)
+              for d in (dev, torch.device("cpu"))}
+
+    def run(d, **kw):
+        eng = InferenceEngine(cfg, params[d], EngineConfig(**base, **kw),
+                              device=d)
+        out, counts = serve_waves(eng, waves)
+        return eng, out, counts
+
+    eng, got, counts = run(dev, **paged)
+    arms = {"paged_cpu": run(torch.device("cpu"), **paged)[1],
+            "contiguous": run(dev)[1],
+            "paged_chunked": run(dev, prefill_chunk=32, **paged)[1],
+            "contiguous_chunked": run(dev, prefill_chunk=32)[1],
+            "paged_spec": run(dev, spec_decode=True, spec_k=4,
+                              draft="layers:1", **paged)[1]}
+    want = got[0] + [next(r for p, r in zip(first, got[0]) if p is q)
+                     for q in again]
+    same = {arm: all(np.array_equal(a, b) for a, b in
+                     zip(out[0] + out[1], got[0] + got[1]))
+            for arm, out in arms.items()}
+    same["second_wave_equals_first"] = all(
+        np.array_equal(a, b) for a, b in zip(got[0] + got[1], want))
+    hits2, cow2 = counts[1]["prefix_hits"], counts[1]["cow_copies"]
+    c = eng.counts
+    line(dict(phase="2c", requests=len(first), resubmitted=len(again),
+              new_tokens=16, page_size=16, kv_pages=160,
+              tokens_equal=same, prefix_hits=c["prefix_hits"],
+              prefix_misses=c["prefix_misses"],
+              prefix_shared_tokens=c["prefix_shared_tokens"],
+              second_wave_hits=hits2, cow_copies=c["cow_copies"],
+              pages_used=c["pages_used"],
+              prefix_cache_pages=eng.prefix_cache_pages))
+    bad = [k for k, v in same.items() if not v]
+    if bad:
+        fail(f"float32 paged serving: tokens differ in {bad}")
+    if not (hits2 > 0 and cow2 > 0):
+        fail(f"float32 paged second wave: {hits2} hits, {cow2} copies")
+    if c["pages_used"] != eng.prefix_cache_pages:
+        fail(f"float32 paged engine leaked pages: {c['pages_used']} used, "
+             f"{eng.prefix_cache_pages} held by the prefix cache")
+
+
+
+# ---------------------------------------------------------------------------
 # phase 3: the full-width serving path, with launch counts
 # ---------------------------------------------------------------------------
 
@@ -724,6 +850,7 @@ def phase_full_width(torch, dev):
         fail(f"engine launch counts flash={n_flash} decode={n_dec} vs "
              f"{c} with L={L}, chunk={eng.decode_chunk}")
     steps = eng.decode_chunk * c["decode_chunks"]
+    ms_per_step = eng.seconds["decode"] / steps * 1e3
     line(dict(phase=3, run="engine", requests=n_req, answered=len(hs),
               new_tokens=new, prompt_len_min=int(lens.min()),
               prompt_len_max=int(lens.max()), wall_s=wall,
@@ -732,7 +859,7 @@ def phase_full_width(torch, dev):
               prefill_s=eng.seconds["prefill"],
               decode_chunks=c["decode_chunks"],
               decode_s=eng.seconds["decode"],
-              ms_per_decode_step=eng.seconds["decode"] / steps * 1e3,
+              ms_per_decode_step=ms_per_step,
               flash_launches=n_flash, decode_launches=n_dec))
 
     gb, gt, gnew = 64, 64, 128
@@ -759,8 +886,8 @@ def phase_full_width(torch, dev):
               wall_ms_per_new_token=gwall / gnew * 1e3,
               flash_launches=g_flash, decode_launches=g_dec))
     phase_profile(torch, eng, rng)
-    return {"flash_fwd": n_flash + g_flash,
-            "decode_attention": n_dec + g_dec}
+    return ({"flash_fwd": n_flash + g_flash,
+             "decode_attention": n_dec + g_dec}, ms_per_step)
 
 
 # ---------------------------------------------------------------------------
@@ -900,10 +1027,154 @@ def phase_spec_full_width(torch, dev):
     return total
 
 
-def profile_decode_tick(torch, eng, rng, arm):
+# ---------------------------------------------------------------------------
+# phase 3c: full-width paged serving, prefix cache and chunked prefill
+# ---------------------------------------------------------------------------
+
+def phase_paged_full_width(torch, dev, contiguous_ms_per_step):
+    """Phase 3's bf16 flagship decode config, 64 slots, decode_chunk 8, on
+    the paged pool (page_size 16, 3072 pages + scratch, prefix cache): 128
+    greedy requests of 64 new tokens (96 open with one 512-token system
+    prompt and a page-aligned suffix of 16-512 tokens, 32 unshared of
+    16-1024), then 32 of them again (prefix hits, copy-on-write); the
+    first wave on the contiguous pool; the same 32 cold (prefix cache
+    off); the first wave with prefill_chunk 256 and the default budget;
+    then paged spec (K=7, "layers:1") against paged plain on phase 3b's
+    aligned tree, token-exact. Gates: every request answered and well
+    formed; launches exact (decode L x chunk per decode chunk, window L
+    and draft decode K per spec round, flash_fwd L per prefill call on
+    the contiguous arm and none on the others); hits and copies in the
+    second wave; no page leaked. Prints each arm's tokens/s, ms per
+    decode step and prefill seconds, the first wave's ms per decode step
+    paged and contiguous beside phase 3's, and one profiled paged decode
+    tick. Returns the launches by kernel."""
+    from deeplearning4j_tpu_torch.models import transformer as tf
+    from deeplearning4j_tpu_torch.ops import flash_attention as fa
+    from deeplearning4j_tpu_torch.ops import flash_decode as fd
+    from deeplearning4j_tpu_torch.serving.engine import (EngineConfig,
+                                                         InferenceEngine)
+    cfg = tf.TransformerConfig(vocab_size=256, d_model=512, n_heads=8,
+                               n_layers=12, max_len=2048, dtype="bfloat16")
+    L, chunk, new, K = cfg.n_layers, 8, 64, 7
+    rng = np.random.default_rng(0)
+    first = paged_traffic(rng, 96, 32, 512, (16, 512), (16, 1024))
+    again = [first[i] for i in rng.choice(len(first), size=32,
+                                          replace=False)]
+    base = dict(num_slots=64, decode_chunk=chunk, max_new_tokens=new,
+                max_queue=256, degrade_queue_depth=1024, paged=True,
+                page_size=16, kv_pages=3072 + 1)
+    counters = (fa.flash_forward_cuda, fd.decode_attention_cuda,
+                fd.decode_window_attention_cuda)
+    params = tf.init_params(cfg, seed=0, device=dev)
+    aligned = aligned_params(tf, cfg, dev)
+    launches = {"flash_fwd": 0, "decode_attention": 0, "decode_window": 0}
+
+    def arm(name, tree, waves, **kw):
+        eng = InferenceEngine(cfg, tree, EngineConfig(**{**base, **kw}),
+                              device=dev)
+        for c in counters:
+            c.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out, counts = serve_waves(eng, waves)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        n_flash, n_dec, n_win = (c.launches for c in counters)
+        for k, n in zip(launches, (n_flash, n_dec, n_win)):
+            launches[k] += n
+        for prompts, res in zip(waves, out):
+            for p, r in zip(prompts, res):
+                if r.shape != (p.shape[0] + new,) or \
+                        not np.array_equal(r[:p.shape[0]], p) or \
+                        r.min() < 0 or r.max() >= cfg.vocab_size:
+                    fail(f"3c {name}: bad result of shape {r.shape}")
+        c = eng.counts
+        rounds, chunks = c["spec_rounds"], c["decode_chunks"]
+        want_dec = L * chunk * chunks + K * rounds
+        # paged and chunked prefill is plain attention, never flash
+        want_flash = (0 if eng.config.paged or eng.config.prefill_chunk
+                      else L * c["prefill_calls"])
+        if n_flash != want_flash or n_dec != want_dec or \
+                n_win != L * rounds:
+            fail(f"3c {name}: launches flash={n_flash} decode={n_dec} "
+                 f"window={n_win} for {chunks} chunks and {rounds} rounds "
+                 f"(L={L}, chunk={chunk}, K={K})")
+        if c["pages_used"] != eng.prefix_cache_pages:
+            fail(f"3c {name}: {c['pages_used']} pages used, "
+                 f"{eng.prefix_cache_pages} held by the prefix cache")
+        n_tok = sum(len(w) for w in waves) * new
+        rec = dict(phase="3c", arm=name, requests=sum(len(w) for w in waves),
+                   new_tokens=new, wall_s=wall, tokens_per_s=n_tok / wall,
+                   prefill_calls=c["prefill_calls"],
+                   prefill_s=eng.seconds["prefill"],
+                   prefill_chunks=c["prefill_chunks"], decode_chunks=chunks,
+                   decode_s=eng.seconds["decode"],
+                   flash_launches=n_flash, decode_launches=n_dec,
+                   window_launches=n_win,
+                   prefix_hits=c["prefix_hits"],
+                   prefix_misses=c["prefix_misses"],
+                   prefix_shared_tokens=c["prefix_shared_tokens"],
+                   prefix_evictions=c["prefix_evictions"],
+                   cow_copies=c["cow_copies"], pages_used=c["pages_used"],
+                   pages_free=c["pages_free"],
+                   shed_overload=c["shed_overload"])
+        if chunks:
+            rec["ms_per_decode_step"] = (eng.seconds["decode"]
+                                         / (chunk * chunks) * 1e3)
+        if rounds:
+            rec.update(spec_rounds=rounds,
+                       ms_per_spec_round=eng.seconds["spec"] / rounds * 1e3,
+                       acceptance=c["spec_accepted"] / c["spec_drafted"],
+                       spec_k_final=eng.spec_k_current)
+        if len(waves) > 1:
+            rec["waves"] = [dict(requests=len(w), **{
+                k: d[k] for k in ("prefill_calls", "prefill_s", "decode_s",
+                                  "decode_chunks", "prefix_hits",
+                                  "cow_copies")})
+                for w, d in zip(waves, counts)]
+        line(rec)
+        return eng, out, counts
+
+    eng, _, counts = arm("paged", params, [first, again])
+    if not (counts[1]["prefix_hits"] > 0 and counts[1]["cow_copies"] > 0):
+        fail(f"3c second wave: {counts[1]['prefix_hits']} prefix hits, "
+             f"{counts[1]['cow_copies']} copies")
+    contiguous, _, _ = arm("contiguous", params, [first], paged=False)
+    _, _, cold = arm("cold", params, [again], prefix_cache=False)
+    # the first wave's decode on the paged pool and the contiguous one
+    line(dict(phase="3c", run="paged_vs_contiguous", requests=len(first),
+              paged_ms_per_decode_step=counts[0]["decode_s"]
+              / (chunk * counts[0]["decode_chunks"]) * 1e3,
+              contiguous_ms_per_decode_step=contiguous.seconds["decode"]
+              / (chunk * contiguous.counts["decode_chunks"]) * 1e3,
+              phase3_contiguous_ms_per_decode_step=contiguous_ms_per_step,
+              resubmitted=len(again), cold_prefill_s=cold[0]["prefill_s"],
+              hit_prefill_s=counts[1]["prefill_s"],
+              saved_s=cold[0]["prefill_s"] - counts[1]["prefill_s"]))
+    del contiguous
+    arm("chunked", params, [first], prefill_chunk=256)
+    _, plain, _ = arm("paged_aligned_plain", aligned, [first])
+    spec, got, _ = arm("paged_aligned_spec", aligned, [first],
+                       spec_decode=True, spec_k=K, draft="layers:1")
+    bad = [i for i, (a, b) in enumerate(zip(got[0], plain[0]))
+           if not np.array_equal(a, b)]
+    if bad:
+        fail(f"3c paged spec tokens differ from paged plain in requests "
+             f"{bad[:8]} ({len(bad)} of {len(first)})")
+    if spec.counts["decode_chunks"] or spec.spec_k_current != K:
+        fail(f"3c aligned paged spec left K={K}: {spec.counts}")
+    del spec, plain, got, aligned
+    profile_decode_tick(torch, eng, rng, "paged", phase="3c")
+    del eng, params
+    torch.cuda.empty_cache()
+    return launches
+
+
+def profile_decode_tick(torch, eng, rng, arm, phase="3b"):
     """One decode phase with no admissions in its tick (a spec round of
     K+1 = 8 tokens, or a plain chunk of 8) under torch.profiler: device
-    time and launches by kernel, and the device's idle share."""
+    time and launches by kernel, and the device's idle share (a paged
+    engine's also the device time of its page gathers)."""
     kind = "spec_rounds" if arm == "spec" else "decode_chunks"
     prompts = [rng.integers(0, 256, size=64).astype(np.int32)
                for _ in range(eng.num_slots)]
@@ -919,7 +1190,22 @@ def profile_decode_tick(torch, eng, rng, arm):
     eng.run_pending()
     if not all(h.done() for h in hs + warm):
         fail(f"profiled {arm} tick left requests unanswered")
-    profile_line(wall, rows, phase="3b", run=f"profiled_{arm}_tick")
+    rec = {}
+    if eng.config.paged:
+        # the page gathers (`plane[bt]`, 2 a layer a step) run torch's
+        # gather kernel, as do the 2 embedding lookups a step; the row
+        # writes run its index_put kernel
+        gather = [(k, us, n) for k, us, n in rows if "gather" in k.lower()]
+        busy = sum(us for _, us, _ in rows)
+        rec = dict(gather_ms=sum(us for _, us, _ in gather) / 1e3,
+                   gather_launches=sum(n for _, _, n in gather),
+                   gather_share=(sum(us for _, us, _ in gather) / busy
+                                 if busy else "not measured"),
+                   gather_and_index_kernels=[
+                       dict(name=k[:120], ms=us / 1e3, count=n)
+                       for k, us, n in rows
+                       if "gather" in k.lower() or "index" in k.lower()])
+    profile_line(wall, rows, phase=phase, run=f"profiled_{arm}_tick", **rec)
 
 
 def device_rows(prof):
@@ -1865,9 +2151,13 @@ def main() -> int:
     measured["decode_sweep"] = phase_decode_sweep_kernel(torch, dev)
     phase_f32_card_vs_cpu(torch, dev)
     phase_spec_f32_card_vs_cpu(torch, dev)
+    phase_paged_f32_card_vs_cpu(torch, dev)
     measured["lstm_scan"] = phase_lstm_kernel(torch, dev)
-    launches = phase_full_width(torch, dev)
+    launches, contiguous_ms_per_step = phase_full_width(torch, dev)
     for name, n in phase_spec_full_width(torch, dev).items():
+        launches[name] = launches.get(name, 0) + n
+    for name, n in phase_paged_full_width(torch, dev,
+                                          contiguous_ms_per_step).items():
         launches[name] = launches.get(name, 0) + n
     phase_train_f32_card_vs_cpu(torch, dev)
     for name, n in phase_train_full_width(torch, dev).items():

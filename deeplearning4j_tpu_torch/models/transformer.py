@@ -315,6 +315,16 @@ def slot_cache_shape(cfg: TransformerConfig, num_slots: int
     return (cfg.n_layers, num_slots, cfg.max_len, cfg.d_model)
 
 
+def page_pool_shape(cfg: TransformerConfig, num_pages: int,
+                    page_size: int) -> Tuple[int, int, int, int]:
+    """Paged KV-pool geometry [L, num_pages, page_size, D] (reference
+    :293): the slot pool's per-slot rows as a shared pool of
+    ``page_size``-token pages addressed through per-slot block tables.
+    Heads stay flattened (D = H*Dh); physical page 0 is the scratch
+    page that masked writes land on."""
+    return (cfg.n_layers, num_pages, page_size, cfg.d_model)
+
+
 def init_cache(cfg: TransformerConfig, batch: int,
                device=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Stacked per-layer KV caches [L, B, S, D] (k, v), zero-filled, in

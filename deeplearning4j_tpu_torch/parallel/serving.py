@@ -24,11 +24,27 @@ becomes a plain function closed over its geometry.
   window through the window kernel, and the commit of each slot's
   accepted prefix (see the section comment below).
 
+- `make_chunked_prefill(cfg, chunk_len, num_slots, ...)` — advances each
+  slot by its next ``clen`` prompt tokens from ``start``: the chunk's
+  rows attend the slot's cached prefix (rows < start) and, causally,
+  each other, under one softmax (`_two_piece_attention`).
+- The paged pool (`init_paged_state`): K/V in ``page_size``-token pages
+  [L, num_pages, page_size, D] addressed through a host-owned block table
+  ``bt`` [Ns, max_pages] passed to every call as data; page 0 is the
+  scratch page that pad rows, inactive slots and rows past the mapped
+  pages write. `make_paged_prefill` (``chunked=True``:
+  `make_paged_chunked_prefill`) resumes from a prefix-cache hit or a
+  chunk boundary with the two-piece attention over the gathered pages;
+  `make_paged_decode` and `make_paged_speculative_decode` write their
+  rows through the table and run the decode and window kernels over the
+  gathered view (`_gather_pages`), as the reference does: on the same
+  values the kernels return the contiguous pool's bits.
+
 The reference's programs are functional and the engine rebinds the
 returned pool; here the caches (and pos/tok) are updated IN PLACE and the
 same tensors are returned, which is what the reference's buffer donation
-achieved. The `constrain`, `quantized` and `kv_mode` variants, the paged
-programs and chunked prefill are not ported (ROADMAP queues A4-A6).
+achieved. The `constrain`, `quantized` and `kv_mode` variants are not
+ported (ROADMAP queue A items 4 and 6).
 """
 from __future__ import annotations
 
@@ -39,9 +55,9 @@ import torch.nn.functional as F
 
 from deeplearning4j_tpu_torch.models.transformer import (
     TransformerConfig, _check_sampling, _check_slice, layer_params,
-    sample_at_positions, slot_cache_shape)
+    page_pool_shape, sample_at_positions, slot_cache_shape)
 from deeplearning4j_tpu_torch.nn.layers.attention import (
-    dot_product_attention, layer_norm)
+    NEG_INF, dot_product_attention, layer_norm)
 from deeplearning4j_tpu_torch.ops.flash_decode import (
     decode_attention, decode_window_attention)
 
@@ -246,6 +262,160 @@ def make_continuous_decode(cfg: TransformerConfig, chunk: int,
     return run
 
 
+# the program variants this port does not have yet
+_VARIANT_TODO = {
+    "quantized": "quantized weights (ROADMAP queue A4)",
+    "kv_mode": "the quantized KV pool (ROADMAP queue A4)",
+    "draft_quantized": "the quantized drafter (ROADMAP queue A4)",
+    "constrain": "grammar-constrained decoding (ROADMAP queue A6)",
+}
+
+
+def _refuse_variants(maker: str, **variants) -> None:
+    for name, value in variants.items():
+        if value:
+            raise NotImplementedError(f"{maker}({name}={value!r}): "
+                                      f"{_VARIANT_TODO[name]} is not "
+                                      f"ported yet")
+
+
+# ---------------------------------------------------------------------------
+# chunked prefill: a prompt in pieces, each attending the cached prefix
+# ---------------------------------------------------------------------------
+
+def _two_piece_attention(q, k, v, kh, vh, start, scale: float):
+    """The chunked and paged prefill's attention (reference :1076,
+    :1525-1550). q, k, v [Ns, C, H, Dh] are the chunk's; kh, vh
+    [Ns, S, H, Dh] the slot's cache view. Chunk row t attends the cached
+    rows s < start[slot] (piece 1: all masked, so exact zeros, when
+    start is 0) and the chunk rows t' <= t (piece 2), with one softmax
+    over the concatenated scores; scores and softmax in at least
+    float32, each piece's probabilities rounded to its values' dtype.
+    Returns [Ns, C, H, Dh] in the chunk's dtype."""
+    acc = torch.promote_types(q.dtype, torch.float32)
+    c, s = q.shape[1], kh.shape[1]
+    dev = q.device
+    qa = q.to(acc)
+    sc2 = torch.einsum("bthd,bshd->bhts", qa, k.to(acc)) * scale
+    future = (torch.arange(c, device=dev)[None, :]
+              > torch.arange(c, device=dev)[:, None])
+    sc2.masked_fill_(future[None, None], NEG_INF)
+    sc1 = torch.einsum("bthd,bshd->bhts", qa, kh.to(acc)) * scale
+    sc1.masked_fill_(torch.arange(s, device=dev)[None, None, None, :]
+                     >= start[:, None, None, None], NEG_INF)
+    w = torch.softmax(torch.cat([sc1, sc2], dim=-1), dim=-1)
+    a1 = torch.einsum("bhts,bshd->bthd", w[..., :s].to(vh.dtype), vh)
+    a2 = torch.einsum("bhts,bshd->bthd", w[..., s:].to(v.dtype), v)
+    return (a1 + a2).to(q.dtype)
+
+
+def _chunk_block(h, p, cfg: TransformerConfig, write, view, start):
+    """One block over a prefill chunk h [Ns, C, D]: ``write(k, v)``
+    stores the chunk's K/V rows [Ns, C, D], then ``view()`` returns the
+    slot's cache (k, v) [Ns, S, D] for the two-piece attention."""
+    ns, c = h.shape[0], h.shape[1]
+
+    def heads(y):
+        return y.reshape(ns, y.shape[1], cfg.n_heads, cfg.d_head)
+
+    x = layer_norm(h, p["ln1g"], p["ln1b"], cfg.eps)
+    q = heads(torch.matmul(x, p["Wq"].to(x.dtype)))
+    k = torch.matmul(x, p["Wk"].to(x.dtype))
+    v = torch.matmul(x, p["Wv"].to(x.dtype))
+    write(k, v)
+    kc, vc = view()
+    a = _two_piece_attention(q, heads(k), heads(v), heads(kc), heads(vc),
+                             start, cfg.d_head ** -0.5)
+    h = h + torch.matmul(a.reshape(ns, c, cfg.d_model), p["Wo"].to(a.dtype))
+    x = layer_norm(h, p["ln2g"], p["ln2b"], cfg.eps)
+    return _local_mlp(h, x, p)
+
+
+def _chunk_first(params, cfg: TransformerConfig, h, clen, start, pos, tok,
+                 last, key: int, sampling):
+    """The end of a prefill chunk: each advancing slot (clen > 0) samples
+    the token at index start + clen from its last valid row and moves
+    pos there; only slots with ``last`` set commit that token to ``tok``
+    and report it in ``first`` (-1 elsewhere)."""
+    c = h.shape[1]
+    h = layer_norm(h, params["lnfg"], params["lnfb"], cfg.eps)
+    rows = torch.arange(h.shape[0], device=h.device)
+    lastrow = h[rows, torch.clamp(clen - 1, 0, c - 1).long()]
+    logits = torch.matmul(lastrow, params["Wout"].to(lastrow.dtype))
+    plen = start + clen
+    first = _sample_slots(logits, plen, key, *sampling)
+    adv = clen > 0
+    take = adv & last
+    pos.copy_(torch.where(adv, plen.to(pos.dtype), pos))
+    tok.copy_(torch.where(take, first, tok))
+    return torch.where(take, first, torch.full_like(first, -1))
+
+
+def _chunk_embed(params, cfg: TransformerConfig, toks, start):
+    """Chunk tokens [Ns, C] embedded at their absolute positions
+    start + t (clipped to max_len - 1 for pad rows)."""
+    dt = cfg.activation_dtype()
+    c = toks.shape[1]
+    absp = start[:, None] + torch.arange(c, device=toks.device)[None, :]
+    pe = params["pos"].to(dt)[torch.clamp(absp, 0, cfg.max_len - 1).long()]
+    return params["embed"].to(dt)[toks.long()] + pe, absp
+
+
+def make_chunked_prefill(cfg: TransformerConfig, chunk_len: int,
+                         num_slots: int, temperature: float = 0.0,
+                         top_k: int = 0, top_p: float = 1.0,
+                         quantized=None, kv_mode=None,
+                         constrain: bool = False) -> Callable:
+    """Chunked admission prefill over the contiguous slot pool (reference
+    :964): (params, ck, cv, pos, tok, toks [Ns, C], clen [Ns], start
+    [Ns], last [Ns] bool, key) -> (ck, cv, pos, tok, first [Ns]).
+
+    Each slot with clen > 0 advances by toks[i, :clen[i]], the slice
+    [start, start + clen) of its committed prefix: its K/V rows land at
+    those absolute positions (rows at or past S are dropped), the chunk
+    attends the cache rows < start and itself (`_two_piece_attention`),
+    and pos <- start + clen. Only slots with ``last`` set sample their
+    first generated token into ``tok`` and ``first``; mid-prompt chunks
+    report -1. start, clen and last are data: one program per
+    (chunk_len, num_slots) serves every resume point."""
+    _refuse_variants("make_chunked_prefill", quantized=quantized,
+                     kv_mode=kv_mode, constrain=constrain)
+    _check_slice(cfg)
+    _check_sampling(top_k, top_p)
+    if not 0 < chunk_len <= cfg.max_len:
+        raise ValueError(f"chunk_len {chunk_len} out of "
+                         f"(0, {cfg.max_len}]")
+    sampling = (temperature, top_k, top_p)
+
+    @torch.no_grad()
+    def run(params, ck, cv, pos, tok, toks, clen, start, last, key: int):
+        ns, c = toks.shape
+        if (ns, c) != (num_slots, chunk_len):
+            raise ValueError(f"toks {tuple(toks.shape)} != program "
+                             f"geometry ({num_slots}, {chunk_len})")
+        s_max = ck.shape[2]
+        h, absp = _chunk_embed(params, cfg, toks, start)
+        # the rows this call writes (valid and inside the pool): one
+        # index list for every layer, so no pad row ever lands on a row
+        # another entry writes
+        valid = torch.arange(c, device=toks.device)[None, :] < clen[:, None]
+        bi, ti = torch.nonzero(valid & (absp < s_max), as_tuple=True)
+        pi = absp[bi, ti]
+        for layer in range(cfg.n_layers):
+            def write(k, v, layer=layer):
+                ck[layer, bi, pi] = k[bi, ti].to(ck.dtype)
+                cv[layer, bi, pi] = v[bi, ti].to(cv.dtype)
+
+            h = _chunk_block(h, layer_params(params, layer), cfg, write,
+                             lambda layer=layer: (ck[layer], cv[layer]),
+                             start)
+        first = _chunk_first(params, cfg, h, clen, start, pos, tok, last,
+                             key, sampling)
+        return ck, cv, pos, tok, first
+
+    return run
+
+
 # ---------------------------------------------------------------------------
 # speculative decoding: draft K tokens, verify them in ONE target pass
 # ---------------------------------------------------------------------------
@@ -274,13 +444,6 @@ def make_continuous_decode(cfg: TransformerConfig, chunk: int,
 # or past S. Rows past the committed prefix are never attended and are
 # overwritten in order as real tokens arrive.
 
-_SPEC_TODO = {
-    "quantized": "quantized weights (ROADMAP queue A4)",
-    "kv_mode": "the quantized KV pool (ROADMAP queue A4)",
-    "draft_quantized": "the quantized drafter (ROADMAP queue A4)",
-    "constrain": "grammar-constrained speculative decoding "
-                 "(ROADMAP queue A6)",
-}
 
 
 def _check_spec(cfg: TransformerConfig, spec_k: int,
@@ -339,13 +502,9 @@ def make_speculative_decode(cfg: TransformerConfig, spec_k: int,
     rejects them. The caches, pos and tok are updated in place; ``rem``
     is not. See the section comment for the exactness and cache-safety
     arguments. The quantized and constrained variants are not ported."""
-    for name, value in (("quantized", quantized), ("kv_mode", kv_mode),
-                        ("draft_quantized", draft_quantized),
-                        ("constrain", constrain)):
-        if value:
-            raise NotImplementedError(f"make_speculative_decode({name}="
-                                      f"{value!r}): {_SPEC_TODO[name]} is "
-                                      f"not ported yet")
+    _refuse_variants("make_speculative_decode", quantized=quantized,
+                     kv_mode=kv_mode, draft_quantized=draft_quantized,
+                     constrain=constrain)
     _check_slice(cfg)
     _check_sampling(top_k, top_p)
     nd = _check_spec(cfg, spec_k, draft_layers)
@@ -416,5 +575,310 @@ def make_speculative_decode(cfg: TransformerConfig, spec_k: int,
         pos.copy_(npos)
         tok.copy_(ntok)
         return ck, cv, pos, tok, emit, c, drafted, accepted
+
+    return run
+
+
+# ---------------------------------------------------------------------------
+# the paged pool: pages addressed through a host-owned block table
+# ---------------------------------------------------------------------------
+#
+# Slot KV lives in [L, num_pages, page_size, D] pages; logical page j of
+# slot i is physical page bt[i, j]. The engine owns the table (allocator,
+# radix prefix cache, copy-on-write) and passes it to every call, so
+# sharing and recycling pages never change a program's geometry. Page 0 is
+# never allocated: pad rows, inactive slots and rows past the mapped pages
+# write it, and no read of it is ever unmasked. Attention reads the pages
+# through the logical view `_gather_pages` builds, as the reference does
+# (:1335): the decode and window kernels then see the values the
+# contiguous pool would hold at the same positions, at the same S.
+
+def _check_paged(cfg: TransformerConfig, top_k: int, top_p: float,
+                 page_size: int, num_pages: int, max_pages: int) -> None:
+    """Paged-program validation (reference `_check_paged_mesh`, :1282,
+    with no mesh: one device holds every page)."""
+    _check_slice(cfg)
+    _check_sampling(top_k, top_p)
+    if page_size < 1:
+        raise ValueError(f"page_size must be >= 1, got {page_size}")
+    if num_pages < 2:
+        raise ValueError(f"num_pages must be >= 2 (page 0 is the "
+                         f"reserved scratch page), got {num_pages}")
+    if max_pages * page_size < cfg.max_len:
+        raise ValueError(
+            f"block table of {max_pages} pages x {page_size} tokens "
+            f"cannot address max_len={cfg.max_len}")
+
+
+def init_paged_state(cfg: TransformerConfig, num_slots: int,
+                     page_size: int, num_pages: int, device,
+                     kv_mode=None):
+    """The persistent paged pool (kp, vp, pos, tok) on ``device``: kp, vp
+    [L, num_pages, page_size, D] zero-filled, pos and tok int32 [Ns]
+    zeros. The block table is host data, not part of the state."""
+    _refuse_variants("init_paged_state", kv_mode=kv_mode)
+    _check_slice(cfg)
+    dt = cfg.cache_torch_dtype()
+    shape = page_pool_shape(cfg, num_pages, page_size)
+    kp = torch.zeros(shape, dtype=dt, device=device)
+    vp = torch.zeros(shape, dtype=dt, device=device)
+    pos = torch.zeros((num_slots,), dtype=torch.int32, device=device)
+    tok = torch.zeros((num_slots,), dtype=torch.int32, device=device)
+    return kp, vp, pos, tok
+
+
+def _gather_pages(plane, bt, ns: int, s_view: int):
+    """A layer's pages [NP, ps, D] -> the block-table-ordered logical view
+    [Ns, s_view, D] (one index, as the reference's gather). Unallocated
+    table entries read the scratch page; the caller's position mask
+    keeps them out of attention."""
+    return plane[bt.long()].reshape(ns, s_view, plane.shape[-1])
+
+
+def _page_rows(bt, posm, keep, page_size: int):
+    """Physical (page, offset) of logical positions posm [Ns, T] through
+    bt [Ns, max_pages]: entries not in ``keep`` [Ns, T] go to the scratch
+    page 0 (offset posm % page_size)."""
+    lp = torch.clamp(posm // page_size, 0, bt.shape[1] - 1).long()
+    pg = torch.where(keep, torch.gather(bt, 1, lp), 0)
+    return pg.long(), (posm % page_size).long()
+
+
+def _local_block_decode_paged(h, p, kp, vp, bt, layer: int, pos, act,
+                              cfg: TransformerConfig, page_size: int):
+    """`_local_block_decode_slotted` on the paged pool (reference
+    :1343): the K/V row lands at (bt[slot, wp // ps], wp % ps), inactive
+    slots writing the scratch page, and the decode kernel runs over the
+    gathered view through the same `decode_attention` call, so paged
+    decode is the contiguous decode over the same values."""
+    q, k, v = _block_qkv(h, p, cfg)
+    ns, mp = h.shape[0], bt.shape[1]
+    s_view = mp * page_size
+    wp = torch.clamp(pos, 0, s_view - 1)
+    pg, off = _page_rows(bt, wp[:, None], act[:, None], page_size)
+    kp[layer, pg[:, 0], off[:, 0]] = k.to(kp.dtype)
+    vp[layer, pg[:, 0], off[:, 0]] = v.to(vp.dtype)
+    kh = _gather_pages(kp[layer], bt, ns, s_view)
+    vh = _gather_pages(vp[layer], bt, ns, s_view)
+    a = decode_attention(q, kh, vh, wp, n_heads=cfg.n_heads)
+    return _block_out(h, a, p, cfg)
+
+
+def make_paged_prefill(cfg: TransformerConfig, bucket_len: int,
+                       num_slots: int, page_size: int, max_pages: int,
+                       num_pages: int, temperature: float = 0.0,
+                       top_k: int = 0, top_p: float = 1.0,
+                       quantized=None, kv_mode=None, chunked: bool = False,
+                       constrain: bool = False) -> Callable:
+    """Paged admission prefill (reference :1430): (params, kp, vp, pos,
+    tok, bt [Ns, max_pages], suffix [Ns, Tb], slen [Ns], start [Ns]
+    [, last [Ns] bool when ``chunked``], key) -> (kp, vp, pos, tok,
+    first [Ns]).
+
+    ``suffix`` holds each admitted slot's tokens not yet in its pages,
+    from position ``start`` (a prefix-cache hit or, chunked, any chunk
+    boundary), right-padded to Tb. Their K/V rows land at
+    (bt[slot, (start+t) // ps], (start+t) % ps), pad rows on the scratch
+    page; attention is `_two_piece_attention` over the gathered pages.
+    Slots with slen == 0 pass through; the rest move pos to start +
+    slen and sample the token there, which ``chunked`` programs commit
+    only where ``last`` is set (mid-prompt chunks report -1)."""
+    _refuse_variants("make_paged_prefill", quantized=quantized,
+                     kv_mode=kv_mode, constrain=constrain)
+    _check_paged(cfg, top_k, top_p, page_size, num_pages, max_pages)
+    if not 0 < bucket_len <= cfg.max_len:
+        raise ValueError(f"bucket_len {bucket_len} out of "
+                         f"(0, {cfg.max_len}]")
+    s_view = max_pages * page_size
+    sampling = (temperature, top_k, top_p)
+
+    @torch.no_grad()
+    def body(params, kp, vp, pos, tok, bt, suffix, slen, start, last, key):
+        ns, tb = suffix.shape
+        if (ns, tb) != (num_slots, bucket_len) or \
+                tuple(bt.shape) != (num_slots, max_pages):
+            raise ValueError(f"suffix {tuple(suffix.shape)} / bt "
+                             f"{tuple(bt.shape)} != program geometry "
+                             f"({num_slots}, {bucket_len}, {max_pages})")
+        h, absp = _chunk_embed(params, cfg, suffix, start)
+        valid = torch.arange(tb, device=suffix.device)[None, :] \
+            < slen[:, None]
+        pg, off = _page_rows(bt, absp, valid, page_size)
+        for layer in range(cfg.n_layers):
+            def write(k, v, layer=layer):
+                kp[layer, pg, off] = k.to(kp.dtype)
+                vp[layer, pg, off] = v.to(vp.dtype)
+
+            def view(layer=layer):
+                return (_gather_pages(kp[layer], bt, ns, s_view),
+                        _gather_pages(vp[layer], bt, ns, s_view))
+
+            h = _chunk_block(h, layer_params(params, layer), cfg, write,
+                             view, start)
+        first = _chunk_first(params, cfg, h, slen, start, pos, tok, last,
+                             key, sampling)
+        return kp, vp, pos, tok, first
+
+    if chunked:
+        return body
+
+    def run(params, kp, vp, pos, tok, bt, suffix, slen, start, key: int):
+        return body(params, kp, vp, pos, tok, bt, suffix, slen, start,
+                    torch.ones_like(slen, dtype=torch.bool), key)
+
+    return run
+
+
+def make_paged_chunked_prefill(cfg: TransformerConfig, chunk_len: int,
+                               num_slots: int, page_size: int,
+                               max_pages: int, num_pages: int,
+                               temperature: float = 0.0, top_k: int = 0,
+                               top_p: float = 1.0, quantized=None,
+                               kv_mode=None,
+                               constrain: bool = False) -> Callable:
+    """Paged twin of `make_chunked_prefill` (reference :1753): (params,
+    kp, vp, pos, tok, bt, toks [Ns, C], clen, start, last, key) -> (kp,
+    vp, pos, tok, first). It is `make_paged_prefill` with the chunk as
+    the suffix and ``last`` gating the first token."""
+    return make_paged_prefill(cfg, chunk_len, num_slots, page_size,
+                              max_pages, num_pages, temperature=temperature,
+                              top_k=top_k, top_p=top_p, quantized=quantized,
+                              kv_mode=kv_mode, chunked=True,
+                              constrain=constrain)
+
+
+def make_paged_decode(cfg: TransformerConfig, chunk: int, num_slots: int,
+                      page_size: int, max_pages: int, num_pages: int,
+                      temperature: float = 0.0, top_k: int = 0,
+                      top_p: float = 1.0, quantized=None, kv_mode=None,
+                      constrain: bool = False) -> Callable:
+    """Paged decode chunk (reference :1780): (params, kp, vp, pos, tok,
+    bt [Ns, max_pages], active [Ns] bool, rem [Ns] int32, key) -> (kp,
+    vp, pos, tok, toks [Ns, chunk]). `make_continuous_decode`'s contract
+    with K/V rows in block-table pages (`_local_block_decode_paged`)."""
+    _refuse_variants("make_paged_decode", quantized=quantized,
+                     kv_mode=kv_mode, constrain=constrain)
+    _check_paged(cfg, top_k, top_p, page_size, num_pages, max_pages)
+    if chunk < 1:
+        raise ValueError(f"chunk must be >= 1, got {chunk}")
+
+    @torch.no_grad()
+    def run(params, kp, vp, pos, tok, bt, active, rem, key: int):
+        if pos.shape != (num_slots,) or \
+                tuple(bt.shape) != (num_slots, max_pages):
+            raise ValueError(f"pos {tuple(pos.shape)} / bt "
+                             f"{tuple(bt.shape)} != program geometry "
+                             f"({num_slots}, {max_pages})")
+        rem = rem.clone()
+        neg1 = torch.full_like(tok, -1)
+        emitted = []
+        for _ in range(chunk):
+            act = active & (rem > 0)
+            h = _embed_pending(params, cfg, pos, tok)
+            for layer in range(cfg.n_layers):
+                h = _local_block_decode_paged(
+                    h, layer_params(params, layer), kp, vp, bt, layer, pos,
+                    act, cfg, page_size)
+            nxt = _head_sample(params, cfg, h, pos + 1, key, temperature,
+                               top_k, top_p)
+            tok.copy_(torch.where(act, nxt, tok))
+            emitted.append(torch.where(act, nxt, neg1))
+            pos.copy_(torch.where(act, pos + 1, pos))
+            rem = torch.where(act, rem - 1, rem)
+        return kp, vp, pos, tok, torch.stack(emitted, dim=1)
+
+    return run
+
+
+def make_paged_speculative_decode(cfg: TransformerConfig, spec_k: int,
+                                  num_slots: int, page_size: int,
+                                  max_pages: int, num_pages: int,
+                                  temperature: float = 0.0, top_k: int = 0,
+                                  top_p: float = 1.0, quantized=None,
+                                  kv_mode=None, draft_quantized=None,
+                                  draft_layers: int = 0,
+                                  constrain: bool = False) -> Callable:
+    """Speculative round on the paged pool (reference :2412): (params,
+    dparams, kp, vp, pos, tok, bt, active, rem, poison, key) -> (kp, vp,
+    pos, tok, emit [Ns, K+1], ncommit, drafted, accepted), with
+    `make_speculative_decode`'s contract. Draft steps go through
+    `_local_block_decode_paged`; the verify window's rows land at
+    (bt[slot, pos_j // ps], pos_j % ps), inactive slots and positions
+    past the mapped pages on the scratch page, and attend through the
+    window kernel over the gathered view. The engine privatises every
+    page the K+1 window can write before the call (copy-on-write)."""
+    _refuse_variants("make_paged_speculative_decode", quantized=quantized,
+                     kv_mode=kv_mode, draft_quantized=draft_quantized,
+                     constrain=constrain)
+    _check_paged(cfg, top_k, top_p, page_size, num_pages, max_pages)
+    nd = _check_spec(cfg, spec_k, draft_layers)
+    k1 = spec_k + 1
+    s_view = max_pages * page_size
+
+    def sample(p, h, posidx, key):
+        return _head_sample(p, cfg, h, posidx, key, temperature, top_k,
+                            top_p)
+
+    def draft_phase(dparams, kp, vp, bt, pos, tok, act, key):
+        dpos, dtok = pos, tok
+        drafts = []
+        for _ in range(spec_k):
+            h = _embed_pending(dparams, cfg, dpos, dtok)
+            for layer in range(nd):
+                h = _local_block_decode_paged(
+                    h, layer_params(dparams, layer), kp, vp, bt, layer,
+                    dpos, act, cfg, page_size)
+            nxt = sample(dparams, h, dpos + 1, key)
+            dtok = torch.where(act, nxt, dtok)
+            dpos = torch.where(act, dpos + 1, dpos)
+            drafts.append(nxt)
+        return torch.stack(drafts, dim=1)                # [Ns, K]
+
+    def verify_phase(params, kp, vp, bt, pos, tok, act, drafts, key):
+        """As the contiguous verify pass: decode's per-row code for each
+        window row, the attention batched through the window kernel."""
+        ns = tok.shape[0]
+        win = torch.cat([tok[:, None], drafts], dim=1)   # [Ns, K+1]
+        posw = pos[:, None] + torch.arange(k1, dtype=pos.dtype,
+                                           device=pos.device)[None, :]
+        pgw, offw = _page_rows(bt, posw, act[:, None] & (posw < s_view),
+                               page_size)
+        hs = [_embed_pending(params, cfg, posw[:, t], win[:, t])
+              for t in range(k1)]
+        for layer in range(cfg.n_layers):
+            p = layer_params(params, layer)
+            qs = []
+            for t in range(k1):
+                q, k, v = _block_qkv(hs[t], p, cfg)
+                kp[layer, pgw[:, t], offw[:, t]] = k.to(kp.dtype)
+                vp[layer, pgw[:, t], offw[:, t]] = v.to(vp.dtype)
+                qs.append(q)
+            kh = _gather_pages(kp[layer], bt, ns, s_view)
+            vh = _gather_pages(vp[layer], bt, ns, s_view)
+            a = decode_window_attention(torch.stack(qs, dim=1), kh, vh, pos,
+                                        n_heads=cfg.n_heads)
+            at = a.transpose(0, 1).contiguous()
+            hs = [_block_out(hs[t], at[t], p, cfg) for t in range(k1)]
+        return torch.stack([sample(params, hs[t], posw[:, t] + 1, key)
+                            for t in range(k1)], dim=1)
+
+    @torch.no_grad()
+    def run(params, dparams, kp, vp, pos, tok, bt, active, rem, poison,
+            key: int):
+        if pos.shape != (num_slots,) or \
+                tuple(bt.shape) != (num_slots, max_pages):
+            raise ValueError(f"pos {tuple(pos.shape)} / bt "
+                             f"{tuple(bt.shape)} != program geometry "
+                             f"({num_slots}, {max_pages})")
+        act = active & (rem > 0)
+        drafts = draft_phase(dparams, kp, vp, bt, pos, tok, act, key)
+        drafts = torch.where(poison[:, None],
+                             (drafts + 1) % cfg.vocab_size, drafts)
+        tgt = verify_phase(params, kp, vp, bt, pos, tok, act, drafts, key)
+        npos, ntok, _, emit, c, drafted, accepted = _spec_accept_commit(
+            spec_k, drafts, tgt, pos, tok, rem, act)
+        pos.copy_(npos)
+        tok.copy_(ntok)
+        return kp, vp, pos, tok, emit, c, drafted, accepted
 
     return run

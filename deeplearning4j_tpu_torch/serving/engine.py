@@ -16,14 +16,47 @@ tick refills it. Sampling draws are keyed by sequence position, so a
 request's tokens do not depend on its slot, its neighbours or the chunk
 size.
 
+Paged KV (``EngineConfig(paged=True, page_size=P, kv_pages=N,
+prefix_cache=True)``, reference :3460-4640): slot KV lives in a shared
+pool of P-token pages addressed through a host-owned block table. At
+admission (`_seat_paged`) the longest chain of full prompt pages in the
+radix prefix cache maps into the slot's table (refcounted, shared with
+its other readers) and private pages cover the rest of the prompt and
+the decode budget; prefill resumes from the hit, so a shared system
+prompt is prefilled once. A full-prefix hit recomputes the last prompt
+token in a copy of its page (copy-on-write), and every call that writes
+first privatises any still-shared page in its write range
+(`_ensure_writable`). When the free list and LRU eviction of
+unreferenced cache entries cannot seat a request, admission blocks; a
+request that could never be seated is shed (OverloadError). Finished
+prompts' full pages enter the cache (`_cache_prefilled`).
+
+Chunked prefill (``prefill_chunk=C``, reference :2627-2900): admission
+only seats a request; each tick spends ``tick_token_budget`` (0: slots x
+decode_chunk + C) on prompt chunks of at most C tokens, oldest
+admission first, after reserving one decode chunk per decoding slot
+(at least one chunk a tick, so prefill never starves), then every
+decoding slot advances one decode chunk. A long prompt therefore
+delays the residents' next chunk by at most the budget's worth of
+prefill, not its whole prefill.
+
+``eng.counts`` carries, beside the call counts, ``prefill_chunks``
+(slot-chunks advanced), ``prefix_hits`` / ``prefix_misses`` (paged
+admissions with / without a cached prefix), ``prefix_shared_tokens``,
+``prefix_evictions``, ``cow_copies`` (pages copied on write),
+``pages_used`` / ``pages_free`` (refreshed after every tick) and
+``shed_overload`` (requests shed because the pool could never seat
+them).
+
 Not ported yet (set to a non-default value, each raises
 NotImplementedError naming its ROADMAP item): batch mode, the background
-worker, retries / circuit breaker / deadlines, quantized weights and KV,
-paged KV and the prefix cache, the quantized drafter, chunked prefill,
-the compile cache and warm-up, the pipelined tick loop, QoS, grammar
-constraints, and the metrics / recorder / profiler stack. The port's
-`pipeline` default is False: it runs the synchronous loop, which the
-reference documents as bit-identical to its pipelined one.
+worker, retries / circuit breaker / deadlines, quantized weights and KV
+(so quantized page pools), the quantized drafter, KV handoff and
+adoption, the fault injector, the compile cache and warm-up, the
+pipelined tick loop, QoS (so fair-share prefill), grammar constraints,
+and the metrics / recorder / profiler stack. The port's `pipeline`
+default is False: it runs the synchronous loop, which the reference
+documents as bit-identical to its pipelined one.
 
 Speculative decoding (``EngineConfig(spec_decode=True, spec_k=K,
 draft="self" | "layers:N")``, reference :4711-4944): a tick's decode
@@ -51,9 +84,14 @@ from deeplearning4j_tpu_torch.models.transformer import (TransformerConfig,
                                                          _check_slice,
                                                          params_to)
 from deeplearning4j_tpu_torch.parallel.serving import (
-    init_slot_state, make_continuous_decode, make_continuous_prefill,
-    make_speculative_decode)
+    init_paged_state, init_slot_state, make_chunked_prefill,
+    make_continuous_decode, make_continuous_prefill,
+    make_paged_chunked_prefill, make_paged_decode, make_paged_prefill,
+    make_paged_speculative_decode, make_speculative_decode)
 from deeplearning4j_tpu_torch.quant.model import draft_tree
+from deeplearning4j_tpu_torch.serving.paging import (PageAllocator,
+                                                     RadixPrefixCache,
+                                                     pages_for)
 
 
 class OverloadError(RuntimeError):
@@ -64,6 +102,7 @@ class RequestStatus:
     QUEUED = "queued"
     RUNNING = "running"
     COMPLETED = "completed"
+    SHED = "shed"
 
 
 DEFAULT_CONTINUOUS_CHUNK = 8
@@ -81,11 +120,14 @@ class EngineConfig:
     ``decode_chunk`` (0 -> DEFAULT_CONTINUOUS_CHUNK), ``temperature``,
     ``top_k``, ``top_p``, ``seed`` (sampling counter root),
     ``prefill_bucket_min``, the queue-depth degradation
-    (``degrade_queue_depth``, ``degraded_max_new_tokens``) and
-    speculative decoding (``spec_decode``, ``spec_k``, ``spec_adaptive``,
-    ``draft`` = "self" or "layers:N"; the default "int8" drafter is not
-    ported and raises). Every other field must keep its default (see
-    `_UNPORTED`)."""
+    (``degrade_queue_depth``, ``degraded_max_new_tokens``), speculative
+    decoding (``spec_decode``, ``spec_k``, ``spec_adaptive``, ``draft`` =
+    "self" or "layers:N"; the default "int8" drafter is not ported and
+    raises), paged KV (``paged``, ``page_size``, ``kv_pages``: total
+    pages with the scratch page, 0 -> every slot's full max_len + 1;
+    ``prefix_cache``) and chunked prefill (``prefill_chunk``,
+    ``tick_token_budget``). Every other field must keep its default (see
+    `_UNPORTED`, `_check_config`)."""
     max_queue: int = 64
     max_batch_size: int = 8
     batch_timeout_s: float = 0.005
@@ -143,12 +185,6 @@ _UNPORTED = {
         "retries and the circuit breaker (ROADMAP queue A6)",
     "quantize": "quantized serving (ROADMAP queues A4 and A6)",
     "kv_quantize": "quantized serving (ROADMAP queues A4 and A6)",
-    "paged": "paged KV serving (ROADMAP queue A6)",
-    "page_size": "paged KV serving (ROADMAP queue A6)",
-    "kv_pages": "paged KV serving (ROADMAP queue A6)",
-    "prefix_cache": "paged KV serving (ROADMAP queue A6)",
-    "prefill_chunk": "chunked prefill (ROADMAP queue A6)",
-    "tick_token_budget": "chunked prefill (ROADMAP queue A6)",
     "program_cache_size": "the compile cache (ROADMAP queue A6)",
     "compile_cache_dir": "the compile cache (ROADMAP queue A6)",
     "warmup_on_init": "the compile cache (ROADMAP queue A6)",
@@ -163,7 +199,32 @@ _UNPORTED = {
 }
 
 
+# what paged KV and chunked prefill do not combine with yet -> the ROADMAP
+# queue A item that ports it (checked before `_UNPORTED`, so the error
+# names the combination)
+_PAGED_CHUNKED_TODO = {
+    "quantize": "quantized page pools and chunks (ROADMAP queue A item 4)",
+    "kv_quantize": "quantized page pools and chunks (ROADMAP queue A item "
+                   "4)",
+    "pipeline": "the pipelined tick loop (ROADMAP queue A item 5)",
+    "constrain_state_cap": "grammar-constrained paged and chunked "
+                           "programs (ROADMAP queue A item 6)",
+    "tenant_weights": "fair-share prefill (ROADMAP queue A item 9)",
+}
+
+
 def _check_config(config: EngineConfig) -> None:
+    uses = [name for name, on in (("paged", config.paged),
+                                  ("prefill_chunk",
+                                   config.prefill_chunk is not None))
+            if on]
+    defaults = {f.name: f.default for f in fields(EngineConfig)}
+    for name, todo in _PAGED_CHUNKED_TODO.items():
+        value = getattr(config, name)
+        if uses and value != defaults[name]:
+            raise NotImplementedError(
+                f"EngineConfig.{uses[0]}={getattr(config, uses[0])!r} with "
+                f"{name}={value!r}: {todo} is not ported yet")
     for f in fields(EngineConfig):
         if f.name in _UNPORTED and getattr(config, f.name) != f.default:
             raise NotImplementedError(
@@ -179,8 +240,15 @@ class RequestHandle:
         self.prompt = prompt
         self.max_new_tokens = max_new
         self.status = RequestStatus.QUEUED
+        self.error: Optional[BaseException] = None
         self._generated: List[np.ndarray] = []
         self._done = threading.Event()
+        # seating: admission order, the paged prefix-hit boundary, and
+        # the chunked prefill's progress toward the committed prefix
+        self._seat_seq = 0
+        self._page_start = 0
+        self._prefill_pos = 0
+        self._prefill_target = 0
 
     @property
     def generated(self) -> np.ndarray:
@@ -193,13 +261,18 @@ class RequestHandle:
         return self._done.is_set()
 
     def result(self, timeout: Optional[float] = None) -> np.ndarray:
-        """Full sequence [T0 + generated] (generate's layout)."""
+        """Full sequence [T0 + generated] (generate's layout). Raises the
+        terminal error of a shed request."""
         if not self._done.wait(timeout):
             raise TimeoutError(f"request {self.rid} not done")
+        if self.error is not None:
+            raise self.error
         return np.concatenate([self.prompt, self.generated])
 
-    def _finish(self, status: str) -> None:
+    def _finish(self, status: str,
+                error: Optional[BaseException] = None) -> None:
         self.status = status
+        self.error = error
         self._done.set()
 
 
@@ -222,6 +295,44 @@ class InferenceEngine:
         self._chunk = (self.config.decode_chunk
                        if self.config.decode_chunk > 0
                        else DEFAULT_CONTINUOUS_CHUNK)
+        # chunked prefill and the token-budget scheduler (reference
+        # :1273-1297): None keeps the one-shot admission prefill
+        self._prefill_chunk = self.config.prefill_chunk
+        if self._prefill_chunk is not None:
+            self._prefill_chunk = int(self._prefill_chunk)
+            if not 0 < self._prefill_chunk <= cfg.max_len:
+                raise ValueError(f"prefill_chunk {self._prefill_chunk} out "
+                                 f"of (0, {cfg.max_len}]")
+        elif self.config.tick_token_budget:
+            raise ValueError(
+                "tick_token_budget without prefill_chunk has nothing to "
+                "schedule: set prefill_chunk to enable the token-budget "
+                "scheduler")
+        self._tick_budget = (int(self.config.tick_token_budget)
+                             or (self._num_slots * self._chunk
+                                 + (self._prefill_chunk or 0)))
+        self._seat_order = itertools.count()
+        # paged KV and the radix prefix cache (reference :1445-1471): page
+        # indices are host-owned, the block table reaches every call as
+        # data, so sharing, copy-on-write and recycling never change a
+        # program's geometry
+        self._paged = bool(self.config.paged)
+        self._prefix_cache = None
+        if self._paged:
+            self._page_size = int(self.config.page_size)
+            if self._page_size < 1:
+                raise ValueError("page_size must be >= 1")
+            self._max_pages = pages_for(cfg.max_len, self._page_size)
+            self._num_pages = (int(self.config.kv_pages)
+                               or self._num_slots * self._max_pages + 1)
+            self._allocator = PageAllocator(self._num_pages,
+                                            self._page_size)
+            if self.config.prefix_cache:
+                self._prefix_cache = RadixPrefixCache(self._page_size,
+                                                      self._allocator)
+            self._bt = np.zeros((self._num_slots, self._max_pages), np.int32)
+            self._slot_pages: List[List[int]] = \
+                [[] for _ in range(self._num_slots)]
         self._slots: List[Optional[RequestHandle]] = \
             [None] * self._num_slots
         self._slot_state = None
@@ -234,8 +345,13 @@ class InferenceEngine:
         # includes the device work)
         self.counts = {"prefill_calls": 0, "decode_chunks": 0,
                        "spec_rounds": 0, "spec_drafted": 0,
-                       "spec_accepted": 0}
+                       "spec_accepted": 0, "prefill_chunks": 0,
+                       "prefix_hits": 0, "prefix_misses": 0,
+                       "prefix_shared_tokens": 0, "prefix_evictions": 0,
+                       "cow_copies": 0, "pages_used": 0, "pages_free": 0,
+                       "shed_overload": 0}
         self.seconds = {"prefill": 0.0, "decode": 0.0, "spec": 0.0}
+        self._page_counts()
         # speculative decoding (reference :1477-1504): the drafter comes
         # from the live params; acceptance drives the adaptive-K
         # controller (`_spec_update`)
@@ -267,12 +383,19 @@ class InferenceEngine:
             return 0
         return self._spec_cur_k
 
+    @property
+    def prefix_cache_pages(self) -> int:
+        """Pages the radix prefix cache holds (0 without one)."""
+        return 0 if self._prefix_cache is None else len(self._prefix_cache)
+
     # -- admission -------------------------------------------------------
     def submit(self, prompt,
                max_new_tokens: Optional[int] = None) -> RequestHandle:
         """Admit one prompt. Raises OverloadError when the queue is full;
         past ``degrade_queue_depth`` queued requests the token budget is
-        capped at ``degraded_max_new_tokens`` (reference :2123-2127)."""
+        capped at ``degraded_max_new_tokens`` (reference :2123-2127). A
+        paged engine refuses a request that needs more pages than its
+        pool holds."""
         prompt = np.asarray(prompt, np.int32)
         if prompt.ndim != 1 or prompt.size == 0:
             raise ValueError("prompt must be a non-empty 1-D token array")
@@ -294,6 +417,14 @@ class InferenceEngine:
                 raise ValueError(
                     f"prompt {prompt.shape[0]} + {eff} new tokens exceeds "
                     f"max_len={self.cfg.max_len}")
+            if self._paged:
+                need = pages_for(prompt.shape[0] + eff, self._page_size)
+                if need > self._allocator.usable_pages:
+                    raise ValueError(
+                        f"request needs {need} KV pages but the pool has "
+                        f"{self._allocator.usable_pages} (kv_pages="
+                        f"{self._num_pages}, page_size={self._page_size})"
+                        " - it could never be admitted")
             handle = RequestHandle(next(self._rids), prompt, eff)
             self._queue.append(handle)
         return handle
@@ -308,28 +439,46 @@ class InferenceEngine:
         return n
 
     def tick(self) -> bool:
-        """One scheduling round: admit into free slots (one prefill over
-        the pool), then advance every occupied slot one decode chunk.
-        Returns whether any work was done."""
+        """One scheduling round: admit into free slots, then (one-shot)
+        one prefill over the pool and one decode chunk for every occupied
+        slot, or (chunked) `_tick_budgeted`. Returns whether any work was
+        done."""
         admitted = self._fill_slots()
-        if admitted:
-            self._prefill_slots(admitted)
-        occupied = [(i, r) for i, r in self._occupied() if not r.done()]
-        if occupied:
-            self._decode_chunk_slots(occupied)
-            self._reap()
-        return bool(admitted or occupied)
+        if self._prefill_chunk is not None:
+            busy = self._tick_budgeted(admitted)
+        else:
+            if admitted:
+                self._prefill_slots(admitted)
+            occupied = [(i, r) for i, r in self._occupied() if not r.done()]
+            if occupied:
+                self._decode_chunk_slots(occupied)
+                self._reap()
+            busy = bool(admitted or occupied)
+        self._page_counts()
+        return busy
 
     def _fill_slots(self) -> List[tuple]:
         """Seat queued requests into free slots, FIFO (reference
-        `_fill_slots`, :3268). Returns [(slot, handle)]."""
+        `_fill_slots`, :3268). A paged engine maps each request's cached
+        prefix and allocates its private pages first (`_seat_paged`);
+        when the pool cannot cover it the request goes back to the head
+        of the queue and admission stops for this tick. Returns
+        [(slot, handle)]."""
         admitted = []
         with self._lock:
             free = deque(i for i in range(self._num_slots)
                          if self._slots[i] is None)
             while free and self._queue:
                 r = self._queue.popleft()
-                i = free.popleft()
+                i = free[0]
+                hit = 0
+                if self._paged:
+                    hit = self._seat_paged(i, r)
+                    if hit is None:
+                        if not r.done():      # blocked, not shed
+                            self._queue.appendleft(r)
+                        break
+                free.popleft()
                 self._slots[i] = r
                 if self._spec:
                     # seat with the pool's current belief (reference
@@ -337,6 +486,12 @@ class InferenceEngine:
                     # drag the EMA back up under adversarial traffic
                     self._accept_ema[i] = self._accept_pool
                 r.status = RequestStatus.RUNNING
+                # a chunked slot prefills from the hit boundary toward
+                # its committed prefix (reference :3355-3366)
+                r._seat_seq = next(self._seat_order)
+                r._prefill_pos = int(hit)
+                r._prefill_target = int(r.prompt.shape[0]
+                                        + r.generated.shape[0])
                 admitted.append((i, r))
         return admitted
 
@@ -347,8 +502,13 @@ class InferenceEngine:
 
     def _ensure_state(self) -> None:
         if self._slot_state is None:
-            self._slot_state = init_slot_state(self.cfg, self._num_slots,
-                                               self.device)
+            if self._paged:
+                self._slot_state = init_paged_state(
+                    self.cfg, self._num_slots, self._page_size,
+                    self._num_pages, self.device)
+            else:
+                self._slot_state = init_slot_state(self.cfg, self._num_slots,
+                                                   self.device)
 
     def _bucket_len(self, need: int) -> int:
         """Prefill bucket: the smallest power-of-two scaling of
@@ -358,48 +518,76 @@ class InferenceEngine:
             b *= 2
         return min(b, self.cfg.max_len)
 
+    _MAKERS = {"prefill": make_continuous_prefill,
+               "decode": make_continuous_decode,
+               "chunked_prefill": make_chunked_prefill,
+               "spec": make_speculative_decode,
+               "paged_prefill": make_paged_prefill,
+               "paged_decode": make_paged_decode,
+               "paged_chunked_prefill": make_paged_chunked_prefill,
+               "paged_spec": make_paged_speculative_decode}
+
     def _program(self, kind: str, size: int):
-        """The slot program of ``kind`` ("prefill", "decode" or "spec")
-        at ``size`` (bucket length, chunk or K), made once per key."""
+        """The slot program of ``kind`` (a `_MAKERS` key) at ``size``
+        (bucket or chunk length, decode chunk or K), made once per key."""
         key = (kind, size)
         fn = self._programs.get(key)
         if fn is None:
             c = self.config
-            sampling = (float(c.temperature), int(c.top_k), float(c.top_p))
-            if kind == "spec":
-                fn = make_speculative_decode(
-                    self.cfg, size, self._num_slots, *sampling,
-                    draft_layers=self._draft_layers)
-            else:
-                make = (make_continuous_prefill if kind == "prefill"
-                        else make_continuous_decode)
-                fn = make(self.cfg, size, self._num_slots, *sampling)
+            args = (self.cfg, size, self._num_slots)
+            if kind.startswith("paged"):
+                args += (self._page_size, self._max_pages, self._num_pages)
+            kw = dict(temperature=float(c.temperature), top_k=int(c.top_k),
+                      top_p=float(c.top_p))
+            if kind.endswith("spec"):
+                kw["draft_layers"] = self._draft_layers
+            fn = self._MAKERS[kind](*args, **kw)
             self._programs[key] = fn
         return fn
+
+    def _tensor(self, a: np.ndarray) -> torch.Tensor:
+        return torch.from_numpy(a).to(self.device)
+
+    def _block_table(self, entries, span: Optional[int]) -> torch.Tensor:
+        """Before a paged call that writes: privatise the shared pages in
+        ``entries``' write ranges, then the block table on the device."""
+        with self._lock:
+            self._ensure_writable(entries, span)
+            return self._tensor(self._bt.copy())
 
     def _call_prefill(self, state, entries):
         """One admission prefill over ``state`` for ``entries``
         [(slot, handle)]: each committed prefix right-padded to the
-        bucket. Returns (state', first_tokens numpy [Ns])."""
-        prefixes = {i: np.concatenate([r.prompt, r.generated]
-                                      ).astype(np.int32)
-                    for i, r in entries}
-        tb = self._bucket_len(max(p.shape[0] for p in prefixes.values()))
+        bucket; on a paged pool only the part past the prefix-cache hit
+        (reference :4512). Returns (state', first_tokens numpy [Ns])."""
+        starts = {i: (r._page_start if self._paged else 0)
+                  for i, r in entries}
+        tails = {i: np.concatenate([r.prompt, r.generated]
+                                   ).astype(np.int32)[starts[i]:]
+                 for i, r in entries}
+        tb = self._bucket_len(max(t.shape[0] for t in tails.values()))
         prompts = np.zeros((self._num_slots, tb), np.int32)
         plen = np.zeros((self._num_slots,), np.int32)
-        for i, pre in prefixes.items():
-            prompts[i, :pre.shape[0]] = pre
-            plen[i] = pre.shape[0]
-        fn = self._program("prefill", tb)
+        start = np.zeros((self._num_slots,), np.int32)
+        for i, tail in tails.items():
+            prompts[i, :tail.shape[0]] = tail
+            plen[i] = tail.shape[0]
+            start[i] = starts[i]
+        if self._paged:
+            bt = self._block_table(entries, None)
+            fn = self._program("paged_prefill", tb)
+            lead, tail_args = (bt,), (self._tensor(start),)
+        else:
+            fn = self._program("prefill", tb)
+            lead, tail_args = (), ()
         t0 = time.perf_counter()
-        ck, cv, pos, tok, first = fn(
-            self._params, *state,
-            torch.from_numpy(prompts).to(self.device),
-            torch.from_numpy(plen).to(self.device), int(self.config.seed))
+        *state, first = fn(self._params, *state, *lead,
+                           self._tensor(prompts), self._tensor(plen),
+                           *tail_args, int(self.config.seed))
         first = first.cpu().numpy()
         self.seconds["prefill"] += time.perf_counter() - t0
         self.counts["prefill_calls"] += 1
-        return (ck, cv, pos, tok), first
+        return tuple(state), first
 
     def _call_chunk(self, state, entries):
         """One decode chunk over ``state`` for the occupied ``entries``;
@@ -410,20 +598,26 @@ class InferenceEngine:
         for i, r in entries:
             active[i] = True
             rem[i] = r.max_new_tokens - r.generated.shape[0]
-        fn = self._program("decode", self._chunk)
+        if self._paged:
+            lead = (self._block_table(entries, self._chunk),)
+            fn = self._program("paged_decode", self._chunk)
+        else:
+            lead = ()
+            fn = self._program("decode", self._chunk)
         t0 = time.perf_counter()
-        ck, cv, pos, tok, toks = fn(
-            self._params, *state, torch.from_numpy(active).to(self.device),
-            torch.from_numpy(rem).to(self.device), int(self.config.seed))
+        *state, toks = fn(self._params, *state, *lead, self._tensor(active),
+                          self._tensor(rem), int(self.config.seed))
         toks = toks.cpu().numpy()
         self.seconds["decode"] += time.perf_counter() - t0
         self.counts["decode_chunks"] += 1
-        return (ck, cv, pos, tok), toks
+        return tuple(state), toks
 
     def _prefill_slots(self, admitted) -> None:
         self._ensure_state()
         self._slot_state, first = self._call_prefill(self._slot_state,
                                                      admitted)
+        if self._paged:
+            self._cache_prefilled(admitted)
         for i, r in admitted:
             self._commit_tokens(r, np.asarray([first[i]], np.int32))
         self._reap()
@@ -438,6 +632,263 @@ class InferenceEngine:
             need = min(int(toks.shape[1]),
                        r.max_new_tokens - r.generated.shape[0])
             self._commit_tokens(r, toks[i, :need].astype(np.int32))
+
+    # -- chunked prefill: the token-budget scheduler (reference :2627) -----
+    def _is_prefilling(self, r: RequestHandle) -> bool:
+        """Seated with pos short of its committed prefix: only a chunked
+        engine has such slots (one-shot prefill ends at admission)."""
+        return (self._prefill_chunk is not None
+                and r._prefill_pos < r._prefill_target)
+
+    def _tick_budgeted(self, admitted) -> bool:
+        """The chunked round (reference :2635): one decode chunk per
+        decoding slot is reserved off tick_token_budget, the rest buys
+        prefill chunks oldest admission first (`_advance_prefill`), then
+        every decoding slot, those whose last chunk just landed included,
+        advances one decode chunk."""
+        decoding0 = [(i, r) for i, r in self._occupied()
+                     if not self._is_prefilling(r)]
+        spent = self._advance_prefill(
+            self._tick_budget - len(decoding0) * self._chunk)
+        decoding = [(i, r) for i, r in self._occupied()
+                    if not self._is_prefilling(r) and not r.done()]
+        if decoding:
+            self._decode_chunk_slots(decoding)
+        self._reap()
+        return bool(admitted or decoding or spent)
+
+    def _advance_prefill(self, budget: int) -> int:
+        """Spend up to ``budget`` prompt tokens on prefilling slots,
+        oldest admission first, each call advancing a slot by at most
+        prefill_chunk tokens (reference :2666). When decode's bill has
+        used up the budget the oldest admission still advances one chunk,
+        so prefill never starves. Returns the tokens spent."""
+        spent = 0
+        floor_used = False
+        while True:
+            prefilling = sorted(
+                ((i, r) for i, r in self._occupied()
+                 if self._is_prefilling(r) and not r.done()),
+                key=lambda e: e[1]._seat_seq)
+            if not prefilling:
+                break
+            rem = budget - spent
+            if rem < 1:
+                if spent > 0 or floor_used:
+                    break
+                floor_used = True
+                rem = self._prefill_chunk
+                prefilling = prefilling[:1]
+            plan = []
+            for i, r in prefilling:
+                if rem < 1:
+                    break
+                n = min(self._prefill_chunk,
+                        r._prefill_target - r._prefill_pos, rem)
+                plan.append((i, r, n))
+                rem -= n
+            self._prefill_chunk_call(plan)
+            spent += sum(n for _, _, n in plan)
+        return spent
+
+    def _prefill_chunk_call(self, plan) -> None:
+        """One chunked-prefill call advancing ``plan`` [(slot, handle,
+        n_tokens)] (reference :2801): each slot's next prompt slice, the
+        final chunks flagged so they sample the first token; commits the
+        first token of each slot whose prefill ended, then (paged) puts
+        its prompt pages in the prefix cache."""
+        self._ensure_state()
+        entries = [(i, r) for i, r, _ in plan]
+        c = self._prefill_chunk
+        toks = np.zeros((self._num_slots, c), np.int32)
+        clen = np.zeros((self._num_slots,), np.int32)
+        start = np.zeros((self._num_slots,), np.int32)
+        last = np.zeros((self._num_slots,), bool)
+        for i, r, n in plan:
+            pre = np.concatenate([r.prompt, r.generated]).astype(np.int32)
+            toks[i, :n] = pre[r._prefill_pos:r._prefill_pos + n]
+            clen[i] = n
+            start[i] = r._prefill_pos
+            last[i] = r._prefill_pos + n >= r._prefill_target
+        if self._paged:
+            lead = (self._block_table(entries, None),)
+            fn = self._program("paged_chunked_prefill", c)
+        else:
+            lead = ()
+            fn = self._program("chunked_prefill", c)
+        t0 = time.perf_counter()
+        *state, first = fn(self._params, *self._slot_state, *lead,
+                           self._tensor(toks), self._tensor(clen),
+                           self._tensor(start), self._tensor(last),
+                           int(self.config.seed))
+        first = first.cpu().numpy()
+        self.seconds["prefill"] += time.perf_counter() - t0
+        self.counts["prefill_calls"] += 1
+        self._slot_state = tuple(state)
+        finished = []
+        for i, r, n in plan:
+            r._prefill_pos += n
+            self.counts["prefill_chunks"] += 1
+            if r._prefill_pos >= r._prefill_target:
+                finished.append((i, r))
+        for i, r in finished:
+            self._commit_tokens(r, np.asarray([first[i]], np.int32))
+        if self._paged and finished:
+            # a prompt's pages hold its whole K/V only after its last
+            # chunk: mid-prefill pages must never be shared
+            self._cache_prefilled(finished)
+        self._reap()
+
+    # -- paged KV: host page bookkeeping (under self._lock) ----------------
+    def _alloc_page(self) -> Optional[int]:
+        """One private page, LRU-evicting unreferenced prefix-cache
+        entries when the free list runs dry (reference :3460)."""
+        p = self._allocator.alloc()
+        if p is None and self._prefix_cache is not None:
+            freed = self._prefix_cache.evict(1)
+            if freed:
+                self.counts["prefix_evictions"] += freed
+                p = self._allocator.alloc()
+        return p
+
+    def _seat_paged(self, i: int, r: RequestHandle) -> Optional[int]:
+        """Build slot ``i``'s block table for ``r`` (reference :3471): map
+        the longest cached chain of prompt pages (a refcount per sharer),
+        allocate private pages for the rest and the decode budget, and
+        copy the boundary page when a full-prefix hit must recompute the
+        last token inside it. Returns the hit's token count, or None when
+        the pool cannot cover the request (admission blocks); a request
+        that could never be seated (no slot holds pages and eviction
+        frees nothing) is shed instead, since waiting would deadlock."""
+        self._ensure_state()
+        prefix = np.concatenate([r.prompt, r.generated]).astype(np.int32)
+        plen = int(prefix.shape[0])
+        total = plen + (r.max_new_tokens - int(r.generated.shape[0]))
+        need = pages_for(total, self._page_size)
+        matched: List[int] = []
+        if self._prefix_cache is not None:
+            matched = self._prefix_cache.match(prefix)
+        m = len(matched) * self._page_size
+        cow_src = None
+        if m >= plen:             # full-prefix hit: recompute the last
+            m = plen - 1          # token in a copy of its page
+            cow_src = matched[-1]
+            matched = matched[:-1]
+        # claim the shared chain before allocating the private tail, so
+        # eviction cannot reap it meanwhile
+        held = matched + ([cow_src] if cow_src is not None else [])
+        for p in held:
+            self._allocator.incref(p)
+        fresh: List[int] = []
+        for _ in range(need - len(matched)):
+            p = self._alloc_page()
+            if p is None:
+                for q in fresh + held:
+                    self._allocator.decref(q)
+                if not any(self._slot_pages):
+                    self.counts["shed_overload"] += 1
+                    r._finish(RequestStatus.SHED, OverloadError(
+                        f"request {r.rid} needs {need} KV pages; the pool "
+                        f"cannot free enough "
+                        f"({self._allocator.pages_free} free)"))
+                return None
+            fresh.append(p)
+        pages = matched + fresh
+        if cow_src is not None:
+            # the copy exists before any write lands: the shared page
+            # keeps serving its other readers
+            self._copy_page(cow_src, pages[len(matched)])
+            self._allocator.decref(cow_src)
+        self._slot_pages[i] = pages
+        self._bt[i, :] = 0
+        self._bt[i, :len(pages)] = pages
+        r._page_start = m
+        if self._prefix_cache is not None:
+            if m > 0:
+                self.counts["prefix_hits"] += 1
+                self.counts["prefix_shared_tokens"] += m
+            else:
+                self.counts["prefix_misses"] += 1
+        return m
+
+    def _copy_page(self, src: int, dst: int) -> None:
+        """Copy-on-write: physical page ``src`` into ``dst``, all layers."""
+        kp, vp = self._slot_state[:2]
+        kp[:, dst] = kp[:, src]
+        vp[:, dst] = vp[:, src]
+        self.counts["cow_copies"] += 1
+
+    def _release_slot_pages(self, i: int) -> None:
+        self._allocator.release_chain(self._slot_pages[i])
+        self._slot_pages[i] = []
+        self._bt[i, :] = 0
+
+    def _free_slot(self, i: int) -> None:
+        """The one place a slot is vacated: a paged slot's pages go back
+        to the refcount pool (pages the prefix cache or another slot
+        still references live on)."""
+        self._slots[i] = None
+        if self._paged:
+            self._release_slot_pages(i)
+
+    def _write_range(self, r: RequestHandle, span: Optional[int]) -> tuple:
+        """The logical positions [lo, hi) the next call writes for ``r``:
+        its prefill (``span`` None): one chunk from the resume point, or
+        the part past the prefix hit; else a decode of ``span`` rows
+        (a chunk, or a spec round's K+1 window) from the pending token's
+        row, the last of the committed prefix."""
+        plen = int(r.prompt.shape[0] + r.generated.shape[0])
+        if span is None:
+            if self._prefill_chunk is not None:
+                return r._prefill_pos, min(r._prefill_pos
+                                           + self._prefill_chunk,
+                                           r._prefill_target)
+            return r._page_start, plen
+        lo = plen - 1
+        return lo, min(lo + span, int(r.prompt.shape[0]) + r.max_new_tokens)
+
+    def _ensure_writable(self, entries, span: Optional[int]) -> None:
+        """Copy-on-write guard before every paged call that writes
+        (reference :3980): a page backing an entry's write range that is
+        still shared (refcount > 1) is copied to a fresh private page
+        first, so no write lands on a page another slot or the prefix
+        cache reads."""
+        ps = self._page_size
+        for i, r in entries:
+            lo, hi = self._write_range(r, span)
+            for lp in range(lo // ps, (hi - 1) // ps + 1 if hi > lo else 0):
+                if lp >= len(self._slot_pages[i]):
+                    continue
+                p = self._slot_pages[i][lp]
+                if self._allocator.refcount(p) > 1:
+                    fresh = self._alloc_page()
+                    if fresh is None:
+                        raise RuntimeError(
+                            f"copy-on-write for slot {i} page {lp}: page "
+                            "pool exhausted")
+                    self._copy_page(p, fresh)
+                    self._allocator.decref(p)
+                    self._slot_pages[i][lp] = fresh
+                    self._bt[i, lp] = fresh
+
+    def _cache_prefilled(self, entries) -> None:
+        """After a paged prefill: each request's full prompt pages enter
+        the radix cache (which then co-owns them), so the next request
+        sharing the prefix maps them instead of recomputing (reference
+        :4627). Decode pages are never cached."""
+        if self._prefix_cache is None:
+            return
+        with self._lock:
+            for i, r in entries:
+                if self._slots[i] is not r or not self._slot_pages[i]:
+                    continue
+                self._prefix_cache.insert(np.asarray(r.prompt, np.int32),
+                                          self._slot_pages[i])
+
+    def _page_counts(self) -> None:
+        if self._paged:
+            self.counts["pages_used"] = self._allocator.pages_used
+            self.counts["pages_free"] = self._allocator.pages_free
 
     # -- speculative decoding (reference :4711-4944) -----------------------
     def _rebuild_draft(self) -> None:
@@ -456,9 +907,10 @@ class InferenceEngine:
         return True
 
     def _call_spec(self, state, entries):
-        """One speculative round over the pool for ``entries``. Returns
-        (state', toks [Ns, K+1], ncommit, drafted, accepted) with numpy
-        outputs. ``poison`` stays all false: the fault injector's
+        """One speculative round over the pool for ``entries``; a paged
+        pool first privatises every page the K+1 window can write.
+        Returns (state', toks [Ns, K+1], ncommit, drafted, accepted) with
+        numpy outputs. ``poison`` stays all false: the fault injector's
         draft_poison_at hook, and with it the controller's poisoned-round
         fallback to K=1, are not ported (ROADMAP queue A6)."""
         active = np.zeros((self._num_slots,), bool)
@@ -467,18 +919,23 @@ class InferenceEngine:
             active[i] = True
             rem[i] = r.max_new_tokens - r.generated.shape[0]
         poison = np.zeros((self._num_slots,), bool)
-        fn = self._program("spec", self._spec_cur_k)
-        dev = self.device
+        k = self._spec_cur_k
+        if self._paged:
+            lead = (self._block_table(entries, k + 1),)
+            fn = self._program("paged_spec", k)
+        else:
+            lead = ()
+            fn = self._program("spec", k)
         t0 = time.perf_counter()
-        ck, cv, pos, tok, emit, nc, drafted, accepted = fn(
-            self._params, self._draft_params, *state,
-            torch.from_numpy(active).to(dev), torch.from_numpy(rem).to(dev),
-            torch.from_numpy(poison).to(dev), int(self.config.seed))
+        *state, emit, nc, drafted, accepted = fn(
+            self._params, self._draft_params, *state, *lead,
+            self._tensor(active), self._tensor(rem), self._tensor(poison),
+            int(self.config.seed))
         out = torch.stack([nc, drafted, accepted]).cpu().numpy()
         toks = emit.cpu().numpy()
         self.seconds["spec"] += time.perf_counter() - t0
         self.counts["spec_rounds"] += 1
-        return (ck, cv, pos, tok), toks, out[0], out[1], out[2]
+        return tuple(state), toks, out[0], out[1], out[2]
 
     def _decode_spec_slots(self, occupied) -> None:
         """One speculative round: commit each slot's accepted prefix and
@@ -532,4 +989,4 @@ class InferenceEngine:
         with self._lock:
             for i, r in enumerate(self._slots):
                 if r is not None and r.done():
-                    self._slots[i] = None
+                    self._free_slot(i)

@@ -1,0 +1,390 @@
+"""Port parity: chunked prefill and the token-budget scheduler.
+
+The JAX side runs on a 1x1 mesh through its plain reference paths
+(DL4JTPU_FLASH unset) and its engine with `pipeline=False`, as
+tests/test_torch_serving.py does; both sides hold one JAX `init_params`
+tree converted with `params_from_numpy`. Tolerances: caches 1e-5 (a paged
+pool's scratch page 0 excluded); pos, tok and first exactly (greedy);
+engine results token-exact. The port's own contracts (chunked ≡ one-shot
+≡ `generate`, oldest-first prefill, the stall bound, spec with chunked
+prefill) are copied from tests/test_serving_chunked.py, and the
+configurations the port does not serve yet must raise naming their
+ROADMAP item.
+"""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+
+from deeplearning4j_tpu.models import transformer as jtf  # noqa: E402
+from deeplearning4j_tpu.parallel import serving as jsv  # noqa: E402
+from deeplearning4j_tpu.parallel.mesh import MeshSpec, make_mesh  # noqa
+from deeplearning4j_tpu.serving import engine as jeng  # noqa: E402
+
+from deeplearning4j_tpu_torch.models import transformer as ttf  # noqa
+from deeplearning4j_tpu_torch.models.convert import \
+    params_from_numpy  # noqa: E402
+from deeplearning4j_tpu_torch.parallel import serving as tsv  # noqa: E402
+from deeplearning4j_tpu_torch.serving import engine as teng  # noqa: E402
+from deeplearning4j_tpu_torch.serving.paging import pages_for  # noqa
+
+FIELDS = dict(vocab_size=64, d_model=64, n_heads=4, n_layers=2, max_len=96)
+JCFG = jtf.TransformerConfig(**FIELDS)
+TCFG = ttf.TransformerConfig(**FIELDS)
+NS = 4
+CACHE = dict(rtol=0, atol=1e-5)
+
+
+@pytest.fixture(autouse=True)
+def _reference_paths(monkeypatch):
+    monkeypatch.delenv("DL4JTPU_FLASH", raising=False)
+
+
+@pytest.fixture(scope="module")
+def mesh1():
+    return make_mesh(MeshSpec(data=1, model=1))
+
+
+@pytest.fixture(scope="module")
+def jparams():
+    return jtf.init_params(JCFG, jax.random.PRNGKey(0))
+
+
+@pytest.fixture(scope="module")
+def tparams(jparams):
+    return params_from_numpy(jax.tree_util.tree_map(np.asarray, jparams),
+                             device="cpu")
+
+
+def _prompt(n, seed):
+    return np.random.default_rng(seed).integers(
+        0, FIELDS["vocab_size"], size=(n,)).astype(np.int32)
+
+
+# ---------------------------------------------------------------------------
+# the programs against JAX's
+# ---------------------------------------------------------------------------
+
+def _chunk_schedule(prompts, begin, c):
+    """The calls that prefill ``prompts`` {slot: tokens} in chunks of c,
+    slot i joining at call begin[i] (a slot passes through, clen 0,
+    before it joins and after it ends): [(toks, clen, start, last)]."""
+    done = {i: 0 for i in prompts}
+    calls = []
+    n = 0
+    while any(done[i] < p.shape[0] for i, p in prompts.items()):
+        toks = np.zeros((NS, c), np.int32)
+        clen = np.zeros((NS,), np.int32)
+        start = np.zeros((NS,), np.int32)
+        last = np.zeros((NS,), bool)
+        for i, p in prompts.items():
+            if n < begin[i] or done[i] >= p.shape[0]:
+                continue
+            k = min(c, p.shape[0] - done[i])
+            toks[i, :k] = p[done[i]:done[i] + k]
+            clen[i], start[i] = k, done[i]
+            done[i] += k
+            last[i] = done[i] == p.shape[0]
+        calls.append((toks, clen, start, last))
+        n += 1
+    return calls
+
+
+def _check_state(tstate, jstate, paged):
+    for name, t, j in zip(("k", "v", "pos", "tok"), tstate, jstate):
+        t, j = t.numpy(), np.asarray(j)
+        if name in ("k", "v"):
+            if paged:
+                t, j = t[:, 1:], j[:, 1:]
+            np.testing.assert_allclose(t, j, **CACHE, err_msg=name)
+        else:
+            np.testing.assert_array_equal(t, j, err_msg=name)
+
+
+def _run_chunks(jfn, tfn, jstate, tstate, sparams, tparams, calls, lead=(),
+                paged=False):
+    key = jax.random.PRNGKey(0)
+    for toks, clen, start, last in calls:
+        args = (*lead, toks, clen, start, last)
+        *jstate, jfirst = jfn(sparams, *jstate,
+                              *(jnp.asarray(a) for a in args), key)
+        *tstate, tfirst = tfn(tparams, *tstate,
+                              *(torch.from_numpy(a) for a in args), 0)
+        _check_state(tstate, jstate, paged)
+        np.testing.assert_array_equal(tfirst.numpy(), np.asarray(jfirst))
+        # mid-prompt chunks and idle slots report no first token
+        assert (tfirst.numpy()[~last] == -1).all()
+    return tstate
+
+
+PROMPTS = {0: _prompt(21, 1), 2: _prompt(10, 2), 3: _prompt(90, 3)}
+BEGIN = {0: 0, 2: 1, 3: 0}
+
+
+@pytest.mark.parametrize("c", [3, 40])
+def test_chunked_prefill_program_matches_jax(mesh1, jparams, tparams, c):
+    """Three prompts on the contiguous pool in chunks of c (slot 2 joins
+    one call late, slot 1 never advances, slot 3's last chunk at c=40 has
+    pad rows past S): caches at 1e-5, pos, tok and first exactly."""
+    sparams = jsv.shard_serving_params(jparams, JCFG, mesh1)
+    jstate = tuple(jsv.init_slot_state(JCFG, mesh1, NS))
+    tstate = tsv.init_slot_state(TCFG, NS, "cpu")
+    tstate = _run_chunks(jsv.make_chunked_prefill(JCFG, mesh1, c, NS),
+                         tsv.make_chunked_prefill(TCFG, c, NS), jstate,
+                         tstate, sparams, tparams,
+                         _chunk_schedule(PROMPTS, BEGIN, c))
+    assert tstate[2].tolist() == [21, 0, 10, 90]
+
+
+@pytest.mark.parametrize("ps", [4, 8])
+def test_paged_chunked_prefill_program_matches_jax(mesh1, jparams, tparams,
+                                                   ps):
+    """The same prompts in chunks of 5 on the paged pool, slot 1 resuming
+    at 16 over pages slot 0 wrote (a prefix hit inside a chunk
+    schedule): pools at 1e-5 (page 0 excluded), ints exactly."""
+    mp = pages_for(FIELDS["max_len"], ps)
+    bt = np.zeros((NS, mp), np.int32)
+    nxt = 1
+    for i, p in PROMPTS.items():
+        k = pages_for(p.shape[0], ps)
+        bt[i, :k] = np.arange(nxt, nxt + k)
+        nxt += k
+    shared = 16 // ps
+    bt[1, :shared] = bt[0, :shared]
+    bt[1, shared:shared + 2] = [nxt, nxt + 1]
+    npg = nxt + 2
+    sparams = jsv.shard_serving_params(jparams, JCFG, mesh1)
+    jstate = tuple(jsv.init_paged_state(JCFG, mesh1, NS, ps, npg))
+    tstate = tsv.init_paged_state(TCFG, NS, ps, npg, "cpu")
+    jfn = jsv.make_paged_chunked_prefill(JCFG, mesh1, 5, NS, ps, mp, npg)
+    tfn = tsv.make_paged_chunked_prefill(TCFG, 5, NS, ps, mp, npg)
+    calls = _chunk_schedule(PROMPTS, BEGIN, 5)
+    # then slot 1 resumes at 16 over slot 0's pages: 7 tokens in 5 + 2
+    tail = _prompt(7, 4)
+    for lo, n, last in ((0, 5, False), (5, 2, True)):
+        toks = np.zeros((NS, 5), np.int32)
+        toks[1, :n] = tail[lo:lo + n]
+        calls.append((toks, np.array([0, n, 0, 0], np.int32),
+                      np.array([0, 16 + lo, 0, 0], np.int32),
+                      np.array([False, last, False, False])))
+    tstate = _run_chunks(jfn, tfn, jstate, tstate, sparams, tparams, calls,
+                         lead=(bt,), paged=True)
+    assert tstate[2].tolist() == [21, 23, 10, 90]
+
+
+# ---------------------------------------------------------------------------
+# the engine
+# ---------------------------------------------------------------------------
+
+BASE = dict(num_slots=NS, decode_chunk=2, max_new_tokens=6,
+            prefill_chunk=8)
+
+
+def _port(tparams, **kw):
+    return teng.InferenceEngine(TCFG, tparams,
+                                teng.EngineConfig(**{**BASE, **kw}),
+                                device="cpu")
+
+
+def _serve(eng, prompts, max_new=None):
+    hs = [eng.submit(p, max_new_tokens=max_new) for p in prompts]
+    eng.run_pending()
+    return [h.result() for h in hs]
+
+
+def _solo(tparams, prompt, max_new, **kw):
+    """The one-shot (prefill_chunk None) engine's result for prompt."""
+    return _serve(_port(tparams, prefill_chunk=None, max_new_tokens=max_new,
+                        **kw), [prompt], max_new)[0]
+
+
+def _mix():
+    sys_prompt = _prompt(18, 30)
+    return ([np.concatenate([sys_prompt, _prompt(3 + i, 31 + i)])
+             for i in range(3)] + [_prompt(n, 40 + n) for n in (7, 33, 12)])
+
+
+@pytest.mark.parametrize("paged", [False, True])
+def test_chunked_engine_matches_jax_engine(mesh1, jparams, tparams, paged):
+    """Six requests through 4 slots with prefill_chunk 5 and the default
+    budget, twice (paged: the second wave prefix hits): tokens equal the
+    JAX chunked engine's, and so do the prefix-cache counts."""
+    kw = dict(prefill_chunk=5, max_new_tokens=7)
+    if paged:
+        kw.update(paged=True, page_size=8)
+    jengine = jeng.InferenceEngine(JCFG, mesh1, jparams, jeng.EngineConfig(
+        pipeline=False, backoff_base_s=0.0, **{**BASE, **kw}))
+    tengine = _port(tparams, **kw)
+    for _ in range(2):
+        want = _serve(jengine, _mix())
+        got = _serve(tengine, _mix())
+        for g, w in zip(got, want):
+            np.testing.assert_array_equal(g, w)
+    assert tengine.counts["prefill_chunks"] > len(_mix())
+    if paged:
+        jc = jengine.debugz()["paged"]["prefix_cache"]
+        c = tengine.counts
+        assert (c["prefix_hits"], c["prefix_misses"],
+                c["prefix_shared_tokens"]) == \
+            (jc["hits"], jc["misses"], jc["shared_tokens"])
+        assert c["pages_used"] == tengine.prefix_cache_pages
+
+
+@pytest.mark.parametrize("chunk", [3, 8, 24, 40])
+def test_chunked_matches_oneshot_and_generate(jparams, tparams, chunk):
+    """Every chunk size, uneven, whole-prompt and larger than the prompt,
+    reproduces the one-shot engine, the port's `generate` and JAX's."""
+    p = _prompt(24, 0)
+    want = np.asarray(jtf.generate(JCFG, jparams, p[None], 6,
+                                   key=jax.random.PRNGKey(0),
+                                   temperature=0.0))[0]
+    got, = _serve(_port(tparams, prefill_chunk=chunk), [p])
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(_solo(tparams, p, 6), want)
+    np.testing.assert_array_equal(
+        ttf.generate(TCFG, tparams, torch.from_numpy(p)[None], 6,
+                     temperature=0.0)[0].numpy(), want)
+
+
+@pytest.mark.parametrize("chunk", [4, 7])
+def test_chunked_sampled_continuations_bit_identical(tparams, chunk):
+    """Sampled decode is chunk-invariant: draws are keyed by absolute
+    position, whatever chunk boundary produced the first token."""
+    kw = dict(temperature=0.8, top_k=5)
+    ref = _solo(tparams, _prompt(20, 2), 8, **kw)
+    got, = _serve(_port(tparams, prefill_chunk=chunk, max_new_tokens=8,
+                        **kw), [_prompt(20, 2)])
+    np.testing.assert_array_equal(got, ref)
+
+
+def test_chunked_paged_fresh_and_prefix_hit_resume(tparams):
+    """Paged pool, page_size 4, chunks of 5: a fresh admission and a
+    full-prefix hit, whose chunked prefill resumes at 23 (no chunk
+    boundary), both equal the one-shot paged engine."""
+    ref = _solo(tparams, _prompt(24, 0), 6, paged=True, page_size=4)
+    eng = _port(tparams, prefill_chunk=5, paged=True, page_size=4)
+    for _ in range(2):
+        got, = _serve(eng, [_prompt(24, 0)])
+        np.testing.assert_array_equal(got, ref)
+    assert eng.counts["prefix_hits"] == 1 and eng.counts["cow_copies"] == 1
+
+
+def test_prefill_is_oldest_first(tparams):
+    """Two long admissions share an 8-token budget oldest first: the
+    younger never samples before the older."""
+    eng = _port(tparams, tick_token_budget=8, max_new_tokens=2)
+    a = eng.submit(_prompt(40, 1))
+    b = eng.submit(_prompt(40, 2))
+    while not (a.done() and b.done()):
+        eng.tick()
+        if a.generated.shape[0] == 0:
+            assert b.generated.shape[0] == 0, \
+                "younger admission sampled before the older one"
+
+
+def test_decode_never_stalls_while_long_prompt_prefills(tparams):
+    """Three residents decode while an 80-token prompt prefills under a
+    12-token budget: every tick each resident commits one decode chunk,
+    and no tick runs more than ceil(budget / prefill_chunk) chunk calls
+    (the one-shot engine would run the whole prompt in one call)."""
+    budget, pfc, dchunk = 12, 8, 2
+    eng = _port(tparams, prefill_chunk=pfc, tick_token_budget=budget,
+                decode_chunk=dchunk, max_new_tokens=16)
+    residents = [eng.submit(_prompt(6, i), max_new_tokens=16)
+                 for i in range(3)]
+    while any(r.generated.shape[0] == 0 for r in residents):
+        eng.tick()                         # all three decoding
+    long_req = eng.submit(_prompt(80, 9), max_new_tokens=4)
+    ticks = 0
+    while ticks == 0 or eng._is_prefilling(long_req):
+        before = [r.generated.shape[0] for r in residents]
+        calls = eng.counts["prefill_calls"]
+        eng.tick()
+        ticks += 1
+        for r, b in zip(residents, before):
+            assert r.generated.shape[0] == min(b + dchunk, 16), \
+                "resident stalled while the long prompt prefilled"
+        assert eng.counts["prefill_calls"] - calls <= -(-budget // pfc)
+    assert ticks >= 80 // budget
+    eng.run_pending()
+    for i, r in enumerate(residents):
+        np.testing.assert_array_equal(r.result(),
+                                      _solo(tparams, _prompt(6, i), 16))
+    np.testing.assert_array_equal(long_req.result(),
+                                  _solo(tparams, _prompt(80, 9), 4))
+
+
+@pytest.mark.parametrize("paged", [False, True])
+def test_spec_with_chunked_prefill_token_exact(tparams, paged):
+    """Prefilling slots sit out the spec rounds; a slot joins the tick
+    after its first token, and the spec engine equals the plain chunked
+    engine while a long admission prefills mid-pool."""
+    kw = dict(prefill_chunk=4, tick_token_budget=6, max_new_tokens=10)
+    if paged:
+        kw.update(paged=True, page_size=8)
+
+    def run(**extra):
+        eng = _port(tparams, **kw, **extra)
+        a = eng.submit(_prompt(6, 1), max_new_tokens=10)
+        eng.tick()
+        b = eng.submit(_prompt(30, 2), max_new_tokens=4)
+        eng.run_pending()
+        return eng, a.result(), b.result()
+
+    _, a_ref, b_ref = run()
+    eng, a, b = run(spec_decode=True, spec_k=3, draft="self")
+    np.testing.assert_array_equal(a, a_ref)
+    np.testing.assert_array_equal(b, b_ref)
+    assert eng.counts["spec_drafted"] > 0
+
+
+# ---------------------------------------------------------------------------
+# configuration
+# ---------------------------------------------------------------------------
+
+def test_default_budget_is_decode_bill_plus_one_chunk(tparams):
+    eng = _port(tparams, num_slots=3, decode_chunk=5, prefill_chunk=7)
+    assert eng._tick_budget == 3 * 5 + 7
+
+
+@pytest.mark.parametrize("kw,match", [
+    (dict(prefill_chunk=None, tick_token_budget=64), "tick_token_budget"),
+    (dict(prefill_chunk=0), "prefill_chunk"),
+    (dict(prefill_chunk=97), "prefill_chunk"),
+    (dict(paged=True, page_size=0), "page_size"),
+])
+def test_chunked_and_paged_config_errors(tparams, kw, match):
+    with pytest.raises(ValueError, match=match):
+        _port(tparams, **kw)
+
+
+@pytest.mark.parametrize("use", [dict(paged=True), dict(prefill_chunk=8)])
+@pytest.mark.parametrize("field,value,item", [
+    ("kv_quantize", "int8", "item 4"), ("quantize", "int8", "item 4"),
+    ("pipeline", True, "item 5"), ("constrain_state_cap", 64, "item 6"),
+    ("tenant_weights", {"a": 1.0}, "item 9"),
+])
+def test_unported_combinations_raise(tparams, use, field, value, item):
+    """Paged KV or chunked prefill with what the port has not ported
+    raises NotImplementedError naming the combination and its item."""
+    kw = {**BASE, "prefill_chunk": None, **use, field: value}
+    with pytest.raises(NotImplementedError,
+                       match=f"{next(iter(use))}=.* with {field}=.*"
+                             f"ROADMAP queue A {item}"):
+        teng.InferenceEngine(TCFG, tparams, teng.EngineConfig(**kw),
+                             device="cpu")
+
+
+@pytest.mark.parametrize("make", [
+    lambda: tsv.make_chunked_prefill(TCFG, 8, NS, kv_mode="int8"),
+    lambda: tsv.make_paged_prefill(TCFG, 8, NS, 8, 12, 20, quantized="int8"),
+    lambda: tsv.make_paged_decode(TCFG, 2, NS, 8, 12, 20, constrain=True),
+    lambda: tsv.init_paged_state(TCFG, NS, 8, 20, "cpu", kv_mode="int8"),
+], ids=["chunked_kv", "paged_prefill_quant", "paged_decode_constrain",
+        "paged_state_kv"])
+def test_unported_program_variants_raise(make):
+    with pytest.raises(NotImplementedError, match="ROADMAP queue A"):
+        make()

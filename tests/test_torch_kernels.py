@@ -754,3 +754,129 @@ def test_graph_timing_replays_the_kernels_on_card(requires_cuda):
                          dev, 2, 1)
     assert 0 < ms < float("inf")
     assert tfa.packed2_backward_cuda.launches == before + 3
+
+
+# ---------------------------------------------------------------------------
+# the paged pool: the kernels over the gathered view of the pages
+# ---------------------------------------------------------------------------
+
+def _paged_copy(ck, cv, ps, seed):
+    """The stacked caches [L, B, S, D] scattered over pages in a shuffled
+    order (page 0, the scratch page, filled with 1e4): (kp, vp, bt) whose
+    gathered view equals the caches."""
+    n_l, b, s, d = ck.shape
+    mp = s // ps
+    order = np.random.default_rng(seed).permutation(b * mp) + 1
+    bt = torch.from_numpy(order.reshape(b, mp).astype(np.int32)).to(
+        ck.device)
+    kp = torch.full((n_l, b * mp + 1, ps, d), 1e4, dtype=ck.dtype,
+                    device=ck.device)
+    vp = kp.clone()
+    kp[:, bt.reshape(-1).long()] = ck.reshape(n_l, b * mp, ps, d)
+    vp[:, bt.reshape(-1).long()] = cv.reshape(n_l, b * mp, ps, d)
+    return kp, vp, bt
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("t", [1, 5])
+def test_paged_view_kernels_equal_contiguous_on_card(requires_cuda, dtype,
+                                                     t):
+    """Decode (T = 1) and the verify window (T = 5) over the gathered
+    view of a shuffled page pool return the bits they return over the
+    equal contiguous cache, one launch each."""
+    from deeplearning4j_tpu_torch.parallel.serving import _gather_pages
+    b, h, dh, s, ps = 6, 2, 64, S_EDGES - 100 + 16, 16
+    dev = requires_cuda
+    q = torch.from_numpy(_rand((b, t, h, dh), 95)).to(dev, dtype)
+    ck = torch.from_numpy(_rand((2, b, s, h * dh), 96)).to(dev, dtype)
+    cv = torch.from_numpy(_rand((2, b, s, h * dh), 97)).to(dev, dtype)
+    kp, vp, bt = _paged_copy(ck, cv, ps, 98)
+    pos = torch.tensor(POS_EDGES, dtype=torch.int32, device=dev) - t // 2
+    pos = torch.clamp(pos, 0, s - 1)
+    kh, vh = (_gather_pages(p[1], bt, b, s) for p in (kp, vp))
+    assert torch.equal(kh, ck[1]) and torch.equal(vh, cv[1])
+    if t == 1:
+        counter = tdec.decode_attention_cuda
+        before = counter.launches
+        got = tdec.decode_attention(q[:, 0], kh, vh, pos, n_heads=h)
+        want = tdec.decode_attention(q[:, 0], ck, cv, pos, n_heads=h,
+                                     layer=1)
+    else:
+        counter = tdec.decode_window_attention_cuda
+        before = counter.launches
+        got = tdec.decode_window_attention(q, kh, vh, pos, n_heads=h)
+        want = tdec.decode_window_attention(q, ck, cv, pos, n_heads=h,
+                                            layer=1)
+    torch.cuda.synchronize()
+    assert counter.launches == before + 2
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_paged_decode_program_equals_contiguous_on_card(requires_cuda,
+                                                        dtype):
+    """One decode chunk of the paged program over a shuffled pool holding
+    the contiguous pool's values: the same tokens, and each written row
+    where the contiguous program wrote it, bit for bit."""
+    from deeplearning4j_tpu_torch.models import transformer as tf
+    from deeplearning4j_tpu_torch.parallel import serving as sv
+    name = "float32" if dtype == torch.float32 else "bfloat16"
+    cfg = tf.TransformerConfig(vocab_size=64, d_model=128, n_heads=2,
+                               n_layers=2, max_len=256, dtype=name)
+    dev = requires_cuda
+    params = tf.init_params(cfg, seed=3, device=dev)
+    ns, ps = 4, 16
+    ck, cv, pos, tok = sv.init_slot_state(cfg, ns, dev)
+    ck.copy_(torch.from_numpy(_rand(tuple(ck.shape), 99)).to(dev, dtype))
+    cv.copy_(torch.from_numpy(_rand(tuple(cv.shape), 100)).to(dev, dtype))
+    pos.copy_(torch.tensor([5, 100, 200, 17], dtype=torch.int32))
+    tok.copy_(torch.tensor([1, 2, 3, 4], dtype=torch.int32))
+    kp, vp, bt = _paged_copy(ck, cv, ps, 101)
+    ppos, ptok = pos.clone(), tok.clone()
+    active = torch.tensor([True, True, True, False], device=dev)
+    rem = torch.tensor([4, 2, 4, 4], dtype=torch.int32, device=dev)
+    mp, npg = cfg.max_len // ps, kp.shape[1]
+    *_, want = sv.make_continuous_decode(cfg, 4, ns)(
+        params, ck, cv, pos, tok, active, rem, 0)
+    *_, got = sv.make_paged_decode(cfg, 4, ns, ps, mp, npg)(
+        params, kp, vp, ppos, ptok, bt, active, rem, 0)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert torch.equal(ppos, pos) and torch.equal(ptok, tok)
+    for layer in range(cfg.n_layers):
+        assert torch.equal(sv._gather_pages(kp[layer], bt, ns, 256)[:3],
+                           ck[layer][:3])
+
+
+def test_paged_spec_equals_paged_plain_bf16_on_card(requires_cuda):
+    """bf16 at a small config: the paged spec engine (K=4, "layers:1",
+    on a tree whose deep layers are zeroed so drafts are accepted) gives
+    the paged plain engine's tokens, window rows being decode bit for
+    bit; the window kernel runs n_layers times a round."""
+    from deeplearning4j_tpu_torch.models import transformer as tf
+    from deeplearning4j_tpu_torch.serving.engine import (EngineConfig,
+                                                         InferenceEngine)
+    cfg = tf.TransformerConfig(vocab_size=64, d_model=128, n_heads=2,
+                               n_layers=3, max_len=256, dtype="bfloat16")
+    dev = requires_cuda
+    params = tf.init_params(cfg, seed=4, device=dev)
+    for leaf in ("Wo", "W2", "b2"):
+        params["blocks"][leaf][1:] = 0
+    rng = np.random.default_rng(5)
+    sys_prompt = rng.integers(0, 64, 40).astype(np.int32)
+    prompts = [np.concatenate([sys_prompt, rng.integers(0, 64, n).astype(
+        np.int32)]) for n in (3, 20, 41, 7, 60, 1)]
+    out = {}
+    for arm, kw in (("plain", {}), ("spec", dict(spec_decode=True, spec_k=4,
+                                                 draft="layers:1"))):
+        eng = InferenceEngine(cfg, params, EngineConfig(
+            num_slots=4, decode_chunk=4, max_new_tokens=24, paged=True,
+            page_size=16, **kw), device=dev)
+        win0 = tdec.decode_window_attention_cuda.launches
+        out[arm] = [eng.submit(p) for p in prompts + prompts]
+        eng.run_pending()
+        n_win = tdec.decode_window_attention_cuda.launches - win0
+    assert eng.counts["spec_rounds"] > 0 and eng.counts["prefix_hits"] > 0
+    assert n_win == cfg.n_layers * eng.counts["spec_rounds"]
+    for a, b in zip(out["spec"], out["plain"]):
+        np.testing.assert_array_equal(a.result(), b.result())

@@ -199,7 +199,12 @@ def test_engine_admission_rules(tparams):
     ("max_retries", 0), ("compile_cache_dir", "x"),
 ])
 def test_unported_engine_options_raise(tparams, field, value):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    # paged KV and chunked prefill are ported; what they do not combine
+    # with yet (here the quantized KV pool) still raises, naming them
+    extra = ({"kv_quantize": "int8"} if field in ("paged", "prefill_chunk")
+             else {})
+    with pytest.raises(NotImplementedError, match="ROADMAP") as e:
         teng.InferenceEngine(TCFG, tparams,
-                             teng.EngineConfig(**{field: value}),
+                             teng.EngineConfig(**{field: value}, **extra),
                              device="cpu")
+    assert not extra or f"{field}=" in str(e.value)

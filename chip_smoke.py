@@ -13,8 +13,9 @@ card and fails (non-zero exit, no result line) if anything is wrong:
    decode_window, lstm_scan) with each kernel instance's ptxas
    registers, stack and spills and its HMMA count in the SASS
    (cuobjdump); fails if a bf16 tensor-core instance has no HMMA, or a
-   half-precision Dh-64 instance (the main path's) or a bf16
-   lstm_scan_tc_kernel instance spills.
+   half-precision Dh-64 instance (the main path's), a bf16
+   lstm_scan_tc_kernel instance or a Dh-64 quantized-cache decode /
+   window instance (`*_q_kernel`, the main path's) spills.
 1. Kernel vs plain, on the card: the flash-forward kernel at the main
    path's bf16 prefill shapes (64 slots x 8 heads, Dh=64, causal, T=1024
    as the engine's bucket in phase 3, T=64 as generate's prompt, T=512)
@@ -71,6 +72,18 @@ card and fails (non-zero exit, no result line) if anything is wrong:
    same SIMT loop) and, in bf16, where production is the tensor-core
    split-S core, within 2^-7 per row of it and of its own twin. ms and
    bound per bf16 point.
+1q. The quantized entries of the decode and window kernels (int8 and
+   e4m3 caches with float32 row scales, decode_core.cuh's row loop) vs
+   their scaled plain twins at the serving decode shape (B=64, S=2048,
+   D=512, H=8, Dh 64, the stacked L=12 cache and [L, B, S, 1] scales at
+   layer 5): bf16 and float32 q at phase 1's vector, pos 2047 and pos
+   100 (bf16 rows within 2^-7, float32 within 1e-5, two calls bit-equal);
+   the window at T=5 and 8, every row torch.equal to the decode entry at
+   pos + t. Kernel, twin and graph-replay times beside the byte bound
+   (one byte a cache element plus 8 bytes of scales a row), and SDPA's
+   time over the dequantized bf16 cache, a different function that reads
+   twice the bytes (no single PyTorch call computes scaled int8
+   attention, so the rows' library_ms is null).
 2. float32 end to end, card vs CPU: a 2-layer model at the full width
    (512d / 8 heads) serves 8 greedy requests x 16 new tokens through
    `InferenceEngine` on cuda and on cpu; tokens must match exactly and
@@ -87,6 +100,12 @@ card and fails (non-zero exit, no result line) if anything is wrong:
    spec (K=4, "layers:1"); all token-exact against the paged engine on
    cuda, the second wave against the first; prefix hits and copies in
    the second wave; no page leaked (pages in use = the prefix cache's).
+2d. float32 quantized serving on phase 2's model and requests: the int8
+   engine (quantize and kv_quantize "int8") card ≡ CPU; spec (K=4, the
+   default "int8" drafter on the float tree, int8 KV) ≡ plain int8 KV;
+   paged int8 (prefix cache off) ≡ contiguous int8; chunked int8 (chunk
+   32) ≡ one-shot int8; on the card the quantized kernels run and the
+   float decode / window kernels and the plain twins never.
 3. Full width: the 12L / 512d / 8H / V=256 / max_len 2048 bf16 engine with
    64 slots and decode_chunk 8 answers 128 requests (prompt lengths 16..1024
    from seed 0, 64 new tokens), then `TransformerLM.generate` runs B=64,
@@ -123,6 +142,19 @@ card and fails (non-zero exit, no result line) if anything is wrong:
    the first wave's ms per decode step paged and contiguous (and phase
    3's), the cold and prefix-hit prefill seconds, and one profiled paged
    decode chunk with the device time of its page gathers.
+3d. Full-width quantized serving: phase 3's config and 128 requests, (a)
+   int8 weights and KV, (b) fp8 both (e4m3 on the card), (c) spec K=7
+   (held, spec_adaptive off) with the default "int8" drafter on the
+   float tree (≡ phase 3's bf16 plain engine; acceptance printed), (d)
+   spec on the int8 engine, whose drafter shares the tree (≡ (a); every
+   draft the budgets allow
+   accepted; K stays 7), (e) the paged int8 pool on phase 3c's traffic
+   (hits and copies in the second wave, no page leaked). Launches exact
+   (the quantized decode entry L x chunk per decode chunk and L x K per
+   spec round, the quantized window L per round; no float decode or
+   window launch and no plain-twin call on a quantized pool). Prints
+   tokens/s and ms a decode step beside phase 3's, param and pool bytes
+   against the bf16 engine's, and one profiled int8 decode chunk.
 4a. float32 training, card vs CPU: 2 layers at 512d / 8 heads, V=256,
    B=2, T=256, remat 'full', three Adam steps of `make_fsdp_train_step`
    from the same params on cuda and on cpu; losses within 1e-4, and the
@@ -166,7 +198,8 @@ card and fails (non-zero exit, no result line) if anything is wrong:
    after: 4 packed launches per q512 call, the sweep kernel at every
    non-production geometry. The sweep's bounds stay on the data-sheet
    3.35 TB/s; the measured copy rate's bound is printed beside them.
-7. Summary: one `kernels` JSON line, then the last line
+7. Summary: one `kernels` JSON line (decode_attention_q and
+   decode_window_q among them), then the last line
    {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
 The kernels build from deeplearning4j_tpu_torch/csrc/ at the start (one
@@ -332,7 +365,8 @@ def build_report(name: str):
     registers and spills and its HMMA / HGMMA count in the SASS. Fails if
     a bf16 instance of a tensor-core kernel has no HMMA, or if a
     half-precision Dh-64 instance (the main path's) or a bf16
-    lstm_scan_tc_kernel instance spills."""
+    lstm_scan_tc_kernel instance or a Dh-64 quantized-cache instance
+    spills."""
     import re
     from deeplearning4j_tpu_torch.ops import _build
     regs = _build.ptxas_report(name)
@@ -358,6 +392,9 @@ def build_report(name: str):
             fail(f"{name}: Dh-64 instance {short} spills ({st})")
         if "lstm_scan_tc_kernel<__nv_bfloat16" in fn and spills:
             fail(f"{name}: bf16 instance {short} spills ({st})")
+        if "_q_kernel<" in fn and dh and dh.group(1) == "64" and spills:
+            fail(f"{name}: quantized-cache Dh-64 instance {short} spills "
+                 f"({st})")
     if not any("__nv_bfloat16" in r["instance"] and
                any(k in r["instance"] for k in TC_KERNELS) for r in rows):
         fail(f"{name}: no bf16 tensor-core instance in the ptxas report")
@@ -887,7 +924,8 @@ def phase_full_width(torch, dev):
               flash_launches=g_flash, decode_launches=g_dec))
     phase_profile(torch, eng, rng)
     return ({"flash_fwd": n_flash + g_flash,
-             "decode_attention": n_dec + g_dec}, ms_per_step)
+             "decode_attention": n_dec + g_dec}, ms_per_step,
+            [h.result() for h in hs])
 
 
 # ---------------------------------------------------------------------------
@@ -1265,6 +1303,457 @@ def phase_profile(torch, eng, rng):
     if not all(h.done() for h in hs + warm):
         fail("profiled tick left requests unanswered")
     profile_line(wall, rows, phase=3, run="profiled_tick")
+
+
+# ---------------------------------------------------------------------------
+# phase 1q: the quantized decode and window entries vs their plain twins
+# ---------------------------------------------------------------------------
+
+def quant_stacked_cache(torch, dev, g, L, B, S, D, layer, kv_mode):
+    """A stacked [L, B, S, D] int8 / e4m3 cache and its [L, B, S, 1]
+    float32 row scales, layer ``layer`` quantized from random rows (the
+    other layers as an unwritten pool: values 0, scales 1.0)."""
+    from deeplearning4j_tpu_torch.quant.kv import (kv_cache_dtype,
+                                                   quantize_rows)
+    c = torch.zeros((L, B, S, D), dtype=kv_cache_dtype(kv_mode), device=dev)
+    sc = torch.ones((L, B, S, 1), dtype=torch.float32, device=dev)
+    vals, scales = quantize_rows(
+        torch.randn((B, S, D), generator=g).to(dev), kv_mode)
+    c[layer].view(torch.uint8).copy_(vals.view(torch.uint8))
+    sc[layer, ..., 0] = scales
+    return c, sc
+
+
+def quant_bound(rows: int, B: int, D: int, q_esz: int, t: int = 1,
+                vec_pos: bool = True):
+    """Least time of a quantized decode / window call: one byte a cache
+    element (K and V) and one float32 scale a cache row each, read once;
+    q read and o written once; pos read; the products on the CUDA cores
+    in float32 (4 operations a cache element a query row)."""
+    nbytes = 2 * rows * D + 2 * rows * 4 + 2 * B * t * D * q_esz + \
+        (B * 4 if vec_pos else 0)
+    return nbytes, bound(nbytes, 4 * rows * D * t, "float32")
+
+
+def phase_quant_kernels(torch, dev):
+    """The quantized decode entry at the serving decode shape (B=64,
+    S=2048, D=512, H=8, Dh 64) on the stacked L=12 cache at layer 5,
+    int8 and e4m3 caches under bf16 and float32 q, at phase 1's mixed
+    vector, pos 2047 and pos 100; then the quantized window entry at
+    T=5 and 8 with every row torch.equal to the decode entry at pos + t.
+    Gates: bf16 rows within 2^-7 of the plain twin's row maximum, float32
+    within 1e-5, two calls bit-equal. Prints the kernel's, the twin's and
+    SDPA's time over the dequantized bf16 cache (another function, which
+    reads twice the bytes) beside the bound."""
+    from deeplearning4j_tpu_torch.benchmarks import _timing
+    from deeplearning4j_tpu_torch.ops import flash_decode as fd
+    import torch.nn.functional as F
+
+    g = torch.Generator(device="cpu").manual_seed(11)
+    L, B, S, D, H, layer = 12, 64, 2048, 512, 8, 5
+    Dh = D // H
+    pos_v = torch.from_numpy(np.random.default_rng(0).integers(
+        0, S, size=B).astype(np.int32))
+    pos_v[0], pos_v[1] = 0, S - 1
+    pos_v = pos_v.to(dev)
+    keys = torch.arange(S, device=dev)
+    out = {}
+    for kv_mode in ("int8", "fp8"):
+        ck, ksc = quant_stacked_cache(torch, dev, g, L, B, S, D, layer,
+                                      kv_mode)
+        cv, vsc = quant_stacked_cache(torch, dev, g, L, B, S, D, layer,
+                                      kv_mode)
+        kw = dict(k_scale=ksc[layer, ..., 0], v_scale=vsc[layer, ..., 0])
+        # the dequantized bf16 cache SDPA reads (twice the bytes)
+        kl = (ck[layer].float() * ksc[layer]).to(torch.bfloat16).view(
+            B, S, H, Dh).transpose(1, 2)
+        vl = (cv[layer].float() * vsc[layer]).to(torch.bfloat16).view(
+            B, S, H, Dh).transpose(1, 2)
+        for qdt in (torch.bfloat16, torch.float32):
+            qname = str(qdt).split(".")[-1]
+            qd = torch.randn((B, H, Dh), generator=g).to(dev, qdt)
+            for pos, pname in ((pos_v, "vector [0..2047]"), (S - 1, S - 1),
+                               (100, 100)):
+                def call():
+                    return fd.decode_attention_q_cuda(
+                        qd, ck, cv, pos, H, ksc, vsc, layer=layer)
+                got = call()
+                want = fd.reference_decode_attention(
+                    qd, ck[layer], cv[layer], pos, H, **kw)
+                err = max_err(got, want)
+                if qdt == torch.float32:
+                    rel, ok, tol = None, err <= 1e-5, 1e-5
+                else:
+                    rel = row_rel_err(got, want)
+                    ok, tol = rel <= 1.0, BF16_TOL
+                if not ok:
+                    fail(f"quantized decode {kv_mode} q {qname} pos {pname}: "
+                         f"max err {err}, row-relative {rel}")
+                if not torch.equal(got, call()):
+                    fail(f"quantized decode {kv_mode} q {qname} pos {pname}:"
+                         " two calls differ")
+                rows = int((torch.as_tensor(pos).clamp(0, S - 1).long() + 1)
+                           .expand(B).sum())
+                nbytes, (b_ms, b_by) = quant_bound(
+                    rows, B, D, qd.element_size(),
+                    vec_pos=not isinstance(pos, int))
+                rec = dict(phase="1q", kernel="decode_attention_q",
+                           cache=kv_mode, q_dtype=qname, shape=[L, B, S, D],
+                           layer=layer, pos=pname, max_abs_err=err,
+                           row_rel_err=rel, tol=tol, two_calls_equal=True,
+                           kernel_ms=time_ms(call),
+                           kernel_graph_ms=_timing.time_ms(call, dev, 20, 3),
+                           plain_ms=time_ms(
+                               lambda: fd.reference_decode_attention(
+                                   qd, ck[layer], cv[layer], pos, H, **kw),
+                               iters=3),
+                           bound_ms=b_ms, bound_by=b_by, bound_bytes=nbytes,
+                           library_ms=None)
+                if qdt == torch.bfloat16:
+                    ql = qd.view(B, H, 1, Dh)
+                    if isinstance(pos, int):
+                        sdpa = (lambda p=pos: F.scaled_dot_product_attention(
+                            ql, kl[:, :, :p + 1], vl[:, :, :p + 1]))
+                    else:
+                        mask = (keys[None, :] <= pos[:, None].long())[
+                            :, None, None]
+                        sdpa = (lambda m=mask: F.scaled_dot_product_attention(
+                            ql, kl, vl, attn_mask=m))
+                    # another function: SDPA over the dequantized bf16
+                    # cache, which reads two bytes a cache element
+                    rec["sdpa_on_dequantized_bf16_ms"] = time_ms(sdpa)
+                line(rec)
+                if pname == S - 1 and qname == "bfloat16":
+                    out[f"decode_attention_q/{kv_mode}"] = rec
+        # the window entry, each row against the decode entry
+        for qdt in (torch.bfloat16, torch.float32):
+            qname = str(qdt).split(".")[-1]
+            for t in (5, 8):
+                q = torch.randn((B, t, H, Dh), generator=g).to(dev, qdt)
+
+                def wcall():
+                    return fd.decode_window_attention_q_cuda(
+                        q, ck, cv, pos_v, H, ksc, vsc, layer=layer)
+                got = wcall()
+                want = fd.reference_window_attention(
+                    q, ck[layer], cv[layer], pos_v, H, **kw)
+                err = max_err(got, want)
+                if qdt == torch.float32:
+                    rel, ok, tol = None, err <= 1e-5, 1e-5
+                else:
+                    rel = row_rel_err(got, want)
+                    ok, tol = rel <= 1.0, BF16_TOL
+                if not ok or not torch.equal(got, wcall()):
+                    fail(f"quantized window {kv_mode} q {qname} T={t}: max "
+                         f"err {err}, row-relative {rel} (or two calls "
+                         f"differ)")
+                for ti in range(t):
+                    row = fd.decode_attention_q_cuda(
+                        q[:, ti].contiguous(), ck, cv, pos_v + ti, H, ksc,
+                        vsc, layer=layer)
+                    if not torch.equal(got[:, ti], row):
+                        fail(f"quantized window {kv_mode} q {qname} T={t}: "
+                             f"row {ti} differs from the decode entry at "
+                             f"pos+{ti} by {max_err(got[:, ti], row)}")
+                wp = torch.clamp(pos_v[:, None] + torch.arange(t, device=dev),
+                                 0, S - 1)
+                rows = int((wp[:, -1].long() + 1).sum())
+                nbytes, (b_ms, b_by) = quant_bound(rows, B, D,
+                                                   q.element_size(), t)
+                rec = dict(phase="1q", kernel="decode_window_q",
+                           cache=kv_mode, q_dtype=qname, shape=[L, B, S, D],
+                           window=t, layer=layer, pos="phase 1's vector",
+                           max_abs_err=err, row_rel_err=rel, tol=tol,
+                           rows_equal_decode_entry=True,
+                           two_calls_equal=True, kernel_ms=time_ms(wcall),
+                           plain_ms=time_ms(
+                               lambda: fd.reference_window_attention(
+                                   q, ck[layer], cv[layer], pos_v, H, **kw),
+                               iters=3),
+                           bound_ms=b_ms, bound_by=b_by, bound_bytes=nbytes,
+                           cta_groups=-(-t // fd.DECODE_Q_WINDOW_GROUP),
+                           library_ms=None)
+                line(rec)
+                if t == 8 and qname == "bfloat16":
+                    out[f"decode_window_q/{kv_mode}"] = rec
+        del ck, cv, ksc, vsc, kl, vl
+        torch.cuda.empty_cache()
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phases 2d and 3d: quantized serving
+# ---------------------------------------------------------------------------
+
+class CountTwins:
+    """Counts the plain decode / window twins' calls while it is entered:
+    a card path that reached one would count (the port sends only CPU
+    tensors there)."""
+
+    def __init__(self, fd):
+        self.fd, self.calls = fd, 0
+
+    def __enter__(self):
+        self.saved = (self.fd.reference_decode_attention,
+                      self.fd.reference_window_attention)
+
+        def wrap(fn):
+            def counted(*a, **k):
+                self.calls += 1
+                return fn(*a, **k)
+            return counted
+        self.fd.reference_decode_attention = wrap(self.saved[0])
+        self.fd.reference_window_attention = wrap(self.saved[1])
+        return self
+
+    def __exit__(self, *exc):
+        (self.fd.reference_decode_attention,
+         self.fd.reference_window_attention) = self.saved
+        return False
+
+
+QUANT_COUNTERS = ("decode_attention_q_cuda", "decode_window_attention_q_cuda",
+                  "decode_attention_cuda", "decode_window_attention_cuda")
+
+
+def phase_quant_f32_card_vs_cpu(torch, dev):
+    """Phase 2's 2-layer 512d float32 model and 8 greedy requests (16 new):
+    the int8 engine (quantize and kv_quantize "int8") card ≡ CPU; spec
+    (K=4, the "int8" drafter on the float tree, int8 KV) ≡ plain int8 KV
+    on the card; paged int8 (page 16, prefix cache off) ≡ contiguous
+    int8; chunked int8 (prefill_chunk 32) ≡ one-shot int8. Every card arm
+    runs the quantized kernels only: the float decode and window kernels
+    and the plain twins never."""
+    from deeplearning4j_tpu_torch.models import transformer as tf
+    from deeplearning4j_tpu_torch.ops import flash_decode as fd
+    from deeplearning4j_tpu_torch.serving.engine import (EngineConfig,
+                                                         InferenceEngine)
+    cfg = tf.TransformerConfig(vocab_size=256, d_model=512, n_heads=8,
+                               n_layers=2, max_len=2048, dtype="float32")
+    rng = np.random.default_rng(1)
+    prompts = [rng.integers(0, 256, size=int(n)).astype(np.int32)
+               for n in rng.integers(8, 65, size=8)]
+    params = {d: tf.init_params(cfg, seed=1, device=d)
+              for d in (dev, torch.device("cpu"))}
+    q8 = dict(quantize="int8", kv_quantize="int8")
+
+    def serve(d, **kw):
+        eng = InferenceEngine(cfg, params[d], EngineConfig(
+            num_slots=8, decode_chunk=8, max_new_tokens=16, **kw), device=d)
+        for name in QUANT_COUNTERS:
+            getattr(fd, name).launches = 0
+        with CountTwins(fd) as twins:
+            hs = [eng.submit(p) for p in prompts]
+            eng.run_pending()
+        n = {name: getattr(fd, name).launches for name in QUANT_COUNTERS}
+        if d.type == "cuda" and (twins.calls or n["decode_attention_cuda"]
+                                 or n["decode_window_attention_cuda"]
+                                 or not n["decode_attention_q_cuda"]):
+            fail(f"2d {kw}: launches {n}, plain twin calls {twins.calls}")
+        return eng, [h.result() for h in hs], n
+
+    arms = {"int8_cuda": serve(dev, **q8),
+            "int8_cpu": serve(torch.device("cpu"), **q8),
+            "kv8_plain": serve(dev, kv_quantize="int8"),
+            "kv8_spec_int8_drafter": serve(dev, kv_quantize="int8",
+                                           spec_decode=True, spec_k=4),
+            "int8_paged": serve(dev, paged=True, page_size=16,
+                                prefix_cache=False, **q8),
+            "int8_chunked": serve(dev, prefill_chunk=32, **q8)}
+
+    def same(a, b):
+        return all(np.array_equal(x, y) for x, y in zip(arms[a][1],
+                                                        arms[b][1]))
+    gates = {"card_equals_cpu": same("int8_cuda", "int8_cpu"),
+             "spec_equals_plain": same("kv8_spec_int8_drafter", "kv8_plain"),
+             "paged_equals_contiguous": same("int8_paged", "int8_cuda"),
+             "chunked_equals_one_shot": same("int8_chunked", "int8_cuda")}
+    spec = arms["kv8_spec_int8_drafter"][0]
+    line(dict(phase="2d", requests=len(prompts), new_tokens=16, gates=gates,
+              spec_rounds=spec.counts["spec_rounds"],
+              acceptance=spec.counts["spec_accepted"]
+              / max(1, spec.counts["spec_drafted"]),
+              launches={a: v[2] for a, v in arms.items() if "cpu" not in a}))
+    bad = [k for k, v in gates.items() if not v]
+    if bad:
+        fail(f"2d quantized float32 serving: {bad} failed")
+
+
+def phase_quant_full_width(torch, dev, plain_out, plain_ms_per_step):
+    """Phase 3's config and 128 requests (64 new) on the quantized engine:
+    (a) int8 weights and KV, (b) fp8 both (resolving to e4m3 on the card),
+    (c) spec K=7 (held: spec_adaptive off) with the default "int8"
+    drafter on the float tree, (d)
+    spec on the int8 engine (the drafter shares its tree), (e) the paged
+    int8 pool on phase 3c's traffic (prefix hits, copy-on-write). Gates:
+    every result well formed; (c) ≡ phase 3's bf16 plain engine, (d) ≡
+    (a); (d) accepts every draft its budgets allow, K stays 7; exact
+    launches (the quantized decode entry n_layers x chunk per decode chunk
+    and K x n_layers per spec round, the quantized window n_layers per
+    round; the float decode and window kernels and the plain twins never
+    on a quantized pool); (e) hits and copies in the second wave, no page
+    leaked. Prints tokens/s and ms a decode step beside phase 3's, param
+    and pool bytes against the bf16 engine's, and one profiled quantized
+    decode chunk. Returns the launches by kernel summary name."""
+    from deeplearning4j_tpu_torch.models import transformer as tf
+    from deeplearning4j_tpu_torch.ops import flash_attention as fa
+    from deeplearning4j_tpu_torch.ops import flash_decode as fd
+    from deeplearning4j_tpu_torch.serving.engine import (EngineConfig,
+                                                         InferenceEngine)
+    cfg = tf.TransformerConfig(vocab_size=256, d_model=512, n_heads=8,
+                               n_layers=12, max_len=2048, dtype="bfloat16")
+    L, chunk, new, K = cfg.n_layers, 8, 64, 7
+    rng = np.random.default_rng(0)
+    lens = rng.integers(16, 1025, size=128)
+    prompts = [rng.integers(0, 256, size=int(n)).astype(np.int32)
+               for n in lens]
+    params = tf.TransformerLM(cfg, seed=0, device=dev).params
+    base = dict(num_slots=64, decode_chunk=chunk, max_new_tokens=new,
+                max_queue=256, degrade_queue_depth=1024)
+    q8 = dict(quantize="int8", kv_quantize="int8")
+    launches = {"decode_attention_q": 0, "decode_window_q": 0}
+    results = {}
+
+    def arm(name, waves, **kw):
+        eng = InferenceEngine(cfg, params, EngineConfig(**{**base, **kw}),
+                              device=dev)
+        for c in QUANT_COUNTERS:
+            getattr(fd, c).launches = 0
+        fa.flash_forward_cuda.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with CountTwins(fd) as twins:
+            out, _ = serve_waves(eng, waves)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        n = {c: getattr(fd, c).launches for c in QUANT_COUNTERS}
+        n_flash = fa.flash_forward_cuda.launches
+        for prompts_w, res in zip(waves, out):
+            for p, r in zip(prompts_w, res):
+                if r.shape != (p.shape[0] + new,) or \
+                        not np.array_equal(r[:p.shape[0]], p) or \
+                        r.min() < 0 or r.max() >= cfg.vocab_size:
+                    fail(f"3d {name}: bad result of shape {r.shape}")
+        c = eng.counts
+        chunks, rounds = c["decode_chunks"], c["spec_rounds"]
+        quant_kv = eng.config.kv_quantize is not None
+        want_dec = L * chunk * chunks + L * K * rounds
+        want = {"decode_attention_q_cuda": want_dec if quant_kv else 0,
+                "decode_window_attention_q_cuda": L * rounds if quant_kv
+                else 0,
+                "decode_attention_cuda": 0 if quant_kv else want_dec,
+                "decode_window_attention_cuda": 0 if quant_kv
+                else L * rounds}
+        want_flash = (0 if eng.config.paged else L * c["prefill_calls"])
+        if n != want or twins.calls or n_flash != want_flash:
+            fail(f"3d {name}: launches {n} (want {want}), flash {n_flash} "
+                 f"(want {want_flash}), plain twin calls {twins.calls}")
+        launches["decode_attention_q"] += n["decode_attention_q_cuda"]
+        launches["decode_window_q"] += n["decode_window_attention_q_cuda"]
+        n_tok = sum(len(w) for w in waves) * new
+        rec = dict(phase="3d", arm=name, quantize=eng._qmode,
+                   kv_quantize=eng._kv_mode,
+                   pool_dtype=str(eng._slot_state[0].dtype),
+                   requests=sum(len(w) for w in waves), new_tokens=new,
+                   wall_s=wall, tokens_per_s=n_tok / wall,
+                   prefill_calls=c["prefill_calls"],
+                   prefill_s=eng.seconds["prefill"], decode_chunks=chunks,
+                   decode_s=eng.seconds["decode"],
+                   param_bytes=c["param_bytes"],
+                   kv_pool_bytes=c["kv_pool_bytes"], launches=n,
+                   flash_launches=n_flash, plain_twin_calls=twins.calls)
+        if chunks:
+            rec["ms_per_decode_step"] = (eng.seconds["decode"]
+                                         / (chunk * chunks) * 1e3)
+        if rounds:
+            rec.update(spec_rounds=rounds, spec_k=K,
+                       ms_per_spec_round=eng.seconds["spec"] / rounds * 1e3,
+                       drafted=c["spec_drafted"], accepted=c["spec_accepted"],
+                       acceptance=c["spec_accepted"] / c["spec_drafted"],
+                       spec_k_final=eng.spec_k_current)
+        if eng.config.paged:
+            rec.update(prefix_hits=c["prefix_hits"],
+                       prefix_shared_tokens=c["prefix_shared_tokens"],
+                       cow_copies=c["cow_copies"],
+                       pages_used=c["pages_used"],
+                       prefix_cache_pages=eng.prefix_cache_pages)
+        line(rec)
+        results[name] = out
+        return eng, rec
+
+    eng_a, rec_a = arm("int8", [prompts], **q8)
+    _, rec_b = arm("fp8", [prompts], quantize="fp8", kv_quantize="fp8")
+    if (rec_b["quantize"], rec_b["kv_quantize"], rec_b["pool_dtype"]) != \
+            ("fp8", "fp8", "torch.float8_e4m3fn"):
+        fail(f"3d fp8 arm did not resolve to e4m3 on the card: {rec_b}")
+    # K held at 7 (spec_adaptive off): the acceptance read at K=7, and
+    # the draft launches exact (L x K a round)
+    _, rec_c = arm("spec_int8_drafter", [prompts], spec_decode=True,
+                   spec_k=K, spec_adaptive=False)
+    _, rec_d = arm("spec_int8_engine", [prompts], spec_decode=True,
+                   spec_k=K, **q8)
+    bad_c = [i for i, (a, b) in enumerate(zip(results["spec_int8_drafter"][0],
+                                               plain_out)) if
+             not np.array_equal(a, b)]
+    bad_d = [i for i, (a, b) in enumerate(zip(results["spec_int8_engine"][0],
+                                               results["int8"][0])) if
+             not np.array_equal(a, b)]
+    # every draft accepted where the budget lets it: a request's 63
+    # tokens after its first take ceil(63 / 8) rounds, each accepting
+    # all but the token it commits past its drafts
+    n_rounds = -(-(new - 1) // (K + 1))
+    want_acc = len(prompts) * ((new - 1) - n_rounds)
+    line(dict(phase="3d", run="spec_gates", spec_int8_drafter_vs_plain_bf16=
+              f"{len(plain_out) - len(bad_c)}/{len(plain_out)} equal",
+              spec_int8_engine_vs_int8_plain=
+              f"{len(prompts) - len(bad_d)}/{len(prompts)} equal",
+              int8_engine_accepted=rec_d["accepted"],
+              accepted_if_every_draft_matches=want_acc,
+              int8_engine_spec_k_final=rec_d["spec_k_final"]))
+    if bad_c:
+        fail(f"3d spec with the int8 drafter differs from the bf16 plain "
+             f"engine in requests {bad_c[:8]} ({len(bad_c)})")
+    if bad_d or rec_d["accepted"] != want_acc or rec_d["spec_k_final"] != K:
+        fail(f"3d spec on the int8 engine: {len(bad_d)} requests differ "
+             f"from plain int8, accepted {rec_d['accepted']} of {want_acc}, "
+             f"K {rec_d['spec_k_final']}")
+    first = paged_traffic(rng, 96, 32, 512, (16, 512), (16, 1024))
+    again = [first[i] for i in rng.choice(len(first), size=32,
+                                          replace=False)]
+    eng_e, rec_e = arm("paged_int8", [first, again], paged=True, page_size=16,
+                       kv_pages=3072 + 1, **q8)
+    if not (rec_e["prefix_hits"] > 0 and rec_e["cow_copies"] > 0):
+        fail(f"3d paged int8: {rec_e['prefix_hits']} hits, "
+             f"{rec_e['cow_copies']} copies")
+    if rec_e["pages_used"] != rec_e["prefix_cache_pages"]:
+        fail(f"3d paged int8 leaked pages: {rec_e['pages_used']} used, "
+             f"{rec_e['prefix_cache_pages']} held by the prefix cache")
+    bf16 = InferenceEngine(cfg, params, EngineConfig(**base), device=dev)
+    bf16_paged = InferenceEngine(cfg, params, EngineConfig(
+        **base, paged=True, page_size=16, kv_pages=3072 + 1), device=dev)
+    line(dict(phase="3d", run="bytes",
+              param_bytes={"bf16": bf16.counts["param_bytes"],
+                           "int8": rec_a["param_bytes"],
+                           "fp8": rec_b["param_bytes"]},
+              kv_pool_bytes={"bf16": bf16.counts["kv_pool_bytes"],
+                             "int8": rec_a["kv_pool_bytes"],
+                             "fp8": rec_b["kv_pool_bytes"],
+                             "bf16_paged": bf16_paged.counts["kv_pool_bytes"],
+                             "int8_paged": rec_e["kv_pool_bytes"]},
+              ms_per_decode_step={"phase3_bf16": plain_ms_per_step,
+                                  "int8": rec_a.get("ms_per_decode_step"),
+                                  "fp8": rec_b.get("ms_per_decode_step"),
+                                  "paged_int8": rec_e.get(
+                                      "ms_per_decode_step")},
+              tokens_per_s={a: r["tokens_per_s"] for a, r in (
+                  ("int8", rec_a), ("fp8", rec_b),
+                  ("spec_int8_drafter", rec_c),
+                  ("spec_int8_engine", rec_d), ("paged_int8", rec_e))}))
+    del bf16, bf16_paged, eng_e
+    profile_decode_tick(torch, eng_a, rng, "int8", phase="3d")
+    del eng_a, params
+    torch.cuda.empty_cache()
+    return launches
 
 
 # ---------------------------------------------------------------------------
@@ -2149,11 +2638,18 @@ def main() -> int:
     measured["decode_window"] = phase_window_kernel(torch, dev)
     measured["flash_bwd_packed2"] = phase_packed_backward_kernel(torch, dev)
     measured["decode_sweep"] = phase_decode_sweep_kernel(torch, dev)
+    quant = phase_quant_kernels(torch, dev)
+    measured["decode_attention_q"] = quant["decode_attention_q/int8"]
+    measured["decode_window_q"] = quant["decode_window_q/int8"]
     phase_f32_card_vs_cpu(torch, dev)
     phase_spec_f32_card_vs_cpu(torch, dev)
     phase_paged_f32_card_vs_cpu(torch, dev)
+    phase_quant_f32_card_vs_cpu(torch, dev)
     measured["lstm_scan"] = phase_lstm_kernel(torch, dev)
-    launches, contiguous_ms_per_step = phase_full_width(torch, dev)
+    launches, contiguous_ms_per_step, plain_out = phase_full_width(torch,
+                                                                   dev)
+    launches.update(phase_quant_full_width(torch, dev, plain_out,
+                                           contiguous_ms_per_step))
     for name, n in phase_spec_full_width(torch, dev).items():
         launches[name] = launches.get(name, 0) + n
     for name, n in phase_paged_full_width(torch, dev,
@@ -2183,6 +2679,13 @@ def main() -> int:
             "benchmarks/headpack_experiment.py:62"),
         "decode_sweep": ("deeplearning4j_tpu_torch/csrc/decode_sweep.cu",
                          "benchmarks/decode_kernel_sweep.py:84"),
+        # the quantized entries: the port's kernel for the reference's
+        # scaled jnp path (its TPU kernel reads float caches only)
+        "decode_attention_q": (
+            "deeplearning4j_tpu_torch/csrc/decode_attention.cu",
+            "deeplearning4j_tpu/ops/flash_decode.py:308"),
+        "decode_window_q": ("deeplearning4j_tpu_torch/csrc/decode_window.cu",
+                            "deeplearning4j_tpu/ops/flash_decode.py:513"),
     }
     kernels = []
     for name, (src, rep) in sources.items():

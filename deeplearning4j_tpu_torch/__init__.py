@@ -8,8 +8,10 @@ hand-written Hopper kernel under `csrc/`, built at first use by
 `ops/_build.py`; its plain PyTorch twin serves CPU tensors only.
 
 Ported so far: the continuous-batching TransformerLM server
-(`serving.InferenceEngine`) with speculative decoding (drafters "self" and
-"layers:N", `quant.model.draft_tree`), `models.transformer.TransformerLM`
+(`serving.InferenceEngine`) with speculative decoding (drafters "int8",
+"fp8", "self" and "layers:N", `quant.model.draft_tree`), paged KV, chunked
+prefill and quantized weights and KV pools (`quant`),
+`models.transformer.TransformerLM`
 with its loss, the single-device Adam train step
 (`parallel.fsdp.make_fsdp_train_step`), the config DSL's
 `nn.multilayer.MultiLayerNetwork` with the GravesLSTM char-RNN, and the

@@ -1,18 +1,27 @@
 // Shared helpers for the port's hand-written Hopper kernels.
 //
 // Element types travel across the plain C interface as an int code
-// (DTYPE_F32 / DTYPE_F16 / DTYPE_BF16, matching ops/_build.py); every
-// kernel loads its inputs through Cvt<T> into float registers and
-// accumulates in float32.
+// (DTYPE_F32 / DTYPE_F16 / DTYPE_BF16, and for a quantized KV cache's
+// values DTYPE_I8 / DTYPE_E4M3, matching ops/_build.py); every kernel
+// loads its inputs through Cvt<T> into float registers and accumulates
+// in float32.
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
+#include <cuda_fp8.h>
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 namespace dl4j {
 
-enum DType { DTYPE_F32 = 0, DTYPE_F16 = 1, DTYPE_BF16 = 2 };
+enum DType {
+  DTYPE_F32 = 0,
+  DTYPE_F16 = 1,
+  DTYPE_BF16 = 2,
+  DTYPE_I8 = 3,
+  DTYPE_E4M3 = 4
+};
 
 template <typename T>
 struct Cvt;
@@ -43,6 +52,14 @@ struct Cvt<__nv_bfloat16> {
   }
 };
 
+// The quantized cache's int8 values: read only, each exactly a float.
+template <>
+struct Cvt<int8_t> {
+  static __device__ __forceinline__ float to(int8_t x) {
+    return static_cast<float>(x);
+  }
+};
+
 // x rounded to T and back: the probability cast of the reference kernels
 // (p.astype(v.dtype) before the PV product).
 template <typename T>
@@ -58,6 +75,29 @@ __device__ __forceinline__ void load16(const T* src, float* dst) {
   const T* e = reinterpret_cast<const T*>(&raw);
 #pragma unroll
   for (int i = 0; i < N; ++i) dst[i] = Cvt<T>::to(e[i]);
+}
+
+// 16 e4m3 values unpacked to float, exactly: two at a time by the sm_89+
+// cvt to a half pair (every e4m3 value is a half, every half a float).
+// Byte k of the vector is element k; a pair's low byte is its low half.
+template <>
+__device__ __forceinline__ void load16<__nv_fp8_e4m3>(
+    const __nv_fp8_e4m3* src, float* dst) {
+  const uint4 raw = *reinterpret_cast<const uint4*>(src);
+  const unsigned int w[4] = {raw.x, raw.y, raw.z, raw.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const unsigned short pair = (unsigned short)(w[i] >> (16 * j));
+      unsigned int h2;
+      asm("cvt.rn.f16x2.e4m3x2 %0, %1;" : "=r"(h2) : "h"(pair));
+      dst[4 * i + 2 * j] =
+          __half2float(__ushort_as_half((unsigned short)(h2 & 0xffffu)));
+      dst[4 * i + 2 * j + 1] =
+          __half2float(__ushort_as_half((unsigned short)(h2 >> 16)));
+    }
+  }
 }
 
 // Finite "minus infinity" of the reference (NEG_INF = -1e30): a fully

@@ -37,10 +37,24 @@
 // lanes' online-softmax states merge by shuffles and across warps
 // through shared memory.
 //
-// Both paths: rows past a slot's filled prefix pos[b] are never read (the
-// reference's DMA clamp, :194-199), and a stacked cache [L, B, S, D] is
-// read through the layer plane's base pointer (an offset into the stacked
-// buffer), never copied (the reference's :301-307).
+// Quantized entry (dl4j_decode_attention_q): an int8 or e4m3 cache with
+// one float32 scale per cache row, under a float32, float16 or bfloat16
+// query. It is the port's kernel for the reference's scaled jnp path
+// (flash_decode.py:308-314: the TPU kernel read float caches only) and
+// computes that path's function: decode_core.cuh's row loop with one byte
+// a cache element, the K scale folded into the score and the V scale into
+// the probability, in float32. Bound: bytes, (pos[b]+1) * Dh * 2 bytes a
+// (b, h) plus 8 bytes of scales a cache row: ~135 MB at B=64, S=2048,
+// D=512 at pos 2047, ~40 us at 3.35 TB/s, half the bf16 cache's time.
+// Design: one CTA of 4 warps a (b, h), as the float32 path; its window
+// twin (decode_window.cu) runs the same loop, so each window row equals
+// this kernel at its own position bit for bit.
+//
+// All paths: rows past a slot's filled prefix pos[b] are never read (the
+// reference's DMA clamp, :194-199), and a stacked cache [L, B, S, D] (and
+// a stacked scale plane [L, B, S, 1]) is read through the layer plane's
+// base pointer (an offset into the stacked buffer), never copied (the
+// reference's :301-307).
 #include <stdint.h>
 
 #include <type_traits>
@@ -67,8 +81,81 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ kc,
   const int bound[1] = {p};
   const size_t row = ((size_t)b * H + h) * DH;
   const size_t base = (size_t)b * S * D + (size_t)h * DH;
-  decode::attend_rows<T, DH, 1>(q + row, o + row, 0, kc + base, vc + base, D,
-                                bound, 1, scale);
+  decode::attend_rows<T, T, DH, 1>(q + row, o + row, 0, kc + base,
+                                   vc + base, D, nullptr, nullptr, bound, 1,
+                                   scale);
+}
+
+// the quantized cache: TK one byte an element, ks / vs its [B, S] scales
+template <typename TQ, typename TK, int DH>
+__global__ void __launch_bounds__(THREADS)
+decode_q_kernel(const TQ* __restrict__ q, const TK* __restrict__ kc,
+                const TK* __restrict__ vc, const float* __restrict__ ks,
+                const float* __restrict__ vs, TQ* __restrict__ o,
+                const int* __restrict__ pos, int pos_scalar, int H, int S,
+                float scale) {
+  const int h = blockIdx.x;
+  const int b = blockIdx.y;
+  const int D = H * DH;
+  int p = pos != nullptr ? pos[b] : pos_scalar;
+  p = p < 0 ? 0 : (p > S - 1 ? S - 1 : p);
+  const int bound[1] = {p};
+  const size_t row = ((size_t)b * H + h) * DH;
+  const size_t base = (size_t)b * S * D + (size_t)h * DH;
+  const size_t srow = (size_t)b * S;
+  decode::attend_rows<TQ, TK, DH, 1>(q + row, o + row, 0, kc + base,
+                                     vc + base, D, ks + srow, vs + srow,
+                                     bound, 1, scale);
+}
+
+template <typename TQ, typename TK, int DH>
+int launch_q(const void* q, const void* k, const void* v, const float* ks,
+             const float* vs, void* o, const int* pos, int pos_scalar,
+             int B, int H, int S, float scale, cudaStream_t stream) {
+  dim3 grid(H, B);
+  decode_q_kernel<TQ, TK, DH><<<grid, THREADS, 0, stream>>>(
+      static_cast<const TQ*>(q), static_cast<const TK*>(k),
+      static_cast<const TK*>(v), ks, vs, static_cast<TQ*>(o), pos,
+      pos_scalar, H, S, scale);
+  return (int)cudaGetLastError();
+}
+
+template <typename TQ, typename TK>
+int dispatch_q_dh(int dh, const void* q, const void* k, const void* v,
+                  const float* ks, const float* vs, void* o, const int* pos,
+                  int pos_scalar, int B, int H, int S, float scale,
+                  cudaStream_t stream) {
+  switch (dh) {
+    case 32:
+      return launch_q<TQ, TK, 32>(q, k, v, ks, vs, o, pos, pos_scalar, B,
+                                  H, S, scale, stream);
+    case 64:
+      return launch_q<TQ, TK, 64>(q, k, v, ks, vs, o, pos, pos_scalar, B,
+                                  H, S, scale, stream);
+    case 128:
+      return launch_q<TQ, TK, 128>(q, k, v, ks, vs, o, pos, pos_scalar, B,
+                                   H, S, scale, stream);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
+template <typename TQ>
+int dispatch_q_cache(int kdtype, int dh, const void* q, const void* k,
+                     const void* v, const float* ks, const float* vs,
+                     void* o, const int* pos, int pos_scalar, int B, int H,
+                     int S, float scale, cudaStream_t stream) {
+  switch (kdtype) {
+    case DTYPE_I8:
+      return dispatch_q_dh<TQ, int8_t>(dh, q, k, v, ks, vs, o, pos,
+                                       pos_scalar, B, H, S, scale, stream);
+    case DTYPE_E4M3:
+      return dispatch_q_dh<TQ, __nv_fp8_e4m3>(dh, q, k, v, ks, vs, o, pos,
+                                              pos_scalar, B, H, S, scale,
+                                              stream);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }
 
 // float32 keeps the SIMT kernel; bf16 / f16 take decode_tc.cuh's core at
@@ -140,6 +227,41 @@ extern "C" int dl4j_decode_attention(const void* q, const void* k,
     case DTYPE_BF16:
       return dispatch_dh<__nv_bfloat16>(dh, q, k, v, o, pp, pos_scalar, B,
                                         H, S, scale, s);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
+// The quantized cache: q, o contiguous [B, H, Dh] of qdtype (F32 / F16 /
+// BF16); k, v the [B, S, H*Dh] plane of kdtype (I8 / E4M3); ks, vs the
+// plane's float32 row scales [B, S] (a stacked cache's layer plane and a
+// stacked [L, B, S, 1] scale plane's are passed as base pointers). pos as
+// above. Returns the cudaError_t of the launch.
+extern "C" int dl4j_decode_attention_q(const void* q, const void* k,
+                                       const void* v, const void* ks,
+                                       const void* vs, void* o,
+                                       const void* pos, int pos_scalar,
+                                       int B, int H, int dh, int S,
+                                       int qdtype, int kdtype, float scale,
+                                       void* stream) {
+  using namespace dl4j;
+  if (B <= 0 || B > 65535 || H <= 0 || H > 65535 || S <= 0)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int* pp = static_cast<const int*>(pos);
+  const float* kss = static_cast<const float*>(ks);
+  const float* vss = static_cast<const float*>(vs);
+  switch (qdtype) {
+    case DTYPE_F32:
+      return dispatch_q_cache<float>(kdtype, dh, q, k, v, kss, vss, o, pp,
+                                     pos_scalar, B, H, S, scale, s);
+    case DTYPE_F16:
+      return dispatch_q_cache<__half>(kdtype, dh, q, k, v, kss, vss, o, pp,
+                                      pos_scalar, B, H, S, scale, s);
+    case DTYPE_BF16:
+      return dispatch_q_cache<__nv_bfloat16>(kdtype, dh, q, k, v, kss, vss,
+                                             o, pp, pos_scalar, B, H, S,
+                                             scale, s);
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -1,7 +1,9 @@
 // The SIMT row loop of the float32 decode kernel (decode_attention.cu)
-// and float32 speculative-verify window kernel (decode_window.cu); their
-// bf16 / f16 paths run decode_tc.cuh's tensor-core core instead. The
-// decode sweep kernel (decode_sweep.cu) keeps its own loop on row_score.
+// and float32 speculative-verify window kernel (decode_window.cu), and of
+// both kernels' quantized entries (any query dtype over an int8 / e4m3
+// cache); their bf16 / f16 float-cache paths run decode_tc.cuh's
+// tensor-core core instead. The decode sweep kernel (decode_sweep.cu)
+// keeps its own loop on row_score.
 //
 // One CTA of 4 warps owns one (batch row b, head h) and NT query rows of
 // it (NT = 1 for decode; up to 8 window rows for the verify window). It
@@ -21,7 +23,23 @@
 // instantiations differently. So a window row equals the decode kernel at
 // its own position bit for bit, in every dtype: the speculative verify
 // pass reproduces plain decode.
+//
+// Quantized cache (TK int8 or __nv_fp8_e4m3, one byte an element, with a
+// float32 scale per cache row: ks[j], vs[j]). This is the function of
+// the reference's scaled jnp path (ops/flash_decode.py:128-136,
+// :174-184), which its TPU kernel never took: q and the cache values go
+// to float32 exactly, the score is (q.k * ks[j]) * scale in that order,
+// and the probability enters the PV sum as exp(s - m) * vs[j] in float32
+// (no rounding to a value dtype: the reference forms p * v_scale in f32).
+// A lane reads 16 one-byte elements per 16-byte vector, so LPR = Dh/16
+// lanes a row, and holds 16 float32 query values and 16 accumulators per
+// query row. Bound on the card: bytes, one byte a cache element, half of
+// the bf16 cache's. The row loop stays SIMT rather than mma.sync because
+// the reference computes the quantized path in float32: a bf16 mma would
+// round p * vs.
 #pragma once
+
+#include <type_traits>
 
 #include "common.cuh"
 
@@ -44,20 +62,28 @@ __device__ __forceinline__ float row_score(const float* qf, const float* kf) {
   return s;
 }
 
-// q + t*row_step (t < nt): query row t of this (b, h), Dh elements; the
-// output row t goes to o + t*row_step. kb, vb: this (b, h)'s column of the
-// plane, cache row j at + j*D. bound[t]: last cache row query row t
-// attends (0..S-1); entries t >= nt are ignored.
-template <typename T, int DH, int NT>
+// q + t*row_step (t < nt): query row t of this (b, h), Dh elements of TQ;
+// the output row t goes to o + t*row_step. kb, vb: this (b, h)'s column of
+// the plane, cache row j at + j*D, of TK: TQ itself, or a one-byte
+// quantized type whose row j has the scales ks[j], vs[j] (null for a
+// float cache). bound[t]: last cache row query row t attends (0..S-1);
+// entries t >= nt are ignored.
+template <typename TQ, typename TK, int DH, int NT>
 __device__ __forceinline__ void attend_rows(
-    const T* __restrict__ q, T* __restrict__ o, size_t row_step,
-    const T* __restrict__ kb, const T* __restrict__ vb, int D,
+    const TQ* __restrict__ q, TQ* __restrict__ o, size_t row_step,
+    const TK* __restrict__ kb, const TK* __restrict__ vb, int D,
+    const float* __restrict__ ks, const float* __restrict__ vs,
     const int (&bound)[NT], int nt, float scale) {
-  constexpr int VEC = 16 / sizeof(T);   // elements per 16-byte load
+  constexpr bool QUANT = sizeof(TK) == 1;
+  static_assert(QUANT || std::is_same<TQ, TK>::value,
+                "a float cache has the query's dtype");
+  constexpr int VEC = 16 / sizeof(TK);  // cache elements per 16-byte load
+  constexpr int QV = 16 / sizeof(TQ);   // query elements per 16-byte load
   constexpr int LPR = DH / VEC;         // lanes per cache row
   constexpr int RPW = 32 / LPR;         // rows per warp per step
   constexpr int UNROLL = NT == 1 ? 4 : 2;
   static_assert(LPR >= 1 && LPR <= 32 && 32 % LPR == 0, "row geometry");
+  static_assert(VEC % QV == 0, "query chunk geometry");
 
   __shared__ float sm_m[NT][WARPS];
   __shared__ float sm_l[NT][WARPS];
@@ -74,7 +100,9 @@ __device__ __forceinline__ void attend_rows(
 #pragma unroll
   for (int t = 0; t < NT; ++t) {
     if (t < nt) {
-      load16<T>(q + t * row_step + li * VEC, qf[t]);
+#pragma unroll
+      for (int c = 0; c < VEC / QV; ++c)
+        load16<TQ>(q + t * row_step + li * VEC + c * QV, qf[t] + c * QV);
       last = max(last, bound[t]);
     }
     m[t] = -INFINITY;
@@ -90,9 +118,14 @@ __device__ __forceinline__ void attend_rows(
   for (int j0 = warp * RPW; j0 <= last; j0 += WARPS * RPW) {
     const int j = j0 + slot;
     float kf[VEC], vf[VEC];
+    float ksj = 1.f, vsj = 1.f;
     if (j <= last) {
-      load16<T>(kb + (size_t)j * D, kf);
-      load16<T>(vb + (size_t)j * D, vf);
+      load16<TK>(kb + (size_t)j * D, kf);
+      load16<TK>(vb + (size_t)j * D, vf);
+      if constexpr (QUANT) {
+        ksj = ks[j];
+        vsj = vs[j];
+      }
     } else {
 #pragma unroll
       for (int i = 0; i < VEC; ++i) kf[i] = vf[i] = 0.f;
@@ -102,12 +135,21 @@ __device__ __forceinline__ void attend_rows(
       if (t >= nt) continue;            // uniform across the CTA
       float s = row_score<VEC, LPR>(qf[t], kf);
       if (j <= bound[t]) {
-        s = __fmul_rn(s, scale);
+        if constexpr (QUANT) {
+          s = __fmul_rn(__fmul_rn(s, ksj), scale);
+        } else {
+          s = __fmul_rn(s, scale);
+        }
         const float m_new = fmaxf(m[t], s);
         const float corr = expf(__fsub_rn(m[t], m_new));
         const float pe = expf(__fsub_rn(s, m_new));
         l[t] = __fmaf_rn(l[t], corr, pe);
-        const float pr = round_to<T>(pe);
+        float pr;
+        if constexpr (QUANT) {
+          pr = __fmul_rn(pe, vsj);
+        } else {
+          pr = round_to<TQ>(pe);
+        }
 #pragma unroll
         for (int i = 0; i < VEC; ++i)
           acc[t][i] = __fmaf_rn(pr, vf[i], __fmul_rn(acc[t][i], corr));
@@ -161,7 +203,7 @@ __device__ __forceinline__ void attend_rows(
       lt = __fmaf_rn(sm_l[t][w], cw, lt);
       at = __fmaf_rn(sm_acc[t][w][c], cw, at);
     }
-    o[t * row_step + c] = Cvt<T>::from(__fdiv_rn(at, lt));
+    o[t * row_step + c] = Cvt<TQ>::from(__fdiv_rn(at, lt));
   }
 }
 

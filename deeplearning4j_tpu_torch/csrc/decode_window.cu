@@ -41,8 +41,18 @@
 // float32 decode kernel at pos + t bit for bit). Window rows past 8 take
 // further CTAs (blockIdx.z).
 //
-// Both paths: a stacked cache [L, B, S, D] is read through the layer
-// plane's base pointer, as for the decode kernel.
+// Quantized entry (dl4j_decode_window_q): an int8 or e4m3 cache with one
+// float32 scale per cache row under a float32, float16 or bfloat16 query,
+// the port's kernel for the reference's scaled jnp path
+// (flash_decode.py:513-519). decode_core.cuh's row loop as the quantized
+// decode kernel runs it, so window row t equals that kernel at pos + t bit
+// for bit (quantized speculative decoding reproduces quantized plain
+// decode). A lane holds 16 query values and 16 accumulators a window row,
+// so a CTA carries QGROUP = 4 window rows (more would spill); a verify
+// window of T rows takes ceil(T/4) CTAs a (b, h), each reading the cache.
+//
+// All paths: a stacked cache [L, B, S, D] (and a stacked scale plane) is
+// read through the layer plane's base pointer, as for the decode kernel.
 #include <stdint.h>
 
 #include <type_traits>
@@ -56,6 +66,7 @@ namespace {
 using decode::THREADS;
 
 constexpr int GROUP = 8;   // window rows per CTA (float32)
+constexpr int QGROUP = 4;  // window rows per CTA (quantized cache)
 
 template <typename T, int DH>
 __global__ void __launch_bounds__(THREADS)
@@ -79,8 +90,91 @@ window_kernel(const T* __restrict__ q, const T* __restrict__ kc,
   const size_t row_step = (size_t)H * DH;
   const size_t row = (((size_t)b * T_ + t0) * H + h) * DH;
   const size_t base = (size_t)b * S * D + (size_t)h * DH;
-  decode::attend_rows<T, DH, GROUP>(q + row, o + row, row_step, kc + base,
-                                    vc + base, D, bound, nt, scale);
+  decode::attend_rows<T, T, DH, GROUP>(q + row, o + row, row_step,
+                                       kc + base, vc + base, D, nullptr,
+                                       nullptr, bound, nt, scale);
+}
+
+// the quantized cache: TK one byte an element, ks / vs its [B, S] scales
+template <typename TQ, typename TK, int DH>
+__global__ void __launch_bounds__(THREADS)
+window_q_kernel(const TQ* __restrict__ q, const TK* __restrict__ kc,
+                const TK* __restrict__ vc, const float* __restrict__ ks,
+                const float* __restrict__ vs, TQ* __restrict__ o,
+                const int* __restrict__ pos, int pos_scalar, int H, int S,
+                int T_, float scale) {
+  const int h = blockIdx.x;
+  const int b = blockIdx.y;
+  const int t0 = blockIdx.z * QGROUP;
+  const int nt = min(QGROUP, T_ - t0);
+  const int D = H * DH;
+  const int p0 = (pos != nullptr ? pos[b] : pos_scalar) + t0;
+  int bound[QGROUP];
+#pragma unroll
+  for (int t = 0; t < QGROUP; ++t) {
+    const int p = p0 + t;
+    bound[t] = p < 0 ? 0 : (p > S - 1 ? S - 1 : p);
+  }
+  const size_t row_step = (size_t)H * DH;
+  const size_t row = (((size_t)b * T_ + t0) * H + h) * DH;
+  const size_t base = (size_t)b * S * D + (size_t)h * DH;
+  const size_t srow = (size_t)b * S;
+  decode::attend_rows<TQ, TK, DH, QGROUP>(q + row, o + row, row_step,
+                                          kc + base, vc + base, D,
+                                          ks + srow, vs + srow, bound, nt,
+                                          scale);
+}
+
+template <typename TQ, typename TK, int DH>
+int launch_q(const void* q, const void* k, const void* v, const float* ks,
+             const float* vs, void* o, const int* pos, int pos_scalar,
+             int B, int T_, int H, int S, float scale, cudaStream_t stream) {
+  if ((T_ + QGROUP - 1) / QGROUP > 65535) return (int)cudaErrorInvalidValue;
+  dim3 grid(H, B, (T_ + QGROUP - 1) / QGROUP);
+  window_q_kernel<TQ, TK, DH><<<grid, THREADS, 0, stream>>>(
+      static_cast<const TQ*>(q), static_cast<const TK*>(k),
+      static_cast<const TK*>(v), ks, vs, static_cast<TQ*>(o), pos,
+      pos_scalar, H, S, T_, scale);
+  return (int)cudaGetLastError();
+}
+
+template <typename TQ, typename TK>
+int dispatch_q_dh(int dh, const void* q, const void* k, const void* v,
+                  const float* ks, const float* vs, void* o, const int* pos,
+                  int pos_scalar, int B, int T_, int H, int S, float scale,
+                  cudaStream_t stream) {
+  switch (dh) {
+    case 32:
+      return launch_q<TQ, TK, 32>(q, k, v, ks, vs, o, pos, pos_scalar, B,
+                                  T_, H, S, scale, stream);
+    case 64:
+      return launch_q<TQ, TK, 64>(q, k, v, ks, vs, o, pos, pos_scalar, B,
+                                  T_, H, S, scale, stream);
+    case 128:
+      return launch_q<TQ, TK, 128>(q, k, v, ks, vs, o, pos, pos_scalar, B,
+                                   T_, H, S, scale, stream);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
+template <typename TQ>
+int dispatch_q_cache(int kdtype, int dh, const void* q, const void* k,
+                     const void* v, const float* ks, const float* vs,
+                     void* o, const int* pos, int pos_scalar, int B, int T_,
+                     int H, int S, float scale, cudaStream_t stream) {
+  switch (kdtype) {
+    case DTYPE_I8:
+      return dispatch_q_dh<TQ, int8_t>(dh, q, k, v, ks, vs, o, pos,
+                                       pos_scalar, B, T_, H, S, scale,
+                                       stream);
+    case DTYPE_E4M3:
+      return dispatch_q_dh<TQ, __nv_fp8_e4m3>(dh, q, k, v, ks, vs, o, pos,
+                                              pos_scalar, B, T_, H, S, scale,
+                                              stream);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }
 
 // float32 keeps the SIMT kernel; bf16 / f16 take decode_tc.cuh's core
@@ -152,6 +246,39 @@ extern "C" int dl4j_decode_window(const void* q, const void* k,
     case DTYPE_BF16:
       return dispatch_dh<__nv_bfloat16>(dh, q, k, v, o, pp, pos_scalar, B, T,
                                         H, S, scale, s);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
+// The quantized cache: q, o contiguous [B, T, H, Dh] of qdtype (F32 / F16
+// / BF16); k, v the [B, S, H*Dh] plane of kdtype (I8 / E4M3); ks, vs the
+// plane's float32 row scales [B, S] (stacked planes passed as base
+// pointers). pos as above. Returns the cudaError_t of the launch.
+extern "C" int dl4j_decode_window_q(const void* q, const void* k,
+                                    const void* v, const void* ks,
+                                    const void* vs, void* o, const void* pos,
+                                    int pos_scalar, int B, int T, int H,
+                                    int dh, int S, int qdtype, int kdtype,
+                                    float scale, void* stream) {
+  using namespace dl4j;
+  if (B <= 0 || B > 65535 || T <= 0 || H <= 0 || H > 65535 || S <= 0)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int* pp = static_cast<const int*>(pos);
+  const float* kss = static_cast<const float*>(ks);
+  const float* vss = static_cast<const float*>(vs);
+  switch (qdtype) {
+    case DTYPE_F32:
+      return dispatch_q_cache<float>(kdtype, dh, q, k, v, kss, vss, o, pp,
+                                     pos_scalar, B, T, H, S, scale, s);
+    case DTYPE_F16:
+      return dispatch_q_cache<__half>(kdtype, dh, q, k, v, kss, vss, o, pp,
+                                      pos_scalar, B, T, H, S, scale, s);
+    case DTYPE_BF16:
+      return dispatch_q_cache<__nv_bfloat16>(kdtype, dh, q, k, v, kss, vss,
+                                             o, pp, pos_scalar, B, T, H, S,
+                                             scale, s);
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -6,7 +6,12 @@ ln2b, W1, b1, W2, b2} stacked on [L], "lnfg", "lnfb", "Wout"}`` — and
 returns the port's tree by key path. No transpose: both sides compute
 ``x @ W`` with W as [in, out]. `adam_state_from_numpy` carries a JAX
 `AdamState` (m and v trees of the params' layout, and the step count)
-across the same way. `network_params_from_numpy` and
+across the same way. A quantized JAX tree (`quant.model.quantize_params`)
+converts too: each `QuantizedTensor` leaf, whose key paths are
+``.../Wq/.values`` and ``.../Wq/.scales``, arrives as an object with
+``values``, ``scales`` and ``mode`` (what ``tree_map(np.asarray, ...)``
+leaves of it) and becomes the port's `quant.core.QuantizedTensor` with
+the same int8 / e4m3 bytes. `network_params_from_numpy` and
 `updater_state_from_numpy` do the same for a `MultiLayerNetwork`'s
 ``{layer_name: {param: array}}`` tree and its updater state
 ``{layer_name: {param: {slot: array}}}``. Callers turn a JAX tree into
@@ -22,6 +27,16 @@ import torch
 
 from deeplearning4j_tpu_torch._device import resolve_device
 from deeplearning4j_tpu_torch.parallel.optim import AdamState
+from deeplearning4j_tpu_torch.quant.core import QuantizedTensor
+
+
+def _from_numpy(x) -> torch.Tensor:
+    """A numpy array as a tensor with the same bytes; float8_e4m3fn
+    arrays (an extension dtype torch cannot read) go through uint8."""
+    a = np.array(x, copy=True, order="C")
+    if a.dtype.name == "float8_e4m3fn":
+        return torch.from_numpy(a.view(np.uint8)).view(torch.float8_e4m3fn)
+    return torch.from_numpy(a)
 
 
 def params_from_numpy(tree: Dict[str, Any], device=None,
@@ -29,13 +44,18 @@ def params_from_numpy(tree: Dict[str, Any], device=None,
                       ) -> Dict[str, Any]:
     """Same keys, every leaf a tensor on ``device`` (CUDA unless
     ``device="cpu"``). ``dtype=None`` keeps each leaf's dtype; a float
-    ``dtype`` casts every leaf to it."""
+    ``dtype`` casts every other leaf to it. A quantized leaf (``values``,
+    ``scales``, ``mode``) becomes a `QuantizedTensor` with its bytes as
+    they are (``dtype`` does not apply to it)."""
     dev = resolve_device(device)
 
     def conv(x):
         if isinstance(x, dict):
             return {k: conv(v) for k, v in x.items()}
-        t = torch.from_numpy(np.array(x, copy=True, order="C"))
+        if all(hasattr(x, a) for a in ("values", "scales", "mode")):
+            return QuantizedTensor(_from_numpy(x.values).to(dev),
+                                   _from_numpy(x.scales).to(dev), x.mode)
+        t = _from_numpy(x)
         if dtype is not None:
             t = t.to(dtype)
         return t.to(dev)

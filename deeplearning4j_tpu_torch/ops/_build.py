@@ -39,8 +39,9 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "--split-compile=0",
               "-Xptxas", "-v"]
 
-# element-type codes of the C interface (csrc/common.cuh DType)
-DTYPE_F32, DTYPE_F16, DTYPE_BF16 = 0, 1, 2
+# element-type codes of the C interface (csrc/common.cuh DType); the
+# one-byte codes name a quantized KV cache's values
+DTYPE_F32, DTYPE_F16, DTYPE_BF16, DTYPE_I8, DTYPE_E4M3 = 0, 1, 2, 3, 4
 
 # name -> C entry point and its argument types (pointers and the stream
 # as c_void_p, so no pointer is ever cut to 32 bits)
@@ -60,6 +61,15 @@ SIGNATURES = {
     "flash_bwd_packed2": ("dl4j_flash_bwd_packed2",
                           [_P] * 11 + [_I] * 5 + [_F, _I, _I, _I, _P]),
     "decode_sweep": ("dl4j_decode_sweep", [_P] * 8 + [_I] * 8 + [_F, _P]),
+}
+
+# further C entry points of a source above: entry -> (source, symbol,
+# argument types). They share the source's library and its build.
+ENTRIES = {
+    "decode_attention_q": ("decode_attention", "dl4j_decode_attention_q",
+                           [_P] * 7 + [_I] * 7 + [_F, _P]),
+    "decode_window_q": ("decode_window", "dl4j_decode_window_q",
+                        [_P] * 7 + [_I] * 8 + [_F, _P]),
 }
 
 _loaded: Dict[str, ctypes._CFuncPtr] = {}
@@ -134,13 +144,18 @@ def build_all() -> None:
 
 
 def load(name: str) -> ctypes._CFuncPtr:
-    """The C entry point of kernel ``name``, built first if needed."""
+    """The C entry point ``name`` (a source of `SIGNATURES` or an entry of
+    `ENTRIES`), its source built first if needed."""
     fn = _loaded.get(name)
     if fn is not None:
         return fn
-    sym, argtypes = SIGNATURES[name]
-    _finish(name, _start(name), time.perf_counter())
-    lib = ctypes.CDLL(str(library_path(name)))
+    if name in ENTRIES:
+        src, sym, argtypes = ENTRIES[name]
+    else:
+        src = name
+        sym, argtypes = SIGNATURES[name]
+    _finish(src, _start(src), time.perf_counter())
+    lib = ctypes.CDLL(str(library_path(src)))
     fn = getattr(lib, sym)
     fn.argtypes = argtypes
     fn.restype = ctypes.c_int
@@ -155,6 +170,18 @@ def dtype_code(dtype) -> int:
     if dtype not in codes:
         raise TypeError(f"CUDA kernels take float32, float16 or bfloat16, "
                         f"got {dtype}")
+    return codes[dtype]
+
+
+def cache_code(dtype) -> int:
+    """The C interface's code of a quantized KV cache's value dtype."""
+    import torch
+    codes = {torch.int8: DTYPE_I8}
+    if hasattr(torch, "float8_e4m3fn"):
+        codes[torch.float8_e4m3fn] = DTYPE_E4M3
+    if dtype not in codes:
+        raise TypeError(f"quantized CUDA kernels take an int8 or "
+                        f"float8_e4m3fn cache, got {dtype}")
     return codes[dtype]
 
 

@@ -19,8 +19,20 @@ for CUDA tensors (or raise for what it does not take) and run
 tensors only. `reference_chunked_window_attention` (and its decode form)
 is the plain twin of the bf16 / f16 kernels' split: chunks of
 `DECODE_CH` cache rows over `decode_cluster(S)` CTAs, merged in rank
-order. The quantized-KV form (`k_scale`/`v_scale`, ROADMAP queue A4) is
-not ported and raises NotImplementedError.
+order.
+
+Quantized KV (``k_scale`` / ``v_scale``): int8 or float8_e4m3fn caches
+with one float32 scale per cache row, given as [B, S] or as the stacked
+[L, B, S, 1] plane with ``layer``. The twins compute the reference's
+algebra (reference :128-136, :174-184): scores ``(q.k) * k_scale *
+scale`` in float32, the NEG_INF mask, a float32 softmax, then
+``(p * v_scale) . v``, cast to q's dtype. On the card the scaled calls
+launch `decode_attention_q_cuda` / `decode_window_attention_q_cuda`:
+decode_core.cuh's SIMT row loop reading one byte a cache element with
+its row's scales (the reference sends these calls to its jnp path,
+flash_decode.py:308-314 and :513-519; the port's kernel computes the
+same function on the card). A scaled call over a float cache, or an
+unscaled one over a quantized cache, raises.
 """
 from __future__ import annotations
 
@@ -31,9 +43,6 @@ import torch
 from deeplearning4j_tpu_torch.ops import _build
 
 NEG_INF = -1e30
-
-_QUANT_TODO = ("quantized-KV decode attention (k_scale/v_scale) is not "
-               "ported yet (ROADMAP queue A4)")
 
 PosLike = Union[int, torch.Tensor]
 
@@ -148,14 +157,25 @@ def reference_decode_attention(q, k_cache, v_cache, pos: PosLike,
     """Plain reference: q [B, H, Dh] at position ``pos`` attends cache
     rows 0..pos (inclusive) of k/v [B, S, D=H*Dh]; returns [B, H, Dh].
     ``pos`` is a scalar (every row at one prefix) or a [B] vector (each
-    row masked to its own prefix). Float caches only (reference :93)."""
-    if k_scale is not None or v_scale is not None:
-        raise NotImplementedError(_QUANT_TODO)
+    row masked to its own prefix). With ``k_scale`` / ``v_scale`` [B, S]
+    (a quantized cache): the reference's scaled algebra in float32, the
+    result in q's dtype (reference :128-136)."""
     b, s, d = k_cache.shape
     h = n_heads
     dh = d // h
     if scale is None:
         scale = 1.0 / (dh ** 0.5)
+    if k_scale is not None:
+        f32 = torch.float32
+        kh = k_cache.to(f32).reshape(b, s, h, dh)
+        vh = v_cache.to(f32).reshape(b, s, h, dh)
+        sc = torch.einsum("bhd,bshd->bhs", q.to(f32), kh) \
+            * k_scale[:, None, :] * scale
+        sc = torch.where(_decode_keep(pos, s, q.device), sc,
+                         torch.full_like(sc, NEG_INF))
+        p = torch.softmax(sc, dim=-1)
+        a = torch.einsum("bhs,bshd->bhd", p * v_scale[:, None, :], vh)
+        return a.to(q.dtype)
     ct = torch.promote_types(q.dtype, k_cache.dtype)
     # scores keep their float32 sum, as the decode kernel takes it (the
     # TPU kernel's jnp.sum(..., dtype=float32)): a bf16 einsum would
@@ -165,28 +185,49 @@ def reference_decode_attention(q, k_cache, v_cache, pos: PosLike,
     vh = v_cache.reshape(b, s, h, dh).to(ct)
     sc = torch.einsum("bhd,bshd->bhs", q.to(st), kh).to(torch.float32) \
         * scale
-    pos_t = torch.as_tensor(pos, device=q.device)
-    bound = pos_t[:, None, None] if pos_t.ndim else pos_t
-    keep = torch.arange(s, device=q.device)[None, None, :] <= bound
-    sc = torch.where(keep, sc, torch.full_like(sc, NEG_INF))
+    sc = torch.where(_decode_keep(pos, s, q.device), sc,
+                     torch.full_like(sc, NEG_INF))
     p = torch.softmax(sc, dim=-1)
     return torch.einsum("bhs,bshd->bhd", p.to(ct), vh).to(q.dtype)
 
 
+def _decode_keep(pos: PosLike, s: int, device) -> torch.Tensor:
+    """The decode mask: cache row s' is attended when s' <= pos (a
+    scalar, or per batch row from a [B] vector); [B or 1, 1, S]."""
+    pos_t = torch.as_tensor(pos, device=device)
+    bound = pos_t[:, None, None] if pos_t.ndim else pos_t
+    return torch.arange(s, device=device)[None, None, :] <= bound
+
+
+def _window_keep(pos: PosLike, t: int, s: int, device) -> torch.Tensor:
+    """The window mask: row t of batch row b attends cache rows
+    0..clip(pos[b] + t, 0, S-1); [B or 1, 1, T, S]."""
+    pos_t = torch.as_tensor(pos, device=device).reshape(-1, 1)
+    wp = torch.clamp(pos_t + torch.arange(t, device=device)[None, :], 0,
+                     s - 1)
+    return torch.arange(s, device=device)[None, None, None, :] \
+        <= wp[:, None, :, None]
+
+
 def _kernel_args(what: str, q, k_cache, v_cache, pos: PosLike, b: int,
-                 h: int, dh: int, n_heads: int, layer: int):
+                 h: int, dh: int, n_heads: int, layer: int,
+                 quantized: bool = False):
     """The checks the decode and window kernels share. Returns (q made
     contiguous, k and v plane pointers, pos pointer or None, scalar pos,
-    the int32 pos tensor, S, dtype code). The caller holds that tensor
-    until the launch: freed earlier, its block could be handed to the
-    output allocated next."""
+    the int32 pos tensor, S, dtype code of q). The caller holds that
+    tensor until the launch: freed earlier, its block could be handed to
+    the output allocated next. A ``quantized`` call takes an int8 / e4m3
+    cache under a float32, float16 or bfloat16 q; a float call, a cache
+    of q's dtype."""
     if k_cache.ndim not in (3, 4):
         raise ValueError(f"{what}: bad cache shape {tuple(k_cache.shape)}")
     if not (k_cache.is_cuda and v_cache.is_cuda):
         raise ValueError(f"{what}: q and caches must share one device")
     if k_cache.shape != v_cache.shape or k_cache.dtype != v_cache.dtype:
         raise ValueError(f"{what}: k and v caches differ")
-    if q.dtype != k_cache.dtype:
+    if quantized:
+        _build.cache_code(k_cache.dtype)
+    elif q.dtype != k_cache.dtype:
         raise TypeError(f"{what} kernel needs q and cache of one dtype, got "
                         f"{q.dtype} and {k_cache.dtype}")
     code = _build.dtype_code(q.dtype)
@@ -253,23 +294,106 @@ def decode_attention_cuda(q, k_cache, v_cache, pos: PosLike, n_heads: int,
 decode_attention_cuda.launches = 0
 
 
+def _scale_args(what: str, k_scale, v_scale, layer: int, b: int, s: int,
+                device):
+    """Pointers of the K and V scale planes the quantized kernels read:
+    a contiguous float32 [B, S] plane on the cache's device, or the
+    stacked [L, B, S, 1] plane with ``layer`` (a pointer offset, never a
+    copy)."""
+    ptrs = []
+    for name, sc in (("k_scale", k_scale), ("v_scale", v_scale)):
+        if sc.dtype != torch.float32 or sc.device != device or \
+                not sc.is_contiguous():
+            raise ValueError(f"{what}: {name} must be contiguous float32 "
+                             f"on {device}, got {sc.dtype} on {sc.device}")
+        if sc.ndim == 2 and tuple(sc.shape) == (b, s):
+            ptrs.append(sc.data_ptr())
+        elif sc.ndim == 4 and tuple(sc.shape[1:]) == (b, s, 1):
+            if not 0 <= layer < sc.shape[0]:
+                raise IndexError(f"layer {layer} out of range "
+                                 f"[0, {sc.shape[0]})")
+            ptrs.append(sc.data_ptr() + layer * b * s * 4)
+        else:
+            raise ValueError(f"{what}: {name} must be [B, S]=({b}, {s}) or "
+                             f"[L, B, S, 1], got {tuple(sc.shape)}")
+    return ptrs
+
+
+def decode_attention_q_cuda(q, k_cache, v_cache, pos: PosLike,
+                            n_heads: int, k_scale, v_scale,
+                            scale: Optional[float] = None,
+                            layer: int = 0) -> torch.Tensor:
+    """Launch csrc/decode_attention.cu's quantized entry: q [B, H, Dh]
+    (float32, float16 or bfloat16) over an int8 / e4m3 cache with its
+    float32 row scales, one CTA a (b, h) (decode_core.cuh's row loop).
+    One launch; counts its launches apart from the float kernel's."""
+    if q.ndim != 3:
+        raise ValueError(f"decode_attention: bad q shape {tuple(q.shape)}")
+    b, h, dh = q.shape
+    q, kp, vp, pos_ptr, pos_scalar, pos_keep, s, code = _kernel_args(
+        "decode_attention", q, k_cache, v_cache, pos, b, h, dh, n_heads,
+        layer, quantized=True)
+    ksp, vsp = _scale_args("decode_attention", k_scale, v_scale, layer, b,
+                           s, q.device)
+    if scale is None:
+        scale = 1.0 / (dh ** 0.5)
+    o = torch.empty_like(q)
+    fn = _build.load("decode_attention_q")
+    err = fn(q.data_ptr(), kp, vp, ksp, vsp, o.data_ptr(), pos_ptr,
+             pos_scalar, b, h, dh, s, code, _build.cache_code(k_cache.dtype),
+             float(scale), _build.stream_ptr(q.device))
+    _build.check(err, "decode_attention (quantized)")
+    decode_attention_q_cuda.launches += 1
+    return o
+
+
+decode_attention_q_cuda.launches = 0
+
+
+def _quant_call(what: str, k_cache, k_scale, v_scale) -> bool:
+    """Whether a call is the quantized form; raises on a half-given
+    pair, a scaled float cache or an unscaled quantized one."""
+    if (k_scale is None) != (v_scale is None):
+        raise ValueError(f"{what}: give both k_scale and v_scale, or "
+                         "neither")
+    quantized = k_scale is not None
+    if quantized != (k_cache.element_size() == 1):
+        raise ValueError(
+            f"{what}: k_scale / v_scale go with an int8 or float8_e4m3fn "
+            f"cache and only with one; got a {k_cache.dtype} cache "
+            f"{'with' if quantized else 'without'} scales")
+    return quantized
+
+
+def _scale_plane(sc, layer: int):
+    """[B, S] from a scale given as [B, S] or stacked [L, B, S, 1]."""
+    return sc[layer, :, :, 0] if sc.ndim == 4 else sc
+
+
 def decode_attention(q, k_cache, v_cache, pos: PosLike, n_heads: int,
                      scale: Optional[float] = None, layer: int = 0,
                      k_scale=None, v_scale=None) -> torch.Tensor:
     """q [B, H, Dh] at position ``pos`` (cache row ``pos`` already
     written) attends rows 0..pos of the flattened-head caches [B, S, D]
-    or stacked [L, B, S, D] (``layer`` picks the plane). Returns
-    [B, H, Dh] in q's dtype: the kernel for CUDA tensors, the plain
-    reference for CPU tensors."""
-    if k_scale is not None or v_scale is not None:
-        raise NotImplementedError(_QUANT_TODO)
+    or stacked [L, B, S, D] (``layer`` picks the plane). A quantized
+    cache comes with ``k_scale`` / ``v_scale`` ([B, S], or [L, B, S, 1]
+    picked by ``layer``). Returns [B, H, Dh] in q's dtype: a kernel for
+    CUDA tensors, the plain reference for CPU tensors."""
+    quantized = _quant_call("decode_attention", k_cache, k_scale, v_scale)
     if q.is_cuda:
+        if quantized:
+            return decode_attention_q_cuda(q, k_cache, v_cache, pos,
+                                           n_heads, k_scale, v_scale, scale,
+                                           layer)
         return decode_attention_cuda(q, k_cache, v_cache, pos, n_heads,
                                      scale, layer)
     if k_cache.ndim == 4:
         k_cache, v_cache = k_cache[layer], v_cache[layer]
+    if quantized:
+        k_scale, v_scale = (_scale_plane(x, layer) for x in (k_scale,
+                                                             v_scale))
     return reference_decode_attention(q, k_cache, v_cache, pos, n_heads,
-                                      scale)
+                                      scale, k_scale, v_scale)
 
 
 def reference_window_attention(q, k_cache, v_cache, pos: PosLike,
@@ -282,24 +406,31 @@ def reference_window_attention(q, k_cache, v_cache, pos: PosLike,
     [B, T, H, Dh]. Scores keep their float32 sum, as
     `reference_decode_attention` and the kernels take it; then the scale,
     the NEG_INF mask, a float32 softmax, and the probabilities rounded to
-    the value dtype before the PV product. Float caches only."""
-    if k_scale is not None or v_scale is not None:
-        raise NotImplementedError(_QUANT_TODO)
+    the value dtype before the PV product. With ``k_scale`` /
+    ``v_scale`` [B, S] (a quantized cache): the reference's scaled
+    algebra in float32, the result in q's dtype (reference :174-184)."""
     b, t, h, dh = q.shape
     s = k_cache.shape[-2]
     if scale is None:
         scale = 1.0 / (dh ** 0.5)
+    keep = _window_keep(pos, t, s, q.device)
+    if k_scale is not None:
+        f32 = torch.float32
+        kh = k_cache.to(f32).reshape(b, s, h, dh)
+        vh = v_cache.to(f32).reshape(b, s, h, dh)
+        sc = torch.einsum("bthd,bshd->bhts", q.to(f32), kh) \
+            * k_scale[:, None, None, :] * scale
+        sc = torch.where(keep, sc, torch.full_like(sc, NEG_INF))
+        p = torch.softmax(sc, dim=-1)
+        a = torch.einsum("bhts,bshd->bthd", p * v_scale[:, None, None, :],
+                         vh)
+        return a.to(q.dtype)
     ct = torch.promote_types(q.dtype, k_cache.dtype)
     st = torch.promote_types(ct, torch.float32)
     kh = k_cache.reshape(b, s, h, dh).to(st)
     vh = v_cache.reshape(b, s, h, dh).to(ct)
     sc = torch.einsum("bthd,bshd->bhts", q.to(st), kh).to(torch.float32) \
         * scale
-    pos_t = torch.as_tensor(pos, device=q.device).reshape(-1, 1)
-    wp = torch.clamp(pos_t + torch.arange(t, device=q.device)[None, :], 0,
-                     s - 1)                                 # [B or 1, T]
-    keep = torch.arange(s, device=q.device)[None, None, None, :] \
-        <= wp[:, None, :, None]
     sc = torch.where(keep, sc, torch.full_like(sc, NEG_INF))
     p = torch.softmax(sc, dim=-1)
     return torch.einsum("bhts,bshd->bthd", p.to(ct), vh).to(q.dtype)
@@ -334,6 +465,46 @@ def decode_window_attention_cuda(q, k_cache, v_cache, pos: PosLike,
 decode_window_attention_cuda.launches = 0
 
 
+# window rows a CTA of the quantized window kernel carries (decode_window.cu
+# QGROUP): each row keeps 16 float32 query values and 16 accumulators a
+# lane, so four rows fit the registers; more rows take more CTAs
+DECODE_Q_WINDOW_GROUP = 4
+
+
+def decode_window_attention_q_cuda(q, k_cache, v_cache, pos: PosLike,
+                                   n_heads: int, k_scale, v_scale,
+                                   scale: Optional[float] = None,
+                                   layer: int = 0) -> torch.Tensor:
+    """Launch csrc/decode_window.cu's quantized entry on q [B, T, H, Dh]
+    over an int8 / e4m3 cache with its float32 row scales: one CTA a
+    (b, h) and group of `DECODE_Q_WINDOW_GROUP` window rows, each row
+    computed as the quantized decode kernel computes it. One launch;
+    counts its launches apart from the float kernel's."""
+    if q.ndim != 4:
+        raise ValueError(f"decode_window_attention: bad q shape "
+                         f"{tuple(q.shape)}")
+    b, t, h, dh = q.shape
+    q, kp, vp, pos_ptr, pos_scalar, pos_keep, s, code = _kernel_args(
+        "decode_window_attention", q, k_cache, v_cache, pos, b, h, dh,
+        n_heads, layer, quantized=True)
+    ksp, vsp = _scale_args("decode_window_attention", k_scale, v_scale,
+                           layer, b, s, q.device)
+    if scale is None:
+        scale = 1.0 / (dh ** 0.5)
+    o = torch.empty_like(q)
+    fn = _build.load("decode_window_q")
+    err = fn(q.data_ptr(), kp, vp, ksp, vsp, o.data_ptr(), pos_ptr,
+             pos_scalar, b, t, h, dh, s, code,
+             _build.cache_code(k_cache.dtype), float(scale),
+             _build.stream_ptr(q.device))
+    _build.check(err, "decode_window_attention (quantized)")
+    decode_window_attention_q_cuda.launches += 1
+    return o
+
+
+decode_window_attention_q_cuda.launches = 0
+
+
 def decode_window_attention(q, k_cache, v_cache, pos: PosLike, n_heads: int,
                             scale: Optional[float] = None, layer: int = 0,
                             k_scale=None, v_scale=None) -> torch.Tensor:
@@ -341,20 +512,28 @@ def decode_window_attention(q, k_cache, v_cache, pos: PosLike, n_heads: int,
     [B, T, H, Dh], window row t of batch row b at position ``pos[b] + t``
     (its cache row already written) attends rows 0..pos[b]+t of the
     flattened-head caches [B, S, D] or stacked [L, B, S, D] (``layer``
-    picks the plane). Returns [B, T, H, Dh] in q's dtype: the kernel for
-    CUDA tensors, the plain reference for CPU tensors. The TPU kernel's
-    block sizing (VMEM budget, DL4JTPU_DECODE_BS and
-    DL4JTPU_DECODE_BLOCK_BYTES) has no counterpart here: the CUDA kernels
-    split the cache at the fixed `DECODE_CH`."""
-    if k_scale is not None or v_scale is not None:
-        raise NotImplementedError(_QUANT_TODO)
+    picks the plane); a quantized cache comes with ``k_scale`` /
+    ``v_scale`` as `decode_attention` takes them. Returns [B, T, H, Dh]
+    in q's dtype: a kernel for CUDA tensors, the plain reference for CPU
+    tensors. The TPU kernel's block sizing (VMEM budget,
+    DL4JTPU_DECODE_BS and DL4JTPU_DECODE_BLOCK_BYTES) has no counterpart
+    here: the CUDA kernels split the cache at the fixed `DECODE_CH`."""
+    quantized = _quant_call("decode_window_attention", k_cache, k_scale,
+                            v_scale)
     if q.is_cuda:
+        if quantized:
+            return decode_window_attention_q_cuda(
+                q, k_cache, v_cache, pos, n_heads, k_scale, v_scale, scale,
+                layer)
         return decode_window_attention_cuda(q, k_cache, v_cache, pos,
                                             n_heads, scale, layer)
     if k_cache.ndim == 4:
         k_cache, v_cache = k_cache[layer], v_cache[layer]
+    if quantized:
+        k_scale, v_scale = (_scale_plane(x, layer) for x in (k_scale,
+                                                             v_scale))
     return reference_window_attention(q, k_cache, v_cache, pos, n_heads,
-                                      scale)
+                                      scale, k_scale, v_scale)
 
 
 # ---------------------------------------------------------------------------

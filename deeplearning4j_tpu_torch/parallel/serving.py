@@ -40,11 +40,28 @@ becomes a plain function closed over its geometry.
   gathered view (`_gather_pages`), as the reference does: on the same
   values the kernels return the contiguous pool's bits.
 
+Quantization (reference :394, quant/): ``quantized`` ("int8" / "fp8")
+marks the params as a quantized tree; the math is unchanged, every
+weight dequantizes at its use (`quant.core.QuantizedTensor.to`).
+``kv_mode`` switches every program to the quantized pool
+(`init_slot_state(kv_mode=)`, `init_paged_state(kv_mode=)`): the state
+grows two float32 scale planes, (ck, cv, kscale, vscale, pos, tok), K/V
+rows quantize on write (one scale a row, `quant.kv.quantize_rows`, on the
+grid of the pool's value dtype), decode and the verify window read the
+rows through the quantized kernels with the scales folded into scores and
+probabilities, and prefill's cached prefix (chunked or paged) folds them
+the same way in plain attention. The paged programs gather the one-byte
+pages and their scale pages as they are (the reference upcasts the pages
+to float32 first; int8 -> float32 is exact, so the values agree at a
+quarter of the gather bytes). ``draft_quantized`` marks the speculative
+drafter's tree. e4m3 bytes move through index writes, gathers and
+``torch.where`` as uint8 views (`quant.core.raw`), bit-exact.
+
 The reference's programs are functional and the engine rebinds the
 returned pool; here the caches (and pos/tok) are updated IN PLACE and the
 same tensors are returned, which is what the reference's buffer donation
-achieved. The `constrain`, `quantized` and `kv_mode` variants are not
-ported (ROADMAP queue A items 4 and 6).
+achieved. The `constrain` variants are not ported (ROADMAP queue A item
+6).
 """
 from __future__ import annotations
 
@@ -60,6 +77,10 @@ from deeplearning4j_tpu_torch.nn.layers.attention import (
     NEG_INF, dot_product_attention, layer_norm)
 from deeplearning4j_tpu_torch.ops.flash_decode import (
     decode_attention, decode_window_attention)
+from deeplearning4j_tpu_torch.quant.core import raw, resolve_mode
+from deeplearning4j_tpu_torch.quant.kv import (init_paged_quant_state,
+                                               init_quant_slot_state,
+                                               quantize_rows)
 
 
 def _sample_slots(logits, posidx, key: int, temperature: float,
@@ -124,30 +145,68 @@ def _block_out(h, a, p, cfg: TransformerConfig):
     return _local_mlp(h, x, p)
 
 
-def _write_kv(ck_all, cv_all, layer: int, wp, keep, k, v) -> None:
-    """Write each slot's K/V row [Ns, D] in place at (layer, slot, wp)
-    where ``keep``; elsewhere the slot re-writes its own row, so the
-    write stays one fixed-shape scatter (reference :460)."""
-    rows = torch.arange(wp.shape[0], device=wp.device)
-    wi = wp.long()
-    keep = keep[:, None]
-    ck_all[layer, rows, wi] = torch.where(
-        keep, k.to(ck_all.dtype), ck_all[layer, rows, wi])
-    cv_all[layer, rows, wi] = torch.where(
-        keep, v.to(cv_all.dtype), cv_all[layer, rows, wi])
+def _pool_mode(cache) -> str:
+    """The grid of a quantized pool, read from its values' dtype."""
+    if cache.dtype == torch.int8:
+        return "int8"
+    if cache.dtype == getattr(torch, "float8_e4m3fn", None):
+        return "fp8"
+    raise TypeError(f"a quantized KV pool holds int8 or float8_e4m3fn "
+                    f"values, got {cache.dtype}")
 
 
-def _local_block_decode_slotted(h, p, ck_all, cv_all, layer: int, pos,
-                                act, cfg: TransformerConfig):
-    """One block, one new position PER SLOT: h [Ns, 1, D], stacked caches
-    [L, Ns, S, D], pos [Ns], act [Ns] bool. The K/V row is written in
-    place at (layer, slot, clip(pos)) for active slots. Attention masks
-    each slot to its own prefix 0..clip(pos)."""
+def _store(kv, layer: int, idx, k, v, keep=None) -> None:
+    """Write K/V rows k, v [..., D] in place at (layer, *idx) of the pool
+    caches ``kv``: (ck, cv), or (ck, cv, kscale, vscale) for a quantized
+    pool, whose rows quantize on write with their scales going to
+    (layer, *idx, 0) of the scale planes (reference :503, :706-730).
+    Where ``keep`` (the shape of idx) is False the old row, and scale, is
+    written back, so the write stays one fixed-shape scatter (reference
+    :460)."""
+    quant = len(kv) == 4
+    at = (layer,) + tuple(idx)
+    for i, x in enumerate((k, v)):
+        cache = kv[i]
+        if quant:
+            xq, xs = quantize_rows(x, _pool_mode(cache))
+            cache, rows = raw(cache), raw(xq)
+        else:
+            rows = x.to(cache.dtype)
+        if keep is not None:
+            rows = torch.where(keep[..., None], rows, cache[at])
+        cache[at] = rows
+        if quant:
+            sc = kv[2 + i]
+            if keep is not None:
+                xs = torch.where(keep, xs, sc[at + (0,)])
+            sc[at + (0,)] = xs
+
+
+def _attn_kv(kv):
+    """(k, v, scale arguments) for the attention kernels from a pool's
+    caches or a gathered view of them, (k, v) or (k, v, kscale, vscale):
+    the scales are the stacked [L, Ns, S, 1] planes (read at the call's
+    ``layer``) or a view's [Ns, S] ones."""
+    return kv[0], kv[1], (dict(k_scale=kv[2], v_scale=kv[3])
+                          if len(kv) == 4 else {})
+
+
+def _local_block_decode_slotted(h, p, kv, layer: int, pos, act,
+                                cfg: TransformerConfig):
+    """One block, one new position PER SLOT: h [Ns, 1, D], the pool's
+    stacked caches ``kv`` (ck, cv [L, Ns, S, D], and the scale planes of
+    a quantized pool), pos [Ns], act [Ns] bool. The K/V row is written in
+    place at (layer, slot, clip(pos)) for active slots (quantized on
+    write in a quantized pool). Attention masks each slot to its own
+    prefix 0..clip(pos), through the decode kernel (its quantized entry
+    on a quantized pool: reference `_local_block_decode_slotted_q`)."""
     q, k, v = _block_qkv(h, p, cfg)
+    ck_all, cv_all, sc = _attn_kv(kv)
     wp = torch.clamp(pos, 0, ck_all.shape[2] - 1)
-    _write_kv(ck_all, cv_all, layer, wp, act, k, v)
+    rows = torch.arange(wp.shape[0], device=wp.device)
+    _store(kv, layer, (rows, wp.long()), k, v, keep=act)
     a = decode_attention(q, ck_all, cv_all, wp, n_heads=cfg.n_heads,
-                         layer=layer)                    # [Ns, H, Dh]
+                         layer=layer, **sc)              # [Ns, H, Dh]
     return _block_out(h, a, p, cfg)
 
 
@@ -170,10 +229,42 @@ def _head_sample(params, cfg: TransformerConfig, h, posidx, key: int,
     return _sample_slots(logits, posidx, key, temperature, top_k, top_p)
 
 
-def init_slot_state(cfg: TransformerConfig, num_slots: int, device):
+def _resolve_quant(quantized, kv_mode):
+    """The two quantization knobs through `quant.core.resolve_mode`
+    (reference :394): None stays None, an unknown mode raises. The
+    programs quantize on the grid of the pool they are given, so only
+    the pools resolve "fp8" against their device."""
+    return resolve_mode(quantized), resolve_mode(kv_mode)
+
+
+def _pool_program(kv_mode, lead: int, body) -> Callable:
+    """The program's call from ``body(*lead_args, kv, *rest)``: the pool's
+    caches follow the ``lead`` leading arguments (params, and dparams
+    for speculative rounds) as (ck, cv), or as (ck, cv, kscale, vscale)
+    with ``kv_mode``; body returns (*kv, ...)."""
+    n = 2 if kv_mode is None else 4
+
+    def run(*args):
+        kv = args[lead:lead + n]
+        if len(kv) != n or (n == 4) != (kv[0].element_size() == 1):
+            kind = "quantized" if n == 4 else "float"
+            raise TypeError(f"a program of the {kind} KV pool was called "
+                            "with another pool")
+        return body(*args[:lead], kv, *args[lead + n:])
+
+    return run
+
+
+def init_slot_state(cfg: TransformerConfig, num_slots: int, device,
+                    kv_mode=None):
     """The persistent slot pool (ck, cv, pos, tok) on ``device``: KV
-    caches [L, Ns, S, D] zero-filled, pos and tok int32 [Ns] zeros."""
+    caches [L, Ns, S, D] zero-filled, pos and tok int32 [Ns] zeros. With
+    ``kv_mode`` ("int8" / "fp8", resolved against ``device``): the
+    quantized pool (ck, cv, kscale, vscale, pos, tok) of
+    `quant.kv.init_quant_slot_state`."""
     _check_slice(cfg)
+    if resolve_mode(kv_mode, device) is not None:
+        return init_quant_slot_state(cfg, num_slots, kv_mode, device)
     dt = cfg.cache_torch_dtype()
     shape = slot_cache_shape(cfg, num_slots)
     ck = torch.zeros(shape, dtype=dt, device=device)
@@ -185,32 +276,36 @@ def init_slot_state(cfg: TransformerConfig, num_slots: int, device):
 
 def make_continuous_prefill(cfg: TransformerConfig, bucket_len: int,
                             num_slots: int, temperature: float = 0.0,
-                            top_k: int = 0, top_p: float = 1.0
-                            ) -> Callable:
+                            top_k: int = 0, top_p: float = 1.0,
+                            quantized=None, kv_mode=None) -> Callable:
     """Slot-pool prefill: (params, ck, cv, pos, tok, prompts [Ns, Tb],
-    plen [Ns], key) -> (ck, cv, pos, tok, first [Ns]). See the module
-    docstring for the admission semantics."""
+    plen [Ns], key) -> (ck, cv, pos, tok, first [Ns]); with ``kv_mode``
+    the pool is (ck, cv, kscale, vscale) and the admitted rows quantize
+    on write (reference :706-730). See the module docstring for the
+    admission semantics."""
     _check_slice(cfg)
     _check_sampling(top_k, top_p)
+    quantized, kv_mode = _resolve_quant(quantized, kv_mode)
     if not 0 < bucket_len <= cfg.max_len:
         raise ValueError(f"bucket_len {bucket_len} out of "
                          f"(0, {cfg.max_len}]")
 
     @torch.no_grad()
-    def run(params, ck, cv, pos, tok, prompts, plen, key: int):
+    def body(params, kv, pos, tok, prompts, plen, key: int):
         dt = cfg.activation_dtype()
         ns, tb = prompts.shape
         if (ns, tb) != (num_slots, bucket_len):
             raise ValueError(f"prompts {tuple(prompts.shape)} != program "
                              f"geometry ({num_slots}, {bucket_len})")
         admit = plen > 0
+        ai = torch.nonzero(admit, as_tuple=True)[0]
+        ti = torch.arange(tb, device=prompts.device)
         h = (params["embed"].to(dt)[prompts.long()]
              + params["pos"].to(dt)[:tb][None])
         for layer in range(cfg.n_layers):
             h, (k, v) = _local_block_prefill(
                 h, layer_params(params, layer), cfg)
-            ck[layer, admit, :tb] = k[admit].to(ck.dtype)
-            cv[layer, admit, :tb] = v[admit].to(cv.dtype)
+            _store(kv, layer, (ai[:, None], ti[None, :]), k[ai], v[ai])
         h = layer_norm(h, params["lnfg"], params["lnfb"], cfg.eps)
         rows = torch.arange(ns, device=h.device)
         last = h[rows, torch.clamp(plen - 1, 0, tb - 1).long()]
@@ -219,25 +314,28 @@ def make_continuous_prefill(cfg: TransformerConfig, bucket_len: int,
         pos.copy_(torch.where(admit, plen.to(pos.dtype), pos))
         tok.copy_(torch.where(admit, first, tok))
         first = torch.where(admit, first, torch.full_like(first, -1))
-        return ck, cv, pos, tok, first
+        return (*kv, pos, tok, first)
 
-    return run
+    return _pool_program(kv_mode, 1, body)
 
 
 def make_continuous_decode(cfg: TransformerConfig, chunk: int,
                            num_slots: int, temperature: float = 0.0,
-                           top_k: int = 0, top_p: float = 1.0
-                           ) -> Callable:
+                           top_k: int = 0, top_p: float = 1.0,
+                           quantized=None, kv_mode=None) -> Callable:
     """Slot-pool decode chunk: (params, ck, cv, pos, tok, active [Ns]
-    bool, rem [Ns] int32, key) -> (ck, cv, pos, tok, toks [Ns, chunk]).
-    See the module docstring for the per-slot semantics."""
+    bool, rem [Ns] int32, key) -> (ck, cv, pos, tok, toks [Ns, chunk]);
+    with ``kv_mode`` the pool is (ck, cv, kscale, vscale) before pos and
+    tok, in the arguments and the results (reference :765). See the
+    module docstring for the per-slot semantics."""
     _check_slice(cfg)
     _check_sampling(top_k, top_p)
+    quantized, kv_mode = _resolve_quant(quantized, kv_mode)
     if chunk < 1:
         raise ValueError(f"chunk must be >= 1, got {chunk}")
 
     @torch.no_grad()
-    def run(params, ck, cv, pos, tok, active, rem, key: int):
+    def body(params, kv, pos, tok, active, rem, key: int):
         if pos.shape != (num_slots,):
             raise ValueError(f"pos {tuple(pos.shape)} != program geometry "
                              f"({num_slots},)")
@@ -249,24 +347,21 @@ def make_continuous_decode(cfg: TransformerConfig, chunk: int,
             h = _embed_pending(params, cfg, pos, tok)
             for layer in range(cfg.n_layers):
                 h = _local_block_decode_slotted(
-                    h, layer_params(params, layer), ck, cv, layer, pos,
-                    act, cfg)
+                    h, layer_params(params, layer), kv, layer, pos, act,
+                    cfg)
             nxt = _head_sample(params, cfg, h, pos + 1, key, temperature,
                                top_k, top_p)
             tok.copy_(torch.where(act, nxt, tok))
             emitted.append(torch.where(act, nxt, neg1))
             pos.copy_(torch.where(act, pos + 1, pos))
             rem = torch.where(act, rem - 1, rem)
-        return ck, cv, pos, tok, torch.stack(emitted, dim=1)
+        return (*kv, pos, tok, torch.stack(emitted, dim=1))
 
-    return run
+    return _pool_program(kv_mode, 1, body)
 
 
 # the program variants this port does not have yet
 _VARIANT_TODO = {
-    "quantized": "quantized weights (ROADMAP queue A4)",
-    "kv_mode": "the quantized KV pool (ROADMAP queue A4)",
-    "draft_quantized": "the quantized drafter (ROADMAP queue A4)",
     "constrain": "grammar-constrained decoding (ROADMAP queue A6)",
 }
 
@@ -283,7 +378,8 @@ def _refuse_variants(maker: str, **variants) -> None:
 # chunked prefill: a prompt in pieces, each attending the cached prefix
 # ---------------------------------------------------------------------------
 
-def _two_piece_attention(q, k, v, kh, vh, start, scale: float):
+def _two_piece_attention(q, k, v, kh, vh, start, scale: float,
+                         ks=None, vs=None):
     """The chunked and paged prefill's attention (reference :1076,
     :1525-1550). q, k, v [Ns, C, H, Dh] are the chunk's; kh, vh
     [Ns, S, H, Dh] the slot's cache view. Chunk row t attends the cached
@@ -291,7 +387,11 @@ def _two_piece_attention(q, k, v, kh, vh, start, scale: float):
     start is 0) and the chunk rows t' <= t (piece 2), with one softmax
     over the concatenated scores; scores and softmax in at least
     float32, each piece's probabilities rounded to its values' dtype.
-    Returns [Ns, C, H, Dh] in the chunk's dtype."""
+    A quantized view comes with its row scales ks, vs [Ns, S]: piece 1
+    is then the reference's scaled algebra in float32 (scores
+    ``(q.k) * ks * scale``, values ``(w * vs) . v`` cast to the chunk's
+    dtype), while the chunk attends itself in float. Returns
+    [Ns, C, H, Dh] in the chunk's dtype."""
     acc = torch.promote_types(q.dtype, torch.float32)
     c, s = q.shape[1], kh.shape[1]
     dev = q.device
@@ -300,11 +400,21 @@ def _two_piece_attention(q, k, v, kh, vh, start, scale: float):
     future = (torch.arange(c, device=dev)[None, :]
               > torch.arange(c, device=dev)[:, None])
     sc2.masked_fill_(future[None, None], NEG_INF)
-    sc1 = torch.einsum("bthd,bshd->bhts", qa, kh.to(acc)) * scale
+    if ks is None:
+        sc1 = torch.einsum("bthd,bshd->bhts", qa, kh.to(acc)) * scale
+    else:
+        f32 = torch.float32
+        sc1 = (torch.einsum("bthd,bshd->bhts", q.to(f32), kh.to(f32))
+               * ks[:, None, None, :] * scale).to(acc)
     sc1.masked_fill_(torch.arange(s, device=dev)[None, None, None, :]
                      >= start[:, None, None, None], NEG_INF)
     w = torch.softmax(torch.cat([sc1, sc2], dim=-1), dim=-1)
-    a1 = torch.einsum("bhts,bshd->bthd", w[..., :s].to(vh.dtype), vh)
+    if ks is None:
+        a1 = torch.einsum("bhts,bshd->bthd", w[..., :s].to(vh.dtype), vh)
+    else:
+        a1 = torch.einsum("bhts,bshd->bthd",
+                          w[..., :s] * vs[:, None, None, :],
+                          vh.to(torch.float32)).to(v.dtype)
     a2 = torch.einsum("bhts,bshd->bthd", w[..., s:].to(v.dtype), v)
     return (a1 + a2).to(q.dtype)
 
@@ -312,7 +422,8 @@ def _two_piece_attention(q, k, v, kh, vh, start, scale: float):
 def _chunk_block(h, p, cfg: TransformerConfig, write, view, start):
     """One block over a prefill chunk h [Ns, C, D]: ``write(k, v)``
     stores the chunk's K/V rows [Ns, C, D], then ``view()`` returns the
-    slot's cache (k, v) [Ns, S, D] for the two-piece attention."""
+    slot's cache (k, v) [Ns, S, D], and for a quantized pool its row
+    scales (ks, vs) [Ns, S], for the two-piece attention."""
     ns, c = h.shape[0], h.shape[1]
 
     def heads(y):
@@ -323,9 +434,9 @@ def _chunk_block(h, p, cfg: TransformerConfig, write, view, start):
     k = torch.matmul(x, p["Wk"].to(x.dtype))
     v = torch.matmul(x, p["Wv"].to(x.dtype))
     write(k, v)
-    kc, vc = view()
+    kc, vc, *scales = view()
     a = _two_piece_attention(q, heads(k), heads(v), heads(kc), heads(vc),
-                             start, cfg.d_head ** -0.5)
+                             start, cfg.d_head ** -0.5, *scales)
     h = h + torch.matmul(a.reshape(ns, c, cfg.d_model), p["Wo"].to(a.dtype))
     x = layer_norm(h, p["ln2g"], p["ln2b"], cfg.eps)
     return _local_mlp(h, x, p)
@@ -368,7 +479,9 @@ def make_chunked_prefill(cfg: TransformerConfig, chunk_len: int,
                          constrain: bool = False) -> Callable:
     """Chunked admission prefill over the contiguous slot pool (reference
     :964): (params, ck, cv, pos, tok, toks [Ns, C], clen [Ns], start
-    [Ns], last [Ns] bool, key) -> (ck, cv, pos, tok, first [Ns]).
+    [Ns], last [Ns] bool, key) -> (ck, cv, pos, tok, first [Ns]); with
+    ``kv_mode`` the pool is (ck, cv, kscale, vscale), chunk rows quantize
+    on write and the cached prefix re-reads through its quantization.
 
     Each slot with clen > 0 advances by toks[i, :clen[i]], the slice
     [start, start + clen) of its committed prefix: its K/V rows land at
@@ -378,22 +491,22 @@ def make_chunked_prefill(cfg: TransformerConfig, chunk_len: int,
     first generated token into ``tok`` and ``first``; mid-prompt chunks
     report -1. start, clen and last are data: one program per
     (chunk_len, num_slots) serves every resume point."""
-    _refuse_variants("make_chunked_prefill", quantized=quantized,
-                     kv_mode=kv_mode, constrain=constrain)
+    _refuse_variants("make_chunked_prefill", constrain=constrain)
     _check_slice(cfg)
     _check_sampling(top_k, top_p)
+    quantized, kv_mode = _resolve_quant(quantized, kv_mode)
     if not 0 < chunk_len <= cfg.max_len:
         raise ValueError(f"chunk_len {chunk_len} out of "
                          f"(0, {cfg.max_len}]")
     sampling = (temperature, top_k, top_p)
 
     @torch.no_grad()
-    def run(params, ck, cv, pos, tok, toks, clen, start, last, key: int):
+    def body(params, kv, pos, tok, toks, clen, start, last, key: int):
         ns, c = toks.shape
         if (ns, c) != (num_slots, chunk_len):
             raise ValueError(f"toks {tuple(toks.shape)} != program "
                              f"geometry ({num_slots}, {chunk_len})")
-        s_max = ck.shape[2]
+        s_max = kv[0].shape[2]
         h, absp = _chunk_embed(params, cfg, toks, start)
         # the rows this call writes (valid and inside the pool): one
         # index list for every layer, so no pad row ever lands on a row
@@ -403,17 +516,19 @@ def make_chunked_prefill(cfg: TransformerConfig, chunk_len: int,
         pi = absp[bi, ti]
         for layer in range(cfg.n_layers):
             def write(k, v, layer=layer):
-                ck[layer, bi, pi] = k[bi, ti].to(ck.dtype)
-                cv[layer, bi, pi] = v[bi, ti].to(cv.dtype)
+                _store(kv, layer, (bi, pi), k[bi, ti], v[bi, ti])
+
+            def view(layer=layer):
+                return (kv[0][layer], kv[1][layer],
+                        *(sc[layer, :, :, 0] for sc in kv[2:]))
 
             h = _chunk_block(h, layer_params(params, layer), cfg, write,
-                             lambda layer=layer: (ck[layer], cv[layer]),
-                             start)
+                             view, start)
         first = _chunk_first(params, cfg, h, clen, start, pos, tok, last,
                              key, sampling)
-        return ck, cv, pos, tok, first
+        return (*kv, pos, tok, first)
 
-    return run
+    return _pool_program(kv_mode, 1, body)
 
 
 # ---------------------------------------------------------------------------
@@ -493,7 +608,11 @@ def make_speculative_decode(cfg: TransformerConfig, spec_k: int,
     """Speculative round over the contiguous slot pool (reference
     :2105): (params, dparams, ck, cv, pos, tok, active [Ns] bool, rem
     [Ns] int32, poison [Ns] bool, key) -> (ck, cv, pos, tok, emit
-    [Ns, K+1], ncommit [Ns], drafted [Ns], accepted [Ns]).
+    [Ns, K+1], ncommit [Ns], drafted [Ns], accepted [Ns]); with
+    ``kv_mode`` the pool is (ck, cv, kscale, vscale): draft and verify
+    rows quantize on write, and the window reads them through the
+    quantized window kernel, whose rows equal the quantized decode
+    kernel's, so quantized spec reproduces quantized plain decode.
 
     Every active slot advances 1..K+1 tokens; ``emit[i, :ncommit[i]]``
     are its committed tokens (-1 beyond). ``dparams`` drive the K draft
@@ -501,12 +620,14 @@ def make_speculative_decode(cfg: TransformerConfig, spec_k: int,
     ``poison`` derails a slot's drafts to (d+1) mod V, so verification
     rejects them. The caches, pos and tok are updated in place; ``rem``
     is not. See the section comment for the exactness and cache-safety
-    arguments. The quantized and constrained variants are not ported."""
-    _refuse_variants("make_speculative_decode", quantized=quantized,
-                     kv_mode=kv_mode, draft_quantized=draft_quantized,
-                     constrain=constrain)
+    arguments. ``quantized`` / ``draft_quantized`` mark the two trees
+    (a quantized drafter is a tree like any other here). The constrained
+    variant is not ported."""
+    _refuse_variants("make_speculative_decode", constrain=constrain)
     _check_slice(cfg)
     _check_sampling(top_k, top_p)
+    quantized, kv_mode = _resolve_quant(quantized, kv_mode)
+    draft_quantized, _ = _resolve_quant(draft_quantized, None)
     nd = _check_spec(cfg, spec_k, draft_layers)
     k1 = spec_k + 1
 
@@ -514,7 +635,7 @@ def make_speculative_decode(cfg: TransformerConfig, spec_k: int,
         return _head_sample(p, cfg, h, posidx, key, temperature, top_k,
                             top_p)
 
-    def draft_phase(dparams, ck, cv, pos, tok, act, key):
+    def draft_phase(dparams, kv, pos, tok, act, key):
         """K sequential draft steps through decode's slotted block (their
         K/V rows land in the live cache; verify rewrites them)."""
         dpos, dtok = pos, tok
@@ -523,20 +644,21 @@ def make_speculative_decode(cfg: TransformerConfig, spec_k: int,
             h = _embed_pending(dparams, cfg, dpos, dtok)
             for layer in range(nd):
                 h = _local_block_decode_slotted(
-                    h, layer_params(dparams, layer), ck, cv, layer, dpos,
-                    act, cfg)
+                    h, layer_params(dparams, layer), kv, layer, dpos, act,
+                    cfg)
             nxt = sample(dparams, h, dpos + 1, key)
             dtok = torch.where(act, nxt, dtok)
             dpos = torch.where(act, dpos + 1, dpos)
             drafts.append(nxt)
         return torch.stack(drafts, dim=1)                # [Ns, K]
 
-    def verify_phase(params, ck, cv, pos, tok, act, drafts, key):
+    def verify_phase(params, kv, pos, tok, act, drafts, key):
         """ONE target pass over the window: per layer each window row's
         K/V is written (rows at or past S dropped), then all rows attend
         through the window kernel. Returns the target's samples at the
         K+1 window positions [Ns, K+1]."""
-        s_max = ck.shape[2]
+        s_max = kv[0].shape[2]
+        rows = torch.arange(tok.shape[0], device=tok.device)
         win = torch.cat([tok[:, None], drafts], dim=1)   # [Ns, K+1]
         posw = pos[:, None] + torch.arange(k1, dtype=pos.dtype,
                                            device=pos.device)[None, :]
@@ -547,36 +669,37 @@ def make_speculative_decode(cfg: TransformerConfig, spec_k: int,
             qs = []
             for t in range(k1):
                 q, k, v = _block_qkv(hs[t], p, cfg)
-                _write_kv(ck, cv, layer,
-                          torch.clamp(posw[:, t], 0, s_max - 1),
-                          act & (posw[:, t] < s_max), k, v)
+                wp = torch.clamp(posw[:, t], 0, s_max - 1)
+                _store(kv, layer, (rows, wp.long()), k, v,
+                       keep=act & (posw[:, t] < s_max))
                 qs.append(q)
+            ck, cv, sc = _attn_kv(kv)
             a = decode_window_attention(torch.stack(qs, dim=1), ck, cv,
                                         pos, n_heads=cfg.n_heads,
-                                        layer=layer)     # [Ns, K+1, H, Dh]
+                                        layer=layer, **sc)  # [Ns, K+1, H, Dh]
             at = a.transpose(0, 1).contiguous()
             hs = [_block_out(hs[t], at[t], p, cfg) for t in range(k1)]
         return torch.stack([sample(params, hs[t], posw[:, t] + 1, key)
                             for t in range(k1)], dim=1)
 
     @torch.no_grad()
-    def run(params, dparams, ck, cv, pos, tok, active, rem, poison,
-            key: int):
+    def body(params, dparams, kv, pos, tok, active, rem, poison,
+             key: int):
         if pos.shape != (num_slots,):
             raise ValueError(f"pos {tuple(pos.shape)} != program geometry "
                              f"({num_slots},)")
         act = active & (rem > 0)
-        drafts = draft_phase(dparams, ck, cv, pos, tok, act, key)
+        drafts = draft_phase(dparams, kv, pos, tok, act, key)
         drafts = torch.where(poison[:, None],
                              (drafts + 1) % cfg.vocab_size, drafts)
-        tgt = verify_phase(params, ck, cv, pos, tok, act, drafts, key)
+        tgt = verify_phase(params, kv, pos, tok, act, drafts, key)
         npos, ntok, _, emit, c, drafted, accepted = _spec_accept_commit(
             spec_k, drafts, tgt, pos, tok, rem, act)
         pos.copy_(npos)
         tok.copy_(ntok)
-        return ck, cv, pos, tok, emit, c, drafted, accepted
+        return (*kv, pos, tok, emit, c, drafted, accepted)
 
-    return run
+    return _pool_program(kv_mode, 2, body)
 
 
 # ---------------------------------------------------------------------------
@@ -615,9 +738,14 @@ def init_paged_state(cfg: TransformerConfig, num_slots: int,
                      kv_mode=None):
     """The persistent paged pool (kp, vp, pos, tok) on ``device``: kp, vp
     [L, num_pages, page_size, D] zero-filled, pos and tok int32 [Ns]
-    zeros. The block table is host data, not part of the state."""
-    _refuse_variants("init_paged_state", kv_mode=kv_mode)
+    zeros. The block table is host data, not part of the state. With
+    ``kv_mode`` ("int8" / "fp8", resolved against ``device``): the
+    quantized pool (kp, vp, kscale, vscale, pos, tok) of
+    `quant.kv.init_paged_quant_state`."""
     _check_slice(cfg)
+    if resolve_mode(kv_mode, device) is not None:
+        return init_paged_quant_state(cfg, num_slots, page_size, num_pages,
+                                      kv_mode, device)
     dt = cfg.cache_torch_dtype()
     shape = page_pool_shape(cfg, num_pages, page_size)
     kp = torch.zeros(shape, dtype=dt, device=device)
@@ -629,10 +757,21 @@ def init_paged_state(cfg: TransformerConfig, num_slots: int,
 
 def _gather_pages(plane, bt, ns: int, s_view: int):
     """A layer's pages [NP, ps, D] -> the block-table-ordered logical view
-    [Ns, s_view, D] (one index, as the reference's gather). Unallocated
-    table entries read the scratch page; the caller's position mask
-    keeps them out of attention."""
-    return plane[bt.long()].reshape(ns, s_view, plane.shape[-1])
+    [Ns, s_view, D] (one index, as the reference's gather; one-byte pages
+    move as uint8 and keep their dtype). Unallocated table entries read
+    the scratch page; the caller's position mask keeps them out of
+    attention."""
+    g = raw(plane)[bt.long()].reshape(ns, s_view, plane.shape[-1])
+    return g.view(plane.dtype)
+
+
+def _paged_view(kv, layer: int, bt, ns: int, s_view: int):
+    """The gathered view of a paged pool's layer: (kh, vh) [Ns, s_view, D],
+    and for a quantized pool its scales (ks, vs) [Ns, s_view] gathered
+    with their pages (reference :1413-1416)."""
+    kh, vh = (_gather_pages(c[layer], bt, ns, s_view) for c in kv[:2])
+    return (kh, vh) + tuple(_gather_pages(c[layer], bt, ns, s_view)[..., 0]
+                            for c in kv[2:])
 
 
 def _page_rows(bt, posm, keep, page_size: int):
@@ -644,23 +783,23 @@ def _page_rows(bt, posm, keep, page_size: int):
     return pg.long(), (posm % page_size).long()
 
 
-def _local_block_decode_paged(h, p, kp, vp, bt, layer: int, pos, act,
+def _local_block_decode_paged(h, p, kv, bt, layer: int, pos, act,
                               cfg: TransformerConfig, page_size: int):
-    """`_local_block_decode_slotted` on the paged pool (reference
-    :1343): the K/V row lands at (bt[slot, wp // ps], wp % ps), inactive
-    slots writing the scratch page, and the decode kernel runs over the
-    gathered view through the same `decode_attention` call, so paged
-    decode is the contiguous decode over the same values."""
+    """`_local_block_decode_slotted` on the paged pool ``kv`` (kp, vp, and
+    the scale planes of a quantized pool; reference :1343 and
+    `_local_block_decode_paged_q` :1384): the K/V row lands at
+    (bt[slot, wp // ps], wp % ps), inactive slots writing the scratch
+    page, and the decode kernel runs over the gathered view through the
+    same `decode_attention` call, so paged decode is the contiguous
+    decode over the same values."""
     q, k, v = _block_qkv(h, p, cfg)
     ns, mp = h.shape[0], bt.shape[1]
     s_view = mp * page_size
     wp = torch.clamp(pos, 0, s_view - 1)
     pg, off = _page_rows(bt, wp[:, None], act[:, None], page_size)
-    kp[layer, pg[:, 0], off[:, 0]] = k.to(kp.dtype)
-    vp[layer, pg[:, 0], off[:, 0]] = v.to(vp.dtype)
-    kh = _gather_pages(kp[layer], bt, ns, s_view)
-    vh = _gather_pages(vp[layer], bt, ns, s_view)
-    a = decode_attention(q, kh, vh, wp, n_heads=cfg.n_heads)
+    _store(kv, layer, (pg[:, 0], off[:, 0]), k, v)
+    kh, vh, sc = _attn_kv(_paged_view(kv, layer, bt, ns, s_view))
+    a = decode_attention(q, kh, vh, wp, n_heads=cfg.n_heads, **sc)
     return _block_out(h, a, p, cfg)
 
 
@@ -673,7 +812,10 @@ def make_paged_prefill(cfg: TransformerConfig, bucket_len: int,
     """Paged admission prefill (reference :1430): (params, kp, vp, pos,
     tok, bt [Ns, max_pages], suffix [Ns, Tb], slen [Ns], start [Ns]
     [, last [Ns] bool when ``chunked``], key) -> (kp, vp, pos, tok,
-    first [Ns]).
+    first [Ns]); with ``kv_mode`` the pool is (kp, vp, kscale, vscale),
+    the suffix rows quantize on write and the cached prefix (a hit or
+    earlier chunks) is read through its quantization in plain attention
+    (reference :1532-1560).
 
     ``suffix`` holds each admitted slot's tokens not yet in its pages,
     from position ``start`` (a prefix-cache hit or, chunked, any chunk
@@ -683,9 +825,9 @@ def make_paged_prefill(cfg: TransformerConfig, bucket_len: int,
     Slots with slen == 0 pass through; the rest move pos to start +
     slen and sample the token there, which ``chunked`` programs commit
     only where ``last`` is set (mid-prompt chunks report -1)."""
-    _refuse_variants("make_paged_prefill", quantized=quantized,
-                     kv_mode=kv_mode, constrain=constrain)
+    _refuse_variants("make_paged_prefill", constrain=constrain)
     _check_paged(cfg, top_k, top_p, page_size, num_pages, max_pages)
+    quantized, kv_mode = _resolve_quant(quantized, kv_mode)
     if not 0 < bucket_len <= cfg.max_len:
         raise ValueError(f"bucket_len {bucket_len} out of "
                          f"(0, {cfg.max_len}]")
@@ -693,7 +835,7 @@ def make_paged_prefill(cfg: TransformerConfig, bucket_len: int,
     sampling = (temperature, top_k, top_p)
 
     @torch.no_grad()
-    def body(params, kp, vp, pos, tok, bt, suffix, slen, start, last, key):
+    def body(params, kv, pos, tok, bt, suffix, slen, start, last, key):
         ns, tb = suffix.shape
         if (ns, tb) != (num_slots, bucket_len) or \
                 tuple(bt.shape) != (num_slots, max_pages):
@@ -706,27 +848,23 @@ def make_paged_prefill(cfg: TransformerConfig, bucket_len: int,
         pg, off = _page_rows(bt, absp, valid, page_size)
         for layer in range(cfg.n_layers):
             def write(k, v, layer=layer):
-                kp[layer, pg, off] = k.to(kp.dtype)
-                vp[layer, pg, off] = v.to(vp.dtype)
-
-            def view(layer=layer):
-                return (_gather_pages(kp[layer], bt, ns, s_view),
-                        _gather_pages(vp[layer], bt, ns, s_view))
+                _store(kv, layer, (pg, off), k, v)
 
             h = _chunk_block(h, layer_params(params, layer), cfg, write,
-                             view, start)
+                             lambda layer=layer: _paged_view(
+                                 kv, layer, bt, ns, s_view), start)
         first = _chunk_first(params, cfg, h, slen, start, pos, tok, last,
                              key, sampling)
-        return kp, vp, pos, tok, first
+        return (*kv, pos, tok, first)
 
     if chunked:
-        return body
+        return _pool_program(kv_mode, 1, body)
 
-    def run(params, kp, vp, pos, tok, bt, suffix, slen, start, key: int):
-        return body(params, kp, vp, pos, tok, bt, suffix, slen, start,
+    def one_shot(params, kv, pos, tok, bt, suffix, slen, start, key: int):
+        return body(params, kv, pos, tok, bt, suffix, slen, start,
                     torch.ones_like(slen, dtype=torch.bool), key)
 
-    return run
+    return _pool_program(kv_mode, 1, one_shot)
 
 
 def make_paged_chunked_prefill(cfg: TransformerConfig, chunk_len: int,
@@ -738,8 +876,9 @@ def make_paged_chunked_prefill(cfg: TransformerConfig, chunk_len: int,
                                constrain: bool = False) -> Callable:
     """Paged twin of `make_chunked_prefill` (reference :1753): (params,
     kp, vp, pos, tok, bt, toks [Ns, C], clen, start, last, key) -> (kp,
-    vp, pos, tok, first). It is `make_paged_prefill` with the chunk as
-    the suffix and ``last`` gating the first token."""
+    vp, pos, tok, first), the pool (kp, vp, kscale, vscale) with
+    ``kv_mode``. It is `make_paged_prefill` with the chunk as the suffix
+    and ``last`` gating the first token."""
     return make_paged_prefill(cfg, chunk_len, num_slots, page_size,
                               max_pages, num_pages, temperature=temperature,
                               top_k=top_k, top_p=top_p, quantized=quantized,
@@ -755,15 +894,16 @@ def make_paged_decode(cfg: TransformerConfig, chunk: int, num_slots: int,
     """Paged decode chunk (reference :1780): (params, kp, vp, pos, tok,
     bt [Ns, max_pages], active [Ns] bool, rem [Ns] int32, key) -> (kp,
     vp, pos, tok, toks [Ns, chunk]). `make_continuous_decode`'s contract
-    with K/V rows in block-table pages (`_local_block_decode_paged`)."""
-    _refuse_variants("make_paged_decode", quantized=quantized,
-                     kv_mode=kv_mode, constrain=constrain)
+    with K/V rows in block-table pages (`_local_block_decode_paged`); the
+    pool (kp, vp, kscale, vscale) with ``kv_mode``."""
+    _refuse_variants("make_paged_decode", constrain=constrain)
     _check_paged(cfg, top_k, top_p, page_size, num_pages, max_pages)
+    quantized, kv_mode = _resolve_quant(quantized, kv_mode)
     if chunk < 1:
         raise ValueError(f"chunk must be >= 1, got {chunk}")
 
     @torch.no_grad()
-    def run(params, kp, vp, pos, tok, bt, active, rem, key: int):
+    def body(params, kv, pos, tok, bt, active, rem, key: int):
         if pos.shape != (num_slots,) or \
                 tuple(bt.shape) != (num_slots, max_pages):
             raise ValueError(f"pos {tuple(pos.shape)} / bt "
@@ -777,7 +917,7 @@ def make_paged_decode(cfg: TransformerConfig, chunk: int, num_slots: int,
             h = _embed_pending(params, cfg, pos, tok)
             for layer in range(cfg.n_layers):
                 h = _local_block_decode_paged(
-                    h, layer_params(params, layer), kp, vp, bt, layer, pos,
+                    h, layer_params(params, layer), kv, bt, layer, pos,
                     act, cfg, page_size)
             nxt = _head_sample(params, cfg, h, pos + 1, key, temperature,
                                top_k, top_p)
@@ -785,9 +925,9 @@ def make_paged_decode(cfg: TransformerConfig, chunk: int, num_slots: int,
             emitted.append(torch.where(act, nxt, neg1))
             pos.copy_(torch.where(act, pos + 1, pos))
             rem = torch.where(act, rem - 1, rem)
-        return kp, vp, pos, tok, torch.stack(emitted, dim=1)
+        return (*kv, pos, tok, torch.stack(emitted, dim=1))
 
-    return run
+    return _pool_program(kv_mode, 1, body)
 
 
 def make_paged_speculative_decode(cfg: TransformerConfig, spec_k: int,
@@ -806,11 +946,13 @@ def make_paged_speculative_decode(cfg: TransformerConfig, spec_k: int,
     (bt[slot, pos_j // ps], pos_j % ps), inactive slots and positions
     past the mapped pages on the scratch page, and attend through the
     window kernel over the gathered view. The engine privatises every
-    page the K+1 window can write before the call (copy-on-write)."""
-    _refuse_variants("make_paged_speculative_decode", quantized=quantized,
-                     kv_mode=kv_mode, draft_quantized=draft_quantized,
-                     constrain=constrain)
+    page the K+1 window can write before the call (copy-on-write). With
+    ``kv_mode`` the pool is (kp, vp, kscale, vscale), as
+    `make_speculative_decode` takes it."""
+    _refuse_variants("make_paged_speculative_decode", constrain=constrain)
     _check_paged(cfg, top_k, top_p, page_size, num_pages, max_pages)
+    quantized, kv_mode = _resolve_quant(quantized, kv_mode)
+    draft_quantized, _ = _resolve_quant(draft_quantized, None)
     nd = _check_spec(cfg, spec_k, draft_layers)
     k1 = spec_k + 1
     s_view = max_pages * page_size
@@ -819,22 +961,22 @@ def make_paged_speculative_decode(cfg: TransformerConfig, spec_k: int,
         return _head_sample(p, cfg, h, posidx, key, temperature, top_k,
                             top_p)
 
-    def draft_phase(dparams, kp, vp, bt, pos, tok, act, key):
+    def draft_phase(dparams, kv, bt, pos, tok, act, key):
         dpos, dtok = pos, tok
         drafts = []
         for _ in range(spec_k):
             h = _embed_pending(dparams, cfg, dpos, dtok)
             for layer in range(nd):
                 h = _local_block_decode_paged(
-                    h, layer_params(dparams, layer), kp, vp, bt, layer,
-                    dpos, act, cfg, page_size)
+                    h, layer_params(dparams, layer), kv, bt, layer, dpos,
+                    act, cfg, page_size)
             nxt = sample(dparams, h, dpos + 1, key)
             dtok = torch.where(act, nxt, dtok)
             dpos = torch.where(act, dpos + 1, dpos)
             drafts.append(nxt)
         return torch.stack(drafts, dim=1)                # [Ns, K]
 
-    def verify_phase(params, kp, vp, bt, pos, tok, act, drafts, key):
+    def verify_phase(params, kv, bt, pos, tok, act, drafts, key):
         """As the contiguous verify pass: decode's per-row code for each
         window row, the attention batched through the window kernel."""
         ns = tok.shape[0]
@@ -850,35 +992,33 @@ def make_paged_speculative_decode(cfg: TransformerConfig, spec_k: int,
             qs = []
             for t in range(k1):
                 q, k, v = _block_qkv(hs[t], p, cfg)
-                kp[layer, pgw[:, t], offw[:, t]] = k.to(kp.dtype)
-                vp[layer, pgw[:, t], offw[:, t]] = v.to(vp.dtype)
+                _store(kv, layer, (pgw[:, t], offw[:, t]), k, v)
                 qs.append(q)
-            kh = _gather_pages(kp[layer], bt, ns, s_view)
-            vh = _gather_pages(vp[layer], bt, ns, s_view)
+            kh, vh, sc = _attn_kv(_paged_view(kv, layer, bt, ns, s_view))
             a = decode_window_attention(torch.stack(qs, dim=1), kh, vh, pos,
-                                        n_heads=cfg.n_heads)
+                                        n_heads=cfg.n_heads, **sc)
             at = a.transpose(0, 1).contiguous()
             hs = [_block_out(hs[t], at[t], p, cfg) for t in range(k1)]
         return torch.stack([sample(params, hs[t], posw[:, t] + 1, key)
                             for t in range(k1)], dim=1)
 
     @torch.no_grad()
-    def run(params, dparams, kp, vp, pos, tok, bt, active, rem, poison,
-            key: int):
+    def body(params, dparams, kv, pos, tok, bt, active, rem, poison,
+             key: int):
         if pos.shape != (num_slots,) or \
                 tuple(bt.shape) != (num_slots, max_pages):
             raise ValueError(f"pos {tuple(pos.shape)} / bt "
                              f"{tuple(bt.shape)} != program geometry "
                              f"({num_slots}, {max_pages})")
         act = active & (rem > 0)
-        drafts = draft_phase(dparams, kp, vp, bt, pos, tok, act, key)
+        drafts = draft_phase(dparams, kv, bt, pos, tok, act, key)
         drafts = torch.where(poison[:, None],
                              (drafts + 1) % cfg.vocab_size, drafts)
-        tgt = verify_phase(params, kp, vp, bt, pos, tok, act, drafts, key)
+        tgt = verify_phase(params, kv, bt, pos, tok, act, drafts, key)
         npos, ntok, _, emit, c, drafted, accepted = _spec_accept_commit(
             spec_k, drafts, tgt, pos, tok, rem, act)
         pos.copy_(npos)
         tok.copy_(ntok)
-        return kp, vp, pos, tok, emit, c, drafted, accepted
+        return (*kv, pos, tok, emit, c, drafted, accepted)
 
-    return run
+    return _pool_program(kv_mode, 2, body)

@@ -48,18 +48,35 @@ admissions with / without a cached prefix), ``prefix_shared_tokens``,
 ``shed_overload`` (requests shed because the pool could never seat
 them).
 
+Quantized serving (``EngineConfig(quantize="int8" | "fp8",
+kv_quantize="int8" | "fp8")``, reference :458-464, :1407-1430): both
+modes resolve against the engine's device ("fp8" is fp8 only on a card of
+capability (8, 9) or later, "int8" elsewhere). ``quantize`` quantizes the
+weight tree on load (`quant.model.quantize_params`); ``kv_quantize``
+switches the slot or page pool to int8 / e4m3 rows with float32 row
+scales, on the contiguous, paged and chunked programs and under
+speculative decoding; the scale rows travel with their pages through
+prefix hits and copy-on-write. The programs are made per mode.
+``quantize=None`` leaves the engine as it was. ``counts["param_bytes"]``
+and ``counts["kv_pool_bytes"]`` give the at-rest bytes of the weight tree
+and of the pool (analytic, as the reference's gauges, which wait for the
+metrics port, ROADMAP queue A item 8). Hot reload with requantization
+waits for reload (item 9).
+
 Not ported yet (set to a non-default value, each raises
 NotImplementedError naming its ROADMAP item): batch mode, the background
-worker, retries / circuit breaker / deadlines, quantized weights and KV
-(so quantized page pools), the quantized drafter, KV handoff and
-adoption, the fault injector, the compile cache and warm-up, the
-pipelined tick loop, QoS (so fair-share prefill), grammar constraints,
-and the metrics / recorder / profiler stack. The port's `pipeline`
-default is False: it runs the synchronous loop, which the reference
-documents as bit-identical to its pipelined one.
+worker, retries / circuit breaker / deadlines, KV handoff and adoption,
+the fault injector, the compile cache and warm-up, the pipelined tick
+loop, QoS (so fair-share prefill), grammar constraints, and the metrics /
+recorder / profiler stack. The port's `pipeline` default is False: it
+runs the synchronous loop, which the reference documents as
+bit-identical to its pipelined one.
 
 Speculative decoding (``EngineConfig(spec_decode=True, spec_k=K,
-draft="self" | "layers:N")``, reference :4711-4944): a tick's decode
+draft="int8" | "fp8" | "self" | "layers:N")``, reference :4711-4944; the
+default "int8" drafter is the int8-quantized weight tree, or the live
+tree itself when the engine's weights are already quantized): a tick's
+decode
 phase runs one speculative round instead of a decode chunk, committing
 1..K+1 tokens per slot, token-identical to the plain engine. The
 adaptive-K controller walks K over {spec_k, spec_k/2, .., 1} on the
@@ -88,7 +105,11 @@ from deeplearning4j_tpu_torch.parallel.serving import (
     make_continuous_decode, make_continuous_prefill,
     make_paged_chunked_prefill, make_paged_decode, make_paged_prefill,
     make_paged_speculative_decode, make_speculative_decode)
-from deeplearning4j_tpu_torch.quant.model import draft_tree
+from deeplearning4j_tpu_torch.quant.core import raw, resolve_mode
+from deeplearning4j_tpu_torch.quant.kv import (paged_pool_bytes,
+                                               slot_pool_bytes)
+from deeplearning4j_tpu_torch.quant.model import (draft_tree, param_bytes,
+                                                  quantize_params)
 from deeplearning4j_tpu_torch.serving.paging import (PageAllocator,
                                                      RadixPrefixCache,
                                                      pages_for)
@@ -120,14 +141,14 @@ class EngineConfig:
     ``decode_chunk`` (0 -> DEFAULT_CONTINUOUS_CHUNK), ``temperature``,
     ``top_k``, ``top_p``, ``seed`` (sampling counter root),
     ``prefill_bucket_min``, the queue-depth degradation
-    (``degrade_queue_depth``, ``degraded_max_new_tokens``), speculative
+    (``degrade_queue_depth``, ``degraded_max_new_tokens``), quantization
+    (``quantize``, ``kv_quantize``: "int8", "fp8" or None), speculative
     decoding (``spec_decode``, ``spec_k``, ``spec_adaptive``, ``draft`` =
-    "self" or "layers:N"; the default "int8" drafter is not ported and
-    raises), paged KV (``paged``, ``page_size``, ``kv_pages``: total
-    pages with the scratch page, 0 -> every slot's full max_len + 1;
-    ``prefix_cache``) and chunked prefill (``prefill_chunk``,
-    ``tick_token_budget``). Every other field must keep its default (see
-    `_UNPORTED`, `_check_config`)."""
+    "int8", "fp8", "self" or "layers:N"), paged KV (``paged``,
+    ``page_size``, ``kv_pages``: total pages with the scratch page, 0 ->
+    every slot's full max_len + 1; ``prefix_cache``) and chunked prefill
+    (``prefill_chunk``, ``tick_token_budget``). Every other field must
+    keep its default (see `_UNPORTED`, `_check_config`)."""
     max_queue: int = 64
     max_batch_size: int = 8
     batch_timeout_s: float = 0.005
@@ -183,8 +204,6 @@ _UNPORTED = {
         "retries and the circuit breaker (ROADMAP queue A6)",
     "breaker_cooldown_s":
         "retries and the circuit breaker (ROADMAP queue A6)",
-    "quantize": "quantized serving (ROADMAP queues A4 and A6)",
-    "kv_quantize": "quantized serving (ROADMAP queues A4 and A6)",
     "program_cache_size": "the compile cache (ROADMAP queue A6)",
     "compile_cache_dir": "the compile cache (ROADMAP queue A6)",
     "warmup_on_init": "the compile cache (ROADMAP queue A6)",
@@ -203,9 +222,6 @@ _UNPORTED = {
 # queue A item that ports it (checked before `_UNPORTED`, so the error
 # names the combination)
 _PAGED_CHUNKED_TODO = {
-    "quantize": "quantized page pools and chunks (ROADMAP queue A item 4)",
-    "kv_quantize": "quantized page pools and chunks (ROADMAP queue A item "
-                   "4)",
     "pipeline": "the pipelined tick loop (ROADMAP queue A item 5)",
     "constrain_state_cap": "grammar-constrained paged and chunked "
                            "programs (ROADMAP queue A item 6)",
@@ -290,7 +306,13 @@ class InferenceEngine:
         self.config = config or EngineConfig()
         _check_config(self.config)
         self.device = resolve_device(device)
+        # quantization (reference :1407-1430): both modes resolve against
+        # the device; the weight tree is quantized on load
+        self._qmode = resolve_mode(self.config.quantize, self.device)
+        self._kv_mode = resolve_mode(self.config.kv_quantize, self.device)
         self._params = params_to(params, self.device)
+        if self._qmode:
+            self._params = quantize_params(self._params, mode=self._qmode)
         self._num_slots = self.config.num_slots or self.config.max_batch_size
         self._chunk = (self.config.decode_chunk
                        if self.config.decode_chunk > 0
@@ -351,6 +373,16 @@ class InferenceEngine:
                        "cow_copies": 0, "pages_used": 0, "pages_free": 0,
                        "shed_overload": 0}
         self.seconds = {"prefill": 0.0, "decode": 0.0, "spec": 0.0}
+        # at-rest bytes of the weight tree and of the pool (analytic: the
+        # pool is allocated at the first admission)
+        self.counts["param_bytes"] = param_bytes(self._params)
+        if self._paged:
+            self.counts["kv_pool_bytes"] = paged_pool_bytes(
+                cfg, self._num_slots, self._page_size, self._num_pages,
+                self._max_pages, kv_mode=self._kv_mode)
+        else:
+            self.counts["kv_pool_bytes"] = slot_pool_bytes(
+                cfg, self._num_slots, kv_mode=self._kv_mode)
         self._page_counts()
         # speculative decoding (reference :1477-1504): the drafter comes
         # from the live params; acceptance drives the adaptive-K
@@ -505,10 +537,11 @@ class InferenceEngine:
             if self._paged:
                 self._slot_state = init_paged_state(
                     self.cfg, self._num_slots, self._page_size,
-                    self._num_pages, self.device)
+                    self._num_pages, self.device, kv_mode=self._kv_mode)
             else:
-                self._slot_state = init_slot_state(self.cfg, self._num_slots,
-                                                   self.device)
+                self._slot_state = init_slot_state(
+                    self.cfg, self._num_slots, self.device,
+                    kv_mode=self._kv_mode)
 
     def _bucket_len(self, need: int) -> int:
         """Prefill bucket: the smallest power-of-two scaling of
@@ -529,8 +562,12 @@ class InferenceEngine:
 
     def _program(self, kind: str, size: int):
         """The slot program of ``kind`` (a `_MAKERS` key) at ``size``
-        (bucket or chunk length, decode chunk or K), made once per key."""
+        (bucket or chunk length, decode chunk or K), made once per key.
+        The key carries the quantization modes when one is on (reference
+        `_quant_kwargs`: a float engine's keys stay (kind, size))."""
         key = (kind, size)
+        if self._qmode or self._kv_mode:
+            key += (self._qmode, self._kv_mode)
         fn = self._programs.get(key)
         if fn is None:
             c = self.config
@@ -538,9 +575,11 @@ class InferenceEngine:
             if kind.startswith("paged"):
                 args += (self._page_size, self._max_pages, self._num_pages)
             kw = dict(temperature=float(c.temperature), top_k=int(c.top_k),
-                      top_p=float(c.top_p))
+                      top_p=float(c.top_p), quantized=self._qmode,
+                      kv_mode=self._kv_mode)
             if kind.endswith("spec"):
-                kw["draft_layers"] = self._draft_layers
+                kw.update(draft_layers=self._draft_layers,
+                          draft_quantized=self._draft_qmode)
             fn = self._MAKERS[kind](*args, **kw)
             self._programs[key] = fn
         return fn
@@ -812,10 +851,12 @@ class InferenceEngine:
         return m
 
     def _copy_page(self, src: int, dst: int) -> None:
-        """Copy-on-write: physical page ``src`` into ``dst``, all layers."""
-        kp, vp = self._slot_state[:2]
-        kp[:, dst] = kp[:, src]
-        vp[:, dst] = vp[:, src]
+        """Copy-on-write: physical page ``src`` into ``dst``, all layers,
+        with its scale rows on a quantized pool (one-byte pages copied as
+        their bytes)."""
+        for plane in self._slot_state[:-2]:
+            plane = raw(plane)
+            plane[:, dst] = plane[:, src]
         self.counts["cow_copies"] += 1
 
     def _release_slot_pages(self, i: int) -> None:
@@ -892,9 +933,12 @@ class InferenceEngine:
 
     # -- speculative decoding (reference :4711-4944) -----------------------
     def _rebuild_draft(self) -> None:
-        """Derive the drafter tree from the live params."""
-        self._draft_params, _, self._draft_layers = draft_tree(
-            self._params, self.config.draft, self.cfg)
+        """Derive the drafter tree from the live params (reference
+        :4711): "int8" / "fp8" quantize it, or share it when the live
+        weights are already quantized."""
+        (self._draft_params, self._draft_qmode,
+         self._draft_layers) = draft_tree(self._params, self.config.draft,
+                                          self.cfg, base_mode=self._qmode)
 
     def _spec_tick(self) -> bool:
         """Whether this tick decodes speculatively; counts down the

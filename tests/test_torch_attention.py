@@ -243,11 +243,18 @@ def test_decode_attention_stacked_layer_matches_jax(layer):
 
 
 def test_decode_attention_refuses_quantized_kv():
+    """Scales go with a one-byte cache, both of them or neither: a scaled
+    float cache, a half-given pair or an unscaled int8 cache raises."""
     q, k, v = (torch.from_numpy(x) for x in _decode_inputs())
-    with pytest.raises(NotImplementedError, match="A4"):
-        tdec.decode_attention(q, k, v, 3, n_heads=4,
-                              k_scale=torch.ones(4, 128),
-                              v_scale=torch.ones(4, 128))
+    ones = torch.ones(4, 128)
+    with pytest.raises(ValueError, match="int8 or float8"):
+        tdec.decode_attention(q, k, v, 3, n_heads=4, k_scale=ones,
+                              v_scale=ones)
+    k8 = torch.zeros(k.shape, dtype=torch.int8)
+    with pytest.raises(ValueError, match="both"):
+        tdec.decode_attention(q, k8, k8, 3, n_heads=4, k_scale=ones)
+    with pytest.raises(ValueError, match="int8 or float8"):
+        tdec.decode_attention(q, k8, k8, 3, n_heads=4)
 
 
 # ---------------------------------------------------------------------------
@@ -385,8 +392,13 @@ def test_window_rows_match_decode_twin():
 
 
 def test_window_attention_refuses_quantized_kv():
+    """As `test_decode_attention_refuses_quantized_kv`, for the window."""
     q, k, v = (torch.from_numpy(x) for x in _window_inputs(3))
-    with pytest.raises(NotImplementedError, match="A4"):
-        tdec.decode_window_attention(q, k, v, 3, n_heads=4,
-                                     k_scale=torch.ones(4, 128),
-                                     v_scale=torch.ones(4, 128))
+    ones = torch.ones(4, 128)
+    with pytest.raises(ValueError, match="int8 or float8"):
+        tdec.decode_window_attention(q, k, v, 3, n_heads=4, k_scale=ones,
+                                     v_scale=ones)
+    k8 = torch.zeros(k.shape, dtype=torch.int8)
+    with pytest.raises(ValueError, match="both"):
+        tdec.decode_window_attention(q, k8, k8, 3, n_heads=4,
+                                     v_scale=ones)

@@ -363,7 +363,6 @@ def test_chunked_and_paged_config_errors(tparams, kw, match):
 
 @pytest.mark.parametrize("use", [dict(paged=True), dict(prefill_chunk=8)])
 @pytest.mark.parametrize("field,value,item", [
-    ("kv_quantize", "int8", "item 4"), ("quantize", "int8", "item 4"),
     ("pipeline", True, "item 5"), ("constrain_state_cap", 64, "item 6"),
     ("tenant_weights", {"a": 1.0}, "item 9"),
 ])
@@ -379,12 +378,9 @@ def test_unported_combinations_raise(tparams, use, field, value, item):
 
 
 @pytest.mark.parametrize("make", [
-    lambda: tsv.make_chunked_prefill(TCFG, 8, NS, kv_mode="int8"),
-    lambda: tsv.make_paged_prefill(TCFG, 8, NS, 8, 12, 20, quantized="int8"),
     lambda: tsv.make_paged_decode(TCFG, 2, NS, 8, 12, 20, constrain=True),
-    lambda: tsv.init_paged_state(TCFG, NS, 8, 20, "cpu", kv_mode="int8"),
-], ids=["chunked_kv", "paged_prefill_quant", "paged_decode_constrain",
-        "paged_state_kv"])
+    lambda: tsv.make_chunked_prefill(TCFG, 8, NS, constrain=True),
+], ids=["paged_decode_constrain", "chunked_constrain"])
 def test_unported_program_variants_raise(make):
     with pytest.raises(NotImplementedError, match="ROADMAP queue A"):
         make()

@@ -402,6 +402,140 @@ def test_window_kernel_refuses_unsupported_inputs_on_card(requires_cuda):
                                      cache[..., :64], 3, n_heads=2)
 
 
+# -- the quantized decode and window entries (int8 / e4m3 cache) ----------
+# The cache is quantize_rows of float rows, so kernel and twin read the same
+# one-byte values and scales; both compute in float32 and differ only in
+# summation order: float32 outputs within 1e-5, bf16 / f16 per row within
+# 2^-7 (one rounding of the output).
+
+QUANT_CACHES = ["int8", "fp8"]
+
+
+def _quant_cache(shape, seed, kv_mode, dev):
+    from deeplearning4j_tpu_torch.quant.kv import quantize_rows
+    return quantize_rows(torch.from_numpy(_rand(shape, seed)).to(dev),
+                         kv_mode)
+
+
+@pytest.mark.parametrize("dtype", DECODE_DTYPES)
+@pytest.mark.parametrize("kv_mode", QUANT_CACHES)
+@pytest.mark.parametrize("dh", [32, 64, 128])
+def test_quantized_decode_kernel_matches_plain_on_card(requires_cuda, dtype,
+                                                       kv_mode, dh):
+    """The quantized decode entry against the scaled twin on the stacked
+    cache's layer 1 with its stacked [L, B, S, 1] scales and a pos vector,
+    and at scalar positions with [B, S] scales on layer 0."""
+    b, h, s = 6, 2, S_EDGES
+    dev = requires_cuda
+    q = torch.from_numpy(_rand((b, h, dh), 160)).to(dev, dtype)
+    k, ks = _quant_cache((2, b, s, h * dh), 161, kv_mode, dev)
+    v, vs = _quant_cache((2, b, s, h * dh), 162, kv_mode, dev)
+    assert k.dtype == (torch.int8 if kv_mode == "int8"
+                       else torch.float8_e4m3fn)
+    ks4, vs4 = ks[..., None].contiguous(), vs[..., None].contiguous()
+    pos = torch.tensor(POS_EDGES, dtype=torch.int32, device=dev)
+    before = (tdec.decode_attention_q_cuda.launches,
+              tdec.decode_attention_cuda.launches)
+    got = tdec.decode_attention(q, k, v, pos, n_heads=h, layer=1,
+                                k_scale=ks4, v_scale=vs4)
+    want = tdec.reference_decode_attention(q, k[1], v[1], pos, n_heads=h,
+                                           k_scale=ks[1], v_scale=vs[1])
+    torch.cuda.synchronize()
+    assert (tdec.decode_attention_q_cuda.launches,
+            tdec.decode_attention_cuda.launches) == (before[0] + 1,
+                                                     before[1])
+    _assert_close(got, want, dtype)
+    for p in (123, CH, S_EDGES + 5):
+        got_s = tdec.decode_attention(q, k[0], v[0], p, n_heads=h,
+                                      k_scale=ks[0].contiguous(),
+                                      v_scale=vs[0].contiguous())
+        want_s = tdec.reference_decode_attention(
+            q, k[0], v[0], p, n_heads=h, k_scale=ks[0], v_scale=vs[0])
+        _assert_close(got_s, want_s, dtype)
+
+
+@pytest.mark.parametrize("dtype", DECODE_DTYPES)
+@pytest.mark.parametrize("kv_mode", QUANT_CACHES)
+@pytest.mark.parametrize("t", [1, 3, 4, 5, 8, 9])
+def test_quantized_window_kernel_matches_plain_and_decode_on_card(
+        requires_cuda, dtype, kv_mode, t):
+    """The quantized window entry against the scaled twin (T=5 and 9
+    span two and three CTA groups of 4) and each window row bitwise
+    against the quantized decode kernel at pos + t."""
+    b, h, dh, s = 6, 2, 64, S_EDGES
+    dev = requires_cuda
+    q = torch.from_numpy(_rand((b, t, h, dh), 190)).to(dev, dtype)
+    k, ks = _quant_cache((2, b, s, h * dh), 191, kv_mode, dev)
+    v, vs = _quant_cache((2, b, s, h * dh), 192, kv_mode, dev)
+    ks4, vs4 = ks[..., None].contiguous(), vs[..., None].contiguous()
+    pos = torch.tensor(POS_EDGES, dtype=torch.int32, device=dev) - t // 2
+    before = tdec.decode_window_attention_q_cuda.launches
+    got = tdec.decode_window_attention(q, k, v, pos, n_heads=h, layer=1,
+                                       k_scale=ks4, v_scale=vs4)
+    want = tdec.reference_window_attention(q, k[1], v[1], pos, n_heads=h,
+                                           k_scale=ks[1], v_scale=vs[1])
+    torch.cuda.synchronize()
+    assert tdec.decode_window_attention_q_cuda.launches == before + 1
+    _assert_close(got, want, dtype)
+    for ti in range(t):
+        row = tdec.decode_attention(q[:, ti], k, v, pos + ti, n_heads=h,
+                                    layer=1, k_scale=ks4, v_scale=vs4)
+        assert torch.equal(got[:, ti], row), f"window row {ti}"
+
+
+@pytest.mark.parametrize("kv_mode", QUANT_CACHES)
+def test_quantized_kernels_deterministic_on_card(requires_cuda, kv_mode):
+    """Two calls give equal bits, and a [B, S] scale plane reads as the
+    stacked plane's layer does (a pointer offset, not a copy)."""
+    b, h, dh, s, t = 8, 4, 64, 2048, 8
+    dev = requires_cuda
+    q = torch.from_numpy(_rand((b, t, h, dh), 180)).to(dev, torch.bfloat16)
+    k, ks = _quant_cache((3, b, s, h * dh), 181, kv_mode, dev)
+    v, vs = _quant_cache((3, b, s, h * dh), 182, kv_mode, dev)
+    ks4, vs4 = ks[..., None].contiguous(), vs[..., None].contiguous()
+    pos = torch.tensor([0, 255, 256, 1000, 1791, 1792, 2040, 2047],
+                       dtype=torch.int32, device=dev)
+    kw = dict(n_heads=h, layer=2, k_scale=ks4, v_scale=vs4)
+    w1 = tdec.decode_window_attention(q, k, v, pos, **kw)
+    w2 = tdec.decode_window_attention(q, k, v, pos, **kw)
+    d1 = tdec.decode_attention(q[:, 0], k, v, pos, **kw)
+    d2 = tdec.decode_attention(q[:, 0], k, v, pos, **kw)
+    d3 = tdec.decode_attention(q[:, 0], k[2], v[2], pos, n_heads=h,
+                               k_scale=ks[2].contiguous(),
+                               v_scale=vs[2].contiguous())
+    torch.cuda.synchronize()
+    assert torch.equal(w1, w2) and torch.equal(d1, d2)
+    assert torch.equal(d1, d3)
+
+
+def test_quantized_kernels_refuse_unsupported_inputs_on_card(requires_cuda):
+    dev = requires_cuda
+    q = torch.zeros(2, 2, 64, device=dev)
+    k, ks = _quant_cache((2, 16, 128), 170, "int8", dev)
+    with pytest.raises(ValueError, match="both"):
+        tdec.decode_attention(q, k, k, 3, n_heads=2, k_scale=ks)
+    with pytest.raises(ValueError, match="int8 or float8"):
+        tdec.decode_attention(q, k.float(), k.float(), 3, n_heads=2,
+                              k_scale=ks, v_scale=ks)
+    with pytest.raises(ValueError, match="int8 or float8"):
+        tdec.decode_attention(q, k, k, 3, n_heads=2)
+    with pytest.raises(ValueError, match="float32"):
+        tdec.decode_attention(q, k, k, 3, n_heads=2, k_scale=ks.half(),
+                              v_scale=ks.half())
+    with pytest.raises(ValueError, match=r"\[B, S\]"):
+        tdec.decode_attention(q, k, k, 3, n_heads=2,
+                              k_scale=ks[:, :8].contiguous(),
+                              v_scale=ks[:, :8].contiguous())
+    with pytest.raises(TypeError):
+        tdec.decode_attention(q.double(), k, k, 3, n_heads=2, k_scale=ks,
+                              v_scale=ks)
+    q48 = torch.zeros(2, 3, 2, 48, device=dev)
+    k96, ks96 = _quant_cache((2, 16, 96), 171, "int8", dev)
+    with pytest.raises(ValueError, match="head dim"):
+        tdec.decode_window_attention(q48, k96, k96, 3, n_heads=2,
+                                     k_scale=ks96, v_scale=ks96)
+
+
 # -- the fused LSTM scan (csrc/lstm_scan.cu) -------------------------------
 # Kernel and twin cast the same inputs to float32 at the same points and
 # differ only in the order of the recurrent product's sum, so float32 and

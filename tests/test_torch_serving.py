@@ -194,15 +194,15 @@ def test_engine_admission_rules(tparams):
 
 
 @pytest.mark.parametrize("field,value", [
-    ("pipeline", True), ("paged", True), ("spec_decode", True),
-    ("prefill_chunk", 8), ("quantize", "int8"), ("mode", "batch"),
+    ("pipeline", True), ("paged", True), ("prefill_chunk", 8),
+    ("mode", "batch"),
     ("max_retries", 0), ("compile_cache_dir", "x"),
 ])
 def test_unported_engine_options_raise(tparams, field, value):
     # paged KV and chunked prefill are ported; what they do not combine
-    # with yet (here the quantized KV pool) still raises, naming them
-    extra = ({"kv_quantize": "int8"} if field in ("paged", "prefill_chunk")
-             else {})
+    # with yet (here grammar constraints) still raises, naming them
+    extra = ({"constrain_state_cap": 64}
+             if field in ("paged", "prefill_chunk") else {})
     with pytest.raises(NotImplementedError, match="ROADMAP") as e:
         teng.InferenceEngine(TCFG, tparams,
                              teng.EngineConfig(**{field: value}, **extra),

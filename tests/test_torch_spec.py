@@ -152,10 +152,7 @@ def test_spec_accept_commit_matches_jax():
         np.testing.assert_array_equal(g.numpy(), np.asarray(w))
 
 
-@pytest.mark.parametrize("kw", [dict(quantized="int8"),
-                                dict(kv_mode="int8"),
-                                dict(draft_quantized="int8"),
-                                dict(constrain=True)])
+@pytest.mark.parametrize("kw", [dict(constrain=True)])
 def test_spec_program_unported_variants_raise(kw):
     with pytest.raises(NotImplementedError, match="ROADMAP queue A"):
         tsv.make_speculative_decode(TCFG, 4, NS, **kw)
@@ -288,12 +285,6 @@ def test_budget_cap_truncates_commit_not_exactness(tparams):
 def test_spec_config_errors_raise_value_error(tparams, kw, match):
     with pytest.raises(ValueError, match=match):
         _port_engine(tparams, spec_decode=True, **kw)
-
-
-@pytest.mark.parametrize("draft", ["int8", "fp8"])
-def test_quantized_drafter_not_ported(tparams, draft):
-    with pytest.raises(NotImplementedError, match="ROADMAP queue A4"):
-        _port_engine(tparams, spec_decode=True, draft=draft)
 
 
 @pytest.mark.parametrize("draft", ["self", "layers:1", "layers:2",

@@ -1582,18 +1582,18 @@ def phase_quant_f32_card_vs_cpu(torch, dev):
 def phase_quant_full_width(torch, dev, plain_out, plain_ms_per_step):
     """Phase 3's config and 128 requests (64 new) on the quantized engine:
     (a) int8 weights and KV, (b) fp8 both (resolving to e4m3 on the card),
-    (c) spec K=7 (held: spec_adaptive off) with the default "int8"
-    drafter on the float tree, (d)
-    spec on the int8 engine (the drafter shares its tree), (e) the paged
-    int8 pool on phase 3c's traffic (prefix hits, copy-on-write). Gates:
-    every result well formed; (c) ≡ phase 3's bf16 plain engine, (d) ≡
-    (a); (d) accepts every draft its budgets allow, K stays 7; exact
-    launches (the quantized decode entry n_layers x chunk per decode chunk
-    and K x n_layers per spec round, the quantized window n_layers per
-    round; the float decode and window kernels and the plain twins never
-    on a quantized pool); (e) hits and copies in the second wave, no page
-    leaked. Prints tokens/s and ms a decode step beside phase 3's, param
-    and pool bytes against the bf16 engine's, and one profiled quantized
+    (c) spec K=7 with the default "int8" drafter on the float tree and
+    the default adaptive K, (d) spec on the int8 engine (the drafter
+    shares its tree), (e) the paged int8 pool on phase 3c's traffic
+    (prefix hits, copy-on-write). Gates: every result well formed; (c) ≡
+    phase 3's bf16 plain engine, (d) ≡ (a); (d) accepts every draft its
+    budgets allow, K stays 7; exact launches (the quantized decode entry
+    n_layers x chunk per decode chunk and n_layers x the round's K per
+    spec round, the quantized window n_layers per round; the float
+    decode and window kernels and the plain twins never on a quantized
+    pool); (e) hits and copies in the second wave, no page leaked.
+    Prints tokens/s and ms a decode step beside phase 3's, param and
+    pool bytes against the bf16 engine's, and one profiled quantized
     decode chunk. Returns the launches by kernel summary name."""
     from deeplearning4j_tpu_torch.models import transformer as tf
     from deeplearning4j_tpu_torch.ops import flash_attention as fa
@@ -1637,7 +1637,7 @@ def phase_quant_full_width(torch, dev, plain_out, plain_ms_per_step):
         c = eng.counts
         chunks, rounds = c["decode_chunks"], c["spec_rounds"]
         quant_kv = eng.config.kv_quantize is not None
-        want_dec = L * chunk * chunks + L * K * rounds
+        want_dec = L * chunk * chunks + L * c["spec_draft_steps"]
         want = {"decode_attention_q_cuda": want_dec if quant_kv else 0,
                 "decode_window_attention_q_cuda": L * rounds if quant_kv
                 else 0,
@@ -1667,6 +1667,7 @@ def phase_quant_full_width(torch, dev, plain_out, plain_ms_per_step):
                                          / (chunk * chunks) * 1e3)
         if rounds:
             rec.update(spec_rounds=rounds, spec_k=K,
+                       spec_draft_steps=c["spec_draft_steps"],
                        ms_per_spec_round=eng.seconds["spec"] / rounds * 1e3,
                        drafted=c["spec_drafted"], accepted=c["spec_accepted"],
                        acceptance=c["spec_accepted"] / c["spec_drafted"],
@@ -1686,10 +1687,8 @@ def phase_quant_full_width(torch, dev, plain_out, plain_ms_per_step):
     if (rec_b["quantize"], rec_b["kv_quantize"], rec_b["pool_dtype"]) != \
             ("fp8", "fp8", "torch.float8_e4m3fn"):
         fail(f"3d fp8 arm did not resolve to e4m3 on the card: {rec_b}")
-    # K held at 7 (spec_adaptive off): the acceptance read at K=7, and
-    # the draft launches exact (L x K a round)
     _, rec_c = arm("spec_int8_drafter", [prompts], spec_decode=True,
-                   spec_k=K, spec_adaptive=False)
+                   spec_k=K)
     _, rec_d = arm("spec_int8_engine", [prompts], spec_decode=True,
                    spec_k=K, **q8)
     bad_c = [i for i, (a, b) in enumerate(zip(results["spec_int8_drafter"][0],

@@ -40,10 +40,10 @@ becomes a plain function closed over its geometry.
   gathered view (`_gather_pages`), as the reference does: on the same
   values the kernels return the contiguous pool's bits.
 
-Quantization (reference :394, quant/): ``quantized`` ("int8" / "fp8")
-marks the params as a quantized tree; the math is unchanged, every
-weight dequantizes at its use (`quant.core.QuantizedTensor.to`).
-``kv_mode`` switches every program to the quantized pool
+Quantization (reference :394, quant/): a quantized params tree needs no
+option, since every weight dequantizes at its use
+(`quant.core.QuantizedTensor.to`) and the math is unchanged.
+``kv_mode`` ("int8" / "fp8") switches every program to the quantized pool
 (`init_slot_state(kv_mode=)`, `init_paged_state(kv_mode=)`): the state
 grows two float32 scale planes, (ck, cv, kscale, vscale, pos, tok), K/V
 rows quantize on write (one scale a row, `quant.kv.quantize_rows`, on the
@@ -53,9 +53,8 @@ probabilities, and prefill's cached prefix (chunked or paged) folds them
 the same way in plain attention. The paged programs gather the one-byte
 pages and their scale pages as they are (the reference upcasts the pages
 to float32 first; int8 -> float32 is exact, so the values agree at a
-quarter of the gather bytes). ``draft_quantized`` marks the speculative
-drafter's tree. e4m3 bytes move through index writes, gathers and
-``torch.where`` as uint8 views (`quant.core.raw`), bit-exact.
+quarter of the gather bytes). e4m3 bytes move through index writes,
+gathers and ``torch.where`` as uint8 views (`quant.core.raw`), bit-exact.
 
 The reference's programs are functional and the engine rebinds the
 returned pool; here the caches (and pos/tok) are updated IN PLACE and the
@@ -229,14 +228,6 @@ def _head_sample(params, cfg: TransformerConfig, h, posidx, key: int,
     return _sample_slots(logits, posidx, key, temperature, top_k, top_p)
 
 
-def _resolve_quant(quantized, kv_mode):
-    """The two quantization knobs through `quant.core.resolve_mode`
-    (reference :394): None stays None, an unknown mode raises. The
-    programs quantize on the grid of the pool they are given, so only
-    the pools resolve "fp8" against their device."""
-    return resolve_mode(quantized), resolve_mode(kv_mode)
-
-
 def _pool_program(kv_mode, lead: int, body) -> Callable:
     """The program's call from ``body(*lead_args, kv, *rest)``: the pool's
     caches follow the ``lead`` leading arguments (params, and dparams
@@ -277,7 +268,7 @@ def init_slot_state(cfg: TransformerConfig, num_slots: int, device,
 def make_continuous_prefill(cfg: TransformerConfig, bucket_len: int,
                             num_slots: int, temperature: float = 0.0,
                             top_k: int = 0, top_p: float = 1.0,
-                            quantized=None, kv_mode=None) -> Callable:
+                            kv_mode=None) -> Callable:
     """Slot-pool prefill: (params, ck, cv, pos, tok, prompts [Ns, Tb],
     plen [Ns], key) -> (ck, cv, pos, tok, first [Ns]); with ``kv_mode``
     the pool is (ck, cv, kscale, vscale) and the admitted rows quantize
@@ -285,7 +276,7 @@ def make_continuous_prefill(cfg: TransformerConfig, bucket_len: int,
     admission semantics."""
     _check_slice(cfg)
     _check_sampling(top_k, top_p)
-    quantized, kv_mode = _resolve_quant(quantized, kv_mode)
+    kv_mode = resolve_mode(kv_mode)
     if not 0 < bucket_len <= cfg.max_len:
         raise ValueError(f"bucket_len {bucket_len} out of "
                          f"(0, {cfg.max_len}]")
@@ -322,7 +313,7 @@ def make_continuous_prefill(cfg: TransformerConfig, bucket_len: int,
 def make_continuous_decode(cfg: TransformerConfig, chunk: int,
                            num_slots: int, temperature: float = 0.0,
                            top_k: int = 0, top_p: float = 1.0,
-                           quantized=None, kv_mode=None) -> Callable:
+                           kv_mode=None) -> Callable:
     """Slot-pool decode chunk: (params, ck, cv, pos, tok, active [Ns]
     bool, rem [Ns] int32, key) -> (ck, cv, pos, tok, toks [Ns, chunk]);
     with ``kv_mode`` the pool is (ck, cv, kscale, vscale) before pos and
@@ -330,7 +321,7 @@ def make_continuous_decode(cfg: TransformerConfig, chunk: int,
     module docstring for the per-slot semantics."""
     _check_slice(cfg)
     _check_sampling(top_k, top_p)
-    quantized, kv_mode = _resolve_quant(quantized, kv_mode)
+    kv_mode = resolve_mode(kv_mode)
     if chunk < 1:
         raise ValueError(f"chunk must be >= 1, got {chunk}")
 
@@ -475,8 +466,7 @@ def _chunk_embed(params, cfg: TransformerConfig, toks, start):
 def make_chunked_prefill(cfg: TransformerConfig, chunk_len: int,
                          num_slots: int, temperature: float = 0.0,
                          top_k: int = 0, top_p: float = 1.0,
-                         quantized=None, kv_mode=None,
-                         constrain: bool = False) -> Callable:
+                         kv_mode=None, constrain: bool = False) -> Callable:
     """Chunked admission prefill over the contiguous slot pool (reference
     :964): (params, ck, cv, pos, tok, toks [Ns, C], clen [Ns], start
     [Ns], last [Ns] bool, key) -> (ck, cv, pos, tok, first [Ns]); with
@@ -494,7 +484,7 @@ def make_chunked_prefill(cfg: TransformerConfig, chunk_len: int,
     _refuse_variants("make_chunked_prefill", constrain=constrain)
     _check_slice(cfg)
     _check_sampling(top_k, top_p)
-    quantized, kv_mode = _resolve_quant(quantized, kv_mode)
+    kv_mode = resolve_mode(kv_mode)
     if not 0 < chunk_len <= cfg.max_len:
         raise ValueError(f"chunk_len {chunk_len} out of "
                          f"(0, {cfg.max_len}]")
@@ -602,8 +592,7 @@ def _spec_accept_commit(spec_k: int, drafts, tgt, pos, tok, rem, act):
 def make_speculative_decode(cfg: TransformerConfig, spec_k: int,
                             num_slots: int, temperature: float = 0.0,
                             top_k: int = 0, top_p: float = 1.0,
-                            draft_layers: int = 0, quantized=None,
-                            kv_mode=None, draft_quantized=None,
+                            draft_layers: int = 0, kv_mode=None,
                             constrain: bool = False) -> Callable:
     """Speculative round over the contiguous slot pool (reference
     :2105): (params, dparams, ck, cv, pos, tok, active [Ns] bool, rem
@@ -620,14 +609,12 @@ def make_speculative_decode(cfg: TransformerConfig, spec_k: int,
     ``poison`` derails a slot's drafts to (d+1) mod V, so verification
     rejects them. The caches, pos and tok are updated in place; ``rem``
     is not. See the section comment for the exactness and cache-safety
-    arguments. ``quantized`` / ``draft_quantized`` mark the two trees
-    (a quantized drafter is a tree like any other here). The constrained
-    variant is not ported."""
+    arguments. Either tree may be quantized (`quant.model.draft_tree`).
+    The constrained variant is not ported."""
     _refuse_variants("make_speculative_decode", constrain=constrain)
     _check_slice(cfg)
     _check_sampling(top_k, top_p)
-    quantized, kv_mode = _resolve_quant(quantized, kv_mode)
-    draft_quantized, _ = _resolve_quant(draft_quantized, None)
+    kv_mode = resolve_mode(kv_mode)
     nd = _check_spec(cfg, spec_k, draft_layers)
     k1 = spec_k + 1
 
@@ -807,7 +794,7 @@ def make_paged_prefill(cfg: TransformerConfig, bucket_len: int,
                        num_slots: int, page_size: int, max_pages: int,
                        num_pages: int, temperature: float = 0.0,
                        top_k: int = 0, top_p: float = 1.0,
-                       quantized=None, kv_mode=None, chunked: bool = False,
+                       kv_mode=None, chunked: bool = False,
                        constrain: bool = False) -> Callable:
     """Paged admission prefill (reference :1430): (params, kp, vp, pos,
     tok, bt [Ns, max_pages], suffix [Ns, Tb], slen [Ns], start [Ns]
@@ -827,7 +814,7 @@ def make_paged_prefill(cfg: TransformerConfig, bucket_len: int,
     only where ``last`` is set (mid-prompt chunks report -1)."""
     _refuse_variants("make_paged_prefill", constrain=constrain)
     _check_paged(cfg, top_k, top_p, page_size, num_pages, max_pages)
-    quantized, kv_mode = _resolve_quant(quantized, kv_mode)
+    kv_mode = resolve_mode(kv_mode)
     if not 0 < bucket_len <= cfg.max_len:
         raise ValueError(f"bucket_len {bucket_len} out of "
                          f"(0, {cfg.max_len}]")
@@ -871,8 +858,7 @@ def make_paged_chunked_prefill(cfg: TransformerConfig, chunk_len: int,
                                num_slots: int, page_size: int,
                                max_pages: int, num_pages: int,
                                temperature: float = 0.0, top_k: int = 0,
-                               top_p: float = 1.0, quantized=None,
-                               kv_mode=None,
+                               top_p: float = 1.0, kv_mode=None,
                                constrain: bool = False) -> Callable:
     """Paged twin of `make_chunked_prefill` (reference :1753): (params,
     kp, vp, pos, tok, bt, toks [Ns, C], clen, start, last, key) -> (kp,
@@ -881,15 +867,15 @@ def make_paged_chunked_prefill(cfg: TransformerConfig, chunk_len: int,
     and ``last`` gating the first token."""
     return make_paged_prefill(cfg, chunk_len, num_slots, page_size,
                               max_pages, num_pages, temperature=temperature,
-                              top_k=top_k, top_p=top_p, quantized=quantized,
-                              kv_mode=kv_mode, chunked=True,
+                              top_k=top_k, top_p=top_p, kv_mode=kv_mode,
+                              chunked=True,
                               constrain=constrain)
 
 
 def make_paged_decode(cfg: TransformerConfig, chunk: int, num_slots: int,
                       page_size: int, max_pages: int, num_pages: int,
                       temperature: float = 0.0, top_k: int = 0,
-                      top_p: float = 1.0, quantized=None, kv_mode=None,
+                      top_p: float = 1.0, kv_mode=None,
                       constrain: bool = False) -> Callable:
     """Paged decode chunk (reference :1780): (params, kp, vp, pos, tok,
     bt [Ns, max_pages], active [Ns] bool, rem [Ns] int32, key) -> (kp,
@@ -898,7 +884,7 @@ def make_paged_decode(cfg: TransformerConfig, chunk: int, num_slots: int,
     pool (kp, vp, kscale, vscale) with ``kv_mode``."""
     _refuse_variants("make_paged_decode", constrain=constrain)
     _check_paged(cfg, top_k, top_p, page_size, num_pages, max_pages)
-    quantized, kv_mode = _resolve_quant(quantized, kv_mode)
+    kv_mode = resolve_mode(kv_mode)
     if chunk < 1:
         raise ValueError(f"chunk must be >= 1, got {chunk}")
 
@@ -934,8 +920,7 @@ def make_paged_speculative_decode(cfg: TransformerConfig, spec_k: int,
                                   num_slots: int, page_size: int,
                                   max_pages: int, num_pages: int,
                                   temperature: float = 0.0, top_k: int = 0,
-                                  top_p: float = 1.0, quantized=None,
-                                  kv_mode=None, draft_quantized=None,
+                                  top_p: float = 1.0, kv_mode=None,
                                   draft_layers: int = 0,
                                   constrain: bool = False) -> Callable:
     """Speculative round on the paged pool (reference :2412): (params,
@@ -951,8 +936,7 @@ def make_paged_speculative_decode(cfg: TransformerConfig, spec_k: int,
     `make_speculative_decode` takes it."""
     _refuse_variants("make_paged_speculative_decode", constrain=constrain)
     _check_paged(cfg, top_k, top_p, page_size, num_pages, max_pages)
-    quantized, kv_mode = _resolve_quant(quantized, kv_mode)
-    draft_quantized, _ = _resolve_quant(draft_quantized, None)
+    kv_mode = resolve_mode(kv_mode)
     nd = _check_spec(cfg, spec_k, draft_layers)
     k1 = spec_k + 1
     s_view = max_pages * page_size

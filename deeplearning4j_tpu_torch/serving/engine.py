@@ -82,7 +82,8 @@ phase runs one speculative round instead of a decode chunk, committing
 adaptive-K controller walks K over {spec_k, spec_k/2, .., 1} on the
 pool's acceptance and falls back to plain decode chunks for a cooldown
 when even K=1 does not pay. ``counts["spec_rounds"/"spec_drafted"/
-"spec_accepted"]`` and `spec_k_current` expose it.
+"spec_accepted"]`` and `spec_k_current` expose it, and
+``counts["spec_draft_steps"]`` sums the K of every round.
 """
 from __future__ import annotations
 
@@ -366,8 +367,9 @@ class InferenceEngine:
         # call ends in a device->host copy of its tokens, so the time
         # includes the device work)
         self.counts = {"prefill_calls": 0, "decode_chunks": 0,
-                       "spec_rounds": 0, "spec_drafted": 0,
-                       "spec_accepted": 0, "prefill_chunks": 0,
+                       "spec_rounds": 0, "spec_draft_steps": 0,
+                       "spec_drafted": 0, "spec_accepted": 0,
+                       "prefill_chunks": 0,
                        "prefix_hits": 0, "prefix_misses": 0,
                        "prefix_shared_tokens": 0, "prefix_evictions": 0,
                        "cow_copies": 0, "pages_used": 0, "pages_free": 0,
@@ -563,11 +565,10 @@ class InferenceEngine:
     def _program(self, kind: str, size: int):
         """The slot program of ``kind`` (a `_MAKERS` key) at ``size``
         (bucket or chunk length, decode chunk or K), made once per key.
-        The key carries the quantization modes when one is on (reference
-        `_quant_kwargs`: a float engine's keys stay (kind, size))."""
+        An engine has one pool, so its KV mode is fixed; a quantized
+        weight tree needs no program of its own (it dequantizes at each
+        use)."""
         key = (kind, size)
-        if self._qmode or self._kv_mode:
-            key += (self._qmode, self._kv_mode)
         fn = self._programs.get(key)
         if fn is None:
             c = self.config
@@ -575,11 +576,9 @@ class InferenceEngine:
             if kind.startswith("paged"):
                 args += (self._page_size, self._max_pages, self._num_pages)
             kw = dict(temperature=float(c.temperature), top_k=int(c.top_k),
-                      top_p=float(c.top_p), quantized=self._qmode,
-                      kv_mode=self._kv_mode)
+                      top_p=float(c.top_p), kv_mode=self._kv_mode)
             if kind.endswith("spec"):
-                kw.update(draft_layers=self._draft_layers,
-                          draft_quantized=self._draft_qmode)
+                kw.update(draft_layers=self._draft_layers)
             fn = self._MAKERS[kind](*args, **kw)
             self._programs[key] = fn
         return fn
@@ -979,6 +978,7 @@ class InferenceEngine:
         toks = emit.cpu().numpy()
         self.seconds["spec"] += time.perf_counter() - t0
         self.counts["spec_rounds"] += 1
+        self.counts["spec_draft_steps"] += k
         return tuple(state), toks, out[0], out[1], out[2]
 
     def _decode_spec_slots(self, occupied) -> None:

@@ -28,6 +28,7 @@ from deeplearning4j_tpu_torch.models import transformer as ttf  # noqa
 from deeplearning4j_tpu_torch.models.convert import \
     params_from_numpy  # noqa: E402
 from deeplearning4j_tpu_torch.parallel import serving as tsv  # noqa: E402
+from deeplearning4j_tpu_torch.quant import model as tqm  # noqa: E402
 from deeplearning4j_tpu_torch.serving import engine as teng  # noqa: E402
 from deeplearning4j_tpu_torch.serving.paging import pages_for  # noqa
 
@@ -375,6 +376,74 @@ def test_unported_combinations_raise(tparams, use, field, value, item):
                              f"ROADMAP queue A {item}"):
         teng.InferenceEngine(TCFG, tparams, teng.EngineConfig(**kw),
                              device="cpu")
+
+
+@pytest.mark.parametrize("use", [dict(paged=True), dict(prefill_chunk=8)])
+@pytest.mark.parametrize("field", ["kv_quantize", "quantize"])
+def test_quantized_combinations_serve(tparams, use, field):
+    """Paged KV (prefix cache off) or chunked prefill with the int8 pool
+    or the int8 tree serves the mix as the contiguous one-shot engine of
+    the same mode does, token for token."""
+    q = {field: "int8"}
+    want = _serve(_port(tparams, prefill_chunk=None, **q), _mix())
+    kw = {"prefill_chunk": None, **use, **q}
+    if "paged" in use:
+        kw.update(page_size=8, prefix_cache=False)
+    eng = _port(tparams, **kw)
+    got = _serve(eng, _mix())
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)
+    assert (len(eng._slot_state) == 6) == (field == "kv_quantize")
+
+
+def test_chunked_prefill_program_on_the_quantized_pool(tparams):
+    """The chunked prefill program on the int8 pool: a chunk writes int8
+    rows with their scales, the rest of the pool keeps value 0 and
+    scale 1.0."""
+    state = tsv.init_slot_state(TCFG, NS, "cpu", kv_mode="int8")
+    fn = tsv.make_chunked_prefill(TCFG, 8, NS, kv_mode="int8")
+    toks = np.zeros((NS, 8), np.int32)
+    toks[1, :5] = _prompt(5, 3)
+    clen = np.array([0, 5, 0, 0], np.int32)
+    out = fn(tparams, *state, torch.from_numpy(toks),
+             torch.from_numpy(clen), torch.zeros(NS, dtype=torch.int32),
+             torch.ones(NS, dtype=torch.bool), 0)
+    ck, ks, pos = out[0], out[2], out[4]
+    assert ck.dtype == torch.int8 and pos.tolist() == [0, 5, 0, 0]
+    assert (ck[:, 1, :5] != 0).any() and (ks[:, 1, :5] != 1.0).all()
+    assert (ks[:, 1, 5:] == 1.0).all() and (ks[:, [0, 2, 3]] == 1.0).all()
+
+
+def test_paged_prefill_takes_a_quantized_tree(tparams):
+    """A quantized tree needs no program option: paged prefill over it
+    equals the run over its dequantized float tree, bit for bit."""
+    qtree = tqm.quantize_params(tparams, mode="int8")
+    fn = tsv.make_paged_prefill(TCFG, 8, NS, 8, 12, 20)
+    bt = np.zeros((NS, 12), np.int32)
+    bt[0, :2] = [1, 2]
+    suffix = np.zeros((NS, 8), np.int32)
+    suffix[0, :7] = _prompt(7, 4)
+    slen = np.array([7, 0, 0, 0], np.int32)
+    args = (torch.from_numpy(bt), torch.from_numpy(suffix),
+            torch.from_numpy(slen), torch.zeros(NS, dtype=torch.int32), 0)
+    outs = [fn(tree, *tsv.init_paged_state(TCFG, NS, 8, 20, "cpu"), *args)
+            for tree in (qtree, tqm.dequantize_params(qtree))]
+    for a, b in zip(*outs):
+        assert torch.equal(a, b)
+
+
+def test_paged_state_on_the_quantized_pool():
+    """init_paged_state(kv_mode="int8"): int8 pages and float32 scale
+    planes [L, pages, page_size, 1] of 1.0 before pos and tok."""
+    kp, vp, ks, vs, pos, tok = tsv.init_paged_state(TCFG, NS, 8, 20, "cpu",
+                                                    kv_mode="int8")
+    assert kp.dtype == vp.dtype == torch.int8
+    assert tuple(kp.shape[:3]) == (FIELDS["n_layers"], 20, 8)
+    for plane in (ks, vs):
+        assert plane.dtype == torch.float32
+        assert tuple(plane.shape) == (FIELDS["n_layers"], 20, 8, 1)
+        assert (plane == 1.0).all()
+    assert tuple(pos.shape) == tuple(tok.shape) == (NS,)
 
 
 @pytest.mark.parametrize("make", [

@@ -147,7 +147,8 @@ def test_quant_slot_programs_match_jax(mesh1, jparams, tparams, quantized):
     """Two admission waves into the int8 pool, then a decode chunk with an
     inactive slot and budgets ending mid-chunk, float and int8 weights."""
     jp, tp = _trees(mesh1, jparams, tparams, quantized)
-    kw = dict(quantized=quantized, kv_mode="int8")
+    # the reference's makers take the tree's mode; the port's need none
+    jkw = dict(quantized=quantized, kv_mode="int8")
     jstate = tuple(jsv.init_slot_state(JCFG, mesh1, NS, kv_mode="int8"))
     tstate = tsv.init_slot_state(TCFG, NS, "cpu", kv_mode="int8")
     assert len(tstate) == 6 and tstate[0].dtype == torch.int8
@@ -155,15 +156,17 @@ def test_quant_slot_programs_match_jax(mesh1, jparams, tparams, quantized):
                  {1: _prompt(16, 3), 3: _prompt(9, 4)}):
         prompts, plen = _admit(wave, 16)
         jstate, tstate, (first,) = _both(
-            jsv.make_continuous_prefill(JCFG, mesh1, 16, NS, **kw),
-            tsv.make_continuous_prefill(TCFG, 16, NS, **kw), jstate, tstate,
+            jsv.make_continuous_prefill(JCFG, mesh1, 16, NS, **jkw),
+            tsv.make_continuous_prefill(TCFG, 16, NS, kv_mode="int8"),
+            jstate, tstate,
             jp, tp, prompts, plen)
         assert (first[plen == 0] == -1).all()
     active = np.array([True, True, True, False])
     rem = np.array([4, 2, 1, 3], np.int32)
     _, tstate, (toks,) = _both(
-        jsv.make_continuous_decode(JCFG, mesh1, 4, NS, **kw),
-        tsv.make_continuous_decode(TCFG, 4, NS, **kw), jstate, tstate, jp,
+        jsv.make_continuous_decode(JCFG, mesh1, 4, NS, **jkw),
+        tsv.make_continuous_decode(TCFG, 4, NS, kv_mode="int8"), jstate,
+        tstate, jp,
         tp, active, rem)
     assert (toks[3] == -1).all() and (toks[2, 1:] == -1).all()
     # rows past the prefill bucket and the decode rows keep value 0 and
@@ -226,7 +229,7 @@ def test_quant_paged_programs_match_jax(mesh1, jparams, tparams, quantized):
     prefix-hit resume at 16 over pages slot 0 wrote (slot 1; its prefix
     read through the quantized pages), then a decode chunk."""
     jp, tp = _trees(mesh1, jparams, tparams, quantized)
-    kw = dict(quantized=quantized, kv_mode="int8")
+    jkw = dict(quantized=quantized, kv_mode="int8")
     bt, mp, npg = _tables()
     jstate = tuple(jsv.init_paged_state(JCFG, mesh1, NS, PS, npg,
                                         kv_mode="int8"))
@@ -236,8 +239,8 @@ def test_quant_paged_programs_match_jax(mesh1, jparams, tparams, quantized):
     a = _prompt(21, 1)
     b = np.concatenate([a[:16], _prompt(7, 2)])
     tb = 32
-    jfn = jsv.make_paged_prefill(JCFG, mesh1, tb, NS, PS, mp, npg, **kw)
-    tfn = tsv.make_paged_prefill(TCFG, tb, NS, PS, mp, npg, **kw)
+    jfn = jsv.make_paged_prefill(JCFG, mesh1, tb, NS, PS, mp, npg, **jkw)
+    tfn = tsv.make_paged_prefill(TCFG, tb, NS, PS, mp, npg, kv_mode="int8")
     for tails, start in (({0: a, 2: _prompt(10, 3)}, 0), ({1: b[16:]}, 16)):
         suffix, slen = _admit(tails, tb)
         st = np.where(slen > 0, start, 0).astype(np.int32)
@@ -246,8 +249,9 @@ def test_quant_paged_programs_match_jax(mesh1, jparams, tparams, quantized):
     assert tstate[4].tolist() == [21, 23, 10, 0]
     active = np.array([True, True, True, False])
     rem = np.array([4, 2, 1, 3], np.int32)
-    _both(jsv.make_paged_decode(JCFG, mesh1, 4, NS, PS, mp, npg, **kw),
-          tsv.make_paged_decode(TCFG, 4, NS, PS, mp, npg, **kw), jstate,
+    _both(jsv.make_paged_decode(JCFG, mesh1, 4, NS, PS, mp, npg, **jkw),
+          tsv.make_paged_decode(TCFG, 4, NS, PS, mp, npg, kv_mode="int8"),
+          jstate,
           tstate, jp, tp, bt, active, rem, paged=True)
 
 
@@ -269,9 +273,9 @@ def test_quant_spec_round_matches_jax(mesh1, jparams, tparams,
         jsv.make_continuous_prefill(JCFG, mesh1, tb, NS, kv_mode="int8"),
         tsv.make_continuous_prefill(TCFG, tb, NS, kv_mode="int8"), jstate,
         tstate, jp, tp, prompts, plen)
-    kw = dict(kv_mode="int8", draft_quantized=draft_quantized)
-    jfn = jsv.make_speculative_decode(JCFG, mesh1, 4, NS, **kw)
-    tfn = tsv.make_speculative_decode(TCFG, 4, NS, **kw)
+    jfn = jsv.make_speculative_decode(JCFG, mesh1, 4, NS, kv_mode="int8",
+                                      draft_quantized=draft_quantized)
+    tfn = tsv.make_speculative_decode(TCFG, 4, NS, kv_mode="int8")
     for rem, poison in ((np.array([10, 2, 10, 10], np.int32),
                          np.array([0, 0, 1, 0], bool)),
                         (np.array([10, 1, 10, 1], np.int32),
@@ -311,10 +315,11 @@ def test_quant_paged_spec_round_matches_jax(mesh1, jparams, tparams):
         tsv.make_paged_prefill(TCFG, tb, NS, PS, mp, npg, kv_mode="int8"),
         jstate, tstate, jp, tp, bt, suffix, slen, np.zeros((NS,), np.int32),
         paged=True)
-    kw = dict(kv_mode="int8", draft_quantized="int8")
     jfn = jsv.make_paged_speculative_decode(JCFG, mesh1, 4, NS, PS, mp, npg,
-                                            **kw)
-    tfn = tsv.make_paged_speculative_decode(TCFG, 4, NS, PS, mp, npg, **kw)
+                                            kv_mode="int8",
+                                            draft_quantized="int8")
+    tfn = tsv.make_paged_speculative_decode(TCFG, 4, NS, PS, mp, npg,
+                                            kv_mode="int8")
     for rem in (np.array([10, 2, 10, 10], np.int32),
                 np.array([10, 1, 10, 1], np.int32)):
         args = (bt, np.ones(NS, bool), rem, np.zeros(NS, bool))

@@ -28,6 +28,7 @@ from deeplearning4j_tpu_torch.models import transformer as ttf  # noqa
 from deeplearning4j_tpu_torch.models.convert import \
     params_from_numpy  # noqa: E402
 from deeplearning4j_tpu_torch.parallel import serving as tsv  # noqa: E402
+from deeplearning4j_tpu_torch.quant import model as tqm  # noqa: E402
 from deeplearning4j_tpu_torch.serving import engine as teng  # noqa: E402
 
 FIELDS = dict(vocab_size=64, d_model=64, n_heads=4, n_layers=2, max_len=96)
@@ -208,3 +209,25 @@ def test_unported_engine_options_raise(tparams, field, value):
                              teng.EngineConfig(**{field: value}, **extra),
                              device="cpu")
     assert not extra or f"{field}=" in str(e.value)
+
+
+@pytest.mark.parametrize("field,value", [("spec_decode", True),
+                                         ("quantize", "int8")])
+def test_ported_engine_options_serve(tparams, field, value):
+    """Options that once raised here serve now: speculative decoding
+    with its default drafter ("int8") equals the plain engine, and the
+    int8 tree equals the float engine over its dequantized weights."""
+    reqs = _requests()[:4]
+    base = tparams
+    if field == "quantize":
+        base = tqm.dequantize_params(tqm.quantize_params(tparams))
+    results = []
+    for params, kw in ((base, {}), (tparams, {field: value})):
+        eng = teng.InferenceEngine(
+            TCFG, params, teng.EngineConfig(num_slots=NS, **kw),
+            device="cpu")
+        hs = [eng.submit(p, max_new_tokens=m) for p, m in reqs]
+        eng.run_pending()
+        results.append([h.result() for h in hs])
+    for g, w in zip(results[1], results[0]):
+        np.testing.assert_array_equal(g, w)

@@ -30,6 +30,7 @@ from deeplearning4j_tpu_torch.models.convert import \
     params_from_numpy  # noqa: E402
 from deeplearning4j_tpu_torch.parallel import serving as tsv  # noqa: E402
 from deeplearning4j_tpu_torch.quant import model as tqm  # noqa: E402
+from deeplearning4j_tpu_torch.quant.core import QuantizedTensor  # noqa
 from deeplearning4j_tpu_torch.serving import engine as teng  # noqa: E402
 
 FIELDS = dict(vocab_size=64, d_model=64, n_heads=4, n_layers=2, max_len=96)
@@ -156,6 +157,45 @@ def test_spec_accept_commit_matches_jax():
 def test_spec_program_unported_variants_raise(kw):
     with pytest.raises(NotImplementedError, match="ROADMAP queue A"):
         tsv.make_speculative_decode(TCFG, 4, NS, **kw)
+
+
+@pytest.mark.parametrize("variant", ["quantized", "kv_mode",
+                                     "draft_quantized"])
+def test_spec_program_quant_variants(tparams, variant):
+    """A quantized target tree, the int8 pool (the one option a program
+    takes for quantization) or an int8 drafter tree: one greedy round
+    commits the plain decode chunk's tokens on the same tree and pool,
+    and a drafter equal to the target is accepted whole."""
+    qtree = tqm.quantize_params(tparams, mode="int8")
+    params = qtree if variant == "quantized" else tparams
+    dparams = tparams if variant == "kv_mode" else qtree
+    kv_mode = "int8" if variant == "kv_mode" else None
+    tb, k = 16, 4
+    prompts = np.zeros((NS, tb), np.int32)
+    plen = np.zeros((NS,), np.int32)
+    for i, n in enumerate((5, 12, 9, 16, 7)):
+        prompts[i, :n] = _prompt(n, 30 + i)
+        plen[i] = n
+    state = tsv.init_slot_state(TCFG, NS, "cpu", kv_mode=kv_mode)
+    *state, _ = tsv.make_continuous_prefill(TCFG, tb, NS, kv_mode=kv_mode)(
+        params, *state, torch.from_numpy(prompts), torch.from_numpy(plen),
+        0)
+    assert len(state) == (6 if kv_mode else 4)
+    active = torch.ones(NS, dtype=torch.bool)
+    rem = torch.full((NS,), 10, dtype=torch.int32)
+    *_, want = tsv.make_continuous_decode(TCFG, k + 1, NS, kv_mode=kv_mode)(
+        params, *(t.clone() for t in state), active, rem, 0)
+    out = tsv.make_speculative_decode(TCFG, k, NS, kv_mode=kv_mode)(
+        params, dparams, *state, active, rem,
+        torch.zeros(NS, dtype=torch.bool), 0)
+    emit, ncommit = out[len(state)], out[len(state) + 1]
+    assert int(ncommit.min()) >= 1
+    for i in range(NS):
+        n = int(ncommit[i])
+        np.testing.assert_array_equal(emit[i, :n].numpy(),
+                                      want[i, :n].numpy())
+    if variant != "draft_quantized":
+        assert (ncommit == k + 1).all()
 
 
 # ---------------------------------------------------------------------------
@@ -285,6 +325,24 @@ def test_budget_cap_truncates_commit_not_exactness(tparams):
 def test_spec_config_errors_raise_value_error(tparams, kw, match):
     with pytest.raises(ValueError, match=match):
         _port_engine(tparams, spec_decode=True, **kw)
+
+
+@pytest.mark.parametrize("draft", ["int8", "fp8"])
+def test_quantized_drafter_builds(tparams, draft):
+    """The default drafter and its fp8 sibling build (fp8 resolves to
+    int8 off a capable card, as the reference's does off its
+    accelerator): the drafter tree is quantized, the live tree is not,
+    and the engine's results equal the plain engine's."""
+    reqs = _requests()[:3]
+    _, want = _run_port(tparams, reqs)
+    eng, got = _run_port(tparams, reqs, spec_decode=True, spec_k=4,
+                         draft=draft)
+    assert eng._draft_qmode == "int8"
+    assert isinstance(eng._draft_params["Wout"], QuantizedTensor)
+    assert not isinstance(eng._params["Wout"], QuantizedTensor)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)
+    assert eng.counts["spec_rounds"] > 0
 
 
 @pytest.mark.parametrize("draft", ["self", "layers:1", "layers:2",

@@ -91,7 +91,8 @@ card and fails (non-zero exit, no result line) if anything is wrong:
 2b. float32 speculative decoding on the same model: spec_k 4 with the
    drafters "self" and "layers:1" (greedy), then "layers:1" sampled
    (temperature 0.9, top-k 16); the spec tokens on cuda must equal the
-   plain engine's on cuda and the spec engine's on cpu.
+   plain engine's on cuda and the spec engine's on cpu; launches exact
+   (as phase 3 counts them).
 2c. float32 paged KV on the same model: 12 greedy requests (8 open with
    one 64-token system prompt; 8-192 tokens; 16 new) and then 4 of them
    again (full-prefix hits: copy-on-write) through the paged engine
@@ -107,25 +108,37 @@ card and fails (non-zero exit, no result line) if anything is wrong:
    32) ≡ one-shot int8; on the card the quantized kernels run and the
    float decode / window kernels and the plain twins never.
 3. Full width: the 12L / 512d / 8H / V=256 / max_len 2048 bf16 engine with
-   64 slots and decode_chunk 8 answers 128 requests (prompt lengths 16..1024
+   64 slots and decode_chunk 8 (phases 3-3d on the synchronous loop,
+   `pipeline=False`, their per-tick programs replayed as CUDA graphs as
+   in every card engine) answers 128 requests (prompt lengths 16..1024
    from seed 0, 64 new tokens), then `TransformerLM.generate` runs B=64,
    prompt 64, 128 new greedy tokens. Every launch counter is reset just
-   before each run and read just after: each kernel must have run, the
-   flash kernel n_layers times per prefill call and the decode kernel
-   n_layers x chunk times per decode chunk. One more engine tick (64
-   admissions + one decode chunk) runs under torch.profiler and prints
-   the device time by kernel and the device's idle share of the tick.
+   before each run and read just after. A wrapper counts where it
+   launches: the flash kernel n_layers times per prefill call (eager);
+   a slot program's kernels at the first call of its (kind, size) key,
+   eagerly, and once more at its capture (the decode kernel n_layers x
+   chunk each), and every later decode chunk must be a graph replay,
+   which calls no wrapper (`expected_launches`, `check_launches`; the
+   replays are counted on their own). What a replay runs is read from
+   the device's trace: one more engine tick (64 admissions + one decode
+   chunk) runs under torch.profiler, must be one prefill and one graph
+   replay, and its trace must hold the flash kernel n_layers times and
+   the decode kernel n_layers x chunk times (`device_launch_gate`); it
+   prints the device time by kernel and the device's idle share.
 3b. Full-width speculative decoding: phase 3's config and 128 requests on
    the aligned tree (blocks 1..11 with Wo, W2, b2 zeroed, so the
    "layers:1" drafter agrees with the model), spec_k 7, against the plain
    engine (decode_chunk 8) on the same tree. Every request's tokens must
-   equal the plain engine's; per spec round the window kernel must run
-   n_layers times and the decode kernel K times (one draft layer); K must
-   stay 7. Tokens/s, ms per round and per chunk, acceptance and launches
-   per round are printed; a probe compares a batched [Ns*(K+1), D]
+   equal the plain engine's; launches exact (phase 3's accounting: a
+   spec round program n_layers window and K draft decode launches at
+   its first call and its capture, every later round a replay); K must
+   stay 7. Tokens/s, ms per round and per chunk, acceptance, launches
+   and graph replays are printed; a probe compares a batched [Ns*(K+1), D]
    product with decode's per-row [Ns, D] products bitwise; one spec round
    and one plain chunk (8 tokens each, no admissions) run under
-   torch.profiler.
+   torch.profiler, each one graph replay whose device trace holds the
+   ported kernels it must run (the round: the bf16 window and draft
+   decode, which share one device function, n_layers + K times).
 3c. Full-width paged serving: phase 3's config and slots on the paged pool
    (page_size 16, 3072 pages + the scratch page, prefix cache): 128
    requests of 64 new tokens (96 open with one 512-token system prompt
@@ -134,27 +147,48 @@ card and fails (non-zero exit, no result line) if anything is wrong:
    same 32 cold (prefix cache off); the first wave with prefill_chunk
    256 and the default budget; paged spec (K=7, "layers:1") against
    paged plain on 3b's aligned tree, token-exact. Every request answered
-   and well formed; launches exact (decode n_layers x chunk per decode
-   chunk, window n_layers and draft decode K per spec round, flash_fwd
+   and well formed; launches exact (phase 3's accounting; flash_fwd
    none on the paged and chunked arms: their prefill is plain
    attention); hits and copies in the second wave; no page leaked.
    Prints each arm's tokens/s, ms per decode step and prefill seconds,
    the first wave's ms per decode step paged and contiguous (and phase
    3's), the cold and prefix-hit prefill seconds, and one profiled paged
-   decode chunk with the device time of its page gathers.
+   decode chunk (gated on its device trace) with the device time of its
+   page gathers.
 3d. Full-width quantized serving: phase 3's config and 128 requests, (a)
-   int8 weights and KV, (b) fp8 both (e4m3 on the card), (c) spec K=7
-   (held, spec_adaptive off) with the default "int8" drafter on the
-   float tree (≡ phase 3's bf16 plain engine; acceptance printed), (d)
+   int8 weights and KV, (b) fp8 both (e4m3 on the card), (c) spec from
+   K=7 at the default adaptive K with the default "int8" drafter on the
+   float tree (≡ phase 3's bf16 plain engine; acceptance printed; the
+   adaptive K may capture a round program per K it visits), (d)
    spec on the int8 engine, whose drafter shares the tree (≡ (a); every
-   draft the budgets allow
-   accepted; K stays 7), (e) the paged int8 pool on phase 3c's traffic
-   (hits and copies in the second wave, no page leaked). Launches exact
-   (the quantized decode entry L x chunk per decode chunk and L x K per
-   spec round, the quantized window L per round; no float decode or
-   window launch and no plain-twin call on a quantized pool). Prints
-   tokens/s and ms a decode step beside phase 3's, param and pool bytes
-   against the bf16 engine's, and one profiled int8 decode chunk.
+   draft the budgets allow accepted; K stays 7), (e) the paged int8 pool
+   on phase 3c's traffic (hits and copies in the second wave, no page
+   leaked). Launches exact (phase 3's accounting, with the quantized
+   decode and window entries on a quantized pool; no float decode or
+   window launch and no plain-twin call there). Prints tokens/s and ms
+   a decode step beside phase 3's, param and pool bytes against the
+   bf16 engine's, and one profiled int8 decode chunk and one profiled
+   spec round of (d), each gated on its device trace (the quantized
+   decode entry n_layers x 8, and n_layers x K beside the quantized
+   window's n_layers).
+3e. The pipelined tick loop, the engine's default, on the traffic of
+   phases 3-3d, beside the synchronous loop run here on the same
+   traffic: plain (phase 3; a warm pass per loop, then timed passes
+   sync, pipelined, pipelined, sync, each printing tokens/s and ms a
+   decode step), spec (3b's tree, K 7, "layers:1"), paged (3c's two
+   waves), chunked (3c's chunk-256 arm) and int8 (3d's int8 weights and
+   KV); each pass also prints how many requests differ from the earlier
+   phase's results. Gates: every arm token-exact against the
+   synchronous loop; without spec the same
+   calls; at most one blocking wait a pipelined tick; launches exact
+   (phase 3's accounting: in a warm pass none, every call a replay); no
+   capture in a pass after the warm one; nothing in
+   flight and no page leaked after a drain; the paged engine's graph
+   pool under L gathered views; a decode-chunk and a spec-round replay
+   ≡ the eager program bit for bit. Prints waits a tick, captures,
+   replays, graph-pool bytes and one profiled pipelined decode tick
+   (idle share, device kernels, host launch calls; gated on its device
+   trace).
 4a. float32 training, card vs CPU: 2 layers at 512d / 8 heads, V=256,
    B=2, T=256, remat 'full', three Adam steps of `make_fsdp_train_step`
    from the same params on cuda and on cpu; losses within 1e-4, and the
@@ -198,8 +232,12 @@ card and fails (non-zero exit, no result line) if anything is wrong:
    after: 4 packed launches per q512 call, the sweep kernel at every
    non-production geometry. The sweep's bounds stay on the data-sheet
    3.35 TB/s; the measured copy rate's bound is printed beside them.
-7. Summary: one `kernels` JSON line (decode_attention_q and
-   decode_window_q among them), then the last line
+7. Summary: one line of the graph replays of every gated run and of
+   the serving device functions' launches in the profiled ticks' traces;
+   one `kernels` JSON line (decode_attention_q and decode_window_q among
+   them; `launches` the wrappers' counts, `device_launches_profiled`
+   the traces' count of the device function the kernel runs), the
+   card's name and power limit, then the last line
    {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
 The kernels build from deeplearning4j_tpu_torch/csrc/ at the start (one
@@ -453,6 +491,7 @@ def phase_kernels(torch, dev):
         if t == 1024:
             results["flash_fwd"] = rec
         del q3, k3, v3, o, ro, q4, k4, v4
+    flash_poison_probe(torch, fa, rnd, bh, 1024, dh, scale)
 
     # -- flash forward, small odd float32 shapes -------------------------
     for tq, sk, qo, ko in ((100, 100, 0, 0), (64, 96, 0, 32),
@@ -561,6 +600,39 @@ def phase_kernels(torch, dev):
 # ---------------------------------------------------------------------------
 # phase 1c: the verify-window kernel vs its plain twin and the decode kernel
 # ---------------------------------------------------------------------------
+
+def flash_poison_probe(torch, fa, rnd, bh, t, dh, scale, calls=4):
+    """The bf16 flash forward at phase 1's T=1024 point, each call's
+    outputs allocated where NaN-filled blocks of their sizes were just
+    freed (the caching allocator hands the same blocks back; printed):
+    an output element the kernel leaves unwritten then reads NaN on
+    every call, where fresh memory would hide it. Gates: every output
+    finite, every call bit-equal to the first (ROADMAP queue C: one NaN
+    on a first call, PR 11 run 2)."""
+    bf = torch.bfloat16
+    q3, k3, v3 = (rnd((bh, t, dh), bf) for _ in range(3))
+    nan = float("nan")
+    first, reused, nonfinite, same = None, [], [], []
+    for _ in range(calls):
+        bait = [torch.full((bh, t, dh), nan, dtype=bf, device=q3.device),
+                torch.full((bh, t, 1), nan, device=q3.device),
+                torch.full((bh, t, 1), nan, device=q3.device)]
+        ptrs = [b.data_ptr() for b in bait]
+        del bait
+        out = fa.flash_forward_cuda(q3, k3, v3, scale, True)
+        reused.append([x.data_ptr() for x in out] == ptrs)
+        nonfinite.append(sum(int((~torch.isfinite(x)).sum()) for x in out))
+        if first is None:
+            first = [x.clone() for x in out]
+        same.append(all(torch.equal(a, b) for a, b in zip(out, first)))
+        del out
+    line(dict(phase=1, kernel="flash_fwd", run="poisoned_outputs",
+              shape=[bh, t, dh], calls=calls, outputs_on_nan_blocks=reused,
+              nonfinite=nonfinite, equal_to_first=same))
+    if any(nonfinite) or not all(same):
+        fail(f"flash forward on NaN-filled output blocks: non-finite "
+             f"{nonfinite}, equal to the first call {same}")
+
 
 def phase_window_kernel(torch, dev):
     """The window kernel at the spec path's shapes (B=64 slots, T=K+1 of 5
@@ -695,7 +767,6 @@ def phase_spec_f32_card_vs_cpu(torch, dev):
     temperature 0.9, top-k 16) must give the card's plain-engine tokens
     on the card and the same tokens on the CPU."""
     from deeplearning4j_tpu_torch.models import transformer as tf
-    from deeplearning4j_tpu_torch.ops import flash_decode as fd
     from deeplearning4j_tpu_torch.serving.engine import (EngineConfig,
                                                          InferenceEngine)
     cfg = tf.TransformerConfig(vocab_size=256, d_model=512, n_heads=8,
@@ -716,10 +787,11 @@ def phase_spec_f32_card_vs_cpu(torch, dev):
     for draft, samp in (("self", {}), ("layers:1", {}),
                         ("layers:1", dict(temperature=0.9, top_k=16))):
         _, plain = serve(dev, **samp)
-        fd.decode_window_attention_cuda.launches = 0
+        zero_launches()
         eng, spec = serve(dev, spec_decode=True, spec_k=4, draft=draft,
                           **samp)
-        n_win = fd.decode_window_attention_cuda.launches
+        got = read_launches()
+        n_win = got["decode_window"]
         _, spec_cpu = serve(torch.device("cpu"), spec_decode=True, spec_k=4,
                             draft=draft, **samp)
         same_plain = all(np.array_equal(a, b) for a, b in zip(spec, plain))
@@ -731,13 +803,14 @@ def phase_spec_f32_card_vs_cpu(torch, dev):
                   spec_cuda_equals_spec_cpu=same_cpu,
                   spec_rounds=c["spec_rounds"], decode_chunks=c[
                       "decode_chunks"], drafted=c["spec_drafted"],
-                  accepted=c["spec_accepted"], window_launches=n_win))
+                  accepted=c["spec_accepted"], window_launches=n_win,
+                  graph_replays=c["graph_replays"]))
         if not (same_plain and same_cpu):
             fail(f"float32 spec ({draft}, {samp}): tokens differ, spec vs "
                  f"plain on the card {same_plain}, card vs CPU {same_cpu}")
-        if n_win != cfg.n_layers * c["spec_rounds"] or not n_win:
-            fail(f"float32 spec ({draft}): {n_win} window launches for "
-                 f"{c['spec_rounds']} rounds of {cfg.n_layers} layers")
+        if not n_win:
+            fail(f"float32 spec ({draft}): no window launch")
+        check_launches(eng, c, cfg.n_layers, got, f"2b {draft} {samp}")
 
 
 # ---------------------------------------------------------------------------
@@ -863,18 +936,17 @@ def phase_full_width(torch, dev):
     lm = tf.TransformerLM(cfg, seed=0, device=dev)
     eng = InferenceEngine(cfg, lm.params, EngineConfig(
         num_slots=64, decode_chunk=8, max_new_tokens=new, max_queue=256,
-        degrade_queue_depth=1024), device=dev)
+        degrade_queue_depth=1024, pipeline=False), device=dev)
 
-    fa.flash_forward_cuda.launches = 0
-    fd.decode_attention_cuda.launches = 0
+    zero_launches()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     hs = [eng.submit(p) for p in prompts]
     eng.run_pending()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    n_flash, n_dec = (fa.flash_forward_cuda.launches,
-                      fd.decode_attention_cuda.launches)
+    got = read_launches()
+    n_flash, n_dec = got["flash_fwd"], got["decode_attention"]
     for h, p in zip(hs, prompts):
         out = h.result()
         if out.shape != (p.shape[0] + new,) or \
@@ -882,10 +954,7 @@ def phase_full_width(torch, dev):
                 out.min() < 0 or out.max() >= cfg.vocab_size:
             fail(f"request {h.rid}: bad result of shape {out.shape}")
     c = eng.counts
-    if n_flash != L * c["prefill_calls"] or \
-            n_dec != L * eng.decode_chunk * c["decode_chunks"]:
-        fail(f"engine launch counts flash={n_flash} decode={n_dec} vs "
-             f"{c} with L={L}, chunk={eng.decode_chunk}")
+    check_launches(eng, c, L, got, "3 engine")
     steps = eng.decode_chunk * c["decode_chunks"]
     ms_per_step = eng.seconds["decode"] / steps * 1e3
     line(dict(phase=3, run="engine", requests=n_req, answered=len(hs),
@@ -897,7 +966,9 @@ def phase_full_width(torch, dev):
               decode_chunks=c["decode_chunks"],
               decode_s=eng.seconds["decode"],
               ms_per_decode_step=ms_per_step,
-              flash_launches=n_flash, decode_launches=n_dec))
+              flash_launches=n_flash, decode_launches=n_dec,
+              graph_captures=c["graph_captures"],
+              graph_replays=c["graph_replays"]))
 
     gb, gt, gnew = 64, 64, 128
     prompt = torch.from_numpy(rng.integers(0, 256, size=(gb, gt)).astype(
@@ -925,7 +996,7 @@ def phase_full_width(torch, dev):
     phase_profile(torch, eng, rng)
     return ({"flash_fwd": n_flash + g_flash,
              "decode_attention": n_dec + g_dec}, ms_per_step,
-            [h.result() for h in hs])
+            ([prompts], [[h.result() for h in hs]]))
 
 
 # ---------------------------------------------------------------------------
@@ -978,8 +1049,6 @@ def phase_spec_full_width(torch, dev):
     equal; the window kernel L times per spec round; the decode kernel
     draft_layers x K times per round; K stays 7 (acceptance holds)."""
     from deeplearning4j_tpu_torch.models import transformer as tf
-    from deeplearning4j_tpu_torch.ops import flash_attention as fa
-    from deeplearning4j_tpu_torch.ops import flash_decode as fd
     from deeplearning4j_tpu_torch.serving.engine import (EngineConfig,
                                                          InferenceEngine)
     cfg = tf.TransformerConfig(vocab_size=256, d_model=512, n_heads=8,
@@ -991,39 +1060,39 @@ def phase_spec_full_width(torch, dev):
     prompts = [rng.integers(0, 256, size=int(n)).astype(np.int32)
                for n in lens]
     params = aligned_params(tf, cfg, dev)
-    counters = (fa.flash_forward_cuda, fd.decode_attention_cuda,
-                fd.decode_window_attention_cuda)
     arms, launches = {}, {}
     for arm, kw in (("plain", dict(decode_chunk=8)),
                     ("spec", dict(spec_decode=True, spec_k=K,
                                   draft=f"layers:{nd}"))):
         eng = InferenceEngine(cfg, params, EngineConfig(
             num_slots=64, max_new_tokens=new, max_queue=256,
-            degrade_queue_depth=1024, **kw), device=dev)
-        for c in counters:
-            c.launches = 0
+            degrade_queue_depth=1024, pipeline=False, **kw), device=dev)
+        zero_launches()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         hs = [eng.submit(p) for p in prompts]
         eng.run_pending()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        n_flash, n_dec, n_win = (c.launches for c in counters)
+        got = read_launches()
         arms[arm] = (eng, [h.result() for h in hs], wall)
-        launches[arm] = {"flash_fwd": n_flash, "decode_attention": n_dec,
-                         "decode_window": n_win}
+        launches[arm] = {k: got[k] for k in ("flash_fwd", "decode_attention",
+                                             "decode_window")}
         c = eng.counts
+        check_launches(eng, c, L, got, f"3b {arm}")
         rec = dict(phase="3b", arm=arm, requests=n_req, new_tokens=new,
                    wall_s=wall, tokens_per_s=n_req * new / wall,
                    prefill_calls=c["prefill_calls"],
                    prefill_s=eng.seconds["prefill"],
-                   flash_launches=n_flash, decode_launches=n_dec,
-                   window_launches=n_win)
+                   flash_launches=got["flash_fwd"],
+                   decode_launches=got["decode_attention"],
+                   window_launches=got["decode_window"],
+                   graph_captures=c["graph_captures"],
+                   graph_replays=c["graph_replays"])
         if arm == "plain":
             rec.update(decode_chunks=c["decode_chunks"],
                        ms_per_decode_chunk=eng.seconds["decode"]
-                       / c["decode_chunks"] * 1e3,
-                       decode_launches_per_chunk=n_dec / c["decode_chunks"])
+                       / c["decode_chunks"] * 1e3)
         else:
             rounds = c["spec_rounds"]
             rec.update(spec_k=K, draft=f"layers:{nd}", spec_rounds=rounds,
@@ -1032,9 +1101,7 @@ def phase_spec_full_width(torch, dev):
                        drafted=c["spec_drafted"],
                        accepted=c["spec_accepted"],
                        acceptance=c["spec_accepted"] / c["spec_drafted"],
-                       spec_k_final=eng.spec_k_current,
-                       window_launches_per_round=n_win / rounds,
-                       decode_launches_per_round=n_dec / rounds)
+                       spec_k_final=eng.spec_k_current)
         line(rec)
     eng, spec, _ = arms["spec"]
     plain = arms["plain"][1]
@@ -1043,15 +1110,10 @@ def phase_spec_full_width(torch, dev):
     if bad:
         fail(f"full-width spec tokens differ from the plain engine in "
              f"requests {bad[:8]} ({len(bad)} of {n_req})")
-    rounds = eng.counts["spec_rounds"]
-    if eng.counts["decode_chunks"] or eng.spec_k_current != K:
+    if eng.counts["decode_chunks"] or eng.spec_k_current != K or \
+            eng._graphs.keys() != [("spec", K)]:
         fail(f"aligned spec run left K={K}: {eng.counts}, K now "
-             f"{eng.spec_k_current}")
-    if launches["spec"]["decode_window"] != L * rounds or \
-            launches["spec"]["decode_attention"] != nd * K * rounds or \
-            launches["spec"]["flash_fwd"] != L * eng.counts["prefill_calls"]:
-        fail(f"spec launch counts {launches['spec']} for {rounds} rounds, "
-             f"L={L}, K={K}, draft layers {nd}")
+             f"{eng.spec_k_current}, graphs {eng._graphs.keys()}")
     line(dict(phase="3b", run="probe_batched_products",
               **probe_batched_products(torch, dev)))
     for arm, (e, _, _) in arms.items():
@@ -1062,7 +1124,7 @@ def phase_spec_full_width(torch, dev):
     for arm in launches.values():
         for name, n in arm.items():
             total[name] = total.get(name, 0) + n
-    return total
+    return total, ([prompts], [spec])
 
 
 # ---------------------------------------------------------------------------
@@ -1087,8 +1149,6 @@ def phase_paged_full_width(torch, dev, contiguous_ms_per_step):
     paged and contiguous beside phase 3's, and one profiled paged decode
     tick. Returns the launches by kernel."""
     from deeplearning4j_tpu_torch.models import transformer as tf
-    from deeplearning4j_tpu_torch.ops import flash_attention as fa
-    from deeplearning4j_tpu_torch.ops import flash_decode as fd
     from deeplearning4j_tpu_torch.serving.engine import (EngineConfig,
                                                          InferenceEngine)
     cfg = tf.TransformerConfig(vocab_size=256, d_model=512, n_heads=8,
@@ -1100,9 +1160,7 @@ def phase_paged_full_width(torch, dev, contiguous_ms_per_step):
                                           replace=False)]
     base = dict(num_slots=64, decode_chunk=chunk, max_new_tokens=new,
                 max_queue=256, degrade_queue_depth=1024, paged=True,
-                page_size=16, kv_pages=3072 + 1)
-    counters = (fa.flash_forward_cuda, fd.decode_attention_cuda,
-                fd.decode_window_attention_cuda)
+                page_size=16, kv_pages=3072 + 1, pipeline=False)
     params = tf.init_params(cfg, seed=0, device=dev)
     aligned = aligned_params(tf, cfg, dev)
     launches = {"flash_fwd": 0, "decode_attention": 0, "decode_window": 0}
@@ -1110,16 +1168,16 @@ def phase_paged_full_width(torch, dev, contiguous_ms_per_step):
     def arm(name, tree, waves, **kw):
         eng = InferenceEngine(cfg, tree, EngineConfig(**{**base, **kw}),
                               device=dev)
-        for c in counters:
-            c.launches = 0
+        zero_launches()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         out, counts = serve_waves(eng, waves)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        n_flash, n_dec, n_win = (c.launches for c in counters)
-        for k, n in zip(launches, (n_flash, n_dec, n_win)):
-            launches[k] += n
+        got = read_launches()
+        n_flash, n_dec, n_win = (got[k] for k in launches)
+        for k in launches:
+            launches[k] += got[k]
         for prompts, res in zip(waves, out):
             for p, r in zip(prompts, res):
                 if r.shape != (p.shape[0] + new,) or \
@@ -1128,15 +1186,8 @@ def phase_paged_full_width(torch, dev, contiguous_ms_per_step):
                     fail(f"3c {name}: bad result of shape {r.shape}")
         c = eng.counts
         rounds, chunks = c["spec_rounds"], c["decode_chunks"]
-        want_dec = L * chunk * chunks + K * rounds
         # paged and chunked prefill is plain attention, never flash
-        want_flash = (0 if eng.config.paged or eng.config.prefill_chunk
-                      else L * c["prefill_calls"])
-        if n_flash != want_flash or n_dec != want_dec or \
-                n_win != L * rounds:
-            fail(f"3c {name}: launches flash={n_flash} decode={n_dec} "
-                 f"window={n_win} for {chunks} chunks and {rounds} rounds "
-                 f"(L={L}, chunk={chunk}, K={K})")
+        check_launches(eng, c, L, got, f"3c {name}")
         if c["pages_used"] != eng.prefix_cache_pages:
             fail(f"3c {name}: {c['pages_used']} pages used, "
                  f"{eng.prefix_cache_pages} held by the prefix cache")
@@ -1149,6 +1200,8 @@ def phase_paged_full_width(torch, dev, contiguous_ms_per_step):
                    decode_s=eng.seconds["decode"],
                    flash_launches=n_flash, decode_launches=n_dec,
                    window_launches=n_win,
+                   graph_captures=c["graph_captures"],
+                   graph_replays=c["graph_replays"],
                    prefix_hits=c["prefix_hits"],
                    prefix_misses=c["prefix_misses"],
                    prefix_shared_tokens=c["prefix_shared_tokens"],
@@ -1173,7 +1226,7 @@ def phase_paged_full_width(torch, dev, contiguous_ms_per_step):
         line(rec)
         return eng, out, counts
 
-    eng, _, counts = arm("paged", params, [first, again])
+    eng, paged_out, counts = arm("paged", params, [first, again])
     if not (counts[1]["prefix_hits"] > 0 and counts[1]["cow_copies"] > 0):
         fail(f"3c second wave: {counts[1]['prefix_hits']} prefix hits, "
              f"{counts[1]['cow_copies']} copies")
@@ -1190,7 +1243,7 @@ def phase_paged_full_width(torch, dev, contiguous_ms_per_step):
               hit_prefill_s=counts[1]["prefill_s"],
               saved_s=cold[0]["prefill_s"] - counts[1]["prefill_s"]))
     del contiguous
-    arm("chunked", params, [first], prefill_chunk=256)
+    _, chunked_out, _ = arm("chunked", params, [first], prefill_chunk=256)
     _, plain, _ = arm("paged_aligned_plain", aligned, [first])
     spec, got, _ = arm("paged_aligned_spec", aligned, [first],
                        spec_decode=True, spec_k=K, draft="layers:1")
@@ -1205,15 +1258,20 @@ def phase_paged_full_width(torch, dev, contiguous_ms_per_step):
     profile_decode_tick(torch, eng, rng, "paged", phase="3c")
     del eng, params
     torch.cuda.empty_cache()
-    return launches
+    return launches, {"paged": ([first, again], paged_out),
+                      "chunked": ([first], chunked_out)}
 
 
 def profile_decode_tick(torch, eng, rng, arm, phase="3b"):
     """One decode phase with no admissions in its tick (a spec round of
     K+1 = 8 tokens, or a plain chunk of 8) under torch.profiler: device
     time and launches by kernel, and the device's idle share (a paged
-    engine's also the device time of its page gathers)."""
-    kind = "spec_rounds" if arm == "spec" else "decode_chunks"
+    engine's also the device time of its page gathers). Gates: the
+    tick's program is one graph replay, and the device's trace holds
+    the ported kernels it must run (`device_launch_gate`)."""
+    spec = eng.spec_k_current > 0
+    kind = "spec_rounds" if spec else "decode_chunks"
+    L = eng.cfg.n_layers
     prompts = [rng.integers(0, 256, size=64).astype(np.int32)
                for _ in range(eng.num_slots)]
     # 17 tokens: the prefill's first, then two rounds (or chunks) of 8
@@ -1222,9 +1280,16 @@ def profile_decode_tick(torch, eng, rng, arm, phase="3b"):
     hs = [eng.submit(p, max_new_tokens=17) for p in prompts]
     eng.tick()                              # admissions + the first 8
     n = eng.counts[kind]
-    wall, rows = profiled(torch, eng.tick)  # the second 8 alone
+    want = replay_want(eng, spec, L)
+    c0 = dict(eng.counts)
+    wall, rows, host = profiled(torch, eng.tick)  # the second 8 alone
     if eng.counts[kind] != n + 1:
         fail(f"the profiled {arm} tick ran no {kind[:-1]}")
+    if eng.counts["graph_replays"] != c0["graph_replays"] + 1 or \
+            eng.counts["graph_captures"] != c0["graph_captures"]:
+        fail(f"the profiled {arm} tick was no single graph replay "
+             f"({eng.counts})")
+    measured = device_launch_gate(rows, want, f"{phase} profiled {arm} tick")
     eng.run_pending()
     if not all(h.done() for h in hs + warm):
         fail(f"profiled {arm} tick left requests unanswered")
@@ -1243,7 +1308,8 @@ def profile_decode_tick(torch, eng, rng, arm, phase="3b"):
                        dict(name=k[:120], ms=us / 1e3, count=n)
                        for k, us, n in rows
                        if "gather" in k.lower() or "index" in k.lower()])
-    profile_line(wall, rows, phase=phase, run=f"profiled_{arm}_tick", **rec)
+    profile_line(wall, rows, host, phase=phase, run=f"profiled_{arm}_tick",
+                 graph_replays=1, device_launches_of_ported=measured, **rec)
 
 
 def device_rows(prof):
@@ -1263,8 +1329,18 @@ def device_rows(prof):
     return rows
 
 
+def host_launch_calls(prof):
+    """{runtime call: count} of the host's kernel and graph launches in a
+    torch.profiler run (cudaLaunchKernel, cudaLaunchKernelExC,
+    cudaGraphLaunch, and the driver API's cuLaunchKernel*)."""
+    return {e.key: e.count for e in prof.key_averages()
+            if e.key.startswith(("cudaLaunch", "cuLaunch",
+                                 "cudaGraphLaunch"))}
+
+
 def profiled(torch, fn):
-    """Run fn() once under torch.profiler; returns (wall s, device rows)."""
+    """Run fn() once under torch.profiler; returns (wall s, device rows,
+    host launch calls)."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -1273,11 +1349,13 @@ def profiled(torch, fn):
         fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    return wall, device_rows(prof)
+    return wall, device_rows(prof), host_launch_calls(prof)
 
 
-def profile_line(wall, rows, **rec):
+def profile_line(wall, rows, host, **rec):
     busy = sum(us for _, us, _ in rows) / 1e6
+    rec.update(host_launch_calls=sum(host.values()),
+               host_launch_calls_by_name=host)
     rec.update(wall_s=wall,
                device_busy_s=busy if rows else "not measured",
                device_launches=sum(n for _, _, n in rows) if rows
@@ -1292,17 +1370,379 @@ def profile_line(wall, rows, **rec):
 def phase_profile(torch, eng, rng):
     """One engine tick (64 admissions of 64 tokens + one decode chunk of
     8) under torch.profiler: device time by kernel and the device's idle
-    share of the tick's wall time."""
+    share of the tick's wall time. Gates: the decode chunk is one graph
+    replay, and the device's trace holds the prefill's L flash launches
+    and the chunk's L x 8 decode launches."""
     prompts = [rng.integers(0, 256, size=64).astype(np.int32)
                for _ in range(eng.num_slots)]
     warm = [eng.submit(p, max_new_tokens=9) for p in prompts]
     eng.run_pending()
     hs = [eng.submit(p, max_new_tokens=9) for p in prompts]
-    wall, rows = profiled(torch, eng.tick)
+    c0 = dict(eng.counts)
+    wall, rows, host = profiled(torch, eng.tick)
+    c = {k: eng.counts[k] - c0[k] for k in c0}
+    if (c["prefill_calls"], c["decode_chunks"], c["graph_replays"],
+            c["graph_captures"]) != (1, 1, 1, 0):
+        fail(f"the profiled tick was not one prefill and one decode "
+             f"replay ({c})")
+    L = eng.cfg.n_layers
+    measured = device_launch_gate(
+        rows, {"flash_fwd": L, **replay_want(eng, False, L)},
+        "3 profiled tick")
     eng.run_pending()
     if not all(h.done() for h in hs + warm):
         fail("profiled tick left requests unanswered")
-    profile_line(wall, rows, phase=3, run="profiled_tick")
+    profile_line(wall, rows, host, phase=3, run="profiled_tick",
+                 device_launches_of_ported=measured)
+
+
+# ---------------------------------------------------------------------------
+# phase 3e: the pipelined tick loop (the engine's default) at full width
+# ---------------------------------------------------------------------------
+
+# the device functions the serving wrappers launch, as the device's
+# trace names them: the bf16 decode and window entries share the
+# tensor-core core (decode is the window at T = 1), so a profiled spec
+# round counts its window and draft decode launches together
+DEVICE_FNS = {"flash_fwd": ("flash_fwd_kernel", "flash_fwd_tc_kernel"),
+              "decode_rows": ("decode_rows_tc_kernel", "decode_kernel",
+                              "window_kernel"),
+              "decode_q": ("decode_q_kernel",),
+              "window_q": ("window_q_kernel",)}
+# what the profiled ticks' device traces held, by DEVICE_FNS label, and
+# the graph replays of each gated run: printed before the kernels line
+DEVICE_LAUNCHES = {k: 0 for k in DEVICE_FNS}
+GRAPH_REPLAYS = {}
+
+
+def device_launch_gate(rows, want, where):
+    """Gate one profiled tick on the device's own trace (CUPTI, through
+    torch.profiler): each serving device function of DEVICE_FNS ran
+    exactly ``want[label]`` times (0 where absent). This is what shows
+    that a graph replay ran the ported kernels. Returns the counts."""
+    if not rows:
+        fail(f"{where}: the profiler recorded no device kernel")
+    got = {label: sum(n for k, _, n in rows if any(f in k for f in fns))
+           for label, fns in DEVICE_FNS.items()}
+    want = {label: want.get(label, 0) for label in DEVICE_FNS}
+    if got != want:
+        fail(f"{where}: device launches {got}, want {want}")
+    for label, n in got.items():
+        DEVICE_LAUNCHES[label] += n
+    return got
+
+
+def replay_want(eng, spec: bool, n_layers: int):
+    """The serving device functions one replayed decode chunk (or spec
+    round at the engine's current K) runs."""
+    q = eng._kv_mode is not None
+    if spec:
+        nd = eng._draft_layers or n_layers
+        dec, win = nd * eng.spec_k_current, n_layers
+    else:
+        dec, win = n_layers * eng.decode_chunk, 0
+    if q:
+        return {"decode_q": dec, "window_q": win}
+    return {"decode_rows": dec + win}
+
+
+def launch_counters():
+    """The serving kernels' wrappers by kernel name."""
+    from deeplearning4j_tpu_torch.ops import flash_attention as fa
+    from deeplearning4j_tpu_torch.ops import flash_decode as fd
+    return {"flash_fwd": fa.flash_forward_cuda,
+            "decode_attention": fd.decode_attention_cuda,
+            "decode_window": fd.decode_window_attention_cuda,
+            "decode_attention_q": fd.decode_attention_q_cuda,
+            "decode_window_q": fd.decode_window_attention_q_cuda}
+
+
+def expected_launches(eng, c, n_layers, keys0=()):
+    """The launches by kernel the wrappers count in a drained run on a
+    card engine with counts delta ``c`` (``keys0``: the graph keys the
+    engine had captured before the run). A slot program's kernels launch
+    from Python only at the first call of its (kind, size) key, eagerly,
+    and once more at the capture right after it: a decode chunk L x
+    chunk, a spec round L window and draft depth x K decode (the
+    quantized entries on a quantized pool). Every later call of the key
+    is a graph replay, which calls no wrapper: what a replay runs is
+    read from the device's own trace (`device_launch_gate`). Flash L per
+    one-shot contiguous prefill call (eager)."""
+    nd = (eng._draft_layers or n_layers) if eng._spec else 0
+    dec = win = 0
+    for kind, size in eng._graphs.keys():
+        if (kind, size) in keys0:
+            continue
+        if kind.endswith("spec"):
+            dec += 2 * nd * size
+            win += 2 * n_layers
+        else:
+            dec += 2 * n_layers * size
+    q = eng._kv_mode is not None
+    one_shot = not (eng.config.paged or eng.config.prefill_chunk)
+    return {"flash_fwd": n_layers * c["prefill_calls"] if one_shot else 0,
+            "decode_attention": 0 if q else dec,
+            "decode_window": 0 if q else win,
+            "decode_attention_q": dec if q else 0,
+            "decode_window_q": win if q else 0}
+
+
+def check_launches(eng, c, n_layers, got, where, keys0=()):
+    """Gate a drained card run (counts delta ``c``, wrapper launches
+    ``got`` by kernel name): the launches `expected_launches` gives, and
+    every decode chunk and spec round but the first of each key a graph
+    replay (no slot program ran eagerly past its capture)."""
+    want = expected_launches(eng, c, n_layers, keys0)
+    new = len(eng._graphs.keys()) - len(keys0)
+    replays = c["decode_chunks"] + c["spec_rounds"] - new
+    got = {k: got.get(k, 0) for k in want}
+    if got != want or c["graph_replays"] != replays:
+        fail(f"{where}: launches {got}, want {want}; graph replays "
+             f"{c['graph_replays']}, want {replays} ({c})")
+    GRAPH_REPLAYS[where] = GRAPH_REPLAYS.get(where, 0) + replays
+
+
+def read_launches():
+    """The serving wrappers' launch counters by kernel name."""
+    return {k: w.launches for k, w in launch_counters().items()}
+
+
+def zero_launches():
+    for w in launch_counters().values():
+        w.launches = 0
+
+
+def serve_pass(torch, eng, waves):
+    """Each wave submitted and drained tick by tick, with the launch
+    counters reset before: (results per wave, wall s, counts delta,
+    seconds delta, launches by kernel, most blocking waits in a tick,
+    the graph keys captured before the pass)."""
+    zero_launches()
+    keys0 = eng._graphs.keys()
+    c0, s0 = dict(eng.counts), dict(eng.seconds)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out, worst = [], 0
+    for prompts in waves:
+        hs = [eng.submit(p) for p in prompts]
+        while True:
+            n = eng.counts["syncs"]
+            busy = eng.tick()
+            worst = max(worst, eng.counts["syncs"] - n)
+            if not busy:
+                break
+        out.append([h.result() for h in hs])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return (out, wall, {k: eng.counts[k] - c0[k] for k in c0},
+            {k: eng.seconds[k] - s0[k] for k in s0}, read_launches(), worst,
+            keys0)
+
+
+def replay_equals_eager(torch, eng, kind, size):
+    """The engine's captured (kind, size) program called once by replay
+    and once eagerly from the same pool (every slot active, 8 tokens of
+    budget): whether outputs and pool are torch.equal. The pool and the
+    launch counters are left as they were."""
+    g = eng._graphs._graphs[(kind, size)]
+    fn = eng._program(kind, size)
+    state = [x for x in g.fixed if isinstance(x, torch.Tensor)]
+    saved = [x.clone() for x in state]
+    counted = read_launches()
+    ns, dev = eng.num_slots, state[0].device
+    dyn = (torch.ones(ns, dtype=torch.bool, device=dev),
+           torch.full((ns,), 8, dtype=torch.int32, device=dev))
+    if kind.startswith("paged"):
+        dyn = (torch.from_numpy(eng._bt.copy()).to(dev),) + dyn
+    if kind.endswith("spec"):
+        dyn += (torch.zeros(ns, dtype=torch.bool, device=dev),)
+    seed = int(eng.config.seed)
+    got = [t.clone() for t in eng._graphs.call((kind, size), fn, g.fixed,
+                                                dyn, seed)[len(state):]]
+    replayed = [x.clone() for x in state]
+    for x, s in zip(state, saved):
+        x.copy_(s)
+    want = fn(*g.fixed, *dyn, seed)[len(state):]
+    ok = (all(torch.equal(a, b) for a, b in zip(got, want))
+          and all(torch.equal(a, b) for a, b in zip(replayed, state)))
+    for x, s in zip(state, saved):
+        x.copy_(s)
+    for k, w in launch_counters().items():
+        w.launches = counted[k]
+    torch.cuda.synchronize()
+    return ok
+
+
+def phase_pipeline_full_width(torch, dev, sync):
+    """Phase 3's config on the pipelined loop, every per-tick program a
+    CUDA graph replay, against the synchronous loop on the traffic of
+    phases 3-3d (``sync``: arm -> (waves, that phase's results per
+    wave)). Arms: plain (phase 3's traffic; a warm pass per loop, then
+    timed passes sync, pipelined, pipelined, sync), spec (3b's aligned
+    tree, K 7, "layers:1"), paged (3c's two waves), chunked (3c's paged
+    chunk-256 arm) and int8 (3d's int8 weights and KV); each arm's
+    synchronous passes run here first, beside its pipelined passes, and
+    each pass prints how many requests differ from the earlier phase's
+    results. Gates: token-exact against this phase's synchronous pass on
+    every arm; without spec the same calls (the
+    same schedule); at most one blocking wait in a pipelined tick;
+    launches exact under replay; no capture in a pass after the warm one;
+    no page leaked; the paged engine's graph pool far under its 2 x L
+    gathered views; replay ≡ eager for the decode chunk and the spec
+    round. Prints tokens/s and ms a step of both loops, waits a tick,
+    captures, replays, graph-pool bytes, and one profiled pipelined
+    decode tick (idle share, device kernels, host launch calls).
+    Returns the launches by kernel."""
+    from deeplearning4j_tpu_torch.models import transformer as tf
+    from deeplearning4j_tpu_torch.serving.engine import (EngineConfig,
+                                                         InferenceEngine)
+    cfg = tf.TransformerConfig(vocab_size=256, d_model=512, n_heads=8,
+                               n_layers=12, max_len=2048, dtype="bfloat16")
+    L, chunk, new, K = cfg.n_layers, 8, 64, 7
+    params = tf.TransformerLM(cfg, seed=0, device=dev).params
+    base = dict(num_slots=64, decode_chunk=chunk, max_new_tokens=new,
+                max_queue=256, degrade_queue_depth=1024)
+    paged = dict(paged=True, page_size=16, kv_pages=3072 + 1)
+    totals = {k: 0 for k in launch_counters()}
+
+    def differ(out, want):
+        return [(w, i) for w, (got_w, want_w) in enumerate(zip(out, want))
+                for i, (a, b) in enumerate(zip(got_w, want_w))
+                if not np.array_equal(a, b)]
+
+    def run(name, eng, waves, want, warm):
+        """One pass; ``want`` the synchronous loop's results in this
+        phase (None: this pass is that reference)."""
+        out, wall, c, sec, n, worst, keys0 = serve_pass(torch, eng, waves)
+        for k in totals:
+            totals[k] += n[k]
+        bad = differ(out, want) if want is not None else []
+        if bad:
+            fail(f"3e {name} (pipeline={eng.config.pipeline}): tokens "
+                 f"differ from the synchronous loop in (wave, request) "
+                 f"{bad[:8]} ({len(bad)})")
+        check_launches(eng, c, L, n,
+                       f"3e {name} pipeline={eng.config.pipeline}", keys0)
+        if eng.config.pipeline and worst > 1:
+            fail(f"3e {name}: {worst} blocking waits in one pipelined tick")
+        if not warm and c["graph_captures"]:
+            fail(f"3e {name}: {c['graph_captures']} captures after warm-up")
+        if not eng.drained() or (eng.config.paged and
+                                 eng.counts["pages_used"]
+                                 != eng.prefix_cache_pages):
+            fail(f"3e {name}: not drained or pages leaked ({eng.counts})")
+        steps = chunk * c["decode_chunks"]
+        rec = dict(phase="3e", arm=name, pipeline=eng.config.pipeline,
+                   warm_pass=warm, requests=sum(len(w) for w in waves),
+                   # phases 3-3d ran the same synchronous engine earlier
+                   # in this process: printed, not a gate
+                   requests_differing_from_earlier_phase=len(
+                       differ(out, sync[name][1])),
+                   new_tokens=new, wall_s=wall,
+                   tokens_per_s=sum(len(w) for w in waves) * new / wall,
+                   syncs=c["syncs"], max_syncs_per_tick=worst,
+                   pipelined_ticks=c["pipelined_ticks"],
+                   prefill_calls=c["prefill_calls"],
+                   prefill_chunks=c["prefill_chunks"],
+                   decode_chunks=c["decode_chunks"],
+                   spec_rounds=c["spec_rounds"],
+                   graph_captures=c["graph_captures"],
+                   graph_replays=c["graph_replays"],
+                   graph_pool_bytes=eng.counts["graph_pool_bytes"],
+                   launches=n, seconds=sec)
+        if steps:
+            rec["wall_ms_per_decode_step"] = wall / steps * 1e3
+            if not eng.config.pipeline:
+                rec["ms_per_decode_step"] = sec["decode"] / steps * 1e3
+        if c["spec_rounds"]:
+            rec.update(spec_k_final=eng.spec_k_current,
+                       acceptance=c["spec_accepted"] / c["spec_drafted"],
+                       spec_reserved=c["spec_reserved"],
+                       spec_released=c["spec_released"],
+                       spec_committed=c["spec_committed"])
+        line(rec)
+        return rec, c, out
+
+    # (a) plain, both loops, timed in turns on warm engines
+    engs = {p: InferenceEngine(cfg, params, EngineConfig(**base, pipeline=p),
+                               device=dev) for p in (False, True)}
+    waves = sync["plain"][0]
+    want = run("plain", engs[False], waves, None, warm=True)[2]
+    run("plain", engs[True], waves, want, warm=True)
+    timed = {False: [], True: []}
+    for p in (False, True, True, False):
+        timed[p].append(run("plain", engs[p], waves, want, warm=False)[:2])
+    for k in ("prefill_calls", "decode_chunks"):
+        if {r[1][k] for rs in timed.values() for r in rs} != \
+                {timed[False][0][1][k]}:
+            fail(f"3e plain: the loops made other calls ({k}): "
+                 f"{[r[1][k] for rs in timed.values() for r in rs]}")
+    tps = {p: [r[0]["tokens_per_s"] for r in rs] for p, rs in timed.items()}
+    ms = {p: [r[0]["wall_ms_per_decode_step"] for r in rs]
+          for p, rs in timed.items()}
+    line(dict(phase="3e", run="sync_vs_pipelined", order="S P P S",
+              sync_tokens_per_s=tps[False], pipelined_tokens_per_s=tps[True],
+              pipelined_over_sync=sum(tps[True]) / sum(tps[False]),
+              sync_wall_ms_per_decode_step=ms[False],
+              pipelined_wall_ms_per_decode_step=ms[True],
+              sync_ms_per_decode_step=[r[0]["ms_per_decode_step"]
+                                       for r in timed[False]],
+              graph_pool_bytes={"sync": engs[False].counts[
+                  "graph_pool_bytes"], "pipelined": engs[True].counts[
+                  "graph_pool_bytes"]}))
+    replay_ok = {"decode": replay_equals_eager(torch, engs[True], "decode",
+                                               chunk)}
+    profile_decode_tick(torch, engs[True], np.random.default_rng(5),
+                        "pipelined", phase="3e")
+    del engs
+    torch.cuda.empty_cache()
+
+    # (b)-(e): spec, paged, chunked, int8 on the pipelined loop
+    aligned = aligned_params(tf, cfg, dev)
+    q8 = dict(quantize="int8", kv_quantize="int8")
+    arms = [("spec", aligned, dict(spec_decode=True, spec_k=K,
+                                   draft="layers:1"), 2),
+            ("paged", params, paged, 2),
+            ("chunked", params, dict(paged, prefill_chunk=256), 1),
+            ("int8", params, q8, 2)]
+    pool_bytes = {}
+    for name, tree, kw, passes in arms:
+        waves = sync[name][0]
+        # pass i of each loop against pass i of the other: a paged
+        # engine's second pass meets the first's prefix cache
+        ref = InferenceEngine(cfg, tree, EngineConfig(**base, **kw,
+                                                      pipeline=False),
+                              device=dev)
+        want = [run(name, ref, waves, None, warm=i == 0)[2]
+                for i in range(passes)]
+        del ref
+        eng = InferenceEngine(cfg, tree, EngineConfig(**base, **kw),
+                              device=dev)
+        for i in range(passes):
+            _, c, _ = run(name, eng, waves, want[i], warm=i == 0)
+        pool_bytes[name] = eng.counts["graph_pool_bytes"]
+        if name == "spec":
+            if eng.spec_k_current != K or c["decode_chunks"]:
+                fail(f"3e spec left K={K}: {eng.counts}")
+            replay_ok["spec"] = replay_equals_eager(torch, eng, "spec", K)
+        if passes == 1 and c["graph_captures"] != len(eng._graphs.keys()):
+            fail(f"3e {name}: {c['graph_captures']} captures for "
+                 f"{len(eng._graphs.keys())} programs")
+        del eng
+        torch.cuda.empty_cache()
+    del aligned, params
+    torch.cuda.empty_cache()
+    # a paged decode gathers 2 x L page views of 128 MiB; the capture's
+    # pool reuses a layer's once it is freed
+    view = 64 * 2048 * 512 * 2
+    line(dict(phase="3e", run="graphs", replay_equals_eager=replay_ok,
+              graph_pool_bytes=pool_bytes, gathered_view_bytes=view))
+    if not all(replay_ok.values()):
+        fail(f"3e graph replay differs from the eager program: {replay_ok}")
+    if pool_bytes["paged"] >= L * view:
+        fail(f"3e paged graph pool {pool_bytes['paged']} bytes: the "
+             f"capture kept the gathered views ({view} bytes each)")
+    return {k: n for k, n in totals.items() if n}
 
 
 # ---------------------------------------------------------------------------
@@ -1596,7 +2036,6 @@ def phase_quant_full_width(torch, dev, plain_out, plain_ms_per_step):
     pool bytes against the bf16 engine's, and one profiled quantized
     decode chunk. Returns the launches by kernel summary name."""
     from deeplearning4j_tpu_torch.models import transformer as tf
-    from deeplearning4j_tpu_torch.ops import flash_attention as fa
     from deeplearning4j_tpu_torch.ops import flash_decode as fd
     from deeplearning4j_tpu_torch.serving.engine import (EngineConfig,
                                                          InferenceEngine)
@@ -1609,7 +2048,7 @@ def phase_quant_full_width(torch, dev, plain_out, plain_ms_per_step):
                for n in lens]
     params = tf.TransformerLM(cfg, seed=0, device=dev).params
     base = dict(num_slots=64, decode_chunk=chunk, max_new_tokens=new,
-                max_queue=256, degrade_queue_depth=1024)
+                max_queue=256, degrade_queue_depth=1024, pipeline=False)
     q8 = dict(quantize="int8", kv_quantize="int8")
     launches = {"decode_attention_q": 0, "decode_window_q": 0}
     results = {}
@@ -1617,17 +2056,17 @@ def phase_quant_full_width(torch, dev, plain_out, plain_ms_per_step):
     def arm(name, waves, **kw):
         eng = InferenceEngine(cfg, params, EngineConfig(**{**base, **kw}),
                               device=dev)
-        for c in QUANT_COUNTERS:
-            getattr(fd, c).launches = 0
-        fa.flash_forward_cuda.launches = 0
+        zero_launches()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         with CountTwins(fd) as twins:
             out, _ = serve_waves(eng, waves)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        n = {c: getattr(fd, c).launches for c in QUANT_COUNTERS}
-        n_flash = fa.flash_forward_cuda.launches
+        got = read_launches()
+        n = {k: got[k] for k in ("decode_attention_q", "decode_window_q",
+                                 "decode_attention", "decode_window")}
+        n_flash = got["flash_fwd"]
         for prompts_w, res in zip(waves, out):
             for p, r in zip(prompts_w, res):
                 if r.shape != (p.shape[0] + new,) or \
@@ -1636,20 +2075,11 @@ def phase_quant_full_width(torch, dev, plain_out, plain_ms_per_step):
                     fail(f"3d {name}: bad result of shape {r.shape}")
         c = eng.counts
         chunks, rounds = c["decode_chunks"], c["spec_rounds"]
-        quant_kv = eng.config.kv_quantize is not None
-        want_dec = L * chunk * chunks + L * c["spec_draft_steps"]
-        want = {"decode_attention_q_cuda": want_dec if quant_kv else 0,
-                "decode_window_attention_q_cuda": L * rounds if quant_kv
-                else 0,
-                "decode_attention_cuda": 0 if quant_kv else want_dec,
-                "decode_window_attention_cuda": 0 if quant_kv
-                else L * rounds}
-        want_flash = (0 if eng.config.paged else L * c["prefill_calls"])
-        if n != want or twins.calls or n_flash != want_flash:
-            fail(f"3d {name}: launches {n} (want {want}), flash {n_flash} "
-                 f"(want {want_flash}), plain twin calls {twins.calls}")
-        launches["decode_attention_q"] += n["decode_attention_q_cuda"]
-        launches["decode_window_q"] += n["decode_window_attention_q_cuda"]
+        if twins.calls:
+            fail(f"3d {name}: {twins.calls} plain twin calls")
+        check_launches(eng, c, L, got, f"3d {name}")
+        launches["decode_attention_q"] += n["decode_attention_q"]
+        launches["decode_window_q"] += n["decode_window_q"]
         n_tok = sum(len(w) for w in waves) * new
         rec = dict(phase="3d", arm=name, quantize=eng._qmode,
                    kv_quantize=eng._kv_mode,
@@ -1661,7 +2091,9 @@ def phase_quant_full_width(torch, dev, plain_out, plain_ms_per_step):
                    decode_s=eng.seconds["decode"],
                    param_bytes=c["param_bytes"],
                    kv_pool_bytes=c["kv_pool_bytes"], launches=n,
-                   flash_launches=n_flash, plain_twin_calls=twins.calls)
+                   flash_launches=n_flash, plain_twin_calls=twins.calls,
+                   graph_captures=c["graph_captures"],
+                   graph_replays=c["graph_replays"])
         if chunks:
             rec["ms_per_decode_step"] = (eng.seconds["decode"]
                                          / (chunk * chunks) * 1e3)
@@ -1689,8 +2121,8 @@ def phase_quant_full_width(torch, dev, plain_out, plain_ms_per_step):
         fail(f"3d fp8 arm did not resolve to e4m3 on the card: {rec_b}")
     _, rec_c = arm("spec_int8_drafter", [prompts], spec_decode=True,
                    spec_k=K)
-    _, rec_d = arm("spec_int8_engine", [prompts], spec_decode=True,
-                   spec_k=K, **q8)
+    eng_d, rec_d = arm("spec_int8_engine", [prompts], spec_decode=True,
+                       spec_k=K, **q8)
     bad_c = [i for i, (a, b) in enumerate(zip(results["spec_int8_drafter"][0],
                                                plain_out)) if
              not np.array_equal(a, b)]
@@ -1750,9 +2182,12 @@ def phase_quant_full_width(torch, dev, plain_out, plain_ms_per_step):
                   ("spec_int8_engine", rec_d), ("paged_int8", rec_e))}))
     del bf16, bf16_paged, eng_e
     profile_decode_tick(torch, eng_a, rng, "int8", phase="3d")
-    del eng_a, params
+    del eng_a
+    # a spec round on the int8 pool: the quantized window and draft decode
+    profile_decode_tick(torch, eng_d, rng, "int8_spec", phase="3d")
+    del eng_d, params
     torch.cuda.empty_cache()
-    return launches
+    return launches, ([prompts], results["int8"])
 
 
 # ---------------------------------------------------------------------------
@@ -2264,8 +2699,9 @@ def phase_train_full_width(torch, dev, timed_steps: int = 5):
     if n_fwd != 2 * L * timed_steps or n_bwd != L * timed_steps or n_dec:
         fail(f"train launch counts flash_fwd={n_fwd} flash_bwd={n_bwd} "
              f"decode={n_dec} over {timed_steps} steps, L={L}")
-    wall, rows = profiled(torch, lambda: step(params, opt, toks, tgts))
-    profile_line(wall, rows, phase="4b", run="profiled_train_step")
+    wall, rows, host = profiled(torch,
+                                lambda: step(params, opt, toks, tgts))
+    profile_line(wall, rows, host, phase="4b", run="profiled_train_step")
     del params, opt
     torch.cuda.empty_cache()
     return {"flash_fwd": n_fwd, "flash_bwd": n_bwd}
@@ -2553,8 +2989,9 @@ def phase_lstm_full_width(torch, dev, epochs=3):
     if n_lstm != 2 * steps:
         fail(f"char-RNN: {n_lstm} lstm_scan launches for {steps} "
              "minibatches of 2 layers")
-    wall_p, rows = profiled(torch, lambda: net.fit_batched(xs[:1], ys[:1]))
-    profile_line(wall_p, rows, phase="5c", run="profiled_minibatch")
+    wall_p, rows, host = profiled(torch,
+                                  lambda: net.fit_batched(xs[:1], ys[:1]))
+    profile_line(wall_p, rows, host, phase="5c", run="profiled_minibatch")
 
     net.lstm_wavefront = True
     net.fit_batched(xs, ys, epochs=1)
@@ -2645,15 +3082,22 @@ def main() -> int:
     phase_paged_f32_card_vs_cpu(torch, dev)
     phase_quant_f32_card_vs_cpu(torch, dev)
     measured["lstm_scan"] = phase_lstm_kernel(torch, dev)
-    launches, contiguous_ms_per_step, plain_out = phase_full_width(torch,
-                                                                   dev)
-    launches.update(phase_quant_full_width(torch, dev, plain_out,
-                                           contiguous_ms_per_step))
-    for name, n in phase_spec_full_width(torch, dev).items():
-        launches[name] = launches.get(name, 0) + n
-    for name, n in phase_paged_full_width(torch, dev,
-                                          contiguous_ms_per_step).items():
-        launches[name] = launches.get(name, 0) + n
+    # phases 3-3d run the synchronous loop; 3e the pipelined one (the
+    # default) on their traffic, against their results
+    launches, contiguous_ms_per_step, sync_plain = phase_full_width(torch,
+                                                                    dev)
+    quant_launches, sync_int8 = phase_quant_full_width(
+        torch, dev, sync_plain[1][0], contiguous_ms_per_step)
+    launches.update(quant_launches)
+    spec_launches, sync_spec = phase_spec_full_width(torch, dev)
+    paged_launches, sync_paged = phase_paged_full_width(
+        torch, dev, contiguous_ms_per_step)
+    pipe_launches = phase_pipeline_full_width(
+        torch, dev, {"plain": sync_plain, "spec": sync_spec,
+                     "int8": sync_int8, **sync_paged})
+    for part in (spec_launches, paged_launches, pipe_launches):
+        for name, n in part.items():
+            launches[name] = launches.get(name, 0) + n
     phase_train_f32_card_vs_cpu(torch, dev)
     for name, n in phase_train_full_width(torch, dev).items():
         launches[name] = launches.get(name, 0) + n
@@ -2686,17 +3130,32 @@ def main() -> int:
         "decode_window_q": ("deeplearning4j_tpu_torch/csrc/decode_window.cu",
                             "deeplearning4j_tpu/ops/flash_decode.py:513"),
     }
+    # the device functions each serving kernel runs (DEVICE_FNS), whose
+    # launches the profiled ticks' device traces counted
+    device_fn = {"flash_fwd": "flash_fwd", "decode_attention": "decode_rows",
+                 "decode_window": "decode_rows",
+                 "decode_attention_q": "decode_q",
+                 "decode_window_q": "window_q"}
+    # launches: the wrappers' counts (eager calls and graph captures);
+    # what the replays ran is on this line, measured on the device
+    line(dict(run="graph_replays", graph_replays=GRAPH_REPLAYS,
+              total=sum(GRAPH_REPLAYS.values()),
+              device_launches_in_profiled_ticks=DEVICE_LAUNCHES,
+              device_functions=DEVICE_FNS))
     kernels = []
     for name, (src, rep) in sources.items():
         r = measured[name]
         if launches.get(name, 0) <= 0:
             fail(f"kernel {name} was never launched on the main path")
+        label = device_fn.get(name)
         kernels.append(dict(
             name=name, route="cuda", source=src, replaces=rep,
             launches=launches[name], max_abs_err=r["max_abs_err"],
             ms=r["kernel_ms"], plain_ms=r["plain_ms"],
             bound_ms=r["bound_ms"], bound_by=r["bound_by"],
-            library_ms=r["library_ms"]))
+            library_ms=r["library_ms"],
+            device_launches_profiled=(DEVICE_LAUNCHES[label] if label
+                                      else None)))
     print(card, flush=True)
     line({"kernels": kernels})
     line({"ok": True, "device": {"platform": "gpu",

@@ -415,8 +415,9 @@ def _filter_logits(logits, top_k: int, top_p: float) -> torch.Tensor:
     use_p = top_p < 1.0
     if not (use_k or use_p):
         return logits
-    neg = torch.tensor(float("-inf"), dtype=logits.dtype,
-                       device=logits.device)
+    # made on the device (a host scalar would be a copy, which a CUDA
+    # graph capture refuses)
+    neg = logits.new_full((), float("-inf"))
     sorted_l = torch.sort(logits, dim=-1, descending=True).values
     if use_k:
         kth = sorted_l[:, top_k - 1:top_k]

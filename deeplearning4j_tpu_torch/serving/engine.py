@@ -1,18 +1,18 @@
-"""Continuous-batching inference engine (synchronous) on one device.
+"""Continuous-batching inference engine on one device.
 
-Port of the continuous, synchronous subset of
-deeplearning4j_tpu/serving/engine.py. Callers `submit()` prompts, drive
-the engine with `run_pending()` (or `tick()` by tick) on their own
-thread, and read `RequestHandle.result()`.
+Port of the continuous subset of deeplearning4j_tpu/serving/engine.py.
+Callers `submit()` prompts, drive the engine with `run_pending()` (or
+`tick()` by tick) on their own thread, and read `RequestHandle.result()`.
 
 Each tick (reference `_tick_continuous`, :2550): free slots are filled
 from the queue in FIFO order, the admitted prompts run through ONE
 prefill over the whole slot pool (prompts right-padded to a power-of-two
 bucket, `_bucket_len`), then every occupied slot advances one decode
 chunk of ``decode_chunk`` tokens through the slot programs of
-`parallel.serving`. Tokens commit on the host after each call; a slot
-frees as soon as its request has its ``max_new_tokens``, and the next
-tick refills it. Sampling draws are keyed by sequence position, so a
+`parallel.serving`. Tokens commit on the host at the end of the tick
+(the synchronous loop) or one tick later (the pipelined loop, below); a
+slot frees as soon as its request has its ``max_new_tokens``, and the
+next tick refills it. Sampling draws are keyed by sequence position, so a
 request's tokens do not depend on its slot, its neighbours or the chunk
 size.
 
@@ -63,14 +63,55 @@ and of the pool (analytic, as the reference's gauges, which wait for the
 metrics port, ROADMAP queue A item 8). Hot reload with requantization
 waits for reload (item 9).
 
+The pipelined tick loop (``EngineConfig.pipeline``, True by default as
+in the reference, :553; reference `_tick_pipelined` :2922-3260): each tick
+dispatches its calls without waiting on the device and then commits the
+PREVIOUS tick's outputs behind one blocking wait, so the host schedules
+tick n+1 while the card computes tick n. Each call's host-bound output
+is copied on the current stream into pinned host memory without
+blocking; the tick records one CUDA event after its last dispatch, and
+the commit waits on it once (`_commit_tick`). The schedule runs one tick
+ahead of the committed tokens: every request carries its tokens in
+flight (``_pending_n``), which the budget masks (``rem``), the
+scheduling and the copy-on-write write ranges count as spent; a spec
+round reserves its worst case, K+1 tokens a slot, and the commit
+releases what verification rejected (schedule-ahead spec, reference
+:3061). Both loops run the same dispatch code (`_dispatch_tick`) and
+the same commit (`_commit_tick`); they differ only in when they wait
+and commit. ``pipeline=False`` is the synchronous loop: one blocking
+wait per call, and the commit at the end of the tick, so nothing is in
+flight when the next tick schedules. Without spec a slot frees once all
+its request's tokens are dispatched (`_reap`), so the pipelined loop
+makes the synchronous loop's calls, tick for tick. Sampling is keyed by
+position, so the token streams are the synchronous loop's bit for bit.
+Every call runs on the
+device's current stream, so a dispatch reads the slot state the previous
+tick's programs left there, in stream order (the programs update the
+pool in place). Not ported with it: the recovery of a tick that fails at
+its wait and the in-flight state snapshot it restores (ROADMAP queue A
+item 9), the forced flush of KV export (items 9, 11), the batch-mode
+fallback (batch mode is unported), and the pipeline's metrics (item 8).
+
+On a CUDA device the per-tick slot programs (decode chunk, paged decode
+chunk, spec round, paged spec round) replay as CUDA graphs, one per
+(program, size) key (`serving.graphs`), in both loops; prefill stays
+eager (its programs size their writes from the data). ``counts`` gains
+``syncs`` (blocking device waits), ``pipelined_ticks``,
+``graph_captures``, ``graph_replays``, ``graph_pool_bytes``,
+``spec_committed`` (tokens spec rounds committed), ``spec_reserved`` and
+``spec_released`` (the tokens the rounds reserved at dispatch, and
+released at their commits). ``seconds`` holds each
+call kind's host seconds (``prefill``, ``decode``, ``spec``): in the
+synchronous loop a call's dispatch and wait, in the pipelined loop its
+dispatch only; ``wait`` holds the seconds blocked on the device (the
+calls' waits, or the commits').
+
 Not ported yet (set to a non-default value, each raises
 NotImplementedError naming its ROADMAP item): batch mode, the background
 worker, retries / circuit breaker / deadlines, KV handoff and adoption,
-the fault injector, the compile cache and warm-up, the pipelined tick
-loop, QoS (so fair-share prefill), grammar constraints, and the metrics /
-recorder / profiler stack. The port's `pipeline` default is False: it
-runs the synchronous loop, which the reference documents as
-bit-identical to its pipelined one.
+the fault injector, the compile cache and warm-up, QoS (so fair-share
+prefill), grammar constraints, and the metrics / recorder / profiler
+stack.
 
 Speculative decoding (``EngineConfig(spec_decode=True, spec_k=K,
 draft="int8" | "fp8" | "self" | "layers:N")``, reference :4711-4944; the
@@ -111,6 +152,7 @@ from deeplearning4j_tpu_torch.quant.kv import (paged_pool_bytes,
                                                slot_pool_bytes)
 from deeplearning4j_tpu_torch.quant.model import (draft_tree, param_bytes,
                                                   quantize_params)
+from deeplearning4j_tpu_torch.serving.graphs import SlotGraphs
 from deeplearning4j_tpu_torch.serving.paging import (PageAllocator,
                                                      RadixPrefixCache,
                                                      pages_for)
@@ -148,8 +190,9 @@ class EngineConfig:
     "int8", "fp8", "self" or "layers:N"), paged KV (``paged``,
     ``page_size``, ``kv_pages``: total pages with the scratch page, 0 ->
     every slot's full max_len + 1; ``prefix_cache``) and chunked prefill
-    (``prefill_chunk``, ``tick_token_budget``). Every other field must
-    keep its default (see `_UNPORTED`, `_check_config`)."""
+    (``prefill_chunk``, ``tick_token_budget``) and the pipelined tick loop
+    (``pipeline``). Every other field must keep its default (see
+    `_UNPORTED`, `_check_config`)."""
     max_queue: int = 64
     max_batch_size: int = 8
     batch_timeout_s: float = 0.005
@@ -184,7 +227,7 @@ class EngineConfig:
     program_cache_size: int = 64
     compile_cache_dir: Optional[str] = None
     warmup_on_init: bool = False
-    pipeline: bool = False
+    pipeline: bool = True
     recorder_capacity: int = 4096
     profile_dir: Optional[str] = None
     tenant_top_n: int = 8
@@ -208,7 +251,6 @@ _UNPORTED = {
     "program_cache_size": "the compile cache (ROADMAP queue A6)",
     "compile_cache_dir": "the compile cache (ROADMAP queue A6)",
     "warmup_on_init": "the compile cache (ROADMAP queue A6)",
-    "pipeline": "the pipelined tick loop (ROADMAP queue A6)",
     "recorder_capacity": "metrics and the flight recorder (ROADMAP A8)",
     "profile_dir": "metrics and the flight recorder (ROADMAP A8)",
     "tenant_top_n": "metrics and the flight recorder (ROADMAP A8)",
@@ -223,7 +265,6 @@ _UNPORTED = {
 # queue A item that ports it (checked before `_UNPORTED`, so the error
 # names the combination)
 _PAGED_CHUNKED_TODO = {
-    "pipeline": "the pipelined tick loop (ROADMAP queue A item 5)",
     "constrain_state_cap": "grammar-constrained paged and chunked "
                            "programs (ROADMAP queue A item 6)",
     "tenant_weights": "fair-share prefill (ROADMAP queue A item 9)",
@@ -266,6 +307,12 @@ class RequestHandle:
         self._page_start = 0
         self._prefill_pos = 0
         self._prefill_target = 0
+        # tokens dispatched but not committed (reference :641), and the
+        # part of them a spec round reserved (its commit count is known
+        # only at the commit); both 0 between ticks of the synchronous
+        # loop
+        self._pending_n = 0
+        self._pending_spec = 0
 
     @property
     def generated(self) -> np.ndarray:
@@ -291,6 +338,20 @@ class RequestHandle:
         self.status = status
         self.error = error
         self._done.set()
+
+
+@dataclass
+class _PendingTick:
+    """One dispatched, uncommitted tick (reference :704): the commit
+    items in dispatch order, ("prefill", entries,
+    first), ("prefill_chunk", plan, first, finished), ("decode",
+    entries, toks, needs) and ("spec", entries, out, reserved),
+    each with its host-bound output in host memory (filled
+    asynchronously), and the event recorded after the tick's last
+    dispatch, which the pipelined commit's one wait blocks on (None on
+    the CPU and in the synchronous loop)."""
+    items: list
+    done: Optional[object]
 
 
 class InferenceEngine:
@@ -363,18 +424,29 @@ class InferenceEngine:
         self._lock = threading.Lock()
         self._queue: deque = deque()
         self._rids = itertools.count(1)
-        # call counters, and host seconds spent in each kind of call (a
-        # call ends in a device->host copy of its tokens, so the time
-        # includes the device work)
+        # call counters, and host seconds by call kind (see the module
+        # docstring for what each loop times)
         self.counts = {"prefill_calls": 0, "decode_chunks": 0,
                        "spec_rounds": 0, "spec_draft_steps": 0,
                        "spec_drafted": 0, "spec_accepted": 0,
+                       "spec_reserved": 0, "spec_released": 0,
+                       "spec_committed": 0,
                        "prefill_chunks": 0,
                        "prefix_hits": 0, "prefix_misses": 0,
                        "prefix_shared_tokens": 0, "prefix_evictions": 0,
                        "cow_copies": 0, "pages_used": 0, "pages_free": 0,
-                       "shed_overload": 0}
-        self.seconds = {"prefill": 0.0, "decode": 0.0, "spec": 0.0}
+                       "shed_overload": 0, "syncs": 0, "pipelined_ticks": 0}
+        self.seconds = {"prefill": 0.0, "decode": 0.0, "spec": 0.0,
+                        "wait": 0.0}
+        # the pipelined loop (reference :1345-1375): at most one tick in
+        # flight; _pipe_items collects a tick's commit items while it
+        # dispatches
+        self._pipe = bool(self.config.pipeline)
+        self._pending: deque = deque()
+        self._pipe_items: list = []
+        # on the card the per-tick slot programs replay as CUDA graphs
+        self._graphs = (SlotGraphs(self.device, self.counts)
+                        if self.device.type == "cuda" else None)
         # at-rest bytes of the weight tree and of the pool (analytic: the
         # pool is allocated at the first admission)
         self.counts["param_bytes"] = param_bytes(self._params)
@@ -465,30 +537,43 @@ class InferenceEngine:
 
     # -- driving ---------------------------------------------------------
     def run_pending(self) -> int:
-        """Tick until the queue and the slot pool are drained; returns
-        the number of ticks run."""
+        """Tick until the queue and the slot pool are drained (and, in
+        the pipelined loop, the last tick committed); returns the number
+        of ticks run."""
         n = 0
         while self.tick():
             n += 1
         return n
 
+    def drained(self) -> bool:
+        """True when no request is queued, seated or awaiting its commit
+        (reference :2319)."""
+        with self._lock:
+            return (not self._queue and not self._pending
+                    and all(r is None for r in self._slots))
+
     def tick(self) -> bool:
-        """One scheduling round: admit into free slots, then (one-shot)
-        one prefill over the pool and one decode chunk for every occupied
-        slot, or (chunked) `_tick_budgeted`. Returns whether any work was
-        done."""
+        """One scheduling round: admit into free slots, dispatch the
+        tick's calls (`_dispatch_tick`: one-shot, one prefill over the
+        pool and one decode chunk for every decoding slot; chunked, the
+        token-budget round), then commit. The synchronous loop waits for
+        each call's output as it dispatches it and commits this tick; the
+        pipelined loop commits the previous tick behind one wait (see the
+        module docstring). Returns whether any work was done."""
         admitted = self._fill_slots()
-        if self._prefill_chunk is not None:
-            busy = self._tick_budgeted(admitted)
-        else:
-            if admitted:
-                self._prefill_slots(admitted)
-            occupied = [(i, r) for i, r in self._occupied() if not r.done()]
-            if occupied:
-                self._decode_chunk_slots(occupied)
-                self._reap()
-            busy = bool(admitted or occupied)
+        pending = self._dispatch_tick(admitted)
+        prev = pending
+        if self._pipe:
+            prev = self._pending.popleft() if self._pending else None
+            if pending is not None:
+                self._pending.append(pending)
+        if prev is not None:
+            self._commit_tick(prev)
+        self._reap()
         self._page_counts()
+        busy = bool(admitted) or pending is not None or prev is not None
+        if busy and self._pipe:
+            self.counts["pipelined_ticks"] += 1
         return busy
 
     def _fill_slots(self) -> List[tuple]:
@@ -523,6 +608,7 @@ class InferenceEngine:
                 # a chunked slot prefills from the hit boundary toward
                 # its committed prefix (reference :3355-3366)
                 r._seat_seq = next(self._seat_order)
+                r._pending_n = r._pending_spec = 0
                 r._prefill_pos = int(hit)
                 r._prefill_target = int(r.prompt.shape[0]
                                         + r.generated.shape[0])
@@ -562,6 +648,10 @@ class InferenceEngine:
                "paged_chunked_prefill": make_paged_chunked_prefill,
                "paged_spec": make_paged_speculative_decode}
 
+    # the per-tick programs that replay as CUDA graphs on the card
+    # (prefill's programs size their writes from the data: eager)
+    _GRAPHED = ("decode", "paged_decode", "spec", "paged_spec")
+
     def _program(self, kind: str, size: int):
         """The slot program of ``kind`` (a `_MAKERS` key) at ``size``
         (bucket or chunk length, decode chunk or K), made once per key.
@@ -583,8 +673,52 @@ class InferenceEngine:
             self._programs[key] = fn
         return fn
 
+    def _run(self, kind: str, size: int, fixed: tuple, dyn: tuple) -> tuple:
+        """``program(*fixed, *dyn, seed)`` for the slot program (kind,
+        size): ``fixed`` the weight trees and the pool, ``dyn`` the
+        call's tensors. On the card a per-tick program replays its CUDA
+        graph (`serving.graphs`)."""
+        fn = self._program(kind, size)
+        seed = int(self.config.seed)
+        if self._graphs is not None and kind in self._GRAPHED:
+            return self._graphs.call((kind, size), fn, fixed, dyn, seed)
+        return fn(*fixed, *dyn, seed)
+
     def _tensor(self, a: np.ndarray) -> torch.Tensor:
-        return torch.from_numpy(a).to(self.device)
+        """Host data on the device. On the card the copy goes through
+        pinned memory without blocking (a pageable copy would wait for
+        the stream); the pinned block is not reused before the copy has
+        run."""
+        t = torch.from_numpy(a)
+        if self.device.type != "cuda":
+            return t
+        return t.pin_memory().to(self.device, non_blocking=True)
+
+    def _host(self, t: torch.Tensor) -> torch.Tensor:
+        """A call's host-bound output: a host tensor the copy fills
+        without blocking (pinned memory on the card), read at the commit
+        (`_commit_tick`). The synchronous loop waits for it here, one
+        blocking wait a call; the pipelined loop at the commit."""
+        if t.is_cuda:
+            h = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+            h.copy_(t, non_blocking=True)
+            t = h
+        if not self._pipe:
+            self._wait(None)
+        return t
+
+    def _wait(self, done) -> None:
+        """The blocking device wait: on event ``done``, or (None) on all
+        work queued so far. Counted in ``counts["syncs"]``, its time in
+        ``seconds["wait"]``."""
+        t0 = time.perf_counter()
+        if self.device.type == "cuda":
+            if done is None:
+                torch.cuda.current_stream(self.device).synchronize()
+            else:
+                done.synchronize()
+        self.seconds["wait"] += time.perf_counter() - t0
+        self.counts["syncs"] += 1
 
     def _block_table(self, entries, span: Optional[int]) -> torch.Tensor:
         """Before a paged call that writes: privatise the shared pages in
@@ -597,7 +731,7 @@ class InferenceEngine:
         """One admission prefill over ``state`` for ``entries``
         [(slot, handle)]: each committed prefix right-padded to the
         bucket; on a paged pool only the part past the prefix-cache hit
-        (reference :4512). Returns (state', first_tokens numpy [Ns])."""
+        (reference :4512). Returns (state', first tokens [Ns], `_host`)."""
         starts = {i: (r._page_start if self._paged else 0)
                   for i, r in entries}
         tails = {i: np.concatenate([r.prompt, r.generated]
@@ -613,63 +747,61 @@ class InferenceEngine:
             start[i] = starts[i]
         if self._paged:
             bt = self._block_table(entries, None)
-            fn = self._program("paged_prefill", tb)
-            lead, tail_args = (bt,), (self._tensor(start),)
+            kind, lead, tail_args = "paged_prefill", (bt,), (start,)
         else:
-            fn = self._program("prefill", tb)
-            lead, tail_args = (), ()
+            kind, lead, tail_args = "prefill", (), ()
         t0 = time.perf_counter()
-        *state, first = fn(self._params, *state, *lead,
-                           self._tensor(prompts), self._tensor(plen),
-                           *tail_args, int(self.config.seed))
-        first = first.cpu().numpy()
+        *state, first = self._run(
+            kind, tb, (self._params, *state),
+            (*lead, *map(self._tensor, (prompts, plen, *tail_args))))
+        first = self._host(first)
         self.seconds["prefill"] += time.perf_counter() - t0
         self.counts["prefill_calls"] += 1
         return tuple(state), first
 
-    def _call_chunk(self, state, entries):
-        """One decode chunk over ``state`` for the occupied ``entries``;
-        per-slot budgets ride as ``rem``, so a slot finishing mid-chunk
-        stops on the device. Returns (state', toks numpy [Ns, chunk])."""
+    def _active_rem(self, entries):
+        """The active mask and the budgets ``rem`` of a decode or spec
+        call: each slot's tokens left after those committed and those in
+        flight (reference :4475-4478)."""
         active = np.zeros((self._num_slots,), bool)
         rem = np.zeros((self._num_slots,), np.int32)
         for i, r in entries:
             active[i] = True
-            rem[i] = r.max_new_tokens - r.generated.shape[0]
+            rem[i] = r.max_new_tokens - r.generated.shape[0] - r._pending_n
+        return active, rem
+
+    def _call_chunk(self, state, entries):
+        """One decode chunk over ``state`` for the occupied ``entries``;
+        per-slot budgets ride as ``rem``, so a slot finishing mid-chunk
+        stops on the device. Returns (state', toks [Ns, chunk],
+        `_host`)."""
+        active, rem = self._active_rem(entries)
         if self._paged:
-            lead = (self._block_table(entries, self._chunk),)
-            fn = self._program("paged_decode", self._chunk)
+            kind, lead = "paged_decode", (self._block_table(entries,
+                                                            self._chunk),)
         else:
-            lead = ()
-            fn = self._program("decode", self._chunk)
+            kind, lead = "decode", ()
         t0 = time.perf_counter()
-        *state, toks = fn(self._params, *state, *lead, self._tensor(active),
-                          self._tensor(rem), int(self.config.seed))
-        toks = toks.cpu().numpy()
+        *state, toks = self._run(
+            kind, self._chunk, (self._params, *state),
+            (*lead, self._tensor(active), self._tensor(rem)))
+        toks = self._host(toks)
         self.seconds["decode"] += time.perf_counter() - t0
         self.counts["decode_chunks"] += 1
         return tuple(state), toks
 
-    def _prefill_slots(self, admitted) -> None:
-        self._ensure_state()
-        self._slot_state, first = self._call_prefill(self._slot_state,
-                                                     admitted)
-        if self._paged:
-            self._cache_prefilled(admitted)
-        for i, r in admitted:
-            self._commit_tokens(r, np.asarray([first[i]], np.int32))
-        self._reap()
+    def _commit_first(self, entries, first) -> None:
+        """Each live entry's first generated token (a one-shot prefill's
+        or a last prefill chunk's)."""
+        for i, r in entries:
+            if not r.done():
+                self._commit_tokens(r, first[i:i + 1].astype(np.int32))
 
-    def _decode_chunk_slots(self, occupied) -> None:
-        if self._spec and self._spec_tick():
-            self._decode_spec_slots(occupied)
-            return
-        self._slot_state, toks = self._call_chunk(self._slot_state,
-                                                  occupied)
-        for i, r in occupied:
-            need = min(int(toks.shape[1]),
-                       r.max_new_tokens - r.generated.shape[0])
-            self._commit_tokens(r, toks[i, :need].astype(np.int32))
+    def _commit_decode(self, entries, toks, needs) -> None:
+        """A decode chunk's tokens: ``needs[j]`` of entry j's row."""
+        for (i, r), n in zip(entries, needs):
+            if n > 0 and not r.done():
+                self._commit_tokens(r, toks[i, :n].astype(np.int32))
 
     # -- chunked prefill: the token-budget scheduler (reference :2627) -----
     def _is_prefilling(self, r: RequestHandle) -> bool:
@@ -677,23 +809,6 @@ class InferenceEngine:
         engine has such slots (one-shot prefill ends at admission)."""
         return (self._prefill_chunk is not None
                 and r._prefill_pos < r._prefill_target)
-
-    def _tick_budgeted(self, admitted) -> bool:
-        """The chunked round (reference :2635): one decode chunk per
-        decoding slot is reserved off tick_token_budget, the rest buys
-        prefill chunks oldest admission first (`_advance_prefill`), then
-        every decoding slot, those whose last chunk just landed included,
-        advances one decode chunk."""
-        decoding0 = [(i, r) for i, r in self._occupied()
-                     if not self._is_prefilling(r)]
-        spent = self._advance_prefill(
-            self._tick_budget - len(decoding0) * self._chunk)
-        decoding = [(i, r) for i, r in self._occupied()
-                    if not self._is_prefilling(r) and not r.done()]
-        if decoding:
-            self._decode_chunk_slots(decoding)
-        self._reap()
-        return bool(admitted or decoding or spent)
 
     def _advance_prefill(self, budget: int) -> int:
         """Spend up to ``budget`` prompt tokens on prefilling slots,
@@ -749,17 +864,15 @@ class InferenceEngine:
             start[i] = r._prefill_pos
             last[i] = r._prefill_pos + n >= r._prefill_target
         if self._paged:
-            lead = (self._block_table(entries, None),)
-            fn = self._program("paged_chunked_prefill", c)
+            kind, lead = ("paged_chunked_prefill",
+                          (self._block_table(entries, None),))
         else:
-            lead = ()
-            fn = self._program("chunked_prefill", c)
+            kind, lead = "chunked_prefill", ()
         t0 = time.perf_counter()
-        *state, first = fn(self._params, *self._slot_state, *lead,
-                           self._tensor(toks), self._tensor(clen),
-                           self._tensor(start), self._tensor(last),
-                           int(self.config.seed))
-        first = first.cpu().numpy()
+        *state, first = self._run(
+            kind, c, (self._params, *self._slot_state),
+            (*lead, *map(self._tensor, (toks, clen, start, last))))
+        first = self._host(first)
         self.seconds["prefill"] += time.perf_counter() - t0
         self.counts["prefill_calls"] += 1
         self._slot_state = tuple(state)
@@ -769,13 +882,141 @@ class InferenceEngine:
             self.counts["prefill_chunks"] += 1
             if r._prefill_pos >= r._prefill_target:
                 finished.append((i, r))
-        for i, r in finished:
-            self._commit_tokens(r, np.asarray([first[i]], np.int32))
+        # (reference :2895-2905) the chunk progress above is scheduling
+        # state; the first tokens commit with the tick
+        for _, r in finished:
+            r._pending_n += 1
+        self._pipe_items.append(("prefill_chunk", plan, first, finished))
         if self._paged and finished:
             # a prompt's pages hold its whole K/V only after its last
-            # chunk: mid-prefill pages must never be shared
+            # chunk: mid-prefill pages must never be shared (pipelined:
+            # inserted at dispatch, read only by calls queued after it)
             self._cache_prefilled(finished)
         self._reap()
+
+    # -- the tick loop: dispatch, then commit (reference :2922-3245) -------
+    def _dispatch_tick(self, admitted) -> Optional[_PendingTick]:
+        """Dispatch one tick's calls (reference :2960), scheduling on the
+        tokens committed and in flight; returns the record to commit, or
+        None when nothing was dispatched."""
+        self._pipe_items = []
+        try:
+            if self._prefill_chunk is not None:
+                self._dispatch_budgeted(admitted)
+            else:
+                self._dispatch_oneshot(admitted)
+        finally:
+            items, self._pipe_items = self._pipe_items, []
+        if not items:
+            return None
+        done = None
+        if self._pipe and self.device.type == "cuda":
+            done = torch.cuda.Event()
+            done.record(torch.cuda.current_stream(self.device))
+        return _PendingTick(items, done)
+
+    def _sched_decoding(self) -> List[tuple]:
+        """The slots this tick's decode dispatch takes (reference :2987):
+        seated, not done, past prefill, and with budget left after the
+        tokens in flight."""
+        return [(i, r) for i, r in self._occupied()
+                if not r.done() and not self._is_prefilling(r)
+                and r.generated.shape[0] + r._pending_n < r.max_new_tokens]
+
+    def _dispatch_oneshot(self, admitted) -> None:
+        """The admissions' prefill, then the decode (reference :2996).
+        A paged prefill's prompt pages enter the prefix cache at
+        dispatch: a later reader's calls queue after its writes."""
+        if admitted:
+            self._ensure_state()
+            self._slot_state, first = self._call_prefill(self._slot_state,
+                                                         admitted)
+            for _, r in admitted:
+                r._pending_n += 1
+            if self._paged:
+                self._cache_prefilled(admitted)
+            self._pipe_items.append(("prefill", list(admitted), first))
+            self._reap()
+        decoding = self._sched_decoding()
+        if decoding:
+            self._dispatch_decode(decoding)
+
+    def _dispatch_budgeted(self, admitted) -> None:
+        """The chunked round (reference :3027): prefill chunks bought by
+        the budget left after the decode bill, then the decode."""
+        decoding0 = [(i, r) for i, r in self._occupied()
+                     if not self._is_prefilling(r)]
+        self._advance_prefill(self._tick_budget
+                              - len(decoding0) * self._chunk)
+        decoding = self._sched_decoding()
+        if decoding:
+            self._dispatch_decode(decoding)
+
+    def _dispatch_decode(self, decoding) -> None:
+        """A decode chunk, or a spec round (reference :3039): each slot's
+        tokens of the chunk, min(chunk, its budget), go in flight."""
+        if self._spec and self._spec_tick():
+            self._dispatch_spec(decoding)
+            return
+        self._slot_state, toks = self._call_chunk(self._slot_state,
+                                                  decoding)
+        needs = []
+        for _, r in decoding:
+            n = min(self._chunk, r.max_new_tokens - r.generated.shape[0]
+                    - r._pending_n)
+            needs.append(n)
+            r._pending_n += n
+        self._pipe_items.append(("decode", list(decoding), toks, needs))
+
+    def _dispatch_spec(self, decoding) -> None:
+        """Schedule-ahead spec round (reference :3061): a round's commit
+        count is known only after verification, so each slot reserves the
+        worst case, K+1 tokens within its budget, as in flight; the
+        commit releases what verification rejected. K is what the last
+        commit decided (`_spec_update` runs at commit)."""
+        k1 = self._spec_cur_k + 1
+        self._slot_state, out = self._call_spec(self._slot_state, decoding)
+        reserved = []
+        for _, r in decoding:
+            n = min(k1, r.max_new_tokens - r.generated.shape[0]
+                    - r._pending_n)
+            reserved.append(n)
+            r._pending_n += n
+            r._pending_spec += n
+        self.counts["spec_reserved"] += sum(reserved)
+        self._pipe_items.append(("spec", list(decoding), out, reserved))
+
+    def _commit_tick(self, prev: _PendingTick) -> None:
+        """A dispatched tick's items committed in dispatch order
+        (reference :3096), pipelined behind the tick's one blocking wait
+        (the synchronous loop waited at each call). A spec item releases
+        its unused reservation and runs the adaptive-K controller here,
+        so the next dispatch's K was decided at a commit."""
+        if self._pipe:
+            self._wait(prev.done)
+        for kind, entries, out, *rest in prev.items:
+            out = out.numpy()
+            if kind == "prefill":
+                for _, r in entries:
+                    r._pending_n -= 1
+                self._commit_first(entries, out)
+            elif kind == "prefill_chunk":
+                finished = rest[0]
+                for _, r in finished:
+                    r._pending_n -= 1
+                self._commit_first(finished, out)
+            elif kind == "decode":
+                needs = rest[0]
+                for (_, r), n in zip(entries, needs):
+                    r._pending_n -= n
+                self._commit_decode(entries, out, needs)
+            else:
+                reserved = rest[0]
+                for (_, r), n in zip(entries, reserved):
+                    r._pending_n -= n
+                    r._pending_spec -= n
+                needs = self._commit_spec(entries, out)
+                self.counts["spec_released"] += sum(reserved) - sum(needs)
 
     # -- paged KV: host page bookkeeping (under self._lock) ----------------
     def _alloc_page(self) -> Optional[int]:
@@ -872,20 +1113,25 @@ class InferenceEngine:
             self._release_slot_pages(i)
 
     def _write_range(self, r: RequestHandle, span: Optional[int]) -> tuple:
-        """The logical positions [lo, hi) the next call writes for ``r``:
-        its prefill (``span`` None): one chunk from the resume point, or
-        the part past the prefix hit; else a decode of ``span`` rows
-        (a chunk, or a spec round's K+1 window) from the pending token's
-        row, the last of the committed prefix."""
-        plen = int(r.prompt.shape[0] + r.generated.shape[0])
+        """The logical positions [lo, hi) the next call writes for ``r``
+        (reference :3943-3978): its prefill (``span`` None): one chunk
+        from the resume point, or the part past the prefix hit; else a
+        decode of ``span`` rows (a chunk, or a spec round's K+1 window)
+        from the pending token's row, the last of the prefix scheduled so
+        far (committed, and in flight in the pipelined loop). A spec
+        round in flight commits 1 to its reservation of tokens, so where
+        one is, the start is known only to within that reservation and
+        the range widens to the union of every possible window."""
+        plen = int(r.prompt.shape[0] + r.generated.shape[0] + r._pending_n)
         if span is None:
             if self._prefill_chunk is not None:
                 return r._prefill_pos, min(r._prefill_pos
                                            + self._prefill_chunk,
                                            r._prefill_target)
             return r._page_start, plen
-        lo = plen - 1
-        return lo, min(lo + span, int(r.prompt.shape[0]) + r.max_new_tokens)
+        lo = plen - 1 - max(0, r._pending_spec - 1)
+        return lo, min(plen - 1 + span,
+                       int(r.prompt.shape[0]) + r.max_new_tokens)
 
     def _ensure_writable(self, entries, span: Optional[int]) -> None:
         """Copy-on-write guard before every paged call that writes
@@ -952,47 +1198,53 @@ class InferenceEngine:
     def _call_spec(self, state, entries):
         """One speculative round over the pool for ``entries``; a paged
         pool first privatises every page the K+1 window can write.
-        Returns (state', toks [Ns, K+1], ncommit, drafted, accepted) with
-        numpy outputs. ``poison`` stays all false: the fault injector's
+        Returns (state', out [Ns, K+4] by `_host`): each row's window
+        tokens, then its commit count, drafted and accepted (see
+        `_spec_out`). ``poison`` stays all false: the fault injector's
         draft_poison_at hook, and with it the controller's poisoned-round
         fallback to K=1, are not ported (ROADMAP queue A6)."""
-        active = np.zeros((self._num_slots,), bool)
-        rem = np.zeros((self._num_slots,), np.int32)
-        for i, r in entries:
-            active[i] = True
-            rem[i] = r.max_new_tokens - r.generated.shape[0]
+        active, rem = self._active_rem(entries)
         poison = np.zeros((self._num_slots,), bool)
         k = self._spec_cur_k
         if self._paged:
-            lead = (self._block_table(entries, k + 1),)
-            fn = self._program("paged_spec", k)
+            kind, lead = "paged_spec", (self._block_table(entries, k + 1),)
         else:
-            lead = ()
-            fn = self._program("spec", k)
+            kind, lead = "spec", ()
         t0 = time.perf_counter()
-        *state, emit, nc, drafted, accepted = fn(
-            self._params, self._draft_params, *state, *lead,
-            self._tensor(active), self._tensor(rem), self._tensor(poison),
-            int(self.config.seed))
-        out = torch.stack([nc, drafted, accepted]).cpu().numpy()
-        toks = emit.cpu().numpy()
+        *state, emit, nc, drafted, accepted = self._run(
+            kind, k, (self._params, self._draft_params, *state),
+            (*lead, *map(self._tensor, (active, rem, poison))))
+        out = self._host(torch.cat([emit, nc[:, None], drafted[:, None],
+                                    accepted[:, None]], dim=1))
         self.seconds["spec"] += time.perf_counter() - t0
         self.counts["spec_rounds"] += 1
         self.counts["spec_draft_steps"] += k
-        return tuple(state), toks, out[0], out[1], out[2]
+        return tuple(state), out
 
-    def _decode_spec_slots(self, occupied) -> None:
-        """One speculative round: commit each slot's accepted prefix and
-        correction token (1..K+1 tokens), then feed the acceptance to the
-        adaptive-K controller."""
-        self._slot_state, toks, nc, drafted, accepted = self._call_spec(
-            self._slot_state, occupied)
-        for i, r in occupied:
-            self.counts["spec_drafted"] += int(drafted[i])
-            self.counts["spec_accepted"] += int(accepted[i])
-            need = min(int(nc[i]), r.max_new_tokens - r.generated.shape[0])
-            self._commit_tokens(r, toks[i, :need].astype(np.int32))
-        self._spec_update(occupied, drafted, accepted)
+    @staticmethod
+    def _spec_out(out: np.ndarray):
+        """(toks [Ns, K+1], ncommit, drafted, accepted) of a round's
+        packed output."""
+        return out[:, :-3], out[:, -3], out[:, -2], out[:, -1]
+
+    def _commit_spec(self, entries, out) -> List[int]:
+        """A round's commit: each live entry's accepted prefix and
+        correction token, its drafted / accepted counts, then the
+        adaptive-K controller. Returns the tokens committed per entry."""
+        toks, nc, drafted, accepted = self._spec_out(out)
+        needs = []
+        for i, r in entries:
+            need = 0
+            if not r.done():
+                self.counts["spec_drafted"] += int(drafted[i])
+                self.counts["spec_accepted"] += int(accepted[i])
+                need = min(int(nc[i]),
+                           r.max_new_tokens - r.generated.shape[0])
+                self._commit_tokens(r, toks[i, :need].astype(np.int32))
+            needs.append(need)
+        self.counts["spec_committed"] += sum(needs)
+        self._spec_update(entries, drafted, accepted)
+        return needs
 
     def _spec_update(self, occupied, drafted, accepted) -> None:
         """Adaptive K over {spec_k, spec_k/2, .., 1}: per-slot acceptance
@@ -1029,8 +1281,19 @@ class InferenceEngine:
             r._finish(RequestStatus.COMPLETED)
 
     def _reap(self) -> None:
-        """Free the slots whose request is done."""
+        """Free the slots whose request has all its tokens: committed,
+        or, without spec, committed and in flight. A slot freed with
+        tokens in flight is refilled by calls queued after the ones
+        computing them, and its request still takes them at the commit;
+        so the pipelined loop admits, and then schedules, as the
+        synchronous loop does, tick for tick (the same prefill buckets and chunk plans:
+        half-precision pools stay exact). A spec round's commit count is
+        known only at its commit, so a spec engine frees there, as the
+        reference does (:3268)."""
         with self._lock:
             for i, r in enumerate(self._slots):
-                if r is not None and r.done():
+                if r is not None and (
+                        r.done() or (not self._spec and
+                                     r.generated.shape[0] + r._pending_n
+                                     >= r.max_new_tokens)):
                     self._free_slot(i)

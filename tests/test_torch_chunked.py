@@ -1,8 +1,8 @@
 """Port parity: chunked prefill and the token-budget scheduler.
 
 The JAX side runs on a 1x1 mesh through its plain reference paths
-(DL4JTPU_FLASH unset) and its engine with `pipeline=False`, as
-tests/test_torch_serving.py does; both sides hold one JAX `init_params`
+(DL4JTPU_FLASH unset) and its engine with both loops, each against the
+same loop of the port's, as tests/test_torch_serving.py does; both sides hold one JAX `init_params`
 tree converted with `params_from_numpy`. Tolerances: caches 1e-5 (a paged
 pool's scratch page 0 excluded); pos, tok and first exactly (greedy);
 engine results token-exact. The port's own contracts (chunked ≡ one-shot
@@ -208,16 +208,19 @@ def _mix():
              for i in range(3)] + [_prompt(n, 40 + n) for n in (7, 33, 12)])
 
 
+@pytest.mark.parametrize("pipeline", [False, True],
+                         ids=["sync", "pipelined"])
 @pytest.mark.parametrize("paged", [False, True])
-def test_chunked_engine_matches_jax_engine(mesh1, jparams, tparams, paged):
+def test_chunked_engine_matches_jax_engine(mesh1, jparams, tparams, paged,
+                                           pipeline):
     """Six requests through 4 slots with prefill_chunk 5 and the default
     budget, twice (paged: the second wave prefix hits): tokens equal the
     JAX chunked engine's, and so do the prefix-cache counts."""
-    kw = dict(prefill_chunk=5, max_new_tokens=7)
+    kw = dict(prefill_chunk=5, max_new_tokens=7, pipeline=pipeline)
     if paged:
         kw.update(paged=True, page_size=8)
     jengine = jeng.InferenceEngine(JCFG, mesh1, jparams, jeng.EngineConfig(
-        pipeline=False, backoff_base_s=0.0, **{**BASE, **kw}))
+        backoff_base_s=0.0, **{**BASE, **kw}))
     tengine = _port(tparams, **kw)
     for _ in range(2):
         want = _serve(jengine, _mix())
@@ -364,7 +367,7 @@ def test_chunked_and_paged_config_errors(tparams, kw, match):
 
 @pytest.mark.parametrize("use", [dict(paged=True), dict(prefill_chunk=8)])
 @pytest.mark.parametrize("field,value,item", [
-    ("pipeline", True, "item 5"), ("constrain_state_cap", 64, "item 6"),
+    ("constrain_state_cap", 64, "item 6"),
     ("tenant_weights", {"a": 1.0}, "item 9"),
 ])
 def test_unported_combinations_raise(tparams, use, field, value, item):
@@ -376,6 +379,21 @@ def test_unported_combinations_raise(tparams, use, field, value, item):
                              f"ROADMAP queue A {item}"):
         teng.InferenceEngine(TCFG, tparams, teng.EngineConfig(**kw),
                              device="cpu")
+
+
+@pytest.mark.parametrize("use", [dict(paged=True), dict(prefill_chunk=8)])
+def test_pipelined_combinations_serve(tparams, use):
+    """Paged KV or chunked prefill with the pipelined loop (the default,
+    which raised here before the loop was ported) serves the mix as the
+    synchronous loop does, token for token, and leaves nothing in
+    flight."""
+    kw = {"prefill_chunk": None, **use}
+    want = _serve(_port(tparams, pipeline=False, **kw), _mix())
+    eng = _port(tparams, pipeline=True, **kw)
+    got = _serve(eng, _mix())
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)
+    assert eng.counts["pipelined_ticks"] > 0 and eng.drained()
 
 
 @pytest.mark.parametrize("use", [dict(paged=True), dict(prefill_chunk=8)])

@@ -986,7 +986,9 @@ def test_paged_spec_equals_paged_plain_bf16_on_card(requires_cuda):
     """bf16 at a small config: the paged spec engine (K=4, "layers:1",
     on a tree whose deep layers are zeroed so drafts are accepted) gives
     the paged plain engine's tokens, window rows being decode bit for
-    bit; the window kernel runs n_layers times a round."""
+    bit. The spec round replays as a CUDA graph: the window wrapper
+    launches n_layers times at each round program's eager first call and
+    again at its capture, and every later round is a replay."""
     from deeplearning4j_tpu_torch.models import transformer as tf
     from deeplearning4j_tpu_torch.serving.engine import (EngineConfig,
                                                          InferenceEngine)
@@ -1010,7 +1012,82 @@ def test_paged_spec_equals_paged_plain_bf16_on_card(requires_cuda):
         out[arm] = [eng.submit(p) for p in prompts + prompts]
         eng.run_pending()
         n_win = tdec.decode_window_attention_cuda.launches - win0
-    assert eng.counts["spec_rounds"] > 0 and eng.counts["prefix_hits"] > 0
-    assert n_win == cfg.n_layers * eng.counts["spec_rounds"]
+    c = eng.counts
+    assert c["spec_rounds"] > 0 and c["prefix_hits"] > 0
+    rounds = [k for k in eng._graphs.keys() if k[0] == "paged_spec"]
+    assert rounds and n_win == 2 * cfg.n_layers * len(rounds)
+    assert c["graph_replays"] == (c["spec_rounds"] + c["decode_chunks"]
+                                  - len(eng._graphs.keys()))
     for a, b in zip(out["spec"], out["plain"]):
         np.testing.assert_array_equal(a.result(), b.result())
+
+
+@pytest.mark.parametrize("temperature", [0.0, 0.9])
+@pytest.mark.parametrize("kind", ["decode", "paged_decode", "spec",
+                                  "paged_spec"])
+def test_slot_program_graph_replay_equals_eager_on_card(requires_cuda, kind,
+                                                        temperature):
+    """The engine's per-tick programs (bf16, small config) replayed as
+    CUDA graphs (`serving.graphs.SlotGraphs`) return the eager program's
+    bits, outputs and pool alike, greedy and sampled (top-k 8), on two
+    calls with other masks and budgets. The kernels' counters count the
+    wrappers' launches: the first call's eager run and its capture each
+    add what one eager call adds, and a replay adds nothing."""
+    from deeplearning4j_tpu_torch.models import transformer as tf
+    from deeplearning4j_tpu_torch.ops import flash_decode as fd
+    from deeplearning4j_tpu_torch.parallel import serving as sv
+    from deeplearning4j_tpu_torch.serving.graphs import SlotGraphs
+    counted = (fd.decode_attention_cuda, fd.decode_attention_q_cuda,
+               fd.decode_window_attention_cuda,
+               fd.decode_window_attention_q_cuda)
+    cfg = tf.TransformerConfig(vocab_size=64, d_model=128, n_heads=2,
+                               n_layers=3, max_len=256, dtype="bfloat16")
+    dev = requires_cuda
+    params = tf.init_params(cfg, seed=3, device=dev)
+    ns, ps, size = 4, 16, 4
+    ck, cv, pos, tok = sv.init_slot_state(cfg, ns, dev)
+    ck.copy_(torch.from_numpy(_rand(tuple(ck.shape), 99)).to(dev, ck.dtype))
+    cv.copy_(torch.from_numpy(_rand(tuple(cv.shape), 100)).to(dev, cv.dtype))
+    pos.copy_(torch.tensor([5, 100, 200, 17], dtype=torch.int32))
+    tok.copy_(torch.tensor([1, 2, 3, 4], dtype=torch.int32))
+    samp = dict(temperature=temperature, top_k=8)
+    lead, state = (), (ck, cv, pos, tok)
+    if kind.startswith("paged"):
+        kp, vp, bt = _paged_copy(ck, cv, ps, 101)
+        state, lead = (kp, vp, pos, tok), (bt,)
+        geo = (ps, cfg.max_len // ps, kp.shape[1])
+        fn = (sv.make_paged_decode(cfg, size, ns, *geo, **samp)
+              if kind == "paged_decode" else
+              sv.make_paged_speculative_decode(cfg, size, ns, *geo,
+                                               draft_layers=1, **samp))
+    else:
+        fn = (sv.make_continuous_decode(cfg, size, ns, **samp)
+              if kind == "decode" else
+              sv.make_speculative_decode(cfg, size, ns, draft_layers=1,
+                                         **samp))
+    trees = (params,) if kind.endswith("decode") else (params, params)
+    twin = tuple(x.clone() for x in state)
+    graphs = SlotGraphs(dev, {})
+    calls = [([True, True, True, False], [9, 2, 9, 9]),
+             ([True, False, True, True], [1, 9, 3, 9]),
+             ([True, True, True, True], [9, 9, 9, 2])]
+    for n, (active, rem) in enumerate(calls):
+        dyn = (*lead, torch.tensor(active, device=dev),
+               torch.tensor(rem, dtype=torch.int32, device=dev))
+        if not kind.endswith("decode"):
+            dyn += (torch.zeros(ns, dtype=torch.bool, device=dev),)
+        before = [w.launches for w in counted]
+        got = graphs.call((kind, size), fn, (*trees, *state), dyn, 7)
+        mid = [w.launches for w in counted]
+        want = fn(*trees, *twin, *dyn, 7)
+        after = [w.launches for w in counted]
+        torch.cuda.synchronize()
+        assert graphs.counts["graph_replays"] == n
+        eager = [a - m for m, a in zip(mid, after)]
+        assert any(eager)
+        assert [m - b for b, m in zip(before, mid)] == \
+            [(2 if n == 0 else 0) * e for e in eager]
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)
+    assert graphs.counts["graph_captures"] == 1
+    assert graphs.counts["graph_replays"] == len(calls) - 1

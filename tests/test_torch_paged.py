@@ -2,10 +2,11 @@
 
 The JAX side runs on a 1x1 mesh through its plain reference paths
 (DL4JTPU_FLASH unset), as tests/test_torch_serving.py does, and its
-engine with `pipeline=False`. Both sides hold one JAX `init_params` tree
-converted with `params_from_numpy`. Tolerances: page pools 1e-5 (the
-scratch page 0 excluded: pad rows and inactive slots write it in no
-defined order); pos, tok, first and emitted tokens exactly (greedy);
+engine with both loops (`pipeline=False` and the default pipelined
+one), each against the same loop of the port's. Both sides hold one JAX
+`init_params` tree converted with `params_from_numpy`. Tolerances: page
+pools 1e-5 (the scratch page 0 excluded: pad rows and inactive slots
+write it in no defined order); pos, tok, first and emitted tokens exactly (greedy);
 engine results token-exact, with the prefix-cache hit / miss /
 shared-token counts equal to JAX's. The port's own contracts (paged ≡
 contiguous, copy-on-write, blocking, shedding, the scratch page never
@@ -252,14 +253,18 @@ def _serve(eng, prompts, waves=1):
     return out
 
 
+@pytest.mark.parametrize("pipeline", [False, True],
+                         ids=["sync", "pipelined"])
 @pytest.mark.parametrize("extra", [{}, dict(spec_decode=True, spec_k=3,
                                             draft="self")])
-def test_paged_engine_matches_jax_engine(mesh1, jparams, tparams, extra):
+def test_paged_engine_matches_jax_engine(mesh1, jparams, tparams, extra,
+                                         pipeline):
     """The shared-prefix mix twice (the second wave all prefix hits, one
     of them full: copy-on-write): tokens equal JAX's paged engine, and
     so do the prefix-cache hits, misses and shared tokens."""
+    extra = dict(extra, pipeline=pipeline)
     jengine = jeng.InferenceEngine(JCFG, mesh1, jparams, jeng.EngineConfig(
-        pipeline=False, backoff_base_s=0.0, **BASE, **PAGED, **extra))
+        backoff_base_s=0.0, **BASE, **PAGED, **extra))
     tengine = _port(tparams, **PAGED, **extra)
     prompts = _shared_mix() + [_prompt(16, 5)]
     want = _serve(jengine, prompts, waves=2)

@@ -1,7 +1,8 @@
 """Port parity: quantized serving (programs and engines) against JAX's.
 
 The JAX side runs on a 1x1 mesh through its plain reference paths
-(DL4JTPU_FLASH unset) and its engine with `pipeline=False`, as
+(DL4JTPU_FLASH unset) and its engine with both loops, each against the
+same loop of the port's (the engine parity tests), as
 tests/test_torch_serving.py does; a quantized JAX tree is placed with
 `shard_quantized_serving_params`. Both sides start from one JAX
 `init_params` tree (`params_from_numpy`); the port quantizes it itself
@@ -361,7 +362,7 @@ BASE = dict(num_slots=NS, decode_chunk=2, max_new_tokens=8)
 
 def _jax(mesh1, jparams, **kw):
     return jeng.InferenceEngine(JCFG, mesh1, jparams, jeng.EngineConfig(
-        pipeline=False, backoff_base_s=0.0, **{**BASE, **kw}))
+        backoff_base_s=0.0, **{**BASE, **kw}))
 
 
 def _port(tparams, **kw):
@@ -398,11 +399,18 @@ QUANT_KW = {"kv": dict(kv_quantize="int8"), "weights": dict(quantize="int8"),
             "both": dict(quantize="int8", kv_quantize="int8")}
 
 
+# each engine parity test runs both loops, the same on both sides
+LOOPS = pytest.mark.parametrize("pipeline", [False, True],
+                                ids=["sync", "pipelined"])
+
+
+@LOOPS
 @pytest.mark.parametrize("which", list(QUANT_KW))
-def test_quant_engine_matches_jax_engine(mesh1, jparams, tparams, which):
+def test_quant_engine_matches_jax_engine(mesh1, jparams, tparams, which,
+                                         pipeline):
     """int8 KV, int8 weights and both: every result equals the JAX
     engine's; the pool and the tree are the quantized ones."""
-    kw = QUANT_KW[which]
+    kw = dict(QUANT_KW[which], pipeline=pipeline)
     want = _serve(_jax(mesh1, jparams, **kw), _mix())
     eng = _port(tparams, **kw)
     _same(_serve(eng, _mix()), want)
@@ -410,14 +418,15 @@ def test_quant_engine_matches_jax_engine(mesh1, jparams, tparams, which):
     assert _tree_mode(eng._params) == kw.get("quantize")
 
 
+@LOOPS
 @pytest.mark.parametrize("quantize", [None, "int8"])
 def test_quant_spec_engine_matches_jax_engine(mesh1, jparams, tparams,
-                                              quantize):
+                                              quantize, pipeline):
     """Speculative decoding with the default drafter ("int8") on an int8
     KV pool: on a float tree (the drafter is its int8 tree) and on an
     int8 tree (the drafter shares it: every draft accepted). Results
     equal the JAX spec engine's and the port's plain int8 engine's."""
-    kw = dict(kv_quantize="int8", quantize=quantize)
+    kw = dict(kv_quantize="int8", quantize=quantize, pipeline=pipeline)
     spec = dict(spec_decode=True, spec_k=3, spec_adaptive=False)
     jengine = _jax(mesh1, jparams, **kw, **spec)
     want = _serve(jengine, _mix())

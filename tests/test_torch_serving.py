@@ -5,8 +5,9 @@ through its plain reference paths (DL4JTPU_FLASH unset: the jnp attention
 and `reference_decode_attention`): inside `shard_map` the Pallas kernels
 do not trace in interpret mode on this JAX version (check_vma). The
 kernels' own math is held to JAX in tests/test_torch_attention.py and
-tests/test_torch_transformer.py. The JAX engine runs with
-`pipeline=False`, the synchronous loop the port implements. Both sides
+tests/test_torch_transformer.py. The engines run both loops, the
+synchronous (`pipeline=False`) and the pipelined one (the default), each
+against the same loop of JAX's. Both sides
 hold the same weights (one JAX `init_params` tree converted with
 `params_from_numpy`). Tolerances: caches 1e-5; pos, tok, first tokens and
 emitted tokens exactly (greedy).
@@ -125,15 +126,21 @@ def _requests():
             enumerate(zip(lens, news))]
 
 
-def test_engine_matches_jax_engine_token_exact(mesh1, jparams, tparams):
+@pytest.mark.parametrize("pipeline", [False, True],
+                         ids=["sync", "pipelined"])
+def test_engine_matches_jax_engine_token_exact(mesh1, jparams, tparams,
+                                              pipeline):
     """6 greedy requests through 4 slots: the second wave refills freed
-    slots; every result equals the JAX engine's."""
-    jcfg = jeng.EngineConfig(pipeline=False, num_slots=NS, decode_chunk=3,
-                             max_new_tokens=10, backoff_base_s=0.0)
+    slots; every result equals the JAX engine's, each loop against the
+    same loop of JAX's."""
+    jcfg = jeng.EngineConfig(num_slots=NS, decode_chunk=3,
+                             max_new_tokens=10, backoff_base_s=0.0,
+                             pipeline=pipeline)
     jengine = jeng.InferenceEngine(JCFG, mesh1, jparams, jcfg)
     tengine = teng.InferenceEngine(
         TCFG, tparams, teng.EngineConfig(num_slots=NS, decode_chunk=3,
-                                         max_new_tokens=10), device="cpu")
+                                         max_new_tokens=10,
+                                         pipeline=pipeline), device="cpu")
     jh = [jengine.submit(p, max_new_tokens=m) for p, m in _requests()]
     th = [tengine.submit(p, max_new_tokens=m) for p, m in _requests()]
     jengine.run_pending()
@@ -195,7 +202,7 @@ def test_engine_admission_rules(tparams):
 
 
 @pytest.mark.parametrize("field,value", [
-    ("pipeline", True), ("paged", True), ("prefill_chunk", 8),
+    ("warmup_on_init", True), ("paged", True), ("prefill_chunk", 8),
     ("mode", "batch"),
     ("max_retries", 0), ("compile_cache_dir", "x"),
 ])
@@ -212,17 +219,21 @@ def test_unported_engine_options_raise(tparams, field, value):
 
 
 @pytest.mark.parametrize("field,value", [("spec_decode", True),
-                                         ("quantize", "int8")])
+                                         ("quantize", "int8"),
+                                         ("pipeline", True)])
 def test_ported_engine_options_serve(tparams, field, value):
     """Options that once raised here serve now: speculative decoding
-    with its default drafter ("int8") equals the plain engine, and the
-    int8 tree equals the float engine over its dequantized weights."""
+    with its default drafter ("int8") equals the plain engine, the int8
+    tree equals the float engine over its dequantized weights, and the
+    pipelined loop (the default) equals the synchronous one."""
     reqs = _requests()[:4]
-    base = tparams
+    base, base_kw = tparams, {}
     if field == "quantize":
         base = tqm.dequantize_params(tqm.quantize_params(tparams))
+    if field == "pipeline":
+        base_kw = {"pipeline": False}
     results = []
-    for params, kw in ((base, {}), (tparams, {field: value})):
+    for params, kw in ((base, base_kw), (tparams, {field: value})):
         eng = teng.InferenceEngine(
             TCFG, params, teng.EngineConfig(num_slots=NS, **kw),
             device="cpu")

@@ -3,8 +3,9 @@
 The JAX side runs on a 1x1 mesh through its plain reference paths
 (DL4JTPU_FLASH unset: `reference_decode_attention` for the draft steps,
 `reference_window_attention` for the verify window), as
-tests/test_torch_serving.py does; the JAX engine runs with
-`pipeline=False`, the synchronous loop the port implements. Both sides
+tests/test_torch_serving.py does; the engine tests run both loops,
+the synchronous one and the pipelined one (schedule-ahead spec rounds),
+each against the same loop of JAX's. Both sides
 hold one JAX `init_params` tree (converted with `params_from_numpy`).
 Tolerances: caches 1e-5 (the same f32 math summed in other orders); pos,
 tok, emitted tokens, commit counts and drafted / accepted counts exactly
@@ -214,7 +215,7 @@ BASE = dict(num_slots=4, decode_chunk=2, max_new_tokens=14)
 
 def _jax_engine(mesh1, jparams, **kw):
     return jeng.InferenceEngine(JCFG, mesh1, jparams, jeng.EngineConfig(
-        pipeline=False, backoff_base_s=0.0, **{**BASE, **kw}))
+        backoff_base_s=0.0, **{**BASE, **kw}))
 
 
 def _port_engine(tparams, **kw):
@@ -229,12 +230,19 @@ def _jax_spec_counts(eng):
                               "serving_spec_accepted_tokens"))
 
 
+# each engine parity test runs both loops, the same on both sides
+LOOPS = pytest.mark.parametrize("pipeline", [False, True],
+                                ids=["sync", "pipelined"])
+
+
+@LOOPS
 @pytest.mark.parametrize("draft", ["self", "layers:1"])
-def test_spec_engine_matches_jax_engine(mesh1, jparams, tparams, draft):
+def test_spec_engine_matches_jax_engine(mesh1, jparams, tparams, draft,
+                                        pipeline):
     """7 greedy requests through 4 slots (a refill wave included): every
     result equals the JAX spec engine's, and the drafted / accepted
     counts equal its metrics."""
-    kw = dict(spec_decode=True, spec_k=4, draft=draft)
+    kw = dict(spec_decode=True, spec_k=4, draft=draft, pipeline=pipeline)
     jengine = _jax_engine(mesh1, jparams, **kw)
     tengine = _port_engine(tparams, **kw)
     jh = [jengine.submit(p, max_new_tokens=m) for p, m in _requests()]
@@ -250,12 +258,14 @@ def test_spec_engine_matches_jax_engine(mesh1, jparams, tparams, draft):
         _jax_spec_counts(jengine)
 
 
-def test_adaptive_k_trajectory_matches_jax(mesh1, jparams, tparams):
+@LOOPS
+def test_adaptive_k_trajectory_matches_jax(mesh1, jparams, tparams,
+                                           pipeline):
     """Adversarial traffic (an early-exit drafter of random weights
     rarely agrees with the target): the K in use after every tick, plain
     cooldown included, equals the JAX engine's, and so do the results."""
     kw = dict(spec_decode=True, spec_k=4, draft="layers:1",
-              max_new_tokens=40)
+              max_new_tokens=40, pipeline=pipeline)
     jengine = _jax_engine(mesh1, jparams, **kw)
     tengine = _port_engine(tparams, **kw)
     reqs = [(_prompt(n, 40 + i), 40) for i, n in enumerate((6, 11, 4, 9,

@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Drives the port's serving path (plain, speculative, paged with the
-prefix cache, chunked prefill), its train step, the GravesLSTM char-RNN's
+prefix cache, chunked prefill, grammar-constrained), its train step, the GravesLSTM char-RNN's
 training through MultiLayerNetwork and the two kernel experiments on the
 card and fails (non-zero exit, no result line) if anything is wrong:
 
@@ -107,6 +107,18 @@ card and fails (non-zero exit, no result line) if anything is wrong:
    paged int8 (prefix cache off) ≡ contiguous int8; chunked int8 (chunk
    32) ≡ one-shot int8; on the card the quantized kernels run and the
    float decode / window kernels and the plain twins never.
+2e. float32 grammar-constrained serving on phase 2's model and prompts
+   (the pipelined loop, `serving.constrain` grammars over the byte
+   vocabulary): every prompt under ``[ab]{1,5}`` (16 new; terminal at 5),
+   under the flagship bench's JSON schema (64 new), the same two with
+   spec (K=4, "self"), and a mix of the two, ``[ab]+`` and none on the
+   contiguous, paged (page 16, 160 pages) and chunked (32) pools and the
+   synchronous loop. Gates: card ≡ CPU on every arm; every committed
+   token legal under a host replay of the grammar, a request shorter
+   than its budget ends in a terminal state; every schema output parses
+   with its keys among the schema's; spec ≡ plain, paged ≡ chunked ≡
+   contiguous ≡ the synchronous loop (terminating grammars, float32);
+   launches exact.
 3. Full width: the 12L / 512d / 8H / V=256 / max_len 2048 bf16 engine with
    64 slots and decode_chunk 8 (phases 3-3d on the synchronous loop,
    `pipeline=False`, their per-tick programs replayed as CUDA graphs as
@@ -189,6 +201,39 @@ card and fails (non-zero exit, no result line) if anything is wrong:
    replays, graph-pool bytes and one profiled pipelined decode tick
    (idle share, device kernels, host launch calls; gated on its device
    trace).
+3f. Full-width grammar-constrained serving, phase 3's config, traffic and
+   pipelined loop: (a) unconstrained against ``[ab]+`` (never terminal)
+   on every request, a warm pass each, then timed U C C U: tokens/s, ms
+   a decode step and C/U beside the reference bench's 0.9 bar (printed,
+   not gated); (b) the flagship schema on every request on (a)'s warm
+   constrained engine (a new grammar: no capture), every output parsed,
+   terminal completions counted; (c) half ``[ab]+``, half none: the
+   unconstrained requests ≡ (a)'s unconstrained pass; (d) 3b's aligned
+   tree, spec (K 7, "layers:1") ≡ plain, constrained by ``[ab]+`` and by
+   the schema, on the synchronous loop; (e) 3c's paged traffic with
+   ``[ab]+``, the chunk-256 pool on the first 48 requests of its first
+   wave and the int8-KV paged pool on phase 3's, each pipelined ≡ its
+   synchronous loop; paged and chunked ≡ the contiguous one-shot engine
+   (another prefill path, equal on this traffic); int8 paged against
+   int8 contiguous printed (its rows quantize after another prefill
+   path's rounding); (f) temperature 0.8, top-k
+   40: legal, pipelined ≡ sync; (g) the synchronous loop on (a)'s
+   constrained traffic ≡ pipelined, the same calls. Every arm: every
+   token legal (the engine's own walk refuses none, the host replay
+   agrees), launches exact, no capture in a warm pass, on the int8 pool
+   no float kernel and no plain twin. One constrained pipelined decode
+   tick and one constrained bf16 spec round are profiled: one graph
+   launch each, the unconstrained device launch counts (L x 8 decode, L
+   + K), and the mask's own kernels and device ms beside an
+   unconstrained tick's; the table's bytes (cap x V x 5).
+3f'. The reference bench's constrained floor config
+   (benchmarks/flagship.py:1423, constrained_decode_4L192d_Ns8: 4L /
+   192d / 8H, 8 slots, max_len 256, 24 requests at 2 ms Poisson
+   interarrival, prompts 8-48, 33 new, 64 for the schema): unconstrained,
+   ``[ab]+`` and the schema arms replayed in real time, a cold replay
+   each and then 3 interleaved warm ones on one engine per arm; its
+   in-bench asserts (legal, full budget, schema valid, no capture once
+   warm); tokens/s per arm and constrained / unconstrained, printed.
 4a. float32 training, card vs CPU: 2 layers at 512d / 8 heads, V=256,
    B=2, T=256, remat 'full', three Adam steps of `make_fsdp_train_step`
    from the same params on cuda and on cpu; losses within 1e-4, and the
@@ -1262,22 +1307,25 @@ def phase_paged_full_width(torch, dev, contiguous_ms_per_step):
                       "chunked": ([first], chunked_out)}
 
 
-def profile_decode_tick(torch, eng, rng, arm, phase="3b"):
+def profile_decode_tick(torch, eng, rng, arm, phase="3b", constrain=None):
     """One decode phase with no admissions in its tick (a spec round of
-    K+1 = 8 tokens, or a plain chunk of 8) under torch.profiler: device
-    time and launches by kernel, and the device's idle share (a paged
-    engine's also the device time of its page gathers). Gates: the
-    tick's program is one graph replay, and the device's trace holds
-    the ported kernels it must run (`device_launch_gate`)."""
+    K+1 = 8 tokens, or a plain chunk of 8) under torch.profiler, every
+    request under ``constrain``: device time and launches by kernel, and
+    the device's idle share (a paged engine's also the device time of
+    its page gathers). Gates: the tick's program is one graph replay,
+    and the device's trace holds the ported kernels it must run
+    (`device_launch_gate`). Returns (wall s, device rows)."""
     spec = eng.spec_k_current > 0
     kind = "spec_rounds" if spec else "decode_chunks"
     L = eng.cfg.n_layers
     prompts = [rng.integers(0, 256, size=64).astype(np.int32)
                for _ in range(eng.num_slots)]
     # 17 tokens: the prefill's first, then two rounds (or chunks) of 8
-    warm = [eng.submit(p, max_new_tokens=17) for p in prompts]
+    warm = [eng.submit(p, max_new_tokens=17, constrain=constrain)
+            for p in prompts]
     eng.run_pending()
-    hs = [eng.submit(p, max_new_tokens=17) for p in prompts]
+    hs = [eng.submit(p, max_new_tokens=17, constrain=constrain)
+          for p in prompts]
     eng.tick()                              # admissions + the first 8
     n = eng.counts[kind]
     want = replay_want(eng, spec, L)
@@ -1310,6 +1358,7 @@ def profile_decode_tick(torch, eng, rng, arm, phase="3b"):
                        if "gather" in k.lower() or "index" in k.lower()])
     profile_line(wall, rows, host, phase=phase, run=f"profiled_{arm}_tick",
                  graph_replays=1, device_launches_of_ported=measured, **rec)
+    return wall, rows
 
 
 def device_rows(prof):
@@ -1473,7 +1522,7 @@ def expected_launches(eng, c, n_layers, keys0=()):
     for kind, size in eng._graphs.keys():
         if (kind, size) in keys0:
             continue
-        if kind.endswith("spec"):
+        if kind.removesuffix("_c").endswith("spec"):
             dec += 2 * nd * size
             win += 2 * n_layers
         else:
@@ -1512,19 +1561,21 @@ def zero_launches():
         w.launches = 0
 
 
-def serve_pass(torch, eng, waves):
-    """Each wave submitted and drained tick by tick, with the launch
-    counters reset before: (results per wave, wall s, counts delta,
-    seconds delta, launches by kernel, most blocking waits in a tick,
-    the graph keys captured before the pass)."""
+def serve_pass(torch, eng, waves, specs=None):
+    """Each wave submitted (``specs``: each wave's constraints, per
+    request) and drained tick by tick, with the launch counters reset
+    before: (results per wave, wall s, counts delta, seconds delta,
+    launches by kernel, most blocking waits in a tick, the graph keys
+    captured before the pass)."""
     zero_launches()
     keys0 = eng._graphs.keys()
     c0, s0 = dict(eng.counts), dict(eng.seconds)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     out, worst = [], 0
-    for prompts in waves:
-        hs = [eng.submit(p) for p in prompts]
+    for w, prompts in enumerate(waves):
+        hs = [eng.submit(p, constrain=None if specs is None else specs[w][i])
+              for i, p in enumerate(prompts)]
         while True:
             n = eng.counts["syncs"]
             busy = eng.tick()
@@ -1554,8 +1605,11 @@ def replay_equals_eager(torch, eng, kind, size):
            torch.full((ns,), 8, dtype=torch.int32, device=dev))
     if kind.startswith("paged"):
         dyn = (torch.from_numpy(eng._bt.copy()).to(dev),) + dyn
-    if kind.endswith("spec"):
+    if kind.removesuffix("_c").endswith("spec"):
         dyn += (torch.zeros(ns, dtype=torch.bool, device=dev),)
+    if kind.endswith("_c"):     # no seeds: every slot carries its state
+        dyn += (torch.zeros(ns, dtype=torch.bool, device=dev),
+                torch.zeros(ns, dtype=torch.int32, device=dev))
     seed = int(eng.config.seed)
     got = [t.clone() for t in eng._graphs.call((kind, size), fn, g.fixed,
                                                 dyn, seed)[len(state):]]
@@ -1743,6 +1797,428 @@ def phase_pipeline_full_width(torch, dev, sync):
         fail(f"3e paged graph pool {pool_bytes['paged']} bytes: the "
              f"capture kept the gathered views ({view} bytes each)")
     return {k: n for k, n in totals.items() if n}
+
+
+# ---------------------------------------------------------------------------
+# phases 2e, 3f and 3f': grammar-constrained serving
+# ---------------------------------------------------------------------------
+
+RX5, RXP = "[ab]{1,5}", "[ab]+"
+# the reference bench's schema (benchmarks/flagship.py:1479-1482)
+SCHEMA = {"type": "json_schema", "schema": {
+    "type": "object",
+    "properties": {"status": {"enum": ["ok", "retry", "dead"]},
+                   "attempts": {"type": "integer"},
+                   "fatal": {"type": "boolean"}}}}
+
+
+def check_constrained(where, reqs, outs, eng=None):
+    """Gate one arm's results: ``reqs`` [(prompt, spec, max_new)],
+    ``outs`` the full sequences. Every generated token of a constrained
+    request is legal under a host replay of the port's grammar; a request
+    shorter than its budget ends terminal; a schema output parses with
+    its keys among the schema's; ``eng``'s own walk refused nothing.
+    Returns (terminal completions, generated tokens)."""
+    from deeplearning4j_tpu_torch.serving.constrain import compile_grammar
+    terminal = n_tok = 0
+    for k, ((p, spec, new), out) in enumerate(zip(reqs, outs)):
+        gen = out[p.shape[0]:]
+        n_tok += gen.shape[0]
+        if not np.array_equal(out[:p.shape[0]], p) or gen.shape[0] > new:
+            fail(f"{where}: request {k} returned shape {out.shape}")
+        if spec is None:
+            if gen.shape[0] != new:
+                fail(f"{where}: unconstrained request {k} stopped early")
+            continue
+        g = compile_grammar(spec, 256)
+        st = 0
+        for t in gen.tolist():
+            if not g.legal(st, t):
+                fail(f"{where}: request {k} token {t} illegal in state {st}")
+            st = g.advance(st, t)
+        if g.is_terminal(st):
+            terminal += 1
+        elif gen.shape[0] < new:
+            fail(f"{where}: request {k} stopped at {gen.shape[0]} tokens "
+                 "short of a terminal state")
+        if spec is SCHEMA:
+            doc = json.loads(bytes(gen.tolist()).decode())
+            if not (g.is_terminal(st) and isinstance(doc, dict) and
+                    set(doc) <= set(SCHEMA["schema"]["properties"])):
+                fail(f"{where}: request {k} schema output {doc!r}")
+    if eng is not None and eng.counts["constrained_illegal"]:
+        fail(f"{where}: the engine refused {eng.counts['constrained_illegal']}"
+             " committed tokens")
+    return terminal, n_tok
+
+
+def phase_constrained_f32_card_vs_cpu(torch, dev):
+    """Phase 2's 2-layer 512d float32 model and 8 prompts under grammar
+    constraints (see the module docstring, 2e)."""
+    from deeplearning4j_tpu_torch.models import transformer as tf
+    from deeplearning4j_tpu_torch.serving.engine import (EngineConfig,
+                                                         InferenceEngine)
+    cfg = tf.TransformerConfig(vocab_size=256, d_model=512, n_heads=8,
+                               n_layers=2, max_len=2048, dtype="float32")
+    rng = np.random.default_rng(1)
+    prompts = [rng.integers(0, 256, size=int(n)).astype(np.int32)
+               for n in rng.integers(8, 65, size=8)]
+    params = {d: tf.init_params(cfg, seed=1, device=d)
+              for d in (dev, torch.device("cpu"))}
+    base = dict(num_slots=8, decode_chunk=8, max_new_tokens=64)
+    spec = dict(spec_decode=True, spec_k=4, draft="self")
+    rx = [(p, RX5, 16) for p in prompts]
+    sc = [(p, SCHEMA, 64) for p in prompts]
+    mix = [(p, (RX5, SCHEMA, RXP, None)[i % 4], 64)
+           for i, p in enumerate(prompts)]
+    arms = {"rx": (rx, {}), "schema": (sc, {}), "rx_spec": (rx, spec),
+            "schema_spec": (sc, spec), "mix": (mix, {}),
+            "mix_paged": (mix, dict(paged=True, page_size=16, kv_pages=160)),
+            "mix_chunked": (mix, dict(prefill_chunk=32)),
+            "mix_sync": (mix, dict(pipeline=False))}
+    out = {}
+    for name, (reqs, kw) in arms.items():
+        res = {}
+        for where, d in (("card", dev), ("cpu", torch.device("cpu"))):
+            eng = InferenceEngine(cfg, params[d], EngineConfig(**base, **kw),
+                                  device=d)
+            zero_launches()
+            hs = [eng.submit(p, max_new_tokens=n, constrain=c)
+                  for p, c, n in reqs]
+            eng.run_pending()
+            res[where] = [h.result() for h in hs]
+            if where == "card":
+                check_launches(eng, eng.counts, cfg.n_layers, read_launches(),
+                               f"2e {name}")
+                terminal, n_tok = check_constrained(f"2e {name}", reqs,
+                                                    res["card"], eng)
+                counts = {k: v for k, v in eng.counts.items()
+                          if k.startswith(("constrained_", "spec_acc",
+                                           "spec_draft"))
+                          and "rejected" not in k}
+        same = all(np.array_equal(a, b) for a, b in zip(res["card"],
+                                                        res["cpu"]))
+        out[name] = res["card"]
+        line(dict(phase="2e", arm=name, requests=len(reqs),
+                  card_equals_cpu=same, terminal=terminal, tokens=n_tok,
+                  **counts))
+        if not same:
+            fail(f"2e {name}: constrained tokens differ, card vs CPU")
+    pairs = [("rx_spec", "rx"), ("schema_spec", "schema"),
+             ("mix_paged", "mix"), ("mix_chunked", "mix"),
+             ("mix_sync", "mix")]
+    same = {f"{a}={b}": all(np.array_equal(x, y)
+                            for x, y in zip(out[a], out[b]))
+            for a, b in pairs}
+    line(dict(phase="2e", run="arms_equal", **same))
+    if not all(same.values()):
+        fail(f"2e: constrained arms differ: {same}")
+
+
+def mask_kernels(rows_c, rows_u):
+    """The constrained tick's device kernels beyond the unconstrained
+    tick's (by name: extra launches and device ms), and the difference
+    of their device busy times in ms."""
+    u = {k: (us, n) for k, us, n in rows_u}
+    extra = []
+    for k, us, n in rows_c:
+        uus, un = u.get(k, (0, 0))
+        if n > un:
+            extra.append(dict(name=k[:100], launches=n - un,
+                              ms=(us - uus) / 1e3))
+    busy = (sum(us for _, us, _ in rows_c)
+            - sum(us for _, us, _ in rows_u)) / 1e3
+    return extra, busy
+
+
+def phase_constrained_full_width(torch, dev, sync):
+    """Phase 3's config with grammar constraints (the module docstring,
+    3f); ``sync``: phase 3's and 3c's traffic (arm -> (waves, results)).
+    Returns the launches by kernel."""
+    from deeplearning4j_tpu_torch.models import transformer as tf
+    from deeplearning4j_tpu_torch.ops import flash_decode as fd
+    from deeplearning4j_tpu_torch.serving.engine import (EngineConfig,
+                                                         InferenceEngine)
+    cfg = tf.TransformerConfig(vocab_size=256, d_model=512, n_heads=8,
+                               n_layers=12, max_len=2048, dtype="bfloat16")
+    L, chunk, new, K = cfg.n_layers, 8, 64, 7
+    params = tf.TransformerLM(cfg, seed=0, device=dev).params
+    base = dict(num_slots=64, decode_chunk=chunk, max_new_tokens=new,
+                max_queue=256, degrade_queue_depth=1024)
+    paged = dict(paged=True, page_size=16, kv_pages=3072 + 1)
+    prompts = sync["plain"][0][0]                   # phase 3's traffic
+    totals = {k: 0 for k in launch_counters()}
+
+    def differ(out, want):
+        return [(w, i) for w, (got_w, want_w) in enumerate(zip(out, want))
+                for i, (a, b) in enumerate(zip(got_w, want_w))
+                if not np.array_equal(a, b)]
+
+    def run(name, eng, waves, spec, want=None, warm=False, new_grammar=False):
+        """One pass of ``waves``, every request under ``spec`` (a list:
+        one per request of each wave), gated; ``want`` a reference's
+        results (None: none)."""
+        specs = [[spec] * len(w) for w in waves] if not isinstance(
+            spec, list) else [spec]
+        out, wall, c, sec, n, worst, keys0 = serve_pass(torch, eng, waves,
+                                                        specs)
+        for k in totals:
+            totals[k] += n[k]
+        reqs = [(p, s, new) for w, sw in zip(waves, specs)
+                for p, s in zip(w, sw)]
+        terminal, n_tok = check_constrained(f"3f {name}", reqs,
+                                            [r for w in out for r in w], eng)
+        check_launches(eng, c, L, n, f"3f {name} pipeline="
+                       f"{eng.config.pipeline}", keys0)
+        bad = differ(out, want) if want is not None else []
+        if bad:
+            fail(f"3f {name} (pipeline={eng.config.pipeline}): tokens differ "
+                 f"from the reference in (wave, request) {bad[:8]} "
+                 f"({len(bad)})")
+        if (not warm and c["graph_captures"]) or (
+                eng.config.pipeline and worst > 1):
+            fail(f"3f {name}: {c['graph_captures']} captures in a warm pass, "
+                 f"{worst} waits in a tick")
+        if not eng.drained() or (eng.config.paged and
+                                 eng.counts["pages_used"]
+                                 != eng.prefix_cache_pages):
+            fail(f"3f {name}: not drained or pages leaked ({eng.counts})")
+        steps = chunk * c["decode_chunks"]
+        rec = dict(phase="3f", arm=name, pipeline=eng.config.pipeline,
+                   warm_pass=warm, new_grammar_warm=new_grammar,
+                   requests=len(reqs), tokens=n_tok, wall_s=wall,
+                   tokens_per_s=n_tok / wall, terminal=terminal,
+                   syncs=c["syncs"], prefill_calls=c["prefill_calls"],
+                   decode_chunks=c["decode_chunks"],
+                   spec_rounds=c["spec_rounds"],
+                   graph_captures=c["graph_captures"],
+                   graph_replays=c["graph_replays"], launches=n,
+                   **{k: c[k] for k in c if k.startswith("constrained_")
+                      and not k.startswith("constrained_rejected")})
+        if steps:
+            rec["wall_ms_per_decode_step"] = wall / steps * 1e3
+        if c["spec_rounds"]:
+            rec.update(acceptance=c["spec_accepted"] / c["spec_drafted"],
+                       spec_k_final=eng.spec_k_current)
+        line(rec)
+        return rec, c, out
+
+    def engine(tree=params, **kw):
+        return InferenceEngine(cfg, tree, EngineConfig(**{**base, **kw}),
+                               device=dev)
+
+    # (a) unconstrained against [ab]+, a warm pass each, then U C C U
+    waves = [prompts]
+    engs = {"U": engine(), "C": engine()}
+    spec_of = {"U": None, "C": RXP}
+    want_u = run("unconstrained", engs["U"], waves, None, warm=True)[2]
+    want_c = run("ab_plus", engs["C"], waves, RXP, warm=True)[2]
+    timed = {"U": [], "C": []}
+    for arm in ("U", "C", "C", "U"):
+        rec, c, out = run("unconstrained" if arm == "U" else "ab_plus",
+                          engs[arm], waves, spec_of[arm],
+                          want_u if arm == "U" else want_c)
+        timed[arm].append(rec)
+    tps = {a: [r["tokens_per_s"] for r in rs] for a, rs in timed.items()}
+    ms = {a: [r["wall_ms_per_decode_step"] for r in rs]
+          for a, rs in timed.items()}
+    line(dict(phase="3f", run="constrained_vs_unconstrained",
+              order="U C C U", unconstrained_tokens_per_s=tps["U"],
+              constrained_tokens_per_s=tps["C"],
+              constrained_over_unconstrained=sum(tps["C"]) / sum(tps["U"]),
+              reference_bench_bar=0.9,
+              unconstrained_wall_ms_per_decode_step=ms["U"],
+              constrained_wall_ms_per_decode_step=ms["C"],
+              table_bytes=engs["C"]._ctab.bound_bytes(),
+              table_rows_used=engs["C"]._ctab.rows_used))
+    if engs["C"]._ctab.bound_bytes() != 512 * 256 * 5:
+        fail(f"3f table bytes {engs['C']._ctab.bound_bytes()}")
+    # (g) the synchronous loop on the same constrained traffic
+    sync_c = engine(pipeline=False)
+    _, cs, _ = run("ab_plus", sync_c, waves, RXP, want_c, warm=True)
+    if (cs["prefill_calls"], cs["decode_chunks"]) != (
+            timed["C"][0]["prefill_calls"], timed["C"][0]["decode_chunks"]):
+        fail(f"3f (g): the loops made other calls ({cs})")
+    del sync_c
+    # (b) the schema on (a)'s warm constrained engine: a new grammar
+    run("schema", engs["C"], waves, SCHEMA, new_grammar=True)
+    # (c) half [ab]+, half none: the unconstrained ones are (a)'s
+    mixed = [RXP if i % 2 else None for i in range(len(prompts))]
+    _, _, out = run("mixed", engs["C"], waves, mixed)
+    bad = [i for i, (a, b, s) in enumerate(zip(out[0], want_u[0], mixed))
+           if s is None and not np.array_equal(a, b)]
+    if bad:
+        fail(f"3f (c): unconstrained requests {bad[:8]} differ from the "
+             "unconstrained engine's")
+    # the profiled constrained and unconstrained pipelined decode ticks
+    prof = {a: profile_decode_tick(torch, engs[a], np.random.default_rng(5),
+                                   f"{a}_pipelined", phase="3f",
+                                   constrain=spec_of[a])
+            for a in ("U", "C")}
+    extra, busy = mask_kernels(prof["C"][1], prof["U"][1])
+    line(dict(phase="3f", run="mask_cost_decode_chunk", mask_kernels=extra,
+              mask_device_ms_per_chunk=busy,
+              constrained_tick_wall_s=prof["C"][0],
+              unconstrained_tick_wall_s=prof["U"][0]))
+    replay_ok = {"decode_c": replay_equals_eager(torch, engs["C"], "decode_c",
+                                                 chunk)}
+    del engs
+    torch.cuda.empty_cache()
+
+    # (d) spec on the aligned tree, constrained, against constrained plain
+    aligned = aligned_params(tf, cfg, dev)
+    ref = engine(aligned, pipeline=False)
+    spec_eng = engine(aligned, pipeline=False, spec_decode=True, spec_k=K,
+                      draft="layers:1")
+    for g, name in ((RXP, "ab_plus"), (SCHEMA, "schema")):
+        want = run(f"aligned_plain_{name}", ref, waves, g,
+                   warm=name == "ab_plus")[2]
+        run(f"aligned_spec_{name}", spec_eng, waves, g, want,
+            warm=name == "ab_plus")
+    if spec_eng.counts["decode_chunks"] or spec_eng.spec_k_current != K:
+        fail(f"3f (d): the aligned spec engine left K={K}: {spec_eng.counts}")
+    replay_ok["spec_c"] = replay_equals_eager(torch, spec_eng, "spec_c", K)
+    prof_s = profile_decode_tick(torch, spec_eng, np.random.default_rng(6),
+                                 "spec_constrained", phase="3f",
+                                 constrain=RXP)
+    del ref
+    uspec = engine(aligned, pipeline=False, spec_decode=True, spec_k=K,
+                   draft="layers:1")
+    prof_u = profile_decode_tick(torch, uspec, np.random.default_rng(6),
+                                 "spec_unconstrained", phase="3f")
+    extra, busy = mask_kernels(prof_s[1], prof_u[1])
+    line(dict(phase="3f", run="mask_cost_spec_round", mask_kernels=extra,
+              mask_device_ms_per_round=busy))
+    del spec_eng, uspec, aligned
+    torch.cuda.empty_cache()
+
+    # (e) the paged, chunked and int8-KV paged pools, each pipelined ≡ its
+    # synchronous loop; how many requests differ from contiguous one-shot
+    # 3c's paged waves; its first wave's first 48 requests on the
+    # chunk-256 pool (a pass of the whole wave takes 14 s there)
+    first, again = sync["paged"][0]
+    contiguous = engine()
+    one_shot = [run("paged_contiguous", contiguous, [w], RXP, warm=True)[2][0]
+                for w in (first, again)]
+    del contiguous
+    for name, waves_e, kw, ref_out in (
+            ("paged", [first, again], paged, one_shot),
+            ("chunked", [first[:48]], dict(paged, prefill_chunk=256),
+             [one_shot[0][:48]]),
+            ("int8_paged", [prompts], dict(paged, kv_quantize="int8"), None)):
+        if ref_out is None:
+            ref_out = run("int8_contiguous", engine(kv_quantize="int8",
+                                                    pipeline=False),
+                          waves_e, RXP, warm=True)[2]
+        with CountTwins(fd) as twins:
+            want = run(name, engine(pipeline=False, **kw), waves_e, RXP,
+                       warm=True)[2]
+            _, _, got = run(name, engine(**kw), waves_e, RXP, want,
+                            warm=True)
+        if twins.calls:
+            fail(f"3f (e) {name}: {twins.calls} plain twin calls")
+        bad = differ(got, ref_out)
+        line(dict(phase="3f", run=f"{name}_vs_contiguous",
+                  requests_differing=len(bad),
+                  requests=sum(len(w) for w in waves_e)))
+        # the float pools under [ab]+ equal the contiguous one-shot engine
+        # on this traffic; the int8 pools' prefill paths quantize other
+        # rows (printed)
+        if bad and name != "int8_paged":
+            fail(f"3f (e) {name}: {len(bad)} requests differ from the "
+                 f"contiguous one-shot engine: {bad[:8]}")
+        torch.cuda.empty_cache()
+
+    # (f) sampled under the mask
+    samp = dict(temperature=0.8, top_k=40)
+    want = run("sampled", engine(pipeline=False, **samp), waves, RXP,
+               warm=True)[2]
+    run("sampled", engine(**samp), waves, RXP, want, warm=True)
+    del params
+    torch.cuda.empty_cache()
+    line(dict(phase="3f", run="graphs", replay_equals_eager=replay_ok))
+    if not all(replay_ok.values()):
+        fail(f"3f masked replay differs from the eager program: {replay_ok}")
+    return {k: n for k, n in totals.items() if n}
+
+
+def phase_constrained_bench(torch, dev):
+    """The reference bench's constrained floor config and trace (the
+    module docstring, 3f'): printed, with its in-bench asserts."""
+    from deeplearning4j_tpu_torch.models import transformer as tf
+    from deeplearning4j_tpu_torch.serving.engine import (EngineConfig,
+                                                         InferenceEngine)
+    # the bench's 8 heads of 24 are a head dim no attention kernel of the
+    # port takes (32, 64, 128): 6 heads of 32 keep d_model 192
+    cfg = tf.TransformerConfig(vocab_size=256, d_model=192, n_heads=6,
+                               n_layers=4, max_len=256)
+    params = tf.init_params(cfg, seed=0, device=dev)
+    n_req, slots, new, schema_new = 24, 8, 33, 64
+    r = np.random.default_rng(1)                 # make_trace(seed + 1)
+    events, t = [], 0.0
+    for _ in range(n_req):
+        t += float(r.exponential(0.002))
+        events.append((t, r.integers(0, 256, int(r.integers(8, 49))).astype(
+            np.int32)))
+
+    def replay(eng, constrain, max_new):
+        recs, pending, i = [], [], 0
+        t0 = time.perf_counter()
+        while i < len(events) or pending:
+            now = time.perf_counter() - t0
+            while i < len(events) and events[i][0] <= now:
+                pending.append(eng.submit(events[i][1], max_new_tokens=max_new,
+                                          constrain=constrain))
+                i += 1
+            worked = eng.tick()
+            recs += [h for h in pending if h.done()]
+            pending = [h for h in pending if not h.done()]
+            if not worked and i < len(events):
+                time.sleep(max(0.0, min(0.002, events[i][0]
+                                        - (time.perf_counter() - t0))))
+        elapsed = time.perf_counter() - t0
+        return sum(h.generated.shape[0] for h in recs) / elapsed, recs
+
+    arms = (("unconstrained", None, new), ("constrained_regex", RXP, new),
+            ("constrained_schema", SCHEMA, schema_new))
+    engs = {a: InferenceEngine(cfg, params, EngineConfig(
+        max_batch_size=slots, max_queue=4 * n_req, max_new_tokens=schema_new,
+        degrade_queue_depth=10 ** 6, decode_chunk=8), device=dev)
+        for a, _, _ in arms}
+    for a, c, n in arms:                          # cold: every capture
+        replay(engs[a], c, n)
+    captures = {a: e.counts["graph_captures"] for a, e in engs.items()}
+    best = {a: (0.0, None) for a, _, _ in arms}
+    for rep in range(3):
+        for k in range(len(arms)):
+            a, c, n = arms[(rep + k) % len(arms)]
+            tps, recs = replay(engs[a], c, n)
+            if tps > best[a][0]:
+                best[a] = (tps, recs)
+    for a, e in engs.items():
+        if e.counts["graph_captures"] != captures[a]:
+            fail(f"3f' {a}: a warm replay captured a graph")
+    for h in best["constrained_regex"][1]:
+        if h.generated.shape[0] != new or not set(
+                h.generated.tolist()) <= {97, 98}:
+            fail("3f' regex-constrained tokens illegal or short")
+    for h in best["constrained_schema"][1]:
+        doc = json.loads(bytes(h.generated.tolist()).decode())
+        if not set(doc) <= set(SCHEMA["schema"]["properties"]):
+            fail(f"3f' schema output {doc!r}")
+    if len(best["constrained_schema"][1]) != n_req:
+        fail("3f' schema-valid outputs below 100%")
+    tps = {a: b[0] for a, b in best.items()}
+    line(dict(phase="3f'", config="constrained_decode_4L192d_Ns8",
+              dtype=cfg.dtype, n_heads=cfg.n_heads, reference_n_heads=8,
+              requests=n_req, slots=slots,
+              tokens_per_sec=tps,
+              tokens_per_sec_constrained=tps["constrained_regex"],
+              overhead_ratio=tps["constrained_regex"] / tps["unconstrained"],
+              reference_bench_bar=0.9, schema_valid_pct=100.0,
+              captures=captures))
+    del engs, params
+    torch.cuda.empty_cache()
 
 
 # ---------------------------------------------------------------------------
@@ -3081,6 +3557,7 @@ def main() -> int:
     phase_spec_f32_card_vs_cpu(torch, dev)
     phase_paged_f32_card_vs_cpu(torch, dev)
     phase_quant_f32_card_vs_cpu(torch, dev)
+    phase_constrained_f32_card_vs_cpu(torch, dev)
     measured["lstm_scan"] = phase_lstm_kernel(torch, dev)
     # phases 3-3d run the synchronous loop; 3e the pipelined one (the
     # default) on their traffic, against their results
@@ -3095,7 +3572,10 @@ def main() -> int:
     pipe_launches = phase_pipeline_full_width(
         torch, dev, {"plain": sync_plain, "spec": sync_spec,
                      "int8": sync_int8, **sync_paged})
-    for part in (spec_launches, paged_launches, pipe_launches):
+    c_launches = phase_constrained_full_width(
+        torch, dev, {"plain": sync_plain, **sync_paged})
+    phase_constrained_bench(torch, dev)
+    for part in (spec_launches, paged_launches, pipe_launches, c_launches):
         for name, n in part.items():
             launches[name] = launches.get(name, 0) + n
     phase_train_f32_card_vs_cpu(torch, dev)

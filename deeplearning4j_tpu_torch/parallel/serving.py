@@ -59,8 +59,20 @@ gathers and ``torch.where`` as uint8 views (`quant.core.raw`), bit-exact.
 The reference's programs are functional and the engine rebinds the
 returned pool; here the caches (and pos/tok) are updated IN PLACE and the
 same tensors are returned, which is what the reference's buffer donation
-achieved. The `constrain` variants are not ported (ROADMAP queue A item
-6).
+achieved.
+
+Grammar constraints (reference :430-455): every maker's ``constrain=True``
+variant takes the reference's five operands after its own per-call
+tensors and before the key: ``callow`` [C, V] bool and ``ctrans`` [C, V]
+int32 (the engine's `serving.constrain.ConstraintTable` on the device),
+``cstate`` [Ns] int32 (each slot's DFA state, chained call to call),
+``cseed`` [Ns] bool and ``cseedval`` [Ns] int32 (the host's seat-time
+seeds). Each sampled token is drawn from logits fenced by its slot's
+allow row (`_mask_allow`) and advances the state through ``ctrans``;
+``cstate`` is updated in place and returned as the last output. Row 0
+is all-allow, so an unconstrained slot samples what the maskless
+program samples. The mask is plain elementwise work around the ported
+kernels, which run as they do without it.
 """
 from __future__ import annotations
 
@@ -219,20 +231,50 @@ def _embed_pending(params, cfg: TransformerConfig, pos, tok):
     return (emb + pv)[:, None, :]
 
 
+def _c_start(cstate, cseed, cseedval):
+    """Seed-or-carry (reference :442): slots the host just (re)seated
+    read their seeded DFA state (0: the unconstrained all-allow row);
+    every other slot carries the device-chained state."""
+    return torch.where(cseed, cseedval, cstate)
+
+
+def _mask_allow(logits, allow):
+    """The grammar fence before sampling (reference :449): disallowed
+    entries get NEG_INF (-1e30, the value of the reference's fence too)
+    added, allowed ones 0, both in the logits' dtype, so an all-allow
+    row leaves the logits as they were."""
+    return logits + torch.where(allow, logits.new_zeros(()),
+                                logits.new_full((), NEG_INF))
+
+
+def _advance(ctrans, ds, toks):
+    """The DFA states after ``toks`` [Ns] from states ``ds`` [Ns]; a -1
+    (no token) reads column 0, as the reference's ``maximum(tok, 0)``."""
+    return ctrans[ds.long(), torch.clamp(toks, min=0).long()]
+
+
 def _head_sample(params, cfg: TransformerConfig, h, posidx, key: int,
-                 temperature: float, top_k: int, top_p: float):
+                 temperature: float, top_k: int, top_p: float,
+                 allow=None):
     """Final norm, output head and per-slot sampling of h [Ns, 1, D]: the
-    token generated at sequence index ``posidx`` [Ns]."""
+    token generated at sequence index ``posidx`` [Ns], under the
+    grammar's ``allow`` rows [Ns, V] when given."""
     h = layer_norm(h, params["lnfg"], params["lnfb"], cfg.eps)
     logits = torch.matmul(h[:, 0], params["Wout"].to(h.dtype))
+    if allow is not None:
+        logits = _mask_allow(logits, allow)
     return _sample_slots(logits, posidx, key, temperature, top_k, top_p)
 
 
-def _pool_program(kv_mode, lead: int, body) -> Callable:
+def _pool_program(kv_mode, lead: int, body, constrain: bool = False
+                  ) -> Callable:
     """The program's call from ``body(*lead_args, kv, *rest)``: the pool's
     caches follow the ``lead`` leading arguments (params, and dparams
     for speculative rounds) as (ck, cv), or as (ck, cv, kscale, vscale)
-    with ``kv_mode``; body returns (*kv, ...)."""
+    with ``kv_mode``; body returns (*kv, ...). With ``constrain`` the
+    call ends (..., callow, ctrans, cstate, cseed, cseedval, key): body
+    gets ``c=(callow, ctrans, start states)`` and returns the advanced
+    states last, which land in ``cstate`` in place."""
     n = 2 if kv_mode is None else 4
 
     def run(*args):
@@ -241,7 +283,15 @@ def _pool_program(kv_mode, lead: int, body) -> Callable:
             kind = "quantized" if n == 4 else "float"
             raise TypeError(f"a program of the {kind} KV pool was called "
                             "with another pool")
-        return body(*args[:lead], kv, *args[lead + n:])
+        if not constrain:
+            return body(*args[:lead], kv, *args[lead + n:])
+        *rest, callow, ctrans, cstate, cseed, cseedval, key = \
+            args[lead + n:]
+        *out, ds = body(*args[:lead], kv, *rest, key,
+                        c=(callow, ctrans,
+                           _c_start(cstate, cseed, cseedval)))
+        cstate.copy_(ds)
+        return (*out, cstate)
 
     return run
 
@@ -268,12 +318,15 @@ def init_slot_state(cfg: TransformerConfig, num_slots: int, device,
 def make_continuous_prefill(cfg: TransformerConfig, bucket_len: int,
                             num_slots: int, temperature: float = 0.0,
                             top_k: int = 0, top_p: float = 1.0,
-                            kv_mode=None) -> Callable:
+                            kv_mode=None, constrain: bool = False
+                            ) -> Callable:
     """Slot-pool prefill: (params, ck, cv, pos, tok, prompts [Ns, Tb],
     plen [Ns], key) -> (ck, cv, pos, tok, first [Ns]); with ``kv_mode``
     the pool is (ck, cv, kscale, vscale) and the admitted rows quantize
     on write (reference :706-730). See the module docstring for the
-    admission semantics."""
+    admission semantics; with ``constrain`` an admitted slot's first
+    token samples under its start state's allow row and advances it
+    (reference :594)."""
     _check_slice(cfg)
     _check_sampling(top_k, top_p)
     kv_mode = resolve_mode(kv_mode)
@@ -282,7 +335,7 @@ def make_continuous_prefill(cfg: TransformerConfig, bucket_len: int,
                          f"(0, {cfg.max_len}]")
 
     @torch.no_grad()
-    def body(params, kv, pos, tok, prompts, plen, key: int):
+    def body(params, kv, pos, tok, prompts, plen, key: int, c=None):
         dt = cfg.activation_dtype()
         ns, tb = prompts.shape
         if (ns, tb) != (num_slots, bucket_len):
@@ -301,24 +354,32 @@ def make_continuous_prefill(cfg: TransformerConfig, bucket_len: int,
         rows = torch.arange(ns, device=h.device)
         last = h[rows, torch.clamp(plen - 1, 0, tb - 1).long()]
         logits = torch.matmul(last, params["Wout"].to(last.dtype))
+        if c is not None:
+            logits = _mask_allow(logits, c[0][c[2].long()])
         first = _sample_slots(logits, plen, key, temperature, top_k, top_p)
         pos.copy_(torch.where(admit, plen.to(pos.dtype), pos))
         tok.copy_(torch.where(admit, first, tok))
         first = torch.where(admit, first, torch.full_like(first, -1))
-        return (*kv, pos, tok, first)
+        if c is None:
+            return (*kv, pos, tok, first)
+        return (*kv, pos, tok, first,
+                torch.where(admit, _advance(c[1], c[2], first), c[2]))
 
-    return _pool_program(kv_mode, 1, body)
+    return _pool_program(kv_mode, 1, body, constrain)
 
 
 def make_continuous_decode(cfg: TransformerConfig, chunk: int,
                            num_slots: int, temperature: float = 0.0,
                            top_k: int = 0, top_p: float = 1.0,
-                           kv_mode=None) -> Callable:
+                           kv_mode=None, constrain: bool = False
+                           ) -> Callable:
     """Slot-pool decode chunk: (params, ck, cv, pos, tok, active [Ns]
     bool, rem [Ns] int32, key) -> (ck, cv, pos, tok, toks [Ns, chunk]);
     with ``kv_mode`` the pool is (ck, cv, kscale, vscale) before pos and
     tok, in the arguments and the results (reference :765). See the
-    module docstring for the per-slot semantics."""
+    module docstring for the per-slot semantics; with ``constrain``
+    each step masks by its slot's state and advances it through the
+    token an active slot samples."""
     _check_slice(cfg)
     _check_sampling(top_k, top_p)
     kv_mode = resolve_mode(kv_mode)
@@ -326,43 +387,48 @@ def make_continuous_decode(cfg: TransformerConfig, chunk: int,
         raise ValueError(f"chunk must be >= 1, got {chunk}")
 
     @torch.no_grad()
-    def body(params, kv, pos, tok, active, rem, key: int):
+    def body(params, kv, pos, tok, active, rem, key: int, c=None):
         if pos.shape != (num_slots,):
             raise ValueError(f"pos {tuple(pos.shape)} != program geometry "
                              f"({num_slots},)")
-        rem = rem.clone()
-        neg1 = torch.full_like(tok, -1)
-        emitted = []
-        for _ in range(chunk):
-            act = active & (rem > 0)
-            h = _embed_pending(params, cfg, pos, tok)
-            for layer in range(cfg.n_layers):
-                h = _local_block_decode_slotted(
-                    h, layer_params(params, layer), kv, layer, pos, act,
-                    cfg)
-            nxt = _head_sample(params, cfg, h, pos + 1, key, temperature,
-                               top_k, top_p)
-            tok.copy_(torch.where(act, nxt, tok))
-            emitted.append(torch.where(act, nxt, neg1))
-            pos.copy_(torch.where(act, pos + 1, pos))
-            rem = torch.where(act, rem - 1, rem)
-        return (*kv, pos, tok, torch.stack(emitted, dim=1))
 
-    return _pool_program(kv_mode, 1, body)
+        def block(h, layer, act):
+            return _local_block_decode_slotted(
+                h, layer_params(params, layer), kv, layer, pos, act, cfg)
+
+        return _decode_chunk(params, cfg, chunk, block, kv, pos, tok,
+                             active, rem, key, sampling, c)
+
+    sampling = (temperature, top_k, top_p)
+    return _pool_program(kv_mode, 1, body, constrain)
 
 
-# the program variants this port does not have yet
-_VARIANT_TODO = {
-    "constrain": "grammar-constrained decoding (ROADMAP queue A6)",
-}
-
-
-def _refuse_variants(maker: str, **variants) -> None:
-    for name, value in variants.items():
-        if value:
-            raise NotImplementedError(f"{maker}({name}={value!r}): "
-                                      f"{_VARIANT_TODO[name]} is not "
-                                      f"ported yet")
+def _decode_chunk(params, cfg: TransformerConfig, chunk: int, block, kv,
+                  pos, tok, active, rem, key: int, sampling, c):
+    """The decode chunk of the contiguous and the paged pool: ``chunk``
+    steps of ``block(h, layer, act)`` over every layer, then the
+    sampling of each active slot's next token (masked by its DFA state
+    with a constraint table ``c``, whose states then advance). Returns
+    (*kv, pos, tok, toks [Ns, chunk][, states])."""
+    rem = rem.clone()
+    neg1 = torch.full_like(tok, -1)
+    ds = None if c is None else c[2]
+    emitted = []
+    for _ in range(chunk):
+        act = active & (rem > 0)
+        h = _embed_pending(params, cfg, pos, tok)
+        for layer in range(cfg.n_layers):
+            h = block(h, layer, act)
+        nxt = _head_sample(params, cfg, h, pos + 1, key, *sampling,
+                           allow=None if c is None else c[0][ds.long()])
+        if c is not None:
+            ds = torch.where(act, _advance(c[1], ds, nxt), ds)
+        tok.copy_(torch.where(act, nxt, tok))
+        emitted.append(torch.where(act, nxt, neg1))
+        pos.copy_(torch.where(act, pos + 1, pos))
+        rem = torch.where(act, rem - 1, rem)
+    out = (*kv, pos, tok, torch.stack(emitted, dim=1))
+    return out if c is None else (*out, ds)
 
 
 # ---------------------------------------------------------------------------
@@ -434,23 +500,31 @@ def _chunk_block(h, p, cfg: TransformerConfig, write, view, start):
 
 
 def _chunk_first(params, cfg: TransformerConfig, h, clen, start, pos, tok,
-                 last, key: int, sampling):
+                 last, key: int, sampling, c=None):
     """The end of a prefill chunk: each advancing slot (clen > 0) samples
     the token at index start + clen from its last valid row and moves
     pos there; only slots with ``last`` set commit that token to ``tok``
-    and report it in ``first`` (-1 elsewhere)."""
-    c = h.shape[1]
+    and report it in ``first`` (-1 elsewhere). With a constraint table
+    ``c`` the sample is masked by each slot's start state, and returns
+    (first, states): the committing slots' states advanced through
+    their first token, the rest carried (reference :1139)."""
+    n = h.shape[1]
     h = layer_norm(h, params["lnfg"], params["lnfb"], cfg.eps)
     rows = torch.arange(h.shape[0], device=h.device)
-    lastrow = h[rows, torch.clamp(clen - 1, 0, c - 1).long()]
+    lastrow = h[rows, torch.clamp(clen - 1, 0, n - 1).long()]
     logits = torch.matmul(lastrow, params["Wout"].to(lastrow.dtype))
+    if c is not None:
+        logits = _mask_allow(logits, c[0][c[2].long()])
     plen = start + clen
     first = _sample_slots(logits, plen, key, *sampling)
     adv = clen > 0
     take = adv & last
     pos.copy_(torch.where(adv, plen.to(pos.dtype), pos))
     tok.copy_(torch.where(take, first, tok))
-    return torch.where(take, first, torch.full_like(first, -1))
+    first = torch.where(take, first, torch.full_like(first, -1))
+    if c is None:
+        return first
+    return first, torch.where(take, _advance(c[1], c[2], first), c[2])
 
 
 def _chunk_embed(params, cfg: TransformerConfig, toks, start):
@@ -480,8 +554,9 @@ def make_chunked_prefill(cfg: TransformerConfig, chunk_len: int,
     and pos <- start + clen. Only slots with ``last`` set sample their
     first generated token into ``tok`` and ``first``; mid-prompt chunks
     report -1. start, clen and last are data: one program per
-    (chunk_len, num_slots) serves every resume point."""
-    _refuse_variants("make_chunked_prefill", constrain=constrain)
+    (chunk_len, num_slots) serves every resume point. With ``constrain``
+    only a final chunk's sample is masked into the state
+    (`_chunk_first`)."""
     _check_slice(cfg)
     _check_sampling(top_k, top_p)
     kv_mode = resolve_mode(kv_mode)
@@ -491,9 +566,10 @@ def make_chunked_prefill(cfg: TransformerConfig, chunk_len: int,
     sampling = (temperature, top_k, top_p)
 
     @torch.no_grad()
-    def body(params, kv, pos, tok, toks, clen, start, last, key: int):
-        ns, c = toks.shape
-        if (ns, c) != (num_slots, chunk_len):
+    def body(params, kv, pos, tok, toks, clen, start, last, key: int,
+             c=None):
+        ns, n = toks.shape
+        if (ns, n) != (num_slots, chunk_len):
             raise ValueError(f"toks {tuple(toks.shape)} != program "
                              f"geometry ({num_slots}, {chunk_len})")
         s_max = kv[0].shape[2]
@@ -501,7 +577,7 @@ def make_chunked_prefill(cfg: TransformerConfig, chunk_len: int,
         # the rows this call writes (valid and inside the pool): one
         # index list for every layer, so no pad row ever lands on a row
         # another entry writes
-        valid = torch.arange(c, device=toks.device)[None, :] < clen[:, None]
+        valid = torch.arange(n, device=toks.device)[None, :] < clen[:, None]
         bi, ti = torch.nonzero(valid & (absp < s_max), as_tuple=True)
         pi = absp[bi, ti]
         for layer in range(cfg.n_layers):
@@ -515,10 +591,10 @@ def make_chunked_prefill(cfg: TransformerConfig, chunk_len: int,
             h = _chunk_block(h, layer_params(params, layer), cfg, write,
                              view, start)
         first = _chunk_first(params, cfg, h, clen, start, pos, tok, last,
-                             key, sampling)
-        return (*kv, pos, tok, first)
+                             key, sampling, c)
+        return (*kv, pos, tok, *(first if c is not None else (first,)))
 
-    return _pool_program(kv_mode, 1, body)
+    return _pool_program(kv_mode, 1, body, constrain)
 
 
 # ---------------------------------------------------------------------------
@@ -589,6 +665,81 @@ def _spec_accept_commit(spec_k: int, drafts, tgt, pos, tok, rem, act):
     return pos, tok, rem, emit, c, drafted, accepted
 
 
+def _c_spec_window(spec_k: int, ds0, ctrans, drafts):
+    """The DFA states of the K+1 verify-window rows [Ns, K+1] (reference
+    :2079): entry j is the state after drafts[:, :j] from ds0, walked
+    from the drafts as verified (poisoned or not), so the target's
+    sample at row j is masked by the state the masked sequential decode
+    holds there wherever the row can commit."""
+    sw = [ds0]
+    for j in range(spec_k):
+        sw.append(_advance(ctrans, sw[-1], drafts[:, j]))
+    return torch.stack(sw, dim=1)
+
+
+def _c_spec_final(spec_k: int, swin, ctrans, tgt, c, act, ds0):
+    """The DFA state after a round's commit (reference :2095): the window
+    state at the last committed row advanced by the token committed
+    there; inactive slots keep ds0."""
+    rows = torch.arange(tgt.shape[0], device=tgt.device)
+    j = torch.clamp(c - 1, 0, spec_k).long()
+    return torch.where(act, _advance(ctrans, swin[rows, j], tgt[rows, j]),
+                       ds0)
+
+
+def _spec_round(cfg: TransformerConfig, spec_k: int, draft_phase,
+                verify_phase, pos, tok, active, rem, poison, c):
+    """One speculative round from its two phases (`draft_phase(act, c)`
+    -> drafts [Ns, K]; `verify_phase(act, drafts, allow_w)` -> the
+    target's samples [Ns, K+1]), then the commit; pos and tok are
+    updated in place. With a constraint table ``c`` the drafts are
+    masked by their own walk, each window row by `_c_spec_window`'s
+    state, and the final states (`_c_spec_final`) close the result.
+    Returns (pos, tok, emit, ncommit, drafted, accepted[, states])."""
+    act = active & (rem > 0)
+    drafts = draft_phase(act, c)
+    drafts = torch.where(poison[:, None], (drafts + 1) % cfg.vocab_size,
+                         drafts)
+    swin = allow_w = None
+    if c is not None:
+        swin = _c_spec_window(spec_k, c[2], c[1], drafts)
+        allow_w = c[0][swin.long()]                      # [Ns, K+1, V]
+    tgt = verify_phase(act, drafts, allow_w)
+    npos, ntok, _, emit, nc, drafted, accepted = _spec_accept_commit(
+        spec_k, drafts, tgt, pos, tok, rem, act)
+    pos.copy_(npos)
+    tok.copy_(ntok)
+    out = (pos, tok, emit, nc, drafted, accepted)
+    if c is None:
+        return out
+    return (*out, _c_spec_final(spec_k, swin, c[1], tgt, nc, act, c[2]))
+
+
+def _draft_steps(dparams, cfg: TransformerConfig, spec_k: int, nd: int,
+                 block, pos, tok, act, key: int, sampling, c):
+    """K sequential draft steps through decode's per-slot block
+    ``block(h, layer, dpos, act)`` over the drafter's first ``nd``
+    layers (their K/V rows land in the live cache; verify rewrites
+    them); with a constraint table ``c`` each proposal is masked by the
+    slot's state, which then advances (reference :2146-2186). Returns
+    [Ns, K]."""
+    dpos, dtok = pos, tok
+    ds = None if c is None else c[2]
+    drafts = []
+    for _ in range(spec_k):
+        h = _embed_pending(dparams, cfg, dpos, dtok)
+        for layer in range(nd):
+            h = block(h, layer, dpos, act)
+        nxt = _head_sample(dparams, cfg, h, dpos + 1, key, *sampling,
+                           allow=None if c is None else c[0][ds.long()])
+        if c is not None:
+            ds = torch.where(act, _advance(c[1], ds, nxt), ds)
+        dtok = torch.where(act, nxt, dtok)
+        dpos = torch.where(act, dpos + 1, dpos)
+        drafts.append(nxt)
+    return torch.stack(drafts, dim=1)
+
+
 def make_speculative_decode(cfg: TransformerConfig, spec_k: int,
                             num_slots: int, temperature: float = 0.0,
                             top_k: int = 0, top_p: float = 1.0,
@@ -610,40 +761,22 @@ def make_speculative_decode(cfg: TransformerConfig, spec_k: int,
     rejects them. The caches, pos and tok are updated in place; ``rem``
     is not. See the section comment for the exactness and cache-safety
     arguments. Either tree may be quantized (`quant.model.draft_tree`).
-    The constrained variant is not ported."""
-    _refuse_variants("make_speculative_decode", constrain=constrain)
+    ``constrain`` masks the drafts, the verify window and the commit
+    (`_spec_round`, reference :2105)."""
     _check_slice(cfg)
     _check_sampling(top_k, top_p)
     kv_mode = resolve_mode(kv_mode)
     nd = _check_spec(cfg, spec_k, draft_layers)
     k1 = spec_k + 1
 
-    def sample(p, h, posidx, key):
-        return _head_sample(p, cfg, h, posidx, key, temperature, top_k,
-                            top_p)
+    sampling = (temperature, top_k, top_p)
 
-    def draft_phase(dparams, kv, pos, tok, act, key):
-        """K sequential draft steps through decode's slotted block (their
-        K/V rows land in the live cache; verify rewrites them)."""
-        dpos, dtok = pos, tok
-        drafts = []
-        for _ in range(spec_k):
-            h = _embed_pending(dparams, cfg, dpos, dtok)
-            for layer in range(nd):
-                h = _local_block_decode_slotted(
-                    h, layer_params(dparams, layer), kv, layer, dpos, act,
-                    cfg)
-            nxt = sample(dparams, h, dpos + 1, key)
-            dtok = torch.where(act, nxt, dtok)
-            dpos = torch.where(act, dpos + 1, dpos)
-            drafts.append(nxt)
-        return torch.stack(drafts, dim=1)                # [Ns, K]
-
-    def verify_phase(params, kv, pos, tok, act, drafts, key):
+    def verify_phase(params, kv, pos, tok, act, drafts, key, allow_w):
         """ONE target pass over the window: per layer each window row's
         K/V is written (rows at or past S dropped), then all rows attend
         through the window kernel. Returns the target's samples at the
-        K+1 window positions [Ns, K+1]."""
+        K+1 window positions [Ns, K+1], row t masked by ``allow_w[:, t]``
+        when given."""
         s_max = kv[0].shape[2]
         rows = torch.arange(tok.shape[0], device=tok.device)
         win = torch.cat([tok[:, None], drafts], dim=1)   # [Ns, K+1]
@@ -666,27 +799,34 @@ def make_speculative_decode(cfg: TransformerConfig, spec_k: int,
                                         layer=layer, **sc)  # [Ns, K+1, H, Dh]
             at = a.transpose(0, 1).contiguous()
             hs = [_block_out(hs[t], at[t], p, cfg) for t in range(k1)]
-        return torch.stack([sample(params, hs[t], posw[:, t] + 1, key)
-                            for t in range(k1)], dim=1)
+        return torch.stack([_head_sample(
+            params, cfg, hs[t], posw[:, t] + 1, key, *sampling,
+            allow=None if allow_w is None else allow_w[:, t])
+            for t in range(k1)], dim=1)
 
     @torch.no_grad()
     def body(params, dparams, kv, pos, tok, active, rem, poison,
-             key: int):
+             key: int, c=None):
         if pos.shape != (num_slots,):
             raise ValueError(f"pos {tuple(pos.shape)} != program geometry "
                              f"({num_slots},)")
-        act = active & (rem > 0)
-        drafts = draft_phase(dparams, kv, pos, tok, act, key)
-        drafts = torch.where(poison[:, None],
-                             (drafts + 1) % cfg.vocab_size, drafts)
-        tgt = verify_phase(params, kv, pos, tok, act, drafts, key)
-        npos, ntok, _, emit, c, drafted, accepted = _spec_accept_commit(
-            spec_k, drafts, tgt, pos, tok, rem, act)
-        pos.copy_(npos)
-        tok.copy_(ntok)
-        return (*kv, pos, tok, emit, c, drafted, accepted)
 
-    return _pool_program(kv_mode, 2, body)
+        def block(h, layer, dpos, act):
+            return _local_block_decode_slotted(
+                h, layer_params(dparams, layer), kv, layer, dpos, act, cfg)
+
+        def draft(act, c):
+            return _draft_steps(dparams, cfg, spec_k, nd, block, pos, tok,
+                                act, key, sampling, c)
+
+        def verify(act, drafts, allow_w):
+            return verify_phase(params, kv, pos, tok, act, drafts, key,
+                                allow_w)
+
+        return (*kv, *_spec_round(cfg, spec_k, draft, verify, pos, tok,
+                                  active, rem, poison, c))
+
+    return _pool_program(kv_mode, 2, body, constrain)
 
 
 # ---------------------------------------------------------------------------
@@ -811,8 +951,9 @@ def make_paged_prefill(cfg: TransformerConfig, bucket_len: int,
     page; attention is `_two_piece_attention` over the gathered pages.
     Slots with slen == 0 pass through; the rest move pos to start +
     slen and sample the token there, which ``chunked`` programs commit
-    only where ``last`` is set (mid-prompt chunks report -1)."""
-    _refuse_variants("make_paged_prefill", constrain=constrain)
+    only where ``last`` is set (mid-prompt chunks report -1). With
+    ``constrain`` that token is masked into the state
+    (`_chunk_first`, reference :1592)."""
     _check_paged(cfg, top_k, top_p, page_size, num_pages, max_pages)
     kv_mode = resolve_mode(kv_mode)
     if not 0 < bucket_len <= cfg.max_len:
@@ -822,7 +963,8 @@ def make_paged_prefill(cfg: TransformerConfig, bucket_len: int,
     sampling = (temperature, top_k, top_p)
 
     @torch.no_grad()
-    def body(params, kv, pos, tok, bt, suffix, slen, start, last, key):
+    def body(params, kv, pos, tok, bt, suffix, slen, start, last, key,
+             c=None):
         ns, tb = suffix.shape
         if (ns, tb) != (num_slots, bucket_len) or \
                 tuple(bt.shape) != (num_slots, max_pages):
@@ -841,17 +983,18 @@ def make_paged_prefill(cfg: TransformerConfig, bucket_len: int,
                              lambda layer=layer: _paged_view(
                                  kv, layer, bt, ns, s_view), start)
         first = _chunk_first(params, cfg, h, slen, start, pos, tok, last,
-                             key, sampling)
-        return (*kv, pos, tok, first)
+                             key, sampling, c)
+        return (*kv, pos, tok, *(first if c is not None else (first,)))
 
     if chunked:
-        return _pool_program(kv_mode, 1, body)
+        return _pool_program(kv_mode, 1, body, constrain)
 
-    def one_shot(params, kv, pos, tok, bt, suffix, slen, start, key: int):
+    def one_shot(params, kv, pos, tok, bt, suffix, slen, start, key: int,
+                 c=None):
         return body(params, kv, pos, tok, bt, suffix, slen, start,
-                    torch.ones_like(slen, dtype=torch.bool), key)
+                    torch.ones_like(slen, dtype=torch.bool), key, c)
 
-    return _pool_program(kv_mode, 1, one_shot)
+    return _pool_program(kv_mode, 1, one_shot, constrain)
 
 
 def make_paged_chunked_prefill(cfg: TransformerConfig, chunk_len: int,
@@ -881,39 +1024,31 @@ def make_paged_decode(cfg: TransformerConfig, chunk: int, num_slots: int,
     bt [Ns, max_pages], active [Ns] bool, rem [Ns] int32, key) -> (kp,
     vp, pos, tok, toks [Ns, chunk]). `make_continuous_decode`'s contract
     with K/V rows in block-table pages (`_local_block_decode_paged`); the
-    pool (kp, vp, kscale, vscale) with ``kv_mode``."""
-    _refuse_variants("make_paged_decode", constrain=constrain)
+    pool (kp, vp, kscale, vscale) with ``kv_mode``; ``constrain`` as
+    there."""
     _check_paged(cfg, top_k, top_p, page_size, num_pages, max_pages)
     kv_mode = resolve_mode(kv_mode)
     if chunk < 1:
         raise ValueError(f"chunk must be >= 1, got {chunk}")
 
     @torch.no_grad()
-    def body(params, kv, pos, tok, bt, active, rem, key: int):
+    def body(params, kv, pos, tok, bt, active, rem, key: int, c=None):
         if pos.shape != (num_slots,) or \
                 tuple(bt.shape) != (num_slots, max_pages):
             raise ValueError(f"pos {tuple(pos.shape)} / bt "
                              f"{tuple(bt.shape)} != program geometry "
                              f"({num_slots}, {max_pages})")
-        rem = rem.clone()
-        neg1 = torch.full_like(tok, -1)
-        emitted = []
-        for _ in range(chunk):
-            act = active & (rem > 0)
-            h = _embed_pending(params, cfg, pos, tok)
-            for layer in range(cfg.n_layers):
-                h = _local_block_decode_paged(
-                    h, layer_params(params, layer), kv, bt, layer, pos,
-                    act, cfg, page_size)
-            nxt = _head_sample(params, cfg, h, pos + 1, key, temperature,
-                               top_k, top_p)
-            tok.copy_(torch.where(act, nxt, tok))
-            emitted.append(torch.where(act, nxt, neg1))
-            pos.copy_(torch.where(act, pos + 1, pos))
-            rem = torch.where(act, rem - 1, rem)
-        return (*kv, pos, tok, torch.stack(emitted, dim=1))
 
-    return _pool_program(kv_mode, 1, body)
+        def block(h, layer, act):
+            return _local_block_decode_paged(
+                h, layer_params(params, layer), kv, bt, layer, pos, act,
+                cfg, page_size)
+
+        return _decode_chunk(params, cfg, chunk, block, kv, pos, tok,
+                             active, rem, key, sampling, c)
+
+    sampling = (temperature, top_k, top_p)
+    return _pool_program(kv_mode, 1, body, constrain)
 
 
 def make_paged_speculative_decode(cfg: TransformerConfig, spec_k: int,
@@ -933,34 +1068,16 @@ def make_paged_speculative_decode(cfg: TransformerConfig, spec_k: int,
     window kernel over the gathered view. The engine privatises every
     page the K+1 window can write before the call (copy-on-write). With
     ``kv_mode`` the pool is (kp, vp, kscale, vscale), as
-    `make_speculative_decode` takes it."""
-    _refuse_variants("make_paged_speculative_decode", constrain=constrain)
+    `make_speculative_decode` takes it, and ``constrain`` as there."""
     _check_paged(cfg, top_k, top_p, page_size, num_pages, max_pages)
     kv_mode = resolve_mode(kv_mode)
     nd = _check_spec(cfg, spec_k, draft_layers)
     k1 = spec_k + 1
     s_view = max_pages * page_size
 
-    def sample(p, h, posidx, key):
-        return _head_sample(p, cfg, h, posidx, key, temperature, top_k,
-                            top_p)
+    sampling = (temperature, top_k, top_p)
 
-    def draft_phase(dparams, kv, bt, pos, tok, act, key):
-        dpos, dtok = pos, tok
-        drafts = []
-        for _ in range(spec_k):
-            h = _embed_pending(dparams, cfg, dpos, dtok)
-            for layer in range(nd):
-                h = _local_block_decode_paged(
-                    h, layer_params(dparams, layer), kv, bt, layer, dpos,
-                    act, cfg, page_size)
-            nxt = sample(dparams, h, dpos + 1, key)
-            dtok = torch.where(act, nxt, dtok)
-            dpos = torch.where(act, dpos + 1, dpos)
-            drafts.append(nxt)
-        return torch.stack(drafts, dim=1)                # [Ns, K]
-
-    def verify_phase(params, kv, bt, pos, tok, act, drafts, key):
+    def verify_phase(params, kv, bt, pos, tok, act, drafts, key, allow_w):
         """As the contiguous verify pass: decode's per-row code for each
         window row, the attention batched through the window kernel."""
         ns = tok.shape[0]
@@ -983,26 +1100,34 @@ def make_paged_speculative_decode(cfg: TransformerConfig, spec_k: int,
                                         n_heads=cfg.n_heads, **sc)
             at = a.transpose(0, 1).contiguous()
             hs = [_block_out(hs[t], at[t], p, cfg) for t in range(k1)]
-        return torch.stack([sample(params, hs[t], posw[:, t] + 1, key)
-                            for t in range(k1)], dim=1)
+        return torch.stack([_head_sample(
+            params, cfg, hs[t], posw[:, t] + 1, key, *sampling,
+            allow=None if allow_w is None else allow_w[:, t])
+            for t in range(k1)], dim=1)
 
     @torch.no_grad()
     def body(params, dparams, kv, pos, tok, bt, active, rem, poison,
-             key: int):
+             key: int, c=None):
         if pos.shape != (num_slots,) or \
                 tuple(bt.shape) != (num_slots, max_pages):
             raise ValueError(f"pos {tuple(pos.shape)} / bt "
                              f"{tuple(bt.shape)} != program geometry "
                              f"({num_slots}, {max_pages})")
-        act = active & (rem > 0)
-        drafts = draft_phase(dparams, kv, bt, pos, tok, act, key)
-        drafts = torch.where(poison[:, None],
-                             (drafts + 1) % cfg.vocab_size, drafts)
-        tgt = verify_phase(params, kv, bt, pos, tok, act, drafts, key)
-        npos, ntok, _, emit, c, drafted, accepted = _spec_accept_commit(
-            spec_k, drafts, tgt, pos, tok, rem, act)
-        pos.copy_(npos)
-        tok.copy_(ntok)
-        return (*kv, pos, tok, emit, c, drafted, accepted)
 
-    return _pool_program(kv_mode, 2, body)
+        def block(h, layer, dpos, act):
+            return _local_block_decode_paged(
+                h, layer_params(dparams, layer), kv, bt, layer, dpos, act,
+                cfg, page_size)
+
+        def draft(act, c):
+            return _draft_steps(dparams, cfg, spec_k, nd, block, pos, tok,
+                                act, key, sampling, c)
+
+        def verify(act, drafts, allow_w):
+            return verify_phase(params, kv, bt, pos, tok, act, drafts, key,
+                                allow_w)
+
+        return (*kv, *_spec_round(cfg, spec_k, draft, verify, pos, tok,
+                                  active, rem, poison, c))
+
+    return _pool_program(kv_mode, 2, body, constrain)

@@ -110,8 +110,35 @@ Not ported yet (set to a non-default value, each raises
 NotImplementedError naming its ROADMAP item): batch mode, the background
 worker, retries / circuit breaker / deadlines, KV handoff and adoption,
 the fault injector, the compile cache and warm-up, QoS (so fair-share
-prefill), grammar constraints, and the metrics / recorder / profiler
-stack.
+prefill), and the metrics / recorder / profiler stack.
+
+Grammar-constrained decoding (``submit(..., constrain=regex or spec
+dict)``, reference :1841-1935, :2030-2180): `submit` compiles the
+grammar (`serving.constrain`) outside the lock and reserves its rows in
+the engine's ``[constrain_state_cap, V]`` table; every failure is a
+typed ConstraintError raised there, never mid-decode. The first
+constrained submit switches the engine to the masked programs, which
+have keys of their own (``"decode_c"``, ...), so an engine that never
+sees a constraint makes the programs and graphs it made before; from
+then on every slot rides the masked programs, an unconstrained one on
+the all-allow row 0. Each (re)seat seeds the slot's DFA state, replayed
+on the host from the committed prefix (`_c_state_for`); the device
+chains the state call to call in place (``cstate``, a fixed argument of
+the graphs beside the table, whose tensors `ConstraintTable.device`
+rewrites in place when the grammar set changes). The host walk at the
+commit decides (`_c_advance_commit`): it truncates at a terminal state
+and completes the request there; tokens the device made past it are
+never committed. A finished request releases its table rows.
+``counts`` gains ``constrained_requests``,
+``constrained_rejected_<reason>``, ``constrained_grammar_compiles``,
+``constrained_terminal``, ``constrained_illegal`` (committed tokens the
+host walk refused: 0 unless the mask failed) and
+``constrained_table_rows`` (the reference's ``serving_constrained_*``
+series wait for ROADMAP item 8). In the pipelined loop a grammar's
+terminal is known only at the commit, a tick after its synchronous
+loop knows it, so the slot is refilled a tick later: tokens agree with
+the synchronous loop wherever that does not change a half-precision
+call (see the loop's paragraph above).
 
 Speculative decoding (``EngineConfig(spec_decode=True, spec_k=K,
 draft="int8" | "fp8" | "self" | "layers:N")``, reference :4711-4944; the
@@ -152,6 +179,10 @@ from deeplearning4j_tpu_torch.quant.kv import (paged_pool_bytes,
                                                slot_pool_bytes)
 from deeplearning4j_tpu_torch.quant.model import (draft_tree, param_bytes,
                                                   quantize_params)
+from deeplearning4j_tpu_torch.serving.constrain import (ConstraintError,
+                                                        ConstraintTable,
+                                                        compile_grammar,
+                                                        normalize_constraint)
 from deeplearning4j_tpu_torch.serving.graphs import SlotGraphs
 from deeplearning4j_tpu_torch.serving.paging import (PageAllocator,
                                                      RadixPrefixCache,
@@ -191,8 +222,10 @@ class EngineConfig:
     ``page_size``, ``kv_pages``: total pages with the scratch page, 0 ->
     every slot's full max_len + 1; ``prefix_cache``) and chunked prefill
     (``prefill_chunk``, ``tick_token_budget``) and the pipelined tick loop
-    (``pipeline``). Every other field must keep its default (see
-    `_UNPORTED`, `_check_config`)."""
+    (``pipeline``) and the grammar-constraint table bound
+    (``constrain_state_cap``: rows of the [cap, V] allow / transition
+    table, cap x V x 5 bytes on the device). Every other field must keep
+    its default (see `_UNPORTED`, `_check_config`)."""
     max_queue: int = 64
     max_batch_size: int = 8
     batch_timeout_s: float = 0.005
@@ -257,7 +290,6 @@ _UNPORTED = {
     "tenant_weights": "tenant QoS (ROADMAP queue A6)",
     "qos_default_weight": "tenant QoS (ROADMAP queue A6)",
     "preemption_budget": "tenant QoS (ROADMAP queue A6)",
-    "constrain_state_cap": "grammar constraints (ROADMAP queue A6)",
 }
 
 
@@ -265,10 +297,12 @@ _UNPORTED = {
 # queue A item that ports it (checked before `_UNPORTED`, so the error
 # names the combination)
 _PAGED_CHUNKED_TODO = {
-    "constrain_state_cap": "grammar-constrained paged and chunked "
-                           "programs (ROADMAP queue A item 6)",
     "tenant_weights": "fair-share prefill (ROADMAP queue A item 9)",
 }
+
+# the rejection reasons of a constrained submit the port can raise
+# (the reference's "mode" needs batch mode, which is unported)
+_C_REASONS = ("unsupported", "invalid", "oversize", "empty")
 
 
 def _check_config(config: EngineConfig) -> None:
@@ -313,6 +347,14 @@ class RequestHandle:
         # loop
         self._pending_n = 0
         self._pending_spec = 0
+        # a grammar constraint (reference :647-662): the compiled
+        # grammar, its rows' base in the engine's table, the local DFA
+        # state after the consumed prompt tail, and the host's state
+        # after every committed token, which decides
+        self._grammar = None
+        self._cbase = 0
+        self._cinit = 0
+        self._cstate_host = 0
 
     @property
     def generated(self) -> np.ndarray:
@@ -435,7 +477,13 @@ class InferenceEngine:
                        "prefix_hits": 0, "prefix_misses": 0,
                        "prefix_shared_tokens": 0, "prefix_evictions": 0,
                        "cow_copies": 0, "pages_used": 0, "pages_free": 0,
-                       "shed_overload": 0, "syncs": 0, "pipelined_ticks": 0}
+                       "shed_overload": 0, "syncs": 0, "pipelined_ticks": 0,
+                       "constrained_requests": 0,
+                       **{f"constrained_rejected_{r}": 0
+                          for r in _C_REASONS},
+                       "constrained_grammar_compiles": 0,
+                       "constrained_terminal": 0, "constrained_illegal": 0,
+                       "constrained_table_rows": 0}
         self.seconds = {"prefill": 0.0, "decode": 0.0, "spec": 0.0,
                         "wait": 0.0}
         # the pipelined loop (reference :1345-1375): at most one tick in
@@ -458,6 +506,15 @@ class InferenceEngine:
             self.counts["kv_pool_bytes"] = slot_pool_bytes(
                 cfg, self._num_slots, kv_mode=self._kv_mode)
         self._page_counts()
+        # grammar constraints (reference :1434-1444): the table, the
+        # per-slot DFA states on the device and the seeds of the slots
+        # (re)seated since the last call exist from the first
+        # constrained submit on (`_ensure_constrain`)
+        self._constrain_active = False
+        self._ctab: Optional[ConstraintTable] = None
+        self._cstate: Optional[torch.Tensor] = None
+        self._cseed_pending: Dict[int, int] = {}
+        self._cgrammar_keys: set = set()
         # speculative decoding (reference :1477-1504): the drafter comes
         # from the live params; acceptance drives the adaptive-K
         # controller (`_spec_update`)
@@ -495,13 +552,17 @@ class InferenceEngine:
         return 0 if self._prefix_cache is None else len(self._prefix_cache)
 
     # -- admission -------------------------------------------------------
-    def submit(self, prompt,
-               max_new_tokens: Optional[int] = None) -> RequestHandle:
+    def submit(self, prompt, max_new_tokens: Optional[int] = None,
+               constrain=None) -> RequestHandle:
         """Admit one prompt. Raises OverloadError when the queue is full;
         past ``degrade_queue_depth`` queued requests the token budget is
         capped at ``degraded_max_new_tokens`` (reference :2123-2127). A
         paged engine refuses a request that needs more pages than its
-        pool holds."""
+        pool holds. ``constrain`` (a regex, or a spec dict of
+        `serving.constrain.normalize_constraint`, whose ``consumed``
+        counts prompt-tail tokens the grammar already read) restricts
+        the output to the grammar; a spec that cannot be served raises
+        ConstraintError here (reference :2030-2070, :2145-2180)."""
         prompt = np.asarray(prompt, np.int32)
         if prompt.ndim != 1 or prompt.size == 0:
             raise ValueError("prompt must be a non-empty 1-D token array")
@@ -509,6 +570,16 @@ class InferenceEngine:
             # an out-of-range id would fault the device-side gather
             raise ValueError(f"prompt token ids must be in "
                              f"[0, {self.cfg.vocab_size})")
+        grammar, cstart = None, 0
+        if constrain is not None:
+            # compiled outside the lock: DFA construction is host work
+            # keyed by the grammar's hash
+            try:
+                grammar, cstart = self._compile_constraint(prompt,
+                                                           constrain)
+            except ConstraintError as e:
+                self._c_reject(e)
+                raise
         with self._lock:
             if len(self._queue) >= self.config.max_queue:
                 raise OverloadError(f"queue full ({self.config.max_queue})")
@@ -532,8 +603,104 @@ class InferenceEngine:
                         f"{self._num_pages}, page_size={self._page_size})"
                         " - it could never be admitted")
             handle = RequestHandle(next(self._rids), prompt, eff)
+            if grammar is not None:
+                # the last check: the grammar's rows in the table (a
+                # resubmitted grammar shares them)
+                self._ensure_constrain()
+                try:
+                    handle._cbase = self._ctab.acquire(grammar)
+                except ConstraintError as e:
+                    self._c_reject(e)
+                    raise
+                if grammar.key not in self._cgrammar_keys:
+                    self._cgrammar_keys.add(grammar.key)
+                    self.counts["constrained_grammar_compiles"] += 1
+                self.counts["constrained_requests"] += 1
+                self.counts["constrained_table_rows"] = self._ctab.rows_used
+                handle._grammar = grammar
+                handle._cinit = handle._cstate_host = cstart
             self._queue.append(handle)
         return handle
+
+    # -- grammar constraints (reference :1841-1935) ------------------------
+    def _compile_constraint(self, prompt: np.ndarray, constrain):
+        """(grammar, start state) of a ``constrain`` spec: compiled
+        against the vocabulary under the table bound, with its
+        ``consumed`` prompt tail replayed (which validates it); raises
+        ConstraintError."""
+        spec, consumed = normalize_constraint(constrain)
+        grammar = compile_grammar(
+            spec, int(self.cfg.vocab_size),
+            state_cap=int(self.config.constrain_state_cap))
+        if consumed > int(prompt.size):
+            raise ConstraintError(
+                f"constrain consumed={consumed} exceeds the prompt length "
+                f"{int(prompt.size)}", "invalid")
+        start = grammar.replay(prompt[prompt.size - consumed:]
+                               if consumed else ())
+        if grammar.is_terminal(start):
+            raise ConstraintError(
+                "grammar is already terminal at the start state: it "
+                "would emit zero tokens", "empty")
+        return grammar, int(start)
+
+    def _c_reject(self, e: ConstraintError) -> None:
+        key = f"constrained_rejected_{e.reason}"
+        self.counts[key] = self.counts.get(key, 0) + 1
+
+    def _ensure_constrain(self) -> None:
+        """The first constrained admission: the table, the per-slot DFA
+        states (all row 0) on the device, and the switch to the masked
+        programs for every later call."""
+        if self._constrain_active:
+            return
+        self._ctab = ConstraintTable(int(self.config.constrain_state_cap),
+                                     int(self.cfg.vocab_size))
+        self._cstate = torch.zeros((self._num_slots,), dtype=torch.int32,
+                                   device=self.device)
+        self._constrain_active = True
+
+    def _c_state_for(self, r: RequestHandle) -> int:
+        """The table row a (re)seated request's slot starts from: its
+        committed prefix replayed through the grammar on the host, offset
+        by its rows' base; row 0 (all-allow) for an unconstrained
+        request."""
+        if r._grammar is None:
+            return 0
+        st = r._cinit
+        for t in r.generated.tolist():
+            st = r._grammar.advance(st, int(t))
+        r._cstate_host = st
+        return int(r._cbase) + int(st)
+
+    def _c_advance_commit(self, r: RequestHandle, toks: np.ndarray):
+        """The host's walk of committed tokens through the request's
+        grammar, which decides: returns the tokens up to and with the
+        one reaching a terminal state (or before one the grammar refuses,
+        counted in ``constrained_illegal``: the device's mask makes that
+        impossible), and whether the walk ended terminal."""
+        g, st = r._grammar, r._cstate_host
+        keep, terminal = 0, False
+        for t in toks.tolist():
+            if not g.legal(st, int(t)):
+                self.counts["constrained_illegal"] += 1
+                break
+            st = g.advance(st, int(t))
+            keep += 1
+            if g.is_terminal(st):
+                terminal = True
+                break
+        r._cstate_host = st
+        return toks[:keep], terminal
+
+    def _finish(self, r: RequestHandle, status: str,
+                error: Optional[BaseException] = None) -> None:
+        """The one place a request finishes: its grammar's table rows are
+        released (they stay resident for a resubmit until the table needs
+        the room; reference :2230)."""
+        r._finish(status, error)
+        if r._grammar is not None:
+            self._ctab.release(r._grammar.key)
 
     # -- driving ---------------------------------------------------------
     def run_pending(self) -> int:
@@ -599,6 +766,11 @@ class InferenceEngine:
                         break
                 free.popleft()
                 self._slots[i] = r
+                if self._constrain_active:
+                    # (re)seat (reference :3341-3347): the slot's next
+                    # call starts it from its request's state, whatever
+                    # its last occupant left on the device
+                    self._cseed_pending[i] = self._c_state_for(r)
                 if self._spec:
                     # seat with the pool's current belief (reference
                     # :3348-3353): a stream of fresh admissions must not
@@ -649,40 +821,95 @@ class InferenceEngine:
                "paged_spec": make_paged_speculative_decode}
 
     # the per-tick programs that replay as CUDA graphs on the card
-    # (prefill's programs size their writes from the data: eager)
-    _GRAPHED = ("decode", "paged_decode", "spec", "paged_spec")
+    # (prefill's programs size their writes from the data: eager), and
+    # their masked twins
+    _GRAPHED = ("decode", "paged_decode", "spec", "paged_spec",
+                "decode_c", "paged_decode_c", "spec_c", "paged_spec_c")
 
     def _program(self, kind: str, size: int):
-        """The slot program of ``kind`` (a `_MAKERS` key) at ``size``
-        (bucket or chunk length, decode chunk or K), made once per key.
-        An engine has one pool, so its KV mode is fixed; a quantized
-        weight tree needs no program of its own (it dequantizes at each
-        use)."""
+        """The slot program of ``kind`` (a `_MAKERS` key, or one with
+        ``"_c"`` appended for its masked variant) at ``size`` (bucket or
+        chunk length, decode chunk or K), made once per key. An engine
+        has one pool, so its KV mode is fixed; a quantized weight tree
+        needs no program of its own (it dequantizes at each use)."""
         key = (kind, size)
         fn = self._programs.get(key)
         if fn is None:
             c = self.config
+            base = kind[:-2] if kind.endswith("_c") else kind
             args = (self.cfg, size, self._num_slots)
-            if kind.startswith("paged"):
+            if base.startswith("paged"):
                 args += (self._page_size, self._max_pages, self._num_pages)
             kw = dict(temperature=float(c.temperature), top_k=int(c.top_k),
                       top_p=float(c.top_p), kv_mode=self._kv_mode)
-            if kind.endswith("spec"):
+            if base.endswith("spec"):
                 kw.update(draft_layers=self._draft_layers)
-            fn = self._MAKERS[kind](*args, **kw)
+            fn = self._MAKERS[base](*args, **kw, constrain=base != kind)
+            if base != kind:
+                fn = self._masked(fn, 2 if base.endswith("spec") else 1)
             self._programs[key] = fn
         return fn
+
+    def _masked(self, fn, lead: int):
+        """A masked program in the engine's calling convention,
+        ``(*weights, *pool, cstate, (callow, ctrans), *call tensors,
+        cseed, cseedval, key)`` -> ``(*pool, cstate, *outputs)``: the
+        DFA states and the table ride with the fixed arguments and the
+        states come back with the pool, updated in place, as a captured
+        graph needs them (`serving.graphs`)."""
+        npool = 4 if self._kv_mode is None else 6
+        n = lead + npool
+
+        def run(*args):
+            cstate, (callow, ctrans) = args[n], args[n + 1]
+            *dyn, cseed, cseedval, key = args[n + 2:]
+            out = fn(*args[:n], *dyn, callow, ctrans, cstate, cseed,
+                     cseedval, key)
+            return (*out[:npool], out[-1], *out[npool:-1])
+
+        return run
 
     def _run(self, kind: str, size: int, fixed: tuple, dyn: tuple) -> tuple:
         """``program(*fixed, *dyn, seed)`` for the slot program (kind,
         size): ``fixed`` the weight trees and the pool, ``dyn`` the
         call's tensors. On the card a per-tick program replays its CUDA
-        graph (`serving.graphs`)."""
+        graph (`serving.graphs`). A constraint-active engine runs the
+        masked program instead, with the DFA states and the table added
+        to ``fixed`` and the pending seeds to ``dyn``; the seeds it took
+        retire after the call (`_cmask_begin` / `_cmask_commit`, JAX
+        :1901-1935: a seed recorded since stays for the next call)."""
+        taken = None
+        if self._constrain_active:
+            kind += "_c"
+            fixed += (self._cstate, self._ctab.device(self.device))
+            taken, seeds = self._cmask_begin()
+            dyn += seeds
         fn = self._program(kind, size)
         seed = int(self.config.seed)
         if self._graphs is not None and kind in self._GRAPHED:
-            return self._graphs.call((kind, size), fn, fixed, dyn, seed)
-        return fn(*fixed, *dyn, seed)
+            out = self._graphs.call((kind, size), fn, fixed, dyn, seed)
+        else:
+            out = fn(*fixed, *dyn, seed)
+        if taken is None:
+            return out
+        self._cmask_commit(taken)
+        npool = len(self._slot_state)
+        return (*out[:npool], *out[npool + 1:])
+
+    def _cmask_begin(self):
+        """The pending seeds as one call's (cseed [Ns] bool, cseedval
+        [Ns] int32) on the device, with the {slot: row} they carry."""
+        taken = dict(self._cseed_pending)
+        cseed = np.zeros((self._num_slots,), bool)
+        cseedval = np.zeros((self._num_slots,), np.int32)
+        for i, v in taken.items():
+            cseed[i], cseedval[i] = True, v
+        return taken, (self._tensor(cseed), self._tensor(cseedval))
+
+    def _cmask_commit(self, taken) -> None:
+        for i, v in taken.items():
+            if self._cseed_pending.get(i) == v:
+                del self._cseed_pending[i]
 
     def _tensor(self, a: np.ndarray) -> torch.Tensor:
         """Host data on the device. On the card the copy goes through
@@ -1066,7 +1293,7 @@ class InferenceEngine:
                     self._allocator.decref(q)
                 if not any(self._slot_pages):
                     self.counts["shed_overload"] += 1
-                    r._finish(RequestStatus.SHED, OverloadError(
+                    self._finish(r, RequestStatus.SHED, OverloadError(
                         f"request {r.rid} needs {need} KV pages; the pool "
                         f"cannot free enough "
                         f"({self._allocator.pages_free} free)"))
@@ -1240,7 +1467,8 @@ class InferenceEngine:
                 self.counts["spec_accepted"] += int(accepted[i])
                 need = min(int(nc[i]),
                            r.max_new_tokens - r.generated.shape[0])
-                self._commit_tokens(r, toks[i, :need].astype(np.int32))
+                need = self._commit_tokens(r, toks[i, :need].astype(
+                    np.int32))
             needs.append(need)
         self.counts["spec_committed"] += sum(needs)
         self._spec_update(entries, drafted, accepted)
@@ -1274,11 +1502,21 @@ class InferenceEngine:
         elif pool > 0.8 and k < self._spec_k:
             self._spec_cur_k = min(self._spec_k, k * 2)
 
-    def _commit_tokens(self, r: RequestHandle, toks: np.ndarray) -> None:
-        """The one place generated tokens land on a handle."""
+    def _commit_tokens(self, r: RequestHandle, toks: np.ndarray) -> int:
+        """The one place generated tokens land on a handle; a constrained
+        request's pass the host's grammar walk first, and a terminal
+        state completes it (grammar complete -> EOS, reference
+        :2509-2548). Returns the tokens committed."""
+        terminal = False
+        if r._grammar is not None:
+            toks, terminal = self._c_advance_commit(r, toks)
         r._generated.append(toks)
-        if r.generated.shape[0] >= r.max_new_tokens and not r.done():
-            r._finish(RequestStatus.COMPLETED)
+        if terminal and not r.done():
+            self.counts["constrained_terminal"] += 1
+        if (terminal or r.generated.shape[0] >= r.max_new_tokens) and \
+                not r.done():
+            self._finish(r, RequestStatus.COMPLETED)
+        return int(toks.shape[0])
 
     def _reap(self) -> None:
         """Free the slots whose request has all its tokens: committed,
@@ -1289,7 +1527,8 @@ class InferenceEngine:
         synchronous loop does, tick for tick (the same prefill buckets and chunk plans:
         half-precision pools stay exact). A spec round's commit count is
         known only at its commit, so a spec engine frees there, as the
-        reference does (:3268)."""
+        reference does (:3268); so is a grammar's terminal state, which
+        frees its slot a tick later than the synchronous loop does."""
         with self._lock:
             for i, r in enumerate(self._slots):
                 if r is not None and (

@@ -10,11 +10,17 @@ replayed for every later call.
 What makes a slot program capturable: its geometry is fixed per key; the
 pool (caches, ``pos``, ``tok``) is the engine's persistent slot state,
 updated in place, so its addresses never change; the weight trees are
-fixed; the sampling seed is a Python int. The per-call inputs (``bt``,
-``active``, ``rem``, ``poison``) are copied into static buffers before
-each replay, and the outputs are the graph's static tensors, which the
-caller copies off before the next replay of any graph (the engine
-enqueues those copies right after the replay, on the same stream).
+fixed; the sampling seed is a Python int. A masked program (grammar
+constraints) also holds the per-slot DFA states, a pool tensor updated
+in place, and the constraint table, whose two tensors the table rewrites
+in place when its grammars change, so a graph captured before a grammar
+arrived masks with its rows. The per-call inputs (``bt``, ``active``,
+``rem``, ``poison``, and a masked program's seeds ``cseed``,
+``cseedval``) are copied into static buffers before each replay, on the
+stream the replay then runs on, and the outputs are the graph's static
+tensors, which the caller copies off before the next replay of any
+graph (the engine enqueues those copies right after the replay, on the
+same stream).
 
 Capture: the first call of a key runs eagerly, as the call it is (the
 kernels build and load, cuBLAS sets up); the graph is then captured on a

@@ -9,8 +9,10 @@ engine results token-exact. The port's own contracts (chunked ≡ one-shot
 ≡ `generate`, oldest-first prefill, the stall bound, spec with chunked
 prefill) are copied from tests/test_serving_chunked.py, and the
 configurations the port does not serve yet must raise naming their
-ROADMAP item.
+ROADMAP item; grammar constraints, which once raised with them, serve.
 """
+import functools
+
 import numpy as np
 import pytest
 
@@ -367,7 +369,6 @@ def test_chunked_and_paged_config_errors(tparams, kw, match):
 
 @pytest.mark.parametrize("use", [dict(paged=True), dict(prefill_chunk=8)])
 @pytest.mark.parametrize("field,value,item", [
-    ("constrain_state_cap", 64, "item 6"),
     ("tenant_weights", {"a": 1.0}, "item 9"),
 ])
 def test_unported_combinations_raise(tparams, use, field, value, item):
@@ -379,6 +380,31 @@ def test_unported_combinations_raise(tparams, use, field, value, item):
                              f"ROADMAP queue A {item}"):
         teng.InferenceEngine(TCFG, tparams, teng.EngineConfig(**kw),
                              device="cpu")
+
+
+@pytest.mark.parametrize("use", [dict(paged=True), dict(prefill_chunk=8)])
+def test_constrained_combinations_serve(tparams, use):
+    """Paged KV or chunked prefill with a grammar table (which raised here
+    before grammar constraints were ported) serves constrained and
+    unconstrained requests as the contiguous one-shot engine does, token
+    for token; every constrained token is a digit (this vocabulary's
+    bytes 0-63) and ``[0-9]{1,3}`` stops at 3."""
+    reqs = [(p, spec) for p, spec in zip(
+        _mix(), ("[0-9]{1,3}", None, "[0-9]+", None, "[0-9]{1,3}", None))]
+
+    def run(**kw):
+        eng = _port(tparams, constrain_state_cap=64, **kw)
+        hs = [eng.submit(p, constrain=c) for p, c in reqs]
+        eng.run_pending()
+        return [h.result()[p.shape[0]:] for h, (p, _) in zip(hs, reqs)]
+
+    want = run(prefill_chunk=None)
+    got = run(**{"prefill_chunk": None, **use})
+    for g, w, (_, spec) in zip(got, want, reqs):
+        np.testing.assert_array_equal(g, w)
+        if spec is not None:
+            assert set(g.tolist()) <= set(range(48, 58))
+            assert g.shape[0] == (3 if spec.endswith("}") else 6)
 
 
 @pytest.mark.parametrize("use", [dict(paged=True), dict(prefill_chunk=8)])
@@ -464,10 +490,53 @@ def test_paged_state_on_the_quantized_pool():
     assert tuple(pos.shape) == tuple(tok.shape) == (NS,)
 
 
-@pytest.mark.parametrize("make", [
-    lambda: tsv.make_paged_decode(TCFG, 2, NS, 8, 12, 20, constrain=True),
-    lambda: tsv.make_chunked_prefill(TCFG, 8, NS, constrain=True),
-], ids=["paged_decode_constrain", "chunked_constrain"])
-def test_unported_program_variants_raise(make):
-    with pytest.raises(NotImplementedError, match="ROADMAP queue A"):
-        make()
+@pytest.mark.parametrize("kind", ["paged_decode_constrain",
+                                  "chunked_constrain"])
+def test_constrained_program_variants_serve(tparams, kind):
+    """The paged decode and chunked prefill programs' constrain=True
+    variants (which raised here before they were ported) with every slot
+    on the all-allow row 0 return the unmasked program's outputs and pool
+    bit for bit, and the states stay 0; a slot seeded to a one-token
+    grammar's row can emit only that token."""
+    from deeplearning4j_tpu_torch.serving.constrain import (
+        ConstraintTable, compile_grammar)
+    tab = ConstraintTable(8, FIELDS["vocab_size"])
+    row = tab.acquire(compile_grammar("0", FIELDS["vocab_size"]))
+    callow, ctrans = tab.device("cpu")
+    toks = np.zeros((NS, 8), np.int32)
+    toks[:, :6] = _prompt(6, 9)
+    clen = np.array([6, 6, 6, 0], np.int32)
+    if kind == "chunked_constrain":
+        make = functools.partial(tsv.make_chunked_prefill, TCFG, 8, NS)
+        pool = functools.partial(tsv.init_slot_state, TCFG, NS, "cpu")
+        args = [torch.from_numpy(x) for x in (
+            toks, clen, np.zeros((NS,), np.int32), np.ones((NS,), bool))]
+    else:
+        make = functools.partial(tsv.make_paged_decode, TCFG, 2, NS, 8, 12,
+                                 49)
+        pool = functools.partial(tsv.init_paged_state, TCFG, NS, 8, 49,
+                                 "cpu")
+        bt = (1 + np.arange(NS * 12, dtype=np.int32)).reshape(NS, 12)
+        args = [torch.from_numpy(x) for x in (
+            bt, np.ones((NS,), bool), np.array([2, 2, 1, 0], np.int32))]
+    want_state = pool()
+    want = make()(tparams, *want_state, *args, 0)
+    for seeds, check in ((np.zeros(NS, bool), "row0"),
+                         (np.array([1, 0, 0, 0], bool), "seeded")):
+        state = pool()
+        cstate = torch.zeros(NS, dtype=torch.int32)
+        got = make(constrain=True)(
+            tparams, *state, *args, callow, ctrans, cstate,
+            torch.from_numpy(seeds), torch.full((NS,), row,
+                                                dtype=torch.int32), 0)
+        assert got[-1] is cstate
+        if check == "row0":
+            for g, w in zip(got[:-1], want):
+                assert torch.equal(g, w)
+            assert cstate.tolist() == [0] * NS
+        else:
+            # "0" is byte 48: the seeded slot's first sampled token
+            first = got[len(state)].reshape(NS, -1)[0, 0]
+            assert int(first) == 48 and int(cstate[0]) != row
+            for g, w in zip(got[len(state):-1], want[len(state):]):
+                assert torch.equal(g[1:], w[1:])

@@ -1091,3 +1091,54 @@ def test_slot_program_graph_replay_equals_eager_on_card(requires_cuda, kind,
             assert torch.equal(g, w)
     assert graphs.counts["graph_captures"] == 1
     assert graphs.counts["graph_replays"] == len(calls) - 1
+
+
+@pytest.mark.parametrize("pipeline", [False, True], ids=["sync", "pipelined"])
+@pytest.mark.parametrize("spec", [False, True], ids=["plain", "spec"])
+def test_constrained_engine_new_grammar_replays_on_card(requires_cuda,
+                                                        pipeline, spec):
+    """A warm, graphed bf16 engine (its masked decode chunk or spec round
+    captured under ``[ab]+``) admits two grammars it has not seen, mixed
+    with unconstrained requests: nothing is captured, every committed
+    token is legal, and the table's device tensors are the captured ones,
+    rewritten in place to equal the host table."""
+    from deeplearning4j_tpu_torch.models import transformer as tf
+    from deeplearning4j_tpu_torch.serving.constrain import compile_grammar
+    from deeplearning4j_tpu_torch.serving.engine import (EngineConfig,
+                                                         InferenceEngine)
+    cfg = tf.TransformerConfig(vocab_size=256, d_model=128, n_heads=2,
+                               n_layers=3, max_len=256, dtype="bfloat16")
+    kw = dict(spec_decode=True, spec_k=3, draft="layers:1") if spec else {}
+    params = tf.init_params(cfg, seed=5, device=requires_cuda)
+    eng = InferenceEngine(cfg, params, EngineConfig(
+        num_slots=4, decode_chunk=4, max_new_tokens=24, pipeline=pipeline,
+        **kw), device=requires_cuda)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, 256, size=int(n)).astype(np.int32)
+               for n in rng.integers(5, 40, size=8)]
+    for p in prompts[:4]:
+        eng.submit(p, constrain="[ab]+")
+    eng.run_pending()
+    captured = eng.counts["graph_captures"]
+    dev = eng._ctab.device(eng.device)
+    specs = ["[cd]{2,6}", None, '(x|yz)+', None] * 2
+    hs = [eng.submit(p, constrain=s) for p, s in zip(prompts, specs)]
+    eng.run_pending()
+    assert eng.counts["graph_captures"] == captured and \
+        eng.counts["graph_replays"] > 0
+    again = eng._ctab.device(eng.device)
+    assert again[0] is dev[0] and again[1] is dev[1]
+    assert torch.equal(dev[0].cpu(), torch.from_numpy(eng._ctab.allow))
+    assert torch.equal(dev[1].cpu(), torch.from_numpy(eng._ctab.trans))
+    for h, s in zip(hs, specs):
+        gen = h.result()[h.prompt.shape[0]:]
+        if s is None:
+            assert gen.shape[0] == 24
+            continue
+        g, st = compile_grammar(s, 256), 0
+        for t in gen.tolist():
+            assert g.legal(st, t), (s, st, t)
+            st = g.advance(st, t)
+        # [cd]{2,6} ends terminal; (x|yz)+ runs its whole budget
+        assert g.is_terminal(st) or gen.shape[0] == 24
+    assert eng.counts["constrained_illegal"] == 0 and eng.drained()

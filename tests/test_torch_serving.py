@@ -208,8 +208,9 @@ def test_engine_admission_rules(tparams):
 ])
 def test_unported_engine_options_raise(tparams, field, value):
     # paged KV and chunked prefill are ported; what they do not combine
-    # with yet (here grammar constraints) still raises, naming them
-    extra = ({"constrain_state_cap": 64}
+    # with yet (here tenant QoS's fair-share prefill) still raises,
+    # naming them
+    extra = ({"tenant_weights": {"a": 1.0}}
              if field in ("paged", "prefill_chunk") else {})
     with pytest.raises(NotImplementedError, match="ROADMAP") as e:
         teng.InferenceEngine(TCFG, tparams,

@@ -155,9 +155,42 @@ def test_spec_accept_commit_matches_jax():
 
 
 @pytest.mark.parametrize("kw", [dict(constrain=True)])
-def test_spec_program_unported_variants_raise(kw):
-    with pytest.raises(NotImplementedError, match="ROADMAP queue A"):
-        tsv.make_speculative_decode(TCFG, 4, NS, **kw)
+def test_spec_program_constrained_variant_serves(tparams, kw):
+    """The speculative round's constrain=True variant (which raised here
+    before it was ported), every slot on an all-allow row 0 of a table,
+    commits the unmasked round's tokens and leaves its pool bit for bit,
+    the states staying 0."""
+    from deeplearning4j_tpu_torch.serving.constrain import ConstraintTable
+    callow, ctrans = ConstraintTable(4, FIELDS["vocab_size"]).device("cpu")
+    tb = 16
+    prompts = np.zeros((NS, tb), np.int32)
+    plen = np.zeros((NS,), np.int32)
+    for i, n in enumerate((5, 12, 9, 7, 3)):
+        prompts[i, :n] = _prompt(n, 40 + i)
+        plen[i] = n
+    args = [torch.from_numpy(x) for x in (
+        np.ones(NS, bool), np.array([10, 2, 10, 10, 0], np.int32),
+        np.array([0, 0, 1, 0, 0], bool))]
+    outs = []
+    for constrain in (False, True):
+        state = tsv.init_slot_state(TCFG, NS, "cpu")
+        *state, _ = tsv.make_continuous_prefill(TCFG, tb, NS)(
+            tparams, *state, torch.from_numpy(prompts),
+            torch.from_numpy(plen), 0)
+        fn = tsv.make_speculative_decode(TCFG, 4, NS,
+                                         **(kw if constrain else {}))
+        extra = ()
+        if constrain:
+            cstate = torch.zeros(NS, dtype=torch.int32)
+            extra = (callow, ctrans, cstate, torch.zeros(NS, dtype=bool),
+                     torch.zeros(NS, dtype=torch.int32))
+        out = fn(tparams, tparams, *state, *args, *extra, 0)
+        if constrain:
+            assert out[-1] is cstate and cstate.tolist() == [0] * NS
+            out = out[:-1]
+        outs.append(out)
+    for g, w in zip(*outs):
+        assert torch.equal(g, w)
 
 
 @pytest.mark.parametrize("variant", ["quantized", "kv_mode",

@@ -4,7 +4,8 @@
     python3 chip_smoke.py
 
 Drives the port's serving path (plain, speculative, paged with the
-prefix cache, chunked prefill, grammar-constrained), its train step, the GravesLSTM char-RNN's
+prefix cache, chunked prefill, grammar-constrained, mixture of experts),
+its train step (dense and MoE), the GravesLSTM char-RNN's
 training through MultiLayerNetwork and the two kernel experiments on the
 card and fails (non-zero exit, no result line) if anything is wrong:
 
@@ -119,6 +120,14 @@ card and fails (non-zero exit, no result line) if anything is wrong:
    with its keys among the schema's; spec ≡ plain, paged ≡ chunked ≡
    contiguous ≡ the synchronous loop (terminating grammars, float32);
    launches exact.
+2f. float32 mixture of experts, card vs CPU: phase 2's model with 4
+   experts at capacity 0.5 (every call kind drops tokens) and its 8
+   prompts on the contiguous (both loops), paged (prefix cache, the
+   prompts twice), chunked (32) and constrained (``[ab]+`` on half)
+   engines, and `generate`: the card's greedy tokens equal the CPU's;
+   the CPU runs count the dropped share per call kind (`RouteDrops`,
+   from the routing itself; some must drop); two Adam steps of phase
+   4a's model with these experts, card vs CPU (`adam_close`).
 3. Full width: the 12L / 512d / 8H / V=256 / max_len 2048 bf16 engine with
    64 slots and decode_chunk 8 (phases 3-3d on the synchronous loop,
    `pipeline=False`, their per-tick programs replayed as CUDA graphs as
@@ -234,6 +243,17 @@ card and fails (non-zero exit, no result line) if anything is wrong:
    each and then 3 interleaved warm ones on one engine per arm; its
    in-bench asserts (legal, full budget, schema valid, no capture once
    warm); tokens/s per arm and constrained / unconstrained, printed.
+3g. Full-width mixture of experts: phase 3's config with 8 experts at
+   capacity 1.25 (`MOE_FLAGSHIP`, Switch-style top-1) beside the dense
+   engine on phase 3's traffic, both loops, timed in turns (S P P S);
+   3c's paged waves, its chunk-256 arm on 48 requests, the int8 arm,
+   each synchronous then pipelined; full-width `generate`; eager passes
+   under `RouteDrops` for the dropped share per call kind; a profiled
+   decode tick and admission tick of each model. Gates: pipelined ≡
+   sync everywhere, the eager engine ≡ the graph one, replay ≡ eager,
+   the MoE MLP bit-equal twice, launches exact with no plain attention
+   twin and no SDPA (`CountTwins`), no capture once warm, no page
+   leaked; paged and chunked against contiguous printed.
 4a. float32 training, card vs CPU: 2 layers at 512d / 8 heads, V=256,
    B=2, T=256, remat 'full', three Adam steps of `make_fsdp_train_step`
    from the same params on cuda and on cpu; losses within 1e-4, and the
@@ -247,6 +267,12 @@ card and fails (non-zero exit, no result line) if anything is wrong:
    Launch counters are reset before the timed steps: flash forward must
    run 2 x n_layers times a step (forward and remat recompute), flash
    backward n_layers times. One more step runs under torch.profiler.
+4c. Phase 4b's flagship train step with 8 experts (N = 32768 tokens a
+   call, 5120 places an expert): 5 timed steps, ms a step, tokens/s and
+   the bf16-peak share of the active FLOPs (4b's formula plus the
+   router's 2 D E a layer); losses finite and falling, 2 x L flash
+   forward and L backward launches a step, nothing plain; two forward
+   and backward calls of the MoE MLP at this shape bit-equal.
 5a. The fused LSTM-scan kernel vs its plain twin: the char-RNN's shapes
    (B=1024, T=64, H=200; xw from layer 1's one-hot V=80 input and from
    layer 2's H=200 input) in bf16 and float32, reversed sequences, B=5,
@@ -277,8 +303,10 @@ card and fails (non-zero exit, no result line) if anything is wrong:
    after: 4 packed launches per q512 call, the sweep kernel at every
    non-production geometry. The sweep's bounds stay on the data-sheet
    3.35 TB/s; the measured copy rate's bound is printed beside them.
-7. Summary: one line of the graph replays of every gated run and of
-   the serving device functions' launches in the profiled ticks' traces;
+7. Summary: the MoE phases' launches by kernel (`moe_launches`); one
+   line of the graph replays of every gated run and of the serving
+   device functions' launches in the profiled ticks' traces; the run's
+   wall time, the MoE phases' and the rest's (`wall`);
    one `kernels` JSON line (decode_attention_q and decode_window_q among
    them; `launches` the wrappers' counts, `device_launches_profiled`
    the traces' count of the device function the kernel runs), the
@@ -1936,7 +1964,6 @@ def phase_constrained_full_width(torch, dev, sync):
     3f); ``sync``: phase 3's and 3c's traffic (arm -> (waves, results)).
     Returns the launches by kernel."""
     from deeplearning4j_tpu_torch.models import transformer as tf
-    from deeplearning4j_tpu_torch.ops import flash_decode as fd
     from deeplearning4j_tpu_torch.serving.engine import (EngineConfig,
                                                          InferenceEngine)
     cfg = tf.TransformerConfig(vocab_size=256, d_model=512, n_heads=8,
@@ -2110,7 +2137,7 @@ def phase_constrained_full_width(torch, dev, sync):
             ref_out = run("int8_contiguous", engine(kv_quantize="int8",
                                                     pipeline=False),
                           waves_e, RXP, warm=True)[2]
-        with CountTwins(fd) as twins:
+        with CountTwins() as twins:
             want = run(name, engine(pipeline=False, **kw), waves_e, RXP,
                        warm=True)[2]
             _, _, got = run(name, engine(**kw), waves_e, RXP, want,
@@ -2402,29 +2429,38 @@ def phase_quant_kernels(torch, dev):
 # ---------------------------------------------------------------------------
 
 class CountTwins:
-    """Counts the plain decode / window twins' calls while it is entered:
-    a card path that reached one would count (the port sends only CPU
-    tensors there)."""
+    """Counts, while entered, the calls of every plain attention path a
+    card run must not take: the decode and window twins, the flash
+    forward and backward twins, and torch's scaled_dot_product_attention
+    (the port calls it nowhere; phases time it as a yardstick outside
+    this). The port sends only CPU tensors to the twins."""
 
-    def __init__(self, fd):
-        self.fd, self.calls = fd, 0
+    def __init__(self):
+        import torch.nn.functional as F
+        from deeplearning4j_tpu_torch.ops import flash_attention as fa
+        from deeplearning4j_tpu_torch.ops import flash_decode as fd
+        self.sites = [(fd, "reference_decode_attention"),
+                      (fd, "reference_window_attention"),
+                      (fa, "flash_forward_reference"),
+                      (fa, "flash_backward_reference"),
+                      (F, "scaled_dot_product_attention")]
+        self.calls = 0
 
     def __enter__(self):
-        self.saved = (self.fd.reference_decode_attention,
-                      self.fd.reference_window_attention)
-
-        def wrap(fn):
-            def counted(*a, **k):
-                self.calls += 1
-                return fn(*a, **k)
-            return counted
-        self.fd.reference_decode_attention = wrap(self.saved[0])
-        self.fd.reference_window_attention = wrap(self.saved[1])
+        self.saved = [getattr(m, n) for m, n in self.sites]
+        for (m, n), fn in zip(self.sites, self.saved):
+            setattr(m, n, self._counted(fn))
         return self
 
+    def _counted(self, fn):
+        def counted(*a, **k):
+            self.calls += 1
+            return fn(*a, **k)
+        return counted
+
     def __exit__(self, *exc):
-        (self.fd.reference_decode_attention,
-         self.fd.reference_window_attention) = self.saved
+        for (m, n), fn in zip(self.sites, self.saved):
+            setattr(m, n, fn)
         return False
 
 
@@ -2458,7 +2494,7 @@ def phase_quant_f32_card_vs_cpu(torch, dev):
             num_slots=8, decode_chunk=8, max_new_tokens=16, **kw), device=d)
         for name in QUANT_COUNTERS:
             getattr(fd, name).launches = 0
-        with CountTwins(fd) as twins:
+        with CountTwins() as twins:
             hs = [eng.submit(p) for p in prompts]
             eng.run_pending()
         n = {name: getattr(fd, name).launches for name in QUANT_COUNTERS}
@@ -2512,7 +2548,6 @@ def phase_quant_full_width(torch, dev, plain_out, plain_ms_per_step):
     pool bytes against the bf16 engine's, and one profiled quantized
     decode chunk. Returns the launches by kernel summary name."""
     from deeplearning4j_tpu_torch.models import transformer as tf
-    from deeplearning4j_tpu_torch.ops import flash_decode as fd
     from deeplearning4j_tpu_torch.serving.engine import (EngineConfig,
                                                          InferenceEngine)
     cfg = tf.TransformerConfig(vocab_size=256, d_model=512, n_heads=8,
@@ -2535,7 +2570,7 @@ def phase_quant_full_width(torch, dev, plain_out, plain_ms_per_step):
         zero_launches()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        with CountTwins(fd) as twins:
+        with CountTwins() as twins:
             out, _ = serve_waves(eng, waves)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
@@ -3118,18 +3153,36 @@ def phase_train_f32_card_vs_cpu(torch, dev):
         fail(f"float32 training params differ card vs CPU: {checks}")
 
 
-def phase_train_full_width(torch, dev, timed_steps: int = 5):
+# B, T, L, D, H, V of the flagship train step (4b, 4c)
+FLAGSHIP_TRAIN = (16, 2048, 12, 512, 8, 256)
+
+
+def phase_train_full_width(torch, dev, timed_steps: int = 5,
+                           n_experts: int = 0):
+    """4b, and with ``n_experts`` 4c (the flagship step with that many
+    experts at capacity 1.25; see the module docstring). Returns the
+    launches by kernel."""
     from deeplearning4j_tpu_torch.models import transformer as tf
     from deeplearning4j_tpu_torch.ops import flash_attention as fa
     from deeplearning4j_tpu_torch.ops import flash_decode as fd
     from deeplearning4j_tpu_torch.parallel.fsdp import make_fsdp_train_step
     from deeplearning4j_tpu_torch.parallel.optim import init_adam_state
+    phase = "4c" if n_experts else "4b"
     # benchmarks/flagship.py:70-80, the transformer_lm_12L512d_T2048 row
-    B, T, L, D, H, V = 16, 2048, 12, 512, 8, 256
+    B, T, L, D, H, V, E = (*FLAGSHIP_TRAIN, n_experts)
     cfg = tf.TransformerConfig(vocab_size=V, d_model=D, n_heads=H,
                                n_layers=L, max_len=T, dtype="bfloat16",
-                               remat=True, remat_policy="full")
+                               remat=True, remat_policy="full",
+                               n_experts=E)
     params = tf.init_params(cfg, seed=0, device=dev)
+    rec = dict(phase=phase, config="transformer_lm_12L512d_T2048"
+               + (f", {E} experts" if E else ""))
+    if E:
+        # two forward and backward calls of the MoE MLP at this shape
+        p0 = {k: v[0] for k, v in params["blocks"].items()}
+        rec.update(capacity_factor=cfg.capacity_factor,
+                   moe_mlp_bit_equal=moe_mlp_bit_equal(
+                       torch, tf, p0, cfg, (B, T, D), dev, backward=True))
     opt = init_adam_state(params)
     step = make_fsdp_train_step(cfg, device=dev, learning_rate=1e-3)
     toks = torch.from_numpy(np.random.default_rng(0).integers(
@@ -3142,24 +3195,26 @@ def phase_train_full_width(torch, dev, timed_steps: int = 5):
     fa.flash_backward_cuda.launches = 0
     fd.decode_attention_cuda.launches = 0
     losses = []
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(timed_steps):
-        _, _, loss = step(params, opt, toks, tgts)
-        losses.append(loss)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
+    with CountTwins() as twins:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(timed_steps):
+            _, _, loss = step(params, opt, toks, tgts)
+            losses.append(loss)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
     n_fwd, n_bwd, n_dec = (fa.flash_forward_cuda.launches,
                            fa.flash_backward_cuda.launches,
                            fd.decode_attention_cuda.launches)
     losses = [float(x) for x in losses]
     ms = wall / timed_steps * 1e3
     tok_s = B * T * timed_steps / wall
-    # benchmarks/flagship.py:109-113: train = 3x forward, causal attention
+    # benchmarks/flagship.py:109-113: train = 3x forward, causal attention;
+    # top-1 sends each token through one expert (the dense MLP's FLOPs),
+    # plus the router's 2 D E a layer
     p_mat = L * 12 * D * D + D * V
-    flops_tok = 3 * (2 * p_mat + 2 * L * T * D)
-    rec = dict(phase="4b", config="transformer_lm_12L512d_T2048",
-               batch=B, seq=T, remat="full", timed_steps=timed_steps,
+    flops_tok = 3 * (2 * p_mat + 2 * L * T * D + 2 * L * D * E)
+    rec.update(batch=B, seq=T, remat="full", timed_steps=timed_steps,
                ms_per_step=ms, tokens_per_s=tok_s,
                model_flops_per_token=flops_tok,
                bf16_peak_share=tok_s * flops_tok / PEAK_FLOPS["bfloat16"],
@@ -3168,19 +3223,447 @@ def phase_train_full_width(torch, dev, timed_steps: int = 5):
                flash_fwd_launches=n_fwd, flash_bwd_launches=n_bwd,
                decode_launches=n_dec,
                flash_fwd_per_step=n_fwd / timed_steps,
-               flash_bwd_per_step=n_bwd / timed_steps)
+               flash_bwd_per_step=n_bwd / timed_steps,
+               plain_attention_calls=twins.calls)
     line(rec)
     if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
-        fail(f"training losses {losses}: not finite or not falling")
-    if n_fwd != 2 * L * timed_steps or n_bwd != L * timed_steps or n_dec:
-        fail(f"train launch counts flash_fwd={n_fwd} flash_bwd={n_bwd} "
-             f"decode={n_dec} over {timed_steps} steps, L={L}")
+        fail(f"{phase} training losses {losses}: not finite or not falling")
+    if n_fwd != 2 * L * timed_steps or n_bwd != L * timed_steps or n_dec \
+            or twins.calls:
+        fail(f"{phase} train launch counts flash_fwd={n_fwd} "
+             f"flash_bwd={n_bwd} decode={n_dec} plain={twins.calls} over "
+             f"{timed_steps} steps, L={L}")
+    if not rec.get("moe_mlp_bit_equal", True):
+        fail("4c: two calls of the MoE MLP's forward and backward differ")
     wall, rows, host = profiled(torch,
                                 lambda: step(params, opt, toks, tgts))
-    profile_line(wall, rows, host, phase="4b", run="profiled_train_step")
+    profile_line(wall, rows, host, phase=phase, run="profiled_train_step")
     del params, opt
     torch.cuda.empty_cache()
     return {"flash_fwd": n_fwd, "flash_bwd": n_bwd}
+
+
+# ---------------------------------------------------------------------------
+# phases 2f, 3g and 4c: the mixture-of-experts TransformerLM
+# ---------------------------------------------------------------------------
+
+class RouteDrops:
+    """The tokens every MoE call routes and the ones its capacity drops,
+    by call kind, while entered: each call's routing recomputed from its
+    inputs by `models.transformer.moe_route`. A call on one position a
+    row (h [B, 1, D]) is "decode", any other ``prefill`` (set by the
+    caller to name the prefill path). The MLP is wrapped where the model
+    and the slot programs look it up; a CUDA graph replay runs no Python,
+    so an engine measured here runs eagerly (``eng._graphs = None``)."""
+
+    def __init__(self, prefill: str = "prefill"):
+        self.prefill = prefill
+        self.n = {}
+
+    def __enter__(self):
+        from deeplearning4j_tpu_torch.models import transformer as tf
+        from deeplearning4j_tpu_torch.parallel import serving as sv
+        self.mods, self.saved = (tf, sv), tf.moe_mlp
+
+        def counted(h, p, cfg, valid=None):
+            place, keep = tf.moe_route(h, p, cfg, valid)[3:5]
+            kind = "decode" if h.shape[1] == 1 else self.prefill
+            acc = self.n.setdefault(kind, [0, 0])
+            acc[0] = acc[0] + (place >= 0).sum()
+            acc[1] = acc[1] + (place >= 0).sum() - keep.sum()
+            return self.saved(h, p, cfg, valid=valid)
+
+        for m in self.mods:
+            m.moe_mlp = counted
+        return self
+
+    def __exit__(self, *exc):
+        for m in self.mods:
+            m.moe_mlp = self.saved
+        return False
+
+    def shares(self):
+        """{kind: routed, dropped and the dropped share}."""
+        out = {}
+        for kind, (routed, dropped) in self.n.items():
+            r, d = int(routed), int(dropped)
+            out[kind] = dict(routed=r, dropped=d,
+                             dropped_share=d / r if r else 0.0)
+        return out
+
+
+# phase 2's float32 model with 4 experts at capacity 0.5: a decode step of
+# 8 slots gives each expert max(1, int(0.5 * 8 / 4)) = 1 place
+MOE_F32 = dict(vocab_size=256, d_model=512, n_heads=8, n_layers=2,
+               max_len=2048, dtype="float32", n_experts=4,
+               capacity_factor=0.5)
+
+
+def phase_moe_f32_card_vs_cpu(torch, dev):
+    """2f. Phase 2's 2-layer 512d float32 model with 4 experts at capacity
+    0.5 (drops at every call kind) and its 8 prompts, 16 new tokens, one
+    tree on the card and on the CPU. Arms: contiguous (synchronous and
+    pipelined), paged (page 16, prefix cache, the 8 prompts twice),
+    chunked (prefill_chunk 32) and constrained (half the requests under
+    ``[ab]+``): the card's greedy tokens equal the CPU's in every arm;
+    `generate` (B=8, T0=8, 16 new) the same. The CPU runs count the
+    drops per call kind (`RouteDrops`): some must drop. Then two Adam
+    steps of phase 4a's model with these experts, card vs CPU: losses
+    within 1e-4, parameters by `adam_close`."""
+    from deeplearning4j_tpu_torch.models import transformer as tf
+    from deeplearning4j_tpu_torch.parallel.fsdp import make_fsdp_train_step
+    from deeplearning4j_tpu_torch.parallel.optim import (init_adam_state,
+                                                         tree_leaves)
+    from deeplearning4j_tpu_torch.serving.engine import (EngineConfig,
+                                                         InferenceEngine)
+    cfg = tf.TransformerConfig(**MOE_F32)
+    cpu = torch.device("cpu")
+    rng = np.random.default_rng(1)
+    prompts = [rng.integers(0, 256, size=int(n)).astype(np.int32)
+               for n in rng.integers(8, 65, size=8)]
+    sides = (("card", dev), ("cpu", cpu))
+    params = {k: tf.init_params(cfg, seed=1, device=d) for k, d in sides}
+    base = dict(num_slots=8, decode_chunk=8, max_new_tokens=16)
+    arms = {"contiguous": ({}, [prompts], None),
+            "pipelined": (dict(pipeline=True), [prompts], None),
+            "paged": (dict(paged=True, page_size=16, kv_pages=160),
+                      [prompts, prompts], None),
+            "chunked": (dict(prefill_chunk=32), [prompts], "prefill_chunk"),
+            "constrained": ({}, [prompts], None)}
+    same, drops = {}, {}
+    for name, (kw, waves, kind) in arms.items():
+        outs = {}
+        for side, d in sides:
+            eng = InferenceEngine(cfg, params[side], EngineConfig(
+                **{"pipeline": False, **base, **kw}), device=d)
+            spec = [RXP if i % 2 else None for i in range(len(prompts))] \
+                if name == "constrained" else [None] * len(prompts)
+            with RouteDrops(kind or f"{name}_prefill") as rd:
+                res = []
+                for w in waves:
+                    hs = [eng.submit(p, constrain=s) for p, s in zip(w, spec)]
+                    eng.run_pending()
+                    res += [h.result() for h in hs]
+            outs[side] = res
+            if side == "cpu":
+                drops[name] = rd.shares()
+        if name == "constrained":
+            check_constrained("2f constrained", [
+                (p, s, 16) for p, s in zip(prompts, spec)], outs["card"])
+        same[name] = all(np.array_equal(a, b) for a, b in
+                         zip(outs["card"], outs["cpu"]))
+    batch = np.stack([p[:8] for p in prompts])
+    gen = {}
+    for side, d in sides:
+        with RouteDrops("generate_prefill") as rd:
+            gen[side] = tf.generate(cfg, params[side], torch.from_numpy(
+                batch).to(d), 16, temperature=0.0).cpu()
+        if side == "cpu":
+            drops["generate"] = rd.shares()
+    same["generate"] = torch.equal(gen["card"], gen["cpu"])
+
+    # two Adam steps (phase 4a's model and batch, these experts)
+    tcfg = tf.TransformerConfig(**{**MOE_F32, "max_len": 256, "remat": True,
+                                   "remat_policy": "full"})
+    lr, steps = 1e-3, 2
+    toks = np.random.default_rng(3).integers(0, 256, size=(2, 256))
+    tgts = np.roll(toks, -1, axis=1)
+    runs = {}
+    for side, d in sides:
+        p = tf.init_params(tcfg, seed=2, device=d)
+        opt = init_adam_state(p)
+        step = make_fsdp_train_step(tcfg, device=d, learning_rate=lr)
+        losses = []
+        for _ in range(steps):
+            p, opt, loss = step(p, opt, toks, tgts)
+            losses.append(float(loss))
+        runs[side] = (losses, tree_leaves(p))
+    loss_err = max(abs(a - b) for a, b in zip(runs["card"][0],
+                                              runs["cpu"][0]))
+    checks = [adam_close(a, b, lr, steps, 1e-4)
+              for a, b in zip(runs["card"][1], runs["cpu"][1])]
+    routed_drops = {a: {k: v["dropped"] for k, v in s.items()}
+                    for a, s in drops.items()}
+    line(dict(phase="2f", config="phase 2's f32 model, 4 experts, "
+              "capacity 0.5", requests=len(prompts), new_tokens=16,
+              tokens_equal=same, drops_cpu=drops,
+              train_steps=steps, losses_cuda=runs["card"][0],
+              losses_cpu=runs["cpu"][0], loss_max_abs_err=loss_err,
+              loss_tol=1e-4, param_max_abs_err=max(c[0] for c in checks),
+              param_share_beyond_tol=max(c[1] for c in checks)))
+    bad = [k for k, v in same.items() if not v]
+    if bad:
+        fail(f"2f float32 MoE: card tokens differ from the CPU's in {bad}")
+    if not all(any(v > 0 for v in s.values())
+               for s in routed_drops.values()):
+        fail(f"2f float32 MoE: an arm dropped no token: {routed_drops}")
+    if not loss_err <= 1e-4 or not all(c[2] for c in checks):
+        fail(f"2f float32 MoE training differs card vs CPU: losses "
+             f"{loss_err}, params {checks}")
+
+
+# phase 3's flagship decode config with 8 experts at JAX's default
+# capacity (Switch-style top-1)
+MOE_FLAGSHIP = dict(vocab_size=256, d_model=512, n_heads=8, n_layers=12,
+                    max_len=2048, dtype="bfloat16", n_experts=8,
+                    capacity_factor=1.25)
+
+
+def moe_mlp_bit_equal(torch, tf, p, cfg, shape, dev, backward=False):
+    """Two calls of `moe_mlp` (and, with ``backward``, of its backward)
+    on one seeded bf16 input of ``shape`` and layer weights ``p``:
+    whether outputs (and gradients) are torch.equal."""
+    g = torch.Generator(device="cpu").manual_seed(11)
+    x = torch.randn(shape, generator=g).to(dev, torch.bfloat16)
+    w = torch.randn(shape[-1], generator=g).to(dev, torch.bfloat16)
+    runs = []
+    for _ in range(2):
+        xi = x.clone().requires_grad_(backward)
+        pi = {k: v.detach().clone().requires_grad_(backward)
+              for k, v in p.items() if k in ("router", "We1", "We2")}
+        with torch.set_grad_enabled(backward):
+            y = tf.moe_mlp(xi, pi, cfg)
+            out = [y.detach()]
+            if backward:
+                (y.float() * w.float()).sum().backward()
+                out += [xi.grad] + [pi[k].grad for k in sorted(pi)]
+        runs.append(out)
+    return all(torch.equal(a, b) for a, b in zip(*runs))
+
+
+def phase_moe_full_width(torch, dev, sync):
+    """3g. Phase 3's config with 8 experts at capacity 1.25 (MOE_FLAGSHIP;
+    ``sync``: phase 3's and 3c's traffic, arm -> (waves, results)), 64
+    slots, chunk 8. (a) Phase 3's 128 requests on the MoE and the dense
+    engine, both loops, a warm pass each, then timed passes in turns S P
+    P S (dense then MoE in each turn): tokens/s and ms a step; (b) 3c's
+    paged waves, (c) its chunk-256 paged arm on the first 48 requests of
+    its first wave (3f's cut), (d) int8 weights and KV on phase 3's
+    traffic, each synchronous then pipelined; (e) the share of routed
+    tokens dropped per call kind, from eager passes of (a)-(c) and of
+    `generate` (B=64, T0=64, 128 new) under `RouteDrops`; (f) one
+    profiled pipelined decode tick of each model: device ms, idle share,
+    host launch calls. Gates: pipelined ≡ sync token-exact in every arm;
+    the eager contiguous pass ≡ the graph one; replay ≡ eager for the
+    MoE decode chunk; two calls of the MoE MLP bit-equal at the decode
+    and prefill shapes; launches exact (flash L per one-shot prefill;
+    decode L x 8 a chunk on each profiled trace; generate L flash and
+    L x 127 decode) and no plain twin nor SDPA called; no capture after
+    a warm pass; no page leaked. Paged and chunked against contiguous:
+    printed (prefix hits and chunking rebind the capacity). Returns the
+    launches by kernel."""
+    from deeplearning4j_tpu_torch.models import transformer as tf
+    from deeplearning4j_tpu_torch.serving.engine import (EngineConfig,
+                                                         InferenceEngine)
+    cfg = tf.TransformerConfig(**MOE_FLAGSHIP)
+    dense_cfg = tf.TransformerConfig(**{
+        k: v for k, v in MOE_FLAGSHIP.items()
+        if k not in ("n_experts", "capacity_factor")})
+    L, chunk, new = cfg.n_layers, 8, 64
+    base = dict(num_slots=64, decode_chunk=chunk, max_new_tokens=new,
+                max_queue=256, degrade_queue_depth=1024)
+    paged = dict(paged=True, page_size=16, kv_pages=3072 + 1)
+    trees = {"moe": tf.init_params(cfg, seed=0, device=dev),
+             "dense": tf.TransformerLM(dense_cfg, seed=0, device=dev).params}
+    cfgs = {"moe": cfg, "dense": dense_cfg}
+    prompts = sync["plain"][0][0]                   # phase 3's traffic
+    first, again = sync["paged"][0]                 # 3c's waves
+    totals = {k: 0 for k in launch_counters()}
+
+    def engine(model="moe", **kw):
+        return InferenceEngine(cfgs[model], trees[model],
+                               EngineConfig(**{**base, **kw}), device=dev)
+
+    def differ(out, want):
+        return [(w, i) for w, (got_w, want_w) in enumerate(zip(out, want))
+                for i, (a, b) in enumerate(zip(got_w, want_w))
+                if not np.array_equal(a, b)]
+
+    def run(name, eng, waves, want=None, warm=False):
+        with CountTwins() as plain:
+            out, wall, c, sec, n, worst, keys0 = serve_pass(torch, eng,
+                                                            waves)
+        for k in totals:
+            totals[k] += n[k]
+        where = f"3g {name} pipeline={eng.config.pipeline}"
+        for prompts_w, res in zip(waves, out):
+            for p, r in zip(prompts_w, res):
+                if r.shape != (p.shape[0] + new,) or \
+                        not np.array_equal(r[:p.shape[0]], p) or \
+                        r.min() < 0 or r.max() >= cfg.vocab_size:
+                    fail(f"{where}: bad result of shape {r.shape}")
+        check_launches(eng, c, L, n, where, keys0)
+        bad = differ(out, want) if want is not None else []
+        if plain.calls or bad:
+            fail(f"{where}: {plain.calls} plain attention calls; tokens "
+                 f"differ from the synchronous loop in {bad[:8]} "
+                 f"({len(bad)})")
+        if (not warm and c["graph_captures"]) or (
+                eng.config.pipeline and worst > 1):
+            fail(f"{where}: {c['graph_captures']} captures after warm-up, "
+                 f"{worst} waits in a tick")
+        if not eng.drained() or (eng.config.paged and
+                                 eng.counts["pages_used"]
+                                 != eng.prefix_cache_pages):
+            fail(f"{where}: not drained or pages leaked ({eng.counts})")
+        steps = chunk * c["decode_chunks"]
+        n_req = sum(len(w) for w in waves)
+        rec = dict(phase="3g", arm=name, pipeline=eng.config.pipeline,
+                   warm_pass=warm, requests=n_req, new_tokens=new,
+                   wall_s=wall, tokens_per_s=n_req * new / wall,
+                   syncs=c["syncs"], max_syncs_per_tick=worst,
+                   prefill_calls=c["prefill_calls"],
+                   prefill_chunks=c["prefill_chunks"],
+                   decode_chunks=c["decode_chunks"],
+                   graph_captures=c["graph_captures"],
+                   graph_replays=c["graph_replays"],
+                   prefix_hits=c["prefix_hits"], cow_copies=c["cow_copies"],
+                   launches=n, seconds=sec)
+        if steps:
+            rec["wall_ms_per_decode_step"] = wall / steps * 1e3
+            if not eng.config.pipeline:
+                rec["ms_per_decode_step"] = sec["decode"] / steps * 1e3
+        line(rec)
+        return rec, out
+
+    # (a) phase 3's traffic, MoE and dense, both loops, in turns
+    engs = {(m, p): engine(m, pipeline=p)
+            for m in ("dense", "moe") for p in (False, True)}
+    want = {}
+    for m in ("dense", "moe"):
+        want[m] = run(m, engs[(m, False)], [prompts], warm=True)[1]
+        run(m, engs[(m, True)], [prompts], want[m], warm=True)
+    timed = {}
+    for p in (False, True, True, False):
+        for m in ("dense", "moe"):
+            timed.setdefault((m, p), []).append(
+                run(m, engs[(m, p)], [prompts], want[m])[0])
+
+    def col(m, p, k):
+        return [r[k] for r in timed[(m, p)]]
+
+    line(dict(phase="3g", run="moe_vs_dense_in_turns", order="S P P S",
+              moe_sync_tokens_per_s=col("moe", False, "tokens_per_s"),
+              moe_pipelined_tokens_per_s=col("moe", True, "tokens_per_s"),
+              dense_sync_tokens_per_s=col("dense", False, "tokens_per_s"),
+              dense_pipelined_tokens_per_s=col("dense", True,
+                                               "tokens_per_s"),
+              moe_sync_ms_per_decode_step=col("moe", False,
+                                              "ms_per_decode_step"),
+              dense_sync_ms_per_decode_step=col("dense", False,
+                                                "ms_per_decode_step"),
+              moe_pipelined_wall_ms_per_decode_step=col(
+                  "moe", True, "wall_ms_per_decode_step"),
+              dense_pipelined_wall_ms_per_decode_step=col(
+                  "dense", True, "wall_ms_per_decode_step"),
+              moe_over_dense_sync_tokens_per_s=(
+                  sum(col("moe", False, "tokens_per_s"))
+                  / sum(col("dense", False, "tokens_per_s"))),
+              moe_over_dense_pipelined_tokens_per_s=(
+                  sum(col("moe", True, "tokens_per_s"))
+                  / sum(col("dense", True, "tokens_per_s")))))
+    replay_ok = replay_equals_eager(torch, engs[("moe", True)], "decode",
+                                    chunk)
+    p0 = {k: v[0] for k, v in trees["moe"]["blocks"].items()}
+    bit_equal = {"decode": moe_mlp_bit_equal(torch, tf, p0, cfg,
+                                             (64, 1, cfg.d_model), dev),
+                 "prefill": moe_mlp_bit_equal(torch, tf, p0, cfg,
+                                              (64, 1024, cfg.d_model), dev)}
+    ticks = {}
+    for m in ("dense", "moe"):
+        ticks[m] = profile_decode_tick(torch, engs[(m, True)],
+                                       np.random.default_rng(5), m,
+                                       phase="3g")
+        # an admission tick of the synchronous engine: the one-shot
+        # prefill of phase 3's first 64 prompts (the 1024 bucket) and
+        # one decode chunk
+        eng = engs[(m, False)]
+        hs = [eng.submit(p, max_new_tokens=9) for p in prompts[:64]]
+        c0 = dict(eng.counts)
+        wall, rows, host = profiled(torch, eng.tick)
+        if (eng.counts["prefill_calls"] - c0["prefill_calls"],
+                eng.counts["decode_chunks"] - c0["decode_chunks"]) != (1, 1):
+            fail(f"3g profiled {m} admission tick: {eng.counts}")
+        eng.run_pending()
+        if not all(h.done() for h in hs):
+            fail(f"3g profiled {m} admission tick left requests unanswered")
+        profile_line(wall, rows, host, phase="3g",
+                     run=f"profiled_{m}_admission_tick")
+    busy = {m: sum(us for _, us, _ in rows) / 1e3
+            for m, (_, rows) in ticks.items()}
+    line(dict(phase="3g", run="graphs_and_mlp",
+              replay_equals_eager=replay_ok, moe_mlp_bit_equal=bit_equal,
+              device_ms_a_decode_chunk=busy,
+              moe_minus_dense_device_ms=busy["moe"] - busy["dense"]))
+    if not replay_ok or not all(bit_equal.values()):
+        fail(f"3g: replay ≡ eager {replay_ok}, MoE MLP bit-equal "
+             f"{bit_equal}")
+    del engs
+    torch.cuda.empty_cache()
+
+    # (b)-(d): paged, chunked, int8, each pipelined ≡ synchronous
+    contiguous_first = run("contiguous_first_wave", engine(pipeline=False),
+                           [first], warm=True)[1][0]
+    arms = {"paged": ([first, again], paged),
+            "chunked": ([first[:48]], dict(paged, prefill_chunk=256)),
+            "int8": ([prompts], dict(quantize="int8", kv_quantize="int8"))}
+    results = {}
+    for name, (waves, kw) in arms.items():
+        ref = run(name, engine(pipeline=False, **kw), waves, warm=True)[1]
+        results[name] = run(name, engine(**kw), waves, ref, warm=True)[1]
+        torch.cuda.empty_cache()
+    line(dict(phase="3g", run="paged_and_chunked_vs_contiguous",
+              paged_first_wave_requests_differing=len(differ(
+                  [results["paged"][0]], [contiguous_first])),
+              chunked_requests_differing=len(differ(
+                  results["chunked"], [contiguous_first[:48]])),
+              requests=[len(first), 48]))
+
+    # (e) drops per call kind, from eager passes; generate at full width
+    drops = {}
+    eager = engine(pipeline=False)
+    eager._graphs = None
+    with RouteDrops("prefill") as rd:
+        got = serve_waves(eager, [prompts])[0]
+    drops["contiguous"] = rd.shares()
+    if differ(got, want["moe"]):
+        fail("3g: the eager MoE engine's tokens differ from the graph "
+             "engine's")
+    for name, prefill in (("paged", "paged_prefill"),
+                          ("chunked", "prefill_chunk")):
+        waves, kw = arms[name]
+        eager = engine(pipeline=False, **kw)
+        eager._graphs = None
+        with RouteDrops(prefill) as rd:
+            serve_waves(eager, waves[:1])
+        drops[name] = rd.shares()
+    del eager
+    gb, gt, gnew = 64, 64, 128
+    gprompt = torch.from_numpy(np.random.default_rng(0).integers(
+        0, 256, size=(gb, gt)).astype(np.int32)).to(dev)
+    zero_launches()
+    with RouteDrops("generate_prefill") as rd, CountTwins() as plain:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = tf.generate(cfg, trees["moe"], gprompt, gnew, temperature=0.0)
+        torch.cuda.synchronize()
+        gwall = time.perf_counter() - t0
+    got = read_launches()
+    drops["generate"] = rd.shares()
+    for k in totals:
+        totals[k] += got[k]
+    if tuple(out.shape) != (gb, gt + gnew) or plain.calls or \
+            got["flash_fwd"] != L or got["decode_attention"] != L * (gnew - 1):
+        fail(f"3g generate: shape {tuple(out.shape)}, launches {got}, "
+             f"{plain.calls} plain calls")
+    line(dict(phase="3g", run="generate", batch=gb, prompt=gt,
+              new_tokens=gnew, wall_s=gwall, tokens_per_s=gb * gnew / gwall,
+              flash_launches=got["flash_fwd"],
+              decode_launches=got["decode_attention"]))
+    line(dict(phase="3g", run="dropped_share_by_call_kind", drops=drops))
+    del trees
+    torch.cuda.empty_cache()
+    return {k: n for k, n in totals.items() if n}
 
 
 # ---------------------------------------------------------------------------
@@ -3513,6 +3996,7 @@ def phase_lstm_full_width(torch, dev, epochs=3):
 # ---------------------------------------------------------------------------
 
 def main() -> int:
+    t_run = time.perf_counter()
     try:
         import torch
     except ImportError:
@@ -3558,6 +4042,10 @@ def main() -> int:
     phase_paged_f32_card_vs_cpu(torch, dev)
     phase_quant_f32_card_vs_cpu(torch, dev)
     phase_constrained_f32_card_vs_cpu(torch, dev)
+    new_phases = {}
+    t_new = time.perf_counter()
+    phase_moe_f32_card_vs_cpu(torch, dev)
+    new_phases["2f"] = time.perf_counter() - t_new
     measured["lstm_scan"] = phase_lstm_kernel(torch, dev)
     # phases 3-3d run the synchronous loop; 3e the pipelined one (the
     # default) on their traffic, against their results
@@ -3575,12 +4063,23 @@ def main() -> int:
     c_launches = phase_constrained_full_width(
         torch, dev, {"plain": sync_plain, **sync_paged})
     phase_constrained_bench(torch, dev)
-    for part in (spec_launches, paged_launches, pipe_launches, c_launches):
+    t_new = time.perf_counter()
+    moe_launches = phase_moe_full_width(
+        torch, dev, {"plain": sync_plain, **sync_paged})
+    new_phases["3g"] = time.perf_counter() - t_new
+    for part in (spec_launches, paged_launches, pipe_launches, c_launches,
+                 moe_launches):
         for name, n in part.items():
             launches[name] = launches.get(name, 0) + n
     phase_train_f32_card_vs_cpu(torch, dev)
     for name, n in phase_train_full_width(torch, dev).items():
         launches[name] = launches.get(name, 0) + n
+    t_new = time.perf_counter()
+    moe_train = phase_train_full_width(torch, dev, n_experts=8)
+    new_phases["4c"] = time.perf_counter() - t_new
+    for name, n in moe_train.items():
+        launches[name] = launches.get(name, 0) + n
+    line(dict(run="moe_launches", serving=moe_launches, training=moe_train))
     phase_lstm_f32_card_vs_cpu(torch, dev)
     launches.update(phase_lstm_full_width(torch, dev))
     launches.update(phase_experiments(torch, dev))
@@ -3636,6 +4135,9 @@ def main() -> int:
             library_ms=r["library_ms"],
             device_launches_profiled=(DEVICE_LAUNCHES[label] if label
                                       else None)))
+    wall = time.perf_counter() - t_run
+    line(dict(run="wall", wall_s=wall, moe_phases_s=new_phases,
+              without_moe_phases_s=wall - sum(new_phases.values())))
     print(card, flush=True)
     line({"kernels": kernels})
     line({"ok": True, "device": {"platform": "gpu",

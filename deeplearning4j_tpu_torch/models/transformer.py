@@ -11,6 +11,14 @@ step: the decode kernel), and gradients through the flash backward
 kernel; projections, MLP and output head stay `torch.matmul`, as the
 reference left them to XLA.
 
+Mixture of experts (``n_experts > 0``, reference :136-197): every block's
+MLP is `moe_mlp`, top-1 routed with a capacity of
+``max(1, int(capacity_factor * N / E))`` tokens an expert for the N
+tokens of the call. The reference builds GShard's dense [N, E, C]
+dispatch one-hot; the port computes the same function by index (see
+`moe_mlp`), which at the serving bucket's N = 65536 is the difference
+between a 21 GB tensor and a few index vectors.
+
 Training (reference :200-260, :554-613): `loss_fn` is the dense mean NLL
 over float32 logits, or `chunked_cross_entropy` over V/C vocab panels
 when `xent_chunk` is set. `remat` checkpoints with
@@ -34,8 +42,7 @@ function of (seed, j, the logits at j) only, never of batch placement.
 programs of parallel/serving key by sequence position (reference
 parallel/serving.py:812).
 
-Not on this slice (each raises NotImplementedError naming its ROADMAP
-item): mixture-of-experts MLPs (`n_experts > 0`, `capacity_factor`) and
+Not on this slice (raises NotImplementedError naming its ROADMAP item):
 sequence-parallel attention (`seq_impl`).
 """
 from __future__ import annotations
@@ -58,9 +65,6 @@ Params = Dict[str, Any]
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
            "float64": torch.float64}
-
-_MOE_TODO = "mixture-of-experts MLP is not ported yet (ROADMAP queue A3)"
-
 
 @dataclass(frozen=True)
 class TransformerConfig:
@@ -103,7 +107,6 @@ class TransformerConfig:
 # fields the reference reads only in code this slice does not port; a
 # non-default value raises instead of being silently ignored
 _UNPORTED_FIELDS = {
-    "capacity_factor": (1.25, _MOE_TODO),
     "seq_impl": ("ring", "seq_impl (sequence-parallel attention) is not "
                  "ported yet (ROADMAP queue A12)"),
 }
@@ -113,8 +116,6 @@ def _check_slice(cfg: TransformerConfig) -> None:
     for name, (default, todo) in _UNPORTED_FIELDS.items():
         if getattr(cfg, name) != default:
             raise NotImplementedError(todo)
-    if cfg.n_experts > 0:
-        raise NotImplementedError(_MOE_TODO)
 
 
 # ---------------------------------------------------------------------------
@@ -140,9 +141,14 @@ def init_params(cfg: TransformerConfig, seed: int = 0,
         "Wv": w((L, d, d), d), "Wo": w((L, d, d), d),
         "ln1g": torch.ones(L, d), "ln1b": torch.zeros(L, d),
         "ln2g": torch.ones(L, d), "ln2b": torch.zeros(L, d),
-        "W1": w((L, d, f), d), "b1": torch.zeros(L, f),
-        "W2": w((L, f, d), f), "b2": torch.zeros(L, d),
     }
+    if cfg.n_experts > 0:
+        e = cfg.n_experts
+        blocks.update(router=w((L, d, e), d), We1=w((L, e, d, f), d),
+                      We2=w((L, e, f, d), f))
+    else:
+        blocks.update(W1=w((L, d, f), d), b1=torch.zeros(L, f),
+                      W2=w((L, f, d), f), b2=torch.zeros(L, d))
     params = {
         "embed": torch.randn((v, d), generator=g) * 0.02,
         "pos": torch.randn((cfg.max_len, d), generator=g) * 0.02,
@@ -174,6 +180,78 @@ def dense_mlp(h, p) -> torch.Tensor:
     return torch.matmul(z, p["W2"].to(h.dtype)) + p["b2"].to(h.dtype)
 
 
+def moe_route(h, p, cfg: TransformerConfig,
+              valid: Optional[torch.Tensor] = None):
+    """The top-1 routing of `moe_mlp` for h [B, T, D]: (x [N, D] float32,
+    expert [N], prob [N], place [N], keep [N] bool, cap).
+
+    gates = softmax(x @ router) in float32, each token's expert the first
+    argmax, prob its gate. cap = max(1, int(capacity_factor * N / E)) for
+    the call's N = B*T tokens, pad rows included. A token's place is its
+    rank among the earlier tokens (row-major over [B, T]) that chose its
+    expert; a token whose ``valid`` is False takes no place (-1). A token
+    is kept iff 0 <= place < cap."""
+    b, t, d = h.shape
+    e = cfg.n_experts
+    x = h.reshape(b * t, d).to(torch.float32)
+    n = x.shape[0]
+    gates = torch.softmax(torch.matmul(x, p["router"].to(torch.float32)),
+                          dim=-1)
+    expert = torch.argmax(gates, dim=-1)
+    prob = torch.gather(gates, 1, expert[:, None])[:, 0]
+    cap = max(1, int(cfg.capacity_factor * n / e))
+    # the one-hot as [E, N], so the rank is a scan along each expert's
+    # contiguous row: a scan down the N rows of [N, E] runs one thread a
+    # column, and on an H100 it outlasted the expert products
+    onehot = (torch.arange(e, device=h.device)[:, None]
+              == expert[None, :]).to(torch.int64)
+    if valid is not None:
+        onehot = onehot * valid.reshape(1, n)
+    place = (torch.cumsum(onehot, dim=1) * onehot).sum(dim=0) - 1
+    keep = (place >= 0) & (place < cap)
+    return x, expert, prob, place, keep, cap
+
+
+def moe_mlp(h, p, cfg: TransformerConfig,
+            valid: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Top-1 mixture of experts on h [B, T, D] (reference :170; with
+    ``valid`` [B, T] the slot programs' `_local_moe_mlp`, parallel/
+    serving.py :121, at one data rank): route (`moe_route`), run each
+    kept token through its expert, gelu(x @ We1[e]) @ We2[e] in float32,
+    times its gate; a dropped token gives exactly 0.
+
+    The reference dispatches through a dense [N, E, cap] one-hot; here a
+    kept token's row is copied to row expert * cap + place of an
+    [E * cap + 1, D] buffer (a dropped one to the last row, a spill row
+    no kept token shares), the experts run as two batched products over
+    the [E, cap, D] part, and each token reads its row back times prob
+    (a dropped one reads a zero row). The reference's einsums sum one
+    non-zero term a token, so in float32 both give the same values. All
+    shapes follow from h's and the config (no host wait, no data-sized
+    tensor): the decode chunk captures it in a CUDA graph. The backward
+    is deterministic: every kept row is written and read by one token."""
+    b, t, d = h.shape
+    e = cfg.n_experts
+    x, expert, prob, place, keep, cap = moe_route(h, p, cfg, valid)
+    dest = torch.where(keep, expert * cap + place,
+                       torch.full_like(expert, e * cap))
+    buf = torch.index_copy(x.new_zeros(e * cap + 1, d), 0, dest, x)
+    z = F.gelu(torch.bmm(buf[:e * cap].view(e, cap, d),
+                         p["We1"].to(torch.float32)), approximate="tanh")
+    out = torch.bmm(z, p["We2"].to(torch.float32)).reshape(e * cap, d)
+    out = torch.cat([out, out.new_zeros(1, d)])
+    y = out.index_select(0, dest) * (prob * keep)[:, None]
+    return y.to(h.dtype).reshape(b, t, d)
+
+
+def mlp_fn(cfg: TransformerConfig):
+    """The block's MLP, ``fn(x, p)``: `moe_mlp` when ``n_experts > 0``,
+    else `dense_mlp` (reference :222-223)."""
+    if cfg.n_experts > 0:
+        return functools.partial(moe_mlp, cfg=cfg)
+    return dense_mlp
+
+
 def block_forward(h, p, cfg: TransformerConfig,
                   mask: Optional[torch.Tensor] = None,
                   return_kv: bool = False, remat_mlp: bool = False):
@@ -194,10 +272,11 @@ def block_forward(h, p, cfg: TransformerConfig,
     h = h + torch.matmul(a.reshape(a.shape[0], a.shape[1], d),
                          p["Wo"].to(h.dtype))
     x = layer_norm(h, p["ln2g"], p["ln2b"], cfg.eps)
+    mlp = mlp_fn(cfg)
     if remat_mlp:
-        h = h + checkpoint(dense_mlp, x, p, use_reentrant=False)
+        h = h + checkpoint(mlp, x, p, use_reentrant=False)
     else:
-        h = h + dense_mlp(x, p)
+        h = h + mlp(x, p)
     if return_kv:
         return h, (k, v)
     return h
@@ -355,7 +434,7 @@ def _block_decode(h, p, ck_all, cv_all, layer: int, pos: int,
                          n_heads=cfg.n_heads, layer=layer)  # [B, H, Dh]
     h = h + torch.matmul(a.reshape(a.shape[0], 1, d), p["Wo"].to(h.dtype))
     x = layer_norm(h, p["ln2g"], p["ln2b"], cfg.eps)
-    return h + dense_mlp(x, p)
+    return h + mlp_fn(cfg)(x, p)
 
 
 def decode_step(cfg: TransformerConfig, params: Params, token,

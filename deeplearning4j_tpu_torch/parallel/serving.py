@@ -82,7 +82,7 @@ import torch
 import torch.nn.functional as F
 
 from deeplearning4j_tpu_torch.models.transformer import (
-    TransformerConfig, _check_sampling, _check_slice, layer_params,
+    TransformerConfig, _check_sampling, _check_slice, layer_params, moe_mlp,
     page_pool_shape, sample_at_positions, slot_cache_shape)
 from deeplearning4j_tpu_torch.nn.layers.attention import (
     NEG_INF, dot_product_attention, layer_norm)
@@ -103,20 +103,26 @@ def _sample_slots(logits, posidx, key: int, temperature: float,
                                top_p)
 
 
-def _local_mlp(h, x, p) -> torch.Tensor:
+def _local_mlp(h, x, p, cfg: TransformerConfig, valid=None
+               ) -> torch.Tensor:
     """MLP tail of the slot blocks, in the reference's summation order
-    (h + m + b2, reference :188-191)."""
+    (h + m + b2, reference :188-191), or h + `moe_mlp` with ``n_experts
+    > 0`` (reference :177-187), where ``valid`` [Ns, T] keeps pad and
+    unadmitted rows out of routing (the capacity still counts them)."""
+    if cfg.n_experts > 0:
+        return h + moe_mlp(x, p, cfg, valid=valid)
     z = F.gelu(torch.matmul(x, p["W1"].to(x.dtype)) + p["b1"].to(x.dtype),
                approximate="tanh")
     m = torch.matmul(z, p["W2"].to(z.dtype))
     return h + m + p["b2"].to(h.dtype)
 
 
-def _local_block_prefill(h, p, cfg: TransformerConfig):
+def _local_block_prefill(h, p, cfg: TransformerConfig, valid=None):
     """Block forward over the whole padded prompt pool [Ns, Tb, D];
     returns (h, (k, v)) with k/v flattened to [Ns, Tb, D]. Pad positions
     sit right of every valid one, so causal attention keeps them from
-    touching valid outputs (reference :194)."""
+    touching valid outputs (reference :194); ``valid`` [Ns, Tb] reaches
+    only the MoE routing."""
     x = layer_norm(h, p["ln1g"], p["ln1b"], cfg.eps)
 
     def heads(y):
@@ -129,7 +135,7 @@ def _local_block_prefill(h, p, cfg: TransformerConfig):
     a = a.reshape(a.shape[0], a.shape[1], cfg.d_model)
     h = h + torch.matmul(a, p["Wo"].to(a.dtype))
     x = layer_norm(h, p["ln2g"], p["ln2b"], cfg.eps)
-    h = _local_mlp(h, x, p)
+    h = _local_mlp(h, x, p, cfg, valid)
     kf = k.reshape(k.shape[0], k.shape[1], cfg.d_model)
     vf = v.reshape(v.shape[0], v.shape[1], cfg.d_model)
     return h, (kf, vf)
@@ -153,7 +159,7 @@ def _block_out(h, a, p, cfg: TransformerConfig):
     ns = h.shape[0]
     h = h + torch.matmul(a.reshape(ns, 1, cfg.d_model), p["Wo"].to(h.dtype))
     x = layer_norm(h, p["ln2g"], p["ln2b"], cfg.eps)
-    return _local_mlp(h, x, p)
+    return _local_mlp(h, x, p, cfg)
 
 
 def _pool_mode(cache) -> str:
@@ -344,11 +350,13 @@ def make_continuous_prefill(cfg: TransformerConfig, bucket_len: int,
         admit = plen > 0
         ai = torch.nonzero(admit, as_tuple=True)[0]
         ti = torch.arange(tb, device=prompts.device)
+        # MoE routing skips pad and unadmitted rows (reference :643)
+        valid = (ti[None, :] < plen[:, None]) if cfg.n_experts > 0 else None
         h = (params["embed"].to(dt)[prompts.long()]
              + params["pos"].to(dt)[:tb][None])
         for layer in range(cfg.n_layers):
             h, (k, v) = _local_block_prefill(
-                h, layer_params(params, layer), cfg)
+                h, layer_params(params, layer), cfg, valid)
             _store(kv, layer, (ai[:, None], ti[None, :]), k[ai], v[ai])
         h = layer_norm(h, params["lnfg"], params["lnfb"], cfg.eps)
         rows = torch.arange(ns, device=h.device)
@@ -476,11 +484,13 @@ def _two_piece_attention(q, k, v, kh, vh, start, scale: float,
     return (a1 + a2).to(q.dtype)
 
 
-def _chunk_block(h, p, cfg: TransformerConfig, write, view, start):
+def _chunk_block(h, p, cfg: TransformerConfig, write, view, start,
+                 valid=None):
     """One block over a prefill chunk h [Ns, C, D]: ``write(k, v)``
     stores the chunk's K/V rows [Ns, C, D], then ``view()`` returns the
     slot's cache (k, v) [Ns, S, D], and for a quantized pool its row
-    scales (ks, vs) [Ns, S], for the two-piece attention."""
+    scales (ks, vs) [Ns, S], for the two-piece attention; ``valid``
+    [Ns, C] as `_local_mlp` takes it."""
     ns, c = h.shape[0], h.shape[1]
 
     def heads(y):
@@ -496,7 +506,7 @@ def _chunk_block(h, p, cfg: TransformerConfig, write, view, start):
                              start, cfg.d_head ** -0.5, *scales)
     h = h + torch.matmul(a.reshape(ns, c, cfg.d_model), p["Wo"].to(a.dtype))
     x = layer_norm(h, p["ln2g"], p["ln2b"], cfg.eps)
-    return _local_mlp(h, x, p)
+    return _local_mlp(h, x, p, cfg, valid)
 
 
 def _chunk_first(params, cfg: TransformerConfig, h, clen, start, pos, tok,
@@ -580,6 +590,7 @@ def make_chunked_prefill(cfg: TransformerConfig, chunk_len: int,
         valid = torch.arange(n, device=toks.device)[None, :] < clen[:, None]
         bi, ti = torch.nonzero(valid & (absp < s_max), as_tuple=True)
         pi = absp[bi, ti]
+        mvalid = valid if cfg.n_experts > 0 else None   # reference :1032
         for layer in range(cfg.n_layers):
             def write(k, v, layer=layer):
                 _store(kv, layer, (bi, pi), k[bi, ti], v[bi, ti])
@@ -589,7 +600,7 @@ def make_chunked_prefill(cfg: TransformerConfig, chunk_len: int,
                         *(sc[layer, :, :, 0] for sc in kv[2:]))
 
             h = _chunk_block(h, layer_params(params, layer), cfg, write,
-                             view, start)
+                             view, start, mvalid)
         first = _chunk_first(params, cfg, h, clen, start, pos, tok, last,
                              key, sampling, c)
         return (*kv, pos, tok, *(first if c is not None else (first,)))
@@ -630,10 +641,16 @@ def make_chunked_prefill(cfg: TransformerConfig, chunk_len: int,
 def _check_spec(cfg: TransformerConfig, spec_k: int,
                 draft_layers: int) -> int:
     """Validate a speculative program's geometry; returns the number of
-    draft layers (0 -> every layer). MoE configs never reach here:
-    `_check_slice` refuses them."""
+    draft layers (0 -> every layer). MoE configs raise, as the
+    reference's do (:2035)."""
     if spec_k < 1:
         raise ValueError(f"spec_k must be >= 1, got {spec_k}")
+    if cfg.n_experts > 0:
+        raise ValueError(
+            "speculative decoding does not support MoE configs: the "
+            "expert-capacity cap depends on the tokens-per-call count, "
+            "so a K+1-token verify pass would drop differently than "
+            "sequential decode and break token-exactness")
     nd = draft_layers if draft_layers > 0 else cfg.n_layers
     if not 0 < nd <= cfg.n_layers:
         raise ValueError(f"draft_layers {draft_layers} out of "
@@ -910,6 +927,28 @@ def _page_rows(bt, posm, keep, page_size: int):
     return pg.long(), (posm % page_size).long()
 
 
+def _last_write_wins(kv, pg, off, *rows):
+    """``rows`` (each [*pg.shape, D]) for a write at (pg, off) of the
+    paged pool ``kv``, with every write that shares its target with a
+    later one, in row-major order, carrying that later write's values:
+    duplicate writes then store one value, the last one's, whatever order
+    the device applies them in. Pad rows and inactive slots all write the
+    scratch page 0, which an index write stores in no defined order on
+    the card (or on several CPU threads). An MoE decode routes every
+    slot, so a free slot's hidden state, read from page 0 through its
+    zeroed block table, reaches the active tokens through the experts'
+    capacity; without this its tokens would change from run to run. Each
+    target's winner is a max of write positions, exact on integers."""
+    ps = kv[0].shape[2]
+    t = (pg * ps + off).reshape(-1)
+    pos = torch.arange(t.shape[0], device=t.device)
+    win = torch.full((kv[0].shape[1] * ps,), -1, dtype=pos.dtype,
+                     device=t.device)
+    src = win.scatter_reduce(0, t, pos, "amax")[t]
+    return tuple(r.reshape(t.shape[0], r.shape[-1])[src].reshape(r.shape)
+                 for r in rows)
+
+
 def _local_block_decode_paged(h, p, kv, bt, layer: int, pos, act,
                               cfg: TransformerConfig, page_size: int):
     """`_local_block_decode_slotted` on the paged pool ``kv`` (kp, vp, and
@@ -924,6 +963,8 @@ def _local_block_decode_paged(h, p, kv, bt, layer: int, pos, act,
     s_view = mp * page_size
     wp = torch.clamp(pos, 0, s_view - 1)
     pg, off = _page_rows(bt, wp[:, None], act[:, None], page_size)
+    if cfg.n_experts > 0:
+        k, v = _last_write_wins(kv, pg[:, 0], off[:, 0], k, v)
     _store(kv, layer, (pg[:, 0], off[:, 0]), k, v)
     kh, vh, sc = _attn_kv(_paged_view(kv, layer, bt, ns, s_view))
     a = decode_attention(q, kh, vh, wp, n_heads=cfg.n_heads, **sc)
@@ -975,13 +1016,16 @@ def make_paged_prefill(cfg: TransformerConfig, bucket_len: int,
         valid = torch.arange(tb, device=suffix.device)[None, :] \
             < slen[:, None]
         pg, off = _page_rows(bt, absp, valid, page_size)
+        mvalid = valid if cfg.n_experts > 0 else None   # reference :1499
         for layer in range(cfg.n_layers):
             def write(k, v, layer=layer):
+                if cfg.n_experts > 0:
+                    k, v = _last_write_wins(kv, pg, off, k, v)
                 _store(kv, layer, (pg, off), k, v)
 
             h = _chunk_block(h, layer_params(params, layer), cfg, write,
                              lambda layer=layer: _paged_view(
-                                 kv, layer, bt, ns, s_view), start)
+                                 kv, layer, bt, ns, s_view), start, mvalid)
         first = _chunk_first(params, cfg, h, slen, start, pos, tok, last,
                              key, sampling, c)
         return (*kv, pos, tok, *(first if c is not None else (first,)))

@@ -5,9 +5,10 @@ Port of deeplearning4j_tpu/quant/model.py on one device.
 `quantize_params` turns a float `models.transformer.init_params` tree
 into a drop-in quantized one: the embedding (one scale per token row,
 axis -1), the output projection and the block weights Wq, Wk, Wv, Wo,
-W1, W2 (one scale per output channel, axis -2) become `QuantizedTensor`s;
-layer norms, biases and the positional table stay float. The MoE
-experts' We1 / We2 wait for the MoE MLP (ROADMAP queue A item 7).
+W1, W2, and the MoE experts' We1 [L, E, D, F] / We2 [L, E, F, D] (one
+scale per output channel, axis -2) become `QuantizedTensor`s; layer
+norms, biases, the positional table and the MoE router stay float (the
+router's argmax is the block's one discrete decision).
 
 `quantize_specs` and `shard_quantized_serving_params` have no
 counterpart here: they place a quantized tree on a serving mesh, and one
@@ -32,7 +33,7 @@ from deeplearning4j_tpu_torch.quant.core import (QuantizedTensor,
 # weight name -> quantization axis (reference :43-48)
 _TOP_RULES: Dict[str, int] = {"embed": -1, "Wout": -2}
 _BLOCK_RULES: Dict[str, int] = {"Wq": -2, "Wk": -2, "Wv": -2, "Wo": -2,
-                                "W1": -2, "W2": -2}
+                                "W1": -2, "W2": -2, "We1": -2, "We2": -2}
 
 
 def _device_of(params: Dict[str, Any]):
@@ -42,7 +43,7 @@ def _device_of(params: Dict[str, Any]):
 def quantize_params(params: Dict[str, Any],
                     mode: str = "int8") -> Dict[str, Any]:
     """Quantize a float transformer tree (weights and embedding; norms,
-    biases and pos untouched). ``mode`` resolves against the tree's
+    biases, pos and the MoE router untouched). ``mode`` resolves against the tree's
     device, so "fp8" lands on int8 off a capable card. A leaf that is
     already quantized raises: requantizing would compound the error."""
     m = resolve_mode(mode, _device_of(params))

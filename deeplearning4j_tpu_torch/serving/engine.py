@@ -14,7 +14,10 @@ chunk of ``decode_chunk`` tokens through the slot programs of
 slot frees as soon as its request has its ``max_new_tokens``, and the
 next tick refills it. Sampling draws are keyed by sequence position, so a
 request's tokens do not depend on its slot, its neighbours or the chunk
-size.
+size, except in a mixture-of-experts config (``n_experts > 0``), whose
+experts' capacity is shared by every token of a call, as in the
+reference; an MoE config serves on every pool, and ``spec_decode``
+refuses it (reference :1491).
 
 Paged KV (``EngineConfig(paged=True, page_size=P, kv_pages=N,
 prefix_cache=True)``, reference :3460-4640): slot KV lives in a shared
@@ -520,6 +523,11 @@ class InferenceEngine:
         # controller (`_spec_update`)
         self._spec = bool(self.config.spec_decode)
         if self._spec:
+            if cfg.n_experts > 0:
+                raise ValueError(
+                    "spec_decode does not support MoE configs (the "
+                    "verify pass's token count changes the expert-"
+                    "capacity cap — see parallel/serving.py)")
             self._spec_k = int(self.config.spec_k)
             if self._spec_k < 1:
                 raise ValueError(f"spec_k must be >= 1, got {self._spec_k}")

@@ -327,3 +327,25 @@ def test_constrained_arm_matches_sync(tparams, arm):
             assert set(bytes(toks.tolist())) <= set(b"ab")
             g = compile_grammar(spec, V)
             assert g.accepts(_walk(g, toks))
+
+
+def test_constrained_moe_engine_matches_jax(mesh1):
+    """An MoE config (4 experts, capacity 1.25: a decode step's cap is one
+    token an expert) under the parity traffic's grammars, synchronous
+    loop: the port's tokens equal JAX's, every one legal."""
+    moe = {**FIELDS, "n_experts": 4}
+    jp = jtf.init_params(jtf.TransformerConfig(**moe), jax.random.PRNGKey(0))
+    tp = params_from_numpy(jax.tree_util.tree_map(np.asarray, jp),
+                           device="cpu")
+    want = _serve(jeng.InferenceEngine(
+        jtf.TransformerConfig(**moe), mesh1, jp, jeng.EngineConfig(
+            decode_chunk=2, max_new_tokens=8, backoff_base_s=0.0,
+            pipeline=False)), _traffic())
+    eng = teng.InferenceEngine(
+        ttf.TransformerConfig(**moe), tp, teng.EngineConfig(
+            decode_chunk=2, max_new_tokens=8, pipeline=False), device="cpu")
+    got = _serve(eng, _traffic())
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)
+    assert eng.counts["constrained_requests"] == 3
+    assert eng.counts["constrained_illegal"] == 0

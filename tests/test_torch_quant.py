@@ -9,7 +9,8 @@ e4m3 values bit-equal to ``jnp.asarray(x).astype(jnp.float8_e4m3fn)``
 int8 on the CPU, as the port's does); dequantization bit-equal (one
 float32 multiply, one cast); the scaled decode and window twins within
 1e-5 of JAX's references (the same float32 algebra summed in other
-orders); `max_logit_divergence` within 1e-5 of JAX's on the dense config.
+orders); `max_logit_divergence` within 1e-5 of JAX's on the dense and
+the MoE config.
 """
 import re
 from pathlib import Path
@@ -310,7 +311,8 @@ def test_draft_tree_keeps_the_base_mode(mesh1, jparams, tparams, draft):
 def test_max_logit_divergence_matches_jax(jparams, tparams):
     """The dense config's divergence of the int8 tree from the float one
     equals JAX's within 1e-5, and a quantized tree serves `forward` and
-    `generate` unchanged (the MoE half waits for the MoE MLP)."""
+    `generate` unchanged (the MoE half:
+    `test_moe_max_logit_divergence_matches_jax`)."""
     toks = np.stack([(np.arange(16) * (s + 3)) % FIELDS["vocab_size"]
                      for s in range(4)]).astype(np.int32)
     jdiv = jqm.max_logit_divergence(JCFG, jparams,
@@ -447,3 +449,72 @@ def test_quant_window_group_matches_the_kernel_source():
            / "decode_window.cu").read_text()
     m = re.search(r"constexpr int QGROUP = (\d+);", src)
     assert m and int(m.group(1)) == tdec.DECODE_Q_WINDOW_GROUP
+
+
+# ---------------------------------------------------------------------------
+# mixture of experts
+# ---------------------------------------------------------------------------
+
+MOE = {**FIELDS, "n_experts": 4}
+
+
+@pytest.fixture(scope="module")
+def moe_trees():
+    jp = jtf.init_params(jtf.TransformerConfig(**MOE), jax.random.PRNGKey(0))
+    return jp, params_from_numpy(jax.tree_util.tree_map(np.asarray, jp),
+                                 device="cpu")
+
+
+def test_moe_quantize_params_matches_jax(moe_trees):
+    """An MoE tree: the experts We1 [L, E, D, F] and We2 [L, E, F, D]
+    quantize on axis -2 (scales [L, E, 1, out]), the router stays float;
+    values and scales bit-equal to JAX's, key by key; a layer's slice
+    dequantizes to JAX's dequantized slice; JAX's quantized tree converts
+    to the same bytes."""
+    jp, tp = moe_trees
+    jqp = jqm.quantize_params(jp)
+    tqp = tqm.quantize_params(tp)
+    jl, tl = dict(_leaves(jqp)), dict(_leaves(tqp))
+    assert jl.keys() == tl.keys()
+    quantized = {k for k, v in tl.items() if isinstance(v, tq.QuantizedTensor)}
+    assert quantized == {"embed", "Wout"} | {f"blocks/{n}" for n in (
+        "Wq", "Wk", "Wv", "Wo", "We1", "We2")}
+    for k in quantized:
+        np.testing.assert_array_equal(tl[k].values.numpy(),
+                                      np.asarray(jl[k].values), err_msg=k)
+        np.testing.assert_array_equal(tl[k].scales.numpy(),
+                                      np.asarray(jl[k].scales), err_msg=k)
+    assert tqp["blocks"]["router"] is tp["blocks"]["router"]
+    e, d, f = MOE["n_experts"], MOE["d_model"], 4 * MOE["d_model"]
+    assert tqp["blocks"]["We1"].scales.shape == (2, e, 1, f)
+    assert tqp["blocks"]["We2"].scales.shape == (2, e, 1, d)
+    layer = tqp["blocks"]["We1"][1]
+    assert layer.values.shape == (e, d, f) and layer.scales.shape == (e, 1, f)
+    np.testing.assert_array_equal(
+        layer.to(torch.float32).numpy(),
+        np.asarray(jq.dequantize(jqp["blocks"]["We1"]))[1])
+    conv = params_from_numpy(jax.tree_util.tree_map(np.asarray, jqp),
+                             device="cpu")
+    for n in ("We1", "We2"):
+        assert torch.equal(conv["blocks"][n].values, tqp["blocks"][n].values)
+        assert torch.equal(conv["blocks"][n].scales, tqp["blocks"][n].scales)
+
+
+def test_moe_max_logit_divergence_matches_jax(moe_trees):
+    """The MoE config's divergence of the int8 tree from the float one
+    equals JAX's value within 1e-5, and the int8 MoE tree's greedy
+    `generate` is JAX's token for token."""
+    jp, tp = moe_trees
+    jcfg, tcfg = jtf.TransformerConfig(**MOE), ttf.TransformerConfig(**MOE)
+    toks = np.stack([(np.arange(16) * (s + 3)) % FIELDS["vocab_size"]
+                     for s in range(4)]).astype(np.int32)
+    jqp = jqm.quantize_params(jp)
+    jdiv = jqm.max_logit_divergence(jcfg, jp, jqp, jnp.asarray(toks))
+    tqp = tqm.quantize_params(tp)
+    tdiv = tqm.max_logit_divergence(tcfg, tp, tqp, toks)
+    assert abs(tdiv - jdiv) <= 1e-5, (tdiv, jdiv)
+    out = ttf.generate(tcfg, tqp, torch.from_numpy(toks[:2, :8]), 6,
+                       temperature=0.0)
+    want = jtf.generate(jcfg, jqp, jnp.asarray(toks[:2, :8]), 6,
+                        jax.random.PRNGKey(0), temperature=0.0)
+    np.testing.assert_array_equal(out.numpy(), np.asarray(want))

@@ -284,3 +284,62 @@ def test_transformer_lm_loss_is_loss_fn():
     want = ttf.loss_fn(lm.cfg, lm.params, torch.from_numpy(toks),
                        torch.from_numpy(tgts))
     assert lm.loss(toks, tgts) == pytest.approx(float(want), abs=0)
+
+
+# ---------------------------------------------------------------------------
+# mixture of experts
+# ---------------------------------------------------------------------------
+
+# 4 experts at capacity 0.75: a call's B*T = 64 tokens give each expert
+# int(0.75 * 64 / 4) = 12 places, so tokens drop
+MOE = {**FIELDS, "n_experts": 4, "capacity_factor": 0.75}
+
+
+@pytest.fixture(scope="module")
+def moe_jparams():
+    return jtf.init_params(jtf.TransformerConfig(**MOE),
+                           jax.random.PRNGKey(0))
+
+
+@pytest.mark.parametrize("policy", [None, "full", "dots", "mlp"],
+                         ids=["none", "full", "dots", "mlp"])
+def test_moe_loss_and_gradients_match_jax(moe_jparams, policy):
+    """An MoE config's loss and every gradient leaf (the router's reached
+    only through each kept token's gate) against jax.value_and_grad, with
+    each remat policy; 1e-5."""
+    fields = dict(MOE, **({"remat": True, "remat_policy": policy}
+                          if policy else {}))
+    toks, tgts = _batch(9)
+    want_l, want_g = _jax_value_and_grad(jtf.TransformerConfig(**fields),
+                                         moe_jparams, toks, tgts)
+    got_l, got_g = _port_value_and_grad(
+        ttf.TransformerConfig(**fields),
+        jax.tree_util.tree_map(np.asarray, moe_jparams), toks, tgts)
+    assert abs(got_l - want_l) <= 1e-5
+    _assert_grads(got_g, want_g, F32)
+    assert np.abs(got_g["blocks/router"]).max() > 0
+
+
+def test_moe_two_adam_steps_match_jax(moe_jparams):
+    """Two steps of the port's train step against JAX's on an MoE
+    config (remat 'full'): losses within 1e-5, parameters by
+    `_assert_adam_close`."""
+    cfg_f = {**MOE, "remat": True}
+    jstep = jfsdp.make_fsdp_train_step(jtf.TransformerConfig(**cfg_f),
+                                       make_mesh(MeshSpec()))
+    step = make_fsdp_train_step(ttf.TransformerConfig(**cfg_f),
+                                device="cpu")
+    toks, tgts = _batch(10)
+    jt, jy = jnp.asarray(toks), jnp.asarray(tgts)
+    jp = jax.tree_util.tree_map(jnp.array, moe_jparams)
+    jopt = joptim.init_adam_state(jp)
+    params = params_from_numpy(
+        jax.tree_util.tree_map(np.asarray, moe_jparams), device="cpu")
+    opt = toptim.init_adam_state(params)
+    for _ in range(2):
+        jp, jopt, jloss = jstep(jp, jopt, jt, jy)
+        params, opt, loss = step(params, opt, toks, tgts)
+        assert abs(float(loss) - float(jloss)) <= 1e-5
+    want = dict(_flat(jax.tree_util.tree_map(np.asarray, jp)))
+    for k, t in _flat(params):
+        _assert_adam_close(t.numpy(), want[k], 1e-3, 2, k)

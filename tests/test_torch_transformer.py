@@ -164,22 +164,58 @@ def test_sample_at_positions_depends_only_on_seed_index_logits():
 
 
 def test_unported_model_options_raise():
-    moe = ttf.TransformerConfig(**{**FIELDS, "n_experts": 2})
-    with pytest.raises(NotImplementedError, match="A3"):
-        ttf.init_params(moe, device="cpu")
-    with pytest.raises(NotImplementedError, match="A3"):
-        ttf.loss_fn(moe, {}, None, None)
+    """The MoE options earlier slices refused now run: an MoE config's
+    init_params, loss_fn and greedy generate, which equals JAX's on the
+    same tree (the MoE parity suite: tests/test_torch_moe.py)."""
+    fields = {**FIELDS, "n_experts": 2}
+    moe = ttf.TransformerConfig(**fields)
+    assert {"router", "We1", "We2"} <= ttf.init_params(
+        moe, device="cpu")["blocks"].keys()
+    jp = jtf.init_params(jtf.TransformerConfig(**fields),
+                         jax.random.PRNGKey(0))
+    tp = params_from_numpy(jax.tree_util.tree_map(np.asarray, jp),
+                           device="cpu")
+    toks = _tokens(2, 12, 5)
+    loss = ttf.loss_fn(moe, tp, torch.from_numpy(toks),
+                       torch.from_numpy(np.roll(toks, -1, axis=1)))
+    assert torch.isfinite(loss)
+    got = ttf.generate(moe, tp, torch.from_numpy(toks), 6, temperature=0.0)
+    want = jtf.generate(jtf.TransformerConfig(**fields), jp,
+                        jnp.asarray(toks), 6, jax.random.PRNGKey(0),
+                        temperature=0.0)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
 
 
 @pytest.mark.parametrize("field,value", [
     ("capacity_factor", 2.0), ("seq_impl", "allgather"), ("n_experts", 2),
 ])
 def test_unported_config_fields_raise(field, value):
-    """A non-default field the slice does not port raises instead of
-    being silently ignored."""
+    """A non-default field the slice does not port (seq_impl) raises
+    instead of being silently ignored; the MoE fields, ported now, train:
+    one step of the train step gives a finite loss
+    (capacity_factor alone leaves a dense config as the reference does,
+    the same parameters and loss)."""
     cfg = ttf.TransformerConfig(**{**FIELDS, field: value})
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ttf.init_params(cfg, device="cpu")
+    if field == "seq_impl":
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            ttf.init_params(cfg, device="cpu")
+        return
+    from deeplearning4j_tpu_torch.parallel.fsdp import make_fsdp_train_step
+    from deeplearning4j_tpu_torch.parallel.optim import init_adam_state
+    params = ttf.init_params(cfg, seed=1, device="cpu")
+    toks = _tokens(2, 16, 6)
+    tgts = np.roll(toks, -1, axis=1)
+    if field == "capacity_factor":
+        dense = ttf.init_params(TCFG, seed=1, device="cpu")
+        assert all(torch.equal(params["blocks"][k], dense["blocks"][k])
+                   for k in dense["blocks"])
+        assert float(ttf.loss_fn(cfg, params, torch.from_numpy(toks),
+                                 torch.from_numpy(tgts))) == float(
+            ttf.loss_fn(TCFG, dense, torch.from_numpy(toks),
+                        torch.from_numpy(tgts)))
+    step = make_fsdp_train_step(cfg, device="cpu")
+    _, _, loss = step(params, init_adam_state(params), toks, tgts)
+    assert torch.isfinite(loss)
 
 
 def test_generate_rejects_bad_requests(tparams):

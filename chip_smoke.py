@@ -254,6 +254,29 @@ card and fails (non-zero exit, no result line) if anything is wrong:
    the MoE MLP bit-equal twice, launches exact with no plain attention
    twin and no SDPA (`CountTwins`), no capture once warm, no page
    leaked; paged and chunked against contiguous printed.
+3h. Serving observability at full width (`phase_observability_full_width`;
+   phase 3's config, its 128 requests and 3c's waves drawn again):
+   (a) the default registry against NULL_REGISTRY, pipelined, in turns
+   N O O N twice after a warm pass each: tokens/s, the median of paired
+   ratios; tokens equal, and a profiled steady tick of each launches the
+   same serving device functions with the same blocking waits (<= 1).
+   (b) One engine an arm (plain, spec K 7 "layers:1", paged with prefix
+   hits, chunk-256 paged, int8, `[ab]+`, MoE 8 experts; counts cut to 32
+   requests, paged 48 + 16) scraped over MetricsServer(port=0): the
+   naming lint (`lint_exposition`, tests/test_metrics_naming.py's rules),
+   every counts key equal to the series that stands for it
+   (`COUNT_SERIES`), pages used + free = the pool with none leaked, the
+   requests' bills summing to the tenant counters. (c) profile_report of
+   the plain and paged engines (FLOPs and bytes a call, intensity,
+   roofline class against 989 TF/s and 3.35 TB/s, serving_mfu, achieved
+   rates, the idle gauge beside the profiled tick's trace idle share):
+   every share in [0, 1.05], the programs' device seconds equal to the
+   busy total. (d) /profilez: 200 during traffic with a trace naming the
+   decode and flash-forward device functions; 503 on a second request,
+   without profile_dir and under another torch.profiler session, whose
+   trace stays whole. (e) slo_report, the last timed pass's SLO, and the
+   timeline as Chrome-trace JSON with a queue and a slot span a request.
+   `--only 3h` runs the build and this phase alone.
 4a. float32 training, card vs CPU: 2 layers at 512d / 8 heads, V=256,
    B=2, T=256, remat 'full', three Adam steps of `make_fsdp_train_step`
    from the same params on cuda and on cpu; losses within 1e-4, and the
@@ -306,7 +329,7 @@ card and fails (non-zero exit, no result line) if anything is wrong:
 7. Summary: the MoE phases' launches by kernel (`moe_launches`); one
    line of the graph replays of every gated run and of the serving
    device functions' launches in the profiled ticks' traces; the run's
-   wall time, the MoE phases' and the rest's (`wall`);
+   wall time, the MoE phases', the rest's and phase 3h's (`wall`);
    one `kernels` JSON line (decode_attention_q and decode_window_q among
    them; `launches` the wrappers' counts, `device_launches_profiled`
    the traces' count of the device function the kernel runs), the
@@ -318,6 +341,7 @@ nvcc per source, started together). Weights are random, from fixed seeds.
 """
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -366,6 +390,55 @@ def bound(nbytes: float, flops: float, dtype: str):
 
 def max_err(a, b) -> float:
     return float((a.float() - b.float()).abs().max())
+
+
+# the metrics-naming lint of tests/test_metrics_naming.py, whose rules a
+# scrape of every serving engine must pass: snake_case names and labels,
+# `_total` on counters and only on counters, a unit on histograms, no
+# gauge named like a histogram sample, every sample under a TYPE line
+_SNAKE = re.compile(r"^[a-z][a-z0-9_]*$")
+_SAMPLE = re.compile(r'^([a-zA-Z_:][a-zA-Z0-9_:]*)(\{(.*)\})? \S+$')
+_LABEL = re.compile(r'([a-zA-Z_][a-zA-Z0-9_]*)="')
+_HIST_UNITS = ("_seconds", "_bytes")
+_UNITLESS_HISTOGRAMS = {"serving_batch_size"}
+
+
+def lint_exposition(text: str) -> list:
+    """The naming lint's violations in a Prometheus text scrape (an
+    empty list when it passes)."""
+    types, errs = {}, []
+    for ln in text.splitlines():
+        if ln.startswith("# TYPE "):
+            _, _, name, kind = ln.split(" ", 3)
+            types[name] = kind
+    for name, kind in types.items():
+        if not _SNAKE.match(name):
+            errs.append(f"{name}: not snake_case")
+        if (kind == "counter") != name.endswith("_total"):
+            errs.append(f"{name}: _total is for counters, and every "
+                        "counter has it")
+        if kind == "histogram" and not (name.endswith(_HIST_UNITS) or
+                                        name in _UNITLESS_HISTOGRAMS):
+            errs.append(f"{name}: histogram without a unit suffix")
+        if kind == "gauge" and name.endswith(("_bucket", "_sum", "_count")):
+            errs.append(f"{name}: gauge named like a histogram sample")
+        if kind not in ("counter", "gauge", "histogram"):
+            errs.append(f"{name}: kind {kind}")
+    hist = {f"{n}{s}" for n, k in types.items() if k == "histogram"
+            for s in ("_bucket", "_sum", "_count")}
+    for ln in text.splitlines():
+        if not ln or ln.startswith("#"):
+            continue
+        m = _SAMPLE.match(ln)
+        if not m:
+            errs.append(f"unparseable line {ln!r}")
+            continue
+        if m.group(1) not in types and m.group(1) not in hist:
+            errs.append(f"{m.group(1)}: sample without a TYPE line")
+        errs += [f"label {lab!r} not snake_case"
+                 for lab in _LABEL.findall(m.group(3) or "")
+                 if not _SNAKE.match(lab)]
+    return errs
 
 
 # ---------------------------------------------------------------------------
@@ -3098,6 +3171,458 @@ def phase_experiments(torch, dev):
 
 
 # ---------------------------------------------------------------------------
+# phase 3h: serving observability at full width
+# ---------------------------------------------------------------------------
+
+# counts keys -> the series of the scrape that stands for each ("count"
+# of a histogram, else a counter or gauge sample), where registered
+COUNT_SERIES = {
+    "prefill_calls": "serving_prefill_seconds_count",
+    "decode_chunks": "serving_decode_chunks_total",
+    "spec_rounds": "serving_spec_rounds_total",
+    "spec_draft_steps": "serving_spec_draft_steps_total",
+    "spec_reserved": "serving_spec_reserved_tokens_total",
+    "spec_committed": "serving_spec_committed_tokens_total",
+    "spec_drafted": "serving_spec_drafted_tokens_total",
+    "spec_accepted": "serving_spec_accepted_tokens_total",
+    "spec_released": "serving_spec_schedule_waste_tokens_total",
+    "prefill_chunks": "serving_prefill_chunks_total",
+    "prefix_hits": "serving_prefix_cache_hits_total",
+    "prefix_misses": "serving_prefix_cache_misses_total",
+    "prefix_shared_tokens": "serving_prefix_shared_tokens_total",
+    "prefix_evictions": "serving_prefix_cache_evictions_total",
+    "cow_copies": "serving_kv_cow_copies_total",
+    "pages_used": "serving_kv_pages_used",
+    "pages_free": "serving_kv_pages_free",
+    "shed_overload": 'serving_requests_shed_total{reason="overload"}',
+    "syncs": "serving_device_syncs_total",
+    "pipelined_ticks": "serving_pipelined_ticks_total",
+    "constrained_requests": "serving_constrained_requests_total",
+    "constrained_grammar_compiles":
+        "serving_constrained_grammar_compiles_total",
+    "constrained_terminal": "serving_constrained_terminal_completions_total",
+    "constrained_illegal": "serving_constrained_illegal_tokens_total",
+    "constrained_table_rows": "serving_constrained_states",
+    "graph_captures": "serving_graph_captures_total",
+    "graph_replays": "serving_graph_replays_total",
+    "graph_pool_bytes": "serving_graph_pool_bytes",
+    "param_bytes": "serving_param_bytes",
+    "kv_pool_bytes": "serving_kv_pool_bytes",
+}
+
+
+def scrape_samples(text: str) -> dict:
+    """{series with its labels: value} of a Prometheus text scrape."""
+    out = {}
+    for ln in text.splitlines():
+        if ln and not ln.startswith("#"):
+            name, value = ln.rsplit(" ", 1)
+            out[name] = float(value)
+    return out
+
+
+def http_get(url: str):
+    """(status, body) of a GET on the exporter (localhost)."""
+    import urllib.error
+    import urllib.request
+    try:
+        with urllib.request.urlopen(url, timeout=60) as r:
+            return r.status, r.read().decode()
+    except urllib.error.HTTPError as e:
+        return e.code, e.read().decode()
+
+
+def serve_handles(eng, waves, specs=None):
+    """Each wave submitted and drained tick by tick: (handles, wall s)."""
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    hs = []
+    for w, prompts in enumerate(waves):
+        hs += [eng.submit(p, constrain=None if specs is None else specs[w])
+               for p in prompts]
+        while eng.tick():
+            pass
+    torch.cuda.synchronize()
+    return hs, time.perf_counter() - t0
+
+
+def scrape_gates(eng, hs, where):
+    """Scrape ``eng`` over MetricsServer(port=0) /metrics and gate it: the
+    naming lint, every counts key equal to the series that stands for it,
+    pages used + free = the pool's pages with none leaked, and the
+    requests' bills summing to the tenant counters. Returns the samples."""
+    from deeplearning4j_tpu_torch.observability import MetricsServer
+    srv = MetricsServer(eng.registry, port=0, health=eng.health,
+                        ready=eng.ready, debug=eng.debugz,
+                        slo=eng.slo_report, timeline=eng.timeline,
+                        profilez=eng.profilez)
+    try:
+        code, text = http_get(srv.url + "/metrics")
+        codes = {p: http_get(srv.url + p)[0] for p in (
+            "/metrics.json", "/healthz", "/readyz", "/debugz", "/slo",
+            "/timeline.json")}
+    finally:
+        srv.stop()
+    if code != 200 or set(codes.values()) != {200}:
+        fail(f"3h {where}: /metrics {code}, {codes}")
+    errs = lint_exposition(text)
+    if errs:
+        fail(f"3h {where}: naming lint: {errs[:6]}")
+    got = scrape_samples(text)
+    c = dict(eng.counts)
+    bad = {k: (c[k], got.get(s)) for k, s in COUNT_SERIES.items()
+           if s in got and got[s] != c[k]}
+    missing = [k for k in ("prefill_calls", "decode_chunks", "syncs",
+                           "graph_replays", "param_bytes", "kv_pool_bytes")
+               if COUNT_SERIES[k] not in got]
+    if bad or missing:
+        fail(f"3h {where}: scrape vs counts {bad}, missing {missing}")
+    if eng.config.paged:
+        used, free = got["serving_kv_pages_used"], got["serving_kv_pages_free"]
+        if used + free != eng._allocator.usable_pages or \
+                used != eng.prefix_cache_pages:
+            fail(f"3h {where}: pages used {used} + free {free} vs "
+                 f"{eng._allocator.usable_pages}, cached "
+                 f"{eng.prefix_cache_pages}")
+    bills = {}
+    for what in ("flops", "bytes"):
+        total = sum(v for k, v in got.items()
+                    if k.startswith(f"serving_request_cost_{what}_total"))
+        mine = sum(getattr(h, f"cost_{what}") for h in hs)
+        if total <= 0 or abs(mine - total) > 1e-9 * total:
+            fail(f"3h {where}: {what} bills {mine} vs counter {total}")
+        bills[what] = total
+    return got, bills
+
+
+def profile_pipelined_tick(torch, eng, rng, where):
+    """One steady pipelined decode tick (a decode chunk's dispatch and the
+    previous tick's commit, no admission) under torch.profiler, read from
+    the device's and the host's trace only (an engine on NULL_REGISTRY
+    counts nothing): the serving device functions launched and the
+    blocking waits (cudaEventSynchronize / cudaStreamSynchronize).
+    Returns (device launches, waits, trace idle share, wall s, the
+    idle gauge right after the tick (None on NULL_REGISTRY), the
+    handles)."""
+    from torch.profiler import ProfilerActivity, profile
+    L = eng.cfg.n_layers
+    prompts = [rng.integers(0, 256, size=64).astype(np.int32)
+               for _ in range(eng.num_slots)]
+    hs = [eng.submit(p, max_new_tokens=33) for p in prompts]
+    for _ in range(3):           # admissions, then two decode ticks
+        eng.tick()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        # one small kernel first, waited on, so the tracer is recording
+        # when the tick starts (a full run once traced 84 of the chunk's
+        # 96 decode launches without it); its µs stay in the busy sum
+        torch.ones(1, device=eng.device).add_(1)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eng.tick()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    gauge = eng.registry.get("serving_device_idle_fraction")
+    gauge = None if gauge is None else gauge.value
+    rows = device_rows(prof)
+    waits = sum(e.count for e in prof.key_averages()
+                if e.key in ("cudaEventSynchronize", "cudaStreamSynchronize"))
+    got = device_launch_gate(rows, replay_want(eng, False, L), where)
+    busy = sum(us for _, us, _ in rows) / 1e6
+    eng.run_pending()
+    if not all(h.done() for h in hs):
+        fail(f"{where}: requests left unanswered")
+    return got, waits, 1 - busy / wall, wall, gauge, hs
+
+
+def phase_observability_full_width(torch, dev):
+    """Phase 3's config (12L, d 512, 8 heads, vocab 256, max_len 2048,
+    bf16, 64 slots, chunk 8) under the observability stack, on phase 3's
+    128 requests and phase 3c's paged waves (drawn again from their
+    generators, so the phase also runs alone: ``--only 3h``). (a) Two
+    pipelined engines on phase 3's 128 requests (64 new tokens), one
+    with the default registry (O) and one on NULL_REGISTRY (N), timed
+    in turns N O O N twice after a warm pass each: tokens equal in every
+    pass; a profiled steady pipelined decode tick of each launches the
+    same serving device functions and makes the same blocking waits (at
+    most one). (b) One engine per serving arm scraped over
+    MetricsServer(port=0) after its traffic (`scrape_gates`): plain (O),
+    spec (3b's aligned tree, K 7, "layers:1"), paged with prefix hits
+    (3c's waves, cut), chunked 256 on the paged pool, int8 weights and
+    KV, constrained ``[ab]+`` and MoE with 8 experts at 1.25. (c) The
+    plain and paged engines' profile_report: per program FLOPs and
+    bytes a call, intensity and roofline class against 989 TF/s and
+    3.35 TB/s; serving_mfu and the achieved rates; the idle gauge beside
+    the profiled tick's trace idle share. Gates: every share in [0,
+    1.05]; the programs' device seconds sum to the busy total within
+    1e-6 s a tick. (d) /profilez: 200 during traffic with its trace
+    naming the decode and flash-forward device functions, 503 on a
+    second request during the capture, without profile_dir, and under
+    another torch.profiler session, whose trace stays whole. (e) The
+    plain engine's slo_report, and its timeline as Chrome-trace JSON
+    with a queue span and a slot span for each request of the last pass.
+    Returns the wrappers' launches by kernel over the phase."""
+    import json as _json
+    import tempfile
+    from deeplearning4j_tpu_torch.models import transformer as tf
+    from deeplearning4j_tpu_torch.observability import (NULL_REGISTRY,
+                                                        MetricsServer)
+    from deeplearning4j_tpu_torch.serving.engine import (EngineConfig,
+                                                         InferenceEngine)
+    zero_launches()
+    cfg = tf.TransformerConfig(vocab_size=256, d_model=512, n_heads=8,
+                               n_layers=12, max_len=2048, dtype="bfloat16")
+    base = dict(num_slots=64, decode_chunk=8, max_new_tokens=64,
+                max_queue=256, degrade_queue_depth=1024)
+    paged = dict(paged=True, page_size=16, kv_pages=3072 + 1)
+    params = tf.TransformerLM(cfg, seed=0, device=dev).params
+    rng = np.random.default_rng(0)                 # phase 3's traffic
+    lens = rng.integers(16, 1025, size=128)
+    prompts = [rng.integers(0, 256, size=int(n)).astype(np.int32)
+               for n in lens]
+    rng = np.random.default_rng(0)                 # phase 3c's waves
+    first = paged_traffic(rng, 96, 32, 512, (16, 512), (16, 1024))
+    again = [first[i] for i in rng.choice(len(first), size=32,
+                                          replace=False)]
+
+    # (a) default vs NULL, in turns
+    engs = {"O": InferenceEngine(cfg, params, EngineConfig(**base),
+                                 device=dev),
+            "N": InferenceEngine(cfg, params, EngineConfig(**base),
+                                 device=dev, registry=NULL_REGISTRY)}
+    if engs["N"].recorder.enabled or engs["N"].profiler.enabled:
+        fail("3h: a NULL_REGISTRY engine kept its recorder or profiler")
+    plain_hs = []
+    want = None
+    tps = {"O": [], "N": []}
+    for arm in ["O", "N"] + ["N", "O", "O", "N"] * 2:
+        hs, wall = serve_handles(engs[arm], [prompts])
+        out = [h.result() for h in hs]
+        if want is None:
+            want = out
+        elif any(not np.array_equal(a, b) for a, b in zip(out, want)):
+            fail(f"3h: the {arm} arm's tokens differ")
+        if arm == "O":
+            plain_hs += hs
+            last_o = hs
+        tps[arm].append(len(prompts) * base["max_new_tokens"] / wall)
+    # the first pass of each engine was its warm pass (graph captures)
+    tps = {a: v[1:] for a, v in tps.items()}
+    turns = ["N", "O", "O", "N"] * 2
+    idx = {"O": 0, "N": 0}
+    seq = []
+    for a in turns:
+        seq.append((a, tps[a][idx[a]]))
+        idx[a] += 1
+    ratios = []
+    for b in range(0, len(seq), 4):
+        n1, o1, o2, n2 = (v for _, v in seq[b:b + 4])
+        ratios += [o1 / n1, o2 / n2]
+    line(dict(phase="3h", run="default_vs_null", order="N O O N x2",
+              requests=len(prompts), new_tokens=base["max_new_tokens"],
+              default_tokens_per_s=tps["O"], null_tokens_per_s=tps["N"],
+              paired_default_over_null=ratios,
+              median_default_over_null=float(np.median(ratios)),
+              tokens_equal=True))
+    ticks = {}
+    for arm in ("O", "N"):
+        ticks[arm] = profile_pipelined_tick(
+            torch, engs[arm], np.random.default_rng(11),
+            f"3h profiled {arm} tick")
+    if ticks["O"][0] != ticks["N"][0] or ticks["O"][1] != ticks["N"][1] \
+            or ticks["O"][1] > 1:
+        fail(f"3h: profiled ticks differ or wait more than once: "
+             f"default {ticks['O'][:2]}, null {ticks['N'][:2]}")
+    eng = engs["O"]
+    gauge_idle = ticks["O"][4]
+    plain_hs += ticks["O"][5]
+    line(dict(phase="3h", run="profiled_ticks",
+              device_launches={a: t[0] for a, t in ticks.items()},
+              blocking_waits={a: t[1] for a, t in ticks.items()},
+              trace_idle_share={a: t[2] for a, t in ticks.items()},
+              wall_s={a: t[3] for a, t in ticks.items()},
+              idle_gauge_default=gauge_idle))
+    del engs["N"]
+    plain_samples, _ = scrape_gates(eng, plain_hs, "plain")
+    reports = {"plain": (eng, plain_samples, gauge_idle, ticks["O"][2])}
+
+    # (e) SLO and timeline of the plain engine (its last pass)
+    slo = eng.slo_report()
+    tl = _json.loads(_json.dumps(eng.timeline(n=eng.recorder.capacity)))
+    last = {h.rid for h in last_o}
+    spans = {}
+    for e in tl["traceEvents"]:
+        if e.get("ph") == "X" and e["args"]["rid"] in last:
+            spans.setdefault(e["args"]["rid"], []).append(
+                (e["tid"] == 0, e["name"]))
+    lanes = {e["args"]["name"] for e in tl["traceEvents"]
+             if e["name"] == "thread_name"}
+    if set(spans) != last or any(
+            sorted(q for q, _ in s) != [False, True]
+            for s in spans.values()) or len(lanes) != 1 + eng.num_slots:
+        fail(f"3h: timeline has {len(spans)} of {len(last)} requests "
+             f"with a queue and a slot span, {len(lanes)} lanes")
+    # the engine's window holds its warm pass and the profiled tick's
+    # requests too: the last timed pass alone, through its own tracker
+    from deeplearning4j_tpu_torch.observability import (MetricsRegistry,
+                                                        SLOTracker)
+    last_slo = SLOTracker(MetricsRegistry(), window=len(last_o))
+    for h in last_o:
+        last_slo.finished(h.trace)
+    keys = ("window", "goodput", "ttft_p50_ms", "ttft_p99_ms",
+            "tpot_p50_ms", "tpot_p99_ms", "e2e_p50_ms", "e2e_p99_ms",
+            "queue_age_p50_ms", "queue_age_p99_ms")
+    line(dict(phase="3h", run="slo", slo_report={k: slo[k] for k in keys},
+              last_timed_pass={k: last_slo.report()[k] for k in keys},
+              timeline_events=len(tl["traceEvents"]),
+              timeline_requests=len(spans)))
+
+    # (d) /profilez on a plain engine with profile_dir
+    with tempfile.TemporaryDirectory() as tmp:
+        peng = InferenceEngine(cfg, params, EngineConfig(
+            **base, profile_dir=tmp), device=dev)
+        serve_handles(peng, [prompts[:64]])          # warm: captures
+        srv = MetricsServer(peng.registry, port=0, profilez=peng.profilez)
+        nsrv = MetricsServer(eng.registry, port=0, profilez=eng.profilez)
+        try:
+            c1, b1 = http_get(srv.url + "/profilez?seconds=1")
+            c2, b2 = http_get(srv.url + "/profilez?seconds=1")
+            serve_handles(peng, [prompts[:64]])
+            c3, _ = http_get(nsrv.url + "/profilez?seconds=1")
+            t0 = time.perf_counter()
+            while peng._capture.active:
+                if time.perf_counter() - t0 > 120:
+                    fail("3h: /profilez capture never finished")
+                time.sleep(0.05)
+            files = [f for f in os.listdir(tmp) if f.endswith(".json")]
+            names = set()
+            for f in files:
+                with open(os.path.join(tmp, f)) as fh:
+                    names |= {e.get("name", "") for e in
+                              _json.load(fh).get("traceEvents", [])}
+            has = {label: any(any(fn in n for fn in DEVICE_FNS[label])
+                              for n in names)
+                   for label in ("decode_rows", "flash_fwd")}
+            from torch.profiler import ProfilerActivity, profile
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as outer:
+                c4, b4 = http_get(srv.url + "/profilez?seconds=1")
+                serve_handles(peng, [prompts[:8]])
+            outer_rows = device_rows(outer)
+            outer_ok = any(any(fn in k for fn in DEVICE_FNS["decode_rows"])
+                           for k, _, _ in outer_rows)
+        finally:
+            srv.stop()
+            nsrv.stop()
+        line(dict(phase="3h", run="profilez", during_traffic=c1,
+                  second_during_capture=c2, second_error=_json.loads(b2),
+                  without_profile_dir=c3, under_other_profiler=c4,
+                  other_error=_json.loads(b4), trace_files=len(files),
+                  trace_names_kernels=has, other_trace_whole=outer_ok))
+        if (c1, c2, c3, c4) != (200, 503, 503, 503) or len(files) != 1 \
+                or not all(has.values()) or not outer_ok:
+            fail(f"3h /profilez: codes {(c1, c2, c3, c4)}, files {files}, "
+                 f"kernels {has}, other session whole {outer_ok}")
+        del peng
+    del eng, engs
+    torch.cuda.empty_cache()
+
+    # (b) the other arms, scraped after their traffic
+    aligned = aligned_params(tf, cfg, dev)
+    moe_cfg = tf.TransformerConfig(**{**cfg.__dict__, "n_experts": 8,
+                                      "capacity_factor": 1.25})
+    arms = [("spec", cfg, aligned, dict(spec_decode=True, spec_k=7,
+                                        draft="layers:1"),
+             [prompts[:32]], None),
+            ("paged", cfg, params, paged, [first[:48], again[:16]], None),
+            ("chunked", cfg, params, dict(paged, prefill_chunk=256),
+             [first[:32]], None),
+            ("int8", cfg, params, dict(quantize="int8", kv_quantize="int8"),
+             [prompts[:32]], None),
+            ("constrained", cfg, params, {}, [prompts[:32]],
+             ["[ab]+"]),
+            ("moe", moe_cfg, None, {}, [prompts[:32]], None)]
+    for name, acfg, tree, kw, waves, specs in arms:
+        if tree is None:
+            tree = tf.TransformerLM(acfg, seed=0, device=dev).params
+        aeng = InferenceEngine(acfg, tree, EngineConfig(**base, **kw),
+                               device=dev)
+        hs, wall = serve_handles(aeng, waves, specs)
+        for h in hs:
+            h.result()
+        got, bills = scrape_gates(aeng, hs, name)
+        c = aeng.counts
+        line(dict(phase="3h", run="scrape", arm=name,
+                  requests=len(hs), wall_s=wall, lint="pass",
+                  series=sum(1 for k in got if not k.startswith("#")),
+                  bills_flops=bills["flops"], bills_bytes=bills["bytes"],
+                  prefix_hits=c["prefix_hits"], cow_copies=c["cow_copies"],
+                  spec_accepted=c["spec_accepted"],
+                  constrained_requests=c["constrained_requests"]))
+        if name == "paged":
+            reports["paged"] = (aeng, got, got[
+                "serving_device_idle_fraction"], None)
+        else:
+            del aeng
+        torch.cuda.empty_cache()
+
+    # (c) the profiler's reports
+    for name, (reng, got, idle, trace_idle) in reports.items():
+        rep = reng.profile_report()
+        mfu = got["serving_mfu"]
+        shares = {"serving_mfu": mfu,
+                  "achieved_bytes_share": got[
+                      "serving_achieved_bytes_per_second"] / PEAK_BYTES_PER_S,
+                  "serving_device_idle_fraction": idle}
+        table = {}
+        for lab, row in rep["programs"].items():
+            table[lab] = dict(
+                invocations=row["invocations"],
+                flops_per_call=row["flops_per_invocation"],
+                bytes_per_call=row["bytes_per_invocation"],
+                intensity=row["intensity_flops_per_byte"],
+                bound=row["bound"], device_s=row["device_seconds"],
+                achieved_flops_per_s=row["achieved_flops_per_s"],
+                achieved_bytes_per_s=row["achieved_bytes_per_s"])
+            if row["achieved_flops_per_s"]:
+                shares[f"{lab}_flops"] = (row["achieved_flops_per_s"]
+                                          / PEAK_FLOPS["bfloat16"])
+                shares[f"{lab}_bytes"] = (row["achieved_bytes_per_s"]
+                                          / PEAK_BYTES_PER_S)
+        ticks_n = reng.counts["pipelined_ticks"]
+        dev_s = sum(r["device_seconds"] for r in rep["programs"].values())
+        line(dict(phase="3h", run="profile_report", engine=name,
+                  peak_flops=rep["peak_flops"],
+                  peak_bytes_per_s=rep["peak_bytes_per_s"],
+                  ridge=rep["ridge_flops_per_byte"], mfu=mfu,
+                  achieved_flops_per_s=got[
+                      "serving_achieved_flops_per_second"],
+                  achieved_bytes_per_s=got[
+                      "serving_achieved_bytes_per_second"],
+                  idle_gauge=idle, trace_idle_share_profiled_tick=trace_idle,
+                  device_seconds_sum=dev_s, busy_total_s=reng._busy_total_s,
+                  ticks=ticks_n, programs=table, shares=shares))
+        if rep["peak_flops"] != PEAK_FLOPS["bfloat16"] or \
+                rep["peak_bytes_per_s"] != PEAK_BYTES_PER_S:
+            fail(f"3h: profiler peaks {rep['peak_flops']}, "
+                 f"{rep['peak_bytes_per_s']} on {torch.cuda.get_device_name(0)}")
+        bad = {k: v for k, v in shares.items() if not 0 <= v <= 1.05}
+        if bad:
+            fail(f"3h {name}: impossible shares {bad}")
+        if abs(dev_s - reng._busy_total_s) > 1e-6 * max(1, ticks_n):
+            fail(f"3h {name}: program device seconds {dev_s} vs busy "
+                 f"{reng._busy_total_s}")
+    del reports, aligned, params
+    torch.cuda.empty_cache()
+    got = read_launches()
+    if not got["flash_fwd"] or not got["decode_attention"]:
+        fail(f"3h: the serving kernels did not launch ({got})")
+    return {k: n for k, n in got.items() if n}
+
+
+# ---------------------------------------------------------------------------
 # phase 4: training
 # ---------------------------------------------------------------------------
 
@@ -4028,6 +4553,12 @@ def main() -> int:
     for name in ("flash_fwd", "flash_bwd", "flash_bwd_packed2",
                  "decode_attention", "decode_window", "lstm_scan"):
         build_report(name)
+    if sys.argv[1:] == ["--only", "3h"]:
+        # a development run of phase 3h alone (no kernels line, no
+        # result); a full run takes no arguments
+        line(dict(phase="3h", launches=phase_observability_full_width(
+            torch, dev), wall_s=time.perf_counter() - t_run))
+        return 0
 
     measured = phase_kernels(torch, dev)
     measured["flash_bwd"] = phase_backward_kernel(torch, dev)
@@ -4067,8 +4598,11 @@ def main() -> int:
     moe_launches = phase_moe_full_width(
         torch, dev, {"plain": sync_plain, **sync_paged})
     new_phases["3g"] = time.perf_counter() - t_new
+    t_obs = time.perf_counter()
+    obs_launches = phase_observability_full_width(torch, dev)
+    t_obs = time.perf_counter() - t_obs
     for part in (spec_launches, paged_launches, pipe_launches, c_launches,
-                 moe_launches):
+                 moe_launches, obs_launches):
         for name, n in part.items():
             launches[name] = launches.get(name, 0) + n
     phase_train_f32_card_vs_cpu(torch, dev)
@@ -4137,7 +4671,8 @@ def main() -> int:
                                       else None)))
     wall = time.perf_counter() - t_run
     line(dict(run="wall", wall_s=wall, moe_phases_s=new_phases,
-              without_moe_phases_s=wall - sum(new_phases.values())))
+              without_moe_phases_s=wall - sum(new_phases.values()),
+              observability_phase_s=t_obs))
     print(card, flush=True)
     line({"kernels": kernels})
     line({"ok": True, "device": {"platform": "gpu",

@@ -10,8 +10,9 @@ hand-written Hopper kernel under `csrc/`, built at first use by
 Ported so far: the continuous-batching TransformerLM server
 (`serving.InferenceEngine`) with speculative decoding (drafters "int8",
 "fp8", "self" and "layers:N", `quant.model.draft_tree`), paged KV, chunked
-prefill and quantized weights and KV pools (`quant`),
-`models.transformer.TransformerLM`
+prefill and quantized weights and KV pools (`quant`), and its
+observability (`observability`: metrics, flight recorder, SLOs, the
+profiler; `util.flops`' card peaks), `models.transformer.TransformerLM`
 with its loss, the single-device Adam train step
 (`parallel.fsdp.make_fsdp_train_step`), the config DSL's
 `nn.multilayer.MultiLayerNetwork` with the GravesLSTM char-RNN, and the

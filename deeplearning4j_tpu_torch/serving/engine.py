@@ -47,9 +47,9 @@ prefill, not its whole prefill.
 (slot-chunks advanced), ``prefix_hits`` / ``prefix_misses`` (paged
 admissions with / without a cached prefix), ``prefix_shared_tokens``,
 ``prefix_evictions``, ``cow_copies`` (pages copied on write),
-``pages_used`` / ``pages_free`` (refreshed after every tick) and
-``shed_overload`` (requests shed because the pool could never seat
-them).
+``pages_used`` / ``pages_free`` (the allocator's, live) and
+``shed_overload`` (requests refused because the queue was full, or shed
+because the pool could never seat them).
 
 Quantized serving (``EngineConfig(quantize="int8" | "fp8",
 kv_quantize="int8" | "fp8")``, reference :458-464, :1407-1430): both
@@ -62,9 +62,9 @@ speculative decoding; the scale rows travel with their pages through
 prefix hits and copy-on-write. The programs are made per mode.
 ``quantize=None`` leaves the engine as it was. ``counts["param_bytes"]``
 and ``counts["kv_pool_bytes"]`` give the at-rest bytes of the weight tree
-and of the pool (analytic, as the reference's gauges, which wait for the
-metrics port, ROADMAP queue A item 8). Hot reload with requantization
-waits for reload (item 9).
+and of the pool (the ``serving_param_bytes`` / ``serving_kv_pool_bytes``
+gauges: the pool measured once allocated, analytic before). Hot reload
+with requantization waits for reload (ROADMAP queue A item 9).
 
 The pipelined tick loop (``EngineConfig.pipeline``, True by default as
 in the reference, :553; reference `_tick_pipelined` :2922-3260): each tick
@@ -93,7 +93,7 @@ tick's programs left there, in stream order (the programs update the
 pool in place). Not ported with it: the recovery of a tick that fails at
 its wait and the in-flight state snapshot it restores (ROADMAP queue A
 item 9), the forced flush of KV export (items 9, 11), the batch-mode
-fallback (batch mode is unported), and the pipeline's metrics (item 8).
+fallback (batch mode is unported).
 
 On a CUDA device the per-tick slot programs (decode chunk, paged decode
 chunk, spec round, paged spec round) replay as CUDA graphs, one per
@@ -112,8 +112,8 @@ calls' waits, or the commits').
 Not ported yet (set to a non-default value, each raises
 NotImplementedError naming its ROADMAP item): batch mode, the background
 worker, retries / circuit breaker / deadlines, KV handoff and adoption,
-the fault injector, the compile cache and warm-up, QoS (so fair-share
-prefill), and the metrics / recorder / profiler stack.
+the fault injector, the compile cache and warm-up, and QoS (so
+fair-share prefill and priorities).
 
 Grammar-constrained decoding (``submit(..., constrain=regex or spec
 dict)``, reference :1841-1935, :2030-2180): `submit` compiles the
@@ -136,8 +136,8 @@ never committed. A finished request releases its table rows.
 ``constrained_rejected_<reason>``, ``constrained_grammar_compiles``,
 ``constrained_terminal``, ``constrained_illegal`` (committed tokens the
 host walk refused: 0 unless the mask failed) and
-``constrained_table_rows`` (the reference's ``serving_constrained_*``
-series wait for ROADMAP item 8). In the pipelined loop a grammar's
+``constrained_table_rows`` (the ``serving_constrained_*`` series,
+registered at the first constrained submit). In the pipelined loop a grammar's
 terminal is known only at the commit, a tick after its synchronous
 loop knows it, so the slot is refilled a tick later: tokens agree with
 the synchronous loop wherever that does not change a half-precision
@@ -155,20 +155,57 @@ pool's acceptance and falls back to plain decode chunks for a cooldown
 when even K=1 does not pay. ``counts["spec_rounds"/"spec_drafted"/
 "spec_accepted"]`` and `spec_k_current` expose it, and
 ``counts["spec_draft_steps"]`` sums the K of every round.
+
+Observability (reference :1525-1560, :1570, observability/): every
+engine publishes into a `MetricsRegistry` (``registry``, a private one
+by default), records each request's lifecycle in a `FlightRecorder`
+(``recorder``; `RequestHandle.trace`), derives TTFT / TPOT / e2e /
+queue age and goodput in an `SLOTracker` (``slo``) and costs every
+program call in an `EngineProfiler` (``profiler``: per-program FLOPs,
+bytes and device seconds, live ``serving_mfu``, rooflines, per-tenant
+bills under ``submit(tenant=...)``). ``registry=NULL_REGISTRY`` makes
+all four no-ops, as in the reference; the tokens and the calls do not
+change. Metric names, label names, event kinds and report shapes are
+the reference's. ``eng.counts`` and ``eng.seconds`` are read-through
+views of the registry under the keys they always had: the series of
+the reference where one exists (``prefix_hits`` is
+``serving_prefix_cache_hits_total``, ``prefill_calls`` the count of
+``serving_prefill_seconds``, ``spec_released`` the pipelined loop's
+``serving_spec_schedule_waste_tokens_total``), else a series of the
+port's own (`_PORT_SERIES`); with ``NULL_REGISTRY`` they read 0. No
+series reads a device tensor: every value is host data the engine holds
+at dispatch or at the commit's one wait, and nothing is recorded inside
+a captured graph. The busy estimate behind
+``serving_device_idle_fraction`` marks the device busy from a dispatch
+to the wait that drains it (`_wait`). Read-outs: `stats`, `health`,
+`ready`, `debugz`, `slo_report`, `profile_report`, `profilez` (with
+``EngineConfig.profile_dir``) and `timeline`, for
+`observability.MetricsServer`.
 """
 from __future__ import annotations
 
 import itertools
+import logging
 import threading
 import time
 from collections import deque
+from collections.abc import Mapping
 from dataclasses import dataclass, fields
-from typing import Dict, List, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from deeplearning4j_tpu_torch._device import resolve_device
+from deeplearning4j_tpu_torch.observability.events import (NULL_RECORDER,
+                                                           NULL_TRACE,
+                                                           FlightRecorder)
+from deeplearning4j_tpu_torch.observability.metrics import (
+    DECODE_LATENCY_BUCKETS, MetricsRegistry, NullRegistry)
+from deeplearning4j_tpu_torch.observability.profiling import (
+    NULL_PROFILER, EngineProfiler, ProfileCapture, program_cost, tree_bytes)
+from deeplearning4j_tpu_torch.observability.slo import NULL_SLO, SLOTracker
+from deeplearning4j_tpu_torch.observability.timeline import timeline_json
 from deeplearning4j_tpu_torch.models.transformer import (TransformerConfig,
                                                          _check_slice,
                                                          params_to)
@@ -192,8 +229,59 @@ from deeplearning4j_tpu_torch.serving.paging import (PageAllocator,
                                                      pages_for)
 
 
+log = logging.getLogger("deeplearning4j_tpu_torch")
+
+_perf = time.perf_counter
+
+
 class OverloadError(RuntimeError):
     """Admission rejected: the queue is full."""
+
+
+class QoSValidationError(ValueError):
+    """submit() rejected a malformed tenant or priority (reference
+    :314): tenant ids flow into metric labels and the Prometheus
+    exposition (the per-tenant cost counters), so a non-string /
+    oversized / control-character id is rejected HERE, typed, at
+    admission, instead of corrupting the scrape."""
+
+
+#: Priority classes are the closed set 0..MAX_PRIORITY (the reference's;
+#: priority scheduling itself waits for QoS, ROADMAP queue A item 9).
+MAX_PRIORITY = 9
+#: Tenant ids are metric-label material: bound their length so a
+#: hostile id cannot bloat every labeled sample it lands in.
+MAX_TENANT_LEN = 64
+
+
+def validate_tenant_priority(tenant, priority=0):
+    """The reference's tenant/priority validation (:331): coerce or
+    reject BEFORE the values reach the metric-label path. Returns the
+    normalized ``(tenant, priority)``; raises `QoSValidationError`.
+    An int tenant id becomes its decimal string; anything else that is
+    not a str is rejected."""
+    if tenant is not None:
+        if isinstance(tenant, int) and not isinstance(tenant, bool):
+            tenant = str(tenant)
+        if not isinstance(tenant, str):
+            raise QoSValidationError(
+                f"tenant must be a str (or int), got "
+                f"{type(tenant).__name__}")
+        if not tenant or len(tenant) > MAX_TENANT_LEN:
+            raise QoSValidationError(
+                f"tenant id length must be 1..{MAX_TENANT_LEN}, got "
+                f"{len(tenant)}")
+        if any(ch in '"\\\n' or ord(ch) < 0x20 for ch in tenant):
+            raise QoSValidationError(
+                "tenant id contains control/exposition-breaking "
+                "characters (newline, quote, backslash)")
+    if isinstance(priority, bool) or not isinstance(priority, int):
+        raise QoSValidationError(
+            f"priority must be an int, got {type(priority).__name__}")
+    if not 0 <= priority <= MAX_PRIORITY:
+        raise QoSValidationError(
+            f"priority must be in [0, {MAX_PRIORITY}], got {priority}")
+    return tenant, priority
 
 
 class RequestStatus:
@@ -225,10 +313,14 @@ class EngineConfig:
     ``page_size``, ``kv_pages``: total pages with the scratch page, 0 ->
     every slot's full max_len + 1; ``prefix_cache``) and chunked prefill
     (``prefill_chunk``, ``tick_token_budget``) and the pipelined tick loop
-    (``pipeline``) and the grammar-constraint table bound
+    (``pipeline``), the grammar-constraint table bound
     (``constrain_state_cap``: rows of the [cap, V] allow / transition
-    table, cap x V x 5 bytes on the device). Every other field must keep
-    its default (see `_UNPORTED`, `_check_config`)."""
+    table, cap x V x 5 bytes on the device) and observability
+    (``recorder_capacity``: the flight recorder's ring; ``profile_dir``:
+    where ``/profilez`` writes its torch.profiler traces, None -> 503;
+    ``tenant_top_n``: tenants with a label of their own before the rest
+    fold into "other"). Every other field must keep its default (see
+    `_UNPORTED`, `_check_config`)."""
     max_queue: int = 64
     max_batch_size: int = 8
     batch_timeout_s: float = 0.005
@@ -287,9 +379,6 @@ _UNPORTED = {
     "program_cache_size": "the compile cache (ROADMAP queue A6)",
     "compile_cache_dir": "the compile cache (ROADMAP queue A6)",
     "warmup_on_init": "the compile cache (ROADMAP queue A6)",
-    "recorder_capacity": "metrics and the flight recorder (ROADMAP A8)",
-    "profile_dir": "metrics and the flight recorder (ROADMAP A8)",
-    "tenant_top_n": "metrics and the flight recorder (ROADMAP A8)",
     "tenant_weights": "tenant QoS (ROADMAP queue A6)",
     "qos_default_weight": "tenant QoS (ROADMAP queue A6)",
     "preemption_budget": "tenant QoS (ROADMAP queue A6)",
@@ -306,6 +395,98 @@ _PAGED_CHUNKED_TODO = {
 # the rejection reasons of a constrained submit the port can raise
 # (the reference's "mode" needs batch mode, which is unported)
 _C_REASONS = ("unsupported", "invalid", "oversize", "empty")
+
+
+# the port's own series: the counts the reference keeps no series for
+# (count key -> (name, kind, the engines that register it, help)); the
+# reference's own series stand for every other key of `counts`
+_PORT_SERIES = {
+    "decode_chunks": (
+        "serving_decode_chunks", "counter", "all",
+        "Decode chunk calls dispatched (speculative rounds apart)"),
+    "spec_rounds": (
+        "serving_spec_rounds", "counter", "spec",
+        "Speculative rounds dispatched"),
+    "spec_draft_steps": (
+        "serving_spec_draft_steps", "counter", "spec",
+        "Draft steps dispatched (the K of every speculative round)"),
+    "spec_reserved": (
+        "serving_spec_reserved_tokens", "counter", "spec",
+        "Tokens speculative rounds reserved at dispatch (each slot's "
+        "worst case, K+1 within its budget)"),
+    "spec_committed": (
+        "serving_spec_committed_tokens", "counter", "spec",
+        "Tokens speculative rounds committed"),
+    "spec_seconds": (
+        "serving_spec_round_seconds", "counter", "spec",
+        "Host seconds of speculative rounds (dispatch, and in the "
+        "synchronous loop the wait; also in serving_decode_step_seconds)"),
+    "cow_copies": (
+        "serving_kv_cow_copies", "counter", "paged",
+        "KV pages copied on write"),
+    "syncs": (
+        "serving_device_syncs", "counter", "all",
+        "Blocking device waits"),
+    "wait_seconds": (
+        "serving_device_wait_seconds", "counter", "all",
+        "Host seconds blocked on the device"),
+    "pipelined_ticks": (
+        "serving_pipelined_ticks", "counter", "pipeline",
+        "Ticks of the pipelined loop that did work"),
+    "graph_captures": (
+        "serving_graph_captures", "counter", "cuda",
+        "Slot programs captured as CUDA graphs"),
+    "graph_replays": (
+        "serving_graph_replays", "counter", "cuda",
+        "CUDA graph replays of the slot programs"),
+    "graph_pool_bytes": (
+        "serving_graph_pool_bytes", "gauge", "cuda",
+        "Device bytes the CUDA graph captures reserved for their pool"),
+    "constrained_illegal": (
+        "serving_constrained_illegal_tokens", "counter", "constrain",
+        "Committed tokens the host's grammar walk refused (0 unless the "
+        "device mask failed)"),
+}
+
+
+class _Readout(Mapping):
+    """A read-only view of registry values under fixed keys
+    (`InferenceEngine.counts` / `.seconds`)."""
+
+    def __init__(self, getters: Dict[str, Callable[[], float]], cast):
+        self._getters = getters
+        self._cast = cast
+
+    def __getitem__(self, key):
+        return self._cast(self._getters[key]())
+
+    def __iter__(self):
+        return iter(self._getters)
+
+    def __len__(self) -> int:
+        return len(self._getters)
+
+    def __repr__(self) -> str:
+        return repr(dict(self))
+
+
+def _value(m) -> float:
+    """A counter's or gauge's value (0 where the engine registers
+    none)."""
+    return 0.0 if m is None else float(m.value)
+
+
+def _hist(m, i: int) -> float:
+    """An unlabeled histogram's sum (i=1) or count (i=2); 0 for a NULL
+    one."""
+    cells = m.collect()
+    return float(cells[0][1].snapshot()[i]) if cells else 0.0
+
+
+def _gauge(registry, name: str) -> float:
+    """A registered gauge's value, 0 where it is not registered."""
+    m = registry.get(name)
+    return 0.0 if m is None else float(m.value)
 
 
 def _check_config(config: EngineConfig) -> None:
@@ -358,6 +539,15 @@ class RequestHandle:
         self._cbase = 0
         self._cinit = 0
         self._cstate_host = 0
+        # observability (reference :574-600): the tenant the request
+        # bills under and its accumulated analytic bill; the engine
+        # swaps in a live RequestTrace at submit, and its terminal hook
+        self.tenant: Optional[str] = None
+        self.cost_flops = 0.0
+        self.cost_bytes = 0.0
+        self.trace = NULL_TRACE
+        self._on_terminal: Optional[Callable] = None
+        self._in_flight = False
 
     @property
     def generated(self) -> np.ndarray:
@@ -382,6 +572,15 @@ class RequestHandle:
                 error: Optional[BaseException] = None) -> None:
         self.status = status
         self.error = error
+        # the terminal trace event and the SLO accounting run before
+        # result() waiters wake, so a caller that sees done() sees a
+        # complete trace (reference :737)
+        cb = self._on_terminal
+        if cb is not None:
+            try:
+                cb(self)
+            except Exception:    # observability must not kill serving
+                log.exception("terminal trace hook failed")
         self._done.set()
 
 
@@ -404,10 +603,16 @@ class InferenceEngine:
 
     ``params`` is a port parameter tree (`models.transformer.init_params`
     or `models.convert.params_from_numpy`); it is moved to ``device``,
-    which is CUDA unless ``device="cpu"``."""
+    which is CUDA unless ``device="cpu"``. ``registry``, ``recorder``,
+    ``slo``, ``profiler`` and ``clock`` are the reference's observability
+    arguments (:1252-1259), with its defaults: a private registry, and
+    the recorder, SLO tracker and profiler on with a live registry and
+    NULL with `NULL_REGISTRY`."""
 
     def __init__(self, cfg: TransformerConfig, params,
-                 config: Optional[EngineConfig] = None, device=None):
+                 config: Optional[EngineConfig] = None, device=None,
+                 registry=None, recorder=None, slo=None, profiler=None,
+                 clock: Callable[[], float] = time.monotonic):
         _check_slice(cfg)
         self.cfg = cfg
         self.config = config or EngineConfig()
@@ -469,46 +674,12 @@ class InferenceEngine:
         self._lock = threading.Lock()
         self._queue: deque = deque()
         self._rids = itertools.count(1)
-        # call counters, and host seconds by call kind (see the module
-        # docstring for what each loop times)
-        self.counts = {"prefill_calls": 0, "decode_chunks": 0,
-                       "spec_rounds": 0, "spec_draft_steps": 0,
-                       "spec_drafted": 0, "spec_accepted": 0,
-                       "spec_reserved": 0, "spec_released": 0,
-                       "spec_committed": 0,
-                       "prefill_chunks": 0,
-                       "prefix_hits": 0, "prefix_misses": 0,
-                       "prefix_shared_tokens": 0, "prefix_evictions": 0,
-                       "cow_copies": 0, "pages_used": 0, "pages_free": 0,
-                       "shed_overload": 0, "syncs": 0, "pipelined_ticks": 0,
-                       "constrained_requests": 0,
-                       **{f"constrained_rejected_{r}": 0
-                          for r in _C_REASONS},
-                       "constrained_grammar_compiles": 0,
-                       "constrained_terminal": 0, "constrained_illegal": 0,
-                       "constrained_table_rows": 0}
-        self.seconds = {"prefill": 0.0, "decode": 0.0, "spec": 0.0,
-                        "wait": 0.0}
         # the pipelined loop (reference :1345-1375): at most one tick in
         # flight; _pipe_items collects a tick's commit items while it
         # dispatches
         self._pipe = bool(self.config.pipeline)
         self._pending: deque = deque()
         self._pipe_items: list = []
-        # on the card the per-tick slot programs replay as CUDA graphs
-        self._graphs = (SlotGraphs(self.device, self.counts)
-                        if self.device.type == "cuda" else None)
-        # at-rest bytes of the weight tree and of the pool (analytic: the
-        # pool is allocated at the first admission)
-        self.counts["param_bytes"] = param_bytes(self._params)
-        if self._paged:
-            self.counts["kv_pool_bytes"] = paged_pool_bytes(
-                cfg, self._num_slots, self._page_size, self._num_pages,
-                self._max_pages, kv_mode=self._kv_mode)
-        else:
-            self.counts["kv_pool_bytes"] = slot_pool_bytes(
-                cfg, self._num_slots, kv_mode=self._kv_mode)
-        self._page_counts()
         # grammar constraints (reference :1434-1444): the table, the
         # per-slot DFA states on the device and the seeds of the slots
         # (re)seated since the last call exist from the first
@@ -536,6 +707,307 @@ class InferenceEngine:
             self._spec_plain = 0          # plain-decode cooldown ticks
             self._accept_ema = [1.0] * self._num_slots
             self._accept_pool = 1.0       # engine-wide acceptance EMA
+        # observability (reference :1525-1560): every counter lives in
+        # the registry, and `counts` / `seconds` read it back; the
+        # recorder, SLO tracker and profiler default on with a live
+        # registry and NULL with NULL_REGISTRY
+        self._clock = clock
+        self.registry = (registry if registry is not None
+                         else MetricsRegistry())
+        # the host-side busy estimate behind serving_device_idle_fraction
+        # and the profiler's per-tick attribution (reference :1376-1390)
+        self._busy_since: Optional[float] = None
+        self._tick_busy_s = 0.0
+        self._busy_total_s = 0.0
+        self._last_idle = 0.0
+        self._tick_perf0 = _perf()
+        self._last_sync_s = 0.0
+        self._tick_syncs = 0
+        self._last_tick_syncs = 0
+        self._last_tick_spent = 0
+        self._step = 0                    # program calls made
+        self._init_metrics(self.registry)
+        if recorder is None:
+            recorder = (NULL_RECORDER
+                        if isinstance(self.registry, NullRegistry)
+                        else FlightRecorder(
+                            capacity=self.config.recorder_capacity))
+        self.recorder = recorder
+        if slo is None:
+            slo = (NULL_SLO if not recorder.enabled
+                   else SLOTracker(registry=self.registry))
+        self.slo = slo
+        if profiler is None:
+            profiler = (NULL_PROFILER
+                        if isinstance(self.registry, NullRegistry)
+                        else EngineProfiler(
+                            self.registry,
+                            tenant_top_n=self.config.tenant_top_n,
+                            device=self.device))
+        self.profiler = profiler
+        self._capture = ProfileCapture(self.config.profile_dir)
+        # program_cost's inputs: the trees' bytes, and each slot's
+        # position on the device as the host's dispatches left it
+        self._dev_pos = np.zeros((self._num_slots,), np.int64)
+        self._call_rate = (0.0, 0.0)
+        self._wbytes = self._dbytes = None
+        if self.profiler.enabled:
+            self._wbytes = tree_bytes(self._params, cfg)
+            if self._spec:
+                self._dbytes = tree_bytes(self._draft_params, cfg)
+        # on the card the per-tick slot programs replay as CUDA graphs
+        self._graphs = (SlotGraphs(self.device, self._m_graph_captures,
+                                   self._m_graph_replays,
+                                   self._m_graph_pool_bytes)
+                        if self.device.type == "cuda" else None)
+
+    # -- metrics (reference `_init_metrics`, :1570) ------------------------
+    def _init_metrics(self, r) -> None:
+        """The reference's ``serving_*`` families for every path the port
+        has (each registered where the reference registers it, so a
+        scrape of an engine without a feature shows none of its series),
+        then the port's own series for the counts the reference has no
+        series for (`_PORT_SERIES`)."""
+        self._m_completed = r.counter(
+            "serving_requests_completed", "Requests fully decoded")
+        shed = r.counter("serving_requests_shed",
+                         "Requests rejected or abandoned, by reason",
+                         labelnames=("reason",))
+        self._m_shed_overload = shed.labels("overload")
+        # the reference's children, which its deadline / cancel paths
+        # (unported, ROADMAP queue A item 9) increment
+        shed.labels("deadline")
+        shed.labels("cancelled")
+        self._m_in_flight = r.gauge(
+            "serving_in_flight_requests",
+            "Requests currently inside the decode loop")
+        r.gauge("serving_queue_depth",
+                "Admitted requests waiting for a batch").set_function(
+            lambda: float(len(self._queue)))
+        r.gauge("serving_degraded",
+                "1 while admissions are token-budget-capped"
+                ).set_function(lambda: float(self._degraded_locked()))
+        r.gauge("serving_slot_occupancy",
+                "Occupied continuous-batching slots").set_function(
+            lambda: float(sum(s is not None for s in self._slots)))
+        r.gauge("serving_param_bytes",
+                "At-rest bytes of the serving weight tree "
+                "(values + scales when quantized)").set_function(
+            lambda: float(self.param_bytes()))
+        r.gauge("serving_kv_bytes_per_slot",
+                "KV-cache bytes one continuous-batching slot costs "
+                "(caches + scales + slot vectors)").set_function(
+            lambda: float(self.kv_bytes_per_slot()))
+        r.gauge("serving_kv_pool_bytes",
+                "Total at-rest bytes of the slot-pool KV state"
+                ).set_function(lambda: float(self.kv_pool_bytes()))
+        self._m_step_seconds = r.histogram(
+            "serving_decode_step_seconds",
+            "Wall time of one compiled decode call",
+            buckets=DECODE_LATENCY_BUCKETS)
+        self._m_prefill_seconds = r.histogram(
+            "serving_prefill_seconds",
+            "Wall time of one compiled admission-prefill call",
+            buckets=DECODE_LATENCY_BUCKETS)
+        self._m_prefill_tokens = r.counter(
+            "serving_prefill_tokens",
+            "Prompt tokens prefilled by this engine (prefix-cache "
+            "hits and adopted KV handoffs excluded)")
+        r.gauge("serving_device_idle_fraction",
+                "Estimated fraction of the last scheduling round the "
+                "device spent idle (1 - dispatched-work interval / "
+                "tick wall time): the double-buffered tick loop's "
+                "target metric").set_function(
+            lambda: float(self._last_idle))
+        self._m_prefix_hits = self._m_prefix_misses = None
+        self._m_prefix_evictions = self._m_prefix_shared = None
+        if self._paged:
+            r.gauge("serving_kv_pages_free",
+                    "Allocatable pages on the KV free list"
+                    ).set_function(
+                lambda: float(self._allocator.pages_free))
+            r.gauge("serving_kv_pages_used",
+                    "KV pages referenced by slots or the prefix cache"
+                    ).set_function(
+                lambda: float(self._allocator.pages_used))
+            self._m_prefix_hits = r.counter(
+                "serving_prefix_cache_hits",
+                "Admissions whose prefix matched a cached page chain")
+            self._m_prefix_misses = r.counter(
+                "serving_prefix_cache_misses",
+                "Admissions with no cached prefix to share")
+            self._m_prefix_evictions = r.counter(
+                "serving_prefix_cache_evictions",
+                "Cached prefix pages reclaimed by LRU eviction")
+            self._m_prefix_shared = r.counter(
+                "serving_prefix_shared_tokens",
+                "Prompt tokens whose prefill compute AND KV bytes "
+                "were served from the radix prefix cache")
+        self._m_spec_drafted = self._m_spec_accepted = None
+        self._m_spec_waste = None
+        if self._spec:
+            self._m_spec_drafted = r.counter(
+                "serving_spec_drafted_tokens",
+                "Draft tokens proposed by speculative decode rounds")
+            self._m_spec_accepted = r.counter(
+                "serving_spec_accepted_tokens",
+                "Draft tokens accepted by target-model verification")
+            r.gauge("serving_spec_acceptance_ratio",
+                    "Cumulative accepted/drafted draft-token ratio"
+                    ).set_function(lambda: (
+                        float(self._m_spec_accepted.value)
+                        / max(1.0, float(self._m_spec_drafted.value))))
+            r.gauge("serving_spec_k",
+                    "Adaptive draft length in use (0 while the "
+                    "controller has fallen back to plain decode)"
+                    ).set_function(lambda: float(self.spec_k_current))
+            if self._pipe:
+                self._m_spec_waste = r.counter(
+                    "serving_spec_schedule_waste_tokens",
+                    "Worst-case K+1 window slots the schedule-ahead "
+                    "dispatch reserved that verification then rejected "
+                    "(the price of pipelining a nondeterministic commit "
+                    "count)")
+        self._m_prefill_chunks = None
+        if self._prefill_chunk is not None:
+            self._m_prefill_chunks = r.counter(
+                "serving_prefill_chunks",
+                "Prefill chunks advanced by the token-budget "
+                "scheduler (one per slot per chunked-prefill call)")
+            r.gauge("serving_tick_budget_utilization",
+                    "Tokens scheduled in the last tick / "
+                    "tick_token_budget (decode chunks + prefill "
+                    "chunks; >1 when the progress floor overrode "
+                    "the budget)").set_function(
+                lambda: float(self._last_tick_spent)
+                / float(max(1, self._tick_budget)))
+        # grammar constraints: registered at the first constrained
+        # submit (`_ensure_constrain_metrics`)
+        self._m_c_requests = self._m_c_rejections = None
+        self._m_c_compiles = self._m_c_terminal = None
+        self._m_c_illegal = None
+        # the port's own series (`_PORT_SERIES`)
+        m = {}
+        for key, (name, kind, where, help_) in _PORT_SERIES.items():
+            on = {"all": True, "spec": self._spec, "paged": self._paged,
+                  "pipeline": self._pipe,
+                  "cuda": self.device.type == "cuda",
+                  "constrain": False}[where]
+            m[key] = getattr(r, kind)(name, help_) if on else None
+        self._m_port = m
+        self._m_graph_captures = m["graph_captures"]
+        self._m_graph_replays = m["graph_replays"]
+        self._m_graph_pool_bytes = m["graph_pool_bytes"]
+        self.counts = _Readout(self._count_getters(), int)
+        self.seconds = _Readout(self._second_getters(), float)
+
+    def _ensure_constrain_metrics(self) -> None:
+        """Register the ``serving_constrained_*`` series at the first
+        constrained submit (reference :1812), so a constraint-off
+        engine's scrape has none of them."""
+        if self._m_c_requests is not None:
+            return
+        r = self.registry
+        self._m_c_requests = r.counter(
+            "serving_constrained_requests",
+            "Requests admitted with a grammar constraint")
+        self._m_c_rejections = r.counter(
+            "serving_constrained_rejections",
+            "Constrained submissions rejected at submit() with a "
+            "typed ConstraintError, by reason (never mid-decode)",
+            labelnames=("reason",))
+        self._m_c_compiles = r.counter(
+            "serving_constrained_grammar_compiles",
+            "Distinct compiled grammars this engine has admitted "
+            "(cache hits on the same grammar hash do not count)")
+        self._m_c_terminal = r.counter(
+            "serving_constrained_terminal_completions",
+            "Constrained requests completed early because their DFA "
+            "reached a terminal accepting state")
+        r.gauge("serving_constrained_states",
+                "DFA states resident in the constraint mask table "
+                "(bound: constrain_state_cap)").set_function(
+            lambda: float(self._ctab.rows_used
+                          if self._ctab is not None else 0))
+        name, kind, _, help_ = _PORT_SERIES["constrained_illegal"]
+        self._m_c_illegal = getattr(r, kind)(name, help_)
+        self._m_port["constrained_illegal"] = self._m_c_illegal
+
+    def _count_getters(self) -> Dict[str, Callable[[], float]]:
+        """`counts`' keys -> the registry reads behind them."""
+        port = self._m_port
+
+        def val(key):
+            return lambda: _value(port.get(key))
+
+        g = {"prefill_calls": lambda: _hist(self._m_prefill_seconds, 2),
+             **{k: val(k) for k, (_, kind, _, _) in _PORT_SERIES.items()
+                if kind == "counter" and not k.endswith("_seconds")},
+             "spec_drafted": lambda: _value(self._m_spec_drafted),
+             "spec_accepted": lambda: _value(self._m_spec_accepted),
+             "spec_released": lambda: (_value(port.get("spec_reserved"))
+                                       - _value(port.get(
+                                           "spec_committed"))),
+             "prefill_chunks": lambda: _value(self._m_prefill_chunks),
+             "prefix_hits": lambda: _value(self._m_prefix_hits),
+             "prefix_misses": lambda: _value(self._m_prefix_misses),
+             "prefix_shared_tokens": lambda: _value(self._m_prefix_shared),
+             "prefix_evictions": lambda: _value(self._m_prefix_evictions),
+             "pages_used": lambda: _gauge(self.registry,
+                                          "serving_kv_pages_used"),
+             "pages_free": lambda: _gauge(self.registry,
+                                          "serving_kv_pages_free"),
+             "shed_overload": lambda: _value(self._m_shed_overload),
+             "constrained_requests": lambda: _value(self._m_c_requests),
+             **{f"constrained_rejected_{r}": (
+                 lambda r=r: _value(self._m_c_rejections.labels(r))
+                 if self._m_c_rejections is not None else 0.0)
+                for r in _C_REASONS},
+             "constrained_grammar_compiles":
+                 lambda: _value(self._m_c_compiles),
+             "constrained_terminal": lambda: _value(self._m_c_terminal),
+             "constrained_table_rows": lambda: _gauge(
+                 self.registry, "serving_constrained_states"),
+             "param_bytes": lambda: _gauge(self.registry,
+                                           "serving_param_bytes"),
+             "kv_pool_bytes": lambda: _gauge(self.registry,
+                                             "serving_kv_pool_bytes")}
+        if self.device.type == "cuda":
+            g["graph_pool_bytes"] = lambda: _value(
+                port.get("graph_pool_bytes"))
+        else:
+            for k in ("graph_captures", "graph_replays"):
+                del g[k]
+        return g
+
+    def _second_getters(self) -> Dict[str, Callable[[], float]]:
+        """`seconds`' keys -> the registry reads behind them: a call
+        kind's host seconds are its histogram's sum (a spec round's are
+        in the decode histogram, as in the reference, and apart in the
+        port's own counter)."""
+        port = self._m_port
+        return {"prefill": lambda: _hist(self._m_prefill_seconds, 1),
+                "decode": lambda: (_hist(self._m_step_seconds, 1)
+                                   - _value(port.get("spec_seconds"))),
+                "spec": lambda: _value(port.get("spec_seconds")),
+                "wait": lambda: _value(port.get("wait_seconds"))}
+
+    def _inc(self, key: str, amount: float = 1) -> None:
+        """One of the port's own series (`_PORT_SERIES`), where this
+        engine registers it."""
+        m = self._m_port.get(key)
+        if m is not None:
+            m.inc(amount)
+
+    def _observe(self, what: str, fn, *args, **kw):
+        """An observability call that must not kill serving: a failure
+        is logged, and the serving path goes on (reference :693, :737).
+        Never wraps a program dispatch."""
+        try:
+            return fn(*args, **kw)
+        except Exception:
+            log.exception("observability: %s failed", what)
+            return None
 
     @property
     def num_slots(self) -> int:
@@ -559,9 +1031,214 @@ class InferenceEngine:
         """Pages the radix prefix cache holds (0 without one)."""
         return 0 if self._prefix_cache is None else len(self._prefix_cache)
 
+    # -- read-outs (reference :1940-1987, :5257-5522) ----------------------
+    def param_bytes(self) -> int:
+        """At-rest bytes of the serving weight tree (quantized trees
+        count their values and scales)."""
+        return param_bytes(self._params)
+
+    def kv_pool_bytes(self) -> int:
+        """At-rest bytes of the pool (paged: pages, scale planes and the
+        block tables): measured once the pool is allocated, analytic
+        before, so a pool can be sized before traffic arrives."""
+        if self._slot_state is not None:
+            meas = sum(int(a.numel()) * a.element_size()
+                       for a in self._slot_state)
+            if self._paged:
+                meas += int(self._bt.nbytes)
+            return int(meas)
+        if self._paged:
+            return paged_pool_bytes(
+                self.cfg, self._num_slots, self._page_size, self._num_pages,
+                self._max_pages, kv_mode=self._kv_mode)
+        return slot_pool_bytes(self.cfg, self._num_slots,
+                               kv_mode=self._kv_mode)
+
+    def kv_bytes_per_slot(self) -> int:
+        return self.kv_pool_bytes() // max(1, self._num_slots)
+
+    @property
+    def stats(self) -> dict:
+        """Counter snapshot (registry-backed) plus the HBM accounting
+        trio: the reference's keys for what the port has (its breaker,
+        retry, batch, reload and preemption keys wait for ROADMAP queue
+        A item 9)."""
+        return {"param_bytes": self.param_bytes(),
+                "kv_bytes_per_slot": self.kv_bytes_per_slot(),
+                "kv_pool_bytes": self.kv_pool_bytes(),
+                "completed": int(self._m_completed.value),
+                "shed_overload": int(self._m_shed_overload.value),
+                "in_flight": int(self._m_in_flight.value)}
+
+    def _degraded_locked(self) -> bool:
+        return len(self._queue) >= self.config.degrade_queue_depth
+
+    def health(self) -> dict:
+        """The `/healthz` body: the reference's keys for what the port
+        has (breaker, draining, weights step, warm-up and compile
+        sources wait for their ROADMAP queue A items)."""
+        with self._lock:
+            occupied = sum(s is not None for s in self._slots)
+            out = {"ready": self.ready(),
+                   "degraded": self._degraded_locked(),
+                   "queue_depth": len(self._queue),
+                   "num_slots": self._num_slots,
+                   "slots_occupied": occupied,
+                   "slot_occupancy": occupied / max(1, self._num_slots),
+                   "tick_budget_utilization": (
+                       self._last_tick_spent
+                       / float(max(1, self._tick_budget))
+                       if self._prefill_chunk is not None else None),
+                   "quantize": self._qmode,
+                   "kv_quantize": self._kv_mode,
+                   "paged": self._paged,
+                   "spec_decode": self._spec,
+                   "prefill_chunk": self._prefill_chunk,
+                   "pipeline": self._pipe}
+            if self._paged and self._prefix_cache is not None:
+                out["prefix_digest"] = self._prefix_cache.chain_digest()
+        return {**out, **self.stats}
+
+    def ready(self) -> bool:
+        """Admissions open (the port has no stop, drain or breaker yet,
+        so always)."""
+        return True
+
+    def debugz(self, recent: int = 100) -> dict:
+        """The operator's "why is it slow RIGHT NOW" snapshot
+        (reference :5257): the slot table, queue ages, the recorder's
+        recent events, the paged pool, the tick pipeline, the profiler's
+        report, and the chunked and spec state."""
+        now = self.recorder.now()
+
+        def age(r):
+            t = r.trace.first_ts("submit")
+            return round(now - t, 6) if t is not None else None
+
+        with self._lock:
+            slots = [{"slot": i, "rid": r.rid, "status": r.status,
+                      "tenant": r.tenant,
+                      "generated": int(sum(a.shape[0]
+                                           for a in r._generated)),
+                      "max_new_tokens": r.max_new_tokens,
+                      "age_s": age(r),
+                      **({"phase": ("prefilling"
+                                    if self._is_prefilling(r)
+                                    else "decoding"),
+                          "prefill_pos": int(r._prefill_pos),
+                          "prefill_target": int(r._prefill_target)}
+                         if self._prefill_chunk is not None else {})}
+                     for i, r in enumerate(self._slots) if r is not None]
+            queue = [{"rid": r.rid, "queue_age_s": age(r),
+                      "tenant": r.tenant} for r in self._queue]
+            queue_by_tenant: Dict[str, int] = {}
+            for r in self._queue:
+                t = r.tenant or "default"
+                queue_by_tenant[t] = queue_by_tenant.get(t, 0) + 1
+            degraded = self._degraded_locked()
+        out = {"mode": self.config.mode,
+               "num_slots": self._num_slots,
+               "slots_occupied": len(slots),
+               "slots": slots,
+               "queue_depth": len(queue),
+               "queue": queue,
+               "queue_by_tenant": queue_by_tenant,
+               "degraded": degraded,
+               "recorder_events": len(self.recorder),
+               "recent_events": [e.as_dict() for e in
+                                 self.recorder.recent(recent)]}
+        if self._paged:
+            with self._lock:
+                out["paged"] = {
+                    "page_size": self._page_size,
+                    "num_pages": self._num_pages,
+                    "pages_free": self._allocator.pages_free,
+                    "pages_used": self._allocator.pages_used,
+                    "block_tables": {
+                        i: list(map(int, pgs))
+                        for i, pgs in enumerate(self._slot_pages) if pgs},
+                    "prefix_cache": (
+                        {**self._prefix_cache.stats(),
+                         "hits": int(self.counts["prefix_hits"]),
+                         "misses": int(self.counts["prefix_misses"]),
+                         "shared_tokens": int(
+                             self.counts["prefix_shared_tokens"])}
+                        if self._prefix_cache is not None else None)}
+        out["tick_pipeline"] = {
+            "pipeline": self._pipe,
+            "in_flight_ticks": len(self._pending),
+            "last_sync_s": round(self._last_sync_s, 6),
+            "syncs_last_tick": self._last_tick_syncs,
+            "syncs_total": self.counts["syncs"],
+            "device_idle_fraction": round(self._last_idle, 4)}
+        if self.profiler.enabled:
+            out["profiling"] = self.profiler.report()
+        if self._prefill_chunk is not None:
+            out["chunked_prefill"] = {
+                "prefill_chunk": self._prefill_chunk,
+                "tick_token_budget": self._tick_budget,
+                "last_tick_tokens": self._last_tick_spent,
+                "budget_utilization": round(
+                    self._last_tick_spent / max(1, self._tick_budget), 3),
+                "prefill_chunks_total": self.counts["prefill_chunks"]}
+        if self._spec:
+            out["spec"] = {
+                "spec_k": self._spec_k,
+                "k": self.spec_k_current,
+                "plain_cooldown": self._spec_plain,
+                "draft": self.config.draft,
+                "draft_layers": self._draft_layers,
+                "accept_ema": {i: round(self._accept_ema[i], 3)
+                               for i, r in enumerate(self._slots)
+                               if r is not None},
+                "drafted": self.counts["spec_drafted"],
+                "accepted": self.counts["spec_accepted"]}
+        return out
+
+    def slo_report(self) -> dict:
+        """Windowed SLO report (observability/slo.py): TTFT / TPOT /
+        e2e / queue-age percentiles + goodput — `GET /slo`'s body."""
+        return self.slo.report()
+
+    def profile_report(self) -> dict:
+        """The profiler's report (observability/profiling.py): card
+        peaks, live MFU, achieved FLOP/s and bytes/s, the per-program
+        cost / roofline table and the per-tenant bill."""
+        return self.profiler.report()
+
+    def profilez(self, seconds) -> tuple:
+        """`GET /profilez?seconds=N` backend: one bounded single-flight
+        torch.profiler capture into ``EngineConfig.profile_dir``;
+        ``(http_status, body_dict)`` (503 without a directory, while a
+        capture runs, or while another torch.profiler session is
+        active). Wire via ``MetricsServer(profilez=engine.profilez)``."""
+        return self._capture.capture(seconds)
+
+    def timeline(self, n: Optional[int] = None) -> dict:
+        """Chrome/Perfetto trace_event JSON over the recorder's recent
+        events: one lane per slot plus the queue lane."""
+        return timeline_json(self.recorder, num_slots=self._num_slots, n=n)
+
+    def _on_terminal(self, r: RequestHandle) -> None:
+        """RequestHandle._finish hook (reference :2199): the terminal
+        trace event, with the request's accumulated bill, and the SLO
+        accounting, once per request."""
+        bill = ({"cost_flops": float(r.cost_flops),
+                 "cost_bytes": float(r.cost_bytes),
+                 **({"tenant": r.tenant} if r.tenant is not None else {})}
+                if self.profiler.enabled else {})
+        if r.status == RequestStatus.COMPLETED:
+            r.trace.add("finished",
+                        tokens=int(sum(a.shape[0] for a in r._generated)),
+                        partial=False, **bill)
+        elif r.status == RequestStatus.SHED:
+            r.trace.add("shed", reason="overload", **bill)
+        self.slo.finished(r.trace)
+
     # -- admission -------------------------------------------------------
     def submit(self, prompt, max_new_tokens: Optional[int] = None,
-               constrain=None) -> RequestHandle:
+               constrain=None, tenant: Optional[str] = None,
+               trace_ctx: Optional[dict] = None) -> RequestHandle:
         """Admit one prompt. Raises OverloadError when the queue is full;
         past ``degrade_queue_depth`` queued requests the token budget is
         capped at ``degraded_max_new_tokens`` (reference :2123-2127). A
@@ -570,7 +1247,12 @@ class InferenceEngine:
         `serving.constrain.normalize_constraint`, whose ``consumed``
         counts prompt-tail tokens the grammar already read) restricts
         the output to the grammar; a spec that cannot be served raises
-        ConstraintError here (reference :2030-2070, :2145-2180)."""
+        ConstraintError here (reference :2030-2070, :2145-2180).
+        ``tenant`` labels the request's bill (a malformed id raises
+        QoSValidationError first: it becomes a metric label) and
+        ``trace_ctx`` is merged into every event of its trace
+        (reference :2180-2197)."""
+        tenant, _ = validate_tenant_priority(tenant)
         prompt = np.asarray(prompt, np.int32)
         if prompt.ndim != 1 or prompt.size == 0:
             raise ValueError("prompt must be a non-empty 1-D token array")
@@ -590,6 +1272,7 @@ class InferenceEngine:
                 raise
         with self._lock:
             if len(self._queue) >= self.config.max_queue:
+                self._m_shed_overload.inc()
                 raise OverloadError(f"queue full ({self.config.max_queue})")
             cap = (self.config.degraded_max_new_tokens
                    if len(self._queue) >= self.config.degrade_queue_depth
@@ -622,12 +1305,23 @@ class InferenceEngine:
                     raise
                 if grammar.key not in self._cgrammar_keys:
                     self._cgrammar_keys.add(grammar.key)
-                    self.counts["constrained_grammar_compiles"] += 1
-                self.counts["constrained_requests"] += 1
-                self.counts["constrained_table_rows"] = self._ctab.rows_used
+                    self._m_c_compiles.inc()
+                self._m_c_requests.inc()
                 handle._grammar = grammar
                 handle._cinit = handle._cstate_host = cstart
+            handle.tenant = tenant
+            handle.trace = self.recorder.start_trace(handle.rid,
+                                                     ctx=trace_ctx)
+            handle._on_terminal = self._on_terminal
+            handle.trace.add(
+                "submit", prompt_tokens=int(prompt.shape[0]),
+                max_new_tokens=int(eff), deadline_s=None,
+                **({"tenant": tenant} if tenant is not None else {}),
+                **({"constrained": True, "grammar": grammar.key[:12],
+                    "dfa_states": grammar.num_states}
+                   if grammar is not None else {}))
             self._queue.append(handle)
+            handle.trace.add("queued", depth=len(self._queue))
         return handle
 
     # -- grammar constraints (reference :1841-1935) ------------------------
@@ -653,8 +1347,8 @@ class InferenceEngine:
         return grammar, int(start)
 
     def _c_reject(self, e: ConstraintError) -> None:
-        key = f"constrained_rejected_{e.reason}"
-        self.counts[key] = self.counts.get(key, 0) + 1
+        self._ensure_constrain_metrics()
+        self._m_c_rejections.labels(reason=e.reason).inc()
 
     def _ensure_constrain(self) -> None:
         """The first constrained admission: the table, the per-slot DFA
@@ -666,6 +1360,7 @@ class InferenceEngine:
                                      int(self.cfg.vocab_size))
         self._cstate = torch.zeros((self._num_slots,), dtype=torch.int32,
                                    device=self.device)
+        self._ensure_constrain_metrics()
         self._constrain_active = True
 
     def _c_state_for(self, r: RequestHandle) -> int:
@@ -691,7 +1386,9 @@ class InferenceEngine:
         keep, terminal = 0, False
         for t in toks.tolist():
             if not g.legal(st, int(t)):
-                self.counts["constrained_illegal"] += 1
+                log.error("request %d: committed token %d illegal in "
+                          "DFA state %d (truncating)", r.rid, int(t), st)
+                self._m_c_illegal.inc()
                 break
             st = g.advance(st, int(t))
             keep += 1
@@ -705,7 +1402,13 @@ class InferenceEngine:
                 error: Optional[BaseException] = None) -> None:
         """The one place a request finishes: its grammar's table rows are
         released (they stay resident for a resubmit until the table needs
-        the room; reference :2230)."""
+        the room; reference :2230), a completion is counted and the
+        request leaves the in-flight gauge."""
+        if status == RequestStatus.COMPLETED:
+            self._m_completed.inc()
+        if r._in_flight:
+            r._in_flight = False
+            self._m_in_flight.dec()
         r._finish(status, error)
         if r._grammar is not None:
             self._ctab.release(r._grammar.key)
@@ -735,6 +1438,9 @@ class InferenceEngine:
         each call's output as it dispatches it and commits this tick; the
         pipelined loop commits the previous tick behind one wait (see the
         module docstring). Returns whether any work was done."""
+        self._tick_perf0 = _perf()
+        self._tick_syncs = 0
+        self._observe("tick_begin", self.profiler.tick_begin)
         admitted = self._fill_slots()
         pending = self._dispatch_tick(admitted)
         prev = pending
@@ -745,11 +1451,31 @@ class InferenceEngine:
         if prev is not None:
             self._commit_tick(prev)
         self._reap()
-        self._page_counts()
         busy = bool(admitted) or pending is not None or prev is not None
-        if busy and self._pipe:
-            self.counts["pipelined_ticks"] += 1
+        if busy:
+            self._inc("pipelined_ticks")
+            self._observe("tick_end", self._tick_epilogue)
         return busy
+
+    def _tick_epilogue(self) -> None:
+        """The device-idle estimate of the tick, and its busy interval
+        attributed across the programs it dispatched (reference
+        `_tick_epilogue`, :2590)."""
+        nowp = _perf()
+        wall = nowp - self._tick_perf0
+        if self._busy_since is not None:
+            # a dispatch chain is still outstanding (pipelined tick):
+            # fold the elapsed busy interval into THIS tick and roll the
+            # marker forward into the next one
+            self._tick_busy_s += nowp - self._busy_since
+            self._busy_since = nowp
+        if wall > 0:
+            self._last_idle = min(1.0, max(
+                0.0, 1.0 - self._tick_busy_s / wall))
+        self.profiler.tick_end(self._tick_busy_s)
+        self._busy_total_s += self._tick_busy_s
+        self._tick_busy_s = 0.0
+        self._last_tick_syncs = self._tick_syncs
 
     def _fill_slots(self) -> List[tuple]:
         """Seat queued requests into free slots, FIFO (reference
@@ -792,8 +1518,22 @@ class InferenceEngine:
                 r._prefill_pos = int(hit)
                 r._prefill_target = int(r.prompt.shape[0]
                                         + r.generated.shape[0])
+                self._m_prefill_tokens.inc(
+                    max(0, r._prefill_target - r._prefill_pos))
+                r._in_flight = True
+                self._m_in_flight.inc()
+                self._observe("admitted", self._trace_admitted, i, r, hit)
                 admitted.append((i, r))
         return admitted
+
+    def _trace_admitted(self, i: int, r: RequestHandle, hit: int) -> None:
+        """The ``admitted`` event (reference :3384) and the queue age."""
+        extra = ({"prefill_chunk": self._prefill_chunk}
+                 if self._prefill_chunk is not None else {})
+        r.trace.add("admitted", slot=i, bucket=int(self._bucket_len(
+            r.prompt.shape[0] + r.generated.shape[0] - hit)),
+            prefix_hit_tokens=int(hit), **extra)
+        self.slo.admitted(r.trace)
 
     def _occupied(self) -> List[tuple]:
         with self._lock:
@@ -877,15 +1617,19 @@ class InferenceEngine:
 
         return run
 
-    def _run(self, kind: str, size: int, fixed: tuple, dyn: tuple) -> tuple:
+    def _run(self, kind: str, size: int, fixed: tuple, dyn: tuple,
+             host: tuple) -> tuple:
         """``program(*fixed, *dyn, seed)`` for the slot program (kind,
         size): ``fixed`` the weight trees and the pool, ``dyn`` the
-        call's tensors. On the card a per-tick program replays its CUDA
-        graph (`serving.graphs`). A constraint-active engine runs the
-        masked program instead, with the DFA states and the table added
-        to ``fixed`` and the pending seeds to ``dyn``; the seeds it took
-        retire after the call (`_cmask_begin` / `_cmask_commit`, JAX
-        :1901-1935: a seed recorded since stays for the next call)."""
+        call's tensors, ``host`` the (ctx, lens) host data that costs
+        the call (`observability.profiling.program_cost`; its per-token
+        rate is left in ``_call_rate``). On the card a per-tick program
+        replays its CUDA graph (`serving.graphs`). A constraint-active
+        engine runs the masked program instead, with the DFA states and
+        the table added to ``fixed`` and the pending seeds to ``dyn``;
+        the seeds it took retire after the call (`_cmask_begin` /
+        `_cmask_commit`, JAX :1901-1935: a seed recorded since stays for
+        the next call)."""
         taken = None
         if self._constrain_active:
             kind += "_c"
@@ -893,7 +1637,13 @@ class InferenceEngine:
             taken, seeds = self._cmask_begin()
             dyn += seeds
         fn = self._program(kind, size)
+        self._call_rate = (0.0, 0.0)
+        if self.profiler.enabled:
+            self._observe("program cost", self._profile_call, kind, size,
+                          *host)
         seed = int(self.config.seed)
+        self._busy_mark()
+        self._step += 1
         if self._graphs is not None and kind in self._GRAPHED:
             out = self._graphs.call((kind, size), fn, fixed, dyn, seed)
         else:
@@ -903,6 +1653,54 @@ class InferenceEngine:
         self._cmask_commit(taken)
         npool = len(self._slot_state)
         return (*out[:npool], *out[npool + 1:])
+
+    # JAX's names of the port's program kinds (the rest are the same)
+    _JAX_PROGRAM = {"spec": "spec_decode", "paged_spec": "paged_spec_decode"}
+
+    @classmethod
+    def _program_label(cls, kind: str, size: int) -> str:
+        """The reference's metric label of a program call (:4214): its
+        JAX program name, plus the bucket of an admission prefill and the
+        K of a spec round (``prefill_b1024``, ``spec_decode_k7``,
+        ``paged_spec_decode_c_k4``)."""
+        masked = kind.endswith("_c")
+        base = kind[:-2] if masked else kind
+        name = cls._JAX_PROGRAM.get(base, base) + ("_c" if masked else "")
+        if base in ("prefill", "paged_prefill"):
+            return f"{name}_b{int(size)}"
+        if base in ("spec", "paged_spec"):
+            return f"{name}_k{int(size)}"
+        return name
+
+    def _program_tokens(self, kind: str, size: int) -> int:
+        """Tokens one full invocation computes (reference :4225): the
+        size over every slot, a spec round's K+1 window positions."""
+        if kind.removesuffix("_c").endswith("spec"):
+            return (int(size) + 1) * self._num_slots
+        return int(size) * self._num_slots
+
+    def _profile_call(self, kind: str, size: int, ctx, lens) -> None:
+        """Cost one program call from its host data, install it under
+        its label and record the dispatch for this tick's attribution;
+        the per-token rate bills its tokens."""
+        label = self._program_label(kind, size)
+        paged = kind.startswith("paged")
+        cost = program_cost(
+            self.cfg, kind, size, self._num_slots, ctx, lens,
+            kv_mode=self._kv_mode, weights=self._wbytes,
+            draft=self._dbytes,
+            draft_layers=self._draft_layers if self._spec else 0,
+            page_size=self._page_size if paged else 0,
+            max_pages=self._max_pages if paged else 0)
+        tokens = self._program_tokens(kind, size)
+        self.profiler.record_program(label, cost, tokens)
+        self.profiler.dispatched(label, cost)
+        self._call_rate = (cost["flops"] / tokens, cost["bytes"] / tokens)
+
+    def _bill(self, pairs, kind: str, rate) -> None:
+        """Bill each (handle, tokens) of ``pairs`` at ``rate``."""
+        for r, n in pairs:
+            self.profiler.bill_tokens(r, None, int(n), kind, rate)
 
     def _cmask_begin(self):
         """The pending seeds as one call's (cseed [Ns] bool, cseedval
@@ -945,15 +1743,29 @@ class InferenceEngine:
     def _wait(self, done) -> None:
         """The blocking device wait: on event ``done``, or (None) on all
         work queued so far. Counted in ``counts["syncs"]``, its time in
-        ``seconds["wait"]``."""
-        t0 = time.perf_counter()
+        ``seconds["wait"]``; it ends the device's busy interval unless
+        a dispatched tick is still pending (reference `_sync_done`,
+        :4079)."""
+        t0 = _perf()
         if self.device.type == "cuda":
             if done is None:
                 torch.cuda.current_stream(self.device).synchronize()
             else:
                 done.synchronize()
-        self.seconds["wait"] += time.perf_counter() - t0
-        self.counts["syncs"] += 1
+        now = _perf()
+        self._inc("wait_seconds", now - t0)
+        self._inc("syncs")
+        self._last_sync_s = now - t0
+        self._tick_syncs += 1
+        if self._busy_since is not None and not self._pending:
+            self._tick_busy_s += now - self._busy_since
+            self._busy_since = None
+
+    def _busy_mark(self) -> None:
+        """The device is busy from a dispatch to the wait that drains
+        it (reference :4072)."""
+        if self._busy_since is None:
+            self._busy_since = _perf()
 
     def _block_table(self, entries, span: Optional[int]) -> torch.Tensor:
         """Before a paged call that writes: privatise the shared pages in
@@ -985,13 +1797,20 @@ class InferenceEngine:
             kind, lead, tail_args = "paged_prefill", (bt,), (start,)
         else:
             kind, lead, tail_args = "prefill", (), ()
-        t0 = time.perf_counter()
+        t0 = _perf()
         *state, first = self._run(
             kind, tb, (self._params, *state),
-            (*lead, *map(self._tensor, (prompts, plen, *tail_args))))
+            (*lead, *map(self._tensor, (prompts, plen, *tail_args))),
+            (start, plen))
+        rate = self._call_rate
         first = self._host(first)
-        self.seconds["prefill"] += time.perf_counter() - t0
-        self.counts["prefill_calls"] += 1
+        self._m_prefill_seconds.observe(_perf() - t0)
+        for i, _ in entries:
+            self._dev_pos[i] = start[i] + plen[i]
+        if self.profiler.enabled:
+            self._observe("bill", self._bill,
+                          [(r, plen[i]) for i, r in entries], "prefill",
+                          rate)
         return tuple(state), first
 
     def _active_rem(self, entries):
@@ -1008,35 +1827,43 @@ class InferenceEngine:
     def _call_chunk(self, state, entries):
         """One decode chunk over ``state`` for the occupied ``entries``;
         per-slot budgets ride as ``rem``, so a slot finishing mid-chunk
-        stops on the device. Returns (state', toks [Ns, chunk],
-        `_host`)."""
+        stops on the device. Returns (state', toks [Ns, chunk] by
+        `_host`, the call's per-token rate)."""
         active, rem = self._active_rem(entries)
+        steps = np.where(active, np.minimum(self._chunk,
+                                            np.maximum(rem, 0)), 0)
         if self._paged:
             kind, lead = "paged_decode", (self._block_table(entries,
                                                             self._chunk),)
         else:
             kind, lead = "decode", ()
-        t0 = time.perf_counter()
+        t0 = _perf()
         *state, toks = self._run(
             kind, self._chunk, (self._params, *state),
-            (*lead, self._tensor(active), self._tensor(rem)))
+            (*lead, self._tensor(active), self._tensor(rem)),
+            (self._dev_pos.copy(), steps))
+        rate = self._call_rate
         toks = self._host(toks)
-        self.seconds["decode"] += time.perf_counter() - t0
-        self.counts["decode_chunks"] += 1
-        return tuple(state), toks
+        self._m_step_seconds.observe(_perf() - t0)
+        self._inc("decode_chunks")
+        self._dev_pos += steps
+        return tuple(state), toks, rate
 
-    def _commit_first(self, entries, first) -> None:
+    def _commit_first(self, entries, first, **data) -> None:
         """Each live entry's first generated token (a one-shot prefill's
         or a last prefill chunk's)."""
         for i, r in entries:
             if not r.done():
-                self._commit_tokens(r, first[i:i + 1].astype(np.int32))
+                self._commit_tokens(r, first[i:i + 1].astype(np.int32),
+                                    "prefill_done", slot=i, **data)
 
-    def _commit_decode(self, entries, toks, needs) -> None:
+    def _commit_decode(self, entries, toks, needs, rate, data) -> None:
         """A decode chunk's tokens: ``needs[j]`` of entry j's row."""
         for (i, r), n in zip(entries, needs):
             if n > 0 and not r.done():
-                self._commit_tokens(r, toks[i, :n].astype(np.int32))
+                self._commit_tokens(r, toks[i, :n].astype(np.int32),
+                                    "decode_chunk", rate=rate, slot=i,
+                                    **data)
 
     # -- chunked prefill: the token-budget scheduler (reference :2627) -----
     def _is_prefilling(self, r: RequestHandle) -> bool:
@@ -1103,18 +1930,23 @@ class InferenceEngine:
                           (self._block_table(entries, None),))
         else:
             kind, lead = "chunked_prefill", ()
-        t0 = time.perf_counter()
+        t0 = _perf()
         *state, first = self._run(
             kind, c, (self._params, *self._slot_state),
-            (*lead, *map(self._tensor, (toks, clen, start, last))))
+            (*lead, *map(self._tensor, (toks, clen, start, last))),
+            (start, clen))
+        rate = self._call_rate
         first = self._host(first)
-        self.seconds["prefill"] += time.perf_counter() - t0
-        self.counts["prefill_calls"] += 1
+        self._m_prefill_seconds.observe(_perf() - t0)
         self._slot_state = tuple(state)
+        if self.profiler.enabled:
+            self._observe("bill", self._bill,
+                          [(r, n) for _, r, n in plan], "prefill", rate)
         finished = []
         for i, r, n in plan:
             r._prefill_pos += n
-            self.counts["prefill_chunks"] += 1
+            self._dev_pos[i] = r._prefill_pos
+            self._m_prefill_chunks.inc()
             if r._prefill_pos >= r._prefill_target:
                 finished.append((i, r))
         # (reference :2895-2905) the chunk progress above is scheduling
@@ -1174,52 +2006,58 @@ class InferenceEngine:
             self._reap()
         decoding = self._sched_decoding()
         if decoding:
-            self._dispatch_decode(decoding)
+            self._dispatch_decode(decoding, {})
 
     def _dispatch_budgeted(self, admitted) -> None:
         """The chunked round (reference :3027): prefill chunks bought by
         the budget left after the decode bill, then the decode."""
         decoding0 = [(i, r) for i, r in self._occupied()
                      if not self._is_prefilling(r)]
-        self._advance_prefill(self._tick_budget
-                              - len(decoding0) * self._chunk)
+        spent = self._advance_prefill(self._tick_budget
+                                      - len(decoding0) * self._chunk)
         decoding = self._sched_decoding()
         if decoding:
-            self._dispatch_decode(decoding)
+            self._dispatch_decode(decoding, {"prefill_chunk": int(spent)})
+        self._last_tick_spent = spent + len(decoding) * self._chunk
 
-    def _dispatch_decode(self, decoding) -> None:
+    def _dispatch_decode(self, decoding, data: dict) -> None:
         """A decode chunk, or a spec round (reference :3039): each slot's
-        tokens of the chunk, min(chunk, its budget), go in flight."""
+        tokens of the chunk, min(chunk, its budget), go in flight.
+        ``data`` rides on the commit's decode_chunk events."""
         if self._spec and self._spec_tick():
-            self._dispatch_spec(decoding)
+            self._dispatch_spec(decoding, data)
             return
-        self._slot_state, toks = self._call_chunk(self._slot_state,
-                                                  decoding)
+        self._slot_state, toks, rate = self._call_chunk(self._slot_state,
+                                                        decoding)
         needs = []
         for _, r in decoding:
             n = min(self._chunk, r.max_new_tokens - r.generated.shape[0]
                     - r._pending_n)
             needs.append(n)
             r._pending_n += n
-        self._pipe_items.append(("decode", list(decoding), toks, needs))
+        self._pipe_items.append(("decode", list(decoding), toks, needs,
+                                 rate, data))
 
-    def _dispatch_spec(self, decoding) -> None:
+    def _dispatch_spec(self, decoding, data: dict) -> None:
         """Schedule-ahead spec round (reference :3061): a round's commit
         count is known only after verification, so each slot reserves the
         worst case, K+1 tokens within its budget, as in flight; the
         commit releases what verification rejected. K is what the last
         commit decided (`_spec_update` runs at commit)."""
         k1 = self._spec_cur_k + 1
-        self._slot_state, out = self._call_spec(self._slot_state, decoding)
+        self._slot_state, out, rate = self._call_spec(self._slot_state,
+                                                      decoding)
         reserved = []
-        for _, r in decoding:
+        for i, r in decoding:
             n = min(k1, r.max_new_tokens - r.generated.shape[0]
                     - r._pending_n)
             reserved.append(n)
             r._pending_n += n
             r._pending_spec += n
-        self.counts["spec_reserved"] += sum(reserved)
-        self._pipe_items.append(("spec", list(decoding), out, reserved))
+            self._dev_pos[i] += n     # the commit corrects it by ncommit
+        self._inc("spec_reserved", sum(reserved))
+        self._pipe_items.append(("spec", list(decoding), out, reserved,
+                                 rate, dict(data, step=self._step - 1)))
 
     def _commit_tick(self, prev: _PendingTick) -> None:
         """A dispatched tick's items committed in dispatch order
@@ -1239,19 +2077,22 @@ class InferenceEngine:
                 finished = rest[0]
                 for _, r in finished:
                     r._pending_n -= 1
-                self._commit_first(finished, out)
+                self._commit_first(finished, out,
+                                   prefill_chunk=self._prefill_chunk)
             elif kind == "decode":
-                needs = rest[0]
+                needs, rate, data = rest
                 for (_, r), n in zip(entries, needs):
                     r._pending_n -= n
-                self._commit_decode(entries, out, needs)
+                self._commit_decode(entries, out, needs, rate, data)
             else:
-                reserved = rest[0]
+                reserved, rate, data = rest
                 for (_, r), n in zip(entries, reserved):
                     r._pending_n -= n
                     r._pending_spec -= n
-                needs = self._commit_spec(entries, out)
-                self.counts["spec_released"] += sum(reserved) - sum(needs)
+                needs = self._commit_spec(entries, out, reserved, rate,
+                                          data)
+                if self._m_spec_waste is not None:
+                    self._m_spec_waste.inc(sum(reserved) - sum(needs))
 
     # -- paged KV: host page bookkeeping (under self._lock) ----------------
     def _alloc_page(self) -> Optional[int]:
@@ -1261,7 +2102,7 @@ class InferenceEngine:
         if p is None and self._prefix_cache is not None:
             freed = self._prefix_cache.evict(1)
             if freed:
-                self.counts["prefix_evictions"] += freed
+                self._m_prefix_evictions.inc(freed)
                 p = self._allocator.alloc()
         return p
 
@@ -1300,7 +2141,7 @@ class InferenceEngine:
                 for q in fresh + held:
                     self._allocator.decref(q)
                 if not any(self._slot_pages):
-                    self.counts["shed_overload"] += 1
+                    self._m_shed_overload.inc()
                     self._finish(r, RequestStatus.SHED, OverloadError(
                         f"request {r.rid} needs {need} KV pages; the pool "
                         f"cannot free enough "
@@ -1319,10 +2160,10 @@ class InferenceEngine:
         r._page_start = m
         if self._prefix_cache is not None:
             if m > 0:
-                self.counts["prefix_hits"] += 1
-                self.counts["prefix_shared_tokens"] += m
+                self._m_prefix_hits.inc()
+                self._m_prefix_shared.inc(m)
             else:
-                self.counts["prefix_misses"] += 1
+                self._m_prefix_misses.inc()
         return m
 
     def _copy_page(self, src: int, dst: int) -> None:
@@ -1332,7 +2173,7 @@ class InferenceEngine:
         for plane in self._slot_state[:-2]:
             plane = raw(plane)
             plane[:, dst] = plane[:, src]
-        self.counts["cow_copies"] += 1
+        self._inc("cow_copies")
 
     def _release_slot_pages(self, i: int) -> None:
         self._allocator.release_chain(self._slot_pages[i])
@@ -1406,11 +2247,6 @@ class InferenceEngine:
                 self._prefix_cache.insert(np.asarray(r.prompt, np.int32),
                                           self._slot_pages[i])
 
-    def _page_counts(self) -> None:
-        if self._paged:
-            self.counts["pages_used"] = self._allocator.pages_used
-            self.counts["pages_free"] = self._allocator.pages_free
-
     # -- speculative decoding (reference :4711-4944) -----------------------
     def _rebuild_draft(self) -> None:
         """Derive the drafter tree from the live params (reference
@@ -1445,16 +2281,20 @@ class InferenceEngine:
             kind, lead = "paged_spec", (self._block_table(entries, k + 1),)
         else:
             kind, lead = "spec", ()
-        t0 = time.perf_counter()
+        t0 = _perf()
         *state, emit, nc, drafted, accepted = self._run(
             kind, k, (self._params, self._draft_params, *state),
-            (*lead, *map(self._tensor, (active, rem, poison))))
+            (*lead, *map(self._tensor, (active, rem, poison))),
+            (self._dev_pos.copy(), (active & (rem > 0)).astype(np.int64)))
+        rate = self._call_rate
         out = self._host(torch.cat([emit, nc[:, None], drafted[:, None],
                                     accepted[:, None]], dim=1))
-        self.seconds["spec"] += time.perf_counter() - t0
-        self.counts["spec_rounds"] += 1
-        self.counts["spec_draft_steps"] += k
-        return tuple(state), out
+        dt = _perf() - t0
+        self._m_step_seconds.observe(dt)
+        self._inc("spec_seconds", dt)
+        self._inc("spec_rounds")
+        self._inc("spec_draft_steps", k)
+        return tuple(state), out, rate
 
     @staticmethod
     def _spec_out(out: np.ndarray):
@@ -1462,23 +2302,37 @@ class InferenceEngine:
         packed output."""
         return out[:, :-3], out[:, -3], out[:, -2], out[:, -1]
 
-    def _commit_spec(self, entries, out) -> List[int]:
+    def _commit_spec(self, entries, out, reserved, rate, data
+                     ) -> List[int]:
         """A round's commit: each live entry's accepted prefix and
-        correction token, its drafted / accepted counts, then the
-        adaptive-K controller. Returns the tokens committed per entry."""
+        correction token, its drafted / accepted counts (and a
+        draft_rejected event when it accepted none, reference :3176),
+        then the adaptive-K controller. Returns the tokens committed per
+        entry."""
         toks, nc, drafted, accepted = self._spec_out(out)
+        data = dict(data)
+        step = data.pop("step")
         needs = []
-        for i, r in entries:
+        for (i, r), n_res in zip(entries, reserved):
+            # the device advanced the slot by its commit count: the
+            # dispatch counted the whole reservation
+            self._dev_pos[i] += int(nc[i]) - n_res
             need = 0
             if not r.done():
-                self.counts["spec_drafted"] += int(drafted[i])
-                self.counts["spec_accepted"] += int(accepted[i])
+                d_i, a_i = int(drafted[i]), int(accepted[i])
+                self._m_spec_drafted.inc(d_i)
+                self._m_spec_accepted.inc(a_i)
+                if d_i and a_i == 0:
+                    self._observe("draft_rejected", r.trace.add,
+                                  "draft_rejected", step=step, drafted=d_i,
+                                  poisoned=False)
                 need = min(int(nc[i]),
                            r.max_new_tokens - r.generated.shape[0])
-                need = self._commit_tokens(r, toks[i, :need].astype(
-                    np.int32))
+                need = self._commit_tokens(
+                    r, toks[i, :need].astype(np.int32), "decode_chunk",
+                    rate=rate, slot=i, drafted=d_i, accepted=a_i, **data)
             needs.append(need)
-        self.counts["spec_committed"] += sum(needs)
+        self._inc("spec_committed", sum(needs))
         self._spec_update(entries, drafted, accepted)
         return needs
 
@@ -1510,21 +2364,37 @@ class InferenceEngine:
         elif pool > 0.8 and k < self._spec_k:
             self._spec_cur_k = min(self._spec_k, k * 2)
 
-    def _commit_tokens(self, r: RequestHandle, toks: np.ndarray) -> int:
+    def _commit_tokens(self, r: RequestHandle, toks: np.ndarray,
+                       event: str, rate=None, **data) -> int:
         """The one place generated tokens land on a handle; a constrained
         request's pass the host's grammar walk first, and a terminal
         state completes it (grammar complete -> EOS, reference
-        :2509-2548). Returns the tokens committed."""
+        :2509-2548). Records ``event`` (prefill_done / decode_chunk)
+        with ``data``, the first token's TTFT, and bills a decode's
+        tokens at ``rate``. Returns the tokens committed."""
+        first = not r._generated
         terminal = False
         if r._grammar is not None:
             toks, terminal = self._c_advance_commit(r, toks)
         r._generated.append(toks)
+        self._observe("commit", self._trace_commit, r, int(toks.shape[0]),
+                      event, first, rate, data)
         if terminal and not r.done():
-            self.counts["constrained_terminal"] += 1
+            self._m_c_terminal.inc()
+            self._observe("constraint", r.trace.add, "constraint",
+                          terminal=True, state=int(r._cstate_host))
         if (terminal or r.generated.shape[0] >= r.max_new_tokens) and \
                 not r.done():
             self._finish(r, RequestStatus.COMPLETED)
         return int(toks.shape[0])
+
+    def _trace_commit(self, r: RequestHandle, n: int, event: str,
+                      first: bool, rate, data) -> None:
+        ev = r.trace.add(event, tokens=n, **data)
+        if first:
+            self.slo.first_token(r.trace, ev.ts)
+        if event == "decode_chunk" and rate is not None:
+            self.profiler.bill_tokens(r, None, n, "decode", rate)
 
     def _reap(self) -> None:
         """Free the slots whose request has all its tokens: committed,

@@ -28,7 +28,9 @@ side stream into one private memory pool shared by every graph of the
 engine. A kernel wrapper's launch counter counts where the wrapper
 launches: the eager call and the capture (which launches into the
 graph). A replay runs the captured kernels without calling a wrapper,
-so it adds to no counter; ``counts["graph_replays"]`` counts replays,
+so it adds to no counter; the engine's ``serving_graph_replays_total``
+(``counts["graph_replays"]``) counts replays on the host, outside the
+graph,
 and what a replay ran on the device is measured from the device's own
 trace (chip_smoke.py's profiled ticks). A failed capture or replay
 raises; there is no eager fallback.
@@ -53,18 +55,19 @@ class _Graph:
 
 class SlotGraphs:
     """The CUDA graphs of one engine's slot programs, keyed by (kind,
-    size). ``counts`` (the engine's) gets ``graph_captures``,
-    ``graph_replays`` and ``graph_pool_bytes`` (the device memory the
-    captures reserved for their pool)."""
+    size). ``captures`` and ``replays`` are the engine's counters of
+    captures and replays, ``pool_bytes`` its gauge of the device memory
+    the captures reserved for their pool (registry instruments)."""
 
-    def __init__(self, device: torch.device, counts: Dict[str, int]):
+    def __init__(self, device: torch.device, captures, replays,
+                 pool_bytes):
         self.device = device
-        self.counts = counts
+        self._captures = captures
+        self._replays = replays
+        self._pool_bytes = pool_bytes
         self._graphs: Dict[Tuple[str, int], _Graph] = {}
         self._pool = None
         self._stream = None
-        for name in ("graph_captures", "graph_replays", "graph_pool_bytes"):
-            counts[name] = 0
 
     def keys(self) -> List[Tuple[str, int]]:
         """The captured (kind, size) keys, in capture order."""
@@ -88,7 +91,7 @@ class SlotGraphs:
         for buf, x in zip(g.static_in, dyn):
             buf.copy_(x, non_blocking=True)
         g.graph.replay()
-        self.counts["graph_replays"] += 1
+        self._replays.inc()
         return g.static_out
 
     def _capture(self, fn: Callable, fixed: tuple, dyn: tuple,
@@ -112,7 +115,7 @@ class SlotGraphs:
         if any(a is not b for a, b in zip(out, state)):
             raise RuntimeError("a captured slot program must return its pool "
                                "tensors themselves (updated in place)")
-        self.counts["graph_captures"] += 1
-        self.counts["graph_pool_bytes"] += (
+        self._captures.inc()
+        self._pool_bytes.inc(
             torch.cuda.memory_reserved(self.device) - reserved)
         return _Graph(graph, fixed, static_in, tuple(out))

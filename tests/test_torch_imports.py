@@ -138,3 +138,39 @@ def test_kernel_experiments_raise_without_cuda(monkeypatch, module):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
         mod.main(["--small"])
+
+
+OBSERVABILITY = ("deeplearning4j_tpu_torch.observability",
+                 "deeplearning4j_tpu_torch.util",
+                 "deeplearning4j_tpu_torch.util.flops",
+                 "deeplearning4j_tpu_torch.serving")
+
+
+@pytest.mark.parametrize("module", OBSERVABILITY)
+def test_observability_loads_no_jax(module):
+    """Importing the observability package, the chip-peak table and the
+    serving package (which wires them) in a fresh interpreter loads no
+    jax and nothing of the JAX package."""
+    import subprocess
+    import sys
+    code = (f"import sys\nimport {module}\n"
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'deeplearning4j_tpu'))\n"
+            "print(bad)\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"
+
+
+def test_observability_modules_are_checked():
+    """The ten counterparts of the JAX package's observability modules
+    and the chip-peak table are among the files the import rule parses."""
+    names = {str(p.relative_to(ROOT)) for p in _port_files()}
+    jax_mods = sorted(p.name for p in
+                      (ROOT / "deeplearning4j_tpu" / "observability")
+                      .glob("*.py"))
+    assert len(jax_mods) == 10
+    for name in jax_mods:
+        assert f"deeplearning4j_tpu_torch/observability/{name}" in names
+    assert "deeplearning4j_tpu_torch/util/flops.py" in names

@@ -1036,6 +1036,8 @@ def test_slot_program_graph_replay_equals_eager_on_card(requires_cuda, kind,
     from deeplearning4j_tpu_torch.models import transformer as tf
     from deeplearning4j_tpu_torch.ops import flash_decode as fd
     from deeplearning4j_tpu_torch.parallel import serving as sv
+    from deeplearning4j_tpu_torch.observability.metrics import \
+        MetricsRegistry
     from deeplearning4j_tpu_torch.serving.graphs import SlotGraphs
     counted = (fd.decode_attention_cuda, fd.decode_attention_q_cuda,
                fd.decode_window_attention_cuda,
@@ -1067,7 +1069,9 @@ def test_slot_program_graph_replay_equals_eager_on_card(requires_cuda, kind,
                                          **samp))
     trees = (params,) if kind.endswith("decode") else (params, params)
     twin = tuple(x.clone() for x in state)
-    graphs = SlotGraphs(dev, {})
+    reg = MetricsRegistry()
+    captures, replays = reg.counter("captures"), reg.counter("replays")
+    graphs = SlotGraphs(dev, captures, replays, reg.gauge("pool_bytes"))
     calls = [([True, True, True, False], [9, 2, 9, 9]),
              ([True, False, True, True], [1, 9, 3, 9]),
              ([True, True, True, True], [9, 9, 9, 2])]
@@ -1082,15 +1086,15 @@ def test_slot_program_graph_replay_equals_eager_on_card(requires_cuda, kind,
         want = fn(*trees, *twin, *dyn, 7)
         after = [w.launches for w in counted]
         torch.cuda.synchronize()
-        assert graphs.counts["graph_replays"] == n
+        assert replays.value == n
         eager = [a - m for m, a in zip(mid, after)]
         assert any(eager)
         assert [m - b for b, m in zip(before, mid)] == \
             [(2 if n == 0 else 0) * e for e in eager]
         for g, w in zip(got, want):
             assert torch.equal(g, w)
-    assert graphs.counts["graph_captures"] == 1
-    assert graphs.counts["graph_replays"] == len(calls) - 1
+    assert captures.value == 1
+    assert replays.value == len(calls) - 1
 
 
 @pytest.mark.parametrize("pipeline", [False, True], ids=["sync", "pipelined"])

@@ -1479,31 +1479,64 @@ def device_rows(prof):
     return rows
 
 
-def host_launch_calls(prof):
+def host_launch_calls(prof, marks=0):
     """{runtime call: count} of the host's kernel and graph launches in a
     torch.profiler run (cudaLaunchKernel, cudaLaunchKernelExC,
-    cudaGraphLaunch, and the driver API's cuLaunchKernel*)."""
-    return {e.key: e.count for e in prof.key_averages()
+    cudaGraphLaunch, and the driver API's cuLaunchKernel*), less the
+    ``marks`` spin kernels `profile_session` launched."""
+    host = {e.key: e.count for e in prof.key_averages()
             if e.key.startswith(("cudaLaunch", "cuLaunch",
                                  "cudaGraphLaunch"))}
+    if marks and host.get("cudaLaunchKernel", 0) >= marks:
+        host["cudaLaunchKernel"] -= marks
+        if not host["cudaLaunchKernel"]:
+            del host["cudaLaunchKernel"]
+    return host
 
 
-def profiled(torch, fn):
-    """Run fn() once under torch.profiler; returns (wall s, device rows,
-    host launch calls)."""
+# spin kernels (torch.cuda._sleep's device function) launched and waited
+# on at the start of every profiled session, before the work it times: a
+# tracer that starts recording late loses these first. Each session's
+# count of them in its trace goes to TRACER_MARKS_SEEN and into the
+# `wall` line; their rows are left out of what the session returns.
+TRACER_MARKS = 4
+TRACER_MARK_FN = "spin_kernel"
+TRACER_MARKS_SEEN = []
+
+
+def profile_session(torch, fn, marks=TRACER_MARKS):
+    """Run fn() once under torch.profiler (CPU and CUDA activities) after
+    ``marks`` spin kernels, waited on; returns (wall s of fn, the
+    profiler, its device rows without the marks)."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        for _ in range(marks):
+            torch.cuda._sleep(1000)
+        torch.cuda.synchronize()
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    return wall, device_rows(prof), host_launch_calls(prof)
+    rows = device_rows(prof)
+    if marks:
+        TRACER_MARKS_SEEN.append(sum(n for k, _, n in rows
+                                     if TRACER_MARK_FN in k))
+    return wall, prof, [r for r in rows if TRACER_MARK_FN not in r[0]]
+
+
+def profiled(torch, fn):
+    """Run fn() once in a `profile_session`; returns (wall s, device
+    rows, host launch calls)."""
+    wall, prof, rows = profile_session(torch, fn)
+    return wall, rows, host_launch_calls(prof, TRACER_MARKS)
 
 
 def profile_line(wall, rows, host, **rec):
     busy = sum(us for _, us, _ in rows) / 1e6
+    rec.update(tracer_marks_traced=TRACER_MARKS_SEEN[-1]
+               if TRACER_MARKS_SEEN else None)
     rec.update(host_launch_calls=sum(host.values()),
                host_launch_calls_by_name=host)
     rec.update(wall_s=wall,
@@ -3247,11 +3280,19 @@ def serve_handles(eng, waves, specs=None):
     return hs, time.perf_counter() - t0
 
 
-def scrape_gates(eng, hs, where):
+def scrape_gates(eng, hs, where, launches=None):
     """Scrape ``eng`` over MetricsServer(port=0) /metrics and gate it: the
-    naming lint, every counts key equal to the series that stands for it,
-    pages used + free = the pool's pages with none leaked, and the
-    requests' bills summing to the tenant counters. Returns the samples."""
+    naming lint; every counts key equal to the series that stands for it
+    (an exposition check: `counts` reads the same registry); pages used
+    + free = the pool's pages with none leaked; the requests' bills
+    summing to the tenant counters. Then the series against facts
+    counted elsewhere: completions and TTFT observations against the
+    handles ``hs`` (every request the engine served), prefill tokens
+    plus prefix-shared tokens against their prompts, and, given the
+    wrappers' ``launches`` over the engine's whole life, the kernel
+    launches and graph replays `check_launches` derives from the
+    scraped prefill calls, decode chunks, spec rounds and replays.
+    Returns (the samples, the bills)."""
     from deeplearning4j_tpu_torch.observability import MetricsServer
     srv = MetricsServer(eng.registry, port=0, health=eng.health,
                         ready=eng.ready, debug=eng.debugz,
@@ -3274,7 +3315,8 @@ def scrape_gates(eng, hs, where):
     bad = {k: (c[k], got.get(s)) for k, s in COUNT_SERIES.items()
            if s in got and got[s] != c[k]}
     missing = [k for k in ("prefill_calls", "decode_chunks", "syncs",
-                           "graph_replays", "param_bytes", "kv_pool_bytes")
+                           "param_bytes", "kv_pool_bytes")
+               + (("graph_replays",) if eng._graphs is not None else ())
                if COUNT_SERIES[k] not in got]
     if bad or missing:
         fail(f"3h {where}: scrape vs counts {bad}, missing {missing}")
@@ -3293,48 +3335,129 @@ def scrape_gates(eng, hs, where):
         if total <= 0 or abs(mine - total) > 1e-9 * total:
             fail(f"3h {where}: {what} bills {mine} vs counter {total}")
         bills[what] = total
+    facts = handle_facts(got, hs)
+    if any(a != b for a, b in facts.values()):
+        fail(f"3h {where}: series vs handles (series, handles) {facts}")
+    if launches is not None:
+        c = {k: int(got.get(COUNT_SERIES[k], 0)) for k in (
+            "prefill_calls", "decode_chunks", "spec_rounds",
+            "graph_replays")}
+        check_launches(eng, c, eng.cfg.n_layers, launches, f"3h {where}")
     return got, bills
+
+
+def handle_facts(got, hs):
+    """{what: (series value, the handles' count)} for what the scrape
+    ``got`` must agree with on the handles ``hs`` of every request the
+    engine served: completions, TTFT observations (one a request that
+    produced a token), and prefill plus prefix-shared tokens against
+    the prompts' tokens."""
+    done = [h for h in hs if h.status == "completed"]
+    return {
+        "completed": (got.get("serving_requests_completed_total", 0),
+                      len(done)),
+        "ttft_observations": (got.get("serving_ttft_seconds_count", 0),
+                              sum(1 for h in hs if h.result().shape[0]
+                                  > h.prompt.shape[0])),
+        "prompt_tokens": (got.get("serving_prefill_tokens_total", 0)
+                          + got.get("serving_prefix_shared_tokens_total", 0),
+                          sum(int(h.prompt.shape[0]) for h in hs))}
+
+
+def program_totals(eng):
+    """{series with its labels: value} of the engine's analytic FLOP
+    and byte counters (serving_program_flops / _bytes), read on the
+    host."""
+    from deeplearning4j_tpu_torch.observability import prometheus_text
+    return {k: v for k, v in scrape_samples(
+        prometheus_text(eng.registry)).items()
+        if k.startswith(("serving_program_flops_total",
+                         "serving_program_bytes_total"))}
 
 
 def profile_pipelined_tick(torch, eng, rng, where):
     """One steady pipelined decode tick (a decode chunk's dispatch and the
-    previous tick's commit, no admission) under torch.profiler, read from
-    the device's and the host's trace only (an engine on NULL_REGISTRY
-    counts nothing): the serving device functions launched and the
-    blocking waits (cudaEventSynchronize / cudaStreamSynchronize).
-    Returns (device launches, waits, trace idle share, wall s, the
-    idle gauge right after the tick (None on NULL_REGISTRY), the
-    handles)."""
-    from torch.profiler import ProfilerActivity, profile
+    previous tick's commit, no admission) in a `profile_session`, gated
+    on the device's and the host's trace only (an engine on
+    NULL_REGISTRY counts nothing): the serving device functions launched
+    and the blocking waits (cudaEventSynchronize /
+    cudaStreamSynchronize). On a live registry the engine's syncs over
+    the tick must equal those waits. Returns a dict: launches, waits,
+    syncs (None on NULL_REGISTRY), the trace's device busy s and idle
+    share, wall s, the idle gauge right after the tick, the chunk's
+    analytic FLOPs and bytes (program_cost, billed at its dispatch; None
+    on NULL_REGISTRY) with the rates they give over the trace's device
+    time, the top kernels by device time, and the handles."""
     L = eng.cfg.n_layers
     prompts = [rng.integers(0, 256, size=64).astype(np.int32)
                for _ in range(eng.num_slots)]
     hs = [eng.submit(p, max_new_tokens=33) for p in prompts]
     for _ in range(3):           # admissions, then two decode ticks
         eng.tick()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        # one small kernel first, waited on, so the tracer is recording
-        # when the tick starts (a full run once traced 84 of the chunk's
-        # 96 decode launches without it); its µs stay in the busy sum
-        torch.ones(1, device=eng.device).add_(1)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        eng.tick()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
+    syncs0 = eng.counts["syncs"]
+    cost0 = program_totals(eng)
+    wall, prof, rows = profile_session(torch, eng.tick)
+    live = eng.profiler.enabled
     gauge = eng.registry.get("serving_device_idle_fraction")
     gauge = None if gauge is None else gauge.value
-    rows = device_rows(prof)
     waits = sum(e.count for e in prof.key_averages()
                 if e.key in ("cudaEventSynchronize", "cudaStreamSynchronize"))
     got = device_launch_gate(rows, replay_want(eng, False, L), where)
+    syncs = eng.counts["syncs"] - syncs0 if live else None
+    if live and syncs != waits:
+        fail(f"{where}: the engine counted {syncs} syncs, the trace "
+             f"{waits} blocking waits")
     busy = sum(us for _, us, _ in rows) / 1e6
+    cost = {k: v - cost0.get(k, 0) for k, v in program_totals(eng).items()}
+    flops = sum(v for k, v in cost.items() if "flops" in k) if live else None
+    nbytes = sum(v for k, v in cost.items() if "bytes" in k) if live else None
     eng.run_pending()
     if not all(h.done() for h in hs):
         fail(f"{where}: requests left unanswered")
-    return got, waits, 1 - busy / wall, wall, gauge, hs
+    return dict(
+        launches=got, tracer_marks_traced=TRACER_MARKS_SEEN[-1],
+        waits=waits, syncs=syncs, device_busy_s=busy,
+        trace_idle=1 - busy / wall, wall_s=wall, idle_gauge=gauge,
+        chunk_flops=flops, chunk_bytes=nbytes,
+        trace_flops_share=(flops / busy / PEAK_FLOPS["bfloat16"]
+                           if live else None),
+        trace_bytes_share=(nbytes / busy / PEAK_BYTES_PER_S
+                           if live else None),
+        top_kernels=[dict(name=k[:80], ms=us / 1e3, count=n)
+                     for k, us, n in rows[:8]], hs=hs)
+
+
+def tracer_probe(torch, eng, rng, pairs=4):
+    """Steady pipelined decode ticks, each profiled in a session of its
+    own, in pairs without the spin marks and with them (a fresh batch of
+    64-token prompts a pair, past its admission and two decode ticks):
+    the decode launches each session traced (want L x chunk) and the
+    marks each traced. A session that begins recording late loses its
+    first launches: without marks those are the chunk's. No gate.
+    Returns (the counts, the handles)."""
+    want = eng.cfg.n_layers * eng.decode_chunk
+    out = {"want": want, "without_marks": [], "with_marks": [],
+           "marks_traced": []}
+    hs = []
+    for _ in range(pairs):
+        prompts = [rng.integers(0, 256, size=64).astype(np.int32)
+                   for _ in range(eng.num_slots)]
+        hs += [eng.submit(p, max_new_tokens=6 * eng.decode_chunk + 1)
+               for p in prompts]
+        for _ in range(3):
+            eng.tick()
+        for marks in (0, TRACER_MARKS):
+            seen = len(TRACER_MARKS_SEEN)
+            _, _, rows = profile_session(torch, eng.tick, marks)
+            n = sum(c for k, _, c in rows
+                    if any(f in k for f in DEVICE_FNS["decode_rows"]))
+            out["with_marks" if marks else "without_marks"].append(n)
+            if marks:
+                out["marks_traced"] += TRACER_MARKS_SEEN[seen:]
+        eng.run_pending()
+    if not all(h.done() for h in hs):
+        fail("3h tracer probe: requests left unanswered")
+    return out, hs
 
 
 def phase_observability_full_width(torch, dev):
@@ -3347,21 +3470,28 @@ def phase_observability_full_width(torch, dev):
     in turns N O O N twice after a warm pass each: tokens equal in every
     pass; a profiled steady pipelined decode tick of each launches the
     same serving device functions and makes the same blocking waits (at
-    most one). (b) One engine per serving arm scraped over
-    MetricsServer(port=0) after its traffic (`scrape_gates`): plain (O),
-    spec (3b's aligned tree, K 7, "layers:1"), paged with prefix hits
-    (3c's waves, cut), chunked 256 on the paged pool, int8 weights and
-    KV, constrained ``[ab]+`` and MoE with 8 experts at 1.25. (c) The
-    plain and paged engines' profile_report: per program FLOPs and
-    bytes a call, intensity and roofline class against 989 TF/s and
-    3.35 TB/s; serving_mfu and the achieved rates; the idle gauge beside
-    the profiled tick's trace idle share. Gates: every share in [0,
-    1.05]; the programs' device seconds sum to the busy total within
-    1e-6 s a tick. (d) /profilez: 200 during traffic with its trace
-    naming the decode and flash-forward device functions, 503 on a
-    second request during the capture, without profile_dir, and under
-    another torch.profiler session, whose trace stays whole. (e) The
-    plain engine's slo_report, and its timeline as Chrome-trace JSON
+    most one), and O's syncs over it equal its trace's waits. Then the
+    tracer probe (`tracer_probe`, printed only). (b) One engine per
+    serving arm scraped over MetricsServer(port=0) after its traffic
+    (`scrape_gates`): plain (O), spec (3b's aligned tree, K 7,
+    "layers:1"), paged with prefix hits (3c's waves, cut, and a profiled
+    tick), chunked 256 on the paged pool, int8 weights and KV,
+    constrained ``[ab]+`` and MoE with 8 experts at 1.25; every arm but
+    O (whose wrapper counts N shares) also held to its wrappers' kernel
+    launches and graph replays (`check_launches`). (c) The plain and
+    paged engines' profile_report: per program FLOPs and bytes a call,
+    intensity and roofline class against 989 TF/s and 3.35 TB/s, and
+    the host-estimate rates (analytic work over the busy estimate);
+    serving_mfu; the idle gauge beside the profiled tick's trace idle
+    share; the profiled chunk's analytic FLOPs and bytes over its
+    kernels' device time in the trace. Gates: every host-estimate share
+    in [0, 1.05]; and an exposition check, the programs' device seconds
+    summing to the busy total within 1e-6 s a tick (the attribution
+    conserves it by construction). (d) /profilez: 200 during traffic
+    with its trace naming the decode and flash-forward device functions,
+    503 on a second request during the capture, without profile_dir, and
+    under another torch.profiler session, whose trace stays whole. (e)
+    The plain engine's slo_report, and its timeline as Chrome-trace JSON
     with a queue span and a slot span for each request of the last pass.
     Returns the wrappers' launches by kernel over the phase."""
     import json as _json
@@ -3431,22 +3561,24 @@ def phase_observability_full_width(torch, dev):
         ticks[arm] = profile_pipelined_tick(
             torch, engs[arm], np.random.default_rng(11),
             f"3h profiled {arm} tick")
-    if ticks["O"][0] != ticks["N"][0] or ticks["O"][1] != ticks["N"][1] \
-            or ticks["O"][1] > 1:
+    if ticks["O"]["launches"] != ticks["N"]["launches"] or \
+            ticks["O"]["waits"] != ticks["N"]["waits"] or \
+            ticks["O"]["waits"] > 1:
         fail(f"3h: profiled ticks differ or wait more than once: "
-             f"default {ticks['O'][:2]}, null {ticks['N'][:2]}")
+             f"default {ticks['O']['launches']} {ticks['O']['waits']}, "
+             f"null {ticks['N']['launches']} {ticks['N']['waits']}")
     eng = engs["O"]
-    gauge_idle = ticks["O"][4]
-    plain_hs += ticks["O"][5]
-    line(dict(phase="3h", run="profiled_ticks",
-              device_launches={a: t[0] for a, t in ticks.items()},
-              blocking_waits={a: t[1] for a, t in ticks.items()},
-              trace_idle_share={a: t[2] for a, t in ticks.items()},
-              wall_s={a: t[3] for a, t in ticks.items()},
-              idle_gauge_default=gauge_idle))
+    plain_hs += ticks["O"].pop("hs")
+    ticks["N"].pop("hs")
+    line(dict(phase="3h", run="profiled_ticks", engine="plain",
+              **{a: t for a, t in ticks.items()}))
+    # on N: its requests stay out of O's recorder window and bills
+    probe, _ = tracer_probe(torch, engs["N"], np.random.default_rng(12))
+    line(dict(phase="3h", run="tracer_probe", engine="plain, NULL_REGISTRY",
+              **probe))
     del engs["N"]
     plain_samples, _ = scrape_gates(eng, plain_hs, "plain")
-    reports = {"plain": (eng, plain_samples, gauge_idle, ticks["O"][2])}
+    reports = {"plain": (eng, plain_samples, ticks["O"])}
 
     # (e) SLO and timeline of the plain engine (its last pass)
     slo = eng.slo_report()
@@ -3547,12 +3679,23 @@ def phase_observability_full_width(torch, dev):
     for name, acfg, tree, kw, waves, specs in arms:
         if tree is None:
             tree = tf.TransformerLM(acfg, seed=0, device=dev).params
+        l0 = read_launches()
         aeng = InferenceEngine(acfg, tree, EngineConfig(**base, **kw),
                                device=dev)
         hs, wall = serve_handles(aeng, waves, specs)
         for h in hs:
             h.result()
-        got, bills = scrape_gates(aeng, hs, name)
+        tick = None
+        if name == "paged":
+            tick = profile_pipelined_tick(
+                torch, aeng, np.random.default_rng(11),
+                "3h profiled paged tick")
+            hs = hs + tick.pop("hs")
+            line(dict(phase="3h", run="profiled_ticks", engine="paged",
+                      O=tick))
+        l1 = read_launches()
+        got, bills = scrape_gates(aeng, hs, name,
+                                  {k: l1[k] - l0[k] for k in l1})
         c = aeng.counts
         line(dict(phase="3h", run="scrape", arm=name,
                   requests=len(hs), wall_s=wall, lint="pass",
@@ -3562,16 +3705,21 @@ def phase_observability_full_width(torch, dev):
                   spec_accepted=c["spec_accepted"],
                   constrained_requests=c["constrained_requests"]))
         if name == "paged":
-            reports["paged"] = (aeng, got, got[
-                "serving_device_idle_fraction"], None)
+            reports["paged"] = (aeng, got, tick)
         else:
             del aeng
         torch.cuda.empty_cache()
 
     # (c) the profiler's reports
-    for name, (reng, got, idle, trace_idle) in reports.items():
+    for name, (reng, got, tick) in reports.items():
         rep = reng.profile_report()
         mfu = got["serving_mfu"]
+        idle = got["serving_device_idle_fraction"]
+        # the gated shares are host estimates: analytic work over the
+        # busy estimate's time. The kernel rates are the profiled chunk's
+        # analytic work over its kernels' time in the CUPTI trace, printed
+        # only: program_cost counts the bytes a kernel asks for, and
+        # reads the cache serves (a paged gather's scratch page) count
         shares = {"serving_mfu": mfu,
                   "achieved_bytes_share": got[
                       "serving_achieved_bytes_per_second"] / PEAK_BYTES_PER_S,
@@ -3584,13 +3732,13 @@ def phase_observability_full_width(torch, dev):
                 bytes_per_call=row["bytes_per_invocation"],
                 intensity=row["intensity_flops_per_byte"],
                 bound=row["bound"], device_s=row["device_seconds"],
-                achieved_flops_per_s=row["achieved_flops_per_s"],
-                achieved_bytes_per_s=row["achieved_bytes_per_s"])
+                host_est_flops_per_s=row["achieved_flops_per_s"],
+                host_est_bytes_per_s=row["achieved_bytes_per_s"])
             if row["achieved_flops_per_s"]:
-                shares[f"{lab}_flops"] = (row["achieved_flops_per_s"]
-                                          / PEAK_FLOPS["bfloat16"])
-                shares[f"{lab}_bytes"] = (row["achieved_bytes_per_s"]
-                                          / PEAK_BYTES_PER_S)
+                shares[f"{lab}_host_est_flops"] = (
+                    row["achieved_flops_per_s"] / PEAK_FLOPS["bfloat16"])
+                shares[f"{lab}_host_est_bytes"] = (
+                    row["achieved_bytes_per_s"] / PEAK_BYTES_PER_S)
         ticks_n = reng.counts["pipelined_ticks"]
         dev_s = sum(r["device_seconds"] for r in rep["programs"].values())
         line(dict(phase="3h", run="profile_report", engine=name,
@@ -3601,7 +3749,11 @@ def phase_observability_full_width(torch, dev):
                       "serving_achieved_flops_per_second"],
                   achieved_bytes_per_s=got[
                       "serving_achieved_bytes_per_second"],
-                  idle_gauge=idle, trace_idle_share_profiled_tick=trace_idle,
+                  idle_gauge=idle,
+                  trace_idle_share_profiled_tick=tick["trace_idle"],
+                  idle_gauge_profiled_tick=tick["idle_gauge"],
+                  trace_chunk_flops_share=tick["trace_flops_share"],
+                  trace_chunk_bytes_share=tick["trace_bytes_share"],
                   device_seconds_sum=dev_s, busy_total_s=reng._busy_total_s,
                   ticks=ticks_n, programs=table, shares=shares))
         if rep["peak_flops"] != PEAK_FLOPS["bfloat16"] or \
@@ -3611,6 +3763,8 @@ def phase_observability_full_width(torch, dev):
         bad = {k: v for k, v in shares.items() if not 0 <= v <= 1.05}
         if bad:
             fail(f"3h {name}: impossible shares {bad}")
+        # an exposition check: tick_end splits each tick's busy interval
+        # across its programs, so this holds unless the export loses one
         if abs(dev_s - reng._busy_total_s) > 1e-6 * max(1, ticks_n):
             fail(f"3h {name}: program device seconds {dev_s} vs busy "
                  f"{reng._busy_total_s}")
@@ -4557,7 +4711,8 @@ def main() -> int:
         # a development run of phase 3h alone (no kernels line, no
         # result); a full run takes no arguments
         line(dict(phase="3h", launches=phase_observability_full_width(
-            torch, dev), wall_s=time.perf_counter() - t_run))
+            torch, dev), wall_s=time.perf_counter() - t_run,
+            tracer_marks=TRACER_MARKS_SEEN))
         return 0
 
     measured = phase_kernels(torch, dev)
@@ -4655,6 +4810,11 @@ def main() -> int:
               total=sum(GRAPH_REPLAYS.values()),
               device_launches_in_profiled_ticks=DEVICE_LAUNCHES,
               device_functions=DEVICE_FNS))
+    line(dict(run="tracer_marks", sessions=len(TRACER_MARKS_SEEN),
+              marks_each=TRACER_MARKS,
+              sessions_short=sum(1 for n in TRACER_MARKS_SEEN
+                                 if n < TRACER_MARKS),
+              traced=TRACER_MARKS_SEEN))
     kernels = []
     for name, (src, rep) in sources.items():
         r = measured[name]

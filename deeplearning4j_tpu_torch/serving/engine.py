@@ -246,42 +246,34 @@ class QoSValidationError(ValueError):
     admission, instead of corrupting the scrape."""
 
 
-#: Priority classes are the closed set 0..MAX_PRIORITY (the reference's;
-#: priority scheduling itself waits for QoS, ROADMAP queue A item 9).
-MAX_PRIORITY = 9
 #: Tenant ids are metric-label material: bound their length so a
 #: hostile id cannot bloat every labeled sample it lands in.
 MAX_TENANT_LEN = 64
 
 
-def validate_tenant_priority(tenant, priority=0):
-    """The reference's tenant/priority validation (:331): coerce or
-    reject BEFORE the values reach the metric-label path. Returns the
-    normalized ``(tenant, priority)``; raises `QoSValidationError`.
-    An int tenant id becomes its decimal string; anything else that is
-    not a str is rejected."""
-    if tenant is not None:
-        if isinstance(tenant, int) and not isinstance(tenant, bool):
-            tenant = str(tenant)
-        if not isinstance(tenant, str):
-            raise QoSValidationError(
-                f"tenant must be a str (or int), got "
-                f"{type(tenant).__name__}")
-        if not tenant or len(tenant) > MAX_TENANT_LEN:
-            raise QoSValidationError(
-                f"tenant id length must be 1..{MAX_TENANT_LEN}, got "
-                f"{len(tenant)}")
-        if any(ch in '"\\\n' or ord(ch) < 0x20 for ch in tenant):
-            raise QoSValidationError(
-                "tenant id contains control/exposition-breaking "
-                "characters (newline, quote, backslash)")
-    if isinstance(priority, bool) or not isinstance(priority, int):
+def validate_tenant(tenant):
+    """The tenant half of the reference's tenant/priority validation
+    (:331; priorities wait for QoS, ROADMAP queue A item 9): coerce or
+    reject BEFORE the id reaches the metric-label path. Returns the
+    normalized tenant; raises `QoSValidationError`. An int tenant id
+    becomes its decimal string; anything else that is not a str is
+    rejected."""
+    if tenant is None:
+        return None
+    if isinstance(tenant, int) and not isinstance(tenant, bool):
+        tenant = str(tenant)
+    if not isinstance(tenant, str):
         raise QoSValidationError(
-            f"priority must be an int, got {type(priority).__name__}")
-    if not 0 <= priority <= MAX_PRIORITY:
+            f"tenant must be a str (or int), got {type(tenant).__name__}")
+    if not tenant or len(tenant) > MAX_TENANT_LEN:
         raise QoSValidationError(
-            f"priority must be in [0, {MAX_PRIORITY}], got {priority}")
-    return tenant, priority
+            f"tenant id length must be 1..{MAX_TENANT_LEN}, got "
+            f"{len(tenant)}")
+    if any(ch in '"\\\n' or ord(ch) < 0x20 for ch in tenant):
+        raise QoSValidationError(
+            "tenant id contains control/exposition-breaking "
+            "characters (newline, quote, backslash)")
+    return tenant
 
 
 class RequestStatus:
@@ -604,16 +596,23 @@ class InferenceEngine:
     ``params`` is a port parameter tree (`models.transformer.init_params`
     or `models.convert.params_from_numpy`); it is moved to ``device``,
     which is CUDA unless ``device="cpu"``. ``registry``, ``recorder``,
-    ``slo``, ``profiler`` and ``clock`` are the reference's observability
-    arguments (:1252-1259), with its defaults: a private registry, and
-    the recorder, SLO tracker and profiler on with a live registry and
-    NULL with `NULL_REGISTRY`."""
+    ``slo`` and ``profiler`` are the reference's observability arguments
+    (:1252-1259), with its defaults: a private registry, and the
+    recorder, SLO tracker and profiler on with a live registry and NULL
+    with `NULL_REGISTRY`. ``clock`` keeps the reference's signature; the
+    reference reads it only for batch latency, deadlines and the circuit
+    breaker (ROADMAP queue A item 9), so any other clock is refused."""
 
     def __init__(self, cfg: TransformerConfig, params,
                  config: Optional[EngineConfig] = None, device=None,
                  registry=None, recorder=None, slo=None, profiler=None,
                  clock: Callable[[], float] = time.monotonic):
         _check_slice(cfg)
+        if clock is not time.monotonic:
+            raise NotImplementedError(
+                "InferenceEngine(clock=...): batch latency, deadlines and "
+                "the circuit breaker, which read it (ROADMAP queue A item "
+                "9), are not ported yet")
         self.cfg = cfg
         self.config = config or EngineConfig()
         _check_config(self.config)
@@ -711,7 +710,6 @@ class InferenceEngine:
         # the registry, and `counts` / `seconds` read it back; the
         # recorder, SLO tracker and profiler default on with a live
         # registry and NULL with NULL_REGISTRY
-        self._clock = clock
         self.registry = (registry if registry is not None
                          else MetricsRegistry())
         # the host-side busy estimate behind serving_device_idle_fraction
@@ -1252,7 +1250,7 @@ class InferenceEngine:
         QoSValidationError first: it becomes a metric label) and
         ``trace_ctx`` is merged into every event of its trace
         (reference :2180-2197)."""
-        tenant, _ = validate_tenant_priority(tenant)
+        tenant = validate_tenant(tenant)
         prompt = np.asarray(prompt, np.int32)
         if prompt.ndim != 1 or prompt.size == 0:
             raise ValueError("prompt must be a non-empty 1-D token array")

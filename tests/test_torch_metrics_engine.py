@@ -44,7 +44,8 @@ from deeplearning4j_tpu_torch.models import transformer as ttf  # noqa
 from deeplearning4j_tpu_torch.models.convert import \
     params_from_numpy  # noqa: E402
 from deeplearning4j_tpu_torch.observability import (  # noqa: E402
-    NULL_REGISTRY, MetricsServer, json_snapshot, prometheus_text)
+    NULL_REGISTRY, EngineProfiler, FlightRecorder, MetricsRegistry,
+    MetricsServer, SLOTracker, json_snapshot, prometheus_text)
 from deeplearning4j_tpu_torch.serving import engine as teng  # noqa: E402
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
@@ -257,6 +258,20 @@ def test_naming_lint(served, arm):
     assert chip_smoke.lint_exposition(prometheus_text(t.registry)) == []
 
 
+@pytest.mark.parametrize("arm", ARM_IDS)
+def test_chip_scrape_gates_hold_on_the_cpu(served, arm):
+    """chip_smoke.py's phase 3h scrape gates on the port's CPU engine:
+    the lint, counts = series, pages, bills, and the series against the
+    handles (completions, TTFT observations, prompt tokens)."""
+    _, _, eng, th = served(arm)
+    hs = [h for h in th if h is not None]
+    got, bills = chip_smoke.scrape_gates(eng, hs, arm)
+    facts = chip_smoke.handle_facts(got, hs)
+    assert facts["completed"] == (len(hs), len(hs))
+    assert all(a == b for a, b in facts.values()), facts
+    assert min(bills.values()) > 0
+
+
 def test_naming_lint_catches_drift():
     bad = ("# HELP serving_AdmissionWait x\n# TYPE serving_AdmissionWait "
            "gauge\nserving_AdmissionWait 1\n# HELP lat x\n# TYPE lat "
@@ -455,3 +470,31 @@ def test_observability_fields_accepted_and_unported_named(tparams,
                                  device="cpu")
     assert not {"recorder_capacity", "profile_dir",
                 "tenant_top_n"} & set(teng._UNPORTED)
+    with pytest.raises(NotImplementedError, match="item 9"):
+        teng.InferenceEngine(TCFG, tparams, teng.EngineConfig(),
+                             device="cpu", clock=lambda: 0.0)
+
+
+def test_injected_recorder_slo_and_profiler_are_the_engines(tparams):
+    """The recorder, SLO tracker and profiler a caller passes are the
+    ones the engine feeds: a 5-event recorder fills to 5, a 3-request
+    SLO window holds 3, and a profiler with injected peaks reads a
+    non-zero MFU on the CPU (where the chip table gives none)."""
+    reg = MetricsRegistry()
+    rec = FlightRecorder(capacity=5)
+    slo = SLOTracker(registry=reg, window=3)
+    prof = EngineProfiler(reg, peak_flops=1e9, peak_bytes_per_s=1e9,
+                          device="cpu")
+    eng = teng.InferenceEngine(TCFG, tparams,
+                               teng.EngineConfig(**_config("plain")),
+                               device="cpu", registry=reg, recorder=rec,
+                               slo=slo, profiler=prof)
+    assert (eng.recorder, eng.slo, eng.profiler) == (rec, slo, prof)
+    hs = _serve(eng, "plain", True)
+    assert all(h.done() for h in hs)
+    assert len(rec) == 5 and {e.rid for e in rec.recent(5)} <= \
+        {h.rid for h in hs}
+    assert slo.report()["window"] == 3 == eng.slo_report()["window"]
+    rep = eng.profile_report()
+    assert (rep["peak_flops"], rep["peak_bytes_per_s"]) == (1e9, 1e9)
+    assert reg.get("serving_mfu").value > 0

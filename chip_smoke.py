@@ -277,6 +277,41 @@ card and fails (non-zero exit, no result line) if anything is wrong:
    trace stays whole. (e) slo_report, the last timed pass's SLO, and the
    timeline as Chrome-trace JSON with a queue and a slot span a request.
    `--only 3h` runs the build and this phase alone.
+3i. Serving fault tolerance at full width (`phase_faults_full_width`;
+   phase 3's config on its first 12 requests, 24 new tokens; each arm
+   served with and without its `ServingFaultInjector`): (a) transient
+   faults (`fail_at` x3 and `prefill_fail_at` on the plain engine, both
+   loops; `prefill_chunk_fail_at` on a chunk-256 arm): tokens equal the
+   fault-free run of the same loop, retries = failures = the injected
+   count, the breaker closed. (b) One request poisoned after two ticks
+   on the plain pipelined, paged (a 512-token shared prefix, hits),
+   int8-KV, `[ab]+` and MoE (8 experts) pools: it alone is quarantined,
+   every request's tokens up to its isolation point equal the fault-free
+   run's, survivors complete, no page leaks, the scratch pool dropped;
+   the survivors' token-equal share, the snapshot and scratch-pool bytes
+   printed (bf16: a solo re-run re-prefills prompt + generated in one
+   flash call, whose rows round differently from the decode steps').
+   (c) The pipelined commit's wait fails once: all complete, preempted >
+   0, nothing pending. (d) `corrupt_page_at` on a paged writer sharing a
+   prefix with two readers: the readers' tokens equal their clean run,
+   the writer's change. (e) Spec (K=7, "layers:1", aligned tree) with
+   `draft_poison_at`: one committed token that round, K drops to 1,
+   tokens equal the plain engine's. (f) Phase 2's float32 model: poison
+   and a failed wait; survivors equal the fault-free run, card = CPU.
+   (g) The worker thread serves a wave, `drain()` flips `ready()` while
+   residents run, a deadline and a cancel shed on an injected clock,
+   `stop()`. Launches exact per served arm, the solo re-runs' eager
+   prefills and chunks counted (`check_launches(solo=)`). `--only 3i`
+   runs the build and this phase alone. With every engine of (a)-(e)
+   dropped and torch's per-stream cuBLAS workspaces cleared, less than
+   64 MiB may stay allocated over the phase's start (an engine is freed
+   by its last reference, with no cyclic collection). Every other phase's engines run under the zero-failure
+   gate (`install_zero_fault_gate`): a failed program call or an
+   isolation on an engine without an injector fails the run, after the
+   tick on the main thread, or, for the worker's ticks, once the worker
+   has stopped and at the end of the run. The gate wraps the engine's
+   `_record_failure` and `_isolate_slots`, so it also holds on a
+   NULL_REGISTRY engine, whose counters read 0.
 4a. float32 training, card vs CPU: 2 layers at 512d / 8 heads, V=256,
    B=2, T=256, remat 'full', three Adam steps of `make_fsdp_train_step`
    from the same params on cuda and on cpu; losses within 1e-4, and the
@@ -329,7 +364,8 @@ card and fails (non-zero exit, no result line) if anything is wrong:
 7. Summary: the MoE phases' launches by kernel (`moe_launches`); one
    line of the graph replays of every gated run and of the serving
    device functions' launches in the profiled ticks' traces; the run's
-   wall time, the MoE phases', the rest's and phase 3h's (`wall`);
+   wall time, the MoE phases', the rest's, phase 3h's and phase 3i's
+   (`wall`);
    one `kernels` JSON line (decode_attention_q and decode_window_q among
    them; `launches` the wrappers' counts, `device_launches_profiled`
    the traces' count of the device function the kernel runs), the
@@ -339,11 +375,13 @@ card and fails (non-zero exit, no result line) if anything is wrong:
 The kernels build from deeplearning4j_tpu_torch/csrc/ at the start (one
 nvcc per source, started together). Weights are random, from fixed seeds.
 """
+import gc
 import json
 import os
 import re
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -1640,7 +1678,7 @@ def launch_counters():
             "decode_window_q": fd.decode_window_attention_q_cuda}
 
 
-def expected_launches(eng, c, n_layers, keys0=()):
+def expected_launches(eng, c, n_layers, keys0=(), solo=(0, 0)):
     """The launches by kernel the wrappers count in a drained run on a
     card engine with counts delta ``c`` (``keys0``: the graph keys the
     engine had captured before the run). A slot program's kernels launch
@@ -1650,9 +1688,14 @@ def expected_launches(eng, c, n_layers, keys0=()):
     quantized entries on a quantized pool). Every later call of the key
     is a graph replay, which calls no wrapper: what a replay runs is
     read from the device's own trace (`device_launch_gate`). Flash L per
-    one-shot contiguous prefill call (eager)."""
+    one-shot contiguous prefill call (eager). ``solo``: the (prefill
+    calls, decode chunks) of solo re-runs on the scratch pool (phase 3i),
+    always eager and contiguous: L flash launches a prefill (counted in
+    ``prefill_calls`` already on a one-shot engine), L x chunk decode
+    launches a chunk."""
     nd = (eng._draft_layers or n_layers) if eng._spec else 0
-    dec = win = 0
+    dec = n_layers * eng.decode_chunk * solo[1]
+    win = 0
     for kind, size in eng._graphs.keys():
         if (kind, size) in keys0:
             continue
@@ -1663,21 +1706,23 @@ def expected_launches(eng, c, n_layers, keys0=()):
             dec += 2 * n_layers * size
     q = eng._kv_mode is not None
     one_shot = not (eng.config.paged or eng.config.prefill_chunk)
-    return {"flash_fwd": n_layers * c["prefill_calls"] if one_shot else 0,
+    return {"flash_fwd": n_layers * (c["prefill_calls"] if one_shot
+                                     else solo[0]),
             "decode_attention": 0 if q else dec,
             "decode_window": 0 if q else win,
             "decode_attention_q": dec if q else 0,
             "decode_window_q": win if q else 0}
 
 
-def check_launches(eng, c, n_layers, got, where, keys0=()):
+def check_launches(eng, c, n_layers, got, where, keys0=(), solo=(0, 0)):
     """Gate a drained card run (counts delta ``c``, wrapper launches
     ``got`` by kernel name): the launches `expected_launches` gives, and
-    every decode chunk and spec round but the first of each key a graph
-    replay (no slot program ran eagerly past its capture)."""
-    want = expected_launches(eng, c, n_layers, keys0)
+    every decode chunk and spec round but the first of each key and the
+    solo re-runs' eager chunks (``solo``) a graph replay (no slot program
+    of the live pool ran eagerly past its capture)."""
+    want = expected_launches(eng, c, n_layers, keys0, solo)
     new = len(eng._graphs.keys()) - len(keys0)
-    replays = c["decode_chunks"] + c["spec_rounds"] - new
+    replays = c["decode_chunks"] - solo[1] + c["spec_rounds"] - new
     got = {k: got.get(k, 0) for k in want}
     if got != want or c["graph_replays"] != replays:
         fail(f"{where}: launches {got}, want {want}; graph replays "
@@ -3777,6 +3822,451 @@ def phase_observability_full_width(torch, dev):
 
 
 # ---------------------------------------------------------------------------
+# phase 3i: serving fault tolerance at full width
+# ---------------------------------------------------------------------------
+
+# faults seen on engines without an injector (`install_zero_fault_gate`)
+ZERO_FAULT_SEEN: list = []
+
+
+def install_zero_fault_gate(cls=None):
+    """The gate every arm run without a fault injector passes. The
+    engine's guard retries a RuntimeError and then quarantines, so
+    without it a kernel fault on the card could end as a silent retry.
+    It wraps the two methods every fault passes through, on ``cls``
+    (default the engine class): ``_record_failure`` (each failed program
+    call, before any retry) and ``_isolate_slots`` (each preemption, and
+    so each quarantine, a failed pipelined wait included). These are
+    facts, not the registry's counters, which read 0 on a NULL_REGISTRY
+    engine. A fault on an engine without an injector is recorded in
+    ZERO_FAULT_SEEN; a tick on the main thread that saw one fails the
+    run at once, and a worker thread's (where `fail` would end only the
+    thread) fails it when the phase has stopped its engine and at the
+    end of the run (`check_zero_fault_gate`). Engines given an injector
+    (phase 3i's, even an empty one) are exempt."""
+    if cls is None:
+        from deeplearning4j_tpu_torch.serving.engine import InferenceEngine
+        cls = InferenceEngine
+    if "_zero_fault_gate" in vars(cls):
+        return
+    record_failure, isolate, tick = (cls._record_failure,
+                                     cls._isolate_slots, cls.tick)
+
+    def gated_record_failure(self, err):
+        if self._injector is None:
+            ZERO_FAULT_SEEN.append(f"a program call failed "
+                                   f"({type(err).__name__}: {err})")
+        return record_failure(self, err)
+
+    def gated_isolate(self, requests, err):
+        if self._injector is None:
+            ZERO_FAULT_SEEN.append(f"{len(requests)} requests isolated "
+                                   f"({err})")
+        return isolate(self, requests, err)
+
+    def gated_tick(self):
+        busy = tick(self)
+        if threading.current_thread() is threading.main_thread():
+            check_zero_fault_gate("after a tick")
+        return busy
+
+    cls._record_failure = gated_record_failure
+    cls._isolate_slots = gated_isolate
+    cls.tick = gated_tick
+    cls._zero_fault_gate = True
+
+
+def check_zero_fault_gate(where: str) -> None:
+    if ZERO_FAULT_SEEN:
+        fail(f"zero-failure gate ({where}): an engine without a fault "
+             f"injector: {ZERO_FAULT_SEEN[:4]} ({len(ZERO_FAULT_SEEN)} "
+             f"in all)")
+
+
+def committed_before_isolation(h):
+    """Tokens ``h`` had committed when it was preempted (all of them when
+    it never was)."""
+    n = 0
+    for e in h.trace.events:
+        if e.kind == "preempted":
+            return n
+        if e.kind in ("prefill_done", "decode_chunk"):
+            n += int(e.data["tokens"])
+    return n
+
+
+def solo_calls(hs):
+    """(prefill calls, decode chunks) the handles' solo re-runs made on the
+    scratch pool (the calls that committed; an attempt the injector
+    refused launched nothing)."""
+    ev = [e for h in hs for e in h.trace.events if e.data.get("scratch")]
+    return (sum(e.kind == "prefill_done" for e in ev),
+            sum(e.kind == "decode_chunk" for e in ev))
+
+
+def phase_faults_full_width(torch, dev):
+    """Phase 3's bf16 config (12L / 512d / 8 heads, max_len 2048, 64
+    slots, chunk 8) on a cut of its traffic (the first 12 of its 128
+    requests, 24 new tokens), each arm served with and without its
+    injector (see the module docstring, 3i). Returns the wrappers'
+    launches by kernel over the phase."""
+    from deeplearning4j_tpu_torch.models import transformer as tf
+    from deeplearning4j_tpu_torch.parallel.failure import \
+        ServingFaultInjector
+    from deeplearning4j_tpu_torch.serving.engine import (
+        EngineConfig, EngineDraining, InferenceEngine, RequestStatus)
+    cfg = tf.TransformerConfig(vocab_size=256, d_model=512, n_heads=8,
+                               n_layers=12, max_len=2048, dtype="bfloat16")
+    L, chunk, n_req, new = cfg.n_layers, 8, 12, 24
+    rng = np.random.default_rng(0)                 # phase 3's traffic
+    lens = rng.integers(16, 1025, size=128)
+    prompts = [rng.integers(0, 256, size=int(n)).astype(np.int32)
+               for n in lens][:n_req]
+    trees = {"dense": tf.TransformerLM(cfg, seed=0, device=dev).params}
+    # the baseline of the dropped-engines gate below: what earlier phases
+    # left for the cyclic collector is collected here, not counted there
+    gc.collect()
+    alloc0 = torch.cuda.memory_allocated(dev)
+    base = dict(num_slots=64, decode_chunk=chunk, max_new_tokens=new,
+                max_queue=256, degrade_queue_depth=1024)
+    totals = {k: 0 for k in launch_counters()}
+    shares, snaps = {}, {}
+
+    def serve(name, inj=None, reqs=None, specs=None, tree="dense",
+              mcfg=cfg, before=None, ticks_before_fault=0, fault=None,
+              **kw):
+        """One engine over ``reqs`` (default the cut): submitted, ticked
+        ``ticks_before_fault`` times, ``fault(eng, hs)`` applied, then
+        drained; launches gated (the solo re-runs' eager calls counted)
+        and summed. Returns (engine, handles)."""
+        eng = InferenceEngine(mcfg, trees[tree], EngineConfig(**{
+            **base, **kw}), device=dev, fault_injector=inj)
+        if before is not None:
+            hs0 = [eng.submit(p) for p in before]
+            eng.run_pending()
+            if not all(h.status == RequestStatus.COMPLETED for h in hs0):
+                fail(f"3i {name}: the seeding wave did not complete")
+        zero_launches()
+        keys0 = eng._graphs.keys()
+        c0 = dict(eng.counts)
+        reqs = prompts if reqs is None else reqs
+        hs = [eng.submit(p, constrain=None if specs is None else specs[k])
+              for k, p in enumerate(reqs)]
+        for _ in range(ticks_before_fault):
+            eng.tick()
+        if fault is not None:
+            fault(eng, hs)
+        eng.run_pending()
+        torch.cuda.synchronize()
+        got = read_launches()
+        for k in totals:
+            totals[k] += got[k]
+        c = {k: eng.counts[k] - c0[k] for k in c0}
+        check_launches(eng, c, mcfg.n_layers, got, f"3i {name}", keys0,
+                       solo=solo_calls(hs))
+        if not eng.drained() or eng._pending or eng._scratch is not None:
+            fail(f"3i {name}: not drained, a tick pending or the scratch "
+                 "pool kept")
+        if eng.config.paged and (eng.counts["pages_used"]
+                                 != eng.prefix_cache_pages):
+            fail(f"3i {name}: pages leaked ({eng.counts['pages_used']} "
+                 f"used, {eng.prefix_cache_pages} cached)")
+        return eng, hs
+
+    def gen(hs):
+        return [h.generated.tolist() for h in hs]
+
+    def same_counts(name, eng, n):
+        s = eng.stats
+        if not (s["retries"] == s["step_failures"] == n
+                and eng.health()["breaker"] == "closed"
+                and s["quarantined"] == s["preempted"] == 0):
+            fail(f"3i {name}: retries {s['retries']}, failures "
+                 f"{s['step_failures']} (injected {n}), breaker "
+                 f"{eng.health()['breaker']}, {s}")
+
+    # (a) transient faults, plain in both loops, and a chunked arm
+    rec_a = {}
+    for name, kw, inj_kw in (
+            ("plain_sync", dict(pipeline=False),
+             dict(fail_at=[1, 2, 3], prefill_fail_at=[0])),
+            ("plain_pipelined", {},
+             dict(fail_at=[1, 2, 3], prefill_fail_at=[0])),
+            ("chunked_pipelined", dict(prefill_chunk=256),
+             dict(fail_at=[6, 9], prefill_chunk_fail_at=[0]))):
+        _, clean = serve(f"{name}_clean", **kw)
+        inj = ServingFaultInjector(**inj_kw)
+        eng, hs = serve(name, inj, **kw)
+        if gen(hs) != gen(clean) or inj.injected != 4 - (
+                name.startswith("chunked")):
+            fail(f"3i (a) {name}: tokens differ from the fault-free run "
+                 f"or {inj.injected} faults injected")
+        same_counts(f"(a) {name}", eng, inj.injected)
+        rec_a[name] = dict(injected=inj.injected,
+                           retries=eng.stats["retries"])
+    line(dict(phase="3i", arm="transient", requests=n_req, new_tokens=new,
+              tokens_equal_fault_free=True, **rec_a))
+
+    # (b) one poisoned request, mid-stream, on five pools
+    trees["moe"] = tf.init_params(tf.TransformerConfig(**MOE_FLAGSHIP),
+                                  seed=0, device=dev)
+    prng = np.random.default_rng(7)
+    paged_reqs = paged_traffic(prng, 8, 4, 512, (16, 64), (16, 256))
+    sys_prompt = paged_reqs[[p.shape[0] > 512 for p in paged_reqs].index(
+        True)][:512]
+    ab = ["[ab]+" if k % 2 == 0 else None for k in range(n_req)]
+    arms_b = (
+        ("plain_pipelined", {}, {}),
+        ("paged_shared_prefix", dict(paged=True, page_size=16,
+                                     kv_pages=3072 + 1),
+         dict(reqs=paged_reqs, before=[sys_prompt])),
+        ("int8_kv", dict(kv_quantize="int8"), {}),
+        ("constrained", {}, dict(specs=ab)),
+        ("moe", {}, dict(tree="moe",
+                         mcfg=tf.TransformerConfig(**MOE_FLAGSHIP))))
+    for name, kw, arm_kw in arms_b:
+        _, clean = serve(f"{name}_clean", **kw, **arm_kw)
+        inj = ServingFaultInjector()
+
+        def poison(eng, hs):
+            inj.poison_requests.add(hs[3].rid)
+
+        eng, hs = serve(name, inj, ticks_before_fault=2, fault=poison,
+                        **kw, **arm_kw)
+        bad = [k for k, h in enumerate(hs)
+               if h.status == RequestStatus.QUARANTINED]
+        cut = [committed_before_isolation(h) for h in hs]
+        prefix_ok = all(a.generated.tolist()[:n] == b.generated.tolist()[:n]
+                        for a, b, n in zip(hs, clean, cut))
+        survivors = [k for k in range(len(hs)) if k != 3]
+        full = all(hs[k].status == RequestStatus.COMPLETED and
+                   hs[k].generated.shape[0] == new for k in survivors
+                   if (arm_kw.get("specs") or [None] * 99)[k] is None)
+        equal = sum(hs[k].generated.tolist() == clean[k].generated.tolist()
+                    for k in survivors)
+        s = eng.stats
+        if (bad != [3] or s["quarantined"] != 1 or not prefix_ok or not full
+                or s["preempted"] < 2 or min(cut) < 1):
+            fail(f"3i (b) {name}: quarantined {bad}, prefixes kept "
+                 f"{prefix_ok}, survivors full {full}, committed {cut}, {s}")
+        if name == "constrained":
+            check_constrained("3i (b) constrained", [
+                (p, sp, new) for k, (p, sp) in enumerate(zip(prompts, ab))
+                if k != 3], [hs[k].result() for k in survivors], eng)
+        shares[name] = equal / len(survivors)
+        snaps[name] = (eng.fault_snapshot_bytes, eng.scratch_pool_bytes)
+        line(dict(phase="3i", arm="poisoned", pool=name, requests=len(hs),
+                  quarantined=bad, preempted=s["preempted"],
+                  retries=s["retries"], step_failures=s["step_failures"],
+                  committed_at_isolation=cut,
+                  survivors_token_equal_share=shares[name],
+                  snapshot_bytes=snaps[name][0],
+                  scratch_pool_bytes=snaps[name][1],
+                  kv_pool_bytes=eng.kv_pool_bytes()))
+
+    del trees["moe"]
+    # (c) a pipelined tick that fails at its wait
+    _, clean = serve("sync_failure_clean")
+    fired = []
+
+    def fail_wait(eng, hs):
+        def flaky(done):
+            fired.append(eng.counts["pipelined_ticks"])
+            del eng._wait          # once: the engine's own wait again
+            raise RuntimeError("injected sync-time device failure")
+        eng._wait = flaky
+
+    eng, hs = serve("sync_failure", ServingFaultInjector(),
+                    ticks_before_fault=2, fault=fail_wait)
+    s = eng.stats
+    cut = [committed_before_isolation(h) for h in hs]
+    if not (fired and all(h.status == RequestStatus.COMPLETED
+                          and h.generated.shape[0] == new for h in hs)
+            and s["preempted"] > 0 and not eng._pending
+            and all(a.generated.tolist()[:n] == b.generated.tolist()[:n]
+                    for a, b, n in zip(hs, clean, cut))):
+        fail(f"3i (c): fired {fired}, {s}, pending {len(eng._pending)}")
+    shares["sync_failure"] = sum(
+        a.generated.tolist() == b.generated.tolist()
+        for a, b in zip(hs, clean)) / len(hs)
+    line(dict(phase="3i", arm="sync_time_failure", fired_at_tick=fired[0],
+              preempted=s["preempted"], committed_at_isolation=cut,
+              survivors_token_equal_share=shares["sync_failure"]))
+
+    # (d) page corruption on a writer sharing a prefix with a reader
+    pkw = dict(paged=True, page_size=16, kv_pages=3072 + 1, pipeline=False)
+    # a 560-token prompt: after one tick (the prefill and a chunk of 8)
+    # the writer's next write is row 568, so the page it lands in (rows
+    # 560-575) also holds 8 committed rows that its next calls read
+    p = np.concatenate([sys_prompt, np.arange(48, dtype=np.int32)])
+
+    def corrupt(inj):
+        def go(eng, hs):
+            inj.corrupt_page_at[eng._step_counter] = hs[1].rid
+        return go
+
+    runs = {}
+    for arm_name, inj in (("clean", None),
+                          ("corrupt", ServingFaultInjector())):
+        runs[arm_name] = serve(
+            f"corrupt_page_{arm_name}", inj, reqs=[p, p, p], before=[p],
+            ticks_before_fault=1,
+            fault=None if inj is None else corrupt(inj), **pkw)
+    (_, hc), (ec, hx) = runs["clean"], runs["corrupt"]
+    reader_ok = gen([hx[0], hx[2]]) == gen([hc[0], hc[2]])
+    writer_changed = hx[1].generated.tolist() != hc[1].generated.tolist()
+    if not (ec._injector.pages_corrupted == 1 and reader_ok
+            and writer_changed):
+        fail(f"3i (d): pages corrupted {ec._injector.pages_corrupted}, "
+             f"readers equal {reader_ok}, writer changed {writer_changed}")
+    line(dict(phase="3i", arm="corrupt_page", pages_corrupted=1,
+              readers_equal_clean=reader_ok, writer_changed=writer_changed))
+
+    # (e) a poisoned draft round: K falls to 1, spec still equals plain
+    trees["aligned"] = aligned_params(tf, cfg, dev)
+    _, plain = serve("spec_plain", tree="aligned", pipeline=False)
+    inj = ServingFaultInjector(draft_poison_at={1: 3})     # hs[2]
+    k_after = []
+
+    def after_first(eng, hs):
+        k_after.append(eng.spec_k_current)
+
+    eng, hs = serve("spec_poisoned", inj, tree="aligned",
+                    ticks_before_fault=1, fault=after_first,
+                    spec_decode=True, spec_k=7, draft="layers:1",
+                    pipeline=False)
+    ev = hs[2].trace.events
+    j = [k for k, e in enumerate(ev) if e.kind == "draft_rejected"]
+    nxt = [e for e in ev[j[0]:] if e.kind == "decode_chunk"] if j else []
+    if not (inj.drafts_poisoned == 1 and len(j) == 1
+            and ev[j[0]].data["poisoned"] and nxt
+            and nxt[0].data["tokens"] == 1 and k_after == [1]
+            and gen(hs) == gen(plain)):
+        fail(f"3i (e): poisoned {inj.drafts_poisoned}, rejected events "
+             f"{j}, K after the round {k_after}, spec == plain "
+             f"{gen(hs) == gen(plain)}")
+    line(dict(phase="3i", arm="draft_poison", spec_k=7,
+              k_after_poisoned_round=k_after[0],
+              committed_that_round=nxt[0].data["tokens"],
+              spec_equals_plain=True, spec_rounds=eng.counts["spec_rounds"]))
+
+    # (f) float32 (phase 2's model): poison and a sync-time failure, card
+    # against the fault-free card run and the CPU engine
+    fcfg = tf.TransformerConfig(vocab_size=256, d_model=512, n_heads=8,
+                                n_layers=2, max_len=2048, dtype="float32")
+    frng = np.random.default_rng(1)
+    fprompts = [frng.integers(0, 256, size=int(n)).astype(np.int32)
+                for n in frng.integers(8, 65, size=8)]
+    fkw = dict(num_slots=8, decode_chunk=8, max_new_tokens=32,
+               backoff_base_s=0.0)
+    f32 = {}
+    # every engine of (a)-(e) dropped: none may hold its pool or its
+    # graphs (an engine is freed by its last reference, with no cyclic
+    # collection). torch keeps a 32 MiB cuBLAS workspace for each stream
+    # a GEMM ran on, and each engine's graphs capture on a stream of
+    # their own: those are cleared before the gate reads what is left.
+    del eng, hs, plain, runs, hc, hx, ec, clean, _, trees["aligned"]
+    held = torch.cuda.memory_allocated(dev) - alloc0
+    torch._C._cuda_clearCublasWorkspaces()
+    left = torch.cuda.memory_allocated(dev) - alloc0
+    line(dict(phase="3i", run="engines_dropped", bytes_held=held,
+              bytes_held_without_cublas_workspaces=left,
+              pool_bytes=snaps["plain_pipelined"][1]))
+    if left >= 64 << 20:
+        fail(f"3i: {left} bytes still allocated with every engine "
+             "dropped (cuBLAS workspaces cleared)")
+    zero_launches()
+    for where in ("cuda", "cpu"):
+        d = dev if where == "cuda" else torch.device("cpu")
+        ftree = tf.init_params(fcfg, seed=1, device=d)
+        for arm_name in ("clean", "poison", "sync_failure"):
+            inj = None if arm_name == "clean" else ServingFaultInjector()
+            e = InferenceEngine(fcfg, ftree, EngineConfig(**fkw), device=d,
+                                fault_injector=inj)
+            hs = [e.submit(q) for q in fprompts]
+            e.tick()
+            e.tick()
+            if arm_name == "poison":
+                inj.poison_requests.add(hs[3].rid)
+            elif arm_name == "sync_failure":
+                def flaky(done, e=e):
+                    del e._wait
+                    raise RuntimeError("injected sync-time failure")
+                e._wait = flaky
+            e.run_pending()
+            f32[(where, arm_name)] = ([h.status for h in hs], gen(hs),
+                                      e.stats["preempted"])
+    (st_p, g_p, n_p), (st_s, g_s, n_s) = (f32[("cuda", "poison")],
+                                          f32[("cuda", "sync_failure")])
+    g_clean = f32[("cuda", "clean")][1]
+    f_ok = (f32[("cuda", "poison")] == f32[("cpu", "poison")]
+            and f32[("cuda", "sync_failure")] == f32[("cpu", "sync_failure")]
+            and g_clean == f32[("cpu", "clean")][1]
+            and st_p.count(RequestStatus.QUARANTINED) == 1
+            and st_p[3] == RequestStatus.QUARANTINED
+            and all(g_p[k] == g_clean[k] for k in range(8) if k != 3)
+            and g_s == g_clean and n_p > 0 and n_s > 0)
+    if not f_ok:
+        fail(f"3i (f) float32: {f32}")
+    for k, n in read_launches().items():
+        totals[k] += n
+    line(dict(phase="3i", arm="float32", requests=8, new_tokens=32,
+              poison_survivors_equal_clean=True,
+              sync_failure_equal_clean=True, card_equals_cpu=True,
+              preempted={"poison": n_p, "sync_failure": n_s}))
+
+    # (g) the lifecycle: worker, drain, deadline and cancel, stop
+    zero_launches()
+    eng = InferenceEngine(cfg, trees["dense"], EngineConfig(**base),
+                          device=dev).start()
+    hs = [eng.submit(q) for q in prompts]
+    while not any(h.done() for h in hs[:1]) and not eng._pending:
+        time.sleep(0.001)
+    eng.drain(wait=False)
+    flipped = (not eng.ready()) and not all(h.done() for h in hs)
+    try:
+        eng.submit(prompts[0])
+        refused = False
+    except EngineDraining:
+        refused = True
+    eng.drain(wait=True, timeout=300)
+    done_ok = all(h.status == RequestStatus.COMPLETED
+                  and h.generated.shape[0] == new for h in hs)
+    eng.resume()
+    eng.stop()
+    # the worker's ticks ran off the main thread: their faults are read
+    # here, with the worker stopped
+    check_zero_fault_gate("3i (g), the worker's ticks")
+    stopped = eng._thread is None and not eng.ready()
+    t = {"now": 0.0}
+    eng2 = InferenceEngine(cfg, trees["dense"], EngineConfig(**base),
+                           device=dev, clock=lambda: t["now"])
+    h_dead = eng2.submit(prompts[0], deadline_s=1.0)
+    h_live = eng2.submit(prompts[1])
+    h_cancel = eng2.submit(prompts[2])
+    eng2.tick()
+    eng2.tick()
+    t["now"] = 5.0
+    eng2.cancel(h_cancel)
+    eng2.run_pending()
+    shed = (h_dead.status, h_cancel.status, h_live.status)
+    if not (flipped and refused and done_ok and stopped
+            and shed == ("shed", "shed", "completed")
+            and eng2.stats["shed_deadline"] == 1):
+        fail(f"3i (g): ready flipped before the last resident {flipped}, "
+             f"submit refused {refused}, all completed {done_ok}, stopped "
+             f"{stopped}, shed {shed}")
+    for k, n in read_launches().items():
+        totals[k] += n
+    line(dict(phase="3i", arm="lifecycle", worker_wave=len(hs),
+              ready_flipped_while_resident=flipped, draining_refused=refused,
+              deadline_and_cancel_shed=True, stopped=stopped))
+    line(dict(phase="3i", run="summary", survivors_token_equal_share=shares,
+              snapshot_and_scratch_bytes=snaps, launches=totals))
+    return totals
+
+
+# ---------------------------------------------------------------------------
 # phase 4: training
 # ---------------------------------------------------------------------------
 
@@ -4707,12 +5197,17 @@ def main() -> int:
     for name in ("flash_fwd", "flash_bwd", "flash_bwd_packed2",
                  "decode_attention", "decode_window", "lstm_scan"):
         build_report(name)
-    if sys.argv[1:] == ["--only", "3h"]:
-        # a development run of phase 3h alone (no kernels line, no
+    install_zero_fault_gate()
+    only = {"3h": phase_observability_full_width,
+            "3i": phase_faults_full_width}
+    if len(sys.argv) == 3 and sys.argv[1] == "--only" and \
+            sys.argv[2] in only:
+        # a development run of phase 3h or 3i alone (no kernels line, no
         # result); a full run takes no arguments
-        line(dict(phase="3h", launches=phase_observability_full_width(
+        line(dict(phase=sys.argv[2], launches=only[sys.argv[2]](
             torch, dev), wall_s=time.perf_counter() - t_run,
             tracer_marks=TRACER_MARKS_SEEN))
+        check_zero_fault_gate("end of the run")
         return 0
 
     measured = phase_kernels(torch, dev)
@@ -4756,8 +5251,11 @@ def main() -> int:
     t_obs = time.perf_counter()
     obs_launches = phase_observability_full_width(torch, dev)
     t_obs = time.perf_counter() - t_obs
+    t_fault = time.perf_counter()
+    fault_launches = phase_faults_full_width(torch, dev)
+    t_fault = time.perf_counter() - t_fault
     for part in (spec_launches, paged_launches, pipe_launches, c_launches,
-                 moe_launches, obs_launches):
+                 moe_launches, obs_launches, fault_launches):
         for name, n in part.items():
             launches[name] = launches.get(name, 0) + n
     phase_train_f32_card_vs_cpu(torch, dev)
@@ -4829,10 +5327,11 @@ def main() -> int:
             library_ms=r["library_ms"],
             device_launches_profiled=(DEVICE_LAUNCHES[label] if label
                                       else None)))
+    check_zero_fault_gate("end of the run")
     wall = time.perf_counter() - t_run
     line(dict(run="wall", wall_s=wall, moe_phases_s=new_phases,
               without_moe_phases_s=wall - sum(new_phases.values()),
-              observability_phase_s=t_obs))
+              observability_phase_s=t_obs, fault_phase_s=t_fault))
     print(card, flush=True)
     line({"kernels": kernels})
     line({"ok": True, "device": {"platform": "gpu",

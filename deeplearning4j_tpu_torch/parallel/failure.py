@@ -1,0 +1,264 @@
+"""Deterministic fault injection for the serving engine.
+
+Port of the serving half of deeplearning4j_tpu/parallel/failure.py
+(:47-322): `TrainingFailure`, the base `FaultInjector` and
+`ServingFaultInjector`, copied so that the port imports nothing of the
+JAX package (whose module imports its training guard, its checkpoint
+manager and its metrics registry). The engine
+(`serving.engine.InferenceEngine(fault_injector=...)`) calls the
+injector's hooks immediately before every program call, with the ids of
+every co-resident request; a hook that raises `TrainingFailure` is a
+failed call, which the engine retries, then isolates and quarantines.
+
+The base class's checkpoint hooks (`on_checkpoint_write`,
+`on_checkpoint_published`) are kept as plain methods on a directory path:
+they import nothing, and the port has no checkpoint manager to call them
+yet.
+
+Not ported yet: `FleetFaultInjector` (the fleet router's hooks: ROADMAP
+queue A item 11), `hostile_tenant_storm` and `StormArrival` (tenant QoS:
+item 9b), and the training side, `ElasticFaultInjector`,
+`PreemptionHandler`, `StepWatchdog` and `FaultTolerantTrainer` (items 12
+and 14).
+"""
+from __future__ import annotations
+
+import logging
+import time
+from pathlib import Path
+from typing import Iterable, Optional
+
+log = logging.getLogger("deeplearning4j_tpu_torch")
+
+
+class TrainingFailure(RuntimeError):
+    """Raised by fault injection; real device errors (a CUDA error
+    surfaces as a RuntimeError) are caught by their base RuntimeError."""
+
+
+class FaultInjector:
+    """Deterministically fail chosen iterations (test harness).
+    `persistent=True` keeps failing the same iteration on retry: a hard
+    fault (bad host, poisoned input) rather than a transient one.
+
+    Durability knobs (all one-shot unless ``persistent``):
+
+    - ``nan_at``: iterations whose batch a trainer poisons to NaN
+      (checked via `check_nan`).
+    - ``preempt_at``: iterations at which a simulated SIGTERM requests a
+      graceful stop (checked via `check_preempt`).
+    - ``crash_write_at``: checkpoint steps whose write dies mid-staging
+      (before the atomic rename).
+    - ``torn_write_at``: checkpoint steps whose arrays.npz is replaced
+      after publication with zip-valid zeroed arrays.
+    - ``write_delay_s``: stall every checkpoint write by this many
+      seconds.
+    """
+
+    def __init__(self, fail_at: Iterable[int] = (),
+                 persistent: bool = False,
+                 nan_at: Iterable[int] = (),
+                 preempt_at: Iterable[int] = (),
+                 crash_write_at: Iterable[int] = (),
+                 torn_write_at: Iterable[int] = (),
+                 write_delay_s: float = 0.0):
+        self.fail_at = set(int(i) for i in fail_at)
+        self.persistent = persistent
+        self.nan_at = set(int(i) for i in nan_at)
+        self.preempt_at = set(int(i) for i in preempt_at)
+        self.crash_write_at = set(int(i) for i in crash_write_at)
+        self.torn_write_at = set(int(i) for i in torn_write_at)
+        self.write_delay_s = float(write_delay_s)
+        self.injected = 0
+        self.nans_injected = 0
+        self.preempts_injected = 0
+        self.writes_crashed = 0
+        self.writes_torn = 0
+
+    def check(self, iteration: int) -> None:
+        if iteration in self.fail_at:
+            if not self.persistent:
+                self.fail_at.discard(iteration)
+            self.injected += 1
+            raise TrainingFailure(f"injected fault at iteration "
+                                  f"{iteration}")
+
+    def check_nan(self, iteration: int) -> bool:
+        """True when this iteration's batch should be NaN-poisoned."""
+        if iteration in self.nan_at:
+            if not self.persistent:
+                self.nan_at.discard(iteration)
+            self.nans_injected += 1
+            return True
+        return False
+
+    def check_preempt(self, iteration: int) -> bool:
+        """True when a simulated preemption signal lands here."""
+        if iteration in self.preempt_at:
+            self.preempt_at.discard(iteration)
+            self.preempts_injected += 1
+            return True
+        return False
+
+    # -- checkpoint-writer hooks -------------------------------------------
+    def on_checkpoint_write(self, step: int, staging_dir) -> None:
+        """Runs after staging is fully written, before the atomic rename:
+        a raise here models a kill mid-write."""
+        if self.write_delay_s > 0:
+            time.sleep(self.write_delay_s)
+        if step in self.crash_write_at:
+            if not self.persistent:
+                self.crash_write_at.discard(step)
+            self.writes_crashed += 1
+            raise TrainingFailure(
+                f"injected crash during checkpoint write of step {step}")
+
+    def on_checkpoint_published(self, step: int, final_dir) -> None:
+        """Runs after the atomic rename: a torn write replaces the
+        published arrays with zip-valid zeroed content (same names,
+        shapes, dtypes), which only a checksum manifest can tell."""
+        if step not in self.torn_write_at:
+            return
+        if not self.persistent:
+            self.torn_write_at.discard(step)
+        import numpy as np
+        p = Path(final_dir) / "arrays.npz"
+        with np.load(p) as data:
+            zeroed = {k: np.zeros_like(data[k]) for k in data.files}
+        np.savez(p, **zeroed)
+        self.writes_torn += 1
+        log.warning("injected torn write: step %d arrays zeroed "
+                    "post-publication", step)
+
+
+class ServingFaultInjector(FaultInjector):
+    """Serving-side deterministic fault injection: the engine calls
+    ``on_decode_step`` (or ``on_prefill`` / ``on_prefill_chunk``)
+    immediately before every program call.
+
+    Knobs:
+      - ``fail_at`` / ``persistent``: step indices to fail. Step indices
+        count completed calls, so a failed attempt is retried at the
+        same index: a non-persistent fault vanishes on the first retry,
+        ``persistent=True`` fails the step through every retry (the
+        circuit breaker is what reacts).
+      - ``poison_requests``: request ids that fail every call containing
+        them: the per-request hard fault. The engine isolates the pool
+        (solo re-runs) and quarantines exactly the poisoned requests.
+      - ``delay_at``: ``{step: seconds}`` one-shot host stalls before the
+        step launches (deadline misses without real overload).
+      - ``prefill_fail_at``: step indices at which a prefill call fails
+        (admission prefills and decode chunks share one step counter).
+      - ``corrupt_page_at``: ``{step: request_id}``: before the call
+        holding that step index, a paged engine writes garbage over the
+        KV page the named request's next token is written to. The
+        copy-on-write guard makes every write target private, so the
+        garbage lands on the writer's page only.
+      - ``prefill_chunk_fail_at``: step indices at which a chunked
+        prefill call fails (``prefill_fail_at`` fires on those calls
+        too; this knob is the narrower one).
+      - ``adopt_fail_requests``: request ids whose KV adoption fails at
+        seating (KV handoff: ROADMAP queue A item 11; no port engine
+        calls `check_adopt` yet).
+      - ``draft_poison_at``: ``{step: request_id}``: the speculative
+        round at that step derails the named request's drafts ((d+1)
+        mod V on the device), so verification rejects them all; the
+        round commits one target-verified token and the adaptive-K
+        controller falls back to K=1.
+    """
+
+    def __init__(self, fail_at: Iterable[int] = (),
+                 persistent: bool = False,
+                 poison_requests: Iterable[int] = (),
+                 delay_at: Optional[dict] = None,
+                 prefill_fail_at: Iterable[int] = (),
+                 corrupt_page_at: Optional[dict] = None,
+                 draft_poison_at: Optional[dict] = None,
+                 prefill_chunk_fail_at: Iterable[int] = (),
+                 adopt_fail_requests: Iterable[int] = ()):
+        super().__init__(fail_at, persistent=persistent)
+        self.adopt_fail_requests = set(int(r)
+                                       for r in adopt_fail_requests)
+        self.adoptions_failed = 0
+        self.poison_requests = set(int(r) for r in poison_requests)
+        self.delay_at = {int(k): float(v)
+                         for k, v in (delay_at or {}).items()}
+        self.delays_injected = 0
+        self.prefill_fail_at = set(int(i) for i in prefill_fail_at)
+        self.prefills_failed = 0
+        self.prefill_chunk_fail_at = set(
+            int(i) for i in prefill_chunk_fail_at)
+        self.prefill_chunks_failed = 0
+        self.corrupt_page_at = {int(k): int(v)
+                                for k, v in (corrupt_page_at
+                                             or {}).items()}
+        self.pages_corrupted = 0
+        self.draft_poison_at = {int(k): int(v)
+                                for k, v in (draft_poison_at
+                                             or {}).items()}
+        self.drafts_poisoned = 0
+
+    def check_corrupt_page(self, step: int) -> Optional[int]:
+        """One-shot: the request id whose next-write page the paged
+        engine should poison before the call at ``step``, else None.
+        The counter bumps when the engine confirms the write landed."""
+        return self.corrupt_page_at.pop(int(step), None)
+
+    def check_adopt(self, rid: int) -> bool:
+        """One-shot: True when request ``rid``'s KV adoption should fail
+        at seating."""
+        if int(rid) in self.adopt_fail_requests:
+            if not self.persistent:
+                self.adopt_fail_requests.discard(int(rid))
+            self.adoptions_failed += 1
+            return True
+        return False
+
+    def check_draft_poison(self, step: int) -> Optional[int]:
+        """One-shot: the request id whose draft proposals the speculative
+        round at ``step`` should derail, else None. The counter bumps
+        when the engine confirms the poison landed on a seated slot."""
+        return self.draft_poison_at.pop(int(step), None)
+
+    def on_decode_step(self, step: int,
+                       request_ids: Iterable[int] = ()) -> None:
+        d = self.delay_at.pop(int(step), 0.0)
+        if d > 0:
+            self.delays_injected += 1
+            time.sleep(d)
+        bad = self.poison_requests.intersection(
+            int(r) for r in request_ids)
+        if bad:
+            self.injected += 1
+            raise TrainingFailure(
+                f"poisoned request(s) {sorted(bad)} at decode step "
+                f"{step}")
+        self.check(int(step))
+
+    def on_prefill(self, step: int,
+                   request_ids: Iterable[int] = ()) -> None:
+        """Prefill-side hook: the shared step counter and the poison /
+        fail_at / delay semantics of `on_decode_step`, plus the
+        prefill-only ``prefill_fail_at`` knob."""
+        if int(step) in self.prefill_fail_at:
+            if not self.persistent:
+                self.prefill_fail_at.discard(int(step))
+            self.injected += 1
+            self.prefills_failed += 1
+            raise TrainingFailure(
+                f"injected prefill fault at step {step}")
+        self.on_decode_step(step, request_ids)
+
+    def on_prefill_chunk(self, step: int,
+                         request_ids: Iterable[int] = ()) -> None:
+        """Chunked-prefill hook: ``prefill_chunk_fail_at`` fires only on
+        the token-budget scheduler's chunk calls, then the call falls
+        through to `on_prefill` (a chunked call is a prefill call)."""
+        if int(step) in self.prefill_chunk_fail_at:
+            if not self.persistent:
+                self.prefill_chunk_fail_at.discard(int(step))
+            self.injected += 1
+            self.prefill_chunks_failed += 1
+            raise TrainingFailure(
+                f"injected prefill-chunk fault at step {step}")
+        self.on_prefill(step, request_ids)

@@ -64,7 +64,7 @@ prefix hits and copy-on-write. The programs are made per mode.
 and ``counts["kv_pool_bytes"]`` give the at-rest bytes of the weight tree
 and of the pool (the ``serving_param_bytes`` / ``serving_kv_pool_bytes``
 gauges: the pool measured once allocated, analytic before). Hot reload
-with requantization waits for reload (ROADMAP queue A item 9).
+with requantization waits for reload (ROADMAP queue A item 9b).
 
 The pipelined tick loop (``EngineConfig.pipeline``, True by default as
 in the reference, :553; reference `_tick_pipelined` :2922-3260): each tick
@@ -90,10 +90,8 @@ position, so the token streams are the synchronous loop's bit for bit.
 Every call runs on the
 device's current stream, so a dispatch reads the slot state the previous
 tick's programs left there, in stream order (the programs update the
-pool in place). Not ported with it: the recovery of a tick that fails at
-its wait and the in-flight state snapshot it restores (ROADMAP queue A
-item 9), the forced flush of KV export (items 9, 11), the batch-mode
-fallback (batch mode is unported).
+pool in place). Not ported with it: the forced flush of KV export
+(items 9b, 11), the batch-mode fallback (batch mode is unported).
 
 On a CUDA device the per-tick slot programs (decode chunk, paged decode
 chunk, spec round, paged spec round) replay as CUDA graphs, one per
@@ -109,11 +107,50 @@ synchronous loop a call's dispatch and wait, in the pipelined loop its
 dispatch only; ``wait`` holds the seconds blocked on the device (the
 calls' waits, or the commits').
 
+Fault tolerance (``InferenceEngine(fault_injector=..., clock=...)``,
+``EngineConfig.max_retries`` / ``backoff_*`` / ``breaker_*``, reference
+:4967-5255): every program call (one-shot, chunked and paged prefill,
+decode chunk, spec round, their masked twins, and on the card the graph
+replays) goes through one guard, `_guarded`: the injector's hook with the
+ids of every co-resident request, the call, its latency histogram, and on
+a RuntimeError retries with exponential backoff (``retry`` trace events)
+and the circuit breaker's accounting (consecutive failures open it;
+`submit` then raises OverloadError until a cooldown on ``clock`` makes it
+half-open, and any completed call closes it). The injector's step index
+counts completed calls, so a failed attempt retries the same index. The
+reference retries on its immutable state; the port's pool is updated in
+place, so before each guarded call the per-slot ``pos`` and ``tok`` (and
+a constrained engine's DFA states) are copied into standing buffers and
+copied back before a retry (`_snapshot`, ``fault_snapshot_bytes``; the
+KV rows a retry rewrites get the same values). After the retries every
+implicated request is preempted: evicted, and re-run alone from its
+committed prefix on a scratch contiguous pool of the live pool's slot
+count and KV mode (`_isolate_slots`, even for a paged engine, as in the
+reference; allocated for the isolation and dropped after, run eagerly,
+since graphs hold the live pool; a constrained re-run gets a scratch DFA
+vector). A survivor completes; a request that fails alone too is
+QUARANTINED with RequestQuarantined. A pipelined tick whose wait fails
+(`_recover_failed_tick`) drops every later pending dispatch, restores the
+DFA states and seeds as they were before the tick's dispatch, flushes the
+prefix cache and isolates every request of the dropped ticks; the kept
+slots' state was never touched by those calls (every program updates
+only its active slots), so no KV is copied. The injector's device hooks
+are ported too: ``corrupt_page_at`` (`_poison_page`) and
+``draft_poison_at`` (the spec round's ``poison`` input; a poisoned round
+drops K to 1). Lifecycle (reference :2264-2375): ``submit(deadline_s=,
+on_deadline="shed" | "partial")`` with the expiry checked at admission
+and at each commit boundary on ``clock``, `cancel`, `start` / `stop` (the
+background worker with the ``batch_timeout_s`` coalescing window),
+`drain` / `resume` (`ready` false from the moment of `drain`), and the
+typed EngineStopped / EngineDraining / DeadlineExceeded /
+RequestCancelled / RequestQuarantined errors. A CUDA error that poisons
+the context cannot be retried in-process; the injector raises on the host
+before the launch, as the reference's does.
+
 Not ported yet (set to a non-default value, each raises
-NotImplementedError naming its ROADMAP item): batch mode, the background
-worker, retries / circuit breaker / deadlines, KV handoff and adoption,
-the fault injector, the compile cache and warm-up, and QoS (so
-fair-share prefill and priorities).
+NotImplementedError naming its ROADMAP item): batch mode, KV handoff and
+adoption, hot reload, tenant QoS (fair-share prefill, priorities,
+preemption) (item 9b), and the compile cache and warm-up (item 10).
 
 Grammar-constrained decoding (``submit(..., constrain=regex or spec
 dict)``, reference :1841-1935, :2030-2180): `submit` compiles the
@@ -188,6 +225,7 @@ import itertools
 import logging
 import threading
 import time
+import weakref
 from collections import deque
 from collections.abc import Mapping
 from dataclasses import dataclass, fields
@@ -234,8 +272,40 @@ log = logging.getLogger("deeplearning4j_tpu_torch")
 _perf = time.perf_counter
 
 
+_BREAKER_STATE = {"closed": 0.0, "half-open": 1.0, "open": 2.0}
+
+
 class OverloadError(RuntimeError):
-    """Admission rejected: the queue is full."""
+    """Admission rejected: queue full or circuit breaker open."""
+
+
+class EngineStopped(RuntimeError):
+    """Admission rejected: the engine has been stopped. `submit()` raises
+    it at once: a request queued after `stop()` would never be served."""
+
+
+class EngineDraining(RuntimeError):
+    """Admission rejected: the engine is draining. `drain()` closes
+    admissions the moment it is called (readiness flips at the same
+    instant) while resident requests finish; `resume()` reopens them."""
+
+
+class DeadlineExceeded(RuntimeError):
+    """Request shed because its deadline passed before completion."""
+
+
+class RequestCancelled(RuntimeError):
+    """Request cancelled by the caller via `engine.cancel()`."""
+
+
+class RequestQuarantined(RuntimeError):
+    """Request failed persistently (solo, after max retries) and was
+    quarantined so it cannot poison further calls."""
+
+
+class _BatchDecodeFailed(RuntimeError):
+    """A program call exhausted its retries (carries the last error);
+    triggers slot isolation."""
 
 
 class QoSValidationError(ValueError):
@@ -253,7 +323,7 @@ MAX_TENANT_LEN = 64
 
 def validate_tenant(tenant):
     """The tenant half of the reference's tenant/priority validation
-    (:331; priorities wait for QoS, ROADMAP queue A item 9): coerce or
+    (:331; priorities wait for QoS, ROADMAP queue A item 9b): coerce or
     reject BEFORE the id reaches the metric-label path. Returns the
     normalized tenant; raises `QoSValidationError`. An int tenant id
     becomes its decimal string; anything else that is not a str is
@@ -281,6 +351,7 @@ class RequestStatus:
     RUNNING = "running"
     COMPLETED = "completed"
     SHED = "shed"
+    QUARANTINED = "quarantined"
 
 
 DEFAULT_CONTINUOUS_CHUNK = 8
@@ -359,21 +430,13 @@ class EngineConfig:
 
 # unported EngineConfig fields -> the ROADMAP item that ports them
 _UNPORTED = {
-    "mode": "batch mode (ROADMAP queue A6)",
-    "batch_timeout_s": "the background worker (ROADMAP queue A6)",
-    "max_retries": "retries and the circuit breaker (ROADMAP queue A6)",
-    "backoff_base_s": "retries and the circuit breaker (ROADMAP queue A6)",
-    "backoff_max_s": "retries and the circuit breaker (ROADMAP queue A6)",
-    "breaker_failure_threshold":
-        "retries and the circuit breaker (ROADMAP queue A6)",
-    "breaker_cooldown_s":
-        "retries and the circuit breaker (ROADMAP queue A6)",
-    "program_cache_size": "the compile cache (ROADMAP queue A6)",
-    "compile_cache_dir": "the compile cache (ROADMAP queue A6)",
-    "warmup_on_init": "the compile cache (ROADMAP queue A6)",
-    "tenant_weights": "tenant QoS (ROADMAP queue A6)",
-    "qos_default_weight": "tenant QoS (ROADMAP queue A6)",
-    "preemption_budget": "tenant QoS (ROADMAP queue A6)",
+    "mode": "batch mode (ROADMAP queue A item 9b)",
+    "program_cache_size": "the compile cache (ROADMAP queue A item 10)",
+    "compile_cache_dir": "the compile cache (ROADMAP queue A item 10)",
+    "warmup_on_init": "the compile cache (ROADMAP queue A item 10)",
+    "tenant_weights": "tenant QoS (ROADMAP queue A item 9b)",
+    "qos_default_weight": "tenant QoS (ROADMAP queue A item 9b)",
+    "preemption_budget": "tenant QoS (ROADMAP queue A item 9b)",
 }
 
 
@@ -381,7 +444,7 @@ _UNPORTED = {
 # queue A item that ports it (checked before `_UNPORTED`, so the error
 # names the combination)
 _PAGED_CHUNKED_TODO = {
-    "tenant_weights": "fair-share prefill (ROADMAP queue A item 9)",
+    "tenant_weights": "fair-share prefill (ROADMAP queue A item 9b)",
 }
 
 # the rejection reasons of a constrained submit the port can raise
@@ -503,10 +566,19 @@ def _check_config(config: EngineConfig) -> None:
 class RequestHandle:
     """Caller-facing future for one submitted prompt."""
 
-    def __init__(self, rid: int, prompt: np.ndarray, max_new: int):
+    def __init__(self, rid: int, prompt: np.ndarray, max_new: int,
+                 deadline_at: Optional[float] = None,
+                 on_deadline: str = "shed"):
         self.rid = rid
         self.prompt = prompt
         self.max_new_tokens = max_new
+        # the deadline on the engine's clock, and what its expiry does
+        # (reference :611-631): "shed" (DeadlineExceeded) or "partial"
+        # (complete with the committed tokens)
+        self.deadline_at = deadline_at
+        self.on_deadline = on_deadline
+        self.deadline_exceeded = False
+        self._cancelled = False
         self.status = RequestStatus.QUEUED
         self.error: Optional[BaseException] = None
         self._generated: List[np.ndarray] = []
@@ -553,7 +625,7 @@ class RequestHandle:
 
     def result(self, timeout: Optional[float] = None) -> np.ndarray:
         """Full sequence [T0 + generated] (generate's layout). Raises the
-        terminal error of a shed request."""
+        terminal error of a shed or quarantined request."""
         if not self._done.wait(timeout):
             raise TimeoutError(f"request {self.rid} not done")
         if self.error is not None:
@@ -567,7 +639,7 @@ class RequestHandle:
         # the terminal trace event and the SLO accounting run before
         # result() waiters wake, so a caller that sees done() sees a
         # complete trace (reference :737)
-        cb = self._on_terminal
+        cb, self._on_terminal = self._on_terminal, None
         if cb is not None:
             try:
                 cb(self)
@@ -585,9 +657,13 @@ class _PendingTick:
     each with its host-bound output in host memory (filled
     asynchronously), and the event recorded after the tick's last
     dispatch, which the pipelined commit's one wait blocks on (None on
-    the CPU and in the synchronous loop)."""
+    the CPU and in the synchronous loop). A constrained engine also keeps
+    ``c_in_state``: the DFA states (a device copy) and the pending seeds
+    as they were before the tick's first dispatch, which
+    `_recover_failed_tick` restores (reference :718)."""
     items: list
     done: Optional[object]
+    c_in_state: Optional[tuple] = None
 
 
 class InferenceEngine:
@@ -599,20 +675,17 @@ class InferenceEngine:
     ``slo`` and ``profiler`` are the reference's observability arguments
     (:1252-1259), with its defaults: a private registry, and the
     recorder, SLO tracker and profiler on with a live registry and NULL
-    with `NULL_REGISTRY`. ``clock`` keeps the reference's signature; the
-    reference reads it only for batch latency, deadlines and the circuit
-    breaker (ROADMAP queue A item 9), so any other clock is refused."""
+    with `NULL_REGISTRY`. ``fault_injector`` (a
+    `parallel.failure.ServingFaultInjector`) is called before every
+    program call, and ``clock`` is what deadlines and the circuit
+    breaker's cooldown read (reference :1252-1255)."""
 
     def __init__(self, cfg: TransformerConfig, params,
                  config: Optional[EngineConfig] = None, device=None,
                  registry=None, recorder=None, slo=None, profiler=None,
-                 clock: Callable[[], float] = time.monotonic):
+                 clock: Callable[[], float] = time.monotonic,
+                 fault_injector=None):
         _check_slice(cfg)
-        if clock is not time.monotonic:
-            raise NotImplementedError(
-                "InferenceEngine(clock=...): batch latency, deadlines and "
-                "the circuit breaker, which read it (ROADMAP queue A item "
-                "9), are not ported yet")
         self.cfg = cfg
         self.config = config or EngineConfig()
         _check_config(self.config)
@@ -670,9 +743,36 @@ class InferenceEngine:
             [None] * self._num_slots
         self._slot_state = None
         self._programs: Dict[Tuple[str, int], object] = {}
-        self._lock = threading.Lock()
+        self._lock = threading.RLock()
+        self._cv = threading.Condition(self._lock)
         self._queue: deque = deque()
         self._rids = itertools.count(1)
+        # fault tolerance and the lifecycle (reference :1505-1523): the
+        # breaker goes closed -> open (consecutive failures) -> half-open
+        # (cooldown elapsed on ``clock``) -> closed (a completed call);
+        # the step counter indexes COMPLETED calls, so a failed attempt
+        # retries the same index (the injector's contract)
+        self._injector = fault_injector
+        self._clock = clock
+        self._accepting = True
+        self._draining = False
+        self._stop_flag = False
+        self._ticking = False
+        self._thread: Optional[threading.Thread] = None
+        self._breaker = "closed"
+        self._opened_at = 0.0
+        self._consec_failures = 0
+        self._step_counter = 0
+        # the per-call snapshot of the in-place per-slot state (`_snapshot`)
+        # and the scratch pool of solo re-runs (`_isolate_slots`): while
+        # ``_solo`` is set every call runs on the scratch pool, eagerly,
+        # and waits for its output
+        self._snap: Optional[tuple] = None
+        self._snap_of: tuple = ()
+        self._last_call_s = 0.0
+        self._solo = False
+        self._scratch = None
+        self.scratch_pool_bytes = 0
         # the pipelined loop (reference :1345-1375): at most one tick in
         # flight; _pipe_items collects a tick's commit items while it
         # dispatches
@@ -723,7 +823,6 @@ class InferenceEngine:
         self._tick_syncs = 0
         self._last_tick_syncs = 0
         self._last_tick_spent = 0
-        self._step = 0                    # program calls made
         self._init_metrics(self.registry)
         if recorder is None:
             recorder = (NULL_RECORDER
@@ -772,33 +871,49 @@ class InferenceEngine:
                          "Requests rejected or abandoned, by reason",
                          labelnames=("reason",))
         self._m_shed_overload = shed.labels("overload")
-        # the reference's children, which its deadline / cancel paths
-        # (unported, ROADMAP queue A item 9) increment
-        shed.labels("deadline")
-        shed.labels("cancelled")
+        self._m_shed_deadline = shed.labels("deadline")
+        self._m_shed_cancelled = shed.labels("cancelled")
+        self._m_quarantined = r.counter(
+            "serving_requests_quarantined",
+            "Requests that failed persistently after solo retries")
+        self._m_retries = r.counter(
+            "serving_decode_retries", "Decode step retry attempts")
+        self._m_step_failures = r.counter(
+            "serving_decode_step_failures", "Failed decode step calls")
         self._m_in_flight = r.gauge(
             "serving_in_flight_requests",
             "Requests currently inside the decode loop")
         r.gauge("serving_queue_depth",
                 "Admitted requests waiting for a batch").set_function(
-            lambda: float(len(self._queue)))
+            self._weak(lambda e: float(len(e._queue))))
+        r.gauge("serving_breaker_state",
+                "Circuit breaker: 0=closed 1=half-open 2=open"
+                ).set_function(
+            self._weak(lambda e: _BREAKER_STATE.get(e._breaker, -1.0)))
         r.gauge("serving_degraded",
                 "1 while admissions are token-budget-capped"
-                ).set_function(lambda: float(self._degraded_locked()))
+                ).set_function(
+            self._weak(lambda e: float(e._degraded_locked())))
+        self._m_preempted = r.counter(
+            "serving_requests_preempted",
+            "In-flight requests evicted from their slot (isolation or "
+            "weight reload) and re-run from their committed prefix")
         r.gauge("serving_slot_occupancy",
                 "Occupied continuous-batching slots").set_function(
-            lambda: float(sum(s is not None for s in self._slots)))
+            self._weak(lambda e: float(sum(s is not None
+                                           for s in e._slots))))
         r.gauge("serving_param_bytes",
                 "At-rest bytes of the serving weight tree "
                 "(values + scales when quantized)").set_function(
-            lambda: float(self.param_bytes()))
+            self._weak(lambda e: float(e.param_bytes())))
         r.gauge("serving_kv_bytes_per_slot",
                 "KV-cache bytes one continuous-batching slot costs "
                 "(caches + scales + slot vectors)").set_function(
-            lambda: float(self.kv_bytes_per_slot()))
+            self._weak(lambda e: float(e.kv_bytes_per_slot())))
         r.gauge("serving_kv_pool_bytes",
                 "Total at-rest bytes of the slot-pool KV state"
-                ).set_function(lambda: float(self.kv_pool_bytes()))
+                ).set_function(
+            self._weak(lambda e: float(e.kv_pool_bytes())))
         self._m_step_seconds = r.histogram(
             "serving_decode_step_seconds",
             "Wall time of one compiled decode call",
@@ -816,18 +931,18 @@ class InferenceEngine:
                 "device spent idle (1 - dispatched-work interval / "
                 "tick wall time): the double-buffered tick loop's "
                 "target metric").set_function(
-            lambda: float(self._last_idle))
+            self._weak(lambda e: float(e._last_idle)))
         self._m_prefix_hits = self._m_prefix_misses = None
         self._m_prefix_evictions = self._m_prefix_shared = None
         if self._paged:
             r.gauge("serving_kv_pages_free",
                     "Allocatable pages on the KV free list"
                     ).set_function(
-                lambda: float(self._allocator.pages_free))
+                self._weak(lambda e: float(e._allocator.pages_free)))
             r.gauge("serving_kv_pages_used",
                     "KV pages referenced by slots or the prefix cache"
                     ).set_function(
-                lambda: float(self._allocator.pages_used))
+                self._weak(lambda e: float(e._allocator.pages_used)))
             self._m_prefix_hits = r.counter(
                 "serving_prefix_cache_hits",
                 "Admissions whose prefix matched a cached page chain")
@@ -852,13 +967,14 @@ class InferenceEngine:
                 "Draft tokens accepted by target-model verification")
             r.gauge("serving_spec_acceptance_ratio",
                     "Cumulative accepted/drafted draft-token ratio"
-                    ).set_function(lambda: (
-                        float(self._m_spec_accepted.value)
-                        / max(1.0, float(self._m_spec_drafted.value))))
+                    ).set_function(self._weak(lambda e: (
+                        float(e._m_spec_accepted.value)
+                        / max(1.0, float(e._m_spec_drafted.value)))))
             r.gauge("serving_spec_k",
                     "Adaptive draft length in use (0 while the "
                     "controller has fallen back to plain decode)"
-                    ).set_function(lambda: float(self.spec_k_current))
+                    ).set_function(
+                self._weak(lambda e: float(e.spec_k_current)))
             if self._pipe:
                 self._m_spec_waste = r.counter(
                     "serving_spec_schedule_waste_tokens",
@@ -877,8 +993,8 @@ class InferenceEngine:
                     "tick_token_budget (decode chunks + prefill "
                     "chunks; >1 when the progress floor overrode "
                     "the budget)").set_function(
-                lambda: float(self._last_tick_spent)
-                / float(max(1, self._tick_budget)))
+                self._weak(lambda e: float(e._last_tick_spent)
+                           / float(max(1, e._tick_budget))))
         # grammar constraints: registered at the first constrained
         # submit (`_ensure_constrain_metrics`)
         self._m_c_requests = self._m_c_rejections = None
@@ -925,54 +1041,61 @@ class InferenceEngine:
         r.gauge("serving_constrained_states",
                 "DFA states resident in the constraint mask table "
                 "(bound: constrain_state_cap)").set_function(
-            lambda: float(self._ctab.rows_used
-                          if self._ctab is not None else 0))
+            self._weak(lambda e: float(e._ctab.rows_used
+                                       if e._ctab is not None else 0)))
         name, kind, _, help_ = _PORT_SERIES["constrained_illegal"]
         self._m_c_illegal = getattr(r, kind)(name, help_)
         self._m_port["constrained_illegal"] = self._m_c_illegal
 
     def _count_getters(self) -> Dict[str, Callable[[], float]]:
-        """`counts`' keys -> the registry reads behind them."""
-        port = self._m_port
+        """`counts`' keys -> the registry reads behind them. None holds
+        the engine but through `_weak` (the series a constrained submit
+        registers later), so the read-outs close no reference cycle."""
+        port, reg, w = self._m_port, self.registry, self._weak
 
         def val(key):
             return lambda: _value(port.get(key))
 
-        g = {"prefill_calls": lambda: _hist(self._m_prefill_seconds, 2),
+        def of(m):
+            return lambda: _value(m)
+
+        def gauge(name):
+            return lambda: _gauge(reg, name)
+
+        def lazy(attr):
+            return w(lambda e: _value(getattr(e, attr)))
+
+        def rejected(reason):
+            return w(lambda e: _value(e._m_c_rejections.labels(reason))
+                     if e._m_c_rejections is not None else 0.0)
+
+        prefill = self._m_prefill_seconds
+        g = {"prefill_calls": lambda: _hist(prefill, 2),
              **{k: val(k) for k, (_, kind, _, _) in _PORT_SERIES.items()
                 if kind == "counter" and not k.endswith("_seconds")},
-             "spec_drafted": lambda: _value(self._m_spec_drafted),
-             "spec_accepted": lambda: _value(self._m_spec_accepted),
+             "spec_drafted": of(self._m_spec_drafted),
+             "spec_accepted": of(self._m_spec_accepted),
              "spec_released": lambda: (_value(port.get("spec_reserved"))
                                        - _value(port.get(
                                            "spec_committed"))),
-             "prefill_chunks": lambda: _value(self._m_prefill_chunks),
-             "prefix_hits": lambda: _value(self._m_prefix_hits),
-             "prefix_misses": lambda: _value(self._m_prefix_misses),
-             "prefix_shared_tokens": lambda: _value(self._m_prefix_shared),
-             "prefix_evictions": lambda: _value(self._m_prefix_evictions),
-             "pages_used": lambda: _gauge(self.registry,
-                                          "serving_kv_pages_used"),
-             "pages_free": lambda: _gauge(self.registry,
-                                          "serving_kv_pages_free"),
-             "shed_overload": lambda: _value(self._m_shed_overload),
-             "constrained_requests": lambda: _value(self._m_c_requests),
-             **{f"constrained_rejected_{r}": (
-                 lambda r=r: _value(self._m_c_rejections.labels(r))
-                 if self._m_c_rejections is not None else 0.0)
+             "prefill_chunks": of(self._m_prefill_chunks),
+             "prefix_hits": of(self._m_prefix_hits),
+             "prefix_misses": of(self._m_prefix_misses),
+             "prefix_shared_tokens": of(self._m_prefix_shared),
+             "prefix_evictions": of(self._m_prefix_evictions),
+             "pages_used": gauge("serving_kv_pages_used"),
+             "pages_free": gauge("serving_kv_pages_free"),
+             "shed_overload": of(self._m_shed_overload),
+             "constrained_requests": lazy("_m_c_requests"),
+             **{f"constrained_rejected_{r}": rejected(r)
                 for r in _C_REASONS},
-             "constrained_grammar_compiles":
-                 lambda: _value(self._m_c_compiles),
-             "constrained_terminal": lambda: _value(self._m_c_terminal),
-             "constrained_table_rows": lambda: _gauge(
-                 self.registry, "serving_constrained_states"),
-             "param_bytes": lambda: _gauge(self.registry,
-                                           "serving_param_bytes"),
-             "kv_pool_bytes": lambda: _gauge(self.registry,
-                                             "serving_kv_pool_bytes")}
+             "constrained_grammar_compiles": lazy("_m_c_compiles"),
+             "constrained_terminal": lazy("_m_c_terminal"),
+             "constrained_table_rows": gauge("serving_constrained_states"),
+             "param_bytes": gauge("serving_param_bytes"),
+             "kv_pool_bytes": gauge("serving_kv_pool_bytes")}
         if self.device.type == "cuda":
-            g["graph_pool_bytes"] = lambda: _value(
-                port.get("graph_pool_bytes"))
+            g["graph_pool_bytes"] = val("graph_pool_bytes")
         else:
             for k in ("graph_captures", "graph_replays"):
                 del g[k]
@@ -984,11 +1107,25 @@ class InferenceEngine:
         in the decode histogram, as in the reference, and apart in the
         port's own counter)."""
         port = self._m_port
-        return {"prefill": lambda: _hist(self._m_prefill_seconds, 1),
-                "decode": lambda: (_hist(self._m_step_seconds, 1)
+        prefill, step = self._m_prefill_seconds, self._m_step_seconds
+        return {"prefill": lambda: _hist(prefill, 1),
+                "decode": lambda: (_hist(step, 1)
                                    - _value(port.get("spec_seconds"))),
                 "spec": lambda: _value(port.get("spec_seconds")),
                 "wait": lambda: _value(port.get("wait_seconds"))}
+
+    def _weak(self, fn: Callable) -> Callable[[], float]:
+        """``fn(engine)`` as a registry callback that holds the engine
+        weakly, 0 once it is gone: the gauges and read-outs close no
+        reference cycle through the engine, so dropping the last
+        reference frees its pools and graphs at once, without the
+        cyclic collector."""
+        ref = weakref.ref(self)
+
+        def read():
+            eng = ref()
+            return 0.0 if eng is None else fn(eng)
+        return read
 
     def _inc(self, key: str, amount: float = 1) -> None:
         """One of the port's own series (`_PORT_SERIES`), where this
@@ -1058,27 +1195,39 @@ class InferenceEngine:
     @property
     def stats(self) -> dict:
         """Counter snapshot (registry-backed) plus the HBM accounting
-        trio: the reference's keys for what the port has (its breaker,
-        retry, batch, reload and preemption keys wait for ROADMAP queue
-        A item 9)."""
+        trio: the reference's keys for what the port has (its batch and
+        reload keys wait for ROADMAP queue A item 9b)."""
         return {"param_bytes": self.param_bytes(),
                 "kv_bytes_per_slot": self.kv_bytes_per_slot(),
                 "kv_pool_bytes": self.kv_pool_bytes(),
                 "completed": int(self._m_completed.value),
                 "shed_overload": int(self._m_shed_overload.value),
+                "shed_deadline": int(self._m_shed_deadline.value),
+                "quarantined": int(self._m_quarantined.value),
+                "retries": int(self._m_retries.value),
+                "step_failures": int(self._m_step_failures.value),
+                "preempted": int(self._m_preempted.value),
                 "in_flight": int(self._m_in_flight.value)}
 
-    def _degraded_locked(self) -> bool:
-        return len(self._queue) >= self.config.degrade_queue_depth
+    @property
+    def fault_snapshot_bytes(self) -> int:
+        """Device bytes of the per-call snapshot of the per-slot state
+        (`_snapshot`: ``pos``, ``tok`` and, constrained, the DFA states);
+        0 before the first call."""
+        return sum(int(t.numel()) * t.element_size()
+                   for t in self._snap or ())
 
     def health(self) -> dict:
         """The `/healthz` body: the reference's keys for what the port
-        has (breaker, draining, weights step, warm-up and compile
-        sources wait for their ROADMAP queue A items)."""
+        has (weights step, warm-up and compile sources wait for their
+        ROADMAP queue A items)."""
         with self._lock:
+            self._tick_breaker(self._clock())
             occupied = sum(s is not None for s in self._slots)
             out = {"ready": self.ready(),
+                   "breaker": self._breaker,
                    "degraded": self._degraded_locked(),
+                   "draining": self._draining,
                    "queue_depth": len(self._queue),
                    "num_slots": self._num_slots,
                    "slots_occupied": occupied,
@@ -1098,9 +1247,12 @@ class InferenceEngine:
         return {**out, **self.stats}
 
     def ready(self) -> bool:
-        """Admissions open (the port has no stop, drain or breaker yet,
-        so always)."""
-        return True
+        """Admissions open: not stopped, not draining (false from the
+        moment `drain()` is called) and the breaker not open."""
+        with self._lock:
+            self._tick_breaker(self._clock())
+            return (self._accepting and not self._draining
+                    and self._breaker != "open")
 
     def debugz(self, recent: int = 100) -> dict:
         """The operator's "why is it slow RIGHT NOW" snapshot
@@ -1133,6 +1285,7 @@ class InferenceEngine:
             for r in self._queue:
                 t = r.tenant or "default"
                 queue_by_tenant[t] = queue_by_tenant.get(t, 0) + 1
+            breaker = self._breaker
             degraded = self._degraded_locked()
         out = {"mode": self.config.mode,
                "num_slots": self._num_slots,
@@ -1141,6 +1294,7 @@ class InferenceEngine:
                "queue_depth": len(queue),
                "queue": queue,
                "queue_by_tenant": queue_by_tenant,
+               "breaker": breaker,
                "degraded": degraded,
                "recorder_events": len(self.recorder),
                "recent_events": [e.as_dict() for e in
@@ -1228,20 +1382,32 @@ class InferenceEngine:
         if r.status == RequestStatus.COMPLETED:
             r.trace.add("finished",
                         tokens=int(sum(a.shape[0] for a in r._generated)),
-                        partial=False, **bill)
+                        partial=bool(r.deadline_exceeded), **bill)
         elif r.status == RequestStatus.SHED:
-            r.trace.add("shed", reason="overload", **bill)
+            r.trace.add("shed", reason=(
+                "cancelled" if r._cancelled
+                else "deadline" if r.deadline_exceeded
+                else "overload"), **bill)
+        elif r.status == RequestStatus.QUARANTINED:
+            r.trace.add("quarantined", **bill)
         self.slo.finished(r.trace)
 
     # -- admission -------------------------------------------------------
     def submit(self, prompt, max_new_tokens: Optional[int] = None,
                constrain=None, tenant: Optional[str] = None,
-               trace_ctx: Optional[dict] = None) -> RequestHandle:
-        """Admit one prompt. Raises OverloadError when the queue is full;
-        past ``degrade_queue_depth`` queued requests the token budget is
-        capped at ``degraded_max_new_tokens`` (reference :2123-2127). A
-        paged engine refuses a request that needs more pages than its
-        pool holds. ``constrain`` (a regex, or a spec dict of
+               trace_ctx: Optional[dict] = None,
+               deadline_s: Optional[float] = None,
+               on_deadline: str = "shed") -> RequestHandle:
+        """Admit one prompt. Raises EngineStopped after `stop()`,
+        EngineDraining while draining, and OverloadError when the queue is
+        full or the circuit breaker is open; past ``degrade_queue_depth``
+        queued requests, or while the breaker is not closed, the token
+        budget is capped at ``degraded_max_new_tokens`` (reference
+        :2099-2127). ``deadline_s`` (seconds on the engine's clock) sheds
+        the request with DeadlineExceeded once it passes, or with
+        ``on_deadline="partial"`` completes it with the tokens committed
+        by then. A paged engine refuses a request that needs more pages
+        than its pool holds. ``constrain`` (a regex, or a spec dict of
         `serving.constrain.normalize_constraint`, whose ``consumed``
         counts prompt-tail tokens the grammar already read) restricts
         the output to the grammar; a spec that cannot be served raises
@@ -1250,6 +1416,9 @@ class InferenceEngine:
         QoSValidationError first: it becomes a metric label) and
         ``trace_ctx`` is merged into every event of its trace
         (reference :2180-2197)."""
+        if on_deadline not in ("shed", "partial"):
+            raise ValueError(f"on_deadline must be 'shed' or 'partial', "
+                             f"got {on_deadline!r}")
         tenant = validate_tenant(tenant)
         prompt = np.asarray(prompt, np.int32)
         if prompt.ndim != 1 or prompt.size == 0:
@@ -1268,12 +1437,26 @@ class InferenceEngine:
             except ConstraintError as e:
                 self._c_reject(e)
                 raise
+        now = self._clock()
         with self._lock:
+            if not self._accepting:
+                raise EngineStopped(
+                    "engine is stopped: submit() would never be served")
+            if self._draining:
+                raise EngineDraining(
+                    "engine is draining: admissions are closed until "
+                    "resume()")
+            self._tick_breaker(now)
+            if self._breaker == "open":
+                self._m_shed_overload.inc()
+                raise OverloadError(
+                    "circuit breaker open (recent step failures); "
+                    f"retry after {self.config.breaker_cooldown_s}s")
             if len(self._queue) >= self.config.max_queue:
                 self._m_shed_overload.inc()
                 raise OverloadError(f"queue full ({self.config.max_queue})")
             cap = (self.config.degraded_max_new_tokens
-                   if len(self._queue) >= self.config.degrade_queue_depth
+                   if self._degraded_locked()
                    else self.config.max_new_tokens)
             eff = min(max_new_tokens or self.config.max_new_tokens, cap,
                       self.config.max_new_tokens)
@@ -1291,7 +1474,10 @@ class InferenceEngine:
                         f"{self._allocator.usable_pages} (kv_pages="
                         f"{self._num_pages}, page_size={self._page_size})"
                         " - it could never be admitted")
-            handle = RequestHandle(next(self._rids), prompt, eff)
+            handle = RequestHandle(
+                next(self._rids), prompt, eff,
+                now + deadline_s if deadline_s is not None else None,
+                on_deadline)
             if grammar is not None:
                 # the last check: the grammar's rows in the table (a
                 # resubmitted grammar shares them)
@@ -1313,13 +1499,16 @@ class InferenceEngine:
             handle._on_terminal = self._on_terminal
             handle.trace.add(
                 "submit", prompt_tokens=int(prompt.shape[0]),
-                max_new_tokens=int(eff), deadline_s=None,
+                max_new_tokens=int(eff),
+                deadline_s=(float(deadline_s)
+                            if deadline_s is not None else None),
                 **({"tenant": tenant} if tenant is not None else {}),
                 **({"constrained": True, "grammar": grammar.key[:12],
                     "dfa_states": grammar.num_states}
                    if grammar is not None else {}))
             self._queue.append(handle)
             handle.trace.add("queued", depth=len(self._queue))
+            self._cv.notify()
         return handle
 
     # -- grammar constraints (reference :1841-1935) ------------------------
@@ -1423,10 +1612,151 @@ class InferenceEngine:
 
     def drained(self) -> bool:
         """True when no request is queued, seated or awaiting its commit
-        (reference :2319)."""
+        (reference :2319), and no tick is running: a slot frees once its
+        tokens are all dispatched, so a request can be in no slot and no
+        pending record while the tick that commits it runs (on the
+        worker's thread)."""
         with self._lock:
-            return (not self._queue and not self._pending
+            return (not self._ticking and not self._queue
+                    and not self._pending
                     and all(r is None for r in self._slots))
+
+    def draining(self) -> bool:
+        return self._draining
+
+    def start(self) -> "InferenceEngine":
+        """Drive the engine from a background worker thread (reference
+        :2264): it ticks while there is work and sleeps on the engine's
+        condition otherwise."""
+        with self._lock:
+            if self._thread is not None:
+                return self
+            self._stop_flag = False
+            self._thread = threading.Thread(target=self._worker,
+                                            daemon=True,
+                                            name="inference-engine")
+            self._thread.start()
+        return self
+
+    def stop(self, drain: bool = True) -> None:
+        """Stop the worker; with ``drain`` the queued and resident
+        requests are served to the end on the caller's thread first.
+        Admissions stay closed after (`submit` raises EngineStopped)."""
+        with self._cv:
+            self._accepting = not drain and self._accepting
+            self._stop_flag = True
+            self._cv.notify_all()
+        if self._thread is not None:
+            self._thread.join()
+            self._thread = None
+        if drain:
+            self.run_pending()
+        self._accepting = False
+
+    def drain(self, wait: bool = True,
+              timeout: Optional[float] = None) -> "InferenceEngine":
+        """Close admissions at once (`submit` raises EngineDraining and
+        `ready()` is false from this instant, not from when the last
+        resident finishes) while queued and resident requests run to
+        completion; with ``wait``, block until drained (driving the work
+        on the caller's thread when no worker runs). `resume()` reopens
+        admissions (reference :2291)."""
+        with self._cv:
+            self._draining = True
+            self._cv.notify_all()
+        if wait:
+            if self._thread is None:
+                self.run_pending()
+            else:
+                deadline = (None if timeout is None
+                            else time.monotonic() + timeout)
+                while not self.drained():
+                    if (deadline is not None
+                            and time.monotonic() > deadline):
+                        raise TimeoutError(
+                            f"engine did not drain within {timeout}s")
+                    time.sleep(0.002)
+        return self
+
+    def resume(self) -> None:
+        """Reopen admissions after a `drain()`."""
+        with self._cv:
+            self._draining = False
+            self._cv.notify_all()
+
+    def cancel(self, handle: RequestHandle) -> bool:
+        """Best-effort cancel (reference :2336): a queued request is shed
+        at once, one in flight at the next commit boundary. Both are
+        typed RequestCancelled and counted under
+        ``serving_requests_shed_total{reason="cancelled"}``. Returns False
+        for a request already finished."""
+        with self._lock:
+            if handle.done():
+                return False
+            handle._cancelled = True
+            try:
+                self._queue.remove(handle)
+            except ValueError:
+                return True      # in flight: the commit boundary sheds it
+        self._m_shed_cancelled.inc()
+        self._finish(handle, RequestStatus.SHED, RequestCancelled(
+            f"request {handle.rid} cancelled while queued"))
+        return True
+
+    def _worker(self) -> None:
+        while True:
+            with self._cv:
+                while (not self._queue and not self._pool_busy()
+                       and not self._stop_flag):
+                    self._cv.wait(0.05)
+                if self._stop_flag:
+                    return
+            # the coalescing window lets near-simultaneous submissions
+            # share an admission, but never stalls a busy pool and never
+            # sleeps when the queue already fills every free slot
+            if (self.config.batch_timeout_s > 0
+                    and not self._pool_busy()
+                    and not self._queue_fills_pool()):
+                time.sleep(self.config.batch_timeout_s)
+            self.tick()
+
+    def _pool_busy(self) -> bool:
+        """A seated slot, or a dispatched tick still to commit (a slot
+        frees once its tokens are all dispatched)."""
+        return bool(self._pending) or any(s is not None
+                                          for s in self._slots)
+
+    def _queue_fills_pool(self) -> bool:
+        """True when waiting cannot improve the next admission: the queue
+        holds at least as many requests as there are free slots."""
+        with self._lock:
+            seats = sum(s is None for s in self._slots)
+            return len(self._queue) >= max(1, seats)
+
+    def _shed_expired(self, batch) -> None:
+        """Shed a cancelled request, and one past its deadline (or
+        complete it partial), among ``batch`` (reference :2478)."""
+        now = self._clock()
+        for r in batch:
+            if r.status not in (RequestStatus.RUNNING,
+                                RequestStatus.QUEUED) or r.done():
+                continue
+            if r._cancelled:
+                self._m_shed_cancelled.inc()
+                self._finish(r, RequestStatus.SHED, RequestCancelled(
+                    f"request {r.rid} cancelled with "
+                    f"{r.generated.shape[0]} tokens decoded"))
+                continue
+            if r.deadline_at is not None and now > r.deadline_at:
+                r.deadline_exceeded = True
+                if r.on_deadline == "partial":
+                    self._finish(r, RequestStatus.COMPLETED)
+                else:
+                    self._m_shed_deadline.inc()
+                    self._finish(r, RequestStatus.SHED, DeadlineExceeded(
+                        f"request {r.rid} past deadline with "
+                        f"{r.generated.shape[0]}/{r.max_new_tokens} "
+                        "tokens decoded"))
 
     def tick(self) -> bool:
         """One scheduling round: admit into free slots, dispatch the
@@ -1436,6 +1766,13 @@ class InferenceEngine:
         each call's output as it dispatches it and commits this tick; the
         pipelined loop commits the previous tick behind one wait (see the
         module docstring). Returns whether any work was done."""
+        self._ticking = True
+        try:
+            return self._tick()
+        finally:
+            self._ticking = False
+
+    def _tick(self) -> bool:
         self._tick_perf0 = _perf()
         self._tick_syncs = 0
         self._observe("tick_begin", self.profiler.tick_begin)
@@ -1448,7 +1785,7 @@ class InferenceEngine:
                 self._pending.append(pending)
         if prev is not None:
             self._commit_tick(prev)
-        self._reap()
+        self._reap(shed=True)
         busy = bool(admitted) or pending is not None or prev is not None
         if busy:
             self._inc("pipelined_ticks")
@@ -1488,6 +1825,9 @@ class InferenceEngine:
                          if self._slots[i] is None)
             while free and self._queue:
                 r = self._queue.popleft()
+                self._shed_expired([r])
+                if r.done():
+                    continue
                 i = free[0]
                 hit = 0
                 if self._paged:
@@ -1615,20 +1955,26 @@ class InferenceEngine:
 
         return run
 
-    def _run(self, kind: str, size: int, fixed: tuple, dyn: tuple,
-             host: tuple) -> tuple:
-        """``program(*fixed, *dyn, seed)`` for the slot program (kind,
-        size): ``fixed`` the weight trees and the pool, ``dyn`` the
-        call's tensors, ``host`` the (ctx, lens) host data that costs
-        the call (`observability.profiling.program_cost`; its per-token
-        rate is left in ``_call_rate``). On the card a per-tick program
-        replays its CUDA graph (`serving.graphs`). A constraint-active
-        engine runs the masked program instead, with the DFA states and
-        the table added to ``fixed`` and the pending seeds to ``dyn``;
-        the seeds it took retire after the call (`_cmask_begin` /
-        `_cmask_commit`, JAX :1901-1935: a seed recorded since stays for
-        the next call)."""
+    def _run(self, kind: str, size: int, lead: tuple, state: tuple,
+             dyn: tuple, host: tuple, reqs: list, host_out) -> tuple:
+        """One guarded call of the slot program (kind, size):
+        ``program(*lead, *state, *dyn, seed)``, ``lead`` the weight trees,
+        ``state`` the pool, ``dyn`` the call's tensors, ``host`` the (ctx,
+        lens) host data that costs the call
+        (`observability.profiling.program_cost`; its per-token rate is
+        left in ``_call_rate``), ``reqs`` the co-resident requests the
+        fault injector sees. ``host_out(*outputs)`` turns the program's
+        outputs past the pool into the call's host-bound result. Returns
+        (state, that result). On the card a per-tick program replays its
+        CUDA graph (`serving.graphs`), except on the scratch pool of a
+        solo re-run. A constraint-active engine runs the masked program
+        instead, with the DFA states and the table added to the fixed
+        arguments and the pending seeds to ``dyn``; the seeds it took
+        retire after the call (`_cmask_begin` / `_cmask_commit`, JAX
+        :1901-1935: a seed recorded since stays for the next call).
+        Raises _BatchDecodeFailed when `_guarded` gives up."""
         taken = None
+        fixed = (*lead, *state)
         if self._constrain_active:
             kind += "_c"
             fixed += (self._cstate, self._ctab.device(self.device))
@@ -1640,17 +1986,142 @@ class InferenceEngine:
             self._observe("program cost", self._profile_call, kind, size,
                           *host)
         seed = int(self.config.seed)
-        self._busy_mark()
-        self._step += 1
-        if self._graphs is not None and kind in self._GRAPHED:
-            out = self._graphs.call((kind, size), fn, fixed, dyn, seed)
+        graphed = (self._graphs is not None and kind in self._GRAPHED
+                   and not self._solo)
+        npool = len(state)
+
+        def call():
+            self._busy_mark()
+            if graphed:
+                out = self._graphs.call((kind, size), fn, fixed, dyn, seed)
+            else:
+                out = fn(*fixed, *dyn, seed)
+            rest = out[npool + 1:] if taken is not None else out[npool:]
+            return tuple(out[:npool]), host_out(*rest)
+
+        base = kind.removesuffix("_c")
+        prefill = base.endswith("prefill")
+        out = self._guarded(
+            call, reqs, state,
+            self._m_prefill_seconds if prefill else self._m_step_seconds,
+            prefill=prefill, chunked=base.endswith("chunked_prefill"))
+        if taken is not None:
+            self._cmask_commit(taken)
+        return out
+
+    # -- the guarded call (reference `_guarded`, :5092-5140) ---------------
+    def _guarded(self, call, reqs: list, state: tuple, hist,
+                 prefill: bool = False, chunked: bool = False):
+        """One program call under the engine's fault handling: the
+        injector's hook first (``on_prefill_chunk`` for a chunked
+        prefill, ``on_prefill`` for a prefill, else ``on_decode_step``,
+        each with the ids of every co-resident request), then the call,
+        its latency in ``hist`` and the breaker's accounting. The step
+        counter indexes completed calls, so a failed attempt retries the
+        same index. A RuntimeError (an injected fault, a CUDA error) is
+        retried up to ``max_retries`` times with exponential backoff
+        (each co-resident trace gets a ``retry`` event), the in-place
+        per-slot state copied back from its snapshot before each retry;
+        then _BatchDecodeFailed."""
+        rids = [r.rid for r in reqs]
+        self._snapshot(state)
+        attempt = 0
+        while True:
+            try:
+                if self._injector is not None:
+                    hook = self._injector.on_decode_step
+                    if prefill and chunked and hasattr(self._injector,
+                                                       "on_prefill_chunk"):
+                        hook = self._injector.on_prefill_chunk
+                    elif prefill and hasattr(self._injector,
+                                             "on_prefill"):
+                        hook = self._injector.on_prefill
+                    hook(self._step_counter, rids)
+                t0 = _perf()
+                out = call()
+                self._last_call_s = _perf() - t0
+                hist.observe(self._last_call_s)
+                self._record_success()
+                self._step_counter += 1
+                return out
+            except RuntimeError as e:
+                self._record_failure(e)
+                self._restore_snapshot()
+                attempt += 1
+                if attempt > self.config.max_retries:
+                    raise _BatchDecodeFailed(str(e)) from e
+                self._m_retries.inc()
+                for r in reqs:
+                    r.trace.add("retry", step=self._step_counter,
+                                attempt=attempt, prefill=prefill)
+                delay = min(self.config.backoff_base_s
+                            * (2 ** (attempt - 1)),
+                            self.config.backoff_max_s)
+                log.warning(
+                    "decode step %d failed (%s); retry %d/%d in %.3fs",
+                    self._step_counter, str(e), attempt,
+                    self.config.max_retries, delay)
+                if delay > 0:
+                    time.sleep(delay)
+
+    def _snapshot(self, state: tuple) -> None:
+        """Copy the per-slot tensors a program updates in place, the
+        pool's ``pos`` and ``tok`` and a constrained engine's DFA states,
+        into standing buffers (on the device's stream, no wait). The
+        reference retries on its immutable state; these copies are what a
+        retry restores (`_restore_snapshot`). The KV rows a retried call
+        rewrites get the same values, and every other slot's state is
+        left alone by the programs, so nothing else is copied."""
+        live = tuple(state[-2:]) + ((self._cstate,)
+                                    if self._constrain_active else ())
+        snap = self._snap
+        if snap is None or len(snap) != len(live) or any(
+                a.shape != b.shape or a.device != b.device
+                for a, b in zip(snap, live)):
+            self._snap = tuple(t.clone() for t in live)
         else:
-            out = fn(*fixed, *dyn, seed)
-        if taken is None:
-            return out
-        self._cmask_commit(taken)
-        npool = len(self._slot_state)
-        return (*out[:npool], *out[npool + 1:])
+            for buf, t in zip(snap, live):
+                buf.copy_(t)
+        self._snap_of = live
+
+    def _restore_snapshot(self) -> None:
+        for t, buf in zip(self._snap_of, self._snap):
+            t.copy_(buf)
+
+    # -- the circuit breaker (reference :5218-5255) ------------------------
+    def _record_failure(self, err: BaseException) -> None:
+        self._m_step_failures.inc()
+        with self._lock:
+            self._consec_failures += 1
+            if (self._breaker != "open" and self._consec_failures
+                    >= self.config.breaker_failure_threshold):
+                self._breaker = "open"
+                self._opened_at = self._clock()
+                log.error("circuit breaker OPEN after %d consecutive "
+                          "step failures (last: %s)",
+                          self._consec_failures, str(err))
+
+    def _record_success(self) -> None:
+        """Any completed call proves the path healthy: the breaker closes
+        from half-open (the probe) and from open (a failure streak of one
+        poisoned request whose peers then completed solo)."""
+        with self._lock:
+            self._consec_failures = 0
+            if self._breaker != "closed":
+                log.info("circuit breaker closed (was %s: a call "
+                         "succeeded)", self._breaker)
+                self._breaker = "closed"
+
+    def _tick_breaker(self, now: float) -> None:
+        if (self._breaker == "open"
+                and now - self._opened_at
+                >= self.config.breaker_cooldown_s):
+            self._breaker = "half-open"
+            log.info("circuit breaker half-open (cooldown elapsed)")
+
+    def _degraded_locked(self) -> bool:
+        return (len(self._queue) >= self.config.degrade_queue_depth
+                or self._breaker != "closed")
 
     # JAX's names of the port's program kinds (the rest are the same)
     _JAX_PROGRAM = {"spec": "spec_decode", "paged_spec": "paged_spec_decode"}
@@ -1728,13 +2199,14 @@ class InferenceEngine:
     def _host(self, t: torch.Tensor) -> torch.Tensor:
         """A call's host-bound output: a host tensor the copy fills
         without blocking (pinned memory on the card), read at the commit
-        (`_commit_tick`). The synchronous loop waits for it here, one
-        blocking wait a call; the pipelined loop at the commit."""
+        (`_commit_tick`). The synchronous loop (and a solo re-run) waits
+        for it here, one blocking wait a call; the pipelined loop at the
+        commit."""
         if t.is_cuda:
             h = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
             h.copy_(t, non_blocking=True)
             t = h
-        if not self._pipe:
+        if not self._pipe or self._solo:
             self._wait(None)
         return t
 
@@ -1770,14 +2242,18 @@ class InferenceEngine:
         ``entries``' write ranges, then the block table on the device."""
         with self._lock:
             self._ensure_writable(entries, span)
+            self._maybe_corrupt_page(entries, span)
             return self._tensor(self._bt.copy())
 
-    def _call_prefill(self, state, entries):
+    def _call_prefill(self, state, entries, paged: Optional[bool] = None):
         """One admission prefill over ``state`` for ``entries``
         [(slot, handle)]: each committed prefix right-padded to the
         bucket; on a paged pool only the part past the prefix-cache hit
-        (reference :4512). Returns (state', first tokens [Ns], `_host`)."""
-        starts = {i: (r._page_start if self._paged else 0)
+        (reference :4512). ``paged=False`` runs the contiguous program on
+        a paged engine (the scratch pool of a solo re-run). Returns
+        (state', first tokens [Ns], `_host`)."""
+        paged = self._paged if paged is None else paged
+        starts = {i: (r._page_start if paged else 0)
                   for i, r in entries}
         tails = {i: np.concatenate([r.prompt, r.generated]
                                    ).astype(np.int32)[starts[i]:]
@@ -1790,26 +2266,23 @@ class InferenceEngine:
             prompts[i, :tail.shape[0]] = tail
             plen[i] = tail.shape[0]
             start[i] = starts[i]
-        if self._paged:
+        if paged:
             bt = self._block_table(entries, None)
             kind, lead, tail_args = "paged_prefill", (bt,), (start,)
         else:
             kind, lead, tail_args = "prefill", (), ()
-        t0 = _perf()
-        *state, first = self._run(
-            kind, tb, (self._params, *state),
+        state, first = self._run(
+            kind, tb, (self._params,), tuple(state),
             (*lead, *map(self._tensor, (prompts, plen, *tail_args))),
-            (start, plen))
+            (start, plen), [r for _, r in entries], self._host)
         rate = self._call_rate
-        first = self._host(first)
-        self._m_prefill_seconds.observe(_perf() - t0)
         for i, _ in entries:
             self._dev_pos[i] = start[i] + plen[i]
         if self.profiler.enabled:
             self._observe("bill", self._bill,
                           [(r, plen[i]) for i, r in entries], "prefill",
                           rate)
-        return tuple(state), first
+        return state, first
 
     def _active_rem(self, entries):
         """The active mask and the budgets ``rem`` of a decode or spec
@@ -1822,30 +2295,30 @@ class InferenceEngine:
             rem[i] = r.max_new_tokens - r.generated.shape[0] - r._pending_n
         return active, rem
 
-    def _call_chunk(self, state, entries):
+    def _call_chunk(self, state, entries, paged: Optional[bool] = None):
         """One decode chunk over ``state`` for the occupied ``entries``;
         per-slot budgets ride as ``rem``, so a slot finishing mid-chunk
-        stops on the device. Returns (state', toks [Ns, chunk] by
-        `_host`, the call's per-token rate)."""
+        stops on the device (``paged=False``: as `_call_prefill`).
+        Returns (state', toks [Ns, chunk] by `_host`, the call's
+        per-token rate)."""
+        paged = self._paged if paged is None else paged
         active, rem = self._active_rem(entries)
         steps = np.where(active, np.minimum(self._chunk,
                                             np.maximum(rem, 0)), 0)
-        if self._paged:
+        if paged:
             kind, lead = "paged_decode", (self._block_table(entries,
                                                             self._chunk),)
         else:
             kind, lead = "decode", ()
-        t0 = _perf()
-        *state, toks = self._run(
-            kind, self._chunk, (self._params, *state),
+        state, toks = self._run(
+            kind, self._chunk, (self._params,), tuple(state),
             (*lead, self._tensor(active), self._tensor(rem)),
-            (self._dev_pos.copy(), steps))
+            (self._dev_pos.copy(), steps), [r for _, r in entries],
+            self._host)
         rate = self._call_rate
-        toks = self._host(toks)
-        self._m_step_seconds.observe(_perf() - t0)
         self._inc("decode_chunks")
         self._dev_pos += steps
-        return tuple(state), toks, rate
+        return state, toks, rate
 
     def _commit_first(self, entries, first, **data) -> None:
         """Each live entry's first generated token (a one-shot prefill's
@@ -1900,7 +2373,11 @@ class InferenceEngine:
                         r._prefill_target - r._prefill_pos, rem)
                 plan.append((i, r, n))
                 rem -= n
-            self._prefill_chunk_call(plan)
+            try:
+                self._prefill_chunk_call(plan)
+            except _BatchDecodeFailed as e:
+                self._isolate_slots([r for _, r, _ in plan], e)
+                continue
             spent += sum(n for _, _, n in plan)
         return spent
 
@@ -1928,15 +2405,11 @@ class InferenceEngine:
                           (self._block_table(entries, None),))
         else:
             kind, lead = "chunked_prefill", ()
-        t0 = _perf()
-        *state, first = self._run(
-            kind, c, (self._params, *self._slot_state),
+        self._slot_state, first = self._run(
+            kind, c, (self._params,), self._slot_state,
             (*lead, *map(self._tensor, (toks, clen, start, last))),
-            (start, clen))
+            (start, clen), [r for _, r, _ in plan], self._host)
         rate = self._call_rate
-        first = self._host(first)
-        self._m_prefill_seconds.observe(_perf() - t0)
-        self._slot_state = tuple(state)
         if self.profiler.enabled:
             self._observe("bill", self._bill,
                           [(r, n) for _, r, n in plan], "prefill", rate)
@@ -1964,6 +2437,10 @@ class InferenceEngine:
         """Dispatch one tick's calls (reference :2960), scheduling on the
         tokens committed and in flight; returns the record to commit, or
         None when nothing was dispatched."""
+        # the DFA states and seeds before this tick's dispatches: what
+        # `_recover_failed_tick` restores (reference :2965)
+        c_in = ((self._cstate.clone(), dict(self._cseed_pending))
+                if self._pipe and self._constrain_active else None)
         self._pipe_items = []
         try:
             if self._prefill_chunk is not None:
@@ -1978,7 +2455,7 @@ class InferenceEngine:
         if self._pipe and self.device.type == "cuda":
             done = torch.cuda.Event()
             done.record(torch.cuda.current_stream(self.device))
-        return _PendingTick(items, done)
+        return _PendingTick(items, done, c_in)
 
     def _sched_decoding(self) -> List[tuple]:
         """The slots this tick's decode dispatch takes (reference :2987):
@@ -1994,14 +2471,22 @@ class InferenceEngine:
         dispatch: a later reader's calls queue after its writes."""
         if admitted:
             self._ensure_state()
-            self._slot_state, first = self._call_prefill(self._slot_state,
-                                                         admitted)
-            for _, r in admitted:
-                r._pending_n += 1
-            if self._paged:
-                self._cache_prefilled(admitted)
-            self._pipe_items.append(("prefill", list(admitted), first))
-            self._reap()
+            try:
+                self._slot_state, first = self._call_prefill(
+                    self._slot_state, admitted)
+            except _BatchDecodeFailed as e:
+                with self._lock:
+                    for i, r in admitted:
+                        if self._slots[i] is r:
+                            self._free_slot(i)
+                self._isolate_slots([r for _, r in admitted], e)
+            else:
+                for _, r in admitted:
+                    r._pending_n += 1
+                if self._paged:
+                    self._cache_prefilled(admitted)
+                self._pipe_items.append(("prefill", list(admitted), first))
+                self._reap()
         decoding = self._sched_decoding()
         if decoding:
             self._dispatch_decode(decoding, {})
@@ -2025,8 +2510,12 @@ class InferenceEngine:
         if self._spec and self._spec_tick():
             self._dispatch_spec(decoding, data)
             return
-        self._slot_state, toks, rate = self._call_chunk(self._slot_state,
-                                                        decoding)
+        try:
+            self._slot_state, toks, rate = self._call_chunk(
+                self._slot_state, decoding)
+        except _BatchDecodeFailed as e:
+            self._isolate_slots([r for _, r in decoding], e)
+            return
         needs = []
         for _, r in decoding:
             n = min(self._chunk, r.max_new_tokens - r.generated.shape[0]
@@ -2043,8 +2532,12 @@ class InferenceEngine:
         commit releases what verification rejected. K is what the last
         commit decided (`_spec_update` runs at commit)."""
         k1 = self._spec_cur_k + 1
-        self._slot_state, out, rate = self._call_spec(self._slot_state,
-                                                      decoding)
+        try:
+            self._slot_state, out, rate, poison = self._call_spec(
+                self._slot_state, decoding)
+        except _BatchDecodeFailed as e:
+            self._isolate_slots([r for _, r in decoding], e)
+            return
         reserved = []
         for i, r in decoding:
             n = min(k1, r.max_new_tokens - r.generated.shape[0]
@@ -2055,7 +2548,8 @@ class InferenceEngine:
             self._dev_pos[i] += n     # the commit corrects it by ncommit
         self._inc("spec_reserved", sum(reserved))
         self._pipe_items.append(("spec", list(decoding), out, reserved,
-                                 rate, dict(data, step=self._step - 1)))
+                                 rate, dict(data, step=self._step_counter
+                                            - 1, poison=poison)))
 
     def _commit_tick(self, prev: _PendingTick) -> None:
         """A dispatched tick's items committed in dispatch order
@@ -2064,29 +2558,35 @@ class InferenceEngine:
         its unused reservation and runs the adaptive-K controller here,
         so the next dispatch's K was decided at a commit."""
         if self._pipe:
-            self._wait(prev.done)
+            try:
+                self._wait(prev.done)
+            except RuntimeError as e:
+                self._recover_failed_tick(prev, e)
+                return
         for kind, entries, out, *rest in prev.items:
+            # (a request isolated since the dispatch has no tokens in
+            # flight any more and is done: its items commit nothing)
             out = out.numpy()
             if kind == "prefill":
                 for _, r in entries:
-                    r._pending_n -= 1
+                    r._pending_n = max(0, r._pending_n - 1)
                 self._commit_first(entries, out)
             elif kind == "prefill_chunk":
                 finished = rest[0]
                 for _, r in finished:
-                    r._pending_n -= 1
+                    r._pending_n = max(0, r._pending_n - 1)
                 self._commit_first(finished, out,
                                    prefill_chunk=self._prefill_chunk)
             elif kind == "decode":
                 needs, rate, data = rest
                 for (_, r), n in zip(entries, needs):
-                    r._pending_n -= n
+                    r._pending_n = max(0, r._pending_n - n)
                 self._commit_decode(entries, out, needs, rate, data)
             else:
                 reserved, rate, data = rest
                 for (_, r), n in zip(entries, reserved):
-                    r._pending_n -= n
-                    r._pending_spec -= n
+                    r._pending_n = max(0, r._pending_n - n)
+                    r._pending_spec = max(0, r._pending_spec - n)
                 needs = self._commit_spec(entries, out, reserved, rate,
                                           data)
                 if self._m_spec_waste is not None:
@@ -2172,6 +2672,35 @@ class InferenceEngine:
             plane = raw(plane)
             plane[:, dst] = plane[:, src]
         self._inc("cow_copies")
+
+    def _poison_page(self, pg: int) -> None:
+        """Write an out-of-distribution pattern over physical page ``pg``'s
+        K and V values in every layer, in place (1e3, or the byte 97 on a
+        one-byte pool); the scale planes keep their values, as the
+        reference's do (:1141)."""
+        for plane in self._slot_state[:2]:
+            plane = raw(plane)
+            plane[:, pg] = 97 if plane.element_size() == 1 else 1e3
+
+    def _maybe_corrupt_page(self, entries, span: Optional[int]) -> None:
+        """The injector's ``corrupt_page_at`` hook (reference :4007): poison
+        the named request's next-write page. It runs after the
+        copy-on-write guard, so the page is the writer's own."""
+        inj = self._injector
+        if inj is None or not hasattr(inj, "check_corrupt_page"):
+            return
+        rid = inj.check_corrupt_page(self._step_counter)
+        if rid is None:
+            return
+        for i, r in entries:
+            if r.rid == rid and self._slot_pages[i]:
+                lp = self._write_range(r, span)[0] // self._page_size
+                lp = min(lp, len(self._slot_pages[i]) - 1)
+                self._poison_page(self._slot_pages[i][lp])
+                inj.pages_corrupted += 1
+                log.warning("injected corruption: request %d slot %d page "
+                            "%d poisoned", rid, i, self._slot_pages[i][lp])
+                return
 
     def _release_slot_pages(self, i: int) -> None:
         self._allocator.release_chain(self._slot_pages[i])
@@ -2264,35 +2793,56 @@ class InferenceEngine:
             return False
         return True
 
+    def _spec_poison(self, entries) -> np.ndarray:
+        """The injector's ``draft_poison_at`` hook (reference :4765): mark
+        the named request's slot so the round derails its drafts on the
+        device (the round's ``poison`` input: data, so a graph replays
+        it)."""
+        poison = np.zeros((self._num_slots,), bool)
+        inj = self._injector
+        if inj is None or not hasattr(inj, "check_draft_poison"):
+            return poison
+        rid = inj.check_draft_poison(self._step_counter)
+        if rid is None:
+            return poison
+        for i, r in entries:
+            if r.rid == rid:
+                poison[i] = True
+                inj.drafts_poisoned += 1
+                log.warning("injected draft poison: request %d (slot %d) "
+                            "at step %d", rid, i, self._step_counter)
+        return poison
+
     def _call_spec(self, state, entries):
         """One speculative round over the pool for ``entries``; a paged
         pool first privatises every page the K+1 window can write.
-        Returns (state', out [Ns, K+4] by `_host`): each row's window
-        tokens, then its commit count, drafted and accepted (see
-        `_spec_out`). ``poison`` stays all false: the fault injector's
-        draft_poison_at hook, and with it the controller's poisoned-round
-        fallback to K=1, are not ported (ROADMAP queue A6)."""
+        Returns (state', out [Ns, K+4] by `_host`: each row's window
+        tokens, then its commit count, drafted and accepted, see
+        `_spec_out`; the call's per-token rate; the round's ``poison``
+        mask, `_spec_poison`)."""
         active, rem = self._active_rem(entries)
-        poison = np.zeros((self._num_slots,), bool)
+        poison = self._spec_poison(entries)
         k = self._spec_cur_k
         if self._paged:
             kind, lead = "paged_spec", (self._block_table(entries, k + 1),)
         else:
             kind, lead = "spec", ()
-        t0 = _perf()
-        *state, emit, nc, drafted, accepted = self._run(
-            kind, k, (self._params, self._draft_params, *state),
+
+        def host_out(emit, nc, drafted, accepted):
+            return self._host(torch.cat([emit, nc[:, None],
+                                         drafted[:, None],
+                                         accepted[:, None]], dim=1))
+
+        state, out = self._run(
+            kind, k, (self._params, self._draft_params), tuple(state),
             (*lead, *map(self._tensor, (active, rem, poison))),
-            (self._dev_pos.copy(), (active & (rem > 0)).astype(np.int64)))
+            (self._dev_pos.copy(), (active & (rem > 0)).astype(np.int64)),
+            [r for _, r in entries], host_out)
         rate = self._call_rate
-        out = self._host(torch.cat([emit, nc[:, None], drafted[:, None],
-                                    accepted[:, None]], dim=1))
-        dt = _perf() - t0
-        self._m_step_seconds.observe(dt)
-        self._inc("spec_seconds", dt)
+        self._inc("spec_seconds", self._last_call_s)
         self._inc("spec_rounds")
         self._inc("spec_draft_steps", k)
-        return tuple(state), out, rate
+        return state, out, rate, poison
 
     @staticmethod
     def _spec_out(out: np.ndarray):
@@ -2310,6 +2860,7 @@ class InferenceEngine:
         toks, nc, drafted, accepted = self._spec_out(out)
         data = dict(data)
         step = data.pop("step")
+        poison = data.pop("poison")
         needs = []
         for (i, r), n_res in zip(entries, reserved):
             # the device advanced the slot by its commit count: the
@@ -2323,7 +2874,7 @@ class InferenceEngine:
                 if d_i and a_i == 0:
                     self._observe("draft_rejected", r.trace.add,
                                   "draft_rejected", step=step, drafted=d_i,
-                                  poisoned=False)
+                                  poisoned=bool(poison[i]))
                 need = min(int(nc[i]),
                            r.max_new_tokens - r.generated.shape[0])
                 need = self._commit_tokens(
@@ -2331,15 +2882,19 @@ class InferenceEngine:
                     rate=rate, slot=i, drafted=d_i, accepted=a_i, **data)
             needs.append(need)
         self._inc("spec_committed", sum(needs))
-        self._spec_update(entries, drafted, accepted)
+        self._spec_update(entries, drafted, accepted, poison)
         return needs
 
-    def _spec_update(self, occupied, drafted, accepted) -> None:
+    def _spec_update(self, occupied, drafted, accepted, poison) -> None:
         """Adaptive K over {spec_k, spec_k/2, .., 1}: per-slot acceptance
         EMAs (a drop takes effect at once, a recovery averages in) give a
         pool mean; below 0.2 K collapses to 1, and from 1 to plain decode
         for a cooldown; below 0.45 K halves; above 0.8 it doubles back
-        (capped at spec_k)."""
+        (capped at spec_k). A poisoned round bypasses the EMA and falls
+        straight back to K=1 (reference :4913)."""
+        if bool(np.asarray(poison).any()):
+            self._spec_cur_k = 1
+            return
         if not self.config.spec_adaptive:
             return
         sampled = [i for i, _ in occupied if drafted[i] > 0]
@@ -2394,7 +2949,7 @@ class InferenceEngine:
         if event == "decode_chunk" and rate is not None:
             self.profiler.bill_tokens(r, None, n, "decode", rate)
 
-    def _reap(self) -> None:
+    def _reap(self, shed: bool = False) -> None:
         """Free the slots whose request has all its tokens: committed,
         or, without spec, committed and in flight. A slot freed with
         tokens in flight is refilled by calls queued after the ones
@@ -2404,7 +2959,14 @@ class InferenceEngine:
         half-precision pools stay exact). A spec round's commit count is
         known only at its commit, so a spec engine frees there, as the
         reference does (:3268); so is a grammar's terminal state, which
-        frees its slot a tick later than the synchronous loop does."""
+        frees its slot a tick later than the synchronous loop does. With
+        ``shed`` (a commit boundary) the cancelled and expired requests
+        among the seated and those with tokens in flight are shed first
+        (`_shed_expired`; reference :4946)."""
+        if shed:
+            live = self._in_flight_requests()
+            if live:
+                self._shed_expired(live)
         with self._lock:
             for i, r in enumerate(self._slots):
                 if r is not None and (
@@ -2412,3 +2974,155 @@ class InferenceEngine:
                                      r.generated.shape[0] + r._pending_n
                                      >= r.max_new_tokens)):
                     self._free_slot(i)
+
+    def _in_flight_requests(self) -> List[RequestHandle]:
+        """The seated requests, then those of the pending ticks' records,
+        each once, in that order."""
+        return self._record_requests(self._pending,
+                                     [r for _, r in self._occupied()])
+
+    @staticmethod
+    def _record_requests(records, first=()) -> List[RequestHandle]:
+        """``first``, then the requests of the dispatched ticks'
+        ``records`` in item order (an entry's request is its second
+        field), each once."""
+        out = list(first)
+        for rec in records:
+            for it in rec.items:
+                out += [ent[1] for ent in it[1]]
+        return list({id(r): r for r in out}.values())
+
+    # -- failure recovery (reference :3207-3246, :4967-5056) --------------
+    def _recover_failed_tick(self, prev: _PendingTick, err) -> None:
+        """A pipelined tick whose outputs failed at the commit's wait,
+        after later ticks may have dispatched on them: every pending
+        dispatch is dropped, the DFA states and seeds go back to what
+        they were before the failed tick's dispatch (the seeds recorded
+        since win), the prefix cache is flushed (pages inserted at
+        dispatch may hold the failed call's rows), and every request of
+        the dropped ticks is isolated: its solo re-run resumes from its
+        committed prefix, the guarantee of a failure at the call. The
+        slots kept were in none of the dropped calls, and a program
+        changes only the state of the slots it runs, so no KV is
+        restored."""
+        log.warning("pipelined tick failed at its wait (%s); recovering "
+                    "from the committed state", str(err))
+        reqs = self._record_requests([prev, *self._pending])
+        self._pending.clear()
+        if prev.c_in_state is not None:
+            cstate, seeds = prev.c_in_state
+            self._cstate.copy_(cstate)
+            merged = dict(seeds)
+            merged.update(self._cseed_pending)
+            self._cseed_pending = merged
+        if self._prefix_cache is not None:
+            with self._lock:
+                flushed = self._prefix_cache.flush()
+            if flushed:
+                self._m_prefix_evictions.inc(flushed)
+        self._isolate_slots(reqs, _BatchDecodeFailed(str(err)))
+
+    def _isolate_slots(self, requests: List[RequestHandle],
+                       err: BaseException) -> None:
+        """A pool call exhausted its retries (or a pipelined tick failed
+        at its wait): every implicated request is preempted (evicted from
+        its slot) and re-run alone on a scratch pool from its committed
+        prefix, synchronously, even inside a pipelined dispatch. A solo
+        survivor completes; a solo failure is quarantined, so a poisoned
+        request cannot take down its co-resident slots. A paged slot's
+        pages go back to the refcount pool: pages another slot or the
+        prefix cache still references live on. The scratch pool is
+        allocated at the first re-run and dropped after the last. An
+        error the guard does not take (the scratch pool's allocation
+        running out of memory, say) quarantines the request being re-run
+        and every one not yet reached, which are in no slot any more,
+        before it propagates: every handle resolves."""
+        log.warning("slot pool of %d exhausted retries (%s); isolating",
+                    len(requests), str(err))
+        with self._lock:
+            implicated = set(id(r) for r in requests)
+            for i, r in enumerate(self._slots):
+                if r is not None and id(r) in implicated:
+                    self._free_slot(i)
+        for r in requests:
+            # the tokens in flight died with the failed call or tick
+            r._pending_n = r._pending_spec = 0
+        k = 0
+        try:
+            for k, r in enumerate(requests):
+                if r.status != RequestStatus.RUNNING or r.done():
+                    continue
+                self._m_preempted.inc()
+                r.trace.add("preempted", reason="isolation")
+                try:
+                    self._run_isolated(r)
+                except _BatchDecodeFailed as e:
+                    self._quarantine(r, f"failed persistently: {e}")
+        except Exception as e:
+            for r in requests[k:]:
+                if not r.done():
+                    self._quarantine(r, f"could not be re-run alone: "
+                                        f"{type(e).__name__}: {e}")
+            raise
+        finally:
+            self._scratch = None
+
+    def _quarantine(self, r: RequestHandle, why: str) -> None:
+        self._m_quarantined.inc()
+        log.error("request %d quarantined (%s)", r.rid, why)
+        self._finish(r, RequestStatus.QUARANTINED,
+                     RequestQuarantined(f"request {r.rid} {why}"))
+
+    def _run_isolated(self, r: RequestHandle) -> None:
+        """Solo re-run of ``r`` in slot 0 of the scratch pool, a contiguous
+        pool of the live pool's slot count and KV mode (so the live
+        programs' shapes serve it), run eagerly (the graphs hold the live
+        pool) with a wait a call. A constrained engine swaps in a scratch
+        DFA vector whose slot 0 is seeded from ``r``'s committed prefix;
+        the live states, seeds and profiling positions are put back
+        after."""
+        if self._scratch is None:
+            self._scratch = init_slot_state(self.cfg, self._num_slots,
+                                            self.device,
+                                            kv_mode=self._kv_mode)
+            self.scratch_pool_bytes = sum(int(a.numel()) * a.element_size()
+                                          for a in self._scratch)
+        saved = (self._cstate, self._cseed_pending, self._dev_pos)
+        if self._constrain_active:
+            self._cstate = torch.zeros((self._num_slots,),
+                                       dtype=torch.int32,
+                                       device=self.device)
+            self._cseed_pending = {0: self._c_state_for(r)}
+        self._dev_pos = np.zeros_like(self._dev_pos)
+        self._solo = True
+        try:
+            self._run_isolated_inner(r)
+        finally:
+            self._solo = False
+            self._cstate, self._cseed_pending, self._dev_pos = saved
+
+    def _run_isolated_inner(self, r: RequestHandle) -> None:
+        """Re-prefill the committed prefix in one one-shot call, then
+        decode chunks to the end (reference :5033). Sampling is keyed by
+        position, so the continuation is the pooled run's."""
+        state = self._scratch
+        r.trace.add("admitted", slot=0, scratch=True, bucket=int(
+            self._bucket_len(r.prompt.shape[0] + r.generated.shape[0])))
+        self.slo.admitted(r.trace)
+        state, first = self._call_prefill(state, [(0, r)], paged=False)
+        self._commit_tokens(r, first.numpy()[:1].astype(np.int32),
+                            "prefill_done", scratch=True)
+        while True:
+            self._shed_expired([r])
+            if r.status != RequestStatus.RUNNING or r.done():
+                return
+            if r.generated.shape[0] >= r.max_new_tokens:
+                self._finish(r, RequestStatus.COMPLETED)
+                return
+            state, toks, rate = self._call_chunk(state, [(0, r)],
+                                                 paged=False)
+            toks = toks.numpy()
+            need = min(int(toks.shape[1]),
+                       r.max_new_tokens - r.generated.shape[0])
+            self._commit_tokens(r, toks[0, :need].astype(np.int32),
+                                "decode_chunk", rate=rate, scratch=True)

@@ -33,13 +33,21 @@ so it adds to no counter; the engine's ``serving_graph_replays_total``
 graph,
 and what a replay ran on the device is measured from the device's own
 trace (chip_smoke.py's profiled ticks). A failed capture or replay
-raises; there is no eager fallback.
+raises; there is no eager fallback. A failed capture raises
+`GraphCaptureError`, which is not a RuntimeError, so the engine's guard
+does not retry it: an error mid-capture (out of memory, say) can leave
+the caching allocator failing every later allocation, and a retry would
+turn a healthy engine's one failure into preemptions and quarantines.
 """
 from __future__ import annotations
 
 from typing import Callable, Dict, List, Tuple
 
 import torch
+
+
+class GraphCaptureError(Exception):
+    """A slot program's CUDA graph capture failed (the cause chained)."""
 
 
 class _Graph:
@@ -82,7 +90,12 @@ class SlotGraphs:
         g = self._graphs.get(key)
         if g is None:
             out = fn(*fixed, *dyn, seed)
-            self._graphs[key] = self._capture(fn, fixed, dyn, seed)
+            try:
+                g = self._capture(fn, fixed, dyn, seed)
+            except RuntimeError as e:
+                raise GraphCaptureError(
+                    f"capture of slot program {key} failed: {e}") from e
+            self._graphs[key] = g
             return out
         if len(fixed) != len(g.fixed) or \
                 any(a is not b for a, b in zip(fixed, g.fixed)):

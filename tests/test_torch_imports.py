@@ -143,14 +143,15 @@ def test_kernel_experiments_raise_without_cuda(monkeypatch, module):
 OBSERVABILITY = ("deeplearning4j_tpu_torch.observability",
                  "deeplearning4j_tpu_torch.util",
                  "deeplearning4j_tpu_torch.util.flops",
-                 "deeplearning4j_tpu_torch.serving")
+                 "deeplearning4j_tpu_torch.serving",
+                 "deeplearning4j_tpu_torch.parallel.failure")
 
 
 @pytest.mark.parametrize("module", OBSERVABILITY)
 def test_observability_loads_no_jax(module):
-    """Importing the observability package, the chip-peak table and the
-    serving package (which wires them) in a fresh interpreter loads no
-    jax and nothing of the JAX package."""
+    """Importing the observability package, the chip-peak table, the
+    serving package (which wires them) and the fault injector in a fresh
+    interpreter loads no jax and nothing of the JAX package."""
     import subprocess
     import sys
     code = (f"import sys\nimport {module}\n"

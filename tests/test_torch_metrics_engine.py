@@ -61,21 +61,21 @@ TENANTS = ("acme", "globex")
 # queue A item that brings them (and, where JAX registers one only on
 # some engines, that condition)
 JAX_ONLY = {
-    "serving_breaker_state": "9: the circuit breaker",
-    "serving_decode_retries": "9: retries",
-    "serving_decode_step_failures": "9: retries",
-    "serving_requests_quarantined": "9: quarantine",
-    "serving_requests_preempted": "9: reload, isolation and QoS "
-                                  "preemption",
-    "serving_batches": "9: batch mode",
-    "serving_batch_size": "9: batch mode",
-    "serving_batch_latency_seconds": "9: batch mode",
-    "serving_weight_reloads": "9: hot reload",
+    "serving_batches": "9b: batch mode",
+    "serving_batch_size": "9b: batch mode",
+    "serving_batch_latency_seconds": "9b: batch mode",
+    "serving_weight_reloads": "9b: hot reload",
     "serving_compiles": "10: the compile cache",
     "serving_compile_seconds": "10: the compile cache",
     "serving_program_cache_evictions": "10: the compile cache",
     "serving_kv_adoptions": "11: KV handoff and adoption (paged engines)",
 }
+# the fault-handling families (ROADMAP queue A item 9a), equal to JAX's
+# on every arm (no faults: zeros, the breaker closed)
+FAULT_FAMILIES = ("serving_breaker_state", "serving_decode_retries",
+                  "serving_decode_step_failures",
+                  "serving_requests_quarantined",
+                  "serving_requests_preempted")
 # counter families compared by label set only: device timings and the
 # analytic costs (the port's program_cost, JAX's XLA cost analysis)
 COST_OR_TIME = {"serving_program_device_seconds", "serving_program_flops",
@@ -220,6 +220,11 @@ def test_counters_and_histogram_counts_equal(served, arm):
                 [(s["labels"], s["count"]) for s in a["samples"]], name
             compared += 1
     assert compared >= 8
+    for name in FAULT_FAMILIES:
+        assert tf_[name]["kind"] == jf[name]["kind"], name
+        assert tf_[name]["samples"] == jf[name]["samples"], name
+    assert tf_["serving_requests_shed"]["samples"] == \
+        jf["serving_requests_shed"]["samples"]
     # the engines really did the arm's work
     c = t.counts
     assert c["prefill_calls"] > 0 and c["decode_chunks"] + \
@@ -324,13 +329,10 @@ def _keys(d):
 
 # keys of JAX's read-outs whose items are unported -> the item
 READOUT_UNPORTED = {
-    "health": {"breaker", "draining", "weights_step", "last_warmup",
-               "compiles_by_source", "shed_deadline", "quarantined",
-               "retries", "step_failures", "batches", "reloads",
-               "preempted"},
-    "debugz": {"breaker", "weights_step", "compile_cache"},
-    "stats": {"shed_deadline", "quarantined", "retries", "step_failures",
-              "batches", "reloads", "preempted"},
+    "health": {"weights_step", "last_warmup", "compiles_by_source",
+               "batches", "reloads"},
+    "debugz": {"weights_step", "compile_cache"},
+    "stats": {"batches", "reloads"},
 }
 
 
@@ -460,7 +462,7 @@ def test_observability_fields_accepted_and_unported_named(tparams,
     assert set(eng.profile_report()["tenant_costs"]["tenants"]) == \
         {"t0", "other"}
     assert len(eng.recorder) == 16
-    for field, value, item in (("max_retries", 5, "retries"),
+    for field, value, item in (("tenant_weights", {"a": 1.0}, "QoS"),
                                ("compile_cache_dir", "x", "compile cache"),
                                ("mode", "batch", "batch mode"),
                                ("preemption_budget", 1, "QoS")):
@@ -468,11 +470,17 @@ def test_observability_fields_accepted_and_unported_named(tparams,
             teng.InferenceEngine(TCFG, tparams,
                                  teng.EngineConfig(**{field: value}),
                                  device="cpu")
-    assert not {"recorder_capacity", "profile_dir",
-                "tenant_top_n"} & set(teng._UNPORTED)
-    with pytest.raises(NotImplementedError, match="item 9"):
-        teng.InferenceEngine(TCFG, tparams, teng.EngineConfig(),
-                             device="cpu", clock=lambda: 0.0)
+    assert not {"recorder_capacity", "profile_dir", "tenant_top_n",
+                "max_retries", "batch_timeout_s"} & set(teng._UNPORTED)
+    # an injected clock is what deadlines read
+    t = {"now": 0.0}
+    eng = teng.InferenceEngine(TCFG, tparams, teng.EngineConfig(),
+                               device="cpu", clock=lambda: t["now"])
+    h = eng.submit(np.arange(4), deadline_s=1.0)
+    t["now"] = 2.0
+    eng.run_pending()
+    assert h.status == teng.RequestStatus.SHED and h.deadline_exceeded
+    assert eng.stats["shed_deadline"] == 1
 
 
 def test_injected_recorder_slo_and_profiler_are_the_engines(tparams):

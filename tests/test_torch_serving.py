@@ -204,7 +204,7 @@ def test_engine_admission_rules(tparams):
 @pytest.mark.parametrize("field,value", [
     ("warmup_on_init", True), ("paged", True), ("prefill_chunk", 8),
     ("mode", "batch"),
-    ("max_retries", 0), ("compile_cache_dir", "x"),
+    ("qos_default_weight", 2.0), ("compile_cache_dir", "x"),
 ])
 def test_unported_engine_options_raise(tparams, field, value):
     # paged KV and chunked prefill are ported; what they do not combine

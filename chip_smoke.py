@@ -312,6 +312,45 @@ card and fails (non-zero exit, no result line) if anything is wrong:
    has stopped and at the end of the run. The gate wraps the engine's
    `_record_failure` and `_isolate_slots`, so it also holds on a
    NULL_REGISTRY engine, whose counters read 0.
+3j. Engine control at full width (`phase_engine_control_full_width`;
+   phase 3's bf16 config and tree, phase 2's float32 model where a gate
+   needs token-exactness): (a) batch mode: 48 requests, 16 each at
+   prompt lengths 128, 512 and 1024, 64 new tokens, max_batch_size 16,
+   decode_chunk 16 (`pipeline` falls back, reason "batch"): one batch a
+   length group, every request complete, greedy tokens equal to the
+   same `make_parallel_generate` calls made directly (the 16-row batches,
+   and six requests through a batch engine of one request at a time at
+   B=1; the B=1 streams' agreement with the B=16 ones is printed: a
+   GEMM over 16 rows may round otherwise than over one), exactly L flash
+   and 15 x L decode launches a generate call; the batch latencies (the
+   listener protocol) and tokens/s; a transient
+   fault retried token-exact, and a poisoned request quarantined while
+   its 15 batch peers complete alone. (b) Fair-share prefill on the
+   chunked (chunk 256, budget 512) and the paged chunked pool under
+   `hostile_tenant_storm` (3 hostile tenants at weight 1 sending 24 x
+   1024-token prompts, a victim at weight 3 sending 8 x 128, 32 new
+   tokens, all submitted at once to 64 slots): over the backlogged ticks
+   (every tenant's prefill demand at least its weighted share of the
+   tick's budget) the victim's share of the granted tokens within 15% of
+   3/6; no backlogged tenant unserved for more than ceil(1 / its weight
+   share) ticks running; all complete, no page leaks, launches exact;
+   the victim's TTFT beside the chunked pool with QoS off. (c) 64
+   class-0 residents, 6 class-5 arrivals, preemption_budget 2: at most 2
+   evictions a tick, nothing lost, every preempted request complete; on
+   the float32 model every preempted stream equals its uninterrupted
+   run; `qos_control(spec_off=True, decode_chunk=2)` then 0 on the spec
+   engine (K=7, "layers:1", aligned tree) leaves the committed tokens as
+   an untouched run's, with a ("decode", 2) graph. (d) Hot reload from
+   the port's `CheckpointManager` (a torn newest step): mid-stream in
+   the pipelined loop with a tick pending it falls back to the zeroed
+   step, requeues the residents with their committed tokens, later
+   admissions equal a fresh engine on the zeroed tree, and the reload
+   back serves the first wave again token for token; paged: the prefix
+   cache flushed and no page leaked; int8: quantized again, equal to an
+   int8 engine built from the same float tree; spec: equal to plain on
+   the aligned tree, with window launches; float32 with a tick pending:
+   token-exact. Launches gated after the reload (the graphs are dropped
+   and captured again). `--only 3j` runs the build and this phase alone.
 4a. float32 training, card vs CPU: 2 layers at 512d / 8 heads, V=256,
    B=2, T=256, remat 'full', three Adam steps of `make_fsdp_train_step`
    from the same params on cuda and on cpu; losses within 1e-4, and the
@@ -364,10 +403,11 @@ card and fails (non-zero exit, no result line) if anything is wrong:
 7. Summary: the MoE phases' launches by kernel (`moe_launches`); one
    line of the graph replays of every gated run and of the serving
    device functions' launches in the profiled ticks' traces; the run's
-   wall time, the MoE phases', the rest's, phase 3h's and phase 3i's
+   wall time, the MoE phases', the rest's, phase 3h's, 3i's and 3j's
    (`wall`);
    one `kernels` JSON line (decode_attention_q and decode_window_q among
-   them; `launches` the wrappers' counts, `device_launches_profiled`
+   them; `launches` the wrappers' counts, 3j's included,
+   `device_launches_profiled`
    the traces' count of the device function the kernel runs), the
    card's name and power limit, then the last line
    {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -4267,6 +4307,573 @@ def phase_faults_full_width(torch, dev):
 
 
 # ---------------------------------------------------------------------------
+# phase 3j: engine control at full width (batch mode, tenant QoS, reload)
+# ---------------------------------------------------------------------------
+
+class BatchListener:
+    """A listener of the engine's protocol: the sizes `record_batch` saw
+    and the (index, latency) pairs of `iteration_done`."""
+
+    def __init__(self):
+        self.sizes, self.done = [], []
+
+    def record_batch(self, n):
+        self.sizes.append(int(n))
+
+    def iteration_done(self, engine, idx, latency):
+        self.done.append((int(idx), float(latency)))
+
+
+def first_token_s(h):
+    """Host seconds from a request's submit to its first committed token
+    (the recorder's clock)."""
+    ts = {e.kind: e.ts for e in reversed(h.trace.events)}
+    return ts["prefill_done"] - ts["submit"]
+
+
+def zeroed_tree(tree):
+    return {k: (zeroed_tree(v) if isinstance(v, dict) else v * 0)
+            for k, v in tree.items()}
+
+
+def phase_engine_control_full_width(torch, dev):
+    """Phase 3's bf16 flagship (12L / 512d / 8 heads, max_len 2048) and
+    phase 2's float32 model under the engine's control surface (module
+    docstring, 3j): (a) batch mode, (b) fair-share prefill, (c) priority
+    preemption and `qos_control`, (d) hot reload. Returns the wrappers'
+    launches by kernel over the phase."""
+    import shutil
+    import tempfile
+    from deeplearning4j_tpu_torch.models import transformer as tf
+    from deeplearning4j_tpu_torch.parallel import serving as ps
+    from deeplearning4j_tpu_torch.parallel.failure import (
+        FaultInjector, ServingFaultInjector, hostile_tenant_storm,
+        storm_prompt)
+    from deeplearning4j_tpu_torch.quant.core import QuantizedTensor
+    from deeplearning4j_tpu_torch.serving.engine import (
+        EngineConfig, InferenceEngine, RequestStatus)
+    from deeplearning4j_tpu_torch.util.checkpointing import \
+        CheckpointManager
+    cfg = tf.TransformerConfig(vocab_size=256, d_model=512, n_heads=8,
+                               n_layers=12, max_len=2048, dtype="bfloat16")
+    L = cfg.n_layers
+    tree = tf.TransformerLM(cfg, seed=0, device=dev).params
+    base = dict(max_queue=256, degrade_queue_depth=1024)
+    totals = {k: 0 for k in launch_counters()}
+    done_ok = RequestStatus.COMPLETED
+
+    def add(got):
+        for k in totals:
+            totals[k] += got[k]
+
+    def gen(hs):
+        return [h.generated.tolist() for h in hs]
+
+    def complete(hs, n):
+        return all(h.status == done_ok and h.generated.shape[0] == n
+                   for h in hs)
+
+    # (a) batch mode: 48 requests, 16 at each of three prompt lengths
+    rng = np.random.default_rng(16)
+    groups, new, bchunk = (128, 512, 1024), 64, 16
+    prompts = [rng.integers(0, 256, size=n).astype(np.int32)
+               for _ in range(16) for n in groups]
+    bkw = dict(base, mode="batch", max_batch_size=16, decode_chunk=bchunk,
+               max_new_tokens=new)
+    eng = InferenceEngine(cfg, tree, EngineConfig(**bkw), device=dev)
+    lst = BatchListener()
+    eng.set_listeners(lst)
+    formed = []
+    process = eng._process_batch
+
+    def watched_batch(batch):
+        formed.append((sorted({r.prompt.shape[0] for r in batch}),
+                       len(batch)))
+        process(batch)
+    eng._process_batch = watched_batch
+    zero_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    hs = [eng.submit(p) for p in prompts]
+    n_batches = eng.run_pending()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    got = read_launches()
+    add(got)
+    calls = len(groups) * (new // bchunk)
+    want = dict(flash_fwd=L * calls, decode_attention=L * (bchunk - 1)
+                * calls, decode_window=0)
+    sizes = [e.data["batch_size"] for h in hs for e in h.trace.events
+             if e.kind == "admitted"]
+    if not (n_batches == 3 and eng.stats["batches"] == 3
+            and lst.sizes == [16, 16, 16] and set(sizes) == {16}
+            and formed == [([n], 16) for n in groups]
+            and complete(hs, new) and eng.stats["in_flight"] == 0
+            and {k: got[k] for k in want} == want
+            and eng.debugz()["tick_pipeline"]["fallback_reason"] == "batch"):
+        fail(f"3j (a): {n_batches} batches, sizes {lst.sizes}, launches "
+             f"{got} (want {want}), {eng.stats}")
+    def direct(batch):
+        """``batch``'s tokens from `make_parallel_generate` called as the
+        engine calls it: prompt + generated re-prefilled every
+        ``bchunk`` tokens, keyed by (seed 0, its length)."""
+        toks = torch.from_numpy(np.stack(batch)).to(dev)
+        t0_ = toks.shape[1]
+        while toks.shape[1] - t0_ < new:
+            n = min(bchunk, new - (toks.shape[1] - t0_))
+            toks = ps.make_parallel_generate(cfg, n)(
+                tree, toks, ps.batch_key(0, toks.shape[1]))
+        return toks[:, t0_:].cpu().numpy().tolist()
+
+    # the engine's tokens are the same calls made directly, at B=16 and
+    # (a batch engine of one request at a time) at B=1
+    same16 = all(direct([h.prompt for h in hs if h.prompt.shape[0] == n])
+                 == [h.generated.tolist() for h in hs
+                     if h.prompt.shape[0] == n] for n in groups)
+    ref_idx = [k for k in range(len(prompts)) if k % 16 < 2]
+    one = InferenceEngine(cfg, tree, EngineConfig(**{**bkw,
+                                                     "max_batch_size": 1}),
+                          device=dev)
+    h1 = [one.submit(prompts[k]) for k in ref_idx]
+    one.run_pending()
+    same1 = all(direct([h.prompt]) == [h.generated.tolist()] for h in h1)
+    add(read_launches())
+    b1_equal = sum(a.generated.tolist() == hs[k].generated.tolist()
+                   for a, k in zip(h1, ref_idx))
+    line(dict(phase="3j", arm="batch", requests=len(hs), groups=groups,
+              new_tokens=new, decode_chunk=bchunk, batches=n_batches,
+              wall_s=wall, tokens_per_s=len(hs) * new / wall,
+              batch_latency_s=[lat for _, lat in lst.done],
+              generate_calls=calls, flash_launches=got["flash_fwd"],
+              decode_launches=got["decode_attention"],
+              flash_per_call=got["flash_fwd"] / calls,
+              decode_per_call=got["decode_attention"] / calls,
+              equals_direct_calls_b16=same16, equals_direct_calls_b1=same1,
+              b1_requests=len(ref_idx),
+              b1_token_equal_to_b16=b1_equal))
+    if not (same16 and same1):
+        fail(f"3j (a): the engine's tokens differ from the same generate "
+             f"calls made directly (B=16 {same16}, B=1 {same1})")
+    g128 = [p for p in prompts if p.shape[0] == 128]
+    clean = [h for h in hs if h.prompt.shape[0] == 128]
+    del eng, one
+    inj = ServingFaultInjector(fail_at=[1])
+    eng = InferenceEngine(cfg, tree, EngineConfig(**bkw), device=dev,
+                          fault_injector=inj)
+    zero_launches()
+    hf = [eng.submit(p) for p in g128]
+    eng.run_pending()
+    got = read_launches()
+    add(got)
+    if not (gen(hf) == gen(clean) and inj.injected == 1
+            and eng.stats["retries"] == eng.stats["step_failures"] == 1
+            and got["flash_fwd"] == L * eng._step_counter):
+        fail(f"3j (a) transient: injected {inj.injected}, {eng.stats}, "
+             f"launches {got}, tokens equal {gen(hf) == gen(clean)}")
+    inj = ServingFaultInjector()
+    eng = InferenceEngine(cfg, tree, EngineConfig(**{**bkw,
+                                                     "max_retries": 1}),
+                          device=dev, fault_injector=inj)
+    zero_launches()
+    hq = [eng.submit(p) for p in g128]
+    inj.poison_requests.add(hq[5].rid)
+    eng.run_pending()
+    got = read_launches()
+    add(got)
+    bad = [k for k, h in enumerate(hq) if h.status != done_ok]
+    peers = [h for k, h in enumerate(hq) if k != 5]
+    if not (bad == [5] and hq[5].status == RequestStatus.QUARANTINED
+            and complete(peers, new) and eng.stats["quarantined"] == 1
+            and got["flash_fwd"] == L * eng._step_counter
+            and got["decode_attention"] == L * (bchunk - 1)
+            * eng._step_counter):
+        fail(f"3j (a) isolation: not completed {bad}, {eng.stats}, "
+             f"launches {got}")
+    line(dict(phase="3j", arm="batch_faults", transient_tokens_equal=True,
+              quarantined=bad, peers_completed=len(peers),
+              solo_calls=eng._step_counter,
+              peers_token_equal_clean=sum(
+                  a.generated.tolist() == b.generated.tolist()
+                  for a, b in zip(peers, clean[:5] + clean[6:]))))
+    del eng
+
+    # (b) fair-share prefill under the hostile storm
+    arrivals, _ = hostile_tenant_storm(
+        ticks=8, hostiles=3, flood_per_tick=3, victim_every=1,
+        victim_prompt=128, victim_new=32, hostile_prompt=1024,
+        hostile_new=32)
+    weights = {"victim": 3.0, "hostile0": 1.0, "hostile1": 1.0,
+               "hostile2": 1.0}
+    wsum = sum(weights.values())
+    # 64 slots: 7 of the 8 victims seat with the first wave, so their
+    # TTFT measures the prefill schedule, not the wait for a slot
+    fkw = dict(base, num_slots=64, decode_chunk=8, max_new_tokens=32,
+               prefill_chunk=256, tick_token_budget=512)
+    storm = {}
+    for name, kw in (("chunked", dict(tenant_weights=weights)),
+                     ("paged_chunked", dict(tenant_weights=weights,
+                                            paged=True, page_size=16)),
+                     ("chunked_qos_off", {})):
+        eng = InferenceEngine(cfg, tree, EngineConfig(**fkw, **kw),
+                              device=dev)
+        recs = []
+        if "tenant_weights" in kw:
+            credit = eng._qos_credit
+
+            def watched(budget, eng=eng, credit=credit, recs=recs):
+                demand = {}
+                for _, r in eng._occupied():
+                    if eng._is_prefilling(r) and not r.done():
+                        t = r.tenant or "default"
+                        demand[t] = demand.get(t, 0) + (r._prefill_target
+                                                        - r._prefill_pos)
+                recs.append([budget, demand, {}])
+                credit(budget)
+            eng._qos_credit = watched
+        zero_launches()
+        keys0 = eng._graphs.keys()
+        c0 = dict(eng.counts)
+        t0 = time.perf_counter()
+        hs = [(a, eng.submit(storm_prompt(a, cfg.vocab_size),
+                             max_new_tokens=a.max_new_tokens,
+                             tenant=a.tenant, priority=a.priority))
+              for a in arrivals]
+        ticks = 0
+        qos = eng._m_qos_prefill_tokens
+        while True:
+            before = ({t: qos.labels(t).value for t in weights}
+                      if qos is not None else {})
+            n0 = len(recs)
+            busy = eng.tick()
+            ticks += 1
+            if before and len(recs) > n0:
+                recs[-1][2] = {t: qos.labels(t).value - before[t]
+                               for t in weights}
+            if not busy:
+                break
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = read_launches()
+        add(got)
+        c = {k: eng.counts[k] - c0[k] for k in c0}
+        check_launches(eng, c, L, got, f"3j (b) {name}", keys0)
+        if not complete([h for _, h in hs], 32):
+            fail(f"3j (b) {name}: not every request completed")
+        if eng.config.paged and (eng.counts["pages_used"]
+                                 != eng.prefix_cache_pages):
+            fail(f"3j (b) {name}: pages leaked")
+        ttft = [first_token_s(h) for a, h in hs if a.tenant == "victim"]
+        rec = dict(phase="3j", arm="fair_share", pool=name,
+                   requests=len(hs), ticks=ticks, wall_s=wall,
+                   victim_ttft_s_mean=float(np.mean(ttft)),
+                   victim_ttft_s_max=float(np.max(ttft)),
+                   prefill_chunks=c["prefill_chunks"])
+        if recs:
+            # the backlogged ticks: every tenant's prefill demand at least
+            # its weighted share of the tick's prefill budget
+            full = [r for r in recs if r[0] > 0 and all(
+                r[1].get(t, 0) >= r[0] * w / wsum
+                for t, w in weights.items())]
+            granted = sum(sum(r[2].values()) for r in full)
+            share = (sum(r[2].get("victim", 0) for r in full) / granted
+                     if granted else None)
+            waits = {}
+            for t, w in weights.items():
+                run = worst = 0
+                for r in recs:
+                    if r[0] <= 0 or r[1].get(t, 0) <= 0:
+                        continue
+                    run = run + 1 if r[2].get(t, 0) == 0 else 0
+                    worst = max(worst, run)
+                waits[t] = (worst, int(np.ceil(wsum / w)))
+            rec.update(backlogged_ticks=len(full), victim_share=share,
+                       victim_weight_share=weights["victim"] / wsum,
+                       longest_unserved_ticks=waits,
+                       granted={t: qos.labels(t).value for t in weights})
+            if not full or share is None or abs(
+                    share - weights["victim"] / wsum) > 0.15 * (
+                    weights["victim"] / wsum):
+                fail(f"3j (b) {name}: victim share {share} over "
+                     f"{len(full)} backlogged ticks")
+            if any(a > b for a, b in waits.values()):
+                fail(f"3j (b) {name}: a backlogged tenant waited past "
+                     f"its bound: {waits}")
+        storm[name] = rec
+        line(rec)
+        del eng, hs
+    line(dict(phase="3j", run="fair_share_ttft",
+              victim_ttft_s_mean_qos=storm["chunked"]["victim_ttft_s_mean"],
+              victim_ttft_s_mean_qos_off=storm["chunked_qos_off"][
+                  "victim_ttft_s_mean"]))
+
+    # (c) priority preemption on 64 residents, then qos_control
+    prng = np.random.default_rng(0)                # phase 3's traffic
+    lens = prng.integers(16, 1025, size=128)
+    p3 = [prng.integers(0, 256, size=int(n)).astype(np.int32)
+          for n in lens]
+    highs = [prng.integers(0, 256, size=int(n)).astype(np.int32)
+             for n in (64, 96, 128, 160, 192, 256)]
+    pkw = dict(base, num_slots=64, decode_chunk=8, max_new_tokens=32,
+               preemption_budget=2)
+    eng = InferenceEngine(cfg, tree, EngineConfig(**pkw), device=dev)
+    zero_launches()
+    keys0 = eng._graphs.keys()
+    c0 = dict(eng.counts)
+    hl = [eng.submit(p, tenant="batch") for p in p3[:64]]
+    eng.tick()
+    eng.tick()
+    resident = sum(r is not None for r in eng._slots)
+    hh = [eng.submit(p, tenant="urgent", priority=5) for p in highs]
+    per_tick = []
+    while True:
+        p0 = eng._m_qos_preemptions.labels("batch").value
+        busy = eng.tick()
+        per_tick.append(int(eng._m_qos_preemptions.labels("batch").value
+                            - p0))
+        if not busy:
+            break
+    got = read_launches()
+    add(got)
+    c = {k: eng.counts[k] - c0[k] for k in c0}
+    check_launches(eng, c, L, got, "3j (c) preemption", keys0)
+    pre = sum(e.kind == "preempted" for h in hl for e in h.trace.events)
+    if not (resident == 64 and max(per_tick) <= 2 and sum(per_tick) >= 1
+            and complete(hh, 32) and complete(hl, 32)
+            and pre == sum(per_tick) == eng.stats["preempted"]):
+        fail(f"3j (c): {resident} resident, evictions a tick {per_tick}, "
+             f"preempted {pre}, highs complete {complete(hh, 32)}")
+    line(dict(phase="3j", arm="preemption", residents=resident,
+              high_priority=len(hh), preemption_budget=2,
+              evictions_per_tick=per_tick, preempted=pre,
+              high_lost=0, flash_launches=got["flash_fwd"],
+              prefill_calls=c["prefill_calls"]))
+    del eng
+    # float32: a preempted stream equals its uninterrupted run
+    fcfg = tf.TransformerConfig(vocab_size=256, d_model=512, n_heads=8,
+                                n_layers=2, max_len=2048, dtype="float32")
+    ftree = tf.init_params(fcfg, seed=1, device=dev)
+    frng = np.random.default_rng(1)
+    flows = [frng.integers(0, 256, size=int(n)).astype(np.int32)
+             for n in frng.integers(8, 65, size=8)]
+    fhigh = [frng.integers(0, 256, size=int(n)).astype(np.int32)
+             for n in (24, 40, 56)]
+    f32kw = dict(num_slots=8, decode_chunk=8, max_new_tokens=32)
+    ref = InferenceEngine(fcfg, ftree, EngineConfig(**f32kw), device=dev)
+    href = [ref.submit(p) for p in flows + fhigh]
+    ref.run_pending()
+    eng = InferenceEngine(fcfg, ftree, EngineConfig(
+        **f32kw, preemption_budget=2), device=dev)
+    fl = [eng.submit(p) for p in flows]
+    eng.tick()
+    eng.tick()
+    fh = [eng.submit(p, priority=3) for p in fhigh]
+    eng.run_pending()
+    add(read_launches())
+    fpre = sum(any(e.kind == "preempted" for e in h.trace.events)
+               for h in fl)
+    if not (fpre >= 1 and gen(fl + fh) == gen(href)):
+        fail(f"3j (c) float32: {fpre} preempted, tokens equal the "
+             f"uninterrupted run {gen(fl + fh) == gen(href)}")
+    del eng, ref
+    # qos_control on the spec engine (K=7, "layers:1", aligned tree)
+    aligned = aligned_params(tf, cfg, dev)
+    skw = dict(base, num_slots=16, decode_chunk=8, max_new_tokens=32,
+               spec_decode=True, spec_k=7, draft="layers:1")
+    runs = {}
+    for name in ("untouched", "controlled"):
+        eng = InferenceEngine(cfg, aligned, EngineConfig(**skw), device=dev)
+        hs = [eng.submit(p) for p in p3[:16]]
+        eng.tick()
+        eng.tick()
+        paused = None
+        if name == "controlled":
+            eng.qos_control(spec_off=True, decode_chunk=2)
+            r0 = eng.counts["spec_rounds"]
+            for _ in range(3):
+                eng.tick()
+            paused = eng.counts["spec_rounds"] == r0
+            eng.qos_control(decode_chunk=0)
+            eng.qos_control(spec_off=False)
+        eng.run_pending()
+        add(read_launches())
+        runs[name] = (gen(hs), paused, eng._graphs.keys())
+        del eng
+    keys = runs["controlled"][2]
+    if not (runs["controlled"][0] == runs["untouched"][0]
+            and runs["controlled"][1] and ("decode", 2) in keys
+            and ("spec", 7) in keys):
+        fail(f"3j (c) qos_control: tokens equal "
+             f"{runs['controlled'][0] == runs['untouched'][0]}, spec "
+             f"paused {runs['controlled'][1]}, graphs {keys}")
+    line(dict(phase="3j", arm="qos_control", float32_preempted=int(fpre),
+              float32_token_exact=True, spec_off_and_chunk_2_then_0=True,
+              committed_tokens_unchanged=True, graph_keys=keys))
+
+    # (d) hot reload from the port's checkpoints
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_3j_")
+    try:
+        inj = FaultInjector(torn_write_at=[3])
+        mgr = CheckpointManager(os.path.join(tmp, "w"), fault_injector=inj)
+        zt = zeroed_tree(tree)
+        t0 = time.perf_counter()
+        mgr.save_tree(tree, 1)
+        mgr.save_tree(zt, 2)
+        mgr.save_tree(tree, 3)               # torn after publication
+        save_s = (time.perf_counter() - t0) / 3
+        dkw = dict(base, num_slots=16, decode_chunk=8, max_new_tokens=32)
+        wa, wb, wc = p3[:16], p3[16:32], p3[32:48]
+        eng = InferenceEngine(cfg, tree, EngineConfig(**dkw), device=dev)
+        ha = [eng.submit(p) for p in wa]
+        eng.run_pending()
+        first = gen(ha)
+        hb = [eng.submit(p) for p in wb]
+        eng.tick()
+        eng.tick()
+        held = [h.generated.copy() for h in hb]
+        pend = len(eng._pending)
+        t0 = time.perf_counter()
+        step = eng.reload_weights(mgr)
+        reload_s = time.perf_counter() - t0
+        queued = all(h.status == RequestStatus.QUEUED for h in hb)
+        add(read_launches())
+        zero_launches()
+        c0 = dict(eng.counts)
+        hc = [eng.submit(p) for p in wc]
+        eng.run_pending()
+        got = read_launches()
+        add(got)
+        c = {k: eng.counts[k] - c0[k] for k in c0}
+        check_launches(eng, c, L, got, "3j (d) after reload")
+        fresh = InferenceEngine(cfg, zt, EngineConfig(**dkw), device=dev)
+        hz = [fresh.submit(p) for p in wc]
+        fresh.run_pending()
+        add(read_launches())
+        del fresh
+        kept = all(h.generated[:k.shape[0]].tolist() == k.tolist()
+                   for h, k in zip(hb, held))
+        step_back = eng.reload_weights(mgr, step=1)
+        ha2 = [eng.submit(p) for p in wa]
+        eng.run_pending()
+        add(read_launches())
+        if not (step == 2 and inj.writes_torn == 1 and pend == 1 and queued
+                and kept and complete(hb + hc, 32) and gen(hc) == gen(hz)
+                and step_back == 1 and gen(ha2) == first
+                and eng.stats["reloads"] == 2
+                and eng.health()["weights_step"] == 1
+                and got["flash_fwd"] > 0 and got["decode_attention"] > 0):
+            fail(f"3j (d) reload: step {step} (torn {inj.writes_torn}), "
+                 f"pending {pend}, requeued {queued}, committed kept {kept},"
+                 f" zeroed == fresh {gen(hc) == gen(hz)}, back {step_back},"
+                 f" first wave again {gen(ha2) == first}, {eng.stats}")
+        line(dict(phase="3j", arm="reload", torn_step_fell_back_to=step,
+                  tick_pending_at_reload=pend, requeued=len(hb),
+                  committed_prefix_kept=kept, zeroed_equals_fresh=True,
+                  reload_back_equals_first_wave=True,
+                  save_s_per_step=save_s, reload_s=reload_s,
+                  launches_after_reload=got,
+                  graph_captures_after_reload=c["graph_captures"]))
+        del eng
+        # paged: the prefix cache is flushed and no page leaks
+        prng2 = np.random.default_rng(7)
+        preqs = paged_traffic(prng2, 8, 4, 512, (16, 64), (16, 256))
+        sysp = preqs[[p.shape[0] > 512 for p in preqs].index(True)][:512]
+        eng = InferenceEngine(cfg, tree, EngineConfig(
+            **dkw, paged=True, page_size=16, kv_pages=3072 + 1),
+            device=dev)
+        eng.submit(sysp)
+        eng.run_pending()
+        cached = eng.prefix_cache_pages
+        hp = [eng.submit(p) for p in preqs]
+        eng.tick()
+        eng.tick()
+        eng.reload_weights(mgr, step=1)
+        flushed = (eng.prefix_cache_pages == 0
+                   and eng.counts["pages_used"] == 0)
+        eng.run_pending()
+        add(read_launches())
+        if not (cached > 0 and flushed and complete(hp, 32)
+                and eng.counts["pages_used"] == eng.prefix_cache_pages):
+            fail(f"3j (d) paged: cached {cached}, flushed {flushed}, "
+                 f"pages {eng.counts['pages_used']} used, "
+                 f"{eng.prefix_cache_pages} cached")
+        del eng
+        # int8 and spec: another tree, and the aligned one
+        mgr2 = CheckpointManager(os.path.join(tmp, "w2"))
+        tree_b = tf.init_params(cfg, seed=1, device=dev)
+        mgr2.save_tree(tree_b, 1)
+        mgr2.save_tree(aligned, 2)
+        q = {}
+        for name, t in (("reloaded", tree), ("built", tree_b)):
+            e = InferenceEngine(cfg, t, EngineConfig(**dkw, quantize="int8"),
+                                device=dev)
+            if name == "reloaded":
+                e.reload_weights(mgr2, step=1)
+                requant = isinstance(e._params["Wout"], QuantizedTensor)
+            hs = [e.submit(p) for p in wa]
+            e.run_pending()
+            add(read_launches())
+            q[name] = gen(hs)
+            del e
+        s = {}
+        for name, t, kw in (
+                ("spec_reloaded", tree, dict(spec_decode=True, spec_k=7,
+                                             draft="layers:1")),
+                ("plain_aligned", aligned, {})):
+            e = InferenceEngine(cfg, t, EngineConfig(**dkw, **kw),
+                                device=dev)
+            if name == "spec_reloaded":
+                e.reload_weights(mgr2, step=2)
+            zero_launches()
+            keys0 = e._graphs.keys()
+            c0 = dict(e.counts)
+            hs = [e.submit(p) for p in wa]
+            e.run_pending()
+            got = read_launches()
+            add(got)
+            check_launches(e, {k: e.counts[k] - c0[k] for k in c0}, L, got,
+                           f"3j (d) {name}", keys0)
+            s[name] = (gen(hs), got)
+            del e
+        if not (requant and q["reloaded"] == q["built"]
+                and s["spec_reloaded"][0] == s["plain_aligned"][0]
+                and s["spec_reloaded"][1]["decode_window"] > 0):
+            fail(f"3j (d) int8 requantized {requant}, int8 == built "
+                 f"{q['reloaded'] == q['built']}, spec == plain "
+                 f"{s['spec_reloaded'][0] == s['plain_aligned'][0]}, "
+                 f"launches {s['spec_reloaded'][1]}")
+        # float32: a reload to the same weights with a tick pending
+        mgr3 = CheckpointManager(os.path.join(tmp, "w3"))
+        mgr3.save_tree(ftree, 1)
+        fkw32 = dict(num_slots=8, decode_chunk=8, max_new_tokens=32)
+        ref = InferenceEngine(fcfg, ftree, EngineConfig(**fkw32), device=dev)
+        href = [ref.submit(p) for p in flows]
+        ref.run_pending()
+        e = InferenceEngine(fcfg, ftree, EngineConfig(**fkw32), device=dev)
+        hs = [e.submit(p) for p in flows]
+        e.tick()
+        e.tick()
+        fpend = len(e._pending)
+        e.reload_weights(mgr3)
+        e.run_pending()
+        add(read_launches())
+        if not (fpend == 1 and e.stats["preempted"] > 0
+                and gen(hs) == gen(href)):
+            fail(f"3j (d) float32: pending {fpend}, {e.stats}, tokens equal "
+                 f"{gen(hs) == gen(href)}")
+        line(dict(phase="3j", arm="reload_pools", paged_cache_flushed=True,
+                  paged_pages_leaked=0, int8_requantized=requant,
+                  int8_equals_built=True, spec_equals_plain=True,
+                  spec_window_launches=s["spec_reloaded"][1]["decode_window"],
+                  float32_pending_tick_token_exact=True,
+                  float32_preempted=e.stats["preempted"]))
+        del e, ref
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    line(dict(phase="3j", run="summary", launches=totals))
+    return totals
+
+
+# ---------------------------------------------------------------------------
 # phase 4: training
 # ---------------------------------------------------------------------------
 
@@ -5199,11 +5806,12 @@ def main() -> int:
         build_report(name)
     install_zero_fault_gate()
     only = {"3h": phase_observability_full_width,
-            "3i": phase_faults_full_width}
+            "3i": phase_faults_full_width,
+            "3j": phase_engine_control_full_width}
     if len(sys.argv) == 3 and sys.argv[1] == "--only" and \
             sys.argv[2] in only:
-        # a development run of phase 3h or 3i alone (no kernels line, no
-        # result); a full run takes no arguments
+        # a development run of phase 3h, 3i or 3j alone (no kernels
+        # line, no result); a full run takes no arguments
         line(dict(phase=sys.argv[2], launches=only[sys.argv[2]](
             torch, dev), wall_s=time.perf_counter() - t_run,
             tracer_marks=TRACER_MARKS_SEEN))
@@ -5254,8 +5862,11 @@ def main() -> int:
     t_fault = time.perf_counter()
     fault_launches = phase_faults_full_width(torch, dev)
     t_fault = time.perf_counter() - t_fault
+    t_ctl = time.perf_counter()
+    ctl_launches = phase_engine_control_full_width(torch, dev)
+    t_ctl = time.perf_counter() - t_ctl
     for part in (spec_launches, paged_launches, pipe_launches, c_launches,
-                 moe_launches, obs_launches, fault_launches):
+                 moe_launches, obs_launches, fault_launches, ctl_launches):
         for name, n in part.items():
             launches[name] = launches.get(name, 0) + n
     phase_train_f32_card_vs_cpu(torch, dev)
@@ -5331,7 +5942,8 @@ def main() -> int:
     wall = time.perf_counter() - t_run
     line(dict(run="wall", wall_s=wall, moe_phases_s=new_phases,
               without_moe_phases_s=wall - sum(new_phases.values()),
-              observability_phase_s=t_obs, fault_phase_s=t_fault))
+              observability_phase_s=t_obs, fault_phase_s=t_fault,
+              engine_control_phase_s=t_ctl))
     print(card, flush=True)
     line({"kernels": kernels})
     line({"ok": True, "device": {"platform": "gpu",

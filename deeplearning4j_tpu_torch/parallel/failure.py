@@ -11,13 +11,17 @@ every co-resident request; a hook that raises `TrainingFailure` is a
 failed call, which the engine retries, then isolates and quarantines.
 
 The base class's checkpoint hooks (`on_checkpoint_write`,
-`on_checkpoint_published`) are kept as plain methods on a directory path:
-they import nothing, and the port has no checkpoint manager to call them
-yet.
+`on_checkpoint_published`) are plain methods on a directory path, which
+the port's `util.checkpointing.CheckpointManager(fault_injector=...)`
+calls around its atomic publication (a crash mid-write, a torn step).
+
+The hostile-tenant storm generator (`StormArrival`,
+`hostile_tenant_storm`, `storm_prompt`; reference :526-611) is copied too:
+the scripted traffic that tenant QoS (fair-share prefill and priority
+preemption) is held to.
 
 Not ported yet: `FleetFaultInjector` (the fleet router's hooks: ROADMAP
-queue A item 11), `hostile_tenant_storm` and `StormArrival` (tenant QoS:
-item 9b), and the training side, `ElasticFaultInjector`,
+queue A item 11), and the training side, `ElasticFaultInjector`,
 `PreemptionHandler`, `StepWatchdog` and `FaultTolerantTrainer` (items 12
 and 14).
 """
@@ -25,8 +29,11 @@ from __future__ import annotations
 
 import logging
 import time
+from dataclasses import dataclass
 from pathlib import Path
-from typing import Iterable, Optional
+from typing import Dict, Iterable, List, Optional, Tuple
+
+import numpy as np
 
 log = logging.getLogger("deeplearning4j_tpu_torch")
 
@@ -121,7 +128,6 @@ class FaultInjector:
             return
         if not self.persistent:
             self.torn_write_at.discard(step)
-        import numpy as np
         p = Path(final_dir) / "arrays.npz"
         with np.load(p) as data:
             zeroed = {k: np.zeros_like(data[k]) for k in data.files}
@@ -262,3 +268,82 @@ class ServingFaultInjector(FaultInjector):
             raise TrainingFailure(
                 f"injected prefill-chunk fault at step {step}")
         self.on_prefill(step, request_ids)
+
+
+@dataclass(frozen=True)
+class StormArrival:
+    """One scripted submission of a hostile-tenant storm: at tick
+    ``tick``, tenant ``tenant`` submits a ``prompt_tokens``-long prompt
+    (derived from ``seed`` by `storm_prompt`) asking for
+    ``max_new_tokens`` at QoS class ``priority``."""
+    tick: int
+    tenant: str
+    priority: int
+    seed: int
+    prompt_tokens: int
+    max_new_tokens: int
+
+
+def hostile_tenant_storm(ticks: int = 120, *,
+                         victim: str = "victim",
+                         victim_every: int = 4,
+                         victim_prompt: int = 8,
+                         victim_new: int = 8,
+                         victim_priority: int = 5,
+                         hostiles: int = 3,
+                         flood_per_tick: int = 2,
+                         hostile_prompt: int = 24,
+                         hostile_new: int = 16,
+                         start_tick: int = 0,
+                         kill_tick: Optional[int] = None,
+                         kill_replica: int = 0,
+                         slow_tick: Optional[int] = None,
+                         slow_replica: int = 0,
+                         slow_seconds: float = 0.05,
+                         ) -> Tuple[List[StormArrival], Dict]:
+    """Deterministic hostile-tenant arrival script (reference :541).
+
+    One well-behaved ``victim`` tenant submits a short high-priority
+    request every ``victim_every`` ticks while ``hostiles`` flood
+    tenants each submit ``flood_per_tick`` long low-priority requests
+    every tick. No RNG is consulted: the same kwargs always yield the
+    same arrivals.
+
+    Returns ``(arrivals, injector_kwargs)``: arrivals sorted by
+    ``(tick, submission order)``, and the fleet injector's kwargs for
+    the optional ``kill_tick`` and ``slow_tick`` knobs (empty when
+    neither is set; the fleet injector waits for ROADMAP queue A item
+    11)."""
+    if ticks <= 0 or victim_every <= 0:
+        raise ValueError("ticks and victim_every must be positive")
+    arrivals: List[StormArrival] = []
+    seed = 0
+    for t in range(start_tick, start_tick + int(ticks)):
+        if (t - start_tick) % int(victim_every) == 0:
+            arrivals.append(StormArrival(
+                tick=t, tenant=victim, priority=int(victim_priority),
+                seed=seed, prompt_tokens=int(victim_prompt),
+                max_new_tokens=int(victim_new)))
+            seed += 1
+        for h in range(int(hostiles)):
+            for _ in range(int(flood_per_tick)):
+                arrivals.append(StormArrival(
+                    tick=t, tenant=f"hostile{h}", priority=0,
+                    seed=seed, prompt_tokens=int(hostile_prompt),
+                    max_new_tokens=int(hostile_new)))
+                seed += 1
+    injector_kwargs: Dict = {}
+    if kill_tick is not None:
+        injector_kwargs["kill_at"] = {int(kill_tick): int(kill_replica)}
+    if slow_tick is not None:
+        injector_kwargs["slow_at"] = {
+            int(slow_tick): (int(slow_replica), float(slow_seconds))}
+    return arrivals, injector_kwargs
+
+
+def storm_prompt(arrival: StormArrival, vocab_size: int) -> np.ndarray:
+    """The deterministic prompt of one `StormArrival`, keyed on its seed
+    so distinct arrivals exercise distinct prefixes."""
+    n = int(arrival.prompt_tokens)
+    return (np.arange(n, dtype=np.int32) * (int(arrival.seed) * 2 + 3)
+            + int(arrival.seed)) % int(vocab_size)

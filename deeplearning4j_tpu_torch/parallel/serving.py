@@ -24,6 +24,13 @@ becomes a plain function closed over its geometry.
   window through the window kernel, and the commit of each slot's
   accepted prefix (see the section comment below).
 
+- `make_parallel_generate(cfg, max_new_tokens, ...)` — batch mode's
+  program (reference :261-340): one prefill of the whole [B, T0] batch
+  through the flash forward (`_local_block_prefill`) into a fresh
+  [L, B, max_len, D] cache, then ``max_new_tokens - 1`` cached decode
+  steps through the decode kernel, one position for every row. Step i
+  draws with counter (key, i); `batch_key` is the root the engine keys
+  a call with.
 - `make_chunked_prefill(cfg, chunk_len, num_slots, ...)` — advances each
   slot by its next ``clen`` prompt tokens from ``start``: the chunk's
   rows attend the slot's cached prefix (rows < start) and, causally,
@@ -82,8 +89,9 @@ import torch
 import torch.nn.functional as F
 
 from deeplearning4j_tpu_torch.models.transformer import (
-    TransformerConfig, _check_sampling, _check_slice, layer_params, moe_mlp,
-    page_pool_shape, sample_at_positions, slot_cache_shape)
+    _M32, TransformerConfig, _check_sampling, _check_slice, _mix32,
+    layer_params, moe_mlp, page_pool_shape, sample_at_positions,
+    slot_cache_shape)
 from deeplearning4j_tpu_torch.nn.layers.attention import (
     NEG_INF, dot_product_attention, layer_norm)
 from deeplearning4j_tpu_torch.ops.flash_decode import (
@@ -1175,3 +1183,85 @@ def make_paged_speculative_decode(cfg: TransformerConfig, spec_k: int,
                                   active, rem, poison, c))
 
     return _pool_program(kv_mode, 2, body, constrain)
+
+
+# ---------------------------------------------------------------------------
+# batch mode: the whole-batch generate (reference :261-340)
+# ---------------------------------------------------------------------------
+
+def batch_key(seed: int, t0: int) -> int:
+    """The counter root of one batch-mode generate call over prompts of
+    length ``t0``: the port's analog of the reference's
+    ``fold_in(PRNGKey(seed), t0)`` (:5158). It depends only on the seed
+    and the decoded-position offset, so a retry, or a solo continuation
+    of the same prefix, draws the same tokens."""
+    a = _mix32((int(seed) & _M32) ^ 0x9E3779B9)
+    return int(_mix32((a ^ (int(t0) & _M32)) & _M32))
+
+
+def make_parallel_generate(cfg: TransformerConfig, max_new_tokens: int,
+                           temperature: float = 0.0, top_k: int = 0,
+                           top_p: float = 1.0) -> Callable:
+    """Batch generate (reference :261, at tensor-parallel = data-parallel
+    = 1): ``(params, prompt [B, T0] int, key: int) -> int32 [B, T0 +
+    max_new_tokens]``. ``params`` is a float tree or a quantized one
+    (`quant.model.quantize_params`), dequantized at each use. Prefill
+    runs every layer over the whole prompt through `_local_block_prefill`
+    (the flash forward on the card: one launch a layer) and fills a
+    fresh [L, B, max_len, D] cache; each later token runs one decode step
+    a layer through the decode kernel (the last token needs none: ``L x
+    (max_new_tokens - 1)`` decode launches). Step i samples every row
+    with counter (key, i) after the temperature / top-k / top-p filters;
+    temperature <= 0 is greedy."""
+    _check_slice(cfg)
+    _check_sampling(top_k, top_p)
+    if max_new_tokens < 1:
+        raise ValueError(f"max_new_tokens must be >= 1, got "
+                         f"{max_new_tokens}")
+
+    @torch.no_grad()
+    def run(params, prompt, key: int):
+        dt = cfg.activation_dtype()
+        b, t0 = prompt.shape
+        if t0 + max_new_tokens > cfg.max_len:
+            raise ValueError(f"generation length {t0 + max_new_tokens} "
+                             f"exceeds max_len={cfg.max_len}")
+        prompt = prompt.long()
+        dev = prompt.device
+        h = (params["embed"].to(dt)[prompt]
+             + params["pos"].to(dt)[:t0][None])
+        cdt = cfg.cache_torch_dtype()
+        ck = torch.zeros(slot_cache_shape(cfg, b), dtype=cdt, device=dev)
+        cv = torch.zeros_like(ck)
+        for layer in range(cfg.n_layers):
+            h, (k, v) = _local_block_prefill(
+                h, layer_params(params, layer), cfg)
+            ck[layer, :, :t0] = k.to(cdt)
+            cv[layer, :, :t0] = v.to(cdt)
+        h = layer_norm(h, params["lnfg"], params["lnfb"], cfg.eps)
+        logits = torch.matmul(h[:, -1], params["Wout"].to(h.dtype))
+        toks = []
+        for i in range(max_new_tokens):
+            step = torch.full((b,), i, dtype=torch.int64, device=dev)
+            tok = sample_at_positions(logits, step, key, temperature,
+                                      top_k, top_p)
+            toks.append(tok)
+            if i + 1 == max_new_tokens:
+                break
+            pos = t0 + i
+            hh = (params["embed"].to(dt)[tok.long()]
+                  + params["pos"].to(dt)[pos:pos + 1])[:, None, :]
+            for layer in range(cfg.n_layers):
+                p = layer_params(params, layer)
+                q, k, v = _block_qkv(hh, p, cfg)
+                ck[layer, :, pos] = k.to(cdt)
+                cv[layer, :, pos] = v.to(cdt)
+                a = decode_attention(q, ck, cv, pos, n_heads=cfg.n_heads,
+                                     layer=layer)
+                hh = _block_out(hh, a, p, cfg)
+            hh = layer_norm(hh, params["lnfg"], params["lnfb"], cfg.eps)
+            logits = torch.matmul(hh[:, 0], params["Wout"].to(hh.dtype))
+        return torch.cat([prompt, torch.stack(toks, dim=1).long()],
+                         dim=1).to(torch.int32)
+
+    return run

@@ -14,7 +14,7 @@ cache element (`ops.flash_decode`).
 
 Not here yet: the KV-handoff helpers (`handoff_page_bucket`,
 `handoff_row_buffers`, `handoff_bytes`), which wait for KV handoff
-(ROADMAP queue A items 9b and 11).
+(ROADMAP queue A item 11).
 """
 from __future__ import annotations
 

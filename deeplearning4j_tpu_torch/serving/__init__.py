@@ -10,5 +10,6 @@ from deeplearning4j_tpu_torch.serving.constrain import (  # noqa: F401
     grammar_cache_clear, grammar_cache_info, normalize_constraint,
     schema_to_regex)
 from deeplearning4j_tpu_torch.serving.engine import (  # noqa: F401
-    EngineConfig, InferenceEngine, OverloadError, QoSValidationError,
-    RequestHandle, RequestStatus, validate_tenant)
+    MAX_PRIORITY, EngineConfig, InferenceEngine, OverloadError,
+    QoSValidationError, RequestHandle, RequestStatus, validate_tenant,
+    validate_tenant_priority)

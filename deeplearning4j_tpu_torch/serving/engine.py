@@ -63,8 +63,9 @@ prefix hits and copy-on-write. The programs are made per mode.
 ``quantize=None`` leaves the engine as it was. ``counts["param_bytes"]``
 and ``counts["kv_pool_bytes"]`` give the at-rest bytes of the weight tree
 and of the pool (the ``serving_param_bytes`` / ``serving_kv_pool_bytes``
-gauges: the pool measured once allocated, analytic before). Hot reload
-with requantization waits for reload (ROADMAP queue A item 9b).
+gauges: the pool measured once allocated, analytic before). A hot reload
+(`reload_weights`) restores the float checkpoint against the float
+template and quantizes it again.
 
 The pipelined tick loop (``EngineConfig.pipeline``, True by default as
 in the reference, :553; reference `_tick_pipelined` :2922-3260): each tick
@@ -90,8 +91,11 @@ position, so the token streams are the synchronous loop's bit for bit.
 Every call runs on the
 device's current stream, so a dispatch reads the slot state the previous
 tick's programs left there, in stream order (the programs update the
-pool in place). Not ported with it: the forced flush of KV export
-(items 9b, 11), the batch-mode fallback (batch mode is unported).
+pool in place). Batch mode has no slot state to schedule ahead over, so
+``pipeline=True`` there falls back to the synchronous loop (reason
+``"batch"`` in ``debugz()["tick_pipeline"]`` and
+``serving_pipeline_fallbacks_total``). Not ported with it: the forced
+flush of KV export (item 11).
 
 On a CUDA device the per-tick slot programs (decode chunk, paged decode
 chunk, spec round, paged spec round) replay as CUDA graphs, one per
@@ -147,10 +151,62 @@ RequestCancelled / RequestQuarantined errors. A CUDA error that poisons
 the context cannot be retried in-process; the injector raises on the host
 before the launch, as the reference's does.
 
+Batch mode (``EngineConfig(mode="batch")``, reference :2392-2478,
+:5142-5216): each tick pops the head request and every queued request of
+the same prompt length, up to ``max_batch_size`` (`_form_batch`), and runs
+the batch to completion on the weights taken at its start
+(`_process_batch`): every call is one `parallel.serving.
+make_parallel_generate` over the whole batch that re-prefills prompt +
+generated (the flash forward) and decodes ``decode_chunk`` tokens (0: the
+whole budget in one call) through the decode kernel, keyed by
+`parallel.serving.batch_key` (seed, prompt length), so a retry or a solo
+continuation of the same prefix draws the same tokens. Calls go through
+the guard; a batch whose retries run out re-runs each request alone
+(`_isolate`, `_decode_solo`) and quarantines what fails alone. Batch mode
+has no slot pool: ``prefill_chunk``, ``tick_token_budget``,
+``preemption_budget``, ``paged`` and ``spec_decode`` refuse it with the
+reference's ValueErrors, and a constrained submit is rejected with a
+ConstraintError of reason ``"mode"``. ``set_listeners`` attaches
+observers of the training listeners' protocol: after every batch (batch
+mode) or tick (continuous) the engine calls ``record_batch(size)``
+(where present) and ``iteration_done(engine, index, latency_s)``; a
+listener that raises is logged and serving goes on. Every engine keeps
+``serving_batches``, ``serving_batch_size`` and
+``serving_batch_latency_seconds``.
+
+Tenant QoS (reference :1298-1340, :2666-2800, :3397-3458, :5393):
+``tenant_weights`` (with ``prefill_chunk``; absent tenants weigh
+``qos_default_weight``) divides each tick's prefill budget among the
+backlogged tenants by weight through deficit counters (an idle tenant's
+share rolls over, a shortchanged one carries credit), on the chunked and
+the paged chunked pool; ``submit(priority=0..MAX_PRIORITY)`` with
+``preemption_budget`` > 0 seats the highest class first and lets a
+waiter evict the lowest-priority resident of a strictly lower class, at
+most ``preemption_budget`` evictions a tick; the evicted request
+requeues at the head with its committed tokens and re-prefills.
+`qos_control(spec_off=, decode_chunk=)` suspends speculative rounds and
+shrinks the decode chunk (a new program key, so its own CUDA graph).
+``serving_qos_prefill_tokens{tenant}`` and ``serving_qos_preemptions
+{tenant}`` exist only where their knob is on; with QoS off the engine
+schedules, and makes program keys, as it did without it.
+
+Hot reload (`reload_weights(source, step=None)`, reference :5523): the
+newest step that verifies (or ``step``) of a `util.checkpointing.
+CheckpointManager` or directory is restored against the float template,
+quantized again on a quantized engine, then, at a tick boundary and under
+the lock, swapped in: every in-flight request is evicted and requeued at
+the head with its committed tokens only (a pipelined tick's tokens in
+flight are never committed into it: each request carries an eviction
+epoch that a pending record checks), the prefix cache is flushed and the
+drafter rebuilt. CUDA graphs hold their weight trees by identity, so a
+reload drops them (after one wait for the device) and each key captures
+again on the new tree at its next call. ``health()["weights_step"]``,
+``stats["reloads"]`` and ``serving_weight_reloads_total`` report it.
+
 Not ported yet (set to a non-default value, each raises
-NotImplementedError naming its ROADMAP item): batch mode, KV handoff and
-adoption, hot reload, tenant QoS (fair-share prefill, priorities,
-preemption) (item 9b), and the compile cache and warm-up (item 10).
+NotImplementedError naming its ROADMAP item): the compile cache and
+warm-up (item 10). KV handoff and adoption, and the fleet router's
+per-tenant caps, wait for item 11.
 
 Grammar-constrained decoding (``submit(..., constrain=regex or spec
 dict)``, reference :1841-1935, :2030-2180): `submit` compiles the
@@ -248,10 +304,11 @@ from deeplearning4j_tpu_torch.models.transformer import (TransformerConfig,
                                                          _check_slice,
                                                          params_to)
 from deeplearning4j_tpu_torch.parallel.serving import (
-    init_paged_state, init_slot_state, make_chunked_prefill,
+    batch_key, init_paged_state, init_slot_state, make_chunked_prefill,
     make_continuous_decode, make_continuous_prefill,
     make_paged_chunked_prefill, make_paged_decode, make_paged_prefill,
-    make_paged_speculative_decode, make_speculative_decode)
+    make_paged_speculative_decode, make_parallel_generate,
+    make_speculative_decode)
 from deeplearning4j_tpu_torch.quant.core import raw, resolve_mode
 from deeplearning4j_tpu_torch.quant.kv import (paged_pool_bytes,
                                                slot_pool_bytes)
@@ -265,6 +322,7 @@ from deeplearning4j_tpu_torch.serving.graphs import SlotGraphs
 from deeplearning4j_tpu_torch.serving.paging import (PageAllocator,
                                                      RadixPrefixCache,
                                                      pages_for)
+from deeplearning4j_tpu_torch.util.checkpointing import CheckpointManager
 
 
 log = logging.getLogger("deeplearning4j_tpu_torch")
@@ -311,23 +369,26 @@ class _BatchDecodeFailed(RuntimeError):
 class QoSValidationError(ValueError):
     """submit() rejected a malformed tenant or priority (reference
     :314): tenant ids flow into metric labels and the Prometheus
-    exposition (the per-tenant cost counters), so a non-string /
-    oversized / control-character id is rejected HERE, typed, at
-    admission, instead of corrupting the scrape."""
+    exposition (the per-tenant cost counters, the QoS series), so a
+    non-string / oversized / control-character id is rejected HERE,
+    typed, at admission, instead of corrupting the scrape; priorities
+    outside [0, MAX_PRIORITY] or not an int are rejected the same way."""
 
 
+#: Priority classes are 0..MAX_PRIORITY: 0 is the default class; a
+#: higher one seats first and may preempt a lower one where the engine's
+#: ``preemption_budget`` allows it.
+MAX_PRIORITY = 9
 #: Tenant ids are metric-label material: bound their length so a
 #: hostile id cannot bloat every labeled sample it lands in.
 MAX_TENANT_LEN = 64
 
 
 def validate_tenant(tenant):
-    """The tenant half of the reference's tenant/priority validation
-    (:331; priorities wait for QoS, ROADMAP queue A item 9b): coerce or
-    reject BEFORE the id reaches the metric-label path. Returns the
-    normalized tenant; raises `QoSValidationError`. An int tenant id
-    becomes its decimal string; anything else that is not a str is
-    rejected."""
+    """The tenant half of `validate_tenant_priority`: coerce or reject
+    BEFORE the id reaches the metric-label path. Returns the normalized
+    tenant; raises `QoSValidationError`. An int tenant id becomes its
+    decimal string; anything else that is not a str is rejected."""
     if tenant is None:
         return None
     if isinstance(tenant, int) and not isinstance(tenant, bool):
@@ -344,6 +405,21 @@ def validate_tenant(tenant):
             "tenant id contains control/exposition-breaking "
             "characters (newline, quote, backslash)")
     return tenant
+
+
+def validate_tenant_priority(tenant, priority):
+    """The reference's tenant/priority validation (:331): the tenant as
+    `validate_tenant`, the priority an int (not a bool) in
+    [0, MAX_PRIORITY]. Returns ``(tenant, priority)``; raises
+    `QoSValidationError`."""
+    tenant = validate_tenant(tenant)
+    if isinstance(priority, bool) or not isinstance(priority, int):
+        raise QoSValidationError(
+            f"priority must be an int, got {type(priority).__name__}")
+    if not 0 <= priority <= MAX_PRIORITY:
+        raise QoSValidationError(
+            f"priority must be in [0, {MAX_PRIORITY}], got {priority}")
+    return tenant, priority
 
 
 class RequestStatus:
@@ -382,8 +458,13 @@ class EngineConfig:
     (``recorder_capacity``: the flight recorder's ring; ``profile_dir``:
     where ``/profilez`` writes its torch.profiler traces, None -> 503;
     ``tenant_top_n``: tenants with a label of their own before the rest
-    fold into "other"). Every other field must keep its default (see
-    `_UNPORTED`, `_check_config`)."""
+    fold into "other"), ``mode`` ("continuous" or "batch"; in batch mode
+    ``max_batch_size`` caps a batch and ``decode_chunk`` 0 decodes a
+    batch's budget in one call), fault handling (``max_retries``,
+    ``backoff_*``, ``breaker_*``, ``batch_timeout_s``) and tenant QoS
+    (``tenant_weights``, ``qos_default_weight``, ``preemption_budget``).
+    The compile cache's fields must keep their defaults (`_UNPORTED`,
+    `_check_config`)."""
     max_queue: int = 64
     max_batch_size: int = 8
     batch_timeout_s: float = 0.005
@@ -430,26 +511,13 @@ class EngineConfig:
 
 # unported EngineConfig fields -> the ROADMAP item that ports them
 _UNPORTED = {
-    "mode": "batch mode (ROADMAP queue A item 9b)",
     "program_cache_size": "the compile cache (ROADMAP queue A item 10)",
     "compile_cache_dir": "the compile cache (ROADMAP queue A item 10)",
     "warmup_on_init": "the compile cache (ROADMAP queue A item 10)",
-    "tenant_weights": "tenant QoS (ROADMAP queue A item 9b)",
-    "qos_default_weight": "tenant QoS (ROADMAP queue A item 9b)",
-    "preemption_budget": "tenant QoS (ROADMAP queue A item 9b)",
 }
 
-
-# what paged KV and chunked prefill do not combine with yet -> the ROADMAP
-# queue A item that ports it (checked before `_UNPORTED`, so the error
-# names the combination)
-_PAGED_CHUNKED_TODO = {
-    "tenant_weights": "fair-share prefill (ROADMAP queue A item 9b)",
-}
-
-# the rejection reasons of a constrained submit the port can raise
-# (the reference's "mode" needs batch mode, which is unported)
-_C_REASONS = ("unsupported", "invalid", "oversize", "empty")
+# the rejection reasons of a constrained submit ("mode": batch mode)
+_C_REASONS = ("unsupported", "invalid", "oversize", "empty", "mode")
 
 
 # the port's own series: the counts the reference keeps no series for
@@ -544,18 +612,15 @@ def _gauge(registry, name: str) -> float:
     return 0.0 if m is None else float(m.value)
 
 
+def _meta_template(tree):
+    """``tree``'s structure with every tensor leaf a storage-less
+    ("meta") tensor of its shape and dtype: a float restore template."""
+    if isinstance(tree, dict):
+        return {k: _meta_template(v) for k, v in tree.items()}
+    return torch.empty(tree.shape, dtype=tree.dtype, device="meta")
+
+
 def _check_config(config: EngineConfig) -> None:
-    uses = [name for name, on in (("paged", config.paged),
-                                  ("prefill_chunk",
-                                   config.prefill_chunk is not None))
-            if on]
-    defaults = {f.name: f.default for f in fields(EngineConfig)}
-    for name, todo in _PAGED_CHUNKED_TODO.items():
-        value = getattr(config, name)
-        if uses and value != defaults[name]:
-            raise NotImplementedError(
-                f"EngineConfig.{uses[0]}={getattr(config, uses[0])!r} with "
-                f"{name}={value!r}: {todo} is not ported yet")
     for f in fields(EngineConfig):
         if f.name in _UNPORTED and getattr(config, f.name) != f.default:
             raise NotImplementedError(
@@ -607,6 +672,13 @@ class RequestHandle:
         # bills under and its accumulated analytic bill; the engine
         # swaps in a live RequestTrace at submit, and its terminal hook
         self.tenant: Optional[str] = None
+        # QoS (reference :625): the priority class; the slot it last
+        # sat in, and its eviction epoch (a preemption or a reload
+        # bumps it, so a pipelined tick dispatched before commits
+        # nothing into the requeued request)
+        self.priority = 0
+        self._slot = -1
+        self._epoch = 0
         self.cost_flops = 0.0
         self.cost_bytes = 0.0
         self.trace = NULL_TRACE
@@ -660,10 +732,15 @@ class _PendingTick:
     the CPU and in the synchronous loop). A constrained engine also keeps
     ``c_in_state``: the DFA states (a device copy) and the pending seeds
     as they were before the tick's first dispatch, which
-    `_recover_failed_tick` restores (reference :718)."""
+    `_recover_failed_tick` restores (reference :718). ``epochs`` holds
+    each request's eviction epoch at dispatch: an entry whose request was
+    evicted since commits nothing. ``n_active`` is the tick's active
+    count for the batch-size series (reference :711)."""
     items: list
     done: Optional[object]
     c_in_state: Optional[tuple] = None
+    epochs: Dict[int, int] = None
+    n_active: int = 0
 
 
 class InferenceEngine:
@@ -689,13 +766,20 @@ class InferenceEngine:
         self.cfg = cfg
         self.config = config or EngineConfig()
         _check_config(self.config)
+        if self.config.mode not in ("continuous", "batch"):
+            raise ValueError(f"mode must be 'continuous' or 'batch', "
+                             f"got {self.config.mode!r}")
+        self._continuous = self.config.mode == "continuous"
         self.device = resolve_device(device)
         # quantization (reference :1407-1430): both modes resolve against
-        # the device; the weight tree is quantized on load
+        # the device; the weight tree is quantized on load, and a float
+        # template (shapes and dtypes, no storage) is kept for reloads
         self._qmode = resolve_mode(self.config.quantize, self.device)
         self._kv_mode = resolve_mode(self.config.kv_quantize, self.device)
         self._params = params_to(params, self.device)
+        self._float_template = None
         if self._qmode:
+            self._float_template = _meta_template(self._params)
             self._params = quantize_params(self._params, mode=self._qmode)
         self._num_slots = self.config.num_slots or self.config.max_batch_size
         self._chunk = (self.config.decode_chunk
@@ -705,6 +789,11 @@ class InferenceEngine:
         # :1273-1297): None keeps the one-shot admission prefill
         self._prefill_chunk = self.config.prefill_chunk
         if self._prefill_chunk is not None:
+            if not self._continuous:
+                raise ValueError(
+                    "prefill_chunk requires mode='continuous' (batch "
+                    "mode has no persistent slot state to resume a "
+                    "partial prefill from)")
             self._prefill_chunk = int(self._prefill_chunk)
             if not 0 < self._prefill_chunk <= cfg.max_len:
                 raise ValueError(f"prefill_chunk {self._prefill_chunk} out "
@@ -718,6 +807,51 @@ class InferenceEngine:
                              or (self._num_slots * self._chunk
                                  + (self._prefill_chunk or 0)))
         self._seat_order = itertools.count()
+        # tenant QoS (reference :1298-1344): fair share divides the
+        # token-budget scheduler's prefill budget, so it needs chunked
+        # prefill; preemption needs the continuous slot pool
+        self._qos_weights: Optional[Dict[str, float]] = None
+        if self.config.tenant_weights is not None:
+            if self._prefill_chunk is None:
+                raise ValueError(
+                    "tenant_weights requires prefill_chunk: fair "
+                    "share divides the token-budget scheduler's "
+                    "prefill budget, which only exists under chunked "
+                    "prefill")
+            w = {}
+            for t, v in self.config.tenant_weights.items():
+                if not isinstance(t, str) or not t:
+                    raise ValueError(
+                        f"tenant_weights keys must be non-empty str, "
+                        f"got {t!r}")
+                v = float(v)
+                if v <= 0:
+                    raise ValueError(
+                        f"tenant_weights[{t!r}] must be > 0, got {v}")
+                w[t] = v
+            self._qos_weights = w
+        if float(self.config.qos_default_weight) <= 0:
+            raise ValueError(
+                f"qos_default_weight must be > 0, got "
+                f"{self.config.qos_default_weight}")
+        # per-tenant deficits (tokens of owed prefill budget), kept only
+        # for backlogged tenants
+        self._qos_deficit: Dict[str, float] = {}
+        self._preempt_budget = int(self.config.preemption_budget)
+        if self._preempt_budget < 0:
+            raise ValueError(
+                f"preemption_budget must be >= 0, got "
+                f"{self._preempt_budget}")
+        if self._preempt_budget and not self._continuous:
+            raise ValueError(
+                "preemption_budget requires mode='continuous' (batch "
+                "mode has no resident slots to preempt)")
+        # the overload controller's knobs (`qos_control`)
+        self._qos_spec_off = False
+        self._base_chunk = self._chunk
+        self._qos_tenants_seen: set = set()
+        self._listeners: list = []
+        self._weights_step: Optional[int] = None
         # paged KV and the radix prefix cache (reference :1445-1471): page
         # indices are host-owned, the block table reaches every call as
         # data, so sharing, copy-on-write and recycling never change a
@@ -725,6 +859,10 @@ class InferenceEngine:
         self._paged = bool(self.config.paged)
         self._prefix_cache = None
         if self._paged:
+            if not self._continuous:
+                raise ValueError(
+                    "paged KV requires mode='continuous' (batch mode "
+                    "has no persistent slot state to page)")
             self._page_size = int(self.config.page_size)
             if self._page_size < 1:
                 raise ValueError("page_size must be >= 1")
@@ -744,6 +882,8 @@ class InferenceEngine:
         self._slot_state = None
         self._programs: Dict[Tuple[str, int], object] = {}
         self._lock = threading.RLock()
+        # held for a whole tick: a reload swaps the weights between ticks
+        self._tick_mutex = threading.RLock()
         self._cv = threading.Condition(self._lock)
         self._queue: deque = deque()
         self._rids = itertools.count(1)
@@ -777,6 +917,15 @@ class InferenceEngine:
         # flight; _pipe_items collects a tick's commit items while it
         # dispatches
         self._pipe = bool(self.config.pipeline)
+        self._pipe_fallback: Optional[str] = None
+        if self._pipe and not self._continuous:
+            # the reference falls back instead of refusing (:1362)
+            log.warning(
+                "pipeline requires mode='continuous' (the batch path "
+                "has no persistent slot state to schedule ahead "
+                "over); falling back to the synchronous loop")
+            self._pipe = False
+            self._pipe_fallback = "batch"
         self._pending: deque = deque()
         self._pipe_items: list = []
         # grammar constraints (reference :1434-1444): the table, the
@@ -793,6 +942,11 @@ class InferenceEngine:
         # controller (`_spec_update`)
         self._spec = bool(self.config.spec_decode)
         if self._spec:
+            if not self._continuous:
+                raise ValueError(
+                    "spec_decode requires mode='continuous' (batch "
+                    "mode has no persistent slot state to verify "
+                    "against)")
             if cfg.n_experts > 0:
                 raise ValueError(
                     "spec_decode does not support MoE configs (the "
@@ -880,6 +1034,10 @@ class InferenceEngine:
             "serving_decode_retries", "Decode step retry attempts")
         self._m_step_failures = r.counter(
             "serving_decode_step_failures", "Failed decode step calls")
+        self._m_batches = r.counter(
+            "serving_batches", "Dynamic batches processed")
+        self._m_reloads = r.counter(
+            "serving_weight_reloads", "Successful hot weight reloads")
         self._m_in_flight = r.gauge(
             "serving_in_flight_requests",
             "Requests currently inside the decode loop")
@@ -914,6 +1072,12 @@ class InferenceEngine:
                 "Total at-rest bytes of the slot-pool KV state"
                 ).set_function(
             self._weak(lambda e: float(e.kv_pool_bytes())))
+        self._m_batch_size = r.histogram(
+            "serving_batch_size", "Coalesced batch sizes",
+            buckets=(1, 2, 4, 8, 16, 32, 64, 128, 256))
+        self._m_batch_seconds = r.histogram(
+            "serving_batch_latency_seconds",
+            "Wall time from batch formation to completion")
         self._m_step_seconds = r.histogram(
             "serving_decode_step_seconds",
             "Wall time of one compiled decode call",
@@ -932,6 +1096,14 @@ class InferenceEngine:
                 "tick wall time): the double-buffered tick loop's "
                 "target metric").set_function(
             self._weak(lambda e: float(e._last_idle)))
+        # the pipelined loop's fallback (reference :1683-1694): only
+        # where one happened
+        if self._pipe_fallback is not None:
+            r.counter("serving_pipeline_fallbacks",
+                      "Pipelined tick-loop configurations dropped to the "
+                      "synchronous loop at construction, by reason",
+                      labelnames=("reason",)).labels(
+                self._pipe_fallback).inc()
         self._m_prefix_hits = self._m_prefix_misses = None
         self._m_prefix_evictions = self._m_prefix_shared = None
         if self._paged:
@@ -995,6 +1167,21 @@ class InferenceEngine:
                     "the budget)").set_function(
                 self._weak(lambda e: float(e._last_tick_spent)
                            / float(max(1, e._tick_budget))))
+        # tenant QoS (reference :1786-1800): only where its knob is on
+        self._m_qos_prefill_tokens = self._m_qos_preemptions = None
+        if self._qos_weights is not None:
+            self._m_qos_prefill_tokens = r.counter(
+                "serving_qos_prefill_tokens",
+                "Prefill tokens granted by the weighted fair-share "
+                "scheduler, by tenant (folds past tenant_top_n)",
+                labelnames=("tenant",))
+        if self._preempt_budget > 0:
+            self._m_qos_preemptions = r.counter(
+                "serving_qos_preemptions",
+                "Residents evicted by priority preemption, by the "
+                "evicted request's tenant (token-exact resume from "
+                "the committed prefix)",
+                labelnames=("tenant",))
         # grammar constraints: registered at the first constrained
         # submit (`_ensure_constrain_metrics`)
         self._m_c_requests = self._m_c_rejections = None
@@ -1195,8 +1382,7 @@ class InferenceEngine:
     @property
     def stats(self) -> dict:
         """Counter snapshot (registry-backed) plus the HBM accounting
-        trio: the reference's keys for what the port has (its batch and
-        reload keys wait for ROADMAP queue A item 9b)."""
+        trio, under the reference's keys."""
         return {"param_bytes": self.param_bytes(),
                 "kv_bytes_per_slot": self.kv_bytes_per_slot(),
                 "kv_pool_bytes": self.kv_pool_bytes(),
@@ -1206,6 +1392,8 @@ class InferenceEngine:
                 "quarantined": int(self._m_quarantined.value),
                 "retries": int(self._m_retries.value),
                 "step_failures": int(self._m_step_failures.value),
+                "batches": int(self._m_batches.value),
+                "reloads": int(self._m_reloads.value),
                 "preempted": int(self._m_preempted.value),
                 "in_flight": int(self._m_in_flight.value)}
 
@@ -1219,8 +1407,8 @@ class InferenceEngine:
 
     def health(self) -> dict:
         """The `/healthz` body: the reference's keys for what the port
-        has (weights step, warm-up and compile sources wait for their
-        ROADMAP queue A items)."""
+        has (warm-up and compile sources wait for ROADMAP queue A item
+        10)."""
         with self._lock:
             self._tick_breaker(self._clock())
             occupied = sum(s is not None for s in self._slots)
@@ -1236,6 +1424,7 @@ class InferenceEngine:
                        self._last_tick_spent
                        / float(max(1, self._tick_budget))
                        if self._prefill_chunk is not None else None),
+                   "weights_step": self._weights_step,
                    "quantize": self._qmode,
                    "kv_quantize": self._kv_mode,
                    "paged": self._paged,
@@ -1258,7 +1447,7 @@ class InferenceEngine:
         """The operator's "why is it slow RIGHT NOW" snapshot
         (reference :5257): the slot table, queue ages, the recorder's
         recent events, the paged pool, the tick pipeline, the profiler's
-        report, and the chunked and spec state."""
+        report, the chunked and spec state, and the QoS knobs."""
         now = self.recorder.now()
 
         def age(r):
@@ -1267,7 +1456,7 @@ class InferenceEngine:
 
         with self._lock:
             slots = [{"slot": i, "rid": r.rid, "status": r.status,
-                      "tenant": r.tenant,
+                      "tenant": r.tenant, "priority": r.priority,
                       "generated": int(sum(a.shape[0]
                                            for a in r._generated)),
                       "max_new_tokens": r.max_new_tokens,
@@ -1280,13 +1469,28 @@ class InferenceEngine:
                          if self._prefill_chunk is not None else {})}
                      for i, r in enumerate(self._slots) if r is not None]
             queue = [{"rid": r.rid, "queue_age_s": age(r),
-                      "tenant": r.tenant} for r in self._queue]
+                      "tenant": r.tenant, "priority": r.priority}
+                     for r in self._queue]
             queue_by_tenant: Dict[str, int] = {}
             for r in self._queue:
                 t = r.tenant or "default"
                 queue_by_tenant[t] = queue_by_tenant.get(t, 0) + 1
             breaker = self._breaker
             degraded = self._degraded_locked()
+            qos = None
+            if (self._qos_weights is not None
+                    or self._preempt_budget > 0
+                    or self._qos_spec_off
+                    or self._chunk != self._base_chunk):
+                qos = {"tenant_weights": (dict(self._qos_weights)
+                                          if self._qos_weights
+                                          is not None else None),
+                       "deficits": {t: round(d, 2) for t, d in
+                                    self._qos_deficit.items()},
+                       "preemption_budget": self._preempt_budget,
+                       "spec_off": self._qos_spec_off,
+                       "decode_chunk": self._chunk,
+                       "base_decode_chunk": self._base_chunk}
         out = {"mode": self.config.mode,
                "num_slots": self._num_slots,
                "slots_occupied": len(slots),
@@ -1296,6 +1500,7 @@ class InferenceEngine:
                "queue_by_tenant": queue_by_tenant,
                "breaker": breaker,
                "degraded": degraded,
+               "weights_step": self._weights_step,
                "recorder_events": len(self.recorder),
                "recent_events": [e.as_dict() for e in
                                  self.recorder.recent(recent)]}
@@ -1316,13 +1521,15 @@ class InferenceEngine:
                          "shared_tokens": int(
                              self.counts["prefix_shared_tokens"])}
                         if self._prefix_cache is not None else None)}
-        out["tick_pipeline"] = {
-            "pipeline": self._pipe,
-            "in_flight_ticks": len(self._pending),
-            "last_sync_s": round(self._last_sync_s, 6),
-            "syncs_last_tick": self._last_tick_syncs,
-            "syncs_total": self.counts["syncs"],
-            "device_idle_fraction": round(self._last_idle, 4)}
+        if self._continuous or self._pipe_fallback is not None:
+            out["tick_pipeline"] = {
+                "pipeline": self._pipe,
+                "fallback_reason": self._pipe_fallback,
+                "in_flight_ticks": len(self._pending),
+                "last_sync_s": round(self._last_sync_s, 6),
+                "syncs_last_tick": self._last_tick_syncs,
+                "syncs_total": self.counts["syncs"],
+                "device_idle_fraction": round(self._last_idle, 4)}
         if self.profiler.enabled:
             out["profiling"] = self.profiler.report()
         if self._prefill_chunk is not None:
@@ -1345,7 +1552,29 @@ class InferenceEngine:
                                if r is not None},
                 "drafted": self.counts["spec_drafted"],
                 "accepted": self.counts["spec_accepted"]}
+        if qos is not None:
+            out["qos"] = qos
         return out
+
+    def qos_control(self, spec_off: Optional[bool] = None,
+                    decode_chunk: Optional[int] = None) -> dict:
+        """The overload controller's knobs (reference :5393): ``spec_off``
+        suspends speculative rounds (plain decode is token-exact, so only
+        throughput changes); ``decode_chunk=N`` shrinks the decode chunk
+        (clamped to [1, the configured chunk]: a new program key, so on
+        the card a CUDA graph of its own), ``0`` restores it. Both are
+        reversible and leave committed tokens as they are. Returns the
+        knobs' state."""
+        with self._lock:
+            if spec_off is not None:
+                self._qos_spec_off = bool(spec_off)
+            if decode_chunk is not None:
+                c = int(decode_chunk)
+                self._chunk = (self._base_chunk if c == 0
+                               else min(max(1, c), self._base_chunk))
+        return {"spec_off": self._qos_spec_off,
+                "decode_chunk": self._chunk,
+                "base_decode_chunk": self._base_chunk}
 
     def slo_report(self) -> dict:
         """Windowed SLO report (observability/slo.py): TTFT / TPOT /
@@ -1397,7 +1626,8 @@ class InferenceEngine:
                constrain=None, tenant: Optional[str] = None,
                trace_ctx: Optional[dict] = None,
                deadline_s: Optional[float] = None,
-               on_deadline: str = "shed") -> RequestHandle:
+               on_deadline: str = "shed",
+               priority: int = 0) -> RequestHandle:
         """Admit one prompt. Raises EngineStopped after `stop()`,
         EngineDraining while draining, and OverloadError when the queue is
         full or the circuit breaker is open; past ``degrade_queue_depth``
@@ -1412,14 +1642,16 @@ class InferenceEngine:
         counts prompt-tail tokens the grammar already read) restricts
         the output to the grammar; a spec that cannot be served raises
         ConstraintError here (reference :2030-2070, :2145-2180).
-        ``tenant`` labels the request's bill (a malformed id raises
-        QoSValidationError first: it becomes a metric label) and
-        ``trace_ctx`` is merged into every event of its trace
-        (reference :2180-2197)."""
+        ``tenant`` labels the request's bill and ``priority``
+        (0..MAX_PRIORITY) is its QoS class: with ``preemption_budget`` > 0
+        a higher class seats first and may preempt a lower one (a
+        malformed tenant or priority raises QoSValidationError first);
+        ``trace_ctx`` is merged into every event of its trace (reference
+        :2180-2197)."""
         if on_deadline not in ("shed", "partial"):
             raise ValueError(f"on_deadline must be 'shed' or 'partial', "
                              f"got {on_deadline!r}")
-        tenant = validate_tenant(tenant)
+        tenant, priority = validate_tenant_priority(tenant, priority)
         prompt = np.asarray(prompt, np.int32)
         if prompt.ndim != 1 or prompt.size == 0:
             raise ValueError("prompt must be a non-empty 1-D token array")
@@ -1494,6 +1726,7 @@ class InferenceEngine:
                 handle._grammar = grammar
                 handle._cinit = handle._cstate_host = cstart
             handle.tenant = tenant
+            handle.priority = priority
             handle.trace = self.recorder.start_trace(handle.rid,
                                                      ctx=trace_ctx)
             handle._on_terminal = self._on_terminal
@@ -1503,6 +1736,7 @@ class InferenceEngine:
                 deadline_s=(float(deadline_s)
                             if deadline_s is not None else None),
                 **({"tenant": tenant} if tenant is not None else {}),
+                **({"priority": priority} if priority else {}),
                 **({"constrained": True, "grammar": grammar.key[:12],
                     "dfa_states": grammar.num_states}
                    if grammar is not None else {}))
@@ -1516,7 +1750,11 @@ class InferenceEngine:
         """(grammar, start state) of a ``constrain`` spec: compiled
         against the vocabulary under the table bound, with its
         ``consumed`` prompt tail replayed (which validates it); raises
-        ConstraintError."""
+        ConstraintError (reason ``"mode"`` in batch mode)."""
+        if not self._continuous:
+            raise ConstraintError(
+                "constrain= requires mode='continuous' (batch mode has "
+                "no per-slot DFA state to carry across steps)", "mode")
         spec, consumed = normalize_constraint(constrain)
         grammar = compile_grammar(
             spec, int(self.cfg.vocab_size),
@@ -1728,9 +1966,13 @@ class InferenceEngine:
 
     def _queue_fills_pool(self) -> bool:
         """True when waiting cannot improve the next admission: the queue
-        holds at least as many requests as there are free slots."""
+        holds at least as many requests as there are seats to fill (free
+        slots, or in batch mode the batch cap)."""
         with self._lock:
-            seats = sum(s is None for s in self._slots)
+            if self._continuous:
+                seats = sum(s is None for s in self._slots)
+            else:
+                seats = self.config.max_batch_size
             return len(self._queue) >= max(1, seats)
 
     def _shed_expired(self, batch) -> None:
@@ -1759,23 +2001,33 @@ class InferenceEngine:
                         "tokens decoded"))
 
     def tick(self) -> bool:
-        """One scheduling round: admit into free slots, dispatch the
-        tick's calls (`_dispatch_tick`: one-shot, one prefill over the
-        pool and one decode chunk for every decoding slot; chunked, the
-        token-budget round), then commit. The synchronous loop waits for
-        each call's output as it dispatches it and commits this tick; the
-        pipelined loop commits the previous tick behind one wait (see the
-        module docstring). Returns whether any work was done."""
-        self._ticking = True
-        try:
-            return self._tick()
-        finally:
-            self._ticking = False
+        """One scheduling round. Continuous: admit into free slots,
+        dispatch the tick's calls (`_dispatch_tick`: one-shot, one
+        prefill over the pool and one decode chunk for every decoding
+        slot; chunked, the token-budget round), then commit. The
+        synchronous loop waits for each call's output as it dispatches it
+        and commits this tick; the pipelined loop commits the previous
+        tick behind one wait (see the module docstring). Batch mode: form
+        one batch of equal prompt lengths and run it to completion.
+        Returns whether any work was done."""
+        with self._tick_mutex:
+            self._ticking = True
+            try:
+                if not self._continuous:
+                    batch = self._form_batch()
+                    if not batch:
+                        return False
+                    self._process_batch(batch)
+                    return True
+                return self._tick()
+            finally:
+                self._ticking = False
 
     def _tick(self) -> bool:
         self._tick_perf0 = _perf()
         self._tick_syncs = 0
         self._observe("tick_begin", self.profiler.tick_begin)
+        t_start = self._clock()
         admitted = self._fill_slots()
         pending = self._dispatch_tick(admitted)
         prev = pending
@@ -1789,13 +2041,38 @@ class InferenceEngine:
         busy = bool(admitted) or pending is not None or prev is not None
         if busy:
             self._inc("pipelined_ticks")
-            self._observe("tick_end", self._tick_epilogue)
+            self._m_batches.inc()
+            n_active = (pending.n_active if pending is not None
+                        else len(admitted))
+            self._observe("tick_end", self._tick_epilogue, t_start,
+                          n_active or 1)
         return busy
 
-    def _tick_epilogue(self) -> None:
-        """The device-idle estimate of the tick, and its busy interval
-        attributed across the programs it dispatched (reference
-        `_tick_epilogue`, :2590)."""
+    def set_listeners(self, *listeners) -> None:
+        """Attach observers of the training listeners' protocol
+        (reference :2392): after every batch (batch mode) or busy tick
+        the engine calls ``record_batch(batch_size)`` where a listener
+        has it, then ``iteration_done(engine, batch_index,
+        batch_latency_s)``."""
+        self._listeners = list(listeners)
+
+    def _notify_listeners(self, size: int, idx: int,
+                          latency: float) -> None:
+        """The listener protocol's two calls; a listener that raises is
+        logged and serving goes on."""
+        for lst in self._listeners:
+            try:
+                if hasattr(lst, "record_batch"):
+                    lst.record_batch(size)
+                lst.iteration_done(self, idx, latency)
+            except Exception:     # listeners must not kill serving
+                log.exception("engine listener failed")
+
+    def _tick_epilogue(self, t_start: float, n_active: int) -> None:
+        """The device-idle estimate of the tick, its busy interval
+        attributed across the programs it dispatched, the batch-size and
+        latency series and the listeners (reference `_tick_epilogue`,
+        :2592)."""
         nowp = _perf()
         wall = nowp - self._tick_perf0
         if self._busy_since is not None:
@@ -1811,20 +2088,166 @@ class InferenceEngine:
         self._busy_total_s += self._tick_busy_s
         self._tick_busy_s = 0.0
         self._last_tick_syncs = self._tick_syncs
+        self._m_batch_size.observe(n_active)
+        latency = self._clock() - t_start
+        self._m_batch_seconds.observe(latency)
+        self._notify_listeners(n_active, int(self._m_batches.value),
+                               latency)
+
+    # -- batch mode (reference :2402-2478, :5142-5216) ----------------------
+    def _form_batch(self) -> List[RequestHandle]:
+        """Pop the head request and every queued request of the same
+        prompt length, up to ``max_batch_size`` (the model masks no pad,
+        so mixed lengths cannot share a batch); the rest keep their
+        order."""
+        with self._lock:
+            if not self._queue:
+                return []
+            head = self._queue.popleft()
+            t0 = head.prompt.shape[0]
+            batch = [head]
+            rest: deque = deque()
+            while self._queue and len(batch) < self.config.max_batch_size:
+                r = self._queue.popleft()
+                (batch if r.prompt.shape[0] == t0 else rest).append(r)
+            rest.extend(self._queue)
+            self._queue = rest
+            for r in batch:
+                r._in_flight = True
+            self._m_in_flight.inc(len(batch))
+        self._m_batch_size.observe(len(batch))
+        for r in batch:
+            r.status = RequestStatus.RUNNING
+            r.trace.add("admitted", batch_size=len(batch))
+            self.slo.admitted(r.trace)
+        return batch
+
+    def _process_batch(self, batch: List[RequestHandle]) -> None:
+        """Run ``batch`` to completion on the weights taken at its start
+        (a reload meanwhile serves the next batch), then the batch
+        series and the listeners."""
+        t_start = self._clock()
+        params = self._params
+        try:
+            self._decode_loop(batch, params)
+        finally:
+            for r in batch:
+                if r._in_flight:
+                    r._in_flight = False
+                    self._m_in_flight.dec()
+            self._m_batches.inc()
+            latency = self._clock() - t_start
+            self._m_batch_seconds.observe(latency)
+            self._notify_listeners(len(batch), int(self._m_batches.value),
+                                   latency)
+
+    def _decode_loop(self, batch: List[RequestHandle], params) -> None:
+        """Chunk by chunk: every running request's prompt + generated
+        re-prefilled in one call that decodes the next ``decode_chunk``
+        tokens (0: the whole remaining budget); a request is shed or
+        completed at each chunk boundary."""
+        self._shed_expired(batch)
+        while True:
+            active = [r for r in batch
+                      if r.status == RequestStatus.RUNNING]
+            if not active:
+                return
+            done = active[0].generated.shape[0]
+            remaining = max(r.max_new_tokens - done for r in active)
+            if remaining <= 0:
+                for r in active:
+                    self._finish(r, RequestStatus.COMPLETED)
+                return
+            n = remaining if self.config.decode_chunk <= 0 \
+                else min(self.config.decode_chunk, remaining)
+            prompts = np.stack(
+                [np.concatenate([r.prompt, r.generated])
+                 for r in active]).astype(np.int32)
+            try:
+                toks = self._invoke(params, prompts, n, active)
+            except _BatchDecodeFailed as e:
+                self._isolate(active, params, e)
+                return
+            for i, r in enumerate(active):
+                need = min(n, r.max_new_tokens - done)
+                self._commit_tokens(r, toks[i, :need].astype(np.int32),
+                                    "decode_chunk", rate=(0.0, 0.0))
+            self._shed_expired(batch)
+
+    def _invoke(self, params, prompts: np.ndarray, n: int,
+                reqs: List[RequestHandle]) -> np.ndarray:
+        """One guarded batch generate of ``n`` tokens over ``prompts``
+        [B, T], keyed by (seed, T); waits for its output. Returns the new
+        tokens [B, n]. Raises _BatchDecodeFailed when the retries run
+        out."""
+        key = ("generate", int(n))
+        fn = self._programs.get(key)
+        if fn is None:
+            c = self.config
+            fn = make_parallel_generate(
+                self.cfg, int(n), temperature=float(c.temperature),
+                top_k=int(c.top_k), top_p=float(c.top_p))
+            self._programs[key] = fn
+        seed = batch_key(int(self.config.seed), prompts.shape[1])
+
+        def call():
+            self._busy_mark()
+            return self._host(fn(params, self._tensor(prompts), seed))
+
+        out = self._guarded(call, reqs, (), self._m_step_seconds)
+        return out.numpy()[:, prompts.shape[1]:]
+
+    def _isolate(self, active: List[RequestHandle], params,
+                 err: BaseException) -> None:
+        """A batch's retries ran out: each request re-runs alone, so one
+        poisoned request cannot starve its batch peers; a request that
+        fails alone is quarantined."""
+        log.warning("batch of %d exhausted retries (%s); isolating",
+                    len(active), str(err))
+        for r in active:
+            if r.status != RequestStatus.RUNNING:
+                continue
+            try:
+                self._decode_solo(r, params)
+            except _BatchDecodeFailed as e:
+                self._quarantine(r, f"failed persistently: {e}")
+
+    def _decode_solo(self, r: RequestHandle, params) -> None:
+        while r.status == RequestStatus.RUNNING:
+            self._shed_expired([r])
+            if r.status != RequestStatus.RUNNING:
+                return
+            done = r.generated.shape[0]
+            if done >= r.max_new_tokens:
+                self._finish(r, RequestStatus.COMPLETED)
+                return
+            n = r.max_new_tokens - done
+            if self.config.decode_chunk > 0:
+                n = min(self.config.decode_chunk, n)
+            prompts = np.concatenate([r.prompt, r.generated])[None]
+            toks = self._invoke(params, prompts.astype(np.int32), n, [r])
+            self._commit_tokens(r, toks[0].astype(np.int32),
+                                "decode_chunk", rate=(0.0, 0.0), solo=True)
 
     def _fill_slots(self) -> List[tuple]:
         """Seat queued requests into free slots, FIFO (reference
         `_fill_slots`, :3268). A paged engine maps each request's cached
         prefix and allocates its private pages first (`_seat_paged`);
         when the pool cannot cover it the request goes back to the head
-        of the queue and admission stops for this tick. Returns
-        [(slot, handle)]."""
+        of the queue and admission stops for this tick. With
+        ``preemption_budget`` > 0 queued higher classes first evict
+        lower-class residents (`_preempt_for_priority_locked`) and the
+        queue is served highest class first (`_pop_request_locked`).
+        Returns [(slot, handle)]."""
         admitted = []
         with self._lock:
+            if self._preempt_budget > 0:
+                self._preempt_for_priority_locked()
             free = deque(i for i in range(self._num_slots)
                          if self._slots[i] is None)
+            seated_order: List[RequestHandle] = []
             while free and self._queue:
-                r = self._queue.popleft()
+                r = self._pop_request_locked()
                 self._shed_expired([r])
                 if r.done():
                     continue
@@ -1837,7 +2260,9 @@ class InferenceEngine:
                             self._queue.appendleft(r)
                         break
                 free.popleft()
+                seated_order.append(r)
                 self._slots[i] = r
+                r._slot = i
                 if self._constrain_active:
                     # (re)seat (reference :3341-3347): the slot's next
                     # call starts it from its request's state, whatever
@@ -1862,7 +2287,95 @@ class InferenceEngine:
                 self._m_in_flight.inc()
                 self._observe("admitted", self._trace_admitted, i, r, hit)
                 admitted.append((i, r))
+            # admission order is seating order (reference :3390): the
+            # oldest-first prefill scheduler's fairness rests on it
+            assert [r for _, r in admitted] == seated_order, \
+                "admission order diverged from queue order"
         return admitted
+
+    def _pop_request_locked(self) -> RequestHandle:
+        """The next request to seat: FIFO, or with ``preemption_budget``
+        > 0 the first of the highest priority class (FIFO within a class,
+        plain FIFO when every request is class 0; reference :3397)."""
+        q = self._queue
+        if self._preempt_budget <= 0 or len(q) <= 1:
+            return q.popleft()
+        best = max(range(len(q)), key=lambda j: (q[j].priority, -j))
+        if best == 0:
+            return q.popleft()
+        r = q[best]
+        del q[best]
+        return r
+
+    def _preempt_for_priority_locked(self) -> None:
+        """Evict lower-priority residents so queued higher-priority
+        requests seat this tick, at most ``preemption_budget`` evictions
+        a tick (reference :3412): a waiter takes a free seat first, else
+        evicts the lowest-priority resident, youngest seat first, and
+        only of a strictly lower class, so equal classes never thrash.
+        The evicted request requeues at the head with its committed
+        tokens and re-prefills from them."""
+        budget = self._preempt_budget
+        free_n = sum(s is None for s in self._slots)
+        waiting = sorted((r for r in self._queue
+                          if r.priority > 0 and not r.done()),
+                         key=lambda r: -r.priority)
+        for w in waiting:
+            if budget <= 0:
+                break
+            if free_n > 0:
+                free_n -= 1      # a free seat serves this waiter
+                continue
+            residents = [(i, r) for i, r in enumerate(self._slots)
+                         if r is not None and not r.done()]
+            if not residents:
+                break
+            i, v = min(residents,
+                       key=lambda e: (e[1].priority, -e[1]._seat_seq))
+            if v.priority >= w.priority:
+                break            # nothing strictly lower to displace
+            self._free_slot(i)
+            self._evict_to_queue(v)
+            self._m_qos_preemptions.labels(
+                self._qos_label(v.tenant)).inc()
+            v.trace.add("preempted", reason="priority", by=int(w.rid),
+                        slot=i)
+            self._m_preempted.inc()
+            self._queue.appendleft(v)
+            budget -= 1
+            # the freed seat is this waiter's: it does not count in
+            # free_n, or the next waiter would spend it too
+
+    def _evict_to_queue(self, r: RequestHandle) -> None:
+        """The eviction of a seated or in-flight request back to the
+        queue (priority preemption, reload): only its committed tokens
+        stay; a pending tick's items for it commit nothing (its epoch
+        moves on), and it leaves the in-flight gauge."""
+        r.status = RequestStatus.QUEUED
+        r._pending_n = r._pending_spec = 0
+        r._epoch += 1
+        if r._in_flight:
+            r._in_flight = False
+            self._m_in_flight.dec()
+
+    def _evict_all_locked(self) -> int:
+        """Reload's eviction (reference :5057; the caller holds the
+        lock): every seated request and every one with tokens in flight
+        (a pipelined slot frees once its tokens are all dispatched) is
+        requeued at the head, in slot order, with its committed tokens:
+        its KV encodes the old weights. Returns the number evicted."""
+        if not self._continuous:
+            return 0
+        live = [r for r in self._in_flight_requests()
+                if not r.done() and r.status == RequestStatus.RUNNING]
+        for i, r in enumerate(self._slots):
+            if r is not None:
+                self._free_slot(i)
+        for r in sorted(live, key=lambda r: r._slot, reverse=True):
+            self._evict_to_queue(r)
+            r.trace.add("preempted", reason="reload")
+            self._queue.appendleft(r)
+        return len(live)
 
     def _trace_admitted(self, i: int, r: RequestHandle, hit: int) -> None:
         """The ``admitted`` event (reference :3384) and the queue age."""
@@ -2348,7 +2861,18 @@ class InferenceEngine:
         oldest admission first, each call advancing a slot by at most
         prefill_chunk tokens (reference :2666). When decode's bill has
         used up the budget the oldest admission still advances one chunk,
-        so prefill never starves. Returns the tokens spent."""
+        so prefill never starves. Returns the tokens spent.
+
+        Weighted fair share (``tenant_weights``): the budget is first
+        credited to each backlogged tenant's deficit by weight
+        (`_qos_credit`); slots are then served most-owed tenant first
+        (oldest admission within a tenant), each tenant's grant in a call
+        capped by what it is owed (deficit round-robin), and each granted
+        token is charged back. When every deficit is spent the leftover
+        budget serves slots in that order anyway (work conservation)."""
+        qos = self._qos_weights is not None
+        if qos:
+            self._qos_credit(budget)
         spent = 0
         floor_used = False
         while True:
@@ -2358,28 +2882,90 @@ class InferenceEngine:
                 key=lambda e: e[1]._seat_seq)
             if not prefilling:
                 break
+            if qos:
+                prefilling.sort(key=lambda e: -self._qos_deficit.get(
+                    e[1].tenant or "default", 0.0))
             rem = budget - spent
+            floor = False
             if rem < 1:
                 if spent > 0 or floor_used:
                     break
-                floor_used = True
+                # the progress floor: one chunk for the oldest admission
+                # (under fair share, the most-owed tenant's oldest)
+                floor_used = floor = True
                 rem = self._prefill_chunk
                 prefilling = prefilling[:1]
             plan = []
-            for i, r in prefilling:
-                if rem < 1:
-                    break
-                n = min(self._prefill_chunk,
-                        r._prefill_target - r._prefill_pos, rem)
-                plan.append((i, r, n))
-                rem -= n
+            if qos and not floor:
+                owed = dict(self._qos_deficit)
+                for i, r in prefilling:
+                    if rem < 1:
+                        break
+                    t = r.tenant or "default"
+                    cap = owed.get(t, 0.0)
+                    if cap < 1.0:
+                        continue
+                    n = min(self._prefill_chunk,
+                            r._prefill_target - r._prefill_pos, rem,
+                            int(cap))
+                    plan.append((i, r, n))
+                    rem -= n
+                    owed[t] = cap - n
+            if not plan:
+                for i, r in prefilling:
+                    if rem < 1:
+                        break
+                    n = min(self._prefill_chunk,
+                            r._prefill_target - r._prefill_pos, rem)
+                    plan.append((i, r, n))
+                    rem -= n
             try:
                 self._prefill_chunk_call(plan)
             except _BatchDecodeFailed as e:
                 self._isolate_slots([r for _, r, _ in plan], e)
                 continue
+            if qos:
+                for i, r, n in plan:
+                    t = r.tenant or "default"
+                    self._qos_deficit[t] = self._qos_deficit.get(t, 0.0) - n
+                    self._m_qos_prefill_tokens.labels(
+                        self._qos_label(r.tenant)).inc(int(n))
             spent += sum(n for _, _, n in plan)
         return spent
+
+    # -- tenant QoS (reference :2764-2800) ----------------------------------
+    def _qos_weight(self, tenant: str) -> float:
+        return self._qos_weights.get(
+            tenant, float(self.config.qos_default_weight))
+
+    def _qos_label(self, tenant: Optional[str]) -> str:
+        """A tenant's metric label: the first ``tenant_top_n`` distinct
+        tenants get their own, later ones fold into "other"."""
+        t = "default" if tenant is None else tenant
+        seen = self._qos_tenants_seen
+        if t in seen:
+            return t
+        if len(seen) < self.config.tenant_top_n:
+            seen.add(t)
+            return t
+        return "other"
+
+    def _qos_credit(self, budget: int) -> None:
+        """This tick's prefill budget divided among the backlogged
+        tenants by weight; a tenant with no prefilling slot loses its
+        deficit (no banking: its share rolls to the backlogged)."""
+        backlogged = {r.tenant or "default"
+                      for _, r in self._occupied()
+                      if self._is_prefilling(r) and not r.done()}
+        for t in list(self._qos_deficit):
+            if t not in backlogged:
+                del self._qos_deficit[t]
+        if not backlogged or budget <= 0:
+            return
+        total = sum(self._qos_weight(t) for t in backlogged)
+        for t in backlogged:
+            self._qos_deficit[t] = (self._qos_deficit.get(t, 0.0)
+                                    + budget * self._qos_weight(t) / total)
 
     def _prefill_chunk_call(self, plan) -> None:
         """One chunked-prefill call advancing ``plan`` [(slot, handle,
@@ -2444,9 +3030,9 @@ class InferenceEngine:
         self._pipe_items = []
         try:
             if self._prefill_chunk is not None:
-                self._dispatch_budgeted(admitted)
+                n_active = self._dispatch_budgeted(admitted)
             else:
-                self._dispatch_oneshot(admitted)
+                n_active = self._dispatch_oneshot(admitted)
         finally:
             items, self._pipe_items = self._pipe_items, []
         if not items:
@@ -2455,7 +3041,9 @@ class InferenceEngine:
         if self._pipe and self.device.type == "cuda":
             done = torch.cuda.Event()
             done.record(torch.cuda.current_stream(self.device))
-        return _PendingTick(items, done, c_in)
+        rec = _PendingTick(items, done, c_in, n_active=n_active)
+        rec.epochs = {id(r): r._epoch for r in self._record_requests([rec])}
+        return rec
 
     def _sched_decoding(self) -> List[tuple]:
         """The slots this tick's decode dispatch takes (reference :2987):
@@ -2465,10 +3053,11 @@ class InferenceEngine:
                 if not r.done() and not self._is_prefilling(r)
                 and r.generated.shape[0] + r._pending_n < r.max_new_tokens]
 
-    def _dispatch_oneshot(self, admitted) -> None:
+    def _dispatch_oneshot(self, admitted) -> int:
         """The admissions' prefill, then the decode (reference :2996).
         A paged prefill's prompt pages enter the prefix cache at
-        dispatch: a later reader's calls queue after its writes."""
+        dispatch: a later reader's calls queue after its writes. Returns
+        the tick's active count."""
         if admitted:
             self._ensure_state()
             try:
@@ -2480,6 +3069,7 @@ class InferenceEngine:
                         if self._slots[i] is r:
                             self._free_slot(i)
                 self._isolate_slots([r for _, r in admitted], e)
+                admitted = []
             else:
                 for _, r in admitted:
                     r._pending_n += 1
@@ -2490,10 +3080,12 @@ class InferenceEngine:
         decoding = self._sched_decoding()
         if decoding:
             self._dispatch_decode(decoding, {})
+        return len(decoding) or len(admitted)
 
-    def _dispatch_budgeted(self, admitted) -> None:
+    def _dispatch_budgeted(self, admitted) -> int:
         """The chunked round (reference :3027): prefill chunks bought by
-        the budget left after the decode bill, then the decode."""
+        the budget left after the decode bill, then the decode. Returns
+        the tick's active count."""
         decoding0 = [(i, r) for i, r in self._occupied()
                      if not self._is_prefilling(r)]
         spent = self._advance_prefill(self._tick_budget
@@ -2502,12 +3094,15 @@ class InferenceEngine:
         if decoding:
             self._dispatch_decode(decoding, {"prefill_chunk": int(spent)})
         self._last_tick_spent = spent + len(decoding) * self._chunk
+        return len(decoding) or len(admitted)
 
     def _dispatch_decode(self, decoding, data: dict) -> None:
         """A decode chunk, or a spec round (reference :3039): each slot's
         tokens of the chunk, min(chunk, its budget), go in flight.
-        ``data`` rides on the commit's decode_chunk events."""
-        if self._spec and self._spec_tick():
+        ``data`` rides on the commit's decode_chunk events; while
+        `qos_control` has spec off the tick decodes plainly (reference
+        :3040)."""
+        if self._spec and not self._qos_spec_off and self._spec_tick():
             self._dispatch_spec(decoding, data)
             return
         try:
@@ -2563,27 +3158,40 @@ class InferenceEngine:
             except RuntimeError as e:
                 self._recover_failed_tick(prev, e)
                 return
+        ep = prev.epochs or {}
+
+        def live(entries, counts):
+            # an entry whose request was evicted (preempted or reloaded)
+            # since the dispatch commits nothing and releases nothing:
+            # its tokens in flight were dropped at the eviction
+            keep = [(e, n) for e, n in zip(entries, counts)
+                    if ep.get(id(e[1]), e[1]._epoch) == e[1]._epoch]
+            return [e for e, _ in keep], [n for _, n in keep]
+
         for kind, entries, out, *rest in prev.items:
             # (a request isolated since the dispatch has no tokens in
             # flight any more and is done: its items commit nothing)
             out = out.numpy()
             if kind == "prefill":
+                entries, _ = live(entries, [1] * len(entries))
                 for _, r in entries:
                     r._pending_n = max(0, r._pending_n - 1)
                 self._commit_first(entries, out)
             elif kind == "prefill_chunk":
-                finished = rest[0]
+                finished, _ = live(rest[0], [1] * len(rest[0]))
                 for _, r in finished:
                     r._pending_n = max(0, r._pending_n - 1)
                 self._commit_first(finished, out,
                                    prefill_chunk=self._prefill_chunk)
             elif kind == "decode":
                 needs, rate, data = rest
+                entries, needs = live(entries, needs)
                 for (_, r), n in zip(entries, needs):
                     r._pending_n = max(0, r._pending_n - n)
                 self._commit_decode(entries, out, needs, rate, data)
             else:
                 reserved, rate, data = rest
+                entries, reserved = live(entries, reserved)
                 for (_, r), n in zip(entries, reserved):
                     r._pending_n = max(0, r._pending_n - n)
                     r._pending_spec = max(0, r._pending_spec - n)
@@ -3126,3 +3734,87 @@ class InferenceEngine:
                        r.max_new_tokens - r.generated.shape[0])
             self._commit_tokens(r, toks[0, :need].astype(np.int32),
                                 "decode_chunk", rate=rate, scratch=True)
+
+    # -- hot weight reload (reference :5523-5606) --------------------------
+    def reload_weights(self, source, step: Optional[int] = None) -> int:
+        """Swap in the weights of checkpoint step ``step`` (None: the
+        newest step that verifies, falling back past a corrupt or torn
+        one) from ``source``, a `util.checkpointing.CheckpointManager` or
+        a checkpoint directory in the npz layout, without draining.
+        Each step is checksum-verified, then restored against the float
+        template (the live tree, or a quantized engine's float template,
+        which then quantizes it again). The swap waits for the running
+        tick (a batch finishes on the weights it started with) and, under
+        the lock, evicts every in-flight request back to the head of the
+        queue with its committed tokens, flushes the prefix cache (its
+        KV encodes the old weights) and drops the CUDA graphs (they hold
+        the old tree); the drafter is rebuilt from the new tree. Returns
+        the step loaded; raises FileNotFoundError for a directory without
+        steps and RuntimeError when no step reads."""
+        mgr = (source if isinstance(source, CheckpointManager)
+               else CheckpointManager(str(source)))
+        steps = ([int(step)] if step is not None
+                 else list(reversed(mgr.all_steps())))
+        if not steps:
+            raise FileNotFoundError(
+                f"no checkpoint steps under {mgr.directory}")
+        last_err: Optional[BaseException] = None
+        for s in steps:
+            try:
+                # a torn step (zip-valid, wrong bytes) never swaps in
+                if not mgr.verify_step(s):
+                    raise RuntimeError(
+                        f"step {s} failed checksum verification")
+                template = (self._float_template if self._qmode
+                            else self._params)
+                tree = mgr.restore_tree(template, step=s,
+                                        device=self.device)
+            except Exception as e:           # corrupt / partial step
+                last_err = e
+                log.warning("weight reload: step %s unreadable (%s); "
+                            "falling back", s, e)
+                continue
+            if tree is None:
+                continue
+            if self._qmode:
+                tree = quantize_params(tree, mode=self._qmode)
+            with self._tick_mutex:
+                self._swap_weights(tree, int(s))
+            log.info("weights hot-reloaded from step %d", int(s))
+            return int(s)
+        raise RuntimeError(
+            f"no readable checkpoint step under {mgr.directory}"
+        ) from last_err
+
+    def _swap_weights(self, tree, step: int) -> None:
+        """The reload's swap, between ticks: the new tree in, every
+        in-flight request evicted, the prefix cache flushed, the graphs
+        dropped (after the device has run what was queued on them), the
+        drafter and the profiler's tree bytes rebuilt."""
+        if self._graphs is not None and self._graphs.keys():
+            self._wait(None)
+            self._graphs = SlotGraphs(self.device, self._m_graph_captures,
+                                      self._m_graph_replays,
+                                      self._m_graph_pool_bytes)
+            self._m_graph_pool_bytes.set(0.0)
+        with self._lock:
+            self._params = tree
+            self._weights_step = step
+            preempted = self._evict_all_locked()
+            if self._prefix_cache is not None:
+                flushed = self._prefix_cache.flush()
+                if flushed:
+                    self._m_prefix_evictions.inc(flushed)
+                    log.info("weight reload flushed %d prefix-cache "
+                             "entries", flushed)
+        if self._spec:
+            self._rebuild_draft()
+        if self.profiler.enabled:
+            self._wbytes = tree_bytes(self._params, self.cfg)
+            if self._spec:
+                self._dbytes = tree_bytes(self._draft_params, self.cfg)
+        if preempted:
+            self._m_preempted.inc(preempted)
+            log.info("weight reload preempted %d in-flight request(s); "
+                     "requeued for re-prefill", preempted)
+        self._m_reloads.inc()

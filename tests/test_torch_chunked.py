@@ -7,9 +7,8 @@ tree converted with `params_from_numpy`. Tolerances: caches 1e-5 (a paged
 pool's scratch page 0 excluded); pos, tok and first exactly (greedy);
 engine results token-exact. The port's own contracts (chunked ≡ one-shot
 ≡ `generate`, oldest-first prefill, the stall bound, spec with chunked
-prefill) are copied from tests/test_serving_chunked.py, and the
-configurations the port does not serve yet must raise naming their
-ROADMAP item; grammar constraints, which once raised with them, serve.
+prefill) are copied from tests/test_serving_chunked.py; fair-share
+prefill and grammar constraints, which once raised with them, serve.
 """
 import functools
 
@@ -371,15 +370,31 @@ def test_chunked_and_paged_config_errors(tparams, kw, match):
 @pytest.mark.parametrize("field,value,item", [
     ("tenant_weights", {"a": 1.0}, "item 9"),
 ])
-def test_unported_combinations_raise(tparams, use, field, value, item):
-    """Paged KV or chunked prefill with what the port has not ported
-    raises NotImplementedError naming the combination and its item."""
-    kw = {**BASE, "prefill_chunk": None, **use, field: value}
-    with pytest.raises(NotImplementedError,
-                       match=f"{next(iter(use))}=.* with {field}=.*"
-                             f"ROADMAP queue A {item}"):
-        teng.InferenceEngine(TCFG, tparams, teng.EngineConfig(**kw),
-                             device="cpu")
+def test_unported_combinations_raise(mesh1, jparams, tparams, use, field,
+                                     value, item):
+    """Paged KV or chunked prefill with fair-share prefill (``field``,
+    which raised here until ROADMAP queue A ``item`` 9b ported it): the
+    weighted deficit scheduler serves two tenants on the paged chunked
+    and the chunked pool as JAX's engine does, the granted prefill
+    tokens by tenant and every token equal."""
+    kw = {**BASE, "prefill_chunk": 8, **use, field: value,
+          "tick_token_budget": 12, "pipeline": False}
+    kw[field] = dict(value, b=3.0)
+    reqs = [(p, "a" if i % 2 else "b") for i, p in enumerate(_mix())]
+    jengine = jeng.InferenceEngine(JCFG, mesh1, jparams,
+                                   jeng.EngineConfig(**kw))
+    tengine = _port(tparams, **kw)
+    out = []
+    for eng in (jengine, tengine):
+        hs = [eng.submit(p, tenant=t) for p, t in reqs]
+        eng.run_pending()
+        grants = {t: eng._m_qos_prefill_tokens.labels(t).value
+                  for t in ("a", "b")}
+        out.append(([h.result().tolist() for h in hs], grants))
+    assert out[1] == out[0]
+    assert out[1][1]["a"] > 0 and out[1][1]["b"] > 0
+    assert sum(out[1][1].values()) == sum(p.shape[0] for p, _ in reqs) - (
+        tengine.counts["prefix_shared_tokens"] if use.get("paged") else 0)
 
 
 @pytest.mark.parametrize("use", [dict(paged=True), dict(prefill_chunk=8)])

@@ -1022,6 +1022,57 @@ def test_paged_spec_equals_paged_plain_bf16_on_card(requires_cuda):
         np.testing.assert_array_equal(a.result(), b.result())
 
 
+@pytest.mark.parametrize("spec", [False, True], ids=["plain", "spec"])
+def test_graph_replay_after_reload_uses_new_weights_on_card(requires_cuda,
+                                                            tmp_path, spec):
+    """Graphs hold their weight trees by identity, so a hot reload drops
+    them: the next call of each key captures again on the new tree and
+    every later replay computes with it. After a reload to another tree
+    the engine's tokens (greedy, bf16) equal a fresh engine's on that
+    tree, replays ran after the new capture, and the reload back gives
+    the first tokens again."""
+    from deeplearning4j_tpu_torch.models import transformer as tf
+    from deeplearning4j_tpu_torch.observability.metrics import \
+        MetricsRegistry
+    from deeplearning4j_tpu_torch.serving.engine import (EngineConfig,
+                                                         InferenceEngine)
+    from deeplearning4j_tpu_torch.util.checkpointing import \
+        CheckpointManager
+    dev = requires_cuda
+    cfg = tf.TransformerConfig(vocab_size=64, d_model=128, n_heads=2,
+                               n_layers=3, max_len=256, dtype="bfloat16")
+    a = tf.init_params(cfg, seed=3, device=dev)
+    b = tf.init_params(cfg, seed=7, device=dev)
+    mgr = CheckpointManager(tmp_path, registry=MetricsRegistry())
+    mgr.save_tree(a, 1)
+    mgr.save_tree(b, 2)
+    kw = dict(num_slots=4, decode_chunk=4, max_new_tokens=12)
+    if spec:
+        kw.update(spec_decode=True, spec_k=3, draft="layers:1")
+    prompts = [np.arange(n, dtype=np.int32) * 7 % 64 for n in (5, 9, 13)]
+
+    def serve(eng):
+        hs = [eng.submit(p) for p in prompts]
+        eng.run_pending()
+        return [h.result().tolist() for h in hs]
+
+    eng = InferenceEngine(cfg, a, EngineConfig(**kw), device=dev)
+    first = serve(eng)
+    caps = eng.counts["graph_captures"]
+    assert caps >= 1 and eng.counts["graph_replays"] >= 1
+    assert eng.reload_weights(mgr, step=2) == 2
+    assert eng._graphs.keys() == []
+    r0 = eng.counts["graph_replays"]
+    got = serve(eng)
+    assert eng.counts["graph_captures"] > caps
+    assert eng.counts["graph_replays"] > r0
+    assert got == serve(InferenceEngine(cfg, b, EngineConfig(**kw),
+                                        device=dev))
+    assert got != first
+    assert eng.reload_weights(mgr, step=1) == 1
+    assert serve(eng) == first
+
+
 @pytest.mark.parametrize("temperature", [0.0, 0.9])
 @pytest.mark.parametrize("kind", ["decode", "paged_decode", "spec",
                                   "paged_spec"])

@@ -473,7 +473,7 @@ def test_submit_validation_and_fault_readouts(make):
     health = eng.health()
     assert (health["breaker"], health["draining"]) == ("closed", False)
     jeng_, _ = make("jax")
-    assert set(eng.stats) == set(jeng_.stats) - {"batches", "reloads"}
+    assert set(eng.stats) == set(jeng_.stats)
     for k in ("shed_deadline", "quarantined", "retries", "step_failures",
               "preempted"):
         assert eng.stats[k] == 0 == jeng_.stats[k]

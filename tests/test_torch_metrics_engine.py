@@ -61,10 +61,6 @@ TENANTS = ("acme", "globex")
 # queue A item that brings them (and, where JAX registers one only on
 # some engines, that condition)
 JAX_ONLY = {
-    "serving_batches": "9b: batch mode",
-    "serving_batch_size": "9b: batch mode",
-    "serving_batch_latency_seconds": "9b: batch mode",
-    "serving_weight_reloads": "9b: hot reload",
     "serving_compiles": "10: the compile cache",
     "serving_compile_seconds": "10: the compile cache",
     "serving_program_cache_evictions": "10: the compile cache",
@@ -329,10 +325,9 @@ def _keys(d):
 
 # keys of JAX's read-outs whose items are unported -> the item
 READOUT_UNPORTED = {
-    "health": {"weights_step", "last_warmup", "compiles_by_source",
-               "batches", "reloads"},
-    "debugz": {"weights_step", "compile_cache"},
-    "stats": {"batches", "reloads"},
+    "health": {"last_warmup", "compiles_by_source"},
+    "debugz": {"compile_cache"},
+    "stats": set(),
 }
 
 
@@ -350,10 +345,11 @@ def test_readouts_have_jax_keys(served, arm):
     for sec in ("paged", "chunked_prefill", "spec", "profiling"):
         assert _keys(td.get(sec)) == _keys(jd.get(sec)), sec
     assert _keys(td["tick_pipeline"]) == _keys(jd["tick_pipeline"]) - {
-        "fallback_reason", "last_flush"}
+        "last_flush"}
     assert _keys(td["slots"][0] if td["slots"] else {}) <= \
-        {"slot", "rid", "status", "tenant", "generated", "max_new_tokens",
-         "age_s", "phase", "prefill_pos", "prefill_target"}
+        {"slot", "rid", "status", "tenant", "priority", "generated",
+         "max_new_tokens", "age_s", "phase", "prefill_pos",
+         "prefill_target"}
     assert _keys(t.slo_report()) == _keys(j.slo_report())
     assert _keys(t.profile_report()) == _keys(j.profile_report())
     tl = t.timeline()
@@ -386,12 +382,23 @@ def test_pipelined_counters_equal_sync(served, tparams, arm):
         device="cpu")
     ph = _serve(p, arm, True)
     assert [_gen(h) for h in ph] == [_gen(h) for h in sh]
+    # the tick series count ticks: the pipelined loop's last tick only
+    # commits, one tick more than the synchronous loop runs
     own = {"serving_device_syncs", "serving_pipelined_ticks",
-           "serving_device_wait_seconds"}
+           "serving_device_wait_seconds", "serving_batches",
+           "serving_batch_size", "serving_batch_latency_seconds"}
     sf, pf = _fams(s), _fams(p)
     assert set(pf) - set(sf) == {"serving_pipelined_ticks"}
+    for fams, eng in ((sf, s), (pf, p)):
+        ticks = fams["serving_batches"]["samples"][0]["value"]
+        assert ticks == fams["serving_batch_size"]["samples"][0]["count"] \
+            == fams["serving_batch_latency_seconds"]["samples"][0]["count"]
+        assert ticks == (eng.counts["pipelined_ticks"] if eng is p else
+                         ticks) > 0
     for name in sorted(set(sf) & set(pf)):
-        if sf[name]["kind"] == "counter" and name not in COST_OR_TIME | own:
+        if name in own:
+            continue
+        if sf[name]["kind"] == "counter" and name not in COST_OR_TIME:
             assert pf[name]["samples"] == sf[name]["samples"], name
         elif sf[name]["kind"] == "histogram":
             assert [s["count"] for s in pf[name]["samples"]] == \
@@ -462,16 +469,24 @@ def test_observability_fields_accepted_and_unported_named(tparams,
     assert set(eng.profile_report()["tenant_costs"]["tenants"]) == \
         {"t0", "other"}
     assert len(eng.recorder) == 16
-    for field, value, item in (("tenant_weights", {"a": 1.0}, "QoS"),
-                               ("compile_cache_dir", "x", "compile cache"),
-                               ("mode", "batch", "batch mode"),
-                               ("preemption_budget", 1, "QoS")):
+    for field, value, item in (("compile_cache_dir", "x", "compile cache"),
+                               ("warmup_on_init", True, "compile cache"),
+                               ("program_cache_size", 8, "compile cache")):
         with pytest.raises(NotImplementedError, match=item):
             teng.InferenceEngine(TCFG, tparams,
                                  teng.EngineConfig(**{field: value}),
                                  device="cpu")
-    assert not {"recorder_capacity", "profile_dir", "tenant_top_n",
-                "max_retries", "batch_timeout_s"} & set(teng._UNPORTED)
+    # batch mode and tenant QoS construct engines now
+    for kw in (dict(mode="batch"), dict(preemption_budget=1),
+               dict(prefill_chunk=4, tenant_weights={"a": 1.0},
+                    qos_default_weight=2.0)):
+        eng = teng.InferenceEngine(TCFG, tparams, teng.EngineConfig(**kw),
+                                   device="cpu")
+        h = eng.submit(np.arange(4), tenant="a")
+        eng.run_pending()
+        assert h.status == "completed"
+    assert set(teng._UNPORTED) == {"compile_cache_dir", "warmup_on_init",
+                                   "program_cache_size"}
     # an injected clock is what deadlines read
     t = {"now": 0.0}
     eng = teng.InferenceEngine(TCFG, tparams, teng.EngineConfig(),

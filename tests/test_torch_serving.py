@@ -207,16 +207,27 @@ def test_engine_admission_rules(tparams):
     ("qos_default_weight", 2.0), ("compile_cache_dir", "x"),
 ])
 def test_unported_engine_options_raise(tparams, field, value):
-    # paged KV and chunked prefill are ported; what they do not combine
-    # with yet (here tenant QoS's fair-share prefill) still raises,
-    # naming them
+    """The compile cache's fields still raise, naming their ROADMAP item.
+    The rest once raised here and are ported (item 9b): fair-share
+    prefill on the paged pool refuses, as JAX's engine does, without
+    chunked prefill, and serves with it; batch mode and a QoS default
+    weight serve."""
     extra = ({"tenant_weights": {"a": 1.0}}
              if field in ("paged", "prefill_chunk") else {})
-    with pytest.raises(NotImplementedError, match="ROADMAP") as e:
-        teng.InferenceEngine(TCFG, tparams,
-                             teng.EngineConfig(**{field: value}, **extra),
-                             device="cpu")
-    assert not extra or f"{field}=" in str(e.value)
+    cfg = teng.EngineConfig(**{field: value}, **extra)
+    if field in ("warmup_on_init", "compile_cache_dir"):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            teng.InferenceEngine(TCFG, tparams, cfg, device="cpu")
+        return
+    if field == "paged":
+        with pytest.raises(ValueError, match="requires prefill_chunk"):
+            teng.InferenceEngine(TCFG, tparams, cfg, device="cpu")
+        return
+    eng = teng.InferenceEngine(TCFG, tparams, cfg, device="cpu")
+    h = eng.submit(_prompt(6, 1), tenant="a")
+    eng.run_pending()
+    assert h.status == teng.RequestStatus.COMPLETED
+    assert h.result().shape == (6 + cfg.max_new_tokens,)
 
 
 @pytest.mark.parametrize("field,value", [("spec_decode", True),

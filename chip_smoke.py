@@ -351,6 +351,42 @@ card and fails (non-zero exit, no result line) if anything is wrong:
    the aligned tree, with window launches; float32 with a tick pending:
    token-exact. Launches gated after the reload (the graphs are dropped
    and captured again). `--only 3j` runs the build and this phase alone.
+3k. The compile cache, warm-up and KV handoff at full width
+   (`phase_cache_handoff_full_width`; phase 3's bf16 flagship, 64 slots).
+   (a) Four fresh processes (`phase_3k_child`, this script with
+   ``--3k-child``), each on its own copy of deeplearning4j_tpu_torch/ in
+   a temp directory, so its build directory starts empty, sharing one
+   ``compile_cache_dir``: ``warmup_on_init=True`` and 16 requests of 32
+   tokens. Cold (empty cache): nvcc runs once for each serving source
+   (flash_fwd, decode_attention) and nothing else, every warm-up program
+   ``jit``. Warm: zero nvcc runs, every library from the cache, every
+   warm-up program ``aot_cache``, the cold run's tokens. Then one program
+   entry truncated: exactly one ``jit`` resolution, tokens unchanged.
+   Then decode_attention's library entry torn in half: its CRC refuses
+   it (one corrupt entry), nvcc runs for it alone, the entry is
+   published again and loads checked as an ELF library, tokens
+   unchanged. Each child carries the zero-failure gate on its own
+   engine class, and every handle must complete.
+   Prints restart-to-first-token (the parent's spawn to the child's
+   first token), nvcc seconds and the cache's bytes. (b) `warmup()`,
+   then 8 waves of 4 requests, one a prefill bucket (16 .. 2048): no
+   capture, no resolution, no program-cache entry, launches exact. (c) The spec
+   engine (K=7, "layers:1", adaptive K off) driven through K = 7, 3, 1
+   and plain decode in turns under ``program_cache_size=2`` and an
+   unbounded cache, in the synchronous and the pipelined loop: equal
+   tokens, evictions counted, a capture for every resolution of a
+   graphed key (more than the 4 of the unbounded engine). (d) Handoffs
+   of 16 requests through kvwire frames (4 tokens, then 28 on the
+   adopter): paged bf16 (a pipelined exporter, its pending tick flushed
+   by the export; one frame through a `WireServer` on localhost), paged
+   int8, and float32 contiguous -> paged (16 slots); each adopter
+   token-equal to one engine of its kind with the same slot count, 16
+   ok adoptions, no prefill, pages back to their start, launches exact.
+   bf16 contiguous -> paged agreement is printed, not gated (the two
+   prefills round differently). Frame bytes beside `handoff_bytes`;
+   ms a request of the export with its encoding (host wall) and of the
+   adopt call (synchronised). `--only 3k` runs the build and this
+   phase alone.
 4a. float32 training, card vs CPU: 2 layers at 512d / 8 heads, V=256,
    B=2, T=256, remat 'full', three Adam steps of `make_fsdp_train_step`
    from the same params on cuda and on cpu; losses within 1e-4, and the
@@ -403,8 +439,8 @@ card and fails (non-zero exit, no result line) if anything is wrong:
 7. Summary: the MoE phases' launches by kernel (`moe_launches`); one
    line of the graph replays of every gated run and of the serving
    device functions' launches in the profiled ticks' traces; the run's
-   wall time, the MoE phases', the rest's, phase 3h's, 3i's and 3j's
-   (`wall`);
+   wall time, the MoE phases', the rest's, phase 3h's, 3i's, 3j's and
+   3k's (`wall`);
    one `kernels` JSON line (decode_attention_q and decode_window_q among
    them; `launches` the wrappers' counts, 3j's included,
    `device_launches_profiled`
@@ -4874,6 +4910,460 @@ def phase_engine_control_full_width(torch, dev):
 
 
 # ---------------------------------------------------------------------------
+# phase 3k: the compile cache, warm-up and KV handoff at full width
+# ---------------------------------------------------------------------------
+
+K3_CHILD = "--3k-child"
+K3_REQUESTS, K3_NEW = 16, 32
+
+
+def k3_config(tf, dtype="bfloat16"):
+    return tf.TransformerConfig(vocab_size=256, d_model=512, n_heads=8,
+                                n_layers=12, max_len=2048, dtype=dtype)
+
+
+def k3_prompts(seed, n=K3_REQUESTS, lo=16, hi=1025):
+    rng = np.random.default_rng(seed)
+    return [rng.integers(0, 256, size=int(t)).astype(np.int32)
+            for t in rng.integers(lo, hi, size=n)]
+
+
+def phase_3k_child(root: str, cache_dir: str) -> int:
+    """One fresh process of phase 3k (a), importing the port from the copy
+    at ``root`` (so its build directory, ``root/build/torch_kernels``,
+    starts empty): phase 3's bf16 engine with ``compile_cache_dir`` and
+    ``warmup_on_init``, 16 requests, ticked until the first token, then
+    drained. The zero-failure gate (`install_zero_fault_gate`) is put on
+    this process's own engine class, which is not the parent's: a
+    failed program call or an isolation ends the child at once, and
+    every handle must complete. Prints one JSON line: the wall-clock
+    moment of the first token, the warm-up report, nvcc's runs and
+    seconds, where each library came from, the cache's bytes, the
+    faults seen (0), the handles' statuses and the tokens."""
+    started_at = time.time()
+    sys.path.insert(0, root)
+    import torch
+    import deeplearning4j_tpu_torch
+    from deeplearning4j_tpu_torch.models import transformer as tf
+    from deeplearning4j_tpu_torch.ops import _build
+    from deeplearning4j_tpu_torch.serving.engine import (EngineConfig,
+                                                         InferenceEngine)
+    if not deeplearning4j_tpu_torch.__file__.startswith(root):
+        fail(f"3k child imported the port from "
+             f"{deeplearning4j_tpu_torch.__file__}, not from {root}")
+    install_zero_fault_gate(InferenceEngine)
+    dev = torch.device("cuda")
+    cfg = k3_config(tf)
+    tree = tf.TransformerLM(cfg, seed=0, device=dev).params
+    engine_at = time.time()
+    eng = InferenceEngine(cfg, tree, EngineConfig(
+        num_slots=64, decode_chunk=8, max_new_tokens=K3_NEW, max_queue=256,
+        degrade_queue_depth=1024, compile_cache_dir=cache_dir,
+        warmup_on_init=True), device=dev)
+    hs = [eng.submit(p) for p in k3_prompts(18)]
+    while not any(h.generated.shape[0] for h in hs):
+        eng.tick()
+    first_token_at = time.time()
+    eng.run_pending()
+    torch.cuda.synchronize()
+    check_zero_fault_gate("3k child")
+    statuses = sorted({str(h.status) for h in hs})
+    if statuses != ["completed"]:
+        fail(f"3k child: handles ended {statuses}")
+    print(json.dumps(dict(
+        started_at=started_at, engine_at=engine_at,
+        first_token_at=first_token_at, warmup=eng.last_warmup,
+        nvcc_runs=_build.nvcc_runs, build_seconds=_build.build_seconds,
+        origin=_build.origin, build_dir=str(_build.BUILD_DIR),
+        cache_bytes=eng._aot.nbytes(), cache_entries=eng._aot.entries(),
+        compiles=eng._compiles_by_source(),
+        faults=len(ZERO_FAULT_SEEN), statuses=statuses,
+        tokens=[h.generated.tolist() for h in hs],
+        kind=torch.cuda.get_device_name(0))), flush=True)
+    return 0
+
+
+def k3_restart(cache_dir: str, tag: str) -> dict:
+    """Phase 3k (a): one child process (`phase_3k_child`) on a fresh copy
+    of the package; its record with ``restart_to_first_token_s``, from
+    the parent's spawn to the child's first token."""
+    import shutil
+    import tempfile
+    root = tempfile.mkdtemp(prefix=f"dl4j-3k-{tag}-")
+    try:
+        shutil.copytree(os.path.join(ROOT, "deeplearning4j_tpu_torch"),
+                        os.path.join(root, "deeplearning4j_tpu_torch"),
+                        ignore=shutil.ignore_patterns("__pycache__"))
+        spawned_at = time.time()
+        proc = subprocess.run(
+            [sys.executable, os.path.abspath(__file__), K3_CHILD, root,
+             cache_dir], capture_output=True, text=True, timeout=600)
+        wall = time.time() - spawned_at
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    if proc.returncode != 0:
+        fail(f"3k (a) {tag} process exited {proc.returncode}: "
+             f"{proc.stderr[-4000:]}")
+    rec = json.loads(proc.stdout.strip().splitlines()[-1])
+    if not rec["build_dir"].startswith(root):
+        fail(f"3k (a) {tag}: build directory {rec['build_dir']}")
+    rec.update(tag=tag, process_wall_s=wall,
+               restart_to_first_token_s=rec["first_token_at"] - spawned_at,
+               process_start_to_engine_s=rec["engine_at"] - spawned_at)
+    return rec
+
+
+def k3_handoff(torch, cfg, tree, dev, exp_kw, adp_kw, prompts, head, tail,
+               where, gate=True, ref_tokens=None, server=False):
+    """Phase 3k (d), one arm: the reference engine (the adopter's kind,
+    ``adp_kw``) serves ``prompts`` for head + tail tokens; the exporter
+    (``exp_kw``, ``hold_kv=True``) serves head tokens, a pipelined one
+    stopped with its last tokens' tick pending, and exports each request
+    as a kvwire frame; the adopter adopts the frames and decodes tail
+    more. Gates (``gate``): adopter tokens equal to the reference's; 16
+    ok adoptions and no prefill; pages back to their start on both;
+    launches exact on the adopter; a pipelined exporter's flush billed.
+    Returns (adopter tokens, record, launches by kernel)."""
+    from deeplearning4j_tpu_torch.quant.kv import handoff_bytes
+    from deeplearning4j_tpu_torch.serving.engine import (EngineConfig,
+                                                         InferenceEngine)
+    from deeplearning4j_tpu_torch.serving.kvwire import (
+        WireServer, decode_handoff, encode_handoff, wire_call)
+    L = cfg.n_layers
+    base = dict(decode_chunk=8, max_queue=256, degrade_queue_depth=1024)
+    launches = {k: 0 for k in launch_counters()}
+
+    def add(got):
+        for k in launches:
+            launches[k] += got[k]
+
+    zero_launches()
+    if ref_tokens is None:
+        ref = InferenceEngine(cfg, tree, EngineConfig(
+            **base, **adp_kw, max_new_tokens=head + tail), device=dev)
+        rh = [ref.submit(p) for p in prompts]
+        ref.run_pending()
+        ref_tokens = [h.generated.tolist() for h in rh]
+        del ref, rh
+    ex = InferenceEngine(cfg, tree, EngineConfig(
+        **base, **exp_kw, max_new_tokens=head), device=dev)
+    held = [ex.submit(p, hold_kv=True) for p in prompts]
+    pipelined = ex.config.pipeline
+    if pipelined:
+        while not all(h.generated.shape[0] + h._pending_n >= head
+                      for h in held):
+            ex.tick()
+        pending = len(ex._pending)
+    else:
+        ex.run_pending()
+        pending = 0
+    add(read_launches())
+    frames, export_s = [], []
+    torch.cuda.synchronize()
+    for h in held:
+        t0 = time.perf_counter()
+        frames.append(encode_handoff(ex.export_slot_kv(h)))
+        export_s.append(time.perf_counter() - t0)
+    kv_bytes = sum(handoff_bytes(cfg, p.shape[0] + head - 1,
+                                 kv_mode=ex._kv_mode) for p in prompts)
+    ex_pages_ok = (not ex._paged
+                   or ex.counts["pages_used"] == ex.prefix_cache_pages)
+    flush = ex._last_flush
+    echoed = None
+    if server:
+        srv = WireServer(lambda f: f)
+        try:
+            echoed = wire_call(srv.address, frames[0])
+        finally:
+            srv.stop()
+        frames[0] = echoed
+    ad = InferenceEngine(cfg, tree, EngineConfig(
+        **base, **adp_kw, max_new_tokens=head + tail), device=dev)
+    adopt_s = []
+    adopt_rows = ad._adopt_rows
+
+    def timed_adopt(pages, kv, slot):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        adopt_rows(pages, kv, slot)
+        torch.cuda.synchronize()
+        adopt_s.append(time.perf_counter() - t0)
+    ad._adopt_rows = timed_adopt
+    zero_launches()
+    keys0 = ad._graphs.keys()
+    c0 = dict(ad.counts)
+    hs = [ad.submit(h.result(), max_new_tokens=tail,
+                    kv=decode_handoff(f)) for h, f in zip(held, frames)]
+    ad.run_pending()
+    torch.cuda.synchronize()
+    got = read_launches()
+    add(got)
+    c = {k: ad.counts[k] - c0[k] for k in c0}
+    tokens = [h0.generated.tolist() + h.generated.tolist()
+              for h0, h in zip(held, hs)]
+    equal = sum(a == b for a, b in zip(tokens, ref_tokens))
+    adoptions = int(ad._m_adoptions.labels("ok").value)
+    rec = dict(phase="3k", arm="handoff", where=where,
+               requests=len(prompts), head=head, tail=tail,
+               exporter={k: v for k, v in exp_kw.items()
+                         if k != "tick_token_budget"},
+               adopter={k: v for k, v in adp_kw.items()
+                        if k != "tick_token_budget"},
+               dtype=cfg.dtype, token_equal=equal, gated=gate,
+               adoptions_ok=adoptions, adopter_prefill_calls=c[
+                   "prefill_calls"],
+               frame_bytes=sum(len(f) for f in frames),
+               handoff_bytes=kv_bytes,
+               frame_overhead_bytes=sum(len(f) for f in frames) - kv_bytes,
+               export_encode_ms_per_request=1e3 * sum(export_s) / len(held),
+               adopt_ms_per_request=1e3 * sum(adopt_s) / max(1,
+                                                            len(adopt_s)),
+               exporter_pending_ticks_at_export=pending, flush=flush,
+               wire_server_round_trip=(echoed is not None))
+    line(rec)
+    if gate:
+        if ad._paged:
+            check_launches(ad, c, L, got, f"3k (d) {where}", keys0)
+        if not (equal == len(prompts) and adoptions == len(prompts)
+                and c["prefill_calls"] == 0 and ex_pages_ok
+                and ad.counts["pages_used"] == ad.prefix_cache_pages
+                and (not pipelined or (pending and flush
+                                       and flush["reason"]
+                                       == "export_slot_kv"))
+                and (not server or echoed is not None)):
+            fail(f"3k (d) {where}: {equal}/{len(prompts)} token-equal, "
+                 f"{adoptions} adoptions, {c}, pages exporter {ex_pages_ok} "
+                 f"adopter {ad.counts['pages_used']} vs cache "
+                 f"{ad.prefix_cache_pages}, pending {pending}, flush "
+                 f"{flush}")
+    return tokens, rec, launches
+
+
+def phase_cache_handoff_full_width(torch, dev):
+    """Phase 3k (module docstring): (a) restart-to-first-token cold and
+    warm in fresh processes, (b) warm-up then mixed traffic, (c) a
+    2-entry program cache on the spec engine, (d) KV handoff through
+    kvwire frames. Returns the wrappers' launches by kernel."""
+    import shutil
+    import tempfile
+    from deeplearning4j_tpu_torch.models import transformer as tf
+    from deeplearning4j_tpu_torch.serving import engine as se
+    from deeplearning4j_tpu_torch.serving.engine import (EngineConfig,
+                                                         InferenceEngine)
+    cfg = k3_config(tf)
+    L = cfg.n_layers
+    base = dict(max_queue=256, degrade_queue_depth=1024)
+    totals = {k: 0 for k in launch_counters()}
+
+    def add(got):
+        for k in totals:
+            totals[k] += got[k]
+
+    # (a) cold, warm, one-corrupt-program-entry and one-torn-library
+    # restarts in fresh processes
+    from deeplearning4j_tpu_torch.serving.compile_cache import (
+        KIND_LIBRARY, CompileCache)
+    torn_lib = "decode_attention"
+    cache_dir = tempfile.mkdtemp(prefix="dl4j-3k-cache-")
+    try:
+        cold = k3_restart(cache_dir, "cold")
+        warm = k3_restart(cache_dir, "warm")
+        programs = [p for p in sorted(os.listdir(cache_dir))
+                    if p.endswith(".bin") and not p.startswith("lib-")]
+        victim = os.path.join(cache_dir, programs[0])
+        with open(victim, "r+b") as f:
+            f.truncate(20)
+        corrupt = k3_restart(cache_dir, "corrupt")
+        # a torn library entry: caught by its CRC before it reaches the
+        # build directory or dlopen, rebuilt by nvcc and published again
+        lib_entry = next(p for p in sorted(os.listdir(cache_dir))
+                         if p.startswith(f"lib-{torn_lib}-"))
+        lib_victim = os.path.join(cache_dir, lib_entry)
+        torn_size = os.path.getsize(lib_victim) // 2
+        with open(lib_victim, "r+b") as f:
+            f.truncate(torn_size)
+        torn = k3_restart(cache_dir, "torn_library")
+        republished = CompileCache(cache_dir, device=dev).load(
+            lib_entry[:-len(".bin")], KIND_LIBRARY)
+        libs = sorted(p for p in os.listdir(cache_dir)
+                      if p.startswith("lib-"))
+    finally:
+        shutil.rmtree(cache_dir, ignore_errors=True)
+    n_prog = cold["warmup"]["programs"]
+    serving_libs = {"flash_fwd", "decode_attention"}
+    for r in (cold, warm, corrupt, torn):
+        line(dict(phase="3k", arm="restart", tag=r["tag"],
+                  restart_to_first_token_s=r["restart_to_first_token_s"],
+                  process_start_to_engine_s=r["process_start_to_engine_s"],
+                  process_wall_s=r["process_wall_s"],
+                  warmup=r["warmup"], nvcc_runs=r["nvcc_runs"],
+                  nvcc_seconds=r["build_seconds"], library_origin=r[
+                      "origin"], cache_bytes=r["cache_bytes"],
+                  cache_entries=len(r["cache_entries"]),
+                  compiles=r["compiles"], faults=r["faults"],
+                  statuses=r["statuses"], tokens_equal_cold=(
+                      r["tokens"] == cold["tokens"])))
+    runs = (cold, warm, corrupt, torn)
+    if not (all(r["faults"] == 0 and r["statuses"] == ["completed"]
+                for r in runs)
+            and torn["nvcc_runs"] == {torn_lib: 1}
+            and torn["origin"] == {torn_lib: "nvcc", **{
+                n: "cache" for n in serving_libs - {torn_lib}}}
+            and torn["warmup"]["aot"]["corrupt"] == 1
+            and torn["warmup"]["aot"]["stores"] == 1
+            and torn["warmup"]["jit"] >= 1
+            and torn["warmup"]["jit"] + torn["warmup"]["aot_cache"]
+            == n_prog
+            and republished is not None
+            and republished[:4] == b"\x7fELF"
+            and torn["tokens"] == cold["tokens"]):
+        fail(f"3k (a) torn library entry: faults "
+             f"{[r['faults'] for r in runs]}, statuses "
+             f"{[r['statuses'] for r in runs]}, nvcc {torn['nvcc_runs']}, "
+             f"origin {torn['origin']}, warm-up {torn['warmup']}, "
+             f"republished {republished is not None and republished[:4]}, "
+             f"tokens {torn['tokens'] == cold['tokens']}")
+    if not (set(cold["nvcc_runs"]) == serving_libs
+            and all(n == 1 for n in cold["nvcc_runs"].values())
+            and cold["warmup"]["jit"] == n_prog
+            and cold["warmup"]["aot_cache"] == 0
+            and warm["nvcc_runs"] == {} and corrupt["nvcc_runs"] == {}
+            and warm["warmup"]["aot_cache"] == n_prog
+            and warm["warmup"]["jit"] == 0
+            and set(warm["origin"].values()) == {"cache"}
+            and corrupt["warmup"]["jit"] == 1
+            and corrupt["warmup"]["aot_cache"] == n_prog - 1
+            and corrupt["warmup"]["aot"]["corrupt"] == 1
+            and len(libs) == len(serving_libs)
+            and warm["tokens"] == cold["tokens"]
+            and corrupt["tokens"] == cold["tokens"]):
+        fail(f"3k (a): cold {cold['nvcc_runs']} {cold['warmup']}, warm "
+             f"{warm['nvcc_runs']} {warm['warmup']} {warm['origin']}, "
+             f"corrupt {corrupt['nvcc_runs']} {corrupt['warmup']}, "
+             f"libraries {libs}, tokens warm "
+             f"{warm['tokens'] == cold['tokens']} corrupt "
+             f"{corrupt['tokens'] == cold['tokens']}")
+
+    # (b) warm-up, then mixed traffic: no capture, no resolution
+    tree = tf.TransformerLM(cfg, seed=0, device=dev).params
+    eng = InferenceEngine(cfg, tree, EngineConfig(
+        **base, num_slots=64, decode_chunk=8, max_new_tokens=K3_NEW),
+        device=dev)
+    zero_launches()
+    rep = eng.warmup()
+    add(read_launches())
+    warm_captures = eng.counts["graph_captures"]
+    comp0, size0 = eng._compiles_by_source(), se.program_cache_info()
+    # one wave a prefill bucket (16 .. 2048), 4 requests each, drained
+    rng = np.random.default_rng(19)
+    waves = [[rng.integers(0, 256, size=int(t)).astype(np.int32)
+              for t in rng.integers(max(1, b // 2 + 1),
+                                    min(b, 2048 - K3_NEW) + 1, size=4)]
+             for b in (16, 32, 64, 128, 256, 512, 1024, 2048)]
+    mixed = [p for w in waves for p in w]
+    out, wall, c, _, got, _, keys0 = serve_pass(torch, eng, waves)
+    add(got)
+    check_launches(eng, c, L, got, "3k (b) warm traffic", keys0)
+    line(dict(phase="3k", arm="warmup", warmup=rep,
+              warmup_captures=warm_captures, requests=len(mixed),
+              prompt_len_min=min(p.shape[0] for p in mixed),
+              prompt_len_max=max(p.shape[0] for p in mixed),
+              buckets=sorted({eng._bucket_len(p.shape[0]) for p in mixed}),
+              wall_s=wall, tokens_per_s=len(mixed) * K3_NEW / wall,
+              traffic_captures=c["graph_captures"],
+              traffic_compiles=eng._compiles_by_source() != comp0,
+              prefill_calls=c["prefill_calls"],
+              decode_chunks=c["decode_chunks"]))
+    if not (c["graph_captures"] == 0 and eng._compiles_by_source() == comp0
+            and se.program_cache_info().currsize == size0.currsize
+            and rep["programs"] == 9 and rep["jit"] == 9
+            and c["prefill_calls"] == len(waves)):
+        fail(f"3k (b): after warm-up {c['graph_captures']} captures, "
+             f"compiles {comp0} -> {eng._compiles_by_source()}, cache "
+             f"{size0} -> {se.program_cache_info()}, warm-up {rep}")
+    del eng
+
+    # (c) the spec engine (K = 7, 3, 1 and plain decode) under a 2-entry
+    # program cache, against an unbounded one, in both loops
+    prompts = k3_prompts(20, lo=64, hi=513)
+    plan = [(7, 0), (3, 0), (1, 0), (1, 1)]
+    spec = dict(base, num_slots=64, decode_chunk=8, max_new_tokens=40,
+                spec_decode=True, spec_k=7, draft="layers:1",
+                spec_adaptive=False)
+
+    def run_spec(pipeline, size):
+        e = InferenceEngine(cfg, tree, EngineConfig(
+            **spec, pipeline=pipeline, program_cache_size=size), device=dev)
+        zero_launches()
+        hs = [e.submit(p) for p in prompts]
+        n = 0
+        while True:
+            e._spec_cur_k, e._spec_plain = plan[n % len(plan)]
+            n += 1
+            if not e.tick():
+                break
+        add(read_launches())
+        comp = {lab[0]: int(ch.value) for lab, ch in e._m_compiles.collect()}
+        rec = dict(captures=e.counts["graph_captures"],
+                   replays=e.counts["graph_replays"],
+                   evictions=int(e._m_prog_evictions.value),
+                   graphed_resolutions=comp.get("decode", 0)
+                   + comp.get("spec_decode", 0),
+                   ticks=n, spec_rounds=e.counts["spec_rounds"],
+                   decode_chunks=e.counts["decode_chunks"])
+        return [h.generated.tolist() for h in hs], rec
+
+    results = {}
+    for pipeline in (False, True):
+        results[("unbounded", pipeline)] = run_spec(pipeline, 64)
+    for pipeline in (False, True):
+        results[("bounded", pipeline)] = run_spec(pipeline, 2)
+    se.set_program_cache_size(se.DEFAULT_PROGRAM_CACHE_SIZE)
+    for pipeline in (False, True):
+        (ut, ur), (bt, br) = (results[("unbounded", pipeline)],
+                              results[("bounded", pipeline)])
+        line(dict(phase="3k", arm="program_cache_2",
+                  loop="pipelined" if pipeline else "sync",
+                  k_plan=plan, requests=len(prompts), unbounded=ur,
+                  bounded=br, token_equal=ut == bt))
+        if not (ut == bt and br["evictions"] > 0
+                and br["captures"] == br["graphed_resolutions"]
+                > ur["captures"] == 4 and ur["evictions"] == 0):
+            fail(f"3k (c) {'pipelined' if pipeline else 'sync'}: tokens "
+                 f"equal {ut == bt}, bounded {br}, unbounded {ur}")
+
+    # (d) KV handoff through kvwire frames
+    paged = dict(paged=True, page_size=16, prefill_chunk=256,
+                 tick_token_budget=16384, num_slots=64)
+    hprompts = k3_prompts(21)
+    head, tail = 4, 28
+    bf16, rec, got = k3_handoff(torch, cfg, tree, dev, paged, paged,
+                                hprompts, head, tail, "bf16 paged->paged",
+                                server=True)
+    add(got)
+    int8 = dict(paged, kv_quantize="int8")
+    _, _, got = k3_handoff(torch, cfg, tree, dev, int8, int8, hprompts,
+                           head, tail, "int8 paged->paged")
+    add(got)
+    cfg32 = k3_config(tf, "float32")
+    tree32 = tf.TransformerLM(cfg32, seed=0, device=dev).params
+    _, _, got = k3_handoff(torch, cfg32, tree32, dev,
+                           dict(num_slots=16, pipeline=False),
+                           dict(paged, num_slots=16), hprompts, head, tail,
+                           "f32 contiguous->paged")
+    add(got)
+    del tree32
+    _, rec, got = k3_handoff(torch, cfg, tree, dev, dict(num_slots=64),
+                             paged, hprompts, head, tail,
+                             "bf16 contiguous->paged", gate=False,
+                             ref_tokens=bf16)
+    add(got)
+    line(dict(phase="3k", run="summary", launches=totals,
+              bf16_contiguous_to_paged_token_equal=rec["token_equal"]))
+    return totals
+
+
+# ---------------------------------------------------------------------------
 # phase 4: training
 # ---------------------------------------------------------------------------
 
@@ -5772,6 +6262,8 @@ def phase_lstm_full_width(torch, dev, epochs=3):
 # ---------------------------------------------------------------------------
 
 def main() -> int:
+    if len(sys.argv) == 4 and sys.argv[1] == K3_CHILD:
+        return phase_3k_child(sys.argv[2], sys.argv[3])
     t_run = time.perf_counter()
     try:
         import torch
@@ -5807,10 +6299,11 @@ def main() -> int:
     install_zero_fault_gate()
     only = {"3h": phase_observability_full_width,
             "3i": phase_faults_full_width,
-            "3j": phase_engine_control_full_width}
+            "3j": phase_engine_control_full_width,
+            "3k": phase_cache_handoff_full_width}
     if len(sys.argv) == 3 and sys.argv[1] == "--only" and \
             sys.argv[2] in only:
-        # a development run of phase 3h, 3i or 3j alone (no kernels
+        # a development run of phase 3h, 3i, 3j or 3k alone (no kernels
         # line, no result); a full run takes no arguments
         line(dict(phase=sys.argv[2], launches=only[sys.argv[2]](
             torch, dev), wall_s=time.perf_counter() - t_run,
@@ -5865,8 +6358,12 @@ def main() -> int:
     t_ctl = time.perf_counter()
     ctl_launches = phase_engine_control_full_width(torch, dev)
     t_ctl = time.perf_counter() - t_ctl
+    t_k3 = time.perf_counter()
+    k3_launches = phase_cache_handoff_full_width(torch, dev)
+    t_k3 = time.perf_counter() - t_k3
     for part in (spec_launches, paged_launches, pipe_launches, c_launches,
-                 moe_launches, obs_launches, fault_launches, ctl_launches):
+                 moe_launches, obs_launches, fault_launches, ctl_launches,
+                 k3_launches):
         for name, n in part.items():
             launches[name] = launches.get(name, 0) + n
     phase_train_f32_card_vs_cpu(torch, dev)
@@ -5943,7 +6440,7 @@ def main() -> int:
     line(dict(run="wall", wall_s=wall, moe_phases_s=new_phases,
               without_moe_phases_s=wall - sum(new_phases.values()),
               observability_phase_s=t_obs, fault_phase_s=t_fault,
-              engine_control_phase_s=t_ctl))
+              engine_control_phase_s=t_ctl, cache_handoff_phase_s=t_k3))
     print(card, flush=True)
     line({"kernels": kernels})
     line({"ok": True, "device": {"platform": "gpu",

@@ -20,6 +20,18 @@ every kernel ready up front (the chip smoke run). ``--split-compile=0``
 lets nvcc optimise a source's many template instances on all cores:
 on an 8-core H100 host it cut the parallel build of the three sources
 from 114.4 s to 40.0 s (flash_bwd.cu alone from 119.7 s to 35.5 s).
+
+`ensure_built(*srcs, cache=)` takes a compile cache (any object with
+`fetch_library` / `publish_library`, as `serving.compile_cache.
+CompileCache`; the serving engine passes its ``compile_cache_dir``'s):
+a library missing from the build directory is asked of it before nvcc
+is; the cache checks its entry's CRC before the bytes are written
+atomically to `library_path` (and so before any dlopen), and deletes a
+corrupt entry, which nvcc then rebuilds. Every library nvcc builds, or
+finds built, is published into it. `nvcc_runs` counts this process's nvcc runs
+by source and `origin` says where each library came from ("nvcc",
+"cache" or "disk", the build directory). A failed build still raises:
+there is no eager fallback.
 """
 from __future__ import annotations
 
@@ -74,6 +86,8 @@ ENTRIES = {
 
 _loaded: Dict[str, ctypes._CFuncPtr] = {}
 build_seconds: Dict[str, float] = {}
+nvcc_runs: Dict[str, int] = {}
+origin: Dict[str, str] = {}
 
 
 def nvcc_path() -> str:
@@ -103,11 +117,18 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"{name}-{_digest(name)}.so"
 
 
-def _start(name: str):
+def _start(name: str, cache=None):
     """Spawn nvcc for one source into a temporary file; returns
-    (process, tmp, final) or None when the library is already built."""
+    (process, tmp, final) or None when the library is already built or
+    came from ``cache``."""
     out = library_path(name)
     if out.exists():
+        origin.setdefault(name, "disk")
+        if cache is not None:
+            cache.publish_library(name, _digest(name), out)
+        return None
+    if cache is not None and cache.fetch_library(name, _digest(name), out):
+        origin[name] = "cache"
         return None
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
@@ -115,10 +136,11 @@ def _start(name: str):
            str(CSRC / f"{name}.cu")]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                             stderr=subprocess.PIPE, text=True)
+    nvcc_runs[name] = nvcc_runs.get(name, 0) + 1
     return proc, tmp, out
 
 
-def _finish(name: str, started, t0: float) -> None:
+def _finish(name: str, started, t0: float, cache=None) -> None:
     """Wait for one nvcc; publish its library (and its ptxas report)
     atomically."""
     if started is None:
@@ -132,15 +154,27 @@ def _finish(name: str, started, t0: float) -> None:
     out.with_suffix(".log").write_text(err)
     os.replace(tmp, out)
     build_seconds[name] = time.perf_counter() - t0
+    origin[name] = "nvcc"
+    if cache is not None:
+        cache.publish_library(name, _digest(name), out)
 
 
 def build_all() -> None:
     """Build every kernel source in parallel (one nvcc each, all started
     together)."""
+    ensure_built(*SIGNATURES)
+
+
+def ensure_built(*srcs: str, cache=None) -> Path:
+    """Each source's library on disk: built already, from ``cache`` (a
+    compile cache, see the module docstring), or by nvcc now (one nvcc
+    per source, all started together; published into ``cache``).
+    Returns the last one's path; loads nothing."""
     t0 = time.perf_counter()
-    started = {n: _start(n) for n in SIGNATURES}
-    for n, s in started.items():
-        _finish(n, s, t0)
+    started = {s: _start(s, cache) for s in srcs}
+    for s, st in started.items():
+        _finish(s, st, t0, cache)
+    return library_path(srcs[-1])
 
 
 def load(name: str) -> ctypes._CFuncPtr:
@@ -154,8 +188,7 @@ def load(name: str) -> ctypes._CFuncPtr:
     else:
         src = name
         sym, argtypes = SIGNATURES[name]
-    _finish(src, _start(src), time.perf_counter())
-    lib = ctypes.CDLL(str(library_path(src)))
+    lib = ctypes.CDLL(str(ensure_built(src)))
     fn = getattr(lib, sym)
     fn.argtypes = argtypes
     fn.restype = ctypes.c_int

@@ -21,7 +21,7 @@ the scripted traffic that tenant QoS (fair-share prefill and priority
 preemption) is held to.
 
 Not ported yet: `FleetFaultInjector` (the fleet router's hooks: ROADMAP
-queue A item 11), and the training side, `ElasticFaultInjector`,
+queue A item 11b), and the training side, `ElasticFaultInjector`,
 `PreemptionHandler`, `StepWatchdog` and `FaultTolerantTrainer` (items 12
 and 14).
 """
@@ -164,8 +164,8 @@ class ServingFaultInjector(FaultInjector):
         prefill call fails (``prefill_fail_at`` fires on those calls
         too; this knob is the narrower one).
       - ``adopt_fail_requests``: request ids whose KV adoption fails at
-        seating (KV handoff: ROADMAP queue A item 11; no port engine
-        calls `check_adopt` yet).
+        seating: the engine's `_seat_adopted` calls `check_adopt` and
+        sheds the request typed ``handoff``.
       - ``draft_poison_at``: ``{step: request_id}``: the speculative
         round at that step derails the named request's drafts ((d+1)
         mod V on the device), so verification rejects them all; the

@@ -46,6 +46,11 @@ becomes a plain function closed over its geometry.
   rows through the table and run the decode and window kernels over the
   gathered view (`_gather_pages`), as the reference does: on the same
   values the kernels return the contiguous pool's bits.
+- KV handoff (reference engine.py :1162-1240): `make_page_gather` and
+  `make_slot_gather` read a request's committed rows out of the pool,
+  `make_kv_adopt` scatters handed-off rows into fresh pages and seats the
+  slot's pos / tok, `make_chain_adopt` seeds pages only (plain index
+  work, in place).
 
 Quantization (reference :394, quant/): a quantized params tree needs no
 option, since every weight dequantizes at its use
@@ -1183,6 +1188,69 @@ def make_paged_speculative_decode(cfg: TransformerConfig, spec_k: int,
                                   active, rem, poison, c))
 
     return _pool_program(kv_mode, 2, body, constrain)
+
+
+# ---------------------------------------------------------------------------
+# KV handoff: gather and adopt (reference serving/engine.py :1162-1240)
+# ---------------------------------------------------------------------------
+#
+# Plain index work at log2-bucketed page counts (`quant.kv.
+# handoff_page_bucket`): the index vectors are data padded to the bucket,
+# so the programs have one geometry per bucket. The adopt programs write
+# the pool tensors IN PLACE (the engine's CUDA graphs hold the pool by
+# identity); a padded index entry (``valid`` False) writes the scratch
+# page 0, which no unmasked read sees. One-byte planes move as their
+# bytes (`quant.core.raw`).
+
+def make_page_gather() -> Callable:
+    """``(idx [nb] int, *planes) -> tuple`` of each page plane
+    [L, pages, page_size, X] gathered at ``idx`` -> [L, nb, page_size,
+    X]: a page chain's K/V (and scale) rows, every layer at once."""
+    def gather(idx, *planes):
+        idx = idx.long()
+        return tuple(raw(a)[:, idx].view(a.dtype) for a in planes)
+    return gather
+
+
+def make_slot_gather() -> Callable:
+    """``(slot: int, rows: int, *planes) -> tuple`` of each slot plane
+    [L, Ns, S, X] at ``slot``, rows [0, rows) -> [L, rows, X] (copies)."""
+    def gather(slot, rows, *planes):
+        return tuple(a[:, int(slot), :int(rows)].clone() for a in planes)
+    return gather
+
+
+def make_chain_adopt() -> Callable:
+    """``(idx [nb], valid [nb] bool, *rows, *planes) -> planes``: each
+    row buffer [L, nb, page_size, X] scattered into its page plane at
+    ``idx`` (``valid`` False: the scratch page 0), in place; no slot's
+    ``pos`` or ``tok`` is touched (a prefix-cache chain seeds the cache,
+    not a seat)."""
+    def adopt(idx, valid, *arrs):
+        n = len(arrs) // 2
+        rows, planes = arrs[:n], arrs[n:]
+        tgt = torch.where(valid, idx, torch.zeros_like(idx)).long()
+        for a, r in zip(planes, rows):
+            raw(a)[:, tgt] = raw(r.to(a.dtype) if r.dtype != a.dtype
+                                 else r)
+        return planes
+    return adopt
+
+
+def make_kv_adopt() -> Callable:
+    """``(idx, valid, slot, new_pos, new_tok, *rows, *planes, pos, tok)
+    -> (*planes, pos, tok)``: `make_chain_adopt`'s scatter, then the
+    slot's ``pos`` and ``tok`` set to the handed-off committed prefix, in
+    place: the slot decodes on from there with no prefill."""
+    chain = make_chain_adopt()
+
+    def adopt(idx, valid, slot, new_pos, new_tok, *arrs):
+        planes = chain(idx, valid, *arrs[:-2])
+        pos, tok = arrs[-2], arrs[-1]
+        pos[int(slot)] = int(new_pos)
+        tok[int(slot)] = int(new_tok)
+        return (*planes, pos, tok)
+    return adopt
 
 
 # ---------------------------------------------------------------------------

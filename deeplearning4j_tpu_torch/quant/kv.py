@@ -12,9 +12,12 @@ kernels fold the K scale into the score (``(q.k) * kscale``) and the V
 scale into the probability (``(p * vscale) . v``), reading one byte per
 cache element (`ops.flash_decode`).
 
-Not here yet: the KV-handoff helpers (`handoff_page_bucket`,
-`handoff_row_buffers`, `handoff_bytes`), which wait for KV handoff
-(ROADMAP queue A item 11).
+KV handoff (reference :167-209): `handoff_page_bucket` pads a handed-off
+page chain to a power-of-two page count, so the gather and adopt
+programs have log2-many geometries; `handoff_row_buffers` lays a
+`serving.engine.KVHandoff`'s rows (and, quantized, its scales, which
+travel with their rows) out at that bucket, page by page, for one
+all-layer scatter; `handoff_bytes` is the analytic size of a handoff.
 """
 from __future__ import annotations
 
@@ -23,7 +26,7 @@ from typing import Optional, Tuple
 import torch
 
 from deeplearning4j_tpu_torch.quant.core import (absmax_quantize, qdtype,
-                                                 resolve_mode)
+                                                 raw, resolve_mode)
 
 
 def kv_cache_dtype(kv_mode: str) -> torch.dtype:
@@ -109,3 +112,49 @@ def paged_pool_bytes(cfg, num_slots: int, page_size: int, num_pages: int,
     item, scales = _item_and_scales(cfg, rows, kv_mode, tp, cache_dtype)
     return (2 * cfg.n_layers * rows * cfg.d_model * item + scales
             + num_slots * max_pages * 4 + 2 * num_slots * 4)
+
+
+def handoff_page_bucket(npages: int, max_pages: int) -> int:
+    """The power-of-two page count (at most ``max_pages``) that covers
+    ``npages``: the row buffers and index vectors of one handoff's gather
+    or adopt are padded to it (reference :167)."""
+    b = 1
+    while b < max(1, int(npages)):
+        b *= 2
+    return min(b, int(max_pages))
+
+
+def handoff_row_buffers(kv, n_layers: int, npages: int, page_size: int,
+                        value_dtype) -> list:
+    """A handoff's rows padded to [L, npages * page_size, X] and viewed
+    as [L, npages, page_size, X] host tensors: K and V at
+    ``value_dtype``, zero past ``kv.pos``, then for a quantized handoff
+    the K and V scales, 1.0 past ``kv.pos`` (the never-written row's
+    scale), each row's scale beside it (reference :181). One-byte values
+    are copied as their bytes."""
+    cap = npages * page_size
+    if kv.pos > cap:
+        raise ValueError(f"handoff bucket too small: {kv.pos} rows > "
+                         f"{npages} pages x {page_size}")
+    rows = []
+    for src in (kv.k, kv.v):
+        buf = torch.zeros((n_layers, cap, src.shape[-1]), dtype=value_dtype)
+        src = src.to(value_dtype) if src.dtype != value_dtype else src
+        raw(buf)[:, :kv.pos] = raw(src)
+        rows.append(buf.view(n_layers, npages, page_size, -1))
+    if kv.kv_mode:
+        for src in (kv.k_scale, kv.v_scale):
+            buf = torch.ones((n_layers, cap, src.shape[-1]),
+                             dtype=torch.float32)
+            buf[:, :kv.pos] = src
+            rows.append(buf.view(n_layers, npages, page_size, -1))
+    return rows
+
+
+def handoff_bytes(cfg, tokens: int, kv_mode: Optional[str] = None,
+                  tp: int = 1, cache_dtype=None) -> int:
+    """Analytic bytes one KV handoff of ``tokens`` committed rows moves:
+    K and V at the pool dtype, plus the float32 row scales of a quantized
+    pool (reference :199)."""
+    item, scales = _item_and_scales(cfg, tokens, kv_mode, tp, cache_dtype)
+    return 2 * cfg.n_layers * tokens * cfg.d_model * item + scales

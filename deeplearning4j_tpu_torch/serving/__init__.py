@@ -1,15 +1,24 @@
 """serving subpackage of the PyTorch/CUDA port (see the package docstring).
 
 Exports as the reference's `deeplearning4j_tpu/serving/__init__.py` does,
-for what is ported: the engine, its config and errors, and the grammar
-constraints. The compile cache, the fleet router, the disaggregated tiers
-and the KV wire wait for their ROADMAP queue A items.
+for what is ported: the engine, its config and errors, KV handoff and the
+KV wire format, the compile cache, and the grammar constraints. The
+fleet router and the disaggregated tiers wait for ROADMAP queue A item
+11b.
 """
+from deeplearning4j_tpu_torch.serving import kvwire  # noqa: F401
+from deeplearning4j_tpu_torch.serving.compile_cache import (  # noqa: F401
+    CompileCache, sweep_stray_caches)
 from deeplearning4j_tpu_torch.serving.constrain import (  # noqa: F401
     CompiledGrammar, ConstraintError, ConstraintTable, compile_grammar,
     grammar_cache_clear, grammar_cache_info, normalize_constraint,
     schema_to_regex)
 from deeplearning4j_tpu_torch.serving.engine import (  # noqa: F401
-    MAX_PRIORITY, EngineConfig, InferenceEngine, OverloadError,
-    QoSValidationError, RequestHandle, RequestStatus, validate_tenant,
+    DEFAULT_PROGRAM_CACHE_SIZE, MAX_PRIORITY, EngineConfig, HandoffError,
+    InferenceEngine, KVHandoff, OverloadError, QoSValidationError,
+    RequestHandle, RequestStatus, set_program_cache_size, validate_tenant,
     validate_tenant_priority)
+from deeplearning4j_tpu_torch.serving.kvwire import (  # noqa: F401
+    WireError, WireServer, decode_control, decode_handoff, encode_control,
+    encode_handoff, frame_from_text, frame_to_text, recv_frame,
+    requantize_handoff, send_frame, wire_call)

@@ -94,8 +94,9 @@ tick's programs left there, in stream order (the programs update the
 pool in place). Batch mode has no slot state to schedule ahead over, so
 ``pipeline=True`` there falls back to the synchronous loop (reason
 ``"batch"`` in ``debugz()["tick_pipeline"]`` and
-``serving_pipeline_fallbacks_total``). Not ported with it: the forced
-flush of KV export (item 11).
+``serving_pipeline_fallbacks_total``). KV export commits the pending tick
+first (`_flush_pipeline`, billed to
+``serving_pipeline_flush_seconds{reason}``).
 
 On a CUDA device the per-tick slot programs (decode chunk, paged decode
 chunk, spec round, paged spec round) replay as CUDA graphs, one per
@@ -203,10 +204,34 @@ reload drops them (after one wait for the device) and each key captures
 again on the new tree at its next call. ``health()["weights_step"]``,
 ``stats["reloads"]`` and ``serving_weight_reloads_total`` report it.
 
-Not ported yet (set to a non-default value, each raises
-NotImplementedError naming its ROADMAP item): the compile cache and
-warm-up (item 10). KV handoff and adoption, and the fleet router's
-per-tenant caps, wait for item 11.
+The program cache and warm-up (reference :741-835, :4126-4397): every
+engine takes its programs from one process-wide LRU (`_ProgramLRU`,
+``EngineConfig.program_cache_size``, `set_program_cache_size`) keyed by
+kind, size and geometry; an engine's first use of a key resolves it
+(`_resolve`: on the card the CUDA libraries it launches are made ready,
+from the build directory, the compile cache or nvcc), counted in
+``serving_compiles{program,source}`` and timed through its first call in
+``serving_compile_seconds{program}``. ``source="jit"``: resolved in this
+process; ``"aot_cache"``: its manifest and every library it names came
+from ``compile_cache_dir`` (`serving.compile_cache`). Only the libraries
+save time: the manifest carries the reference's label and no work, and
+on the CPU, where a program launches no library, ``"aot_cache"`` means
+only that the manifest was present. An eviction drops
+the key and its CUDA graph (``serving_program_cache_evictions``), so it
+resolves and captures again at its next call. `warmup()` (or
+``warmup_on_init=True``) resolves and calls the closed program set with
+every slot inactive before traffic; `last_warmup` reports it.
+
+KV handoff (reference :368, :1992-2096, :3541-3911): ``submit(hold_kv=
+True)`` keeps a finished request's slot seated; `export_slot_kv` gathers
+its committed rows (and scales) to the host as a `KVHandoff`;
+``submit(kv=handoff)`` on a paged engine seats a request by adopting
+them into fresh pages (no prefill), shedding it typed ``handoff`` when
+misaligned or faulted; `export_cached_chain` / `seed_cached_chain` move
+prefix-cache chains. ``serving_kv_adoptions{outcome}`` counts adoptions.
+`serving.kvwire` carries handoffs between processes. The fleet router,
+its workers and the disaggregated tiers wait for ROADMAP queue A item
+11b.
 
 Grammar-constrained decoding (``submit(..., constrain=regex or spec
 dict)``, reference :1841-1935, :2030-2180): `submit` compiles the
@@ -282,15 +307,16 @@ import logging
 import threading
 import time
 import weakref
-from collections import deque
+from collections import OrderedDict, deque, namedtuple
 from collections.abc import Mapping
-from dataclasses import dataclass, fields
-from typing import Callable, Dict, List, Optional, Tuple
+from dataclasses import astuple, dataclass
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from deeplearning4j_tpu_torch._device import resolve_device
+from deeplearning4j_tpu_torch.ops import _build
 from deeplearning4j_tpu_torch.observability.events import (NULL_RECORDER,
                                                            NULL_TRACE,
                                                            FlightRecorder)
@@ -304,13 +330,15 @@ from deeplearning4j_tpu_torch.models.transformer import (TransformerConfig,
                                                          _check_slice,
                                                          params_to)
 from deeplearning4j_tpu_torch.parallel.serving import (
-    batch_key, init_paged_state, init_slot_state, make_chunked_prefill,
-    make_continuous_decode, make_continuous_prefill,
-    make_paged_chunked_prefill, make_paged_decode, make_paged_prefill,
-    make_paged_speculative_decode, make_parallel_generate,
-    make_speculative_decode)
+    batch_key, init_paged_state, init_slot_state, make_chain_adopt,
+    make_chunked_prefill, make_continuous_decode, make_continuous_prefill,
+    make_kv_adopt, make_page_gather, make_paged_chunked_prefill,
+    make_paged_decode, make_paged_prefill, make_paged_speculative_decode,
+    make_parallel_generate, make_slot_gather, make_speculative_decode)
 from deeplearning4j_tpu_torch.quant.core import raw, resolve_mode
-from deeplearning4j_tpu_torch.quant.kv import (paged_pool_bytes,
+from deeplearning4j_tpu_torch.quant.kv import (handoff_page_bucket,
+                                               handoff_row_buffers,
+                                               paged_pool_bytes,
                                                slot_pool_bytes)
 from deeplearning4j_tpu_torch.quant.model import (draft_tree, param_bytes,
                                                   quantize_params)
@@ -318,6 +346,7 @@ from deeplearning4j_tpu_torch.serving.constrain import (ConstraintError,
                                                         ConstraintTable,
                                                         compile_grammar,
                                                         normalize_constraint)
+from deeplearning4j_tpu_torch.serving.compile_cache import CompileCache
 from deeplearning4j_tpu_torch.serving.graphs import SlotGraphs
 from deeplearning4j_tpu_torch.serving.paging import (PageAllocator,
                                                      RadixPrefixCache,
@@ -364,6 +393,48 @@ class RequestQuarantined(RuntimeError):
 class _BatchDecodeFailed(RuntimeError):
     """A program call exhausted its retries (carries the last error);
     triggers slot isolation."""
+
+
+class HandoffError(RuntimeError):
+    """KV handoff failed (reference :305): exporting a held slot's
+    committed KV, or adopting a handed-off page chain at seating. A
+    request shed on the adoption path carries this error and the typed
+    ``shed{reason="handoff"}`` trace event, and every page the adoption
+    claimed is released first."""
+
+
+@dataclass
+class KVHandoff:
+    """One request's committed KV state, portable between engines and
+    processes (reference :368): the K/V rows of positions [0, pos) of
+    every layer (``k``, ``v`` [L, pos, D] host tensors at the pool's
+    dtype), the pending token ``tok`` (committed, its row not yet
+    written: the adopter's first decode step writes it) and, for a
+    quantized pool, the float32 row scales ``k_scale`` / ``v_scale``
+    [L, pos, 1], which travel with their rows. Values are sliced, never
+    requantized, so an adopted continuation is token-exact against an
+    uninterrupted run. ``source="cache"`` carries a radix prefix-cache
+    chain (full pages) instead, with its token ids (``tokens``) and the
+    exporter's ``weights_step`` (a chain encodes the weights that wrote
+    it). `serving.kvwire` moves it between processes."""
+    pos: int
+    tok: int
+    k: torch.Tensor
+    v: torch.Tensor
+    k_scale: Optional[torch.Tensor] = None
+    v_scale: Optional[torch.Tensor] = None
+    kv_mode: Optional[str] = None
+    n_layers: int = 0
+    d_model: int = 0
+    source: str = "slot"
+    tokens: Optional[np.ndarray] = None
+    weights_step: Optional[int] = None
+
+    @property
+    def nbytes(self) -> int:
+        return sum(int(a.numel()) * a.element_size() for a in
+                   (self.k, self.v, self.k_scale, self.v_scale)
+                   if a is not None)
 
 
 class QoSValidationError(ValueError):
@@ -432,6 +503,10 @@ class RequestStatus:
 
 DEFAULT_CONTINUOUS_CHUNK = 8
 
+# the bound of the process-wide program cache (reference :420);
+# EngineConfig.program_cache_size / set_program_cache_size resize it
+DEFAULT_PROGRAM_CACHE_SIZE = 64
+
 # plain-decode ticks the adaptive-K controller imposes when even K=1 does
 # not pay (reference `_spec_update`)
 SPEC_PLAIN_COOLDOWN = 24
@@ -461,10 +536,13 @@ class EngineConfig:
     fold into "other"), ``mode`` ("continuous" or "batch"; in batch mode
     ``max_batch_size`` caps a batch and ``decode_chunk`` 0 decodes a
     batch's budget in one call), fault handling (``max_retries``,
-    ``backoff_*``, ``breaker_*``, ``batch_timeout_s``) and tenant QoS
-    (``tenant_weights``, ``qos_default_weight``, ``preemption_budget``).
-    The compile cache's fields must keep their defaults (`_UNPORTED`,
-    `_check_config`)."""
+    ``backoff_*``, ``breaker_*``, ``batch_timeout_s``), tenant QoS
+    (``tenant_weights``, ``qos_default_weight``, ``preemption_budget``)
+    and the compile cache (``program_cache_size``: the bound of the
+    process-wide program cache, which the last engine constructed sets;
+    ``compile_cache_dir``: the persistent `serving.compile_cache.
+    CompileCache` of built libraries and program manifests;
+    ``warmup_on_init``: run `InferenceEngine.warmup` at construction)."""
     max_queue: int = 64
     max_batch_size: int = 8
     batch_timeout_s: float = 0.005
@@ -496,7 +574,7 @@ class EngineConfig:
     spec_adaptive: bool = True
     prefill_chunk: Optional[int] = None
     tick_token_budget: int = 0
-    program_cache_size: int = 64
+    program_cache_size: int = DEFAULT_PROGRAM_CACHE_SIZE
     compile_cache_dir: Optional[str] = None
     warmup_on_init: bool = False
     pipeline: bool = True
@@ -509,12 +587,130 @@ class EngineConfig:
     constrain_state_cap: int = 512
 
 
-# unported EngineConfig fields -> the ROADMAP item that ports them
-_UNPORTED = {
-    "program_cache_size": "the compile cache (ROADMAP queue A item 10)",
-    "compile_cache_dir": "the compile cache (ROADMAP queue A item 10)",
-    "warmup_on_init": "the compile cache (ROADMAP queue A item 10)",
-}
+_CacheInfo = namedtuple("CacheInfo", ["hits", "misses", "maxsize",
+                                      "currsize"])
+
+
+class _ProgramLRU:
+    """The process-wide program cache (reference `_ProgramLRU`, :741):
+    one LRU with one bound over every engine's program keys. A key is
+    the program's kind and size with the id of the engine's geometry
+    (config, slots, pages, sampling, KV mode, draft depth), so engines of one
+    geometry share the program; each entry also holds, weakly, the
+    engines that resolved it. Over the bound, entries no live engine
+    holds go first; evicting a live engine's key tells each of its
+    holders (`InferenceEngine._program_evicted`): the engine drops it and,
+    on the card, its CUDA graph, counts the eviction in
+    ``serving_program_cache_evictions``, and resolves and captures the
+    key again at its next call. `cache_info` / `cache_clear` keep
+    `functools.lru_cache`'s surface. Thread-safe; a program is made
+    outside the lock."""
+
+    def __init__(self, maxsize: int):
+        self.maxsize = int(maxsize)
+        self._od: "OrderedDict" = OrderedDict()
+        self._lock = threading.RLock()
+        self._hits = 0
+        self._misses = 0
+
+    def get(self, key, make: Callable, owner) -> Callable:
+        """The program of ``key`` (made by ``make()`` on a miss), marked
+        most recently used, with ``owner`` among its engines."""
+        with self._lock:
+            ent = self._od.get(key)
+            if ent is not None:
+                self._od.move_to_end(key)
+                self._hits += 1
+                ent[1].add(owner)
+                return ent[0]
+            self._misses += 1
+        fn = make()
+        with self._lock:
+            ent = self._od.get(key)
+            if ent is None:
+                ent = self._od[key] = [fn, weakref.WeakSet()]
+            else:
+                self._od.move_to_end(key)
+            ent[1].add(owner)
+            evicted = self._overflow_locked()
+        _notify_evicted(evicted)
+        return ent[0]
+
+    def _overflow_locked(self) -> list:
+        """Entries over the bound, least recently used first: those no
+        live engine holds go first and silently (a program is cheap to
+        make again), then live engines' keys, which each owner is told
+        of (returned)."""
+        out = []
+        while len(self._od) > max(1, self.maxsize):
+            dead = next((k for k, (_, owners) in self._od.items()
+                         if not owners), None)
+            if dead is not None:
+                del self._od[dead]
+                continue
+            key, (_, owners) = self._od.popitem(last=False)
+            out.append((key, list(owners)))
+        return out
+
+    def resize(self, n: int) -> None:
+        with self._lock:
+            self.maxsize = int(n)
+            evicted = self._overflow_locked()
+        _notify_evicted(evicted)
+
+    def cache_info(self) -> _CacheInfo:
+        with self._lock:
+            return _CacheInfo(self._hits, self._misses, self.maxsize,
+                              len(self._od))
+
+    def cache_clear(self) -> None:
+        """Forget every entry (no eviction is counted): what a new
+        process starts without."""
+        with self._lock:
+            self._od.clear()
+            self._hits = 0
+            self._misses = 0
+
+
+def _notify_evicted(evicted) -> None:
+    for key, owners in evicted:
+        for eng in owners:
+            eng._program_evicted(key)
+
+
+_PROGRAMS = _ProgramLRU(DEFAULT_PROGRAM_CACHE_SIZE)
+
+# an engine's geometry (`InferenceEngine._geometry`) -> its id in the
+# program cache's keys; engines of one geometry share it
+_GEOMETRY_IDS: Dict[tuple, int] = {}
+_GEOMETRY_SEQ = itertools.count()
+
+
+def set_program_cache_size(n: int) -> int:
+    """Resize the process-wide program cache (reference :823); shrinking
+    evicts the least recently used entries at once (counted)."""
+    n = int(n)
+    if n < 1:
+        raise ValueError(f"program_cache_size must be >= 1, got {n}")
+    _PROGRAMS.resize(n)
+    return n
+
+
+def program_cache_info() -> _CacheInfo:
+    return _PROGRAMS.cache_info()
+
+
+def program_cache_clear() -> None:
+    _PROGRAMS.cache_clear()
+
+
+# the CUDA libraries (`ops._build` sources) each program kind launches
+# on the card: what its compile-cache manifest names
+_LIBRARIES = {"prefill": ("flash_fwd",),
+              "decode": ("decode_attention",),
+              "paged_decode": ("decode_attention",),
+              "spec": ("decode_attention", "decode_window"),
+              "paged_spec": ("decode_attention", "decode_window")}
 
 # the rejection reasons of a constrained submit ("mode": batch mode)
 _C_REASONS = ("unsupported", "invalid", "oversize", "empty", "mode")
@@ -620,14 +816,6 @@ def _meta_template(tree):
     return torch.empty(tree.shape, dtype=tree.dtype, device="meta")
 
 
-def _check_config(config: EngineConfig) -> None:
-    for f in fields(EngineConfig):
-        if f.name in _UNPORTED and getattr(config, f.name) != f.default:
-            raise NotImplementedError(
-                f"EngineConfig.{f.name}={getattr(config, f.name)!r}: "
-                f"{_UNPORTED[f.name]} is not ported yet")
-
-
 class RequestHandle:
     """Caller-facing future for one submitted prompt."""
 
@@ -684,6 +872,12 @@ class RequestHandle:
         self.trace = NULL_TRACE
         self._on_terminal: Optional[Callable] = None
         self._in_flight = False
+        # KV handoff (reference :632-634): keep the slot seated past
+        # completion for `export_slot_kv`; the handoff to adopt at
+        # seating; a failed adoption sheds with reason "handoff"
+        self._hold_kv = False
+        self._kv: Optional[KVHandoff] = None
+        self._handoff_failed = False
 
     @property
     def generated(self) -> np.ndarray:
@@ -765,7 +959,6 @@ class InferenceEngine:
         _check_slice(cfg)
         self.cfg = cfg
         self.config = config or EngineConfig()
-        _check_config(self.config)
         if self.config.mode not in ("continuous", "batch"):
             raise ValueError(f"mode must be 'continuous' or 'batch', "
                              f"got {self.config.mode!r}")
@@ -880,7 +1073,24 @@ class InferenceEngine:
         self._slots: List[Optional[RequestHandle]] = \
             [None] * self._num_slots
         self._slot_state = None
+        # the (kind, size) keys this engine has resolved through the
+        # process-wide program cache (`_program`), the evictions it was
+        # told of and not yet applied, the resolutions whose first call
+        # is still to be timed, and dropped graphs kept until the device
+        # has run past them
         self._programs: Dict[Tuple[str, int], object] = {}
+        self._evicted: deque = deque()
+        self._resolving: Dict[Tuple[str, int], tuple] = {}
+        self._graveyard: list = []
+        self._geom: Optional[tuple] = None
+        self._geom_id: Optional[int] = None
+        set_program_cache_size(self.config.program_cache_size)
+        self._aot = None
+        if self.config.compile_cache_dir is not None:
+            self._aot = CompileCache(self.config.compile_cache_dir,
+                                     device=self.device)
+        self._last_warmup: Optional[dict] = None
+        self._last_flush: Optional[dict] = None
         self._lock = threading.RLock()
         # held for a whole tick: a reload swaps the weights between ticks
         self._tick_mutex = threading.RLock()
@@ -1011,6 +1221,8 @@ class InferenceEngine:
                                    self._m_graph_replays,
                                    self._m_graph_pool_bytes)
                         if self.device.type == "cuda" else None)
+        if self.config.warmup_on_init and self._continuous:
+            self.warmup()
 
     # -- metrics (reference `_init_metrics`, :1570) ------------------------
     def _init_metrics(self, r) -> None:
@@ -1024,6 +1236,7 @@ class InferenceEngine:
         shed = r.counter("serving_requests_shed",
                          "Requests rejected or abandoned, by reason",
                          labelnames=("reason",))
+        self._m_shed = shed
         self._m_shed_overload = shed.labels("overload")
         self._m_shed_deadline = shed.labels("deadline")
         self._m_shed_cancelled = shed.labels("cancelled")
@@ -1090,6 +1303,27 @@ class InferenceEngine:
             "serving_prefill_tokens",
             "Prompt tokens prefilled by this engine (prefix-cache "
             "hits and adopted KV handoffs excluded)")
+        # program resolutions by source (reference :1660-1676): "jit"
+        # resolved in this process (its libraries built where missing,
+        # then its first call and, on the card, its capture),
+        # "aot_cache" its manifest and every library it names from the
+        # compile cache; timed through the first call
+        self._m_compiles = r.counter(
+            "serving_compiles",
+            "Compiled-program builds, by program and source (jit = "
+            "resolved in-process: kernel libraries built, first call "
+            "and capture; aot_cache = manifest and kernel libraries "
+            "from the persistent compile cache)",
+            labelnames=("program", "source"))
+        self._m_compile_seconds = r.histogram(
+            "serving_compile_seconds",
+            "Wall time to resolve one program (its libraries, first "
+            "call and capture), by program",
+            labelnames=("program",), buckets=DECODE_LATENCY_BUCKETS)
+        self._m_prog_evictions = r.counter(
+            "serving_program_cache_evictions",
+            "Process-wide program cache entries of this engine evicted "
+            "(an evicted key resolves and captures again)")
         r.gauge("serving_device_idle_fraction",
                 "Estimated fraction of the last scheduling round the "
                 "device spent idle (1 - dispatched-work interval / "
@@ -1104,7 +1338,18 @@ class InferenceEngine:
                       "synchronous loop at construction, by reason",
                       labelnames=("reason",)).labels(
                 self._pipe_fallback).inc()
+        # forced pipeline flushes (reference :1700): a committed-view
+        # consumer (KV export) drains the in-flight tick, billed by reason
+        self._m_flush_seconds = None
+        if self._pipe:
+            self._m_flush_seconds = r.histogram(
+                "serving_pipeline_flush_seconds",
+                "Wall time a committed-view consumer (KV export, "
+                "cache-chain migration, drain) spent draining the "
+                "in-flight pipelined tick, by reason",
+                labelnames=("reason",), buckets=DECODE_LATENCY_BUCKETS)
         self._m_prefix_hits = self._m_prefix_misses = None
+        self._m_adoptions = None
         self._m_prefix_evictions = self._m_prefix_shared = None
         if self._paged:
             r.gauge("serving_kv_pages_free",
@@ -1128,6 +1373,11 @@ class InferenceEngine:
                 "serving_prefix_shared_tokens",
                 "Prompt tokens whose prefill compute AND KV bytes "
                 "were served from the radix prefix cache")
+            self._m_adoptions = r.counter(
+                "serving_kv_adoptions",
+                "Handed-off KV chains seated into this engine's page "
+                "pool, by outcome (ok / blocked / shed)",
+                labelnames=("outcome",))
         self._m_spec_drafted = self._m_spec_accepted = None
         self._m_spec_waste = None
         if self._spec:
@@ -1406,9 +1656,8 @@ class InferenceEngine:
                    for t in self._snap or ())
 
     def health(self) -> dict:
-        """The `/healthz` body: the reference's keys for what the port
-        has (warm-up and compile sources wait for ROADMAP queue A item
-        10)."""
+        """The `/healthz` body, the reference's keys: with the warm-up
+        report and the resolutions by source (reference :5483)."""
         with self._lock:
             self._tick_breaker(self._clock())
             occupied = sum(s is not None for s in self._slots)
@@ -1430,7 +1679,9 @@ class InferenceEngine:
                    "paged": self._paged,
                    "spec_decode": self._spec,
                    "prefill_chunk": self._prefill_chunk,
-                   "pipeline": self._pipe}
+                   "pipeline": self._pipe,
+                   "last_warmup": self._last_warmup,
+                   "compiles_by_source": self._compiles_by_source()}
             if self._paged and self._prefix_cache is not None:
                 out["prefix_digest"] = self._prefix_cache.chain_digest()
         return {**out, **self.stats}
@@ -1529,7 +1780,13 @@ class InferenceEngine:
                 "last_sync_s": round(self._last_sync_s, 6),
                 "syncs_last_tick": self._last_tick_syncs,
                 "syncs_total": self.counts["syncs"],
-                "device_idle_fraction": round(self._last_idle, 4)}
+                "device_idle_fraction": round(self._last_idle, 4),
+                "last_flush": self._last_flush}
+            out["compile_cache"] = {
+                "program_cache_size": _PROGRAMS.maxsize,
+                "aot": (self._aot.stats() if self._aot is not None
+                        else None),
+                "last_warmup": self._last_warmup}
         if self.profiler.enabled:
             out["profiling"] = self.profiler.report()
         if self._prefill_chunk is not None:
@@ -1616,6 +1873,7 @@ class InferenceEngine:
             r.trace.add("shed", reason=(
                 "cancelled" if r._cancelled
                 else "deadline" if r.deadline_exceeded
+                else "handoff" if r._handoff_failed
                 else "overload"), **bill)
         elif r.status == RequestStatus.QUARANTINED:
             r.trace.add("quarantined", **bill)
@@ -1627,7 +1885,8 @@ class InferenceEngine:
                trace_ctx: Optional[dict] = None,
                deadline_s: Optional[float] = None,
                on_deadline: str = "shed",
-               priority: int = 0) -> RequestHandle:
+               priority: int = 0, hold_kv: bool = False,
+               kv: Optional[KVHandoff] = None) -> RequestHandle:
         """Admit one prompt. Raises EngineStopped after `stop()`,
         EngineDraining while draining, and OverloadError when the queue is
         full or the circuit breaker is open; past ``degrade_queue_depth``
@@ -1647,7 +1906,31 @@ class InferenceEngine:
         a higher class seats first and may preempt a lower one (a
         malformed tenant or priority raises QoSValidationError first);
         ``trace_ctx`` is merged into every event of its trace (reference
-        :2180-2197)."""
+        :2180-2197).
+
+        KV handoff (reference :2020-2096): ``hold_kv`` keeps the request's
+        slot, and its pages, seated after it completes until
+        `export_slot_kv` or `release_held` frees it. ``kv`` (a
+        `KVHandoff`) seats the request by adopting the handed-off rows
+        into fresh pages instead of prefilling (`_seat_adopted`), on a
+        continuous paged engine of the handoff's KV mode and model
+        widths; anywhere else it is dropped with a warning and the
+        request prefills (the same tokens, slower). A ``source="cache"``
+        handoff seeds the prefix cache at seating, then admits as
+        usual."""
+        if kv is not None:
+            adoptable = (self._continuous and self._paged
+                         and kv.kv_mode == self._kv_mode
+                         and kv.n_layers == self.cfg.n_layers
+                         and kv.d_model == self.cfg.d_model)
+            if kv.source == "cache":
+                adoptable = adoptable and self._prefix_cache is not None
+            if not adoptable:
+                log.warning("KV handoff not adoptable here (paged=%s, "
+                            "kv_mode=%s vs handoff %s, source=%s): "
+                            "falling back to re-prefill", self._paged,
+                            self._kv_mode, kv.kv_mode, kv.source)
+                kv = None
         if on_deadline not in ("shed", "partial"):
             raise ValueError(f"on_deadline must be 'shed' or 'partial', "
                              f"got {on_deadline!r}")
@@ -1727,6 +2010,8 @@ class InferenceEngine:
                 handle._cinit = handle._cstate_host = cstart
             handle.tenant = tenant
             handle.priority = priority
+            handle._hold_kv = bool(hold_kv)
+            handle._kv = kv
             handle.trace = self.recorder.start_trace(handle.rid,
                                                      ctx=trace_ctx)
             handle._on_terminal = self._on_terminal
@@ -1857,7 +2142,8 @@ class InferenceEngine:
         with self._lock:
             return (not self._ticking and not self._queue
                     and not self._pending
-                    and all(r is None for r in self._slots))
+                    and all(r is None or (r._hold_kv and r.done())
+                            for r in self._slots))
 
     def draining(self) -> bool:
         return self._draining
@@ -1961,8 +2247,9 @@ class InferenceEngine:
     def _pool_busy(self) -> bool:
         """A seated slot, or a dispatched tick still to commit (a slot
         frees once its tokens are all dispatched)."""
-        return bool(self._pending) or any(s is not None
-                                          for s in self._slots)
+        return bool(self._pending) or any(
+            s is not None and not (s._hold_kv and s.done())
+            for s in self._slots)
 
     def _queue_fills_pool(self) -> bool:
         """True when waiting cannot improve the next admission: the queue
@@ -2180,14 +2467,7 @@ class InferenceEngine:
         [B, T], keyed by (seed, T); waits for its output. Returns the new
         tokens [B, n]. Raises _BatchDecodeFailed when the retries run
         out."""
-        key = ("generate", int(n))
-        fn = self._programs.get(key)
-        if fn is None:
-            c = self.config
-            fn = make_parallel_generate(
-                self.cfg, int(n), temperature=float(c.temperature),
-                top_k=int(c.top_k), top_p=float(c.top_p))
-            self._programs[key] = fn
+        fn = self._program("generate", int(n))
         seed = batch_key(int(self.config.seed), prompts.shape[1])
 
         def call():
@@ -2253,14 +2533,31 @@ class InferenceEngine:
                     continue
                 i = free[0]
                 hit = 0
-                if self._paged:
+                adopted = False
+                if r._kv is not None and r._kv.source == "cache":
+                    # a migrated chain seeds the prefix cache, then the
+                    # request seats as usual, hitting it (a failed seed
+                    # costs one prefill; reference :3301)
+                    self._seed_cached_chain(r._kv)
+                    r._kv = None
+                if r._kv is not None:
+                    seated = self._seat_adopted(i, r)
+                    if seated is None:
+                        if not r.done():      # blocked, not shed
+                            self._queue.appendleft(r)
+                        break
+                    if not seated:
+                        continue              # shed typed "handoff"
+                    adopted = True
+                elif self._paged:
                     hit = self._seat_paged(i, r)
                     if hit is None:
                         if not r.done():      # blocked, not shed
                             self._queue.appendleft(r)
                         break
                 free.popleft()
-                seated_order.append(r)
+                if not adopted:
+                    seated_order.append(r)
                 self._slots[i] = r
                 r._slot = i
                 if self._constrain_active:
@@ -2281,10 +2578,24 @@ class InferenceEngine:
                 r._prefill_pos = int(hit)
                 r._prefill_target = int(r.prompt.shape[0]
                                         + r.generated.shape[0])
-                self._m_prefill_tokens.inc(
-                    max(0, r._prefill_target - r._prefill_pos))
                 r._in_flight = True
                 self._m_in_flight.inc()
+                if adopted:
+                    # the committed prefix arrived with the handoff: no
+                    # prefill, the slot decodes from its next tick
+                    # (reference :3373)
+                    r._prefill_pos = r._prefill_target
+                    self._dev_pos[i] = r._prefill_target - 1
+                    r.trace.add("admitted", slot=i, bucket=0, adopted=True,
+                                prefix_hit_tokens=int(r._prefill_target
+                                                      - 1),
+                                **({"prefill_chunk": self._prefill_chunk}
+                                   if self._prefill_chunk is not None
+                                   else {}))
+                    self.slo.admitted(r.trace)
+                    continue
+                self._m_prefill_tokens.inc(
+                    max(0, r._prefill_target - r._prefill_pos))
                 self._observe("admitted", self._trace_admitted, i, r, hit)
                 admitted.append((i, r))
             # admission order is seating order (reference :3390): the
@@ -2327,7 +2638,8 @@ class InferenceEngine:
                 free_n -= 1      # a free seat serves this waiter
                 continue
             residents = [(i, r) for i, r in enumerate(self._slots)
-                         if r is not None and not r.done()]
+                         if r is not None and not r.done()
+                         and not r._hold_kv]
             if not residents:
                 break
             i, v = min(residents,
@@ -2425,29 +2737,147 @@ class InferenceEngine:
     _GRAPHED = ("decode", "paged_decode", "spec", "paged_spec",
                 "decode_c", "paged_decode_c", "spec_c", "paged_spec_c")
 
-    def _program(self, kind: str, size: int):
-        """The slot program of ``kind`` (a `_MAKERS` key, or one with
-        ``"_c"`` appended for its masked variant) at ``size`` (bucket or
-        chunk length, decode chunk or K), made once per key. An engine
-        has one pool, so its KV mode is fixed; a quantized weight tree
-        needs no program of its own (it dequantizes at each use)."""
-        key = (kind, size)
-        fn = self._programs.get(key)
-        if fn is None:
+    # the KV handoff's gather and adopt programs (reference :1162-1240)
+    _HANDOFF = {"page_gather": make_page_gather,
+                "slot_gather": make_slot_gather,
+                "kv_adopt": make_kv_adopt,
+                "chain_adopt": make_chain_adopt}
+
+    def _geometry(self) -> tuple:
+        """What, beside its kind and size, a program of this engine is
+        made from: the program cache's and the compile cache's key."""
+        if self._geom is None:
             c = self.config
-            base = kind[:-2] if kind.endswith("_c") else kind
-            args = (self.cfg, size, self._num_slots)
-            if base.startswith("paged"):
-                args += (self._page_size, self._max_pages, self._num_pages)
-            kw = dict(temperature=float(c.temperature), top_k=int(c.top_k),
-                      top_p=float(c.top_p), kv_mode=self._kv_mode)
-            if base.endswith("spec"):
-                kw.update(draft_layers=self._draft_layers)
-            fn = self._MAKERS[base](*args, **kw, constrain=base != kind)
-            if base != kind:
-                fn = self._masked(fn, 2 if base.endswith("spec") else 1)
+            self._geom = (
+                astuple(self.cfg), self._num_slots,
+                (self._page_size, self._max_pages, self._num_pages)
+                if self._paged else None,
+                float(c.temperature), int(c.top_k), float(c.top_p),
+                self._kv_mode,
+                self._draft_layers if self._spec else None)
+        return self._geom
+
+    def _geometry_id(self) -> int:
+        """`_geometry` interned to a small int (`_GEOMETRY_IDS`), so that a
+        program-cache key, looked up at every call, hashes cheaply."""
+        if self._geom_id is None:
+            self._geom_id = _GEOMETRY_IDS.setdefault(self._geometry(),
+                                                     next(_GEOMETRY_SEQ))
+        return self._geom_id
+
+    def _make_program(self, kind: str, size: int):
+        """A new program of ``kind`` (a `_MAKERS` or `_HANDOFF` key, one
+        with ``"_c"`` appended for its masked variant, or ``"generate"``)
+        at ``size`` (bucket or chunk length, decode chunk or K, handoff
+        page bucket, generate length)."""
+        c = self.config
+        if kind == "generate":
+            return make_parallel_generate(
+                self.cfg, int(size), temperature=float(c.temperature),
+                top_k=int(c.top_k), top_p=float(c.top_p))
+        if kind in self._HANDOFF:
+            return self._HANDOFF[kind]()
+        base = kind[:-2] if kind.endswith("_c") else kind
+        args = (self.cfg, size, self._num_slots)
+        if base.startswith("paged"):
+            args += (self._page_size, self._max_pages, self._num_pages)
+        kw = dict(temperature=float(c.temperature), top_k=int(c.top_k),
+                  top_p=float(c.top_p), kv_mode=self._kv_mode)
+        if base.endswith("spec"):
+            kw.update(draft_layers=self._draft_layers)
+        fn = self._MAKERS[base](*args, **kw, constrain=base != kind)
+        if base != kind:
+            fn = self._masked(fn, 2 if base.endswith("spec") else 1)
+        return fn
+
+    def _program(self, kind: str, size: int):
+        """The program (kind, size) from the process-wide program cache
+        (`_ProgramLRU`), made there on a miss. An engine has one pool,
+        so its KV mode is fixed; a quantized weight tree needs no program
+        of its own (it dequantizes at each use). The first time this
+        engine takes a key (again, after an eviction) it resolves it
+        (`_resolve`); evictions it was told of are applied first."""
+        if self._evicted or self._graveyard:
+            self._apply_evictions()
+        key = (kind, size)
+        fn = _PROGRAMS.get((kind, size, self._geometry_id()),
+                           lambda: self._make_program(kind, size), self)
+        if self._evicted:
+            self._apply_evictions()
+        if key not in self._programs:
+            if kind != "generate":
+                self._resolve(kind, size)
             self._programs[key] = fn
         return fn
+
+    def _program_evicted(self, gkey: tuple) -> None:
+        """`_ProgramLRU`'s eviction notice for one of this engine's keys
+        (from any thread): counted now, applied at the next `_program`."""
+        self._m_prog_evictions.inc()
+        self._evicted.append(gkey[:2])
+
+    def _apply_evictions(self) -> None:
+        """Drop each evicted key and, on the card, its CUDA graph. A
+        graph may still have a replay queued on the stream, so it is
+        kept, with an event recorded now, until the device has passed
+        that event; dropped graphs whose event has completed go."""
+        while self._evicted:
+            key = self._evicted.popleft()
+            self._programs.pop(key, None)
+            g = self._graphs.drop(key) if self._graphs is not None else None
+            if g is not None:
+                ev = torch.cuda.Event()
+                ev.record(torch.cuda.current_stream(self.device))
+                self._graveyard.append((g, ev))
+        if self._graveyard:
+            self._graveyard = [(g, ev) for g, ev in self._graveyard
+                               if not ev.query()]
+
+    @classmethod
+    def _compile_program(cls, kind: str) -> str:
+        """A program kind's JAX program name, the ``program`` label of
+        its resolutions (no bucket or K)."""
+        masked = kind.endswith("_c")
+        base = kind[:-2] if masked else kind
+        return cls._JAX_PROGRAM.get(base, base) + ("_c" if masked else "")
+
+    def _resolve(self, kind: str, size: int) -> None:
+        """This engine's first resolution of (kind, size) (reference
+        `_resolve_program`, :4126): on the card the CUDA libraries the
+        program launches are made ready (`ops._build.ensure_built`: the
+        build directory, the compile cache, or nvcc), and with a compile
+        cache the program's manifest is read, or published when missing
+        or different. The source is ``"aot_cache"`` when the manifest and
+        every library it names came from the compile cache, else
+        ``"jit"``; counted now, timed through the first call
+        (`_resolved`)."""
+        t0 = _perf()
+        base = kind[:-2] if kind.endswith("_c") else kind
+        libs = (_LIBRARIES.get(base, ()) if self.device.type == "cuda"
+                else ())
+        if libs:
+            _build.ensure_built(*libs, cache=self._aot)
+        program = self._compile_program(kind)
+        source = "jit"
+        if self._aot is not None:
+            want = [(n, _build._digest(n)) for n in libs]
+            ckey = self._aot.entry_key(program,
+                                       (kind, size) + self._geometry())
+            if self._aot.load_manifest(ckey) == want:
+                if all(_build.origin.get(n) == "cache" for n in libs):
+                    source = "aot_cache"
+            else:
+                self._aot.store_manifest(ckey, program, want)
+        self._m_compiles.labels(program, source).inc()
+        self._resolving[(kind, size)] = (t0, program)
+
+    def _resolved(self, kind: str, size: int) -> None:
+        """After a call of (kind, size): a resolution's seconds, from its
+        start through this first call, into serving_compile_seconds."""
+        pending = self._resolving.pop((kind, size), None)
+        if pending is not None:
+            t0, program = pending
+            self._m_compile_seconds.labels(program).observe(_perf() - t0)
 
     def _masked(self, fn, lead: int):
         """A masked program in the engine's calling convention,
@@ -2514,10 +2944,14 @@ class InferenceEngine:
 
         base = kind.removesuffix("_c")
         prefill = base.endswith("prefill")
-        out = self._guarded(
-            call, reqs, state,
-            self._m_prefill_seconds if prefill else self._m_step_seconds,
-            prefill=prefill, chunked=base.endswith("chunked_prefill"))
+        try:
+            out = self._guarded(
+                call, reqs, state,
+                self._m_prefill_seconds if prefill
+                else self._m_step_seconds,
+                prefill=prefill, chunked=base.endswith("chunked_prefill"))
+        finally:
+            self._resolved(kind, size)
         if taken is not None:
             self._cmask_commit(taken)
         return out
@@ -2645,9 +3079,8 @@ class InferenceEngine:
         JAX program name, plus the bucket of an admission prefill and the
         K of a spec round (``prefill_b1024``, ``spec_decode_k7``,
         ``paged_spec_decode_c_k4``)."""
-        masked = kind.endswith("_c")
-        base = kind[:-2] if masked else kind
-        name = cls._JAX_PROGRAM.get(base, base) + ("_c" if masked else "")
+        base = kind.removesuffix("_c")
+        name = cls._compile_program(kind)
         if base in ("prefill", "paged_prefill"):
             return f"{name}_b{int(size)}"
         if base in ("spec", "paged_spec"):
@@ -3087,7 +3520,7 @@ class InferenceEngine:
         the budget left after the decode bill, then the decode. Returns
         the tick's active count."""
         decoding0 = [(i, r) for i, r in self._occupied()
-                     if not self._is_prefilling(r)]
+                     if not self._is_prefilling(r) and not r.done()]
         spent = self._advance_prefill(self._tick_budget
                                       - len(decoding0) * self._chunk)
         decoding = self._sched_decoding()
@@ -3577,7 +4010,9 @@ class InferenceEngine:
                 self._shed_expired(live)
         with self._lock:
             for i, r in enumerate(self._slots):
-                if r is not None and (
+                # a held slot (hold_kv) stays seated until export_slot_kv
+                # or release_held frees it (reference :4954)
+                if r is not None and not r._hold_kv and (
                         r.done() or (not self._spec and
                                      r.generated.shape[0] + r._pending_n
                                      >= r.max_new_tokens)):
@@ -3734,6 +4169,451 @@ class InferenceEngine:
                        r.max_new_tokens - r.generated.shape[0])
             self._commit_tokens(r, toks[0, :need].astype(np.int32),
                                 "decode_chunk", rate=rate, scratch=True)
+
+    # -- warm-up (reference :4261-4397) ------------------------------------
+    def warmup(self, buckets: Optional[Sequence[int]] = None) -> dict:
+        """Resolve the engine's closed program set before traffic: the
+        decode chunk (paged: the paged one), the spec ladder K, K/2, ..,
+        1, the chunked prefill, and the admission bucket ladder
+        (``buckets``, default every power-of-two scaling of
+        ``prefill_bucket_min`` up to max_len; a one-shot engine's, paged
+        or not). Each key is resolved (`_resolve`) and called once with
+        every slot inactive, on the live pool (the port's first call is
+        eager, and on the card the per-tick programs are captured right
+        after it): an inactive slot's rows, ``pos``, ``tok`` and DFA
+        state are written back unchanged, and a paged pool's inactive
+        writes land on the scratch page 0, which no unmasked read sees.
+        Returns {"seconds", "programs", "jit", "aot_cache", "aot"} (the
+        resolutions by source, the compile cache's stats), also kept as
+        `last_warmup`."""
+        if not self._continuous:
+            raise ValueError(
+                "warmup requires mode='continuous' (batch-mode programs "
+                "are shaped by per-call batch geometry)")
+        with self._tick_mutex:
+            t0 = _perf()
+            before = self._compiles_by_source()
+            self._ensure_state()
+            pre = "paged_" if self._paged else ""
+            keys = [(pre + "decode", self._chunk)]
+            if self._spec:
+                k = self._spec_k
+                while True:
+                    keys.append((pre + "spec", k))
+                    if k == 1:
+                        break
+                    k = max(1, k // 2)
+            if self._prefill_chunk is not None:
+                keys.append((pre + "chunked_prefill", self._prefill_chunk))
+            else:
+                if buckets is None:
+                    buckets, b = [], max(1, self.config.prefill_bucket_min)
+                    while True:
+                        buckets.append(min(b, self.cfg.max_len))
+                        if b >= self.cfg.max_len:
+                            break
+                        b *= 2
+                keys += [(pre + "prefill", tb)
+                         for tb in dict.fromkeys(int(b) for b in buckets)]
+            libs = {n: None for kind, _ in keys
+                    for n in _LIBRARIES.get(kind, ())}
+            if libs and self.device.type == "cuda":
+                # one nvcc each, at once
+                _build.ensure_built(*libs, cache=self._aot)
+            for kind, size in keys:
+                self._warm_call(kind, size)
+            if self.device.type == "cuda":
+                self._wait(None)
+            after = self._compiles_by_source()
+            report = {"seconds": round(_perf() - t0, 4),
+                      "programs": len(keys),
+                      **{s: after.get(s, 0) - before.get(s, 0)
+                         for s in ("jit", "aot_cache")},
+                      "aot": (self._aot.stats() if self._aot is not None
+                              else None)}
+            self._last_warmup = report
+        log.info("engine warmup: %d program(s) in %.3fs (%d resolved "
+                 "in-process, %d from the compile cache)",
+                 report["programs"], report["seconds"], report["jit"],
+                 report["aot_cache"])
+        return report
+
+    @property
+    def last_warmup(self) -> Optional[dict]:
+        return self._last_warmup
+
+    def _warm_call(self, kind: str, size: int) -> None:
+        """One call of (kind, size) with every slot inactive (see
+        `warmup`), outside the guard: no injector hook, step or latency
+        is recorded."""
+        ns = self._num_slots
+        paged = kind.startswith("paged_")
+        base = kind.removeprefix("paged_")
+        def z(dt, *rest):
+            return np.zeros((ns,) + rest, dt)
+
+        lead = ((self._params, self._draft_params) if base == "spec"
+                else (self._params,))
+        dyn = [self._bt.copy()] if paged else []
+        if base == "decode":
+            dyn += [z(bool), z(np.int32)]
+        elif base == "spec":
+            dyn += [z(bool), z(np.int32), z(bool)]
+        elif base == "prefill":
+            dyn += [z(np.int32, size), z(np.int32)]
+            dyn += [z(np.int32)] if paged else []
+        else:
+            dyn += [z(np.int32, size), z(np.int32), z(np.int32), z(bool)]
+        fixed = (*lead, *self._slot_state)
+        if self._constrain_active:
+            kind += "_c"
+            fixed += (self._cstate, self._ctab.device(self.device))
+            dyn += [z(bool), z(np.int32)]
+        dyn = tuple(self._tensor(a) for a in dyn)
+        fn = self._program(kind, size)
+        seed = int(self.config.seed)
+        try:
+            if self._graphs is not None and kind in self._GRAPHED:
+                self._graphs.call((kind, size), fn, fixed, dyn, seed)
+            else:
+                fn(*fixed, *dyn, seed)
+        finally:
+            self._resolved(kind, size)
+
+    def _compiles_by_source(self) -> dict:
+        """serving_compiles summed over programs by source (reference
+        :5502)."""
+        out: dict = {}
+        for values, child in self._m_compiles.collect():
+            out[values[1]] = out.get(values[1], 0) + int(child.value)
+        return out
+
+    # -- KV handoff: export and adopt (reference :3541-3911) ---------------
+    def _flush_pipeline(self, reason: Optional[str] = None) -> None:
+        """Commit every dispatched, uncommitted tick now (reference
+        :3248): KV export reads committed state. With ``reason`` the wait
+        is billed to serving_pipeline_flush_seconds{reason} and kept as
+        debugz's ``tick_pipeline.last_flush``."""
+        if not self._pending:
+            return
+        t0 = _perf()
+        while self._pending:
+            self._commit_tick(self._pending.popleft())
+        if reason is not None:
+            dt = _perf() - t0
+            if self._m_flush_seconds is not None:
+                self._m_flush_seconds.labels(reason).observe(dt)
+            self._last_flush = {"reason": reason, "seconds": round(dt, 6)}
+
+    def _to_host(self, tensors) -> List[torch.Tensor]:
+        """Device tensors copied to host tensors behind one counted wait
+        (the CPU's are the tensors themselves)."""
+        if self.device.type != "cuda":
+            return list(tensors)
+        out = []
+        for t in tensors:
+            h = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+            h.copy_(t, non_blocking=True)
+            out.append(h)
+        self._wait(None)
+        return out
+
+    def _to_device(self, t: torch.Tensor) -> torch.Tensor:
+        if self.device.type != "cuda":
+            return t
+        return t.pin_memory().to(self.device, non_blocking=True)
+
+    def _handoff_bucket(self, npages: int) -> int:
+        """The power-of-two page bucket of a handoff's gather or adopt
+        (`quant.kv.handoff_page_bucket`; reference :3630)."""
+        return handoff_page_bucket(npages, self._max_pages)
+
+    def _page_index_vectors(self, pages: List[int], size: int):
+        idx = np.zeros((size,), np.int32)
+        idx[:len(pages)] = pages
+        valid = np.zeros((size,), bool)
+        valid[:len(pages)] = True
+        return idx, valid
+
+    def _gather_chain(self, pages: List[int], rows: int) -> list:
+        """Rows [0, rows) of a page chain, every layer and plane (values,
+        then scales), on the host: the bucketed gather program, then the
+        copy (reference :3725-3740)."""
+        nb = self._handoff_bucket(len(pages))
+        idx, _ = self._page_index_vectors(pages[:nb], nb)
+        fn = self._program("page_gather", nb)
+        try:
+            planes = fn(self._tensor(idx), *self._slot_state[:-2])
+        finally:
+            self._resolved("page_gather", nb)
+        planes = self._to_host(planes)
+        return [a.reshape(self.cfg.n_layers, -1, a.shape[-1])[:, :rows]
+                .contiguous() for a in planes]
+
+    def _handoff(self, pos: int, tok: int, planes, **kw) -> KVHandoff:
+        q = self._kv_mode is not None
+        return KVHandoff(pos=pos, tok=tok, k=planes[0], v=planes[1],
+                         k_scale=planes[2] if q else None,
+                         v_scale=planes[3] if q else None,
+                         kv_mode=self._kv_mode, n_layers=self.cfg.n_layers,
+                         d_model=self.cfg.d_model, **kw)
+
+    def export_slot_kv(self, handle: RequestHandle,
+                       release: bool = True) -> KVHandoff:
+        """The committed KV of ``handle``'s slot (still seated: submitted
+        with ``hold_kv=True``) on the host (reference :3689): K/V rows
+        [0, pos) and, quantized, their scales, bit-exact slices of the
+        live pool, through the page gather (paged) or the slot gather.
+        A pipelined engine's pending tick commits first
+        (`_flush_pipeline`). ``release`` frees the held slot afterwards,
+        also when the export fails. Raises `HandoffError` when the
+        request is not resident or still prefilling."""
+        try:
+            with self._tick_mutex:
+                self._flush_pipeline(reason="export_slot_kv")
+                with self._lock:
+                    slot = next((i for i, r in enumerate(self._slots)
+                                 if r is handle), None)
+                    if slot is None:
+                        raise HandoffError(
+                            f"request {handle.rid} is not resident - "
+                            "nothing to export (was it submitted with "
+                            "hold_kv=True?)")
+                    if self._is_prefilling(handle):
+                        raise HandoffError(
+                            f"request {handle.rid} is mid-prefill: its "
+                            "KV rows are incomplete")
+                    pages = (list(self._slot_pages[slot]) if self._paged
+                             else None)
+                state = self._slot_state
+                pos, tok = (int(t[0]) for t in self._to_host(
+                    (state[-2][slot:slot + 1], state[-1][slot:slot + 1])))
+                if self._paged:
+                    planes = self._gather_chain(pages, pos)
+                else:
+                    fn = self._program("slot_gather", 0)
+                    try:
+                        planes = fn(slot, pos, *state[:-2])
+                    finally:
+                        self._resolved("slot_gather", 0)
+                    planes = self._to_host(planes)
+            return self._handoff(pos, tok, planes)
+        finally:
+            if release:
+                self.release_held(handle)
+
+    def release_held(self, handle: RequestHandle) -> bool:
+        """Free a slot held past completion by ``hold_kv=True``
+        (idempotent; reference :3759): its pages go back to the refcount
+        pool, the prefix cache keeping what it co-owns."""
+        with self._lock:
+            handle._hold_kv = False
+            for i, r in enumerate(self._slots):
+                if r is handle and r.done():
+                    self._free_slot(i)
+                    return True
+        return False
+
+    def committed_kv_pages(self, handle: RequestHandle) -> int:
+        """KV pages ``handle``'s slot references (0 for a request not
+        resident and on a contiguous pool; reference :3901)."""
+        with self._lock:
+            if not self._paged:
+                return 0
+            for i, r in enumerate(self._slots):
+                if r is handle:
+                    return len(self._slot_pages[i])
+        return 0
+
+    def _shed_handoff(self, r: RequestHandle, msg: str) -> None:
+        """The typed handoff shed (reference :3543): shed{reason=
+        "handoff"}, the adoption outcome "shed" and a HandoffError."""
+        r._handoff_failed = True
+        self._m_shed.labels("handoff").inc()
+        if self._m_adoptions is not None:
+            self._m_adoptions.labels("shed").inc()
+        self._finish(r, RequestStatus.SHED, HandoffError(msg))
+
+    def _adopt_rows(self, pages: List[int], kv: KVHandoff,
+                    slot: int) -> None:
+        """The handoff's rows (and scales) scattered into ``pages`` and
+        the slot's pos / tok set, by one call of the bucketed adopt
+        program (reference :3664). Pages past the committed prefix are
+        left to decode, which writes a row before any read of it."""
+        nb = self._handoff_bucket(pages_for(max(int(kv.pos), 1),
+                                            self._page_size))
+        rows = handoff_row_buffers(kv, self.cfg.n_layers, nb,
+                                   self._page_size,
+                                   self._slot_state[0].dtype)
+        idx, valid = self._page_index_vectors(pages[:nb], nb)
+        fn = self._program("kv_adopt", nb)
+        try:
+            fn(self._tensor(idx), self._tensor(valid), slot, int(kv.pos),
+               int(kv.tok), *map(self._to_device, rows), *self._slot_state)
+        finally:
+            self._resolved("kv_adopt", nb)
+
+    def _seat_adopted(self, i: int, r: RequestHandle) -> Optional[bool]:
+        """Seat ``r`` in slot ``i`` by adopting its `KVHandoff` (under the
+        lock; reference :3553): check that the handoff is exactly one
+        pending token short of the committed prefix and ends in its last
+        token, allocate the whole page chain of the prefix and the decode
+        budget (all or none), scatter the rows and seat pos / tok. Returns
+        True once seated; None when the pool cannot cover it (admission
+        blocks at the queue head); False after shedding it typed
+        ``handoff`` (misaligned, an injected adoption fault, a failed
+        adopt call, or a pool that could never free enough), every page
+        it claimed released first."""
+        kv = r._kv
+        self._ensure_state()
+        prefix = np.concatenate([r.prompt, r.generated]).astype(np.int32)
+        plen = int(prefix.shape[0])
+        if (kv.pos != plen - 1 or int(kv.tok) != int(prefix[-1])
+                or kv.k.shape[1] != kv.pos):
+            self._shed_handoff(
+                r, f"request {r.rid}: KV handoff misaligned (pos={kv.pos} "
+                   f"rows={kv.k.shape[1]} vs committed prefix {plen}, "
+                   f"tok={kv.tok} vs {int(prefix[-1])})")
+            return False
+        inj = self._injector
+        if (inj is not None and hasattr(inj, "check_adopt")
+                and inj.check_adopt(r.rid)):
+            self._shed_handoff(r, f"request {r.rid}: injected adoption "
+                                  "fault")
+            return False
+        total = plen + (r.max_new_tokens - int(r.generated.shape[0]))
+        need = pages_for(total, self._page_size)
+        fresh: List[int] = []
+        for _ in range(need):
+            p = self._alloc_page()
+            if p is None:
+                self._allocator.release_chain(fresh)
+                if not any(self._slot_pages):
+                    self._shed_handoff(
+                        r, f"request {r.rid} needs {need} KV pages to "
+                           f"adopt its handoff; the pool cannot free "
+                           f"enough ({self._allocator.pages_free} free)")
+                    return False
+                self._m_adoptions.labels("blocked").inc()
+                return None
+            fresh.append(p)
+        try:
+            self._adopt_rows(fresh, kv, i)
+        except Exception as e:
+            self._allocator.release_chain(fresh)
+            self._shed_handoff(r, f"request {r.rid}: KV adopt call "
+                                  f"failed: {e}")
+            return False
+        self._slot_pages[i] = fresh
+        self._bt[i, :] = 0
+        self._bt[i, :len(fresh)] = fresh
+        r._page_start = plen - 1
+        r._kv = None
+        self._m_adoptions.labels("ok").inc()
+        if self._prefix_cache is not None and kv.pos > 0:
+            # the adopted rows are complete KV: their full pages join the
+            # cache, a co-owner by refcount, as after a prefill
+            self._prefix_cache.insert(prefix[:kv.pos], fresh)
+        return True
+
+    def export_cached_chain(self, chain_hash: int) -> Optional[KVHandoff]:
+        """A radix prefix-cache chain, by its advertised chain hash, on
+        the host (reference :3772): a ``source="cache"`` handoff with its
+        rows, token ids and this engine's weights step; None when the
+        chain is no longer cached, the pool was never allocated, or the
+        engine has no prefix cache."""
+        if not (self._continuous and self._paged
+                and self._prefix_cache is not None):
+            return None
+        with self._tick_mutex:
+            self._flush_pipeline(reason="export_cached_chain")
+            with self._lock:
+                node = self._prefix_cache.node_for_hash(chain_hash)
+                if node is None or self._slot_state is None:
+                    return None
+                pages = self._prefix_cache.chain_pages(node)
+                tokens = self._prefix_cache.chain_tokens(node)
+                pos = len(pages) * self._page_size
+                planes = self._gather_chain(pages, pos)
+        return self._handoff(pos, int(tokens[-1]), planes, source="cache",
+                             tokens=tokens, weights_step=self._weights_step)
+
+    def _seed_cached_chain(self, kv: KVHandoff) -> bool:
+        """Adopt a ``source="cache"`` handoff into the radix prefix cache
+        (under the lock; reference :3816): fresh pages for the chain (all
+        or none), the rows scattered by the pool-only adopt program (no
+        slot's pos / tok is touched), then tokens -> pages inserted, so
+        the next admission sharing the prefix maps them as a hit. Every
+        failure returns False with nothing claimed: that request just
+        prefills."""
+        cache = self._prefix_cache
+        ps = self._page_size
+        npages = kv.pos // ps
+        tokens = (np.asarray(kv.tokens, np.int32)
+                  if kv.tokens is not None else None)
+        if (cache is None or tokens is None or npages < 1
+                or kv.pos % ps != 0 or int(tokens.shape[0]) != kv.pos
+                or kv.k.shape[1] != kv.pos):
+            self._m_adoptions.labels("seed_failed").inc()
+            return False
+        if kv.weights_step != self._weights_step:
+            # cached K/V encodes the weights that wrote it
+            log.warning("cache-chain seed refused: exporter weights step "
+                        "%s vs local %s", kv.weights_step,
+                        self._weights_step)
+            self._m_adoptions.labels("seed_failed").inc()
+            return False
+        self._ensure_state()
+        pages: List[int] = []
+        for _ in range(npages):
+            p = self._alloc_page()
+            if p is None:
+                self._allocator.release_chain(pages)
+                self._m_adoptions.labels("seed_failed").inc()
+                return False
+            pages.append(p)
+        try:
+            nb = self._handoff_bucket(npages)
+            rows = handoff_row_buffers(kv, self.cfg.n_layers, nb, ps,
+                                       self._slot_state[0].dtype)
+            idx, valid = self._page_index_vectors(pages, nb)
+            fn = self._program("chain_adopt", nb)
+            try:
+                fn(self._tensor(idx), self._tensor(valid),
+                   *map(self._to_device, rows), *self._slot_state[:-2])
+            finally:
+                self._resolved("chain_adopt", nb)
+        except Exception as e:
+            self._allocator.release_chain(pages)
+            self._m_adoptions.labels("seed_failed").inc()
+            log.warning("cache-chain seed scatter failed: %s", e)
+            return False
+        cache.insert(tokens, pages)
+        # the cache co-owns what it took; pages of chunks it already had
+        # just go back
+        self._allocator.release_chain(pages)
+        self._m_adoptions.labels("seeded").inc()
+        return True
+
+    def seed_cached_chain(self, kv: KVHandoff) -> bool:
+        """Adopt a ``source="cache"`` handoff (decoded off the wire or
+        exported by a peer) into this engine's prefix cache (reference
+        :3876); False, nothing claimed, where the engine cannot hold
+        chains or the seed fails."""
+        if not (self._continuous and self._paged
+                and self._prefix_cache is not None):
+            return False
+        with self._tick_mutex, self._lock:
+            return self._seed_cached_chain(kv)
+
+    def set_advertised_chains(self, hashes) -> int:
+        """The chain hashes a fleet advertises (reference :3889): the
+        prefix cache's LRU eviction passes over them while it can.
+        Returns the set's size (0 without a prefix cache)."""
+        if self._prefix_cache is None:
+            return 0
+        with self._lock:
+            return self._prefix_cache.set_advertised(hashes)
 
     # -- hot weight reload (reference :5523-5606) --------------------------
     def reload_weights(self, source, step: Optional[int] = None) -> int:

@@ -32,7 +32,8 @@ so it adds to no counter; the engine's ``serving_graph_replays_total``
 (``counts["graph_replays"]``) counts replays on the host, outside the
 graph,
 and what a replay ran on the device is measured from the device's own
-trace (chip_smoke.py's profiled ticks). A failed capture or replay
+trace (chip_smoke.py's profiled ticks). The engine's program cache
+drops a key's graph when it evicts the key (`drop`). A failed capture or replay
 raises; there is no eager fallback. A failed capture raises
 `GraphCaptureError`, which is not a RuntimeError, so the engine's guard
 does not retry it: an error mid-capture (out of memory, say) can leave
@@ -41,7 +42,7 @@ turn a healthy engine's one failure into preemptions and quarantines.
 """
 from __future__ import annotations
 
-from typing import Callable, Dict, List, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
 
@@ -80,6 +81,12 @@ class SlotGraphs:
     def keys(self) -> List[Tuple[str, int]]:
         """The captured (kind, size) keys, in capture order."""
         return list(self._graphs)
+
+    def drop(self, key: Tuple[str, int]) -> Optional[_Graph]:
+        """Forget ``key``'s graph (its next call runs eagerly and
+        captures again); returns it, or None. The caller keeps it alive
+        until the device has run any replay of it already queued."""
+        return self._graphs.pop(key, None)
 
     def call(self, key: Tuple[str, int], fn: Callable, fixed: tuple,
              dyn: tuple, seed: int) -> tuple:

@@ -72,6 +72,18 @@ def _reference_paths(monkeypatch):
     monkeypatch.delenv("DL4JTPU_FLASH", raising=False)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _no_jax_programs_left_behind():
+    """JAX's program caches are process-wide, and this module's JAX
+    engines share their geometry with tests/test_serving_constrained.py,
+    whose constrain-off test counts its engine's own first compiles (and
+    failed after this module on one worker): a later module on this
+    worker starts from empty caches."""
+    yield
+    for c in jeng._ProgramLRU._instances:
+        c.cache_clear()
+
+
 @pytest.fixture(scope="module")
 def mesh1():
     return make_mesh(MeshSpec(data=1, model=1))

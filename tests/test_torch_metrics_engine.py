@@ -14,8 +14,12 @@ read by every test.
   analysis, so those compare by their label sets), every histogram's
   ``_count``, and each request's lifecycle events (kinds and payloads
   but timestamps and bills).
-- Pinned: the families JAX exposes and the port does not, each beside
-  the ROADMAP queue A item that brings it, and the port's own series.
+- Pinned: the families JAX exposes and the port does not (none since the
+  compile cache and KV adoption are ported: their series, the compiles by
+  program and source among them, are compared like the rest), and the
+  port's own series. Both engines resolve every program anew: JAX's
+  process-wide program caches and the port's are cleared before each
+  arm, so each engine's compiles count its own first resolutions.
 - The naming lint (chip_smoke.py's copy of tests/test_metrics_naming.py's
   rules, itself held to JAX's scrape), the default and the NULL registry
   giving equal tokens, the pipelined and the sync port engine giving
@@ -58,14 +62,9 @@ TCFG = ttf.TransformerConfig(**FIELDS)
 TENANTS = ("acme", "globex")
 
 # families JAX's engine exposes and the port's does not -> the ROADMAP
-# queue A item that brings them (and, where JAX registers one only on
-# some engines, that condition)
-JAX_ONLY = {
-    "serving_compiles": "10: the compile cache",
-    "serving_compile_seconds": "10: the compile cache",
-    "serving_program_cache_evictions": "10: the compile cache",
-    "serving_kv_adoptions": "11: KV handoff and adoption (paged engines)",
-}
+# queue A item that brings them (none left: item 10's compile series and
+# item 11a's KV adoptions are ported)
+JAX_ONLY = {}
 # the fault-handling families (ROADMAP queue A item 9a), equal to JAX's
 # on every arm (no faults: zeros, the breaker closed)
 FAULT_FAMILIES = ("serving_breaker_state", "serving_decode_retries",
@@ -165,6 +164,9 @@ _SERVED = {}
 def served(mesh1, jparams, tparams):
     def get(arm):
         if arm not in _SERVED:
+            for c in jeng._ProgramLRU._instances:
+                c.cache_clear()
+            teng.program_cache_clear()
             jcfg = jeng.EngineConfig(**_config(arm))
             jeng_ = jeng.InferenceEngine(JCFG, mesh1, jparams, jcfg)
             jh = _serve(jeng_, arm, False)
@@ -239,9 +241,7 @@ def test_counters_and_histogram_counts_equal(served, arm):
 def test_family_sets_pinned(served, arm):
     j, _, t, _ = served(arm)
     jf, tf_ = set(jex.json_snapshot(j.registry)), set(_fams(t))
-    want_jax_only = {n for n in JAX_ONLY
-                     if n != "serving_kv_adoptions" or arm == "paged"}
-    assert jf - tf_ == want_jax_only
+    assert jf - tf_ == set(JAX_ONLY)
     want_port = set(PORT_ALL)
     if arm == "spec":
         want_port |= PORT_SPEC
@@ -323,10 +323,12 @@ def _keys(d):
     return set(d) if isinstance(d, dict) else set()
 
 
-# keys of JAX's read-outs whose items are unported -> the item
+# keys of JAX's read-outs whose items are unported (none left: the
+# warm-up report, the compiles by source and the compile cache's section
+# came with item 10)
 READOUT_UNPORTED = {
-    "health": {"last_warmup", "compiles_by_source"},
-    "debugz": {"compile_cache"},
+    "health": set(),
+    "debugz": set(),
     "stats": set(),
 }
 
@@ -344,8 +346,8 @@ def test_readouts_have_jax_keys(served, arm):
     jd, td = j.debugz(), t.debugz()
     for sec in ("paged", "chunked_prefill", "spec", "profiling"):
         assert _keys(td.get(sec)) == _keys(jd.get(sec)), sec
-    assert _keys(td["tick_pipeline"]) == _keys(jd["tick_pipeline"]) - {
-        "last_flush"}
+    assert _keys(td["tick_pipeline"]) == _keys(jd["tick_pipeline"])
+    assert _keys(td["compile_cache"]) == _keys(jd["compile_cache"])
     assert _keys(td["slots"][0] if td["slots"] else {}) <= \
         {"slot", "rid", "status", "tenant", "priority", "generated",
          "max_new_tokens", "age_s", "phase", "prefill_pos",
@@ -388,7 +390,10 @@ def test_pipelined_counters_equal_sync(served, tparams, arm):
            "serving_device_wait_seconds", "serving_batches",
            "serving_batch_size", "serving_batch_latency_seconds"}
     sf, pf = _fams(s), _fams(p)
-    assert set(pf) - set(sf) == {"serving_pipelined_ticks"}
+    # JAX registers the flush histogram on pipelined engines only
+    # (engine.py:1701)
+    assert set(pf) - set(sf) == {"serving_pipelined_ticks",
+                                 "serving_pipeline_flush_seconds"}
     for fams, eng in ((sf, s), (pf, p)):
         ticks = fams["serving_batches"]["samples"][0]["value"]
         assert ticks == fams["serving_batch_size"]["samples"][0]["count"] \
@@ -469,13 +474,18 @@ def test_observability_fields_accepted_and_unported_named(tparams,
     assert set(eng.profile_report()["tenant_costs"]["tenants"]) == \
         {"t0", "other"}
     assert len(eng.recorder) == 16
-    for field, value, item in (("compile_cache_dir", "x", "compile cache"),
-                               ("warmup_on_init", True, "compile cache"),
-                               ("program_cache_size", 8, "compile cache")):
-        with pytest.raises(NotImplementedError, match=item):
-            teng.InferenceEngine(TCFG, tparams,
-                                 teng.EngineConfig(**{field: value}),
-                                 device="cpu")
+    # the compile cache's fields construct engines now (item 10)
+    for field, value in (("compile_cache_dir", str(tmp_path / "cc")),
+                         ("warmup_on_init", True),
+                         ("program_cache_size", 8)):
+        eng = teng.InferenceEngine(TCFG, tparams,
+                                   teng.EngineConfig(**{field: value}),
+                                   device="cpu")
+        h = eng.submit(np.arange(4))
+        eng.run_pending()
+        assert h.status == "completed"
+    assert teng.program_cache_info().maxsize == 8
+    teng.set_program_cache_size(teng.DEFAULT_PROGRAM_CACHE_SIZE)
     # batch mode and tenant QoS construct engines now
     for kw in (dict(mode="batch"), dict(preemption_budget=1),
                dict(prefill_chunk=4, tenant_weights={"a": 1.0},
@@ -485,8 +495,7 @@ def test_observability_fields_accepted_and_unported_named(tparams,
         h = eng.submit(np.arange(4), tenant="a")
         eng.run_pending()
         assert h.status == "completed"
-    assert set(teng._UNPORTED) == {"compile_cache_dir", "warmup_on_init",
-                                   "program_cache_size"}
+    assert not hasattr(teng, "_UNPORTED")
     # an injected clock is what deadlines read
     t = {"now": 0.0}
     eng = teng.InferenceEngine(TCFG, tparams, teng.EngineConfig(),

@@ -206,28 +206,31 @@ def test_engine_admission_rules(tparams):
     ("mode", "batch"),
     ("qos_default_weight", 2.0), ("compile_cache_dir", "x"),
 ])
-def test_unported_engine_options_raise(tparams, field, value):
-    """The compile cache's fields still raise, naming their ROADMAP item.
-    The rest once raised here and are ported (item 9b): fair-share
-    prefill on the paged pool refuses, as JAX's engine does, without
-    chunked prefill, and serves with it; batch mode and a QoS default
-    weight serve."""
+def test_unported_engine_options_raise(tparams, field, value, tmp_path):
+    """Options that once raised here, naming their ROADMAP item, and are
+    ported: the compile cache's (item 10: a warm-up at construction, a
+    cache directory that fills with the programs' manifests) and item
+    9b's: fair-share prefill on the paged pool refuses, as JAX's engine
+    does, without chunked prefill, and serves with it; batch mode and a
+    QoS default weight serve."""
     extra = ({"tenant_weights": {"a": 1.0}}
              if field in ("paged", "prefill_chunk") else {})
+    if field == "compile_cache_dir":
+        value = str(tmp_path / value)
     cfg = teng.EngineConfig(**{field: value}, **extra)
-    if field in ("warmup_on_init", "compile_cache_dir"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            teng.InferenceEngine(TCFG, tparams, cfg, device="cpu")
-        return
     if field == "paged":
         with pytest.raises(ValueError, match="requires prefill_chunk"):
             teng.InferenceEngine(TCFG, tparams, cfg, device="cpu")
         return
     eng = teng.InferenceEngine(TCFG, tparams, cfg, device="cpu")
+    if field == "warmup_on_init":
+        assert eng.last_warmup["programs"] > 0
     h = eng.submit(_prompt(6, 1), tenant="a")
     eng.run_pending()
     assert h.status == teng.RequestStatus.COMPLETED
     assert h.result().shape == (6 + cfg.max_new_tokens,)
+    if field == "compile_cache_dir":
+        assert eng._aot.stats()["entries"] >= 2
 
 
 @pytest.mark.parametrize("field,value", [("spec_decode", True),

@@ -387,6 +387,52 @@ card and fails (non-zero exit, no result line) if anything is wrong:
    ms a request of the export with its encoding (host wall) and of the
    adopt call (synchronised). `--only 3k` runs the build and this
    phase alone.
+3l. The fleet at full width (`phase_fleet_full_width`; phase 3's bf16
+   flagship and traffic, weights from seed 0). (a) A `serving.fleet.
+   Router` over two in-process 64-slot replicas, 128 requests of 64
+   tokens: tokens equal a single 64-slot engine's, launches exact over
+   both engines; fleet and single tokens/s in turns (S F F S) and the
+   router's host ms a tick; the same fleet driven by `Router.start()`'s
+   thread with HTTP probes while this thread polls every replica's
+   /healthz and /debugz (launches still exact: the handlers launch
+   nothing); a spec pair (K 7, "layers:1", the aligned tree) equal to
+   plain; `kill_at` mid-decode: all 128 complete, failovers, one
+   restart, `torch.cuda.memory_allocated` after the restart within one
+   KV pool of its level before the kill (the dead engine is dropped
+   once its device work ended), the bf16 token-equal share and the
+   recovery seconds printed; `hang_at` detected and failed over; a slow
+   replica under hedging, every hedge's loser cancelled, tokens equal;
+   `fail_probe` rotation, `drain` (readiness flips at once) and
+   `rolling_reload` from a `util/checkpointing.py` npz step, nothing
+   dropped. (b) Phase 2's float32 model behind a Router with a kill and
+   a `serving.disagg.TieredRouter` with a decode-tier kill, a failed
+   export and a corrupted kvwire frame, each on the card and on the
+   CPU under one injected clock: tokens card == CPU == one
+   uninterrupted card engine, stats card == CPU. (c) Tiers on phase
+   3c's shared-prefix traffic, one prefill replica and two paged decode
+   replicas, every handoff ok with its bytes equal to
+   `quant.kv.handoff_bytes`, launches exact, export and adopt ms a
+   request: a chunked (256) prefill tier beside one chunked paged
+   engine (bf16 tokens round by their calls, and this tier batches its
+   chunks and evicts cached prefixes unlike the single engine, whose
+   budget also carries decode: the token-equal and first-token shares
+   are printed, TTFT beside a prefill-only engine); a one-shot paged
+   prefill tier whose pool evicts nothing, which admits the single
+   paged engine's waves and so makes its calls: token-equal, gated,
+   bf16 on 128 requests and int8 KV on 32 (the quantized entries
+   launch, the float ones do not); an 8-slot decode tier autoscaled up
+   and down and the prefill tier to zero, then a cold start, nothing
+   lost. (d) Four `SubprocessReplica` workers on the card started at
+   once (each hello: no jax, a CUDA device, no nvcc run; the plain pair
+   warms up first and loads its libraries from the build directory):
+   two serve phase 3's first 32 requests over the pipes, probed over
+   HTTP, equal to the in-process engine; one is SIGKILLed mid-decode,
+   all complete and it stays dead under ``max_restarts=0``; a one-shot
+   paged prefill worker hands 16 shared-prefix requests to a decode
+   worker as kvwire frames through the pipes, token-equal to (c)'s
+   single paged engine, with frame bytes and export / wire / adopt ms a
+   request; a SIGSTOPped worker is detected and failed over. `--only
+   3l` runs the build and this phase alone.
 4a. float32 training, card vs CPU: 2 layers at 512d / 8 heads, V=256,
    B=2, T=256, remat 'full', three Adam steps of `make_fsdp_train_step`
    from the same params on cuda and on cpu; losses within 1e-4, and the
@@ -439,8 +485,8 @@ card and fails (non-zero exit, no result line) if anything is wrong:
 7. Summary: the MoE phases' launches by kernel (`moe_launches`); one
    line of the graph replays of every gated run and of the serving
    device functions' launches in the profiled ticks' traces; the run's
-   wall time, the MoE phases', the rest's, phase 3h's, 3i's, 3j's and
-   3k's (`wall`);
+   wall time, the MoE phases', the rest's, phase 3h's, 3i's, 3j's, 3k's
+   and 3l's (`wall`, `fleet_phase_s`);
    one `kernels` JSON line (decode_attention_q and decode_window_q among
    them; `launches` the wrappers' counts, 3j's included,
    `device_launches_profiled`
@@ -5364,6 +5410,854 @@ def phase_cache_handoff_full_width(torch, dev):
 
 
 # ---------------------------------------------------------------------------
+# phase 3l: the fleet router, its subprocess workers and the tiers
+# ---------------------------------------------------------------------------
+
+L3_CFG = dict(vocab_size=256, d_model=512, n_heads=8, n_layers=12,
+              max_len=2048, dtype="bfloat16")
+L3_ENGINE = dict(num_slots=64, decode_chunk=8, max_new_tokens=64,
+                 max_queue=256, degrade_queue_depth=1024, pipeline=False)
+L3_PAGED = dict(L3_ENGINE, paged=True, page_size=16, kv_pages=3072 + 1)
+L3_PREFILL = dict(L3_PAGED, prefill_chunk=256)
+# a decode replica adopts every handoff into pages of its own: room for
+# every slot at max_len
+L3_DECODE = dict(L3_PAGED, kv_pages=64 * 128 + 1)
+L3_WAIT_S = 300.0        # the bound of every wait in the phase
+
+
+class L3Clock:
+    """An injected clock, advanced by the drive loop: the same schedule on the
+    card and on the CPU."""
+
+    def __init__(self):
+        self.t = 0.0
+
+    def __call__(self):
+        return self.t
+
+
+def l3_drive(r, where, clock=None, before_tick=None, step_s=0.05):
+    """Tick a router until nothing is pending (bounded). With ``clock``
+    the injected clock advances ``step_s`` a tick. Returns (ticks, wall s
+    in ticks)."""
+    deadline = time.monotonic() + L3_WAIT_S
+    n, spent = 0, 0.0
+    while r.pending():
+        if time.monotonic() > deadline:
+            fail(f"3l {where}: the fleet did not drain in {L3_WAIT_S} s")
+        if before_tick is not None:
+            before_tick(r)
+        t0 = time.perf_counter()
+        moved = r.tick()
+        spent += time.perf_counter() - t0
+        n += 1
+        if clock is not None:
+            clock.t += step_s
+        elif not moved:
+            time.sleep(0.0005)
+    return n, spent
+
+
+def l3_outcome(hs, want, where, gate_equal):
+    """Every handle completed (zero lost); the share whose tokens equal
+    ``want`` (gated to 1.0 with ``gate_equal``)."""
+    bad = [h.rid for h in hs if h.status != "completed"]
+    if bad:
+        fail(f"3l {where}: requests {bad[:8]} not completed "
+             f"({len(bad)} of {len(hs)})")
+    equal = sum(np.array_equal(h.result(), w) for h, w in zip(hs, want))
+    if gate_equal and equal != len(hs):
+        fail(f"3l {where}: {equal} of {len(hs)} token-equal")
+    return equal / len(hs)
+
+
+def l3_fleet_launches(engines, got, L, where):
+    """Exact wrapper launches of a fleet's fresh engines: each engine
+    resolves and captures its own keys (`expected_launches` per engine,
+    summed), and every later decode chunk and spec round is a replay."""
+    want = {k: 0 for k in launch_counters()}
+    replays = 0
+    for eng in engines:
+        c = eng.counts
+        for k, v in expected_launches(eng, c, L).items():
+            want[k] += v
+        r = c["decode_chunks"] + c["spec_rounds"] - len(eng._graphs.keys())
+        if c["graph_replays"] != r:
+            fail(f"{where}: graph replays {c['graph_replays']}, want {r}")
+        replays += r
+    got = {k: got.get(k, 0) for k in want}
+    if got != want:
+        fail(f"{where}: launches {got}, want {want}")
+    GRAPH_REPLAYS[where] = GRAPH_REPLAYS.get(where, 0) + replays
+    return got
+
+
+def l3_single(torch, cfg, tree, dev, ec, prompts, max_new=None):
+    """One engine serving ``prompts``: (results, wall s, launches)."""
+    from deeplearning4j_tpu_torch.serving.engine import (EngineConfig,
+                                                         InferenceEngine)
+    eng = InferenceEngine(cfg, tree, EngineConfig(**ec), device=dev)
+    zero_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    hs = [eng.submit(p, max_new_tokens=max_new) for p in prompts]
+    eng.run_pending()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    got = read_launches()
+    check_launches(eng, eng.counts, cfg.n_layers, got, "3l single")
+    out = [h.result() for h in hs]
+    info = dict(slo=eng.slo_report(),
+                prefix=l3_prefix_counts(eng))
+    del eng, hs
+    return out, wall, got, info
+
+
+def l3_prefix_counts(eng):
+    c = eng.counts
+    return {k: c[k] for k in ("prefix_hits", "prefix_misses",
+                              "prefix_shared_tokens", "prefix_evictions")
+            if k in c}
+
+
+def l3_hops_step_time(r):
+    """Wrap each in-process replica's step to sum the engine ticks' wall
+    time (the rest of a router tick is the router's host work)."""
+    spent = [0.0]
+    for ctl in r._ctls:
+        rep = ctl.replica
+        inner = rep.step
+
+        def step(inner=inner):
+            t0 = time.perf_counter()
+            try:
+                return inner()
+            finally:
+                spent[0] += time.perf_counter() - t0
+        rep.step = step
+    return spent
+
+
+def l3_cancelled(engines):
+    return sum(int(e.registry.get("serving_requests_shed")
+                   .labels("cancelled").value) for e in engines)
+
+
+def l3_flat_fleet(torch, dev, cfg, params, prompts, want, add):
+    """3l (a): the flat fleet at full width."""
+    import shutil
+    import tempfile
+    import urllib.request
+    from deeplearning4j_tpu_torch.parallel.failure import FleetFaultInjector
+    from deeplearning4j_tpu_torch.serving import (EngineConfig,
+                                                  EngineDraining,
+                                                  FleetConfig, Router)
+    from deeplearning4j_tpu_torch.util.checkpointing import \
+        CheckpointManager
+    L = cfg.n_layers
+    ec = EngineConfig(**L3_ENGINE)
+
+    def fleet(tree=params, ec=ec, **kw):
+        kw.setdefault("config", FleetConfig(hang_min_s=30.0))
+        return Router(cfg=cfg, params=tree, device=dev, num_replicas=2,
+                      engine_config=ec, **kw)
+
+    # fleet beside the single engine, in turns (S F F S), sync loop
+    runs = {"single": [], "fleet": []}
+    for arm in ("single", "fleet", "fleet", "single"):
+        if arm == "single":
+            out, wall, got, _ = l3_single(torch, cfg, params, dev,
+                                          L3_ENGINE, prompts)
+            add(got)
+            if not all(np.array_equal(a, b) for a, b in zip(out, want)):
+                fail("3l (a) single engine differs from its first run")
+            runs["single"].append(len(prompts) * 64 / wall)
+            continue
+        r = fleet()
+        engines = [c.replica.engine for c in r._ctls]
+        step_s = l3_hops_step_time(r)
+        zero_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        hs = [r.submit(p) for p in prompts]
+        ticks, tick_s = l3_drive(r, "(a) fleet")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = read_launches()
+        add(l3_fleet_launches(engines, got, L, "3l (a) fleet"))
+        l3_outcome(hs, want, "(a) fleet", gate_equal=True)
+        runs["fleet"].append(len(prompts) * 64 / wall)
+        line(dict(phase="3l", arm="fleet", replicas=2, slots_each=64,
+                  requests=len(prompts), new_tokens=64, wall_s=wall,
+                  tokens_per_s=runs["fleet"][-1], router_ticks=ticks,
+                  host_ms_per_router_tick=(tick_s - step_s[0]) / ticks
+                  * 1e3, engine_ms_per_router_tick=step_s[0] / ticks * 1e3,
+                  dispatches=r.stats["dispatches"],
+                  per_replica_requests=[e.counts["prefill_calls"]
+                                        for e in engines]))
+        r.close()
+        del r, engines, hs
+    line(dict(phase="3l", run="fleet_vs_single", order="S F F S",
+              single_tokens_per_s=runs["single"],
+              fleet_tokens_per_s=runs["fleet"],
+              fleet_over_single=sum(runs["fleet"]) / sum(runs["single"])))
+
+    # the same fleet driven by Router.start()'s thread, with HTTP probes
+    # on every replica's MetricsServer, while this thread polls the
+    # replicas' /healthz and /debugz: the launches stay exact (the
+    # handlers launch nothing) and the tokens equal
+    r = fleet(http_probes=True)
+    engines = [c.replica.engine for c in r._ctls]
+    zero_launches()
+    r.start()
+    try:
+        hs = [r.submit(p) for p in prompts]
+        polls = 0
+        deadline = time.monotonic() + L3_WAIT_S
+        while not all(h.done() for h in hs):
+            if time.monotonic() > deadline:
+                fail("3l (a) threaded fleet did not finish")
+            for c in r._ctls:
+                for path in ("/healthz", "/debugz"):
+                    with urllib.request.urlopen(
+                            c.replica.probe_url + path, timeout=10) as f:
+                        f.read()
+                    polls += 1
+        torch.cuda.synchronize()
+        got = read_launches()
+        add(l3_fleet_launches(engines, got, L, "3l (a) threaded"))
+        l3_outcome(hs, want, "(a) threaded", gate_equal=True)
+    finally:
+        r.stop(drain=False)
+    check_zero_fault_gate("3l (a) threaded")
+    line(dict(phase="3l", arm="threaded_http", requests=len(hs),
+              http_polls=polls, launches_exact=True))
+    del r, engines, hs
+
+    # a spec replica pair (K 7, "layers:1") on the aligned tree == plain
+    from deeplearning4j_tpu_torch.models import transformer as tf
+    aligned = aligned_params(tf, cfg, dev)
+    sp = prompts[:32]
+    plain_a, _, got, _ = l3_single(torch, cfg, aligned, dev, L3_ENGINE, sp)
+    add(got)
+    r = fleet(tree=aligned, ec=EngineConfig(**L3_ENGINE, spec_decode=True,
+                                            spec_k=7, draft="layers:1"))
+    engines = [c.replica.engine for c in r._ctls]
+    zero_launches()
+    hs = [r.submit(p) for p in sp]
+    l3_drive(r, "(a) spec")
+    torch.cuda.synchronize()
+    add(l3_fleet_launches(engines, read_launches(), L, "3l (a) spec"))
+    l3_outcome(hs, plain_a, "(a) spec pair", gate_equal=True)
+    rounds = sum(e.counts["spec_rounds"] for e in engines)
+    if not rounds:
+        fail("3l (a) spec pair ran no spec round")
+    line(dict(phase="3l", arm="spec_pair", requests=len(sp), spec_k=7,
+              draft="layers:1", spec_rounds=rounds, token_equal=len(sp)))
+    r.close()
+    del r, engines, hs, aligned, plain_a
+
+    # kill mid-decode: zero lost, failovers, memory back after restart
+    kill_tick = 4
+    inj = FleetFaultInjector(kill_at={kill_tick: 0})
+    r = fleet(fault_injector=inj,
+              config=FleetConfig(hang_min_s=30.0,
+                                 restart_backoff_base_s=0.05))
+    mem = {}
+
+    def before_tick(rr):
+        if rr._ticks == kill_tick:
+            torch.cuda.synchronize()
+            mem["before"] = torch.cuda.memory_allocated()
+            mem["pool"] = rr._ctls[0].replica.engine.counts[
+                "kv_pool_bytes"]
+            mem["t_kill"] = time.perf_counter()
+    zero_launches()
+    hs = [r.submit(p) for p in prompts]
+    l3_drive(r, "(a) kill", before_tick=before_tick)
+    torch.cuda.synchronize()
+    t_done = time.perf_counter()
+    add(read_launches())
+    mem["after"] = torch.cuda.memory_allocated()
+    share = l3_outcome(hs, want, "(a) kill", gate_equal=False)
+    st = r.stats
+    rec_h = r.registry.get("serving_fleet_recovery_seconds").labels()
+    _, rec_sum, rec_n = rec_h.snapshot()
+    if not (inj.kills_injected == 1 and st["failovers"] >= 1
+            and st["restarts"] == 1 and "before" in mem):
+        fail(f"3l (a) kill: {st}, kills {inj.kills_injected}")
+    drift = mem["after"] - mem["before"]
+    if abs(drift) > mem["pool"]:
+        fail(f"3l (a) kill: memory {mem['before']} before the kill, "
+             f"{mem['after']} after the restart (one pool "
+             f"{mem['pool']})")
+    line(dict(phase="3l", arm="kill", requests=len(hs), kill_tick=kill_tick,
+              completed=st["completed"], failovers=st["failovers"],
+              restarts=st["restarts"], bf16_token_equal_share=share,
+              recovery_s=rec_sum / max(1, rec_n),
+              restart_cold_start_s=r._ctls[0].replica.cold_start_s,
+              kill_to_all_done_s=t_done - mem["t_kill"],
+              memory_before_kill=mem["before"],
+              memory_after_restart=mem["after"],
+              memory_drift_bytes=drift, pool_bytes=mem["pool"]))
+    r.close()
+    del r, hs
+
+    # a hang: detected by the no-progress detector and failed over
+    hp = prompts[:16]
+    inj = FleetFaultInjector(hang_at={2: 1})
+    r = fleet(fault_injector=inj,
+              config=FleetConfig(hang_ticks=4, hang_min_s=0.5,
+                                 restart_backoff_base_s=0.05))
+    zero_launches()
+    hs = [r.submit(p) for p in hp]
+    t0 = time.perf_counter()
+    l3_drive(r, "(a) hang")
+    add(read_launches())
+    share = l3_outcome(hs, want, "(a) hang", gate_equal=False)
+    st = r.stats
+    if not (inj.hangs_injected == 1 and st["failovers"] >= 1):
+        fail(f"3l (a) hang: not detected ({st})")
+    line(dict(phase="3l", arm="hang", requests=len(hs),
+              failovers=st["failovers"], restarts=st["restarts"],
+              bf16_token_equal_share=share,
+              wall_s=time.perf_counter() - t0))
+    r.close()
+    del r, hs
+
+    # a slow replica with hedging: the loser of every hedge is cancelled
+    inj = FleetFaultInjector(slow_at={1: (0, 0.01)})
+    r = fleet(fault_injector=inj,
+              config=FleetConfig(hedge=True, hedge_age_s=0.0,
+                                 hang_min_s=30.0))
+    engines = [c.replica.engine for c in r._ctls]
+    zero_launches()
+    hs = [r.submit(p) for p in hp]
+    l3_drive(r, "(a) slow+hedge")
+    add(read_launches())
+    l3_outcome(hs, want, "(a) slow+hedge", gate_equal=True)
+    st = r.stats
+    hedges = st["hedges_primary_won"] + st["hedges_hedge_won"]
+    cancelled = l3_cancelled(engines)
+    if not (hedges >= 1 and cancelled >= 1):
+        fail(f"3l (a) slow+hedge: hedges {hedges}, cancelled {cancelled}")
+    line(dict(phase="3l", arm="slow_hedge", requests=len(hs),
+              hedges_primary_won=st["hedges_primary_won"],
+              hedges_hedge_won=st["hedges_hedge_won"],
+              losers_cancelled=cancelled))
+    r.close()
+    del r, engines, hs
+
+    # probe failures, drain and a rolling reload on one fleet
+    tmp = tempfile.mkdtemp(prefix="dl4j-3l-")
+    try:
+        mgr = CheckpointManager(os.path.join(tmp, "w"))
+        mgr.save_tree(params, 7)
+        inj = FleetFaultInjector(fail_probe={0: 3})
+        r = fleet(fault_injector=inj,
+                  config=FleetConfig(probe_failure_threshold=1,
+                                     hang_min_s=30.0))
+        zero_launches()
+        hs = [r.submit(p) for p in prompts[:8]]
+        r.tick()
+        state0 = r._ctls[0].state()
+        l3_drive(r, "(a) probes")
+        for _ in range(5):
+            r.tick()
+        back = r._ctls[0].state()
+        if not (state0 == "unhealthy" and back == "ready"
+                and r.stats["probe_failures"] >= 1):
+            fail(f"3l (a) probes: {state0} then {back}, {r.stats}")
+        hs += [r.submit(p) for p in prompts[8:16]]
+        r.tick()
+        r.drain(wait=False)
+        ready_after_drain = r.ready()
+        try:
+            r.submit(prompts[0])
+            fail("3l (a) drain: a submit was admitted")
+        except EngineDraining:
+            pass
+        l3_drive(r, "(a) drain")
+        r.resume()
+        hs += [r.submit(p) for p in prompts[16:24]]
+        r.tick()
+        loaded = r.rolling_reload(mgr, timeout=L3_WAIT_S)
+        l3_drive(r, "(a) rolling reload")
+        add(read_launches())
+        l3_outcome(hs, want, "(a) probes/drain/reload", gate_equal=False)
+        st = r.stats
+        dropped = st["shed_overload"] + st["shed_deadline"] + \
+            st["shed_outage"]
+        if ready_after_drain or loaded != [7, 7] or dropped:
+            fail(f"3l (a) drain/reload: ready {ready_after_drain}, "
+                 f"loaded {loaded}, {st}")
+        line(dict(phase="3l", arm="probes_drain_reload",
+                  requests=len(hs), probe_failures=st["probe_failures"],
+                  state_after_probe_failure=state0, state_after=back,
+                  ready_at_drain=ready_after_drain, reloaded_steps=loaded,
+                  dropped=dropped))
+        r.close()
+        del r, hs
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def l3_f32(torch, dev):
+    """3l (b): phase 2's float32 model behind a Router with a kill and a
+    TieredRouter with a decode-tier kill, a failed export and a corrupted
+    frame: card == CPU == one uninterrupted engine, token for token, and
+    the routers' counters equal on the card and the CPU."""
+    from deeplearning4j_tpu_torch.models import transformer as tf
+    from deeplearning4j_tpu_torch.parallel.failure import FleetFaultInjector
+    from deeplearning4j_tpu_torch.serving import (EngineConfig, FleetConfig,
+                                                  InferenceEngine, Router,
+                                                  TieredRouter)
+    cfg = tf.TransformerConfig(vocab_size=256, d_model=512, n_heads=8,
+                               n_layers=2, max_len=2048, dtype="float32")
+    rng = np.random.default_rng(1)
+    prompts = [rng.integers(0, 256, size=int(n)).astype(np.int32)
+               for n in rng.integers(8, 65, size=8)]
+    flat = dict(num_slots=4, decode_chunk=2, max_new_tokens=16,
+                backoff_base_s=0.0, pipeline=False)
+    paged = dict(flat, paged=True, page_size=16, kv_pages=4 * 128 + 1)
+    arms = {
+        "router_kill": (flat, dict(kill_at={2: 0})),
+        "tiered_faults": (paged, dict(kill_at={6: 2}, handoff_fail_at=[1],
+                                      corrupt_frame_at=[3])),
+    }
+    recs = {}
+    for name, (ec, inj_kw) in arms.items():
+        single = InferenceEngine(cfg, tf.init_params(cfg, seed=1,
+                                                     device=dev),
+                                 EngineConfig(**ec), device=dev)
+        want = []
+        for p in prompts:
+            h = single.submit(p)
+            single.run_pending()
+            want.append(h.result())
+        del single
+        got = {}
+        for where in ("cuda", "cpu"):
+            d = dev if where == "cuda" else "cpu"
+            tree = tf.init_params(cfg, seed=1, device=d)
+            clock = L3Clock()
+            inj = FleetFaultInjector(**inj_kw)
+            fc = FleetConfig(restart_backoff_base_s=0.01)
+            if name == "router_kill":
+                r = Router(cfg=cfg, params=tree, device=d, num_replicas=2,
+                           engine_config=EngineConfig(**ec),
+                           fault_injector=inj, config=fc, clock=clock)
+            else:
+                r = TieredRouter(cfg=cfg, params=tree, device=d,
+                                 prefill_replicas=1, decode_replicas=2,
+                                 prefill_engine_config=EngineConfig(**ec),
+                                 decode_engine_config=EngineConfig(**ec),
+                                 fault_injector=inj, config=fc,
+                                 clock=clock)
+            hs = [r.submit(p) for p in prompts]
+            l3_drive(r, f"(b) {name} {where}", clock=clock)
+            got[where] = ([h.result().tolist() for h in hs], r.stats,
+                          [h.status for h in hs])
+            r.close()
+        toks_equal = (got["cuda"][0] == got["cpu"][0]
+                      == [w.tolist() for w in want])
+        st = got["cuda"][1]
+        ok = (toks_equal and got["cuda"][1] == got["cpu"][1]
+              and got["cuda"][2] == ["completed"] * len(prompts)
+              and st["failovers"] >= 1)
+        if name == "tiered_faults":
+            ok = ok and st["handoffs_failed"] == 2
+        recs[name] = dict(token_exact=toks_equal,
+                          stats_equal=got["cuda"][1] == got["cpu"][1],
+                          failovers=st["failovers"],
+                          handoffs_failed=st.get("handoffs_failed"),
+                          handoffs_ok=st.get("handoffs_ok"))
+        if not ok:
+            fail(f"3l (b) {name}: card {got['cuda'][1]} vs cpu "
+                 f"{got['cpu'][1]}, tokens card == cpu == single "
+                 f"{toks_equal}")
+    line(dict(phase="3l", arm="f32_card_cpu", requests=len(prompts),
+              **recs))
+
+
+def l3_tiers(torch, dev, cfg, params, add):
+    """3l (c): paged prefill and decode tiers on phase 3c's shared-prefix
+    traffic. bf16 tokens round by the calls that made them: a chunked
+    prefill tier batches its chunks with other partners than a single
+    chunked engine (whose budget also carries decode), so that arm gates
+    every request completed, every handoff ok and its bytes, and prints
+    the token-equal share; a one-shot paged prefill tier admits the same
+    waves as a single paged engine and makes the same calls, and is
+    gated token-equal, in bf16 and on int8 pools. Returns (the traffic,
+    the single one-shot paged engine's results)."""
+    from deeplearning4j_tpu_torch.quant.kv import handoff_bytes
+    from deeplearning4j_tpu_torch.serving import (AutoscalePolicy,
+                                                  EngineConfig, FleetConfig,
+                                                  TieredRouter)
+    L = cfg.n_layers
+    rng = np.random.default_rng(0)
+    first = paged_traffic(rng, 96, 32, 512, (16, 512), (16, 1024))
+    want, wall_single, got, info0 = l3_single(torch, cfg, params, dev,
+                                              L3_PREFILL, first)
+    add(got)
+    _, _, got, info = l3_single(torch, cfg, params, dev,
+                                dict(L3_PREFILL, max_new_tokens=1), first)
+    slo_prefill = info["slo"]
+    add(got)
+    # the same-calls arms' pools hold every prompt's chain: no eviction,
+    # so the prefill tier and the single engine hit the same prefixes
+    big = dict(L3_PAGED, kv_pages=64 * 128 + 1)
+    want1, _, got, info1 = l3_single(torch, cfg, params, dev, big, first)
+    add(got)
+
+    def tiered(pc, dc, n_decode=2, **kw):
+        return TieredRouter(cfg=cfg, params=params, device=dev,
+                            prefill_replicas=1, decode_replicas=n_decode,
+                            prefill_engine_config=EngineConfig(**pc),
+                            decode_engine_config=EngineConfig(**dc),
+                            config=FleetConfig(hang_min_s=30.0), **kw)
+
+    def timed_adopts(r):
+        adopt_s = []
+        for c in r._ctls:
+            if c.tier != "decode":
+                continue
+            eng = c.replica.engine
+            rows = eng._adopt_rows
+
+            def timed(pages, kv, slot, rows=rows):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                rows(pages, kv, slot)
+                torch.cuda.synchronize()
+                adopt_s.append(time.perf_counter() - t0)
+            eng._adopt_rows = timed
+        return adopt_s
+
+    def run(pc, dc, prompts, ref, where, gate_equal, kv_mode=None,
+            ref_prefix=None):
+        r = tiered(pc, dc)
+        engines = [c.replica.engine for c in r._ctls]
+        adopt_s = timed_adopts(r)
+        zero_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        hs = [r.submit(p) for p in prompts]
+        l3_drive(r, f"(c) {where}")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = add(l3_fleet_launches(engines, read_launches(), L,
+                                    f"3l (c) {where}"))
+        share = l3_outcome(hs, ref, f"(c) {where}", False)
+        differ = [i for i, (h, w) in enumerate(zip(hs, ref))
+                  if not np.array_equal(h.result(), w)]
+        first_tok = sum(int(h.result()[p.shape[0]] == w[p.shape[0]])
+                        for h, p, w in zip(hs, prompts, ref)) / len(hs)
+        st = r.stats
+        kv_bytes = sum(handoff_bytes(cfg, p.shape[0], kv_mode=kv_mode)
+                       for p in prompts)
+        moved = int(r._m_handoff_bytes.value)
+        _, exp_sum, exp_n = r._m_handoff_seconds.labels().snapshot()
+        slo = r.slo_report()
+        if not (st["handoffs_ok"] == len(prompts)
+                and st["handoffs_failed"] == 0 and moved == kv_bytes):
+            fail(f"3l (c) {where}: {st}, bytes {moved} vs {kv_bytes}")
+        rec = dict(phase="3l", arm=f"tiers_{where}", requests=len(prompts),
+                   prefill=({k: pc[k] for k in ("prefill_chunk",
+                                                "kv_quantize") if k in pc}),
+                   decode_replicas=2, gated_equal=gate_equal,
+                   token_equal_share=share, first_token_equal_share=first_tok,
+                   handoffs_ok=st["handoffs_ok"], handoff_bytes=moved,
+                   handoff_bytes_analytic=kv_bytes,
+                   export_ms_per_request=1e3 * exp_sum / max(1, exp_n),
+                   adopt_ms_per_request=1e3 * sum(adopt_s)
+                   / max(1, len(adopt_s)), adoptions_timed=len(adopt_s),
+                   wall_s=wall, tokens_per_s=len(prompts) * 64 / wall,
+                   ttft_p50_ms=slo.get("ttft_p50_ms"),
+                   ttft_p99_ms=slo.get("ttft_p99_ms"),
+                   span_latency=r.tier_latency(), launches=got,
+                   differ=differ[:16],
+                   differ_prompt_tokens=[int(prompts[i].shape[0])
+                                         for i in differ[:16]],
+                   prefill_tier_prefix=l3_prefix_counts(engines[0]),
+                   single_prefix=ref_prefix)
+        r.close()
+        if gate_equal and differ:
+            line(rec)
+            fail(f"3l (c) {where}: {len(prompts) - len(differ)} of "
+                 f"{len(prompts)} token-equal")
+        return rec
+
+    # a chunked (256) prefill tier
+    rec = run(L3_PREFILL, L3_DECODE, first, want, "chunked", False,
+              ref_prefix=info0["prefix"])
+    rec.update(single_chunked_tokens_per_s=len(first) * 64 / wall_single,
+               prefill_only_ttft_p50_ms=slo_prefill.get("ttft_p50_ms"),
+               prefill_only_ttft_p99_ms=slo_prefill.get("ttft_p99_ms"))
+    line(rec)
+    # the same calls: a one-shot paged prefill tier, bf16 and int8
+    line(run(big, L3_DECODE, first, want1, "one_shot", True,
+             ref_prefix=info1["prefix"]))
+    q = first[:32]
+    qwant, _, got, qinfo = l3_single(torch, cfg, params, dev,
+                                     dict(big, kv_quantize="int8"), q)
+    add(got)
+    rec = run(dict(big, kv_quantize="int8"),
+              dict(L3_DECODE, kv_quantize="int8"), q, qwant, "int8", True,
+              kv_mode="int8", ref_prefix=qinfo["prefix"])
+    if rec["launches"]["decode_attention_q"] <= 0 or \
+            rec["launches"]["decode_attention"]:
+        fail(f"3l (c) int8 tiers: launches {rec['launches']}")
+    line(rec)
+
+    # autoscale: an 8-slot decode tier scales up under 32 requests and
+    # back down; the prefill tier scales to zero, then cold-starts
+    a = first[:32]
+    r = tiered(L3_PREFILL, dict(L3_DECODE, num_slots=8,
+                                kv_pages=8 * 128 + 1), n_decode=1,
+               decode_autoscale=AutoscalePolicy(min_replicas=1,
+                                                max_replicas=2, window=2,
+                                                cooldown_s=0.1),
+               prefill_autoscale=AutoscalePolicy(min_replicas=0,
+                                                 max_replicas=1, window=2,
+                                                 cooldown_s=0.1))
+    zero_launches()
+    hs = [r.submit(p) for p in a]
+    l3_drive(r, "(c) autoscale burst")
+    deadline = time.monotonic() + 60
+    while not (len(r._active_ctls("prefill")) == 0
+               and len(r._active_ctls("decode")) == 1):
+        if time.monotonic() > deadline:
+            fail(f"3l (c) autoscale: no scale-down ({r.autoscale_log})")
+        r.tick()
+        time.sleep(0.02)
+    zero_state = [c.state() for c in r._tier_ctls("prefill")]
+    t0 = time.perf_counter()
+    cold = r.submit(first[40])
+    l3_drive(r, "(c) cold start")
+    cold_wall = time.perf_counter() - t0
+    add(read_launches())
+    share = l3_outcome(hs, want[:32], "(c) autoscale", gate_equal=False)
+    l3_outcome([cold], [want[40]], "(c) cold start", gate_equal=False)
+    log = r.autoscale_log
+    dirs = [(e["tier"], e["direction"]) for e in log]
+    if not (("decode", "up") in dirs and ("decode", "down") in dirs
+            and zero_state == ["stopped"] and ("prefill", "up") in dirs):
+        fail(f"3l (c) autoscale: {dirs}, prefill {zero_state}")
+    line(dict(phase="3l", arm="autoscale", requests=len(a) + 1,
+              log=log, prefill_at_zero=zero_state,
+              token_equal_share=share,
+              cold_start_s=[e.get("cold_start_s") for e in log
+                            if e["tier"] == "prefill"
+                            and e["direction"] == "up"],
+              cold_request_wall_s=cold_wall,
+              lost=r.stats["shed_outage"] + r.stats["shed_overload"]))
+    r.close()
+    del r, hs
+    return first, want1
+
+
+def l3_spawn(specs):
+    """SubprocessReplicas, all started at once (each start is a process,
+    a torch import and a CUDA context): (replicas, seconds)."""
+    from deeplearning4j_tpu_torch.serving import SubprocessReplica
+    out, errs = [None] * len(specs), []
+
+    def start(i, spec):
+        try:
+            out[i] = SubprocessReplica(i, spec,
+                                       startup_timeout_s=L3_WAIT_S / 2)
+        except Exception as e:
+            errs.append(f"replica {i}: {type(e).__name__}: {e}")
+    t0 = time.perf_counter()
+    ts = [threading.Thread(target=start, args=(i, s))
+          for i, s in enumerate(specs)]
+    for t in ts:
+        t.start()
+    for t in ts:
+        t.join(L3_WAIT_S)
+    return out, errs, time.perf_counter() - t0
+
+
+def l3_subprocess(torch, prompts, want, shared, shared_want):
+    """3l (d): SubprocessReplicas on the card. Every child is killed on
+    every way out of this function. A router over subprocess replicas
+    has no engine to read the default budget from (the reference's
+    fallback is 32 tokens), so every submit names its 64."""
+    from deeplearning4j_tpu_torch.serving import (FleetConfig, Router,
+                                                  TieredRouter)
+    base = {"cfg": L3_CFG, "params_seed": 0, "device": "cuda",
+            "progress_interval_s": 0.02}
+    # the tier workers admit what the pipe delivered within a 50 ms
+    # window, so the prefill worker seats the 16 requests as one wave, as
+    # the single one-shot paged engine of the reference does
+    # the plain pair warms up before its hello (flash_fwd and
+    # decode_attention loaded, from the build directory); a paged
+    # engine's warm-up ladder runs the 64-slot prefill at every bucket
+    # (a 6 GiB score block at 2048), which four workers on one card do
+    # not have room for at once, so the tier workers load at first use
+    specs = [dict(base, engine=L3_ENGINE, warmup=True),
+             dict(base, engine=L3_ENGINE, warmup=True),
+             dict(base, engine=dict(L3_PAGED, kv_pages=64 * 128 + 1,
+                                    batch_timeout_s=0.05)),
+             dict(base, engine=dict(L3_DECODE, batch_timeout_s=0.05))]
+    reps = []
+    try:
+        reps, errs, spawn_s = l3_spawn(specs)
+        if errs or any(r is None for r in reps):
+            fail(f"3l (d) workers did not start: {errs}")
+        for rep in reps:
+            h = rep.hello
+            if h.get("jax_loaded") is not False or \
+                    not str(h.get("device")).startswith("cuda") or \
+                    h["kernels"]["nvcc_runs"]:
+                fail(f"3l (d) worker {rep.id} hello: {h}")
+        line(dict(phase="3l", arm="workers", workers=len(reps),
+                  spawn_all_s=spawn_s, parent_memory_reserved=int(
+                      torch.cuda.memory_reserved()),
+                  cold_start_s=[r.cold_start_s for r in reps],
+                  library_origin=reps[0].hello["kernels"]["origin"],
+                  warmup_programs=[(r.last_warmup or {}).get("programs")
+                                   for r in reps]))
+        sp = prompts[:32]
+        # served over the pipes, probed over HTTP: equal to in-process
+        r = Router(replicas=reps[:2],
+                   config=FleetConfig(max_restarts=0, hang_min_s=30.0))
+        hs = [r.submit(p, max_new_tokens=64) for p in sp]
+        t0 = time.perf_counter()
+        l3_drive(r, "(d) subprocess fleet")
+        wall = time.perf_counter() - t0
+        l3_outcome(hs, want, "(d) subprocess fleet", gate_equal=True)
+        body = reps[0].probe()
+        if not (body.get("ready")
+                and body.get("num_slots") == L3_ENGINE["num_slots"]):
+            fail(f"3l (d) probe body {body}")
+        line(dict(phase="3l", arm="subprocess_fleet", requests=len(sp),
+                  token_equal=len(sp), wall_s=wall,
+                  tokens_per_s=len(sp) * 64 / wall,
+                  probe_url=reps[0].probe_url))
+        # SIGKILL one mid-decode: all complete, it stays dead
+        r = Router(replicas=reps[:2],
+                   config=FleetConfig(max_restarts=0, hang_min_s=30.0))
+        hs = [r.submit(p, max_new_tokens=64) for p in sp]
+        deadline = time.monotonic() + L3_WAIT_S
+        while not (r._ctls[0].outstanding and any(
+                len(h.inner.generated) > 0
+                for hops in r._ctls[0].outstanding.values()
+                for h in hops)):
+            if time.monotonic() > deadline:
+                fail("3l (d) sigkill: replica 0 never held work")
+            r.tick()
+            time.sleep(0.001)
+        reps[0].kill()
+        t0 = time.perf_counter()
+        l3_drive(r, "(d) sigkill")
+        share = l3_outcome(hs, want, "(d) sigkill", gate_equal=False)
+        for _ in range(5):
+            r.tick()
+        if r._ctls[0].state() != "dead" or r.stats["failovers"] < 1:
+            fail(f"3l (d) sigkill: {r._ctls[0].state()}, {r.stats}")
+        line(dict(phase="3l", arm="subprocess_sigkill", requests=len(sp),
+                  failovers=r.stats["failovers"],
+                  bf16_token_equal_share=share,
+                  kill_to_all_done_s=time.perf_counter() - t0,
+                  dead_stays_dead=True))
+        # a subprocess prefill tier -> a subprocess decode tier: KV as
+        # kvwire frames through the pipes
+        tp = shared[:16]
+        r = TieredRouter(replicas=reps[2:], tiers=["prefill", "decode"],
+                         config=FleetConfig(hang_min_s=30.0))
+        hs = [r.submit(p, max_new_tokens=64) for p in tp]
+        t0 = time.perf_counter()
+        l3_drive(r, "(d) cross-process tiers")
+        wall = time.perf_counter() - t0
+        l3_outcome(hs, shared_want, "(d) cross-process tiers",
+                   gate_equal=True)
+        ev = [[e.data for e in h.trace.events if e.kind == "kvwire"]
+              for h in hs]
+        dirs = [[(d.get("direction"), d.get("outcome")) for d in x]
+                for x in ev]
+        m = r._kvwire_metrics()
+        if not (r.stats["handoffs_ok"] == len(tp)
+                and all(x == [("export", "ok"), ("adopt", "ok")]
+                        for x in dirs)):
+            fail(f"3l (d) cross-process tiers: {r.stats}, {dirs[:4]}")
+        hand = [[e.data["seconds"] for e in h.trace.events
+                 if e.kind == "handoff"][0] for h in hs]
+        line(dict(phase="3l", arm="cross_process_tiers", requests=len(tp),
+                  token_equal=len(tp), frame_bytes=int(m["bytes"].value),
+                  frame_bytes_per_request=int(m["bytes"].value) / len(tp)
+                  / 2,
+                  export_wire_ms_per_request=1e3 * sum(
+                      x[0]["seconds"] for x in ev) / len(tp),
+                  adopt_encode_ms_per_request=1e3 * sum(
+                      x[1]["seconds"] for x in ev) / len(tp),
+                  handoff_ms_per_request=1e3 * sum(hand) / len(tp),
+                  wall_s=wall))
+        # SIGSTOP one (a hang): detected, SIGKILLed, failed over
+        r = Router(replicas=reps[2:],
+                   config=FleetConfig(max_restarts=0, hang_ticks=2,
+                                      hang_min_s=3.0))
+        hs = [r.submit(p, max_new_tokens=64) for p in sp[:16]]
+        deadline = time.monotonic() + L3_WAIT_S
+        while not r._ctls[1].outstanding:
+            if time.monotonic() > deadline:
+                fail("3l (d) sigstop: replica 3 never held work")
+            r.tick()
+        reps[3].set_hung(True)
+        t0 = time.perf_counter()
+        l3_drive(r, "(d) sigstop")
+        share = l3_outcome(hs, want, "(d) sigstop", gate_equal=False)
+        if r._ctls[1].state() != "dead" or r.stats["failovers"] < 1:
+            fail(f"3l (d) sigstop: {r._ctls[1].state()}, {r.stats}")
+        line(dict(phase="3l", arm="subprocess_sigstop", requests=len(hs),
+                  failovers=r.stats["failovers"],
+                  detect_and_finish_s=time.perf_counter() - t0,
+                  bf16_token_equal_share=share))
+    finally:
+        for rep in reps:
+            if rep is None:
+                continue
+            try:
+                rep.kill()
+            finally:
+                rep.close()
+
+
+def phase_fleet_full_width(torch, dev):
+    """Phase 3l (module docstring): (a) the flat fleet, (b) float32
+    exactness under fleet faults, (c) the tiers, (d) subprocess workers.
+    Returns the wrappers' launches by kernel."""
+    from deeplearning4j_tpu_torch.models import transformer as tf
+    cfg = tf.TransformerConfig(**L3_CFG)
+    rng = np.random.default_rng(0)                 # phase 3's traffic
+    lens = rng.integers(16, 1025, size=128)
+    prompts = [rng.integers(0, 256, size=int(n)).astype(np.int32)
+               for n in lens]
+    params = tf.init_params(cfg, seed=0, device=dev)
+    totals = {k: 0 for k in launch_counters()}
+
+    def add(got):
+        for k in totals:
+            totals[k] += got.get(k, 0)
+        return got
+
+    want, _, got, _ = l3_single(torch, cfg, params, dev, L3_ENGINE, prompts)
+    add(got)
+    l3_flat_fleet(torch, dev, cfg, params, prompts, want, add)
+    torch.cuda.empty_cache()
+    l3_f32(torch, dev)
+    shared, shared_want = l3_tiers(torch, dev, cfg, params, add)
+    torch.cuda.empty_cache()
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    l3_subprocess(torch, prompts, want, shared, shared_want)
+    line(dict(phase="3l", run="summary", launches=totals))
+    return totals
+
+
+# ---------------------------------------------------------------------------
 # phase 4: training
 # ---------------------------------------------------------------------------
 
@@ -6300,11 +7194,12 @@ def main() -> int:
     only = {"3h": phase_observability_full_width,
             "3i": phase_faults_full_width,
             "3j": phase_engine_control_full_width,
-            "3k": phase_cache_handoff_full_width}
+            "3k": phase_cache_handoff_full_width,
+            "3l": phase_fleet_full_width}
     if len(sys.argv) == 3 and sys.argv[1] == "--only" and \
             sys.argv[2] in only:
-        # a development run of phase 3h, 3i, 3j or 3k alone (no kernels
-        # line, no result); a full run takes no arguments
+        # a development run of phase 3h, 3i, 3j, 3k or 3l alone (no
+        # kernels line, no result); a full run takes no arguments
         line(dict(phase=sys.argv[2], launches=only[sys.argv[2]](
             torch, dev), wall_s=time.perf_counter() - t_run,
             tracer_marks=TRACER_MARKS_SEEN))
@@ -6361,9 +7256,12 @@ def main() -> int:
     t_k3 = time.perf_counter()
     k3_launches = phase_cache_handoff_full_width(torch, dev)
     t_k3 = time.perf_counter() - t_k3
+    t_l3 = time.perf_counter()
+    l3_launches = phase_fleet_full_width(torch, dev)
+    t_l3 = time.perf_counter() - t_l3
     for part in (spec_launches, paged_launches, pipe_launches, c_launches,
                  moe_launches, obs_launches, fault_launches, ctl_launches,
-                 k3_launches):
+                 k3_launches, l3_launches):
         for name, n in part.items():
             launches[name] = launches.get(name, 0) + n
     phase_train_f32_card_vs_cpu(torch, dev)
@@ -6440,7 +7338,8 @@ def main() -> int:
     line(dict(run="wall", wall_s=wall, moe_phases_s=new_phases,
               without_moe_phases_s=wall - sum(new_phases.values()),
               observability_phase_s=t_obs, fault_phase_s=t_fault,
-              engine_control_phase_s=t_ctl, cache_handoff_phase_s=t_k3))
+              engine_control_phase_s=t_ctl, cache_handoff_phase_s=t_k3,
+              fleet_phase_s=t_l3))
     print(card, flush=True)
     line({"kernels": kernels})
     line({"ok": True, "device": {"platform": "gpu",

@@ -20,10 +20,14 @@ The hostile-tenant storm generator (`StormArrival`,
 the scripted traffic that tenant QoS (fair-share prefill and priority
 preemption) is held to.
 
-Not ported yet: `FleetFaultInjector` (the fleet router's hooks: ROADMAP
-queue A item 11b), and the training side, `ElasticFaultInjector`,
-`PreemptionHandler`, `StepWatchdog` and `FaultTolerantTrainer` (items 12
-and 14).
+`FleetFaultInjector` (reference :324-446) is copied too: the fleet
+router's hooks (`serving.fleet.Router`, `serving.disagg.TieredRouter`)
+for replica kill, hang, slowdown, probe failure, a failed KV export and
+a corrupted kvwire frame.
+
+Not ported yet: the training side, `ElasticFaultInjector`,
+`PreemptionHandler`, `StepWatchdog` and `FaultTolerantTrainer` (ROADMAP
+queue A items 12 and 14).
 """
 from __future__ import annotations
 
@@ -268,6 +272,129 @@ class ServingFaultInjector(FaultInjector):
             raise TrainingFailure(
                 f"injected prefill-chunk fault at step {step}")
         self.on_prefill(step, request_ids)
+
+
+class FleetFaultInjector:
+    """Fleet-level deterministic fault injection (reference :324-446),
+    the router-hook analog of `ServingFaultInjector`: `serving/fleet.py`'s
+    `Router` consults it at the start of every scheduling tick (and at
+    every probe), so replica-loss scenarios that would need a real
+    crashed host replay deterministically on the CPU
+    (tests/test_torch_fleet.py).
+
+    Knobs (router-TICK indexed where time matters):
+
+    - ``kill_at``: ``{tick: replica_id}`` — the replica crashes at the
+      start of that router tick. In-process replicas are marked dead
+      (their engine, and every in-flight request's device state, is
+      abandoned exactly as a crashed process would abandon it);
+      subprocess replicas take a real SIGKILL. The router's contract
+      under test: every in-flight request fails over to a survivor
+      from its committed prefix — at most one retried dispatch, zero
+      lost requests.
+    - ``hang_at``: ``{tick: replica_id}`` — the replica stops making
+      progress while staying alive and (in-process) answering probes:
+      the wedged-grant failure mode a liveness probe cannot see.
+      Subprocess replicas are SIGSTOPped (probes time out too). The
+      router's no-progress detector must declare it hung and fail
+      over.
+    - ``slow_at``: ``{tick: (replica_id, seconds)}`` — from that tick
+      on, every scheduling step of the replica stalls ``seconds``
+      (in-process replicas only): the gray-failure mode hedged
+      dispatch exists for.
+    - ``fail_probe``: ``{replica_id: n}`` — the replica's next ``n``
+      probes fail (the router must take it out of rotation WITHOUT
+      killing it, and return it when probes recover).
+    - ``handoff_fail_at``: handoff sequence indices (0-based, counted
+      across the tiered router's lifetime) whose KV EXPORT from the
+      prefill-tier replica fails. The contract under test:
+      the request is never lost — the decode dispatch falls back to
+      re-prefilling the committed prefix, token-exactly, and the
+      handoff is counted ``outcome="failed"``.
+    - ``corrupt_frame_at``: handoff sequence indices whose EXPORTED
+      kvwire frame is corrupted in flight: the tiered
+      router runs the exported handoff through a real encode ->
+      flip-one-payload-byte -> decode round trip, so the frame's
+      CRC32 check — not a mock — rejects it. Contract under test:
+      typed ``WireError(kind="crc")``, a ``kvwire`` trace event, the
+      handoff counted ``outcome="failed"``, and the request completes
+      token-exactly via re-prefill.
+    """
+
+    def __init__(self, kill_at: Optional[dict] = None,
+                 hang_at: Optional[dict] = None,
+                 slow_at: Optional[dict] = None,
+                 fail_probe: Optional[dict] = None,
+                 handoff_fail_at: Iterable[int] = (),
+                 corrupt_frame_at: Iterable[int] = ()):
+        self.kill_at = {int(k): int(v)
+                        for k, v in (kill_at or {}).items()}
+        self.hang_at = {int(k): int(v)
+                        for k, v in (hang_at or {}).items()}
+        self.slow_at = {int(k): (int(v[0]), float(v[1]))
+                        for k, v in (slow_at or {}).items()}
+        self.fail_probe = {int(k): int(v)
+                           for k, v in (fail_probe or {}).items()}
+        self.handoff_fail_at = set(int(i) for i in handoff_fail_at)
+        self.corrupt_frame_at = set(int(i) for i in corrupt_frame_at)
+        self.kills_injected = 0
+        self.hangs_injected = 0
+        self.slows_injected = 0
+        self.probe_failures_injected = 0
+        self.handoffs_failed = 0
+        self.frames_corrupted = 0
+
+    def check_kill(self, tick: int) -> Optional[int]:
+        """One-shot: the replica id to crash at ``tick``, else None."""
+        rid = self.kill_at.pop(int(tick), None)
+        if rid is not None:
+            self.kills_injected += 1
+        return rid
+
+    def check_hang(self, tick: int) -> Optional[int]:
+        """One-shot: the replica id to wedge at ``tick``, else None."""
+        rid = self.hang_at.pop(int(tick), None)
+        if rid is not None:
+            self.hangs_injected += 1
+        return rid
+
+    def check_slow(self, tick: int) -> Optional[tuple]:
+        """One-shot: ``(replica_id, seconds)`` to slow from ``tick``
+        on, else None."""
+        v = self.slow_at.pop(int(tick), None)
+        if v is not None:
+            self.slows_injected += 1
+        return v
+
+    def check_handoff(self, seq: int) -> bool:
+        """One-shot: True when the ``seq``-th handoff's KV export
+        should fail (the tiered router then falls back to
+        re-prefilling on the decode tier)."""
+        if int(seq) in self.handoff_fail_at:
+            self.handoff_fail_at.discard(int(seq))
+            self.handoffs_failed += 1
+            return True
+        return False
+
+    def check_corrupt_frame(self, seq: int) -> bool:
+        """One-shot: True when the ``seq``-th handoff's exported
+        kvwire frame should be corrupted in flight (the CRC check
+        rejects it and the decode tier re-prefills)."""
+        if int(seq) in self.corrupt_frame_at:
+            self.corrupt_frame_at.discard(int(seq))
+            self.frames_corrupted += 1
+            return True
+        return False
+
+    def check_probe(self, replica_id: int) -> bool:
+        """True when this probe of ``replica_id`` should fail
+        (decrements that replica's remaining failure budget)."""
+        n = self.fail_probe.get(int(replica_id), 0)
+        if n > 0:
+            self.fail_probe[int(replica_id)] = n - 1
+            self.probe_failures_injected += 1
+            return True
+        return False
 
 
 @dataclass(frozen=True)

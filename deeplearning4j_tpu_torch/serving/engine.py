@@ -229,9 +229,9 @@ its committed rows (and scales) to the host as a `KVHandoff`;
 them into fresh pages (no prefill), shedding it typed ``handoff`` when
 misaligned or faulted; `export_cached_chain` / `seed_cached_chain` move
 prefix-cache chains. ``serving_kv_adoptions{outcome}`` counts adoptions.
-`serving.kvwire` carries handoffs between processes. The fleet router,
-its workers and the disaggregated tiers wait for ROADMAP queue A item
-11b.
+`serving.kvwire` carries handoffs between processes: the fleet router's
+subprocess workers (`serving.fleet`, `serving.fleet_worker`) and the
+disaggregated prefill/decode tiers (`serving.disagg`) drive these calls.
 
 Grammar-constrained decoding (``submit(..., constrain=regex or spec
 dict)``, reference :1841-1935, :2030-2180): `submit` compiles the
@@ -906,6 +906,8 @@ class RequestHandle:
         # result() waiters wake, so a caller that sees done() sees a
         # complete trace (reference :737)
         cb, self._on_terminal = self._on_terminal, None
+        if isinstance(cb, weakref.WeakMethod):
+            cb = cb()
         if cb is not None:
             try:
                 cb(self)
@@ -2014,7 +2016,10 @@ class InferenceEngine:
             handle._kv = kv
             handle.trace = self.recorder.start_trace(handle.rid,
                                                      ctx=trace_ctx)
-            handle._on_terminal = self._on_terminal
+            # held weakly: an engine abandoned with requests in flight
+            # (a fleet replica's simulated crash) is freed by its last
+            # reference, not by the cyclic collector
+            handle._on_terminal = weakref.WeakMethod(self._on_terminal)
             handle.trace.add(
                 "submit", prompt_tokens=int(prompt.shape[0]),
                 max_new_tokens=int(eff),

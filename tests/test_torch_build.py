@@ -11,6 +11,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from torch_threads import one_torch_thread  # noqa: E402,F401
+
 from deeplearning4j_tpu_torch.ops import _build  # noqa: E402
 from deeplearning4j_tpu_torch.ops import flash_attention as tfa  # noqa: E402
 

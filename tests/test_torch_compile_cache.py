@@ -36,6 +36,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from torch_threads import one_torch_thread  # noqa: E402,F401
+
 import jax  # noqa: E402
 
 from deeplearning4j_tpu.models import transformer as jtf  # noqa: E402

@@ -27,6 +27,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from torch_threads import one_torch_thread  # noqa: E402,F401
+
 from deeplearning4j_tpu.serving import engine as jeng  # noqa: E402
 from deeplearning4j_tpu.serving import kvwire as jwire  # noqa: E402
 

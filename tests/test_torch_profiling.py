@@ -21,6 +21,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from torch_threads import one_torch_thread  # noqa: E402,F401
+
 from deeplearning4j_tpu.observability import export as jex  # noqa: E402
 from deeplearning4j_tpu.observability import metrics as jme  # noqa: E402
 from deeplearning4j_tpu.observability import profiling as jprof  # noqa

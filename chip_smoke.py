@@ -6,8 +6,9 @@
 Drives the port's serving path (plain, speculative, paged with the
 prefix cache, chunked prefill, grammar-constrained, mixture of experts),
 its train step (dense and MoE), the GravesLSTM char-RNN's
-training through MultiLayerNetwork and the two kernel experiments on the
-card and fails (non-zero exit, no result line) if anything is wrong:
+training through MultiLayerNetwork, the DSL's CNN training path (LeNet,
+VGG16-CIFAR, a DSL transformer, the training tools) and the two kernel
+experiments on the card and fails (non-zero exit, no result line) if anything is wrong:
 
 0. Build: every csrc/*.cu at once; then one line per tensor-core
    library (flash_fwd, flash_bwd, flash_bwd_packed2, decode_attention,
@@ -475,6 +476,31 @@ card and fails (non-zero exit, no result line) if anything is wrong:
    One more minibatch runs under torch.profiler. The same pool with
    lstm_wavefront on (its chars/s; the kernel must not launch), then 200
    characters sampled by rnn_time_step at B=1 (2 launches a step).
+5d. The DSL's CNN training path through MultiLayerNetwork (`--only 5d`
+   runs the build and this phase alone). (a) float32 card vs CPU from one
+   set of weights: a narrow LeNet (4 / 8 filters, dense 32) and a narrow
+   CNN with BN, LRN and dropout (dropout's units are a function of its
+   seed, the same on both devices), 3 fit steps each on synthetic MNIST
+   (scores, params and BN state within 1e-4), and 3 LBFGS iterations on
+   mlp_mnist (scores within 1e-4 relative, params within 1e-3). (b)
+   lenet_mnist bf16 at bench.py's shapes (B=4096, a pool of 15 synthetic
+   MNIST minibatches): fit_batched 2 epochs after a warm pass (examples/s,
+   ms a step, fit_batched_cost's FLOPs a step and their share of the bf16
+   peak, peak memory; scores finite and falling), then one epoch of
+   fit(MnistDataSetIterator) with ScoreIterationListener and
+   PerformanceListener and evaluate on the synthetic test set (accuracy >
+   0.5). (c) VGG16-CIFAR as benchmarks/flagship.py:131-158 builds it
+   (B=512, a pool of 4, bf16): fit_batched 2 epochs after a warm pass,
+   the same figures. (d) two causal TransformerBlocks and an
+   RnnOutputLayer (d 512, 8 heads, T=1024, B=16, bf16), 3 fit steps: the
+   flash forward and backward wrappers launch exactly once a block a
+   step. (e) A NaN batch under a TrainingGuard (SKIP, params bit-equal),
+   a model-serializer round trip (bit-equal), EarlyStoppingTrainer with a
+   LocalFileModelSaver on the narrow LeNet (the restored best model's
+   output bit-equal to the saved one's), and early stopping over phase
+   5b's float32 char-RNN with lstm_wavefront off (exactly 2 lstm_scan
+   launches a chunk). Every 5d line carries the card's name and power
+   limit.
 6. The two kernel experiments' main() at full shape
    (`deeplearning4j_tpu_torch.benchmarks.headpack_experiment`: production
    vs packed q512 vs production q512; `decode_kernel_sweep --bandwidth`,
@@ -485,8 +511,8 @@ card and fails (non-zero exit, no result line) if anything is wrong:
 7. Summary: the MoE phases' launches by kernel (`moe_launches`); one
    line of the graph replays of every gated run and of the serving
    device functions' launches in the profiled ticks' traces; the run's
-   wall time, the MoE phases', the rest's, phase 3h's, 3i's, 3j's, 3k's
-   and 3l's (`wall`, `fleet_phase_s`);
+   wall time, the MoE phases', the rest's, phase 3h's, 3i's, 3j's, 3k's,
+   3l's and 5d's (`wall`, `fleet_phase_s`, `dsl_cnn_phase_s`);
    one `kernels` JSON line (decode_attention_q and decode_window_q among
    them; `launches` the wrappers' counts, 3j's included,
    `device_launches_profiled`
@@ -7154,6 +7180,413 @@ def phase_lstm_full_width(torch, dev, epochs=3):
 
 
 # ---------------------------------------------------------------------------
+# phase 5d: the DSL's CNN training path (MultiLayerNetwork)
+# ---------------------------------------------------------------------------
+
+# the card's nvidia-smi line (name, power limit), beside every 5d number
+CARD = "nvidia-smi unavailable"
+D5_TOL = 1e-4          # f32 card vs CPU: scores, params, BN state
+
+
+def d5_line(**rec):
+    line(dict(phase="5d", card=CARD, **rec))
+
+
+def d5_np(tree):
+    return {k: {n: t.detach().float().cpu().numpy() for n, t in v.items()}
+            for k, v in tree.items()}
+
+
+def d5_tree_err(a, b):
+    """Largest |a - b| over two {layer: {name: tensor}} trees."""
+    return max([max_err(a[k][n].cpu(), b[k][n].cpu())
+                for k in b for n in b[k]] or [0.0])
+
+
+def d5_narrow_lenet(dtype="float32"):
+    from deeplearning4j_tpu_torch.models.zoo import lenet_mnist
+    conf = lenet_mnist(dtype=dtype)
+    conf.layers[0].n_out, conf.layers[2].n_out = 4, 8
+    conf.layers[4].n_out = 32
+    return conf
+
+
+def d5_bn_lrn_cnn():
+    """A narrow CNN through every normalization and dropout path: conv,
+    BN, LRN, max pool, a conv with input dropout, BN, avg pool, a dropout
+    layer, dense, softmax."""
+    from deeplearning4j_tpu_torch.nn import layers as L
+    from deeplearning4j_tpu_torch.nn.conf.configuration import \
+        NeuralNetConfiguration
+    from deeplearning4j_tpu_torch.nn.conf.inputs import InputType
+    return (NeuralNetConfiguration(seed=21, updater="nesterovs",
+                                   learning_rate=0.01, momentum=0.9)
+            .list(L.ConvolutionLayer(n_out=8, kernel_size=(5, 5),
+                                     convolution_mode="same",
+                                     activation="relu"),
+                  L.BatchNormalization(),
+                  L.LocalResponseNormalization(n=5, alpha=1e-3),
+                  L.SubsamplingLayer(kernel_size=(2, 2), stride=(2, 2)),
+                  L.ConvolutionLayer(n_out=16, kernel_size=(3, 3),
+                                     stride=(2, 2), convolution_mode="same",
+                                     activation="relu", dropout=0.2),
+                  L.BatchNormalization(),
+                  L.SubsamplingLayer(pooling_type="avg", kernel_size=(2, 2),
+                                     stride=(2, 2)),
+                  L.DropoutLayer(rate=0.3),
+                  L.DenseLayer(n_out=32, activation="relu"),
+                  L.OutputLayer(n_out=10, activation="softmax"))
+            .set_input_type(InputType.convolutional_flat(28, 28, 1)))
+
+
+def d5_card_and_cpu(dev, conf_fn):
+    """The network on the CPU and on the card from one set of weights."""
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+    cpu = MultiLayerNetwork(conf_fn(), device="cpu").init()
+    card = MultiLayerNetwork(conf_fn(), device=dev)
+    card.set_params_from_numpy(d5_np(cpu.params))
+    card.set_state_from_numpy(d5_np(cpu.state))
+    return cpu, card
+
+
+def d5_f32_card_vs_cpu(torch, dev):
+    """(a) float32 card vs CPU: the narrow LeNet and the BN / LRN /
+    dropout CNN, 3 fit steps each on synthetic MNIST (scores, params and
+    BN state within D5_TOL; dropout's units are a function of its seed,
+    the same on both devices), then 3 LBFGS iterations on mlp_mnist."""
+    from deeplearning4j_tpu_torch.datasets import MnistDataSetIterator
+    from deeplearning4j_tpu_torch.models.zoo import mlp_mnist
+    from deeplearning4j_tpu_torch.train.listeners import \
+        CollectScoresIterationListener
+    it = MnistDataSetIterator(32, num_examples=96)
+    batches = [(b.features, b.labels) for b in it]
+    for name, conf_fn in (("lenet_narrow_4_8_32", d5_narrow_lenet),
+                          ("cnn_bn_lrn_dropout", d5_bn_lrn_cnn)):
+        cpu, card = d5_card_and_cpu(dev, conf_fn)
+        sc = {"cpu": [], "cuda": []}
+        for x, y in batches:
+            for key, net in (("cpu", cpu), ("cuda", card)):
+                net.fit(x, y)
+                sc[key].append(float(net.score_value))
+        s_err = max(abs(a - b) for a, b in zip(sc["cpu"], sc["cuda"]))
+        p_err = d5_tree_err(card.params, cpu.params)
+        st_err = d5_tree_err(card.state, cpu.state)
+        d5_line(part="a", net=name, steps=len(batches), batch=32,
+                scores_cuda=sc["cuda"], scores_cpu=sc["cpu"],
+                score_max_abs_err=s_err, param_max_abs_err=p_err,
+                state_max_abs_err=st_err, tol=D5_TOL)
+        if not (s_err <= D5_TOL and p_err <= D5_TOL and st_err <= D5_TOL):
+            fail(f"5d {name}: card vs CPU scores {s_err}, params {p_err}, "
+                 f"state {st_err} (tol {D5_TOL})")
+    # LBFGS: the line search compares scores, so a step accepted on one
+    # device and not the other would show as a score gap
+    def lbfgs():
+        conf = mlp_mnist()
+        conf.training.optimization_algo = "lbfgs"
+        conf.training.num_iterations = 3
+        return conf
+    cpu, card = d5_card_and_cpu(dev, lbfgs)
+    big = MnistDataSetIterator(256, num_examples=256)
+    x, y = big.features, big.labels
+    got = {}
+    for key, net in (("cpu", cpu), ("cuda", card)):
+        col = CollectScoresIterationListener()
+        net.set_listeners(col)
+        net.fit(x, y)
+        got[key] = [s for _, s in col.scores]
+    rel = max(abs(a - b) / max(abs(a), 1e-12)
+              for a, b in zip(got["cpu"], got["cuda"]))
+    p_err = d5_tree_err(card.params, cpu.params)
+    d5_line(part="a", net="mlp_mnist_lbfgs_3", batch=256,
+            scores_cuda=got["cuda"], scores_cpu=got["cpu"],
+            score_max_rel_err=rel, param_max_abs_err=p_err,
+            tol="scores within 1e-4 relative, params within 1e-3")
+    if len(got["cpu"]) != len(got["cuda"]) or not got["cpu"] or \
+            rel > 1e-4 or p_err > 1e-3:
+        fail(f"5d LBFGS card vs CPU: {got}, params {p_err}")
+
+
+def d5_timed_fit_batched(torch, net, xs, ys, epochs, batch):
+    """One warm pass, then `epochs` timed passes of fit_batched: the
+    record of examples/s, ms a step, the flop share, peak memory."""
+    warm = net.fit_batched(xs, ys, epochs=1)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    scores = net.fit_batched(xs, ys, epochs=epochs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    steps = xs.shape[0] * epochs
+    cost = net.fit_batched_cost(xs[:1], ys[:1])
+    sc = [float(v) for v in scores]
+    return dict(batch=batch, pool=int(xs.shape[0]), epochs=epochs,
+                wall_s=wall, examples_per_s=batch * steps / wall,
+                ms_per_step=wall / steps * 1e3,
+                flops_per_step=cost["flops"],
+                bf16_peak_share=cost["flops"] * steps / wall
+                / PEAK_FLOPS["bfloat16"],
+                peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+                warm_scores=[float(v) for v in warm], scores=sc)
+
+
+def d5_lenet_full_width(torch, dev, b=4096, pool=15, test_n=10000):
+    """(b) lenet_mnist bf16 at bench.py's shapes: B=4096, a pool of 15
+    minibatches (one synthetic MNIST epoch, 61,440 examples), fit_batched
+    2 epochs after a warm pass; then one epoch of fit(MnistDataSetIterator)
+    with ScoreIterationListener and PerformanceListener, and evaluate."""
+    from deeplearning4j_tpu_torch.datasets import MnistDataSetIterator
+    from deeplearning4j_tpu_torch.models.zoo import lenet_mnist
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+    from deeplearning4j_tpu_torch.observability.metrics import \
+        MetricsRegistry
+    from deeplearning4j_tpu_torch.train.listeners import (
+        PerformanceListener, ScoreIterationListener)
+    it = MnistDataSetIterator(b, num_examples=b * pool)
+    net = MultiLayerNetwork(lenet_mnist(dtype="bfloat16"), device=dev).init()
+    xs = torch.from_numpy(it.features.reshape(pool, b, 784)).to(dev)
+    ys = torch.from_numpy(it.labels.reshape(pool, b, 10)).to(dev)
+    rec = d5_timed_fit_batched(torch, net, xs, ys, 2, b)
+    sc, warm = rec["scores"], rec["warm_scores"]
+    d5_line(part="b", config="lenet_mnist bf16", synthetic=it.synthetic,
+            **{k: v for k, v in rec.items()
+               if k not in ("scores", "warm_scores")},
+            first_scores=warm[:3], last_scores=sc[-3:])
+    if not (np.all(np.isfinite(sc)) and np.mean(sc[-pool:])
+            < np.mean(warm)):
+        fail(f"5d LeNet scores not finite or not falling: {warm} {sc}")
+    reg = MetricsRegistry()
+    perf = PerformanceListener(frequency=5, report=False, registry=reg)
+    net.set_listeners(ScoreIterationListener(5, registry=reg), perf)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    net.fit(it)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    net.set_listeners()
+    test = MnistDataSetIterator(b, train=False, num_examples=test_n)
+    ev = net.evaluate(test)
+    acc = ev.accuracy()
+    d5_line(part="b", run="fit_iterator_and_evaluate",
+            examples=it.num_examples(), wall_s=wall,
+            examples_per_s=it.num_examples() / wall,
+            listener_samples_per_s=perf.last_samples_per_sec,
+            training_score=reg.get("training_score").value,
+            training_samples=reg.get("training_samples").value,
+            accuracy=acc, f1=ev.f1(), eval_examples=int(
+                ev.confusion.matrix.sum()))
+    if not acc > 0.5:
+        fail(f"5d LeNet accuracy {acc} after 4 epochs (gate > 0.5)")
+    if reg.get("training_samples").value != it.num_examples():
+        fail("5d PerformanceListener counted "
+             f"{reg.get('training_samples').value} samples")
+    del net, xs, ys
+    torch.cuda.empty_cache()
+
+
+def d5_vgg16_full_width(torch, dev, b=512, pool=4):
+    """(c) VGG16-CIFAR as benchmarks/flagship.py:131-158 builds it:
+    vgg16(include_top=False, 32 x 32) + dense 512 + softmax 10, bf16,
+    B=512, a pool of 4, fit_batched 2 epochs after a warm pass."""
+    from deeplearning4j_tpu_torch.modelimport.trained_models import vgg16
+    from deeplearning4j_tpu_torch.nn.layers import DenseLayer, OutputLayer
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+    conf = vgg16(num_classes=10, include_top=False, height=32, width=32,
+                 dtype="bfloat16")
+    conf.layers.append(DenseLayer(name="fc", n_out=512, activation="relu"))
+    conf.layers.append(OutputLayer(name="out", n_out=10,
+                                   activation="softmax",
+                                   loss_function="mcxent"))
+    net = MultiLayerNetwork(conf, device=dev).init()
+    rng = np.random.default_rng(0)                # flagship.py:147-149
+    xs = torch.from_numpy(rng.random((pool, b, 32, 32, 3),
+                                     dtype=np.float32)).to(dev)
+    ys = torch.nn.functional.one_hot(torch.from_numpy(
+        rng.integers(0, 10, (pool, b))), 10).float().to(dev)
+    rec = d5_timed_fit_batched(torch, net, xs, ys, 2, b)
+    sc = rec.pop("scores")
+    d5_line(part="c", config="vgg16_cifar bf16 (+fc 512, softmax 10)",
+            **{k: v for k, v in rec.items() if k != "warm_scores"},
+            scores=sc)
+    if not np.all(np.isfinite(sc)):
+        fail(f"5d VGG16 scores not finite: {sc}")
+    del net, xs, ys
+    torch.cuda.empty_cache()
+
+
+def d5_transformer(torch, dev, d=512, heads=8, t=1024, b=16):
+    """(d) a MultiLayerNetwork of two causal TransformerBlocks and an
+    RnnOutputLayer at d 512, 8 heads, T=1024, B=16, bf16: 3 fit steps;
+    the flash forward and backward wrappers launch once a block a step."""
+    from deeplearning4j_tpu_torch.nn import layers as L
+    from deeplearning4j_tpu_torch.nn.conf.configuration import \
+        NeuralNetConfiguration
+    from deeplearning4j_tpu_torch.nn.conf.inputs import InputType
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+    from deeplearning4j_tpu_torch.ops import flash_attention as fa
+    v, blocks, steps = 256, 2, 3
+    conf = (NeuralNetConfiguration(seed=5, updater="adam",
+                                   learning_rate=1e-3, dtype="bfloat16")
+            .list(*[L.TransformerBlock(n_heads=heads, causal=True)
+                    for _ in range(blocks)],
+                  L.RnnOutputLayer(n_out=v, activation="softmax"))
+            .set_input_type(InputType.recurrent(d, t)))
+    net = MultiLayerNetwork(conf, device=dev).init()
+    g = torch.Generator(device="cpu").manual_seed(9)
+    x = torch.randn((b, t, d), generator=g).to(dev)
+    ids = torch.randint(0, v, (b, t), generator=g).to(dev)
+    y = torch.nn.functional.one_hot(ids, v).float()
+    net.fit(x, y)                                     # warm
+    torch.cuda.synchronize()
+    fa.flash_forward_cuda.launches = 0
+    fa.flash_backward_cuda.launches = 0
+    t0 = time.perf_counter()
+    scores = []
+    for _ in range(steps):
+        net.fit(x, y)
+        scores.append(float(net.score_value))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    fwd, bwd = fa.flash_forward_cuda.launches, fa.flash_backward_cuda.launches
+    d5_line(part="d", config="2 x TransformerBlock d512 h8 + RnnOutput",
+            batch=b, seq=t, steps=steps, wall_s=wall,
+            ms_per_step=wall / steps * 1e3,
+            tokens_per_s=b * t * steps / wall, scores=scores,
+            flash_fwd_launches=fwd, flash_bwd_launches=bwd)
+    if fwd != blocks * steps or bwd != blocks * steps:
+        fail(f"5d transformer: {fwd} forward / {bwd} backward flash "
+             f"launches in {steps} steps of {blocks} blocks")
+    if not (np.all(np.isfinite(scores)) and scores[-1] < scores[0]):
+        fail(f"5d transformer scores {scores}")
+    del net
+    torch.cuda.empty_cache()
+    return {"flash_fwd": fwd, "flash_bwd": bwd}
+
+
+def d5_tools(torch, dev):
+    """(e) The guard, early stopping, the serializer and the char-RNN
+    under early stopping on the card."""
+    import tempfile
+    from deeplearning4j_tpu_torch import earlystopping as es
+    from deeplearning4j_tpu_torch.datasets import MnistDataSetIterator
+    from deeplearning4j_tpu_torch.datasets.iterators import \
+        BaseDatasetIterator
+    from deeplearning4j_tpu_torch.models.zoo import char_rnn_lstm
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+    from deeplearning4j_tpu_torch.ops import lstm as tl
+    from deeplearning4j_tpu_torch.observability.metrics import \
+        MetricsRegistry
+    from deeplearning4j_tpu_torch.train.guard import TrainingGuard
+    from deeplearning4j_tpu_torch.util import model_serializer as ms
+    it = MnistDataSetIterator(64, num_examples=256)
+    x, y = it.features[:64], it.labels[:64]
+    # a NaN batch under the guard: SKIP, the tree bit-equal
+    net = MultiLayerNetwork(d5_narrow_lenet(), device=dev).init()
+    guard = TrainingGuard(registry=MetricsRegistry())
+    net.set_training_guard(guard)
+    net.fit(x, y)
+    before = {k: {n: p.clone() for n, p in v.items()}
+              for k, v in net.params.items()}
+    bad = x.copy()
+    bad[0, 0] = np.nan
+    net.fit(bad, y)
+    same = all(torch.equal(net.params[k][n], before[k][n])
+               for k in before for n in before[k])
+    net.fit(x, y)
+    d5_line(part="e", run="guard_nan_batch", last_reason=guard.last_reason,
+            accepted=guard.accepted_steps, params_bit_equal_after_skip=same,
+            iteration_count=net.iteration_count)
+    if not same or guard.accepted_steps != 2 or net.iteration_count != 3:
+        fail("5d guard: the NaN batch changed the tree or was not skipped")
+    net.set_training_guard(None)
+    with tempfile.TemporaryDirectory() as tmp:
+        # the serializer round trip, bit-equal
+        path = os.path.join(tmp, "lenet.zip")
+        ms.write_model(net, path)
+        back = ms.restore_multi_layer_network(path, device=dev)
+        eq = all(torch.equal(getattr(back, t)[k][n], getattr(net, t)[k][n])
+                 for t in ("params", "state")
+                 for k in getattr(net, t) for n in getattr(net, t)[k])
+        out_eq = torch.equal(back.output(x), net.output(x))
+        d5_line(part="e", run="serializer_round_trip", trees_bit_equal=eq,
+                output_bit_equal=out_eq, bytes=os.path.getsize(path))
+        if not (eq and out_eq):
+            fail("5d serializer round trip is not bit-equal")
+        # early stopping with a local-file saver: the restored best model
+        # gives the saved model's output, bit for bit
+        probe = torch.from_numpy(x).to(dev)
+        saved = {}
+
+        class Saver(es.LocalFileModelSaver):
+            def save_best_model(self, n, score):
+                saved["out"] = n.output(probe).clone()
+                super().save_best_model(n, score)
+
+        net = MultiLayerNetwork(d5_narrow_lenet(), device=dev).init()
+        cfg = es.EarlyStoppingConfiguration(
+            epoch_termination_conditions=[
+                es.MaxEpochsTerminationCondition(4)],
+            score_calculator=es.DataSetLossCalculator(
+                BaseDatasetIterator(it.features[:128], it.labels[:128],
+                                    64)),
+            model_saver=Saver(os.path.join(tmp, "es")))
+        res = es.EarlyStoppingTrainer(cfg, net, it).fit()
+        best_eq = torch.equal(res.best_model.output(probe), saved["out"])
+        d5_line(part="e", run="early_stopping_lenet",
+                reason=res.termination_reason, best_epoch=res.best_model_epoch,
+                total_epochs=res.total_epochs,
+                scores=res.score_vs_epoch, best_output_bit_equal=best_eq)
+        if not best_eq or res.total_epochs != 4:
+            fail(f"5d early stopping: best model output equal {best_eq}, "
+                 f"{res.total_epochs} epochs")
+    # early stopping over phase 5b's float32 char-RNN, lstm_wavefront off
+    b, t, n_batches, epochs = 32, 64, 3, 2
+    net = MultiLayerNetwork(char_rnn_lstm(CHAR_V, hidden=CHAR_H, layers=2,
+                                          tbptt_length=32,
+                                          learning_rate=0.01), device=dev)
+    net.init()
+    net.lstm_wavefront = False
+    rng = np.random.default_rng(12)
+    eye = np.eye(CHAR_V, dtype=np.float32)
+    ids = rng.integers(0, CHAR_V, (n_batches * b, t))
+    data = BaseDatasetIterator(eye[ids], eye[np.roll(ids, -1, axis=1)], b)
+    cfg = es.EarlyStoppingConfiguration(
+        epoch_termination_conditions=[
+            es.MaxEpochsTerminationCondition(epochs)],
+        iteration_termination_conditions=[
+            es.InvalidScoreIterationTerminationCondition()])
+    tl.lstm_scan_cuda.launches = 0
+    res = es.EarlyStoppingTrainer(cfg, net, data).fit()
+    n_lstm = tl.lstm_scan_cuda.launches
+    chunks = epochs * n_batches * (t // 32)
+    d5_line(part="e", run="early_stopping_char_rnn", reason=
+            res.termination_reason, total_epochs=res.total_epochs,
+            scores=res.score_vs_epoch, chunks=chunks,
+            lstm_scan_launches=n_lstm)
+    if n_lstm != 2 * chunks or res.total_epochs != epochs:
+        fail(f"5d char-RNN early stopping: {n_lstm} lstm_scan launches for "
+             f"{chunks} chunks of 2 layers")
+    del net
+    torch.cuda.empty_cache()
+    return {"lstm_scan": n_lstm}
+
+
+def phase_dsl_cnn(torch, dev):
+    """5d. The DSL's CNN training path: (a) f32 card vs CPU, (b) LeNet and
+    (c) VGG16-CIFAR at full width, (d) a DSL transformer's flash
+    launches, (e) the tools. Returns the main-path kernels' launches
+    (flash forward / backward from (d), lstm_scan from (e))."""
+    t0 = time.perf_counter()
+    d5_f32_card_vs_cpu(torch, dev)
+    d5_lenet_full_width(torch, dev)
+    d5_vgg16_full_width(torch, dev)
+    launches = d5_transformer(torch, dev)
+    launches.update(d5_tools(torch, dev))
+    d5_line(run="phase_5d", wall_s=time.perf_counter() - t0,
+            launches=launches)
+    return launches
+
+
+# ---------------------------------------------------------------------------
 
 def main() -> int:
     if len(sys.argv) == 4 and sys.argv[1] == K3_CHILD:
@@ -7180,6 +7613,8 @@ def main() -> int:
     card = smi.stdout.strip().splitlines()[0] if smi.stdout.strip() \
         else "nvidia-smi unavailable"
     print(card, flush=True)
+    global CARD
+    CARD = card
 
     import deeplearning4j_tpu_torch  # noqa: F401  (sets allow_tf32=False)
     from deeplearning4j_tpu_torch.ops import _build
@@ -7195,10 +7630,11 @@ def main() -> int:
             "3i": phase_faults_full_width,
             "3j": phase_engine_control_full_width,
             "3k": phase_cache_handoff_full_width,
-            "3l": phase_fleet_full_width}
+            "3l": phase_fleet_full_width,
+            "5d": phase_dsl_cnn}
     if len(sys.argv) == 3 and sys.argv[1] == "--only" and \
             sys.argv[2] in only:
-        # a development run of phase 3h, 3i, 3j, 3k or 3l alone (no
+        # a development run of phase 3h, 3i, 3j, 3k, 3l or 5d alone (no
         # kernels line, no result); a full run takes no arguments
         line(dict(phase=sys.argv[2], launches=only[sys.argv[2]](
             torch, dev), wall_s=time.perf_counter() - t_run,
@@ -7275,6 +7711,10 @@ def main() -> int:
     line(dict(run="moe_launches", serving=moe_launches, training=moe_train))
     phase_lstm_f32_card_vs_cpu(torch, dev)
     launches.update(phase_lstm_full_width(torch, dev))
+    t_5d = time.perf_counter()
+    for name, n in phase_dsl_cnn(torch, dev).items():
+        launches[name] = launches.get(name, 0) + n
+    t_5d = time.perf_counter() - t_5d
     launches.update(phase_experiments(torch, dev))
 
     sources = {
@@ -7339,7 +7779,7 @@ def main() -> int:
               without_moe_phases_s=wall - sum(new_phases.values()),
               observability_phase_s=t_obs, fault_phase_s=t_fault,
               engine_control_phase_s=t_ctl, cache_handoff_phase_s=t_k3,
-              fleet_phase_s=t_l3))
+              fleet_phase_s=t_l3, dsl_cnn_phase_s=t_5d))
     print(card, flush=True)
     line({"kernels": kernels})
     line({"ok": True, "device": {"platform": "gpu",

@@ -14,13 +14,19 @@ prefill and quantized weights and KV pools (`quant`), and its
 observability (`observability`: metrics, flight recorder, SLOs, the
 profiler; `util.flops`' card peaks), `models.transformer.TransformerLM`
 with its loss, the single-device Adam train step
-(`parallel.fsdp.make_fsdp_train_step`), the config DSL's
-`nn.multilayer.MultiLayerNetwork` with the GravesLSTM char-RNN, and the
-two kernel experiments (`benchmarks.headpack_experiment`,
+(`parallel.fsdp.make_fsdp_train_step`), the config DSL's sequential
+`nn.multilayer.MultiLayerNetwork` with its layer families (dense,
+embedding, convolution and pooling, normalization, utility, output and
+loss, the DSL's attention layers, the LSTMs), the LeNet, VGG16, text-CNN
+and GravesLSTM char-RNN configurations, listeners, the training guard,
+the Solver (`train`), evaluation (`eval`), early stopping
+(`earlystopping`), the model serializer and checkpoints (`util`), the
+dataset iterators (`datasets`), the gradient check, and the two kernel
+experiments (`benchmarks.headpack_experiment`,
 `benchmarks.decode_kernel_sweep`).
 
 Imports stay light: no subpackage is imported here, and nothing of JAX
-or of `deeplearning4j_tpu` is imported anywhere in this package.
+or of the JAX package is imported anywhere in this package.
 """
 import torch
 

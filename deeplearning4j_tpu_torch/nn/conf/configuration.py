@@ -5,7 +5,8 @@ InputType-driven shape inference with automatic preprocessor insertion,
 and the JSON / YAML round trip. The classes register under the JAX
 package's names with the same fields, so `to_json` writes the same
 document. The DAG topology (`graph_builder`, ComputationGraphConfiguration)
-is not ported yet (ROADMAP queue A9) and raises NotImplementedError.
+is not ported yet (ROADMAP queue A, item 12b) and raises
+NotImplementedError.
 
 Pythonic builder instead of Java's nested Builder classes::
 
@@ -120,7 +121,7 @@ class NeuralNetConfiguration:
     def graph_builder(self):
         raise NotImplementedError(
             "ComputationGraph configurations are not ported yet (ROADMAP "
-            "queue A9, nn/graph)")
+            "queue A, item 12b: nn/graph/{computation_graph,vertices}.py)")
 
 
 @register

@@ -1,10 +1,10 @@
 """nn.layers subpackage of the PyTorch/CUDA port.
 
-Light on purpose: it exports the layer families ported so far (dense,
-output, recurrent) and imports no convolution, normalization or
-attention code, so building an LSTM network pulls in only what it runs.
-`nn.layers.attention` (the TransformerLM's attention) is imported by
-its own path.
+Exports the layer families of the JAX package's `nn.layers` that are
+ported: dense, embedding, output and loss, convolution and pooling,
+normalization, the utility layers, the DSL's attention layers and the
+recurrent ones. `AutoEncoder`, `RBM` and `VariationalAutoencoder` come
+with layerwise pretraining (ROADMAP queue A, item 12b).
 """
 from deeplearning4j_tpu_torch.nn.layers.base import (  # noqa: F401
     BaseLayer,
@@ -12,12 +12,35 @@ from deeplearning4j_tpu_torch.nn.layers.base import (  # noqa: F401
 )
 from deeplearning4j_tpu_torch.nn.layers.feedforward import (  # noqa: F401
     DenseLayer,
+    EmbeddingLayer,
 )
 from deeplearning4j_tpu_torch.nn.layers.output import (  # noqa: F401
     CenterLossOutputLayer,
     LossLayer,
     OutputLayer,
     RnnOutputLayer,
+)
+from deeplearning4j_tpu_torch.nn.layers.convolution import (  # noqa: F401
+    Convolution1DLayer,
+    ConvolutionLayer,
+    Subsampling1DLayer,
+    SubsamplingLayer,
+    ZeroPaddingLayer,
+)
+from deeplearning4j_tpu_torch.nn.layers.normalization import (  # noqa: F401
+    BatchNormalization,
+    LocalResponseNormalization,
+)
+from deeplearning4j_tpu_torch.nn.layers.misc import (  # noqa: F401
+    ActivationLayer,
+    DropoutLayer,
+    FrozenLayer,
+    GlobalPoolingLayer,
+)
+from deeplearning4j_tpu_torch.nn.layers.attention import (  # noqa: F401
+    LayerNormalization,
+    MultiHeadAttention,
+    TransformerBlock,
 )
 from deeplearning4j_tpu_torch.nn.layers.recurrent import (  # noqa: F401
     LSTM,

@@ -7,20 +7,22 @@ parameter dict and defines the forward::
 
 ``params`` is ``{name: tensor}``; autograd replaces a hand-written
 backward. ``key`` is an integer seed (the JAX package's PRNG key): a
-layer that needs random bits makes its own `torch.Generator` from it
-(`apply_dropout`), so a run is a function of its seeds alone. ``mask`` is
+layer that needs random bits hashes it with each element's index
+(`apply_dropout`), so a run is a function of its seeds alone, the same
+on the CPU and on the card. ``mask`` is
 an optional [B] or [B, T] {0,1} tensor.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Dict, Optional, Tuple, Union
+from typing import Dict, Optional, Tuple
 
 import torch
 
 Tensor = torch.Tensor
 
 _M64 = (1 << 64) - 1
+_M32 = (1 << 32) - 1
 
 
 def fold_in(key: int, data: int) -> int:
@@ -93,14 +95,35 @@ class BaseLayer(Layer):
     bias_init: float = 0.0
 
 
-def apply_dropout(x: Tensor, rate: float,
-                  key: Union[int, torch.Generator]) -> Tensor:
+def _fmix32(h: Tensor) -> Tensor:
+    """murmur3's 32-bit finalizer on int64 tensors holding 32-bit values
+    (products wrap, and the mask keeps their low 32 bits)."""
+    h = h ^ (h >> 16)
+    h = (h * 0x85EBCA6B) & _M32
+    h = h ^ (h >> 13)
+    h = (h * 0xC2B2AE35) & _M32
+    return h ^ (h >> 16)
+
+
+
+def uniform_from_seed(shape, seed: int, device) -> Tensor:
+    """Uniform [0, 1) float32 values, a function of (seed, element index)
+    alone: a counter-based hash, so the same seed gives the same values
+    on the CPU and on the card."""
+    n = 1
+    for d in shape:
+        n *= int(d)
+    s = fold_in(seed, 0)
+    idx = torch.arange(n, dtype=torch.int64, device=device)
+    h = _fmix32(((idx * 0x9E3779B1) & _M32) ^ (s & _M32))
+    h = _fmix32(h ^ ((s >> 32) & _M32))
+    return ((h >> 8).to(torch.float32) * (1.0 / (1 << 24))).reshape(shape)
+
+
+def apply_dropout(x: Tensor, rate: float, key: int) -> Tensor:
     """Inverted dropout on a layer's input; ``rate`` is the drop
-    probability. ``key`` is a `torch.Generator` on x's device or an
-    integer seed for one."""
-    gen = key
-    if not isinstance(gen, torch.Generator):
-        gen = torch.Generator(device=x.device).manual_seed(int(key))
+    probability, ``key`` an integer seed: the units dropped are a
+    function of the seed alone, the same on every device."""
     keep = 1.0 - rate
-    bits = torch.rand(x.shape, generator=gen, device=x.device) < keep
+    bits = uniform_from_seed(x.shape, key, x.device) < keep
     return torch.where(bits, x / keep, torch.zeros_like(x)).to(x.dtype)

@@ -2,10 +2,10 @@
 
 An output layer is a dense layer + loss function; its loss is the scalar
 objective of the train step and autograd gives the error signal.
-`OutputLayer` and `RnnOutputLayer` are ported. `LossLayer` and
-`CenterLossOutputLayer` keep their names and fields (configurations
-that name them still read back) but raise NotImplementedError when
-built, until a later slice (ROADMAP queue A9).
+`LossLayer` is the loss alone, on its input. `CenterLossOutputLayer`'s
+per-class centers live in the layer's state tree (``{"centers": [n_out,
+n_in]}``), moved toward the batch's feature means after each training
+step, as in JAX.
 """
 from __future__ import annotations
 
@@ -22,10 +22,6 @@ from deeplearning4j_tpu_torch.nn.layers.feedforward import DenseLayer
 from deeplearning4j_tpu_torch.nn.lossfunctions import get_loss
 
 Tensor = torch.Tensor
-
-_LATER = ("{} is not ported yet (ROADMAP queue A9, nn/layers/output.py); "
-          "the char-RNN slice ports OutputLayer and RnnOutputLayer")
-
 
 @register
 @dataclass
@@ -75,19 +71,55 @@ class RnnOutputLayer(OutputLayer):
 @register
 @dataclass
 class LossLayer(BaseLayer):
-    """Loss without parameters — not ported yet."""
+    """Loss without parameters: the activation and the loss on the
+    layer's input."""
     loss_function: str = "mcxent"
 
-    def __post_init__(self):
-        raise NotImplementedError(_LATER.format("LossLayer"))
+    def update_input_type(self, input_type):
+        return input_type
+
+    def apply(self, params, state, x, *, train=False, key=None, mask=None
+              ) -> Tuple[Tensor, Dict]:
+        return get_activation(self.activation or "softmax")(x), state
+
+    def weight_param_keys(self):
+        return ()
+
+    def loss(self, params, x, labels, mask=None):
+        fn = get_loss(self.loss_function)
+        return fn(labels, x, self.activation or "softmax", mask)
 
 
 @register
 @dataclass
 class CenterLossOutputLayer(OutputLayer):
-    """Output layer with an auxiliary center-loss term — not ported yet."""
+    """Output layer with an auxiliary center loss pulling features toward
+    per-class centers. The centers are non-trainable state, moved with
+    rate ``alpha`` toward the batch's feature means; the squared distance
+    joins the loss scaled by ``lambda_ / 2``."""
     alpha: float = 0.05
     lambda_: float = 2e-4
 
-    def __post_init__(self):
-        raise NotImplementedError(_LATER.format("CenterLossOutputLayer"))
+    def init_state(self, dtype=torch.float32, device=None
+                   ) -> Dict[str, Tensor]:
+        return {"centers": torch.zeros((self.n_out, self.n_in),
+                                       dtype=dtype, device=device)}
+
+    def loss(self, params, x, labels, mask=None, state=None):
+        base = super().loss(params, x, labels, mask)
+        if state is None:
+            return base
+        assigned = torch.matmul(labels.to(x.dtype), state["centers"])
+        center_l = ((x - assigned) ** 2).sum(-1).mean()
+        return base + 0.5 * self.lambda_ * center_l
+
+    def update_centers(self, state, x, labels):
+        centers = state["centers"]
+        x = x.detach()
+        labels = labels.to(x.dtype)
+        counts = labels.sum(0)                            # [n_out]
+        means = torch.matmul(labels.T, x) / torch.clamp(counts[:, None],
+                                                        min=1.0)
+        new = torch.where((counts > 0)[:, None],
+                          centers + self.alpha * (means - centers), centers)
+        return {**state, "centers": new}

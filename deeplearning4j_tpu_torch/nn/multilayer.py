@@ -18,9 +18,15 @@ while `lstm_wavefront` is True (the default, as in JAX); with it False,
 every LSTM layer runs `scan_sequence`, which on the card launches the
 fused LSTM-scan kernel once per layer and sequence.
 
-Not ported yet (each raises NotImplementedError): the second-order
-Solver path, the TrainingGuard, layerwise pretraining and
-`fit_batched_cost` (ROADMAP queue A9).
+Around the step: listeners (`set_listeners`, called with the JAX
+package's arguments), the `TrainingGuard` (`set_training_guard`: a
+non-finite update is discarded before the guard judges it; SKIP keeps
+the tree and still advances the iteration; ROLLBACK raises
+`DivergenceError`), the Solver for the non-SGD optimization algorithms
+(`train.solvers`), `fit_batched_cost` (FLOPs of the step by
+`torch.utils.flop_counter`), and the inference and evaluation surface.
+Layerwise `pretrain` raises NotImplementedError until its layers are
+ported (ROADMAP queue A, item 12b).
 """
 from __future__ import annotations
 
@@ -37,6 +43,7 @@ from deeplearning4j_tpu_torch.nn.conf.configuration import (
     MultiLayerConfiguration)
 from deeplearning4j_tpu_torch.nn.layers.base import (Layer, apply_dropout,
                                                      fold_in)
+from deeplearning4j_tpu_torch.nn.layers.misc import FrozenLayer
 from deeplearning4j_tpu_torch.nn.layers.recurrent import (
     wavefront_eligible_run as _wavefront_run,
     wavefront_scan_stack as _wavefront_scan)
@@ -55,8 +62,8 @@ def _dtype_of(name: str) -> torch.dtype:
 
 def _later(what: str) -> NotImplementedError:
     return NotImplementedError(
-        f"{what} is not ported yet (ROADMAP queue A9: train/solvers.py, "
-        "train/guard.py, pretraining, util/flops.py)")
+        f"{what} is not ported yet (ROADMAP queue A, item 12b: "
+        "AutoEncoder, RBM and nn/layers/variational.py)")
 
 
 def _leaves(tree) -> List[Tensor]:
@@ -92,8 +99,12 @@ class MultiLayerNetwork:
         # cross-layer LSTM wavefront (nn/layers/recurrent.py); False runs
         # every LSTM layer through scan_sequence (the fused kernel)
         self.lstm_wavefront = True
+        self.listeners: List[Any] = []
+        self.training_guard: Optional[Any] = None
+        self.last_grad_norm: float = float("nan")
         self.score_value: float = float("nan")
         self._rnn_carries: Optional[Dict[str, Any]] = None
+        self._solver = None
         self._initialized = False
 
     # ------------------------------------------------------------------ init
@@ -134,8 +145,26 @@ class MultiLayerNetwork:
             self.init()
         self.updater_state = updater_state_from_numpy(tree, self.device)
 
+    def set_state_from_numpy(self, tree) -> None:
+        """Take a JAX network's layer-state tree ``{layer: {name:
+        array}}`` (batch-norm running statistics, center-loss centers),
+        cast to this network's dtype."""
+        from deeplearning4j_tpu_torch.models.convert import \
+            network_params_from_numpy
+        if not self._initialized:
+            self.init()
+        self.state = network_params_from_numpy(tree, self.device,
+                                               self.dtype)
+
+    def set_listeners(self, *listeners) -> None:
+        self.listeners = list(listeners)
+
     def set_training_guard(self, guard) -> None:
-        raise _later("TrainingGuard")
+        """Install (or clear, with None) a `train.guard.TrainingGuard`:
+        `fit`'s SGD path switches to the guarded step (post-step score and
+        global gradient norm checked, a non-finite update discarded before
+        the guard sees it, skip / rollback applied)."""
+        self.training_guard = guard
 
     def _tensor(self, x) -> Tensor:
         """An input on this network's device; float64 host arrays become
@@ -263,8 +292,14 @@ class MultiLayerNetwork:
         okey = fold_in(key, n - 1) if key is not None else None
         if (out_layer.dropout or 0.0) > 0 and okey is not None:
             h = apply_dropout(h, out_layer.dropout, okey)
-        loss = out_layer.loss(params[out_name], h, y, mask)
-        new_state[out_name] = state.get(out_name, {})
+        if hasattr(out_layer, "update_centers"):          # center loss
+            loss = out_layer.loss(params[out_name], h, y, mask,
+                                  state.get(out_name))
+            new_state[out_name] = out_layer.update_centers(
+                state.get(out_name, {}), h, y)
+        else:
+            loss = out_layer.loss(params[out_name], h, y, mask)
+            new_state[out_name] = state.get(out_name, {})
         score = promote_score(loss) + self._regularization_score(params)
         return score, new_state
 
@@ -280,8 +315,8 @@ class MultiLayerNetwork:
         return out
 
     def _trainable(self) -> Dict[str, bool]:
-        # every ported layer trains (FrozenLayer comes with nn/layers/misc)
-        return {name: True for name in self.layer_names}
+        return {self.layer_names[i]: not isinstance(l, FrozenLayer)
+                for i, l in enumerate(self.layers)}
 
     def _value_and_grad(self, loss_fn, params):
         """(score, aux, grads) of ``loss_fn(params)`` by autograd; a
@@ -297,8 +332,11 @@ class MultiLayerNetwork:
                  for k in sorted(leaves)}
         return score.detach(), aux, grads
 
-    def _step(self, params, state, opt_state, iteration, x, y, key, mask):
-        """One minibatch update (the JAX package's `_step_math`)."""
+    def _update(self, params, state, opt_state, iteration, x, y, key,
+                mask):
+        """One minibatch update (the JAX package's `_step_math`), with
+        the gradients: (new params, new state, new opt state, score,
+        grads)."""
         def loss_fn(p):
             return self._loss_fn(p, state, x, y, key, mask)
         score, new_state, grads = self._value_and_grad(loss_fn, params)
@@ -306,7 +344,33 @@ class MultiLayerNetwork:
             self.conf.training, params, grads, opt_state, iteration,
             lr_multipliers=self._lr_multipliers(),
             trainable=self._trainable())
-        return new_params, new_state, new_opt, score
+        return new_params, new_state, new_opt, score, grads
+
+    def _step(self, params, state, opt_state, iteration, x, y, key, mask):
+        """One minibatch update: (params, state, opt state, score)."""
+        return self._update(params, state, opt_state, iteration, x, y, key,
+                            mask)[:4]
+
+    def _guarded_step(self, params, state, opt_state, iteration, x, y, key,
+                      mask):
+        """`_step` that also returns the global gradient norm and keeps
+        the pre-step tree (params, state, updater state) when the score
+        or the norm is not finite: a poisoned batch cannot reach the tree
+        even before the guard judges it. The choice is made on the
+        device (`torch.where`), with no wait for the host."""
+        new_params, new_state, new_opt, score, grads = self._update(
+            params, state, opt_state, iteration, x, y, key, mask)
+        gnorm = torch.sqrt(sum(torch.sum(promote_score(g) ** 2)
+                               for g in _leaves(grads)))
+        ok = torch.isfinite(score) & torch.isfinite(gnorm)
+
+        def keep(new, old):
+            if isinstance(new, dict):
+                return {k: keep(v, old[k]) for k, v in new.items()}
+            return torch.where(ok, new, old)
+
+        return (keep(new_params, params), keep(new_state, state),
+                keep(new_opt, opt_state), score, gnorm)
 
     def _tbptt_chunk(self, params, state, opt_state, iteration, xs, ys,
                      carries, key, m):
@@ -366,10 +430,18 @@ class MultiLayerNetwork:
                     batch, self.dtype, self.device)
         return carries
 
-    def _notify_iteration(self, score) -> None:
-        """Record the step's score and advance iteration_count (listeners
-        are not ported: ROADMAP queue A9, train/listeners.py)."""
+    def _notify_iteration(self, score, x, record: bool = True) -> None:
+        """Fire the listeners' per-iteration hooks and advance
+        iteration_count. ``record`` gates the batch / input hooks: TBPTT
+        fires iteration_done per chunk but counts a minibatch's examples
+        once."""
         self.score_value = score
+        for lst in self.listeners:
+            if record and hasattr(lst, "record_batch"):
+                lst.record_batch(int(x.shape[0]))
+            if record and hasattr(lst, "record_input"):
+                lst.record_input(x)
+            lst.iteration_done(self, self.iteration_count, score)
         self.iteration_count += 1
 
     # ------------------------------------------------------------------- fit
@@ -381,10 +453,14 @@ class MultiLayerNetwork:
         if labels is not None:
             self._fit_batch(data, labels, mask)
             return
+        for lst in self.listeners:
+            lst.on_epoch_start(self)
         for batch in data:
             feats, labs, fmask, lmask = _unpack_batch(batch)
             self._fit_batch(feats, labs, lmask if lmask is not None
                             else fmask)
+        for lst in self.listeners:
+            lst.on_epoch_end(self)
         self.epoch_count += 1
         if hasattr(data, "reset"):
             data.reset()
@@ -393,19 +469,62 @@ class MultiLayerNetwork:
         x = self._tensor(x)
         y = self._tensor(y)
         mask = None if mask is None else self._tensor(mask)
-        if self.conf.training.optimization_algo not in _SGD:
-            raise _later(f"optimization_algo="
-                         f"{self.conf.training.optimization_algo!r} (the "
-                         "Solver path)")
+        algo = self.conf.training.optimization_algo
         if self.conf.backprop_type == "tbptt" and x.ndim == 3:
+            if algo not in _SGD:
+                raise ValueError(
+                    "TBPTT supports first-order optimization only — "
+                    f"optimization_algo={algo!r}")
             self._fit_tbptt(x, y, mask)
+            return
+        if algo not in _SGD:
+            # the second-order path: LBFGS / CG / line gradient descent
+            from deeplearning4j_tpu_torch.train.solvers import Solver
+            if self._solver is None:
+                self._solver = Solver(self)
+            self._solver.optimize(
+                x, y, mask,
+                iteration_callback=lambda s: self._notify_iteration(s, x))
+            return
+        if self.training_guard is not None:
+            self._fit_batch_guarded(x, y, mask)
             return
         for _ in range(max(1, self.conf.training.num_iterations)):
             key = fold_in(self.conf.training.seed, self.iteration_count)
             self.params, self.state, self.updater_state, score = self._step(
                 self.params, self.state, self.updater_state,
                 self.iteration_count, x, y, key, mask)
-            self._notify_iteration(score)
+            self._notify_iteration(score, x)
+
+    def _fit_batch_guarded(self, x, y, mask=None) -> None:
+        """SGD minibatch step under a TrainingGuard: the guarded step
+        (a non-finite update already discarded), then the guard's verdict
+        on (score, grad_norm). ACCEPT commits the new tree; SKIP keeps the
+        pre-step tree (the iteration counter still advances, so the
+        dropout stream and LR schedule move past the bad batch); ROLLBACK
+        raises DivergenceError for the caller's checkpoint policy."""
+        from deeplearning4j_tpu_torch.train.guard import (DivergenceError,
+                                                          TrainingGuard)
+        guard = self.training_guard
+        for _ in range(max(1, self.conf.training.num_iterations)):
+            key = fold_in(self.conf.training.seed, self.iteration_count)
+            new_p, new_s, new_o, score, gnorm = self._guarded_step(
+                self.params, self.state, self.updater_state,
+                self.iteration_count, x, y, key, mask)
+            score_f = float(score)
+            self.last_grad_norm = float(gnorm)
+            action = guard.update(score_f, self.last_grad_norm)
+            if action == TrainingGuard.ACCEPT:
+                self.params, self.state, self.updater_state = (
+                    new_p, new_s, new_o)
+            elif action == TrainingGuard.ROLLBACK:
+                raise DivergenceError(
+                    f"training diverged at iteration "
+                    f"{self.iteration_count}: {guard.max_consecutive} "
+                    f"consecutive bad steps (last: {guard.last_reason}, "
+                    f"score={score_f}, grad_norm={self.last_grad_norm})")
+            # SKIP: the pre-step tree stays
+            self._notify_iteration(score_f, x)
 
     def _fit_tbptt(self, x, y, mask=None) -> None:
         """Truncated BPTT: split the time axis into chunks of
@@ -421,9 +540,10 @@ class MultiLayerNetwork:
              score) = self._tbptt_chunk(
                 self.params, self.state, self.updater_state,
                 self.iteration_count, x[:, sl], y[:, sl], carries, key, m)
+            # batch / input hooks once a minibatch (its first chunk);
             # score stays a device tensor: reading it would wait for the
             # card after every chunk
-            self._notify_iteration(score)
+            self._notify_iteration(score, x, record=(c == 0))
 
     def fit_batched(self, xs, ys, epochs: int = 1) -> Tensor:
         """Train on a pre-staged stack of minibatches: ``xs`` [N, B, ...],
@@ -488,14 +608,64 @@ class MultiLayerNetwork:
                     scores.append(score)
                     it += 1
         scores = torch.stack(scores)
-        self.iteration_count = it
-        self.score_value = float(scores[-1])
+        if not self.listeners:
+            # no per-step host work on the hot path
+            self.iteration_count = it
+            self.score_value = float(scores[-1])
+            return scores
+        # listeners fire after the run, as after JAX's one program: TBPTT
+        # gives chunks_per_batch scores a minibatch, whose batch / input
+        # hooks fire once (its first chunk)
+        chunks = xs.shape[2] // L if use_tbptt else 1
+        pool = int(xs.shape[0])
+        for i, sc in enumerate(scores.tolist()):
+            self._notify_iteration(sc, xs[(i // chunks) % pool],
+                                   record=(i % chunks == 0))
         return scores
 
     def fit_batched_cost(self, xs, ys, epochs: int = 1,
                          lstm_wavefront: Optional[bool] = None) -> dict:
-        raise _later("fit_batched_cost (XLA cost analysis; a torch "
-                     "counterpart is torch.utils.flop_counter)")
+        """``{"flops": F, "steps": S}``: F the floating-point operations
+        of ONE step of `fit_batched(xs, ys, epochs)` at these shapes (one
+        TBPTT chunk with TBPTT), S the steps that call runs. F is what
+        the JAX package's XLA cost analysis of the scanned program gives
+        (it counts the scan body once); here
+        `torch.utils.flop_counter.FlopCounterMode` counts a step on the
+        first minibatch, run on the same tensors and discarded:
+        parameters, state and counters are untouched. The counter sees
+        PyTorch's own operators (matmuls, convolutions); the hand-written
+        kernels' work (flash attention, lstm_scan) is not in it.
+        ``lstm_wavefront`` picks the LSTM schedule counted, as in JAX."""
+        from torch.utils.flop_counter import FlopCounterMode
+        if not self._initialized:
+            self.init()
+        xs = self._tensor(xs)
+        ys = self._tensor(ys)
+        use_tbptt = self.conf.backprop_type == "tbptt" and ys.ndim == 4
+        L = self.conf.tbptt_fwd_length
+        chunks = xs.shape[2] // L if use_tbptt else 1
+        prev = self.lstm_wavefront
+        if lstm_wavefront is not None:
+            self.lstm_wavefront = lstm_wavefront
+        counter = FlopCounterMode(display=False)
+        try:
+            with counter:
+                x, y = xs[0], ys[0]
+                it0 = self.iteration_count
+                key = fold_in(self.conf.training.seed, it0)
+                if use_tbptt:
+                    self._tbptt_chunk(self.params, self.state,
+                                      self.updater_state, it0, x[:, :L],
+                                      y[:, :L],
+                                      self._init_carries(x.shape[0]), key,
+                                      None)
+                else:
+                    self._step(self.params, self.state, self.updater_state,
+                               it0, x, y, key, None)
+        finally:
+            self.lstm_wavefront = prev
+        return {"flops": float(counter.get_total_flops()),
+                "steps": int(xs.shape[0]) * chunks * epochs}
 
     def pretrain(self, data) -> None:
         raise _later("layerwise pretraining")
@@ -529,7 +699,139 @@ class MultiLayerNetwork:
                              train=False)
         return float(s)
 
+    @torch.no_grad()
+    def feed_forward_to_layer(self, layer_idx: int, x,
+                              train: bool = False) -> List[Tensor]:
+        """Activations of layers [0..layer_idx] only; the layers beyond
+        are not run."""
+        h = self._cast_in(self._tensor(x))
+        acts = []
+        for i, layer in enumerate(self.layers[:layer_idx + 1]):
+            name = self.layer_names[i]
+            pp = self.conf.input_preprocessors.get(str(i))
+            if pp is not None:
+                h = pp.pre_process(h)
+            h, _ = layer.apply(self.params[name], self.state.get(name, {}),
+                               h, train=train)
+            acts.append(h)
+        return acts
+
+    def predict(self, x) -> np.ndarray:
+        """Predicted class index per example."""
+        return self.output(x).float().cpu().numpy().argmax(axis=-1)
+
+    def label_probabilities(self, x) -> Tensor:
+        return self.output(x)
+
+    def num_labels(self) -> int:
+        """Output dimension (a LossLayer's: the layer below's n_out)."""
+        n = getattr(self.layers[-1], "n_out", None)
+        if n is not None:
+            return int(n)
+        for layer in reversed(self.layers[:-1]):
+            n = getattr(layer, "n_out", None)
+            if n is not None:
+                return int(n)
+        raise ValueError("cannot infer label count: no layer declares "
+                         "n_out")
+
+    def f1_score(self, x, y) -> float:
+        """Macro F1 on one batch."""
+        from deeplearning4j_tpu_torch.eval.evaluation import Evaluation
+        ev = Evaluation()
+        ev.eval(y, self.output(x))
+        return ev.f1()
+
+    @torch.no_grad()
+    def score_examples(self, x, y, add_regularization_terms: bool = True
+                       ) -> np.ndarray:
+        """Per-example scores (inference mode); the regularization term is
+        in each unless ``add_regularization_terms`` is False."""
+        x = self._tensor(x)
+        y = self._tensor(y)
+        per = [self._loss_fn(self.params, self.state, x[i:i + 1],
+                             y[i:i + 1], None, None, train=False)[0]
+               for i in range(x.shape[0])]
+        per = torch.stack(per)
+        if not add_regularization_terms:
+            per = per - self._regularization_score(self.params)
+        return per.cpu().numpy()
+
+    def summary(self) -> str:
+        """Printable per-layer table."""
+        from deeplearning4j_tpu_torch.common import (count_params,
+                                                     render_summary_table)
+        rows = [("idx", "name", "type", "n_params")]
+        total = 0
+        for i, layer in enumerate(self.layers):
+            name = self.layer_names[i]
+            n = count_params(self.params.get(name, {}))
+            total += n
+            rows.append((str(i), name, type(layer).__name__, f"{n:,}"))
+        return render_summary_table(rows, total)
+
+    def _run_evaluation(self, iterator, ev):
+        """Feed every batch's predictions into an evaluation."""
+        for batch in iterator:
+            feats, labs, _, lmask = _unpack_batch(batch)
+            ev.eval(labs, self.output(feats), mask=lmask)
+        if hasattr(iterator, "reset"):
+            iterator.reset()
+        return ev
+
+    def evaluate(self, iterator):
+        from deeplearning4j_tpu_torch.eval.evaluation import Evaluation
+        return self._run_evaluation(iterator, Evaluation())
+
+    def evaluate_regression(self, iterator):
+        from deeplearning4j_tpu_torch.eval.regression import \
+            RegressionEvaluation
+        return self._run_evaluation(iterator, RegressionEvaluation())
+
+    def evaluate_roc(self, iterator, threshold_steps: int = 30):
+        from deeplearning4j_tpu_torch.eval.roc import ROC
+        return self._run_evaluation(iterator, ROC(threshold_steps))
+
+    def evaluate_roc_multi_class(self, iterator,
+                                 threshold_steps: int = 30):
+        from deeplearning4j_tpu_torch.eval.roc import ROCMultiClass
+        return self._run_evaluation(iterator, ROCMultiClass(threshold_steps))
+
+    @torch.no_grad()
+    def output_batched(self, xs) -> Tensor:
+        """Inference over a pre-staged pool: ``xs`` [N, B, ...] ->
+        activations [N, B, ...]; only the outputs are kept."""
+        if not self._initialized:
+            self.init()
+        xs = self._tensor(xs)
+        return torch.stack([self._forward(self.params, self.state, x,
+                                          train=False, key=None,
+                                          mask=None)[0] for x in xs])
+
+    def evaluate_batched(self, xs, ys):
+        """Evaluation over a pre-staged pool [N, B, ...]."""
+        from deeplearning4j_tpu_torch.eval.evaluation import Evaluation
+        out = self.output_batched(xs)
+        ys = self._tensor(ys)
+        ev = Evaluation()
+        ev.eval(ys.reshape(-1, ys.shape[-1]),
+                out.reshape(-1, out.shape[-1]))
+        return ev
+
     # --------------------------------------------------------- rnn inference
+    def rnn_get_previous_state(self, layer_idx: int):
+        """Stored streaming state of one RNN layer."""
+        if self._rnn_carries is None:
+            return None
+        return self._rnn_carries.get(self.layer_names[layer_idx])
+
+    def rnn_set_previous_state(self, layer_idx: int, state) -> None:
+        """Set one RNN layer's streaming state; on a cleared network the
+        other streaming layers start from zero carries."""
+        if self._rnn_carries is None:
+            self._rnn_carries = self._init_carries(int(state[0].shape[0]))
+        self._rnn_carries[self.layer_names[layer_idx]] = state
+
     def rnn_clear_previous_state(self) -> None:
         self._rnn_carries = None
 
@@ -560,8 +862,41 @@ class MultiLayerNetwork:
         (layers, then parameters, by sorted name)."""
         return torch.cat([p.reshape(-1) for p in _leaves(self.params)])
 
+    def set_params_flat(self, flat: Tensor) -> None:
+        self.params = unravel_like(self.params, flat)
+
     def num_params(self) -> int:
         return sum(p.numel() for p in _leaves(self.params))
+
+    def clone(self) -> "MultiLayerNetwork":
+        """A network of a copy of this configuration holding copies of
+        the parameters, state and updater state."""
+        import copy
+        net = MultiLayerNetwork(copy.deepcopy(self.conf), device=self.device)
+        net.params = _map(torch.clone, self.params)
+        net.state = _map(torch.clone, self.state)
+        net.updater_state = _map(torch.clone, self.updater_state)
+        net.iteration_count = self.iteration_count
+        net.epoch_count = self.epoch_count
+        net.lstm_wavefront = self.lstm_wavefront
+        net._initialized = self._initialized
+        return net
+
+
+def unravel_like(tree, flat: Tensor):
+    """The inverse of `params_flat`: ``flat`` cut into ``tree``'s leaves,
+    in sorted-key order, each with its leaf's shape and dtype."""
+    out, off = {}, 0
+    for k in sorted(tree):
+        v = tree[k]
+        if isinstance(v, dict):
+            n = sum(p.numel() for p in _leaves(v))
+            out[k] = unravel_like(v, flat[off:off + n])
+        else:
+            n = v.numel()
+            out[k] = flat[off:off + n].reshape(v.shape).to(v.dtype)
+        off += n
+    return out
 
 
 def _unpack_batch(batch):
@@ -569,6 +904,10 @@ def _unpack_batch(batch):
     if hasattr(batch, "features"):
         fmask = getattr(batch, "features_mask", None)
         lmask = getattr(batch, "labels_mask", None)
+        if fmask is None:
+            fmask = getattr(batch, "features_masks", None)
+        if lmask is None:
+            lmask = getattr(batch, "labels_masks", None)
         return (batch.features, getattr(batch, "labels", None),
                 fmask, lmask)
     if isinstance(batch, (tuple, list)):

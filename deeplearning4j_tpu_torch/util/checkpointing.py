@@ -36,9 +36,10 @@ reference's: ``checkpoint_write_seconds``,
 
 A directory orbax wrote (step directories named by their number, orbax
 metadata files) is refused with `CheckpointFormatError`: the port reads
-and writes the npz layout only. Saving and restoring a
-`MultiLayerNetwork` (the reference's `save(net)` / `restore(net)`) waits
-for ROADMAP queue A item 12.
+and writes the npz layout only. `save(net)` / `restore(net)` checkpoint
+a `MultiLayerNetwork` (params, layer state, updater state and its
+counters), as the reference's do, and `CheckpointListener` calls `save`
+every N iterations on the listener stream.
 """
 from __future__ import annotations
 
@@ -55,6 +56,7 @@ import numpy as np
 import torch
 
 from deeplearning4j_tpu_torch.observability.metrics import default_registry
+from deeplearning4j_tpu_torch.train.listeners import IterationListener
 
 log = logging.getLogger("deeplearning4j_tpu_torch")
 
@@ -324,6 +326,39 @@ class CheckpointManager:
             except FileNotFoundError:
                 pass
 
+    def save(self, net, step: Optional[int] = None) -> int:
+        """Checkpoint a network's params, layer state and updater state
+        as step ``step`` (default: its iteration count), with its
+        counters in the step's meta."""
+        step = int(net.iteration_count if step is None else step)
+        payload = {"params": net.params, "state": net.state,
+                   "updater_state": net.updater_state}
+        meta = {"step": step,
+                "iteration_count": int(net.iteration_count),
+                "epoch_count": int(net.epoch_count)}
+        self._write_payload(payload, step, meta=meta)
+        return step
+
+    def restore(self, net, step: Optional[int] = None):
+        """Restore a network in place from ``step`` (None: the newest
+        step that verifies, falling back past a corrupt one); returns the
+        step, or None when there is none. Updater state takes the
+        network's own dtypes."""
+        template = {"params": net.params, "state": net.state,
+                    "updater_state": net.updater_state}
+        restored, step = self._resolve_readable(template, step, None)
+        if restored is None:
+            return None
+        net.params = restored["params"]
+        net.state = restored["state"]
+        net.updater_state = _cast_like(net.updater_state,
+                                       restored["updater_state"])
+        meta = self.read_meta(step)
+        if meta is not None:
+            net.iteration_count = meta.get("iteration_count", step)
+            net.epoch_count = meta.get("epoch_count", 0)
+        return step
+
     def save_tree(self, tree, step: int,
                   meta: Optional[Dict] = None) -> int:
         """Checkpoint a tree of tensors (or numpy arrays) as step
@@ -478,3 +513,25 @@ class CheckpointManager:
             return (None, None) if with_step else None
         out = payload["tree"]
         return (out, got) if with_step else out
+
+
+def _cast_like(skeleton, got):
+    if isinstance(skeleton, dict):
+        return {k: _cast_like(v, got[k]) for k, v in skeleton.items()}
+    if isinstance(skeleton, torch.Tensor):
+        return got.to(skeleton.dtype)
+    return got
+
+
+class CheckpointListener(IterationListener):
+    """Checkpoint the network every ``frequency`` iterations (the
+    reference's CheckpointListener, on the listener stream)."""
+
+    def __init__(self, manager: CheckpointManager, frequency: int = 100):
+        self.manager = manager
+        self.frequency = max(1, frequency)
+
+    def iteration_done(self, model, iteration: int, score) -> None:
+        if iteration > 0 and iteration % self.frequency == 0:
+            self.manager.save(model, step=iteration)
+            log.info("checkpointed at iteration %d", iteration)

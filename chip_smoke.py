@@ -7,7 +7,9 @@ Drives the port's serving path (plain, speculative, paged with the
 prefix cache, chunked prefill, grammar-constrained, mixture of experts),
 its train step (dense and MoE), the GravesLSTM char-RNN's
 training through MultiLayerNetwork, the DSL's CNN training path (LeNet,
-VGG16-CIFAR, a DSL transformer, the training tools) and the two kernel
+VGG16-CIFAR, a DSL transformer, the training tools), the DAG runtime
+(ComputationGraph: ResNet-50, the char-RNN and attention as graphs,
+pretraining, the training fault tools) and the two kernel
 experiments on the card and fails (non-zero exit, no result line) if anything is wrong:
 
 0. Build: every csrc/*.cu at once; then one line per tensor-core
@@ -501,6 +503,37 @@ experiments on the card and fails (non-zero exit, no result line) if anything is
    5b's float32 char-RNN with lstm_wavefront off (exactly 2 lstm_scan
    launches a chunk). Every 5d line carries the card's name and power
    limit.
+5e. The DAG runtime (ComputationGraph) and the training tools (`--only
+   5e` runs the build and this phase alone). (a) float32 card vs CPU
+   from one set of weights: a narrow residual graph (two bottleneck
+   blocks, BN after every conv, ElementWiseVertex adds), a two-input
+   graph with a MergeVertex and input dropout, a GravesLSTM graph
+   through TBPTT fit and 20 steps of rnn_time_step, and 3 pretraining
+   steps of a VAE vertex and an RBM layer (scores, params, BN state and
+   outputs within 1e-4; the pretraining draws bit-equal). (b) ResNet-50
+   as trained_models.resnet50() builds it (224 x 224 x 3, 1000 classes,
+   bf16, Nesterov 0.9, lr 0.01) at B=128 on a pool of 4 synthetic
+   minibatches: fit_batched 2 epochs after a warm pass (examples/s, ms a
+   step, FlopCounterMode's FLOPs of one step and their share of the
+   bf16 peak, peak memory; scores finite, no preprocessor), one profiled
+   step, then a TransferLearning build (frozen up to avg_pool, fc1000
+   replaced with 10 classes): after 3 steps the frozen params are
+   bit-equal and the head moved. (c) phase 5c's BASELINE config 3 (B=1024,
+   T=64, bf16) as a graph: fit_batched launches lstm_scan exactly once a
+   GravesLSTM vertex a chunk, 200 rnn_time_step calls at B=1 once a vertex
+   a step, and its scores equal the MultiLayerNetwork's over the same
+   layers and weights with lstm_wavefront off (bit-equal, else within
+   2^-7 relative). (d) two TransformerBlock vertices (d 512, 8 heads,
+   T=1024, B=16, bf16), 3 fit steps: the flash forward and backward once
+   a block a step. (e) In float32 with TF32 off and cuDNN's deterministic
+   algorithms (set here): FaultTolerantTrainer over the narrow LeNet with
+   async checkpoints (a NaN batch skipped; a run preempted at iteration 4
+   and a run whose step-4 write crashes each resume to params bit-equal
+   to an uninterrupted run's), a StepWatchdog over a step that sleeps
+   past its deadline, the ComputationGraph serializer's round trip
+   (bit-equal) and EarlyStoppingGraphTrainer (the best model's output
+   bit-equal to the saved one's). Every 5e line carries the card's name
+   and power limit.
 6. The two kernel experiments' main() at full shape
    (`deeplearning4j_tpu_torch.benchmarks.headpack_experiment`: production
    vs packed q512 vs production q512; `decode_kernel_sweep --bandwidth`,
@@ -512,7 +545,8 @@ experiments on the card and fails (non-zero exit, no result line) if anything is
    line of the graph replays of every gated run and of the serving
    device functions' launches in the profiled ticks' traces; the run's
    wall time, the MoE phases', the rest's, phase 3h's, 3i's, 3j's, 3k's,
-   3l's and 5d's (`wall`, `fleet_phase_s`, `dsl_cnn_phase_s`);
+   3l's, 5d's and 5e's (`wall`, `fleet_phase_s`, `dsl_cnn_phase_s`,
+   `dag_phase_s`);
    one `kernels` JSON line (decode_attention_q and decode_window_q among
    them; `launches` the wrappers' counts, 3j's included,
    `device_launches_profiled`
@@ -7587,6 +7621,673 @@ def phase_dsl_cnn(torch, dev):
 
 
 # ---------------------------------------------------------------------------
+# phase 5e: the DAG runtime (ComputationGraph) and the training tools
+# ---------------------------------------------------------------------------
+
+E5_TOL = 1e-4          # f32 card vs CPU: scores, params, BN state
+
+
+def e5_line(**rec):
+    line(dict(phase="5e", card=CARD, **rec))
+
+
+def e5_tree_equal(torch, a, b) -> bool:
+    """Two nested {name: tensor} trees, bit for bit."""
+    if isinstance(b, dict):
+        return set(a) == set(b) and all(e5_tree_equal(torch, a[k], b[k])
+                                        for k in b)
+    return torch.equal(a, b)
+
+
+def e5_residual(height=16, width=16, classes=10):
+    """ResNet-50's structure at narrow widths: a stem conv + BN/relu, two
+    bottleneck blocks (BN after every conv, element-wise adds, the first
+    block with a stride-2 projection shortcut), global average pool,
+    softmax; Nesterov momentum 0.9, lr 0.01."""
+    from deeplearning4j_tpu_torch.nn import layers as L
+    from deeplearning4j_tpu_torch.nn.conf.configuration import \
+        NeuralNetConfiguration
+    from deeplearning4j_tpu_torch.nn.conf.inputs import InputType
+    from deeplearning4j_tpu_torch.nn.graph.vertices import \
+        ElementWiseVertex
+    b = (NeuralNetConfiguration(seed=6, learning_rate=0.01,
+                                updater="nesterovs", momentum=0.9,
+                                weight_init="relu", activation="identity")
+         .graph_builder().add_inputs("input")
+         .set_input_types(input=InputType.convolutional(height, width, 3)))
+
+    def conv(name, n, k, s, src):
+        b.add_layer(name, L.ConvolutionLayer(
+            n_out=n, kernel_size=(k, k), stride=(s, s),
+            convolution_mode="same", activation="identity"), src)
+        return name
+
+    def bn(name, src, relu):
+        b.add_layer(name, L.BatchNormalization(
+            activation="relu" if relu else "identity"), src)
+        return name
+
+    prev = bn("bn1", conv("conv1", 16, 3, 1, "input"), True)
+    for i, (stride, proj) in enumerate(((2, True), (1, False))):
+        n = f"b{i}"
+        x = bn(f"{n}_bn1", conv(f"{n}_c1", 8, 1, stride, prev), True)
+        x = bn(f"{n}_bn2", conv(f"{n}_c2", 8, 3, 1, x), True)
+        x = bn(f"{n}_bn3", conv(f"{n}_c3", 32, 1, 1, x), False)
+        sc = (bn(f"{n}_bnp", conv(f"{n}_proj", 32, 1, stride, prev), False)
+              if proj else prev)
+        b.add_vertex(f"{n}_add", ElementWiseVertex(op="add"), x, sc)
+        b.add_layer(f"{n}_out", L.ActivationLayer(activation="relu"),
+                    f"{n}_add")
+        prev = f"{n}_out"
+    b.add_layer("avg_pool", L.GlobalPoolingLayer(pooling_type="avg"), prev)
+    b.add_layer("fc", L.OutputLayer(n_out=classes, activation="softmax",
+                                    loss_function="mcxent"), "avg_pool")
+    return b.set_outputs("fc").build()
+
+
+def e5_two_input():
+    """Two inputs through dense vertices (one with input dropout), a
+    MergeVertex and an ElementWiseVertex into two output layers."""
+    from deeplearning4j_tpu_torch.nn import layers as L
+    from deeplearning4j_tpu_torch.nn.conf.configuration import \
+        NeuralNetConfiguration
+    from deeplearning4j_tpu_torch.nn.conf.inputs import InputType
+    from deeplearning4j_tpu_torch.nn.graph import vertices as V
+    return (NeuralNetConfiguration(seed=3, updater="adam",
+                                   learning_rate=0.01, activation="tanh")
+            .graph_builder().add_inputs("a", "b")
+            .set_input_types(a=InputType.feed_forward(20),
+                             b=InputType.feed_forward(12))
+            .add_layer("da", L.DenseLayer(n_out=16), "a")
+            .add_layer("db", L.DenseLayer(n_out=16, dropout=0.3), "b")
+            .add_vertex("m", V.MergeVertex(), "da", "db")
+            .add_vertex("s", V.ElementWiseVertex(op="add"), "da", "db")
+            .add_layer("h", L.DenseLayer(n_out=24), "m")
+            .add_layer("out", L.OutputLayer(n_out=5, activation="softmax"),
+                       "h")
+            .add_layer("out2", L.OutputLayer(n_out=3, activation="softmax"),
+                       "s")
+            .set_outputs("out", "out2").build())
+
+
+def e5_char_rnn_graph(v, h, tbptt, dtype, lr=0.1, seed=12345):
+    """zoo.char_rnn_lstm's layers as a ComputationGraph: two GravesLSTM
+    vertices and an RnnOutputLayer named layer_0..2 (topological index =
+    layer index, so the same seed gives the same weights)."""
+    from deeplearning4j_tpu_torch.nn import layers as L
+    from deeplearning4j_tpu_torch.nn.conf.configuration import \
+        NeuralNetConfiguration
+    from deeplearning4j_tpu_torch.nn.conf.inputs import InputType
+    b = (NeuralNetConfiguration(seed=seed, updater="rmsprop",
+                                learning_rate=lr, weight_init="xavier",
+                                dtype=dtype)
+         .graph_builder().add_inputs("chars")
+         .set_input_types(chars=InputType.recurrent(v)))
+    b.add_layer("layer_0", L.GravesLSTM(n_out=h, activation="tanh"),
+                "chars")
+    b.add_layer("layer_1", L.GravesLSTM(n_out=h, activation="tanh"),
+                "layer_0")
+    b.add_layer("layer_2", L.RnnOutputLayer(n_out=v, activation="softmax",
+                                            loss_function="mcxent"),
+                "layer_1")
+    return b.set_outputs("layer_2").backprop_type_tbptt(tbptt, tbptt).build()
+
+
+def e5_graph_pair(dev, conf_fn):
+    """The graph on the CPU and on the card from one set of weights."""
+    from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
+    cpu = ComputationGraph(conf_fn(), device="cpu").init()
+    card = ComputationGraph(conf_fn(), device=dev)
+    card.set_params_from_numpy(d5_np(cpu.params))
+    card.set_state_from_numpy(d5_np(cpu.state))
+    return cpu, card
+
+
+def e5_gate(name, sc, errs, **rec):
+    """One (a) line: the card's and the CPU's scores ``sc`` and the
+    other max-abs errors ``errs`` (params, state, outputs), each gated at
+    E5_TOL."""
+    errs = dict(score_max_abs_err=max(
+        abs(a - b) for a, b in zip(sc["cpu"], sc["cuda"])), **errs)
+    e5_line(part="a", net=name, scores_cuda=sc["cuda"],
+            scores_cpu=sc["cpu"], tol=E5_TOL, **errs, **rec)
+    if len(sc["cpu"]) != len(sc["cuda"]) or \
+            not all(e <= E5_TOL for e in errs.values()):
+        fail(f"5e {name}: card vs CPU {errs} (tol {E5_TOL})")
+
+
+def e5_f32_card_vs_cpu(torch, dev):
+    """(a) float32, card against CPU from one set of weights: the narrow
+    residual graph (3 fit steps; BN state too), the two-input merge graph
+    (3 steps, with dropout: its units are a function of the seed, the
+    same on both devices), a GravesLSTM graph (TBPTT fit, then 20 steps
+    of rnn_time_step) and the pretraining of a VAE vertex and an RBM
+    layer (3 steps each; the draws are compared bit for bit)."""
+    from deeplearning4j_tpu_torch.nn import layers as L
+    from deeplearning4j_tpu_torch.nn.conf.configuration import \
+        NeuralNetConfiguration
+    from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+    rng = np.random.default_rng(5)
+    # the residual graph
+    cpu, card = e5_graph_pair(dev, e5_residual)
+    x = rng.random((8, 16, 16, 3), dtype=np.float32)
+    y = np.eye(10, dtype=np.float32)[rng.integers(0, 10, 8)]
+    sc = {"cpu": [], "cuda": []}
+    for _ in range(3):
+        for key, g in (("cpu", cpu), ("cuda", card)):
+            g.fit(x, y)
+            sc[key].append(float(g.score_value))
+    e5_gate("residual_2_bottlenecks_bn", sc, dict(
+        param_max_abs_err=d5_tree_err(card.params, cpu.params),
+        state_max_abs_err=d5_tree_err(card.state, cpu.state)),
+        steps=3, batch=8, preprocessors=len(card._preprocessors))
+    # the two-input merge graph with dropout
+    cpu, card = e5_graph_pair(dev, e5_two_input)
+    xa = rng.random((16, 20), dtype=np.float32)
+    xb = rng.random((16, 12), dtype=np.float32)
+    y1 = np.eye(5, dtype=np.float32)[rng.integers(0, 5, 16)]
+    y2 = np.eye(3, dtype=np.float32)[rng.integers(0, 3, 16)]
+    sc = {"cpu": [], "cuda": []}
+    for _ in range(3):
+        for key, g in (("cpu", cpu), ("cuda", card)):
+            g.fit([xa, xb], [y1, y2])
+            sc[key].append(float(g.score_value))
+    out_err = max(max_err(a.cpu(), b) for a, b in zip(
+        card.output(xa, xb), cpu.output(xa, xb)))
+    e5_gate("two_input_merge_dropout", sc, dict(
+        param_max_abs_err=d5_tree_err(card.params, cpu.params),
+        output_max_abs_err=out_err), steps=3, batch=16)
+    # a GravesLSTM graph: TBPTT fit, then rnn_time_step
+    v, h = 20, 24
+    cpu, card = e5_graph_pair(dev, lambda: e5_char_rnn_graph(
+        v, h, 8, "float32", lr=0.01))
+    eye = np.eye(v, dtype=np.float32)
+    ids = rng.integers(0, v, (2, 16, 32))
+    sc = {"cpu": [], "cuda": []}
+    for n in range(2):
+        for key, g in (("cpu", cpu), ("cuda", card)):
+            g.fit(eye[ids[n]], eye[np.roll(ids[n], -1, axis=1)])
+            sc[key].append(float(g.score_value))
+    step_err = 0.0
+    for g in (cpu, card):
+        g.rnn_clear_previous_state()
+    for t in range(20):
+        a = card.rnn_time_step(eye[ids[0, :, t]])[0]
+        b = cpu.rnn_time_step(eye[ids[0, :, t]])[0]
+        step_err = max(step_err, max_err(a.cpu(), b))
+    e5_gate("graves_lstm_graph_tbptt_and_rnn_time_step", sc, dict(
+        param_max_abs_err=d5_tree_err(card.params, cpu.params),
+        rnn_time_step_max_abs_err=step_err), chunks=8,
+        iterations=card.iteration_count)
+    if card.iteration_count != 8:
+        fail(f"5e LSTM graph: {card.iteration_count} TBPTT updates, not 8")
+    # pretraining: a VAE vertex (graph) and an RBM layer (network)
+    def vae_graph():
+        return (NeuralNetConfiguration(seed=3, updater="adam",
+                                       learning_rate=0.01,
+                                       activation="tanh")
+                .graph_builder().add_inputs("in")
+                .add_layer("d", L.DenseLayer(n_in=32, n_out=24), "in")
+                .add_layer("vae", L.VariationalAutoencoder(
+                    n_in=24, n_out=4, encoder_layer_sizes=(16,),
+                    decoder_layer_sizes=(16,), num_samples=2), "d")
+                .add_layer("out", L.OutputLayer(n_in=4, n_out=2,
+                                                activation="softmax"),
+                           "vae")
+                .set_outputs("out").build())
+
+    def rbm_net():
+        return (NeuralNetConfiguration(seed=4, updater="sgd",
+                                       learning_rate=0.1)
+                .list(L.RBM(n_in=32, n_out=16, k=2),
+                      L.OutputLayer(n_out=2, activation="softmax")))
+    xp = (rng.random((64, 32)) < 0.4).astype(np.float32)
+    cpu_g, card_g = e5_graph_pair(dev, vae_graph)
+    cpu_n = MultiLayerNetwork(rbm_net(), device="cpu").init()
+    card_n = MultiLayerNetwork(rbm_net(), device=dev)
+    card_n.set_params_from_numpy(d5_np(cpu_n.params))
+    sc = {"cpu": [], "cuda": []}
+    for _ in range(3):
+        for key, g, n in (("cpu", cpu_g, cpu_n), ("cuda", card_g, card_n)):
+            g.pretrain(xp)
+            n.pretrain(xp)
+            sc[key] += [float(g.score_value), float(n.score_value)]
+    lay = card_n.layers[0]
+    draws_equal = all(torch.equal(lay.draw(kind, 77, (64, 32), dev).cpu(),
+                                  lay.draw(kind, 77, (64, 32), "cpu"))
+                      for kind in ("uniform", "normal"))
+    e5_gate("pretrain_vae_vertex_and_rbm_layer", sc, dict(
+        param_max_abs_err=max(d5_tree_err(card_g.params, cpu_g.params),
+                              d5_tree_err(card_n.params, cpu_n.params))),
+        steps=3, draws_bit_equal=draws_equal)
+    if not draws_equal:
+        fail("5e: the pretraining draws differ between the card and the CPU")
+
+
+def e5_resnet50(torch, dev, b=128, pool=4, epochs=2):
+    """(b) ResNet-50 as trained_models.resnet50() builds it (224 x 224 x
+    3, 1000 classes, bf16, Nesterov 0.9, lr 0.01) at B=128 on a pool of
+    4 seeded synthetic minibatches: fit_batched 2 epochs after a warm
+    pass; FLOPs of one step by FlopCounterMode; one step under
+    torch.profiler (busy share, top kernels); then a TransferLearning
+    build (frozen up to avg_pool, fc1000 replaced with 10 classes) and 3
+    steps of it."""
+    from torch.utils.flop_counter import FlopCounterMode
+    from deeplearning4j_tpu_torch.modelimport.trained_models import \
+        resnet50
+    from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
+    from deeplearning4j_tpu_torch.nn.layers.base import fold_in
+    from deeplearning4j_tpu_torch.nn.layers.misc import FrozenLayer
+    from deeplearning4j_tpu_torch.nn.transferlearning import \
+        TransferLearning
+    conf = resnet50()
+    g = ComputationGraph(conf, device=dev).init()
+    if g._preprocessors:
+        fail(f"5e ResNet-50 has preprocessors {sorted(g._preprocessors)}")
+    rng = np.random.default_rng(0)
+    xs = torch.from_numpy(rng.random((pool, b, 224, 224, 3),
+                                     dtype=np.float32)).to(dev)
+    labels = torch.from_numpy(rng.integers(0, 1000, (pool, b))).to(dev)
+    ys = torch.nn.functional.one_hot(labels, 1000).float()
+    t0 = time.perf_counter()
+    warm = g.fit_batched(xs, ys, epochs=1)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    scores = g.fit_batched(xs, ys, epochs=epochs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    steps = pool * epochs
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    counter = FlopCounterMode(display=False)
+    with counter:                  # one step, on copies: nothing kept
+        g._step(g.params, g.state, g.updater_state, g.iteration_count,
+                {"input": xs[0]}, {"fc1000": ys[0]},
+                fold_in(conf.training.seed, g.iteration_count), None)
+    flops = float(counter.get_total_flops())
+    sc = [float(v) for v in scores]
+    e5_line(part="b", config="resnet50 224x224x3, 1000 classes, bf16",
+            batch=b, pool=pool, epochs=epochs, params=g.num_params(),
+            warm_pass_s=warm_s, wall_s=wall,
+            examples_per_s=b * steps / wall, ms_per_step=wall / steps * 1e3,
+            flops_per_step=flops,
+            bf16_peak_share=flops * steps / wall / PEAK_FLOPS["bfloat16"],
+            peak_mem_gb=peak, preprocessors=0,
+            warm_scores=[float(v) for v in warm], scores=sc)
+    if not np.all(np.isfinite(sc)):
+        fail(f"5e ResNet-50 scores not finite: {sc}")
+    wall_p, rows, host = profiled(torch,
+                                  lambda: g.fit_batched(xs[:1], ys[:1]))
+    profile_line(wall_p, rows, host, phase="5e", card=CARD,
+                 run="profiled_resnet50_step")
+    new = (TransferLearning.GraphBuilder(g)
+           .set_feature_extractor("avg_pool")
+           .n_out_replace("fc1000", 10).build())
+    frozen = [n for n, s in new.conf.vertices.items()
+              if isinstance(s.vertex, FrozenLayer)]
+    before = {n: {k: t.clone() for k, t in new.params[n].items()}
+              for n in frozen}
+    head = {k: t.clone() for k, t in new.params["fc1000"].items()}
+    y10 = torch.nn.functional.one_hot(labels[0] % 10, 10).float()
+    t0 = time.perf_counter()
+    tl_scores = []
+    for _ in range(3):
+        new.fit(xs[0], y10)
+        tl_scores.append(float(new.score_value))
+    torch.cuda.synchronize()
+    tl_wall = time.perf_counter() - t0
+    frozen_equal = all(torch.equal(new.params[n][k], t)
+                       for n in frozen for k, t in before[n].items())
+    moved = any(not torch.equal(new.params["fc1000"][k], t)
+                for k, t in head.items())
+    e5_line(part="b", run="transfer_learning_fc1000_to_10",
+            frozen_vertices=len(frozen), steps=3, wall_s=tl_wall,
+            scores=tl_scores, frozen_params_bit_equal=frozen_equal,
+            head_moved=moved)
+    if not (frozen_equal and moved):
+        fail(f"5e ResNet-50 transfer learning: frozen equal {frozen_equal},"
+             f" head moved {moved}")
+    del g, new, xs, ys
+    torch.cuda.empty_cache()
+
+
+def e5_lstm_graph_full_width(torch, dev, pool=4):
+    """(c) phase 5c's BASELINE config 3 (V=80, H=200, two GravesLSTM,
+    TBPTT 64, bf16, RMSProp lr 0.1) at B=1024, T=64 as a ComputationGraph:
+    fit_batched over a pool of 4 after a warm pass, then 200 steps of
+    rnn_time_step at B=1; the MultiLayerNetwork over the same layers and
+    weights (lstm_wavefront off) on the same pool."""
+    from deeplearning4j_tpu_torch.models.zoo import char_rnn_lstm
+    from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+    from deeplearning4j_tpu_torch.ops import lstm as tl
+    g = ComputationGraph(e5_char_rnn_graph(CHAR_V, CHAR_H, CHAR_T,
+                                           "bfloat16"), device=dev).init()
+    net = MultiLayerNetwork(char_rnn_lstm(vocab_size=CHAR_V, hidden=CHAR_H,
+                                          layers=2, tbptt_length=CHAR_T,
+                                          dtype="bfloat16"),
+                            device=dev).init()
+    net.lstm_wavefront = False
+    net.params = {k: {n: t.clone() for n, t in v.items()}
+                  for k, v in g.params.items()}
+    rng = np.random.default_rng(0)
+    ids = torch.from_numpy(rng.integers(0, CHAR_V, (pool, CHAR_B, CHAR_T)))
+    eye = torch.eye(CHAR_V, device=dev)
+    ids = ids.to(dev)
+    xs, ys = eye[ids], eye[torch.roll(ids, -1, dims=2)]
+    g.fit_batched(xs[:1], ys[:1])                    # warm
+    net.fit_batched(xs[:1], ys[:1])
+    torch.cuda.synchronize()
+    tl.lstm_scan_cuda.launches = 0
+    t0 = time.perf_counter()
+    gs = g.fit_batched(xs, ys)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    n_fit = tl.lstm_scan_cuda.launches
+    ns = net.fit_batched(xs, ys)
+    gsc, nsc = [float(v) for v in gs], [float(v) for v in ns]
+    bit_equal = torch.equal(gs, ns) and torch.equal(g.params_flat(),
+                                                    net.params_flat())
+    rel = max(abs(a - b) / max(abs(b), 1e-12) for a, b in zip(gsc, nsc))
+    chunks = pool                      # T = the TBPTT length: 1 a batch
+    e5_line(part="c", config="graves_lstm_charrnn_2x200_T64 as a graph",
+            dtype="bfloat16", batch=CHAR_B, seq=CHAR_T, pool=pool,
+            wall_s=wall, chars_per_s=CHAR_B * CHAR_T * pool / wall,
+            ms_per_minibatch=wall / pool * 1e3, scores_graph=gsc,
+            scores_multilayer=nsc, scores_and_params_bit_equal=bit_equal,
+            score_max_rel_diff=rel, lstm_scan_launches=n_fit,
+            lstm_scan_per_vertex_chunk=n_fit / (2 * chunks))
+    if n_fit != 2 * chunks:
+        fail(f"5e LSTM graph: {n_fit} lstm_scan launches for {chunks} "
+             "chunks of 2 GravesLSTM vertices")
+    if not (bit_equal or rel <= 2.0 ** -7) or not np.all(np.isfinite(gsc)):
+        fail(f"5e LSTM graph vs MultiLayerNetwork scores {gsc} / {nsc}")
+    g.rnn_clear_previous_state()
+    tl.lstm_scan_cuda.launches = 0
+    srng = np.random.default_rng(1)
+    cur = int(ids[0, 0, 0])
+    t0 = time.perf_counter()
+    for _ in range(200):
+        probs = g.rnn_time_step(eye[cur][None])[0][0].float().cpu().numpy()
+        if probs.shape != (CHAR_V,) or not np.all(np.isfinite(probs)):
+            fail(f"5e rnn_time_step gave {probs.shape} / non-finite values")
+        cur = int(srng.choice(CHAR_V, p=probs / probs.sum()))
+    swall = time.perf_counter() - t0
+    n_step = tl.lstm_scan_cuda.launches
+    e5_line(part="c", run="rnn_time_step_b1", steps=200, wall_s=swall,
+            ms_per_step=swall / 200 * 1e3, lstm_scan_launches=n_step)
+    if n_step != 2 * 200:
+        fail(f"5e graph rnn_time_step: {n_step} lstm_scan launches for "
+             "200 steps of 2 vertices")
+    del g, net, xs, ys
+    torch.cuda.empty_cache()
+    return {"lstm_scan": n_fit + n_step}
+
+
+def e5_attention(torch, dev, d=512, heads=8, t=1024, b=16, steps=3):
+    """(d) two TransformerBlock vertices (causal, d 512, 8 heads) and an
+    RnnOutputLayer as a graph at T=1024, B=16, bf16: 3 fit steps; the
+    flash forward and backward launch once a block a step."""
+    from deeplearning4j_tpu_torch.nn import layers as L
+    from deeplearning4j_tpu_torch.nn.conf.configuration import \
+        NeuralNetConfiguration
+    from deeplearning4j_tpu_torch.nn.conf.inputs import InputType
+    from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
+    from deeplearning4j_tpu_torch.ops import flash_attention as fa
+    v, blocks = 256, 2
+    conf = (NeuralNetConfiguration(seed=5, updater="adam",
+                                   learning_rate=1e-3, dtype="bfloat16")
+            .graph_builder().add_inputs("seq")
+            .set_input_types(seq=InputType.recurrent(d, t))
+            .add_layer("blk0", L.TransformerBlock(n_heads=heads,
+                                                  causal=True), "seq")
+            .add_layer("blk1", L.TransformerBlock(n_heads=heads,
+                                                  causal=True), "blk0")
+            .add_layer("out", L.RnnOutputLayer(n_out=v,
+                                               activation="softmax"),
+                       "blk1")
+            .set_outputs("out").build())
+    g = ComputationGraph(conf, device=dev).init()
+    gen = torch.Generator(device="cpu").manual_seed(9)
+    x = torch.randn((b, t, d), generator=gen).to(dev)
+    y = torch.nn.functional.one_hot(
+        torch.randint(0, v, (b, t), generator=gen), v).float().to(dev)
+    g.fit(x, y)                                      # warm
+    torch.cuda.synchronize()
+    fa.flash_forward_cuda.launches = 0
+    fa.flash_backward_cuda.launches = 0
+    t0 = time.perf_counter()
+    scores = []
+    for _ in range(steps):
+        g.fit(x, y)
+        scores.append(float(g.score_value))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    fwd, bwd = fa.flash_forward_cuda.launches, fa.flash_backward_cuda.launches
+    e5_line(part="d", config="graph of 2 x TransformerBlock d512 h8",
+            batch=b, seq=t, steps=steps, wall_s=wall,
+            ms_per_step=wall / steps * 1e3,
+            tokens_per_s=b * t * steps / wall, scores=scores,
+            flash_fwd_launches=fwd, flash_bwd_launches=bwd)
+    if fwd != blocks * steps or bwd != blocks * steps:
+        fail(f"5e attention graph: {fwd} forward / {bwd} backward flash "
+             f"launches in {steps} steps of {blocks} blocks")
+    if not (np.all(np.isfinite(scores)) and scores[-1] < scores[0]):
+        fail(f"5e attention graph scores {scores}")
+    del g
+    torch.cuda.empty_cache()
+    return {"flash_fwd": fwd, "flash_bwd": bwd}
+
+
+def e5_fault_tolerance(torch, dev, tmp):
+    """FaultTolerantTrainer over the narrow LeNet (f32) with async
+    checkpoints every 2 iterations and a NaN batch at iteration 3 (the
+    guard skips it): an uninterrupted run; a run preempted at iteration 4
+    and resumed by a fresh network over the batches left; a run whose
+    step-4 write crashes mid-write, resumed by a fresh trainer from the
+    last verified step. Both resumed runs must end bit-equal to the
+    uninterrupted one."""
+    from deeplearning4j_tpu_torch.datasets import MnistDataSetIterator
+    from deeplearning4j_tpu_torch.datasets.iterators import \
+        BaseDatasetIterator
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+    from deeplearning4j_tpu_torch.observability.metrics import \
+        MetricsRegistry
+    from deeplearning4j_tpu_torch.parallel import failure as pf
+    from deeplearning4j_tpu_torch.train.guard import TrainingGuard
+    it = MnistDataSetIterator(32, num_examples=192)
+    fx, fy = it.features, it.labels
+
+    def trainer(net, d, **kw):
+        return pf.FaultTolerantTrainer(
+            net, os.path.join(tmp, d), checkpoint_frequency=2,
+            async_save=True, guard=TrainingGuard(registry=MetricsRegistry()),
+            registry=MetricsRegistry(), **kw)
+
+    def net(seed=None):
+        n = MultiLayerNetwork(d5_narrow_lenet(), device=dev)
+        return n.init(seed)
+
+    plain = net()
+    inj = pf.FaultInjector(nan_at=[3])
+    t0 = time.perf_counter()
+    tr = trainer(plain, "plain", fault_injector=inj)
+    done = tr.fit(BaseDatasetIterator(fx, fy, 32))
+    wall = time.perf_counter() - t0
+    skipped = (inj.nans_injected == 1
+               and tr.guard._m_events.labels("skip").value == 1)
+    # preempted at 4, resumed by a fresh network over the batches left
+    pre = net()
+    ph = pf.PreemptionHandler(registry=MetricsRegistry())
+    tr_p = trainer(pre, "pre", preemption=ph,
+                   fault_injector=pf.FaultInjector(nan_at=[3],
+                                                   preempt_at=[4]))
+    stopped = tr_p.fit(BaseDatasetIterator(fx, fy, 32)) is False
+    pre_latest = tr_p.manager.latest_step()
+    resumed = net(seed=99)
+    trainer(resumed, "pre").fit(BaseDatasetIterator(fx[128:], fy[128:],
+                                                    32))
+    # a crash while writing step 4 (surfaces at the next save), then a
+    # fresh trainer: the orphan swept, step 2 restored
+    crash = net()
+    tr_c = trainer(crash, "crash", fault_injector=pf.FaultInjector(
+        nan_at=[3], crash_write_at=[4]))
+    try:
+        tr_c.fit(BaseDatasetIterator(fx, fy, 32))
+        crashed = False
+    except RuntimeError:
+        crashed = True
+    orphan = os.path.isdir(os.path.join(tmp, "crash", "step_4.tmp"))
+    crash_latest = tr_c.manager.latest_step()
+    after = net(seed=98)
+    tr_r = trainer(after, "crash",
+                   fault_injector=pf.FaultInjector(nan_at=[3]))
+    swept = not os.path.isdir(os.path.join(tmp, "crash", "step_4.tmp"))
+    tr_r.fit(BaseDatasetIterator(fx[64:], fy[64:], 32))
+    same_pre = all(e5_tree_equal(torch, getattr(resumed, a),
+                                 getattr(plain, a))
+                   for a in ("params", "state", "updater_state"))
+    same_crash = all(e5_tree_equal(torch, getattr(after, a),
+                                   getattr(plain, a))
+                     for a in ("params", "state", "updater_state"))
+    e5_line(part="e", run="fault_tolerant_trainer_lenet_async",
+            completed=done, wall_s=wall, nan_batch_skipped=skipped,
+            iterations=plain.iteration_count, steps=tr.manager.all_steps(),
+            preempted_stop=stopped, preempt_checkpoint=pre_latest,
+            resumed_bit_equal=same_pre, crashed=crashed,
+            orphan_left=orphan, crash_latest_verified=crash_latest,
+            orphan_swept=swept, crash_resume_bit_equal=same_crash)
+    if not (done and skipped and plain.iteration_count == 6):
+        fail(f"5e trainer: completed {done}, NaN skipped {skipped}, "
+             f"{plain.iteration_count} iterations")
+    if not (stopped and pre_latest == 4 and same_pre):
+        fail(f"5e preemption: stopped {stopped} at {pre_latest}, resumed "
+             f"bit-equal {same_pre}")
+    if not (crashed and orphan and crash_latest == 2 and swept
+            and same_crash):
+        fail(f"5e crash mid-write: crashed {crashed}, orphan {orphan}, "
+             f"latest {crash_latest}, swept {swept}, resume bit-equal "
+             f"{same_crash}")
+
+
+def e5_tools(torch, dev):
+    """(e) The tools on the card, in float32 with TF32 off and cuDNN's
+    deterministic algorithms (set here, for this part): the
+    FaultTolerantTrainer schedule, a StepWatchdog over a step that sleeps
+    past its deadline, the graph serializer's round trip and
+    EarlyStoppingGraphTrainer."""
+    import tempfile
+    from deeplearning4j_tpu_torch import earlystopping as es
+    from deeplearning4j_tpu_torch.datasets.iterators import \
+        BaseDatasetIterator
+    from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
+    from deeplearning4j_tpu_torch.observability.metrics import \
+        MetricsRegistry
+    from deeplearning4j_tpu_torch.parallel.failure import StepWatchdog
+    from deeplearning4j_tpu_torch.util import model_serializer as ms
+    cudnn = torch.backends.cudnn
+    prev = (cudnn.deterministic, cudnn.benchmark,
+            torch.backends.cuda.matmul.allow_tf32, cudnn.allow_tf32)
+    cudnn.deterministic, cudnn.benchmark = True, False
+    torch.backends.cuda.matmul.allow_tf32 = cudnn.allow_tf32 = False
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            e5_fault_tolerance(torch, dev, tmp)
+            # the watchdog flags a step that sleeps past its deadline
+            reg = MetricsRegistry()
+            wd = StepWatchdog(0.05, registry=reg).start()
+            try:
+                wd.arm(1)
+                torch.ones(8, device=dev).sum().item()
+                time.sleep(0.25)
+                wd.disarm()
+                wd.arm(2)
+                wd.disarm()
+            finally:
+                wd.stop()
+            e5_line(part="e", run="step_watchdog",
+                    hung_iterations=wd.hung_iterations,
+                    hung_total=reg.get("watchdog_hung_steps_total").value)
+            if wd.hung_iterations != [1]:
+                fail(f"5e watchdog flagged {wd.hung_iterations}")
+            # the graph serializer's round trip
+            rng = np.random.default_rng(3)
+            x = rng.random((16, 16, 16, 3), dtype=np.float32)
+            y = np.eye(10, dtype=np.float32)[rng.integers(0, 10, 16)]
+            g = ComputationGraph(e5_residual(), device=dev).init()
+            g.fit(x, y)
+            path = os.path.join(tmp, "graph.zip")
+            ms.write_model(g, path)
+            back = ms.restore_computation_graph(path, device=dev)
+            eq = all(e5_tree_equal(torch, getattr(back, a), getattr(g, a))
+                     for a in ("params", "state", "updater_state"))
+            out_eq = torch.equal(back.output(x)[0], g.output(x)[0])
+            e5_line(part="e", run="graph_serializer_round_trip",
+                    model_type=ms.model_type_of(path), trees_bit_equal=eq,
+                    output_bit_equal=out_eq, bytes=os.path.getsize(path))
+            if not (eq and out_eq):
+                fail("5e graph serializer round trip is not bit-equal")
+            # early stopping over the graph: the best model restored
+            probe = torch.from_numpy(x).to(dev)
+            saved = {}
+
+            class Saver(es.LocalFileModelSaver):
+                def save_best_model(self, n, score):
+                    saved["out"] = n.output(probe)[0].clone()
+                    super().save_best_model(n, score)
+
+            g = ComputationGraph(e5_residual(), device=dev).init()
+            xs = rng.random((64, 16, 16, 3), dtype=np.float32)
+            ys = np.eye(10, dtype=np.float32)[rng.integers(0, 10, 64)]
+            cfg = es.EarlyStoppingConfiguration(
+                epoch_termination_conditions=[
+                    es.MaxEpochsTerminationCondition(4)],
+                score_calculator=es.DataSetLossCalculator(
+                    BaseDatasetIterator(xs[:32], ys[:32], 16)),
+                model_saver=Saver(os.path.join(tmp, "es")))
+            res = es.EarlyStoppingGraphTrainer(
+                cfg, g, BaseDatasetIterator(xs, ys, 16)).fit()
+            best_eq = (isinstance(res.best_model, ComputationGraph)
+                       and torch.equal(res.best_model.output(probe)[0],
+                                       saved["out"]))
+            e5_line(part="e", run="early_stopping_graph",
+                    reason=res.termination_reason,
+                    best_epoch=res.best_model_epoch,
+                    total_epochs=res.total_epochs,
+                    scores=res.score_vs_epoch, best_output_bit_equal=best_eq)
+            if not best_eq or res.total_epochs != 4:
+                fail(f"5e graph early stopping: best output equal "
+                     f"{best_eq}, {res.total_epochs} epochs")
+    finally:
+        (cudnn.deterministic, cudnn.benchmark,
+         torch.backends.cuda.matmul.allow_tf32, cudnn.allow_tf32) = prev
+
+
+def phase_dag_runtime(torch, dev):
+    """5e. The DAG runtime and the training tools: (a) f32 card vs CPU,
+    (b) ResNet-50 at 224 x 224 with a transfer-learning build, (c) the
+    char-RNN's GravesLSTM graph at full width, (d) attention vertices,
+    (e) the tools. Returns the main-path kernels' launches (lstm_scan
+    from (c), flash forward / backward from (d))."""
+    t0 = time.perf_counter()
+    e5_f32_card_vs_cpu(torch, dev)
+    t_a = time.perf_counter() - t0
+    e5_resnet50(torch, dev)
+    t_b = time.perf_counter() - t0 - t_a
+    launches = e5_lstm_graph_full_width(torch, dev)
+    launches.update(e5_attention(torch, dev))
+    t_cd = time.perf_counter() - t0 - t_a - t_b
+    e5_tools(torch, dev)
+    e5_line(run="phase_5e", wall_s=time.perf_counter() - t0,
+            part_s={"a": t_a, "b": t_b, "c+d": t_cd,
+                    "e": time.perf_counter() - t0 - t_a - t_b - t_cd},
+            launches=launches)
+    return launches
+
+
+# ---------------------------------------------------------------------------
 
 def main() -> int:
     if len(sys.argv) == 4 and sys.argv[1] == K3_CHILD:
@@ -7631,10 +8332,11 @@ def main() -> int:
             "3j": phase_engine_control_full_width,
             "3k": phase_cache_handoff_full_width,
             "3l": phase_fleet_full_width,
-            "5d": phase_dsl_cnn}
+            "5d": phase_dsl_cnn,
+            "5e": phase_dag_runtime}
     if len(sys.argv) == 3 and sys.argv[1] == "--only" and \
             sys.argv[2] in only:
-        # a development run of phase 3h, 3i, 3j, 3k, 3l or 5d alone (no
+        # a development run of phase 3h, 3i, 3j, 3k, 3l, 5d or 5e alone (no
         # kernels line, no result); a full run takes no arguments
         line(dict(phase=sys.argv[2], launches=only[sys.argv[2]](
             torch, dev), wall_s=time.perf_counter() - t_run,
@@ -7715,6 +8417,10 @@ def main() -> int:
     for name, n in phase_dsl_cnn(torch, dev).items():
         launches[name] = launches.get(name, 0) + n
     t_5d = time.perf_counter() - t_5d
+    t_5e = time.perf_counter()
+    for name, n in phase_dag_runtime(torch, dev).items():
+        launches[name] = launches.get(name, 0) + n
+    t_5e = time.perf_counter() - t_5e
     launches.update(phase_experiments(torch, dev))
 
     sources = {
@@ -7779,7 +8485,8 @@ def main() -> int:
               without_moe_phases_s=wall - sum(new_phases.values()),
               observability_phase_s=t_obs, fault_phase_s=t_fault,
               engine_control_phase_s=t_ctl, cache_handoff_phase_s=t_k3,
-              fleet_phase_s=t_l3, dsl_cnn_phase_s=t_5d))
+              fleet_phase_s=t_l3, dsl_cnn_phase_s=t_5d,
+              dag_phase_s=t_5e))
     print(card, flush=True)
     line({"kernels": kernels})
     line({"ok": True, "device": {"platform": "gpu",

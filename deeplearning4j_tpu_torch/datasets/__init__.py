@@ -1,5 +1,5 @@
 """datasets subpackage of the PyTorch/CUDA port (port of
-deeplearning4j_tpu/datasets; records.py: ROADMAP queue A, item 12b)."""
+deeplearning4j_tpu/datasets)."""
 from deeplearning4j_tpu_torch.datasets.iterators import (  # noqa: F401
     DataSet,
     ListDataSetIterator,
@@ -15,6 +15,7 @@ from deeplearning4j_tpu_torch.datasets.iterators import (  # noqa: F401
     DummyPreProcessor,
     IteratorMultiDataSetIterator,
     SingletonMultiDataSetIterator,
+    MultiDataSetIteratorAdapter,
 )
 from deeplearning4j_tpu_torch.datasets.impl import (  # noqa: F401
     MnistDataSetIterator,

@@ -6,9 +6,9 @@ already in the local cache (``$DL4J_TPU_DATA_DIR/mnist``, else
 ``~/.deeplearning4j_tpu/mnist``), parsed in Python; the port fetches
 nothing. Otherwise it makes the deterministic synthetic digit set of the
 JAX package (`_synthetic_mnist`: the same arrays from the same seed).
-CIFAR-10 reads its local binary batches, else synthetic images; LFW makes
-synthetic images (a local image tree needs `datasets/records.py`, ROADMAP
-queue A, item 12b). Iris / Digits come from scikit-learn's bundled
+CIFAR-10 reads its local binary batches, else synthetic images; LFW reads
+a local image tree through `datasets/records.ImageRecordReader`, else
+synthetic images. Iris / Digits come from scikit-learn's bundled
 copies, imported when built.
 """
 from __future__ import annotations
@@ -199,9 +199,9 @@ class CifarDataSetIterator(BaseDatasetIterator):
 class LFWDataSetIterator(BaseDatasetIterator):
     """LFW faces (reference: datasets/iterator/impl/LFWDataSetIterator +
     fetchers/LFWDataFetcher). Reads a local image tree via
-    ImageRecordReader ($DL4J_TPU_DATA_DIR/lfw/<person>/*.jpg|npy; the
-    port raises there until records.py is ported); otherwise synthetic
-    image classes."""
+    ImageRecordReader ($DL4J_TPU_DATA_DIR/lfw/<person>/*.npy, or any
+    image file where PIL is installed); otherwise synthetic image
+    classes. Nothing is fetched."""
 
     def __init__(self, batch_size: int, height: int = 64, width: int = 64,
                  channels: int = 3, num_examples: Optional[int] = None,
@@ -211,10 +211,18 @@ class LFWDataSetIterator(BaseDatasetIterator):
             "DL4J_TPU_DATA_DIR",
             Path.home() / ".deeplearning4j_tpu")) / "lfw"
         if root.is_dir() and any(root.iterdir()):
-            raise NotImplementedError(
-                f"reading the LFW images under {root} needs "
-                "datasets/records.py's ImageRecordReader (ROADMAP queue A, "
-                "item 12b)")
+            from deeplearning4j_tpu_torch.datasets.records import \
+                ImageRecordReader
+            reader = ImageRecordReader(height, width, channels)
+            reader.initialize(str(root))
+            feats, labels = [], []
+            for img, ci in reader.records():
+                feats.append(img)
+                labels.append(ci)
+            feats = np.stack(feats)
+            labels = np.asarray(labels)
+            num_classes = len(reader.labels)
+            self.synthetic = False
         else:
             if not allow_synthetic:
                 raise RuntimeError(f"no LFW images under {root} and "

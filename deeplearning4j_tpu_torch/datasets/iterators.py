@@ -1,7 +1,5 @@
 """DataSet container + iterator utilities (port of
-deeplearning4j_tpu/datasets/iterators.py: numpy only, the same code;
-`MultiDataSetIteratorAdapter` comes with `datasets/records.py`'s
-MultiDataSet, ROADMAP queue A, item 12b).
+deeplearning4j_tpu/datasets/iterators.py: numpy only, the same code).
 
 Parity with the reference's data layer (reference: ND4J `DataSet` +
 `DataSetIterator` interface consumed at
@@ -532,3 +530,25 @@ class SingletonMultiDataSetIterator:
 
     def reset(self):
         self._done = False
+
+
+class MultiDataSetIteratorAdapter:
+    """Present a DataSetIterator as a MultiDataSetIterator (reference:
+    datasets/iterator/impl/MultiDataSetIteratorAdapter.java)."""
+
+    def __init__(self, base):
+        self.base = base
+
+    def __iter__(self):
+        from deeplearning4j_tpu_torch.datasets.records import MultiDataSet
+        for ds in self.base:
+            yield MultiDataSet(
+                features=[ds.features], labels=[ds.labels],
+                features_masks=(None if ds.features_mask is None
+                                else [ds.features_mask]),
+                labels_masks=(None if ds.labels_mask is None
+                              else [ds.labels_mask]))
+
+    def reset(self):
+        if hasattr(self.base, "reset"):
+            self.base.reset()

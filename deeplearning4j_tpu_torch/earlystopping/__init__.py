@@ -20,5 +20,6 @@ from deeplearning4j_tpu_torch.earlystopping.termination import (  # noqa: F401
     ScoreImprovementEpochTerminationCondition,
 )
 from deeplearning4j_tpu_torch.earlystopping.trainer import (  # noqa: F401
+    EarlyStoppingGraphTrainer,
     EarlyStoppingTrainer,
 )

@@ -1,10 +1,9 @@
 """Early-stopping training loop (port of
-deeplearning4j_tpu/earlystopping/trainer.py; `EarlyStoppingGraphTrainer`
-comes with ComputationGraph, ROADMAP queue A, item 12b).
+deeplearning4j_tpu/earlystopping/trainer.py).
 
 Parity with the reference (reference:
 deeplearning4j-nn/.../earlystopping/trainer/BaseEarlyStoppingTrainer.java,
-EarlyStoppingTrainer.java): per-epoch fit
+EarlyStoppingTrainer.java, EarlyStoppingGraphTrainer.java): per-epoch fit
 over the training iterator with iteration-condition checks per minibatch,
 score calculation every N epochs, best-model tracking via the saver, and a
 structured result.
@@ -142,3 +141,7 @@ class BaseEarlyStoppingTrainer:
 
 class EarlyStoppingTrainer(BaseEarlyStoppingTrainer):
     """For MultiLayerNetwork (reference: EarlyStoppingTrainer.java)."""
+
+
+class EarlyStoppingGraphTrainer(BaseEarlyStoppingTrainer):
+    """For ComputationGraph (reference: EarlyStoppingGraphTrainer.java)."""

@@ -1,2 +1,2 @@
-"""modelimport subpackage of the PyTorch/CUDA port: the VGG16
-configuration and its preprocessing (`trained_models`)."""
+"""modelimport subpackage of the PyTorch/CUDA port: the VGG16 and
+ResNet-50 configurations and ImageNet preprocessing (`trained_models`)."""

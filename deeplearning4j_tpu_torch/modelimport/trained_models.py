@@ -1,10 +1,10 @@
-"""Pretrained-model helpers: the VGG16 architecture and its ImageNet
-preprocessing (port of the configuration part of the JAX package's
-`modelimport/trained_models.py`).
+"""Pretrained-model helpers: the VGG16 and ResNet-50 architectures and
+ImageNet preprocessing (port of the configuration part of the JAX
+package's `modelimport/trained_models.py`).
 
-`vgg16` and `vgg16_preprocess` are pure configuration and numpy.
-`load_vgg16` needs the Keras HDF5 import (ROADMAP queue A, item 13) and
-`resnet50` a ComputationGraph (item 12b); both raise.
+`vgg16`, `resnet50` and `vgg16_preprocess` are pure configuration and
+numpy. `load_vgg16` needs the Keras HDF5 import (ROADMAP queue A, item
+13) and raises.
 """
 from __future__ import annotations
 
@@ -70,7 +70,75 @@ def load_vgg16(h5_path: str):
         "item 13: modelimport/keras)")
 
 
-def resnet50(*args, **kwargs):
-    raise NotImplementedError(
-        "resnet50 is a ComputationGraph configuration, not ported yet "
-        "(ROADMAP queue A, item 12b: nn/graph, zoo.resnet50)")
+def resnet50(num_classes: int = 1000, height: int = 224, width: int = 224,
+             channels: int = 3, learning_rate: float = 0.01,
+             seed: int = 12345, dtype: str = "bfloat16"):
+    """ResNet-50 (He et al. 2015) as a ComputationGraph configuration:
+    NHWC activations, bottleneck blocks [3,4,6,3], batch norm after every
+    conv, residual adds as ElementWiseVertex, bf16 by default. No
+    preprocessor is inserted anywhere (BatchNormalization and
+    ActivationLayer take any family, and global pooling emits the
+    feed-forward type the head takes)."""
+    from deeplearning4j_tpu_torch.nn.layers.misc import (ActivationLayer,
+                                                   GlobalPoolingLayer)
+    from deeplearning4j_tpu_torch.nn.layers.normalization import (
+        BatchNormalization)
+    from deeplearning4j_tpu_torch.nn.graph.vertices import ElementWiseVertex
+
+    b = (NeuralNetConfiguration(seed=seed, learning_rate=learning_rate,
+                                updater="nesterovs", momentum=0.9,
+                                weight_init="relu", dtype=dtype,
+                                activation="identity")
+         .graph_builder()
+         .add_inputs("input")
+         .set_input_types(input=InputType.convolutional(height, width,
+                                                        channels)))
+
+    def conv(name, n_out, k, stride, src):
+        b.add_layer(name, ConvolutionLayer(
+            n_out=n_out, kernel_size=(k, k), stride=(stride, stride),
+            convolution_mode="same", activation="identity"), src)
+        return name
+
+    def bn(name, src, relu):
+        b.add_layer(name, BatchNormalization(
+            activation="relu" if relu else "identity"), src)
+        return name
+
+    # stem: 7x7/2 conv + BN/relu + 3x3/2 max pool
+    prev = bn("bn_conv1", conv("conv1", 64, 7, 2, "input"), relu=True)
+    b.add_layer("pool1", SubsamplingLayer(
+        pooling_type="max", kernel_size=(3, 3), stride=(2, 2),
+        convolution_mode="same"), prev)
+    prev = "pool1"
+
+    stages = [(3, 64, 256, 1), (4, 128, 512, 2), (6, 256, 1024, 2),
+              (3, 512, 2048, 2)]
+    for si, (reps, mid, out_ch, first_stride) in enumerate(stages,
+                                                           start=2):
+        for ri in range(reps):
+            n = f"s{si}b{ri + 1}"
+            stride = first_stride if ri == 0 else 1
+            x = bn(f"{n}_bn1", conv(f"{n}_c1", mid, 1, stride, prev),
+                   relu=True)
+            x = bn(f"{n}_bn2", conv(f"{n}_c2", mid, 3, 1, x), relu=True)
+            x = bn(f"{n}_bn3", conv(f"{n}_c3", out_ch, 1, 1, x),
+                   relu=False)
+            if ri == 0:  # projection shortcut on the stage's first block
+                shortcut = bn(f"{n}_bnp",
+                              conv(f"{n}_proj", out_ch, 1, stride, prev),
+                              relu=False)
+            else:
+                shortcut = prev
+            b.add_vertex(f"{n}_add", ElementWiseVertex(op="add"), x,
+                         shortcut)
+            b.add_layer(f"{n}_out", ActivationLayer(activation="relu"),
+                        f"{n}_add")
+            prev = f"{n}_out"
+
+    b.add_layer("avg_pool", GlobalPoolingLayer(pooling_type="avg"), prev)
+    b.add_layer("fc1000", OutputLayer(n_out=num_classes,
+                                      activation="softmax",
+                                      loss_function="mcxent"), "avg_pool")
+    b.set_outputs("fc1000")
+    return b.build()

@@ -1,12 +1,11 @@
 """Network configuration DSL (port of nn/conf/configuration.py).
 
 Global hyperparameters with per-layer overrides, the sequential topology,
-InputType-driven shape inference with automatic preprocessor insertion,
-and the JSON / YAML round trip. The classes register under the JAX
-package's names with the same fields, so `to_json` writes the same
-document. The DAG topology (`graph_builder`, ComputationGraphConfiguration)
-is not ported yet (ROADMAP queue A, item 12b) and raises
-NotImplementedError.
+the DAG topology (`graph_builder` -> `GraphBuilder` ->
+`ComputationGraphConfiguration`), InputType-driven shape inference with
+automatic preprocessor insertion, and the JSON / YAML round trip. The
+classes register under the JAX package's names with the same fields, so
+`to_json` writes the same document and either package reads the other's.
 
 Pythonic builder instead of Java's nested Builder classes::
 
@@ -19,7 +18,7 @@ Pythonic builder instead of Java's nested Builder classes::
     net = MultiLayerNetwork(conf)
 
 The configuration is pure metadata; `nn.multilayer.MultiLayerNetwork`
-runs it.
+and `nn.graph.ComputationGraph` run it.
 """
 from __future__ import annotations
 
@@ -118,10 +117,8 @@ class NeuralNetConfiguration:
                                        training=copy.deepcopy(self.training))
 
     # -- DAG ---------------------------------------------------------------
-    def graph_builder(self):
-        raise NotImplementedError(
-            "ComputationGraph configurations are not ported yet (ROADMAP "
-            "queue A, item 12b: nn/graph/{computation_graph,vertices}.py)")
+    def graph_builder(self) -> "GraphBuilder":
+        return GraphBuilder(self)
 
 
 @register
@@ -228,3 +225,130 @@ class MultiLayerConfiguration:
         if not isinstance(obj, MultiLayerConfiguration):
             raise ValueError("YAML does not encode a MultiLayerConfiguration")
         return obj
+
+
+@register
+@dataclass
+class GraphVertexSpec:
+    """One node in the DAG: a Layer or a GraphVertex plus its input names."""
+    vertex: Any = None
+    inputs: List[str] = field(default_factory=list)
+
+
+@register
+@dataclass
+class ComputationGraphConfiguration:
+    """DAG configuration (reference:
+    nn/conf/ComputationGraphConfiguration.java + GraphBuilder)."""
+    network_inputs: List[str] = field(default_factory=list)
+    network_outputs: List[str] = field(default_factory=list)
+    vertices: Dict[str, GraphVertexSpec] = field(default_factory=dict)
+    training: TrainingConfig = field(default_factory=TrainingConfig)
+    input_types: Dict[str, Any] = field(default_factory=dict)
+    backprop_type: str = "standard"
+    tbptt_fwd_length: int = 20
+    tbptt_back_length: int = 20
+    pretrain: bool = False
+
+    def to_json(self) -> str:
+        return json.dumps(to_dict(self), indent=2)
+
+    @staticmethod
+    def from_json(s: str) -> "ComputationGraphConfiguration":
+        obj = from_dict(json.loads(s))
+        if not isinstance(obj, ComputationGraphConfiguration):
+            raise ValueError(
+                "JSON does not encode a ComputationGraphConfiguration")
+        return obj
+
+    def to_yaml(self) -> str:
+        """Reference: ComputationGraphConfiguration toYaml (same dual
+        format contract as MultiLayerConfiguration.java:79)."""
+        from deeplearning4j_tpu_torch.nn.conf.serde import to_yaml
+        return to_yaml(self)
+
+    @staticmethod
+    def from_yaml(s: str) -> "ComputationGraphConfiguration":
+        from deeplearning4j_tpu_torch.nn.conf.serde import from_yaml
+        obj = from_yaml(s)
+        if not isinstance(obj, ComputationGraphConfiguration):
+            raise ValueError(
+                "YAML does not encode a ComputationGraphConfiguration")
+        return obj
+
+    def topological_order(self) -> List[str]:
+        """Kahn's algorithm over vertex dependencies (reference:
+        ComputationGraph.topologicalSortOrder(), ComputationGraph.java:888)."""
+        indeg: Dict[str, int] = {}
+        dependents: Dict[str, List[str]] = {}
+        for name, spec in self.vertices.items():
+            indeg[name] = 0
+            for inp in spec.inputs:
+                if inp in self.network_inputs:
+                    continue
+                indeg[name] += 1
+                dependents.setdefault(inp, []).append(name)
+        ready = sorted(n for n, d in indeg.items() if d == 0)
+        order: List[str] = []
+        while ready:
+            n = ready.pop(0)
+            order.append(n)
+            for m in dependents.get(n, []):
+                indeg[m] -= 1
+                if indeg[m] == 0:
+                    ready.append(m)
+        if len(order) != len(self.vertices):
+            cyc = set(self.vertices) - set(order)
+            raise ValueError(f"Graph has a cycle involving {sorted(cyc)}")
+        return order
+
+
+class GraphBuilder:
+    """Fluent DAG builder (reference:
+    ComputationGraphConfiguration.GraphBuilder)."""
+
+    def __init__(self, nn_conf: NeuralNetConfiguration):
+        self._nn = nn_conf
+        self._conf = ComputationGraphConfiguration(
+            training=copy.deepcopy(nn_conf.training))
+
+    def add_inputs(self, *names: str) -> "GraphBuilder":
+        self._conf.network_inputs.extend(names)
+        return self
+
+    def set_input_types(self, **types) -> "GraphBuilder":
+        self._conf.input_types.update(types)
+        return self
+
+    def add_layer(self, name: str, layer: Layer,
+                  *inputs: str) -> "GraphBuilder":
+        layer = self._nn._apply_defaults(layer)
+        layer.name = name
+        self._conf.vertices[name] = GraphVertexSpec(vertex=layer,
+                                                    inputs=list(inputs))
+        return self
+
+    def add_vertex(self, name: str, vertex,
+                   *inputs: str) -> "GraphBuilder":
+        self._conf.vertices[name] = GraphVertexSpec(vertex=vertex,
+                                                    inputs=list(inputs))
+        return self
+
+    def set_outputs(self, *names: str) -> "GraphBuilder":
+        self._conf.network_outputs.extend(names)
+        return self
+
+    def backprop_type_tbptt(self, fwd_length: int = 20,
+                            back_length: int = 20) -> "GraphBuilder":
+        self._conf.backprop_type = "tbptt"
+        self._conf.tbptt_fwd_length = fwd_length
+        self._conf.tbptt_back_length = back_length
+        return self
+
+    def build(self) -> ComputationGraphConfiguration:
+        if not self._conf.network_inputs:
+            raise ValueError("GraphBuilder: no inputs declared")
+        if not self._conf.network_outputs:
+            raise ValueError("GraphBuilder: no outputs declared")
+        self._conf.topological_order()  # validates acyclicity + names
+        return self._conf

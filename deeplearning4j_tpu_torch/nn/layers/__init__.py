@@ -3,14 +3,16 @@
 Exports the layer families of the JAX package's `nn.layers` that are
 ported: dense, embedding, output and loss, convolution and pooling,
 normalization, the utility layers, the DSL's attention layers and the
-recurrent ones. `AutoEncoder`, `RBM` and `VariationalAutoencoder` come
-with layerwise pretraining (ROADMAP queue A, item 12b).
+recurrent ones, and the pretraining layers `AutoEncoder`, `RBM` and
+`VariationalAutoencoder`.
 """
 from deeplearning4j_tpu_torch.nn.layers.base import (  # noqa: F401
     BaseLayer,
     Layer,
 )
 from deeplearning4j_tpu_torch.nn.layers.feedforward import (  # noqa: F401
+    RBM,
+    AutoEncoder,
     DenseLayer,
     EmbeddingLayer,
 )
@@ -46,4 +48,7 @@ from deeplearning4j_tpu_torch.nn.layers.recurrent import (  # noqa: F401
     LSTM,
     GravesBidirectionalLSTM,
     GravesLSTM,
+)
+from deeplearning4j_tpu_torch.nn.layers.variational import (  # noqa: F401
+    VariationalAutoencoder,
 )

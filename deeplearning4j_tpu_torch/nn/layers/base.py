@@ -14,6 +14,7 @@ an optional [B] or [B, T] {0,1} tensor.
 """
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
 from typing import Dict, Optional, Tuple
 
@@ -85,6 +86,20 @@ class Layer:
               ) -> Tuple[Tensor, Dict[str, Tensor]]:
         return x, state
 
+    def is_pretrain_layer(self) -> bool:
+        return False
+
+    def draw(self, kind: str, key: int, shape, device) -> Tensor:
+        """Every random draw of layerwise pretraining (corruption, Gibbs
+        samples, the VAE's eps): float32 ``"uniform"`` [0, 1) or
+        ``"normal"`` values, a function of (key, shape) alone, the same
+        on the CPU and on the card."""
+        if kind == "uniform":
+            return uniform_from_seed(shape, key, device)
+        if kind == "normal":
+            return normal_from_seed(shape, key, device)
+        raise ValueError(f"unknown draw kind {kind!r}")
+
 
 @dataclass
 class BaseLayer(Layer):
@@ -118,6 +133,17 @@ def uniform_from_seed(shape, seed: int, device) -> Tensor:
     h = _fmix32(((idx * 0x9E3779B1) & _M32) ^ (s & _M32))
     h = _fmix32(h ^ ((s >> 32) & _M32))
     return ((h >> 8).to(torch.float32) * (1.0 / (1 << 24))).reshape(shape)
+
+
+def normal_from_seed(shape, seed: int, device) -> Tensor:
+    """Standard normal float32 values, a function of (seed, element
+    index) alone: Box-Muller over two `uniform_from_seed` streams,
+    computed in float64 and rounded once, so the CPU and the card agree
+    bit for bit."""
+    u1 = 1.0 - uniform_from_seed(shape, fold_in(seed, 1), device).double()
+    u2 = uniform_from_seed(shape, fold_in(seed, 2), device).double()
+    z = torch.sqrt(-2.0 * torch.log(u1)) * torch.cos((2.0 * math.pi) * u2)
+    return z.to(torch.float32)
 
 
 def apply_dropout(x: Tensor, rate: float, key: int) -> Tensor:

@@ -24,9 +24,9 @@ non-finite update is discarded before the guard judges it; SKIP keeps
 the tree and still advances the iteration; ROLLBACK raises
 `DivergenceError`), the Solver for the non-SGD optimization algorithms
 (`train.solvers`), `fit_batched_cost` (FLOPs of the step by
-`torch.utils.flop_counter`), and the inference and evaluation surface.
-Layerwise `pretrain` raises NotImplementedError until its layers are
-ported (ROADMAP queue A, item 12b).
+`torch.utils.flop_counter`), layerwise `pretrain` of the AutoEncoder,
+RBM and VariationalAutoencoder layers, and the inference and evaluation
+surface.
 """
 from __future__ import annotations
 
@@ -60,12 +60,6 @@ def _dtype_of(name: str) -> torch.dtype:
             "float16": torch.float16, "float64": torch.float64}[name]
 
 
-def _later(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported yet (ROADMAP queue A, item 12b: "
-        "AutoEncoder, RBM and nn/layers/variational.py)")
-
-
 def _leaves(tree) -> List[Tensor]:
     """Tensors of a nested dict in sorted-key order (jax's dict order)."""
     out = []
@@ -78,6 +72,23 @@ def _leaves(tree) -> List[Tensor]:
 def _map(fn, tree):
     return {k: (_map(fn, v) if isinstance(v, dict) else fn(v))
             for k, v in tree.items()}
+
+
+def value_and_grad(loss_fn, params):
+    """(score, aux, grads) of ``loss_fn(params) -> (score, aux)`` by
+    autograd over a ``{layer: {param: tensor}}`` tree; a parameter the
+    loss does not reach gets a zero gradient."""
+    leaves = _map(lambda p: p.detach().requires_grad_(True), params)
+    with torch.enable_grad():
+        score, aux = loss_fn(leaves)
+    flat = _leaves(leaves)
+    gs = torch.autograd.grad(score, flat, allow_unused=True) if flat \
+        else ()
+    gs = iter([torch.zeros_like(p) if g is None else g
+               for p, g in zip(flat, gs)])
+    grads = {k: {pk: next(gs) for pk in sorted(leaves[k])}
+             for k in sorted(leaves)}
+    return score.detach(), aux, grads
 
 
 class MultiLayerNetwork:
@@ -105,6 +116,7 @@ class MultiLayerNetwork:
         self.score_value: float = float("nan")
         self._rnn_carries: Optional[Dict[str, Any]] = None
         self._solver = None
+        self._pretrain_counts: Dict[int, int] = {}
         self._initialized = False
 
     # ------------------------------------------------------------------ init
@@ -318,20 +330,6 @@ class MultiLayerNetwork:
         return {self.layer_names[i]: not isinstance(l, FrozenLayer)
                 for i, l in enumerate(self.layers)}
 
-    def _value_and_grad(self, loss_fn, params):
-        """(score, aux, grads) of ``loss_fn(params)`` by autograd; a
-        parameter the loss does not reach gets a zero gradient."""
-        leaves = _map(lambda p: p.detach().requires_grad_(True), params)
-        with torch.enable_grad():
-            score, aux = loss_fn(leaves)
-        flat = _leaves(leaves)
-        gs = torch.autograd.grad(score, flat, allow_unused=True)
-        gs = iter([torch.zeros_like(p) if g is None else g
-                   for p, g in zip(flat, gs)])
-        grads = {k: {pk: next(gs) for pk in sorted(leaves[k])}
-                 for k in sorted(leaves)}
-        return score.detach(), aux, grads
-
     def _update(self, params, state, opt_state, iteration, x, y, key,
                 mask):
         """One minibatch update (the JAX package's `_step_math`), with
@@ -339,7 +337,7 @@ class MultiLayerNetwork:
         grads)."""
         def loss_fn(p):
             return self._loss_fn(p, state, x, y, key, mask)
-        score, new_state, grads = self._value_and_grad(loss_fn, params)
+        score, new_state, grads = value_and_grad(loss_fn, params)
         new_params, new_opt = apply_updater(
             self.conf.training, params, grads, opt_state, iteration,
             lr_multipliers=self._lr_multipliers(),
@@ -413,8 +411,8 @@ class MultiLayerNetwork:
             score = promote_score(loss) + self._regularization_score(p)
             return score, (new_state, new_carries)
 
-        score, (new_state, new_carries), grads = self._value_and_grad(
-            loss_fn, params)
+        score, (new_state, new_carries), grads = value_and_grad(loss_fn,
+                                                                params)
         new_params, new_opt = apply_updater(
             self.conf.training, params, grads, opt_state, iteration,
             lr_multipliers=self._lr_multipliers(),
@@ -667,8 +665,56 @@ class MultiLayerNetwork:
         return {"flops": float(counter.get_total_flops()),
                 "steps": int(xs.shape[0]) * chunks * epochs}
 
+    # -------------------------------------------------------------- pretrain
     def pretrain(self, data) -> None:
-        raise _later("layerwise pretraining")
+        """Greedy layerwise unsupervised pretraining of the AutoEncoder,
+        RBM and VAE layers, in order."""
+        if not self._initialized:
+            self.init()
+        for i, layer in enumerate(self.layers):
+            if not layer.is_pretrain_layer():
+                continue
+            self.pretrain_layer(i, data)
+            if hasattr(data, "reset"):
+                data.reset()
+
+    @torch.no_grad()
+    def _layer_input(self, layer_idx: int, x: Tensor) -> Tensor:
+        """The (preprocessed) input of layer ``layer_idx``: the layers
+        below in inference mode, no gradient."""
+        h = self._cast_in(x)
+        for j in range(layer_idx):
+            jn = self.layer_names[j]
+            pp = self.conf.input_preprocessors.get(str(j))
+            if pp is not None:
+                h = pp.pre_process(h)
+            h, _ = self.layers[j].apply(self.params[jn],
+                                        self.state.get(jn, {}), h,
+                                        train=False)
+        pp = self.conf.input_preprocessors.get(str(layer_idx))
+        return pp.pre_process(h) if pp is not None else h
+
+    def pretrain_layer(self, layer_idx: int, data) -> None:
+        """Pretrain one layer on ``data`` (an array, or an iterable of
+        batches whose features it takes); a per-layer counter keeps the
+        updater's step and the draws' keys running across calls."""
+        layer = self.layers[layer_idx]
+        name = self.layer_names[layer_idx]
+        if not layer.is_pretrain_layer():
+            return
+        tc = self.conf.training
+        it = self._pretrain_counts.get(layer_idx, 0)
+        batches = data if not hasattr(data, "__array__") else [(data, None)]
+        for batch in batches:
+            feats, _, _, _ = _unpack_batch(batch)
+            h = self._layer_input(layer_idx, self._tensor(feats))
+            (self.params[name], self.updater_state[name],
+             score) = pretrain_step(tc, layer, name, self.params[name],
+                                    self.updater_state[name], it, h,
+                                    fold_in(tc.seed, it))
+            self.score_value = score
+            it += 1
+        self._pretrain_counts[layer_idx] = it
 
     # ------------------------------------------------------------- inference
     @torch.no_grad()
@@ -881,6 +927,18 @@ class MultiLayerNetwork:
         net.lstm_wavefront = self.lstm_wavefront
         net._initialized = self._initialized
         return net
+
+
+def pretrain_step(tc, layer, name, params, opt_state, iteration, h, key):
+    """One layerwise pretraining update of ``layer`` on its input
+    activation ``h`` (detached): ``layer.pretrain_loss(params, h, key)``
+    by autograd, then the updater: (params, opt state, score)."""
+    def loss_fn(p):
+        return layer.pretrain_loss(p[name], h, key), None
+    score, _, grads = value_and_grad(loss_fn, {name: params})
+    new_p, new_s = apply_updater(tc, {name: params}, grads,
+                                 {name: opt_state}, iteration)
+    return new_p[name], new_s[name], score
 
 
 def unravel_like(tree, flat: Tensor):

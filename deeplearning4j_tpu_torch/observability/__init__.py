@@ -20,8 +20,8 @@ the same names.
 - `timeline` — Chrome/Perfetto `trace_event` JSON export of the
   recorder: one lane per serving slot plus a queue lane.
 - `stitch`, `federation` — distributed-trace stitching and metrics
-  federation across replicas (host-only; their consumer, the fleet
-  router, is not ported yet).
+  federation across replicas (host-only; the fleet router consumes
+  them).
 - `profiling` — `EngineProfiler` (per-program analytic cost table from
   `program_cost`, per-tick device-time attribution, live `serving_mfu`,
   roofline classification against `util.flops`' card peaks),

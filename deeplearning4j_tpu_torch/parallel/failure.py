@@ -25,19 +25,33 @@ router's hooks (`serving.fleet.Router`, `serving.disagg.TieredRouter`)
 for replica kill, hang, slowdown, probe failure, a failed KV export and
 a corrupted kvwire frame.
 
-Not ported yet: the training side, `ElasticFaultInjector`,
-`PreemptionHandler`, `StepWatchdog` and `FaultTolerantTrainer` (ROADMAP
-queue A items 12 and 14).
+The training side (reference :612-956) is ported: `PreemptionHandler`
+(SIGTERM / SIGINT, or `request_stop()` in flag-only mode off the main
+thread), `StepWatchdog` (a monitor thread; escalates with
+`train.guard.StepTimeout`) and `FaultTolerantTrainer` (periodic, optionally
+async, checkpoints; restore and resume; the injector's crash, NaN and
+preemption knobs; rollback with LR back-off through the guard; the
+consecutive-failure budget), under the reference's series names. A
+failed step on the card surfaces as a RuntimeError, as on the CPU, and
+is the only error the trainer recovers from. Not ported yet:
+`ElasticFaultInjector` (ROADMAP queue A, item 14).
 """
 from __future__ import annotations
 
 import logging
+import threading
 import time
 from dataclasses import dataclass
 from pathlib import Path
-from typing import Dict, Iterable, List, Optional, Tuple
+from typing import Callable, Dict, Iterable, List, Optional, Tuple
 
 import numpy as np
+
+from deeplearning4j_tpu_torch.nn.multilayer import _unpack_batch
+from deeplearning4j_tpu_torch.observability.metrics import default_registry
+from deeplearning4j_tpu_torch.train.guard import (DivergenceError,
+                                                  StepTimeout, TrainingGuard)
+from deeplearning4j_tpu_torch.util.checkpointing import CheckpointManager
 
 log = logging.getLogger("deeplearning4j_tpu_torch")
 
@@ -439,8 +453,7 @@ def hostile_tenant_storm(ticks: int = 120, *,
     Returns ``(arrivals, injector_kwargs)``: arrivals sorted by
     ``(tick, submission order)``, and the fleet injector's kwargs for
     the optional ``kill_tick`` and ``slow_tick`` knobs (empty when
-    neither is set; the fleet injector waits for ROADMAP queue A item
-    11)."""
+    neither is set)."""
     if ticks <= 0 or victim_every <= 0:
         raise ValueError("ticks and victim_every must be positive")
     arrivals: List[StormArrival] = []
@@ -474,3 +487,347 @@ def storm_prompt(arrival: StormArrival, vocab_size: int) -> np.ndarray:
     n = int(arrival.prompt_tokens)
     return (np.arange(n, dtype=np.int32) * (int(arrival.seed) * 2 + 3)
             + int(arrival.seed)) % int(vocab_size)
+
+
+class PreemptionHandler:
+    """Graceful-stop coordination for SIGTERM/SIGINT preemptions.
+
+    `install()` hooks the signals (main thread only — elsewhere the
+    handler degrades to flag-only mode, driven via `request_stop()`,
+    which is also what `FaultInjector.preempt_at` simulation uses).
+    The flag is checked by `FaultTolerantTrainer` at every step
+    boundary: the current step finishes, a checkpoint is written, and
+    `fit` returns resumable instead of dying mid-step with hours of
+    work discarded. Publishes `preemption_stop_requested` (gauge) and
+    `preemption_signals_total`."""
+
+    def __init__(self, signals: Optional[Iterable[int]] = None,
+                 registry=None):
+        import signal as _signal
+        self._signal_mod = _signal
+        if signals is None:
+            signals = [s for s in (getattr(_signal, "SIGTERM", None),
+                                   getattr(_signal, "SIGINT", None))
+                       if s is not None]
+        self.signals = tuple(signals)
+        self._stop = threading.Event()
+        self._prev: dict = {}
+        self.installed = False
+        self.signals_seen = 0
+        reg = registry if registry is not None else default_registry()
+        self._m_signals = reg.counter(
+            "preemption_signals_total",
+            "Preemption signals (or simulations) observed")
+        reg.gauge(
+            "preemption_stop_requested",
+            "1 while a graceful stop is pending"
+        ).set_function(lambda: 1.0 if self._stop.is_set() else 0.0)
+
+    def install(self) -> "PreemptionHandler":
+        if threading.current_thread() is not threading.main_thread():
+            log.warning("PreemptionHandler: not on the main thread; "
+                        "signal hooks unavailable (flag-only mode)")
+            return self
+        for sig in self.signals:
+            self._prev[sig] = self._signal_mod.signal(sig,
+                                                      self._on_signal)
+        self.installed = True
+        return self
+
+    def _on_signal(self, signum, frame) -> None:
+        self.signals_seen += 1
+        self._m_signals.inc()
+        log.warning("signal %s received: graceful stop requested at "
+                    "next step boundary", signum)
+        self.request_stop()
+
+    def request_stop(self) -> None:
+        self._stop.set()
+
+    def stop_requested(self) -> bool:
+        return self._stop.is_set()
+
+    def clear(self) -> None:
+        self._stop.clear()
+
+    def uninstall(self) -> None:
+        for sig, prev in self._prev.items():
+            try:
+                self._signal_mod.signal(sig, prev)
+            except (ValueError, OSError):  # pragma: no cover
+                pass
+        self._prev.clear()
+        self.installed = False
+
+    def __enter__(self) -> "PreemptionHandler":
+        return self.install()
+
+    def __exit__(self, *exc) -> None:
+        self.uninstall()
+
+
+class StepWatchdog:
+    """Monitor thread flagging training steps that exceed a wall-clock
+    deadline: the hung step that neither completes nor raises. `arm()`
+    before the step, `disarm()` after; a step still armed past
+    ``deadline_s`` is flagged once (logged,
+    `watchdog_hung_steps_total` bumped, ``on_hung(iteration,
+    elapsed_s)`` called if given — e.g. a PreemptionHandler's
+    request_stop for checkpoint-and-exit policies).
+
+    ``escalate`` receives a typed `train.guard.StepTimeout` for the same
+    flagging.
+    ``clock`` is injectable and `check()` is the synchronous detection
+    step the monitor thread runs — unit tests drive it directly with a
+    fake clock, no thread, fully deterministic."""
+
+    def __init__(self, deadline_s: float,
+                 on_hung: Optional[Callable[[int, float], None]] = None,
+                 poll_s: Optional[float] = None,
+                 escalate: Optional[Callable[..., None]] = None,
+                 clock: Callable[[], float] = time.perf_counter,
+                 registry=None):
+        if deadline_s <= 0:
+            raise ValueError(f"deadline_s must be > 0, got {deadline_s}")
+        self.deadline_s = float(deadline_s)
+        self.on_hung = on_hung
+        self.escalate = escalate
+        self.clock = clock
+        self.poll_s = (max(0.005, min(self.deadline_s / 4.0, 0.25))
+                       if poll_s is None else float(poll_s))
+        self._lock = threading.Lock()
+        self._armed_at: Optional[float] = None
+        self._iteration = 0
+        self._flagged = False
+        self._stop = threading.Event()
+        self._thread: Optional[threading.Thread] = None
+        self.hung_iterations: list = []
+        self.timeouts: list = []
+        reg = registry if registry is not None else default_registry()
+        self._m_hung = reg.counter(
+            "watchdog_hung_steps_total",
+            "Steps that exceeded the watchdog deadline")
+        reg.gauge(
+            "watchdog_step_deadline_seconds",
+            "Configured per-step watchdog deadline").set(self.deadline_s)
+
+    def start(self) -> "StepWatchdog":
+        if self._thread is None:
+            self._thread = threading.Thread(target=self._run,
+                                            name="step-watchdog",
+                                            daemon=True)
+            self._thread.start()
+        return self
+
+    def stop(self) -> None:
+        self._stop.set()
+        if self._thread is not None:
+            self._thread.join(timeout=5)
+            self._thread = None
+
+    def arm(self, iteration: int) -> None:
+        with self._lock:
+            self._armed_at = self.clock()
+            self._iteration = int(iteration)
+            self._flagged = False
+
+    def disarm(self) -> None:
+        with self._lock:
+            self._armed_at = None
+
+    def check(self) -> Optional["StepTimeout"]:
+        """One synchronous detection pass: flag the armed step if it
+        is past deadline (once per arm), run the callbacks, and return
+        the typed `StepTimeout` — or None when nothing fired. The
+        monitor thread calls this every ``poll_s``; callers with their
+        own event loop (or a fake clock in tests) call it directly."""
+        cb = esc = None
+        with self._lock:
+            if self._armed_at is None or self._flagged:
+                return None
+            elapsed = self.clock() - self._armed_at
+            if elapsed <= self.deadline_s:
+                return None
+            self._flagged = True
+            self.hung_iterations.append(self._iteration)
+            self._m_hung.inc()
+            it, cb, esc = self._iteration, self.on_hung, self.escalate
+            log.error("watchdog: step %d exceeded %.3fs "
+                      "deadline (%.3fs elapsed and counting)",
+                      self._iteration, self.deadline_s, elapsed)
+        timeout = StepTimeout(iteration=it, deadline_s=self.deadline_s,
+                              elapsed_s=elapsed)
+        self.timeouts.append(timeout)
+        if cb is not None:
+            cb(it, elapsed)
+        if esc is not None:
+            esc(timeout)
+        return timeout
+
+    def _run(self) -> None:
+        while not self._stop.wait(self.poll_s):
+            self.check()
+
+    def __enter__(self) -> "StepWatchdog":
+        return self.start()
+
+    def __exit__(self, *exc) -> None:
+        self.stop()
+
+
+class FaultTolerantTrainer:
+    """Run fit over an iterator with checkpoint/restore-based recovery.
+
+    Each minibatch step is guarded; on failure the model is restored
+    from the latest checkpoint and the epoch continues from the current
+    batch (at-least-once batch semantics — same guarantee as the
+    reference's Spark retry, which may also re-process a split).
+
+    ``max_restarts`` bounds CONSECUTIVE failures, not lifetime
+    failures: the counter resets on every successful step, so
+    max_restarts transient faults spread across a long job no longer
+    abort it — only a fault that persists through max_restarts
+    back-to-back recovery attempts does. ``restarts`` stays the
+    cumulative total for reporting.
+
+    Durability integrations (all optional):
+
+    - ``guard``: a `TrainingGuard` installed on the net — NaN/spike
+      steps are skipped; a `DivergenceError` rollback restores the
+      last checkpoint AND backs the learning rate off.
+    - ``preemption``: a `PreemptionHandler` (or True to create+install
+      one) — a pending stop checkpoints at the step boundary and
+      `fit` returns False (resumable) instead of True (completed).
+    - ``step_deadline_s``: arms a `StepWatchdog` around every step.
+    - ``async_save``: checkpoint writes happen off the step loop's
+      critical path (see CheckpointManager.async_save).
+    """
+
+    def __init__(self, net, checkpoint_dir: str,
+                 checkpoint_frequency: int = 50, max_restarts: int = 3,
+                 fault_injector: Optional[FaultInjector] = None,
+                 use_orbax: Optional[bool] = None,
+                 guard: Optional[TrainingGuard] = None,
+                 preemption=None,
+                 step_deadline_s: Optional[float] = None,
+                 async_save: bool = False,
+                 registry=None):
+        self.net = net
+        self.manager = CheckpointManager(checkpoint_dir,
+                                         use_orbax=use_orbax,
+                                         async_save=async_save,
+                                         fault_injector=fault_injector,
+                                         registry=registry)
+        self.checkpoint_frequency = max(1, checkpoint_frequency)
+        self.max_restarts = max_restarts
+        self.fault_injector = fault_injector
+        self.guard = guard
+        if guard is not None and hasattr(net, "set_training_guard"):
+            net.set_training_guard(guard)
+        if preemption is True:
+            preemption = PreemptionHandler(registry=registry).install()
+        self.preemption: Optional[PreemptionHandler] = preemption
+        self.step_deadline_s = step_deadline_s
+        self._registry = registry
+        self.restarts = 0              # cumulative (reporting)
+        self.consecutive_failures = 0  # gates max_restarts
+        self.preempted = False
+
+    def _maybe_checkpoint(self) -> None:
+        if self.net.iteration_count % self.checkpoint_frequency == 0:
+            self.manager.save(self.net)
+
+    def _stop_requested(self) -> bool:
+        return (self.preemption is not None
+                and self.preemption.stop_requested())
+
+    def _checkpoint_and_yield(self) -> bool:
+        """Preemption exit: persist a resumable checkpoint, flush the
+        writer, report not-completed."""
+        self.preempted = True
+        self.manager.save(self.net)
+        self.manager.wait()
+        log.warning("preemption: checkpointed at iteration %d and "
+                    "stopping (resumable — rerun fit to continue)",
+                    self.net.iteration_count)
+        return False
+
+    def _recover(self, err: RuntimeError) -> None:
+        """One failure: count it, restore the last good checkpoint,
+        apply LR backoff on divergence rollbacks, or re-raise when the
+        consecutive budget is exhausted."""
+        self.restarts += 1
+        self.consecutive_failures += 1
+        if self.consecutive_failures > self.max_restarts:
+            raise err
+        log.warning(
+            "step failed (%s); restoring last checkpoint "
+            "(consecutive failure %d/%d, %d total)", err,
+            self.consecutive_failures, self.max_restarts, self.restarts)
+        if self.manager.restore(self.net) is None:
+            log.warning("no checkpoint yet; retrying from current "
+                        "params")
+        if isinstance(err, DivergenceError) and self.guard is not None:
+            self.guard.apply_lr_backoff(self.net)
+
+    def fit(self, iterator, epochs: int = 1) -> bool:
+        """Train; True when all epochs completed, False when a
+        preemption stop was honored (checkpoint written; call fit
+        again to resume — the iteration count continues)."""
+        if not self.net._initialized:
+            self.net.init()
+        self.preempted = False
+        restored = self.manager.restore(self.net)
+        if restored is not None:
+            log.info("resumed from checkpoint step %d", restored)
+        watchdog = None
+        if self.step_deadline_s is not None:
+            watchdog = StepWatchdog(self.step_deadline_s,
+                                    registry=self._registry).start()
+        try:
+            for _ in range(epochs):
+                for batch in iterator:
+                    feats, labs, fmask, lmask = _unpack_batch(batch)
+                    it = self.net.iteration_count
+                    if self.fault_injector is not None \
+                            and self.fault_injector.check_preempt(it) \
+                            and self.preemption is not None:
+                        self.preemption.request_stop()
+                    if self._stop_requested():
+                        return self._checkpoint_and_yield()
+                    while True:
+                        try:
+                            # per-attempt view: a NaN-poisoned batch
+                            # must not stay poisoned across the retry
+                            # after a rollback restore
+                            step_feats = feats
+                            if self.fault_injector is not None:
+                                self.fault_injector.check(
+                                    self.net.iteration_count)
+                                if self.fault_injector.check_nan(
+                                        self.net.iteration_count):
+                                    step_feats = (np.asarray(feats)
+                                                  * np.float32("nan"))
+                            if watchdog is not None:
+                                watchdog.arm(self.net.iteration_count)
+                            self.net.fit(step_feats, labs,
+                                         lmask if lmask is not None
+                                         else fmask)
+                            self.consecutive_failures = 0
+                            break
+                        except RuntimeError as e:
+                            self._recover(e)
+                        finally:
+                            if watchdog is not None:
+                                watchdog.disarm()
+                    self._maybe_checkpoint()
+                if hasattr(iterator, "reset"):
+                    iterator.reset()
+                if self._stop_requested():
+                    return self._checkpoint_and_yield()
+        finally:
+            if watchdog is not None:
+                watchdog.stop()
+        self.manager.save(self.net)
+        self.manager.wait()
+        return True

@@ -273,10 +273,11 @@ _ALGOS = {
 
 
 class Solver:
-    """Dispatch a MultiLayerNetwork + minibatch onto an optimizer: one
-    flat ``value_and_grad`` of the network score, handed to the algorithm
-    ``conf.training.optimization_algo`` names. (ComputationGraph's
-    Solver comes with the graph, ROADMAP queue A, item 12b.)"""
+    """Dispatch a model + minibatch onto an optimizer: one flat
+    ``value_and_grad`` of the network score, handed to the algorithm
+    ``conf.training.optimization_algo`` names. Serves MultiLayerNetwork
+    (arrays) and ComputationGraph (name -> array dicts of inputs, labels
+    and masks), as in JAX."""
 
     def __init__(self, net, *, max_iterations: Optional[int] = None,
                  terminations: Optional[Sequence[TerminationCondition]]

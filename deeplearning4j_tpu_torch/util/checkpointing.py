@@ -30,16 +30,22 @@ fails hard.
 Series (``registry=``, the process-wide registry by default), the
 reference's: ``checkpoint_write_seconds``,
 ``checkpoint_save_stall_seconds``, ``checkpoint_saves_total{mode}``,
-``checkpoint_verify_failures_total`` and ``checkpoint_async_pending``
-(0: the port writes on the caller's thread; the reference's
-``async_save`` waits for a caller that needs it).
+``checkpoint_verify_failures_total`` and ``checkpoint_async_pending``.
+
+``async_save=True`` moves the write (CRC, fsync, rename) to one
+background thread: `save()` pays only the snapshot of the tree into host
+memory (copies, so a later step cannot change what is written), then
+returns; at most one write is in flight (the next save joins it first),
+``checkpoint_async_pending`` is 1 while it runs, and the next save,
+`wait()` or a restore raises what the thread raised.
 
 A directory orbax wrote (step directories named by their number, orbax
 metadata files) is refused with `CheckpointFormatError`: the port reads
 and writes the npz layout only. `save(net)` / `restore(net)` checkpoint
-a `MultiLayerNetwork` (params, layer state, updater state and its
-counters), as the reference's do, and `CheckpointListener` calls `save`
-every N iterations on the listener stream.
+a `MultiLayerNetwork` or a `ComputationGraph` (params, layer state,
+updater state and its counters), as the reference's do, and
+`CheckpointListener` calls `save` every N iterations on the listener
+stream.
 """
 from __future__ import annotations
 
@@ -49,6 +55,7 @@ import os
 import re
 import shutil
 import zlib
+from concurrent.futures import Future, ThreadPoolExecutor
 from pathlib import Path
 from typing import Any, Dict, List, Optional, Tuple
 
@@ -205,8 +212,8 @@ class CheckpointManager:
     torn-write hooks of `parallel.failure.FaultInjector`)."""
 
     def __init__(self, directory, max_to_keep: int = 3,
-                 use_orbax: Optional[bool] = None, fault_injector=None,
-                 registry=None):
+                 use_orbax: Optional[bool] = None, async_save: bool = False,
+                 fault_injector=None, registry=None):
         if use_orbax:
             raise CheckpointFormatError(
                 "use_orbax=True: the port reads and writes the npz "
@@ -216,6 +223,7 @@ class CheckpointManager:
         self._refuse_orbax_layout()
         self.max_to_keep = max_to_keep
         self.use_orbax = False
+        self.async_save = bool(async_save)
         self.fault_injector = fault_injector
         reg = registry if registry is not None else default_registry()
         self._m_write = reg.histogram(
@@ -230,8 +238,13 @@ class CheckpointManager:
         self._m_verify_fail = reg.counter(
             "checkpoint_verify_failures_total",
             "Array checksum / structure verification failures on read")
-        reg.gauge("checkpoint_async_pending",
-                  "Async checkpoint writes currently in flight")
+        self._m_pending = reg.gauge(
+            "checkpoint_async_pending",
+            "Async checkpoint writes currently in flight")
+        # one background writer; at most ONE write in flight
+        self._executor: Optional[ThreadPoolExecutor] = None
+        self._inflight: Optional[Future] = None
+        self._async_error: Optional[BaseException] = None
         self._sweep_orphans()
 
     def _refuse_orbax_layout(self) -> None:
@@ -269,8 +282,22 @@ class CheckpointManager:
                     a, ex = _host_array(leaf)
                     if ex is not None:
                         exotic[name] = ex
-                    flat[name] = a
-            self._write_npz(flat, exotic, int(step), meta)
+                    # the host snapshot: a copy, never a view of a live
+                    # CPU tensor the next step may replace in place
+                    flat[name] = np.array(a, copy=True) \
+                        if self.async_save else a
+            if not self.async_save:
+                self._write_npz(flat, exotic, int(step), meta)
+                return
+            if self._executor is None:
+                self._executor = ThreadPoolExecutor(
+                    max_workers=1, thread_name_prefix="ckpt-writer")
+            if self._inflight is not None:     # bound: 1 write in flight
+                self._await_inflight()
+            self._surface_async_error()
+            self._m_pending.set(1)
+            self._inflight = self._executor.submit(
+                self._write_npz, flat, exotic, int(step), meta)
 
     def _write_npz(self, flat: Dict[str, np.ndarray],
                    exotic: Dict[str, str], step: int,
@@ -309,7 +336,31 @@ class CheckpointManager:
             if meta is not None:
                 self._write_meta(meta, step)
             self._retain()
-        self._m_saves.labels("sync").inc()
+        self._m_saves.labels("async" if self.async_save else "sync").inc()
+
+    # -- async bookkeeping ---------------------------------------------------
+    def _await_inflight(self) -> None:
+        fut, self._inflight = self._inflight, None
+        if fut is None:
+            return
+        try:
+            fut.result()
+        except BaseException as e:   # surfaced on the next save / wait
+            self._async_error = e
+        finally:
+            self._m_pending.set(0)
+
+    def _surface_async_error(self) -> None:
+        if self._async_error is not None:
+            e, self._async_error = self._async_error, None
+            raise RuntimeError(
+                "previous async checkpoint write failed") from e
+
+    def wait(self) -> None:
+        """Join any in-flight async write; raises if it (or a previous
+        one) failed. Call at step-loop exit and before reading back."""
+        self._await_inflight()
+        self._surface_async_error()
 
     def _write_meta(self, meta: Dict, step: int) -> None:
         final = self.directory / f"meta_{step}.json"
@@ -344,6 +395,7 @@ class CheckpointManager:
         step that verifies, falling back past a corrupt one); returns the
         step, or None when there is none. Updater state takes the
         network's own dtypes."""
+        self.wait()
         template = {"params": net.params, "state": net.state,
                     "updater_state": net.updater_state}
         restored, step = self._resolve_readable(template, step, None)
@@ -507,6 +559,7 @@ class CheckpointManager:
         dtype and bits, on ``device``, else on its template leaf's device
         (a meta or non-tensor leaf: the CPU). Returns None when there is
         no step; ``with_step=True`` returns ``(tree, step)``."""
+        self.wait()
         payload, got = self._resolve_readable({"tree": template}, step,
                                               device)
         if payload is None:

@@ -8,8 +8,8 @@ state such as batch-norm statistics and centers, updater state) keyed by
 ``//``-joined tree paths. bfloat16 arrays are stored as their uint16
 bit view with a ``__dtypes__`` sidecar naming the dtype,
 as JAX writes them; the port reads them back from the bits with torch,
-without `ml_dtypes`. So a MultiLayerNetwork written by either package is
-restored by the other (ComputationGraph: ROADMAP queue A, item 12b).
+without `ml_dtypes`. So a MultiLayerNetwork or a ComputationGraph
+written by either package is restored by the other.
 """
 from __future__ import annotations
 
@@ -78,9 +78,13 @@ def _merge_into(skeleton: Any, loaded: Any, cast: bool = False) -> Any:
 
 
 def write_model(model, path: str, save_updater: bool = True) -> None:
-    """Save a MultiLayerNetwork (reference: ModelSerializer.writeModel,
-    ModelSerializer.java:79-95)."""
-    model_type = "MultiLayerNetwork"
+    """Save a MultiLayerNetwork or ComputationGraph (reference:
+    ModelSerializer.writeModel, ModelSerializer.java:79-95)."""
+    from deeplearning4j_tpu_torch.nn.graph.computation_graph import \
+        ComputationGraph
+    model_type = ("ComputationGraph"
+                  if isinstance(model, ComputationGraph)
+                  else "MultiLayerNetwork")
     meta = {
         "model_type": model_type,
         "framework": "deeplearning4j_tpu",
@@ -177,9 +181,18 @@ def restore_multi_layer_network(path: str, load_updater: bool = True,
 
 def restore_computation_graph(path: str, load_updater: bool = True,
                               device=None):
-    raise NotImplementedError(
-        "ComputationGraph is not ported yet (ROADMAP queue A, item 12b: "
-        "nn/graph)")
+    """reference: ModelSerializer.restoreComputationGraph. The graph
+    lives on ``device`` (CUDA unless ``"cpu"``)."""
+    from deeplearning4j_tpu_torch.nn.conf.configuration import \
+        ComputationGraphConfiguration
+    from deeplearning4j_tpu_torch.nn.graph.computation_graph import \
+        ComputationGraph
+    with zipfile.ZipFile(path) as zf:
+        conf = ComputationGraphConfiguration.from_json(
+            zf.read(CONFIG_ENTRY).decode())
+        net = ComputationGraph(conf, device=device).init()
+        _restore_arrays(zf, net, load_updater)
+    return net
 
 
 def _restore_arrays(zf: zipfile.ZipFile, net, load_updater: bool) -> None:

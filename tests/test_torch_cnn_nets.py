@@ -144,8 +144,8 @@ def test_vgg16_helpers():
                                   jtm.vgg16_preprocess(img))
     with pytest.raises(NotImplementedError, match="13"):
         ttm.load_vgg16("weights.h5")
-    with pytest.raises(NotImplementedError, match="12b"):
-        ttm.resnet50()
+    # resnet50 is a ComputationGraph configuration, ported with the graph
+    assert ttm.resnet50().to_json() == jtm.resnet50().to_json()
 
 
 def test_lenet_fit_mnist_iterator_matches_jax():

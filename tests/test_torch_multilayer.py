@@ -347,9 +347,12 @@ def test_unported_paths_raise():
     tnet.set_training_guard(None)
     from deeplearning4j_tpu_torch.nn.layers import LossLayer
     LossLayer()
-    # layerwise pretraining waits for its layers
-    with pytest.raises(NotImplementedError, match="12b"):
-        tnet.pretrain([])
+    # layerwise pretraining is ported: a network without a pretrain
+    # layer has nothing to pretrain, and its params stay as they are
+    before = tnet.params_flat().clone()
+    tnet.pretrain([])
+    assert torch.equal(tnet.params_flat(), before)
+    assert tnet._pretrain_counts == {}
     bidi = tzoo.char_rnn_lstm(V, hidden=H)
     from deeplearning4j_tpu_torch.nn.layers import GravesBidirectionalLSTM
     bidi.layers[0] = GravesBidirectionalLSTM(n_out=H, activation="tanh")

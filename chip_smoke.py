@@ -9,8 +9,9 @@ its train step (dense and MoE), the GravesLSTM char-RNN's
 training through MultiLayerNetwork, the DSL's CNN training path (LeNet,
 VGG16-CIFAR, a DSL transformer, the training tools), the DAG runtime
 (ComputationGraph: ResNet-50, the char-RNN and attention as graphs,
-pretraining, the training fault tools) and the two kernel
-experiments on the card and fails (non-zero exit, no result line) if anything is wrong:
+pretraining, the training fault tools), Keras import (the tf_keras
+fixtures, the gateway server, tf_keras's ResNet-50 at full width) and the
+two kernel experiments on the card and fails (non-zero exit, no result line) if anything is wrong:
 
 0. Build: every csrc/*.cu at once; then one line per tensor-core
    library (flash_fwd, flash_bwd, flash_bwd_packed2, decode_attention,
@@ -534,6 +535,30 @@ experiments on the card and fails (non-zero exit, no result line) if anything is
    (bit-equal) and EarlyStoppingGraphTrainer (the best model's output
    bit-equal to the saved one's). Every 5e line carries the card's name
    and power limit.
+5f. Keras import on the port's own HDF5 reader (`--only 5f` runs the
+   build and this phase alone; f32, TF32 off). A line records whether
+   h5py and tf_keras exist on the machine (find_spec, no import). (a)
+   The eight tf_keras fixtures (tests/fixtures/real_*.h5) through the
+   entry points a user calls (import_keras_sequential_model_and_weights,
+   import_keras_model_and_weights, import_keras_model_auto, load_vgg16)
+   onto the card: each output against its Keras golden at the JAX tests'
+   tolerances (1e-4 / 1e-5; LSTM 1e-4 / 1e-4; VGG16 1e-3 / 1e-4, argmax
+   equal, accuracy >= 0.8) and against the port on the CPU within 1e-5 of
+   the largest output; real_lstm with lstm_wavefront off launches
+   lstm_scan exactly twice an output call (two Keras LSTM layers), two
+   calls bit-equal. (b) A KerasServer on the card: /health, /predict on
+   real_cnn.h5 and real_lstm.h5 equal to the direct output, a 2-epoch
+   /fit on real_mlp.h5 with scores within 1e-5 of the CPU port's. (c)
+   tf_keras's ResNet-50 at full width (224 x 224 x 3, 1000 classes; no
+   weights file exists on the card, so from its checked-in Keras JSON,
+   tests/fixtures/torch_keras_resnet50_224.json, through
+   import_keras_model_configuration) filled with seeded Keras-layout
+   arrays through convert_weights and the HDF5 path's weight copy: card
+   vs CPU at B=2 (argmax equal, within 1e-4 of the largest output), then
+   inference at B=128 (CUDA events over 10 calls after 2 warm-up calls:
+   ms a batch, examples/s, FlopCounterMode's FLOPs a batch and their
+   share of the f32 peak, peak memory). Every 5f line carries the card's
+   name and power limit.
 6. The two kernel experiments' main() at full shape
    (`deeplearning4j_tpu_torch.benchmarks.headpack_experiment`: production
    vs packed q512 vs production q512; `decode_kernel_sweep --bandwidth`,
@@ -545,8 +570,8 @@ experiments on the card and fails (non-zero exit, no result line) if anything is
    line of the graph replays of every gated run and of the serving
    device functions' launches in the profiled ticks' traces; the run's
    wall time, the MoE phases', the rest's, phase 3h's, 3i's, 3j's, 3k's,
-   3l's, 5d's and 5e's (`wall`, `fleet_phase_s`, `dsl_cnn_phase_s`,
-   `dag_phase_s`);
+   3l's, 5d's, 5e's and 5f's (`wall`, `fleet_phase_s`, `dsl_cnn_phase_s`,
+   `dag_phase_s`, `keras_import_phase_s`);
    one `kernels` JSON line (decode_attention_q and decode_window_q among
    them; `launches` the wrappers' counts, 3j's included,
    `device_launches_profiled`
@@ -8288,6 +8313,360 @@ def phase_dag_runtime(torch, dev):
 
 
 # ---------------------------------------------------------------------------
+# phase 5f: Keras import on the port's HDF5 reader, the gateway server
+# ---------------------------------------------------------------------------
+
+F5_FIXTURES = os.path.join(ROOT, "tests", "fixtures")
+F5_RESNET50_JSON = os.path.join(F5_FIXTURES, "torch_keras_resnet50_224.json")
+F5_REL = 1e-5          # card vs CPU, relative to the largest output
+F5_RESNET_REL = 1e-4   # the full-width ResNet-50, card vs CPU
+# fixture -> (entry point, input feed, rtol, atol against the Keras
+# golden): the JAX package's tests' tolerances
+F5_CASES = {
+    "real_mlp": ("import_keras_sequential_model_and_weights", "x",
+                 1e-4, 1e-5),
+    "real_cnn": ("import_keras_sequential_model_and_weights", "x",
+                 1e-4, 1e-5),
+    "real_cnn_chfirst": ("import_keras_model_auto", "nhwc", 1e-4, 1e-5),
+    "real_lstm": ("import_keras_sequential_model_and_weights", "x",
+                  1e-4, 1e-4),
+    "real_functional": ("import_keras_model_and_weights", "two", 1e-4, 1e-5),
+    "real_keras1_th": ("import_keras_model_auto", "nhwc", 1e-4, 1e-5),
+    "real_resnet_residual": ("import_keras_model_and_weights", "img",
+                             1e-4, 1e-5),
+    "real_vgg16_trained": ("load_vgg16", "x", 1e-3, 1e-4),
+}
+
+
+def f5_line(**rec):
+    line(dict(phase="5f", card=CARD, **rec))
+
+
+def f5_host(out):
+    """A network's output (a tensor, or a list with one per output) as a
+    host float32 array of the first output."""
+    if isinstance(out, list):
+        out = out[0]
+    return out.detach().float().cpu().numpy()
+
+
+def f5_feed(g, kind):
+    if kind == "nhwc":      # channels_first fixtures: NHWC-native import
+        return np.transpose(g["x"], (0, 2, 3, 1))
+    if kind == "two":
+        return {"in_a": g["xa"], "in_b": g["xb"]}
+    if kind == "img":
+        return {"img": g["x"]}
+    return g["x"]
+
+
+def f5_import(entry, h5, device):
+    from deeplearning4j_tpu_torch import modelimport
+    return getattr(modelimport, entry)(h5, device=device)
+
+
+def f5_rel_err(got, want) -> float:
+    return float(np.abs(got - want).max() / max(np.abs(want).max(), 1e-30))
+
+
+def f5_fixtures(torch, dev):
+    """(a) The eight tf_keras fixtures through the port's entry points on
+    the card: each output against its Keras golden at the JAX tests'
+    tolerances and against the port on the CPU within F5_REL; real_lstm
+    with lstm_wavefront off launches lstm_scan exactly twice a call (two
+    LSTM layers). Returns the lstm_scan launches."""
+    import importlib.util
+    from deeplearning4j_tpu_torch.ops import lstm as tl
+    f5_line(part="a", h5py_on_this_machine=(
+        importlib.util.find_spec("h5py") is not None),
+        tf_keras_on_this_machine=(
+            importlib.util.find_spec("tf_keras") is not None),
+        note="recorded only; the port reads HDF5 itself")
+    launches = 0
+    for name, (entry, feed, rtol, atol) in F5_CASES.items():
+        h5 = os.path.join(F5_FIXTURES, f"{name}.h5")
+        g = dict(np.load(os.path.join(F5_FIXTURES, f"{name}_golden.npz")))
+        t0 = time.perf_counter()
+        card = f5_import(entry, h5, dev)
+        import_s = time.perf_counter() - t0
+        cpu = f5_import(entry, h5, "cpu")
+        if card.device.type != "cuda":
+            fail(f"5f {name}: imported onto {card.device}")
+        x = f5_feed(g, feed)
+        got = f5_host(card.output(x))
+        want_cpu = f5_host(cpu.output(x))
+        golden_err = float(np.abs(got - g["y"]).max())
+        golden_ok = bool(np.allclose(got, g["y"], rtol=rtol, atol=atol))
+        rel = f5_rel_err(got, want_cpu)
+        rec = dict(fixture=name, entry=entry, model=type(card).__name__,
+                   import_s=import_s, golden_max_abs_err=golden_err,
+                   golden_rtol=rtol, golden_atol=atol,
+                   card_vs_cpu_rel_err=rel)
+        if name == "real_vgg16_trained":
+            pred = got.argmax(1)
+            rec["argmax_equal"] = bool((pred == g["y"].argmax(1)).all())
+            rec["accuracy"] = float((pred == g["labels"]).mean())
+            golden_ok = golden_ok and rec["argmax_equal"] and \
+                rec["accuracy"] >= 0.8
+        if name == "real_lstm":
+            card.lstm_wavefront = False
+            counts, outs = [], []
+            for _ in range(2):
+                n0 = tl.lstm_scan_cuda.launches
+                outs.append(f5_host(card.output(x)))
+                torch.cuda.synchronize()
+                counts.append(tl.lstm_scan_cuda.launches - n0)
+            launches += sum(counts)
+            off = outs[0]
+            if not np.array_equal(outs[0], outs[1]):
+                fail("5f real_lstm: two kernel-path outputs differ")
+            rec.update(lstm_scan_launches_per_call=counts,
+                       wavefront_off_golden_max_abs_err=float(
+                           np.abs(off - g["y"]).max()),
+                       wavefront_off_vs_cpu_rel_err=f5_rel_err(off,
+                                                               want_cpu))
+            if counts != [2, 2]:
+                fail(f"5f real_lstm: lstm_scan launches {counts} per "
+                     "output call, want 2 (two LSTM layers)")
+            if not np.allclose(off, g["y"], rtol=rtol, atol=atol) or \
+                    rec["wavefront_off_vs_cpu_rel_err"] > F5_REL:
+                fail(f"5f real_lstm through lstm_scan: {rec}")
+        f5_line(part="a", **rec)
+        if not golden_ok:
+            fail(f"5f {name}: card output vs the Keras golden: {rec}")
+        if rel > F5_REL:
+            fail(f"5f {name}: card vs CPU relative error {rel}")
+        del card, cpu
+    return launches
+
+
+def f5_server(torch, dev, tmp):
+    """(b) A KerasServer on the card: /health, /predict on real_cnn.h5
+    and real_lstm.h5 equal to the imported network's direct output, and a
+    2-epoch /fit on real_mlp.h5 whose scores equal the CPU port's entry
+    point's within 1e-5."""
+    import urllib.request
+    from deeplearning4j_tpu_torch.keras_server import (
+        DeepLearning4jEntryPoint, KerasServer)
+
+    def post(srv, path, payload):
+        req = urllib.request.Request(
+            srv.url + path, data=json.dumps(payload).encode(),
+            headers={"Content-Type": "application/json"})
+        with urllib.request.urlopen(req, timeout=300) as r:
+            return json.loads(r.read())
+
+    paths = {}
+    for name in ("real_cnn", "real_lstm"):
+        x = np.load(os.path.join(F5_FIXTURES, f"{name}_golden.npz"))["x"]
+        paths[name] = os.path.join(tmp, f"{name}.npz")
+        np.savez(paths[name], features=x)
+    rng = np.random.default_rng(5)
+    mx = rng.normal(size=(64, 8)).astype(np.float32)
+    my = np.eye(5, dtype=np.float32)[rng.integers(0, 5, 64)]
+    paths["real_mlp"] = os.path.join(tmp, "real_mlp.npz")
+    np.savez(paths["real_mlp"], features=mx, labels=my)
+    srv = KerasServer(port=0, device=dev)
+    try:
+        t0 = time.perf_counter()
+        with urllib.request.urlopen(srv.url + "/health", timeout=30) as r:
+            health = json.loads(r.read())
+        if health != {"ok": True}:
+            fail(f"5f server /health: {health}")
+        rec = {}
+        for name in ("real_cnn", "real_lstm"):
+            h5 = os.path.join(F5_FIXTURES, f"{name}.h5")
+            res = post(srv, "/predict", {"model_path": h5,
+                                         "data_path": paths[name]})
+            got = np.load(res["output_path"])
+            direct = f5_host(f5_import("import_keras_model_auto", h5,
+                                       dev).output(np.load(
+                                           paths[name])["features"]))
+            rec[name] = bool(np.array_equal(got, direct))
+            if not rec[name]:
+                fail(f"5f server /predict {name}: differs from the "
+                     f"direct output by {np.abs(got - direct).max()}")
+        mlp = os.path.join(F5_FIXTURES, "real_mlp.h5")
+        res = post(srv, "/fit", {"model_path": mlp,
+                                 "data_path": paths["real_mlp"],
+                                 "epochs": 2, "batch_size": 16})
+        want = DeepLearning4jEntryPoint(device="cpu").fit(
+            mlp, paths["real_mlp"], epochs=2, batch_size=16)["scores"]
+        err = float(np.abs(np.array(res["scores"]) - want).max())
+        f5_line(part="b", health=health, predict_equal_direct=rec,
+                fit_scores=res["scores"], cpu_fit_scores=want,
+                fit_max_abs_err=err, wall_s=time.perf_counter() - t0)
+        if len(res["scores"]) != 2 or err > 1e-5:
+            fail(f"5f server /fit scores {res['scores']} vs CPU {want}")
+    finally:
+        srv.stop()
+
+
+class F5KerasArrays:
+    """Keras-layout weights in memory with the archive surface that
+    `copy_weights_to_network` reads (`has_group`, `root`,
+    `layer_weights`, `read_attribute_as_string`): ``groups`` maps a
+    Keras layer name to {weight name: array}."""
+
+    def __init__(self, groups, keras_version="2.21.0"):
+        self.groups = groups
+        self.keras_version = keras_version
+
+    def has_group(self, *path):
+        return path == ("model_weights",)
+
+    @property
+    def root(self):
+        return {"model_weights": self.groups}
+
+    def layer_weights(self, group):
+        return group
+
+    def read_attribute_as_string(self, name, *path):
+        return self.keras_version if name == "keras_version" else None
+
+
+def f5_keras_arrays(torch, conf, seed=0):
+    """Seeded Keras-layout arrays for every layer with weights of a
+    configuration imported from Keras JSON: Conv2D kernels HWIO and Dense
+    kernels [in, out] (Glorot-uniform) with small biases, BatchNormalization gamma / beta /
+    moving_mean / moving_variance (means near 0, variances in
+    [0.5, 1.5], so inference BN is not the identity). Shapes come from a
+    CPU graph's initialized parameters, which have Keras's layout."""
+    from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
+    from deeplearning4j_tpu_torch.nn.layers import (BatchNormalization,
+                                                    ConvolutionLayer,
+                                                    DenseLayer)
+    shapes = ComputationGraph(conf, device="cpu").init()
+    rng = np.random.default_rng(seed)
+    groups = {}
+    for name in shapes.topo:
+        v = conf.vertices[name].vertex
+        p = shapes.params.get(name, {})
+        if isinstance(v, BatchNormalization):
+            c = tuple(p["gamma"].shape)
+            groups[name] = {
+                f"{name}/gamma:0": rng.uniform(0.8, 1.2, c),
+                f"{name}/beta:0": rng.normal(0.0, 0.1, c),
+                f"{name}/moving_mean:0": rng.normal(0.0, 0.1, c),
+                f"{name}/moving_variance:0": rng.uniform(0.5, 1.5, c)}
+        elif isinstance(v, (ConvolutionLayer, DenseLayer)):
+            # Glorot-uniform kernels, Keras's own default initializer
+            w = tuple(p["W"].shape)
+            field = int(np.prod(w[:-2]))
+            limit = (6.0 / (field * (w[-2] + w[-1]))) ** 0.5
+            groups[name] = {
+                f"{name}/kernel:0": rng.uniform(-limit, limit, w),
+                f"{name}/bias:0": rng.normal(0.0, 0.01, tuple(
+                    p["b"].shape))}
+        else:
+            continue
+        groups[name] = {k: a.astype(np.float32)
+                        for k, a in groups[name].items()}
+    return F5KerasArrays(groups)
+
+
+def f5_resnet50(torch, dev, b=128, iters=10):
+    """(c) tf_keras's ResNet-50 at full width (224 x 224 x 3, 1000
+    classes, f32, TF32 off) from its checked-in Keras JSON through
+    import_keras_model_configuration, filled with seeded Keras-layout
+    weights through convert_weights and the weight copy of the HDF5 path:
+    card vs CPU at B=2 (argmax equal, outputs within F5_RESNET_REL of the
+    largest), then inference at B=b timed by CUDA events (warm-up
+    excluded), FlopCounterMode's FLOPs a batch, peak memory."""
+    from torch.utils.flop_counter import FlopCounterMode
+    from deeplearning4j_tpu_torch.modelimport.keras import (
+        copy_weights_to_network, import_keras_model_configuration)
+    from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
+    from deeplearning4j_tpu_torch.nn.layers.base import Layer
+    if torch.backends.cuda.matmul.allow_tf32 or \
+            torch.backends.cudnn.allow_tf32:
+        fail("5f: TF32 is on; the f32 comparisons need it off")
+    t0 = time.perf_counter()
+    conf_fn = lambda: import_keras_model_configuration(  # noqa: E731
+        F5_RESNET50_JSON)
+    arrays = f5_keras_arrays(torch, conf_fn())
+    nets = {}
+    for where in ("cpu", dev):
+        conf = conf_fn()
+        net = ComputationGraph(conf, device=where).init()
+        names = [n for n, s in conf.vertices.items()
+                 if isinstance(s.vertex, Layer)]
+        copy_weights_to_network(arrays, net,
+                                [conf.vertices[n].vertex for n in names],
+                                names)
+        nets[str(where)] = net
+    card, cpu = nets[str(dev)], nets["cpu"]
+    build_s = time.perf_counter() - t0
+    if card._preprocessors:
+        fail(f"5f ResNet-50 has preprocessors {sorted(card._preprocessors)}")
+    inp = card.conf.network_inputs[0]
+    n_params = card.num_params()
+    n_state = sum(t.numel() for st in card.state.values()
+                  for t in st.values())
+    rng = np.random.default_rng(1)
+    x2 = rng.normal(size=(2, 224, 224, 3)).astype(np.float32)
+    got = f5_host(card.output({inp: x2}))
+    want = f5_host(cpu.output({inp: x2}))
+    rel = f5_rel_err(got, want)
+    argmax_equal = bool((got.argmax(1) == want.argmax(1)).all())
+    f5_line(part="c", run="resnet50_card_vs_cpu", batch=2,
+            config="tf_keras ResNet50 224x224x3, 1000 classes, f32",
+            vertices=len(card.conf.vertices), params=n_params,
+            bn_state=n_state, keras_params=n_params + n_state,
+            build_s=build_s, max_abs_err=float(np.abs(got - want).max()),
+            max_output=float(np.abs(want).max()), rel_err=rel,
+            argmax=got.argmax(1).tolist(), argmax_equal=argmax_equal)
+    if not argmax_equal or rel > F5_RESNET_REL:
+        fail(f"5f ResNet-50 card vs CPU: argmax equal {argmax_equal}, "
+             f"relative error {rel}")
+    del cpu, nets
+    xb = torch.from_numpy(rng.normal(size=(b, 224, 224, 3)).astype(
+        np.float32)).to(dev)
+    feed = {inp: xb}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    out = card.output(feed)[0]
+    ms = time_ms(lambda: card.output(feed), iters=iters, warmup=2)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    counter = FlopCounterMode(display=False)
+    with counter:
+        card.output(feed)
+    flops = float(counter.get_total_flops())
+    finite = bool(torch.isfinite(out).all())
+    f5_line(part="c", run="resnet50_inference", batch=b, iters=iters,
+            ms_per_batch=ms, examples_per_s=b / ms * 1e3,
+            flops_per_batch=flops,
+            f32_peak_share=flops / (ms / 1e3) / PEAK_FLOPS["float32"],
+            peak_mem_gb=peak, outputs_finite=finite,
+            row_sums_max_err=float((out.sum(1) - 1).abs().max()))
+    if not finite:
+        fail("5f ResNet-50 inference output not finite")
+    del card, xb, feed, out
+    torch.cuda.empty_cache()
+
+
+def phase_keras_import(torch, dev):
+    """5f. Keras import on the port's HDF5 reader: (a) the eight tf_keras
+    fixtures through the entry points, (b) the gateway server, (c)
+    tf_keras's ResNet-50 at full width from its JSON. Returns the
+    main-path kernels' launches (lstm_scan from (a))."""
+    import tempfile
+    t0 = time.perf_counter()
+    launches = {"lstm_scan": f5_fixtures(torch, dev)}
+    t_a = time.perf_counter() - t0
+    with tempfile.TemporaryDirectory() as tmp:
+        f5_server(torch, dev, tmp)
+    t_b = time.perf_counter() - t0 - t_a
+    f5_resnet50(torch, dev)
+    f5_line(run="phase_5f", wall_s=time.perf_counter() - t0,
+            part_s={"a": t_a, "b": t_b,
+                    "c": time.perf_counter() - t0 - t_a - t_b},
+            launches=launches)
+    return launches
+
+
+# ---------------------------------------------------------------------------
 
 def main() -> int:
     if len(sys.argv) == 4 and sys.argv[1] == K3_CHILD:
@@ -8333,11 +8712,12 @@ def main() -> int:
             "3k": phase_cache_handoff_full_width,
             "3l": phase_fleet_full_width,
             "5d": phase_dsl_cnn,
-            "5e": phase_dag_runtime}
+            "5e": phase_dag_runtime,
+            "5f": phase_keras_import}
     if len(sys.argv) == 3 and sys.argv[1] == "--only" and \
             sys.argv[2] in only:
-        # a development run of phase 3h, 3i, 3j, 3k, 3l, 5d or 5e alone (no
-        # kernels line, no result); a full run takes no arguments
+        # a development run of phase 3h, 3i, 3j, 3k, 3l, 5d, 5e or 5f alone
+        # (no kernels line, no result); a full run takes no arguments
         line(dict(phase=sys.argv[2], launches=only[sys.argv[2]](
             torch, dev), wall_s=time.perf_counter() - t_run,
             tracer_marks=TRACER_MARKS_SEEN))
@@ -8421,6 +8801,10 @@ def main() -> int:
     for name, n in phase_dag_runtime(torch, dev).items():
         launches[name] = launches.get(name, 0) + n
     t_5e = time.perf_counter() - t_5e
+    t_5f = time.perf_counter()
+    for name, n in phase_keras_import(torch, dev).items():
+        launches[name] = launches.get(name, 0) + n
+    t_5f = time.perf_counter() - t_5f
     launches.update(phase_experiments(torch, dev))
 
     sources = {
@@ -8486,7 +8870,7 @@ def main() -> int:
               observability_phase_s=t_obs, fault_phase_s=t_fault,
               engine_control_phase_s=t_ctl, cache_handoff_phase_s=t_k3,
               fleet_phase_s=t_l3, dsl_cnn_phase_s=t_5d,
-              dag_phase_s=t_5e))
+              dag_phase_s=t_5e, keras_import_phase_s=t_5f))
     print(card, flush=True)
     line({"kernels": kernels})
     line({"ok": True, "device": {"platform": "gpu",

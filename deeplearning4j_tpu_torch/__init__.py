@@ -20,8 +20,10 @@ embedding, convolution and pooling, normalization, utility, output and
 loss, the DSL's attention layers, the LSTMs), the LeNet, VGG16, text-CNN
 and GravesLSTM char-RNN configurations, listeners, the training guard,
 the Solver (`train`), evaluation (`eval`), early stopping
-(`earlystopping`), the model serializer and checkpoints (`util`), the
-dataset iterators (`datasets`), the gradient check, and the two kernel
+(`earlystopping`), the model serializer, ModelGuesser and checkpoints
+(`util`), the dataset iterators (`datasets`), the gradient check, Keras
+model import on the port's own HDF5 reader (`modelimport`) with the
+Keras gateway server (`keras_server`), and the two kernel
 experiments (`benchmarks.headpack_experiment`,
 `benchmarks.decode_kernel_sweep`).
 

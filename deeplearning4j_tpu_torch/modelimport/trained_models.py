@@ -1,10 +1,10 @@
-"""Pretrained-model helpers: the VGG16 and ResNet-50 architectures and
-ImageNet preprocessing (port of the configuration part of the JAX
-package's `modelimport/trained_models.py`).
+"""Pretrained-model helpers: the VGG16 and ResNet-50 architectures,
+ImageNet preprocessing and the VGG16 weights loader (port of
+deeplearning4j_tpu/modelimport/trained_models.py).
 
 `vgg16`, `resnet50` and `vgg16_preprocess` are pure configuration and
-numpy. `load_vgg16` needs the Keras HDF5 import (ROADMAP queue A, item
-13) and raises.
+numpy. `load_vgg16` imports a local Keras HDF5 file through the Keras
+import (`modelimport.keras`); nothing is downloaded.
 """
 from __future__ import annotations
 
@@ -64,10 +64,13 @@ def vgg16_preprocess(images: np.ndarray) -> np.ndarray:
     return np.asarray(images, np.float32) - VGG_MEAN_RGB
 
 
-def load_vgg16(h5_path: str):
-    raise NotImplementedError(
-        "importing Keras HDF5 weights is not ported yet (ROADMAP queue A, "
-        "item 13: modelimport/keras)")
+def load_vgg16(h5_path: str, device=None):
+    """Import VGG16 weights from a local Keras HDF5 file onto ``device``
+    (the card unless ``"cpu"``; reference flow: TrainedModelHelper ->
+    KerasModelImport)."""
+    from deeplearning4j_tpu_torch.modelimport.keras import \
+        import_keras_model_auto
+    return import_keras_model_auto(h5_path, device=device)
 
 
 def resnet50(num_classes: int = 1000, height: int = 224, width: int = 224,

@@ -19,6 +19,7 @@ other orders; LeNet's conv-kernel gradients are sums over 8 x 24 x 24
 positions); outputs 1e-5. The configurations' JSON equals JAX's.
 """
 import json
+import os
 
 import numpy as np
 import pytest
@@ -142,8 +143,16 @@ def test_vgg16_helpers():
     img = np.random.default_rng(0).integers(0, 255, (2, 4, 4, 3))
     np.testing.assert_array_equal(ttm.vgg16_preprocess(img),
                                   jtm.vgg16_preprocess(img))
-    with pytest.raises(NotImplementedError, match="13"):
-        ttm.load_vgg16("weights.h5")
+    # load_vgg16 imports a local Keras file (the trained VGG16 fixture)
+    # as JAX's does, and names a missing one
+    h5 = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                      "fixtures", "real_vgg16_trained.h5")
+    x = np.load(h5.replace(".h5", "_golden.npz"))["x"][:4]
+    np.testing.assert_allclose(
+        ttm.load_vgg16(h5, device="cpu").output(x).numpy(),
+        np.asarray(jtm.load_vgg16(h5).output(x)), **TOL)
+    with pytest.raises(FileNotFoundError):
+        ttm.load_vgg16("weights.h5", device="cpu")
     # resnet50 is a ComputationGraph configuration, ported with the graph
     assert ttm.resnet50().to_json() == jtm.resnet50().to_json()
 

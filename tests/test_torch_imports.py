@@ -2,9 +2,10 @@
 
 Every .py file of deeplearning4j_tpu_torch/ and chip_smoke.py is parsed
 with `ast`; none may import jax, jaxlib or deeplearning4j_tpu (matched by
-dotted prefix, so deeplearning4j_tpu_torch itself is allowed). The entry
-points must raise when no CUDA device is present and the caller did not
-ask for the CPU.
+dotted prefix, so deeplearning4j_tpu_torch itself is allowed), nor h5py,
+tf_keras or tensorflow, which the card's machine does not have (the Keras
+import reads HDF5 itself). The entry points must raise when no CUDA
+device is present and the caller did not ask for the CPU.
 """
 import ast
 from pathlib import Path
@@ -36,6 +37,56 @@ def _imports(path: Path):
                 yield node.lineno, alias.name
         elif isinstance(node, ast.ImportFrom) and node.level == 0:
             yield node.lineno, node.module or ""
+
+
+NOT_ON_THE_CARD = ("h5py", "tf_keras", "tensorflow")
+
+
+@pytest.mark.parametrize("path", _port_files(),
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_port_imports_no_h5py_or_keras(path):
+    bad = [(line, mod) for line, mod in _imports(path)
+           if any(mod == f or mod.startswith(f + ".")
+                  for f in NOT_ON_THE_CARD)]
+    assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
+@pytest.mark.parametrize("module", [
+    "deeplearning4j_tpu_torch.modelimport",
+    "deeplearning4j_tpu_torch.keras_server",
+    "deeplearning4j_tpu_torch.util.model_guesser"])
+def test_keras_import_loads_no_h5py(module):
+    """Importing the Keras import, the gateway server and ModelGuesser in
+    a fresh interpreter loads neither h5py, tf_keras, tensorflow nor jax
+    or the JAX package."""
+    import subprocess
+    import sys
+    code = (f"import sys\nimport {module}\n"
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'deeplearning4j_tpu', 'h5py', 'tf_keras', "
+            "'tensorflow'))\n"
+            "print(bad)\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"
+
+
+def test_keras_entry_points_raise_without_cuda(monkeypatch):
+    import os
+    from deeplearning4j_tpu_torch.keras_server import \
+        DeepLearning4jEntryPoint
+    from deeplearning4j_tpu_torch.modelimport import (
+        import_keras_model_auto, load_vgg16)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    mlp = os.path.join(ROOT, "tests", "fixtures", "real_mlp.h5")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        import_keras_model_auto(mlp)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        load_vgg16(mlp)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        DeepLearning4jEntryPoint()
+    assert import_keras_model_auto(mlp, device="cpu").device.type == "cpu"
 
 
 def test_forbidden_prefix_rule():

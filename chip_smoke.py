@@ -169,10 +169,10 @@ two kernel experiments on the card and fails (non-zero exit, no result line) if 
    requests of 64 new tokens (96 open with one 512-token system prompt
    and a page-aligned suffix of 16-512 tokens, 32 unshared of 16-1024),
    then 32 of them again; the first wave on the contiguous pool; the
-   same 32 cold (prefix cache off); the first wave with prefill_chunk
-   256 and the default budget; paged spec (K=7, "layers:1") against
-   paged plain on 3b's aligned tree, token-exact. Every request answered
-   and well formed; launches exact (phase 3's accounting; flash_fwd
+   same 32 cold (prefix cache off); the first wave's first 64 with
+   prefill_chunk 256 and the default budget; paged spec (K=7,
+   "layers:1") against paged plain on 3b's aligned tree, token-exact.
+   Every request answered and well formed; launches exact (phase 3's accounting; flash_fwd
    none on the paged and chunked arms: their prefill is plain
    attention); hits and copies in the second wave; no page leaked.
    Prints each arm's tokens/s, ms per decode step and prefill seconds,
@@ -249,8 +249,8 @@ two kernel experiments on the card and fails (non-zero exit, no result line) if 
    warm); tokens/s per arm and constrained / unconstrained, printed.
 3g. Full-width mixture of experts: phase 3's config with 8 experts at
    capacity 1.25 (`MOE_FLAGSHIP`, Switch-style top-1) beside the dense
-   engine on phase 3's traffic, both loops, timed in turns (S P P S);
-   3c's paged waves, its chunk-256 arm on 48 requests, the int8 arm,
+   engine on phase 3's traffic, both loops, timed in turns (S P);
+   3c's paged waves, its chunk-256 arm on 24 requests, the int8 arm,
    each synchronous then pipelined; full-width `generate`; eager passes
    under `RouteDrops` for the dropped share per call kind; a profiled
    decode tick and admission tick of each model. Gates: pipelined ≡
@@ -331,14 +331,14 @@ two kernel experiments on the card and fails (non-zero exit, no result line) if 
    fault retried token-exact, and a poisoned request quarantined while
    its 15 batch peers complete alone. (b) Fair-share prefill on the
    chunked (chunk 256, budget 512) and the paged chunked pool under
-   `hostile_tenant_storm` (3 hostile tenants at weight 1 sending 24 x
+   `hostile_tenant_storm` (3 hostile tenants at weight 1 sending 8 x
    1024-token prompts, a victim at weight 3 sending 8 x 128, 32 new
    tokens, all submitted at once to 64 slots): over the backlogged ticks
    (every tenant's prefill demand at least its weighted share of the
    tick's budget) the victim's share of the granted tokens within 15% of
    3/6; no backlogged tenant unserved for more than ceil(1 / its weight
    share) ticks running; all complete, no page leaks, launches exact;
-   the victim's TTFT beside the chunked pool with QoS off. (c) 64
+   the victim's TTFT on each pool. (c) 64
    class-0 residents, 6 class-5 arrivals, preemption_budget 2: at most 2
    evictions a tick, nothing lost, every preempted request complete; on
    the float32 model every preempted stream equals its uninterrupted
@@ -395,7 +395,7 @@ two kernel experiments on the card and fails (non-zero exit, no result line) if 
    flagship and traffic, weights from seed 0). (a) A `serving.fleet.
    Router` over two in-process 64-slot replicas, 128 requests of 64
    tokens: tokens equal a single 64-slot engine's, launches exact over
-   both engines; fleet and single tokens/s in turns (S F F S) and the
+   both engines; fleet and single tokens/s in turns (S F) and the
    router's host ms a tick; the same fleet driven by `Router.start()`'s
    thread with HTTP probes while this thread polls every replica's
    /healthz and /debugz (launches still exact: the handlers launch
@@ -417,7 +417,7 @@ two kernel experiments on the card and fails (non-zero exit, no result line) if 
    replicas, every handoff ok with its bytes equal to
    `quant.kv.handoff_bytes`, launches exact, export and adopt ms a
    request: a chunked (256) prefill tier beside one chunked paged
-   engine (bf16 tokens round by their calls, and this tier batches its
+   engine on the first 64 requests (bf16 tokens round by their calls, and this tier batches its
    chunks and evicts cached prefixes unlike the single engine, whose
    budget also carries decode: the token-equal and first-token shares
    are printed, TTFT beside a prefill-only engine); a one-shot paged
@@ -456,6 +456,32 @@ two kernel experiments on the card and fails (non-zero exit, no result line) if 
    router's 2 D E a layer); losses finite and falling, 2 x L flash
    forward and L backward launches a step, nothing plain; two forward
    and backward calls of the MoE MLP at this shape bit-equal.
+4d. Training parallelism on torch.distributed (`phase_parallel_training`;
+   `--only 4d` runs the build and this phase alone): four ranks share
+   the card, started once by `parallel.multihost.MultiHostLauncher` on
+   the backend its rule prints (gloo: NCCL refuses two ranks on one
+   device), with the routing table of `parallel.collectives` (gloo's
+   point-to-point sends through pinned host buffers); the ranks load
+   the libraries built above and run no nvcc. (a) float32 at narrow
+   width (vocab 50, d 128, 4 heads: head dim 32, the narrowest the flash
+   kernels take; 4 layers, T 32, B 8; seeded params and tokens), two
+   Adam steps (lr 1e-2) on {model=2}, {pipe=2} gpipe, {pipe=2, model=2}
+   1f1b, {seq=2, model=2} ring and Ulysses, {data=4} with 4 experts
+   (2 layers, capacity 8) and the FSDP step on {data=4}: every mesh's
+   loss within 1e-4 of the single-rank `make_fsdp_train_step` on the
+   card, every rank's shards within 5e-3 of its params, the loss the
+   same on every rank, data replicas bit-equal, flash launched on every
+   rank but ring's. (b) Phase 4b's flagship step (12L / 512d / 8H,
+   V=256, T=2048, global B=16, bf16, remat 'full', the same seeded
+   params and tokens) on {data=2, model=2} and on {seq=2, model=2} with
+   Ulysses: one warm step, 3 timed, one with the collectives
+   synchronised for their own seconds; the first loss within 2^-7
+   relative of 4b's, the same on every rank, data replicas bit-equal
+   (digests), 2 L flash forward and L backward launches a rank a step.
+   Prints ms a step, global tokens/s, the bf16-peak share of one card,
+   collective and host-staged bytes and seconds a rank a step, peak
+   memory a rank. Four ranks on one card measure the communication
+   layer; no speed is claimed.
 5a. The fused LSTM-scan kernel vs its plain twin: the char-RNN's shapes
    (B=1024, T=64, H=200; xw from layer 1's one-hot V=80 input and from
    layer 2's H=200 input) in bf16 and float32, reversed sequences, B=5,
@@ -570,8 +596,9 @@ two kernel experiments on the card and fails (non-zero exit, no result line) if 
    line of the graph replays of every gated run and of the serving
    device functions' launches in the profiled ticks' traces; the run's
    wall time, the MoE phases', the rest's, phase 3h's, 3i's, 3j's, 3k's,
-   3l's, 5d's, 5e's and 5f's (`wall`, `fleet_phase_s`, `dsl_cnn_phase_s`,
-   `dag_phase_s`, `keras_import_phase_s`);
+   3l's, 4d's, 5d's, 5e's and 5f's (`wall`, `fleet_phase_s`,
+   `parallel_phase_s`, `dsl_cnn_phase_s`, `dag_phase_s`,
+   `keras_import_phase_s`);
    one `kernels` JSON line (decode_attention_q and decode_window_q among
    them; `launches` the wrappers' counts, 3j's included,
    `device_launches_profiled`
@@ -583,6 +610,7 @@ The kernels build from deeplearning4j_tpu_torch/csrc/ at the start (one
 nvcc per source, started together). Weights are random, from fixed seeds.
 """
 import gc
+import hashlib
 import json
 import os
 import re
@@ -1529,7 +1557,8 @@ def phase_paged_full_width(torch, dev, contiguous_ms_per_step):
     prompt and a page-aligned suffix of 16-512 tokens, 32 unshared of
     16-1024), then 32 of them again (prefix hits, copy-on-write); the
     first wave on the contiguous pool; the same 32 cold (prefix cache
-    off); the first wave with prefill_chunk 256 and the default budget;
+    off); the first wave's first 64 with prefill_chunk 256 and the
+    default budget;
     then paged spec (K=7, "layers:1") against paged plain on phase 3b's
     aligned tree, token-exact. Gates: every request answered and well
     formed; launches exact (decode L x chunk per decode chunk, window L
@@ -1634,7 +1663,10 @@ def phase_paged_full_width(torch, dev, contiguous_ms_per_step):
               hit_prefill_s=counts[1]["prefill_s"],
               saved_s=cold[0]["prefill_s"] - counts[1]["prefill_s"]))
     del contiguous
-    _, chunked_out, _ = arm("chunked", params, [first], prefill_chunk=256)
+    # the chunked arm on the first half (chunk-256 prefill is host-bound)
+    chunked_first = first[:64]
+    _, chunked_out, _ = arm("chunked", params, [chunked_first],
+                            prefill_chunk=256)
     _, plain, _ = arm("paged_aligned_plain", aligned, [first])
     spec, got, _ = arm("paged_aligned_spec", aligned, [first],
                        spec_decode=True, spec_k=K, draft="layers:1")
@@ -1650,7 +1682,7 @@ def phase_paged_full_width(torch, dev, contiguous_ms_per_step):
     del eng, params
     torch.cuda.empty_cache()
     return launches, {"paged": ([first, again], paged_out),
-                      "chunked": ([first], chunked_out)}
+                      "chunked": ([chunked_first], chunked_out)}
 
 
 def profile_decode_tick(torch, eng, rng, arm, phase="3b", constrain=None):
@@ -4193,7 +4225,7 @@ def phase_faults_full_width(torch, dev):
                  f"{eng.health()['breaker']}, {s}")
 
     # (a) transient faults, plain in both loops, and a chunked arm
-    rec_a = {}
+    rec_a, cleans = {}, {}
     for name, kw, inj_kw in (
             ("plain_sync", dict(pipeline=False),
              dict(fail_at=[1, 2, 3], prefill_fail_at=[0])),
@@ -4202,6 +4234,7 @@ def phase_faults_full_width(torch, dev):
             ("chunked_pipelined", dict(prefill_chunk=256),
              dict(fail_at=[6, 9], prefill_chunk_fail_at=[0]))):
         _, clean = serve(f"{name}_clean", **kw)
+        cleans[name] = clean
         inj = ServingFaultInjector(**inj_kw)
         eng, hs = serve(name, inj, **kw)
         if gen(hs) != gen(clean) or inj.injected != 4 - (
@@ -4232,7 +4265,9 @@ def phase_faults_full_width(torch, dev):
         ("moe", {}, dict(tree="moe",
                          mcfg=tf.TransformerConfig(**MOE_FLAGSHIP))))
     for name, kw, arm_kw in arms_b:
-        _, clean = serve(f"{name}_clean", **kw, **arm_kw)
+        # (a)'s fault-free plain pipelined run is this arm's too
+        clean = (cleans["plain_pipelined"] if name == "plain_pipelined"
+                 else serve(f"{name}_clean", **kw, **arm_kw)[1])
         inj = ServingFaultInjector()
 
         def poison(eng, hs):
@@ -4666,7 +4701,7 @@ def phase_engine_control_full_width(torch, dev):
 
     # (b) fair-share prefill under the hostile storm
     arrivals, _ = hostile_tenant_storm(
-        ticks=8, hostiles=3, flood_per_tick=3, victim_every=1,
+        ticks=8, hostiles=3, flood_per_tick=1, victim_every=1,
         victim_prompt=128, victim_new=32, hostile_prompt=1024,
         hostile_new=32)
     weights = {"victim": 3.0, "hostile0": 1.0, "hostile1": 1.0,
@@ -4679,8 +4714,7 @@ def phase_engine_control_full_width(torch, dev):
     storm = {}
     for name, kw in (("chunked", dict(tenant_weights=weights)),
                      ("paged_chunked", dict(tenant_weights=weights,
-                                            paged=True, page_size=16)),
-                     ("chunked_qos_off", {})):
+                                            paged=True, page_size=16))):
         eng = InferenceEngine(cfg, tree, EngineConfig(**fkw, **kw),
                               device=dev)
         recs = []
@@ -4770,7 +4804,7 @@ def phase_engine_control_full_width(torch, dev):
         del eng, hs
     line(dict(phase="3j", run="fair_share_ttft",
               victim_ttft_s_mean_qos=storm["chunked"]["victim_ttft_s_mean"],
-              victim_ttft_s_mean_qos_off=storm["chunked_qos_off"][
+              victim_ttft_s_mean_paged_qos=storm["paged_chunked"][
                   "victim_ttft_s_mean"]))
 
     # (c) priority preemption on 64 residents, then qos_control
@@ -5647,9 +5681,9 @@ def l3_flat_fleet(torch, dev, cfg, params, prompts, want, add):
         return Router(cfg=cfg, params=tree, device=dev, num_replicas=2,
                       engine_config=ec, **kw)
 
-    # fleet beside the single engine, in turns (S F F S), sync loop
+    # fleet beside the single engine, in turns (S F), sync loop
     runs = {"single": [], "fleet": []}
-    for arm in ("single", "fleet", "fleet", "single"):
+    for arm in ("single", "fleet"):
         if arm == "single":
             out, wall, got, _ = l3_single(torch, cfg, params, dev,
                                           L3_ENGINE, prompts)
@@ -5682,7 +5716,7 @@ def l3_flat_fleet(torch, dev, cfg, params, prompts, want, add):
                                         for e in engines]))
         r.close()
         del r, engines, hs
-    line(dict(phase="3l", run="fleet_vs_single", order="S F F S",
+    line(dict(phase="3l", run="fleet_vs_single", order="S F",
               single_tokens_per_s=runs["single"],
               fleet_tokens_per_s=runs["fleet"],
               fleet_over_single=sum(runs["fleet"]) / sum(runs["single"])))
@@ -5982,11 +6016,14 @@ def l3_tiers(torch, dev, cfg, params, add):
     L = cfg.n_layers
     rng = np.random.default_rng(0)
     first = paged_traffic(rng, 96, 32, 512, (16, 512), (16, 1024))
+    # the chunked arms on the first half (chunk-256 prefill is
+    # host-bound); the same-calls arms on all of it
+    half = first[:64]
     want, wall_single, got, info0 = l3_single(torch, cfg, params, dev,
-                                              L3_PREFILL, first)
+                                              L3_PREFILL, half)
     add(got)
     _, _, got, info = l3_single(torch, cfg, params, dev,
-                                dict(L3_PREFILL, max_new_tokens=1), first)
+                                dict(L3_PREFILL, max_new_tokens=1), half)
     slo_prefill = info["slo"]
     add(got)
     # the same-calls arms' pools hold every prompt's chain: no eviction,
@@ -6074,9 +6111,9 @@ def l3_tiers(torch, dev, cfg, params, add):
         return rec
 
     # a chunked (256) prefill tier
-    rec = run(L3_PREFILL, L3_DECODE, first, want, "chunked", False,
+    rec = run(L3_PREFILL, L3_DECODE, half, want, "chunked", False,
               ref_prefix=info0["prefix"])
-    rec.update(single_chunked_tokens_per_s=len(first) * 64 / wall_single,
+    rec.update(single_chunked_tokens_per_s=len(half) * 64 / wall_single,
                prefill_only_ttft_p50_ms=slo_prefill.get("ttft_p50_ms"),
                prefill_only_ttft_p99_ms=slo_prefill.get("ttft_p99_ms"))
     line(rec)
@@ -6434,6 +6471,9 @@ def phase_train_full_width(torch, dev, timed_steps: int = 5,
         0, V, (B, T))).to(dev)
     tgts = torch.roll(toks, -1, dims=1)
     _, _, warm_loss = step(params, opt, toks, tgts)
+    if not n_experts:
+        global FLAGSHIP_WARM_LOSS
+        FLAGSHIP_WARM_LOSS = float(warm_loss)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     fa.flash_forward_cuda.launches = 0
@@ -6486,6 +6526,378 @@ def phase_train_full_width(torch, dev, timed_steps: int = 5,
     del params, opt
     torch.cuda.empty_cache()
     return {"flash_fwd": n_fwd, "flash_bwd": n_bwd}
+
+
+# ---------------------------------------------------------------------------
+# phase 4d: training parallelism, four ranks on one card
+# ---------------------------------------------------------------------------
+
+# phase 4b's first-step loss (the single-rank reference of 4d (b))
+FLAGSHIP_WARM_LOSS = None
+D4_RANKS = 4
+# 4d (a): tests/test_megatron.py's CFG at the narrowest width the flash
+# kernels take (head dim 32: d 128 over 4 heads; the tests' d 32 gives a
+# head dim of 8, which csrc/flash_fwd.cu does not take), T 32, B 8
+D4_NARROW = dict(vocab_size=50, d_model=128, n_heads=4, n_layers=4,
+                 max_len=32, dtype="float32")
+D4_MOE = dict(D4_NARROW, n_layers=2, n_experts=4, capacity_factor=8.0)
+D4_CASES = [  # name, kind, config, mesh axes, options
+    ("tp", "megatron", D4_NARROW, dict(model=2), {}),
+    ("pp-gpipe", "megatron", D4_NARROW, dict(pipe=2), {}),
+    ("pp-tp-1f1b", "megatron", D4_NARROW, dict(pipe=2, model=2),
+     {"pipeline_schedule": "1f1b"}),
+    ("sp-tp-ring", "megatron", D4_NARROW, dict(seq=2, model=2), {}),
+    ("sp-tp-ulysses", "megatron", dict(D4_NARROW, seq_impl="ulysses"),
+     dict(seq=2, model=2), {}),
+    ("ep", "megatron", D4_MOE, dict(data=4), {}),
+    ("fsdp", "fsdp", D4_NARROW, dict(data=4), {}),
+]
+
+
+def d4_tree_np(tree, prefix=""):
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(d4_tree_np(v, prefix + k + "/"))
+        else:
+            out[prefix + k] = v.detach().float().cpu().numpy()
+    return out
+
+
+def d4_flash_counts():
+    from deeplearning4j_tpu_torch.ops import flash_attention as fa
+    return fa.flash_forward_cuda.launches, fa.flash_backward_cuda.launches
+
+
+def d4_sync(torch):
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+
+
+def d4_narrow_rank(params_np, toks, tgts, steps=2, lr=1e-2):
+    """4d (a) on one rank: every case's Adam steps on its mesh (the
+    first prod(axes) ranks; the others skip it)."""
+    import torch
+    from deeplearning4j_tpu_torch.models.convert import params_from_numpy
+    from deeplearning4j_tpu_torch.models.transformer import \
+        TransformerConfig
+    from deeplearning4j_tpu_torch.ops import _build
+    from deeplearning4j_tpu_torch.parallel import collectives as C
+    from deeplearning4j_tpu_torch.parallel import fsdp, megatron
+    from deeplearning4j_tpu_torch.parallel.mesh import MeshSpec, make_mesh
+    out = {}
+    for name, kind, fields, axes, opts in D4_CASES:
+        cfg = TransformerConfig(**fields)
+        spec = MeshSpec(**axes)
+        mesh = make_mesh(spec, devices=list(range(spec.n_devices)))
+        if not mesh.member:
+            continue
+        full = params_from_numpy(params_np["moe" if cfg.n_experts
+                                           else "dense"], device="cpu")
+        if kind == "fsdp":
+            ps = fsdp.shard_params_fsdp(full, mesh)
+            step = fsdp.make_fsdp_train_step(cfg, mesh, learning_rate=lr)
+        else:
+            ps = megatron.shard_params(full, cfg, mesh)
+            step = megatron.make_parallel_train_step(
+                cfg, mesh, learning_rate=lr, **opts)
+        opt = megatron.init_adam_state(ps)
+        f0 = d4_flash_counts()
+        C.STATS.reset()
+        losses = []
+        for _ in range(steps):
+            ps, opt, loss = step(ps, opt, toks, tgts)
+            losses.append(float(loss))
+        f1 = d4_flash_counts()
+        comm = C.STATS.snapshot()
+        out[name] = dict(losses=losses, coords=dict(mesh.coords),
+                         params=d4_tree_np(ps),
+                         flash=(f1[0] - f0[0], f1[1] - f0[1]),
+                         comm_bytes=comm["total_bytes"],
+                         host_bytes=comm["total_host_bytes"])
+    d4_sync(torch)
+    return dict(cases=out, nvcc_runs=dict(_build.nvcc_runs))
+
+
+def d4_full_rank(axes, seq_impl, shape, timed_steps=3):
+    """4d (b) on one rank: the flagship train step on a mesh of the four
+    ranks, one warm step and ``timed_steps`` timed steps, then one step
+    with the collectives synchronised for their own seconds."""
+    import torch
+    import torch.distributed as dist
+    from deeplearning4j_tpu_torch.models import transformer as tf
+    from deeplearning4j_tpu_torch.ops import _build
+    from deeplearning4j_tpu_torch.parallel import collectives as C
+    from deeplearning4j_tpu_torch.parallel import megatron
+    from deeplearning4j_tpu_torch.parallel.mesh import MeshSpec, make_mesh
+    B, T, L, D, H, V = shape
+    cfg = tf.TransformerConfig(vocab_size=V, d_model=D, n_heads=H,
+                               n_layers=L, max_len=T, dtype="bfloat16",
+                               remat=True, remat_policy="full",
+                               seq_impl=seq_impl)
+    mesh = make_mesh(MeshSpec(**axes))
+    dev = mesh.device
+    full = tf.init_params(cfg, seed=0, device="cpu")
+    ps = megatron.shard_params(full, cfg, mesh)
+    del full
+    opt = megatron.init_adam_state(ps)
+    step = megatron.make_parallel_train_step(cfg, mesh, learning_rate=1e-3)
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        0, V, (B, T))).to(dev)
+    tgts = torch.roll(toks, -1, dims=1)
+    _, _, first = step(ps, opt, toks, tgts)
+    first = float(first)
+    d4_sync(torch)
+    if torch.cuda.is_available():
+        torch.cuda.reset_peak_memory_stats()
+    C.STATS.reset()
+    f0 = d4_flash_counts()
+    dist.barrier()
+    t0 = time.perf_counter()
+    losses = []
+    for _ in range(timed_steps):
+        _, _, loss = step(ps, opt, toks, tgts)
+        losses.append(loss)
+    d4_sync(torch)
+    dist.barrier()
+    wall = time.perf_counter() - t0
+    f1 = d4_flash_counts()
+    timed = C.STATS.snapshot()
+    C.STATS.reset()
+    C.STATS.sync = True
+    step(ps, opt, toks, tgts)
+    C.STATS.sync = False
+    synced = C.STATS.snapshot()
+    d4_sync(torch)
+    return dict(coords=dict(mesh.coords), first_loss=first,
+                losses=[float(x) for x in losses], wall_s=wall,
+                flash_fwd=f1[0] - f0[0], flash_bwd=f1[1] - f0[1],
+                comm_timed=timed, comm_synced_step=synced,
+                peak_mem_gb=(torch.cuda.max_memory_allocated() / 1e9
+                             if torch.cuda.is_available() else None),
+                params={k: hashlib.sha256(v.tobytes()).hexdigest()
+                        for k, v in d4_tree_np(ps).items()},
+                nvcc_runs=dict(_build.nvcc_runs))
+
+
+D4_FULL = (("dp-tp", dict(data=2, model=2), "ring"),
+           ("sp-tp-ulysses", dict(seq=2, model=2), "ulysses"))
+
+
+def d4_rank(params_np, toks, tgts, shape, timed_steps):
+    """Phase 4d on one rank, in one start of the four ranks: (a), then
+    (b) on each mesh of D4_FULL."""
+    import torch
+    narrow = d4_narrow_rank(params_np, toks, tgts)
+    full = {}
+    for name, axes, impl in D4_FULL:
+        t0 = time.perf_counter()
+        full[name] = d4_full_rank(axes, impl, shape, timed_steps)
+        full[name]["rank_s"] = time.perf_counter() - t0
+        gc.collect()
+        if torch.cuda.is_available():
+            torch.cuda.empty_cache()
+    return dict(narrow=narrow, full=full)
+
+
+def d4_replicas_equal(ranks, specs):
+    """Every pair of ranks that differ only along 'data' holds bit-equal
+    shards of every leaf whose spec does not name 'data'."""
+    from deeplearning4j_tpu_torch.parallel.mesh import spec_axes
+
+    def flat(t, pre=""):
+        o = {}
+        for k, v in t.items():
+            o.update(flat(v, pre + k + "/") if isinstance(v, dict)
+                     else {pre + k: v})
+        return o
+    fs = flat(specs)
+    pairs, equal = 0, True
+    recs = [r for r in ranks if r is not None]
+    if not recs:
+        return 0, True
+    eq = (lambda a, b: a == b) if isinstance(
+        next(iter(recs[0]["params"].values())), str) else np.array_equal
+    for a in recs:
+        for b in recs:
+            ca = {k: v for k, v in a["coords"].items() if k != "data"}
+            cb = {k: v for k, v in b["coords"].items() if k != "data"}
+            if a is b or ca != cb or a["coords"]["data"] >= \
+                    b["coords"]["data"]:
+                continue
+            for k, v in a["params"].items():
+                if "data" in spec_axes(fs[k]):
+                    continue
+                pairs += 1
+                # (b)'s ranks send digests of their shards
+                equal &= bool(eq(v, b["params"][k]))
+    return pairs, equal
+
+
+def phase_parallel_training(torch, dev):
+    """4d (see the module docstring). Returns the flash launches of every
+    rank's main-path steps (b), by kernel."""
+    from deeplearning4j_tpu_torch.models import transformer as tf
+    from deeplearning4j_tpu_torch.parallel import collectives as C
+    from deeplearning4j_tpu_torch.parallel.fsdp import (fsdp_shardings,
+                                                        make_fsdp_train_step)
+    from deeplearning4j_tpu_torch.parallel.megatron import param_specs
+    from deeplearning4j_tpu_torch.parallel.mesh import MeshSpec, shard_of
+    from deeplearning4j_tpu_torch.parallel.multihost import (
+        MultiHostLauncher, backend_rule)
+    from deeplearning4j_tpu_torch.parallel.optim import init_adam_state
+    t_phase = time.perf_counter()
+    launcher = MultiHostLauncher(D4_RANKS, device="cuda")
+    line(dict(phase="4d", run="backend", ranks=D4_RANKS, card=CARD,
+              rule=backend_rule("cuda", D4_RANKS),
+              backend=launcher.backend, table=C.table()))
+    # (a) f32 at narrow width against the single-rank card step
+    rng = np.random.RandomState(0)
+    toks = rng.randint(0, 50, (8, 32)).astype(np.int64)
+    tgts = np.roll(toks, -1, 1)
+    params_np, base = {}, {}
+    for key, fields in (("dense", D4_NARROW), ("moe", D4_MOE)):
+        cfg = tf.TransformerConfig(**fields)
+        p = tf.init_params(cfg, seed=0, device="cpu")
+        params_np[key] = {k: ({n: a.numpy().copy() for n, a in v.items()}
+                              if isinstance(v, dict) else v.numpy().copy())
+                          for k, v in p.items()}
+        pc = tf.params_to(p, dev)
+        opt = init_adam_state(pc)
+        step = make_fsdp_train_step(cfg, device=dev, learning_rate=1e-2)
+        for _ in range(2):
+            pc, opt, loss = step(pc, opt, toks, tgts)
+        base[key] = (float(loss), d4_tree_np(pc))
+    # the single-rank first loss of (b): phase 4b's, or one step here
+    B, T, L, D, H, V = FLAGSHIP_TRAIN
+    ref = FLAGSHIP_WARM_LOSS
+    if ref is None:
+        cfg = tf.TransformerConfig(vocab_size=V, d_model=D, n_heads=H,
+                                   n_layers=L, max_len=T, dtype="bfloat16",
+                                   remat=True, remat_policy="full")
+        p = tf.init_params(cfg, seed=0, device=dev)
+        toks_b = torch.from_numpy(np.random.default_rng(0).integers(
+            0, V, (B, T))).to(dev)
+        _, _, ref = make_fsdp_train_step(cfg, device=dev,
+                                         learning_rate=1e-3)(
+            p, init_adam_state(p), toks_b, torch.roll(toks_b, -1, dims=1))
+        ref = float(ref)
+        del p
+        torch.cuda.empty_cache()
+    timed_steps = 3
+    t0 = time.perf_counter()
+    out = launcher.run(d4_rank, timeout=400,
+                       args=(params_np, toks, tgts, FLAGSHIP_TRAIN,
+                             timed_steps))
+    launch_s = time.perf_counter() - t0
+    res = [r["narrow"] for r in out]
+    if any(r["nvcc_runs"] for r in res):
+        fail(f"4d: a rank ran nvcc: {[r['nvcc_runs'] for r in res]}")
+
+    class At:                       # a rank's place, for shard_of
+        def __init__(self, shape, coords):
+            self.shape, self.coords = shape, coords
+    for name, kind, fields, axes, opts in D4_CASES:
+        cfg = tf.TransformerConfig(**fields)
+        sizes = MeshSpec(**axes).axis_sizes()
+        key = "moe" if cfg.n_experts else "dense"
+        want_loss, want = base[key]
+        specs = (param_specs(cfg) if kind == "megatron" else
+                 fsdp_shardings(params_np[key], At(sizes, {})))
+        ranks = [r["cases"].get(name) for r in res]
+        loss_err = max(abs(r["losses"][-1] - want_loss)
+                       for r in ranks if r)
+        same_loss = len({r["losses"][-1] for r in ranks if r}) == 1
+        flat_specs = {}
+
+        def walk(t, pre=""):
+            for k, v in t.items():
+                if isinstance(v, dict):
+                    walk(v, pre + k + "/")
+                else:
+                    flat_specs[pre + k] = v
+        walk(specs)
+        worst = max(float(np.abs(shard_of(want[k], flat_specs[k],
+                                          At(sizes, r["coords"])) - v).max())
+                    for r in ranks if r for k, v in r["params"].items())
+        pairs, equal = d4_replicas_equal(ranks, specs)
+        flash = [r["flash"] for r in ranks if r]
+        comm = [(r["comm_bytes"], r["host_bytes"]) for r in ranks if r]
+        line(dict(phase="4d", part="a", mesh=name, axes=axes,
+                  loss=ranks[0]["losses"], single_rank_loss=want_loss,
+                  loss_max_abs_err=loss_err, loss_tol=1e-4,
+                  same_loss_every_rank=same_loss,
+                  param_max_abs_err=worst, param_tol=5e-3,
+                  replica_pairs=pairs, replicas_bit_equal=equal,
+                  flash_launches_by_rank=flash,
+                  comm_and_host_bytes_by_rank=comm))
+        if not (loss_err <= 1e-4 and worst <= 5e-3 and equal
+                and same_loss):
+            fail(f"4d (a) {name}: loss err {loss_err}, param err {worst}, "
+                 f"replicas equal {equal}, same loss {same_loss}")
+        if cfg.seq_impl != "ring" or axes.get("seq", 1) == 1:
+            if not all(f[0] > 0 and f[1] > 0 for f in flash):
+                fail(f"4d (a) {name}: flash not launched on every rank "
+                     f"{flash}")
+    # (b) full width: the flagship step on {data=2, model=2} and on
+    # {seq=2, model=2} with Ulysses
+    launches = {"flash_fwd": 0, "flash_bwd": 0}
+    p_mat = L * 12 * D * D + D * V
+    flops_tok = 3 * (2 * p_mat + 2 * L * T * D)
+    for name, axes, impl in D4_FULL:
+        ranks = [r["full"][name] for r in out]
+        if any(r["nvcc_runs"] for r in ranks):
+            fail(f"4d (b) {name}: a rank ran nvcc")
+        firsts = [r["first_loss"] for r in ranks]
+        rel = abs(firsts[0] - ref) / abs(ref)
+        same = len(set(firsts)) == 1 and len(
+            {tuple(r["losses"]) for r in ranks}) == 1
+        ms = max(r["wall_s"] for r in ranks) / timed_steps * 1e3
+        tok_s = B * T / (ms / 1e3)
+        fwd = [r["flash_fwd"] for r in ranks]
+        bwd = [r["flash_bwd"] for r in ranks]
+        comm = [dict(bytes_per_step=r["comm_timed"]["total_bytes"]
+                     / timed_steps,
+                     host_bytes_per_step=r["comm_timed"]["total_host_bytes"]
+                     / timed_steps,
+                     by_op=r["comm_timed"]["bytes"],
+                     host_by_op=r["comm_timed"]["host_bytes"],
+                     calls_by_op=r["comm_timed"]["calls"],
+                     seconds_synced_step=r["comm_synced_step"]
+                     ["total_seconds"],
+                     seconds_by_op=r["comm_synced_step"]["seconds"])
+                for r in ranks]
+        pairs, equal = (d4_replicas_equal(ranks, param_specs(
+            tf.TransformerConfig(vocab_size=V, d_model=D, n_heads=H,
+                                 n_layers=L, max_len=T)))
+            if axes.get("data", 1) > 1 else (0, True))
+        line(dict(phase="4d", part="b", mesh=name, axes=axes, seq_impl=impl,
+                  card=CARD, batch=B, seq=T, layers=L, remat="full",
+                  dtype="bfloat16", ranks_on_one_card=D4_RANKS,
+                  timed_steps=timed_steps, ms_per_step=ms,
+                  global_tokens_per_s=tok_s, model_flops_per_token=flops_tok,
+                  bf16_peak_share_one_card=tok_s * flops_tok
+                  / PEAK_FLOPS["bfloat16"],
+                  first_loss=firsts[0], single_rank_first_loss=ref,
+                  first_loss_rel_err=rel, first_loss_tol=2 ** -7,
+                  losses=ranks[0]["losses"], same_loss_every_rank=same,
+                  flash_fwd_by_rank=fwd, flash_bwd_by_rank=bwd,
+                  comm_by_rank=comm, replica_pairs=pairs,
+                  replicas_bit_equal=equal,
+                  peak_mem_gb_by_rank=[r["peak_mem_gb"] for r in ranks],
+                  rank_s=[r["rank_s"] for r in ranks]))
+        if not (rel <= 2 ** -7 and same and equal):
+            fail(f"4d (b) {name}: first loss {firsts} vs {ref} (rel {rel}),"
+                 f" same on every rank {same}, replicas equal {equal}")
+        if any(f != 2 * L * timed_steps for f in fwd) or \
+                any(b != L * timed_steps for b in bwd):
+            fail(f"4d (b) {name}: flash launches fwd {fwd} bwd {bwd}, want "
+                 f"{2 * L * timed_steps} / {L * timed_steps} a rank")
+        launches["flash_fwd"] += sum(fwd)
+        launches["flash_bwd"] += sum(bwd)
+    line(dict(phase="4d", run="summary", launch_s=launch_s,
+              phase_s=time.perf_counter() - t_phase, launches=launches))
+    return launches
 
 
 # ---------------------------------------------------------------------------
@@ -6681,9 +7093,9 @@ def phase_moe_full_width(torch, dev, sync):
     ``sync``: phase 3's and 3c's traffic, arm -> (waves, results)), 64
     slots, chunk 8. (a) Phase 3's 128 requests on the MoE and the dense
     engine, both loops, a warm pass each, then timed passes in turns S P
-    P S (dense then MoE in each turn): tokens/s and ms a step; (b) 3c's
-    paged waves, (c) its chunk-256 paged arm on the first 48 requests of
-    its first wave (3f's cut), (d) int8 weights and KV on phase 3's
+    (dense then MoE in each turn): tokens/s and ms a step; (b) 3c's
+    paged waves, (c) its chunk-256 paged arm on the first 24 requests of
+    its first wave, (d) int8 weights and KV on phase 3's
     traffic, each synchronous then pipelined; (e) the share of routed
     tokens dropped per call kind, from eager passes of (a)-(c) and of
     `generate` (B=64, T0=64, 128 new) under `RouteDrops`; (f) one
@@ -6779,7 +7191,7 @@ def phase_moe_full_width(torch, dev, sync):
         want[m] = run(m, engs[(m, False)], [prompts], warm=True)[1]
         run(m, engs[(m, True)], [prompts], want[m], warm=True)
     timed = {}
-    for p in (False, True, True, False):
+    for p in (False, True):
         for m in ("dense", "moe"):
             timed.setdefault((m, p), []).append(
                 run(m, engs[(m, p)], [prompts], want[m])[0])
@@ -6787,7 +7199,7 @@ def phase_moe_full_width(torch, dev, sync):
     def col(m, p, k):
         return [r[k] for r in timed[(m, p)]]
 
-    line(dict(phase="3g", run="moe_vs_dense_in_turns", order="S P P S",
+    line(dict(phase="3g", run="moe_vs_dense_in_turns", order="S P",
               moe_sync_tokens_per_s=col("moe", False, "tokens_per_s"),
               moe_pipelined_tokens_per_s=col("moe", True, "tokens_per_s"),
               dense_sync_tokens_per_s=col("dense", False, "tokens_per_s"),
@@ -6850,7 +7262,7 @@ def phase_moe_full_width(torch, dev, sync):
     contiguous_first = run("contiguous_first_wave", engine(pipeline=False),
                            [first], warm=True)[1][0]
     arms = {"paged": ([first, again], paged),
-            "chunked": ([first[:48]], dict(paged, prefill_chunk=256)),
+            "chunked": ([first[:24]], dict(paged, prefill_chunk=256)),
             "int8": ([prompts], dict(quantize="int8", kv_quantize="int8"))}
     results = {}
     for name, (waves, kw) in arms.items():
@@ -6861,7 +7273,7 @@ def phase_moe_full_width(torch, dev, sync):
               paged_first_wave_requests_differing=len(differ(
                   [results["paged"][0]], [contiguous_first])),
               chunked_requests_differing=len(differ(
-                  results["chunked"], [contiguous_first[:48]])),
+                  results["chunked"], [contiguous_first[:24]])),
               requests=[len(first), 48]))
 
     # (e) drops per call kind, from eager passes; generate at full width
@@ -8713,11 +9125,12 @@ def main() -> int:
             "3l": phase_fleet_full_width,
             "5d": phase_dsl_cnn,
             "5e": phase_dag_runtime,
-            "5f": phase_keras_import}
+            "5f": phase_keras_import,
+            "4d": phase_parallel_training}
     if len(sys.argv) == 3 and sys.argv[1] == "--only" and \
             sys.argv[2] in only:
-        # a development run of phase 3h, 3i, 3j, 3k, 3l, 5d, 5e or 5f alone
-        # (no kernels line, no result); a full run takes no arguments
+        # a development run of phase 3h, 3i, 3j, 3k, 3l, 4d, 5d, 5e or 5f
+        # alone (no kernels line, no result); a full run takes no arguments
         line(dict(phase=sys.argv[2], launches=only[sys.argv[2]](
             torch, dev), wall_s=time.perf_counter() - t_run,
             tracer_marks=TRACER_MARKS_SEEN))
@@ -8791,6 +9204,10 @@ def main() -> int:
     for name, n in moe_train.items():
         launches[name] = launches.get(name, 0) + n
     line(dict(run="moe_launches", serving=moe_launches, training=moe_train))
+    t_4d = time.perf_counter()
+    for name, n in phase_parallel_training(torch, dev).items():
+        launches[name] = launches.get(name, 0) + n
+    t_4d = time.perf_counter() - t_4d
     phase_lstm_f32_card_vs_cpu(torch, dev)
     launches.update(phase_lstm_full_width(torch, dev))
     t_5d = time.perf_counter()
@@ -8870,7 +9287,8 @@ def main() -> int:
               observability_phase_s=t_obs, fault_phase_s=t_fault,
               engine_control_phase_s=t_ctl, cache_handoff_phase_s=t_k3,
               fleet_phase_s=t_l3, dsl_cnn_phase_s=t_5d,
-              dag_phase_s=t_5e, keras_import_phase_s=t_5f))
+              dag_phase_s=t_5e, keras_import_phase_s=t_5f,
+              parallel_phase_s=t_4d))
     print(card, flush=True)
     line({"kernels": kernels})
     line({"ok": True, "device": {"platform": "gpu",

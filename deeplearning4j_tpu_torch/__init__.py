@@ -13,8 +13,10 @@ Ported so far: the continuous-batching TransformerLM server
 prefill and quantized weights and KV pools (`quant`), and its
 observability (`observability`: metrics, flight recorder, SLOs, the
 profiler; `util.flops`' card peaks), `models.transformer.TransformerLM`
-with its loss, the single-device Adam train step
-(`parallel.fsdp.make_fsdp_train_step`), the config DSL's sequential
+with its loss, the Adam train step on one device and its training
+parallelism on `torch.distributed` (`parallel`: the launcher and mesh,
+data, tensor, pipeline, sequence and expert parallelism, FSDP,
+ParallelWrapper), the config DSL's sequential
 `nn.multilayer.MultiLayerNetwork` with its layer families (dense,
 embedding, convolution and pooling, normalization, utility, output and
 loss, the DSL's attention layers, the LSTMs), the LeNet, VGG16, text-CNN

@@ -42,8 +42,9 @@ function of (seed, j, the logits at j) only, never of batch placement.
 programs of parallel/serving key by sequence position (reference
 parallel/serving.py:812).
 
-Not on this slice (raises NotImplementedError naming its ROADMAP item):
-sequence-parallel attention (`seq_impl`).
+`seq_impl` picks the sequence-parallel attention of
+`parallel.megatron` (ring or Ulysses); one device ignores it, as the
+reference's single-device path does.
 """
 from __future__ import annotations
 
@@ -104,20 +105,6 @@ class TransformerConfig:
         return _DTYPES[self.cache_dtype]
 
 
-# fields the reference reads only in code this slice does not port; a
-# non-default value raises instead of being silently ignored
-_UNPORTED_FIELDS = {
-    "seq_impl": ("ring", "seq_impl (sequence-parallel attention) is not "
-                 "ported yet (ROADMAP queue A12)"),
-}
-
-
-def _check_slice(cfg: TransformerConfig) -> None:
-    for name, (default, todo) in _UNPORTED_FIELDS.items():
-        if getattr(cfg, name) != default:
-            raise NotImplementedError(todo)
-
-
 # ---------------------------------------------------------------------------
 # parameters
 # ---------------------------------------------------------------------------
@@ -128,7 +115,6 @@ def init_params(cfg: TransformerConfig, seed: int = 0,
     CPU `torch.Generator` (so CPU and CUDA runs hold the same values)
     and moved to ``device``. Values differ from JAX's init; parity tests
     convert a JAX tree with `models.convert.params_from_numpy`."""
-    _check_slice(cfg)
     dev = resolve_device(device)
     g = torch.Generator(device="cpu").manual_seed(int(seed))
     d, f, L, v = cfg.d_model, cfg.d_ff, cfg.n_layers, cfg.vocab_size
@@ -258,7 +244,6 @@ def block_forward(h, p, cfg: TransformerConfig,
     """One pre-LN block on [B, T, D]; ``return_kv`` also returns the
     block's K/V heads [B, T, H, Dh] (the cache-prefill path);
     ``remat_mlp`` checkpoints just the MLP (remat_policy 'mlp')."""
-    _check_slice(cfg)
     d = cfg.d_model
     x = layer_norm(h, p["ln1g"], p["ln1b"], cfg.eps)
 
@@ -310,7 +295,6 @@ def forward_hidden(cfg: TransformerConfig, params: Params,
     """tokens [B, T] -> final-LN hidden states [B, T, D] (what `loss_fn`
     consumes, so the chunked cross-entropy can fuse the output
     projection into its vocab panels)."""
-    _check_slice(cfg)
     if cfg.remat and cfg.remat_policy not in ("full", "dots", "mlp"):
         raise ValueError(f"unknown remat_policy {cfg.remat_policy!r}: "
                          "expected 'full', 'dots' or 'mlp'")
@@ -442,7 +426,6 @@ def decode_step(cfg: TransformerConfig, params: Params, token,
     """token [B] at position ``pos`` -> (logits [B, V], caches). The
     caches are updated in place and returned (the reference's default
     donation)."""
-    _check_slice(cfg)
     ck_all, cv_all = caches
     pos = int(pos)
     dt = cfg.activation_dtype()
@@ -460,7 +443,6 @@ def decode_step(cfg: TransformerConfig, params: Params, token,
 def prefill(cfg: TransformerConfig, params: Params, prompt):
     """One batched pass over the prompt: last-position logits + filled
     KV caches [L, B, S, D]."""
-    _check_slice(cfg)
     b, t0 = prompt.shape
     h = _embed(cfg, params, prompt)
     ck, cv = init_cache(cfg, b, device=prompt.device)

@@ -77,6 +77,8 @@ class ComputationGraph:
         self._pretrain_counts: Dict[Any, int] = {}
         self._preprocessors: Dict[str, Any] = {}
         self._rnn_carries: Optional[Dict[str, Any]] = None
+        # set by parallel.wrapper.ParallelWrapper (see MultiLayerNetwork)
+        self.grad_sync = None
         self._initialized = False
         self._resolve_shapes()
 
@@ -329,6 +331,8 @@ class ComputationGraph:
         def loss_fn(p):
             return self._loss_fn(p, state, inputs, labels, key, masks)
         score, new_state, grads = value_and_grad(loss_fn, params)
+        if self.grad_sync is not None:
+            score, grads, new_state = self.grad_sync(score, grads, new_state)
         new_params, new_opt = apply_updater(
             self.conf.training, params, grads, opt_state, iteration,
             lr_multipliers=self._lr_multipliers(),
@@ -559,6 +563,8 @@ class ComputationGraph:
 
         score, (new_state, new_carries), grads = value_and_grad(loss_fn,
                                                                 params)
+        if self.grad_sync is not None:
+            score, grads, new_state = self.grad_sync(score, grads, new_state)
         new_params, new_opt = apply_updater(
             self.conf.training, params, grads, opt_state, iteration,
             lr_multipliers=self._lr_multipliers(),

@@ -117,6 +117,9 @@ class MultiLayerNetwork:
         self._rnn_carries: Optional[Dict[str, Any]] = None
         self._solver = None
         self._pretrain_counts: Dict[int, int] = {}
+        # set by parallel.wrapper.ParallelWrapper: (score, grads, state)
+        # -> the same averaged over its data-parallel ranks
+        self.grad_sync = None
         self._initialized = False
 
     # ------------------------------------------------------------------ init
@@ -338,6 +341,8 @@ class MultiLayerNetwork:
         def loss_fn(p):
             return self._loss_fn(p, state, x, y, key, mask)
         score, new_state, grads = value_and_grad(loss_fn, params)
+        if self.grad_sync is not None:
+            score, grads, new_state = self.grad_sync(score, grads, new_state)
         new_params, new_opt = apply_updater(
             self.conf.training, params, grads, opt_state, iteration,
             lr_multipliers=self._lr_multipliers(),
@@ -413,6 +418,8 @@ class MultiLayerNetwork:
 
         score, (new_state, new_carries), grads = value_and_grad(loss_fn,
                                                                 params)
+        if self.grad_sync is not None:
+            score, grads, new_state = self.grad_sync(score, grads, new_state)
         new_params, new_opt = apply_updater(
             self.conf.training, params, grads, opt_state, iteration,
             lr_multipliers=self._lr_multipliers(),

@@ -94,7 +94,7 @@ import torch
 import torch.nn.functional as F
 
 from deeplearning4j_tpu_torch.models.transformer import (
-    _M32, TransformerConfig, _check_sampling, _check_slice, _mix32,
+    _M32, TransformerConfig, _check_sampling, _mix32,
     layer_params, moe_mlp, page_pool_shape, sample_at_positions,
     slot_cache_shape)
 from deeplearning4j_tpu_torch.nn.layers.attention import (
@@ -322,7 +322,6 @@ def init_slot_state(cfg: TransformerConfig, num_slots: int, device,
     ``kv_mode`` ("int8" / "fp8", resolved against ``device``): the
     quantized pool (ck, cv, kscale, vscale, pos, tok) of
     `quant.kv.init_quant_slot_state`."""
-    _check_slice(cfg)
     if resolve_mode(kv_mode, device) is not None:
         return init_quant_slot_state(cfg, num_slots, kv_mode, device)
     dt = cfg.cache_torch_dtype()
@@ -346,7 +345,6 @@ def make_continuous_prefill(cfg: TransformerConfig, bucket_len: int,
     admission semantics; with ``constrain`` an admitted slot's first
     token samples under its start state's allow row and advances it
     (reference :594)."""
-    _check_slice(cfg)
     _check_sampling(top_k, top_p)
     kv_mode = resolve_mode(kv_mode)
     if not 0 < bucket_len <= cfg.max_len:
@@ -401,7 +399,6 @@ def make_continuous_decode(cfg: TransformerConfig, chunk: int,
     module docstring for the per-slot semantics; with ``constrain``
     each step masks by its slot's state and advances it through the
     token an active slot samples."""
-    _check_slice(cfg)
     _check_sampling(top_k, top_p)
     kv_mode = resolve_mode(kv_mode)
     if chunk < 1:
@@ -580,7 +577,6 @@ def make_chunked_prefill(cfg: TransformerConfig, chunk_len: int,
     (chunk_len, num_slots) serves every resume point. With ``constrain``
     only a final chunk's sample is masked into the state
     (`_chunk_first`)."""
-    _check_slice(cfg)
     _check_sampling(top_k, top_p)
     kv_mode = resolve_mode(kv_mode)
     if not 0 < chunk_len <= cfg.max_len:
@@ -793,7 +789,6 @@ def make_speculative_decode(cfg: TransformerConfig, spec_k: int,
     arguments. Either tree may be quantized (`quant.model.draft_tree`).
     ``constrain`` masks the drafts, the verify window and the commit
     (`_spec_round`, reference :2105)."""
-    _check_slice(cfg)
     _check_sampling(top_k, top_p)
     kv_mode = resolve_mode(kv_mode)
     nd = _check_spec(cfg, spec_k, draft_layers)
@@ -877,7 +872,6 @@ def _check_paged(cfg: TransformerConfig, top_k: int, top_p: float,
                  page_size: int, num_pages: int, max_pages: int) -> None:
     """Paged-program validation (reference `_check_paged_mesh`, :1282,
     with no mesh: one device holds every page)."""
-    _check_slice(cfg)
     _check_sampling(top_k, top_p)
     if page_size < 1:
         raise ValueError(f"page_size must be >= 1, got {page_size}")
@@ -899,7 +893,6 @@ def init_paged_state(cfg: TransformerConfig, num_slots: int,
     ``kv_mode`` ("int8" / "fp8", resolved against ``device``): the
     quantized pool (kp, vp, kscale, vscale, pos, tok) of
     `quant.kv.init_paged_quant_state`."""
-    _check_slice(cfg)
     if resolve_mode(kv_mode, device) is not None:
         return init_paged_quant_state(cfg, num_slots, page_size, num_pages,
                                       kv_mode, device)
@@ -1281,7 +1274,6 @@ def make_parallel_generate(cfg: TransformerConfig, max_new_tokens: int,
     (max_new_tokens - 1)`` decode launches). Step i samples every row
     with counter (key, i) after the temperature / top-k / top-p filters;
     temperature <= 0 is greedy."""
-    _check_slice(cfg)
     _check_sampling(top_k, top_p)
     if max_new_tokens < 1:
         raise ValueError(f"max_new_tokens must be >= 1, got "

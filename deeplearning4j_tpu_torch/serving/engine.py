@@ -327,7 +327,6 @@ from deeplearning4j_tpu_torch.observability.profiling import (
 from deeplearning4j_tpu_torch.observability.slo import NULL_SLO, SLOTracker
 from deeplearning4j_tpu_torch.observability.timeline import timeline_json
 from deeplearning4j_tpu_torch.models.transformer import (TransformerConfig,
-                                                         _check_slice,
                                                          params_to)
 from deeplearning4j_tpu_torch.parallel.serving import (
     batch_key, init_paged_state, init_slot_state, make_chain_adopt,
@@ -958,7 +957,6 @@ class InferenceEngine:
                  registry=None, recorder=None, slo=None, profiler=None,
                  clock: Callable[[], float] = time.monotonic,
                  fault_injector=None):
-        _check_slice(cfg)
         self.cfg = cfg
         self.config = config or EngineConfig()
         if self.config.mode not in ("continuous", "batch"):

@@ -25,7 +25,8 @@ same stream).
 Capture: the first call of a key runs eagerly, as the call it is (the
 kernels build and load, cuBLAS sets up); the graph is then captured on a
 side stream into one private memory pool shared by every graph of the
-engine. A kernel wrapper's launch counter counts where the wrapper
+engine, with the cyclic garbage collector run first and held off during
+the capture (a graph it frees mid-capture invalidates the capture). A kernel wrapper's launch counter counts where the wrapper
 launches: the eager call and the capture (which launches into the
 graph). A replay runs the captured kernels without calling a wrapper,
 so it adds to no counter; the engine's ``serving_graph_replays_total``
@@ -42,6 +43,7 @@ turn a healthy engine's one failure into preemptions and quarantines.
 """
 from __future__ import annotations
 
+import gc
 from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
@@ -124,12 +126,23 @@ class SlotGraphs:
         graph = torch.cuda.CUDAGraph()
         cur = torch.cuda.current_stream(self.device)
         self._stream.wait_stream(cur)
-        with torch.cuda.stream(self._stream):
-            graph.capture_begin(pool=self._pool)
-            try:
-                out = fn(*fixed, *static_in, seed)
-            finally:
-                graph.capture_end()
+        # a graph freed inside a capture (a dropped engine's, reached by
+        # the cyclic collector) resets its executable and invalidates the
+        # capture: collect first, and hold the collector off until the
+        # capture ends
+        gc.collect()
+        collecting = gc.isenabled()
+        gc.disable()
+        try:
+            with torch.cuda.stream(self._stream):
+                graph.capture_begin(pool=self._pool)
+                try:
+                    out = fn(*fixed, *static_in, seed)
+                finally:
+                    graph.capture_end()
+        finally:
+            if collecting:
+                gc.enable()
         cur.wait_stream(self._stream)
         state = [x for x in fixed if isinstance(x, torch.Tensor)]
         if any(a is not b for a, b in zip(out, state)):

@@ -812,6 +812,63 @@ def test_failed_graph_capture_is_not_retried(make, pipeline, monkeypatch):
                        "preempted"), 0)
 
 
+def test_graph_capture_runs_with_the_collector_off(monkeypatch):
+    """A CUDA graph freed during another's capture invalidates it (seen
+    on the card: a dropped engine's graph reached by the cyclic
+    collector mid-capture). `_capture` collects first and holds the
+    collector off while it captures; torch.cuda's graph, stream and pool
+    are stand-ins here, on the CPU."""
+    import gc
+    import weakref
+    from deeplearning4j_tpu_torch.serving import graphs
+
+    class Stub:
+        def __init__(self, *a, **kw):
+            pass
+
+        def capture_begin(self, pool=None):
+            pass
+
+        def capture_end(self):
+            pass
+
+        def wait_stream(self, other):
+            pass
+
+        def __enter__(self):
+            return self
+
+        def __exit__(self, *exc):
+            return False
+
+    for name, value in (("CUDAGraph", Stub), ("Stream", Stub),
+                        ("graph_pool_handle", lambda: object()),
+                        ("current_stream", lambda d=None: Stub()),
+                        ("stream", lambda s: Stub()),
+                        ("memory_reserved", lambda d=None: 0)):
+        monkeypatch.setattr(torch.cuda, name, value)
+
+    class Cycle:
+        pass
+    c = Cycle()
+    c.me = c
+    dead = weakref.ref(c)
+    del c
+    seen = {}
+    pool = torch.zeros(2)
+
+    def program(state, x, seed):
+        seen.update(collecting=gc.isenabled(), freed=dead() is None)
+        return (state,)
+
+    sg = graphs.SlotGraphs(torch.device("cpu"), _Counter(), _Counter(),
+                           _Counter())
+    assert gc.isenabled()
+    sg._capture(program, (pool,), (torch.ones(1),), 0)
+    assert seen == {"collecting": False, "freed": True}
+    assert gc.isenabled()
+
+
 def test_serving_loops_script_draws_phase_3_traffic(monkeypatch):
     """benchmarks/serving_loops.py (the guard's cost beside the parent,
     on the card) serves phase 3's 128 requests and, without a card,

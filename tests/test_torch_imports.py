@@ -228,3 +228,53 @@ def test_observability_modules_are_checked():
     for name in jax_mods:
         assert f"deeplearning4j_tpu_torch/observability/{name}" in names
     assert "deeplearning4j_tpu_torch/util/flops.py" in names
+
+
+PARALLEL = tuple(f"deeplearning4j_tpu_torch.parallel.{m}" for m in (
+    "multihost", "mesh", "collectives", "ring", "ulysses", "megatron",
+    "fsdp", "wrapper", "magicqueue", "main"))
+
+
+def test_parallel_modules_are_checked():
+    """Every module of the parallel runtime is among the files the
+    import rule parses."""
+    names = {str(p.relative_to(ROOT)) for p in _port_files()}
+    for m in PARALLEL + ("deeplearning4j_tpu_torch.benchmarks.gloo_probe",):
+        assert m.replace(".", "/") + ".py" in names, m
+
+
+def test_parallel_modules_load_no_jax():
+    """Importing the parallel runtime (and the package's lazy exports)
+    in a fresh interpreter loads no jax and nothing of the JAX
+    package."""
+    import subprocess
+    import sys
+    code = ("import sys\n"
+            + "".join(f"import {m}\n" for m in PARALLEL)
+            + "from deeplearning4j_tpu_torch.parallel import (MeshSpec, "
+              "ParallelWrapper, MultiHostLauncher, ring_attention)\n"
+              "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+              "('jax', 'jaxlib', 'deeplearning4j_tpu'))\n"
+              "print(bad)\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"
+
+
+def test_parallel_entry_points_raise_without_cuda(monkeypatch):
+    """The launcher, the mesh and the single-device step run on CUDA
+    unless the caller asks for the CPU."""
+    from deeplearning4j_tpu_torch.models.transformer import \
+        TransformerConfig
+    from deeplearning4j_tpu_torch.parallel import fsdp, mesh, multihost
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setattr(multihost, "_DEVICE", None)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        multihost.MultiHostLauncher(2)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        mesh.make_mesh(mesh.MeshSpec())
+    with pytest.raises(RuntimeError, match="CUDA"):
+        fsdp.make_fsdp_train_step(TransformerConfig())
+    assert mesh.make_mesh(mesh.MeshSpec(), device="cpu").device.type == \
+        "cpu"

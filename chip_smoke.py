@@ -5,7 +5,8 @@
 
 Drives the port's serving path (plain, speculative, paged with the
 prefix cache, chunked prefill, grammar-constrained, mixture of experts),
-its train step (dense and MoE), the GravesLSTM char-RNN's
+its train step (dense and MoE), its training parallelism and elastic
+training over worker processes, the GravesLSTM char-RNN's
 training through MultiLayerNetwork, the DSL's CNN training path (LeNet,
 VGG16-CIFAR, a DSL transformer, the training tools), the DAG runtime
 (ComputationGraph: ResNet-50, the char-RNN and attention as graphs,
@@ -169,7 +170,7 @@ two kernel experiments on the card and fails (non-zero exit, no result line) if 
    requests of 64 new tokens (96 open with one 512-token system prompt
    and a page-aligned suffix of 16-512 tokens, 32 unshared of 16-1024),
    then 32 of them again; the first wave on the contiguous pool; the
-   same 32 cold (prefix cache off); the first wave's first 64 with
+   same 32 cold (prefix cache off); the first wave's first 32 with
    prefill_chunk 256 and the default budget; paged spec (K=7,
    "layers:1") against paged plain on 3b's aligned tree, token-exact.
    Every request answered and well formed; launches exact (phase 3's accounting; flash_fwd
@@ -224,7 +225,7 @@ two kernel experiments on the card and fails (non-zero exit, no result line) if 
    unconstrained requests ≡ (a)'s unconstrained pass; (d) 3b's aligned
    tree, spec (K 7, "layers:1") ≡ plain, constrained by ``[ab]+`` and by
    the schema, on the synchronous loop; (e) 3c's paged traffic with
-   ``[ab]+``, the chunk-256 pool on the first 48 requests of its first
+   ``[ab]+``, the chunk-256 pool on the first 24 requests of its first
    wave and the int8-KV paged pool on phase 3's, each pipelined ≡ its
    synchronous loop; paged and chunked ≡ the contiguous one-shot engine
    (another prefill path, equal on this traffic); int8 paged against
@@ -360,7 +361,7 @@ two kernel experiments on the card and fails (non-zero exit, no result line) if 
    (a) Four fresh processes (`phase_3k_child`, this script with
    ``--3k-child``), each on its own copy of deeplearning4j_tpu_torch/ in
    a temp directory, so its build directory starts empty, sharing one
-   ``compile_cache_dir``: ``warmup_on_init=True`` and 16 requests of 32
+   ``compile_cache_dir``: ``warmup_on_init=True`` and 8 requests of 16
    tokens. Cold (empty cache): nvcc runs once for each serving source
    (flash_fwd, decode_attention) and nothing else, every warm-up program
    ``jit``. Warm: zero nvcc runs, every library from the cache, every
@@ -380,7 +381,7 @@ two kernel experiments on the card and fails (non-zero exit, no result line) if 
    unbounded cache, in the synchronous and the pipelined loop: equal
    tokens, evictions counted, a capture for every resolution of a
    graphed key (more than the 4 of the unbounded engine). (d) Handoffs
-   of 16 requests through kvwire frames (4 tokens, then 28 on the
+   of 8 requests through kvwire frames (4 tokens, then 28 on the
    adopter): paged bf16 (a pipelined exporter, its pending tick flushed
    by the export; one frame through a `WireServer` on localhost), paged
    int8, and float32 contiguous -> paged (16 slots); each adopter
@@ -393,14 +394,15 @@ two kernel experiments on the card and fails (non-zero exit, no result line) if 
    phase alone.
 3l. The fleet at full width (`phase_fleet_full_width`; phase 3's bf16
    flagship and traffic, weights from seed 0). (a) A `serving.fleet.
-   Router` over two in-process 64-slot replicas, 128 requests of 64
+   Router` over two in-process 64-slot replicas, 64 requests of 64
    tokens: tokens equal a single 64-slot engine's, launches exact over
    both engines; fleet and single tokens/s in turns (S F) and the
    router's host ms a tick; the same fleet driven by `Router.start()`'s
    thread with HTTP probes while this thread polls every replica's
    /healthz and /debugz (launches still exact: the handlers launch
    nothing); a spec pair (K 7, "layers:1", the aligned tree) equal to
-   plain; `kill_at` mid-decode: all 128 complete, failovers, one
+   plain; `kill_at` mid-decode under the 64 prompts twice: all 128
+   complete, failovers, one
    restart, `torch.cuda.memory_allocated` after the restart within one
    KV pool of its level before the kill (the dead engine is dropped
    once its device work ended), the bf16 token-equal share and the
@@ -417,7 +419,7 @@ two kernel experiments on the card and fails (non-zero exit, no result line) if 
    replicas, every handoff ok with its bytes equal to
    `quant.kv.handoff_bytes`, launches exact, export and adopt ms a
    request: a chunked (256) prefill tier beside one chunked paged
-   engine on the first 64 requests (bf16 tokens round by their calls, and this tier batches its
+   engine on the first 32 requests (bf16 tokens round by their calls, and this tier batches its
    chunks and evicts cached prefixes unlike the single engine, whose
    budget also carries decode: the token-equal and first-token shares
    are printed, TTFT beside a prefill-only engine); a one-shot paged
@@ -432,7 +434,7 @@ two kernel experiments on the card and fails (non-zero exit, no result line) if 
    two serve phase 3's first 32 requests over the pipes, probed over
    HTTP, equal to the in-process engine; one is SIGKILLed mid-decode,
    all complete and it stays dead under ``max_restarts=0``; a one-shot
-   paged prefill worker hands 16 shared-prefix requests to a decode
+   paged prefill worker hands 8 shared-prefix requests to a decode
    worker as kvwire frames through the pipes, token-equal to (c)'s
    single paged engine, with frame bytes and export / wire / adopt ms a
    request; a SIGSTOPped worker is detected and failed over. `--only
@@ -474,14 +476,71 @@ two kernel experiments on the card and fails (non-zero exit, no result line) if 
    rank but ring's. (b) Phase 4b's flagship step (12L / 512d / 8H,
    V=256, T=2048, global B=16, bf16, remat 'full', the same seeded
    params and tokens) on {data=2, model=2} and on {seq=2, model=2} with
-   Ulysses: one warm step, 3 timed, one with the collectives
+   Ulysses: one warm step, 2 timed, one with the collectives
    synchronised for their own seconds; the first loss within 2^-7
    relative of 4b's, the same on every rank, data replicas bit-equal
    (digests), 2 L flash forward and L backward launches a rank a step.
    Prints ms a step, global tokens/s, the bf16-peak share of one card,
    collective and host-staged bytes and seconds a rank a step, peak
    memory a rank. Four ranks on one card measure the communication
-   layer; no speed is claimed.
+   layer; no speed is claimed. (c) In the same start of the ranks:
+   `scaleout.SparkDl4jMultiLayer` over a
+   `ParameterAveragingTrainingMaster` of the four ranks (8 rows a rank
+   of each global batch of 32, phase stats on) fits tests/
+   test_scaleout.py's float32 MLP (8 -> 16 tanh -> 3 softmax, SGD 0.1)
+   on the card over 64 seeded rows: every rank's params within 1e-5 of
+   one process's plain `fit` on the same global batches, the wrapper on
+   4 workers, the stats' `fit` phase counted once a global batch.
+4e. Elastic ZeRO-1 training over worker processes
+   (`phase_elastic_training`; `--only 4e` runs the build and this phase
+   alone): `train.elastic.ElasticCoordinator` in this process, its
+   workers (`python -m deeplearning4j_tpu_torch.train.elastic_worker`)
+   on the card beside it, JSON lines and base64 float32 on the pipes,
+   deterministic algorithms on (``CUBLAS_WORKSPACE_CONFIG`` is set
+   before the first GEMM of this process and of every worker). Every
+   hello: no jax, a CUDA device, no nvcc run (the coordinator built the
+   flash libraries); every live worker's pong: its shard's bytes are
+   3 * 4 * (hi - lo) of `zero1_partition`, and its flash launches are
+   exactly the per-call count times its gradient calls (the warm-up
+   among them). Worker starts dominate the phase (each imports torch and
+   sets up the card, and starts at once slow each other), so the
+   narrow fleets start together, the narrow steady arm's whole fit and
+   the oracles beside them; the flagship fleet starts beside (a)'s churn
+   arm; then (a)'s loose arm and (b) run alone.
+   (a) float32 at 4d (a)'s width, 2 layers (vocab 50, d 128, 4 heads,
+   T 32), 3 workers, 6 microbatches of 4 rows, checkpoint every 2
+   steps: `ElasticTrainingMaster.fit` over 16 steps (steady); one
+   coordinator over 16 steps through worker 2 leaving at step 2
+   (`remove_worker`), worker 1 killed at 3, worker 3 joining at 5
+   (`add_worker`: the kill's replacement and the grow) and worker 0
+   SIGSTOPped at 12, loose at its first missed 4 s barrier and evicted
+   past a stale bound of 2; both bit-equal (losses and final flat
+   params) to `reference_run` on the card, zero lost steps, the churn
+   replaying from two checkpoints (evictions "leave" then
+   "stale_bound", 1 worker left); the steady losses within 1e-4
+   of `reference_run` on the CPU over 8 steps. Then 8 steps with a 1.2
+   s step barrier (a narrow step of three workers takes 0.3-0.4 s) and
+   worker 1 slowed for step 2 by 0.5 / 0.15 of it (JAX's ratio): loose
+   sync entered, then a resync, no step lost, 3 workers. (b) The
+   flagship of 4b (512d / 8H, V=256, T=2048, bf16, remat 'full', Adam
+   lr 1e-3) cut to `E4_FULL_LAYERS` layers (printed; the JSON wire of
+   the reference moves ~1.9 GB a step at 12 layers, 36 s a step on
+   this host), three workers, 4 microbatches of 4 rows (global batch
+   16), checkpoint every 2 steps, barriers of 120 s: steady (one step
+   untimed, 4 timed, nothing else running), then on the same fleet the
+   kill arm (worker 1 at step 7, a replacement at step 8, 5 steps),
+   bit-equal to one `reference_run` of 10 steps on the card (steady:
+   its first 5 losses; kill: its losses and final params), losses
+   finite and falling, 2 L flash forward and L backward launches a gradient call
+   in every worker. Prints fleet tokens/s and ms a step with the
+   bf16-peak share of 4b's formula, the coordinator's wire bytes and
+   seconds a step (JSON, base64, pipe writes), checkpoint seconds, the
+   resize barrier (kill detected -> resharded, flight-recorder
+   timestamps), the kill arm's recovery overhead against steady,
+   per-worker updater bytes beside replicated, and every process's
+   peak device memory. One card: the numbers measure the host path; no
+   speed is claimed. Every 4e line
+   carries the card's name and power limit.
 5a. The fused LSTM-scan kernel vs its plain twin: the char-RNN's shapes
    (B=1024, T=64, H=200; xw from layer 1's one-hot V=80 input and from
    layer 2's H=200 input) in bf16 and float32, reversed sequences, B=5,
@@ -596,11 +655,19 @@ two kernel experiments on the card and fails (non-zero exit, no result line) if 
    line of the graph replays of every gated run and of the serving
    device functions' launches in the profiled ticks' traces; the run's
    wall time, the MoE phases', the rest's, phase 3h's, 3i's, 3j's, 3k's,
-   3l's, 4d's, 5d's, 5e's and 5f's (`wall`, `fleet_phase_s`,
-   `parallel_phase_s`, `dsl_cnn_phase_s`, `dag_phase_s`,
-   `keras_import_phase_s`);
+   3l's, 4d's, 4e's, 5d's, 5e's and 5f's (`wall`, `fleet_phase_s`,
+   `parallel_phase_s`, `elastic_phase_s`, `dsl_cnn_phase_s`,
+   `dag_phase_s`, `keras_import_phase_s`), and the seconds from the
+   start at each block's end (`block_ends_s`: build, 1-2f, 3-3g, 3h-3l,
+   4a-4e, 5a-5c, 5d-5f, 6) with the threads then alive beside the main
+   one (`threads_at_block_ends`); every phase's and run's line carries
+   `t_s`, the seconds since the script started. Between phases the
+   script collects and freezes what survives (`settle`), so a later
+   collection (each graph capture starts with one) scans only the new
+   phase's objects;
    one `kernels` JSON line (decode_attention_q and decode_window_q among
-   them; `launches` the wrappers' counts, 3j's included,
+   them; `launches` the wrappers' counts, 3j's included, flash_fwd's and
+   flash_bwd's with 4e's live workers' (from their pongs),
    `device_launches_profiled`
    the traces' count of the device function the kernel runs), the
    card's name and power limit, then the last line
@@ -633,8 +700,23 @@ def fail(msg: str) -> None:
     sys.exit(1)
 
 
+T_START = time.perf_counter()
+
+
 def line(obj) -> None:
+    """One JSON line; a phase's or a run's carries ``t_s``, the seconds
+    since the script started."""
+    if "phase" in obj or "run" in obj:
+        obj = dict(obj, t_s=time.perf_counter() - T_START)
     print(json.dumps(obj), flush=True)
+
+
+def settle() -> None:
+    """Between phases: collect, then freeze what survives, so that later
+    collections (each CUDA graph capture starts with one) scan only what
+    the next phases make."""
+    gc.collect()
+    gc.freeze()
 
 
 def time_ms(fn, iters: int = 10, warmup: int = 2) -> float:
@@ -817,9 +899,10 @@ TC_KERNELS = ("flash_fwd_tc_kernel", "flash_bwd_dkdv_tc_kernel",
               "decode_rows_tc_kernel", "lstm_scan_tc_kernel")
 
 
-def build_report(name: str):
+def build_report(name: str, mma: dict):
     """One line for a redesigned library: each kernel instance's ptxas
-    registers and spills and its HMMA / HGMMA count in the SASS. Fails if
+    registers and spills and its HMMA / HGMMA count in the SASS (``mma``,
+    `_build.sass_mma_counts`). Fails if
     a bf16 instance of a tensor-core kernel has no HMMA, or if a
     half-precision Dh-64 instance (the main path's) or a bf16
     lstm_scan_tc_kernel instance or a Dh-64 quantized-cache instance
@@ -827,7 +910,6 @@ def build_report(name: str):
     import re
     from deeplearning4j_tpu_torch.ops import _build
     regs = _build.ptxas_report(name)
-    mma = _build.sass_mma_counts(name)
     rows = []
     for fn, st in regs.items():
         if "kernel" not in fn:
@@ -1557,7 +1639,7 @@ def phase_paged_full_width(torch, dev, contiguous_ms_per_step):
     prompt and a page-aligned suffix of 16-512 tokens, 32 unshared of
     16-1024), then 32 of them again (prefix hits, copy-on-write); the
     first wave on the contiguous pool; the same 32 cold (prefix cache
-    off); the first wave's first 64 with prefill_chunk 256 and the
+    off); the first wave's first 32 with prefill_chunk 256 and the
     default budget;
     then paged spec (K=7, "layers:1") against paged plain on phase 3b's
     aligned tree, token-exact. Gates: every request answered and well
@@ -1663,8 +1745,9 @@ def phase_paged_full_width(torch, dev, contiguous_ms_per_step):
               hit_prefill_s=counts[1]["prefill_s"],
               saved_s=cold[0]["prefill_s"] - counts[1]["prefill_s"]))
     del contiguous
-    # the chunked arm on the first half (chunk-256 prefill is host-bound)
-    chunked_first = first[:64]
+    # the chunked arm on the first quarter (chunk-256 prefill is
+    # host-bound)
+    chunked_first = first[:32]
     _, chunked_out, _ = arm("chunked", params, [chunked_first],
                             prefill_chunk=256)
     _, plain, _ = arm("paged_aligned_plain", aligned, [first])
@@ -2511,7 +2594,7 @@ def phase_constrained_full_width(torch, dev, sync):
 
     # (e) the paged, chunked and int8-KV paged pools, each pipelined ≡ its
     # synchronous loop; how many requests differ from contiguous one-shot
-    # 3c's paged waves; its first wave's first 48 requests on the
+    # 3c's paged waves; its first wave's first 24 requests on the
     # chunk-256 pool (a pass of the whole wave takes 14 s there)
     first, again = sync["paged"][0]
     contiguous = engine()
@@ -2520,8 +2603,8 @@ def phase_constrained_full_width(torch, dev, sync):
     del contiguous
     for name, waves_e, kw, ref_out in (
             ("paged", [first, again], paged, one_shot),
-            ("chunked", [first[:48]], dict(paged, prefill_chunk=256),
-             [one_shot[0][:48]]),
+            ("chunked", [first[:24]], dict(paged, prefill_chunk=256),
+             [one_shot[0][:24]]),
             ("int8_paged", [prompts], dict(paged, kv_quantize="int8"), None)):
         if ref_out is None:
             ref_out = run("int8_contiguous", engine(kv_quantize="int8",
@@ -5079,7 +5162,7 @@ def phase_engine_control_full_width(torch, dev):
 # ---------------------------------------------------------------------------
 
 K3_CHILD = "--3k-child"
-K3_REQUESTS, K3_NEW = 16, 32
+K3_REQUESTS, K3_NEW = 8, 16
 
 
 def k3_config(tf, dtype="bfloat16"):
@@ -5097,7 +5180,7 @@ def phase_3k_child(root: str, cache_dir: str) -> int:
     """One fresh process of phase 3k (a), importing the port from the copy
     at ``root`` (so its build directory, ``root/build/torch_kernels``,
     starts empty): phase 3's bf16 engine with ``compile_cache_dir`` and
-    ``warmup_on_init``, 16 requests, ticked until the first token, then
+    ``warmup_on_init``, 8 requests, ticked until the first token, then
     drained. The zero-failure gate (`install_zero_fault_gate`) is put on
     this process's own engine class, which is not the parent's: a
     failed program call or an isolation ends the child at once, and
@@ -5792,13 +5875,15 @@ def l3_flat_fleet(torch, dev, cfg, params, prompts, want, add):
                 "kv_pool_bytes"]
             mem["t_kill"] = time.perf_counter()
     zero_launches()
-    hs = [r.submit(p) for p in prompts]
+    # the 64 prompts twice: the restarted replica still takes work (and
+    # holds its pool) when the fleet drains
+    hs = [r.submit(p) for p in prompts + prompts]
     l3_drive(r, "(a) kill", before_tick=before_tick)
     torch.cuda.synchronize()
     t_done = time.perf_counter()
     add(read_launches())
     mem["after"] = torch.cuda.memory_allocated()
-    share = l3_outcome(hs, want, "(a) kill", gate_equal=False)
+    share = l3_outcome(hs, want + want, "(a) kill", gate_equal=False)
     st = r.stats
     rec_h = r.registry.get("serving_fleet_recovery_seconds").labels()
     _, rec_sum, rec_n = rec_h.snapshot()
@@ -6016,9 +6101,9 @@ def l3_tiers(torch, dev, cfg, params, add):
     L = cfg.n_layers
     rng = np.random.default_rng(0)
     first = paged_traffic(rng, 96, 32, 512, (16, 512), (16, 1024))
-    # the chunked arms on the first half (chunk-256 prefill is
+    # the chunked arms on the first quarter (chunk-256 prefill is
     # host-bound); the same-calls arms on all of it
-    half = first[:64]
+    half = first[:32]
     want, wall_single, got, info0 = l3_single(torch, cfg, params, dev,
                                               L3_PREFILL, half)
     add(got)
@@ -6133,7 +6218,8 @@ def l3_tiers(torch, dev, cfg, params, add):
     line(rec)
 
     # autoscale: an 8-slot decode tier scales up under 32 requests and
-    # back down; the prefill tier scales to zero, then cold-starts
+    # back down; the prefill tier scales to zero, then cold-starts (the
+    # burst's last request again: the chunked references hold 32)
     a = first[:32]
     r = tiered(L3_PREFILL, dict(L3_DECODE, num_slots=8,
                                 kv_pages=8 * 128 + 1), n_decode=1,
@@ -6155,12 +6241,12 @@ def l3_tiers(torch, dev, cfg, params, add):
         time.sleep(0.02)
     zero_state = [c.state() for c in r._tier_ctls("prefill")]
     t0 = time.perf_counter()
-    cold = r.submit(first[40])
+    cold = r.submit(first[31])
     l3_drive(r, "(c) cold start")
     cold_wall = time.perf_counter() - t0
     add(read_launches())
     share = l3_outcome(hs, want[:32], "(c) autoscale", gate_equal=False)
-    l3_outcome([cold], [want[40]], "(c) cold start", gate_equal=False)
+    l3_outcome([cold], [want[31]], "(c) cold start", gate_equal=False)
     log = r.autoscale_log
     dirs = [(e["tier"], e["direction"]) for e in log]
     if not (("decode", "up") in dirs and ("decode", "down") in dirs
@@ -6211,7 +6297,7 @@ def l3_subprocess(torch, prompts, want, shared, shared_want):
     base = {"cfg": L3_CFG, "params_seed": 0, "device": "cuda",
             "progress_interval_s": 0.02}
     # the tier workers admit what the pipe delivered within a 50 ms
-    # window, so the prefill worker seats the 16 requests as one wave, as
+    # window, so the prefill worker seats the 8 requests as one wave, as
     # the single one-shot paged engine of the reference does
     # the plain pair warms up before its hello (flash_fwd and
     # decode_attention loaded, from the build directory); a paged
@@ -6286,7 +6372,7 @@ def l3_subprocess(torch, prompts, want, shared, shared_want):
                   dead_stays_dead=True))
         # a subprocess prefill tier -> a subprocess decode tier: KV as
         # kvwire frames through the pipes
-        tp = shared[:16]
+        tp = shared[:8]
         r = TieredRouter(replicas=reps[2:], tiers=["prefill", "decode"],
                          config=FleetConfig(hang_min_s=30.0))
         hs = [r.submit(p, max_new_tokens=64) for p in tp]
@@ -6320,7 +6406,7 @@ def l3_subprocess(torch, prompts, want, shared, shared_want):
         r = Router(replicas=reps[2:],
                    config=FleetConfig(max_restarts=0, hang_ticks=2,
                                       hang_min_s=3.0))
-        hs = [r.submit(p, max_new_tokens=64) for p in sp[:16]]
+        hs = [r.submit(p, max_new_tokens=64) for p in sp[:8]]
         deadline = time.monotonic() + L3_WAIT_S
         while not r._ctls[1].outstanding:
             if time.monotonic() > deadline:
@@ -6352,10 +6438,10 @@ def phase_fleet_full_width(torch, dev):
     Returns the wrappers' launches by kernel."""
     from deeplearning4j_tpu_torch.models import transformer as tf
     cfg = tf.TransformerConfig(**L3_CFG)
-    rng = np.random.default_rng(0)                 # phase 3's traffic
+    rng = np.random.default_rng(0)      # phase 3's traffic, first half
     lens = rng.integers(16, 1025, size=128)
     prompts = [rng.integers(0, 256, size=int(n)).astype(np.int32)
-               for n in lens]
+               for n in lens][:64]
     params = tf.init_params(cfg, seed=0, device=dev)
     totals = {k: 0 for k in launch_counters()}
 
@@ -6682,13 +6768,51 @@ def d4_full_rank(axes, seq_impl, shape, timed_steps=3):
 
 D4_FULL = (("dp-tp", dict(data=2, model=2), "ring"),
            ("sp-tp-ulysses", dict(seq=2, model=2), "ulysses"))
+# 4d (c): the scaleout facade's narrow MLP (tests/test_scaleout.py's
+# `_make_net`), float32, over 64 rows in global batches of 32
+D4_MLP_ROWS, D4_MLP_BATCH = 64, 32
 
 
-def d4_rank(params_np, toks, tgts, shape, timed_steps):
-    """Phase 4d on one rank, in one start of the four ranks: (a), then
-    (b) on each mesh of D4_FULL."""
+def d4_mlp():
+    from deeplearning4j_tpu_torch.nn.conf.configuration import \
+        NeuralNetConfiguration
+    from deeplearning4j_tpu_torch.nn.layers.feedforward import DenseLayer
+    from deeplearning4j_tpu_torch.nn.layers.output import OutputLayer
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+    conf = NeuralNetConfiguration(
+        seed=7, updater="sgd", learning_rate=0.1, dropout=0.0).list(
+        DenseLayer(n_in=8, n_out=16, activation="tanh"),
+        OutputLayer(n_out=3, activation="softmax", loss_function="mcxent"))
+    return MultiLayerNetwork(conf).init()
+
+
+def d4_scaleout_rank(x, y):
+    """4d (c) on one rank: `SparkDl4jMultiLayer` over a
+    `ParameterAveragingTrainingMaster` of the four ranks (8 rows a rank
+    of each global batch of 32), with its phase stats."""
+    import torch.distributed as dist
+    from deeplearning4j_tpu_torch.scaleout import (
+        ParameterAveragingTrainingMaster, SparkDl4jMultiLayer)
+    net = d4_mlp()
+    tm = (ParameterAveragingTrainingMaster.Builder(
+        batch_size_per_worker=D4_MLP_BATCH // dist.get_world_size())
+        .workers(dist.get_world_size()).collect_training_stats(True)
+        .build())
+    sp = SparkDl4jMultiLayer(net, tm)
+    t0 = time.perf_counter()
+    sp.fit(x, y)
+    return dict(params=net.params_flat().float().cpu().numpy(),
+                stats=sp.stats.as_dict(), workers=sp.pw.workers,
+                device=str(net.device), fit_s=time.perf_counter() - t0,
+                iterations=net.iteration_count)
+
+
+def d4_rank(params_np, toks, tgts, shape, timed_steps, mlp_xy):
+    """Phase 4d on one rank, in one start of the four ranks: (a), (c),
+    then (b) on each mesh of D4_FULL."""
     import torch
     narrow = d4_narrow_rank(params_np, toks, tgts)
+    scaleout = d4_scaleout_rank(*mlp_xy)
     full = {}
     for name, axes, impl in D4_FULL:
         t0 = time.perf_counter()
@@ -6697,7 +6821,7 @@ def d4_rank(params_np, toks, tgts, shape, timed_steps):
         gc.collect()
         if torch.cuda.is_available():
             torch.cuda.empty_cache()
-    return dict(narrow=narrow, full=full)
+    return dict(narrow=narrow, full=full, scaleout=scaleout)
 
 
 def d4_replicas_equal(ranks, specs):
@@ -6784,11 +6908,19 @@ def phase_parallel_training(torch, dev):
         ref = float(ref)
         del p
         torch.cuda.empty_cache()
-    timed_steps = 3
+    # (c)'s data and one rank's plain fit on the same global batches
+    mrng = np.random.default_rng(0)
+    mx = mrng.normal(size=(D4_MLP_ROWS, 8)).astype(np.float32)
+    my = np.eye(3, dtype=np.float32)[mrng.integers(0, 3, D4_MLP_ROWS)]
+    single = d4_mlp()
+    for i in range(0, D4_MLP_ROWS, D4_MLP_BATCH):
+        single.fit(mx[i:i + D4_MLP_BATCH], my[i:i + D4_MLP_BATCH])
+    single = single.params_flat().float().cpu().numpy()
+    timed_steps = 2
     t0 = time.perf_counter()
     out = launcher.run(d4_rank, timeout=400,
                        args=(params_np, toks, tgts, FLAGSHIP_TRAIN,
-                             timed_steps))
+                             timed_steps, (mx, my)))
     launch_s = time.perf_counter() - t0
     res = [r["narrow"] for r in out]
     if any(r["nvcc_runs"] for r in res):
@@ -6839,6 +6971,23 @@ def phase_parallel_training(torch, dev):
             if not all(f[0] > 0 and f[1] > 0 for f in flash):
                 fail(f"4d (a) {name}: flash not launched on every rank "
                      f"{flash}")
+    # (c) the scaleout facade on the four ranks against one rank's fit
+    sc = [r["scaleout"] for r in out]
+    sc_err = max(float(np.abs(r["params"] - single).max()) for r in sc)
+    line(dict(phase="4d", part="c", card=CARD,
+              facade="SparkDl4jMultiLayer(ParameterAveragingTrainingMaster"
+              f"(workers={D4_RANKS}))", rows=D4_MLP_ROWS,
+              global_batch=D4_MLP_BATCH, devices=[r["device"] for r in sc],
+              workers=[r["workers"] for r in sc],
+              iterations=[r["iterations"] for r in sc],
+              param_max_abs_err=sc_err, param_tol=1e-5,
+              stats=sc[0]["stats"], fit_s=[r["fit_s"] for r in sc]))
+    if not (sc_err <= 1e-5 and all(r["workers"] == D4_RANKS for r in sc)
+            and all(r["stats"].get("fit", {}).get("count", 0)
+                    == D4_MLP_ROWS // D4_MLP_BATCH for r in sc)
+            and all(r["device"].startswith("cuda") for r in sc)):
+        fail(f"4d (c): params {sc_err} from one rank's fit, workers "
+             f"{[r['workers'] for r in sc]}, stats {sc[0]['stats']}")
     # (b) full width: the flagship step on {data=2, model=2} and on
     # {seq=2, model=2} with Ulysses
     launches = {"flash_fwd": 0, "flash_bwd": 0}
@@ -6897,6 +7046,496 @@ def phase_parallel_training(torch, dev):
         launches["flash_bwd"] += sum(bwd)
     line(dict(phase="4d", run="summary", launch_s=launch_s,
               phase_s=time.perf_counter() - t_phase, launches=launches))
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# phase 4e: elastic ZeRO-1 training over worker processes
+# ---------------------------------------------------------------------------
+
+# 4e (a): 4d (a)'s narrow width (head dim 32) at 2 layers, float32
+E4_NARROW = dict(vocab_size=50, d_model=128, n_heads=4, n_layers=2,
+                 max_len=32, dtype="float32")
+# 4e (b): the flagship of 4b; its depth is the one knob the budget may cut
+E4_FULL_LAYERS = 1
+# 4e (a)'s loose arm: JAX's slowdown against its step barrier (0.5 s
+# against 0.15 s) scaled to the card, where a narrow step of three
+# workers takes 0.3-0.4 s (one H100, workers sharing it)
+E4_LOOSE_BARRIER_S = 1.2
+E4_LOOSE_SLOW_S = E4_LOOSE_BARRIER_S * 0.5 / 0.15
+# 4e (a)'s trajectory through kill, shrink, grow and hang, and the step
+# barrier that times its hung worker out
+E4_CHURN_STEPS, E4_CHURN_BARRIER_S = 16, 4.0
+# 4e (b): microbatches a step, rows a microbatch, steps a run
+E4_FULL_MB, E4_FULL_ROWS, E4_FULL_STEPS = 4, 4, 5
+E4_WIRE_KEYS = ("sent_bytes", "recv_bytes", "encode_s", "decode_s",
+                "send_s", "write_s", "parse_s")
+
+
+def e4_line(**rec):
+    line(dict(phase="4e", card=CARD, **rec))
+
+
+def e4_pongs(co, timeout_s=120.0):
+    """Every live worker's pong (its launch counts, grad calls, shard
+    bytes and peak device memory)."""
+    for w in co.workers.values():
+        w.send({"op": "ping"})
+    out = {}
+    deadline = time.perf_counter() + timeout_s
+    while len(out) < len(co.workers):
+        for wid, w in co.workers.items():
+            m = w.take(lambda x: x.get("ev") == "pong")
+            if m is not None:
+                out[wid] = m
+        if time.perf_counter() > deadline:
+            fail(f"4e: pongs from {sorted(out)} of {sorted(co.workers)}")
+        time.sleep(0.005)
+    return out
+
+
+def e4_acts(rec):
+    return [e.data.get("action") for e in rec.recent(kind="elastic")]
+
+
+def e4_snapshot(co):
+    """The live workers' hellos and shard bounds (a closed coordinator
+    holds no workers)."""
+    return {"hellos": {wid: w.hello for wid, w in co.workers.items()},
+            "shards": {wid: (lo, hi) for wid, lo, hi in co.shards}}
+
+
+def e4_worker_gates(where, snap, out, pongs, fwd_per_call, bwd_per_call):
+    """Each live worker: a hello with no jax, a CUDA device and no nvcc
+    run; its shard bytes 3 * 4 * (hi - lo); its flash launches exactly
+    the per-call counts times its gradient calls (the warm-up among
+    them). Returns the workers' launches by kernel."""
+    from deeplearning4j_tpu_torch.parallel.fsdp import zero1_partition
+    bounds = snap["shards"]
+    want_state = sorted(3 * 4 * (hi - lo) for lo, hi in zero1_partition(
+        out["n_params"], len(bounds)))
+    got = {"flash_fwd": 0, "flash_bwd": 0}
+    bad = []
+    if sorted(bounds) != sorted(pongs):
+        bad.append(f"pongs from {sorted(pongs)}, shards {bounds}")
+    for wid, h in sorted(snap["hellos"].items()):
+        p = pongs[wid]
+        lo, hi = bounds[wid]
+        calls = p["grad_calls"]
+        if h.get("jax_loaded") is not False or \
+                not str(h.get("device", "")).startswith("cuda") or \
+                any(h["kernels"]["nvcc_runs"].values()):
+            bad.append(f"worker {wid} hello {h}")
+        if p["state_bytes"] != 3 * 4 * (hi - lo) or \
+                out["worker_state_bytes"][wid] != p["state_bytes"]:
+            bad.append(f"worker {wid} state bytes {p['state_bytes']}")
+        if p["launches"] != {"flash_fwd": fwd_per_call * calls,
+                             "flash_bwd": bwd_per_call * calls}:
+            bad.append(f"worker {wid} launches {p['launches']} over "
+                       f"{calls} grad calls")
+        for k in got:
+            got[k] += p["launches"][k]
+    if sorted(out["worker_state_bytes"].values()) != want_state:
+        bad.append(f"state bytes {out['worker_state_bytes']} vs {want_state}")
+    if bad:
+        fail(f"4e {where}: " + "; ".join(bad))
+    return got
+
+
+def e4_exact(where, out, ref, steps, params=True):
+    """Bit-equality with the oracle's first ``steps`` losses and, with
+    ``params`` (the oracle ran ``steps`` steps), its final params."""
+    if len(out["losses"]) != steps:
+        fail(f"4e {where}: {len(out['losses'])} of {steps} steps")
+    if out["losses"] != ref["losses"][:steps] or (
+            params and not np.array_equal(out["params"], ref["params"])):
+        dl = max(abs(a - b) for a, b in zip(out["losses"], ref["losses"]))
+        dp = (float(np.abs(out["params"] - ref["params"]).max())
+              if params else None)
+        fail(f"4e {where}: not bit-equal to reference_run on the card "
+             f"(losses {dl}, params {dp})")
+
+
+def e4_wire(co):
+    return {k: co.wire[k] for k in E4_WIRE_KEYS}
+
+
+def e4_ckpt(reg):
+    """(seconds, count) of the checkpoint writes in ``reg``."""
+    _, s, c = reg.get("checkpoint_write_seconds")._unlabeled().snapshot()
+    return s, c
+
+
+def e4_start(cos):
+    """Start coordinators in the background (each start spawns its
+    workers and waits for their hellos); `e4_started` waits for them."""
+    errors = []
+
+    def start(name, co):
+        try:
+            co.start()
+        except Exception as e:   # reported by e4_started
+            errors.append(f"{name}: {type(e).__name__}: {e}")
+    threads = [threading.Thread(target=start, args=(n, co), daemon=True)
+               for n, co in cos.items()]
+    for t in threads:
+        t.start()
+    return cos, threads, errors, time.perf_counter()
+
+
+def e4_started(started):
+    """Wait for `e4_start`'s coordinators; returns the seconds from
+    their start and every worker's spawn-to-hello seconds."""
+    cos, threads, errors, t0 = started
+    for t in threads:
+        t.join(timeout=600)
+    if errors or any(t.is_alive() for t in threads):
+        for co in cos.values():
+            co.kill()
+        fail(f"4e: fleets did not start: {errors}")
+    return time.perf_counter() - t0, {
+        n: [w.hello_s for w in co.workers.values()]
+        for n, co in cos.items()}
+
+
+def e4_thread(fn):
+    """``fn`` on a thread; the box gets its result ("out"), its seconds
+    ("s") or its error ("error")."""
+    box = {}
+
+    def run():
+        try:
+            t0 = time.perf_counter()
+            box["out"] = fn()
+            box["s"] = time.perf_counter() - t0
+        except Exception as e:
+            box["error"] = f"{type(e).__name__}: {e}"
+    t = threading.Thread(target=run, daemon=True)
+    t.start()
+    return t, box
+
+
+def e4_full_config(tmp):
+    from deeplearning4j_tpu_torch.models.transformer import \
+        TransformerConfig
+    from deeplearning4j_tpu_torch.train.elastic import ElasticConfig
+    B, T, _, D, H, V = FLAGSHIP_TRAIN
+    cfg = TransformerConfig(vocab_size=V, d_model=D, n_heads=H,
+                            n_layers=E4_FULL_LAYERS, max_len=T,
+                            dtype="bfloat16", remat=True,
+                            remat_policy="full")
+
+    def ecfg(arm):
+        # the reference's barrier defaults are for a CPU model of a few
+        # thousand parameters; a line of tens of MB a broadcast needs more
+        return ElasticConfig(
+            checkpoint_dir=os.path.join(tmp, "full_" + arm), num_workers=3,
+            microbatches_per_step=E4_FULL_MB, microbatch_size=E4_FULL_ROWS,
+            seq_len=T, learning_rate=1e-3, checkpoint_every=2,
+            step_timeout_s=120.0, barrier_timeout_s=120.0,
+            startup_timeout_s=300.0, drain_timeout_s=120.0)
+    return cfg, ecfg
+
+
+def e4_full(torch, co, reg, rec, ref, ref_s, coord_peak):
+    """4e (b) on a fleet already started: the steady arm (one warm step,
+    then the timed steps), then the kill arm on the same fleet (module
+    docstring), against one oracle ``ref`` of both arms' steps: the
+    steady arm's losses are its first ones, the kill arm's losses and
+    final params all of it. Returns the live workers' launches by
+    kernel."""
+    cfg = co.cfg
+    L, D, V, T = cfg.n_layers, cfg.d_model, cfg.vocab_size, cfg.max_len
+    MB, ROWS, steps = E4_FULL_MB, E4_FULL_ROWS, E4_FULL_STEPS
+    co.run(1)
+    w0, c0 = e4_wire(co), e4_ckpt(reg)
+    t0 = time.perf_counter()
+    steady = co.run(steps)
+    steady_s = time.perf_counter() - t0
+    w1, c1 = e4_wire(co), e4_ckpt(reg)
+    pongs = e4_pongs(co)
+    snap = e4_snapshot(co)
+    launches = e4_worker_gates("(b) steady", snap, steady, pongs, 2 * L, L)
+    e4_exact("(b) steady", steady, ref, steps, params=False)
+    timed = steps - 1
+    ms = steady_s / timed * 1e3
+    tok_s = MB * ROWS * T * timed / steady_s
+    p_mat = L * 12 * D * D + D * V
+    flops_tok = 3 * (2 * p_mat + 2 * L * T * D)
+    n = steady["n_params"]
+    e4_line(part="b", arm="steady", config=dict(
+        vocab_size=V, d_model=D, n_heads=cfg.n_heads, n_layers=L, seq=T,
+        dtype="bfloat16", remat="full"), n_layers=L,
+        n_layers_flagship=FLAGSHIP_TRAIN[2], n_params=n, workers=3,
+        microbatches=MB, microbatch_rows=ROWS, global_batch=MB * ROWS,
+        timed_steps=timed, ms_per_step=ms, fleet_tokens_per_s=tok_s,
+        model_flops_per_token=flops_tok,
+        bf16_peak_share=tok_s * flops_tok / PEAK_FLOPS["bfloat16"],
+        wire_per_step={k: (w1[k] - w0[k]) / timed for k in E4_WIRE_KEYS},
+        checkpoint_s=(c1[0] - c0[0]) / max(1, c1[1] - c0[1]),
+        checkpoints_timed=c1[1] - c0[1], losses=steady["losses"],
+        bit_equal_reference=True,
+        worker_state_bytes=steady["worker_state_bytes"],
+        replicated_state_bytes=3 * 4 * n,
+        worker_peak_bytes={w: p["peak_bytes"] for w, p in pongs.items()},
+        coordinator_peak_bytes=coord_peak, reference_s=ref_s,
+        worker_hello_s={w: h["startup_s"] for w, h in
+                        snap["hellos"].items()},
+        worker_launches=launches)
+    if not (np.all(np.isfinite(steady["losses"]))
+            and steady["losses"][-1] < steady["losses"][0]):
+        fail(f"4e (b): losses {steady['losses']} not finite and falling")
+    # kill, on the same fleet: worker 1 SIGKILLed two steps into the
+    # arm, a replacement joins the step after, five steps
+    t0 = time.perf_counter()
+    kill = co.run(2 * steps)
+    kill_s = time.perf_counter() - t0
+    pongs = e4_pongs(co)
+    got = e4_worker_gates("(b) kill", e4_snapshot(co), kill, pongs, 2 * L,
+                          L)
+    e4_exact("(b) steady, kill", kill, ref, 2 * steps)
+    # the workers' counts are cumulative: the kill arm's gate stands for
+    # both arms of the live workers
+    launches = got
+    acts = e4_acts(rec)
+    resize_ms, t_kill = None, None
+    for e in rec.recent(kind="elastic"):
+        act = e.data.get("action")
+        if act == "kill_detected" and t_kill is None:
+            t_kill = e.ts
+        elif act == "resize" and t_kill is not None:
+            resize_ms = (e.ts - t_kill) * 1e3
+            break
+    if kill["replayed_steps"] < 1 or "kill_detected" not in acts:
+        fail(f"4e (b) kill: replayed {kill['replayed_steps']}, {acts}")
+    s, c = e4_ckpt(reg)
+    s, c = s - c1[0], c - c1[1]
+    e4_line(part="b", arm="kill", steps=steps, n_layers=L, run_s=kill_s,
+            recovery_overhead_s=kill_s - steps * steady_s / timed,
+            resize_barrier_ms=resize_ms,
+            replayed_steps=kill["replayed_steps"], resizes=kill["resizes"],
+            actions=acts, losses=kill["losses"], bit_equal_reference=True,
+            worker_state_bytes=kill["worker_state_bytes"],
+            worker_peak_bytes={w: p["peak_bytes"] for w, p in pongs.items()},
+            worker_launches=got, checkpoint_s_mean=s / max(1, c),
+            checkpoints=c)
+    return launches
+
+
+def e4_narrow(torch, churn_co, loose_co, recs, ref, cpu, ref_s,
+              before_loose):
+    """4e (a) on fleets already started: the kill / shrink-grow / hang
+    trajectory; then the steady arm's (result, seconds) from
+    ``before_loose()`` (a whole `ElasticTrainingMaster.fit`, run while
+    the fleets started); then the loose arm (module docstring). Returns
+    the live workers' launches by kernel."""
+    from deeplearning4j_tpu_torch.parallel.fsdp import zero1_partition
+    L, steps = churn_co.cfg.n_layers, E4_CHURN_STEPS
+    launches = {"flash_fwd": 0, "flash_bwd": 0}
+
+    def report(name, out, rec, snap, pongs, arm_s, n, **extra):
+        acts = e4_acts(rec)
+        if len(out["losses"]) != n or not np.all(np.isfinite(
+                out["losses"])):
+            fail(f"4e (a) {name}: losses {out['losses']}")
+        worker = None
+        if snap is not None:
+            worker = e4_worker_gates(f"(a) {name}", snap, out, pongs, L, L)
+            for k in launches:
+                launches[k] += worker[k]
+        elif sorted(out["worker_state_bytes"].values()) != sorted(
+                3 * 4 * (hi - lo) for lo, hi in zero1_partition(
+                    out["n_params"], out["workers"])):
+            fail(f"4e (a) {name}: state bytes {out['worker_state_bytes']}")
+        e4_line(part="a", arm=name, steps=n, losses=out["losses"],
+                run_s=out["elapsed_s"], arm_s=arm_s,
+                replayed_steps=out["replayed_steps"],
+                resizes=out["resizes"], workers=out["workers"],
+                actions=acts, worker_state_bytes=out["worker_state_bytes"],
+                worker_launches=worker,
+                hellos=({w: dict(device=h["device"],
+                                 jax_loaded=h["jax_loaded"],
+                                 nvcc_runs=h["kernels"]["nvcc_runs"])
+                         for w, h in snap["hellos"].items()}
+                        if snap else None), **extra)
+        return acts
+
+    def churn(co):
+        co.run(2)
+        co.remove_worker(2)
+        co.run(5)
+        if sorted(co.workers) != [0]:
+            raise RuntimeError(f"shrunk to {sorted(co.workers)}")
+        co.add_worker(3)
+        return co.run(steps)
+
+    def drive(co, fn):
+        t0 = time.perf_counter()
+        with co:
+            out = fn(co)
+            return out, e4_snapshot(co), e4_pongs(co), \
+                time.perf_counter() - t0
+    out, snap, pongs, arm_s = drive(churn_co, churn)
+    e4_exact("(a) kill, shrink-grow, hang", out, ref, steps)
+    rec = recs["churn"]
+    acts = report("kill_shrink_grow_hang", out, rec, snap, pongs, arm_s,
+                  steps, bit_equal_reference=True,
+                  step_barrier_s=churn_co.ecfg.step_timeout_s)
+    reasons = [e.data.get("reason") for e in rec.recent(kind="elastic")
+               if e.data.get("action") == "evict"]
+    if not (out["replayed_steps"] >= 2 and acts.count("kill_detected") >= 3
+            and reasons == ["leave", "stale_bound"]
+            and acts.count("replay") >= 2 and out["workers"] == 1
+            and "loose_enter" in acts):
+        fail(f"4e (a) churn: replayed {out['replayed_steps']}, "
+             f"{out['workers']} workers, evictions {reasons}, {acts}")
+    steady = before_loose()
+    e4_exact("(a) steady", steady[0], ref, steps)
+    report("steady", steady[0], recs["a_steady"], None, None, steady[1],
+           steps, bit_equal_reference=True)
+    err = max(abs(a - b) for a, b in zip(steady[0]["losses"],
+                                          cpu["losses"]))
+    if not err <= 1e-4:
+        fail(f"4e (a): steady losses {err} from the CPU reference_run")
+    out, snap, pongs, arm_s = drive(loose_co, lambda co: co.run(8))
+    acts = report("loose", out, recs["loose"], snap, pongs, arm_s, 8,
+                  bit_equal_reference=False,
+                  step_barrier_s=loose_co.ecfg.step_timeout_s,
+                  slowdown_s=E4_LOOSE_SLOW_S)
+    if "loose_enter" not in acts or "resync" not in acts[
+            acts.index("loose_enter"):] or out["workers"] != 3:
+        fail(f"4e (a) loose: {acts}, {out['workers']} workers")
+    e4_line(part="a", run="summary", config=E4_NARROW, workers=3,
+            microbatches=6, microbatch_rows=4, steps=steps,
+            reference_s=ref_s, steady_vs_cpu_loss_max_abs_err=err,
+            loss_tol=1e-4, launches=launches)
+    return launches
+
+
+def phase_elastic_training(torch, dev):
+    """4e (module docstring): elastic ZeRO-1 training over worker
+    processes on the card. Every fleet starts at once, the steady narrow
+    arm's whole fit among them; then (b) and (a) run one arm at a time.
+    Returns the workers' flash launches."""
+    import shutil
+    import tempfile
+    from deeplearning4j_tpu_torch.models.transformer import \
+        TransformerConfig
+    from deeplearning4j_tpu_torch.observability.events import \
+        FlightRecorder
+    from deeplearning4j_tpu_torch.observability.metrics import \
+        MetricsRegistry
+    from deeplearning4j_tpu_torch.parallel.failure import \
+        ElasticFaultInjector
+    from deeplearning4j_tpu_torch.scaleout.training_master import \
+        ElasticTrainingMaster
+    from deeplearning4j_tpu_torch.train.elastic import (ElasticConfig,
+                                                        ElasticCoordinator,
+                                                        reference_run,
+                                                        set_deterministic)
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    tmp = tempfile.mkdtemp(prefix="dl4j-4e-")
+    # the coordinators' own gradient calls (the oracle, a loose worker's
+    # microbatches) are deterministic too; on for the phase so that the
+    # coordinators' threads never toggle the process-wide flag under
+    # each other
+    prev = torch.are_deterministic_algorithms_enabled()
+    set_deterministic(True)
+    regs = {k: MetricsRegistry()
+            for k in ("full", "a_steady", "churn", "loose")}
+    recs = {k: FlightRecorder(capacity=512) for k in regs}
+    cos = {}
+    try:
+        fcfg, fecfg = e4_full_config(tmp)
+        ncfg = TransformerConfig(**E4_NARROW)
+        nbase = dict(num_workers=3, microbatches_per_step=6,
+                     microbatch_size=4, seq_len=32, checkpoint_every=2)
+
+        def necfg(arm, **kw):
+            return ElasticConfig(checkpoint_dir=os.path.join(tmp, arm),
+                                 **dict(nbase, **kw))
+        cos = {
+            # (b): steady for 5 steps, then the kill arm on the same
+            # fleet: worker 1 killed at step 7, worker 3 joining at 8
+            "full": ElasticCoordinator(
+                fcfg, fecfg("full"), registry=regs["full"],
+                recorder=recs["full"],
+                fault_injector=ElasticFaultInjector(
+                    kill_at={E4_FULL_STEPS + 2: 1},
+                    join_at={E4_FULL_STEPS + 3: 3})),
+            # worker 2 leaves at step 2 (remove_worker), worker 1 is
+            # killed at 3, worker 3 joins at 5 (add_worker: the kill's
+            # replacement and the grow); worker 0 SIGSTOPped at 12,
+            # loose at its first missed barrier (far above a step) and
+            # evicted past a stale bound of 2
+            "churn": ElasticCoordinator(
+                ncfg, necfg("churn", step_timeout_s=E4_CHURN_BARRIER_S,
+                            sync_every=1, stale_bound=2),
+                registry=regs["churn"], recorder=recs["churn"],
+                fault_injector=ElasticFaultInjector(
+                    kill_at={3: 1}, hang_at={12: 0})),
+            # worker 1 slowed for step 2: JAX's slowdown / barrier ratio
+            "loose": ElasticCoordinator(
+                ncfg, necfg("loose", step_timeout_s=E4_LOOSE_BARRIER_S,
+                            sync_every=1, stale_bound=30),
+                registry=regs["loose"], recorder=recs["loose"],
+                fault_injector=ElasticFaultInjector(
+                    slow_at={2: (1, E4_LOOSE_SLOW_S), 3: (1, 0.0)})),
+        }
+        tm = ElasticTrainingMaster(
+            checkpoint_dir=os.path.join(tmp, "a_steady"), workers=3,
+            microbatches_per_step=6, microbatch_size=4, seq_len=32,
+            checkpoint_every=2, recorder=recs["a_steady"],
+            registry=regs["a_steady"])
+        # the narrow fleets and the steady fit start at once, the oracles
+        # beside them
+        t0 = time.perf_counter()
+        narrow_start = e4_start({k: cos[k] for k in ("churn", "loose")})
+        fit_thread, fit_box = e4_thread(
+            lambda: tm.fit(ncfg, E4_CHURN_STEPS))
+        torch.cuda.reset_peak_memory_stats()
+        nref = reference_run(ncfg, necfg("ref"), E4_CHURN_STEPS)
+        nref_s = time.perf_counter() - t0
+        cpu = reference_run(ncfg, necfg("ref_cpu"), 8, device="cpu")
+        t1 = time.perf_counter()
+        fref = reference_run(fcfg, fecfg("ref"), 2 * E4_FULL_STEPS)
+        fref_s = time.perf_counter() - t1
+        coord_peak = torch.cuda.max_memory_allocated()
+        narrow_boot_s, narrow_hello = e4_started(narrow_start)
+        # the flagship fleet starts during the churn arm (whose barriers
+        # are far above a step); the loose arm and (b) run alone
+        full_start = e4_start({"full": cos["full"]})
+
+        def before_loose():
+            fit_thread.join(timeout=600)
+            if "out" not in fit_box:
+                fail(f"4e (a) steady: {fit_box.get('error', 'timed out')}")
+            return fit_box["out"], fit_box["s"]
+        t1 = time.perf_counter()
+        narrow = e4_narrow(torch, cos["churn"], cos["loose"], recs, nref,
+                           cpu, nref_s, before_loose)
+        narrow_s = time.perf_counter() - t1
+        full_boot_s, full_hello = e4_started(full_start)
+        e4_line(run="starts", narrow_fleets_s=narrow_boot_s,
+                full_fleet_s=full_boot_s,
+                hello_s=dict(narrow_hello, **full_hello),
+                full_fleet_started_beside="the churn arm")
+        t1 = time.perf_counter()
+        with cos["full"]:
+            launches = e4_full(torch, cos["full"], regs["full"],
+                               recs["full"], fref, fref_s, coord_peak)
+        full_s = time.perf_counter() - t1
+    finally:
+        set_deterministic(prev)
+        for co in cos.values():
+            co.close()
+        shutil.rmtree(tmp, ignore_errors=True)
+    for k in launches:
+        launches[k] += narrow[k]
+    e4_line(run="summary", narrow_s=narrow_s, full_s=full_s,
+            phase_s=time.perf_counter() - t_phase, launches=launches)
     return launches
 
 
@@ -9084,6 +9723,9 @@ def main() -> int:
     if len(sys.argv) == 4 and sys.argv[1] == K3_CHILD:
         return phase_3k_child(sys.argv[2], sys.argv[3])
     t_run = time.perf_counter()
+    # deterministic cuBLAS GEMMs (phase 4e's workers and its in-process
+    # oracle must give the same bits), set before the first GEMM
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     try:
         import torch
     except ImportError:
@@ -9114,9 +9756,14 @@ def main() -> int:
     _build.build_all()
     line(dict(phase=0, build_s=time.perf_counter() - t0,
               torch=torch.__version__, cuda=torch.version.cuda))
-    for name in ("flash_fwd", "flash_bwd", "flash_bwd_packed2",
-                 "decode_attention", "decode_window", "lstm_scan"):
-        build_report(name)
+    # the six libraries' SASS read at once (one cuobjdump each)
+    from concurrent.futures import ThreadPoolExecutor
+    names = ("flash_fwd", "flash_bwd", "flash_bwd_packed2",
+             "decode_attention", "decode_window", "lstm_scan")
+    with ThreadPoolExecutor(len(names)) as pool:
+        mmas = list(pool.map(_build.sass_mma_counts, names))
+    for name, mma in zip(names, mmas):
+        build_report(name, mma)
     install_zero_fault_gate()
     only = {"3h": phase_observability_full_width,
             "3i": phase_faults_full_width,
@@ -9126,10 +9773,12 @@ def main() -> int:
             "5d": phase_dsl_cnn,
             "5e": phase_dag_runtime,
             "5f": phase_keras_import,
-            "4d": phase_parallel_training}
+            "4d": phase_parallel_training,
+            "4e": phase_elastic_training}
     if len(sys.argv) == 3 and sys.argv[1] == "--only" and \
             sys.argv[2] in only:
-        # a development run of phase 3h, 3i, 3j, 3k, 3l, 4d, 5d, 5e or 5f
+        # a development run of phase 3h, 3i, 3j, 3k, 3l, 4d, 4e, 5d, 5e or
+        # 5f
         # alone (no kernels line, no result); a full run takes no arguments
         line(dict(phase=sys.argv[2], launches=only[sys.argv[2]](
             torch, dev), wall_s=time.perf_counter() - t_run,
@@ -9137,6 +9786,15 @@ def main() -> int:
         check_zero_fault_gate("end of the run")
         return 0
 
+    # seconds from the start at each block's end (the wall line)
+    marks, threads = {}, {}
+
+    def block_end(name):
+        marks[name] = time.perf_counter() - t_run
+        threads[name] = sorted(t.name for t in threading.enumerate()
+                               if t is not threading.main_thread())
+        settle()
+    block_end("build")
     measured = phase_kernels(torch, dev)
     measured["flash_bwd"] = phase_backward_kernel(torch, dev)
     measured["decode_window"] = phase_window_kernel(torch, dev)
@@ -9155,6 +9813,7 @@ def main() -> int:
     phase_moe_f32_card_vs_cpu(torch, dev)
     new_phases["2f"] = time.perf_counter() - t_new
     measured["lstm_scan"] = phase_lstm_kernel(torch, dev)
+    block_end("1-2f")
     # phases 3-3d run the synchronous loop; 3e the pipelined one (the
     # default) on their traffic, against their results
     launches, contiguous_ms_per_step, sync_plain = phase_full_width(torch,
@@ -9175,18 +9834,23 @@ def main() -> int:
     moe_launches = phase_moe_full_width(
         torch, dev, {"plain": sync_plain, **sync_paged})
     new_phases["3g"] = time.perf_counter() - t_new
+    block_end("3-3g")
     t_obs = time.perf_counter()
     obs_launches = phase_observability_full_width(torch, dev)
     t_obs = time.perf_counter() - t_obs
+    settle()
     t_fault = time.perf_counter()
     fault_launches = phase_faults_full_width(torch, dev)
     t_fault = time.perf_counter() - t_fault
+    settle()
     t_ctl = time.perf_counter()
     ctl_launches = phase_engine_control_full_width(torch, dev)
     t_ctl = time.perf_counter() - t_ctl
+    settle()
     t_k3 = time.perf_counter()
     k3_launches = phase_cache_handoff_full_width(torch, dev)
     t_k3 = time.perf_counter() - t_k3
+    settle()
     t_l3 = time.perf_counter()
     l3_launches = phase_fleet_full_width(torch, dev)
     t_l3 = time.perf_counter() - t_l3
@@ -9195,6 +9859,7 @@ def main() -> int:
                  k3_launches, l3_launches):
         for name, n in part.items():
             launches[name] = launches.get(name, 0) + n
+    block_end("3h-3l")
     phase_train_f32_card_vs_cpu(torch, dev)
     for name, n in phase_train_full_width(torch, dev).items():
         launches[name] = launches.get(name, 0) + n
@@ -9208,8 +9873,15 @@ def main() -> int:
     for name, n in phase_parallel_training(torch, dev).items():
         launches[name] = launches.get(name, 0) + n
     t_4d = time.perf_counter() - t_4d
+    settle()
+    t_4e = time.perf_counter()
+    for name, n in phase_elastic_training(torch, dev).items():
+        launches[name] = launches.get(name, 0) + n
+    t_4e = time.perf_counter() - t_4e
+    block_end("4a-4e")
     phase_lstm_f32_card_vs_cpu(torch, dev)
     launches.update(phase_lstm_full_width(torch, dev))
+    block_end("5a-5c")
     t_5d = time.perf_counter()
     for name, n in phase_dsl_cnn(torch, dev).items():
         launches[name] = launches.get(name, 0) + n
@@ -9222,7 +9894,9 @@ def main() -> int:
     for name, n in phase_keras_import(torch, dev).items():
         launches[name] = launches.get(name, 0) + n
     t_5f = time.perf_counter() - t_5f
+    block_end("5d-5f")
     launches.update(phase_experiments(torch, dev))
+    block_end("6")
 
     sources = {
         "flash_fwd": ("deeplearning4j_tpu_torch/csrc/flash_fwd.cu",
@@ -9288,7 +9962,8 @@ def main() -> int:
               engine_control_phase_s=t_ctl, cache_handoff_phase_s=t_k3,
               fleet_phase_s=t_l3, dsl_cnn_phase_s=t_5d,
               dag_phase_s=t_5e, keras_import_phase_s=t_5f,
-              parallel_phase_s=t_4d))
+              parallel_phase_s=t_4d, elastic_phase_s=t_4e,
+              block_ends_s=marks, threads_at_block_ends=threads))
     print(card, flush=True)
     line({"kernels": kernels})
     line({"ok": True, "device": {"platform": "gpu",

@@ -16,7 +16,9 @@ profiler; `util.flops`' card peaks), `models.transformer.TransformerLM`
 with its loss, the Adam train step on one device and its training
 parallelism on `torch.distributed` (`parallel`: the launcher and mesh,
 data, tensor, pipeline, sequence and expert parallelism, FSDP,
-ParallelWrapper), the config DSL's sequential
+ParallelWrapper), elastic ZeRO-1 training over worker processes
+(`train.elastic`) with the Spark-style facades (`scaleout`) and the
+stats storage (`ui.storage`), the config DSL's sequential
 `nn.multilayer.MultiLayerNetwork` with its layer families (dense,
 embedding, convolution and pooling, normalization, utility, output and
 loss, the DSL's attention layers, the LSTMs), the LeNet, VGG16, text-CNN

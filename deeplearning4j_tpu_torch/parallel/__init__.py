@@ -11,8 +11,9 @@ parallelism (`megatron`).
 
 The names below are the reference's exports, imported on first use, so
 importing a submodule (the serving programs, the fault injectors) loads
-none of the rest. Elastic training (the reference's train/elastic.py
-and scaleout/) is ROADMAP item 14b.
+none of the rest. Elastic training over worker processes is
+`train.elastic` (its fault injector `failure.ElasticFaultInjector`); the
+Spark-style facades over these are `scaleout`.
 """
 import importlib
 

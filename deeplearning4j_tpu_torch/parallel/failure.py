@@ -33,8 +33,11 @@ async, checkpoints; restore and resume; the injector's crash, NaN and
 preemption knobs; rollback with LR back-off through the guard; the
 consecutive-failure budget), under the reference's series names. A
 failed step on the card surfaces as a RuntimeError, as on the CPU, and
-is the only error the trainer recovers from. Not ported yet:
-`ElasticFaultInjector` (ROADMAP queue A, item 14).
+is the only error the trainer recovers from.
+
+`ElasticFaultInjector` (reference :447-523) is copied too: the elastic
+coordinator's one-shot kill, hang, slow and join knobs
+(`train.elastic.ElasticCoordinator`).
 """
 from __future__ import annotations
 
@@ -409,6 +412,80 @@ class FleetFaultInjector:
             self.probe_failures_injected += 1
             return True
         return False
+
+
+class ElasticFaultInjector:
+    """Elastic-training deterministic fault injection (reference
+    :447-523), the training analog of `FleetFaultInjector`: the elastic
+    coordinator (`train/elastic.py`) consults it at the start of every
+    global step, so membership churn that would need real crashed hosts
+    replays deterministically.
+
+    All knobs are keyed by GLOBAL step index and fire one-shot: after a
+    lossy resize rewinds the step counter, replayed steps do not re-fire
+    an already-consumed injection.
+
+    - ``kill_at``: ``{step: worker_id}`` — the worker takes a real
+      SIGKILL at the start of that step; the coordinator resizes from
+      the last published checksummed checkpoint and replays the data
+      cursor, bit-identical to an uninterrupted run.
+    - ``hang_at``: ``{step: worker_id}`` — the worker is SIGSTOPped:
+      alive to the OS, silent on the pipe. The straggler path escalates
+      (loose sync) and eventually evicts it.
+    - ``slow_at``: ``{step: (worker_id, seconds)}`` — from that step
+      on, the worker sleeps ``seconds`` before answering each command
+      (worker-side, over the pipe). ``seconds=0`` clears the slowdown.
+    - ``join_at``: ``{step: worker_id}`` — a new worker (or a killed
+      one's replacement, same id) is spawned and adopted at that step's
+      resize barrier.
+    """
+
+    def __init__(self, kill_at: Optional[dict] = None,
+                 hang_at: Optional[dict] = None,
+                 slow_at: Optional[dict] = None,
+                 join_at: Optional[dict] = None):
+        self.kill_at = {int(k): int(v)
+                        for k, v in (kill_at or {}).items()}
+        self.hang_at = {int(k): int(v)
+                        for k, v in (hang_at or {}).items()}
+        self.slow_at = {int(k): (int(v[0]), float(v[1]))
+                        for k, v in (slow_at or {}).items()}
+        self.join_at = {int(k): int(v)
+                        for k, v in (join_at or {}).items()}
+        self.kills_injected = 0
+        self.hangs_injected = 0
+        self.slows_injected = 0
+        self.joins_injected = 0
+
+    def check_kill(self, step: int) -> Optional[int]:
+        """One-shot: the worker id to SIGKILL at ``step``, else None."""
+        wid = self.kill_at.pop(int(step), None)
+        if wid is not None:
+            self.kills_injected += 1
+        return wid
+
+    def check_hang(self, step: int) -> Optional[int]:
+        """One-shot: the worker id to SIGSTOP at ``step``, else None."""
+        wid = self.hang_at.pop(int(step), None)
+        if wid is not None:
+            self.hangs_injected += 1
+        return wid
+
+    def check_slow(self, step: int) -> Optional[tuple]:
+        """One-shot: ``(worker_id, seconds)`` per-command slowdown to
+        apply from ``step`` on (0 clears), else None."""
+        v = self.slow_at.pop(int(step), None)
+        if v is not None:
+            self.slows_injected += 1
+        return v
+
+    def check_join(self, step: int) -> Optional[int]:
+        """One-shot: the worker id to spawn+adopt at ``step``, else
+        None."""
+        wid = self.join_at.pop(int(step), None)
+        if wid is not None:
+            self.joins_injected += 1
+        return wid
 
 
 @dataclass(frozen=True)

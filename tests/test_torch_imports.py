@@ -278,3 +278,67 @@ def test_parallel_entry_points_raise_without_cuda(monkeypatch):
         fsdp.make_fsdp_train_step(TransformerConfig())
     assert mesh.make_mesh(mesh.MeshSpec(), device="cpu").device.type == \
         "cpu"
+
+
+ELASTIC = ("deeplearning4j_tpu_torch.train.elastic",
+           "deeplearning4j_tpu_torch.train.elastic_worker",
+           "deeplearning4j_tpu_torch.ui",
+           "deeplearning4j_tpu_torch.ui.storage",
+           "deeplearning4j_tpu_torch.scaleout",
+           "deeplearning4j_tpu_torch.scaleout.util")
+
+
+def test_elastic_and_scaleout_modules_are_checked():
+    """The elastic coordinator, its worker, the stats storage and every
+    scaleout module are among the files the import rule parses."""
+    names = {str(p.relative_to(ROOT)) for p in _port_files()}
+    for rel in ("train/elastic.py", "train/elastic_worker.py",
+                "ui/storage.py", "scaleout/stats.py", "scaleout/util.py",
+                "scaleout/training_master.py", "scaleout/listeners.py",
+                "scaleout/parallel_trainer.py", "scaleout/__init__.py"):
+        assert f"deeplearning4j_tpu_torch/{rel}" in names, rel
+
+
+def test_elastic_and_scaleout_load_no_jax():
+    """Importing the elastic coordinator, the worker module, the stats
+    storage and the scaleout facades (and train's lazy exports) in a
+    fresh interpreter loads no jax and nothing of the JAX package."""
+    import subprocess
+    import sys
+    code = ("import sys\n"
+            + "".join(f"import {m}\n" for m in ELASTIC)
+            + "from deeplearning4j_tpu_torch.train import (ElasticConfig, "
+              "ElasticCoordinator, reference_run)\n"
+              "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+              "('jax', 'jaxlib', 'deeplearning4j_tpu'))\n"
+              "print(bad)\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"
+
+
+def test_elastic_entry_points_raise_without_cuda(monkeypatch, tmp_path):
+    """The coordinator, the oracle, the grad function and the elastic
+    TrainingMaster run on CUDA unless the caller asks for the CPU; no
+    worker is started when the device cannot be had."""
+    from deeplearning4j_tpu_torch.models.transformer import \
+        TransformerConfig
+    from deeplearning4j_tpu_torch.scaleout.training_master import \
+        ElasticTrainingMaster
+    from deeplearning4j_tpu_torch.train import elastic
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = TransformerConfig(vocab_size=16, d_model=16, n_heads=2,
+                            n_layers=1, max_len=16)
+    ecfg = elastic.ElasticConfig(checkpoint_dir=str(tmp_path / "ck"))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        elastic.ElasticCoordinator(cfg, ecfg)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        elastic.reference_run(cfg, ecfg, 1)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        elastic.make_grad_fn(cfg)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ElasticTrainingMaster(checkpoint_dir=str(tmp_path / "tm")).fit(
+            cfg, 1)
+    co = elastic.ElasticCoordinator(cfg, ecfg, device="cpu")
+    assert co.device.type == "cpu" and not co.workers

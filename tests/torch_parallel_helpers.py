@@ -1,6 +1,7 @@
 """Rank bodies of the port's parallel tests (tests/test_torch_multihost.py,
 test_torch_seq_parallel.py, test_torch_megatron.py,
-test_torch_parallel_fsdp.py, test_torch_parallel_wrapper.py).
+test_torch_parallel_fsdp.py, test_torch_parallel_wrapper.py,
+test_torch_scaleout.py).
 
 `parallel.multihost.MultiHostLauncher` starts each test module's ranks
 once and runs one of these functions on every rank; the function runs
@@ -367,4 +368,97 @@ def wrapper_job(data, workers, init, cli=None):
               "--epochs", "8", "--model-output", cli["out"],
               "--device", "cpu"])
         dist.barrier()
+    return out
+
+
+# ---------------------------------------------------------------------------
+# scaleout facades
+# ---------------------------------------------------------------------------
+
+def scaleout_conf(seed=7):
+    """tests/test_scaleout.py's `_make_net` configuration."""
+    from deeplearning4j_tpu_torch.nn.conf.configuration import \
+        NeuralNetConfiguration
+    from deeplearning4j_tpu_torch.nn.layers.feedforward import DenseLayer
+    from deeplearning4j_tpu_torch.nn.layers.output import OutputLayer
+    return NeuralNetConfiguration(
+        seed=seed, updater="sgd", learning_rate=0.1, dropout=0.0).list(
+        DenseLayer(n_in=8, n_out=16, activation="tanh"),
+        OutputLayer(n_out=3, activation="softmax", loss_function="mcxent"))
+
+
+def scaleout_job(data, init, workers):
+    """Everything tests/test_torch_scaleout.py asks of the ranks, each
+    network from the JAX weights in ``init`` (keyed by seed): the
+    parameter-averaging fit on arrays, on an iterator with the phase
+    stats, and the two early-stopping trainers. The global batches are
+    the reference test's (32 and 48 rows) over ``workers`` ranks."""
+    _one_thread()
+    import torch.distributed as dist
+    from deeplearning4j_tpu_torch.datasets.iterators import (
+        DataSet, ListDataSetIterator)
+    from deeplearning4j_tpu_torch.earlystopping.config import \
+        EarlyStoppingConfiguration
+    from deeplearning4j_tpu_torch.earlystopping.scorecalc import \
+        DataSetLossCalculator
+    from deeplearning4j_tpu_torch.earlystopping.termination import \
+        MaxEpochsTerminationCondition
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+    from deeplearning4j_tpu_torch.scaleout import (
+        EarlyStoppingParallelTrainer, ParameterAveragingTrainingMaster,
+        SparkDl4jMultiLayer, SparkEarlyStoppingTrainer)
+
+    def net_of(seed):
+        net = MultiLayerNetwork(scaleout_conf(seed), device="cpu").init()
+        net.set_params_from_numpy(init[seed])
+        return net
+
+    def tm(global_batch, stats=False):
+        return (ParameterAveragingTrainingMaster.Builder(
+            batch_size_per_worker=global_batch // workers)
+            .workers(workers).collect_training_stats(stats).build())
+
+    out = {"rank": dist.get_rank()}
+    x, y = data["x64"], data["y64"]
+    net = net_of(7)
+    SparkDl4jMultiLayer(net, tm(32)).fit(x, y)
+    out["sharded"] = _np(net.params_flat())
+
+    x96, y96 = data["x96"], data["y96"]
+    batches = [DataSet(x96[i:i + 48], y96[i:i + 48]) for i in (0, 48)]
+    net = net_of(1)
+    sp = SparkDl4jMultiLayer(net, tm(48, stats=True))
+    sp.fit(ListDataSetIterator(batches, 48))
+    out["iterator"] = {"params": _np(net.params_flat()),
+                       "iterations": net.iteration_count,
+                       "stats": sp.stats.as_dict(),
+                       "keys": sp.stats.get_keys(),
+                       "workers": sp.pw.workers}
+
+    xe, ye = data["x64e"], data["y64e"]
+    net = net_of(9)
+    cfg = EarlyStoppingConfiguration(
+        epoch_termination_conditions=[MaxEpochsTerminationCondition(3)],
+        score_calculator=None)
+    res = EarlyStoppingParallelTrainer(
+        cfg, net, ListDataSetIterator([DataSet(xe, ye)], 32),
+        workers=workers).fit()
+    out["es_parallel"] = {"epochs": res.total_epochs,
+                          "iterations": net.iteration_count,
+                          "params": _np(net.params_flat())}
+
+    net = net_of(2)
+    ebatches = [DataSet(xe[i:i + 32], ye[i:i + 32]) for i in (0, 32)]
+    conf = EarlyStoppingConfiguration(
+        epoch_termination_conditions=[MaxEpochsTerminationCondition(3)],
+        score_calculator=DataSetLossCalculator(
+            ListDataSetIterator(ebatches, 32)))
+    res = SparkEarlyStoppingTrainer(
+        conf, SparkDl4jMultiLayer(net, tm(32)),
+        ListDataSetIterator(ebatches, 32)).fit()
+    out["es_spark"] = {"epochs": res.total_epochs,
+                       "scores": dict(res.score_vs_epoch),
+                       "best_score": float(res.best_model_score),
+                       "has_best": res.best_model is not None,
+                       "params": _np(net.params_flat())}
     return out
